@@ -1,0 +1,49 @@
+"""Index conventions for flat vectors (the port's ``repro.core.bigvec``).
+
+The reference carries selection indices as uint32, because J may exceed
+the int32 range. torch's uint32 support is partial (no sort, no
+searchsorted), so the port computes with int64 and carries indices as
+4-byte values on the wire and in the state: an int32 tensor holding the
+uint32 bits, so a (value, index) pair stays 8 bytes as in the reference.
+The uint32 sentinel 0xFFFFFFFF (an empty candidate slot) maps to
+4294967295 in int64 and to -1 in the int32 view.
+"""
+from __future__ import annotations
+
+import torch
+
+U32_SPAN = 1 << 32
+INVALID_IDX = 0xFFFFFFFF
+
+
+def as_index(idx: torch.Tensor) -> torch.Tensor:
+    """int64 index tensor from int64 or an int32 view of uint32 bits."""
+    if idx.dtype == torch.int32:
+        return idx.to(torch.int64) & 0xFFFFFFFF
+    if idx.dtype != torch.int64:
+        raise TypeError(f"index dtype {idx.dtype} (int32 bits | int64)")
+    return idx
+
+
+def to_u32_bits(idx: torch.Tensor) -> torch.Tensor:
+    """int64 indices in [0, 2^32) -> int32 tensor holding the uint32 bits."""
+    return torch.where(idx >= (1 << 31), idx - U32_SPAN, idx).to(torch.int32)
+
+
+def gather(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return a[as_index(idx)]
+
+
+def scatter_set_(a: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """In place ``a[idx] = vals``; indices must be distinct unless every
+    duplicate writes the same value."""
+    idx = as_index(idx)
+    if isinstance(vals, torch.Tensor):
+        return a.index_put_((idx,), vals)
+    return a.index_fill_(0, idx, vals)
+
+
+def scatter_add_(a: torch.Tensor, idx: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """In place ``a[idx] += vals``."""
+    return a.index_add_(0, as_index(idx), vals)

@@ -1,0 +1,73 @@
+"""Tree <-> flat-vector utilities (the port's ``repro.core.flatten``).
+
+A parameter tree is a nested dict of tensors, laid out as the reference
+lays out its pytree. Leaves are ordered as ``jax.tree_util`` orders them:
+dict keys sorted at every level. So flat index i names the same
+parameter element in both packages, which every parity test relies on.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tree_items(tree, prefix=()) -> list:
+    """[(path, leaf)] in jax.tree_util leaf order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        out = []
+        for key in sorted(tree):
+            out.extend(tree_items(tree[key], prefix + (key,)))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def tree_from_items(items) -> dict:
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_size(tree) -> int:
+    return sum(int(leaf.numel()) for leaf in tree_leaves(tree))
+
+
+class TreeFlattener:
+    """Flattens a parameter tree (or its leaf list, in the same order) to
+    one fp32 vector and back. Built once from an example tree."""
+
+    def __init__(self, example_tree):
+        items = tree_items(example_tree)
+        self.paths = [path for path, _ in items]
+        self.shapes = [tuple(leaf.shape) for _, leaf in items]
+        self.sizes = [int(leaf.numel()) for _, leaf in items]
+        self.offsets = []
+        off = 0
+        for size in self.sizes:
+            self.offsets.append(off)
+            off += size
+        self.total = off
+
+    def flatten(self, tree_or_leaves) -> torch.Tensor:
+        leaves = (tree_or_leaves if isinstance(tree_or_leaves, (list, tuple))
+                  else tree_leaves(tree_or_leaves))
+        return torch.cat([leaf.reshape(-1).float() for leaf in leaves])
+
+    def unflatten(self, vec: torch.Tensor) -> dict:
+        """Tree of VIEWS into ``vec`` (no copy)."""
+        return tree_from_items(
+            (path, vec[off:off + size].view(shape))
+            for path, off, size, shape in zip(self.paths, self.offsets,
+                                              self.sizes, self.shapes))

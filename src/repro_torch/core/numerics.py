@@ -1,0 +1,85 @@
+"""Shared numeric conventions (the port's copy of ``repro.core.numerics``).
+
+Besides ``safe_denom`` this module holds ``tanh_f32``, the one tanh the
+port uses wherever the reference's selection depends on a tanh. REGTOP-k
+ranks support entries by ``|a * tanh(|1 + delta| / mu)|``, so a tanh that
+differs by one ulp between two runs can flip a selection at the k-th key.
+``torch.tanh`` differs from XLA's CPU tanh by up to 5 ulp and between the
+CPU and CUDA builds of torch. ``tanh_f32`` instead spells out XLA's own
+f32 approximation (the clamped 13/6 rational polynomial with fused
+multiply-adds) in elementwise ops that round correctly on every device,
+so it gives the same bits on the CPU and on the card, and the same bits
+as the reference's compiled program.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+TINY = 1e-12
+
+# XLA's f32 tanh approximation (EmitFastTanh, FMA variant): inputs are
+# clamped to +-_TANH_CLAMP, where the rational form reaches exactly 1.0,
+# and |x| < _TANH_SMALL returns x itself.
+_TANH_CLAMP = 7.99881172180175781
+_TANH_SMALL = float(np.float32(0.0004))
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13,
+             -8.60467152213735e-11, 5.12229709037114e-08,
+             1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04,
+             2.26843463243900e-03, 4.89352518554385e-03)
+
+
+def f32(x: float) -> float:
+    """Round a Python float to the nearest fp32 value."""
+    return float(np.float32(x))
+
+
+def safe_denom(denom: torch.Tensor, tiny: float = TINY) -> torch.Tensor:
+    """Zero-safe divisor: |denom| <= tiny is replaced by
+    sign(denom)*tiny + tiny (positive for denom >= 0, the REGTOP-k
+    Algorithm 1 line 5 convention)."""
+    return torch.where(denom.abs() > tiny, denom,
+                       torch.sign(denom) * tiny + tiny)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
+    """round_f32(a * b + c) for fp32 a, b: the product is exact in fp64
+    and the sum is rounded once to fp64, then to fp32 (a double rounding
+    that differs from a true fused multiply-add only when the fp64 sum
+    lands exactly on an fp32 midpoint)."""
+    return (a.double() * b.double() + f32(c)).float()
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's fp32 tanh, bit for bit (see the module docstring)."""
+    x = x.float()
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = torch.full_like(x2, f32(_TANH_NUM[0]))
+    for coef in _TANH_NUM[1:]:
+        num = _fma_f32(x2, num, coef)
+    num = xc * num
+    den = torch.full_like(x2, f32(_TANH_DEN[0]))
+    for coef in _TANH_DEN[1:]:
+        den = _fma_f32(x2, den, coef)
+    return torch.where(x.abs() < _TANH_SMALL, x, num / den)
+
+
+def recip_f32(x: float) -> float:
+    """fp32 1/x. A compiled reference program divides by a constant mu
+    as a multiply by this reciprocal (XLA's algebraic simplifier)."""
+    return f32(np.float32(1.0) / np.float32(x))
+
+
+def regularizer_factor(Q: float, mu: float) -> float:
+    """REGTOP-k's off-support score factor tanh(|1 + Q| / mu) as the
+    reference's compiled program produces it: the expression is a
+    compile-time constant there, folded with the host's tanh in double
+    precision and rounded to fp32. Computed on the host here too, so it
+    never costs a device read."""
+    base = abs(f32(f32(1.0) + f32(Q)))
+    return f32(math.tanh(f32(base * recip_f32(mu))))

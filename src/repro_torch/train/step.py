@@ -1,0 +1,122 @@
+"""Data-parallel training step with sparse gradient sync and a ZeRO-1
+optimizer (the port of ``repro.train.step`` at tensor-parallel degree 1).
+
+Per step:
+
+1. loss and gradient of the model (autograd over the parameter tree);
+2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
+3. GradientSync: fused REGTOP-k/TOP-k compression (the two sweep
+   kernels), all-gather of the k (value, index) pairs over the process
+   group, local scatter-add combine, ``observe_aggregate``;
+4. ZeRO-1: this rank updates its 1/DP slice of (master, m, v) and the
+   master is all-gathered back; the next step's parameters are views
+   into that gathered vector (no extra copy).
+
+Without a process group the world is one rank and the same code runs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.backend import configure_numerics, resolve_device
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import sparsify
+from repro_torch.core.aggregate import GradientSync, world
+from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
+from repro_torch.models import init_params, loss_fn
+from repro_torch.optim import apply_updates, init_opt_state, opt_shard_len
+
+
+@dataclass
+class TrainState:
+    params: dict          # parameter tree (fp32)
+    opt: dict             # this rank's ZeRO-1 optimizer slice
+    ef: dict              # sparsifier state (fused layout)
+
+
+def _as_leaves(tree: dict) -> dict:
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def _padded_slice(vec: torch.Tensor, rank: int, shard: int, n: int):
+    if n == 1:
+        return vec
+    return F.pad(vec, (0, n * shard - vec.numel()))[
+        rank * shard:(rank + 1) * shard]
+
+
+def init_train_state(run: RunConfig, device=None, group=None,
+                     params: dict = None) -> TrainState:
+    """Fresh state: parameters drawn from ``run.seed`` (or the given
+    tree, e.g. converted from the reference), this rank's optimizer
+    slice, and zero sparsifier state."""
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(run.seed)
+        params = init_params(run.model, gen, dev)
+    params = tree_map(lambda t: t.to(dev, torch.float32), params)
+    flat = TreeFlattener(params)
+    n, rank = world(group)
+    shard = opt_shard_len(flat.total, n)
+    master = _padded_slice(flat.flatten(params), rank, shard, n).clone() \
+        if n > 1 else flat.flatten(params)
+    opt = init_opt_state(run.optimizer, master)
+    ef = sparsify.init_state(run.sparsifier, flat.total, dev)
+    return TrainState(_as_leaves(params), opt, ef)
+
+
+class TrainStep:
+    """``step(state, batch) -> (state, metrics)``. Metrics are device
+    tensors (reading them is the caller's choice of host sync).
+    ``gsync.fallbacks`` counts the steps whose trim took the exact
+    fallback."""
+
+    def __init__(self, run: RunConfig, device=None, group=None):
+        resolve_device(device)
+        configure_numerics()
+        self.run = run
+        self.group = group
+        self.gsync = GradientSync(run.sparsifier, group)
+
+    def __call__(self, state: TrainState, batch: dict):
+        cfg, opt_cfg = self.run.model, self.run.optimizer
+        n, rank = world(self.group)
+        flat = TreeFlattener(state.params)
+        leaves = tree_leaves(state.params)
+        with record_function("train/loss_grad"):
+            loss = loss_fn(state.params, batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        with record_function("train/flatten"):
+            g = flat.flatten(list(grads))
+            del grads
+            gnorm_local = torch.linalg.vector_norm(g)
+        with record_function("train/sync"):
+            g_agg, ef = self.gsync(state.ef, g)
+            del g
+        with record_function("train/optimizer"):
+            shard = opt_shard_len(flat.total, n)
+            master, opt = apply_updates(opt_cfg, state.opt,
+                                        _padded_slice(g_agg, rank, shard, n))
+            if n > 1:
+                mall = torch.empty(n * shard, dtype=master.dtype,
+                                   device=master.device)
+                dist.all_gather_into_tensor(mall, master, group=self.group)
+            else:
+                mall = master
+            params = _as_leaves(flat.unflatten(mall[:flat.total]))
+        loss = loss.detach()
+        if n > 1:
+            dist.all_reduce(loss, group=self.group)
+            loss = loss / n
+        metrics = {"loss": loss, "gnorm_local": gnorm_local,
+                   "agg_nonzero": (g_agg != 0).float().mean()}
+        return TrainState(params, opt, ef), metrics
+
+
+def build_train_step(run: RunConfig, device=None, group=None) -> TrainStep:
+    return TrainStep(run, device, group)

@@ -1,0 +1,147 @@
+"""Package rules of the PyTorch port: it stands alone (no jax, nothing of
+the reference package), it runs on the card unless the CPU is asked for,
+its kernel wrappers never fall back to the plain version, and configs it
+does not serve yet raise instead of being rerouted."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.backend import resolve_device  # noqa: E402
+from repro_torch.configs import base as cfgs  # noqa: E402
+from repro_torch.core import aggregate, sparsify  # noqa: E402
+from repro_torch.kernels.compress import kernel as pk  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)\b"
+    r"|import_module\(\s*['\"](?:jax|repro)\b", re.MULTILINE)
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = _port_files()
+    assert len(files) > 10
+    offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for p in files for m in FORBIDDEN.finditer(p.read_text())]
+    assert offenders == []
+
+
+def test_forbidden_pattern_catches_reference_imports():
+    for line in ("import jax", "from jax import numpy", "import repro.core",
+                 "from repro.kernels import x", "import repro",
+                 "  from repro import configs",
+                 "importlib.import_module('jax')"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import x",
+                 "# jax.tree_util order"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_cpu_step_runs_without_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.train import main\n"
+        "main(['--arch', 'stablelm-3b', '--smoke', '--steps', '1',"
+        " '--batch', '2', '--seq', '16', '--device', 'cpu'])\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.')"
+        " for m in sys.modules)\n"
+        "print('NOJAX_OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NOJAX_OK" in res.stdout
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch.launch.train import main, run_config, parse_args, train
+    from repro_torch.train.step import build_train_step, init_train_state
+    run = run_config(parse_args(["--arch", "stablelm-3b", "--smoke"]))
+    calls = [lambda: resolve_device(None), lambda: resolve_device("cuda"),
+             lambda: init_train_state(run), lambda: build_train_step(run),
+             lambda: train(run, log=lambda m: None),
+             lambda: main(["--arch", "stablelm-3b", "--smoke", "--steps",
+                           "1"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_card_path_never_calls_the_plain_version(monkeypatch):
+    """With tensors the wrappers treat as on the card, a kernel that
+    cannot be loaded raises; the plain versions are never reached."""
+    plain_calls = []
+    monkeypatch.setattr(pk, "_on_card", lambda x: True)
+    monkeypatch.setattr(pk, "sweep1_plain",
+                        lambda *a: plain_calls.append("sweep1"))
+    monkeypatch.setattr(pk, "sweep2_plain",
+                        lambda *a: plain_calls.append("sweep2"))
+
+    def no_library(name):
+        raise RuntimeError(f"cannot load {name}")
+    monkeypatch.setattr(pk, "_lib", no_library)
+    x = torch.zeros(4096)
+    before = (pk.sweep1.launches, pk.sweep2.launches)
+    with pytest.raises(RuntimeError, match="cannot load sweep1"):
+        pk.sweep1(x, x, torch.ones(1))
+    with pytest.raises(RuntimeError, match="cannot load sweep2"):
+        pk.sweep2(x, torch.ones(1), 32)
+    assert plain_calls == []
+    assert (pk.sweep1.launches, pk.sweep2.launches) == before
+
+
+def test_other_devices_raise():
+    x = torch.zeros(8, device="meta")
+    with pytest.raises(RuntimeError, match="no sweep for device"):
+        pk.sweep1(x, x, torch.ones(1, device="meta"))
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("selector", "histogram", "A8"), ("num_buckets", 4, "A8"),
+    ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
+    ("ef_dtype", "bfloat16", "A8"), ("kind", "dgc", "A8"),
+    ("pipeline", "reference", "A3"), ("comm_mode", "simulate", "A5"),
+    ("combine", "support", "A10"), ("wire_dtype", "bfloat16", "A8")])
+def test_configs_outside_the_slice_raise(field, value, item):
+    cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
+                                comm_mode="sparse")
+    aggregate.GradientSync(cfg)
+    bad = dataclasses.replace(cfg, **{field: value})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        aggregate.GradientSync(bad)
+    if field not in ("comm_mode", "combine", "wire_dtype"):
+        with pytest.raises(NotImplementedError):
+            sparsify.init_state(bad, 100, "cpu")
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("norm", "rmsnorm", "A7"), ("act", "gelu", "A7"),
+    ("qkv_bias", True, "A7"), ("tie_embeddings", True, "A7"),
+    ("family", "moe", "A13")])
+def test_models_outside_the_slice_raise(field, value, item):
+    from repro_torch.models import init_params
+    cfg = cfgs.reduced_config(cfgs.get_config("stablelm-3b"))
+    bad = dataclasses.replace(cfg, **{field: value})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        init_params(bad, torch.Generator(), "cpu")
+
+
+def test_optimizers_outside_the_slice_raise():
+    from repro_torch.optim import init_opt_state
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        init_opt_state(cfgs.OptimizerConfig(kind="sgd"), torch.zeros(4))

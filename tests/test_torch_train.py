@@ -1,0 +1,89 @@
+"""The port's data-parallel training step against the reference's
+``build_train_step`` on a 1x1 mesh: reduced StableLM-3B, REGTOP-k fused
+sparse sync, Adam, one fixed numpy batch, the same initial weights."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import base as jbase  # noqa: E402
+from repro.core.flatten import TreeFlattener as JaxFlattener  # noqa: E402
+from repro.launch.mesh import make_mesh  # noqa: E402
+from repro.train.step import build_parallel  # noqa: E402
+from repro.train.step import build_train_step as jax_build_train_step  # noqa: E402
+from repro.train.step import init_train_state as jax_init_train_state  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.flatten import TreeFlattener  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.train.step import build_train_step, init_train_state  # noqa: E402
+
+STEPS = 3
+# loss: fp32 forward on both sides, summed in different orders (~1e-7
+# relative), so 1e-5 relative.
+LOSS_RTOL = 1e-5
+# params: Adam moves each selected coordinate by ~lr = 1e-3 per step with
+# the update normalised by the gradient's own scale, so gradient drift of
+# ~1e-6 relative moves params by ~1e-9; 1e-5 absolute leaves margin and
+# still catches any coordinate moved or not moved differently.
+PARAM_ATOL = 1e-5
+
+
+def _run_cfgs(mod, sparsity=0.01, mu=0.5):
+    cfg = mod.reduced_config(mod.get_config("stablelm-3b"))
+    return mod.RunConfig(
+        model=cfg, shape=mod.SHAPES["train_4k"],
+        sparsifier=mod.SparsifierConfig(kind="regtopk", sparsity=sparsity,
+                                        mu=mu, comm_mode="sparse",
+                                        pipeline="fused"),
+        optimizer=mod.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+        steps=STEPS)
+
+
+def test_three_steps_match_reference():
+    jrun, trun = _run_cfgs(jbase), _run_cfgs(tbase)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 512, (4, 32)).astype(np.int32)
+    targets = np.concatenate([tokens[:, 1:], -np.ones((4, 1), np.int32)], 1)
+    mesh = make_mesh(1, 1)
+    pal = build_parallel(mesh)
+    with mesh:
+        params, opt, ef = jax_init_train_state(jrun, mesh, pal,
+                                               jax.random.PRNGKey(0))
+        step_fn, _, _ = jax_build_train_step(jrun, mesh, pal)
+        jstep = jax.jit(step_fn)
+        tstate = init_train_state(trun, "cpu",
+                                  params=params_from_jax(
+                                      jax.device_get(params)))
+        tstep = build_train_step(trun, "cpu")
+        jbatch = {"tokens": jnp.asarray(tokens),
+                  "targets": jnp.asarray(targets)}
+        tbatch = {"tokens": torch.from_numpy(tokens).long(),
+                  "targets": torch.from_numpy(targets).long()}
+        for t in range(STEPS):
+            params, opt, ef, metrics = jstep(params, opt, ef, jbatch,
+                                             jax.random.PRNGKey(0))
+            tstate, tmetrics = tstep(tstate, tbatch)
+            np.testing.assert_allclose(float(tmetrics["loss"]),
+                                       float(metrics["loss"]),
+                                       rtol=LOSS_RTOL)
+            want = np.sort(np.asarray(ef["idx_prev"]).reshape(-1))
+            got = np.sort(tstate.ef["idx_prev"].numpy().view(np.uint32))
+            assert np.array_equal(want, got), t
+        jflat = np.asarray(JaxFlattener(params).flatten(params))
+    tflat = TreeFlattener(tstate.params).flatten(tstate.params)
+    np.testing.assert_allclose(tflat.detach().numpy(), jflat, rtol=0,
+                               atol=PARAM_ATOL)
+
+
+def test_fixed_batch_overfit_loss_falls():
+    run = _run_cfgs(tbase)
+    import dataclasses
+    run = dataclasses.replace(run, steps=30, log_every=100)
+    out = train(run, device="cpu", batch=4, seq=32, fixed_batch=True,
+                log=lambda msg: None)
+    losses = [rec["loss"] for rec in out["history"]]
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 1.0, losses
