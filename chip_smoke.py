@@ -15,11 +15,25 @@ line and raising on any failure:
              and at a small ragged shape, with CUDA-event timings;
 4. compress: the fused compressor on the card against the same calls on
              CPU copies, bitwise, over 3 REGTOP-k steps at J = 2^24;
-5. train:    the port's main path through its launcher: StableLM-3B at
+5. sketch_sync: sketch-coordinated GradientSync (kind="sketchtopk") at
+             J = 2^24, 3 steps, fused pipeline (kernel sweep1_sketch) and
+             reference pipeline (kernel sketch_encode), on the card and on
+             CPU copies: a bitwise, the sketch within its stated bound,
+             then the card's mean sketch decoded on both devices: indices,
+             g_agg and the error state bitwise;
+6. train:    the port's main path through its launcher: StableLM-3B at
              full width cut to 8 layers, a few REGTOP-k sparse-sync steps,
              with every kernel's launch count read around that run;
-6. profile:  one more step of that run under torch.profiler: device time
-             by kernel and by stage of the step, and the device busy share.
+7. profile:  one more step of that run under torch.profiler: device time
+             by kernel and by stage of the step, and the device busy share;
+8. train_sketch, profile_sketch: the same for the sketchtopk path (fused
+             pipeline), after the REGTOP-k run's state is released.
+
+Phase 3 also holds the two CountSketch encodes (kernels_sketch): their a
+with ``torch.equal``, their sketch with ``torch.equal`` on dyadic inputs
+(every bucket sum exact in any order) and within the per-bucket bound of
+``kernel.sketch_error_bound`` on Gaussian inputs, where the card's float
+atomics add in another order than the plain version.
 
 The last three lines are the per-kernel summary, the card's name and
 power limit as ``nvidia-smi`` prints them, and the result line.
@@ -48,17 +62,29 @@ TRAIN_STEPS = 5
 MAIN_J = 892_032_000         # flat J of that model (ModelConfig.param_count)
 RAGGED_J = 5 * 4096 + 123
 COMPRESS_J = 1 << 24
+SKETCH_ROWS = 3
+MAIN_WIDTH = 3_568_128       # resolve_width(k = 892,032): 4k, under 2^22
+SYNC_STEPS = 3
 TIMING_REPS = 10
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
     "sweep2": ("src/repro_torch/kernels/compress/csrc/sweep2.cu",
                "src/repro/kernels/compress/kernel.py:223"),
+    "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
+                      "src/repro/kernels/compress/kernel.py:335"),
+    "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
+                      "src/repro/kernels/compress/kernel.py:321"),
 }
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; "t" is the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - START,
+                      **fields}), flush=True)
 
 
 def check(cond, msg: str) -> None:
@@ -180,6 +206,136 @@ def phase_kernels(dev) -> dict:
     return {"small": small, "big": big}
 
 
+def dyadic(gen, j: int, dev):
+    """k * 2^-8 with |k| <= 2^10: every partial sum of a bucket is exact
+    in fp32, so any order of the atomics gives the sequential sum."""
+    import torch
+    k = torch.randint(-1024, 1025, (j,), generator=gen, device=dev)
+    return k.float() * 2.0 ** -8
+
+
+def sketch_gap(sk, sk_plain, a) -> tuple[float, float]:
+    """(max |sk - sk_plain|, its largest share of the per-bucket bound);
+    fails beyond the bound."""
+    from repro_torch.kernels.compress import kernel as pk
+    rows, width = sk_plain.shape
+    bound = pk.sketch_error_bound(a, rows, width).to(sk_plain.device)
+    d = (sk.to(sk_plain.device) - sk_plain).abs().double()
+    check(bool((d <= bound).all()), "sketch outside its atomics bound")
+    share = float((d / bound.clamp(min=1e-300)).max())
+    return float(d.max()), share
+
+
+def sketch_case(dev, j: int, width: int, seed: int, timed: bool) -> dict:
+    """Both CountSketch encodes at flat length j, kernel vs plain, on
+    dyadic inputs (bitwise) and on Gaussian inputs (a bitwise, the
+    sketch within the atomics bound)."""
+    import torch
+    from repro_torch.kernels.compress import kernel as pk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = SKETCH_ROWS
+    g, err = dyadic(gen, j, dev), dyadic(gen, j, dev)
+    a, sk = pk.sweep1_sketch(g, err, rows, width)
+    a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
+    check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j} (dyadic)")
+    check(torch.equal(sk, sk_p), f"sweep1_sketch sketch differs at J={j} "
+          "(dyadic)")
+    check(torch.equal(pk.sketch_encode(a, rows, width),
+                      pk.sketch_encode_plain(a, rows, width)),
+          f"sketch_encode differs at J={j} (dyadic)")
+    del g, err, a_p, sk, sk_p
+    g = torch.randn(j, generator=gen, device=dev)
+    err = torch.randn(j, generator=gen, device=dev) * 0.1
+    a, sk = pk.sweep1_sketch(g, err, rows, width)
+    a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
+    check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j}")
+    err1, share1 = sketch_gap(sk, sk_p, a_p)
+    err4, share4 = sketch_gap(pk.sketch_encode(a, rows, width), sk_p, a_p)
+    res = {"j": j, "rows": rows, "width": width, "dyadic_bitwise": True,
+           "sweep1_sketch_err": err1, "sweep1_sketch_bound_share": share1,
+           "sketch_encode_err": err4, "sketch_encode_bound_share": share4,
+           "atomics": rows * j}
+    del a_p, sk, sk_p
+    if timed:
+        res["sweep1_sketch_ms"] = cuda_ms(
+            lambda: pk.sweep1_sketch(g, err, rows, width))
+        res["sweep1_sketch_plain_ms"] = cuda_ms(
+            lambda: pk.sweep1_sketch_plain(g, err, rows, width))
+        res["sweep1_sketch_bytes"] = 12 * j + 4 * rows * width
+        res["sweep1_sketch_ops"] = j + rows * j   # add, one add per row
+        res["sketch_encode_ms"] = cuda_ms(
+            lambda: pk.sketch_encode(a, rows, width))
+        res["sketch_encode_plain_ms"] = cuda_ms(
+            lambda: pk.sketch_encode_plain(a, rows, width))
+        res["sketch_encode_bytes"] = 4 * j + 4 * rows * width
+        res["sketch_encode_ops"] = rows * j
+    return res
+
+
+def phase_kernels_sketch(dev) -> dict:
+    import torch
+    small = sketch_case(dev, RAGGED_J, 512, seed=3, timed=False)
+    emit("kernels_sketch_ragged", **small)
+    big = sketch_case(dev, MAIN_J, MAIN_WIDTH, seed=2, timed=True)
+    emit("kernels_sketch_main_shape", **big)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big}
+
+
+def phase_sketch_sync(dev) -> dict:
+    """GradientSync for kind="sketchtopk" on the card and on CPU copies,
+    both pipelines; the card's mean sketch feeds the decode on both.
+    Returns the launches of each pipeline's run."""
+    import torch
+    from repro_torch.configs.base import SparsifierConfig
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    from repro_torch.kernels.compress import kernel as pk
+    cpu = torch.device("cpu")
+    out = {}
+    for pipeline in ("fused", "reference"):
+        cfg = SparsifierConfig(kind="sketchtopk", sparsity=SPARSITY,
+                               comm_mode="sparse", pipeline=pipeline,
+                               sketch_rows=SKETCH_ROWS)
+        sync_d, sync_c = GradientSync(cfg), GradientSync(cfg)
+        st_d = sparsify.init_state(cfg, COMPRESS_J, dev)
+        st_c = sparsify.init_state(cfg, COMPRESS_J, cpu)
+        gen = torch.Generator(device=cpu).manual_seed(11)
+        gaps = []
+        pk.reset_launches()
+        for t in range(SYNC_STEPS):
+            g = torch.randn(COMPRESS_J, generator=gen)
+            a_d, sk_d = sync_d.encode(st_d, g.to(dev))
+            a_c, sk_c = sync_c.encode(st_c, g)
+            check(torch.equal(a_d.cpu(), a_c),
+                  f"sketch sync {pipeline} step {t}: a differs")
+            gaps.append(sketch_gap(sk_d, sk_c, a_c))
+            sk_agg = sync_d.allreduce_sketch(sk_d)
+            g_d, st_d, idx_d = sync_d.decode_exchange(sk_agg, a_d, st_d)
+            g_c, st_c, idx_c = sync_c.decode_exchange(sk_agg.cpu(), a_c,
+                                                      st_c)
+            key = sparsify.err_key(cfg)
+            for name, got, want in (("indices", idx_d, idx_c),
+                                    ("g_agg", g_d, g_c),
+                                    (key, st_d[key], st_c[key])):
+                check(torch.equal(got.cpu(), want),
+                      f"sketch sync {pipeline} step {t}: {name} differs "
+                      "card vs CPU")
+        launches = {fn.__name__: fn.launches for fn in pk.KERNELS}
+        enc = "sweep1_sketch" if pipeline == "fused" else "sketch_encode"
+        for name, n in launches.items():
+            check(n == (SYNC_STEPS if name == enc else 0),
+                  f"sketch sync {pipeline}: {name} launched {n} times")
+        emit("sketch_sync", pipeline=pipeline, j=COMPRESS_J,
+             steps=SYNC_STEPS, k=sparsify.resolve_k(cfg, COMPRESS_J),
+             width=sk_agg.shape[1], launches=launches,
+             sketch_err=[e for e, _ in gaps],
+             sketch_bound_share=[s_ for _, s_ in gaps],
+             decode_bitwise=True)
+        out[pipeline] = launches
+    return out
+
+
 def phase_compress(dev) -> None:
     import torch
     from repro_torch.configs.base import SparsifierConfig
@@ -212,8 +368,11 @@ def phase_compress(dev) -> None:
          fallbacks=fallbacks)
 
 
-def phase_train(dev):
-    """Returns (launches by kernel, the run, the trained state)."""
+def phase_train(dev, kind: str, expect: dict, phase: str):
+    """The launcher's train() on StableLM-3B at full width, 8 layers, with
+    sparsifier ``kind``; every kernel's launch count must equal
+    ``expect`` (the others 0). Returns (launches by kernel, the run, the
+    trained state)."""
     import torch
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
                                           SparsifierConfig, get_config)
@@ -224,16 +383,18 @@ def phase_train(dev):
     check(model.param_count() == MAIN_J, f"J={model.param_count()}")
     run = RunConfig(
         model=model, shape=SHAPES["train_4k"],
-        sparsifier=SparsifierConfig(kind="regtopk", sparsity=SPARSITY,
+        sparsifier=SparsifierConfig(kind=kind, sparsity=SPARSITY,
                                     mu=MU, comm_mode="sparse",
-                                    pipeline="fused"),
+                                    pipeline="fused",
+                                    sketch_rows=SKETCH_ROWS),
         optimizer=OptimizerConfig(kind="adam", lr=1e-3),
         seed=0, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.reset_peak_memory_stats(dev)
 
     def on_step(rec):
-        emit("train_step", **rec, sweep1_launches=pk.sweep1.launches,
-             sweep2_launches=pk.sweep2.launches)
+        emit(f"{phase}_step", **rec,
+             **{f"{fn.__name__}_launches": fn.launches for fn in pk.KERNELS
+                if fn.__name__ in expect})
 
     pk.reset_launches()
     out = train(run, device=dev, batch=8, seq=128, fixed_batch=True,
@@ -244,11 +405,12 @@ def phase_train(dev):
     check(out["params"] == MAIN_J, f"trained J={out['params']}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for name, n in launches.items():
-        check(n == TRAIN_STEPS, f"{name} launched {n} times in "
-              f"{TRAIN_STEPS} steps")
-    emit("train", model=model.name, n_layers=TRAIN_LAYERS, j=out["params"],
-         batch=8, seq=128, steps=TRAIN_STEPS, losses=losses,
-         step_ms=[rec["ms"] for rec in out["history"]],
+        want = expect.get(name, 0)
+        check(n == want, f"{phase}: {name} launched {n} times in "
+              f"{TRAIN_STEPS} steps, expected {want}")
+    emit(phase, model=model.name, kind=kind, n_layers=TRAIN_LAYERS,
+         j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
+         losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev))
     return launches, run, out["state"]
@@ -256,10 +418,11 @@ def phase_train(dev):
 
 STAGES = ("train/loss_grad", "train/flatten", "train/sync",
           "train/optimizer", "compress/sweeps", "compress/trim",
-          "compress/fallback", "sync/combine")
+          "compress/fallback", "sync/combine", "sketch/encode",
+          "sketch/allreduce", "sketch/estimate", "sketch/select")
 
 
-def phase_profile(dev, run, state) -> None:
+def phase_profile(dev, run, state, phase: str) -> None:
     """Device time of one more step of the trained state, by kernel and
     by the step's record_function stages; busy share = kernel time over
     the step's wall time."""
@@ -293,11 +456,24 @@ def phase_profile(dev, run, state) -> None:
                 stages[e.key]["device_span_ms"] = e.device_time_total / 1e3
             else:
                 stages[e.key]["host_ms"] = e.cpu_time_total / 1e3
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    stages = {key: val for key, val in stages.items() if val}
+    emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms, stages=stages,
          fallback=dict(step.gsync.fallback_reasons),
          top_kernels=[{"name": k[:90], "ms": ms, "calls": n}
                       for k, ms, n in kernels[:15]])
+
+
+def kernel_row(name: str, res: dict, small: dict, launches: int,
+               path: str, parity: str) -> dict:
+    bms, by = bound_ms(res[f"{name}_bytes"], res[f"{name}_ops"])
+    source, replaces = KERNEL_META[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(res[f"{name}_err"], small[f"{name}_err"]),
+            "ms": res[f"{name}_ms"], "plain_ms": res[f"{name}_plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "path": path, "parity": parity}
 
 
 def main() -> int:
@@ -306,28 +482,39 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels.compress import kernel as pk
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
     kres = phase_kernels(dev)
+    sres = phase_kernels_sketch(dev)
     phase_compress(dev)
-    launches, run, state = phase_train(dev)
-    phase_profile(dev, run, state)
+    sync_launches = phase_sketch_sync(dev)
+    launches, run, state = phase_train(
+        dev, "regtopk", {"sweep1": TRAIN_STEPS, "sweep2": TRAIN_STEPS},
+        "train")
+    phase_profile(dev, run, state, "profile")
     del state
-    big = kres["big"]
-    rows = []
-    for fn in pk.KERNELS:
-        name = fn.__name__
-        bms, by = bound_ms(big[f"{name}_bytes"], big[f"{name}_ops"])
-        source, replaces = KERNEL_META[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max(big[f"{name}_err"],
-                                        kres["small"][f"{name}_err"]),
-                     "ms": big[f"{name}_ms"],
-                     "plain_ms": big[f"{name}_plain_ms"],
-                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    torch.cuda.empty_cache()
+    sk_launches, run, state = phase_train(
+        dev, "sketchtopk", {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
+    phase_profile(dev, run, state, "profile_sketch")
+    del state
+    torch.cuda.empty_cache()
+    bitwise = "torch.equal on every output"
+    atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
+               "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")
+    big, small = kres["big"], kres["small"]
+    rows = [kernel_row("sweep1", big, small, launches["sweep1"],
+                       "regtopk train (fused)", bitwise),
+            kernel_row("sweep2", big, small, launches["sweep2"],
+                       "regtopk train (fused)", bitwise),
+            kernel_row("sweep1_sketch", sres["big"], sres["small"],
+                       sk_launches["sweep1_sketch"],
+                       "sketchtopk train (fused)", atomics),
+            kernel_row("sketch_encode", sres["big"], sres["small"],
+                       sync_launches["reference"]["sketch_encode"],
+                       "sketchtopk GradientSync (reference pipeline)",
+                       atomics)]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,10 +68,11 @@ SHAPES: dict[str, ShapeConfig] = {
 @dataclass(frozen=True)
 class SparsifierConfig:
     """The paper's knobs (see the reference's docstrings for each field).
-    The port serves kind in {topk, regtopk} with the fused pipeline, the
-    exact selector, global allocation, one bucket, fp32 EF and the sparse
-    mean combine; the fields past ``Q`` exist to select among the
-    reference's paths and raise for any other value."""
+    The port serves kind in {topk, regtopk} with the fused pipeline and
+    kind="sketchtopk" with either pipeline, each with the exact selector,
+    global allocation, one bucket, fp32 EF and the sparse mean combine;
+    the fields past ``Q`` exist to select among the reference's paths and
+    raise for any other value."""
     kind: str = "regtopk"
     sparsity: float = 0.01
     k: int = 0                    # explicit k; 0 -> derive from sparsity
@@ -86,6 +87,10 @@ class SparsifierConfig:
     num_buckets: int = 1
     combine: str = "mean"
     overlap: str = "none"
+    err_decay: float = 1.0        # EF decay of a sitting-out worker (A10)
+    # sketchtopk: CountSketch-coordinated global TOP-k
+    sketch_rows: int = 3
+    sketch_width: int = 0         # 0 -> min(max(4k, 256), 2^22)
 
 
 @dataclass(frozen=True)

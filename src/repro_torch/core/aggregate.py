@@ -1,18 +1,29 @@
 """Sparse gradient aggregation over the data-parallel process group (the
-port of ``repro.core.aggregate``, non-elastic sparse mean path).
+port of ``repro.core.aggregate``, non-elastic sparse mean paths).
 
-Every rank all-gathers the k (value, index) pairs of every rank and
-scatter-adds them locally, one ``index_add_`` per rank in rank order, then
-divides by n. Within a rank the k indices are distinct, so each
-``index_add_`` is deterministic on the card too, and the rank-order sums
-reproduce the reference's: g_agg is identical on every rank, which
-REGTOP-k's posterior assumes. Comm per step is n*k*8 bytes.
+Local selection (kind topk/regtopk): every rank all-gathers the k
+(value, index) pairs of every rank and scatter-adds them locally, one
+``index_add_`` per rank in rank order, then divides by n. Within a rank
+the k indices are distinct, so each ``index_add_`` is deterministic on
+the card too, and the rank-order sums reproduce the reference's: g_agg
+is identical on every rank, which REGTOP-k's posterior assumes. Comm per
+step is n*k*8 bytes.
+
+Sketch selection (kind sketchtopk, DESIGN.md §2.9): each rank encodes
+a = err + g into a CountSketch, one all-reduce averages the sketches,
+every rank decodes the same magnitude estimates and so the same top-k
+indices, and only the k values travel (``shared_mask_allgather_combine``,
+n*k*4 bytes); the error feedback closes by zeroing the shared indices of
+a. Which path serves a config is the selection of
+``core.sparsify.selection``; nothing here branches on ``cfg.kind``.
 
 Without an initialised process group the world is one rank; the same code
 runs and gathers nothing.
 """
 from __future__ import annotations
 
+import functools
+import operator
 from collections import Counter
 
 import torch
@@ -20,7 +31,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
-from repro_torch.core import bigvec, sparsify
+from repro_torch.core import bigvec, select, sketch, sparsify
 
 
 def world(group=None) -> tuple[int, int]:
@@ -37,6 +48,7 @@ def check_supported(cfg: SparsifierConfig) -> None:
     for field, served, item in (
             ("comm_mode", "sparse", "A5 (simulate and dense all-reduce)"),
             ("combine", "mean", "A10 (support combine)"),
+            ("err_decay", 1.0, "A10 (elastic error-feedback decay)"),
             ("wire_dtype", "float32", "A8 (bf16 wire)")):
         if getattr(cfg, field) != served:
             raise NotImplementedError(
@@ -44,20 +56,39 @@ def check_supported(cfg: SparsifierConfig) -> None:
                 f"ported yet; the port serves {served!r} (ROADMAP {item})")
 
 
+def _rank_sum(xs):
+    """x_0 + x_1 + ... in rank order (no leading zero, as the compiled
+    reference adds), so every rank computes the same sum."""
+    return functools.reduce(operator.add, xs)
+
+
+def _gather(x: torch.Tensor, group) -> list:
+    n, _ = world(group)
+    if n == 1:
+        return [x]
+    out = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(out, x, group=group)
+    return out
+
+
 def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
                              j: int, group=None) -> torch.Tensor:
     """g_agg = (1/n) sum_ranks scatter(values_r, indices_r), rank-identical."""
     n, _ = world(group)
-    if n == 1:
-        vals, idxs = [values], [indices]
-    else:
-        vals = [torch.empty_like(values) for _ in range(n)]
-        idxs = [torch.empty_like(indices) for _ in range(n)]
-        dist.all_gather(vals, values, group=group)
-        dist.all_gather(idxs, indices, group=group)
     dense = torch.zeros(j, dtype=values.dtype, device=values.device)
-    for v, i in zip(vals, idxs):
+    for v, i in zip(_gather(values, group), _gather(indices, group)):
         bigvec.scatter_add_(dense, i, v)
+    return dense.div_(n)
+
+
+def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
+                                  j: int, group=None) -> torch.Tensor:
+    """g_agg under a shared mask: every rank holds the same ``indices``,
+    so only the (k,) values are all-gathered; they are summed in rank
+    order, scattered once into zeros and divided by n."""
+    n, _ = world(group)
+    dense = torch.zeros(j, dtype=values.dtype, device=values.device)
+    bigvec.scatter_add_(dense, indices, _rank_sum(_gather(values, group)))
     return dense.div_(n)
 
 
@@ -65,12 +96,17 @@ class GradientSync:
     """Per-run gradient-sync surface: the config is validated once here,
     each step calls the object with the state and the flat gradient.
     ``fallbacks`` counts the compress calls whose trim took the exact
-    dense fallback, ``fallback_reasons`` counts them by reason."""
+    dense fallback, ``fallback_reasons`` counts them by reason.
+
+    The sketch-coordinated step is three calls, so a caller can feed one
+    sketch to two devices: :meth:`encode`, :meth:`allreduce_sketch` and
+    :meth:`decode_exchange`."""
 
     def __init__(self, cfg: SparsifierConfig, group=None):
         check_supported(cfg)
         self.cfg = cfg
         self.group = group
+        self.selection = sparsify.selection(cfg)
         self.fallbacks = 0
         self.fallback_reasons: Counter = Counter()
 
@@ -80,8 +116,20 @@ class GradientSync:
                 self.fallbacks += 1
                 self.fallback_reasons[out.fallback] += 1
 
-    def __call__(self, state: dict, g: torch.Tensor):
+    @staticmethod
+    def _no_participate(participate) -> None:
+        if participate is not None:
+            raise NotImplementedError(
+                "participation masks are not ported yet (ROADMAP A10)")
+
+    def __call__(self, state: dict, g: torch.Tensor, participate=None):
         """One flat-gradient sync step: returns (g_agg, new_state)."""
+        self._no_participate(participate)
+        if self.selection == "sketch":
+            a, sk = self.encode(state, g)
+            g_agg, new, _ = self.decode_exchange(self.allreduce_sketch(sk),
+                                                 a, state)
+            return g_agg, new
         n, _ = world(self.group)
         out = sparsify.compress(self.cfg, state, g, omega=1.0 / n)
         self._count([out])
@@ -90,9 +138,71 @@ class GradientSync:
                                              g.numel(), self.group)
         return g_agg, sparsify.observe_aggregate(self.cfg, out.state, g_agg)
 
-    def round(self, states: list, grads: list, omegas=None):
+    # -- sketch coordination --------------------------------------------
+
+    def _k_width(self, j: int) -> tuple[int, int]:
+        k = sparsify.resolve_k(self.cfg, j)
+        return k, sketch.resolve_width(k, self.cfg.sketch_width)
+
+    def encode(self, state: dict, g: torch.Tensor):
+        """(a, sketch of a) with a = err + g: one pass through
+        ``sweep1_sketch`` on the fused pipeline; a plain add, then the
+        ``sketch_encode`` kernel, on the reference pipeline."""
+        cfg = self.cfg
+        _, width = self._k_width(g.numel())
+        err = state[sparsify.err_key(cfg)]
+        with record_function("sketch/encode"):
+            if cfg.pipeline == "fused":
+                from repro_torch.kernels.compress import ops
+                enc = ops.fused_sketch_encode(g.float(), err,
+                                              rows=cfg.sketch_rows,
+                                              width=width)
+                return enc["a"], enc["sketch"]
+            a = err + g.float()
+            return a, sketch.encode(a, cfg.sketch_rows, width)
+
+    def allreduce_sketch(self, sk: torch.Tensor) -> torch.Tensor:
+        """The pre-selection collective: the mean of the ranks' sketches
+        (in place on ``sk``)."""
+        n, _ = world(self.group)
+        with record_function("sketch/allreduce"):
+            if n > 1:
+                dist.all_reduce(sk, op=dist.ReduceOp.SUM, group=self.group)
+            return sk.div_(n)
+
+    def decode(self, sk_agg: torch.Tensor, j: int) -> torch.Tensor:
+        """The shared top-k indices (int64, lax.top_k order) of the
+        magnitude estimates decoded from the mean sketch."""
+        k, _ = self._k_width(j)
+        with record_function("sketch/estimate"):
+            gmag = sketch.estimate(sk_agg, j)
+        with record_function("sketch/select"):
+            return select.topk_indices(gmag, k)
+
+    def decode_exchange(self, sk_agg: torch.Tensor, a: torch.Tensor,
+                        state: dict):
+        """Decode the shared mask from the mean sketch, exchange the k
+        selected values of a and close the error feedback in O(k): the
+        new error state is a with the shared indices zeroed, in place.
+        Returns (g_agg, new_state, shared indices)."""
+        j = a.numel()
+        idx = self.decode(sk_agg, j)
+        with record_function("sync/combine"):
+            g_agg = shared_mask_allgather_combine(a[idx], idx, j,
+                                                  self.group)
+            err = bigvec.scatter_set_(a, idx, 0.0)
+        new = {sparsify.err_key(self.cfg): err, "step": state["step"] + 1}
+        return g_agg, new, idx
+
+    # -- in-process simulation ------------------------------------------
+
+    def round(self, states: list, grads: list, omegas=None,
+              participate=None):
         """One aggregation round over N in-process workers (the
         reference's ``GradientSync.round``): returns (g_agg, new_states)."""
+        self._no_participate(participate)
+        if self.selection == "sketch":
+            return self._round_sketch(states, grads, omegas)
         n = len(grads)
         omegas = omegas or [1.0 / n] * n
         j = grads[0].numel()
@@ -103,3 +213,26 @@ class GradientSync:
                     for w, o in zip(omegas, outs))
         return g_agg, [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                        for o in outs]
+
+    def _round_sketch(self, states, grads, omegas):
+        """Per-worker encode, one sketch combine, one shared mask, each
+        worker's error feedback closed at that mask (dense form, as the
+        reference's ``_round_sketch``)."""
+        n = len(grads)
+        j = grads[0].numel()
+        encs = [self.encode(s, g) for s, g in zip(states, grads)]
+        if omegas is None:
+            sk_agg = _rank_sum([sk for _, sk in encs]) / n
+        else:
+            sk_agg = _rank_sum([w * sk for w, (_, sk) in zip(omegas, encs)])
+        idx = self.decode(sk_agg, j)
+        mask = torch.zeros(j, dtype=torch.float32, device=idx.device)
+        mask.index_fill_(0, idx, 1.0)
+        ghats = [mask * a for a, _ in encs]
+        if omegas is None:
+            g_agg = _rank_sum(ghats) / n
+        else:
+            g_agg = _rank_sum([w * gh for w, gh in zip(omegas, ghats)])
+        key = sparsify.err_key(self.cfg)
+        return g_agg, [{key: a - gh, "step": st["step"] + 1}
+                       for (a, _), gh, st in zip(encs, ghats, states)]

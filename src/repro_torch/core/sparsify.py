@@ -1,5 +1,6 @@
 """Gradient sparsifiers: TOP-k and REGTOP-k (the paper, Algorithm 1) on the
-fused two-sweep pipeline (the port of ``repro.core.sparsify``).
+fused two-sweep pipeline, and the state of sketch-coordinated TOP-k (the
+port of ``repro.core.sparsify``).
 
 Protocol per step (worker n), as in the reference:
 
@@ -10,7 +11,10 @@ Protocol per step (worker n), as in the reference:
 The fused layout's only J-sized state is ``err_prev`` (= a^{t-1} *
 (1 - s^{t-1})). REGTOP-k's posterior is O(k): ``idx_prev`` (int32 view of
 the uint32 indices, doubling as the support set), ``a_prev_sel`` and
-``g_prev_sel``.
+``g_prev_sel``. kind="sketchtopk" selects at the aggregate level
+(``core.aggregate.GradientSync``), so ``compress`` raises for it; its
+state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
+``step``.
 """
 from __future__ import annotations
 
@@ -31,26 +35,52 @@ class CompressOut:
                                  # fallback ("" = fast path, ops.py)
 
 
-# (field, value the port serves, ROADMAP item that ports the rest)
-_SLICE = (("pipeline", ("fused",), "A3 (reference pipeline)"),
-          ("kind", ("topk", "regtopk"), "A8 (dgc, randk, thresholdk), "
-           "A12 (sketchtopk), A5 (none, globaltopk)"),
-          ("selector", ("exact",), "A8 (histogram selector)"),
-          ("num_buckets", (1,), "A8 (bucketed sweeps)"),
-          ("allocation", ("global",), "A9 (density allocation)"),
-          ("overlap", ("none",), "A11 (streaming overlap)"),
-          ("ef_dtype", ("float32",), "A8 (bf16 EF state)"))
+# (field, values the port serves, ROADMAP item that ports the rest)
+_COMMON = (("selector", ("exact",), "A8 (histogram selector)"),
+           ("num_buckets", (1,), "A8 (bucketed sweeps)"),
+           ("allocation", ("global",), "A9 (density allocation)"),
+           ("overlap", ("none",), "A11 (streaming overlap)"),
+           ("ef_dtype", ("float32",), "A8 (bf16 EF state)"))
+_PIPELINE = "A3 (reference pipeline)"
+_LOCAL = (("pipeline", ("fused",), _PIPELINE),) + _COMMON
+# per kind: (where its top-k is decided, the fields it is served at)
+_SLICE = {"topk": ("local", _LOCAL),
+          "regtopk": ("local", _LOCAL),
+          "sketchtopk": ("sketch", (("pipeline", ("fused", "reference"),
+                                     _PIPELINE),) + _COMMON)}
+_UNPORTED_KINDS = {"dgc": "A8", "randk": "A8", "thresholdk": "A8",
+                   "none": "A5", "globaltopk": "A5"}
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for a config
     outside the ported slice (never a silent reroute)."""
-    for field, served, item in _SLICE:
+    if cfg.kind not in _SLICE:
+        item = _UNPORTED_KINDS.get(cfg.kind, "A8")
+        raise NotImplementedError(
+            f"SparsifierConfig.kind={cfg.kind!r} is not ported yet; the "
+            f"port serves {tuple(_SLICE)} (ROADMAP {item})")
+    for field, served, item in _SLICE[cfg.kind][1]:
         val = getattr(cfg, field)
         if val not in served:
             raise NotImplementedError(
-                f"SparsifierConfig.{field}={val!r} is not ported yet; the "
-                f"port serves {served} (ROADMAP {item})")
+                f"SparsifierConfig.{field}={val!r} is not ported yet for "
+                f"kind={cfg.kind!r}; the port serves {served} "
+                f"(ROADMAP {item})")
+
+
+def selection(cfg: SparsifierConfig) -> str:
+    """Where the config's top-k is decided: "local" (each worker selects
+    and ships (value, index) pairs) or "sketch" (one shared mask decoded
+    from the all-reduced CountSketch; values travel alone)."""
+    check_supported(cfg)
+    return _SLICE[cfg.kind][0]
+
+
+def err_key(cfg: SparsifierConfig) -> str:
+    """The error-feedback state's key: "err_prev" on the fused pipeline,
+    "err" on the reference pipeline (as in the reference's layouts)."""
+    return "err_prev" if cfg.pipeline == "fused" else "err"
 
 
 def resolve_k(cfg: SparsifierConfig, j: int) -> int:
@@ -60,9 +90,9 @@ def resolve_k(cfg: SparsifierConfig, j: int) -> int:
 
 
 def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
-    """Zero state of the fused layout for a J-length flat gradient."""
+    """Zero state for a J-length flat gradient."""
     check_supported(cfg)
-    st = {"err_prev": torch.zeros(j, dtype=torch.float32, device=device),
+    st = {err_key(cfg): torch.zeros(j, dtype=torch.float32, device=device),
           "step": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.kind == "regtopk":
         k = resolve_k(cfg, j)
@@ -77,7 +107,10 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     """Sparsify one worker's flat fp32 gradient; omega = its weight w_n.
     ``state`` is only read; the new state holds new buffers."""
     from repro_torch.kernels.compress import ops
-    check_supported(cfg)
+    if selection(cfg) == "sketch":
+        raise RuntimeError("sketchtopk selection is aggregate-level; run "
+                           "it through aggregate.GradientSync (call or "
+                           "round)")
     j = g.numel()
     k = resolve_k(cfg, j)
     kwargs = {}

@@ -1,12 +1,15 @@
-"""The two sweeps of the fused compression pipeline: Hopper kernels and
-their plain PyTorch versions (the port of ``repro.kernels.compress.kernel``).
+"""The compression kernels for Hopper and their plain PyTorch versions
+(the port of ``repro.kernels.compress.kernel``).
 
 Sweep 1 (:func:`sweep1`, kernel ``csrc/sweep1.cu``) reads g and the error
 state once and emits ``a = err + g``, ``score = a * c``, the per-tile amax
 of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|.
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
-static ``MAXPB`` slots.
+static ``MAXPB`` slots. The CountSketch encodes (kernels in
+``csrc/sketch.cu``): :func:`sweep1_sketch` emits ``a = err + g`` and the
+(rows, width) CountSketch of a in one pass, :func:`sketch_encode` the
+sketch of a given a.
 
 Each wrapper checks its inputs and dispatches on the tensors' device: a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel (or
@@ -24,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import sketch as csk
 from repro_torch.core.bigvec import INVALID_IDX, to_u32_bits
 from repro_torch.core.select import hist_tail_bin
 
@@ -106,6 +110,50 @@ def sweep2_plain(score, tau, maxpb: int):
         vals[slot] = keys[rr, ll]
         idx[slot] = to_u32_bits((r0 + rr) * BLOCK + ll)
     return vals, idx, cnt
+
+
+def sketch_encode_plain(a, rows: int, width: int):
+    """CountSketch (rows, width) of a (J,): per row, in element order,
+    sk[r, h_r(i)] += s_r(i) * a_i. On the CPU ``index_add_`` adds in
+    index order, which is the reference's sequential sum bit for bit."""
+    j = a.numel()
+    sk = torch.zeros((rows, width), dtype=torch.float32, device=a.device)
+    step = _PLAIN_ROWS * BLOCK
+    for lo in range(0, j, step):
+        hi = min(j, lo + step)
+        chunk = a[lo:hi]
+        idx = torch.arange(lo, hi, dtype=torch.int64, device=a.device)
+        for r in range(rows):
+            h, pos = csk.row_hash(r, width, idx)
+            sk[r].index_add_(0, h, torch.where(pos, chunk, -chunk))
+    return sk
+
+
+def sweep1_sketch_plain(g, err_prev, rows: int, width: int):
+    a = err_prev + g
+    return a, sketch_encode_plain(a, rows, width)
+
+
+def sketch_error_bound(a, rows: int, width: int):
+    """Per-bucket bound (rows, width) on |sketch - sketch_plain| when the
+    kernel's float atomics add a bucket's contributions in another order
+    than the plain version. Any order of summing n_b terms lies within
+    (n_b - 1) * 2^-24 * sum|contrib| of the exact sum, so two orders lie
+    within twice that of each other; 4 * n_b * 2^-24 * sum|contrib|
+    keeps a factor of two in hand."""
+    j = a.numel()
+    count = torch.zeros((rows, width), dtype=torch.float64, device=a.device)
+    mass = torch.zeros((rows, width), dtype=torch.float64, device=a.device)
+    step = _PLAIN_ROWS * BLOCK
+    for lo in range(0, j, step):
+        hi = min(j, lo + step)
+        mag = a[lo:hi].double().abs()
+        idx = torch.arange(lo, hi, dtype=torch.int64, device=a.device)
+        for r in range(rows):
+            h, _ = csk.row_hash(r, width, idx)
+            count[r].index_add_(0, h, torch.ones_like(mag))
+            mass[r].index_add_(0, h, mag)
+    return 4.0 * count * 2.0 ** -24 * mass
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +255,71 @@ def sweep2(score: torch.Tensor, tau: torch.Tensor, maxpb: int):
     return vals, idx, cnt
 
 
+def _hash_args(rows: int):
+    """The rows' hash constants as host uint32 arrays; the launcher copies
+    them into the kernel's by-value argument."""
+    u32s = ctypes.c_uint * rows
+    return u32s(*csk.MULTS[:rows]), u32s(*csk.ADDS[:rows])
+
+
+def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
+                  width: int):
+    """(a (J,) fp32, CountSketch of a (rows, width) fp32) for g, err_prev
+    (J,) fp32 on one device; a = err_prev + g."""
+    j = g.numel()
+    _check_vec("g", g)
+    _check_vec("err_prev", err_prev, j)
+    if g.device != err_prev.device:
+        raise ValueError("sweep1_sketch: g and err_prev must share a device")
+    csk.check_shape(j, rows, width)
+    if not _on_card(g):
+        return sweep1_sketch_plain(g, err_prev, rows, width)
+    a = torch.empty_like(g)
+    sk = torch.zeros((rows, width), dtype=torch.float32, device=g.device)
+    fn = _lib("sketch").sweep1_sketch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    mults, adds = _hash_args(rows)
+    err = fn(g.data_ptr(), err_prev.data_ptr(), a.data_ptr(), sk.data_ptr(),
+             mults, adds, rows, width, j, _grid(g.device, rows_of(j)),
+             _aligned(g, err_prev, a), _stream(g.device))
+    if err:
+        raise RuntimeError(
+            f"sweep1_sketch kernel launch failed (cudaError {err})")
+    sweep1_sketch.launches += 1
+    return a, sk
+
+
+def sketch_encode(a: torch.Tensor, rows: int, width: int):
+    """CountSketch (rows, width) fp32 of a (J,) fp32."""
+    j = a.numel()
+    _check_vec("a", a)
+    csk.check_shape(j, rows, width)
+    if not _on_card(a):
+        return sketch_encode_plain(a, rows, width)
+    sk = torch.zeros((rows, width), dtype=torch.float32, device=a.device)
+    fn = _lib("sketch").sketch_encode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    mults, adds = _hash_args(rows)
+    err = fn(a.data_ptr(), sk.data_ptr(), mults, adds, rows, width, j,
+             _grid(a.device, rows_of(j)), _aligned(a), _stream(a.device))
+    if err:
+        raise RuntimeError(
+            f"sketch_encode kernel launch failed (cudaError {err})")
+    sketch_encode.launches += 1
+    return sk
+
+
 sweep1.launches = 0
 sweep2.launches = 0
-KERNELS = (sweep1, sweep2)
+sweep1_sketch.launches = 0
+sketch_encode.launches = 0
+KERNELS = (sweep1, sweep2, sweep1_sketch, sketch_encode)
 
 
 def reset_launches() -> None:

@@ -1,5 +1,7 @@
-"""The fused two-sweep compression step for one worker (the port of
-``repro.kernels.compress.ops.fused_compress_arrays``).
+"""The fused compression steps for one worker (the port of
+``repro.kernels.compress.ops``): the two-sweep compressor
+(:func:`fused_compress_arrays`) and sweep 1 with the CountSketch encode
+folded in (:func:`fused_sketch_encode`).
 
     sweep 1:   a, score, histogram             (kernel.sweep1)
     tail scan: tau from the histogram          (O(2048))
@@ -9,9 +11,9 @@
     O(k):      err_prev for the next step = a with the selected slots
                zeroed in place
 
-The slice of the reference this covers: kind in {topk, regtopk}, the
-exact selector, one bucket, fp32 error feedback, every worker
-participating. Anything else raises before any work
+The slice of the reference the compressor covers: kind in {topk,
+regtopk}, the exact selector, one bucket, fp32 error feedback, every
+worker participating. Anything else raises before any work
 (``core.sparsify.check_supported`` names the ROADMAP item).
 
 The reference's ``lax.cond(ok, fast, fallback)`` becomes a host read of
@@ -153,3 +155,13 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
     err = bigvec.scatter_set_(a, idx_k, 0.0)  # a's buffer becomes err_prev
     return {"err": err, "values": values,
             "indices": bigvec.to_u32_bits(idx_k), "fallback": fallback}
+
+
+def fused_sketch_encode(g: torch.Tensor, err_prev: torch.Tensor, *,
+                        rows: int, width: int) -> dict:
+    """The per-worker half of kind="sketchtopk" on the fused pipeline:
+    a = err_prev + g and its (rows, width) CountSketch in one pass over
+    g and err_prev (kernel ``sweep1_sketch``). Returns {"a": (J,) fp32,
+    "sketch": (rows, width) fp32}."""
+    a, sk = pk.sweep1_sketch(g, err_prev, rows, width)
+    return {"a": a, "sketch": sk}

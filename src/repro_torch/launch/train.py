@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --steps 20 --sparsifier regtopk --sparsity 0.01 \
       --comm sparse --pipeline fused --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --sparsifier sketchtopk --device cpu --fixed-batch
 
 Flag names are the reference launcher's (``repro.launch.train``) for what
 the port serves, plus ``--device`` (default: the CUDA card; ``cpu`` runs
@@ -32,6 +34,12 @@ def parse_args(argv=None):
     ap.add_argument("--sparsifier", default="regtopk")
     ap.add_argument("--sparsity", type=float, default=0.01)
     ap.add_argument("--mu", type=float, default=0.5)
+    ap.add_argument("--sketch-rows", type=int, default=3,
+                    help="CountSketch rows for kind='sketchtopk'")
+    ap.add_argument("--sketch-width", type=int, default=0,
+                    help="CountSketch width for kind='sketchtopk'; 0 "
+                         "-> 4*k clamped to [256, 2^22] (warns once at "
+                         "the cap)")
     ap.add_argument("--comm", default="sparse",
                     choices=["simulate", "sparse", "dense"])
     ap.add_argument("--pipeline", default="fused",
@@ -58,7 +66,8 @@ def run_config(args):
         model=cfg, shape=SHAPES["train_4k"],
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu,
-            comm_mode=args.comm, pipeline=args.pipeline),
+            comm_mode=args.comm, pipeline=args.pipeline,
+            sketch_rows=args.sketch_rows, sketch_width=args.sketch_width),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
         seed=args.seed, steps=args.steps, log_every=args.log_every)
 

@@ -7,7 +7,10 @@ Per step:
 2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
 3. GradientSync: fused REGTOP-k/TOP-k compression (the two sweep
    kernels), all-gather of the k (value, index) pairs over the process
-   group, local scatter-add combine, ``observe_aggregate``;
+   group, local scatter-add combine, ``observe_aggregate``; or, for
+   kind="sketchtopk", the CountSketch encode (one sweep kernel), the
+   sketch all-reduce, the shared-mask decode and the values-only
+   all-gather;
 4. ZeRO-1: this rank updates its 1/DP slice of (master, m, v) and the
    master is all-gathered back; the next step's parameters are views
    into that gathered vector (no extra copy).
@@ -36,7 +39,7 @@ from repro_torch.optim import apply_updates, init_opt_state, opt_shard_len
 class TrainState:
     params: dict          # parameter tree (fp32)
     opt: dict             # this rank's ZeRO-1 optimizer slice
-    ef: dict              # sparsifier state (fused layout)
+    ef: dict              # sparsifier state
 
 
 def _as_leaves(tree: dict) -> dict:

@@ -118,3 +118,42 @@ def test_gloo_train_step_matches_in_process_emulation(tmp_path):
         assert not bool(res["jax_imported"])
         assert np.all(np.isfinite(res["losses"]))
         assert np.array_equal(res["params"].view(np.int32), want)
+
+
+@pytest.mark.parametrize("world,data", [(2, "gauss"), (4, "dyadic")])
+def test_gloo_sketch_sync_matches_reference_round(tmp_path, world, data):
+    """kind="sketchtopk" over gloo: the sketch all-reduce, the shared-mask
+    decode and the values-only all-gather against the reference's
+    in-process round. World 4 takes dyadic gradients (k * 2^-8, |k| <=
+    2^10), whose sums are exact in any order, because gloo's all-reduce
+    adds four sketches in its own order. g_agg must be bitwise identical
+    on every rank, and equal the reference's up to the sign of zero: the
+    reference's round sums the dense vectors mask * a, whose unselected
+    entries are -0.0 where every worker's a is negative, while the
+    per-step path scatters into zeros (+0.0)."""
+    rng = np.random.default_rng(10 + world)
+    if data == "gauss":
+        grads = rng.standard_normal((T, world, J)).astype(np.float32)
+    else:
+        grads = (rng.integers(-1024, 1025, (T, world, J))
+                 * 2.0 ** -8).astype(np.float32)
+    ranks = _run_world(tmp_path, "sync", world, grads=grads,
+                       kind="sketchtopk")
+    cfg = JaxSparsifierConfig(kind="sketchtopk", sparsity=SPARSITY,
+                              pipeline="fused", comm_mode="sparse")
+    rnd = jax.jit(lambda sts, gs: JaxGradientSync(cfg, None).round(sts, gs))
+    states = [jsp.init_state(cfg, J) for _ in range(world)]
+    for t in range(T):
+        g_agg, states = rnd(states, [jnp.asarray(g) for g in grads[t]])
+        want = (np.asarray(g_agg) + np.float32(0.0)).view(np.int32)
+        first = ranks[0][f"g_agg_{t}"].view(np.int32)
+        for r, res in enumerate(ranks):
+            got = res[f"g_agg_{t}"]
+            assert np.array_equal(got.view(np.int32), first), (t, r)
+            assert np.array_equal((got + np.float32(0.0)).view(np.int32),
+                                  want), (t, r)
+    for r, res in enumerate(ranks):
+        assert not bool(res["jax_imported"])
+        for key, val in jax.device_get(states[r]).items():
+            assert np.array_equal(res[f"state_{key}"].view(np.int32),
+                                  np.asarray(val).view(np.int32)), (r, key)

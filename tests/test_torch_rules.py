@@ -145,3 +145,63 @@ def test_optimizers_outside_the_slice_raise():
     from repro_torch.optim import init_opt_state
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         init_opt_state(cfgs.OptimizerConfig(kind="sgd"), torch.zeros(4))
+
+
+def test_sketch_card_path_never_calls_the_plain_version(monkeypatch):
+    """The encode kernels (B3, B4) on tensors treated as on the card: a
+    kernel that cannot be loaded raises, the plain versions are never
+    reached and no launch is counted."""
+    plain_calls = []
+    monkeypatch.setattr(pk, "_on_card", lambda x: True)
+    monkeypatch.setattr(pk, "sweep1_sketch_plain",
+                        lambda *a: plain_calls.append("sweep1_sketch"))
+    monkeypatch.setattr(pk, "sketch_encode_plain",
+                        lambda *a: plain_calls.append("sketch_encode"))
+
+    def no_library(name):
+        raise RuntimeError(f"cannot load {name}")
+    monkeypatch.setattr(pk, "_lib", no_library)
+    from repro_torch.core import sketch
+    x = torch.zeros(4096)
+    before = (pk.sweep1_sketch.launches, pk.sketch_encode.launches)
+    with pytest.raises(RuntimeError, match="cannot load sketch"):
+        pk.sweep1_sketch(x, x, 3, 512)
+    with pytest.raises(RuntimeError, match="cannot load sketch"):
+        sketch.encode(x, 3, 512)
+    assert plain_calls == []
+    assert (pk.sweep1_sketch.launches, pk.sketch_encode.launches) == before
+
+
+@pytest.mark.parametrize("fn", ["sweep1_sketch", "sketch_encode"])
+def test_sketch_kernels_on_other_devices_raise(fn):
+    x = torch.zeros(8, device="meta")
+    args = (x, x) if fn == "sweep1_sketch" else (x,)
+    with pytest.raises(RuntimeError, match="no sweep for device"):
+        getattr(pk, fn)(*args, 3, 512)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("num_buckets", 4, "A8"), ("wire_dtype", "bfloat16", "A8"),
+    ("comm_mode", "simulate", "A5"), ("selector", "histogram", "A8"),
+    ("ef_dtype", "bfloat16", "A8"), ("overlap", "backward", "A11"),
+    ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
+    ("kind", "globaltopk", "A5"), ("kind", "none", "A5")])
+def test_sketch_configs_outside_the_slice_raise(field, value, item):
+    for pipeline in ("fused", "reference"):
+        cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline=pipeline,
+                                    comm_mode="sparse")
+        aggregate.GradientSync(cfg)
+        bad = dataclasses.replace(cfg, **{field: value})
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            aggregate.GradientSync(bad)
+
+
+def test_participation_masks_raise():
+    cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline="fused",
+                                comm_mode="sparse")
+    sync = aggregate.GradientSync(cfg)
+    st = sparsify.init_state(cfg, 64, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        sync(st, torch.zeros(64), participate=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        sync.round([st], [torch.zeros(64)], participate=[True])

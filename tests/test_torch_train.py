@@ -31,22 +31,27 @@ LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-5
 
 
-def _run_cfgs(mod, sparsity=0.01, mu=0.5):
+def _run_cfgs(mod, sparsity=0.01, mu=0.5, kind="regtopk"):
     cfg = mod.reduced_config(mod.get_config("stablelm-3b"))
     return mod.RunConfig(
         model=cfg, shape=mod.SHAPES["train_4k"],
-        sparsifier=mod.SparsifierConfig(kind="regtopk", sparsity=sparsity,
+        sparsifier=mod.SparsifierConfig(kind=kind, sparsity=sparsity,
                                         mu=mu, comm_mode="sparse",
                                         pipeline="fused"),
         optimizer=mod.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
         steps=STEPS)
 
 
-def test_three_steps_match_reference():
-    jrun, trun = _run_cfgs(jbase), _run_cfgs(tbase)
+def _batch():
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, 512, (4, 32)).astype(np.int32)
     targets = np.concatenate([tokens[:, 1:], -np.ones((4, 1), np.int32)], 1)
+    return tokens, targets
+
+
+def test_three_steps_match_reference():
+    jrun, trun = _run_cfgs(jbase), _run_cfgs(tbase)
+    tokens, targets = _batch()
     mesh = make_mesh(1, 1)
     pal = build_parallel(mesh)
     with mesh:
@@ -76,6 +81,68 @@ def test_three_steps_match_reference():
     tflat = TreeFlattener(tstate.params).flatten(tstate.params)
     np.testing.assert_allclose(tflat.detach().numpy(), jflat, rtol=0,
                                atol=PARAM_ATOL)
+
+
+def test_three_sketch_steps_match_reference():
+    """The sketch-coordinated path (kind="sketchtopk", fused pipeline)
+    through both train steps. The reference step returns no g_agg, so the
+    support is compared through the error state: err_prev is a with the
+    selected entries zeroed, so its zero set is the selected support
+    together with the entries whose a is exactly zero (embedding rows of
+    tokens not in the batch), which the two models share; the count of
+    nonzero g_agg entries is compared as well."""
+    jrun = _run_cfgs(jbase, kind="sketchtopk")
+    trun = _run_cfgs(tbase, kind="sketchtopk")
+    tokens, targets = _batch()
+    mesh = make_mesh(1, 1)
+    pal = build_parallel(mesh)
+    with mesh:
+        params, opt, ef = jax_init_train_state(jrun, mesh, pal,
+                                               jax.random.PRNGKey(0))
+        step_fn, _, _ = jax_build_train_step(jrun, mesh, pal)
+        jstep = jax.jit(step_fn)
+        tstate = init_train_state(trun, "cpu",
+                                  params=params_from_jax(
+                                      jax.device_get(params)))
+        tstep = build_train_step(trun, "cpu")
+        jbatch = {"tokens": jnp.asarray(tokens),
+                  "targets": jnp.asarray(targets)}
+        tbatch = {"tokens": torch.from_numpy(tokens).long(),
+                  "targets": torch.from_numpy(targets).long()}
+        for t in range(STEPS):
+            params, opt, ef, metrics = jstep(params, opt, ef, jbatch,
+                                             jax.random.PRNGKey(0))
+            tstate, tmetrics = tstep(tstate, tbatch)
+            np.testing.assert_allclose(float(tmetrics["loss"]),
+                                       float(metrics["loss"]),
+                                       rtol=LOSS_RTOL)
+            want = np.asarray(ef["err_prev"]).reshape(-1) == 0
+            got = tstate.ef["err_prev"].numpy() == 0
+            assert np.array_equal(want, got), t
+            j = got.size
+            assert round(float(tmetrics["agg_nonzero"]) * j) == \
+                round(float(metrics["agg_nonzero"]) * j), t
+        jflat = np.asarray(JaxFlattener(params).flatten(params))
+    tflat = TreeFlattener(tstate.params).flatten(tstate.params)
+    np.testing.assert_allclose(tflat.detach().numpy(), jflat, rtol=0,
+                               atol=PARAM_ATOL)
+
+
+def test_sketch_launcher_overfit_loss_falls():
+    from repro_torch.launch.train import main, parse_args, run_config
+    argv = ["--arch", "stablelm-3b", "--smoke", "--sparsifier", "sketchtopk",
+            "--device", "cpu", "--fixed-batch", "--steps", "30",
+            "--batch", "4", "--seq", "32"]
+    run = run_config(parse_args(argv))
+    assert run.sparsifier.kind == "sketchtopk"
+    assert (run.sparsifier.sketch_rows, run.sparsifier.sketch_width) == (3, 0)
+    out = train(run, device="cpu", batch=4, seq=32, fixed_batch=True,
+                log=lambda msg: None)
+    losses = [rec["loss"] for rec in out["history"]]
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 1.0, losses
+    assert main(argv[:-6] + ["--steps", "1", "--batch", "2", "--seq",
+                             "16"]) == 0
 
 
 def test_fixed_batch_overfit_loss_falls():
