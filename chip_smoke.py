@@ -27,13 +27,26 @@ line and raising on any failure:
 7. profile:  one more step of that run under torch.profiler: device time
              by kernel and by stage of the step, and the device busy share;
 8. train_sketch, profile_sketch: the same for the sketchtopk path (fused
-             pipeline), after the REGTOP-k run's state is released.
+             pipeline), after the REGTOP-k run's state is released;
+9. reference_sync: GradientSync on the reference pipeline at J = 2^22,
+             3 steps, card vs CPU copies bitwise (g_agg and every state
+             vector): dense REGTOP-k with the exact selector and sparse
+             comm, with the histogram_kernel selector (sparse degrades to
+             simulate, one warning), and the O(k) layout with simulate
+             comm;
+10. train_reference, profile_reference: the reference launcher's default
+             config (REGTOP-k, reference pipeline, dense posterior, exact
+             selector, simulate comm) through the same launcher, with the
+             dense score and apply kernels launched once per step.
 
 Phase 3 also holds the two CountSketch encodes (kernels_sketch): their a
 with ``torch.equal``, their sketch with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
 ``kernel.sketch_error_bound`` on Gaussian inputs, where the card's float
-atomics add in another order than the plain version.
+atomics add in another order than the plain version; the dense REGTOP-k
+score and apply (kernels_fused_ef, bit patterns equal, over a grid of
+mu, Q and omega with exact zeros of a and zero divisors) and the linear
+histogram (kernels_topk_select, counts equal, beside ``torch.histc``).
 
 The last three lines are the per-kernel summary, the card's name and
 power limit as ``nvidia-smi`` prints them, and the result line.
@@ -66,6 +79,14 @@ SKETCH_ROWS = 3
 MAIN_WIDTH = 3_568_128       # resolve_width(k = 892,032): 4k, under 2^22
 SYNC_STEPS = 3
 TIMING_REPS = 10
+REF_SYNC_J = 1 << 22
+# (mu, Q, omega) grid of the dense REGTOP-k score kernel
+EF_GRID = [(mu, q, w) for mu in (0.1, 0.5) for q in (0.0, 0.3)
+           for w in (1.0, 0.125)]
+# the reference launcher's default sparsifier (repro.launch.train)
+REFERENCE_DEFAULT = dict(kind="regtopk", pipeline="reference",
+                         state_format="dense", selector="exact",
+                         comm_mode="simulate")
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
@@ -75,6 +96,12 @@ KERNEL_META = {
                       "src/repro/kernels/compress/kernel.py:335"),
     "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
                       "src/repro/kernels/compress/kernel.py:321"),
+    "scores": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
+               "src/repro/kernels/fused_ef/kernel.py:29"),
+    "apply": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
+              "src/repro/kernels/fused_ef/kernel.py:47"),
+    "histogram": ("src/repro_torch/kernels/topk_select/csrc/hist.cu",
+                  "src/repro/kernels/topk_select/kernel.py:31"),
 }
 
 
@@ -130,6 +157,31 @@ def max_abs_err(pairs) -> float:
         else:
             err = max(err, float((got.long() - want.long()).abs().max()))
     return err
+
+
+def all_kernels() -> tuple:
+    """Every kernel wrapper of the port (each has a ``launches`` count)."""
+    from repro_torch.kernels.compress import kernel as pk
+    from repro_torch.kernels.fused_ef import kernel as fef
+    from repro_torch.kernels.topk_select import kernel as hk
+    return pk.KERNELS + fef.KERNELS + hk.KERNELS
+
+
+def reset_launches() -> None:
+    for fn in all_kernels():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in all_kernels()}
+
+
+def bits_equal(got, want) -> bool:
+    """Equal bit patterns (NaN and the sign of zero included)."""
+    import torch
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
 
 
 def phase_device() -> str:
@@ -302,7 +354,7 @@ def phase_sketch_sync(dev) -> dict:
         st_c = sparsify.init_state(cfg, COMPRESS_J, cpu)
         gen = torch.Generator(device=cpu).manual_seed(11)
         gaps = []
-        pk.reset_launches()
+        reset_launches()
         for t in range(SYNC_STEPS):
             g = torch.randn(COMPRESS_J, generator=gen)
             a_d, sk_d = sync_d.encode(st_d, g.to(dev))
@@ -321,7 +373,7 @@ def phase_sketch_sync(dev) -> dict:
                 check(torch.equal(got.cpu(), want),
                       f"sketch sync {pipeline} step {t}: {name} differs "
                       "card vs CPU")
-        launches = {fn.__name__: fn.launches for fn in pk.KERNELS}
+        launches = launch_counts()
         enc = "sweep1_sketch" if pipeline == "fused" else "sketch_encode"
         for name, n in launches.items():
             check(n == (SYNC_STEPS if name == enc else 0),
@@ -333,6 +385,193 @@ def phase_sketch_sync(dev) -> dict:
              sketch_bound_share=[s_ for _, s_ in gaps],
              decode_bitwise=True)
         out[pipeline] = launches
+    return out
+
+
+def ef_inputs(dev, j: int, seed: int):
+    """g, err, a_prev, g_agg, s_prev on the card: Gaussian, s_prev 0/1,
+    exact zeros of a = err + g (err = -g) and tiny negative a (-1e-13,
+    whose safe denominator is 0: a division by zero)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(j, generator=gen, device=dev)
+    err = torch.randn(j, generator=gen, device=dev) * 0.1
+    a_prev = torch.randn(j, generator=gen, device=dev)
+    g_agg = torch.randn(j, generator=gen, device=dev) * 0.5
+    s_prev = (torch.rand(j, generator=gen, device=dev) < 0.3).float()
+    n = max(4, j // 4096)
+    zero = torch.randint(0, j, (n,), generator=gen, device=dev)
+    err[zero] = -g[zero]
+    tiny = torch.randint(0, j, (n,), generator=gen, device=dev)
+    g[tiny], err[tiny] = -1e-13, 0.0
+    return g, err, a_prev, g_agg, s_prev
+
+
+def fused_ef_case(dev, j: int, seed: int, timed: bool) -> dict:
+    """B5 (scores) over the (mu, Q, omega) grid and B6 (apply), kernel
+    vs plain on the card, bit patterns equal."""
+    import torch
+    from repro_torch.kernels.fused_ef import kernel as fef
+    ins = ef_inputs(dev, j, seed)
+    err_s = err_a = 0.0
+    zeros = nonfinite = 0
+    for mu, q, w in EF_GRID:
+        kw = dict(omega=w, mu=mu, Q=q)
+        got = fef.scores(*ins, **kw)
+        want = fef.scores_plain(*ins, **kw)
+        for name, x, y in zip(("a", "score"), got, want):
+            check(bits_equal(x, y), f"scores {name} differs at J={j}, "
+                  f"mu={mu} Q={q} omega={w}")
+        err_s = max(err_s, max_abs_err(zip(got, want)))
+        zeros = int((got[0] == 0).sum())
+        nonfinite = int((~torch.isfinite(got[1])).sum())
+        gh = fef.apply(got[0], ins[4])
+        gh_p = fef.apply_plain(got[0], ins[4])
+        for name, x, y in zip(("ghat", "err"), gh, gh_p):
+            check(bits_equal(x, y), f"apply {name} differs at J={j}")
+        err_a = max(err_a, max_abs_err(zip(gh, gh_p)))
+        del got, want, gh, gh_p
+    res = {"j": j, "grid": EF_GRID, "zeros_of_a": zeros,
+           "nonfinite_scores": nonfinite, "scores_err": err_s,
+           "apply_err": err_a}
+    if timed:
+        kw = dict(omega=1.0, mu=MU, Q=0.0)
+        a, _ = fef.scores(*ins, **kw)
+        res["scores_ms"] = cuda_ms(lambda: fef.scores(*ins, **kw))
+        res["scores_plain_ms"] = cuda_ms(lambda: fef.scores_plain(*ins, **kw))
+        res["scores_bytes"] = 28 * j       # read 5 vectors, write 2
+        res["scores_ops"] = 40 * j         # posterior, tanh polynomials
+        res["apply_ms"] = cuda_ms(lambda: fef.apply(a, ins[4]))
+        res["apply_plain_ms"] = cuda_ms(lambda: fef.apply_plain(a, ins[4]))
+        res["apply_bytes"] = 16 * j        # read 2, write 2
+        res["apply_ops"] = 2 * j
+    return res
+
+
+def phase_kernels_fused_ef(dev) -> dict:
+    import torch
+    small = fused_ef_case(dev, RAGGED_J, seed=5, timed=False)
+    emit("kernels_fused_ef_ragged", **small)
+    big = fused_ef_case(dev, MAIN_J, seed=4, timed=True)
+    emit("kernels_fused_ef_main_shape", **big)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big}
+
+
+def hist_inputs(dev, kind: str, j: int, seed: int):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "zeros":
+        return torch.zeros(j, device=dev)
+    if kind == "edges":       # |x| = b / 2048 * 4 exactly: on bin edges
+        b = torch.randint(0, 2049, (j,), generator=gen, device=dev)
+        x = b.float() / 2048 * 4.0
+        x[7] = 4.0
+        sign = torch.rand(j, generator=gen, device=dev) < 0.5
+        return torch.where(sign, -x, x)
+    x = torch.randn(j, generator=gen, device=dev)
+    if kind == "nan":
+        x[torch.randint(0, j, (5,), generator=gen, device=dev)] = float("nan")
+    return x
+
+
+def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
+    """B7 (histogram) kernel vs plain on the card, counts equal, for
+    the amax the op computes (max |x|, NaN if any x is NaN)."""
+    import torch
+    from repro_torch.kernels.topk_select import kernel as hk
+    res = {"j": j, "cases": list(kinds), "histogram_err": 0.0}
+    for i, kind in enumerate(kinds):
+        x = hist_inputs(dev, kind, j, seed + i)
+        amax = x.abs().amax()
+        got, want = hk.histogram(x, amax), hk.histogram_plain(x, amax)
+        check(torch.equal(got, want), f"histogram differs at J={j} ({kind})")
+        check(int(got.sum()) == j, f"histogram mass at J={j} ({kind})")
+        if kind == "nan":
+            nan_amax = hk.histogram(x, torch.tensor(float("nan"), device=dev))
+            check(int(nan_amax[0]) == j, "NaN amax: every entry in bin 0")
+        if timed and kind == "gauss":
+            res["histogram_ms"] = cuda_ms(lambda: hk.histogram(x, amax))
+            res["histogram_plain_ms"] = cuda_ms(
+                lambda: hk.histogram_plain(x, amax))
+            res["histogram_bytes"] = 4 * j + 4 * hk.BINS
+            res["histogram_ops"] = 5 * j  # abs, divide, multiply, convert, clip
+            hi = float(amax)
+            res["histc_ms"] = cuda_ms(lambda: torch.histc(
+                x.abs(), bins=hk.BINS, min=0.0, max=hi))
+            histc = torch.histc(x.abs(), bins=hk.BINS, min=0.0, max=hi)
+            res["histc_differing_bins"] = int(
+                (histc.long() != got.long()).sum())
+        del x, got, want
+    return res
+
+
+def phase_kernels_topk_select(dev) -> dict:
+    import torch
+    small = topk_select_case(dev, RAGGED_J, ("gauss", "zeros", "edges",
+                                             "nan"), seed=7, timed=False)
+    emit("kernels_topk_select_ragged", **small)
+    big = topk_select_case(dev, MAIN_J, ("gauss", "edges"), seed=8,
+                           timed=True)
+    emit("kernels_topk_select_main_shape", **big)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big}
+
+
+REF_SYNC_CASES = (
+    ("dense_exact_sparse", dict(comm_mode="sparse"),
+     {"scores": SYNC_STEPS, "apply": SYNC_STEPS}, 0),
+    ("dense_histogram_kernel_degrade",
+     dict(comm_mode="sparse", selector="histogram_kernel"),
+     {"scores": SYNC_STEPS, "apply": SYNC_STEPS, "histogram": SYNC_STEPS}, 1),
+    ("sparse_state_simulate",
+     dict(comm_mode="simulate", state_format="sparse"), {}, 0),
+)
+
+
+def phase_reference_sync(dev) -> dict:
+    """GradientSync on the reference pipeline on the card and on CPU
+    copies: g_agg and every state vector bitwise, step by step; the
+    launches of each case and its sparse -> simulate warnings."""
+    import warnings
+    import torch
+    from repro_torch.configs.base import SparsifierConfig
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    cpu = torch.device("cpu")
+    out = {}
+    for name, fields, expect, n_warn in REF_SYNC_CASES:
+        cfg = SparsifierConfig(kind="regtopk", sparsity=SPARSITY, mu=MU,
+                               pipeline="reference", **fields)
+        sync_d, sync_c = GradientSync(cfg), GradientSync(cfg)
+        st_d = sparsify.init_state(cfg, REF_SYNC_J, dev)
+        st_c = sparsify.init_state(cfg, REF_SYNC_J, cpu)
+        gen = torch.Generator(device=cpu).manual_seed(13)
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for t in range(SYNC_STEPS):
+                g = torch.randn(REF_SYNC_J, generator=gen)
+                g_d, st_d = sync_d(st_d, g.to(dev), donate=True)
+                g_c, st_c = sync_c(st_c, g)
+                check(bits_equal(g_d.cpu(), g_c),
+                      f"reference sync {name} step {t}: g_agg differs")
+                check(set(st_d) == set(st_c), f"{name}: state keys")
+                for key in st_c:
+                    check(bits_equal(st_d[key].cpu(), st_c[key]),
+                          f"reference sync {name} step {t}: {key} differs "
+                          "card vs CPU")
+        launches = launch_counts()
+        for kname, n in launches.items():
+            check(n == expect.get(kname, 0),
+                  f"reference sync {name}: {kname} launched {n} times")
+        warned = [str(w.message) for w in caught
+                  if issubclass(w.category, RuntimeWarning)]
+        check(len(warned) == n_warn, f"{name}: warnings {warned}")
+        emit("reference_sync", case=name, j=REF_SYNC_J, steps=SYNC_STEPS,
+             comm=sync_d.comm, launches=launches, warnings=warned,
+             state=sorted(st_c), bitwise=True)
+        out[name] = launches
     return out
 
 
@@ -368,47 +607,47 @@ def phase_compress(dev) -> None:
          fallbacks=fallbacks)
 
 
-def phase_train(dev, kind: str, expect: dict, phase: str):
+def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
     """The launcher's train() on StableLM-3B at full width, 8 layers, with
-    sparsifier ``kind``; every kernel's launch count must equal
+    the given sparsifier fields; the loss must be
+    finite and falling and every kernel's launch count must equal
     ``expect`` (the others 0). Returns (launches by kernel, the run, the
     trained state)."""
     import torch
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
                                           SparsifierConfig, get_config)
-    from repro_torch.kernels.compress import kernel as pk
     from repro_torch.launch.train import train
     model = dataclasses.replace(get_config("stablelm-3b"),
                                 n_layers=TRAIN_LAYERS)
     check(model.param_count() == MAIN_J, f"J={model.param_count()}")
     run = RunConfig(
         model=model, shape=SHAPES["train_4k"],
-        sparsifier=SparsifierConfig(kind=kind, sparsity=SPARSITY,
-                                    mu=MU, comm_mode="sparse",
-                                    pipeline="fused",
-                                    sketch_rows=SKETCH_ROWS),
+        sparsifier=SparsifierConfig(**dict(dict(
+            sparsity=SPARSITY, mu=MU, sketch_rows=SKETCH_ROWS), **sparsifier)),
         optimizer=OptimizerConfig(kind="adam", lr=1e-3),
         seed=0, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.reset_peak_memory_stats(dev)
 
     def on_step(rec):
         emit(f"{phase}_step", **rec,
-             **{f"{fn.__name__}_launches": fn.launches for fn in pk.KERNELS
-                if fn.__name__ in expect})
+             **{f"{name}_launches": n for name, n in launch_counts().items()
+                if name in expect})
 
-    pk.reset_launches()
+    reset_launches()
     out = train(run, device=dev, batch=8, seq=128, fixed_batch=True,
                 log=lambda msg: print(msg, file=sys.stderr),
                 on_step=on_step)
-    launches = {fn.__name__: fn.launches for fn in pk.KERNELS}
+    launches = launch_counts()
     losses = [rec["loss"] for rec in out["history"]]
     check(out["params"] == MAIN_J, f"trained J={out['params']}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
     for name, n in launches.items():
         want = expect.get(name, 0)
         check(n == want, f"{phase}: {name} launched {n} times in "
               f"{TRAIN_STEPS} steps, expected {want}")
-    emit(phase, model=model.name, kind=kind, n_layers=TRAIN_LAYERS,
+    emit(phase, model=model.name, sparsifier=dataclasses.asdict(
+             run.sparsifier), n_layers=TRAIN_LAYERS,
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
@@ -419,7 +658,9 @@ def phase_train(dev, kind: str, expect: dict, phase: str):
 STAGES = ("train/loss_grad", "train/flatten", "train/sync",
           "train/optimizer", "compress/sweeps", "compress/trim",
           "compress/fallback", "sync/combine", "sketch/encode",
-          "sketch/allreduce", "sketch/estimate", "sketch/select")
+          "sketch/allreduce", "sketch/estimate", "sketch/select",
+          "compress/scores", "compress/select", "compress/apply",
+          "sync/simulate")
 
 
 def phase_profile(dev, run, state, phase: str) -> None:
@@ -465,15 +706,15 @@ def phase_profile(dev, run, state, phase: str) -> None:
 
 
 def kernel_row(name: str, res: dict, small: dict, launches: int,
-               path: str, parity: str) -> dict:
+               path: str, parity: str, library_ms=None, **extra) -> dict:
     bms, by = bound_ms(res[f"{name}_bytes"], res[f"{name}_ops"])
     source, replaces = KERNEL_META[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(res[f"{name}_err"], small[f"{name}_err"]),
             "ms": res[f"{name}_ms"], "plain_ms": res[f"{name}_plain_ms"],
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "path": path, "parity": parity}
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "path": path, "parity": parity, **extra}
 
 
 def main() -> int:
@@ -487,23 +728,37 @@ def main() -> int:
     phase_build()
     kres = phase_kernels(dev)
     sres = phase_kernels_sketch(dev)
+    eres = phase_kernels_fused_ef(dev)
+    hres = phase_kernels_topk_select(dev)
     phase_compress(dev)
     sync_launches = phase_sketch_sync(dev)
+    ref_launches = phase_reference_sync(dev)
+    fused = dict(comm_mode="sparse", pipeline="fused")
     launches, run, state = phase_train(
-        dev, "regtopk", {"sweep1": TRAIN_STEPS, "sweep2": TRAIN_STEPS},
-        "train")
+        dev, dict(kind="regtopk", **fused),
+        {"sweep1": TRAIN_STEPS, "sweep2": TRAIN_STEPS}, "train")
     phase_profile(dev, run, state, "profile")
     del state
     torch.cuda.empty_cache()
     sk_launches, run, state = phase_train(
-        dev, "sketchtopk", {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
+        dev, dict(kind="sketchtopk", **fused),
+        {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
     phase_profile(dev, run, state, "profile_sketch")
+    del state
+    torch.cuda.empty_cache()
+    ref_train, run, state = phase_train(
+        dev, REFERENCE_DEFAULT, {"scores": TRAIN_STEPS, "apply": TRAIN_STEPS},
+        "train_reference")
+    phase_profile(dev, run, state, "profile_reference")
     del state
     torch.cuda.empty_cache()
     bitwise = "torch.equal on every output"
     atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
                "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")
     big, small = kres["big"], kres["small"]
+    reference = "reference-launcher default train (reference pipeline)"
+    ebig, hbig = eres["big"], hres["big"]
+    histc_same = hbig["histc_differing_bins"] == 0
     rows = [kernel_row("sweep1", big, small, launches["sweep1"],
                        "regtopk train (fused)", bitwise),
             kernel_row("sweep2", big, small, launches["sweep2"],
@@ -514,7 +769,20 @@ def main() -> int:
             kernel_row("sketch_encode", sres["big"], sres["small"],
                        sync_launches["reference"]["sketch_encode"],
                        "sketchtopk GradientSync (reference pipeline)",
-                       atomics)]
+                       atomics),
+            kernel_row("scores", ebig, eres["small"], ref_train["scores"],
+                       reference, "equal bit patterns on every output"),
+            kernel_row("apply", ebig, eres["small"], ref_train["apply"],
+                       reference, "equal bit patterns on every output"),
+            kernel_row("histogram", hbig, hres["small"],
+                       ref_launches["dense_histogram_kernel_degrade"][
+                           "histogram"],
+                       "GradientSync, reference pipeline, "
+                       "selector=histogram_kernel", bitwise,
+                       library_ms=hbig["histc_ms"] if histc_same else None,
+                       library_note=None if histc_same else
+                       "none (torch.histc bins differently: "
+                       f"{hbig['histc_differing_bins']} bins differ)")]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

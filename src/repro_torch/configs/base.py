@@ -68,11 +68,13 @@ SHAPES: dict[str, ShapeConfig] = {
 @dataclass(frozen=True)
 class SparsifierConfig:
     """The paper's knobs (see the reference's docstrings for each field).
-    The port serves kind in {topk, regtopk} with the fused pipeline and
-    kind="sketchtopk" with either pipeline, each with the exact selector,
-    global allocation, one bucket, fp32 EF and the sparse mean combine;
-    the fields past ``Q`` exist to select among the reference's paths and
-    raise for any other value."""
+    The port serves kind in {topk, regtopk} on both pipelines (the fused
+    two-sweep pipeline with the exact selector; the reference pipeline
+    with the exact, histogram and histogram_kernel selectors and either
+    ``state_format``) and kind="sketchtopk" on both with the exact
+    selector; all with global allocation, one bucket, fp32 EF, the mean
+    combine and sparse or simulate comm. The fields past ``Q`` exist to
+    select among the reference's paths and raise for any other value."""
     kind: str = "regtopk"
     sparsity: float = 0.01
     k: int = 0                    # explicit k; 0 -> derive from sparsity
@@ -84,6 +86,8 @@ class SparsifierConfig:
     ef_dtype: str = "float32"
     wire_dtype: str = "float32"
     pipeline: str = "reference"
+    state_format: str = "dense"   # dense | sparse (reference-pipeline
+                                  # REGTOP-k; the fused pipeline ignores it)
     num_buckets: int = 1
     combine: str = "mean"
     overlap: str = "none"

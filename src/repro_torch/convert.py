@@ -38,9 +38,10 @@ def params_to_jax(params: dict) -> dict:
 
 def state_from_jax(state: dict, device="cpu") -> dict:
     """Sparsifier or optimizer state (flat dict of arrays: the fused
-    REGTOP-k/TOP-k layout, or the sketch states ``err_prev``/``err`` and
-    ``step``) -> tensors; uint32 index arrays become int32 views of the
-    same bits."""
+    layout ``err_prev``, the reference layout ``err``, REGTOP-k's dense
+    posterior ``a_prev``/``s_prev``/``g_agg_prev`` or its O(k) one
+    ``idx_prev``/``a_prev_sel``/``g_prev_sel``, and ``step``) -> tensors;
+    uint32 index arrays become int32 views of the same bits."""
     return {key: _to_tensor(val, device) for key, val in state.items()}
 
 

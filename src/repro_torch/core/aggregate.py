@@ -1,21 +1,32 @@
-"""Sparse gradient aggregation over the data-parallel process group (the
-port of ``repro.core.aggregate``, non-elastic sparse mean paths).
+"""Gradient aggregation over the data-parallel process group (the port
+of ``repro.core.aggregate``, non-elastic mean paths).
 
-Local selection (kind topk/regtopk): every rank all-gathers the k
-(value, index) pairs of every rank and scatter-adds them locally, one
-``index_add_`` per rank in rank order, then divides by n. Within a rank
-the k indices are distinct, so each ``index_add_`` is deterministic on
-the card too, and the rank-order sums reproduce the reference's: g_agg
-is identical on every rank, which REGTOP-k's posterior assumes. Comm per
-step is n*k*8 bytes.
+Two communication modes, as in the reference:
+
+- ``sparse`` (local selection, kind topk/regtopk): every rank
+  all-gathers the k (value, index) pairs of every rank and scatter-adds
+  them locally, one ``index_add_`` per rank in rank order, then divides
+  by n. Within a rank the k indices are distinct, so each ``index_add_``
+  is deterministic on the card too, and the rank-order sums reproduce
+  the reference's: g_agg is identical on every rank, which REGTOP-k's
+  posterior assumes. Comm per step is n*k*8 bytes.
+- ``simulate``: every rank all-reduces its dense sparsified gradient
+  ghat (a SUM, then a division by n: the reference's ``pmean``). Exact
+  sparsified-training numerics at dense comm volume. A config whose
+  compress step packs no fixed-size pairs (the reference pipeline's
+  histogram selectors) runs it even when ``comm_mode="sparse"`` asks
+  otherwise, with one RuntimeWarning per (kind, selector, pipeline).
 
 Sketch selection (kind sketchtopk, DESIGN.md §2.9): each rank encodes
 a = err + g into a CountSketch, one all-reduce averages the sketches,
-every rank decodes the same magnitude estimates and so the same top-k
-indices, and only the k values travel (``shared_mask_allgather_combine``,
-n*k*4 bytes); the error feedback closes by zeroing the shared indices of
-a. Which path serves a config is the selection of
-``core.sparsify.selection``; nothing here branches on ``cfg.kind``.
+every rank decodes the same magnitude estimates and so the same top-k,
+and only the k values travel (``shared_mask_allgather_combine``,
+n*k*4 bytes), the error feedback closing by zeroing the shared indices
+of a; in simulate mode the dense masked ghat is all-reduced instead.
+Which path serves a config is the selection of
+``core.sparsify.selection`` and the mode of
+``kernels.compress.dispatch.effective_comm_mode``; nothing here branches
+on ``cfg.kind``.
 
 Without an initialised process group the world is one rank; the same code
 runs and gathers nothing.
@@ -24,6 +35,7 @@ from __future__ import annotations
 
 import functools
 import operator
+import warnings
 from collections import Counter
 
 import torch
@@ -32,6 +44,12 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import bigvec, select, sketch, sparsify
+from repro_torch.kernels.compress import dispatch
+from repro_torch.kernels.fused_ef.ops import fused_apply_mask
+
+# (kind, selector, pipeline) combos already warned about: the sparse ->
+# simulate degrade is surfaced once per config per process
+_DEGRADE_WARNED: set = set()
 
 
 def world(group=None) -> tuple[int, int]:
@@ -46,14 +64,28 @@ def check_supported(cfg: SparsifierConfig) -> None:
     NotImplementedError naming its ROADMAP item."""
     sparsify.check_supported(cfg)
     for field, served, item in (
-            ("comm_mode", "sparse", "A5 (simulate and dense all-reduce)"),
-            ("combine", "mean", "A10 (support combine)"),
-            ("err_decay", 1.0, "A10 (elastic error-feedback decay)"),
-            ("wire_dtype", "float32", "A8 (bf16 wire)")):
-        if getattr(cfg, field) != served:
+            ("comm_mode", ("sparse", "simulate"),
+             "A5 (dense all-reduce)"),
+            ("combine", ("mean",), "A10 (support combine)"),
+            ("err_decay", (1.0,), "A10 (elastic error-feedback decay)"),
+            ("wire_dtype", ("float32",), "A8 (bf16 wire)")):
+        if getattr(cfg, field) not in served:
             raise NotImplementedError(
                 f"SparsifierConfig.{field}={getattr(cfg, field)!r} is not "
                 f"ported yet; the port serves {served!r} (ROADMAP {item})")
+
+
+def _warn_sparse_degrade(cfg: SparsifierConfig) -> None:
+    keyc = (cfg.kind, cfg.selector, cfg.pipeline)
+    if keyc in _DEGRADE_WARNED:
+        return
+    _DEGRADE_WARNED.add(keyc)
+    warnings.warn(
+        f"comm_mode='sparse' with kind={cfg.kind!r} selector={cfg.selector!r}"
+        f" pipeline={cfg.pipeline!r} packs no fixed-size (values, indices)"
+        f" pairs (pipeline={cfg.pipeline!r} requested); degrading to a dense"
+        " simulate all-reduce (effective_comm_mode(cfg) == 'simulate').",
+        RuntimeWarning, stacklevel=3)
 
 
 def _rank_sum(xs):
@@ -69,6 +101,17 @@ def _gather(x: torch.Tensor, group) -> list:
     out = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(out, x, group=group)
     return out
+
+
+def simulate_allreduce(ghat: torch.Tensor, group=None) -> torch.Tensor:
+    """g_agg = (1/n) sum_ranks ghat_r: a SUM all-reduce, then a division
+    by n (the reference's ``pmean``), in place on ``ghat``; over one rank
+    the identity."""
+    n, _ = world(group)
+    if n == 1:
+        return ghat
+    dist.all_reduce(ghat, op=dist.ReduceOp.SUM, group=group)
+    return ghat.div_(n)
 
 
 def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
@@ -98,6 +141,9 @@ class GradientSync:
     ``fallbacks`` counts the compress calls whose trim took the exact
     dense fallback, ``fallback_reasons`` counts them by reason.
 
+    ``comm`` is the communication mode the sync realizes
+    (``dispatch.effective_comm_mode``).
+
     The sketch-coordinated step is three calls, so a caller can feed one
     sketch to two devices: :meth:`encode`, :meth:`allreduce_sketch` and
     :meth:`decode_exchange`."""
@@ -107,6 +153,7 @@ class GradientSync:
         self.cfg = cfg
         self.group = group
         self.selection = sparsify.selection(cfg)
+        self.comm = dispatch.effective_comm_mode(cfg)
         self.fallbacks = 0
         self.fallback_reasons: Counter = Counter()
 
@@ -122,8 +169,12 @@ class GradientSync:
             raise NotImplementedError(
                 "participation masks are not ported yet (ROADMAP A10)")
 
-    def __call__(self, state: dict, g: torch.Tensor, participate=None):
-        """One flat-gradient sync step: returns (g_agg, new_state)."""
+    def __call__(self, state: dict, g: torch.Tensor, participate=None,
+                 donate: bool = False):
+        """One flat-gradient sync step: returns (g_agg, new_state).
+        ``donate=True`` hands the old state to the compressor, which
+        frees its J-vectors as soon as it has read them (the caller must
+        not use ``state`` again)."""
         self._no_participate(participate)
         if self.selection == "sketch":
             a, sk = self.encode(state, g)
@@ -131,11 +182,20 @@ class GradientSync:
                                                  a, state)
             return g_agg, new
         n, _ = world(self.group)
-        out = sparsify.compress(self.cfg, state, g, omega=1.0 / n)
+        j = g.numel()
+        out = sparsify.compress(self.cfg, state, g, omega=1.0 / n,
+                                donate=donate)
         self._count([out])
-        with record_function("sync/combine"):
-            g_agg = sparse_allgather_combine(out.values, out.indices,
-                                             g.numel(), self.group)
+        if self.comm == "sparse":
+            with record_function("sync/combine"):
+                g_agg = sparse_allgather_combine(out.values, out.indices, j,
+                                                 self.group)
+        else:
+            if self.cfg.comm_mode == "sparse":
+                _warn_sparse_degrade(self.cfg)
+            with record_function("sync/simulate"):
+                g_agg = simulate_allreduce(sparsify.dense_ghat(out, j),
+                                           self.group)
         return g_agg, sparsify.observe_aggregate(self.cfg, out.state, g_agg)
 
     # -- sketch coordination --------------------------------------------
@@ -181,18 +241,32 @@ class GradientSync:
 
     def decode_exchange(self, sk_agg: torch.Tensor, a: torch.Tensor,
                         state: dict):
-        """Decode the shared mask from the mean sketch, exchange the k
-        selected values of a and close the error feedback in O(k): the
-        new error state is a with the shared indices zeroed, in place.
-        Returns (g_agg, new_state, shared indices)."""
+        """Decode the shared selection from the mean sketch and combine.
+        Sparse comm: exchange the k selected values of a and close the
+        error feedback in O(k) (a with the shared indices zeroed, in
+        place). Simulate comm: the shared mask through ``topk_mask``,
+        ghat and the error state through the apply kernel, and the dense
+        all-reduce. Returns (g_agg, new_state, the shared indices or,
+        in simulate mode, the shared mask)."""
         j = a.numel()
-        idx = self.decode(sk_agg, j)
-        with record_function("sync/combine"):
-            g_agg = shared_mask_allgather_combine(a[idx], idx, j,
-                                                  self.group)
-            err = bigvec.scatter_set_(a, idx, 0.0)
-        new = {sparsify.err_key(self.cfg): err, "step": state["step"] + 1}
-        return g_agg, new, idx
+        key = sparsify.err_key(self.cfg)
+        if self.comm == "sparse":
+            idx = self.decode(sk_agg, j)
+            with record_function("sync/combine"):
+                g_agg = shared_mask_allgather_combine(a[idx], idx, j,
+                                                      self.group)
+                err = bigvec.scatter_set_(a, idx, 0.0)
+            return g_agg, {key: err, "step": state["step"] + 1}, idx
+        k, _ = self._k_width(j)
+        with record_function("sketch/estimate"):
+            gmag = sketch.estimate(sk_agg, j)
+        with record_function("sketch/select"):
+            mask = select.topk_mask(gmag, k, self.cfg.selector)
+        del gmag
+        with record_function("sync/simulate"):
+            ghat, err = fused_apply_mask(a, mask)
+            g_agg = simulate_allreduce(ghat, self.group)
+        return g_agg, {key: err, "step": state["step"] + 1}, mask
 
     # -- in-process simulation ------------------------------------------
 
@@ -209,8 +283,10 @@ class GradientSync:
         outs = [sparsify.compress(self.cfg, s, g, omega=w)
                 for s, g, w in zip(states, grads, omegas)]
         self._count(outs)
-        g_agg = sum(w * sparsify.dense_ghat(o, j)
-                    for w, o in zip(omegas, outs))
+        # rank order without a leading zero, as the compiled reference
+        # sums (its ``0 +`` is dropped, which keeps the sign of -0.0)
+        g_agg = _rank_sum([w * sparsify.dense_ghat(o, j)
+                           for w, o in zip(omegas, outs)])
         return g_agg, [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                        for o in outs]
 
@@ -226,13 +302,13 @@ class GradientSync:
         else:
             sk_agg = _rank_sum([w * sk for w, (_, sk) in zip(omegas, encs)])
         idx = self.decode(sk_agg, j)
-        mask = torch.zeros(j, dtype=torch.float32, device=idx.device)
-        mask.index_fill_(0, idx, 1.0)
-        ghats = [mask * a for a, _ in encs]
+        mask = bigvec.mask_from_indices(j, idx)
+        applied = [fused_apply_mask(a, mask) for a, _ in encs]
+        ghats = [gh for gh, _ in applied]
         if omegas is None:
             g_agg = _rank_sum(ghats) / n
         else:
             g_agg = _rank_sum([w * gh for w, gh in zip(omegas, ghats)])
         key = sparsify.err_key(self.cfg)
-        return g_agg, [{key: a - gh, "step": st["step"] + 1}
-                       for (a, _), gh, st in zip(encs, ghats, states)]
+        return g_agg, [{key: err, "step": st["step"] + 1}
+                       for (_, err), st in zip(applied, states)]

@@ -47,3 +47,10 @@ def scatter_add_(a: torch.Tensor, idx: torch.Tensor,
                  vals: torch.Tensor) -> torch.Tensor:
     """In place ``a[idx] += vals``."""
     return a.index_add_(0, as_index(idx), vals)
+
+
+def mask_from_indices(j: int, idx: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """(j,) 0/1 mask with ones at idx, on idx's device."""
+    mask = torch.zeros(j, dtype=dtype, device=idx.device)
+    return mask.index_fill_(0, as_index(idx), 1)

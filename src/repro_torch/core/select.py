@@ -1,5 +1,12 @@
 """Top-k selection over flat score vectors (the port's ``repro.core.select``).
 
+Three selectors, as in the reference: ``exact`` (``lax.top_k`` order on
+|score|, exactly k entries), ``histogram`` (threshold at a bin edge of a
+linear magnitude histogram, plain tensor ops) and ``histogram_kernel``
+(the same threshold through the histogram kernel,
+``kernels.topk_select``). The histogram selectors select every entry with
+|score| >= tau, which is at least k of them.
+
 The reference's exact selector is ``lax.top_k``: keys descending, ties
 broken by position ascending. ``torch.topk`` orders ties in no stated
 way (on torch 2.13's CPU build ``topk([1,3,3,2,3], 2)`` returns positions
@@ -10,6 +17,11 @@ explicitly.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import bigvec
+
+HIST_BINS = 2048
+_HIST_CHUNK = 1 << 24    # elements per chunk of linear_histogram
 
 
 def topk_positions(keys: torch.Tensor, k: int) -> torch.Tensor:
@@ -45,3 +57,58 @@ def hist_tail_bin(hist: torch.Tensor, target) -> torch.Tensor:
     ok = tail >= target
     ar = torch.arange(bins, device=hist.device)
     return torch.where(ok, ar, torch.full_like(ar, -1)).max()
+
+
+def topk_mask_exact(score: torch.Tensor, k: int) -> torch.Tensor:
+    """0/1 mask (score's dtype) of the k largest-|score| entries."""
+    idx = topk_indices(score, k)
+    return bigvec.mask_from_indices(score.numel(), idx, score.dtype)
+
+
+def linear_histogram(x: torch.Tensor, amax: torch.Tensor,
+                     bins: int = HIST_BINS) -> torch.Tensor:
+    """(bins,) int32 counts of clip(trunc(|x| / amax * bins), 0, bins-1)
+    for a 0-d fp32 amax, a NaN counted in bin 0 (as XLA converts it).
+    One IEEE division and an exact multiply per entry, as the reference's
+    compiled program bins; chunked over x, so it runs at full J."""
+    hist = torch.zeros(bins, dtype=torch.int64, device=x.device)
+    j = x.numel()
+    for lo in range(0, j, _HIST_CHUNK):
+        q = x[lo:lo + _HIST_CHUNK].float().abs() / amax * bins
+        b = q.clamp_(max=bins - 1).nan_to_num_(nan=0.0).long()
+        hist += torch.bincount(b, minlength=bins)
+    return hist.to(torch.int32)
+
+
+def histogram_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th largest |score| estimated at a linear-histogram bin edge
+    (plain tensor ops): count(|score| >= tau) >= k. amax = max|score|,
+    taken as 1.0 when it is not > 0 (the reference's rule; the kernel's
+    op floors it at 1e-30 instead)."""
+    amax = score.float().abs().amax()
+    amax = torch.where(amax > 0, amax, torch.ones_like(amax))
+    hist = linear_histogram(score, amax)
+    b = hist_tail_bin(hist, k)
+    tau = b.to(torch.float32) / HIST_BINS * amax
+    return torch.where(b >= 0, tau, torch.zeros_like(tau))
+
+
+def topk_mask_histogram(score: torch.Tensor, k: int,
+                        use_kernel: bool = False) -> torch.Tensor:
+    if use_kernel:
+        from repro_torch.kernels.topk_select.ops import histogram_threshold_op
+        tau = histogram_threshold_op(score, k)
+    else:
+        tau = histogram_threshold(score, k)
+    return (score.abs() >= tau).to(score.dtype)
+
+
+def topk_mask(score: torch.Tensor, k: int,
+              method: str = "exact") -> torch.Tensor:
+    if method == "exact":
+        return topk_mask_exact(score, k)
+    if method == "histogram":
+        return topk_mask_histogram(score, k)
+    if method == "histogram_kernel":
+        return topk_mask_histogram(score, k, use_kernel=True)
+    raise ValueError(f"unknown selector {method!r}")

@@ -1,17 +1,37 @@
-"""Gradient sparsifiers: TOP-k and REGTOP-k (the paper, Algorithm 1) on the
-fused two-sweep pipeline, and the state of sketch-coordinated TOP-k (the
-port of ``repro.core.sparsify``).
+"""Gradient sparsifiers: TOP-k and REGTOP-k (the paper, Algorithm 1) on
+both pipelines, and the state of sketch-coordinated TOP-k (the port of
+``repro.core.sparsify``).
 
 Protocol per step (worker n), as in the reference:
 
     out = compress(cfg, state, g, omega)          # local selection
-    g_agg = combine(out.values, out.indices)      # core/aggregate.py
+    g_agg = combine(out)                          # core/aggregate.py
     state = observe_aggregate(cfg, out.state, g_agg)
 
-The fused layout's only J-sized state is ``err_prev`` (= a^{t-1} *
-(1 - s^{t-1})). REGTOP-k's posterior is O(k): ``idx_prev`` (int32 view of
-the uint32 indices, doubling as the support set), ``a_prev_sel`` and
-``g_prev_sel``. kind="sketchtopk" selects at the aggregate level
+REGTOP-k (Algorithm 1):
+    a^t      = eps^t + g^t
+    Delta^t  = s^{t-1} * (g_agg^{t-1} - w_n a^{t-1}) / (w_n a^t)
+               + Q (1 - s^{t-1})
+    s^t      = Top_k( a^t * tanh(|1 + Delta^t| / mu) )
+    ghat^t   = s^t * a^t,   eps^{t+1} = a^t - ghat^t
+with plain TOP-k at t = 0.
+
+Pipelines (``cfg.pipeline``):
+
+- "reference": the dense math above with ``cfg.selector`` (exact,
+  histogram or histogram_kernel). REGTOP-k keeps the dense posterior
+  (``state_format="dense"``: err, a_prev, s_prev, g_agg_prev J-vectors;
+  score and apply through the ``kernels.fused_ef`` kernels) or the O(k)
+  one (``"sparse"``: plain tensor ops, exact top-k whatever the
+  selector). ``CompressOut`` carries the dense ``ghat`` and ``mask``, and
+  packed (values, indices) only where the count is exactly k.
+- "fused": the two-sweep pipeline (``kernels.compress.ops``), exact
+  selector. The only J-sized state is ``err_prev`` (= a^{t-1} *
+  (1 - s^{t-1})); REGTOP-k's posterior is O(k): ``idx_prev`` (int32 view
+  of the uint32 indices, doubling as the support set), ``a_prev_sel``
+  and ``g_prev_sel``.
+
+kind="sketchtopk" selects at the aggregate level
 (``core.aggregate.GradientSync``), so ``compress`` raises for it; its
 state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
 ``step``.
@@ -19,35 +39,43 @@ state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
-from repro_torch.core import bigvec
+from repro_torch.core import bigvec, select
+from repro_torch.core.numerics import (recip_f32, regularizer_factor,
+                                       safe_denom, tanh_f32)
+from repro_torch.kernels.fused_ef import ops as fef
 
 
 @dataclass
 class CompressOut:
     state: dict                  # updated state (pre-aggregation)
-    values: torch.Tensor         # (k,) fp32 packed values, |score| desc
-    indices: torch.Tensor        # (k,) int32 view of uint32 indices
-    fallback: str = ""           # why the trim took the exact dense
+    values: Optional[torch.Tensor]   # (k,) fp32 packed values, |score|
+                                     # desc; None where the count is not k
+    indices: Optional[torch.Tensor]  # (k,) int32 view of uint32 indices
+    fallback: str = ""           # why the fused trim took the exact dense
                                  # fallback ("" = fast path, ops.py)
+    ghat: Optional[torch.Tensor] = None   # dense (J,) mask * a (reference
+                                          # pipeline; None when fused)
+    mask: Optional[torch.Tensor] = None   # dense (J,) 0/1 selection mask
+                                          # (reference pipeline)
 
 
 # (field, values the port serves, ROADMAP item that ports the rest)
-_COMMON = (("selector", ("exact",), "A8 (histogram selector)"),
-           ("num_buckets", (1,), "A8 (bucketed sweeps)"),
+_COMMON = (("num_buckets", (1,), "A8 (bucketed sweeps)"),
            ("allocation", ("global",), "A9 (density allocation)"),
            ("overlap", ("none",), "A11 (streaming overlap)"),
            ("ef_dtype", ("float32",), "A8 (bf16 EF state)"))
-_PIPELINE = "A3 (reference pipeline)"
-_LOCAL = (("pipeline", ("fused",), _PIPELINE),) + _COMMON
-# per kind: (where its top-k is decided, the fields it is served at)
-_SLICE = {"topk": ("local", _LOCAL),
-          "regtopk": ("local", _LOCAL),
-          "sketchtopk": ("sketch", (("pipeline", ("fused", "reference"),
-                                     _PIPELINE),) + _COMMON)}
+_PIPELINES = ("fused", "reference")
+# per kind: where its top-k is decided
+_SLICE = {"topk": "local", "regtopk": "local", "sketchtopk": "sketch"}
+# selectors served per (selection, pipeline); the rest raise A8
+_SELECTORS = {("local", "reference"): ("exact", "histogram",
+                                       "histogram_kernel")}
 _UNPORTED_KINDS = {"dgc": "A8", "randk": "A8", "thresholdk": "A8",
                    "none": "A5", "globaltopk": "A5"}
 
@@ -60,13 +88,18 @@ def check_supported(cfg: SparsifierConfig) -> None:
         raise NotImplementedError(
             f"SparsifierConfig.kind={cfg.kind!r} is not ported yet; the "
             f"port serves {tuple(_SLICE)} (ROADMAP {item})")
-    for field, served, item in _SLICE[cfg.kind][1]:
+    if cfg.pipeline not in _PIPELINES:
+        raise ValueError(f"unknown pipeline {cfg.pipeline!r} "
+                         f"(expected one of {_PIPELINES})")
+    selectors = _SELECTORS.get((_SLICE[cfg.kind], cfg.pipeline), ("exact",))
+    for field, served, item in (("selector", selectors,
+                                 "A8 (histogram selector)"),) + _COMMON:
         val = getattr(cfg, field)
         if val not in served:
             raise NotImplementedError(
                 f"SparsifierConfig.{field}={val!r} is not ported yet for "
-                f"kind={cfg.kind!r}; the port serves {served} "
-                f"(ROADMAP {item})")
+                f"kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port "
+                f"serves {served} (ROADMAP {item})")
 
 
 def selection(cfg: SparsifierConfig) -> str:
@@ -74,7 +107,7 @@ def selection(cfg: SparsifierConfig) -> str:
     and ships (value, index) pairs) or "sketch" (one shared mask decoded
     from the all-reduced CountSketch; values travel alone)."""
     check_supported(cfg)
-    return _SLICE[cfg.kind][0]
+    return _SLICE[cfg.kind]
 
 
 def err_key(cfg: SparsifierConfig) -> str:
@@ -89,37 +122,134 @@ def resolve_k(cfg: SparsifierConfig, j: int) -> int:
     return max(1, int(round(cfg.sparsity * j)))
 
 
+def _dense_posterior(cfg: SparsifierConfig) -> bool:
+    """REGTOP-k's dense posterior layout (reference pipeline,
+    ``state_format="dense"``): a_prev, s_prev and g_agg_prev J-vectors."""
+    return (cfg.kind == "regtopk" and cfg.pipeline == "reference"
+            and cfg.state_format != "sparse")
+
+
 def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
-    """Zero state for a J-length flat gradient."""
+    """Zero state for a J-length flat gradient: the error state
+    (``err_key``) and ``step``; REGTOP-k adds the dense posterior
+    (a_prev, s_prev, g_agg_prev, each (J,)) or the O(k) one (idx_prev,
+    a_prev_sel, g_prev_sel)."""
     check_supported(cfg)
-    st = {err_key(cfg): torch.zeros(j, dtype=torch.float32, device=device),
-          "step": torch.zeros((), dtype=torch.int32, device=device)}
-    if cfg.kind == "regtopk":
+
+    def zeros(n, dtype=torch.float32):
+        return torch.zeros(n, dtype=dtype, device=device)
+    st = {err_key(cfg): zeros(j), "step": zeros((), torch.int32)}
+    if _dense_posterior(cfg):
+        st.update(a_prev=zeros(j), s_prev=zeros(j), g_agg_prev=zeros(j))
+    elif cfg.kind == "regtopk":
         k = resolve_k(cfg, j)
-        st["idx_prev"] = torch.zeros(k, dtype=torch.int32, device=device)
-        st["a_prev_sel"] = torch.zeros(k, dtype=torch.float32, device=device)
-        st["g_prev_sel"] = torch.zeros(k, dtype=torch.float32, device=device)
+        st.update(idx_prev=zeros(k, torch.int32), a_prev_sel=zeros(k),
+                  g_prev_sel=zeros(k))
     return st
 
 
+def _release(state: dict, donate: bool, *keys) -> None:
+    """Drop the caller's J-vectors once they have been read, so that the
+    old and the new state are not alive at once (``donate=True``)."""
+    if donate:
+        for key in keys:
+            state.pop(key, None)
+
+
 def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-             omega: float = 1.0) -> CompressOut:
+             omega: float = 1.0, *, donate: bool = False) -> CompressOut:
     """Sparsify one worker's flat fp32 gradient; omega = its weight w_n.
-    ``state`` is only read; the new state holds new buffers."""
-    from repro_torch.kernels.compress import ops
+    The new state holds new buffers (the reference pipeline's a becomes
+    a_prev as it is). ``state`` is only read, unless ``donate``: then the
+    reference pipeline removes the J-vectors it has consumed from the
+    dict as soon as it has read them, and the caller must not use the
+    old state again."""
     if selection(cfg) == "sketch":
         raise RuntimeError("sketchtopk selection is aggregate-level; run "
                            "it through aggregate.GradientSync (call or "
                            "round)")
-    j = g.numel()
-    k = resolve_k(cfg, j)
+    k = resolve_k(cfg, g.numel())
+    g = g.float()
+    if cfg.pipeline == "fused":
+        return _compress_fused(cfg, state, g, k, omega)
+    if cfg.kind == "regtopk" and not _dense_posterior(cfg):
+        return _compress_regtopk_sparse(cfg, state, g, k, omega, donate)
+    new = {"step": state["step"] + 1}
+    with record_function("compress/scores"):
+        if cfg.kind == "topk":
+            a = state["err"] + g
+            score = a
+        else:
+            a, score = fef.fused_regtopk_scores(
+                g, state["err"], state["a_prev"], state["g_agg_prev"],
+                state["s_prev"], omega=omega, mu=cfg.mu, Q=cfg.Q)
+            # t = 0: plain TOP-k. Not redundant: a * reg with a constant
+            # reg < 1 can round distinct values of a into ties.
+            torch.where(state["step"] == 0, a, score, out=score)
+            new.update(a_prev=a, g_agg_prev=state["g_agg_prev"])
+        _release(state, donate, "err", "a_prev", "s_prev")
+    with record_function("compress/select"):
+        mask, values, indices = _reference_select(cfg, a, score, k)
+    del score
+    with record_function("compress/apply"):
+        ghat, new["err"] = fef.fused_apply_mask(a, mask)
+    if cfg.kind == "regtopk":
+        new["s_prev"] = mask
+    return CompressOut(new, values, indices, ghat=ghat, mask=mask)
+
+
+def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
+                      score: torch.Tensor, k: int):
+    """(mask, values, indices) by cfg.selector over the whole vector;
+    packed pairs only for the exact selector (exactly k entries)."""
+    if cfg.selector != "exact":
+        return select.topk_mask(score, k, cfg.selector), None, None
+    idx = select.topk_indices(score, k)
+    mask = bigvec.mask_from_indices(a.numel(), idx, torch.float32)
+    return mask, a[idx], bigvec.to_u32_bits(idx)
+
+
+def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
+                             g: torch.Tensor, k: int, omega: float,
+                             donate: bool) -> CompressOut:
+    """REGTOP-k with the O(k) posterior (state_format="sparse"): Delta
+    is read at the support of s^{t-1} only, Q everywhere else. Plain
+    tensor ops, exact top-k whatever the selector (as the reference).
+    The dense ghat and mask are left to ``dense_ghat``/``dense_mask``
+    (an O(k) scatter each), which the sparse comm never calls."""
+    with record_function("compress/scores"):
+        a = state["err"] + g
+        _release(state, donate, "err")
+        idx_p = bigvec.as_index(state["idx_prev"])
+        a_sel = a[idx_p]
+        delta = ((state["g_prev_sel"] - omega * state["a_prev_sel"])
+                 / safe_denom(omega * a_sel))
+        reg_sel = tanh_f32((1.0 + delta).abs() * recip_f32(cfg.mu))
+        score = a * regularizer_factor(cfg.Q, cfg.mu)
+        score[idx_p] = a_sel * reg_sel
+        torch.where(state["step"] == 0, a, score, out=score)
+    with record_function("compress/select"):
+        idx = select.topk_indices(score, k)
+    del score
+    values = a[idx]
+    indices = bigvec.to_u32_bits(idx)
+    new = {"err": bigvec.scatter_set_(a, idx, 0.0),   # in place on a
+           "idx_prev": indices, "a_prev_sel": values,
+           "g_prev_sel": state["g_prev_sel"],         # observe_aggregate
+           "step": state["step"] + 1}
+    return CompressOut(new, values, indices)
+
+
+def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
+                    k: int, omega: float) -> CompressOut:
+    from repro_torch.kernels.compress import ops
     kwargs = {}
     if cfg.kind == "regtopk":
         kwargs = dict(idx_prev=state["idx_prev"],
                       a_prev_sel=state["a_prev_sel"],
                       g_prev_sel=state["g_prev_sel"])
     out = ops.fused_compress_arrays(
-        cfg.kind, g.float(), state["err_prev"], state["step"], k=k,
+        cfg.kind, g, state["err_prev"], state["step"], k=k,
         omega=omega, mu=cfg.mu, Q=cfg.Q, **kwargs)
     new = {"err_prev": out["err"], "step": state["step"] + 1}
     if cfg.kind == "regtopk":
@@ -131,14 +261,32 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
 
 def observe_aggregate(cfg: SparsifierConfig, state: dict,
                       g_agg: torch.Tensor) -> dict:
-    """Store the aggregated gradient at the support (REGTOP-k only, O(k)).
-    g_agg must be rank-identical (the sparse combine guarantees it)."""
+    """Store the aggregated gradient REGTOP-k's posterior reads: g_agg
+    itself on the dense layout (no copy; the caller must not write into
+    it), its O(k) gather at the support otherwise. A no-op for the other
+    kinds. g_agg must be rank-identical (both combines guarantee it)."""
     if cfg.kind != "regtopk":
         return state
+    if _dense_posterior(cfg):
+        return dict(state, g_agg_prev=g_agg)
     return dict(state, g_prev_sel=bigvec.gather(g_agg, state["idx_prev"]))
 
 
+def dense_mask(out: CompressOut, j: int) -> torch.Tensor:
+    """Dense 0/1 fp32 selection mask: the reference pipeline's own, or
+    rebuilt from the packed indices by an O(k) scatter."""
+    if out.mask is not None:
+        return out.mask
+    return bigvec.mask_from_indices(j, out.indices, torch.float32)
+
+
 def dense_ghat(out: CompressOut, j: int) -> torch.Tensor:
-    """Dense sparsified gradient rebuilt from the packed pairs."""
+    """Dense sparsified gradient: the reference pipeline's own, or rebuilt
+    from the packed pairs by an O(k) scatter-add into zeros (the
+    reference's scatter-set gives the same bits: the k indices are
+    distinct and a selected value is never -0.0, since a = err + g and
+    no error state holds -0.0)."""
+    if out.ghat is not None:
+        return out.ghat
     ghat = torch.zeros(j, dtype=out.values.dtype, device=out.values.device)
     return bigvec.scatter_add_(ghat, out.indices, out.values)

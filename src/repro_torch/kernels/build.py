@@ -1,13 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library
-with a plain C interface (route (b) of building a kernel: no PyTorch
-headers, so a build takes seconds) and loaded with ``ctypes``. A library
-is built at first use from the checkout's own sources into
-``<repo>/build/kernels`` (listed in ``.gitignore``), under a name keyed by
-a hash of its source, the shared headers and the flags, so an edited
-source is rebuilt and an unchanged one is reused. :func:`build` starts one
-``nvcc`` per source at once and waits for all of them.
+Each kernel source (``<module>/csrc/<name>.cu``, for the modules
+``compress``, ``fused_ef`` and ``topk_select``) is compiled by ``nvcc``
+into a shared library with a plain C interface (route (b) of building a
+kernel: no PyTorch headers, so a build takes seconds) and loaded with
+``ctypes``. A library is built at first use from the checkout's own
+sources into ``<repo>/build/kernels`` (listed in ``.gitignore``), under a
+name keyed by a hash of its source, the headers of its directory and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+:func:`build` starts one ``nvcc`` per source at once and waits for all of
+them.
 
 Nothing here runs at import time: the CPU tests import every module and
 this sandbox has no ``nvcc``.
@@ -23,12 +25,18 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "compress" / "csrc"
+KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("sweep1", "sweep2", "sketch")
+# library name -> the kernel module whose csrc/ holds <name>.cu
+SOURCES = {"sweep1": "compress", "sweep2": "compress", "sketch": "compress",
+           "fused_ef": "fused_ef", "hist": "topk_select"}
+
+
+def csrc(name: str) -> Path:
+    return KERNELS / SOURCES[name] / "csrc"
 
 
 def nvcc_path() -> str:
@@ -37,21 +45,22 @@ def nvcc_path() -> str:
     found = str(cand) if cand.exists() else shutil.which("nvcc")
     if not found:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                           "are built from src/repro_torch/kernels/compress/"
-                           "csrc at first use")
+                           "are built from src/repro_torch/kernels/*/csrc at "
+                           "first use")
     return found
 
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    src = csrc(name)
+    for part in sorted(src.glob("*.cuh")) + [src / f"{name}.cu"]:
         h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict:
+def build(names=tuple(SOURCES)) -> dict:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns {name: ptxas
     report} for the ones compiled here (empty report when reused)."""
@@ -65,7 +74,8 @@ def build(names=SOURCES) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               str(csrc(name) / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -85,7 +95,8 @@ def build(names=SOURCES) -> dict:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``<module>/csrc/<name>.cu``, built first if
+    needed."""
     path = library_path(name)
     if not path.exists():
         build((name,))

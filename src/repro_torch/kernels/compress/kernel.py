@@ -30,6 +30,12 @@ import torch
 from repro_torch.core import sketch as csk
 from repro_torch.core.bigvec import INVALID_IDX, to_u32_bits
 from repro_torch.core.select import hist_tail_bin
+from repro_torch.kernels.common import (aligned as _aligned,
+                                        check_launch as _check_launch,
+                                        check_vec as _check_vec,
+                                        grid as _grid, lib as _lib,
+                                        on_card as _on_card,
+                                        stream as _stream)
 
 BLOCK = 4096             # elements per tile (the reference's grid step)
 BINS = 2048              # 2^11 bit-pattern bins: exponent + 3 mantissa bits
@@ -160,40 +166,6 @@ def sketch_error_bound(a, rows: int, width: int):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise RuntimeError(f"no sweep for device {x.device} (cuda | cpu)")
-
-
-def _check_vec(name, x, n=None, dtype=torch.float32):
-    if x.dtype != dtype or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous 1-D {dtype} tensor, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    if n is not None and x.numel() != n:
-        raise ValueError(f"{name}: expected {n} elements, got {x.numel()}")
-
-
-def _grid(dev: torch.device, rows: int) -> int:
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(rows, 4 * sms))
-
-
-def _aligned(*xs) -> int:
-    return int(all(x.data_ptr() % 16 == 0 for x in xs))
-
-
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _lib(name: str):
-    from repro_torch.kernels import build
-    return build.load(name)
-
-
 def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor):
     """(a, score, amax (rows,), hist (2048,) int32) for g, err_prev (J,)
     fp32 and c (1,) fp32, all on one device."""
@@ -218,8 +190,7 @@ def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor):
              score.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
              _grid(g.device, rows), _aligned(g, err_prev, a, score),
              _stream(g.device))
-    if err:
-        raise RuntimeError(f"sweep1 kernel launch failed (cudaError {err})")
+    _check_launch("sweep1", err)
     sweep1.launches += 1
     return a, score, amax, hist
 
@@ -249,8 +220,7 @@ def sweep2(score: torch.Tensor, tau: torch.Tensor, maxpb: int):
     err = fn(score.data_ptr(), tau.data_ptr(), vals.data_ptr(),
              idx.data_ptr(), cnt.data_ptr(), j, maxpb, _aligned(score),
              _stream(score.device))
-    if err:
-        raise RuntimeError(f"sweep2 kernel launch failed (cudaError {err})")
+    _check_launch("sweep2", err)
     sweep2.launches += 1
     return vals, idx, cnt
 
@@ -285,9 +255,7 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     err = fn(g.data_ptr(), err_prev.data_ptr(), a.data_ptr(), sk.data_ptr(),
              mults, adds, rows, width, j, _grid(g.device, rows_of(j)),
              _aligned(g, err_prev, a), _stream(g.device))
-    if err:
-        raise RuntimeError(
-            f"sweep1_sketch kernel launch failed (cudaError {err})")
+    _check_launch("sweep1_sketch", err)
     sweep1_sketch.launches += 1
     return a, sk
 
@@ -308,9 +276,7 @@ def sketch_encode(a: torch.Tensor, rows: int, width: int):
     mults, adds = _hash_args(rows)
     err = fn(a.data_ptr(), sk.data_ptr(), mults, adds, rows, width, j,
              _grid(a.device, rows_of(j)), _aligned(a), _stream(a.device))
-    if err:
-        raise RuntimeError(
-            f"sketch_encode kernel launch failed (cudaError {err})")
+    _check_launch("sketch_encode", err)
     sketch_encode.launches += 1
     return sk
 

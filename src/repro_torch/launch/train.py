@@ -2,17 +2,21 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --steps 20 --sparsifier regtopk --sparsity 0.01 \
-      --comm sparse --pipeline fused --fixed-batch --device cpu
+      --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --steps 20 --comm sparse --pipeline fused --fixed-batch \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --sparsifier sketchtopk --device cpu --fixed-batch
 
-Flag names are the reference launcher's (``repro.launch.train``) for what
-the port serves, plus ``--device`` (default: the CUDA card; ``cpu`` runs
-the plain PyTorch path). Configs the port does not serve yet raise
-NotImplementedError naming their ROADMAP item. The body is
-:func:`train`, which takes a ``RunConfig``, so a caller can pass a config
-the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut to 8
-layers). It runs one process; a caller that has initialised
+Flag names and defaults are the reference launcher's
+(``repro.launch.train``: simulate comm, the reference pipeline, the exact
+selector) for what the port serves, plus ``--device`` (default: the CUDA
+card; ``cpu`` runs the plain PyTorch path). Configs the port does not
+serve yet raise NotImplementedError naming their ROADMAP item. The body
+is :func:`train`, which takes a ``RunConfig``, so a caller can pass a
+config the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut
+in depth). It runs one process; a caller that has initialised
 ``torch.distributed`` passes its group.
 """
 from __future__ import annotations
@@ -40,10 +44,17 @@ def parse_args(argv=None):
                     help="CountSketch width for kind='sketchtopk'; 0 "
                          "-> 4*k clamped to [256, 2^22] (warns once at "
                          "the cap)")
-    ap.add_argument("--comm", default="sparse",
+    ap.add_argument("--comm", default="simulate",
                     choices=["simulate", "sparse", "dense"])
-    ap.add_argument("--pipeline", default="fused",
+    ap.add_argument("--pipeline", default="reference",
                     choices=["reference", "fused"])
+    ap.add_argument("--selector", default="exact",
+                    choices=["exact", "histogram"],
+                    help="top-k selection rule: exact lax.top_k order, or "
+                         "threshold selection at a linear-histogram bin "
+                         "edge (reference pipeline; packs no pairs, so "
+                         "--comm sparse degrades to simulate with a "
+                         "warning)")
     ap.add_argument("--optimizer", default="adam")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
@@ -67,7 +78,8 @@ def run_config(args):
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu,
             comm_mode=args.comm, pipeline=args.pipeline,
-            sketch_rows=args.sketch_rows, sketch_width=args.sketch_width),
+            selector=args.selector, sketch_rows=args.sketch_rows,
+            sketch_width=args.sketch_width),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
         seed=args.seed, steps=args.steps, log_every=args.log_every)
 

@@ -5,12 +5,16 @@ Per step:
 
 1. loss and gradient of the model (autograd over the parameter tree);
 2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
-3. GradientSync: fused REGTOP-k/TOP-k compression (the two sweep
-   kernels), all-gather of the k (value, index) pairs over the process
-   group, local scatter-add combine, ``observe_aggregate``; or, for
-   kind="sketchtopk", the CountSketch encode (one sweep kernel), the
-   sketch all-reduce, the shared-mask decode and the values-only
-   all-gather;
+3. GradientSync: REGTOP-k/TOP-k compression, on the fused pipeline
+   (the two sweep kernels) or the reference pipeline (the dense score
+   and apply kernels, a selector), then the all-gather of the k (value,
+   index) pairs and a local scatter-add combine (sparse comm) or the
+   all-reduce of the dense ghat (simulate comm), ``observe_aggregate``;
+   or, for kind="sketchtopk", the CountSketch encode, the sketch
+   all-reduce, the shared-mask decode and the values-only all-gather.
+   The step hands the old sparsifier state to the sync (donates it), so
+   the reference pipeline's dense J-vectors are freed as soon as the
+   compressor has read them: the old TrainState's ``ef`` is consumed;
 4. ZeRO-1: this rank updates its 1/DP slice of (master, m, v) and the
    master is all-gathered back; the next step's parameters are views
    into that gathered vector (no extra copy).
@@ -75,7 +79,8 @@ def init_train_state(run: RunConfig, device=None, group=None,
 
 class TrainStep:
     """``step(state, batch) -> (state, metrics)``. Metrics are device
-    tensors (reading them is the caller's choice of host sync).
+    tensors (reading them is the caller's choice of host sync). The old
+    state's sparsifier state is consumed (``state.ef`` becomes None).
     ``gsync.fallbacks`` counts the steps whose trim took the exact
     fallback."""
 
@@ -99,7 +104,8 @@ class TrainStep:
             del grads
             gnorm_local = torch.linalg.vector_norm(g)
         with record_function("train/sync"):
-            g_agg, ef = self.gsync(state.ef, g)
+            ef, state.ef = state.ef, None
+            g_agg, ef = self.gsync(ef, g, donate=True)
             del g
         with record_function("train/optimizer"):
             shard = opt_shard_len(flat.total, n)

@@ -115,7 +115,7 @@ def test_other_devices_raise():
     ("selector", "histogram", "A8"), ("num_buckets", 4, "A8"),
     ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
     ("ef_dtype", "bfloat16", "A8"), ("kind", "dgc", "A8"),
-    ("pipeline", "reference", "A3"), ("comm_mode", "simulate", "A5"),
+    ("comm_mode", "dense", "A5"), ("kind", "none", "A5"),
     ("combine", "support", "A10"), ("wire_dtype", "bfloat16", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
     cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
@@ -182,7 +182,7 @@ def test_sketch_kernels_on_other_devices_raise(fn):
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_buckets", 4, "A8"), ("wire_dtype", "bfloat16", "A8"),
-    ("comm_mode", "simulate", "A5"), ("selector", "histogram", "A8"),
+    ("comm_mode", "dense", "A5"), ("selector", "histogram", "A8"),
     ("ef_dtype", "bfloat16", "A8"), ("overlap", "backward", "A11"),
     ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
     ("kind", "globaltopk", "A5"), ("kind", "none", "A5")])
@@ -205,3 +205,45 @@ def test_participation_masks_raise():
         sync(st, torch.zeros(64), participate=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         sync.round([st], [torch.zeros(64)], participate=[True])
+
+
+def test_reference_kernels_card_path_never_calls_the_plain_version(
+        monkeypatch):
+    """B5 (scores), B6 (apply) and B7 (histogram) on tensors treated as on
+    the card: a kernel that cannot be loaded raises, the plain versions
+    are never reached and no launch is counted."""
+    from repro_torch.kernels.fused_ef import kernel as fef
+    from repro_torch.kernels.topk_select import kernel as hk
+    plain_calls = []
+    for mod, names in ((fef, ("scores_plain", "apply_plain")),
+                       (hk, ("histogram_plain",))):
+        monkeypatch.setattr(mod, "on_card", lambda x: True)
+
+        def no_library(name):
+            raise RuntimeError(f"cannot load {name}")
+        monkeypatch.setattr(mod, "lib", no_library)
+        for name in names:
+            monkeypatch.setattr(mod, name,
+                                lambda *a, _n=name, **k: plain_calls.append(_n))
+    x = torch.zeros(4096)
+    before = (fef.scores.launches, fef.apply.launches, hk.histogram.launches)
+    with pytest.raises(RuntimeError, match="cannot load fused_ef"):
+        fef.scores(x, x, x, x, x, omega=1.0, mu=0.5, Q=0.0)
+    with pytest.raises(RuntimeError, match="cannot load fused_ef"):
+        fef.apply(x, x)
+    with pytest.raises(RuntimeError, match="cannot load hist"):
+        hk.histogram(x, torch.ones(()))
+    assert plain_calls == []
+    assert (fef.scores.launches, fef.apply.launches,
+            hk.histogram.launches) == before
+
+
+def test_reference_kernels_on_other_devices_raise():
+    from repro_torch.kernels.fused_ef import kernel as fef
+    from repro_torch.kernels.topk_select import kernel as hk
+    x = torch.zeros(8, device="meta")
+    for call in (lambda: fef.scores(x, x, x, x, x, omega=1.0, mu=0.5, Q=0.0),
+                 lambda: fef.apply(x, x),
+                 lambda: hk.histogram(x, torch.ones((), device="meta"))):
+        with pytest.raises(RuntimeError, match="no sweep for device"):
+            call()

@@ -1,6 +1,8 @@
 """The port's data-parallel training step against the reference's
 ``build_train_step`` on a 1x1 mesh: reduced StableLM-3B, REGTOP-k fused
-sparse sync, Adam, one fixed numpy batch, the same initial weights."""
+sparse sync, sketchtopk, and the reference launcher's default config
+(REGTOP-k on the reference pipeline, dense posterior, simulate comm),
+Adam, one fixed numpy batch, the same initial weights."""
 import numpy as np
 import pytest
 
@@ -31,13 +33,14 @@ LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-5
 
 
-def _run_cfgs(mod, sparsity=0.01, mu=0.5, kind="regtopk"):
+def _run_cfgs(mod, sparsity=0.01, mu=0.5, kind="regtopk",
+              comm_mode="sparse", pipeline="fused"):
     cfg = mod.reduced_config(mod.get_config("stablelm-3b"))
     return mod.RunConfig(
         model=cfg, shape=mod.SHAPES["train_4k"],
         sparsifier=mod.SparsifierConfig(kind=kind, sparsity=sparsity,
-                                        mu=mu, comm_mode="sparse",
-                                        pipeline="fused"),
+                                        mu=mu, comm_mode=comm_mode,
+                                        pipeline=pipeline),
         optimizer=mod.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
         steps=STEPS)
 
@@ -154,3 +157,74 @@ def test_fixed_batch_overfit_loss_falls():
     losses = [rec["loss"] for rec in out["history"]]
     assert all(np.isfinite(losses))
     assert losses[-1] < losses[0] - 1.0, losses
+
+
+def test_three_default_config_steps_match_reference():
+    """The reference launcher's default config, SparsifierConfig(kind=
+    "regtopk", pipeline="reference", state_format="dense", selector=
+    "exact", comm_mode="simulate"): 3 steps through both train steps.
+    The selection is compared through s_prev (the step's dense mask),
+    loss and params within the tolerances above."""
+    kw = dict(comm_mode="simulate", pipeline="reference")
+    jrun, trun = _run_cfgs(jbase, **kw), _run_cfgs(tbase, **kw)
+    assert trun.sparsifier.state_format == "dense"
+    assert trun.sparsifier.selector == "exact"
+    tokens, targets = _batch()
+    mesh = make_mesh(1, 1)
+    pal = build_parallel(mesh)
+    with mesh:
+        params, opt, ef = jax_init_train_state(jrun, mesh, pal,
+                                               jax.random.PRNGKey(0))
+        step_fn, _, _ = jax_build_train_step(jrun, mesh, pal)
+        jstep = jax.jit(step_fn)
+        tstate = init_train_state(trun, "cpu",
+                                  params=params_from_jax(
+                                      jax.device_get(params)))
+        tstep = build_train_step(trun, "cpu")
+        jbatch = {"tokens": jnp.asarray(tokens),
+                  "targets": jnp.asarray(targets)}
+        tbatch = {"tokens": torch.from_numpy(tokens).long(),
+                  "targets": torch.from_numpy(targets).long()}
+        for t in range(STEPS):
+            params, opt, ef, metrics = jstep(params, opt, ef, jbatch,
+                                             jax.random.PRNGKey(0))
+            old = tstate
+            tstate, tmetrics = tstep(tstate, tbatch)
+            assert old.ef is None          # the step consumed it
+            np.testing.assert_allclose(float(tmetrics["loss"]),
+                                       float(metrics["loss"]),
+                                       rtol=LOSS_RTOL)
+            want = np.nonzero(np.asarray(ef["s_prev"]).reshape(-1))[0]
+            got = np.nonzero(tstate.ef["s_prev"].numpy())[0]
+            assert np.array_equal(want, got), t
+            assert set(tstate.ef) == {"err", "a_prev", "s_prev",
+                                      "g_agg_prev", "step"}
+        jflat = np.asarray(JaxFlattener(params).flatten(params))
+    tflat = TreeFlattener(tstate.params).flatten(tstate.params)
+    np.testing.assert_allclose(tflat.detach().numpy(), jflat, rtol=0,
+                               atol=PARAM_ATOL)
+
+
+def test_launcher_defaults_are_the_references_and_overfit():
+    """The launcher's defaults are the reference launcher's (simulate
+    comm, reference pipeline, exact selector); at those defaults the loss
+    falls on a fixed batch, and --selector histogram runs too."""
+    from repro.launch.train import parse_args as jax_parse_args
+    from repro_torch.launch.train import main, parse_args, run_config
+    argv = ["--arch", "stablelm-3b", "--smoke"]
+    ours, theirs = parse_args(argv), jax_parse_args(argv)
+    for name in ("comm", "pipeline", "selector", "sparsifier", "sparsity",
+                 "mu", "steps", "batch", "seq"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    run = run_config(parse_args(argv + ["--device", "cpu", "--steps", "30"]))
+    sp = run.sparsifier
+    assert (sp.kind, sp.pipeline, sp.state_format, sp.selector,
+            sp.comm_mode) == ("regtopk", "reference", "dense", "exact",
+                              "simulate")
+    out = train(run, device="cpu", batch=4, seq=32, fixed_batch=True,
+                log=lambda msg: None)
+    losses = [rec["loss"] for rec in out["history"]]
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 1.0, losses
+    assert main(argv + ["--selector", "histogram", "--device", "cpu",
+                        "--steps", "2", "--batch", "2", "--seq", "16"]) == 0

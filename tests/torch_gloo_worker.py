@@ -24,10 +24,15 @@ from repro_torch.core.flatten import TreeFlattener  # noqa: E402
 
 
 def sparsifier(data) -> cfgs.SparsifierConfig:
+    """The config of the inputs; pipeline and comm_mode default to the
+    fused pipeline's sparse comm."""
+    def opt(key, default):
+        return str(data[key]) if key in data else default
     return cfgs.SparsifierConfig(kind=str(data["kind"]),
                                  sparsity=float(data["sparsity"]),
-                                 mu=float(data["mu"]), pipeline="fused",
-                                 comm_mode="sparse")
+                                 mu=float(data["mu"]),
+                                 pipeline=opt("pipeline", "fused"),
+                                 comm_mode=opt("comm_mode", "sparse"))
 
 
 def run_sync(rank: int, data) -> dict:
