@@ -42,11 +42,19 @@ line and raising on any failure:
 Phase 3 also holds the two CountSketch encodes (kernels_sketch): their a
 with ``torch.equal``, their sketch with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
-``kernel.sketch_error_bound`` on Gaussian inputs, where the card's float
-atomics add in another order than the plain version; the dense REGTOP-k
-score and apply (kernels_fused_ef, bit patterns equal, over a grid of
-mu, Q and omega with exact zeros of a and zero divisors) and the linear
-histogram (kernels_topk_select, counts equal, beside ``torch.histc``).
+``kernel.sketch_error_bound`` on Gaussian inputs, where the card's
+atomics add in another order than the plain version, at the ragged J
+(widths 512, below the partition width and not a multiple of it, 1 and
+3 rows) and at the main shape; for the partitioned encode B3 also its
+start table against the plain one, whether two runs give the same bits,
+its chunks and pair buffer, and each pass timed alone for two partition
+widths. Then the dense REGTOP-k score and apply (kernels_fused_ef, bit
+patterns equal, over a grid of mu, Q and omega with exact zeros of a and
+zero divisors) and the linear histogram (kernels_topk_select, counts
+equal, on Gaussian, zero, edge, NaN and concentrated inputs and on every
+bin edge and its fp32 neighbours for four amax values, the floor
+included; timed beside ``torch.histc`` and step by step through its
+redesign on the Gaussian and the concentrated input).
 
 The last three lines are the per-kernel summary, the card's name and
 power limit as ``nvidia-smi`` prints them, and the result line.
@@ -80,6 +88,17 @@ MAIN_WIDTH = 3_568_128       # resolve_width(k = 892,032): 4k, under 2^22
 SYNC_STEPS = 3
 TIMING_REPS = 10
 REF_SYNC_J = 1 << 22
+# B3 at widths below the partition width 2^14 and not divisible by it
+SKETCH_EXTRA_WIDTHS = (1000, (1 << 14) + 1, 100_003)
+# B3's partition widths (log2), timed side by side
+SKETCH_SHIFTS = (14, 15)
+# amax values of B7's edge-neighbour input; 0.0 is floored to f32(1e-30)
+HIST_EDGE_AMAX = (1.0, 4.0, 3.7e-3, 0.0)
+HIST_STEPS = (0, 1, 2, 3)
+# the redesigned kernels' times before their redesign, from this script on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table; B7's first
+# design is also measured in this run, as hist_launch_step 0)
+EARLIER_MS = {"sweep1_sketch": 64.864, "histogram": 7.185}
 # (mu, Q, omega) grid of the dense REGTOP-k score kernel
 EF_GRID = [(mu, q, w) for mu in (0.1, 0.5) for q in (0.0, 0.3)
            for w in (1.0, 0.125)]
@@ -92,7 +111,7 @@ KERNEL_META = {
                "src/repro/kernels/compress/kernel.py:78"),
     "sweep2": ("src/repro_torch/kernels/compress/csrc/sweep2.cu",
                "src/repro/kernels/compress/kernel.py:223"),
-    "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
+    "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
                       "src/repro/kernels/compress/kernel.py:335"),
     "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
                       "src/repro/kernels/compress/kernel.py:321"),
@@ -278,14 +297,20 @@ def sketch_gap(sk, sk_plain, a) -> tuple[float, float]:
     return float(d.max()), share
 
 
-def sketch_case(dev, j: int, width: int, seed: int, timed: bool) -> dict:
+def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
+                rows: int = SKETCH_ROWS) -> dict:
     """Both CountSketch encodes at flat length j, kernel vs plain, on
     dyadic inputs (bitwise) and on Gaussian inputs (a bitwise, the
-    sketch within the atomics bound)."""
+    sketch within the atomics bound); B3's count kernel against its
+    plain table, its plan, and whether two runs give the same bits."""
     import torch
     from repro_torch.kernels.compress import kernel as pk
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = SKETCH_ROWS
+    if not timed:     # the plain table walks every tile: small J only
+        starts = pk.sketch_starts(dev, j, rows, width).int() & 0xFFFF
+        want = pk.sketch_starts_plain(j, rows, width, device=dev) & 0xFFFF
+        check(torch.equal(starts, want.int()),
+              f"sweep1_sketch start table differs at J={j}, width={width}")
     g, err = dyadic(gen, j, dev), dyadic(gen, j, dev)
     a, sk = pk.sweep1_sketch(g, err, rows, width)
     a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
@@ -303,11 +328,17 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool) -> dict:
     check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j}")
     err1, share1 = sketch_gap(sk, sk_p, a_p)
     err4, share4 = sketch_gap(pk.sketch_encode(a, rows, width), sk_p, a_p)
+    _, sk2 = pk.sweep1_sketch(g, err, rows, width)
+    plan = pk.sketch_plan(j, rows, width)
     res = {"j": j, "rows": rows, "width": width, "dyadic_bitwise": True,
            "sweep1_sketch_err": err1, "sweep1_sketch_bound_share": share1,
            "sketch_encode_err": err4, "sketch_encode_bound_share": share4,
+           "sweep1_sketch_deterministic": bits_equal(sk, sk2),
+           "sweep1_sketch_chunks": plan["nchunks"],
+           "sweep1_sketch_parts": plan["parts"],
+           "sweep1_sketch_pair_buffer_bytes": plan["pair_bytes"],
            "atomics": rows * j}
-    del a_p, sk, sk_p
+    del a_p, sk, sk2, sk_p
     if timed:
         res["sweep1_sketch_ms"] = cuda_ms(
             lambda: pk.sweep1_sketch(g, err, rows, width))
@@ -315,6 +346,18 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool) -> dict:
             lambda: pk.sweep1_sketch_plain(g, err, rows, width))
         res["sweep1_sketch_bytes"] = 12 * j + 4 * rows * width
         res["sweep1_sketch_ops"] = j + rows * j   # add, one add per row
+        # the partitioned design's own traffic: g, err, a and the pairs
+        # written and read (6 B each)
+        res["sweep1_sketch_design_bytes"] = 12 * j + 12 * rows * j
+        res["sweep1_sketch_variants_ms"] = {
+            f"R=2^{shift}": {
+                "both": cuda_ms(lambda: pk.sweep1_sketch_card(
+                    g, err, rows, width, shift)),
+                "pass1": cuda_ms(lambda: pk.sweep1_sketch_card(
+                    g, err, rows, width, shift, passes=1)),
+                "pass2": cuda_ms(lambda: pk.sweep1_sketch_card(
+                    g, err, rows, width, shift, passes=2))}
+            for shift in SKETCH_SHIFTS}
         res["sketch_encode_ms"] = cuda_ms(
             lambda: pk.sketch_encode(a, rows, width))
         res["sketch_encode_plain_ms"] = cuda_ms(
@@ -326,10 +369,16 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool) -> dict:
 
 def phase_kernels_sketch(dev) -> dict:
     import torch
+    from repro_torch.kernels.compress import kernel as pk
     small = sketch_case(dev, RAGGED_J, 512, seed=3, timed=False)
     emit("kernels_sketch_ragged", **small)
+    for i, width in enumerate(SKETCH_EXTRA_WIDTHS):
+        for rows in (1, SKETCH_ROWS):
+            emit("kernels_sketch_ragged", **sketch_case(
+                dev, RAGGED_J, width, seed=20 + i, timed=False, rows=rows))
     big = sketch_case(dev, MAIN_J, MAIN_WIDTH, seed=2, timed=True)
     emit("kernels_sketch_main_shape", **big)
+    pk.clear_sketch_tables()     # the train phases count their own
     torch.cuda.empty_cache()
     return {"small": small, "big": big}
 
@@ -472,36 +521,75 @@ def hist_inputs(dev, kind: str, j: int, seed: int):
     x = torch.randn(j, generator=gen, device=dev)
     if kind == "nan":
         x[torch.randint(0, j, (5,), generator=gen, device=dev)] = float("nan")
+    if kind == "concentrated":  # gradient-like: most |x| in bins 0-1
+        x *= 1e-3
+        x[torch.randint(0, j, (64,), generator=gen, device=dev)] = 2.0
     return x
+
+
+def edge_neighbour_input(dev, j: int, raw_amax: float):
+    """Every interior bin edge t_b of amax' = max(raw_amax, 1e-30), its
+    two fp32 neighbours, their negatives and amax' itself, repeated to
+    length j: the values where a bin without a division could go
+    wrong."""
+    import torch
+    from repro_torch.kernels.topk_select import kernel as hk
+    amax = torch.tensor(raw_amax, device=dev).clamp(min=hk.AMAX_FLOOR)
+    t = hk.hist_edges(amax)[1:]
+    vals = torch.cat([t, torch.nextafter(t, torch.zeros_like(t)),
+                      torch.nextafter(t, torch.full_like(t, float("inf"))),
+                      amax.reshape(1)])
+    vals = torch.cat([vals, -vals])
+    return vals.repeat(-(-j // vals.numel()))[:j].contiguous()
 
 
 def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
     """B7 (histogram) kernel vs plain on the card, counts equal, for
-    the amax the op computes (max |x|, NaN if any x is NaN)."""
+    the amax the op computes (max |x|, NaN if any x is NaN), and on the
+    edge-neighbour inputs for their own amax (0.0 stands for the floor);
+    timed: B7, its design steps and torch.histc on the Gaussian and the
+    concentrated inputs."""
     import torch
     from repro_torch.kernels.topk_select import kernel as hk
-    res = {"j": j, "cases": list(kinds), "histogram_err": 0.0}
-    for i, kind in enumerate(kinds):
-        x = hist_inputs(dev, kind, j, seed + i)
-        amax = x.abs().amax()
+    res = {"j": j, "cases": list(kinds) + [
+        f"edge_neighbours(amax={a})" for a in HIST_EDGE_AMAX],
+        "histogram_err": 0.0}
+    cases = [(kind, lambda kind=kind, i=i: hist_inputs(dev, kind, j,
+                                                       seed + i), None)
+             for i, kind in enumerate(kinds)]
+    cases += [(f"edges_{a}", lambda a=a: edge_neighbour_input(dev, j, a), a)
+              for a in HIST_EDGE_AMAX]
+    for kind, make, raw in cases:
+        x = make()
+        amax = (x.abs().amax() if raw is None
+                else torch.tensor(raw, device=dev))
         got, want = hk.histogram(x, amax), hk.histogram_plain(x, amax)
         check(torch.equal(got, want), f"histogram differs at J={j} ({kind})")
         check(int(got.sum()) == j, f"histogram mass at J={j} ({kind})")
         if kind == "nan":
             nan_amax = hk.histogram(x, torch.tensor(float("nan"), device=dev))
             check(int(nan_amax[0]) == j, "NaN amax: every entry in bin 0")
+        if timed and kind in ("gauss", "concentrated"):
+            pre = "histogram" if kind == "gauss" else f"histogram_{kind}"
+            steps = {}
+            for step in HIST_STEPS:
+                check(torch.equal(hk.histogram_step(x, amax, step), want),
+                      f"histogram step {step} differs ({kind})")
+                steps[str(step)] = cuda_ms(
+                    lambda: hk.histogram_step(x, amax, step))
+            res[f"{pre}_steps_ms"] = steps
+            res[f"{pre}_ms"] = cuda_ms(lambda: hk.histogram(x, amax))
+            hi = float(amax)
+            res[f"{pre}_histc_ms"] = cuda_ms(lambda: torch.histc(
+                x.abs(), bins=hk.BINS, min=0.0, max=hi))
+            histc = torch.histc(x.abs(), bins=hk.BINS, min=0.0, max=hi)
+            res[f"{pre}_histc_differing_bins"] = int(
+                (histc.long() != got.long()).sum())
         if timed and kind == "gauss":
-            res["histogram_ms"] = cuda_ms(lambda: hk.histogram(x, amax))
             res["histogram_plain_ms"] = cuda_ms(
                 lambda: hk.histogram_plain(x, amax))
             res["histogram_bytes"] = 4 * j + 4 * hk.BINS
             res["histogram_ops"] = 5 * j  # abs, divide, multiply, convert, clip
-            hi = float(amax)
-            res["histc_ms"] = cuda_ms(lambda: torch.histc(
-                x.abs(), bins=hk.BINS, min=0.0, max=hi))
-            histc = torch.histc(x.abs(), bins=hk.BINS, min=0.0, max=hi)
-            res["histc_differing_bins"] = int(
-                (histc.long() != got.long()).sum())
         del x, got, want
     return res
 
@@ -509,10 +597,11 @@ def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
 def phase_kernels_topk_select(dev) -> dict:
     import torch
     small = topk_select_case(dev, RAGGED_J, ("gauss", "zeros", "edges",
-                                             "nan"), seed=7, timed=False)
+                                             "nan", "concentrated"),
+                             seed=7, timed=False)
     emit("kernels_topk_select_ragged", **small)
-    big = topk_select_case(dev, MAIN_J, ("gauss", "edges"), seed=8,
-                           timed=True)
+    big = topk_select_case(dev, MAIN_J, ("gauss", "edges", "concentrated"),
+                           seed=8, timed=True)
     emit("kernels_topk_select_main_shape", **big)
     torch.cuda.empty_cache()
     return {"small": small, "big": big}
@@ -723,6 +812,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.kernels.compress import kernel as pk
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
@@ -745,6 +835,7 @@ def main() -> int:
         {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
     phase_profile(dev, run, state, "profile_sketch")
     del state
+    pk.clear_sketch_tables()
     torch.cuda.empty_cache()
     ref_train, run, state = phase_train(
         dev, REFERENCE_DEFAULT, {"scores": TRAIN_STEPS, "apply": TRAIN_STEPS},
@@ -758,14 +849,19 @@ def main() -> int:
     big, small = kres["big"], kres["small"]
     reference = "reference-launcher default train (reference pipeline)"
     ebig, hbig = eres["big"], hres["big"]
-    histc_same = hbig["histc_differing_bins"] == 0
+    histc_same = hbig["histogram_histc_differing_bins"] == 0
     rows = [kernel_row("sweep1", big, small, launches["sweep1"],
                        "regtopk train (fused)", bitwise),
             kernel_row("sweep2", big, small, launches["sweep2"],
                        "regtopk train (fused)", bitwise),
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
                        sk_launches["sweep1_sketch"],
-                       "sketchtopk train (fused)", atomics),
+                       "sketchtopk train (fused)", atomics, redesigned=True,
+                       earlier_ms=EARLIER_MS["sweep1_sketch"],
+                       design_bound_ms=bound_ms(
+                           sres["big"]["sweep1_sketch_design_bytes"], 0)[0],
+                       deterministic=sres["big"][
+                           "sweep1_sketch_deterministic"]),
             kernel_row("sketch_encode", sres["big"], sres["small"],
                        sync_launches["reference"]["sketch_encode"],
                        "sketchtopk GradientSync (reference pipeline)",
@@ -779,10 +875,14 @@ def main() -> int:
                            "histogram"],
                        "GradientSync, reference pipeline, "
                        "selector=histogram_kernel", bitwise,
-                       library_ms=hbig["histc_ms"] if histc_same else None,
+                       library_ms=hbig["histogram_histc_ms"] if histc_same
+                       else None,
                        library_note=None if histc_same else
                        "none (torch.histc bins differently: "
-                       f"{hbig['histc_differing_bins']} bins differ)")]
+                       f"{hbig['histogram_histc_differing_bins']} bins "
+                       "differ)", redesigned=True,
+                       earlier_ms=EARLIER_MS["histogram"],
+                       step0_ms=hbig["histogram_steps_ms"]["0"])]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

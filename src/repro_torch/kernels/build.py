@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 # library name -> the kernel module whose csrc/ holds <name>.cu
 SOURCES = {"sweep1": "compress", "sweep2": "compress", "sketch": "compress",
-           "fused_ef": "fused_ef", "hist": "topk_select"}
+           "sketch_parts": "compress", "fused_ef": "fused_ef",
+           "hist": "topk_select"}
 
 
 def csrc(name: str) -> Path:

@@ -34,11 +34,11 @@ def same_device(name, *xs) -> None:
         raise ValueError(f"{name}: all tensors must share a device")
 
 
-def grid(dev: torch.device, units: int) -> int:
-    """Persistent grid: at most four CTAs per SM, no more than the work
-    units (tiles) there are."""
+def grid(dev: torch.device, units: int, per_sm: int = 4) -> int:
+    """Persistent grid: at most ``per_sm`` CTAs per SM, no more than the
+    work units (tiles) there are."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(units, 4 * sms))
+    return max(1, min(units, per_sm * sms))
 
 
 def aligned(*xs) -> int:

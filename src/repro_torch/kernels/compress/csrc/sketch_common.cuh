@@ -1,6 +1,8 @@
-// CountSketch hashing and accumulation shared by the two sketch encodes
-// (sketch.cu). Hash constants, bucket and sign follow the reference
-// (src/repro/core/sketch.py: _MULTS, _ADDS, _hashes) bit for bit.
+// CountSketch hashing: the rows' hash constants (SketchHash, used by both
+// encodes, sketch.cu and sketch_parts.cu) and sketch_accum, the global
+// atomic accumulation of sketch_encode (sketch.cu). Hash constants, bucket
+// and sign follow the reference (src/repro/core/sketch.py: _MULTS, _ADDS,
+// _hashes) bit for bit.
 #pragma once
 
 #include "compress_common.cuh"

@@ -6,10 +6,15 @@ state once and emits ``a = err + g``, ``score = a * c``, the per-tile amax
 of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|.
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
-static ``MAXPB`` slots. The CountSketch encodes (kernels in
-``csrc/sketch.cu``): :func:`sweep1_sketch` emits ``a = err + g`` and the
-(rows, width) CountSketch of a in one pass, :func:`sketch_encode` the
-sketch of a given a.
+static ``MAXPB`` slots. The CountSketch encodes: :func:`sweep1_sketch`
+(kernels ``csrc/sketch_parts.cu``) emits ``a = err + g`` and the (rows,
+width) CountSketch of a through privatised bucket ranges in two passes
+per chunk of J; :func:`sketch_encode` (kernel ``csrc/sketch.cu``) the
+sketch of a given a, with one global float atomic per element and row.
+The partitioned encode's index arithmetic has plain versions here
+(:func:`fastmod`, :func:`sketch_starts_plain`,
+:func:`sweep1_sketch_parts_plain`), which the CPU tests hold against the
+plain encode.
 
 Each wrapper checks its inputs and dispatches on the tensors' device: a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel (or
@@ -24,7 +29,9 @@ histogram needs no bin-0 correction, and ragged-tail lanes never flag.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import sketch as csk
@@ -41,6 +48,13 @@ BLOCK = 4096             # elements per tile (the reference's grid step)
 BINS = 2048              # 2^11 bit-pattern bins: exponent + 3 mantissa bits
 _BIN_SHIFT = 20          # fp32 bits >> 20 -> [0, 2047] for non-negative floats
 _PLAIN_ROWS = 1 << 14    # tiles per chunk in the plain versions (bounds memory)
+# the partitioned CountSketch encode (sweep1_sketch on the card)
+PART_SHIFT = 14          # R = 2^14 buckets a partition: 64 KB of fp32 sums
+SKETCH_TILE = 8192       # elements a pass-1 tile (512 threads x 16)
+MAX_PARTS = 1 << 13      # the start kernel counts every partition of a tile
+                         # in shared memory
+CHUNK_PAIRS = 3 << 27    # pairs a chunk: 2.4 GB of pair buffer at 6 B a pair
+_U64 = (1 << 64) - 1
 
 
 def bit_bin(absx: torch.Tensor) -> torch.Tensor:
@@ -163,6 +177,143 @@ def sketch_error_bound(a, rows: int, width: int):
 
 
 # ---------------------------------------------------------------------------
+# The partitioned encode's index arithmetic, in plain versions
+# ---------------------------------------------------------------------------
+
+def fastmod_magic(width: int) -> int:
+    """The kernel's 64-bit magic for ``% width``: ceil(2^64 / width) mod
+    2^64 (0 for width 1)."""
+    return (_U64 // width + 1) & _U64
+
+
+def fastmod(n: np.ndarray, magic: int, width: int) -> np.ndarray:
+    """n % width as the kernel computes it, __umul64hi(magic * n, width),
+    with uint64 numpy arithmetic (n < 2^32, width < 2^32)."""
+    low = np.asarray(n, dtype=np.uint64) * np.uint64(magic)  # wraps mod 2^64
+    w = np.uint64(width)
+    lo32, hi32 = low & np.uint64(0xFFFFFFFF), low >> np.uint64(32)
+    # high 64 bits of (hi32 * 2^32 + lo32) * w; neither sum overflows
+    return (hi32 * w + ((lo32 * w) >> np.uint64(32))) >> np.uint64(32)
+
+
+def sketch_plan(j: int, rows: int, width: int, shift: int = PART_SHIFT,
+                chunk_pairs: int = CHUNK_PAIRS) -> dict:
+    """The partitioned encode's shape: ``chunk`` elements a chunk (a
+    multiple of the tile), ``nchunks``, ``per_row`` partitions of 2^shift
+    buckets a row, ``parts`` in all, and the pair buffer's ``pair_bytes``
+    (6 B a pair, rows * chunk pairs). Raises beyond MAX_PARTS."""
+    per_row = -(-width // (1 << shift))
+    parts = rows * per_row
+    if parts > MAX_PARTS:
+        raise ValueError(
+            f"sweep1_sketch: width {width} at {rows} rows needs {parts} "
+            f"partitions of 2^{shift} buckets; the partitioned encode "
+            f"serves at most {MAX_PARTS}")
+    chunk = max(SKETCH_TILE,
+                chunk_pairs // rows // SKETCH_TILE * SKETCH_TILE)
+    span = max(1, min(chunk, j))
+    return {"chunk": chunk, "nchunks": max(1, -(-j // chunk)),
+            "per_row": per_row, "parts": parts,
+            "pair_bytes": 6 * rows * span}
+
+
+def _tiles(n: int) -> int:
+    return -(-n // SKETCH_TILE)
+
+
+def _pair_keys(e0: int, n: int, rows: int, width: int, shift: int,
+               device=None):
+    """For every pair of the elements [e0, e0 + n), in (element, row)
+    order: its partition, local bucket and positive-sign flag, as pass 1
+    computes them."""
+    idx = torch.arange(e0, e0 + n, dtype=torch.int64, device=device)
+    per_row = -(-width // (1 << shift))
+    parts, local, pos = [], [], []
+    for r in range(rows):
+        h, p = csk.row_hash(r, width, idx)
+        parts.append(r * per_row + (h >> shift))
+        local.append(h & ((1 << shift) - 1))
+        pos.append(p)
+    return (torch.stack(parts, 1).reshape(-1),
+            torch.stack(local, 1).reshape(-1), torch.stack(pos, 1).reshape(-1))
+
+
+def sketch_starts_plain(j: int, rows: int, width: int,
+                        shift: int = PART_SHIFT, device=None):
+    """(parts, tiles) int64: where each partition's run begins in each
+    tile's block of pairs (the pairs of the tile's earlier partitions),
+    tiles of SKETCH_TILE elements over the whole J. The start kernel
+    writes the same numbers mod 2^16."""
+    plan = sketch_plan(j, rows, width, shift)
+    parts, tiles = plan["parts"], _tiles(j)
+    cnt = torch.zeros((tiles, parts), dtype=torch.int64, device=device)
+    step = _PLAIN_ROWS * BLOCK             # a multiple of SKETCH_TILE
+    for e0 in range(0, j, step):
+        n = min(step, j - e0)
+        keys, _, _ = _pair_keys(e0, n, rows, width, shift, device)
+        tile = torch.arange(rows * n, device=device) // (rows * SKETCH_TILE)
+        t0 = e0 // SKETCH_TILE
+        nt = _tiles(n)
+        cnt[t0:t0 + nt] += torch.bincount(
+            tile * parts + keys, minlength=nt * parts).view(nt, parts)
+    return (torch.cumsum(cnt, 1) - cnt).T.contiguous()
+
+
+def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
+                              shift: int = PART_SHIFT,
+                              chunk_pairs: int = CHUNK_PAIRS):
+    """(a, sketch, pair ids) through the partitioned encode's steps in
+    plain PyTorch. Per chunk, pass 1 writes each tile's pairs as the
+    tile's block, in partition order (within a run in element order,
+    where the kernel's order is not fixed); pass 2 gathers each
+    partition's runs through the start table, sums them with
+    ``index_add_`` and writes or adds its slice. ``pair ids`` holds each
+    chunk's buffer as element * rows + row, so a test can see that the
+    blocks hold every pair once."""
+    a = err_prev + g
+    j = a.numel()
+    dev = a.device
+    plan = sketch_plan(j, rows, width, shift, chunk_pairs)
+    starts = sketch_starts_plain(j, rows, width, shift, dev)
+    R = 1 << shift
+    sk = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    ids = []
+    for c in range(plan["nchunks"]):
+        e0 = c * plan["chunk"]
+        n = min(plan["chunk"], j - e0)
+        parts, local, pos = _pair_keys(e0, n, rows, width, shift, dev)
+        vals = a[e0:e0 + n].repeat_interleave(rows)
+        vals = torch.where(pos, vals, -vals)
+        # pass 1: each tile's block in partition order
+        tile = torch.div(torch.arange(rows * n, device=dev),
+                         rows * SKETCH_TILE, rounding_mode="floor")
+        order = torch.sort(tile * plan["parts"] + parts, stable=True).indices
+        pl, pv = local[order], vals[order]
+        ids.append(torch.arange(e0 * rows, (e0 + n) * rows, device=dev)[order])
+        # pass 2: one partition at a time, its run of every tile
+        t0, nt = e0 // SKETCH_TILE, _tiles(n)
+        m = torch.full((nt,), SKETCH_TILE, dtype=torch.int64, device=dev)
+        m[-1] = n - (nt - 1) * SKETCH_TILE
+        block = torch.arange(nt, device=dev) * rows * SKETCH_TILE
+        for p in range(plan["parts"]):
+            r, q = divmod(p, plan["per_row"])
+            s = starts[p, t0:t0 + nt]
+            e = (starts[p + 1, t0:t0 + nt] if p + 1 < plan["parts"]
+                 else rows * m)
+            lens = e - s
+            first = torch.repeat_interleave(block + s, lens)
+            within = torch.arange(int(lens.sum()), device=dev) - \
+                torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+            at = first + within
+            acc = torch.zeros(R, dtype=torch.float32, device=dev)
+            acc.index_add_(0, pl[at], pv[at])
+            nb = min(R, width - q * R)
+            out = sk[r, q * R:q * R + nb]
+            out.copy_(acc[:nb] if c == 0 else out + acc[:nb])
+    return a, sk, ids
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -244,19 +395,71 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     csk.check_shape(j, rows, width)
     if not _on_card(g):
         return sweep1_sketch_plain(g, err_prev, rows, width)
-    a = torch.empty_like(g)
-    sk = torch.zeros((rows, width), dtype=torch.float32, device=g.device)
-    fn = _lib("sketch").sweep1_sketch_launch
+    out = sweep1_sketch_card(g, err_prev, rows, width)
+    sweep1_sketch.launches += 1
+    return out
+
+
+def sketch_starts(dev, j: int, rows: int, width: int,
+                  shift: int = PART_SHIFT) -> torch.Tensor:
+    """The start kernel's (parts, tiles) table on the card, uint16 bits
+    in an int16 tensor (no data read)."""
+    fn = _lib("sketch_parts").sketch_parts_start_launch
+    plan = sketch_plan(j, rows, width, shift)
+    tiles = _tiles(j)
+    start = torch.empty((plan["parts"], tiles), dtype=torch.int16,
+                        device=dev)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    mults, adds = _hash_args(rows)
+    _check_launch("sketch_parts_start", fn(
+        start.data_ptr(), mults, adds, rows, width, fastmod_magic(width),
+        shift, j, _grid(dev, tiles), _stream(dev)))
+    return start
+
+
+@functools.lru_cache(maxsize=4)
+def _starts(dev, j: int, rows: int, width: int, shift: int):
+    """The start table of a shape, computed once and kept (142 MB at the
+    main shape)."""
+    return sketch_starts(dev, j, rows, width, shift)
+
+
+def clear_sketch_tables() -> None:
+    """Drop the kept start tables (their device memory)."""
+    _starts.cache_clear()
+
+
+def sweep1_sketch_card(g, err_prev, rows: int, width: int,
+                       shift: int = PART_SHIFT, passes: int = 3):
+    """The partitioned encode on the card (:func:`sweep1_sketch` runs it
+    at the defaults; ``shift`` is there for measuring another partition
+    width, ``passes`` = 1 or 2 for timing one pass alone, whose outputs
+    are then incomplete). Not counted in ``launches``."""
+    fn = _lib("sketch_parts").sweep1_sketch_launch
+    dev = g.device
+    j = g.numel()
+    plan = sketch_plan(j, rows, width, shift)
+    start = _starts(dev, j, rows, width, shift)
+    a = torch.empty_like(g)
+    sk = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    npairs = plan["pair_bytes"] // 6
+    pl = torch.empty(npairs, dtype=torch.int16, device=dev)   # uint16 bits
+    pv = torch.empty(npairs, dtype=torch.float32, device=dev)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     mults, adds = _hash_args(rows)
     err = fn(g.data_ptr(), err_prev.data_ptr(), a.data_ptr(), sk.data_ptr(),
-             mults, adds, rows, width, j, _grid(g.device, rows_of(j)),
-             _aligned(g, err_prev, a), _stream(g.device))
+             pl.data_ptr(), pv.data_ptr(), start.data_ptr(), mults, adds, rows,
+             width, fastmod_magic(width), shift, j, plan["chunk"],
+             _grid(dev, _tiles(min(plan["chunk"], max(j, 1))), 1),
+             _aligned(g, err_prev, a), passes, _stream(dev))
     _check_launch("sweep1_sketch", err)
-    sweep1_sketch.launches += 1
     return a, sk
 
 
