@@ -25,7 +25,9 @@ line and raising on any failure:
              full width cut to 8 layers, a few REGTOP-k sparse-sync steps,
              with every kernel's launch count read around that run;
 7. profile:  one more step of that run under torch.profiler: device time
-             by kernel and by stage of the step, and the device busy share;
+             by kernel and by stage of the step, and the device busy share
+             (the step's new sync builds the sketch path's start table
+             again, inside ``sketch/encode``);
 8. train_sketch, profile_sketch: the same for the sketchtopk path (fused
              pipeline), after the REGTOP-k run's state is released;
 9. reference_sync: GradientSync on the reference pipeline at J = 2^22,
@@ -44,17 +46,17 @@ with ``torch.equal``, their sketch with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
 ``kernel.sketch_error_bound`` on Gaussian inputs, where the card's
 atomics add in another order than the plain version, at the ragged J
-(widths 512, below the partition width and not a multiple of it, 1 and
-3 rows) and at the main shape; for the partitioned encode B3 also its
-start table against the plain one, whether two runs give the same bits,
-its chunks and pair buffer, and each pass timed alone for two partition
-widths. Then the dense REGTOP-k score and apply (kernels_fused_ef, bit
-patterns equal, over a grid of mu, Q and omega with exact zeros of a and
-zero divisors) and the linear histogram (kernels_topk_select, counts
-equal, on Gaussian, zero, edge, NaN and concentrated inputs and on every
-bin edge and its fp32 neighbours for four amax values, the floor
-included; timed beside ``torch.histc`` and step by step through its
-redesign on the Gaussian and the concentrated input).
+(widths 512, below the partition width and not a multiple of it, and
+beyond the 2^24 buckets a hash reaches; 1 and 3 rows) and at the main
+shape; for the partitioned encode B3 also its start table against the
+plain one, whether two runs give the same bits, its chunks and pair
+buffer, and the time to build its start table. Then the dense REGTOP-k
+score and apply (kernels_fused_ef, bit patterns equal, over a grid of
+mu, Q and omega with exact zeros of a and zero divisors) and the linear
+histogram (kernels_topk_select, counts equal, on Gaussian, zero, edge,
+NaN and concentrated inputs and on every bin edge and its fp32
+neighbours for four amax values, the floor included; timed beside
+``torch.histc`` on the Gaussian and the concentrated input).
 
 The last three lines are the per-kernel summary, the card's name and
 power limit as ``nvidia-smi`` prints them, and the result line.
@@ -88,17 +90,11 @@ MAIN_WIDTH = 3_568_128       # resolve_width(k = 892,032): 4k, under 2^22
 SYNC_STEPS = 3
 TIMING_REPS = 10
 REF_SYNC_J = 1 << 22
-# B3 at widths below the partition width 2^14 and not divisible by it
-SKETCH_EXTRA_WIDTHS = (1000, (1 << 14) + 1, 100_003)
-# B3's partition widths (log2), timed side by side
-SKETCH_SHIFTS = (14, 15)
+# B3 at widths below the partition width 2^14, not divisible by it, and
+# beyond the 2^24 buckets that a hash reaches
+SKETCH_EXTRA_WIDTHS = (1000, (1 << 14) + 1, 100_003, (1 << 24) + 1000)
 # amax values of B7's edge-neighbour input; 0.0 is floored to f32(1e-30)
 HIST_EDGE_AMAX = (1.0, 4.0, 3.7e-3, 0.0)
-HIST_STEPS = (0, 1, 2, 3)
-# the redesigned kernels' times before their redesign, from this script on
-# an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table; B7's first
-# design is also measured in this run, as hist_launch_step 0)
-EARLIER_MS = {"sweep1_sketch": 64.864, "histogram": 7.185}
 # (mu, Q, omega) grid of the dense REGTOP-k score kernel
 EF_GRID = [(mu, q, w) for mu in (0.1, 0.5) for q in (0.0, 0.3)
            for w in (1.0, 0.125)]
@@ -311,8 +307,9 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
         want = pk.sketch_starts_plain(j, rows, width, device=dev) & 0xFFFF
         check(torch.equal(starts, want.int()),
               f"sweep1_sketch start table differs at J={j}, width={width}")
+    tables = {}       # B3's start table of this shape, built at first use
     g, err = dyadic(gen, j, dev), dyadic(gen, j, dev)
-    a, sk = pk.sweep1_sketch(g, err, rows, width)
+    a, sk = pk.sweep1_sketch(g, err, rows, width, tables)
     a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
     check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j} (dyadic)")
     check(torch.equal(sk, sk_p), f"sweep1_sketch sketch differs at J={j} "
@@ -323,12 +320,12 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
     del g, err, a_p, sk, sk_p
     g = torch.randn(j, generator=gen, device=dev)
     err = torch.randn(j, generator=gen, device=dev) * 0.1
-    a, sk = pk.sweep1_sketch(g, err, rows, width)
+    a, sk = pk.sweep1_sketch(g, err, rows, width, tables)
     a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
     check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j}")
     err1, share1 = sketch_gap(sk, sk_p, a_p)
     err4, share4 = sketch_gap(pk.sketch_encode(a, rows, width), sk_p, a_p)
-    _, sk2 = pk.sweep1_sketch(g, err, rows, width)
+    _, sk2 = pk.sweep1_sketch(g, err, rows, width, tables)
     plan = pk.sketch_plan(j, rows, width)
     res = {"j": j, "rows": rows, "width": width, "dyadic_bitwise": True,
            "sweep1_sketch_err": err1, "sweep1_sketch_bound_share": share1,
@@ -341,7 +338,12 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
     del a_p, sk, sk2, sk_p
     if timed:
         res["sweep1_sketch_ms"] = cuda_ms(
-            lambda: pk.sweep1_sketch(g, err, rows, width))
+            lambda: pk.sweep1_sketch(g, err, rows, width, tables))
+        # built once per shape, at a run's first step
+        res["sweep1_sketch_table_ms"] = cuda_ms(
+            lambda: pk.sketch_starts(dev, j, rows, width))
+        res["sweep1_sketch_table_bytes"] = 2 * plan["parts"] * -(
+            -j // pk.SKETCH_TILE)
         res["sweep1_sketch_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_sketch_plain(g, err, rows, width))
         res["sweep1_sketch_bytes"] = 12 * j + 4 * rows * width
@@ -349,15 +351,6 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
         # the partitioned design's own traffic: g, err, a and the pairs
         # written and read (6 B each)
         res["sweep1_sketch_design_bytes"] = 12 * j + 12 * rows * j
-        res["sweep1_sketch_variants_ms"] = {
-            f"R=2^{shift}": {
-                "both": cuda_ms(lambda: pk.sweep1_sketch_card(
-                    g, err, rows, width, shift)),
-                "pass1": cuda_ms(lambda: pk.sweep1_sketch_card(
-                    g, err, rows, width, shift, passes=1)),
-                "pass2": cuda_ms(lambda: pk.sweep1_sketch_card(
-                    g, err, rows, width, shift, passes=2))}
-            for shift in SKETCH_SHIFTS}
         res["sketch_encode_ms"] = cuda_ms(
             lambda: pk.sketch_encode(a, rows, width))
         res["sketch_encode_plain_ms"] = cuda_ms(
@@ -369,7 +362,6 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
 
 def phase_kernels_sketch(dev) -> dict:
     import torch
-    from repro_torch.kernels.compress import kernel as pk
     small = sketch_case(dev, RAGGED_J, 512, seed=3, timed=False)
     emit("kernels_sketch_ragged", **small)
     for i, width in enumerate(SKETCH_EXTRA_WIDTHS):
@@ -378,7 +370,6 @@ def phase_kernels_sketch(dev) -> dict:
                 dev, RAGGED_J, width, seed=20 + i, timed=False, rows=rows))
     big = sketch_case(dev, MAIN_J, MAIN_WIDTH, seed=2, timed=True)
     emit("kernels_sketch_main_shape", **big)
-    pk.clear_sketch_tables()     # the train phases count their own
     torch.cuda.empty_cache()
     return {"small": small, "big": big}
 
@@ -527,15 +518,30 @@ def hist_inputs(dev, kind: str, j: int, seed: int):
     return x
 
 
+def bin_edges(amax):
+    """(2047,) fp32 t_b, b = 1..2047: the least fp32 y >= 0 whose bin
+    reaches b, RN(y / amax) * 2048 >= b, for a finite fp32 amax > 0 (a
+    bisection over the bit patterns, which order non-negative floats)."""
+    import torch
+    from repro_torch.kernels.topk_select import kernel as hk
+    b = torch.arange(1, hk.BINS, dtype=torch.float32, device=amax.device)
+    lo = torch.zeros(b.shape, dtype=torch.int64, device=amax.device)
+    hi = torch.full_like(lo, int(amax.view(torch.int32)))
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        ok = (mid.int().view(torch.float32) / amax) * float(hk.BINS) >= b
+        hi, lo = torch.where(ok, mid, hi), torch.where(ok, lo, mid + 1)
+    return hi.int().view(torch.float32)
+
+
 def edge_neighbour_input(dev, j: int, raw_amax: float):
     """Every interior bin edge t_b of amax' = max(raw_amax, 1e-30), its
     two fp32 neighbours, their negatives and amax' itself, repeated to
-    length j: the values where a bin without a division could go
-    wrong."""
+    length j: the values where a bin is easiest to get wrong."""
     import torch
     from repro_torch.kernels.topk_select import kernel as hk
     amax = torch.tensor(raw_amax, device=dev).clamp(min=hk.AMAX_FLOOR)
-    t = hk.hist_edges(amax)[1:]
+    t = bin_edges(amax)
     vals = torch.cat([t, torch.nextafter(t, torch.zeros_like(t)),
                       torch.nextafter(t, torch.full_like(t, float("inf"))),
                       amax.reshape(1)])
@@ -547,8 +553,8 @@ def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
     """B7 (histogram) kernel vs plain on the card, counts equal, for
     the amax the op computes (max |x|, NaN if any x is NaN), and on the
     edge-neighbour inputs for their own amax (0.0 stands for the floor);
-    timed: B7, its design steps and torch.histc on the Gaussian and the
-    concentrated inputs."""
+    timed: B7 and torch.histc on the Gaussian and the concentrated
+    inputs."""
     import torch
     from repro_torch.kernels.topk_select import kernel as hk
     res = {"j": j, "cases": list(kinds) + [
@@ -571,13 +577,6 @@ def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
             check(int(nan_amax[0]) == j, "NaN amax: every entry in bin 0")
         if timed and kind in ("gauss", "concentrated"):
             pre = "histogram" if kind == "gauss" else f"histogram_{kind}"
-            steps = {}
-            for step in HIST_STEPS:
-                check(torch.equal(hk.histogram_step(x, amax, step), want),
-                      f"histogram step {step} differs ({kind})")
-                steps[str(step)] = cuda_ms(
-                    lambda: hk.histogram_step(x, amax, step))
-            res[f"{pre}_steps_ms"] = steps
             res[f"{pre}_ms"] = cuda_ms(lambda: hk.histogram(x, amax))
             hi = float(amax)
             res[f"{pre}_histc_ms"] = cuda_ms(lambda: torch.histc(
@@ -812,7 +811,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    from repro_torch.kernels.compress import kernel as pk
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
@@ -835,7 +833,6 @@ def main() -> int:
         {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
     phase_profile(dev, run, state, "profile_sketch")
     del state
-    pk.clear_sketch_tables()
     torch.cuda.empty_cache()
     ref_train, run, state = phase_train(
         dev, REFERENCE_DEFAULT, {"scores": TRAIN_STEPS, "apply": TRAIN_STEPS},
@@ -857,9 +854,6 @@ def main() -> int:
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
                        sk_launches["sweep1_sketch"],
                        "sketchtopk train (fused)", atomics, redesigned=True,
-                       earlier_ms=EARLIER_MS["sweep1_sketch"],
-                       design_bound_ms=bound_ms(
-                           sres["big"]["sweep1_sketch_design_bytes"], 0)[0],
                        deterministic=sres["big"][
                            "sweep1_sketch_deterministic"]),
             kernel_row("sketch_encode", sres["big"], sres["small"],
@@ -880,9 +874,7 @@ def main() -> int:
                        library_note=None if histc_same else
                        "none (torch.histc bins differently: "
                        f"{hbig['histogram_histc_differing_bins']} bins "
-                       "differ)", redesigned=True,
-                       earlier_ms=EARLIER_MS["histogram"],
-                       step0_ms=hbig["histogram_steps_ms"]["0"])]
+                       "differ)", redesigned=True)]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -146,7 +146,9 @@ class GradientSync:
 
     The sketch-coordinated step is three calls, so a caller can feed one
     sketch to two devices: :meth:`encode`, :meth:`allreduce_sketch` and
-    :meth:`decode_exchange`."""
+    :meth:`decode_exchange`. ``sketch_tables`` keeps the fused encode's
+    start table of each shape on the card (built at the first step, 142
+    MB at StableLM-3B's J) for as long as the sync lives."""
 
     def __init__(self, cfg: SparsifierConfig, group=None):
         check_supported(cfg)
@@ -156,6 +158,7 @@ class GradientSync:
         self.comm = dispatch.effective_comm_mode(cfg)
         self.fallbacks = 0
         self.fallback_reasons: Counter = Counter()
+        self.sketch_tables: dict = {}
 
     def _count(self, outs) -> None:
         for out in outs:
@@ -216,7 +219,8 @@ class GradientSync:
                 from repro_torch.kernels.compress import ops
                 enc = ops.fused_sketch_encode(g.float(), err,
                                               rows=cfg.sketch_rows,
-                                              width=width)
+                                              width=width,
+                                              tables=self.sketch_tables)
                 return enc["a"], enc["sketch"]
             a = err + g.float()
             return a, sketch.encode(a, cfg.sketch_rows, width)

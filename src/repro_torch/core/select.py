@@ -74,17 +74,10 @@ def linear_histogram(x: torch.Tensor, amax: torch.Tensor,
     hist = torch.zeros(bins, dtype=torch.int64, device=x.device)
     j = x.numel()
     for lo in range(0, j, _HIST_CHUNK):
-        b = linear_bins(x[lo:lo + _HIST_CHUNK], amax, bins)
+        q = x[lo:lo + _HIST_CHUNK].float().abs() / amax * bins
+        b = q.clamp_(max=bins - 1).nan_to_num_(nan=0.0).long()
         hist += torch.bincount(b, minlength=bins)
     return hist.to(torch.int32)
-
-
-def linear_bins(x: torch.Tensor, amax: torch.Tensor,
-                bins: int = HIST_BINS) -> torch.Tensor:
-    """(J,) int64 bins of ``linear_histogram``: clip(trunc(|x| / amax *
-    bins), 0, bins-1), a NaN in bin 0."""
-    q = x.float().abs() / amax * bins
-    return q.clamp_(max=bins - 1).nan_to_num_(nan=0.0).long()
 
 
 def histogram_threshold(score: torch.Tensor, k: int) -> torch.Tensor:

@@ -11,9 +11,12 @@
 // (42.8 MB at 3 rows x 3,568,128) that does not fit in shared memory.
 //
 // Design: privatised bucket ranges. Each row's buckets are cut into
-// partitions of R = 2^shift buckets (R fp32 sums fit in one CTA's shared
-// memory). J is cut into chunks, and a chunk into tiles of TILE elements;
-// per chunk:
+// partitions of R = 2^14 buckets (R fp32 sums, 64 KB, fit in one CTA's
+// shared memory with room for three CTAs an SM; 2^15 was measured slower:
+// PERF.md). A bucket is (hash >> 8) % width < 2^24, so buckets at or
+// beyond 2^24 of a wider row stay 0 and get no partition: a row has at
+// most 1024 partitions. J is cut into chunks, and a chunk into tiles of
+// TILE elements; per chunk:
 // - pass 1 (pass1_kernel, persistent over the tiles) reads g and err with
 //   16-byte vectors and writes a bitwise as before. It turns every row's
 //   contribution of the tile into a pair (local bucket uint16, signed
@@ -31,7 +34,7 @@
 //   zeroed sketch.
 // Where a partition's run starts inside a tile's block depends only on the
 // element indices, rows and width, not on the data: start_kernel computes
-// that table (uint16, parts x tiles) once per shape, and the wrapper keeps
+// that table (uint16, parts x tiles) once per shape, and the caller keeps
 // it. The order of the pairs inside a run and of the shared atomics is not
 // fixed, so on inputs whose partial sums are not all exact the sketch
 // equals the sequential reference only up to fp32 reassociation.
@@ -42,11 +45,13 @@
 namespace compress {
 namespace {
 
+constexpr int PART_SHIFT = 14;              // R = 2^14 buckets a partition
+constexpr unsigned HASH_BUCKETS = 1u << 24;  // buckets a hash can reach
+
 struct Parts {
   SketchHash hp;
   unsigned long long magic;   // 2^64 / width rounded up (mod 2^64)
-  int shift;                  // R = 2^shift buckets per partition
-  int per_row;                // partitions per row, ceil(width / R)
+  int per_row;                // partitions a row, ceil(min(width, 2^24) / R)
   int parts;                  // rows * per_row
 };
 
@@ -134,7 +139,7 @@ start_kernel(uint16_t* __restrict__ start_out, const Parts L, long long j,
         if (r < L.hp.rows) {
           bool pos;
           const unsigned h = bucket(L, r, static_cast<unsigned>(e), &pos);
-          atomicAdd(&cnt[r * L.per_row + (h >> L.shift)], 1);
+          atomicAdd(&cnt[r * L.per_row + (h >> PART_SHIFT)], 1);
         }
       }
     }
@@ -186,7 +191,7 @@ __device__ __forceinline__ void emit_tile(
     const Parts& L, const Stage& st, uint16_t* __restrict__ pl,
     float* __restrict__ pv, const unsigned (&idx)[PER_THREAD],
     const float (&a)[PER_THREAD], int valid, int m) {
-  const unsigned mask = (1u << L.shift) - 1;
+  const unsigned mask = (1u << PART_SHIFT) - 1;
   for (int r = 0; r < L.hp.rows; ++r) {
     unsigned h[PER_THREAD];
     int rank[PER_THREAD];
@@ -197,7 +202,7 @@ __device__ __forceinline__ void emit_tile(
         bool pos;
         h[k] = bucket(L, r, idx[k], &pos);
         positive |= static_cast<unsigned>(pos) << k;
-        rank[k] = atomicAdd(&st.cnt[h[k] >> L.shift], 1);
+        rank[k] = atomicAdd(&st.cnt[h[k] >> PART_SHIFT], 1);
       }
     }
     __syncthreads();
@@ -205,7 +210,7 @@ __device__ __forceinline__ void emit_tile(
 #pragma unroll
     for (int k = 0; k < PER_THREAD; ++k) {
       if (k < valid) {
-        const int slot = st.start[h[k] >> L.shift] + rank[k];
+        const int slot = st.start[h[k] >> PART_SHIFT] + rank[k];
         st.val[slot] = (positive >> k) & 1 ? a[k] : -a[k];
         st.loc[slot] = static_cast<uint16_t>(h[k] & mask);
       }
@@ -314,13 +319,13 @@ pass2_kernel(const uint16_t* __restrict__ pl, const float* __restrict__ pv,
              float* __restrict__ sk, const Parts L, long long n,
              int accumulate) {
   extern __shared__ float acc[];
-  const int R = 1 << L.shift;
+  const int R = 1 << PART_SHIFT;
   const int p = blockIdx.x;
   const int r = p / L.per_row;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long first = static_cast<long long>(p - r * L.per_row)
-                          << L.shift;
+                          << PART_SHIFT;
   for (int b = threadIdx.x; b < R; b += P2_THREADS) acc[b] = 0.0f;
   __syncthreads();
   const long long tiles = (n + TILE - 1) / TILE;
@@ -382,10 +387,8 @@ pass2_kernel(const uint16_t* __restrict__ pl, const float* __restrict__ pv,
 
 // the layout shared by the two entry points; 0 or a cudaError_t
 int make_parts(Parts* L, const unsigned* mults, const unsigned* adds,
-               int rows, unsigned width, unsigned long long magic,
-               int shift) {
-  if (rows < 1 || rows > SKETCH_MAX_ROWS || width == 0 || shift < 1 ||
-      shift > 15) {
+               int rows, unsigned width, unsigned long long magic) {
+  if (rows < 1 || rows > SKETCH_MAX_ROWS || width == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *L = Parts{};
@@ -396,8 +399,8 @@ int make_parts(Parts* L, const unsigned* mults, const unsigned* adds,
   L->hp.width = width;
   L->hp.rows = rows;
   L->magic = magic;
-  L->shift = shift;
-  L->per_row = static_cast<int>((width + (1ull << shift) - 1) >> shift);
+  L->per_row = static_cast<int>(
+      ((std::min(width, HASH_BUCKETS) - 1) >> PART_SHIFT) + 1);
   L->parts = rows * L->per_row;
   return 0;
 }
@@ -419,12 +422,12 @@ extern "C" int sketch_parts_start_launch(uint16_t* start,
                                          const unsigned* mults,
                                          const unsigned* adds, int rows,
                                          unsigned width,
-                                         unsigned long long magic, int shift,
+                                         unsigned long long magic,
                                          long long j, int grid,
                                          cudaStream_t stream) {
   using namespace compress;
   Parts L;
-  int bad = make_parts(&L, mults, adds, rows, width, magic, shift);
+  int bad = make_parts(&L, mults, adds, rows, width, magic);
   if (bad) return bad;
   const size_t smem = sizeof(int) * (2 * L.parts + P1_WARPS);
   bad = set_smem(reinterpret_cast<const void*>(start_kernel), smem);
@@ -434,30 +437,29 @@ extern "C" int sketch_parts_start_launch(uint16_t* start,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g, err, a: (J,) fp32 with J < 2^32; sk: (rows, width) fp32, written
-// whole (no zeroing needed); pl, pv: the pair buffer, rows * chunk entries
-// each; start: the (parts, tiles) table above; chunk: elements a chunk, a
+// g, err, a: (J,) fp32 with J < 2^32; sk: (rows, width) fp32, its first
+// min(width, 2^24) columns written whole (no zeroing needed; the caller
+// zeroes any beyond); pl, pv: the pair buffer, rows * chunk entries each;
+// start: the (parts, tiles) table above; chunk: elements a chunk, a
 // multiple of 8192. vec != 0 requires 16-byte-aligned g, err and a.
-// passes: 3 runs both passes of every chunk; 1 or 2 only pass 1 or pass 2
-// (for timing each on its own). Returns the cudaError_t of the launches.
+// Returns the cudaError_t of the launches.
 extern "C" int sweep1_sketch_launch(const float* g, const float* err, float* a,
                                     float* sk, uint16_t* pl, float* pv,
                                     const uint16_t* start,
                                     const unsigned* mults,
                                     const unsigned* adds, int rows,
                                     unsigned width, unsigned long long magic,
-                                    int shift, long long j, long long chunk,
-                                    int grid, int vec, int passes,
-                                    cudaStream_t stream) {
+                                    long long j, long long chunk, int grid,
+                                    int vec, cudaStream_t stream) {
   using namespace compress;
   Parts L;
-  int bad = make_parts(&L, mults, adds, rows, width, magic, shift);
+  int bad = make_parts(&L, mults, adds, rows, width, magic);
   if (bad) return bad;
   if (chunk < TILE || chunk % TILE) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem1 = stage_bytes(L.per_row);
-  const size_t smem2 = (size_t{1} << shift) * sizeof(float);
+  const size_t smem2 = (size_t{1} << PART_SHIFT) * sizeof(float);
   auto pass1 = vec ? pass1_kernel<true> : pass1_kernel<false>;
   bad = set_smem(reinterpret_cast<const void*>(pass1), smem1);
   if (bad) return bad;
@@ -468,18 +470,14 @@ extern "C" int sweep1_sketch_launch(const float* g, const float* err, float* a,
   for (long long c = 0; c < nchunks; ++c) {
     const long long e0 = c * chunk;
     const long long n = std::min(chunk, j - e0);
-    if (passes & 1) {
-      pass1<<<grid, P1_THREADS, smem1, stream>>>(g + e0, err + e0, a + e0,
-                                                 pl, pv, L, e0, n);
-      cudaError_t e1 = cudaGetLastError();
-      if (e1 != cudaSuccess) return static_cast<int>(e1);
-    }
-    if (passes & 2) {
-      pass2_kernel<<<L.parts, P2_THREADS, smem2, stream>>>(
-          pl, pv, start + e0 / TILE, stride, sk, L, n, c > 0);
-      cudaError_t e1 = cudaGetLastError();
-      if (e1 != cudaSuccess) return static_cast<int>(e1);
-    }
+    pass1<<<grid, P1_THREADS, smem1, stream>>>(g + e0, err + e0, a + e0,
+                                               pl, pv, L, e0, n);
+    cudaError_t e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return static_cast<int>(e1);
+    pass2_kernel<<<L.parts, P2_THREADS, smem2, stream>>>(
+        pl, pv, start + e0 / TILE, stride, sk, L, n, c > 0);
+    e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return static_cast<int>(e1);
   }
   return 0;
 }

@@ -29,7 +29,6 @@ histogram needs no bin-0 correction, and ragged-tail lanes never flag.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -50,9 +49,10 @@ _BIN_SHIFT = 20          # fp32 bits >> 20 -> [0, 2047] for non-negative floats
 _PLAIN_ROWS = 1 << 14    # tiles per chunk in the plain versions (bounds memory)
 # the partitioned CountSketch encode (sweep1_sketch on the card)
 PART_SHIFT = 14          # R = 2^14 buckets a partition: 64 KB of fp32 sums
+HASH_BUCKETS = 1 << 24   # a bucket is (hash >> 8) % width: below 2^24, so a
+                         # wider row's later buckets stay 0 and get no
+                         # partition (at most 1024 partitions a row)
 SKETCH_TILE = 8192       # elements a pass-1 tile (512 threads x 16)
-MAX_PARTS = 1 << 13      # the start kernel counts every partition of a tile
-                         # in shared memory
 CHUNK_PAIRS = 3 << 27    # pairs a chunk: 2.4 GB of pair buffer at 6 B a pair
 _U64 = (1 << 64) - 1
 
@@ -196,19 +196,15 @@ def fastmod(n: np.ndarray, magic: int, width: int) -> np.ndarray:
     return (hi32 * w + ((lo32 * w) >> np.uint64(32))) >> np.uint64(32)
 
 
-def sketch_plan(j: int, rows: int, width: int, shift: int = PART_SHIFT,
+def sketch_plan(j: int, rows: int, width: int,
                 chunk_pairs: int = CHUNK_PAIRS) -> dict:
     """The partitioned encode's shape: ``chunk`` elements a chunk (a
-    multiple of the tile), ``nchunks``, ``per_row`` partitions of 2^shift
-    buckets a row, ``parts`` in all, and the pair buffer's ``pair_bytes``
-    (6 B a pair, rows * chunk pairs). Raises beyond MAX_PARTS."""
-    per_row = -(-width // (1 << shift))
+    multiple of the tile), ``nchunks``, ``per_row`` partitions of
+    2^PART_SHIFT buckets a row (covering the first min(width, 2^24)
+    buckets), ``parts`` in all, and the pair buffer's ``pair_bytes`` (6 B
+    a pair, rows * chunk pairs)."""
+    per_row = -(-min(width, HASH_BUCKETS) // (1 << PART_SHIFT))
     parts = rows * per_row
-    if parts > MAX_PARTS:
-        raise ValueError(
-            f"sweep1_sketch: width {width} at {rows} rows needs {parts} "
-            f"partitions of 2^{shift} buckets; the partitioned encode "
-            f"serves at most {MAX_PARTS}")
     chunk = max(SKETCH_TILE,
                 chunk_pairs // rows // SKETCH_TILE * SKETCH_TILE)
     span = max(1, min(chunk, j))
@@ -221,36 +217,34 @@ def _tiles(n: int) -> int:
     return -(-n // SKETCH_TILE)
 
 
-def _pair_keys(e0: int, n: int, rows: int, width: int, shift: int,
-               device=None):
+def _pair_keys(e0: int, n: int, rows: int, width: int, device=None):
     """For every pair of the elements [e0, e0 + n), in (element, row)
     order: its partition, local bucket and positive-sign flag, as pass 1
     computes them."""
     idx = torch.arange(e0, e0 + n, dtype=torch.int64, device=device)
-    per_row = -(-width // (1 << shift))
+    per_row = sketch_plan(n, rows, width)["per_row"]
     parts, local, pos = [], [], []
     for r in range(rows):
         h, p = csk.row_hash(r, width, idx)
-        parts.append(r * per_row + (h >> shift))
-        local.append(h & ((1 << shift) - 1))
+        parts.append(r * per_row + (h >> PART_SHIFT))
+        local.append(h & ((1 << PART_SHIFT) - 1))
         pos.append(p)
     return (torch.stack(parts, 1).reshape(-1),
             torch.stack(local, 1).reshape(-1), torch.stack(pos, 1).reshape(-1))
 
 
-def sketch_starts_plain(j: int, rows: int, width: int,
-                        shift: int = PART_SHIFT, device=None):
+def sketch_starts_plain(j: int, rows: int, width: int, device=None):
     """(parts, tiles) int64: where each partition's run begins in each
     tile's block of pairs (the pairs of the tile's earlier partitions),
     tiles of SKETCH_TILE elements over the whole J. The start kernel
     writes the same numbers mod 2^16."""
-    plan = sketch_plan(j, rows, width, shift)
+    plan = sketch_plan(j, rows, width)
     parts, tiles = plan["parts"], _tiles(j)
     cnt = torch.zeros((tiles, parts), dtype=torch.int64, device=device)
     step = _PLAIN_ROWS * BLOCK             # a multiple of SKETCH_TILE
     for e0 in range(0, j, step):
         n = min(step, j - e0)
-        keys, _, _ = _pair_keys(e0, n, rows, width, shift, device)
+        keys, _, _ = _pair_keys(e0, n, rows, width, device)
         tile = torch.arange(rows * n, device=device) // (rows * SKETCH_TILE)
         t0 = e0 // SKETCH_TILE
         nt = _tiles(n)
@@ -260,28 +254,28 @@ def sketch_starts_plain(j: int, rows: int, width: int,
 
 
 def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
-                              shift: int = PART_SHIFT,
                               chunk_pairs: int = CHUNK_PAIRS):
     """(a, sketch, pair ids) through the partitioned encode's steps in
     plain PyTorch. Per chunk, pass 1 writes each tile's pairs as the
     tile's block, in partition order (within a run in element order,
     where the kernel's order is not fixed); pass 2 gathers each
     partition's runs through the start table, sums them with
-    ``index_add_`` and writes or adds its slice. ``pair ids`` holds each
-    chunk's buffer as element * rows + row, so a test can see that the
-    blocks hold every pair once."""
+    ``index_add_`` and writes or adds its slice; buckets from 2^24 on are
+    zeroed once. ``pair ids`` holds each chunk's buffer as element * rows
+    + row, so a test can see that the blocks hold every pair once."""
     a = err_prev + g
     j = a.numel()
     dev = a.device
-    plan = sketch_plan(j, rows, width, shift, chunk_pairs)
-    starts = sketch_starts_plain(j, rows, width, shift, dev)
-    R = 1 << shift
+    plan = sketch_plan(j, rows, width, chunk_pairs)
+    starts = sketch_starts_plain(j, rows, width, dev)
+    R = 1 << PART_SHIFT
     sk = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    sk[:, HASH_BUCKETS:] = 0.0
     ids = []
     for c in range(plan["nchunks"]):
         e0 = c * plan["chunk"]
         n = min(plan["chunk"], j - e0)
-        parts, local, pos = _pair_keys(e0, n, rows, width, shift, dev)
+        parts, local, pos = _pair_keys(e0, n, rows, width, dev)
         vals = a[e0:e0 + n].repeat_interleave(rows)
         vals = torch.where(pos, vals, -vals)
         # pass 1: each tile's block in partition order
@@ -384,9 +378,16 @@ def _hash_args(rows: int):
 
 
 def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
-                  width: int):
+                  width: int, tables: dict | None = None):
     """(a (J,) fp32, CountSketch of a (rows, width) fp32) for g, err_prev
-    (J,) fp32 on one device; a = err_prev + g."""
+    (J,) fp32 on one device; a = err_prev + g.
+
+    On the card the encode reads a start table of its shape (J, rows,
+    width), which a count kernel builds without reading data (142 MB at
+    J = 892,032,000, 3 rows, width 3,568,128). ``tables`` is a dict that
+    the caller owns and keeps across calls: the table is built into it
+    at the first call of a shape and reused after, and it lives as long
+    as the dict. Without it the table is built for the call alone."""
     j = g.numel()
     _check_vec("g", g)
     _check_vec("err_prev", err_prev, j)
@@ -395,70 +396,59 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     csk.check_shape(j, rows, width)
     if not _on_card(g):
         return sweep1_sketch_plain(g, err_prev, rows, width)
-    out = sweep1_sketch_card(g, err_prev, rows, width)
+    key = (g.device, j, rows, width)
+    start = None if tables is None else tables.get(key)
+    if start is None:
+        start = sketch_starts(g.device, j, rows, width)
+        if tables is not None:
+            tables[key] = start
+    out = _sweep1_sketch_card(g, err_prev, rows, width, start)
     sweep1_sketch.launches += 1
     return out
 
 
-def sketch_starts(dev, j: int, rows: int, width: int,
-                  shift: int = PART_SHIFT) -> torch.Tensor:
+def sketch_starts(dev, j: int, rows: int, width: int) -> torch.Tensor:
     """The start kernel's (parts, tiles) table on the card, uint16 bits
     in an int16 tensor (no data read)."""
     fn = _lib("sketch_parts").sketch_parts_start_launch
-    plan = sketch_plan(j, rows, width, shift)
+    plan = sketch_plan(j, rows, width)
     tiles = _tiles(j)
     start = torch.empty((plan["parts"], tiles), dtype=torch.int16,
                         device=dev)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
     mults, adds = _hash_args(rows)
     _check_launch("sketch_parts_start", fn(
-        start.data_ptr(), mults, adds, rows, width, fastmod_magic(width),
-        shift, j, _grid(dev, tiles), _stream(dev)))
+        start.data_ptr(), mults, adds, rows, width, fastmod_magic(width), j,
+        _grid(dev, tiles), _stream(dev)))
     return start
 
 
-@functools.lru_cache(maxsize=4)
-def _starts(dev, j: int, rows: int, width: int, shift: int):
-    """The start table of a shape, computed once and kept (142 MB at the
-    main shape)."""
-    return sketch_starts(dev, j, rows, width, shift)
-
-
-def clear_sketch_tables() -> None:
-    """Drop the kept start tables (their device memory)."""
-    _starts.cache_clear()
-
-
-def sweep1_sketch_card(g, err_prev, rows: int, width: int,
-                       shift: int = PART_SHIFT, passes: int = 3):
-    """The partitioned encode on the card (:func:`sweep1_sketch` runs it
-    at the defaults; ``shift`` is there for measuring another partition
-    width, ``passes`` = 1 or 2 for timing one pass alone, whose outputs
-    are then incomplete). Not counted in ``launches``."""
+def _sweep1_sketch_card(g, err_prev, rows: int, width: int, start):
+    """The partitioned encode on the card, through the start table
+    ``start`` of its shape."""
     fn = _lib("sketch_parts").sweep1_sketch_launch
     dev = g.device
     j = g.numel()
-    plan = sketch_plan(j, rows, width, shift)
-    start = _starts(dev, j, rows, width, shift)
+    plan = sketch_plan(j, rows, width)
     a = torch.empty_like(g)
     sk = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    sk[:, HASH_BUCKETS:] = 0.0
     npairs = plan["pair_bytes"] // 6
     pl = torch.empty(npairs, dtype=torch.int16, device=dev)   # uint16 bits
     pv = torch.empty(npairs, dtype=torch.float32, device=dev)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     mults, adds = _hash_args(rows)
     err = fn(g.data_ptr(), err_prev.data_ptr(), a.data_ptr(), sk.data_ptr(),
              pl.data_ptr(), pv.data_ptr(), start.data_ptr(), mults, adds, rows,
-             width, fastmod_magic(width), shift, j, plan["chunk"],
+             width, fastmod_magic(width), j, plan["chunk"],
              _grid(dev, _tiles(min(plan["chunk"], max(j, 1))), 1),
-             _aligned(g, err_prev, a), passes, _stream(dev))
+             _aligned(g, err_prev, a), _stream(dev))
     _check_launch("sweep1_sketch", err)
     return a, sk
 

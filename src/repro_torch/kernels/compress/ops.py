@@ -158,10 +158,12 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
 
 
 def fused_sketch_encode(g: torch.Tensor, err_prev: torch.Tensor, *,
-                        rows: int, width: int) -> dict:
+                        rows: int, width: int, tables: dict | None = None
+                        ) -> dict:
     """The per-worker half of kind="sketchtopk" on the fused pipeline:
     a = err_prev + g and its (rows, width) CountSketch in one pass over
-    g and err_prev (kernel ``sweep1_sketch``). Returns {"a": (J,) fp32,
+    g and err_prev (kernel ``sweep1_sketch``, which keeps its start
+    tables in the caller's ``tables``). Returns {"a": (J,) fp32,
     "sketch": (rows, width) fp32}."""
-    a, sk = pk.sweep1_sketch(g, err_prev, rows, width)
+    a, sk = pk.sweep1_sketch(g, err_prev, rows, width, tables)
     return {"a": a, "sketch": sk}

@@ -22,26 +22,12 @@
 //   equals the plain version bit for bit;
 // - each thread loads its four float4 of a tile before it bins any of
 //   them, as sweep 1 does, so 64 B per thread are in flight;
-// - the bin is the IEEE division's, as the reference computes it. The
-//   measured alternative (step 3) bins without a division: each CTA first
-//   builds the table of the 2047 interior bin edges t_b, the least fp32
-//   y >= 0 whose IEEE bin trunc(RN(y / amax) * 2048) reaches b, found from
-//   b / 2048 * amax by stepping one ulp at a time with the IEEE division
-//   itself; an element's bin is then |x| * RN(2048 / amax), within a
-//   thousandth of a bin of the IEEE quotient, corrected by one comparison
-//   with the table on each side (the bin is monotone in |x|, so this is
-//   the IEEE bin exactly).
+// - the bin is the IEEE division's, as the reference's compiled program
+//   computes it: an exact multiply by 2048 follows, no contraction. (A bin
+//   through a per-CTA table of the exact bin edges, with no division per
+//   element, was measured slower than the division once the
+//   sub-histograms were in: PERF.md.)
 // amax arrives as a pointer to a device scalar, so it costs no host read.
-//
-// STEP selects the design one change at a time, for measuring what each
-// change buys: 0 is the first port's kernel (one warp-aggregated shared
-// atomic per element after __match_any_sync into one histogram per CTA,
-// an IEEE division per element, one float4 in flight per thread), 1 adds
-// the per-warp sub-histograms, 2 the tiles, 3 the edge table. Once the
-// sub-histograms are in, the division costs less than the table's lookups
-// (PERF.md), so hist_launch runs step 2 and the table stays a measured
-// step only; hist_launch_step serves the measurement.
-#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -53,9 +39,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int BINS = 2048;
 constexpr int BLOCK = 4096;                     // elements per tile
 constexpr int PER_THREAD = BLOCK / THREADS;     // 16 elements, 4 float4
+constexpr size_t SMEM = WARPS * BINS * sizeof(int);
 constexpr float AMAX_FLOOR = 0x1.4484cp-100f;   // f32(1e-30)
 
-// the IEEE bin: one division and an exact multiply by 2048, no contraction
 __device__ __forceinline__ int bin_of(float x, float amax) {
   const float q = __fmul_rn(__fdiv_rn(fabsf(x), amax), 2048.0f);
   if (q != q) return 0;                 // NaN: bin 0, as XLA converts it
@@ -63,163 +49,49 @@ __device__ __forceinline__ int bin_of(float x, float amax) {
   return b < 0 ? 0 : (b > BINS - 1 ? BINS - 1 : b);
 }
 
-// whether y >= 0 lies in bin b or above (b in [1, 2047])
-__device__ __forceinline__ bool reaches(float y, float amax, int b) {
-  return __fmul_rn(__fdiv_rn(y, amax), 2048.0f) >= static_cast<float>(b);
-}
-
-// edge[b] = t_b for b in [1, 2047] (edge[0] = 0), for a finite amax
-__device__ void build_edges(float* edge, float amax) {
-  for (int b = threadIdx.x; b < BINS; b += THREADS) {
-    if (b == 0) {
-      edge[0] = 0.0f;
-      continue;
-    }
-    float y = __fmul_rn(static_cast<float>(b) * 0x1p-11f, amax);
-    if (reaches(y, amax, b)) {
-      for (float p = nextafterf(y, 0.0f); y > 0.0f && reaches(p, amax, b);
-           p = nextafterf(y, 0.0f)) {
-        y = p;
-      }
-    } else {
-      do {
-        y = nextafterf(y, INFINITY);
-      } while (!reaches(y, amax, b));   // ends: reaches(amax) holds
-    }
-    edge[b] = y;
-  }
-}
-
-// the IEEE bin of x through the edge table: |x| * RN(2048 / amax) is off
-// by at most one bin, which one comparison on each side corrects
-__device__ __forceinline__ int bin_by_edges(float x, float scale,
-                                            const float* edge) {
-  const float ax = fabsf(x);
-  if (ax != ax) return 0;
-  int b = __float2int_rz(fminf(__fmul_rn(ax, scale), BINS - 1.0f));
-  b -= ax < edge[b];
-  b += b < BINS - 1 && ax >= edge[b + 1];
-  return b;
-}
-
-__device__ __forceinline__ void count_aggregated(int* h, int bin) {
-  const unsigned peers = __match_any_sync(__activemask(), bin);
-  if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(peers) - 1)) {
-    atomicAdd(&h[bin], __popc(peers));
-  }
-}
-
-template <int STEP>
-struct Binner {
-  static constexpr bool PRIVATE = STEP >= 1;
-  static constexpr bool TABLE = STEP >= 3;
-  int* h;              // this warp's (or the CTA's) histogram
-  const float* edge;
-  float amax, scale;
-
-  __device__ __forceinline__ void operator()(float x) const {
-    const int bin = TABLE ? bin_by_edges(x, scale, edge) : bin_of(x, amax);
-    if (PRIVATE) {
-      atomicAdd(&h[bin], 1);
-    } else {
-      count_aggregated(h, bin);
-    }
-  }
-};
-
-// dynamic shared memory: the histograms, then (TABLE) the edge table
-template <int STEP>
-constexpr size_t smem_bytes() {
-  return (STEP >= 1 ? WARPS : 1) * BINS * sizeof(int) +
-         (STEP >= 3 ? BINS * sizeof(float) : 0);
-}
-
-template <bool VEC, int STEP>
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 hist_kernel(const float* __restrict__ x, const float* __restrict__ amax_ptr,
             int* __restrict__ hist_out, long long j) {
-  using B = Binner<STEP>;
-  constexpr int NHIST = B::PRIVATE ? WARPS : 1;
-  extern __shared__ int smem[];
+  extern __shared__ int sub[];          // WARPS histograms of BINS
   // jnp.maximum(amax, 1e-30): a NaN amax stays NaN
   const float raw = *amax_ptr;
   const float amax = raw != raw ? raw : fmaxf(raw, AMAX_FLOOR);
-  if (B::TABLE && !(amax < INFINITY)) {
-    // a NaN or infinite amax puts every |x| / amax at 0 or NaN: bin 0
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      atomicAdd(&hist_out[0], static_cast<int>(j));
-    }
-    return;
-  }
-  for (int b = threadIdx.x; b < NHIST * BINS; b += THREADS) smem[b] = 0;
-  float* edge = reinterpret_cast<float*>(smem + NHIST * BINS);
-  if (B::TABLE) build_edges(edge, amax);
+  for (int b = threadIdx.x; b < WARPS * BINS; b += THREADS) sub[b] = 0;
   __syncthreads();
-  const B bin{smem + (B::PRIVATE ? (threadIdx.x >> 5) * BINS : 0), edge,
-              amax, B::TABLE ? __fdiv_rn(2048.0f, amax) : 0.0f};
+  int* h = sub + (threadIdx.x >> 5) * BINS;
+  const auto count = [&](float v) { atomicAdd(&h[bin_of(v, amax)], 1); };
 
-  long long done = 0;
-  if (STEP >= 2) {
-    const long long tiles = (j + BLOCK - 1) / BLOCK;
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const long long base = t * BLOCK;
-      if (VEC && base + BLOCK <= j) {
-        const float4* x4 = reinterpret_cast<const float4*>(x + base);
-        float4 v[PER_THREAD / 4];
+  const long long tiles = (j + BLOCK - 1) / BLOCK;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * BLOCK;
+    if (VEC && base + BLOCK <= j) {
+      const float4* x4 = reinterpret_cast<const float4*>(x + base);
+      float4 v[PER_THREAD / 4];
 #pragma unroll
-        for (int r = 0; r < PER_THREAD / 4; ++r) {
-          v[r] = __ldcs(&x4[r * THREADS + threadIdx.x]);
-        }
+      for (int r = 0; r < PER_THREAD / 4; ++r) {
+        v[r] = __ldcs(&x4[r * THREADS + threadIdx.x]);
+      }
 #pragma unroll
-        for (int r = 0; r < PER_THREAD / 4; ++r) {
-          bin(v[r].x);
-          bin(v[r].y);
-          bin(v[r].z);
-          bin(v[r].w);
-        }
-      } else {
-        for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
-          if (base + i < j) bin(x[base + i]);
-        }
+      for (int r = 0; r < PER_THREAD / 4; ++r) {
+        count(v[r].x);
+        count(v[r].y);
+        count(v[r].z);
+        count(v[r].w);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
+        if (base + i < j) count(x[base + i]);
       }
     }
-  } else {
-    const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-    const long long first = static_cast<long long>(blockIdx.x) * THREADS +
-                            threadIdx.x;
-    if (VEC) {
-      const long long n4 = j / 4;
-      for (long long i = first; i < n4; i += stride) {
-        const float4 v = __ldcs(reinterpret_cast<const float4*>(x) + i);
-        bin(v.x);
-        bin(v.y);
-        bin(v.z);
-        bin(v.w);
-      }
-      done = n4 * 4;
-    }
-    for (long long e = done + first; e < j; e += stride) bin(x[e]);
   }
   __syncthreads();
   for (int b = threadIdx.x; b < BINS; b += THREADS) {
     int v = 0;
 #pragma unroll
-    for (int w = 0; w < NHIST; ++w) v += smem[w * BINS + b];
+    for (int w = 0; w < WARPS; ++w) v += sub[w * BINS + b];
     if (v) atomicAdd(&hist_out[b], v);
   }
-}
-
-template <int STEP>
-int launch(const float* x, const float* amax, int* hist, long long j,
-           int grid, int vec, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<STEP>();
-  auto kernel = vec ? hist_kernel<true, STEP> : hist_kernel<false, STEP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, stream>>>(x, amax, hist, j);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -231,20 +103,12 @@ int launch(const float* x, const float* amax, int* hist, long long j,
 extern "C" int hist_launch(const float* x, const float* amax, int* hist,
                            long long j, int grid, int vec,
                            cudaStream_t stream) {
-  return topk_select::launch<2>(x, amax, hist, j, grid, vec, stream);
-}
-
-// The same with the design cut at `step` (0-3, see above), for measuring
-// what each change buys.
-extern "C" int hist_launch_step(const float* x, const float* amax, int* hist,
-                                long long j, int grid, int vec, int step,
-                                cudaStream_t stream) {
-  using topk_select::launch;
-  switch (step) {
-    case 0: return launch<0>(x, amax, hist, j, grid, vec, stream);
-    case 1: return launch<1>(x, amax, hist, j, grid, vec, stream);
-    case 2: return launch<2>(x, amax, hist, j, grid, vec, stream);
-    case 3: return launch<3>(x, amax, hist, j, grid, vec, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  using namespace topk_select;
+  auto kernel = vec ? hist_kernel<true> : hist_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, SMEM, stream>>>(x, amax, hist, j);
+  return static_cast<int>(cudaGetLastError());
 }

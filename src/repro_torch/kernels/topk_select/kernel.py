@@ -8,13 +8,6 @@ linear bins of [0, max(amax, 1e-30)]: bin = clip(trunc(|x| / amax' *
 a CPU tensor runs the plain version, a CUDA tensor launches the kernel
 (or raises). ``histogram.launches`` counts kernel launches. Any J is
 served without padding, so no bin-0 correction is needed.
-
-:func:`histogram_step` runs the kernel with its design cut at one of its
-steps (``csrc/hist.cu``), for measuring what each step buys; it is not
-counted in ``launches``. Its last step bins without a division per
-element, through a table of the interior bin edges: :func:`hist_edges`
-and :func:`bins_by_edges` are those steps in plain PyTorch, which the CPU
-tests hold against the IEEE bins of ``linear_bins``.
 """
 from __future__ import annotations
 
@@ -30,65 +23,12 @@ from repro_torch.kernels.common import (aligned, check_launch, check_vec,
 
 BINS = HIST_BINS
 BLOCK = 4096                 # elements per tile of the kernel
-CTAS_PER_SM = 3              # 64-72 KB of shared memory each (8
-                             # sub-histograms and, step 3, the edge table)
+CTAS_PER_SM = 3              # 64 KB of shared memory each (8 sub-histograms)
 AMAX_FLOOR = f32(1e-30)      # the reference's max(amax, 1e-30)
 
 
 def histogram_plain(x, amax):
     return linear_histogram(x, amax.reshape(()).clamp(min=AMAX_FLOOR))
-
-
-def _reaches(y, amax, b):
-    """Whether y >= 0 lies in bin b or above: RN(y / amax) * 2048 >= b,
-    each operation rounded to fp32 as the kernel's ``reaches``."""
-    return (y / amax) * float(BINS) >= b
-
-
-def hist_edges(amax: torch.Tensor) -> torch.Tensor:
-    """(BINS,) fp32 table of the kernel: entry b in [1, 2047] is t_b, the
-    least fp32 y >= 0 whose IEEE bin reaches b, entry 0 is 0. amax is a
-    finite fp32 scalar, already floored. Each t_b is found from
-    b / 2048 * amax by one-ulp steps, as the kernel finds it."""
-    amax = amax.reshape(()).float()
-    b = torch.arange(1, BINS, dtype=torch.float32, device=amax.device)
-    y = (b * 2.0 ** -11) * amax
-    zero = torch.zeros_like(y)
-    inf = torch.full_like(y, float("inf"))
-    down = _reaches(y, amax, b)
-    while True:                 # the least y that still reaches b
-        p = torch.nextafter(y, zero)
-        step = down & (y > 0) & _reaches(p, amax, b)
-        if not bool(step.any()):
-            break
-        y = torch.where(step, p, y)
-    while True:                 # the first y that reaches b
-        step = ~_reaches(y, amax, b)
-        if not bool(step.any()):
-            break
-        y = torch.where(step, torch.nextafter(y, inf), y)
-    return torch.cat([zero[:1], y])
-
-
-def bins_by_edges(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
-    """(J,) int64 bins of x as the kernel computes them: min(|x| *
-    RN(2048 / amax'), 2047) truncated, then one comparison with the edge
-    table on each side; a NaN |x| in bin 0, and every entry in bin 0
-    when amax' = max(amax, 1e-30) is NaN or infinite."""
-    amax = amax.reshape(()).float()
-    amax = torch.where(torch.isnan(amax), amax, amax.clamp(min=AMAX_FLOOR))
-    if not bool(amax < float("inf")):
-        return torch.zeros(x.numel(), dtype=torch.int64, device=x.device)
-    edge = hist_edges(amax)
-    ax = x.reshape(-1).float().abs()
-    nan = torch.isnan(ax)
-    ax = torch.where(nan, torch.zeros_like(ax), ax)
-    scale = torch.tensor(float(BINS), device=x.device) / amax
-    b = (ax * scale).clamp(max=BINS - 1).long()
-    b = b - (ax < edge[b]).long()
-    up = torch.cat([edge[1:], edge.new_full((1,), float("inf"))])
-    b = b + ((b < BINS - 1) & (ax >= up[b])).long()
-    return torch.where(nan, torch.zeros_like(b), b)
 
 
 def histogram(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
@@ -100,41 +40,17 @@ def histogram(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
     same_device("histogram", x, amax)
     if not on_card(x):
         return histogram_plain(x, amax)
-    hist = _launch(x, amax, None)
-    histogram.launches += 1
-    return hist
-
-
-def histogram_step(x: torch.Tensor, amax: torch.Tensor,
-                   step: int) -> torch.Tensor:
-    """The kernel with its design cut at ``step`` (0: the first port's
-    kernel, 1: + per-warp sub-histograms, 2: + the tiles, which
-    :func:`histogram` runs, 3: + the edge table); card tensors only."""
-    check_vec("x", x)
-    same_device("histogram_step", x, amax)
-    if not on_card(x):
-        raise ValueError("histogram_step runs on the card only")
-    return _launch(x, amax, step)
-
-
-def _launch(x, amax, step):
-    library = lib("hist")
     hist = torch.zeros(BINS, dtype=torch.int32, device=x.device)
-    j = x.numel()
-    args = [x.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
-            grid(x.device, -(-j // BLOCK), 4 if step == 0 else CTAS_PER_SM),
-            aligned(x)]
-    types = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int]
-    if step is None:
-        fn = library.hist_launch
-    else:
-        fn = library.hist_launch_step
-        args.append(step)
-        types.append(ctypes.c_int)
+    fn = lib("hist").hist_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = types + [ctypes.c_void_p]
-    check_launch("histogram", fn(*args, stream(x.device)))
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    j = x.numel()
+    check_launch("histogram", fn(
+        x.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
+        grid(x.device, -(-j // BLOCK), CTAS_PER_SM), aligned(x),
+        stream(x.device)))
+    histogram.launches += 1
     return hist
 
 

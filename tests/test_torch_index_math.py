@@ -1,30 +1,27 @@
-"""The index arithmetic of the redesigned kernels B3 and B7, through the
-plain PyTorch versions of the steps that their CUDA code mirrors:
+"""The index arithmetic of the redesigned kernel B3, through the plain
+PyTorch versions of the steps that its CUDA code mirrors, and the amax
+of B7's caller:
 
 - B3's multiplicative inverse for ``% width`` (the host's 64-bit magic and
   an emulation of ``__umul64hi``) equals ``%`` on every 24-bit input;
 - B3's partitioned layout (tile blocks in partition order, the start
   table) holds every (row, index) pair once, and the two-pass encode it
   feeds equals ``sketch_encode_plain`` bitwise on dyadic inputs and within
-  ``sketch_error_bound`` on Gaussian ones;
-- B7's bin through the edge table (an approximate bin corrected by one
-  comparison on each side) equals the IEEE bin of ``linear_bins`` on every
-  edge, its fp32 neighbours and whole inputs;
+  ``sketch_error_bound`` on Gaussian ones, also at widths beyond the 2^24
+  buckets a hash reaches, which have no partition;
 - the threshold op's amax, taken without a J-sized |x|, equals
   ``x.abs().amax()`` bit for bit.
 
 The CUDA kernels run only on the card, where ``chip_smoke.py`` holds them
-against the same plain versions."""
+against the same plain versions; B7's plain version is held against the
+reference in ``test_torch_topk_select.py``."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import sketch as csk  # noqa: E402
-from repro_torch.core.numerics import f32  # noqa: E402
-from repro_torch.core.select import linear_bins, linear_histogram  # noqa: E402
 from repro_torch.kernels.compress import kernel as pk  # noqa: E402
-from repro_torch.kernels.topk_select import kernel as hk  # noqa: E402
 from repro_torch.kernels.topk_select import ops as hops  # noqa: E402
 
 RAGGED = 3 * 8192 + 517
@@ -119,15 +116,22 @@ def test_two_pass_encode_matches_plain_encode(rows, width):
     assert bool(((sk - want).abs().double() <= bound).all())
 
 
-@pytest.mark.parametrize("shift", [4, 9])
-def test_two_pass_encode_with_narrow_partitions(shift):
-    """Many partitions a row (2^4 and 2^9 buckets each), so most runs are
-    short or empty: still the plain encode bit for bit on dyadic inputs."""
-    j, rows, width = RAGGED, 3, 3001
-    rng = np.random.default_rng(shift)
+@pytest.mark.parametrize("rows", [1, 2])
+def test_two_pass_encode_beyond_the_hash_range(rows):
+    """A width past 2^24: the 1024 partitions of a row cover the buckets
+    a hash reaches, so most runs are short or empty, and the later
+    buckets stay 0. Still the plain encode bit for bit on dyadic
+    inputs."""
+    j, width = RAGGED, pk.HASH_BUCKETS + 1000
+    plan = pk.sketch_plan(j, rows, width)
+    assert plan["per_row"] == pk.HASH_BUCKETS >> pk.PART_SHIFT
+    rng = np.random.default_rng(rows)
     g, err = _dyadic(rng, j), _dyadic(rng, j)
-    a, sk, _ = pk.sweep1_sketch_parts_plain(g, err, rows, width, shift=shift)
+    a, sk, ids = pk.sweep1_sketch_parts_plain(g, err, rows, width)
+    assert torch.equal(torch.sort(torch.cat(ids)).values,
+                       torch.arange(rows * j))
     assert torch.equal(sk, pk.sketch_encode_plain(a, rows, width))
+    assert not bool(sk[:, pk.HASH_BUCKETS:].any())
 
 
 def test_sketch_plan_chunks_and_limits():
@@ -136,61 +140,9 @@ def test_sketch_plan_chunks_and_limits():
     assert plan["parts"] == 3 * 218
     assert plan["pair_bytes"] == 6 * 3 * (1 << 27)
     assert pk.sketch_plan(100, 3, 512)["pair_bytes"] == 6 * 3 * 100
-    with pytest.raises(ValueError, match="partitions"):
-        pk.sketch_plan(1 << 20, 8, 1 << 26)
-
-
-# ---------------------------------------------------------------------------
-# B7: the edge table
-# ---------------------------------------------------------------------------
-
-AMAXES = (1.0, 4.0, 3.7e-3, f32(1e-30))
-
-
-def _neighbours(t):
-    zero, inf = torch.zeros_like(t), torch.full_like(t, float("inf"))
-    return torch.cat([t, torch.nextafter(t, zero), torch.nextafter(t, inf)])
-
-
-@pytest.mark.parametrize("amax", AMAXES)
-def test_edges_are_the_least_values_of_their_bins(amax):
-    a = torch.tensor(amax, dtype=torch.float32)
-    t = hk.hist_edges(a)[1:]
-    b = torch.arange(1, hk.BINS)
-    assert torch.equal(linear_bins(t, a), b)
-    below = torch.nextafter(t, torch.zeros_like(t))
-    assert bool((linear_bins(below, a) < b).all())
-
-
-@pytest.mark.parametrize("amax", AMAXES)
-def test_edge_table_bins_equal_ieee_bins_at_every_edge(amax):
-    a = torch.tensor(amax, dtype=torch.float32)
-    x = _neighbours(hk.hist_edges(a)[1:])
-    x = torch.cat([x, -x, a.reshape(1), torch.tensor([0.0, -0.0])])
-    assert torch.equal(hk.bins_by_edges(x, a), linear_bins(x, a))
-
-
-@pytest.mark.parametrize("kind", ["gauss", "edges", "nan", "inf"])
-@pytest.mark.parametrize("amax", AMAXES + (float("nan"), 0.0))
-def test_edge_table_histogram_equals_linear_histogram(kind, amax):
-    """Whole inputs; amax 0.0 is floored to f32(1e-30) as the kernel
-    floors it, a NaN amax puts every entry in bin 0."""
-    rng = np.random.default_rng(1)
-    floor = max(amax, hk.AMAX_FLOOR) if amax == amax else amax
-    if kind == "edges":        # |x| = b / 2048 * amax' exactly
-        x = (rng.integers(0, 2049, RAGGED) / 2048.0 * floor)
-    else:
-        x = rng.standard_normal(RAGGED) * (floor if floor == floor else 1.0)
-    x = torch.from_numpy(x.astype(np.float32))
-    if kind == "nan":
-        x[::997] = float("nan")
-    if kind == "inf":
-        x[::991] = float("inf")
-    a = torch.tensor(amax, dtype=torch.float32)
-    want = linear_histogram(x, torch.tensor(floor, dtype=torch.float32))
-    got = torch.bincount(hk.bins_by_edges(x, a), minlength=hk.BINS)
-    assert torch.equal(got.to(torch.int32), want)
-    assert torch.equal(want, hk.histogram_plain(x, a))
+    # any width the sketch accepts: at most 1024 partitions a row
+    widest = pk.sketch_plan(1 << 20, csk.MAX_ROWS, (1 << 32) - 1)
+    assert widest["parts"] == csk.MAX_ROWS * 1024
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ for the exact, histogram and histogram_kernel selectors.
 Cases: Gaussian inputs, a ragged J (the port pads nothing; the reference
 pads and corrects bin 0), an all-zero input (amax = 0: the kernel's op
 floors amax at 1e-30, the plain selector takes 1.0), entries exactly on
-bin edges, and NaN. On the CPU the wrapper runs its plain version; the
+bin edges, and NaN; for fixed amax values (the 1e-30 floor and a NaN amax
+among them) every bin edge and its fp32 neighbours, and whole inputs with
+NaN and inf entries. On the CPU the wrapper runs its plain version; the
 CUDA kernel is held against it on the card by ``chip_smoke.py``."""
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import select as jsel  # noqa: E402
 from repro.kernels.topk_select import ops as jops  # noqa: E402
 from repro.kernels.topk_select.kernel import histogram_pallas  # noqa: E402
+from repro.kernels.topk_select.ref import histogram_ref  # noqa: E402
 from repro_torch.core import select as tsel  # noqa: E402
 from repro_torch.kernels.topk_select import kernel as tk  # noqa: E402
 from repro_torch.kernels.topk_select import ops as tops  # noqa: E402
@@ -77,6 +80,69 @@ def test_nan_entries_count_in_bin_zero():
     want = histogram_pallas(jnp.asarray(x), jnp.float32(np.nan),
                             interpret=True)
     assert _same(want, all0) and int(all0[0]) == x.size
+
+
+# the 1e-30 floor, two amax below it (0.0 and 2^-126, both floored) and
+# a large amax among them
+AMAXES = (1.0, 4.0, 3.7e-3, float(np.float32(1e-30)), 0.0, float("nan"),
+          2.0 ** -126, 1e30)
+
+
+def _bin_edges(amax):
+    """t_b, b = 1..2047: the least fp32 y >= 0 with RN(y / amax) * 2048
+    >= b, by bisection over the bit patterns (finite amax > 0)."""
+    a = np.float32(amax)
+    b = np.arange(1, tk.BINS, dtype=np.float32)
+    lo = np.zeros(b.size, np.int64)
+    hi = np.full(b.size, a.view(np.int32), np.int64)
+    while (lo < hi).any():
+        mid = (lo + hi) // 2
+        ok = mid.astype(np.int32).view(np.float32) / a * np.float32(tk.BINS) >= b
+        hi, lo = np.where(ok, mid, hi), np.where(ok, lo, mid + 1)
+    return hi.astype(np.int32).view(np.float32)
+
+
+def _reference_histogram(x, amax):
+    return jax.jit(histogram_ref)(jnp.asarray(x), jnp.float32(amax))
+
+
+@pytest.mark.parametrize("amax", AMAXES)
+def test_histogram_at_every_bin_edge_matches_reference(amax):
+    """Every interior edge of amax' = max(amax, 1e-30), its two fp32
+    neighbours, their negatives and amax' itself: the values where a bin
+    is easiest to get wrong."""
+    floor = np.float32(max(amax, tk.AMAX_FLOOR) if amax == amax else 4.0)
+    t = _bin_edges(floor)
+    if amax == amax:
+        assert (t[1:] > t[:-1]).all()
+        assert (t / floor * np.float32(tk.BINS) >= np.arange(1, tk.BINS)).all()
+    x = np.concatenate([t, np.nextafter(t, np.float32(0)),
+                        np.nextafter(t, np.float32(np.inf)), [floor]])
+    x = np.concatenate([x, -x]).astype(np.float32)
+    got = tk.histogram(torch.from_numpy(x), torch.tensor(np.float32(amax)))
+    assert _same(_reference_histogram(x, amax), got)
+    assert int(got.sum()) == x.size
+
+
+@pytest.mark.parametrize("kind", ["gauss", "edges", "nan", "inf"])
+@pytest.mark.parametrize("amax", AMAXES)
+def test_histogram_for_a_given_amax_matches_reference(kind, amax):
+    """Whole inputs against an amax the caller gives: 0.0 is floored to
+    f32(1e-30), a NaN amax puts every entry in bin 0."""
+    rng = np.random.default_rng(1)
+    floor = max(amax, tk.AMAX_FLOOR) if amax == amax else 1.0
+    if kind == "edges":        # |x| = b / 2048 * amax' exactly
+        x = rng.integers(0, 2049, RAGGED) / 2048.0 * floor
+    else:
+        x = rng.standard_normal(RAGGED) * floor
+    x = x.astype(np.float32)
+    if kind == "nan":
+        x[::997] = np.nan
+    if kind == "inf":
+        x[::991] = np.inf
+    got = tk.histogram(torch.from_numpy(x), torch.tensor(np.float32(amax)))
+    assert _same(_reference_histogram(x, amax), got)
+    assert int(got.sum()) == x.size
 
 
 @pytest.mark.parametrize("kind", ["gauss", "zeros", "edges", "nan"])
