@@ -2,6 +2,12 @@
 """On-card smoke test of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train train_sketch_reference [--src OLD/src]
+
+The second form runs only the device and build phases and the named
+train phases (no profile, no kernels line), from this checkout's port or
+from another source tree: an unpacked older commit's ``src/``, so that
+two versions can be compared in one run on one card.
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -39,22 +45,27 @@ line and raising on any failure:
 10. train_reference, profile_reference: the reference launcher's default
              config (REGTOP-k, reference pipeline, dense posterior, exact
              selector, simulate comm) through the same launcher, with the
-             dense score and apply kernels launched once per step.
+             dense score and apply kernels launched once per step;
+11. train_sketch_reference, profile_sketch_reference: the launcher's
+             defaults with ``--sparsifier sketchtopk`` (reference
+             pipeline, exact selector, simulate comm): the encode
+             ``sketch_encode`` and the apply kernel once per step.
 
-Phase 3 also holds the two CountSketch encodes (kernels_sketch): their a
-with ``torch.equal``, their sketch with ``torch.equal`` on dyadic inputs
+Phase 3 also holds the two CountSketch encodes (kernels_sketch, B3 and
+B4 on the same partitioned passes and one shared start table): B3's a
+with ``torch.equal``, both sketches with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
 ``kernel.sketch_error_bound`` on Gaussian inputs, where the card's
 atomics add in another order than the plain version, at the ragged J
 (widths 512, below the partition width and not a multiple of it, and
 beyond the 2^24 buckets a hash reaches; 1 and 3 rows) and at the main
-shape; for the partitioned encode B3 also its start table against the
-plain one, whether two runs give the same bits, its chunks and pair
-buffer, and the time to build its start table. Then the dense REGTOP-k
-score and apply (kernels_fused_ef, bit patterns equal, over a grid of
-mu, Q and omega with exact zeros of a and zero divisors) and the linear
-histogram (kernels_topk_select, counts equal, on Gaussian, zero, edge,
-NaN and concentrated inputs and on every bin edge and its fp32
+shape; also the start table against the plain one, whether two runs of
+each encode give the same bits, the chunks and pair buffer, the time to
+build the start table, and each encode's time by kernel. Then the dense
+REGTOP-k score and apply (kernels_fused_ef, bit patterns equal, over a
+grid of mu, Q and omega with exact zeros of a and zero divisors) and the
+linear histogram (kernels_topk_select, counts equal, on Gaussian, zero,
+edge, NaN and concentrated inputs and on every bin edge and its fp32
 neighbours for four amax values, the floor included; timed beside
 ``torch.histc`` on the Gaussian and the concentrated input).
 
@@ -73,7 +84,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM data sheet: device memory rate, fp32 rate outside the tensor cores
 MEM_BYTES_PER_S = 3.35e12
@@ -102,6 +112,19 @@ EF_GRID = [(mu, q, w) for mu in (0.1, 0.5) for q in (0.0, 0.3)
 REFERENCE_DEFAULT = dict(kind="regtopk", pipeline="reference",
                          state_format="dense", selector="exact",
                          comm_mode="simulate")
+# the same launcher defaults with --sparsifier sketchtopk
+SKETCH_REFERENCE = dict(kind="sketchtopk", pipeline="reference",
+                        comm_mode="simulate", selector="exact")
+SKETCH_TABLE = [[MAIN_J, SKETCH_ROWS, MAIN_WIDTH]]   # (J, rows, width)
+FUSED = dict(comm_mode="sparse", pipeline="fused")
+# the train phases in run order: sparsifier fields, and the kernels that
+# each launches once a step (every other kernel 0 times)
+TRAIN_PATHS = {
+    "train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2")),
+    "train_sketch": (dict(kind="sketchtopk", **FUSED), ("sweep1_sketch",)),
+    "train_reference": (REFERENCE_DEFAULT, ("scores", "apply")),
+    "train_sketch_reference": (SKETCH_REFERENCE, ("sketch_encode", "apply")),
+}
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
@@ -109,7 +132,7 @@ KERNEL_META = {
                "src/repro/kernels/compress/kernel.py:223"),
     "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
                       "src/repro/kernels/compress/kernel.py:335"),
-    "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch.cu",
+    "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
                       "src/repro/kernels/compress/kernel.py:321"),
     "scores": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
                "src/repro/kernels/fused_ef/kernel.py:29"),
@@ -153,6 +176,24 @@ def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_split_ms(fn) -> dict:
+    """Device time by kernel of one call of ``fn`` (after a warm-up),
+    from torch.profiler: how a wrapper's time divides among its
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -217,7 +258,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     reports = build.build()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name, log in reports.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
@@ -314,9 +356,10 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
     check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j} (dyadic)")
     check(torch.equal(sk, sk_p), f"sweep1_sketch sketch differs at J={j} "
           "(dyadic)")
-    check(torch.equal(pk.sketch_encode(a, rows, width),
+    check(torch.equal(pk.sketch_encode(a, rows, width, tables),
                       pk.sketch_encode_plain(a, rows, width)),
           f"sketch_encode differs at J={j} (dyadic)")
+    check(len(tables) == 1, "the two encodes share one start table")
     del g, err, a_p, sk, sk_p
     g = torch.randn(j, generator=gen, device=dev)
     err = torch.randn(j, generator=gen, device=dev) * 0.1
@@ -324,13 +367,17 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
     a_p, sk_p = pk.sweep1_sketch_plain(g, err, rows, width)
     check(torch.equal(a, a_p), f"sweep1_sketch a differs at J={j}")
     err1, share1 = sketch_gap(sk, sk_p, a_p)
-    err4, share4 = sketch_gap(pk.sketch_encode(a, rows, width), sk_p, a_p)
+    sk4 = pk.sketch_encode(a, rows, width, tables)
+    err4, share4 = sketch_gap(sk4, sk_p, a_p)
+    det4 = bits_equal(sk4, pk.sketch_encode(a, rows, width, tables))
+    del sk4
     _, sk2 = pk.sweep1_sketch(g, err, rows, width, tables)
     plan = pk.sketch_plan(j, rows, width)
     res = {"j": j, "rows": rows, "width": width, "dyadic_bitwise": True,
            "sweep1_sketch_err": err1, "sweep1_sketch_bound_share": share1,
            "sketch_encode_err": err4, "sketch_encode_bound_share": share4,
            "sweep1_sketch_deterministic": bits_equal(sk, sk2),
+           "sketch_encode_deterministic": det4,
            "sweep1_sketch_chunks": plan["nchunks"],
            "sweep1_sketch_parts": plan["parts"],
            "sweep1_sketch_pair_buffer_bytes": plan["pair_bytes"],
@@ -338,6 +385,8 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
     del a_p, sk, sk2, sk_p
     if timed:
         res["sweep1_sketch_ms"] = cuda_ms(
+            lambda: pk.sweep1_sketch(g, err, rows, width, tables))
+        res["sweep1_sketch_split_ms"] = kernel_split_ms(
             lambda: pk.sweep1_sketch(g, err, rows, width, tables))
         # built once per shape, at a run's first step
         res["sweep1_sketch_table_ms"] = cuda_ms(
@@ -352,11 +401,15 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
         # written and read (6 B each)
         res["sweep1_sketch_design_bytes"] = 12 * j + 12 * rows * j
         res["sketch_encode_ms"] = cuda_ms(
-            lambda: pk.sketch_encode(a, rows, width))
+            lambda: pk.sketch_encode(a, rows, width, tables))
+        res["sketch_encode_split_ms"] = kernel_split_ms(
+            lambda: pk.sketch_encode(a, rows, width, tables))
         res["sketch_encode_plain_ms"] = cuda_ms(
             lambda: pk.sketch_encode_plain(a, rows, width))
         res["sketch_encode_bytes"] = 4 * j + 4 * rows * width
         res["sketch_encode_ops"] = rows * j
+        # the same design's traffic: a and the pairs written and read
+        res["sketch_encode_design_bytes"] = 4 * j + 12 * rows * j
     return res
 
 
@@ -374,17 +427,15 @@ def phase_kernels_sketch(dev) -> dict:
     return {"small": small, "big": big}
 
 
-def phase_sketch_sync(dev) -> dict:
+def phase_sketch_sync(dev) -> None:
     """GradientSync for kind="sketchtopk" on the card and on CPU copies,
-    both pipelines; the card's mean sketch feeds the decode on both.
-    Returns the launches of each pipeline's run."""
+    both pipelines; the card's mean sketch feeds the decode on both."""
     import torch
     from repro_torch.configs.base import SparsifierConfig
     from repro_torch.core import sparsify
     from repro_torch.core.aggregate import GradientSync
     from repro_torch.kernels.compress import kernel as pk
     cpu = torch.device("cpu")
-    out = {}
     for pipeline in ("fused", "reference"):
         cfg = SparsifierConfig(kind="sketchtopk", sparsity=SPARSITY,
                                comm_mode="sparse", pipeline=pipeline,
@@ -424,8 +475,6 @@ def phase_sketch_sync(dev) -> dict:
              sketch_err=[e for e, _ in gaps],
              sketch_bound_share=[s_ for _, s_ in gaps],
              decode_bitwise=True)
-        out[pipeline] = launches
-    return out
 
 
 def ef_inputs(dev, j: int, seed: int):
@@ -715,6 +764,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
         optimizer=OptimizerConfig(kind="adam", lr=1e-3),
         seed=0, steps=TRAIN_STEPS, log_every=1)
     torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.reset_accumulated_memory_stats(dev)
 
     def on_step(rec):
         emit(f"{phase}_step", **rec,
@@ -739,7 +789,8 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         alloc_retries=torch.cuda.memory_stats(dev)["num_alloc_retries"])
     return launches, run, out["state"]
 
 
@@ -754,7 +805,8 @@ STAGES = ("train/loss_grad", "train/flatten", "train/sync",
 def phase_profile(dev, run, state, phase: str) -> None:
     """Device time of one more step of the trained state, by kernel and
     by the step's record_function stages; busy share = kernel time over
-    the step's wall time."""
+    the step's wall time. Returns the shapes (J, rows, width) of the
+    start tables that the step's sync keeps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -786,11 +838,14 @@ def phase_profile(dev, run, state, phase: str) -> None:
             else:
                 stages[e.key]["host_ms"] = e.cpu_time_total / 1e3
     stages = {key: val for key, val in stages.items() if val}
+    tables = [list(key[1:]) for key in step.gsync.sketch_tables]
     emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms, stages=stages,
          fallback=dict(step.gsync.fallback_reasons),
+         sketch_tables=tables,
          top_kernels=[{"name": k[:90], "ms": ms, "calls": n}
                       for k, ms, n in kernels[:15]])
+    return tables
 
 
 def kernel_row(name: str, res: dict, small: dict, launches: int,
@@ -805,7 +860,18 @@ def kernel_row(name: str, res: dict, small: dict, launches: int,
             "path": path, "parity": parity, **extra}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train", action="append", choices=TRAIN_PATHS,
+                    help="run only the device and build phases and this "
+                    "train phase (repeatable; no profile, no kernels line)")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the port's source tree (default: this checkout's "
+                    "src/), e.g. an unpacked older commit's, to compare "
+                    "two versions in one run")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -814,32 +880,31 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
+    if args.train:
+        for name in args.train:
+            fields, kernels = TRAIN_PATHS[name]
+            phase_train(dev, fields, dict.fromkeys(kernels, TRAIN_STEPS),
+                        name)
+            torch.cuda.empty_cache()
+        return finish(smi, None)
     kres = phase_kernels(dev)
     sres = phase_kernels_sketch(dev)
     eres = phase_kernels_fused_ef(dev)
     hres = phase_kernels_topk_select(dev)
     phase_compress(dev)
-    sync_launches = phase_sketch_sync(dev)
+    phase_sketch_sync(dev)
     ref_launches = phase_reference_sync(dev)
-    fused = dict(comm_mode="sparse", pipeline="fused")
-    launches, run, state = phase_train(
-        dev, dict(kind="regtopk", **fused),
-        {"sweep1": TRAIN_STEPS, "sweep2": TRAIN_STEPS}, "train")
-    phase_profile(dev, run, state, "profile")
-    del state
-    torch.cuda.empty_cache()
-    sk_launches, run, state = phase_train(
-        dev, dict(kind="sketchtopk", **fused),
-        {"sweep1_sketch": TRAIN_STEPS}, "train_sketch")
-    phase_profile(dev, run, state, "profile_sketch")
-    del state
-    torch.cuda.empty_cache()
-    ref_train, run, state = phase_train(
-        dev, REFERENCE_DEFAULT, {"scores": TRAIN_STEPS, "apply": TRAIN_STEPS},
-        "train_reference")
-    phase_profile(dev, run, state, "profile_reference")
-    del state
-    torch.cuda.empty_cache()
+    train = {}
+    for name, (fields, kernels) in TRAIN_PATHS.items():
+        train[name], run, state = phase_train(
+            dev, fields, dict.fromkeys(kernels, TRAIN_STEPS), name)
+        tables = phase_profile(dev, run, state, name.replace("train",
+                                                             "profile"))
+        if fields["kind"] == "sketchtopk":
+            check(tables == SKETCH_TABLE,
+                  f"{name}: the sync keeps one start table of its shape")
+        del state
+        torch.cuda.empty_cache()
     bitwise = "torch.equal on every output"
     atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
                "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")
@@ -847,22 +912,26 @@ def main() -> int:
     reference = "reference-launcher default train (reference pipeline)"
     ebig, hbig = eres["big"], hres["big"]
     histc_same = hbig["histogram_histc_differing_bins"] == 0
-    rows = [kernel_row("sweep1", big, small, launches["sweep1"],
+    rows = [kernel_row("sweep1", big, small, train["train"]["sweep1"],
                        "regtopk train (fused)", bitwise),
-            kernel_row("sweep2", big, small, launches["sweep2"],
+            kernel_row("sweep2", big, small, train["train"]["sweep2"],
                        "regtopk train (fused)", bitwise),
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
-                       sk_launches["sweep1_sketch"],
+                       train["train_sketch"]["sweep1_sketch"],
                        "sketchtopk train (fused)", atomics, redesigned=True,
                        deterministic=sres["big"][
                            "sweep1_sketch_deterministic"]),
             kernel_row("sketch_encode", sres["big"], sres["small"],
-                       sync_launches["reference"]["sketch_encode"],
-                       "sketchtopk GradientSync (reference pipeline)",
-                       atomics),
-            kernel_row("scores", ebig, eres["small"], ref_train["scores"],
+                       train["train_sketch_reference"]["sketch_encode"],
+                       "sketchtopk train (reference pipeline, launcher "
+                       "defaults)", atomics, redesigned=True,
+                       deterministic=sres["big"][
+                           "sketch_encode_deterministic"]),
+            kernel_row("scores", ebig, eres["small"],
+                       train["train_reference"]["scores"],
                        reference, "equal bit patterns on every output"),
-            kernel_row("apply", ebig, eres["small"], ref_train["apply"],
+            kernel_row("apply", ebig, eres["small"],
+                       train["train_reference"]["apply"],
                        reference, "equal bit patterns on every output"),
             kernel_row("histogram", hbig, hres["small"],
                        ref_launches["dense_histogram_kernel_degrade"][
@@ -875,7 +944,15 @@ def main() -> int:
                        "none (torch.histc bins differently: "
                        f"{hbig['histogram_histc_differing_bins']} bins "
                        "differ)", redesigned=True)]
-    print(json.dumps({"kernels": rows}), flush=True)
+    return finish(smi, rows)
+
+
+def finish(smi: str, rows) -> int:
+    """The last lines: the kernel summary (a full run only), the card's
+    name and power limit, and the result line."""
+    import torch
+    if rows is not None:
+        print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

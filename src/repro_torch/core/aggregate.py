@@ -146,9 +146,10 @@ class GradientSync:
 
     The sketch-coordinated step is three calls, so a caller can feed one
     sketch to two devices: :meth:`encode`, :meth:`allreduce_sketch` and
-    :meth:`decode_exchange`. ``sketch_tables`` keeps the fused encode's
+    :meth:`decode_exchange`. ``sketch_tables`` keeps the encode kernels'
     start table of each shape on the card (built at the first step, 142
-    MB at StableLM-3B's J) for as long as the sync lives."""
+    MB at StableLM-3B's J; either pipeline's) for as long as the sync
+    lives."""
 
     def __init__(self, cfg: SparsifierConfig, group=None):
         check_supported(cfg)
@@ -223,7 +224,8 @@ class GradientSync:
                                               tables=self.sketch_tables)
                 return enc["a"], enc["sketch"]
             a = err + g.float()
-            return a, sketch.encode(a, cfg.sketch_rows, width)
+            return a, sketch.encode(a, cfg.sketch_rows, width,
+                                    self.sketch_tables)
 
     def allreduce_sketch(self, sk: torch.Tensor) -> torch.Tensor:
         """The pre-selection collective: the mean of the ranks' sketches

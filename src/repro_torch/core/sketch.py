@@ -96,11 +96,14 @@ def hashes(j: int, rows: int, width: int, device="cpu"):
     return torch.stack(hs), sign
 
 
-def encode(a: torch.Tensor, rows: int, width: int) -> torch.Tensor:
+def encode(a: torch.Tensor, rows: int, width: int,
+           tables: dict | None = None) -> torch.Tensor:
     """a (J,) fp32 -> CountSketch (rows, width) fp32 (kernel B4 on the
-    card, its plain version on the CPU)."""
+    card, its plain version on the CPU). ``tables``: the caller's dict of
+    the kernel's start tables, kept across calls
+    (``kernel.sketch_encode``)."""
     from repro_torch.kernels.compress import kernel as pk
-    return pk.sketch_encode(a, rows, width)
+    return pk.sketch_encode(a, rows, width, tables)
 
 
 def _sort_rows(vals: list) -> list:

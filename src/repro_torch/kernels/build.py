@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # library name -> the kernel module whose csrc/ holds <name>.cu
-SOURCES = {"sweep1": "compress", "sweep2": "compress", "sketch": "compress",
+SOURCES = {"sweep1": "compress", "sweep2": "compress",
            "sketch_parts": "compress", "fused_ef": "fused_ef",
            "hist": "topk_select"}
 

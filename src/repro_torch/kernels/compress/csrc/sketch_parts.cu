@@ -1,13 +1,20 @@
-// The fused sweep 1 of sketch-coordinated top-k, hand-written for Hopper
-// (sm_90a): a = err + g for every element, and the (rows, width)
-// CountSketch of a. Replaces the TPU kernel
-// src/repro/kernels/compress/kernel.py::_sweep1_sketch_kernel (launcher
-// sweep1_sketch_pallas). Hash constants, bucket and sign follow the
-// reference (src/repro/core/sketch.py: _MULTS, _ADDS, _hashes) bit for bit.
+// The partitioned CountSketch encodes of sketch-coordinated top-k,
+// hand-written for Hopper (sm_90a). Two entry points share every kernel
+// of this file:
+// - sweep1_sketch_launch, the fused sweep 1 of the fused pipeline: a = err
+//   + g for every element and the (rows, width) CountSketch of a. Replaces
+//   the TPU kernel src/repro/kernels/compress/kernel.py::
+//   _sweep1_sketch_kernel (launcher sweep1_sketch_pallas).
+// - sketch_encode_launch, the encode of the reference pipeline: the
+//   CountSketch of a given a. Replaces _sketch_encode_kernel (launcher
+//   sketch_encode_pallas) of the same file.
+// Hash constants, bucket and sign follow the reference
+// (src/repro/core/sketch.py: _MULTS, _ADDS, _hashes) bit for bit.
 //
-// Bound: device-memory bytes. The function reads g and err and writes a,
-// 12 B per element (10.70 GB at J = 892,032,000, about 3.20 ms at the H100
-// SXM's 3.35 TB/s), and makes `rows` additions per element into a sketch
+// Bound: device-memory bytes. The fused sweep reads g and err and writes
+// a, 12 B per element (10.70 GB at J = 892,032,000, about 3.20 ms at the
+// H100 SXM's 3.35 TB/s); the encode reads a, 4 B per element (3.57 GB,
+// about 1.07 ms). Both make `rows` additions per element into a sketch
 // (42.8 MB at 3 rows x 3,568,128) that does not fit in shared memory.
 //
 // Design: privatised bucket ranges. Each row's buckets are cut into
@@ -17,16 +24,16 @@
 // beyond 2^24 of a wider row stay 0 and get no partition: a row has at
 // most 1024 partitions. J is cut into chunks, and a chunk into tiles of
 // TILE elements; per chunk:
-// - pass 1 (pass1_kernel, persistent over the tiles) reads g and err with
-//   16-byte vectors and writes a bitwise as before. It turns every row's
-//   contribution of the tile into a pair (local bucket uint16, signed
-//   value fp32; two arrays, 6 B a pair), ranks each pair within its
-//   partition with a shared atomic, stages a row's pairs of the tile in
-//   shared memory in partition order, and writes them contiguously into
-//   the tile's own block of the pair buffer (rows * TILE pairs a tile), so
-//   the pair buffer is written as a plain stream. The bucket (x >> 8) % width
-//   comes from a multiplicative inverse, exact for the 24-bit x >> 8: no
-//   division.
+// - pass 1 (pass1_kernel, persistent over the tiles) reads its input with
+//   16-byte vectors: g and err, writing a bitwise, in the fused sweep; a
+//   alone in the encode. It turns every row's contribution of the tile
+//   into a pair (local bucket uint16, signed value fp32; two arrays, 6 B
+//   a pair), ranks each pair within its partition with a shared atomic,
+//   stages a row's pairs of the tile in shared memory in partition order,
+//   and writes them contiguously into the tile's own block of the pair
+//   buffer (rows * TILE pairs a tile), so the pair buffer is written as a
+//   plain stream. The bucket (x >> 8) % width comes from a multiplicative
+//   inverse, exact for the 24-bit x >> 8: no division.
 // - pass 2 (pass2_kernel, one CTA per partition) gathers its partition's
 //   run from every tile's block, adds the pairs into R sums in shared
 //   memory with shared atomics, and writes (first chunk) or adds (later
@@ -35,9 +42,10 @@
 // Where a partition's run starts inside a tile's block depends only on the
 // element indices, rows and width, not on the data: start_kernel computes
 // that table (uint16, parts x tiles) once per shape, and the caller keeps
-// it. The order of the pairs inside a run and of the shared atomics is not
-// fixed, so on inputs whose partial sums are not all exact the sketch
-// equals the sequential reference only up to fp32 reassociation.
+// it; both encodes read the same table. The order of the pairs inside a
+// run and of the shared atomics is not fixed, so on inputs whose partial
+// sums are not all exact the sketch equals the sequential reference only
+// up to fp32 reassociation.
 #include <algorithm>
 
 #include "sketch_common.cuh"
@@ -238,9 +246,11 @@ __device__ __forceinline__ void emit_tile(
   }
 }
 
-// g, err, a start at the chunk's first element e0; n elements; pl, pv
-// hold the chunk's tile blocks
-template <bool VEC>
+// FUSED: a = err + g, written to a_out bitwise (the fused sweep); else a
+// = g, the given a, and err, a_out are unused (the encode). g, err, a_out
+// start at the chunk's first element e0; n elements; pl, pv hold the
+// chunk's tile blocks
+template <bool VEC, bool FUSED>
 __global__ void __launch_bounds__(P1_THREADS)
 pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
              float* __restrict__ a_out, uint16_t* __restrict__ pl,
@@ -258,21 +268,26 @@ pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
     float a[PER_THREAD];
     if (VEC && base + TILE <= n) {
       const float4* g4 = reinterpret_cast<const float4*>(g + base);
-      const float4* e4 = reinterpret_cast<const float4*>(err + base);
-      float4* a4 = reinterpret_cast<float4*>(a_out + base);
+      const float4* e4 =
+          FUSED ? reinterpret_cast<const float4*>(err + base) : nullptr;
+      float4* a4 = FUSED ? reinterpret_cast<float4*>(a_out + base) : nullptr;
       float4 v[PER_THREAD / 4], ev[PER_THREAD / 4];
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
         v[r] = __ldcs(&g4[r * P1_THREADS + threadIdx.x]);
-        ev[r] = __ldcs(&e4[r * P1_THREADS + threadIdx.x]);
+        if constexpr (FUSED) {
+          ev[r] = __ldcs(&e4[r * P1_THREADS + threadIdx.x]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
-        v[r].x = __fadd_rn(ev[r].x, v[r].x);
-        v[r].y = __fadd_rn(ev[r].y, v[r].y);
-        v[r].z = __fadd_rn(ev[r].z, v[r].z);
-        v[r].w = __fadd_rn(ev[r].w, v[r].w);
-        __stcs(&a4[r * P1_THREADS + threadIdx.x], v[r]);
+        if constexpr (FUSED) {
+          v[r].x = __fadd_rn(ev[r].x, v[r].x);
+          v[r].y = __fadd_rn(ev[r].y, v[r].y);
+          v[r].z = __fadd_rn(ev[r].z, v[r].z);
+          v[r].w = __fadd_rn(ev[r].w, v[r].w);
+          __stcs(&a4[r * P1_THREADS + threadIdx.x], v[r]);
+        }
         const unsigned i = static_cast<unsigned>(
             e0 + base + 4LL * (r * P1_THREADS + threadIdx.x));
         idx[4 * r] = i;
@@ -295,8 +310,12 @@ pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         const int i = static_cast<int>(threadIdx.x) + k * P1_THREADS;
         if (i < m) {
           const long long e = base + i;
-          a[k] = __fadd_rn(err[e], g[e]);
-          a_out[e] = a[k];
+          if constexpr (FUSED) {
+            a[k] = __fadd_rn(err[e], g[e]);
+            a_out[e] = a[k];
+          } else {
+            a[k] = g[e];
+          }
           idx[k] = static_cast<unsigned>(e0 + e);
           valid = k + 1;
         }
@@ -411,6 +430,46 @@ int set_smem(const void* kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// The chunk loop of both encodes: pass 1 then pass 2 per chunk; pass 2
+// writes the sketch at the first chunk and adds the later ones. FUSED
+// reads g and err and writes a; else g is the given a.
+template <bool FUSED>
+int encode(const float* g, const float* err, float* a, float* sk,
+           uint16_t* pl, float* pv, const uint16_t* start,
+           const unsigned* mults, const unsigned* adds, int rows,
+           unsigned width, unsigned long long magic, long long j,
+           long long chunk, int grid, int vec, cudaStream_t stream) {
+  Parts L;
+  int bad = make_parts(&L, mults, adds, rows, width, magic);
+  if (bad) return bad;
+  if (chunk < TILE || chunk % TILE) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem1 = stage_bytes(L.per_row);
+  const size_t smem2 = (size_t{1} << PART_SHIFT) * sizeof(float);
+  auto pass1 = vec ? pass1_kernel<true, FUSED> : pass1_kernel<false, FUSED>;
+  bad = set_smem(reinterpret_cast<const void*>(pass1), smem1);
+  if (bad) return bad;
+  bad = set_smem(reinterpret_cast<const void*>(pass2_kernel), smem2);
+  if (bad) return bad;
+  const long long stride = (j + TILE - 1) / TILE;
+  const long long nchunks = j > 0 ? (j + chunk - 1) / chunk : 1;
+  for (long long c = 0; c < nchunks; ++c) {
+    const long long e0 = c * chunk;
+    const long long n = std::min(chunk, j - e0);
+    pass1<<<grid, P1_THREADS, smem1, stream>>>(
+        g + e0, FUSED ? err + e0 : nullptr, FUSED ? a + e0 : nullptr, pl, pv,
+        L, e0, n);
+    cudaError_t e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return static_cast<int>(e1);
+    pass2_kernel<<<L.parts, P2_THREADS, smem2, stream>>>(
+        pl, pv, start + e0 / TILE, stride, sk, L, n, c > 0);
+    e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return static_cast<int>(e1);
+  }
+  return 0;
+}
+
 }  // namespace
 }  // namespace compress
 
@@ -451,33 +510,21 @@ extern "C" int sweep1_sketch_launch(const float* g, const float* err, float* a,
                                     unsigned width, unsigned long long magic,
                                     long long j, long long chunk, int grid,
                                     int vec, cudaStream_t stream) {
-  using namespace compress;
-  Parts L;
-  int bad = make_parts(&L, mults, adds, rows, width, magic);
-  if (bad) return bad;
-  if (chunk < TILE || chunk % TILE) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem1 = stage_bytes(L.per_row);
-  const size_t smem2 = (size_t{1} << PART_SHIFT) * sizeof(float);
-  auto pass1 = vec ? pass1_kernel<true> : pass1_kernel<false>;
-  bad = set_smem(reinterpret_cast<const void*>(pass1), smem1);
-  if (bad) return bad;
-  bad = set_smem(reinterpret_cast<const void*>(pass2_kernel), smem2);
-  if (bad) return bad;
-  const long long stride = (j + TILE - 1) / TILE;
-  const long long nchunks = j > 0 ? (j + chunk - 1) / chunk : 1;
-  for (long long c = 0; c < nchunks; ++c) {
-    const long long e0 = c * chunk;
-    const long long n = std::min(chunk, j - e0);
-    pass1<<<grid, P1_THREADS, smem1, stream>>>(g + e0, err + e0, a + e0,
-                                               pl, pv, L, e0, n);
-    cudaError_t e1 = cudaGetLastError();
-    if (e1 != cudaSuccess) return static_cast<int>(e1);
-    pass2_kernel<<<L.parts, P2_THREADS, smem2, stream>>>(
-        pl, pv, start + e0 / TILE, stride, sk, L, n, c > 0);
-    e1 = cudaGetLastError();
-    if (e1 != cudaSuccess) return static_cast<int>(e1);
-  }
-  return 0;
+  return compress::encode<true>(g, err, a, sk, pl, pv, start, mults, adds,
+                                rows, width, magic, j, chunk, grid, vec,
+                                stream);
+}
+
+// The same for a given a (J,) fp32: only the sketch is written. vec != 0
+// requires a 16-byte-aligned a.
+extern "C" int sketch_encode_launch(const float* a, float* sk, uint16_t* pl,
+                                    float* pv, const uint16_t* start,
+                                    const unsigned* mults,
+                                    const unsigned* adds, int rows,
+                                    unsigned width, unsigned long long magic,
+                                    long long j, long long chunk, int grid,
+                                    int vec, cudaStream_t stream) {
+  return compress::encode<false>(a, nullptr, nullptr, sk, pl, pv, start,
+                                 mults, adds, rows, width, magic, j, chunk,
+                                 grid, vec, stream);
 }

@@ -6,14 +6,13 @@ state once and emits ``a = err + g``, ``score = a * c``, the per-tile amax
 of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|.
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
-static ``MAXPB`` slots. The CountSketch encodes: :func:`sweep1_sketch`
-(kernels ``csrc/sketch_parts.cu``) emits ``a = err + g`` and the (rows,
-width) CountSketch of a through privatised bucket ranges in two passes
-per chunk of J; :func:`sketch_encode` (kernel ``csrc/sketch.cu``) the
-sketch of a given a, with one global float atomic per element and row.
+static ``MAXPB`` slots. The CountSketch encodes share the kernels of
+``csrc/sketch_parts.cu``, privatised bucket ranges in two passes per
+chunk of J: :func:`sweep1_sketch` emits ``a = err + g`` and the (rows,
+width) CountSketch of a, :func:`sketch_encode` the sketch of a given a.
 The partitioned encode's index arithmetic has plain versions here
 (:func:`fastmod`, :func:`sketch_starts_plain`,
-:func:`sweep1_sketch_parts_plain`), which the CPU tests hold against the
+:func:`sketch_encode_parts_plain`), which the CPU tests hold against the
 plain encode.
 
 Each wrapper checks its inputs and dispatches on the tensors' device: a
@@ -253,17 +252,16 @@ def sketch_starts_plain(j: int, rows: int, width: int, device=None):
     return (torch.cumsum(cnt, 1) - cnt).T.contiguous()
 
 
-def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
+def sketch_encode_parts_plain(a, rows: int, width: int,
                               chunk_pairs: int = CHUNK_PAIRS):
-    """(a, sketch, pair ids) through the partitioned encode's steps in
-    plain PyTorch. Per chunk, pass 1 writes each tile's pairs as the
+    """(sketch, pair ids) of a (J,) through the partitioned encode's steps
+    in plain PyTorch. Per chunk, pass 1 writes each tile's pairs as the
     tile's block, in partition order (within a run in element order,
     where the kernel's order is not fixed); pass 2 gathers each
     partition's runs through the start table, sums them with
     ``index_add_`` and writes or adds its slice; buckets from 2^24 on are
     zeroed once. ``pair ids`` holds each chunk's buffer as element * rows
     + row, so a test can see that the blocks hold every pair once."""
-    a = err_prev + g
     j = a.numel()
     dev = a.device
     plan = sketch_plan(j, rows, width, chunk_pairs)
@@ -304,7 +302,16 @@ def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
             nb = min(R, width - q * R)
             out = sk[r, q * R:q * R + nb]
             out.copy_(acc[:nb] if c == 0 else out + acc[:nb])
-    return a, sk, ids
+    return sk, ids
+
+
+def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
+                              chunk_pairs: int = CHUNK_PAIRS):
+    """(a, sketch, pair ids): a = err_prev + g, then
+    :func:`sketch_encode_parts_plain` of a, as the fused sweep's passes
+    compute them."""
+    a = err_prev + g
+    return (a, *sketch_encode_parts_plain(a, rows, width, chunk_pairs))
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +394,8 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     J = 892,032,000, 3 rows, width 3,568,128). ``tables`` is a dict that
     the caller owns and keeps across calls: the table is built into it
     at the first call of a shape and reused after, and it lives as long
-    as the dict. Without it the table is built for the call alone."""
+    as the dict. Without it the table is built for the call alone. Both
+    encodes key the dict alike, so they share a table."""
     j = g.numel()
     _check_vec("g", g)
     _check_vec("err_prev", err_prev, j)
@@ -396,15 +404,39 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     csk.check_shape(j, rows, width)
     if not _on_card(g):
         return sweep1_sketch_plain(g, err_prev, rows, width)
-    key = (g.device, j, rows, width)
+    a = torch.empty_like(g)
+    sk = _encode_card(g, err_prev, a, rows, width,
+                      _start_table(g.device, j, rows, width, tables))
+    sweep1_sketch.launches += 1
+    return a, sk
+
+
+def sketch_encode(a: torch.Tensor, rows: int, width: int,
+                  tables: dict | None = None):
+    """CountSketch (rows, width) fp32 of a (J,) fp32, through the same
+    passes and start table as :func:`sweep1_sketch` (``tables`` as
+    there)."""
+    j = a.numel()
+    _check_vec("a", a)
+    csk.check_shape(j, rows, width)
+    if not _on_card(a):
+        return sketch_encode_plain(a, rows, width)
+    sk = _encode_card(a, None, None, rows, width,
+                      _start_table(a.device, j, rows, width, tables))
+    sketch_encode.launches += 1
+    return sk
+
+
+def _start_table(dev, j: int, rows: int, width: int, tables):
+    """The start table of the shape from ``tables`` (built into it at the
+    first call of the shape), or built for the call alone without it."""
+    key = (dev, j, rows, width)
     start = None if tables is None else tables.get(key)
     if start is None:
-        start = sketch_starts(g.device, j, rows, width)
+        start = sketch_starts(dev, j, rows, width)
         if tables is not None:
             tables[key] = start
-    out = _sweep1_sketch_card(g, err_prev, rows, width, start)
-    sweep1_sketch.launches += 1
-    return out
+    return start
 
 
 def sketch_starts(dev, j: int, rows: int, width: int) -> torch.Tensor:
@@ -426,51 +458,33 @@ def sketch_starts(dev, j: int, rows: int, width: int) -> torch.Tensor:
     return start
 
 
-def _sweep1_sketch_card(g, err_prev, rows: int, width: int, start):
-    """The partitioned encode on the card, through the start table
-    ``start`` of its shape."""
-    fn = _lib("sketch_parts").sweep1_sketch_launch
-    dev = g.device
-    j = g.numel()
+def _encode_card(x, err_prev, a, rows: int, width: int, start):
+    """The partitioned encode on the card through the start table
+    ``start`` of its shape: the sketch of err_prev + x, written with a
+    into ``a`` (the fused sweep), or of x itself when err_prev is None
+    (the encode)."""
+    dev = x.device
+    j = x.numel()
     plan = sketch_plan(j, rows, width)
-    a = torch.empty_like(g)
     sk = torch.empty((rows, width), dtype=torch.float32, device=dev)
     sk[:, HASH_BUCKETS:] = 0.0
     npairs = plan["pair_bytes"] // 6
     pl = torch.empty(npairs, dtype=torch.int16, device=dev)   # uint16 bits
     pv = torch.empty(npairs, dtype=torch.float32, device=dev)
+    fused = err_prev is not None
+    ins = [x, err_prev, a] if fused else [x]
+    lib = _lib("sketch_parts")
+    fn = lib.sweep1_sketch_launch if fused else lib.sketch_encode_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [
+    fn.argtypes = [ctypes.c_void_p] * (len(ins) + 6) + [
         ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     mults, adds = _hash_args(rows)
-    err = fn(g.data_ptr(), err_prev.data_ptr(), a.data_ptr(), sk.data_ptr(),
-             pl.data_ptr(), pv.data_ptr(), start.data_ptr(), mults, adds, rows,
-             width, fastmod_magic(width), j, plan["chunk"],
+    err = fn(*(t.data_ptr() for t in ins + [sk, pl, pv, start]), mults, adds,
+             rows, width, fastmod_magic(width), j, plan["chunk"],
              _grid(dev, _tiles(min(plan["chunk"], max(j, 1))), 1),
-             _aligned(g, err_prev, a), _stream(dev))
-    _check_launch("sweep1_sketch", err)
-    return a, sk
-
-
-def sketch_encode(a: torch.Tensor, rows: int, width: int):
-    """CountSketch (rows, width) fp32 of a (J,) fp32."""
-    j = a.numel()
-    _check_vec("a", a)
-    csk.check_shape(j, rows, width)
-    if not _on_card(a):
-        return sketch_encode_plain(a, rows, width)
-    sk = torch.zeros((rows, width), dtype=torch.float32, device=a.device)
-    fn = _lib("sketch").sketch_encode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    mults, adds = _hash_args(rows)
-    err = fn(a.data_ptr(), sk.data_ptr(), mults, adds, rows, width, j,
-             _grid(a.device, rows_of(j)), _aligned(a), _stream(a.device))
-    _check_launch("sketch_encode", err)
-    sketch_encode.launches += 1
+             _aligned(*ins), _stream(dev))
+    _check_launch("sweep1_sketch" if fused else "sketch_encode", err)
     return sk
 
 

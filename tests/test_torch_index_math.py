@@ -1,12 +1,14 @@
-"""The index arithmetic of the redesigned kernel B3, through the plain
-PyTorch versions of the steps that its CUDA code mirrors, and the amax
-of B7's caller:
+"""The index arithmetic of the redesigned kernels B3 and B4, through
+the plain PyTorch versions of the steps that their CUDA code mirrors,
+and the amax of B7's caller:
 
-- B3's multiplicative inverse for ``% width`` (the host's 64-bit magic and
-  an emulation of ``__umul64hi``) equals ``%`` on every 24-bit input;
-- B3's partitioned layout (tile blocks in partition order, the start
-  table) holds every (row, index) pair once, and the two-pass encode it
-  feeds equals ``sketch_encode_plain`` bitwise on dyadic inputs and within
+- the encodes' multiplicative inverse for ``% width`` (the host's 64-bit
+  magic and an emulation of ``__umul64hi``) equals ``%`` on every 24-bit
+  input;
+- the partitioned layout of B3 and B4 (tile blocks in partition order,
+  the start table) holds every (row, index) pair once, and the two-pass
+  encode it feeds, of err + g (B3) or of a given a (B4), equals
+  ``sketch_encode_plain`` bitwise on dyadic inputs and within
   ``sketch_error_bound`` on Gaussian ones, also at widths beyond the 2^24
   buckets a hash reaches, which have no partition;
 - the threshold op's amax, taken without a J-sized |x|, equals
@@ -114,6 +116,31 @@ def test_two_pass_encode_matches_plain_encode(rows, width):
     want = pk.sketch_encode_plain(a, rows, width)
     bound = pk.sketch_error_bound(a, rows, width)
     assert bool(((sk - want).abs().double() <= bound).all())
+
+
+@pytest.mark.parametrize("width", WIDTHS + (pk.HASH_BUCKETS + 1000,))
+@pytest.mark.parametrize("rows", [1, 3])
+def test_partitioned_sketch_encode_matches_plain_encode(rows, width):
+    """B4's passes, which read a given a: three chunks at the ragged J
+    (the chunk cut to two tiles), the pair ids fill every chunk's buffer
+    once, the sketch is bitwise on dyadic inputs and within the stated
+    bound on Gaussian ones; buckets no hash reaches stay 0."""
+    j = 5 * pk.SKETCH_TILE + 517
+    chunk_pairs = rows * 2 * pk.SKETCH_TILE
+    rng = np.random.default_rng(rows * 5 + width % 13)
+    a = _dyadic(rng, j)
+    sk, ids = pk.sketch_encode_parts_plain(a, rows, width,
+                                           chunk_pairs=chunk_pairs)
+    assert len(ids) == 3
+    assert torch.equal(torch.sort(torch.cat(ids)).values,
+                       torch.arange(rows * j))
+    assert torch.equal(sk, pk.sketch_encode_plain(a, rows, width))
+    assert not bool(sk[:, pk.HASH_BUCKETS:].any())
+    a = _gauss(rng, j)
+    sk, _ = pk.sketch_encode_parts_plain(a, rows, width,
+                                         chunk_pairs=chunk_pairs)
+    d = (sk - pk.sketch_encode_plain(a, rows, width)).abs().double()
+    assert bool((d <= pk.sketch_error_bound(a, rows, width)).all())
 
 
 @pytest.mark.parametrize("rows", [1, 2])

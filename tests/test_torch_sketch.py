@@ -1,15 +1,18 @@
 """Sketch-coordinated top-k in the port against the reference, bitwise:
 the CountSketch hash, the plain versions of the two encode kernels (B3
-``sweep1_sketch``, B4 ``sketch_encode``) against the Pallas kernels in
-interpret mode and the jitted ``sketch.encode``, the median estimate,
+``sweep1_sketch``, B4 ``sketch_encode``, and B4's step-by-step
+``sketch_encode_parts_plain``) against the Pallas kernels in interpret
+mode and the jitted ``sketch.encode``, the median estimate,
 ``GradientSync`` at a world of 1 against the reference's per-step path
 under ``shard_map``, and ``round()`` against ``GradientSync.round``.
 
 On the CPU the wrappers run their plain versions, which add each bucket's
 contributions in element order as the reference does; the CUDA kernels
 add with float atomics and are held against these plain versions on the
-card by ``chip_smoke.py``. Gaussian inputs have no subnormals (which XLA
-on the CPU may flush)."""
+card by ``chip_smoke.py``, where each bucket's sum is exact on dyadic
+inputs in any order and within ``sketch_error_bound`` on Gaussian
+ones. Gaussian inputs have no subnormals (which XLA on the CPU may
+flush)."""
 import dataclasses
 import warnings
 
@@ -86,6 +89,30 @@ def test_plain_sketch_encode_matches_pallas_and_encode(j):
     want_enc = jax.jit(lambda x: jsk.encode(x, rows, WIDTH))(a)
     got = sketch.encode(torch.from_numpy(a), rows, WIDTH)
     assert _same(want, got) and _same(want_enc, got)
+
+
+# below one partition of the card's encode (2^14 buckets), one bucket over
+# it and not a multiple of it, and beyond the 2^24 buckets a hash reaches
+PART_WIDTHS = (1000, (1 << 14) + 1, 100_003, (1 << 24) + 1000)
+
+
+@pytest.mark.parametrize("width", PART_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_partitioned_sketch_encode_matches_pallas(rows, width):
+    """B4's step-by-step plain version (the card kernel's two passes, two
+    chunks of one tile) at the ragged J on dyadic a: the Pallas kernel in
+    interpret mode, the plain encode and the wrapper, bitwise."""
+    j = J_SIZES[1]
+    a = _dyadic(np.random.default_rng(rows + width % 17), j)
+    want = jk.sketch_encode_pallas(jnp.asarray(a), rows=rows, width=width,
+                                   interpret=True, mults=HASH["mults"][:rows],
+                                   adds=HASH["adds"][:rows])
+    x = torch.from_numpy(a)
+    got, _ = tk.sketch_encode_parts_plain(
+        x, rows, width, chunk_pairs=rows * tk.SKETCH_TILE)
+    assert _same(want, got)
+    assert _same(want, tk.sketch_encode_plain(x, rows, width))
+    assert _same(want, sketch.encode(x, rows, width, {}))
 
 
 def test_hashes_match_reference():

@@ -94,8 +94,49 @@ def test_three_sketch_steps_match_reference():
     together with the entries whose a is exactly zero (embedding rows of
     tokens not in the batch), which the two models share; the count of
     nonzero g_agg entries is compared as well."""
-    jrun = _run_cfgs(jbase, kind="sketchtopk")
-    trun = _run_cfgs(tbase, kind="sketchtopk")
+    _sketch_steps_match_reference(dict(kind="sketchtopk"), "err_prev")
+
+
+def test_three_sketch_reference_steps_match_reference():
+    """kind="sketchtopk" at the launcher's other defaults (reference
+    pipeline, exact selector, simulate comm): the encode kernel B4's path
+    and the apply kernel, compared as the fused sketch path above through
+    the zero set of the error state ("err" on this pipeline) and the
+    count of nonzero g_agg entries."""
+    kw = dict(kind="sketchtopk", comm_mode="simulate", pipeline="reference")
+    assert _run_cfgs(tbase, **kw).sparsifier.selector == "exact"
+    _sketch_steps_match_reference(kw, "err")
+
+
+def test_reference_sketch_encode_passes_the_sync_tables(monkeypatch):
+    """GradientSync.encode on the reference pipeline hands its own
+    ``sketch_tables`` to ``sketch.encode``, so a run builds B4's start
+    table once; on the CPU the plain version runs and the dict stays
+    empty."""
+    from repro_torch.core import aggregate, sketch, sparsify
+    cfg = tbase.SparsifierConfig(kind="sketchtopk", sparsity=0.01,
+                                 comm_mode="simulate", pipeline="reference")
+    sync = aggregate.GradientSync(cfg)
+    j = 3 * 4096 + 517
+    state = sparsify.init_state(cfg, j, "cpu")
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(j)
+                         .astype(np.float32))
+    seen = []
+    encode = sketch.encode
+
+    def spy(a, rows, width, tables=None):
+        seen.append(tables)
+        return encode(a, rows, width, tables)
+    monkeypatch.setattr(sketch, "encode", spy)
+    a, sk = sync.encode(state, g)
+    assert len(seen) == 1 and seen[0] is sync.sketch_tables
+    assert sync.sketch_tables == {}
+    assert torch.equal(sk, encode(a, cfg.sketch_rows, sk.shape[1]))
+
+
+def _sketch_steps_match_reference(kw: dict, key: str):
+    jrun = _run_cfgs(jbase, **kw)
+    trun = _run_cfgs(tbase, **kw)
     tokens, targets = _batch()
     mesh = make_mesh(1, 1)
     pal = build_parallel(mesh)
@@ -119,8 +160,8 @@ def test_three_sketch_steps_match_reference():
             np.testing.assert_allclose(float(tmetrics["loss"]),
                                        float(metrics["loss"]),
                                        rtol=LOSS_RTOL)
-            want = np.asarray(ef["err_prev"]).reshape(-1) == 0
-            got = tstate.ef["err_prev"].numpy() == 0
+            want = np.asarray(ef[key]).reshape(-1) == 0
+            got = tstate.ef[key].numpy() == 0
             assert np.array_equal(want, got), t
             j = got.size
             assert round(float(tmetrics["agg_nonzero"]) * j) == \
