@@ -20,7 +20,8 @@ line and raising on any failure:
              (``torch.equal`` on every output) at the main path's shape
              and at a small ragged shape, with CUDA-event timings;
 4. compress: the fused compressor on the card against the same calls on
-             CPU copies, bitwise, over 3 REGTOP-k steps at J = 2^24;
+             CPU copies, bitwise, over 3 REGTOP-k steps and then 3 DGC
+             steps (momentum 0.9) at J = 2^24;
 5. sketch_sync: sketch-coordinated GradientSync (kind="sketchtopk") at
              J = 2^24, 3 steps, fused pipeline (kernel sweep1_sketch) and
              reference pipeline (kernel sketch_encode), on the card and on
@@ -49,9 +50,18 @@ line and raising on any failure:
 11. train_sketch_reference, profile_sketch_reference: the launcher's
              defaults with ``--sparsifier sketchtopk`` (reference
              pipeline, exact selector, simulate comm): the encode
-             ``sketch_encode`` and the apply kernel once per step.
+             ``sketch_encode`` and the apply kernel once per step;
+12. train_dgc, profile_dgc: DGC (momentum 0.9) on the fused pipeline
+             with sparse comm: sweep 1 in its dgc mode (``sweep1_dgc``)
+             and sweep 2 once per step;
+13. train_dgc_reference, profile_dgc_reference: the launchers' defaults
+             with ``--sparsifier dgc`` (reference pipeline, exact
+             selector, simulate comm): the momentum update in PyTorch and
+             the apply kernel once per step.
 
-Phase 3 also holds the two CountSketch encodes (kernels_sketch, B3 and
+Phase 3 holds sweep 1 in its dgc mode against its plain version too
+(kernels_dgc: a, score, amax, hist and mom' with ``torch.equal``, at the
+main J and the ragged J). It also holds the two CountSketch encodes (kernels_sketch, B3 and
 B4 on the same partitioned passes and one shared start table): B3's a
 with ``torch.equal``, both sketches with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
@@ -115,6 +125,10 @@ REFERENCE_DEFAULT = dict(kind="regtopk", pipeline="reference",
 # the same launcher defaults with --sparsifier sketchtopk
 SKETCH_REFERENCE = dict(kind="sketchtopk", pipeline="reference",
                         comm_mode="simulate", selector="exact")
+# and with --sparsifier dgc
+DGC_REFERENCE = dict(kind="dgc", pipeline="reference", comm_mode="simulate",
+                     selector="exact")
+DGC_MOMENTUM = 0.9           # SparsifierConfig.momentum's default
 SKETCH_TABLE = [[MAIN_J, SKETCH_ROWS, MAIN_WIDTH]]   # (J, rows, width)
 FUSED = dict(comm_mode="sparse", pipeline="fused")
 # the train phases in run order: sparsifier fields, and the kernels that
@@ -124,10 +138,14 @@ TRAIN_PATHS = {
     "train_sketch": (dict(kind="sketchtopk", **FUSED), ("sweep1_sketch",)),
     "train_reference": (REFERENCE_DEFAULT, ("scores", "apply")),
     "train_sketch_reference": (SKETCH_REFERENCE, ("sketch_encode", "apply")),
+    "train_dgc": (dict(kind="dgc", **FUSED), ("sweep1_dgc", "sweep2")),
+    "train_dgc_reference": (DGC_REFERENCE, ("apply",)),
 }
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
+    "sweep1_dgc": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
+                   "src/repro/kernels/compress/kernel.py:78"),
     "sweep2": ("src/repro_torch/kernels/compress/csrc/sweep2.cu",
                "src/repro/kernels/compress/kernel.py:223"),
     "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
@@ -305,6 +323,39 @@ def kernel_case(dev, j: int, seed: int, timed: bool) -> dict:
     return res
 
 
+def dgc_case(dev, j: int, seed: int, timed: bool) -> dict:
+    """Sweep 1 in its dgc mode at flat length j, kernel vs plain: a,
+    score, amax, hist and mom' equal. |mom| ~ |g|, so a multiply-add
+    rounded twice would differ from the fused one in many elements."""
+    import torch
+    from repro_torch.kernels.compress import kernel as pk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(j, generator=gen, device=dev)
+    err = torch.randn(j, generator=gen, device=dev) * 0.1
+    mom = torch.randn(j, generator=gen, device=dev)
+    c = torch.ones(1, device=dev)
+    out = pk.sweep1_dgc(g, err, mom, c, DGC_MOMENTUM)
+    ref = pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM)
+    for name, got, want in zip(("a", "score", "amax", "hist", "mom"),
+                               out, ref):
+        check(torch.equal(got, want), f"sweep1_dgc {name} differs at J={j}")
+    unfused = (mom * DGC_MOMENTUM + g).ne(out[4]).sum()
+    res = {"j": j, "momentum": DGC_MOMENTUM,
+           "sweep1_dgc_err": max_abs_err(zip(out, ref)),
+           "mom_differs_from_two_roundings": int(unfused)}
+    del ref
+    if timed:
+        rows = pk.rows_of(j)
+        res["sweep1_dgc_ms"] = cuda_ms(
+            lambda: pk.sweep1_dgc(g, err, mom, c, DGC_MOMENTUM))
+        res["sweep1_dgc_plain_ms"] = cuda_ms(
+            lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM))
+        # read g, err, mom; write a, score, mom'
+        res["sweep1_dgc_bytes"] = 24 * j + 4 * rows + 4 * pk.BINS
+        res["sweep1_dgc_ops"] = 6 * j  # fma (2), add, multiply, abs, max
+    return res
+
+
 def phase_kernels(dev) -> dict:
     import torch
     small = kernel_case(dev, RAGGED_J, seed=1, timed=False)
@@ -312,7 +363,12 @@ def phase_kernels(dev) -> dict:
     big = kernel_case(dev, MAIN_J, seed=0, timed=True)
     emit("kernels_main_shape", **big)
     torch.cuda.empty_cache()
-    return {"small": small, "big": big}
+    dsmall = dgc_case(dev, RAGGED_J, seed=9, timed=False)
+    emit("kernels_dgc_ragged", **dsmall)
+    dbig = dgc_case(dev, MAIN_J, seed=10, timed=True)
+    emit("kernels_dgc_main_shape", **dbig)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big, "dgc_small": dsmall, "dgc_big": dbig}
 
 
 def dyadic(gen, j: int, dev):
@@ -713,35 +769,44 @@ def phase_reference_sync(dev) -> dict:
 
 
 def phase_compress(dev) -> None:
+    """The fused compressor, REGTOP-k then DGC, on the card and on CPU
+    copies: values, indices, every state vector (err_prev, and DGC's
+    mom) and the fallback reasons equal, step by step."""
     import torch
     from repro_torch.configs.base import SparsifierConfig
     from repro_torch.core import sparsify
-    cfg = SparsifierConfig(kind="regtopk", sparsity=SPARSITY, mu=MU,
-                           comm_mode="sparse", pipeline="fused")
     cpu = torch.device("cpu")
-    st_dev = sparsify.init_state(cfg, COMPRESS_J, dev)
-    st_cpu = sparsify.init_state(cfg, COMPRESS_J, cpu)
-    gen = torch.Generator(device=cpu).manual_seed(7)
-    fallbacks = []
-    for t in range(3):
-        g = torch.randn(COMPRESS_J, generator=gen)
-        o_dev = sparsify.compress(cfg, st_dev, g.to(dev))
-        o_cpu = sparsify.compress(cfg, st_cpu, g)
-        for name, got, want in (("values", o_dev.values, o_cpu.values),
-                                ("indices", o_dev.indices, o_cpu.indices),
-                                ("err_prev", o_dev.state["err_prev"],
-                                 o_cpu.state["err_prev"])):
-            check(torch.equal(got.cpu(), want),
-                  f"compress step {t}: {name} differs card vs CPU")
-        check(o_dev.fallback == o_cpu.fallback,
-              f"compress step {t}: fallback branch differs")
-        fallbacks.append(o_dev.fallback)
-        st_dev = sparsify.observe_aggregate(
-            cfg, o_dev.state, sparsify.dense_ghat(o_dev, COMPRESS_J))
-        st_cpu = sparsify.observe_aggregate(
-            cfg, o_cpu.state, sparsify.dense_ghat(o_cpu, COMPRESS_J))
-    emit("compress", j=COMPRESS_J, steps=3, bitwise=True,
-         fallbacks=fallbacks)
+    for kind in ("regtopk", "dgc"):
+        cfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=MU,
+                               comm_mode="sparse", pipeline="fused")
+        st_dev = sparsify.init_state(cfg, COMPRESS_J, dev)
+        st_cpu = sparsify.init_state(cfg, COMPRESS_J, cpu)
+        gen = torch.Generator(device=cpu).manual_seed(7)
+        fallbacks = []
+        reset_launches()
+        for t in range(SYNC_STEPS):
+            g = torch.randn(COMPRESS_J, generator=gen)
+            o_dev = sparsify.compress(cfg, st_dev, g.to(dev))
+            o_cpu = sparsify.compress(cfg, st_cpu, g)
+            check(set(o_dev.state) == set(o_cpu.state), f"{kind}: keys")
+            for name, got, want in (
+                    ("values", o_dev.values, o_cpu.values),
+                    ("indices", o_dev.indices, o_cpu.indices),
+                    *((key, o_dev.state[key], o_cpu.state[key])
+                      for key in o_cpu.state)):
+                check(bits_equal(got.cpu(), want),
+                      f"compress {kind} step {t}: {name} differs card vs "
+                      "CPU")
+            check(o_dev.fallback == o_cpu.fallback,
+                  f"compress {kind} step {t}: fallback branch differs")
+            fallbacks.append(o_dev.fallback)
+            st_dev = sparsify.observe_aggregate(
+                cfg, o_dev.state, sparsify.dense_ghat(o_dev, COMPRESS_J))
+            st_cpu = sparsify.observe_aggregate(
+                cfg, o_cpu.state, sparsify.dense_ghat(o_cpu, COMPRESS_J))
+        emit("compress", kind=kind, j=COMPRESS_J, steps=SYNC_STEPS,
+             bitwise=True, fallbacks=fallbacks, state=sorted(st_cpu),
+             launches=launch_counts())
 
 
 def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
@@ -909,6 +974,7 @@ def main(argv=None) -> int:
     atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
                "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")
     big, small = kres["big"], kres["small"]
+    dgc_big, dgc_small = kres["dgc_big"], kres["dgc_small"]
     reference = "reference-launcher default train (reference pipeline)"
     ebig, hbig = eres["big"], hres["big"]
     histc_same = hbig["histogram_histc_differing_bins"] == 0
@@ -916,6 +982,9 @@ def main(argv=None) -> int:
                        "regtopk train (fused)", bitwise),
             kernel_row("sweep2", big, small, train["train"]["sweep2"],
                        "regtopk train (fused)", bitwise),
+            kernel_row("sweep1_dgc", dgc_big, dgc_small,
+                       train["train_dgc"]["sweep1_dgc"],
+                       "dgc train (fused)", bitwise, mode="dgc"),
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
                        train["train_sketch"]["sweep1_sketch"],
                        "sketchtopk train (fused)", atomics, redesigned=True,

@@ -3,7 +3,7 @@
 Field names and defaults follow the reference's ``repro.configs.base`` so
 a config reads the same in both packages. Only what the ported slice
 runs is here: the dense decoder family, the sparsifier fields that select
-among its paths, and Adam. A field value outside the slice raises
+among its paths, and the optimizers. A field value outside the slice raises
 ``NotImplementedError`` naming its ROADMAP item where it would be used
 (``core.sparsify.check_supported``, ``core.aggregate.check_supported``,
 ``models.transformer.check_model``, ``optim.optimizer.check_optimizer``).
@@ -68,18 +68,20 @@ SHAPES: dict[str, ShapeConfig] = {
 @dataclass(frozen=True)
 class SparsifierConfig:
     """The paper's knobs (see the reference's docstrings for each field).
-    The port serves kind in {topk, regtopk} on both pipelines (the fused
-    two-sweep pipeline with the exact selector; the reference pipeline
-    with the exact, histogram and histogram_kernel selectors and either
-    ``state_format``) and kind="sketchtopk" on both with the exact
-    selector; all with global allocation, one bucket, fp32 EF, the mean
-    combine and sparse or simulate comm. The fields past ``Q`` exist to
-    select among the reference's paths and raise for any other value."""
+    The port serves kind in {topk, dgc, regtopk} on both pipelines (the
+    fused two-sweep pipeline with the exact selector; the reference
+    pipeline with the exact, histogram and histogram_kernel selectors,
+    and REGTOP-k with either ``state_format``) and kind="sketchtopk" on
+    both with the exact selector; all with global allocation, one
+    bucket, fp32 EF, the mean combine and sparse or simulate comm. The
+    fields past ``momentum`` exist to select among the reference's paths
+    and raise for any other value."""
     kind: str = "regtopk"
     sparsity: float = 0.01
     k: int = 0                    # explicit k; 0 -> derive from sparsity
     mu: float = 0.1               # REGTOP-k regularizer temperature
     Q: float = 0.0                # posterior distortion for never-sent entries
+    momentum: float = 0.9         # dgc momentum correction
     allocation: str = "global"
     comm_mode: str = "simulate"
     selector: str = "exact"
@@ -99,13 +101,20 @@ class SparsifierConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """Adam with a constant learning rate, ZeRO-1 sharded (the other
-    optimizers and schedules: ROADMAP A7)."""
-    kind: str = "adam"
+    """The reference's optimizer fields and defaults, ZeRO-1 sharded.
+    ``zero1=False`` raises (ROADMAP A7)."""
+    kind: str = "sgd"             # sgd | momentum | adam | adamw
     lr: float = 1e-2
+    momentum: float = 0.9
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    warmup_steps: int = 0
+    schedule: str = "constant"    # constant | cosine
+    total_steps: int = 10_000
+    zero1: bool = True            # shard optimizer state over data axis
 
 
 @dataclass(frozen=True)

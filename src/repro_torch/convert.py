@@ -37,10 +37,13 @@ def params_to_jax(params: dict) -> dict:
 
 
 def state_from_jax(state: dict, device="cpu") -> dict:
-    """Sparsifier or optimizer state (flat dict of arrays: the fused
-    layout ``err_prev``, the reference layout ``err``, REGTOP-k's dense
-    posterior ``a_prev``/``s_prev``/``g_agg_prev`` or its O(k) one
-    ``idx_prev``/``a_prev_sel``/``g_prev_sel``, and ``step``) -> tensors;
+    """Sparsifier or optimizer state (a flat dict of arrays) -> tensors.
+    Sparsifier keys: the fused layout's ``err_prev`` or the reference
+    layout's ``err``, DGC's momentum ``mom``, REGTOP-k's dense posterior
+    ``a_prev``/``s_prev``/``g_agg_prev`` or its O(k) one
+    ``idx_prev``/``a_prev_sel``/``g_prev_sel``, and ``step``; optimizer
+    keys: ``master``, the moments ``m`` (momentum, adam, adamw) and ``v``
+    (adam, adamw), and ``step``. Float state is fp32 and moves as it is;
     uint32 index arrays become int32 views of the same bits."""
     return {key: _to_tensor(val, device) for key, val in state.items()}
 

@@ -3,7 +3,7 @@ of ``repro.core.aggregate``, non-elastic mean paths).
 
 Two communication modes, as in the reference:
 
-- ``sparse`` (local selection, kind topk/regtopk): every rank
+- ``sparse`` (local selection, kind topk/dgc/regtopk): every rank
   all-gathers the k (value, index) pairs of every rank and scatter-adds
   them locally, one ``index_add_`` per rank in rank order, then divides
   by n. Within a rank the k indices are distinct, so each ``index_add_``

@@ -38,6 +38,45 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+_FMA_CHUNK = 1 << 24     # elements a chunk of fma_f32 (fp64 temporaries)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a * b + c) with one rounding, as a fused multiply-add
+    computes it, for fp32 tensors a and c of one shape and b an fp32
+    scalar (a Python float, rounded to fp32 first, or a 0-d tensor).
+
+    The compiled reference contracts a multiply feeding an add into an
+    FMA (XLA's CPU backend does, for DGC's momentum and the optimizers'
+    updates), and PyTorch has no fp32 FMA that is correctly rounded on
+    every device. The product is exact in fp64; TwoSum gives the fp64
+    sum and its exact error, which round the sum to odd; rounding that
+    to fp32 is then the correctly rounded result (53 >= 24 + 2 bits).
+    Works in chunks, so the fp64 temporaries stay small at any length."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(f32(b))
+    b = b.to(a.device, torch.float64)
+    out = torch.empty_like(a)
+    flat, cflat, oflat = a.reshape(-1), c.reshape(-1), out.view(-1)
+    for lo in range(0, flat.numel(), _FMA_CHUNK):
+        hi = lo + _FMA_CHUNK
+        oflat[lo:hi] = _fma_odd(flat[lo:hi].double() * b,
+                                cflat[lo:hi].double())
+    return out
+
+
+def _fma_odd(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 of p + c for fp64 p, c, through the sum rounded to odd."""
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)      # TwoSum: s + err == p + c
+    inexact = (err != 0) & torch.isfinite(err)
+    # round to odd: truncate toward zero, then set the last bit
+    toward_zero = inexact & ((err < 0) != (s < 0))
+    bits = s.view(torch.int64) - toward_zero.long()
+    return (bits | inexact.long()).view(torch.float64).float()
+
+
 def safe_denom(denom: torch.Tensor, tiny: float = TINY) -> torch.Tensor:
     """Zero-safe divisor: |denom| <= tiny is replaced by
     sign(denom)*tiny + tiny (positive for denom >= 0, the REGTOP-k

@@ -1,5 +1,5 @@
-"""Gradient sparsifiers: TOP-k and REGTOP-k (the paper, Algorithm 1) on
-both pipelines, and the state of sketch-coordinated TOP-k (the port of
+"""Gradient sparsifiers: TOP-k, DGC and REGTOP-k (the paper, Algorithm 1)
+on both pipelines, and the state of sketch-coordinated TOP-k (the port of
 ``repro.core.sparsify``).
 
 Protocol per step (worker n), as in the reference:
@@ -16,6 +16,12 @@ REGTOP-k (Algorithm 1):
     ghat^t   = s^t * a^t,   eps^{t+1} = a^t - ghat^t
 with plain TOP-k at t = 0.
 
+DGC (Deep Gradient Compression, Lin et al. '18; momentum correction):
+    mom'     = momentum * mom + g
+    a^t      = eps^t + mom'
+    s^t      = Top_k(a^t),   eps^{t+1} = a^t (1 - s^t),
+    mom      = mom' (1 - s^t)
+
 Pipelines (``cfg.pipeline``):
 
 - "reference": the dense math above with ``cfg.selector`` (exact,
@@ -26,10 +32,15 @@ Pipelines (``cfg.pipeline``):
   selector). ``CompressOut`` carries the dense ``ghat`` and ``mask``, and
   packed (values, indices) only where the count is exactly k.
 - "fused": the two-sweep pipeline (``kernels.compress.ops``), exact
-  selector. The only J-sized state is ``err_prev`` (= a^{t-1} *
-  (1 - s^{t-1})); REGTOP-k's posterior is O(k): ``idx_prev`` (int32 view
-  of the uint32 indices, doubling as the support set), ``a_prev_sel``
-  and ``g_prev_sel``.
+  selector. The J-sized state is ``err_prev`` (= a^{t-1} *
+  (1 - s^{t-1})), and DGC's ``mom``; REGTOP-k's posterior is O(k):
+  ``idx_prev`` (int32 view of the uint32 indices, doubling as the
+  support set), ``a_prev_sel`` and ``g_prev_sel``.
+
+DGC's momentum is masked with a multiply on the reference pipeline and
+with an O(k) scatter-zero on the fused one, as in the reference: a
+selected negative momentum becomes -0.0 on the first and +0.0 on the
+second.
 
 kind="sketchtopk" selects at the aggregate level
 (``core.aggregate.GradientSync``), so ``compress`` raises for it; its
@@ -46,8 +57,9 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import bigvec, select
-from repro_torch.core.numerics import (recip_f32, regularizer_factor,
-                                       safe_denom, tanh_f32)
+from repro_torch.core.numerics import (fma_f32, recip_f32,
+                                       regularizer_factor, safe_denom,
+                                       tanh_f32)
 from repro_torch.kernels.fused_ef import ops as fef
 
 
@@ -72,12 +84,13 @@ _COMMON = (("num_buckets", (1,), "A8 (bucketed sweeps)"),
            ("ef_dtype", ("float32",), "A8 (bf16 EF state)"))
 _PIPELINES = ("fused", "reference")
 # per kind: where its top-k is decided
-_SLICE = {"topk": "local", "regtopk": "local", "sketchtopk": "sketch"}
+_SLICE = {"topk": "local", "dgc": "local", "regtopk": "local",
+          "sketchtopk": "sketch"}
 # selectors served per (selection, pipeline); the rest raise A8
 _SELECTORS = {("local", "reference"): ("exact", "histogram",
                                        "histogram_kernel")}
-_UNPORTED_KINDS = {"dgc": "A8", "randk": "A8", "thresholdk": "A8",
-                   "none": "A5", "globaltopk": "A5"}
+_UNPORTED_KINDS = {"randk": "A8", "thresholdk": "A8", "none": "A5",
+                   "globaltopk": "A5"}
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
@@ -131,14 +144,16 @@ def _dense_posterior(cfg: SparsifierConfig) -> bool:
 
 def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
     """Zero state for a J-length flat gradient: the error state
-    (``err_key``) and ``step``; REGTOP-k adds the dense posterior
-    (a_prev, s_prev, g_agg_prev, each (J,)) or the O(k) one (idx_prev,
-    a_prev_sel, g_prev_sel)."""
+    (``err_key``) and ``step``; DGC adds its momentum ``mom`` (J,);
+    REGTOP-k adds the dense posterior (a_prev, s_prev, g_agg_prev, each
+    (J,)) or the O(k) one (idx_prev, a_prev_sel, g_prev_sel)."""
     check_supported(cfg)
 
     def zeros(n, dtype=torch.float32):
         return torch.zeros(n, dtype=dtype, device=device)
     st = {err_key(cfg): zeros(j), "step": zeros((), torch.int32)}
+    if cfg.kind == "dgc":
+        st["mom"] = zeros(j)
     if _dense_posterior(cfg):
         st.update(a_prev=zeros(j), s_prev=zeros(j), g_agg_prev=zeros(j))
     elif cfg.kind == "regtopk":
@@ -172,6 +187,8 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     g = g.float()
     if cfg.pipeline == "fused":
         return _compress_fused(cfg, state, g, k, omega)
+    if cfg.kind == "dgc":
+        return _compress_dgc(cfg, state, g, k, donate)
     if cfg.kind == "regtopk" and not _dense_posterior(cfg):
         return _compress_regtopk_sparse(cfg, state, g, k, omega, donate)
     new = {"step": state["step"] + 1}
@@ -207,6 +224,27 @@ def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
     idx = select.topk_indices(score, k)
     mask = bigvec.mask_from_indices(a.numel(), idx, torch.float32)
     return mask, a[idx], bigvec.to_u32_bits(idx)
+
+
+def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
+                  k: int, donate: bool) -> CompressOut:
+    """DGC on the reference pipeline: the momentum update and a = err +
+    mom' in plain tensor ops, the selector over a, ghat and err through
+    the apply kernel, and the momentum masked as mom' * (1 - mask)."""
+    with record_function("compress/scores"):
+        # mom' = momentum * mom + g, one rounding as the compiled
+        # reference contracts it into a fused multiply-add
+        mom = fma_f32(state["mom"], cfg.momentum, g)
+        a = state["err"] + mom
+        _release(state, donate, "err", "mom")
+    with record_function("compress/select"):
+        mask, values, indices = _reference_select(cfg, a, a, k)
+    with record_function("compress/apply"):
+        ghat, err = fef.fused_apply_mask(a, mask)
+        del a
+        mom.mul_(1.0 - mask)             # in place on mom', a new buffer
+    return CompressOut({"err": err, "mom": mom, "step": state["step"] + 1},
+                       values, indices, ghat=ghat, mask=mask)
 
 
 def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
@@ -248,10 +286,14 @@ def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         kwargs = dict(idx_prev=state["idx_prev"],
                       a_prev_sel=state["a_prev_sel"],
                       g_prev_sel=state["g_prev_sel"])
+    if cfg.kind == "dgc":
+        kwargs = dict(mom=state["mom"], momentum=cfg.momentum)
     out = ops.fused_compress_arrays(
         cfg.kind, g, state["err_prev"], state["step"], k=k,
         omega=omega, mu=cfg.mu, Q=cfg.Q, **kwargs)
     new = {"err_prev": out["err"], "step": state["step"] + 1}
+    if cfg.kind == "dgc":
+        new["mom"] = out["mom"]             # selection-masked
     if cfg.kind == "regtopk":
         new["idx_prev"] = out["indices"]
         new["a_prev_sel"] = out["values"]

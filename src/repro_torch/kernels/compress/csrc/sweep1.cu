@@ -1,28 +1,38 @@
 // Sweep 1 of the fused compression pipeline, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/compress/kernel.py::_sweep1_kernel
-// (plain mode, launcher sweep1_pallas): for every element
-//   a = err + g,   score = a * c,
-// plus the per-4096-element-tile amax of |score| and a 2048-bin histogram of
-// the fp32 bit pattern of |score| (bits >> 20).
+// (launcher sweep1_pallas) in its two ungated modes. Plain mode, for every
+// element:
+//   a = err + g,   score = a * c;
+// dgc mode (Deep Gradient Compression's momentum correction) threads a third
+// stream, the momentum buffer:
+//   mom' = momentum * mom + g,   a = err + mom',   score = a * c;
+// both emit the per-4096-element-tile amax of |score| and a 2048-bin
+// histogram of the fp32 bit pattern of |score| (bits >> 20).
 //
-// Bound: device-memory bytes. Each element reads g and err and writes a and
+// Bound: device-memory bytes. Plain mode reads g and err and writes a and
 // score, 16 B per element (14.27 GB at J = 892,032,000, about 4.3 ms at the
-// H100 SXM's 3.35 TB/s). The histogram and the amax add only J/4096 * 4 B.
+// H100 SXM's 3.35 TB/s); dgc mode also reads mom and writes mom', 24 B per
+// element (21.41 GB, about 6.4 ms). The histogram and the amax add only
+// J/4096 * 4 B.
 //
 // Design. The TPU grid runs in order and carries the histogram from one grid
 // step to the next; Hopper runs blocks in parallel, so this is a persistent
 // grid-stride kernel (a few CTAs per SM), each walking whole 4096-element
-// tiles. Loads and stores are 16-byte vectors on full tiles (all eight loads
-// of a tile issued before any use), the ragged last tile is masked. Each CTA
-// keeps its histogram in shared memory, filled with warp-aggregated shared
-// atomics (lanes with the same bin add once), and flushes its nonzero bins
-// to the global histogram with integer atomicAdd once at the end. Integer
-// counts do not depend on order, and a and score are single-rounding fp32
-// operations (__fadd_rn / __fmul_rn, so nothing is contracted into an FMA),
-// which keeps a, score, amax and hist bitwise equal to the plain version and
-// to the Pallas kernel. c arrives as a pointer to a 1-element device tensor,
-// so the step's factor never forces a host read.
+// tiles. Loads and stores are 16-byte streaming vectors on full tiles (all
+// of a tile's loads issued before any use), the ragged last tile is masked.
+// Each CTA keeps its histogram in shared memory, filled with
+// warp-aggregated shared atomics (lanes with the same bin add once), and
+// flushes its nonzero bins to the global histogram with integer atomicAdd
+// once at the end. Integer counts do not depend on order, and every value
+// is rounded where the compiled reference rounds it: a and score are
+// single-rounding __fadd_rn / __fmul_rn (nothing contracted), and mom' is
+// one __fmaf_rn, since XLA contracts momentum * mom + g into a fused
+// multiply-add. That keeps a, score, mom', amax and hist bitwise equal to
+// the plain version and to the Pallas kernel. One body serves both modes through a
+// compile-time switch. c arrives as a pointer to a 1-element device
+// tensor, so the step's factor never forces a host read; momentum is a
+// by-value fp32 (the reference's weak-typed constant rounds to fp32 too).
 #include "compress_common.cuh"
 
 namespace compress {
@@ -45,12 +55,19 @@ __device__ __forceinline__ float one(float e, float g, float c, float* a_out,
   return fabsf(s);
 }
 
-template <bool VEC>
+// the momentum update of dgc mode: mom' = momentum * mom + g, one rounding
+__device__ __forceinline__ float advance(float momentum, float m, float g) {
+  return __fmaf_rn(momentum, m, g);
+}
+
+template <bool VEC, bool DGC>
 __global__ void __launch_bounds__(THREADS)
 sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
-              const float* __restrict__ c_ptr, float* __restrict__ a_out,
-              float* __restrict__ score_out, float* __restrict__ amax_out,
-              int* __restrict__ hist_out, long long j, long long rows) {
+              const float* __restrict__ mom, const float* __restrict__ c_ptr,
+              float momentum, float* __restrict__ a_out,
+              float* __restrict__ score_out, float* __restrict__ mom_out,
+              float* __restrict__ amax_out, int* __restrict__ hist_out,
+              long long j, long long rows) {
   __shared__ int sh_hist[BINS];
   __shared__ float sh_max[WARPS];
   for (int b = threadIdx.x; b < BINS; b += THREADS) sh_hist[b] = 0;
@@ -73,6 +90,24 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         gv[r] = __ldcs(&g4[r * THREADS + threadIdx.x]);
         ev[r] = __ldcs(&e4[r * THREADS + threadIdx.x]);
       }
+      if constexpr (DGC) {
+        // gv becomes mom' in place, and is written out as the new momentum
+        const float4* m4 = reinterpret_cast<const float4*>(mom + base);
+        float4* mo4 = reinterpret_cast<float4*>(mom_out + base);
+        float4 mv[PER_THREAD / 4];
+#pragma unroll
+        for (int r = 0; r < PER_THREAD / 4; ++r) {
+          mv[r] = __ldcs(&m4[r * THREADS + threadIdx.x]);
+        }
+#pragma unroll
+        for (int r = 0; r < PER_THREAD / 4; ++r) {
+          gv[r].x = advance(momentum, mv[r].x, gv[r].x);
+          gv[r].y = advance(momentum, mv[r].y, gv[r].y);
+          gv[r].z = advance(momentum, mv[r].z, gv[r].z);
+          gv[r].w = advance(momentum, mv[r].w, gv[r].w);
+          __stcs(&mo4[r * THREADS + threadIdx.x], gv[r]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
         float4 av, sv;
@@ -88,7 +123,12 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
       for (int i = threadIdx.x; i < BLOCK; i += THREADS) {
         const long long e = base + i;
         if (e < j) {
-          const float k = one(err[e], g[e], c, &a_out[e], &score_out[e]);
+          float x = g[e];
+          if constexpr (DGC) {
+            x = advance(momentum, mom[e], x);
+            mom_out[e] = x;
+          }
+          const float k = one(err[e], x, c, &a_out[e], &score_out[e]);
           m = nan_max(m, k);
           count_bin(sh_hist, k);
         }
@@ -117,6 +157,21 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
   }
 }
 
+template <bool DGC>
+int launch(const float* g, const float* err, const float* mom, const float* c,
+           float momentum, float* a, float* score, float* mom_out, float* amax,
+           int* hist, long long j, int grid, int vec, cudaStream_t stream) {
+  const long long rows = (j + BLOCK - 1) / BLOCK;
+  if (vec) {
+    sweep1_kernel<true, DGC><<<grid, THREADS, 0, stream>>>(
+        g, err, mom, c, momentum, a, score, mom_out, amax, hist, j, rows);
+  } else {
+    sweep1_kernel<false, DGC><<<grid, THREADS, 0, stream>>>(
+        g, err, mom, c, momentum, a, score, mom_out, amax, hist, j, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace compress
 
@@ -128,14 +183,19 @@ extern "C" int sweep1_launch(const float* g, const float* err, const float* c,
                              float* a, float* score, float* amax, int* hist,
                              long long j, int grid, int vec,
                              cudaStream_t stream) {
-  using namespace compress;
-  const long long rows = (j + BLOCK - 1) / BLOCK;
-  if (vec) {
-    sweep1_kernel<true><<<grid, THREADS, 0, stream>>>(g, err, c, a, score,
-                                                      amax, hist, j, rows);
-  } else {
-    sweep1_kernel<false><<<grid, THREADS, 0, stream>>>(g, err, c, a, score,
-                                                       amax, hist, j, rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return compress::launch<false>(g, err, nullptr, c, 0.0f, a, score, nullptr,
+                                 amax, hist, j, grid, vec, stream);
+}
+
+// dgc mode: as sweep1_launch, plus mom (J,) fp32 in and mom_out (J,) fp32
+// out, and momentum by value; vec != 0 also requires 16-byte-aligned mom
+// and mom_out.
+extern "C" int sweep1_dgc_launch(const float* g, const float* err,
+                                 const float* mom, const float* c,
+                                 float momentum, float* a, float* score,
+                                 float* mom_out, float* amax, int* hist,
+                                 long long j, int grid, int vec,
+                                 cudaStream_t stream) {
+  return compress::launch<true>(g, err, mom, c, momentum, a, score, mom_out,
+                                amax, hist, j, grid, vec, stream);
 }

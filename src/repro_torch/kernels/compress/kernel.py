@@ -3,7 +3,9 @@
 
 Sweep 1 (:func:`sweep1`, kernel ``csrc/sweep1.cu``) reads g and the error
 state once and emits ``a = err + g``, ``score = a * c``, the per-tile amax
-of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|.
+of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|;
+its dgc mode (:func:`sweep1_dgc`, the same kernel) also reads the
+momentum and emits ``mom' = momentum * mom + g`` with ``a = err + mom'``.
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
 static ``MAXPB`` slots. The CountSketch encodes share the kernels of
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.core import sketch as csk
 from repro_torch.core.bigvec import INVALID_IDX, to_u32_bits
+from repro_torch.core.numerics import fma_f32
 from repro_torch.core.select import hist_tail_bin
 from repro_torch.kernels.common import (aligned as _aligned,
                                         check_launch as _check_launch,
@@ -89,8 +92,12 @@ def rows_of(j: int) -> int:
 # Plain versions (CPU path; held against the kernels on the card)
 # ---------------------------------------------------------------------------
 
-def sweep1_plain(g, err_prev, c):
-    a = err_prev + g
+def sweep1_plain(g, err_prev, c, mom=None, momentum: float = 0.0):
+    """Plain version of :func:`sweep1`; with ``mom`` the dgc mode, which
+    returns mom' after (a, score, amax, hist). mom' is one fused
+    multiply-add, as the kernel and the compiled reference round it."""
+    mom_out = None if mom is None else fma_f32(mom, momentum, g)
+    a = err_prev + (g if mom is None else mom_out)
     score = a * c
     j = a.numel()
     rows = rows_of(j)
@@ -104,7 +111,8 @@ def sweep1_plain(g, err_prev, c):
         amax[r0:r0 + full] = keys[:full * BLOCK].view(full, BLOCK).amax(1)
         if (hi - lo) % BLOCK:
             amax[r0 + full] = keys[full * BLOCK:].amax()
-    return a, score, amax, hist.to(torch.int32)
+    out = (a, score, amax, hist.to(torch.int32))
+    return out if mom is None else out + (mom_out,)
 
 
 def sweep2_plain(score, tau, maxpb: int):
@@ -318,9 +326,14 @@ def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor):
+def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
+           mom: torch.Tensor | None = None, momentum: float = 0.0):
     """(a, score, amax (rows,), hist (2048,) int32) for g, err_prev (J,)
-    fp32 and c (1,) fp32, all on one device."""
+    fp32 and c (1,) fp32, all on one device. With ``mom`` (J,) fp32 the
+    dgc mode (:func:`sweep1_dgc`): mom' = momentum * mom + g, a = err_prev
+    + mom', and mom' is returned last."""
+    if mom is not None:
+        return sweep1_dgc(g, err_prev, mom, c, momentum)
     j = g.numel()
     _check_vec("g", g)
     _check_vec("err_prev", err_prev, j)
@@ -329,22 +342,60 @@ def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor):
         raise ValueError("sweep1: g, err_prev and c must share a device")
     if not _on_card(g):
         return sweep1_plain(g, err_prev, c)
-    rows = rows_of(j)
-    a = torch.empty_like(g)
-    score = torch.empty_like(g)
-    amax = torch.empty(rows, dtype=torch.float32, device=g.device)
-    hist = torch.zeros(BINS, dtype=torch.int32, device=g.device)
+    a, score, amax, hist = _sweep1_outputs(g)
     fn = _lib("sweep1").sweep1_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     err = fn(g.data_ptr(), err_prev.data_ptr(), c.data_ptr(), a.data_ptr(),
              score.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
-             _grid(g.device, rows), _aligned(g, err_prev, a, score),
+             _grid(g.device, rows_of(j)), _aligned(g, err_prev, a, score),
              _stream(g.device))
     _check_launch("sweep1", err)
     sweep1.launches += 1
     return a, score, amax, hist
+
+
+def sweep1_dgc(g: torch.Tensor, err_prev: torch.Tensor, mom: torch.Tensor,
+               c: torch.Tensor, momentum: float):
+    """Sweep 1 in dgc mode: (a, score, amax, hist, mom') with mom' =
+    momentum * mom + g (momentum rounded to fp32), a = err_prev + mom'
+    and score = a * c; g, err_prev, mom (J,) fp32 and c (1,) fp32 on one
+    device. Its own ``launches`` count shows which mode a run took."""
+    j = g.numel()
+    _check_vec("g", g)
+    _check_vec("err_prev", err_prev, j)
+    _check_vec("mom", mom, j)
+    _check_vec("c", c, 1)
+    if len({g.device, err_prev.device, mom.device, c.device}) != 1:
+        raise ValueError("sweep1_dgc: g, err_prev, mom and c must share a "
+                         "device")
+    if not _on_card(g):
+        return sweep1_plain(g, err_prev, c, mom, momentum)
+    a, score, amax, hist = _sweep1_outputs(g)
+    mom_out = torch.empty_like(g)
+    fn = _lib("sweep1").sweep1_dgc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]
+    err = fn(g.data_ptr(), err_prev.data_ptr(), mom.data_ptr(), c.data_ptr(),
+             ctypes.c_float(momentum), a.data_ptr(), score.data_ptr(),
+             mom_out.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
+             _grid(g.device, rows_of(j)),
+             _aligned(g, err_prev, mom, a, score, mom_out),
+             _stream(g.device))
+    _check_launch("sweep1_dgc", err)
+    sweep1_dgc.launches += 1
+    return a, score, amax, hist, mom_out
+
+
+def _sweep1_outputs(g):
+    """a, score (J,), amax (rows,) and the zeroed hist (2048,) int32."""
+    rows = rows_of(g.numel())
+    return (torch.empty_like(g), torch.empty_like(g),
+            torch.empty(rows, dtype=torch.float32, device=g.device),
+            torch.zeros(BINS, dtype=torch.int32, device=g.device))
 
 
 def sweep2(score: torch.Tensor, tau: torch.Tensor, maxpb: int):
@@ -489,10 +540,11 @@ def _encode_card(x, err_prev, a, rows: int, width: int, start):
 
 
 sweep1.launches = 0
+sweep1_dgc.launches = 0
 sweep2.launches = 0
 sweep1_sketch.launches = 0
 sketch_encode.launches = 0
-KERNELS = (sweep1, sweep2, sweep1_sketch, sketch_encode)
+KERNELS = (sweep1, sweep1_dgc, sweep2, sweep1_sketch, sketch_encode)
 
 
 def reset_launches() -> None:

@@ -3,15 +3,16 @@
 (:func:`fused_compress_arrays`) and sweep 1 with the CountSketch encode
 folded in (:func:`fused_sketch_encode`).
 
-    sweep 1:   a, score, histogram             (kernel.sweep1)
+    sweep 1:   a, score, histogram             (kernel.sweep1; DGC's
+               momentum update in its dgc mode)
     tail scan: tau from the histogram          (O(2048))
     sweep 2:   per-tile candidate slots        (kernel.sweep2)
     O(cand):   exact-k trim with the REGTOP-k posterior corrections,
                exactness witnesses, packed (values, indices)
     O(k):      err_prev for the next step = a with the selected slots
-               zeroed in place
+               zeroed in place (and DGC's momentum likewise)
 
-The slice of the reference the compressor covers: kind in {topk,
+The slice of the reference the compressor covers: kind in {topk, dgc,
 regtopk}, the exact selector, one bucket, fp32 error feedback, every
 worker participating. Anything else raises before any work
 (``core.sparsify.check_supported`` names the ROADMAP item).
@@ -36,7 +37,7 @@ from repro_torch.core.numerics import (recip_f32, regularizer_factor,
 from repro_torch.core.select import topk_positions
 from repro_torch.kernels.compress import kernel as pk
 
-FUSED_KINDS = ("topk", "regtopk")
+FUSED_KINDS = ("topk", "dgc", "regtopk")
 
 
 def maxpb_for(k: int, j: int) -> int:
@@ -47,7 +48,8 @@ def maxpb_for(k: int, j: int) -> int:
 def sweep_factor(kind: str, step: torch.Tensor, *, mu: float,
                  Q: float) -> torch.Tensor:
     """(1,) fp32 score factor c on step's device: tanh(|1+Q|/mu) for
-    REGTOP-k after step 0, else 1. No host read of ``step``."""
+    REGTOP-k after step 0, else 1 (TOP-k, DGC). No host read of
+    ``step``."""
     one = torch.ones(1, dtype=torch.float32, device=step.device)
     if kind != "regtopk":
         return one
@@ -67,13 +69,17 @@ def posterior_keys(a_sel, a_prev_sel, g_prev_sel, step, *, omega: float,
 
 def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
                           step: torch.Tensor, *, k: int, omega: float = 1.0,
-                          mu: float = 0.1, Q: float = 0.0, idx_prev=None,
+                          mu: float = 0.1, Q: float = 0.0,
+                          momentum: float = 0.0, mom=None, idx_prev=None,
                           a_prev_sel=None, g_prev_sel=None) -> dict:
     """One fused compression step. g, err_prev (J,) fp32; step a 0-d int32
-    tensor; REGTOP-k also takes the O(k) posterior (idx_prev int32 bits,
-    a_prev_sel, g_prev_sel). Returns {"err": next err_prev (J,) — the
-    buffer of ``a``, "values" (k,) fp32, "indices" (k,) int32 bits,
-    "fallback" reason or ""}, values ordered by |score| descending."""
+    tensor; DGC also takes its momentum ``mom`` (J,) fp32 and its factor
+    ``momentum``;
+    REGTOP-k the O(k) posterior (idx_prev int32 bits, a_prev_sel,
+    g_prev_sel). Returns {"err": next err_prev (J,) — the buffer of
+    ``a``, "mom": DGC's next momentum (J,) — the buffer of mom' — or
+    None, "values" (k,) fp32, "indices" (k,) int32 bits, "fallback"
+    reason or ""}, values ordered by |score| descending."""
     if kind not in FUSED_KINDS:
         raise NotImplementedError(
             f"fused kind={kind!r} is not ported yet (ROADMAP A8)")
@@ -82,7 +88,8 @@ def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
     regtopk = kind == "regtopk"
     with record_function("compress/sweeps"):
         c = sweep_factor(kind, step, mu=mu, Q=Q)
-        a, score, _amax, hist = pk.sweep1(g, err_prev, c)
+        a, score, _amax, hist, *mom_out = pk.sweep1(
+            g, err_prev, c, mom if kind == "dgc" else None, momentum)
         # margin k: REGTOP-k support corrections may drop <= k entries
         # below tau without breaking top-k coverage of the candidates
         later = step > 0
@@ -94,13 +101,17 @@ def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
         return _trim(kind, a, score, cand_k, bigvec.as_index(cand_i32),
                      cnt.max() <= maxpb, later, k, omega=omega, mu=mu,
                      step=step, idx_prev=idx_prev, a_prev_sel=a_prev_sel,
-                     g_prev_sel=g_prev_sel)
+                     g_prev_sel=g_prev_sel,
+                     mom_out=mom_out[0] if mom_out else None)
 
 
 def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
-          step, idx_prev, a_prev_sel, g_prev_sel) -> dict:
+          step, idx_prev, a_prev_sel, g_prev_sel, mom_out) -> dict:
     """O(candidates) exact-k trim, the exactness witnesses, the fallback
-    and the O(k) state write of :func:`fused_compress_arrays`."""
+    and the O(k) state writes of :func:`fused_compress_arrays`. The
+    fallback ranks the dense keys of ``score``; its values are read from
+    ``a``, which holds the bits the reference's fallback recomputes at
+    the support (err + mom' for DGC, err + g otherwise)."""
     regtopk = kind == "regtopk"
     if regtopk:
         idx_prev64 = bigvec.as_index(idx_prev)
@@ -153,7 +164,10 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
             del keys
     values = a[idx_k]
     err = bigvec.scatter_set_(a, idx_k, 0.0)  # a's buffer becomes err_prev
-    return {"err": err, "values": values,
+    if mom_out is not None:
+        # DGC's momentum masking mom' * (1 - s): the same O(k) scatter-zero
+        bigvec.scatter_set_(mom_out, idx_k, 0.0)
+    return {"err": err, "mom": mom_out, "values": values,
             "indices": bigvec.to_u32_bits(idx_k), "fallback": fallback}
 
 

@@ -5,7 +5,7 @@ Per step:
 
 1. loss and gradient of the model (autograd over the parameter tree);
 2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
-3. GradientSync: REGTOP-k/TOP-k compression, on the fused pipeline
+3. GradientSync: REGTOP-k/TOP-k/DGC compression, on the fused pipeline
    (the two sweep kernels) or the reference pipeline (the dense score
    and apply kernels, a selector), then the all-gather of the k (value,
    index) pairs and a local scatter-add combine (sparse comm) or the
@@ -15,9 +15,11 @@ Per step:
    The step hands the old sparsifier state to the sync (donates it), so
    the reference pipeline's dense J-vectors are freed as soon as the
    compressor has read them: the old TrainState's ``ef`` is consumed;
-4. ZeRO-1: this rank updates its 1/DP slice of (master, m, v) and the
-   master is all-gathered back; the next step's parameters are views
-   into that gathered vector (no extra copy).
+4. ZeRO-1: this rank updates its 1/DP slice of the optimizer state
+   (master, and m, v as the kind keeps them; with ``grad_clip`` the
+   step hands the optimizer the global norm of g_agg) and the master is
+   all-gathered back; the next step's parameters are views into that
+   gathered vector (no extra copy).
 
 Without a process group the world is one rank and the same code runs.
 """
@@ -109,7 +111,12 @@ class TrainStep:
             del g
         with record_function("train/optimizer"):
             shard = opt_shard_len(flat.total, n)
-            master, opt = apply_updates(opt_cfg, state.opt,
+            opt = state.opt
+            if opt_cfg.grad_clip:
+                # the global norm of g_agg (rank-identical; no TP term)
+                opt = dict(opt, gnorm=torch.sqrt(torch.sum(g_agg.float()
+                                                           ** 2)))
+            master, opt = apply_updates(opt_cfg, opt,
                                         _padded_slice(g_agg, rank, shard, n))
             if n > 1:
                 mall = torch.empty(n * shard, dtype=master.dtype,

@@ -1,7 +1,7 @@
 """The port's fused compressor against the reference's, bitwise.
 
 T = 4 steps of ``compress`` + ``observe_aggregate`` on identical gradient
-streams, for topk and regtopk, against (a) the reference's jitted
+streams, for topk, dgc (momentum 0.9) and regtopk, against (a) the reference's jitted
 ``sparsify.compress`` on the fused pipeline and (b) its
 ``fused_compress_arrays`` with the Pallas kernels in interpret mode, fed
 the port's own pre-step state. The reference is compiled with ``jax.jit``
@@ -47,7 +47,7 @@ def _grads(case, j, rng):
     return rng.standard_normal(j).astype(np.float32)
 
 
-@pytest.mark.parametrize("kind", ["topk", "regtopk"])
+@pytest.mark.parametrize("kind", ["topk", "dgc", "regtopk"])
 @pytest.mark.parametrize("case,j", [("normal", 3 * 4096),
                                     ("ragged", 3 * 4096 + 1000),
                                     ("tie", 3 * 4096)])
@@ -65,6 +65,7 @@ def test_compress_matches_reference(kind, case, j):
     jobs = jax.jit(lambda st, ga: jsp.observe_aggregate(jcfg, st, ga))
     jpallas = jax.jit(lambda g, st: jops.fused_compress_arrays(
         kind, g, st["err_prev"], st["step"], k=k, mu=MU,
+        momentum=tcfg.momentum, mom=st.get("mom"),
         idx_prev=st.get("idx_prev"), a_prev_sel=st.get("a_prev_sel"),
         g_prev_sel=st.get("g_prev_sel"), want_ghat=False,
         strategy="pallas_interpret"))
@@ -84,6 +85,8 @@ def test_compress_matches_reference(kind, case, j):
         assert _eq(pout["values"], out.values), t
         assert _eq(pout["indices"], out.indices), t
         assert _eq(pout["err"], out.state["err_prev"]), t
+        if kind == "dgc":
+            assert _eq(pout["mom"], out.state["mom"]), t
         jst = jobs(jnew, jnp.asarray(g_agg))
         tst = tsp.observe_aggregate(tcfg, out.state,
                                     torch.from_numpy(g_agg))
@@ -128,6 +131,42 @@ def test_state_conversion_round_trip():
     back = state_to_jax(state_from_jax(st))
     for key in st:
         assert back[key].dtype == st[key].dtype and _eq(st[key], back[key])
+
+
+@pytest.mark.parametrize("pipeline", ["fused", "reference"])
+def test_dgc_and_optimizer_states_round_trip(pipeline):
+    """A DGC state after two steps (err or err_prev, mom, step) and the
+    optimizer states of every kind cross both ways as fp32, bit for
+    bit."""
+    from repro.configs.base import OptimizerConfig
+    from repro.optim import apply_updates, init_opt_state
+    cfg = JaxSparsifierConfig(kind="dgc", pipeline=pipeline,
+                              comm_mode="sparse", sparsity=0.01)
+    rng = np.random.default_rng(3)
+    st = jsp.init_state(cfg, 5000)
+    for _ in range(2):
+        st = jax.jit(lambda s, g: jsp.compress(cfg, s, g).state)(
+            st, jnp.asarray(rng.standard_normal(5000).astype(np.float32)))
+    states = [jax.device_get(st)]
+    for kind in ("sgd", "momentum", "adam", "adamw"):
+        ocfg = OptimizerConfig(kind=kind)
+        ost = init_opt_state(ocfg, jnp.ones(300, jnp.float32))
+        _, ost = apply_updates(ocfg, ost, jnp.asarray(
+            rng.standard_normal(300).astype(np.float32)))
+        states.append(jax.device_get(ost))
+    assert set(states[0]) == {tsp.err_key(SparsifierConfig(
+        pipeline=pipeline)), "mom", "step"}
+    assert np.any(states[0]["mom"] != 0)
+    for host in states:
+        tst = state_from_jax(host)
+        for key, val in tst.items():
+            want = np.asarray(host[key]).dtype
+            assert val.dtype == (torch.float32 if want == np.float32
+                                 else torch.int32), key
+        back = state_to_jax(tst)
+        for key in host:
+            assert back[key].dtype == np.asarray(host[key]).dtype, key
+            assert _eq(host[key], back[key]), key
 
 
 @pytest.mark.parametrize("k", [1, 2, 4, 6])

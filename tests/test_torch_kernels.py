@@ -1,5 +1,6 @@
 """The port's sweep kernels, plain versions on the CPU, against the
-reference's Pallas kernels run in interpret mode (bitwise).
+reference's Pallas kernels run in interpret mode (bitwise), sweep 1 in
+both its plain and its dgc mode.
 
 On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
 themselves are held against these plain versions on the card by
@@ -113,3 +114,63 @@ def test_plain_versions_bound_memory_by_chunks(monkeypatch):
                     tk.sweep1_plain(g, err, c)
                     + tk.sweep2_plain(whole1[1], tau, 40)):
         assert torch.equal(a, b)
+
+
+def test_sweep1_dgc_matches_pallas():
+    """dgc mode (c = 1, momentum 0.9): a, score, mom', amax and hist
+    bitwise. |mom| ~ |g|, so an unfused multiply-add would differ from
+    the compiled kernel's fused one in thousands of elements."""
+    g, err = _inputs(3 * jk.BLOCK, 5)
+    mom = np.random.default_rng(6).standard_normal(g.size).astype(np.float32)
+    a, score, mom_out, amax, hist = jk.sweep1_pallas(
+        jnp.asarray(g), jnp.asarray(err), np.float32(1.0), mode="dgc",
+        momentum=0.9, mom=jnp.asarray(mom), interpret=True)
+    before = tk.sweep1_dgc.launches
+    ta, tscore, tamax, thist, tmom = tk.sweep1(
+        torch.from_numpy(g), torch.from_numpy(err), torch.ones(1),
+        torch.from_numpy(mom), 0.9)
+    assert tk.sweep1_dgc.launches == before      # the CPU runs no kernel
+    assert _same(a, ta) and _same(score, tscore) and _same(mom_out, tmom)
+    assert _same(amax, tamax) and _same(hist, thist)
+
+
+def test_sweep1_dgc_ragged_matches_caller():
+    """dgc mode at a ragged J against the reference's caller
+    ``ops._sweep1_slice``, which pads and corrects bin 0."""
+    j = 2 * jk.BLOCK + 1000
+    g, err = _inputs(j, 7)
+    mom = np.random.default_rng(8).standard_normal(j).astype(np.float32)
+    a, score_p, mom_out, hist = jops._sweep1_slice(
+        "dgc", jnp.asarray(g), jnp.asarray(err), np.float32(1.0),
+        momentum=0.9, mom_s=jnp.asarray(mom), interpret=True)
+    ta, tscore, _, thist, tmom = tk.sweep1_dgc(
+        torch.from_numpy(g), torch.from_numpy(err), torch.from_numpy(mom),
+        torch.ones(1), 0.9)
+    assert _same(a, ta) and _same(np.asarray(score_p)[:j], tscore)
+    assert _same(mom_out, tmom) and _same(hist, thist)
+
+
+def test_fma_f32_rounds_once(monkeypatch):
+    """numerics.fma_f32 is a fused multiply-add: one rounding, also where
+    the fp64 sum lands exactly on an fp32 midpoint (a naive fp64 sum
+    would round twice there), and chunking does not change it."""
+    from repro_torch.core import numerics
+    # p = (1 + 2^-18) * (1 - 2^-18) * 2^-24 = 2^-24 - 2^-60; c = 1 + 2^-23:
+    # p + c lies 2^-60 below the midpoint 1 + 3 * 2^-24, so it rounds
+    # down to c, where a double rounding reaches the midpoint and then
+    # rounds to even, 1 + 2^-22
+    a = torch.tensor([(1 - 2.0 ** -18) * 2.0 ** -24], dtype=torch.float32)
+    b = torch.tensor(1 + 2.0 ** -18, dtype=torch.float32)
+    c = torch.tensor([1 + 2.0 ** -23], dtype=torch.float32)
+    naive = (a.double() * b.double() + c.double()).float()
+    assert naive.item() == 1 + 2.0 ** -22
+    assert numerics.fma_f32(a, b, c).item() == 1 + 2.0 ** -23
+    assert numerics.fma_f32(-a, b, -c).item() == -(1 + 2.0 ** -23)
+    rng = np.random.default_rng(9)
+    x, y = (torch.from_numpy(rng.standard_normal(5000).astype(np.float32))
+            for _ in range(2))
+    whole = numerics.fma_f32(x, 0.9, y)
+    want = jax.jit(lambda m, g: 0.9 * m + g)(x.numpy(), y.numpy())
+    assert _same(want, whole)
+    monkeypatch.setattr(numerics, "_FMA_CHUNK", 777)
+    assert torch.equal(numerics.fma_f32(x, 0.9, y), whole)

@@ -1,5 +1,5 @@
 """The port's reference pipeline against the JAX reference, bitwise:
-``compress`` + ``observe_aggregate`` for topk and REGTOP-k (dense and
+``compress`` + ``observe_aggregate`` for topk, DGC and REGTOP-k (dense and
 O(k) posterior) with the exact, histogram and histogram_kernel
 selectors; the port's reference pipeline against its fused one;
 ``GradientSync`` at a world of 1 (simulate, sparse, and the sparse ->
@@ -91,7 +91,8 @@ def _same_state(jst, tst, ctx, zero_sign=True):
         assert _same(np.asarray(jst[key]), val, signed), (ctx, key)
 
 
-LAYOUTS = [("topk", "dense"), ("regtopk", "dense"), ("regtopk", "sparse")]
+LAYOUTS = [("topk", "dense"), ("regtopk", "dense"), ("regtopk", "sparse"),
+           ("dgc", "dense")]
 SELECTORS = ["exact", "histogram", "histogram_kernel"]
 
 
@@ -158,6 +159,32 @@ def test_reference_and_fused_pipelines_agree():
                                         sparsify.dense_ghat(ofu, J))
 
 
+def test_dgc_reference_and_fused_pipelines_agree():
+    """DGC, exact selector: both pipelines of the port select the same
+    indices, and their error states and momenta agree step after step;
+    the momenta up to the sign of zero (the reference pipeline masks
+    with mom' * (1 - mask), -0.0 where a negative momentum was selected;
+    the fused one scatter-zeroes, +0.0), and both are held bitwise
+    against their own reference counterparts elsewhere."""
+    _, ref = _cfgs(kind="dgc")
+    fused = dataclasses.replace(ref, pipeline="fused")
+    rng = np.random.default_rng(2)
+    sr = sparsify.init_state(ref, J, "cpu")
+    sf = sparsify.init_state(fused, J, "cpu")
+    neg_zeros = 0
+    for t in range(T):
+        g = torch.from_numpy(_gauss(rng, J))
+        orf, ofu = (sparsify.compress(ref, sr, g),
+                    sparsify.compress(fused, sf, g))
+        assert _same(orf.indices.numpy(), ofu.indices), t
+        assert _same(orf.state["err"].numpy(), ofu.state["err_prev"]), t
+        assert _same(orf.state["mom"].numpy(), ofu.state["mom"], False), t
+        neg_zeros += int((orf.state["mom"].view(torch.int32)
+                          == -2 ** 31).sum())
+        sr, sf = orf.state, ofu.state
+    assert neg_zeros > 0
+
+
 def _jax_sync(cfg, st):
     mesh = jax.make_mesh((1,), ("data",))
 
@@ -181,6 +208,8 @@ SYNC_CASES = [
     dict(comm_mode="simulate", pipeline="fused"),
     dict(comm_mode="simulate", kind="sketchtopk"),
     dict(comm_mode="simulate", kind="sketchtopk", pipeline="fused"),
+    dict(comm_mode="simulate", kind="dgc"),
+    dict(comm_mode="sparse", kind="dgc", pipeline="fused"),
 ]
 
 
@@ -215,7 +244,8 @@ def _jax_round(cfg, states, grads):
 
 ROUND_CASES = [dict(), dict(selector="histogram"),
                dict(kind="topk", selector="histogram_kernel"),
-               dict(state_format="sparse"), dict(kind="sketchtopk")]
+               dict(state_format="sparse"), dict(kind="sketchtopk"),
+               dict(kind="dgc", selector="histogram_kernel")]
 
 
 @pytest.mark.parametrize("n,data", [(2, "gauss"), (4, "dyadic")])

@@ -88,7 +88,7 @@ def test_card_path_never_calls_the_plain_version(monkeypatch):
     plain_calls = []
     monkeypatch.setattr(pk, "_on_card", lambda x: True)
     monkeypatch.setattr(pk, "sweep1_plain",
-                        lambda *a: plain_calls.append("sweep1"))
+                        lambda *a, **k: plain_calls.append("sweep1"))
     monkeypatch.setattr(pk, "sweep2_plain",
                         lambda *a: plain_calls.append("sweep2"))
 
@@ -96,25 +96,33 @@ def test_card_path_never_calls_the_plain_version(monkeypatch):
         raise RuntimeError(f"cannot load {name}")
     monkeypatch.setattr(pk, "_lib", no_library)
     x = torch.zeros(4096)
-    before = (pk.sweep1.launches, pk.sweep2.launches)
+    before = (pk.sweep1.launches, pk.sweep1_dgc.launches,
+              pk.sweep2.launches)
     with pytest.raises(RuntimeError, match="cannot load sweep1"):
         pk.sweep1(x, x, torch.ones(1))
+    with pytest.raises(RuntimeError, match="cannot load sweep1"):
+        pk.sweep1(x, x, torch.ones(1), x, 0.9)          # dgc mode
+    with pytest.raises(RuntimeError, match="cannot load sweep1"):
+        pk.sweep1_dgc(x, x, x, torch.ones(1), 0.9)
     with pytest.raises(RuntimeError, match="cannot load sweep2"):
         pk.sweep2(x, torch.ones(1), 32)
     assert plain_calls == []
-    assert (pk.sweep1.launches, pk.sweep2.launches) == before
+    assert (pk.sweep1.launches, pk.sweep1_dgc.launches,
+            pk.sweep2.launches) == before
 
 
 def test_other_devices_raise():
     x = torch.zeros(8, device="meta")
     with pytest.raises(RuntimeError, match="no sweep for device"):
         pk.sweep1(x, x, torch.ones(1, device="meta"))
+    with pytest.raises(RuntimeError, match="no sweep for device"):
+        pk.sweep1_dgc(x, x, x, torch.ones(1, device="meta"), 0.9)
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("selector", "histogram", "A8"), ("num_buckets", 4, "A8"),
     ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
-    ("ef_dtype", "bfloat16", "A8"), ("kind", "dgc", "A8"),
+    ("ef_dtype", "bfloat16", "A8"), ("kind", "thresholdk", "A8"),
     ("comm_mode", "dense", "A5"), ("kind", "none", "A5"),
     ("combine", "support", "A10"), ("wire_dtype", "bfloat16", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
@@ -142,9 +150,20 @@ def test_models_outside_the_slice_raise(field, value, item):
 
 
 def test_optimizers_outside_the_slice_raise():
-    from repro_torch.optim import init_opt_state
+    """An unknown kind raises ValueError, as the reference's does; an
+    unsharded optimizer (zero1=False) is not served and names A7."""
+    from repro_torch.optim import apply_updates, init_opt_state
+    for kind in ("sgd", "momentum", "adam", "adamw"):
+        init_opt_state(cfgs.OptimizerConfig(kind=kind), torch.zeros(4))
+    bad = cfgs.OptimizerConfig(kind="lamb")
+    with pytest.raises(ValueError, match="lamb"):
+        init_opt_state(bad, torch.zeros(4))
+    with pytest.raises(ValueError, match="lamb"):
+        apply_updates(bad, {"master": torch.zeros(4),
+                            "step": torch.zeros((), dtype=torch.int32)},
+                      torch.zeros(4))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        init_opt_state(cfgs.OptimizerConfig(kind="sgd"), torch.zeros(4))
+        init_opt_state(cfgs.OptimizerConfig(zero1=False), torch.zeros(4))
 
 
 def test_sketch_card_path_never_calls_the_plain_version(monkeypatch):

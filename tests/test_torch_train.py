@@ -1,8 +1,9 @@
 """The port's data-parallel training step against the reference's
 ``build_train_step`` on a 1x1 mesh: reduced StableLM-3B, REGTOP-k fused
-sparse sync, sketchtopk, and the reference launcher's default config
-(REGTOP-k on the reference pipeline, dense posterior, simulate comm),
-Adam, one fixed numpy batch, the same initial weights."""
+sparse sync, sketchtopk, DGC on both pipelines, and the reference
+launcher's default config (REGTOP-k on the reference pipeline, dense
+posterior, simulate comm), Adam (and clipped sgd with a warmup-cosine
+rate), one fixed numpy batch, the same initial weights."""
 import numpy as np
 import pytest
 
@@ -34,15 +35,16 @@ PARAM_ATOL = 1e-5
 
 
 def _run_cfgs(mod, sparsity=0.01, mu=0.5, kind="regtopk",
-              comm_mode="sparse", pipeline="fused"):
+              comm_mode="sparse", pipeline="fused", optimizer=None):
     cfg = mod.reduced_config(mod.get_config("stablelm-3b"))
     return mod.RunConfig(
         model=cfg, shape=mod.SHAPES["train_4k"],
         sparsifier=mod.SparsifierConfig(kind=kind, sparsity=sparsity,
                                         mu=mu, comm_mode=comm_mode,
                                         pipeline=pipeline),
-        optimizer=mod.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
-        steps=STEPS)
+        optimizer=mod.OptimizerConfig(**(optimizer or dict(kind="adam",
+                                                           lr=1e-3))),
+        seed=0, steps=STEPS)
 
 
 def _batch():
@@ -94,7 +96,7 @@ def test_three_sketch_steps_match_reference():
     together with the entries whose a is exactly zero (embedding rows of
     tokens not in the batch), which the two models share; the count of
     nonzero g_agg entries is compared as well."""
-    _sketch_steps_match_reference(dict(kind="sketchtopk"), "err_prev")
+    _steps_match_reference(dict(kind="sketchtopk"), "err_prev")
 
 
 def test_three_sketch_reference_steps_match_reference():
@@ -105,7 +107,7 @@ def test_three_sketch_reference_steps_match_reference():
     count of nonzero g_agg entries."""
     kw = dict(kind="sketchtopk", comm_mode="simulate", pipeline="reference")
     assert _run_cfgs(tbase, **kw).sparsifier.selector == "exact"
-    _sketch_steps_match_reference(kw, "err")
+    _steps_match_reference(kw, "err")
 
 
 def test_reference_sketch_encode_passes_the_sync_tables(monkeypatch):
@@ -134,7 +136,34 @@ def test_reference_sketch_encode_passes_the_sync_tables(monkeypatch):
     assert torch.equal(sk, encode(a, cfg.sketch_rows, sk.shape[1]))
 
 
-def _sketch_steps_match_reference(kw: dict, key: str):
+@pytest.mark.parametrize("pipeline,comm_mode", [("fused", "sparse"),
+                                                ("reference", "simulate")])
+def test_three_dgc_steps_match_reference(pipeline, comm_mode):
+    """kind="dgc" (momentum 0.9) through both train steps, on the fused
+    pipeline with sparse comm (kernels B1 in its dgc mode and B2) and on
+    the reference pipeline with the launchers' other defaults (the apply
+    kernel B6); the selection compared through the zero set of the error
+    state, the momentum through its own zero set, which is the same
+    support with the entries whose momentum is exactly zero."""
+    kw = dict(kind="dgc", comm_mode=comm_mode, pipeline=pipeline)
+    key = "err_prev" if pipeline == "fused" else "err"
+    _steps_match_reference(kw, key, ("mom",))
+
+
+def test_three_clipped_sgd_steps_match_reference():
+    """The train step hands the optimizer the global norm of g_agg when
+    ``grad_clip`` is set, as the reference's step does: sgd with a clip
+    that acts (the norm is well above 1e-3) and a warmup-cosine rate, on
+    the main path (REGTOP-k, fused, sparse comm)."""
+    opt = dict(kind="sgd", lr=0.5, grad_clip=1e-3, warmup_steps=2,
+               schedule="cosine", total_steps=4)
+    _steps_match_reference(dict(optimizer=opt), "err_prev")
+
+
+def _steps_match_reference(kw: dict, key: str, zero_sets=()):
+    """STEPS train steps of both packages on the config ``kw``: the loss,
+    the zero set of the state vector ``key`` (and of ``zero_sets``), the
+    count of nonzero g_agg entries and the final params."""
     jrun = _run_cfgs(jbase, **kw)
     trun = _run_cfgs(tbase, **kw)
     tokens, targets = _batch()
@@ -160,9 +189,10 @@ def _sketch_steps_match_reference(kw: dict, key: str):
             np.testing.assert_allclose(float(tmetrics["loss"]),
                                        float(metrics["loss"]),
                                        rtol=LOSS_RTOL)
-            want = np.asarray(ef[key]).reshape(-1) == 0
-            got = tstate.ef[key].numpy() == 0
-            assert np.array_equal(want, got), t
+            for name in (key,) + tuple(zero_sets):
+                want = np.asarray(ef[name]).reshape(-1) == 0
+                got = tstate.ef[name].numpy() == 0
+                assert np.array_equal(want, got), (t, name)
             j = got.size
             assert round(float(tmetrics["agg_nonzero"]) * j) == \
                 round(float(metrics["agg_nonzero"]) * j), t
@@ -187,6 +217,26 @@ def test_sketch_launcher_overfit_loss_falls():
     assert losses[-1] < losses[0] - 1.0, losses
     assert main(argv[:-6] + ["--steps", "1", "--batch", "2", "--seq",
                              "16"]) == 0
+
+
+def test_dgc_launcher_overfit_loss_falls():
+    """``--sparsifier dgc`` at the launcher's other defaults (reference
+    pipeline, simulate comm) and on the fused pipeline with sparse comm;
+    ``--optimizer sgd`` runs too."""
+    from repro_torch.launch.train import main, parse_args, run_config
+    argv = ["--arch", "stablelm-3b", "--smoke", "--sparsifier", "dgc",
+            "--device", "cpu", "--fixed-batch", "--steps", "30",
+            "--batch", "4", "--seq", "32"]
+    for extra in ([], ["--comm", "sparse", "--pipeline", "fused"]):
+        run = run_config(parse_args(argv + extra))
+        assert (run.sparsifier.kind, run.sparsifier.momentum) == ("dgc", 0.9)
+        out = train(run, device="cpu", batch=4, seq=32, fixed_batch=True,
+                    log=lambda msg: None)
+        losses = [rec["loss"] for rec in out["history"]]
+        assert all(np.isfinite(losses))
+        assert losses[-1] < losses[0] - 1.0, (extra, losses)
+    assert main(argv[:-6] + ["--optimizer", "sgd", "--steps", "2",
+                             "--batch", "2", "--seq", "16"]) == 0
 
 
 def test_fixed_batch_overfit_loss_falls():
