@@ -260,7 +260,8 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
         _release(state, donate, "err")
         idx_p = bigvec.as_index(state["idx_prev"])
         a_sel = a[idx_p]
-        delta = ((state["g_prev_sel"] - omega * state["a_prev_sel"])
+        # g_prev - omega * a_prev: one fused multiply-add, as compiled
+        delta = (fma_f32(state["a_prev_sel"], -omega, state["g_prev_sel"])
                  / safe_denom(omega * a_sel))
         reg_sel = tanh_f32((1.0 + delta).abs() * recip_f32(cfg.mu))
         score = a * regularizer_factor(cfg.Q, cfg.mu)

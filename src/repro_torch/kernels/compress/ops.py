@@ -32,8 +32,9 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import bigvec
-from repro_torch.core.numerics import (recip_f32, regularizer_factor,
-                                       safe_denom, tanh_f32)
+from repro_torch.core.numerics import (fma_f32, recip_f32,
+                                       regularizer_factor, safe_denom,
+                                       tanh_f32)
 from repro_torch.core.select import topk_positions
 from repro_torch.kernels.compress import kernel as pk
 
@@ -62,7 +63,9 @@ def posterior_keys(a_sel, a_prev_sel, g_prev_sel, step, *, omega: float,
     """|score| of the support entries (Algorithm 1 line 5, O(k)); -inf at
     step 0, when there is no support yet."""
     safe = safe_denom(omega * a_sel)
-    delta = (g_prev_sel - omega * a_prev_sel) / safe
+    # g_prev - omega * a_prev is one fused multiply-add in the compiled
+    # reference (exact product, one rounding)
+    delta = fma_f32(a_prev_sel, -omega, g_prev_sel) / safe
     skey = (a_sel * tanh_f32((1.0 + delta).abs() * recip_f32(mu))).abs()
     return torch.where(step == 0, torch.full_like(skey, float("-inf")), skey)
 

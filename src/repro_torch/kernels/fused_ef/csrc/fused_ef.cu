@@ -19,14 +19,15 @@
 // persistent grid-stride loop walks float4 groups (16-byte loads and
 // stores, streamed past L1 with __ldcs/__stcs) and a scalar loop takes the
 // ragged tail, so any J is served without padding. The result must equal
-// the reference's compiled program bit for bit, so nothing may be
-// contracted: every add, multiply and the division are the _rn intrinsics
-// (nvcc would otherwise fuse a*b + c into an FMA), the division is IEEE
-// (__fdiv_rn), and 1/mu arrives as the fp32 reciprocal the compiled
-// reference multiplies by. tanh is XLA's fp32 approximation (the clamped
-// 13/6 rational polynomial) whose multiply-adds ARE fused there, so it
-// uses __fmaf_rn; the plain PyTorch version emulates each of those with
-// one fp64 multiply-add rounded to fp32 (see repro_torch.core.numerics).
+// the reference's compiled program bit for bit, so nothing is contracted
+// that the compiled program keeps apart: every add, multiply and the
+// division are the _rn intrinsics (nvcc would otherwise fuse a*b + c into
+// an FMA), the division is IEEE (__fdiv_rn), and 1/mu arrives as the fp32
+// reciprocal the compiled reference multiplies by. Where the compiled
+// program does fuse, so does the kernel, with __fmaf_rn: g_agg - omega *
+// a_prev (the factor fp32(-omega)), and the multiply-adds of XLA's fp32
+// tanh (the clamped 13/6 rational polynomial); the plain PyTorch version
+// forms them in fp64 products (see repro_torch.core.numerics).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -82,7 +83,8 @@ __device__ __forceinline__ float score_one(float g, float e, float ap,
                                            const Scalars& c, float* a_out) {
   const float a = __fadd_rn(e, g);
   const float safe = safe_denom(__fmul_rn(c.omega, a));
-  const float sent = __fdiv_rn(__fsub_rn(ga, __fmul_rn(c.omega, ap)), safe);
+  // ga - omega * ap is one fused multiply-add in the compiled reference
+  const float sent = __fdiv_rn(__fmaf_rn(-c.omega, ap, ga), safe);
   const float delta = __fadd_rn(__fmul_rn(sp, sent),
                                 __fmul_rn(c.q, __fsub_rn(1.0f, sp)));
   const float reg = tanh_xla(__fmul_rn(fabsf(__fadd_rn(1.0f, delta)), c.rmu));

@@ -20,7 +20,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.numerics import f32, recip_f32, safe_denom, tanh_f32
+from repro_torch.core.numerics import (f32, fma_f32, recip_f32, safe_denom,
+                                       tanh_f32)
 from repro_torch.kernels.common import (aligned, check_launch, check_vec,
                                         grid, lib, on_card, same_device,
                                         stream)
@@ -42,7 +43,9 @@ def scores_plain(g, err, a_prev, g_agg, s_prev, *, omega: float, mu: float,
     score = torch.empty_like(g)
     for lo, hi in _chunks(g.numel()):
         ac = err[lo:hi] + g[lo:hi]
-        sent = (g_agg[lo:hi] - omega * a_prev[lo:hi]) / safe_denom(omega * ac)
+        # g_agg - omega * a_prev: one fused multiply-add, as compiled
+        sent = (fma_f32(a_prev[lo:hi], -omega, g_agg[lo:hi])
+                / safe_denom(omega * ac))
         sp = s_prev[lo:hi]
         delta = sp * sent + Q * (1.0 - sp)
         reg = tanh_f32((1.0 + delta).abs() * recip_f32(mu))

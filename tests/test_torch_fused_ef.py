@@ -50,9 +50,11 @@ def _inputs(seed, j=J):
 
 @pytest.mark.parametrize("mu", [0.1, 0.3, 0.5])
 @pytest.mark.parametrize("Q", [0.0, 0.3])
-@pytest.mark.parametrize("omega", [1.0, 0.25, 0.125])
+@pytest.mark.parametrize("omega", [1.0, 0.25, 0.125, 1 / 3, 0.1])
 def test_scores_match_pallas(mu, Q, omega):
-    ins = _inputs(int(mu * 10) + int(Q * 10) * 7 + int(1 / omega))
+    """omega = 1/3 and 0.1 (worlds of 3 and 10) make omega * a_prev
+    inexact: the compiled reference rounds g_agg - omega * a_prev once."""
+    ins = _inputs(int(mu * 10) + int(Q * 10) * 7 + round(1 / omega))
     want_a, want_s = jax.jit(lambda *xs: jops.fused_regtopk_scores(
         *xs, omega=omega, mu=mu, Q=Q))(*(jnp.asarray(x) for x in ins))
     got_a, got_s = tops.fused_regtopk_scores(

@@ -137,6 +137,53 @@ def test_compress_matches_reference(kind, fmt, selector):
             sparsify.resolve_k(tcfg, J)
 
 
+
+@pytest.mark.parametrize("omega", [1 / 3, 0.1])
+def test_sparse_posterior_tie_at_omega_not_dyadic(omega):
+    """The O(k) layout (``_compress_regtopk_sparse``) at omega = 1/3 and
+    0.1, where omega * a_prev is inexact: the compiled reference rounds
+    g_prev - omega * a_prev once (a fused multiply-add). The state is
+    built so that every support entry's g_prev - omega * a_prev is the
+    same fp32 value d when rounded once, but not always when the product
+    is rounded first: the k support keys then tie exactly, and the top-k
+    takes the lower half of them by index after the k/2 large off-support
+    entries. A posterior rounded twice breaks the tie differently."""
+    jcfg, tcfg = _cfgs(state_format="sparse", mu=5.0, Q=0.3)
+    k = sparsify.resolve_k(tcfg, J)
+    rng = np.random.default_rng(round(1 / omega))
+    w = np.float32(omega)
+    d = np.float32(1.5) * w                # delta = d / (omega * 1) ~ 1.5
+    if not d.view(np.int32) & 1:
+        # odd, so that a rounding tie of the two-step form leaves d
+        d = np.nextafter(d, np.float32(1.0))
+    idx = np.sort(rng.choice(J, k + k // 2, replace=False))
+    support, big = idx[:k], idx[k:]
+    g = _gauss(rng, J, scale=1e-3)
+    g[support], g[big] = 1.0, 100.0
+    a_prev = rng.uniform(0.1, 0.9, k).astype(np.float32)
+    # g_prev = d + w * a_prev rounded to d's grid (one binade): rounded
+    # once, g_prev - w * a_prev is d; rounded twice it leaves d where
+    # w * a_prev rounds onto a midpoint of that grid
+    g_prev = (d.astype(np.float64) + np.float64(w) * a_prev).astype(
+        np.float32)
+    twice = g_prev - (w * a_prev)           # rounded twice, in fp32
+    assert np.all(np.float32(g_prev.astype(np.float64)
+                             - np.float64(w) * a_prev) == d)
+    assert np.any(twice != d)
+    host = dict(jax.device_get(jsp.init_state(jcfg, J)),
+                step=np.int32(1), idx_prev=support.astype(np.uint32),
+                a_prev_sel=a_prev, g_prev_sel=g_prev)
+    vals, inds, new = jax.jit(lambda st, gg: (lambda o: (
+        o.values, o.indices, o.state))(jsp.compress(jcfg, st, gg,
+                                                    omega=omega)))(
+        host, jnp.asarray(g))
+    out = sparsify.compress(tcfg, state_from_jax(host), torch.from_numpy(g),
+                            omega=omega)
+    assert np.array_equal(np.sort(np.asarray(inds)), np.sort(np.concatenate(
+        [big, support[:k - k // 2]]))), "the exact tie-break"
+    assert _same(inds, out.indices) and _same(vals, out.values)
+    _same_state(jax.device_get(new), out.state, "step 1")
+
 def test_reference_and_fused_pipelines_agree():
     """REGTOP-k, exact selector: the port's reference pipeline (dense
     posterior, kernels B5/B6) and its fused pipeline (sweeps B1/B2)
