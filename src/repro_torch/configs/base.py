@@ -73,7 +73,8 @@ class SparsifierConfig:
     pipeline with the exact, histogram and histogram_kernel selectors,
     and REGTOP-k with either ``state_format``) and kind="sketchtopk" on
     both with the exact selector; all with global allocation, one
-    bucket, fp32 EF, the mean combine and sparse or simulate comm. The
+    bucket, fp32 EF and sparse or simulate comm; elastic participation
+    (``combine``, ``err_decay``) on every kind but sketchtopk. The
     fields past ``momentum`` exist to select among the reference's paths
     and raise for any other value."""
     kind: str = "regtopk"
@@ -91,9 +92,9 @@ class SparsifierConfig:
     state_format: str = "dense"   # dense | sparse (reference-pipeline
                                   # REGTOP-k; the fused pipeline ignores it)
     num_buckets: int = 1
-    combine: str = "mean"
+    combine: str = "mean"         # elastic combine: mean | support
     overlap: str = "none"
-    err_decay: float = 1.0        # EF decay of a sitting-out worker (A10)
+    err_decay: float = 1.0        # EF decay of a sitting-out worker
     # sketchtopk: CountSketch-coordinated global TOP-k
     sketch_rows: int = 3
     sketch_width: int = 0         # 0 -> min(max(4k, 256), 2^22)
@@ -126,6 +127,7 @@ class RunConfig:
     seed: int = 0
     steps: int = 100
     log_every: int = 10
+    fault_schedule: str = ""      # core.faults spec; "" = every worker in
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -43,14 +43,38 @@ def scatter_set_(a: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     return a.index_fill_(0, idx, vals)
 
 
+def live_idx(idx: torch.Tensor, live, j: int) -> torch.Tensor:
+    """int64 indices with the non-live slots of ``idx`` routed out of
+    range, to the sentinel ``j`` (the reference's ``live_idx``). A
+    scatter into a (j + 1,) buffer then drops them into its last
+    element, which the caller cuts off (``[:j]``): no host read of
+    ``live``."""
+    return torch.where(live, as_index(idx), j)
+
+
+def scatter_set_live_(a: torch.Tensor, idx: torch.Tensor, live,
+                      val: float) -> torch.Tensor:
+    """In place ``a[idx] = val`` at the live slots of distinct indices
+    ``idx``; a non-live slot writes back the value that is there, so for
+    distinct indices this is the reference's scatter through
+    ``live_idx`` with ``mode="drop"``, on a buffer of exactly J and with
+    no host read of ``live``."""
+    idx = as_index(idx)
+    return a.index_put_((idx,), torch.where(live, val, a[idx]))
+
+
 def scatter_add_(a: torch.Tensor, idx: torch.Tensor,
                  vals: torch.Tensor) -> torch.Tensor:
     """In place ``a[idx] += vals``."""
     return a.index_add_(0, as_index(idx), vals)
 
 
-def mask_from_indices(j: int, idx: torch.Tensor,
-                      dtype=torch.float32) -> torch.Tensor:
-    """(j,) 0/1 mask with ones at idx, on idx's device."""
-    mask = torch.zeros(j, dtype=dtype, device=idx.device)
-    return mask.index_fill_(0, as_index(idx), 1)
+def mask_from_indices(j: int, idx: torch.Tensor, dtype=torch.float32,
+                      live=None) -> torch.Tensor:
+    """(j,) 0/1 mask with ones at idx, on idx's device; with ``live``
+    (bool, idx's shape or 0-d) only at the live slots."""
+    if live is None:
+        mask = torch.zeros(j, dtype=dtype, device=idx.device)
+        return mask.index_fill_(0, as_index(idx), 1)
+    mask = torch.zeros(j + 1, dtype=dtype, device=idx.device)
+    return mask.index_fill_(0, live_idx(idx, live, j), 1)[:j]

@@ -34,8 +34,15 @@ def topk_positions(keys: torch.Tensor, k: int) -> torch.Tensor:
     stable descending sort of those k keys keeps ties in position order
     (equal keys are either all above the k-th or all equal to it, and
     each group is already ascending). Memory stays O(J) booleans + O(k),
-    so it also serves the dense exact fallback at full J."""
+    so it also serves the dense exact fallback at full J.
+
+    fp32 keys are ranked by their bit patterns: for the keys the port
+    ranks (|x| >= 0, NaN from |x|, and -inf for a disabled slot) that is
+    the order of the values, with NaN above +inf as ``lax.top_k`` ranks
+    it (a float comparison would drop NaN from the selection)."""
     k = int(min(k, keys.numel()))
+    if keys.dtype == torch.float32:
+        keys = keys.view(torch.int32)
     kth = torch.topk(keys, k, sorted=False).values.min()
     above = torch.nonzero(keys > kth).squeeze(1)
     ties = torch.nonzero(keys == kth).squeeze(1)[: k - above.numel()]

@@ -42,6 +42,15 @@ with an O(k) scatter-zero on the fused one, as in the reference: a
 selected negative momentum becomes -0.0 on the first and +0.0 on the
 second.
 
+Elastic participation (``participate``, a 0-d bool tensor: does this
+worker take part in the step's sync?) applies on both pipelines: the
+inputs are masked (g_eff = where(p, g, 0), err_eff = where(p, err,
+err_decay * err); the fused pipeline does it inside sweep 1), a
+sitting-out worker's payload is inert (mask 0, values 0, indices 0,
+``count`` 0), its error decays in place, DGC's momentum still advances
+to momentum * mom, and REGTOP-k's posterior keeps the t-1 quantities of
+its last participating step.
+
 kind="sketchtopk" selects at the aggregate level
 (``core.aggregate.GradientSync``), so ``compress`` raises for it; its
 state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
@@ -75,6 +84,9 @@ class CompressOut:
                                           # pipeline; None when fused)
     mask: Optional[torch.Tensor] = None   # dense (J,) 0/1 selection mask
                                           # (reference pipeline)
+    count: Optional[torch.Tensor] = None  # 0-d int32 live packed slots
+                                          # (k, or 0 for a sitting-out
+                                          # worker); None: all k live
 
 
 # (field, values the port serves, ROADMAP item that ports the rest)
@@ -172,26 +184,40 @@ def _release(state: dict, donate: bool, *keys) -> None:
 
 
 def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-             omega: float = 1.0, *, donate: bool = False) -> CompressOut:
+             omega: float = 1.0, *, donate: bool = False,
+             participate=None) -> CompressOut:
     """Sparsify one worker's flat fp32 gradient; omega = its weight w_n.
     The new state holds new buffers (the reference pipeline's a becomes
     a_prev as it is). ``state`` is only read, unless ``donate``: then the
     reference pipeline removes the J-vectors it has consumed from the
     dict as soon as it has read them, and the caller must not use the
-    old state again."""
+    old state again. ``participate`` is the worker's elastic
+    participation bit (a 0-d bool tensor on g's device; None: always in,
+    the bits of the non-elastic path, as is a true bit)."""
     if selection(cfg) == "sketch":
         raise RuntimeError("sketchtopk selection is aggregate-level; run "
                            "it through aggregate.GradientSync (call or "
                            "round)")
     k = resolve_k(cfg, g.numel())
     g = g.float()
+    p = None if participate is None else participate.reshape(())
     if cfg.pipeline == "fused":
-        return _compress_fused(cfg, state, g, k, omega)
+        return _compress_fused(cfg, state, g, k, omega, p)
+    if p is not None:
+        # the fused pipeline's masked inputs, so that both pipelines'
+        # states stay bit-comparable under any mask
+        from repro_torch.kernels.compress.kernel import masked_inputs
+        g, err = masked_inputs(g, state["err"], p, cfg.err_decay)
+        if not donate:
+            state = dict(state)
+        state["err"] = err              # a donated old err is freed here
+        del err
     if cfg.kind == "dgc":
-        return _compress_dgc(cfg, state, g, k, donate)
+        return _compress_dgc(cfg, state, g, k, donate, p)
     if cfg.kind == "regtopk" and not _dense_posterior(cfg):
-        return _compress_regtopk_sparse(cfg, state, g, k, omega, donate)
+        return _compress_regtopk_sparse(cfg, state, g, k, omega, donate, p)
     new = {"step": state["step"] + 1}
+    frozen = {}
     with record_function("compress/scores"):
         if cfg.kind == "topk":
             a = state["err"] + g
@@ -204,15 +230,41 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
             # reg < 1 can round distinct values of a into ties.
             torch.where(state["step"] == 0, a, score, out=score)
             new.update(a_prev=a, g_agg_prev=state["g_agg_prev"])
+            if p is not None:
+                # the posterior freeze below reads them
+                frozen = {key: state[key] for key in ("a_prev", "s_prev")}
         _release(state, donate, "err", "a_prev", "s_prev")
     with record_function("compress/select"):
         mask, values, indices = _reference_select(cfg, a, score, k)
     del score
+    mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
         ghat, new["err"] = fef.fused_apply_mask(a, mask)
     if cfg.kind == "regtopk":
         new["s_prev"] = mask
-    return CompressOut(new, values, indices, ghat=ghat, mask=mask)
+        if frozen:
+            # a sitting-out worker neither sent nor observed: Algorithm
+            # 1's t-1 quantities stay those of its last participating step
+            new["a_prev"] = torch.where(p, a, frozen["a_prev"])
+            new["s_prev"] = torch.where(p, mask, frozen["s_prev"])
+    return CompressOut(new, values, indices, ghat=ghat, mask=mask,
+                       count=count)
+
+
+def _mask_elastic(p, mask, values, indices, k: int):
+    """The reference pipeline's payload masking: a sitting-out worker's
+    dense mask and packed pairs come back inert (mask 0, values 0,
+    indices 0, count 0); p None passes everything through with count
+    None (all k slots live)."""
+    if p is None:
+        return mask, values, indices, None
+    mask = torch.where(p, mask, 0.0)
+    count = torch.where(p, torch.full((), k, dtype=torch.int32,
+                                      device=mask.device), 0)
+    if values is not None:
+        values = torch.where(p, values, 0.0)
+        indices = torch.where(p, indices, 0)
+    return mask, values, indices, count
 
 
 def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
@@ -227,29 +279,31 @@ def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
 
 
 def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                  k: int, donate: bool) -> CompressOut:
+                  k: int, donate: bool, p=None) -> CompressOut:
     """DGC on the reference pipeline: the momentum update and a = err +
     mom' in plain tensor ops, the selector over a, ghat and err through
-    the apply kernel, and the momentum masked as mom' * (1 - mask)."""
+    the apply kernel, and the momentum masked as mom' * (1 - mask). A
+    sitting-out worker's a leaves mom' out (the elastic gate)."""
     with record_function("compress/scores"):
         # mom' = momentum * mom + g, one rounding as the compiled
         # reference contracts it into a fused multiply-add
         mom = fma_f32(state["mom"], cfg.momentum, g)
-        a = state["err"] + mom
+        a = state["err"] + (mom if p is None else torch.where(p, mom, 0.0))
         _release(state, donate, "err", "mom")
     with record_function("compress/select"):
         mask, values, indices = _reference_select(cfg, a, a, k)
+    mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
         ghat, err = fef.fused_apply_mask(a, mask)
         del a
         mom.mul_(1.0 - mask)             # in place on mom', a new buffer
     return CompressOut({"err": err, "mom": mom, "step": state["step"] + 1},
-                       values, indices, ghat=ghat, mask=mask)
+                       values, indices, ghat=ghat, mask=mask, count=count)
 
 
 def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
                              g: torch.Tensor, k: int, omega: float,
-                             donate: bool) -> CompressOut:
+                             donate: bool, p=None) -> CompressOut:
     """REGTOP-k with the O(k) posterior (state_format="sparse"): Delta
     is read at the support of s^{t-1} only, Q everywhere else. Plain
     tensor ops, exact top-k whatever the selector (as the reference).
@@ -272,23 +326,35 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
     del score
     values = a[idx]
     indices = bigvec.to_u32_bits(idx)
-    new = {"err": bigvec.scatter_set_(a, idx, 0.0),   # in place on a
-           "idx_prev": indices, "a_prev_sel": values,
+    new = {"idx_prev": indices, "a_prev_sel": values,
            "g_prev_sel": state["g_prev_sel"],         # observe_aggregate
            "step": state["step"] + 1}
-    return CompressOut(new, values, indices)
+    if p is None:
+        new["err"] = bigvec.scatter_set_(a, idx, 0.0)   # in place on a
+        return CompressOut(new, values, indices)
+    # a sitting-out worker: no scatter-zero (err keeps the decayed a), the
+    # O(k) posterior frozen, an inert payload
+    new["err"] = bigvec.scatter_set_live_(a, idx, p, 0.0)
+    new["idx_prev"] = torch.where(p, indices, state["idx_prev"])
+    new["a_prev_sel"] = torch.where(p, values, state["a_prev_sel"])
+    count = torch.where(p, torch.full((), k, dtype=torch.int32,
+                                      device=a.device), 0)
+    return CompressOut(new, torch.where(p, values, 0.0),
+                       torch.where(p, indices, 0), count=count)
 
 
 def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                    k: int, omega: float) -> CompressOut:
+                    k: int, omega: float, p=None) -> CompressOut:
     from repro_torch.kernels.compress import ops
     kwargs = {}
+    if p is not None:
+        kwargs = dict(participate=p, err_decay=cfg.err_decay)
     if cfg.kind == "regtopk":
-        kwargs = dict(idx_prev=state["idx_prev"],
+        kwargs.update(idx_prev=state["idx_prev"],
                       a_prev_sel=state["a_prev_sel"],
                       g_prev_sel=state["g_prev_sel"])
     if cfg.kind == "dgc":
-        kwargs = dict(mom=state["mom"], momentum=cfg.momentum)
+        kwargs.update(mom=state["mom"], momentum=cfg.momentum)
     out = ops.fused_compress_arrays(
         cfg.kind, g, state["err_prev"], state["step"], k=k,
         omega=omega, mu=cfg.mu, Q=cfg.Q, **kwargs)
@@ -299,28 +365,45 @@ def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         new["idx_prev"] = out["indices"]
         new["a_prev_sel"] = out["values"]
         new["g_prev_sel"] = torch.zeros_like(state["g_prev_sel"])
-    return CompressOut(new, out["values"], out["indices"], out["fallback"])
+        if p is not None:
+            # posterior freeze (O(k) selects): a sitting-out worker's t-1
+            # support and values stay those of its last participating
+            # step; observe_aggregate freezes g_prev_sel alike
+            for key in ("idx_prev", "a_prev_sel", "g_prev_sel"):
+                new[key] = torch.where(p, new[key], state[key])
+    return CompressOut(new, out["values"], out["indices"], out["fallback"],
+                       count=None if p is None else out["count"])
 
 
 def observe_aggregate(cfg: SparsifierConfig, state: dict,
-                      g_agg: torch.Tensor) -> dict:
+                      g_agg: torch.Tensor, participate=None) -> dict:
     """Store the aggregated gradient REGTOP-k's posterior reads: g_agg
     itself on the dense layout (no copy; the caller must not write into
     it), its O(k) gather at the support otherwise. A no-op for the other
-    kinds. g_agg must be rank-identical (both combines guarantee it)."""
+    kinds. g_agg must be rank-identical (both combines guarantee it).
+    A sitting-out worker (``participate`` false) observed nothing: its
+    posterior keeps the g^{t-1} of its last participating step."""
     if cfg.kind != "regtopk":
         return state
-    if _dense_posterior(cfg):
-        return dict(state, g_agg_prev=g_agg)
-    return dict(state, g_prev_sel=bigvec.gather(g_agg, state["idx_prev"]))
+    key = "g_agg_prev" if _dense_posterior(cfg) else "g_prev_sel"
+    obs = g_agg if key == "g_agg_prev" else bigvec.gather(
+        g_agg, state["idx_prev"])
+    if participate is not None:
+        obs = torch.where(participate.reshape(()), obs, state[key])
+    return dict(state, **{key: obs})
 
 
 def dense_mask(out: CompressOut, j: int) -> torch.Tensor:
     """Dense 0/1 fp32 selection mask: the reference pipeline's own, or
-    rebuilt from the packed indices by an O(k) scatter."""
+    rebuilt from the packed indices by an O(k) scatter (only the
+    ``count`` live slots, where a count is given)."""
     if out.mask is not None:
         return out.mask
-    return bigvec.mask_from_indices(j, out.indices, torch.float32)
+    live = None
+    if out.count is not None:
+        live = torch.arange(out.indices.numel(),
+                            device=out.indices.device) < out.count
+    return bigvec.mask_from_indices(j, out.indices, torch.float32, live)
 
 
 def dense_ghat(out: CompressOut, j: int) -> torch.Tensor:

@@ -1,20 +1,29 @@
 // Sweep 1 of the fused compression pipeline, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/compress/kernel.py::_sweep1_kernel
-// (launcher sweep1_pallas) in its two ungated modes. Plain mode, for every
-// element:
+// (launcher sweep1_pallas) in its modes. Plain mode, for every element:
 //   a = err + g,   score = a * c;
 // dgc mode (Deep Gradient Compression's momentum correction) threads a third
 // stream, the momentum buffer:
 //   mom' = momentum * mom + g,   a = err + mom',   score = a * c;
 // both emit the per-4096-element-tile amax of |score| and a 2048-bin
 // histogram of the fp32 bit pattern of |score| (bits >> 20).
+// The gated variant (elastic participation; the Pallas kernel's gate=
+// operand) reads the worker's participation bit p and the error-feedback
+// decay, and masks the inputs in registers first:
+//   g_eff = p ? g : 0,   err_eff = p ? err : decay * err,
+// then plain mode a = err_eff + g_eff, or dgc mode
+//   mom' = momentum * mom + g_eff,   a = err_eff + (p ? mom' : 0),
+// so a sitting-out worker's a is its decayed error while its momentum
+// still advances. Masking in registers adds no pass over J and no
+// temporary; the add runs when p is 0 too (-0.0 + 0.0 is +0.0, as in the
+// reference).
 //
 // Bound: device-memory bytes. Plain mode reads g and err and writes a and
 // score, 16 B per element (14.27 GB at J = 892,032,000, about 4.3 ms at the
 // H100 SXM's 3.35 TB/s); dgc mode also reads mom and writes mom', 24 B per
-// element (21.41 GB, about 6.4 ms). The histogram and the amax add only
-// J/4096 * 4 B.
+// element (21.41 GB, about 6.4 ms); the gated variant moves the same bytes
+// as its mode. The histogram and the amax add only J/4096 * 4 B.
 //
 // Design. The TPU grid runs in order and carries the histogram from one grid
 // step to the next; Hopper runs blocks in parallel, so this is a persistent
@@ -28,11 +37,15 @@
 // is rounded where the compiled reference rounds it: a and score are
 // single-rounding __fadd_rn / __fmul_rn (nothing contracted), and mom' is
 // one __fmaf_rn, since XLA contracts momentum * mom + g into a fused
-// multiply-add. That keeps a, score, mom', amax and hist bitwise equal to
-// the plain version and to the Pallas kernel. One body serves both modes through a
-// compile-time switch. c arrives as a pointer to a 1-element device
-// tensor, so the step's factor never forces a host read; momentum is a
-// by-value fp32 (the reference's weak-typed constant rounds to fp32 too).
+// multiply-add. In the gated variant decay * err is its own __fmul_rn: the
+// reference rounds it before the add, because a select stands between the
+// two. That keeps a, score, mom', amax and hist bitwise equal to the plain
+// version and to the Pallas kernel. One body serves every mode through
+// compile-time switches, so the ungated kernels are what they were. c and
+// the gate arrive as pointers to 1-element device tensors, so neither the
+// step's factor nor the fault schedule forces a host read; momentum and
+// decay are by-value fp32 (the reference's weak-typed constants round to
+// fp32 too).
 #include "compress_common.cuh"
 
 namespace compress {
@@ -60,19 +73,37 @@ __device__ __forceinline__ float advance(float momentum, float m, float g) {
   return __fmaf_rn(momentum, m, g);
 }
 
-template <bool VEC, bool DGC>
+// the gated variant's input masking: g_eff = p ? g : 0 and err_eff = p ?
+// err : decay * err (one rounding), in place
+__device__ __forceinline__ void mask_inputs(bool p, float decay, float& g,
+                                            float& e) {
+  g = p ? g : 0.0f;
+  e = p ? e : __fmul_rn(decay, e);
+}
+
+__device__ __forceinline__ void mask_inputs(bool p, float decay, float4& g,
+                                            float4& e) {
+  mask_inputs(p, decay, g.x, e.x);
+  mask_inputs(p, decay, g.y, e.y);
+  mask_inputs(p, decay, g.z, e.z);
+  mask_inputs(p, decay, g.w, e.w);
+}
+
+template <bool VEC, bool DGC, bool GATED>
 __global__ void __launch_bounds__(THREADS)
 sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
               const float* __restrict__ mom, const float* __restrict__ c_ptr,
-              float momentum, float* __restrict__ a_out,
-              float* __restrict__ score_out, float* __restrict__ mom_out,
-              float* __restrict__ amax_out, int* __restrict__ hist_out,
-              long long j, long long rows) {
+              const float* __restrict__ gate_ptr, float momentum, float decay,
+              float* __restrict__ a_out, float* __restrict__ score_out,
+              float* __restrict__ mom_out, float* __restrict__ amax_out,
+              int* __restrict__ hist_out, long long j, long long rows) {
   __shared__ int sh_hist[BINS];
   __shared__ float sh_max[WARPS];
   for (int b = threadIdx.x; b < BINS; b += THREADS) sh_hist[b] = 0;
   __syncthreads();
   const float c = *c_ptr;
+  bool p = true;   // the participation bit (the gated variant reads it)
+  if constexpr (GATED) p = *gate_ptr > 0.5f;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -90,6 +121,12 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         gv[r] = __ldcs(&g4[r * THREADS + threadIdx.x]);
         ev[r] = __ldcs(&e4[r * THREADS + threadIdx.x]);
       }
+      if constexpr (GATED) {
+#pragma unroll
+        for (int r = 0; r < PER_THREAD / 4; ++r) {
+          mask_inputs(p, decay, gv[r], ev[r]);
+        }
+      }
       if constexpr (DGC) {
         // gv becomes mom' in place, and is written out as the new momentum
         const float4* m4 = reinterpret_cast<const float4*>(mom + base);
@@ -106,6 +143,13 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
           gv[r].z = advance(momentum, mv[r].z, gv[r].z);
           gv[r].w = advance(momentum, mv[r].w, gv[r].w);
           __stcs(&mo4[r * THREADS + threadIdx.x], gv[r]);
+          if constexpr (GATED) {
+            // a sitting-out worker's a leaves the momentum out
+            gv[r].x = p ? gv[r].x : 0.0f;
+            gv[r].y = p ? gv[r].y : 0.0f;
+            gv[r].z = p ? gv[r].z : 0.0f;
+            gv[r].w = p ? gv[r].w : 0.0f;
+          }
         }
       }
 #pragma unroll
@@ -124,11 +168,14 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         const long long e = base + i;
         if (e < j) {
           float x = g[e];
+          float ee = err[e];
+          if constexpr (GATED) mask_inputs(p, decay, x, ee);
           if constexpr (DGC) {
             x = advance(momentum, mom[e], x);
             mom_out[e] = x;
+            if constexpr (GATED) x = p ? x : 0.0f;
           }
-          const float k = one(err[e], x, c, &a_out[e], &score_out[e]);
+          const float k = one(ee, x, c, &a_out[e], &score_out[e]);
           m = nan_max(m, k);
           count_bin(sh_hist, k);
         }
@@ -157,17 +204,20 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
   }
 }
 
-template <bool DGC>
+template <bool DGC, bool GATED>
 int launch(const float* g, const float* err, const float* mom, const float* c,
-           float momentum, float* a, float* score, float* mom_out, float* amax,
-           int* hist, long long j, int grid, int vec, cudaStream_t stream) {
+           const float* gate, float momentum, float decay, float* a,
+           float* score, float* mom_out, float* amax, int* hist, long long j,
+           int grid, int vec, cudaStream_t stream) {
   const long long rows = (j + BLOCK - 1) / BLOCK;
   if (vec) {
-    sweep1_kernel<true, DGC><<<grid, THREADS, 0, stream>>>(
-        g, err, mom, c, momentum, a, score, mom_out, amax, hist, j, rows);
+    sweep1_kernel<true, DGC, GATED><<<grid, THREADS, 0, stream>>>(
+        g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
+        j, rows);
   } else {
-    sweep1_kernel<false, DGC><<<grid, THREADS, 0, stream>>>(
-        g, err, mom, c, momentum, a, score, mom_out, amax, hist, j, rows);
+    sweep1_kernel<false, DGC, GATED><<<grid, THREADS, 0, stream>>>(
+        g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
+        j, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -183,8 +233,9 @@ extern "C" int sweep1_launch(const float* g, const float* err, const float* c,
                              float* a, float* score, float* amax, int* hist,
                              long long j, int grid, int vec,
                              cudaStream_t stream) {
-  return compress::launch<false>(g, err, nullptr, c, 0.0f, a, score, nullptr,
-                                 amax, hist, j, grid, vec, stream);
+  return compress::launch<false, false>(g, err, nullptr, c, nullptr, 0.0f,
+                                        1.0f, a, score, nullptr, amax, hist,
+                                        j, grid, vec, stream);
 }
 
 // dgc mode: as sweep1_launch, plus mom (J,) fp32 in and mom_out (J,) fp32
@@ -196,6 +247,27 @@ extern "C" int sweep1_dgc_launch(const float* g, const float* err,
                                  float* mom_out, float* amax, int* hist,
                                  long long j, int grid, int vec,
                                  cudaStream_t stream) {
-  return compress::launch<true>(g, err, mom, c, momentum, a, score, mom_out,
-                                amax, hist, j, grid, vec, stream);
+  return compress::launch<true, false>(g, err, mom, c, nullptr, momentum,
+                                       1.0f, a, score, mom_out, amax, hist, j,
+                                       grid, vec, stream);
+}
+
+// the gated variant, both modes: as sweep1_launch (mom == nullptr, mom_out
+// unused) or sweep1_dgc_launch, plus gate, a (1,) fp32 on the device (the
+// participation bit, > 0.5 is in), and decay by value.
+extern "C" int sweep1_gated_launch(const float* g, const float* err,
+                                   const float* mom, const float* c,
+                                   const float* gate, float momentum,
+                                   float decay, float* a, float* score,
+                                   float* mom_out, float* amax, int* hist,
+                                   long long j, int grid, int vec,
+                                   cudaStream_t stream) {
+  if (mom != nullptr) {
+    return compress::launch<true, true>(g, err, mom, c, gate, momentum, decay,
+                                        a, score, mom_out, amax, hist, j,
+                                        grid, vec, stream);
+  }
+  return compress::launch<false, true>(g, err, nullptr, c, gate, 0.0f, decay,
+                                       a, score, nullptr, amax, hist, j, grid,
+                                       vec, stream);
 }

@@ -5,7 +5,9 @@ Sweep 1 (:func:`sweep1`, kernel ``csrc/sweep1.cu``) reads g and the error
 state once and emits ``a = err + g``, ``score = a * c``, the per-tile amax
 of |score| and a 2048-bin histogram of the fp32 bit pattern of |score|;
 its dgc mode (:func:`sweep1_dgc`, the same kernel) also reads the
-momentum and emits ``mom' = momentum * mom + g`` with ``a = err + mom'``.
+momentum and emits ``mom' = momentum * mom + g`` with ``a = err + mom'``;
+its gated variant (:func:`sweep1_gated`, both modes) masks the inputs by
+a worker's participation bit and decays a sitting-out worker's error.
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
 static ``MAXPB`` slots. The CountSketch encodes share the kernels of
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.core import sketch as csk
 from repro_torch.core.bigvec import INVALID_IDX, to_u32_bits
-from repro_torch.core.numerics import fma_f32
+from repro_torch.core.numerics import f32, fma_f32
 from repro_torch.core.select import hist_tail_bin
 from repro_torch.kernels.common import (aligned as _aligned,
                                         check_launch as _check_launch,
@@ -92,12 +94,36 @@ def rows_of(j: int) -> int:
 # Plain versions (CPU path; held against the kernels on the card)
 # ---------------------------------------------------------------------------
 
-def sweep1_plain(g, err_prev, c, mom=None, momentum: float = 0.0):
+def masked_inputs(g, err_prev, participate, err_decay: float):
+    """(g_eff, err_eff) = (where(p, g, 0), where(p, err_prev, err_decay *
+    err_prev)) for the 0-d participation bit p (the reference's
+    ``masked_inputs``, which its reference pipeline and the gated sweep
+    share): a sitting-out worker contributes nothing and its error
+    decays."""
+    p = participate.reshape(())
+    return (torch.where(p, g, 0.0),
+            torch.where(p, err_prev, f32(err_decay) * err_prev))
+
+
+def sweep1_plain(g, err_prev, c, mom=None, momentum: float = 0.0,
+                 gate=None, decay: float = 1.0):
     """Plain version of :func:`sweep1`; with ``mom`` the dgc mode, which
     returns mom' after (a, score, amax, hist). mom' is one fused
-    multiply-add, as the kernel and the compiled reference round it."""
+    multiply-add, as the kernel and the compiled reference round it.
+    With ``gate`` ((1,) fp32, the participation bit p = gate > 0.5) the
+    gated variant (:func:`sweep1_gated`): the reference's masked inputs
+    g_eff = where(p, g, 0), err_eff = where(p, err, decay * err), then
+    a = err_eff + g_eff, or in dgc mode a = err_eff + where(p, mom', 0)
+    with mom' = momentum * mom + g_eff."""
+    if gate is not None:
+        p = gate.reshape(()) > 0.5
+        g, err_prev = masked_inputs(g, err_prev, p, decay)
     mom_out = None if mom is None else fma_f32(mom, momentum, g)
-    a = err_prev + (g if mom is None else mom_out)
+    if mom is None:
+        a = err_prev + g
+    else:
+        a = err_prev + (mom_out if gate is None
+                        else torch.where(p, mom_out, 0.0))
     score = a * c
     j = a.numel()
     rows = rows_of(j)
@@ -390,6 +416,53 @@ def sweep1_dgc(g: torch.Tensor, err_prev: torch.Tensor, mom: torch.Tensor,
     return a, score, amax, hist, mom_out
 
 
+def sweep1_gated(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
+                 gate: torch.Tensor, decay: float,
+                 mom: torch.Tensor | None = None, momentum: float = 0.0):
+    """Sweep 1 under elastic participation, both modes: the inputs masked
+    in registers by the participation bit p = gate > 0.5 (gate a (1,)
+    fp32 on the device, so the schedule needs no host read) and the
+    error-feedback decay ``decay`` (rounded to fp32), g_eff = p ? g : 0,
+    err_eff = p ? err_prev : decay * err_prev; then plain mode, (a,
+    score, amax, hist) with a = err_eff + g_eff, or with ``mom`` the dgc
+    mode, (a, score, amax, hist, mom') with mom' = momentum * mom + g_eff
+    and a = err_eff + (p ? mom' : 0). Its own ``launches`` count covers
+    both modes."""
+    j = g.numel()
+    _check_vec("g", g)
+    _check_vec("err_prev", err_prev, j)
+    _check_vec("c", c, 1)
+    _check_vec("gate", gate, 1)
+    ins = [g, err_prev, c, gate] + ([] if mom is None else [mom])
+    if mom is not None:
+        _check_vec("mom", mom, j)
+    if len({x.device for x in ins}) != 1:
+        raise ValueError("sweep1_gated: g, err_prev, c, gate (and mom) must "
+                         "share a device")
+    if not _on_card(g):
+        return sweep1_plain(g, err_prev, c, mom, momentum, gate, decay)
+    a, score, amax, hist = _sweep1_outputs(g)
+    mom_out = None if mom is None else torch.empty_like(g)
+    fn = _lib("sweep1").sweep1_gated_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]
+    vecs = [g, err_prev, a, score] + ([] if mom is None else [mom, mom_out])
+    err = fn(g.data_ptr(), err_prev.data_ptr(),
+             None if mom is None else mom.data_ptr(), c.data_ptr(),
+             gate.data_ptr(), ctypes.c_float(momentum),
+             ctypes.c_float(decay), a.data_ptr(), score.data_ptr(),
+             None if mom_out is None else mom_out.data_ptr(),
+             amax.data_ptr(), hist.data_ptr(), j,
+             _grid(g.device, rows_of(j)), _aligned(*vecs),
+             _stream(g.device))
+    _check_launch("sweep1_gated", err)
+    sweep1_gated.launches += 1
+    out = (a, score, amax, hist)
+    return out if mom is None else out + (mom_out,)
+
+
 def _sweep1_outputs(g):
     """a, score (J,), amax (rows,) and the zeroed hist (2048,) int32."""
     rows = rows_of(g.numel())
@@ -541,10 +614,12 @@ def _encode_card(x, err_prev, a, rows: int, width: int, start):
 
 sweep1.launches = 0
 sweep1_dgc.launches = 0
+sweep1_gated.launches = 0
 sweep2.launches = 0
 sweep1_sketch.launches = 0
 sketch_encode.launches = 0
-KERNELS = (sweep1, sweep1_dgc, sweep2, sweep1_sketch, sketch_encode)
+KERNELS = (sweep1, sweep1_dgc, sweep1_gated, sweep2, sweep1_sketch,
+           sketch_encode)
 
 
 def reset_launches() -> None:

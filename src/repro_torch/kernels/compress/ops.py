@@ -13,9 +13,19 @@ folded in (:func:`fused_sketch_encode`).
                zeroed in place (and DGC's momentum likewise)
 
 The slice of the reference the compressor covers: kind in {topk, dgc,
-regtopk}, the exact selector, one bucket, fp32 error feedback, every
-worker participating. Anything else raises before any work
-(``core.sparsify.check_supported`` names the ROADMAP item).
+regtopk}, the exact selector, one bucket, fp32 error feedback, with or
+without a worker's elastic participation bit. Anything else raises
+before any work (``core.sparsify.check_supported`` names the ROADMAP
+item).
+
+Elastic participation (``participate``, a 0-d bool tensor) runs sweep 1
+through its gated variant, which masks the inputs in registers: g_eff =
+where(p, g, 0), err_eff = where(p, err, err_decay * err), and DGC's a
+leaves the advanced momentum out when p is false. A sitting-out
+worker's payload is inert (values 0, indices 0, count 0) and its O(k)
+scatter-zeros of err and mom write nothing, so its next err_prev is
+err_decay * err and DGC's mom is momentum * mom. p true gives the bits
+of the ungated path.
 
 The reference's ``lax.cond(ok, fast, fallback)`` becomes a host read of
 ``ok`` and a Python branch. The fallback (dense keys, exact top-k
@@ -74,15 +84,19 @@ def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
                           step: torch.Tensor, *, k: int, omega: float = 1.0,
                           mu: float = 0.1, Q: float = 0.0,
                           momentum: float = 0.0, mom=None, idx_prev=None,
-                          a_prev_sel=None, g_prev_sel=None) -> dict:
+                          a_prev_sel=None, g_prev_sel=None,
+                          participate=None, err_decay: float = 1.0) -> dict:
     """One fused compression step. g, err_prev (J,) fp32; step a 0-d int32
     tensor; DGC also takes its momentum ``mom`` (J,) fp32 and its factor
     ``momentum``;
     REGTOP-k the O(k) posterior (idx_prev int32 bits, a_prev_sel,
-    g_prev_sel). Returns {"err": next err_prev (J,) — the buffer of
-    ``a``, "mom": DGC's next momentum (J,) — the buffer of mom' — or
-    None, "values" (k,) fp32, "indices" (k,) int32 bits, "fallback"
-    reason or ""}, values ordered by |score| descending."""
+    g_prev_sel). ``participate`` is the worker's elastic participation
+    bit (0-d bool tensor on g's device, or None) and ``err_decay`` the
+    decay of a sitting-out worker's error. Returns {"err": next err_prev
+    (J,) — the buffer of ``a``, "mom": DGC's next momentum (J,) — the
+    buffer of mom' — or None, "values" (k,) fp32, "indices" (k,) int32
+    bits, "count" 0-d int32 (k, or 0 for a sitting-out worker),
+    "fallback" reason or ""}, values ordered by |score| descending."""
     if kind not in FUSED_KINDS:
         raise NotImplementedError(
             f"fused kind={kind!r} is not ported yet (ROADMAP A8)")
@@ -91,8 +105,14 @@ def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
     regtopk = kind == "regtopk"
     with record_function("compress/sweeps"):
         c = sweep_factor(kind, step, mu=mu, Q=Q)
-        a, score, _amax, hist, *mom_out = pk.sweep1(
-            g, err_prev, c, mom if kind == "dgc" else None, momentum)
+        dgc_mom = mom if kind == "dgc" else None
+        if participate is None:
+            a, score, _amax, hist, *mom_out = pk.sweep1(
+                g, err_prev, c, dgc_mom, momentum)
+        else:
+            gate = participate.reshape(1).to(torch.float32)
+            a, score, _amax, hist, *mom_out = pk.sweep1_gated(
+                g, err_prev, c, gate, err_decay, dgc_mom, momentum)
         # margin k: REGTOP-k support corrections may drop <= k entries
         # below tau without breaking top-k coverage of the candidates
         later = step > 0
@@ -105,11 +125,13 @@ def fused_compress_arrays(kind: str, g: torch.Tensor, err_prev: torch.Tensor,
                      cnt.max() <= maxpb, later, k, omega=omega, mu=mu,
                      step=step, idx_prev=idx_prev, a_prev_sel=a_prev_sel,
                      g_prev_sel=g_prev_sel,
-                     mom_out=mom_out[0] if mom_out else None)
+                     mom_out=mom_out[0] if mom_out else None,
+                     participate=participate)
 
 
 def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
-          step, idx_prev, a_prev_sel, g_prev_sel, mom_out) -> dict:
+          step, idx_prev, a_prev_sel, g_prev_sel, mom_out,
+          participate) -> dict:
     """O(candidates) exact-k trim, the exactness witnesses, the fallback
     and the O(k) state writes of :func:`fused_compress_arrays`. The
     fallback ranks the dense keys of ``score``; its values are read from
@@ -166,12 +188,28 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
             idx_k = topk_positions(keys, k)
             del keys
     values = a[idx_k]
-    err = bigvec.scatter_set_(a, idx_k, 0.0)  # a's buffer becomes err_prev
-    if mom_out is not None:
-        # DGC's momentum masking mom' * (1 - s): the same O(k) scatter-zero
-        bigvec.scatter_set_(mom_out, idx_k, 0.0)
+    count = torch.full((), k, dtype=torch.int32, device=a.device)
+    if participate is None:
+        err = bigvec.scatter_set_(a, idx_k, 0.0)  # a's buffer: err_prev
+        if mom_out is not None:
+            # DGC's momentum masking mom' * (1 - s): the same O(k)
+            # scatter-zero
+            bigvec.scatter_set_(mom_out, idx_k, 0.0)
+        indices = idx_k
+    else:
+        # a sitting-out worker's scatter-zeros write nothing (err_prev
+        # keeps err_decay * err, mom keeps momentum * mom) and its
+        # payload is inert
+        p = participate.reshape(())
+        err = bigvec.scatter_set_live_(a, idx_k, p, 0.0)
+        if mom_out is not None:
+            bigvec.scatter_set_live_(mom_out, idx_k, p, 0.0)
+        values = torch.where(p, values, 0.0)
+        indices = torch.where(p, idx_k, 0)
+        count = torch.where(p, count, 0)
     return {"err": err, "mom": mom_out, "values": values,
-            "indices": bigvec.to_u32_bits(idx_k), "fallback": fallback}
+            "indices": bigvec.to_u32_bits(indices), "count": count,
+            "fallback": fallback}
 
 
 def fused_sketch_encode(g: torch.Tensor, err_prev: torch.Tensor, *,

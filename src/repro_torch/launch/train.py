@@ -8,6 +8,8 @@
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --sparsifier sketchtopk --device cpu --fixed-batch
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --drop-prob 0.3 --err-decay 0.9 --fixed-batch --device cpu
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact
@@ -55,6 +57,23 @@ def parse_args(argv=None):
                          "edge (reference pipeline; packs no pairs, so "
                          "--comm sparse degrades to simulate with a "
                          "warning)")
+    ap.add_argument("--err-decay", type=float, default=1.0,
+                    help="per-step decay of a sitting-out worker's "
+                         "error-feedback memory: err' = err_decay * err on "
+                         "steps it sits out (1.0 keeps it)")
+    ap.add_argument("--combine", default="mean", choices=["mean", "support"],
+                    help="elastic combine: mean = sum over active workers "
+                         "/ n_active; support = each coordinate divided by "
+                         "the number of active workers that selected it")
+    ap.add_argument("--fault-schedule", default="",
+                    help="fault injection: 'iid:P[,seed=S]' drops each "
+                         "worker each step with probability P; 'bursty:"
+                         "period=P,outage=O[,workers=i+j]' sits the listed "
+                         "workers out for the first O of every P steps; "
+                         "'permanent:step=T[,workers=i]' drops them from "
+                         "step T on. Empty: every worker takes part")
+    ap.add_argument("--drop-prob", type=float, default=0.0,
+                    help="shorthand for --fault-schedule iid:<p>")
     ap.add_argument("--optimizer", default="adam")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
@@ -64,6 +83,22 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: the CUDA card (raises without one)")
     return ap.parse_args(argv)
+
+
+def resolve_fault_spec(args) -> str:
+    """--drop-prob is shorthand for --fault-schedule iid:<p>; the two
+    conflict. The spec is validated here, at launch."""
+    spec = args.fault_schedule.strip()
+    if args.drop_prob:
+        if spec:
+            raise SystemExit("--drop-prob is shorthand for --fault-schedule "
+                             f"iid:<p>; it conflicts with --fault-schedule "
+                             f"{spec!r}: pass one of them")
+        spec = f"iid:{args.drop_prob}"
+    if spec:
+        from repro_torch.core import faults
+        faults.parse_schedule(spec)
+    return spec
 
 
 def run_config(args):
@@ -79,17 +114,20 @@ def run_config(args):
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu,
             comm_mode=args.comm, pipeline=args.pipeline,
             selector=args.selector, sketch_rows=args.sketch_rows,
-            sketch_width=args.sketch_width),
+            sketch_width=args.sketch_width, err_decay=args.err_decay,
+            combine=args.combine),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
-        seed=args.seed, steps=args.steps, log_every=args.log_every)
+        seed=args.seed, steps=args.steps, log_every=args.log_every,
+        fault_schedule=resolve_fault_spec(args))
 
 
 def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
           fixed_batch: bool = False, log=print, on_step=None) -> dict:
     """Take ``run.steps`` training steps. Returns {"history": [{"step",
-    "loss", "ms"}, ...], "fallbacks": {reason: steps}, "params": J,
-    "state": the final TrainState}. Step time is the host
-    clock around a step that ends in a device synchronisation."""
+    "loss", "ms"} (and "n_active" under a fault schedule), ...],
+    "fallbacks": {reason: steps}, "params": J, "state": the final
+    TrainState}. Step time is the host clock around a step that ends in
+    a device synchronisation."""
     from repro_torch.backend import resolve_device
     from repro_torch.core.flatten import tree_size
     from repro_torch.data import lm_batch
@@ -100,6 +138,15 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     j = tree_size(state.params)
     log(f"[train] {run.model.name}: {j:,} params, sparsifier="
         f"{run.sparsifier.kind}@{run.sparsifier.sparsity}, device={dev}")
+    if run.fault_schedule:
+        from repro_torch.core import faults
+        from repro_torch.core.aggregate import world
+        sched = faults.parse_schedule(run.fault_schedule)
+        n, _ = world(group)
+        sp = run.sparsifier
+        log(f"[train] fault schedule: {faults.format_schedule(sched)} "
+            f"(E[n_active]={faults.expected_active(sched, n):.2f}/{n}, "
+            f"err_decay={sp.err_decay}, combine={sp.combine})")
     history = []
     data = None
     for t in range(run.steps):
@@ -112,13 +159,18 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"step": t, "loss": float(metrics["loss"]), "ms": ms}
+        if "n_active" in metrics:
+            rec["n_active"] = float(metrics["n_active"])
         history.append(rec)
         if on_step is not None:
             on_step(rec)
         if t % run.log_every == 0 or t == run.steps - 1:
+            health = (f"active {rec['n_active']:.0f} "
+                      if "n_active" in rec else "")
             log(f"step {t:5d} loss {rec['loss']:.4f} "
                 f"gnorm {float(metrics['gnorm_local']):.3f} "
-                f"nz {float(metrics['agg_nonzero']):.4f} ({ms:.1f} ms)")
+                f"nz {float(metrics['agg_nonzero']):.4f} {health}"
+                f"({ms:.1f} ms)")
     return {"history": history,
             "fallbacks": dict(step.gsync.fallback_reasons),
             "params": j, "state": state}

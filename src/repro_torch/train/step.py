@@ -12,6 +12,10 @@ Per step:
    all-reduce of the dense ghat (simulate comm), ``observe_aggregate``;
    or, for kind="sketchtopk", the CountSketch encode, the sketch
    all-reduce, the shared-mask decode and the values-only all-gather.
+   With ``RunConfig.fault_schedule`` set, the rank's participation bit
+   for the step is evaluated on the device from the sparsifier state's
+   step counter (``core.faults.participates``, parsed once at build
+   time), and the metrics gain ``n_active`` and ``dropped_nonfinite``.
    The step hands the old sparsifier state to the sync (donates it), so
    the reference pipeline's dense J-vectors are freed as soon as the
    compressor has read them: the old TrainState's ``ef`` is consumed;
@@ -34,7 +38,7 @@ from torch.profiler import record_function
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import sparsify
+from repro_torch.core import faults, sparsify
 from repro_torch.core.aggregate import GradientSync, world
 from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
 from repro_torch.models import init_params, loss_fn
@@ -92,6 +96,9 @@ class TrainStep:
         self.run = run
         self.group = group
         self.gsync = GradientSync(run.sparsifier, group)
+        self.schedule = faults.parse_schedule(run.fault_schedule)
+        if self.schedule is not None:
+            self.gsync.check_participation(self.schedule)
 
     def __call__(self, state: TrainState, batch: dict):
         cfg, opt_cfg = self.run.model, self.run.optimizer
@@ -107,7 +114,13 @@ class TrainStep:
             gnorm_local = torch.linalg.vector_norm(g)
         with record_function("train/sync"):
             ef, state.ef = state.ef, None
-            g_agg, ef = self.gsync(ef, g, donate=True)
+            stats = None
+            if self.schedule is None:
+                g_agg, ef = self.gsync(ef, g, donate=True)
+            else:
+                part = faults.participates(self.schedule, ef["step"], rank)
+                g_agg, ef, stats = self.gsync(ef, g, participate=part,
+                                              donate=True, with_stats=True)
             del g
         with record_function("train/optimizer"):
             shard = opt_shard_len(flat.total, n)
@@ -131,6 +144,8 @@ class TrainStep:
             loss = loss / n
         metrics = {"loss": loss, "gnorm_local": gnorm_local,
                    "agg_nonzero": (g_agg != 0).float().mean()}
+        if stats is not None:
+            metrics.update(stats)        # already sums over the ranks
         return TrainState(params, opt, ef), metrics
 
 

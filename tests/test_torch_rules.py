@@ -124,7 +124,7 @@ def test_other_devices_raise():
     ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
     ("ef_dtype", "bfloat16", "A8"), ("kind", "thresholdk", "A8"),
     ("comm_mode", "dense", "A5"), ("kind", "none", "A5"),
-    ("combine", "support", "A10"), ("wire_dtype", "bfloat16", "A8")])
+    ("kind", "randk", "A8"), ("wire_dtype", "bfloat16", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
     cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
                                 comm_mode="sparse")
@@ -132,7 +132,7 @@ def test_configs_outside_the_slice_raise(field, value, item):
     bad = dataclasses.replace(cfg, **{field: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         aggregate.GradientSync(bad)
-    if field not in ("comm_mode", "combine", "wire_dtype"):
+    if field not in ("comm_mode", "wire_dtype"):
         with pytest.raises(NotImplementedError):
             sparsify.init_state(bad, 100, "cpu")
 

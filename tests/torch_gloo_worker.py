@@ -5,8 +5,12 @@ tests/test_torch_aggregate.py).
 
 MODE "sync" runs GradientSync over a fixed gradient stream; MODE "train"
 runs the data-parallel train step (ZeRO-1 slice + all-gather) on this
-rank's fixed batch. Imports torch and the port only, and records whether
-jax was imported.
+rank's fixed batch; MODE "elastic" runs GradientSync under the fault
+schedule of the inputs, once with sparse comm on the fused pipeline
+(Gaussian gradients) and once with simulate comm on the reference
+pipeline (dyadic gradients), each rank drawing its own participation
+bits. Imports torch and the port only, and records whether jax was
+imported.
 """
 import os
 import sys
@@ -49,6 +53,38 @@ def run_sync(rank: int, data) -> dict:
     return res
 
 
+ELASTIC = {"sparse": dict(pipeline="fused", comm_mode="sparse"),
+           "simulate": dict(pipeline="reference", comm_mode="simulate")}
+
+
+def run_elastic(rank: int, data) -> dict:
+    """For each of ELASTIC's configs (kind, err_decay from the inputs):
+    per step g_agg and n_active, and the final state."""
+    from repro_torch.core import faults
+    sched = faults.parse_schedule(str(data["schedule"]))
+    res = {}
+    for name, fields in ELASTIC.items():
+        cfg = cfgs.SparsifierConfig(kind=str(data["kind"]),
+                                    sparsity=float(data["sparsity"]),
+                                    mu=float(data["mu"]),
+                                    err_decay=float(data["err_decay"]),
+                                    **fields)
+        grads = data[f"grads_{name}"]                # (T, world, J)
+        sync = GradientSync(cfg)
+        state = sparsify.init_state(cfg, grads.shape[2], "cpu")
+        for t in range(grads.shape[0]):
+            part = faults.participates(sched, state["step"], rank)
+            g_agg, state, stats = sync(
+                state, torch.from_numpy(grads[t, rank]), participate=part,
+                with_stats=True)
+            res[f"{name}_g_agg_{t}"] = g_agg.numpy()
+            res[f"{name}_n_active_{t}"] = stats["n_active"].numpy()
+            res[f"{name}_part_{t}"] = part.numpy()
+        for key, val in state.items():
+            res[f"{name}_state_{key}"] = val.numpy()
+    return res
+
+
 def train_run(data) -> cfgs.RunConfig:
     """The run both the gloo ranks and the in-process emulation use."""
     return cfgs.RunConfig(
@@ -79,8 +115,9 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                             rank=rank, world_size=world)
     try:
         data = np.load(inp)
-        res = run_sync(rank, data) if mode == "sync" else run_train(rank,
-                                                                   data)
+        run = {"sync": run_sync, "train": run_train,
+               "elastic": run_elastic}[mode]
+        res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
     finally:
