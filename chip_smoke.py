@@ -57,11 +57,24 @@ line and raising on any failure:
 13. train_dgc_reference, profile_dgc_reference: the launchers' defaults
              with ``--sparsifier dgc`` (reference pipeline, exact
              selector, simulate comm): the momentum update in PyTorch and
-             the apply kernel once per step.
+             the apply kernel once per step;
+14. train_elastic_dgc, profile_elastic_dgc: elastic participation, DGC
+             on the fused pipeline with sparse comm, err_decay 0.9 and
+             the fault schedule ``bursty:period=3,outage=1,workers=0``
+             (the one rank sits out steps 0 and 3): sweep 1's gated
+             variant (``sweep1_gated``) and sweep 2 once per step, and
+             n_active [0, 1, 1, 0, 1];
+15. train_elastic_reference, profile_elastic_reference: the reference
+             launcher's defaults under the same schedule and decay: the
+             dense score and apply kernels once per step.
 
 Phase 3 holds sweep 1 in its dgc mode against its plain version too
 (kernels_dgc: a, score, amax, hist and mom' with ``torch.equal``, at the
-main J and the ragged J). It also holds the two CountSketch encodes (kernels_sketch, B3 and
+main J and the ragged J), and its gated variant in both modes
+(kernels_gated: gate 1 equal to the ungated kernel, gate 0 with decay
+0.9 equal to the plain version, bit for bit). Phase 4 also runs 3 fused
+steps of each kind under participation (1, 0, 1) with err_decay 0.9.
+Phase 3 also holds the two CountSketch encodes (kernels_sketch, B3 and
 B4 on the same partitioned passes and one shared start table): B3's a
 with ``torch.equal``, both sketches with ``torch.equal`` on dyadic inputs
 (every bucket sum exact in any order) and within the per-bucket bound of
@@ -129,23 +142,38 @@ SKETCH_REFERENCE = dict(kind="sketchtopk", pipeline="reference",
 DGC_REFERENCE = dict(kind="dgc", pipeline="reference", comm_mode="simulate",
                      selector="exact")
 DGC_MOMENTUM = 0.9           # SparsifierConfig.momentum's default
+ERR_DECAY = 0.9              # a sitting-out worker's error-feedback decay
+ELASTIC_MASK = (True, False, True)             # phase compress, elastic
+# the one rank sits out the first step of every 3: steps 0 and 3 of 5
+FAULT_SCHEDULE = "bursty:period=3,outage=1,workers=0"
+ELASTIC_ACTIVE = [0.0, 1.0, 1.0, 0.0, 1.0]
 SKETCH_TABLE = [[MAIN_J, SKETCH_ROWS, MAIN_WIDTH]]   # (J, rows, width)
 FUSED = dict(comm_mode="sparse", pipeline="fused")
-# the train phases in run order: sparsifier fields, and the kernels that
-# each launches once a step (every other kernel 0 times)
+# the train phases in run order: sparsifier fields, the kernels that
+# each launches once a step (every other kernel 0 times), and the fault
+# schedule ("" = every step in)
+ELASTIC = dict(err_decay=ERR_DECAY)
 TRAIN_PATHS = {
-    "train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2")),
-    "train_sketch": (dict(kind="sketchtopk", **FUSED), ("sweep1_sketch",)),
-    "train_reference": (REFERENCE_DEFAULT, ("scores", "apply")),
-    "train_sketch_reference": (SKETCH_REFERENCE, ("sketch_encode", "apply")),
-    "train_dgc": (dict(kind="dgc", **FUSED), ("sweep1_dgc", "sweep2")),
-    "train_dgc_reference": (DGC_REFERENCE, ("apply",)),
+    "train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"), ""),
+    "train_sketch": (dict(kind="sketchtopk", **FUSED), ("sweep1_sketch",),
+                     ""),
+    "train_reference": (REFERENCE_DEFAULT, ("scores", "apply"), ""),
+    "train_sketch_reference": (SKETCH_REFERENCE, ("sketch_encode", "apply"),
+                               ""),
+    "train_dgc": (dict(kind="dgc", **FUSED), ("sweep1_dgc", "sweep2"), ""),
+    "train_dgc_reference": (DGC_REFERENCE, ("apply",), ""),
+    "train_elastic_dgc": (dict(kind="dgc", **FUSED, **ELASTIC),
+                          ("sweep1_gated", "sweep2"), FAULT_SCHEDULE),
+    "train_elastic_reference": (dict(REFERENCE_DEFAULT, **ELASTIC),
+                                ("scores", "apply"), FAULT_SCHEDULE),
 }
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
     "sweep1_dgc": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                    "src/repro/kernels/compress/kernel.py:78"),
+    "sweep1_gated": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
+                     "src/repro/kernels/compress/kernel.py:78"),
     "sweep2": ("src/repro_torch/kernels/compress/csrc/sweep2.cu",
                "src/repro/kernels/compress/kernel.py:223"),
     "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
@@ -356,6 +384,62 @@ def dgc_case(dev, j: int, seed: int, timed: bool) -> dict:
     return res
 
 
+def gated_case(dev, j: int, seed: int, timed: bool) -> dict:
+    """Sweep 1's gated variant in both modes at flat length j: gate 1
+    equals the ungated kernel and gate 0 (err_decay 0.9) the plain
+    version, every output bit for bit. Every 97th err is -0.0, whose
+    decayed value plus a zero must be +0.0."""
+    import torch
+    from repro_torch.core.numerics import regularizer_factor
+    from repro_torch.kernels.compress import kernel as pk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(j, generator=gen, device=dev)
+    err = torch.randn(j, generator=gen, device=dev) * 0.1
+    err[::97] = -0.0
+    mom = torch.randn(j, generator=gen, device=dev)
+    on, off = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    res = {"j": j, "decay": ERR_DECAY, "sweep1_gated_err": 0.0}
+    for mode in ("plain", "dgc"):
+        dgc = mode == "dgc"
+        m = mom if dgc else None
+        c = torch.full((1,), 1.0 if dgc else regularizer_factor(0.0, MU),
+                       device=dev)
+        got = pk.sweep1_gated(g, err, c, on, ERR_DECAY, m, DGC_MOMENTUM)
+        want = pk.sweep1(g, err, c, m, DGC_MOMENTUM)
+        for name, x, y in zip(("a", "score", "amax", "hist", "mom"), got,
+                              want):
+            check(bits_equal(x, y), f"sweep1_gated {mode} gate 1: {name} "
+                  f"differs from the ungated kernel at J={j}")
+        del got, want
+        got = pk.sweep1_gated(g, err, c, off, ERR_DECAY, m, DGC_MOMENTUM)
+        want = pk.sweep1_plain(g, err, c, m, DGC_MOMENTUM, off, ERR_DECAY)
+        for name, x, y in zip(("a", "score", "amax", "hist", "mom"), got,
+                              want):
+            check(bits_equal(x, y), f"sweep1_gated {mode} gate 0: {name} "
+                  f"differs from the plain version at J={j}")
+        check(not bool(torch.signbit(got[0][::97]).any()),
+              "sweep1_gated: -0.0 * decay + 0.0 must be +0.0")
+        res["sweep1_gated_err"] = max(res["sweep1_gated_err"],
+                                      max_abs_err(zip(got, want)))
+        del got, want
+    if timed:
+        rows = pk.rows_of(j)
+        c = torch.ones(1, device=dev)
+        res["sweep1_gated_ms"] = cuda_ms(lambda: pk.sweep1_gated(
+            g, err, c, on, ERR_DECAY, mom, DGC_MOMENTUM))
+        res["sweep1_gated_off_ms"] = cuda_ms(lambda: pk.sweep1_gated(
+            g, err, c, off, ERR_DECAY, mom, DGC_MOMENTUM))
+        res["sweep1_gated_plain_ms"] = cuda_ms(lambda: pk.sweep1_plain(
+            g, err, c, mom, DGC_MOMENTUM, on, ERR_DECAY))
+        # the dgc mode's bytes (read g, err, mom; write a, score, mom'),
+        # the gate and c
+        res["sweep1_gated_bytes"] = 24 * j + 4 * rows + 4 * pk.BINS + 8
+        # selects of g, err and mom', decay multiply, fma (2), add,
+        # multiply, abs, max
+        res["sweep1_gated_ops"] = 10 * j
+    return res
+
+
 def phase_kernels(dev) -> dict:
     import torch
     small = kernel_case(dev, RAGGED_J, seed=1, timed=False)
@@ -368,7 +452,13 @@ def phase_kernels(dev) -> dict:
     dbig = dgc_case(dev, MAIN_J, seed=10, timed=True)
     emit("kernels_dgc_main_shape", **dbig)
     torch.cuda.empty_cache()
-    return {"small": small, "big": big, "dgc_small": dsmall, "dgc_big": dbig}
+    gsmall = gated_case(dev, RAGGED_J, seed=11, timed=False)
+    emit("kernels_gated_ragged", **gsmall)
+    gbig = gated_case(dev, MAIN_J, seed=12, timed=True)
+    emit("kernels_gated_main_shape", **gbig)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big, "dgc_small": dsmall, "dgc_big": dbig,
+            "gated_small": gsmall, "gated_big": gbig}
 
 
 def dyadic(gen, j: int, dev):
@@ -771,49 +861,69 @@ def phase_reference_sync(dev) -> dict:
 def phase_compress(dev) -> None:
     """The fused compressor, REGTOP-k then DGC, on the card and on CPU
     copies: values, indices, every state vector (err_prev, and DGC's
-    mom) and the fallback reasons equal, step by step."""
+    mom) and the fallback reasons equal, step by step; then both kinds
+    again under participation ELASTIC_MASK with err_decay 0.9 (sweep 1's
+    gated variant), the payload's count too."""
     import torch
     from repro_torch.configs.base import SparsifierConfig
     from repro_torch.core import sparsify
     cpu = torch.device("cpu")
-    for kind in ("regtopk", "dgc"):
-        cfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=MU,
-                               comm_mode="sparse", pipeline="fused")
-        st_dev = sparsify.init_state(cfg, COMPRESS_J, dev)
-        st_cpu = sparsify.init_state(cfg, COMPRESS_J, cpu)
-        gen = torch.Generator(device=cpu).manual_seed(7)
-        fallbacks = []
-        reset_launches()
-        for t in range(SYNC_STEPS):
-            g = torch.randn(COMPRESS_J, generator=gen)
-            o_dev = sparsify.compress(cfg, st_dev, g.to(dev))
-            o_cpu = sparsify.compress(cfg, st_cpu, g)
-            check(set(o_dev.state) == set(o_cpu.state), f"{kind}: keys")
-            for name, got, want in (
-                    ("values", o_dev.values, o_cpu.values),
-                    ("indices", o_dev.indices, o_cpu.indices),
-                    *((key, o_dev.state[key], o_cpu.state[key])
-                      for key in o_cpu.state)):
-                check(bits_equal(got.cpu(), want),
-                      f"compress {kind} step {t}: {name} differs card vs "
-                      "CPU")
-            check(o_dev.fallback == o_cpu.fallback,
-                  f"compress {kind} step {t}: fallback branch differs")
-            fallbacks.append(o_dev.fallback)
-            st_dev = sparsify.observe_aggregate(
-                cfg, o_dev.state, sparsify.dense_ghat(o_dev, COMPRESS_J))
-            st_cpu = sparsify.observe_aggregate(
-                cfg, o_cpu.state, sparsify.dense_ghat(o_cpu, COMPRESS_J))
-        emit("compress", kind=kind, j=COMPRESS_J, steps=SYNC_STEPS,
-             bitwise=True, fallbacks=fallbacks, state=sorted(st_cpu),
-             launches=launch_counts())
+    for mask in (None, ELASTIC_MASK):
+        for kind in ("regtopk", "dgc"):
+            cfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=MU,
+                                   comm_mode="sparse", pipeline="fused",
+                                   err_decay=ERR_DECAY)
+            st_dev = sparsify.init_state(cfg, COMPRESS_J, dev)
+            st_cpu = sparsify.init_state(cfg, COMPRESS_J, cpu)
+            gen = torch.Generator(device=cpu).manual_seed(7)
+            fallbacks = []
+            reset_launches()
+            for t in range(SYNC_STEPS):
+                g = torch.randn(COMPRESS_J, generator=gen)
+                p = None if mask is None else torch.tensor(mask[t])
+                o_dev = sparsify.compress(
+                    cfg, st_dev, g.to(dev),
+                    participate=None if p is None else p.to(dev))
+                o_cpu = sparsify.compress(cfg, st_cpu, g, participate=p)
+                check(set(o_dev.state) == set(o_cpu.state), f"{kind}: keys")
+                counts = () if p is None else (
+                    ("count", o_dev.count, o_cpu.count),)
+                for name, got, want in (
+                        ("values", o_dev.values, o_cpu.values),
+                        ("indices", o_dev.indices, o_cpu.indices), *counts,
+                        *((key, o_dev.state[key], o_cpu.state[key])
+                          for key in o_cpu.state)):
+                    check(bits_equal(got.cpu(), want),
+                          f"compress {kind} mask {mask} step {t}: {name} "
+                          "differs card vs CPU")
+                check(o_dev.fallback == o_cpu.fallback,
+                      f"compress {kind} step {t}: fallback branch differs")
+                fallbacks.append(o_dev.fallback)
+                st_dev = sparsify.observe_aggregate(
+                    cfg, o_dev.state, sparsify.dense_ghat(o_dev, COMPRESS_J),
+                    participate=None if p is None else p.to(dev))
+                st_cpu = sparsify.observe_aggregate(
+                    cfg, o_cpu.state, sparsify.dense_ghat(o_cpu, COMPRESS_J),
+                    participate=p)
+            launches = launch_counts()
+            sweep = ("sweep1_gated" if mask else
+                     "sweep1_dgc" if kind == "dgc" else "sweep1")
+            for name, n in launches.items():
+                check(n == (SYNC_STEPS if name in (sweep, "sweep2") else 0),
+                      f"compress {kind} mask {mask}: {name} launched {n}")
+            emit("compress", kind=kind, j=COMPRESS_J, steps=SYNC_STEPS,
+                 participation=mask, err_decay=ERR_DECAY if mask else None,
+                 bitwise=True, fallbacks=fallbacks, state=sorted(st_cpu),
+                 launches=launches)
 
 
-def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
+def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
+                schedule: str = ""):
     """The launcher's train() on StableLM-3B at full width, 8 layers, with
-    the given sparsifier fields; the loss must be
+    the given sparsifier fields and fault schedule; the loss must be
     finite and falling and every kernel's launch count must equal
-    ``expect`` (the others 0). Returns (launches by kernel, the run, the
+    ``expect`` (the others 0); under the schedule the steps' n_active
+    must be ELASTIC_ACTIVE. Returns (launches by kernel, the run, the
     trained state)."""
     import torch
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
@@ -827,7 +937,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
         sparsifier=SparsifierConfig(**dict(dict(
             sparsity=SPARSITY, mu=MU, sketch_rows=SKETCH_ROWS), **sparsifier)),
         optimizer=OptimizerConfig(kind="adam", lr=1e-3),
-        seed=0, steps=TRAIN_STEPS, log_every=1)
+        seed=0, steps=TRAIN_STEPS, log_every=1, fault_schedule=schedule)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.reset_accumulated_memory_stats(dev)
 
@@ -849,8 +959,12 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str):
         want = expect.get(name, 0)
         check(n == want, f"{phase}: {name} launched {n} times in "
               f"{TRAIN_STEPS} steps, expected {want}")
+    active = [rec.get("n_active") for rec in out["history"]]
+    if schedule:
+        check(active == ELASTIC_ACTIVE, f"{phase}: n_active {active}")
     emit(phase, model=model.name, sparsifier=dataclasses.asdict(
-             run.sparsifier), n_layers=TRAIN_LAYERS,
+             run.sparsifier), fault_schedule=schedule, n_active=active,
+         n_layers=TRAIN_LAYERS,
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
@@ -947,9 +1061,9 @@ def main(argv=None) -> int:
     phase_build()
     if args.train:
         for name in args.train:
-            fields, kernels = TRAIN_PATHS[name]
+            fields, kernels, schedule = TRAIN_PATHS[name]
             phase_train(dev, fields, dict.fromkeys(kernels, TRAIN_STEPS),
-                        name)
+                        name, schedule)
             torch.cuda.empty_cache()
         return finish(smi, None)
     kres = phase_kernels(dev)
@@ -960,9 +1074,9 @@ def main(argv=None) -> int:
     phase_sketch_sync(dev)
     ref_launches = phase_reference_sync(dev)
     train = {}
-    for name, (fields, kernels) in TRAIN_PATHS.items():
+    for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
         train[name], run, state = phase_train(
-            dev, fields, dict.fromkeys(kernels, TRAIN_STEPS), name)
+            dev, fields, dict.fromkeys(kernels, TRAIN_STEPS), name, schedule)
         tables = phase_profile(dev, run, state, name.replace("train",
                                                              "profile"))
         if fields["kind"] == "sketchtopk":
@@ -985,6 +1099,14 @@ def main(argv=None) -> int:
             kernel_row("sweep1_dgc", dgc_big, dgc_small,
                        train["train_dgc"]["sweep1_dgc"],
                        "dgc train (fused)", bitwise, mode="dgc"),
+            kernel_row("sweep1_gated", kres["gated_big"],
+                       kres["gated_small"],
+                       train["train_elastic_dgc"]["sweep1_gated"],
+                       "elastic dgc train (fused, bursty schedule)",
+                       "gate 1: torch.equal to the ungated kernel; gate 0: "
+                       "torch.equal to the plain version; both modes",
+                       mode="dgc gated",
+                       off_ms=kres["gated_big"]["sweep1_gated_off_ms"]),
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
                        train["train_sketch"]["sweep1_sketch"],
                        "sketchtopk train (fused)", atomics, redesigned=True,

@@ -167,8 +167,6 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
         for v, i in zip(_gather(values, group), _gather(indices, group)):
             bigvec.scatter_add_(dense, i, v)
         return dense.div_(_n(n, dense))
-    if combine not in COMBINES:
-        raise ValueError(f"unknown combine={combine!r} (mean | support)")
     dev, k = values.device, values.numel()
     p = (torch.ones((), dtype=torch.bool, device=dev) if participate is None
          else participate.reshape(()))
@@ -191,7 +189,7 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
         counts = counts[:j]
         return torch.where(counts > 0, dense / counts.clamp(min=1.0), 0.0)
     n_active = _rank_sum([m[0].to(torch.float32) for m in metas])
-    return dense / n_active.clamp(min=1.0)
+    return dense.div_(n_active.clamp(min=1.0))
 
 
 def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,

@@ -55,10 +55,12 @@ def live_idx(idx: torch.Tensor, live, j: int) -> torch.Tensor:
 def scatter_set_live_(a: torch.Tensor, idx: torch.Tensor, live,
                       val: float) -> torch.Tensor:
     """In place ``a[idx] = val`` at the live slots of distinct indices
-    ``idx``; a non-live slot writes back the value that is there, so for
-    distinct indices this is the reference's scatter through
-    ``live_idx`` with ``mode="drop"``, on a buffer of exactly J and with
-    no host read of ``live``."""
+    ``idx`` (every slot when ``live`` is None); a non-live slot writes
+    back the value that is there, so for distinct indices this is the
+    reference's scatter through ``live_idx`` with ``mode="drop"``, on a
+    buffer of exactly J and with no host read of ``live``."""
+    if live is None:
+        return scatter_set_(a, idx, val)
     idx = as_index(idx)
     return a.index_put_((idx,), torch.where(live, val, a[idx]))
 

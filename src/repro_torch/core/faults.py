@@ -99,7 +99,8 @@ def format_schedule(sched: Optional[FaultSchedule]) -> str:
     if sched.kind == "iid":
         return f"iid:{sched.drop_prob},seed={sched.seed}"
     if sched.kind == "bursty":
-        return f"bursty:period={sched.period},outage={sched.outage},workers={w}"
+        return (f"bursty:period={sched.period},outage={sched.outage},"
+                f"workers={w}")
     return f"permanent:step={sched.fail_step},workers={w}"
 
 

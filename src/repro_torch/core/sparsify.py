@@ -253,14 +253,15 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
 
 def _mask_elastic(p, mask, values, indices, k: int):
     """The reference pipeline's payload masking: a sitting-out worker's
-    dense mask and packed pairs come back inert (mask 0, values 0,
-    indices 0, count 0); p None passes everything through with count
+    dense mask (if any) and packed pairs come back inert (mask 0, values
+    0, indices 0, count 0); p None passes everything through with count
     None (all k slots live)."""
     if p is None:
         return mask, values, indices, None
-    mask = torch.where(p, mask, 0.0)
+    if mask is not None:
+        mask = torch.where(p, mask, 0.0)
     count = torch.where(p, torch.full((), k, dtype=torch.int32,
-                                      device=mask.device), 0)
+                                      device=p.device), 0)
     if values is not None:
         values = torch.where(p, values, 0.0)
         indices = torch.where(p, indices, 0)
@@ -329,18 +330,15 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
     new = {"idx_prev": indices, "a_prev_sel": values,
            "g_prev_sel": state["g_prev_sel"],         # observe_aggregate
            "step": state["step"] + 1}
-    if p is None:
-        new["err"] = bigvec.scatter_set_(a, idx, 0.0)   # in place on a
-        return CompressOut(new, values, indices)
-    # a sitting-out worker: no scatter-zero (err keeps the decayed a), the
-    # O(k) posterior frozen, an inert payload
+    # in place on a; a sitting-out worker's writes nothing (err keeps
+    # the decayed a), its O(k) posterior is frozen and its payload inert
     new["err"] = bigvec.scatter_set_live_(a, idx, p, 0.0)
+    if p is None:
+        return CompressOut(new, values, indices)
     new["idx_prev"] = torch.where(p, indices, state["idx_prev"])
     new["a_prev_sel"] = torch.where(p, values, state["a_prev_sel"])
-    count = torch.where(p, torch.full((), k, dtype=torch.int32,
-                                      device=a.device), 0)
-    return CompressOut(new, torch.where(p, values, 0.0),
-                       torch.where(p, indices, 0), count=count)
+    _, values, indices, count = _mask_elastic(p, None, values, indices, k)
+    return CompressOut(new, values, indices, count=count)
 
 
 def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,

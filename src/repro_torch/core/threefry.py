@@ -22,10 +22,11 @@ _PARITY = 0x1BD11BDA
 
 
 def _word(x, device=None) -> torch.Tensor:
-    """A uint32 word (int or tensor) as an int64 tensor masked to 32 bits."""
+    """A uint32 word (int or tensor) as an int64 tensor masked to 32 bits;
+    an int is filled in on the device (no copy from the host)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK
-    return torch.tensor(int(x) & MASK, dtype=torch.int64, device=device)
+    return torch.full((), int(x) & MASK, dtype=torch.int64, device=device)
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:

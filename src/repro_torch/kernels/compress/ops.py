@@ -189,26 +189,20 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, *, omega, mu,
             del keys
     values = a[idx_k]
     count = torch.full((), k, dtype=torch.int32, device=a.device)
-    if participate is None:
-        err = bigvec.scatter_set_(a, idx_k, 0.0)  # a's buffer: err_prev
-        if mom_out is not None:
-            # DGC's momentum masking mom' * (1 - s): the same O(k)
-            # scatter-zero
-            bigvec.scatter_set_(mom_out, idx_k, 0.0)
-        indices = idx_k
-    else:
-        # a sitting-out worker's scatter-zeros write nothing (err_prev
-        # keeps err_decay * err, mom keeps momentum * mom) and its
-        # payload is inert
-        p = participate.reshape(())
-        err = bigvec.scatter_set_live_(a, idx_k, p, 0.0)
-        if mom_out is not None:
-            bigvec.scatter_set_live_(mom_out, idx_k, p, 0.0)
+    p = None if participate is None else participate.reshape(())
+    # a's buffer becomes err_prev, and DGC's momentum masking mom' * (1 -
+    # s) is the same O(k) scatter-zero; a sitting-out worker's write
+    # nothing (err_prev keeps err_decay * err, mom momentum * mom), and
+    # its payload is inert
+    err = bigvec.scatter_set_live_(a, idx_k, p, 0.0)
+    if mom_out is not None:
+        bigvec.scatter_set_live_(mom_out, idx_k, p, 0.0)
+    if p is not None:
         values = torch.where(p, values, 0.0)
-        indices = torch.where(p, idx_k, 0)
+        idx_k = torch.where(p, idx_k, 0)
         count = torch.where(p, count, 0)
     return {"err": err, "mom": mom_out, "values": values,
-            "indices": bigvec.to_u32_bits(indices), "count": count,
+            "indices": bigvec.to_u32_bits(idx_k), "count": count,
             "fallback": fallback}
 
 

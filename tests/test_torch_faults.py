@@ -56,7 +56,7 @@ def test_fold_in_bits_and_uniform_match_jax(seed, data):
     assert want.view(np.int32) == got.numpy().view(np.int32)
 
 
-def test_the_issue_draw():
+def test_a_known_draw():
     """fold_in(fold_in(PRNGKey(0), 3), 1): key words, bits and uniform."""
     key = threefry.fold_in(threefry.fold_in(threefry.prng_key(0), 3), 1)
     assert key.tolist() == [2060067018, 3241019684]
