@@ -3,11 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train train_sketch_reference [--src OLD/src]
+    python3 chip_smoke.py --world 4
 
 The second form runs only the device and build phases and the named
 train phases (no profile, no kernels line), from this checkout's port or
 from another source tree: an unpacked older commit's ``src/``, so that
-two versions can be compared in one run on one card.
+two versions can be compared in one run on one card. The third needs
+four cards and runs only the multi-card check: one process a card,
+joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
+comm) and of dense SGD; g_agg must be bitwise the same on every rank
+and, with every rank's state, equal to an in-process ``round()`` of the
+same four workers.
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -66,7 +72,24 @@ line and raising on any failure:
              n_active [0, 1, 1, 0, 1];
 15. train_elastic_reference, profile_elastic_reference: the reference
              launcher's defaults under the same schedule and decay: the
-             dense score and apply kernels once per step.
+             dense score and apply kernels once per step;
+16. train_dense, profile_dense: the dense baseline (``--sparsifier
+             none``: the dense all-reduce, no kernel), whose stage spans
+             are what the other cells' compression shares are stated
+             against;
+17. train_genie, profile_genie: the genie (``--sparsifier globaltopk``:
+             the dense all-reduce, then the top-k over J; no kernel).
+
+Between phases 9 and 10 runs the paper phase (paper_round, paper_fig1,
+paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
+``make_round_fn`` round of topk, regtopk and sketchtopk at fig2's shape
+(N = 20, J = 100) and fig3's (N = 8, J = 77,370) on the card and on CPU
+copies of the same inputs (g_agg and every state bitwise; the sketch
+within its bound, then the card's mean sketch decoded on both devices),
+then the paper's drivers on the card: fig1, fig2 at S = 0.6 for 1500
+iterations, the genie at fig2's size, EXPERIMENTS.md's fig2 table and
+fig3 for 150 iterations, held to the claims of
+tests/test_paper_claims.py, with each figure's seconds and launches.
 
 Phase 3 holds sweep 1 in its dgc mode against its plain version too
 (kernels_dgc: a, score, amax, hist and mom' with ``torch.equal``, at the
@@ -166,7 +189,20 @@ TRAIN_PATHS = {
                           ("sweep1_gated", "sweep2"), FAULT_SCHEDULE),
     "train_elastic_reference": (dict(REFERENCE_DEFAULT, **ELASTIC),
                                 ("scores", "apply"), FAULT_SCHEDULE),
+    # the baselines: dense SGD (the dense all-reduce) and the genie (the
+    # dense all-reduce, then the top-k over J); no kernel
+    "train_dense": (dict(kind="none"), (), ""),
+    "train_genie": (dict(kind="globaltopk"), (), ""),
 }
+# phase paper: the round checks' (workers, J, sparsity), fig2's shape and
+# fig3's (the CNN at width 16), and the iterations of each driver run
+PAPER_SHAPES = ((20, 100, 0.6), (8, 77_370, 0.001))
+PAPER_ROUND_KERNELS = {"topk": ("apply",), "regtopk": ("scores", "apply"),
+                       "sketchtopk": ("sketch_encode", "apply")}
+FIG1_ITERS = 100
+FIG2_ITERS = 1500            # fig2's claims and the genie's
+FIG2_TABLE_ITERS = 1500      # EXPERIMENTS.md's table (3000 there)
+FIG3_ITERS = 150
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                "src/repro/kernels/compress/kernel.py:78"),
@@ -978,7 +1014,7 @@ STAGES = ("train/loss_grad", "train/flatten", "train/sync",
           "compress/fallback", "sync/combine", "sketch/encode",
           "sketch/allreduce", "sketch/estimate", "sketch/select",
           "compress/scores", "compress/select", "compress/apply",
-          "sync/simulate")
+          "sync/simulate", "sync/dense", "sync/select")
 
 
 def phase_profile(dev, run, state, phase: str) -> None:
@@ -1027,6 +1063,295 @@ def phase_profile(dev, run, state, phase: str) -> None:
     return tables
 
 
+def paper_states(cfg, n: int, j: int, gen, g):
+    """N workers' stacked states on the CPU with every float vector drawn
+    from ``gen`` (REGTOP-k's s_prev 0/1) at step 1, so that the posterior
+    is live; every 7th error is -g, an exact zero of a = err + g."""
+    import torch
+    from repro_torch.core import sparsify
+    st = sparsify.stack_states([sparsify.init_state(cfg, j, "cpu")
+                                for _ in range(n)])
+    for key, val in st.items():
+        if key == "step":
+            st[key] = torch.ones_like(val)
+        elif key == "s_prev":
+            st[key] = (torch.rand(val.shape, generator=gen) < 0.3).float()
+        else:
+            st[key] = torch.randn(val.shape, generator=gen) * 0.1
+    if "err" in st:
+        st["err"][:, ::7] = -g[:, ::7]
+    return st
+
+
+def paper_round_case(dev, kind: str, n: int, j: int, sparsity: float,
+                     seed: int) -> dict:
+    """One round of the paper drivers on the card and on CPU copies of the
+    same inputs: make_round_fn for topk and regtopk (g_agg and every state
+    vector bitwise); for sketchtopk the encodes (a bitwise, the sketch
+    within its atomics bound), then the card's mean sketch closes the
+    round on both devices (indices, g_agg and every error bitwise). Each
+    kernel of the round launches once a worker."""
+    import torch
+    from repro_torch.configs.base import SparsifierConfig
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    cfg = SparsifierConfig(kind=kind, sparsity=sparsity, mu=MU,
+                           selector="exact")
+    gen = torch.Generator().manual_seed(seed)
+    grads = torch.randn((n, j), generator=gen)
+    st_c = paper_states(cfg, n, j, gen, grads)
+    st_d = {key: val.to(dev) for key, val in st_c.items()}
+    res = {"kind": kind, "n": n, "j": j,
+           "k": sparsify.resolve_k(cfg, j), "bitwise": True}
+    reset_launches()
+    if kind == "sketchtopk":
+        sync_d, sync_c = GradientSync(cfg), GradientSync(cfg)
+        enc_d = [sync_d.encode(s_, g_) for s_, g_ in zip(
+            sparsify.unstack_states(st_d, n), grads.to(dev))]
+        enc_c = [sync_c.encode(s_, g_) for s_, g_ in zip(
+            sparsify.unstack_states(st_c, n), grads)]
+        gaps = []
+        for (a_d, sk_d), (a_c, sk_c) in zip(enc_d, enc_c):
+            check(bits_equal(a_d.cpu(), a_c), f"paper {kind} J={j}: a")
+            gaps.append(sketch_gap(sk_d, sk_c, a_c))
+        sk_agg = sync_d.mean_sketch([sk for _, sk in enc_d])
+        g_d, new_d, idx_d = sync_d.close_sketch_round(
+            sparsify.unstack_states(st_d, n), [a for a, _ in enc_d], sk_agg)
+        g_c, new_c, idx_c = sync_c.close_sketch_round(
+            sparsify.unstack_states(st_c, n), [a for a, _ in enc_c],
+            sk_agg.cpu())
+        check(torch.equal(idx_d.cpu(), idx_c), f"paper {kind} J={j}: "
+              "indices differ card vs CPU")
+        new_d, new_c = (sparsify.stack_states(x) for x in (new_d, new_c))
+        res.update(width=sk_agg.shape[1], sketch_err=max(e for e, _ in gaps),
+                   sketch_bound_share=max(x for _, x in gaps))
+    else:
+        g_d, new_d = sparsify.make_round_fn(cfg, n)(st_d, grads.to(dev))
+        g_c, new_c = sparsify.make_round_fn(cfg, n)(st_c, grads)
+    res["launches"] = launch_counts()
+    check(bits_equal(g_d.cpu(), g_c), f"paper {kind} J={j}: g_agg differs "
+          "card vs CPU")
+    check(set(new_d) == set(new_c), f"paper {kind}: state keys")
+    for key in new_c:
+        check(bits_equal(new_d[key].cpu(), new_c[key]),
+              f"paper {kind} J={j}: {key} differs card vs CPU")
+    if dev.type == "cuda":
+        for name, count in res["launches"].items():
+            want = n if name in PAPER_ROUND_KERNELS[kind] else 0
+            check(count == want, f"paper {kind} J={j}: {name} launched "
+                  f"{count} times, expected {want}")
+    res["state"] = sorted(new_c)
+    return res
+
+
+def paper_claims(fig1, fig2, genie, fig3) -> dict:
+    """The assertions of tests/test_paper_claims.py on the drivers'
+    results (fig1 over its first 60 iterations, as the test runs it)."""
+    topk1 = fig1["topk"][:60]
+    stall = sum(1 for v in topk1 if abs(v - topk1[0]) < 1e-6)
+    gap1 = max(abs(a - b) for a, b in zip(fig1["regtopk"][4:40],
+                                          fig1["none"][4:40]))
+    check(stall >= 45, f"fig1: TOP-1 stalls {stall} iterations")
+    check(gap1 < 0.05, f"fig1: REGTOP-1 strays {gap1} from dense")
+    check(abs(fig1["regtopk"][8] - fig1["none"][8]) < 0.01, "fig1: t=8")
+    check(fig1["regtopk"][20] < 0.1 < fig1["topk"][20], "fig1: t=20")
+    dense, topk, reg = (fig2[(0.6, kind)] for kind in
+                        ("none", "topk", "regtopk"))
+    check(dense[-1] < 1e-3, f"fig2: dense ends at {dense[-1]}")
+    check(topk[-1] > 5 * dense[-1], "fig2: TOP-k does not plateau")
+    check(topk[-1] > 0.5 * topk[len(topk) // 2], "fig2: TOP-k not flat")
+    check(reg[-1] < 1.5 * topk[-1], "fig2: REGTOP-k above 1.5x TOP-k")
+    genie_gap = genie[(0.6, "globaltopk")][-1]
+    check(genie_gap < 1e-3, f"genie ends at {genie_gap}")
+    acc_t, acc_r = fig3["topk"][-1][1], fig3["regtopk"][-1][1]
+    check(acc_r >= acc_t - 0.02, f"fig3: regtopk {acc_r} < topk {acc_t}")
+    return {"fig1_topk_stall": stall, "fig1_regtopk_gap": gap1,
+            "fig2_final": {"none": dense[-1], "topk": topk[-1],
+                           "regtopk": reg[-1]},
+            "genie_final": genie_gap,
+            "fig3_acc": {"topk": acc_t, "regtopk": acc_r}}
+
+
+def phase_paper(dev) -> dict:
+    """The paper's experiments on the card through the port's drivers:
+    first one round of each kind at fig2's and fig3's shapes held against
+    the CPU, then fig1, fig2 at S = 0.6 (dense, TOP-k, REGTOP-k), the
+    genie at fig2's size, EXPERIMENTS.md's fig2 table (REGTOP-k, the
+    sketch, the genie at S = 0.4, 0.5, 0.6) and fig3; the claims of
+    tests/test_paper_claims.py on the results, each figure's seconds and
+    its kernel launches (counted from 0 before it)."""
+    import torch
+    from repro_torch import paper_experiments as pe
+    for i, (n, j, sparsity) in enumerate(PAPER_SHAPES):
+        for kind in PAPER_ROUND_KERNELS:
+            emit("paper_round", **paper_round_case(dev, kind, n, j,
+                                                   sparsity, seed=30 + i))
+    runs = {
+        "fig1": lambda: pe.fig1_toy_logistic(iters=FIG1_ITERS, device=dev),
+        "fig2": lambda: pe.fig2_linreg(
+            S_values=(0.6,), iters=FIG2_ITERS,
+            kinds=("none", "topk", "regtopk"), device=dev),
+        "genie": lambda: pe.fig2_linreg(
+            S_values=(0.6,), iters=FIG2_ITERS, kinds=("globaltopk",),
+            device=dev),
+        "fig2_table": lambda: pe.fig2_linreg(
+            iters=FIG2_TABLE_ITERS,
+            kinds=("regtopk", "sketchtopk", "globaltopk"), device=dev),
+        "fig3": lambda: pe.fig3_nn(iters=FIG3_ITERS, eval_every=FIG3_ITERS,
+                                   device=dev),
+    }
+    out, seconds, launches = {}, {}, {}
+    for name, run in runs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        out[name] = run()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {key: val for key, val in launch_counts().items()
+                          if val}
+        emit(f"paper_{name}", seconds=seconds[name],
+             launches=launches[name])
+    claims = paper_claims(out["fig1"], out["fig2"], out["genie"], out["fig3"])
+    table = out["fig2_table"]
+    for kind in ("regtopk", "sketchtopk", "globaltopk"):
+        check(all(math.isfinite(table[(s_, kind)][-1])
+                  for s_ in (0.4, 0.5, 0.6)), f"fig2 table {kind}")
+    print(f"fig2 table, final ||w - w*|| after {FIG2_TABLE_ITERS} "
+          "iterations:\n    S   regtopk  sketchtopk  globaltopk", flush=True)
+    for s_ in (0.4, 0.5, 0.6):
+        print(f"  {s_:.1f}  " + "  ".join(
+            f"{table[(s_, kind)][-1]:.2e}"
+            for kind in ("regtopk", "sketchtopk", "globaltopk")), flush=True)
+    total = {}
+    for counts in launches.values():
+        for key, val in counts.items():
+            total[key] = total.get(key, 0) + val
+    for name in ("sketch_encode", "scores", "apply"):
+        check(total.get(name, 0) > 0, f"paper: {name} never launched")
+    emit("paper", seconds=seconds, launches=total, claims=claims,
+         fig2_table={f"{s_}/{kind}": table[(s_, kind)][-1]
+                     for s_ in (0.4, 0.5, 0.6)
+                     for kind in ("regtopk", "sketchtopk", "globaltopk")},
+         fig2_table_iters=FIG2_TABLE_ITERS)
+    return total
+
+
+WORLD_J = 1 << 24
+WORLD_CASES = {      # dense SGD on dyadic gradients (exact in any order)
+    "regtopk_fused_sparse": dict(kind="regtopk", pipeline="fused",
+                                 comm_mode="sparse"),
+    "none": dict(kind="none"),
+}
+
+
+def world_grads(name: str, world: int, j: int):
+    """(SYNC_STEPS, world, j) CPU gradients of a world case, the same in
+    every rank's process: Gaussian, or dyadic for the dense all-reduce,
+    whose sums are then exact in NCCL's order too."""
+    import torch
+    gen = torch.Generator().manual_seed(19)
+    shape = (SYNC_STEPS, world, j)
+    if name == "none":
+        return dyadic(gen, SYNC_STEPS * world * j, "cpu").reshape(shape)
+    return torch.randn(shape, generator=gen)
+
+
+def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
+               j: int = WORLD_J) -> int:
+    """One rank of the multi-card check: GradientSync over the process
+    group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
+    bitwise identical on every rank and, like every rank's final state,
+    equal to an in-process round() of the same workers (on rank 0)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import SparsifierConfig
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    cuda = backend == "nccl"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+
+    def gather(x):
+        x = x.reshape(-1)
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return out
+
+    try:
+        for name, fields in WORLD_CASES.items():
+            cfg = SparsifierConfig(sparsity=SPARSITY, mu=MU, **fields)
+            grads = world_grads(name, world, j)
+            sync = GradientSync(cfg)
+            st = sparsify.init_state(cfg, j, dev)
+            ip_sync = GradientSync(cfg)
+            ip_states = [sparsify.init_state(cfg, j, dev)
+                         for _ in range(world)]
+            step_ms = []
+            for t in range(SYNC_STEPS):
+                g = grads[t, rank].to(dev)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                g_agg, st = sync(st, g)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                every = gather(g_agg)
+                if rank == 0:
+                    for r, other in enumerate(every):
+                        check(bits_equal(other, every[0]),
+                              f"world {name} step {t}: g_agg of rank {r} "
+                              "differs from rank 0's")
+                    want, ip_states = ip_sync.round(
+                        ip_states, [grads[t, r].to(dev)
+                                    for r in range(world)])
+                    check(bits_equal(g_agg, want), f"world {name} step {t}:"
+                          " g_agg differs from the in-process round")
+            for key in sorted(st):
+                every = gather(st[key])
+                if rank == 0:
+                    for r, other in enumerate(every):
+                        check(bits_equal(other, ip_states[r][key].reshape(-1)),
+                              f"world {name}: rank {r}'s {key} differs from "
+                              "the in-process round's")
+            if rank == 0:
+                emit("world", case=name, backend=backend, world=world, j=j,
+                     steps=SYNC_STEPS, sparsifier=dataclasses.asdict(cfg),
+                     comm=sync.comm, step_ms=step_ms,
+                     bitwise_across_ranks=True, equals_round=True,
+                     state=sorted(st))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_world(world: int, src: str) -> None:
+    """Start ``world`` rank processes of this script (one card each, NCCL
+    over a localhost rendezvous), relay their output, and stop them all."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--world", str(world),
+         "--rank", str(r), "--port", str(port), "--src", src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(log, end="", flush=True)
+        check(p.returncode == 0, f"world rank {r} exited {p.returncode}")
+
+
 def kernel_row(name: str, res: dict, small: dict, launches: int,
                path: str, parity: str, library_ms=None, **extra) -> dict:
     bms, by = bound_ms(res[f"{name}_bytes"], res[f"{name}_ops"])
@@ -1049,6 +1374,12 @@ def main(argv=None) -> int:
                     help="the port's source tree (default: this checkout's "
                     "src/), e.g. an unpacked older commit's, to compare "
                     "two versions in one run")
+    ap.add_argument("--world", type=int, default=0,
+                    help="run only the multi-card check: GradientSync over "
+                    "NCCL on this many cards (one process each) against an "
+                    "in-process round; needs that many cards")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -1056,9 +1387,17 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.rank is not None:
+        return world_rank(args.rank, args.world, args.port)
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
+    if args.world:
+        check(torch.cuda.device_count() >= args.world,
+              f"--world {args.world} needs {args.world} cards, found "
+              f"{torch.cuda.device_count()}")
+        phase_world(args.world, os.path.abspath(args.src))
+        return finish(smi, None)
     if args.train:
         for name in args.train:
             fields, kernels, schedule = TRAIN_PATHS[name]
@@ -1073,6 +1412,7 @@ def main(argv=None) -> int:
     phase_compress(dev)
     phase_sketch_sync(dev)
     ref_launches = phase_reference_sync(dev)
+    phase_paper(dev)
     train = {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
         train[name], run, state = phase_train(

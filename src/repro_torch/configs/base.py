@@ -71,12 +71,13 @@ class SparsifierConfig:
     The port serves kind in {topk, dgc, regtopk} on both pipelines (the
     fused two-sweep pipeline with the exact selector; the reference
     pipeline with the exact, histogram and histogram_kernel selectors,
-    and REGTOP-k with either ``state_format``) and kind="sketchtopk" on
-    both with the exact selector; all with global allocation, one
-    bucket, fp32 EF and sparse or simulate comm; elastic participation
-    (``combine``, ``err_decay``) on every kind but sketchtopk. The
-    fields past ``momentum`` exist to select among the reference's paths
-    and raise for any other value."""
+    and REGTOP-k with either ``state_format``), kind="sketchtopk" on
+    both with the exact selector, and the baselines kind="none" (dense
+    SGD) and kind="globaltopk" (the genie, any selector); all with
+    global allocation, one bucket, fp32 EF and sparse, simulate or dense
+    comm; elastic participation (``combine``, ``err_decay``) on every
+    kind but sketchtopk. The fields past ``momentum`` exist to select
+    among the reference's paths and raise for any other value."""
     kind: str = "regtopk"
     sparsity: float = 0.01
     k: int = 0                    # explicit k; 0 -> derive from sparsity

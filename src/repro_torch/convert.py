@@ -2,9 +2,16 @@
 
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
 the port's are nested dicts of tensors in the same layout, so parameters
-and fp32 state move as they are. The one translation is the index dtype:
-the reference's uint32 indices become the port's int32 view of the same
-bits (``core.bigvec``), and back.
+and fp32 state move as they are. Two translations: the index dtype (the
+reference's uint32 indices become the port's int32 view of the same
+bits, ``core.bigvec``, and back), and the CNN's convolution weights,
+HWIO in the reference and OIHW in the port (``models.cnn``).
+
+The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
+the order of the reference's ``jax.flatten_util.ravel_pytree`` over its
+parameter dict: sorted keys, each leaf flattened C-order in its HWIO
+layout. So index i names the same weight in both packages, and
+selection, tie order, the posterior and the sketch's hashes agree.
 """
 from __future__ import annotations
 
@@ -52,3 +59,48 @@ def state_to_jax(state: dict) -> dict:
     """Inverse of :func:`state_from_jax`: ``idx_prev`` back to uint32."""
     return {key: _to_numpy(val, uint_keys=key == "idx_prev")
             for key, val in state.items()}
+
+
+def _is_conv(leaf) -> bool:
+    return leaf.ndim == 4
+
+
+def cnn_params_from_jax(tree, device="cpu") -> dict:
+    """The reference's CNN parameters (numpy, HWIO) -> the port's (OIHW)."""
+    return {key: _to_tensor(np.transpose(val, (3, 2, 0, 1))
+                            if _is_conv(np.asarray(val)) else val,
+                            device).float()
+            for key, val in tree.items()}
+
+
+def cnn_params_to_jax(params: dict) -> dict:
+    """The port's CNN parameters (OIHW) -> numpy in the reference's HWIO."""
+    return {key: _to_numpy(val.permute(2, 3, 1, 0) if _is_conv(val)
+                           else val)
+            for key, val in params.items()}
+
+
+def ravel_cnn(params: dict) -> torch.Tensor:
+    """The CNN parameters (or their gradients) as one fp32 J-vector in the
+    reference's ravel order."""
+    return torch.cat([(params[key].permute(2, 3, 1, 0)
+                       if _is_conv(params[key]) else params[key]).reshape(-1)
+                      for key in sorted(params)])
+
+
+def unravel_cnn(vec: torch.Tensor, like: dict) -> dict:
+    """Inverse of :func:`ravel_cnn`: the J-vector back into parameters of
+    ``like``'s shapes (OIHW, contiguous)."""
+    out, pos = {}, 0
+    for key in sorted(like):
+        shape = like[key].shape
+        n = like[key].numel()
+        leaf = vec[pos:pos + n]
+        if len(shape) == 4:
+            o, i, kh, kw = shape
+            leaf = leaf.reshape(kh, kw, i, o).permute(3, 2, 0, 1)
+        out[key] = leaf.reshape(shape).contiguous()
+        pos += n
+    if pos != vec.numel():
+        raise ValueError(f"J-vector of {vec.numel()} for {pos} parameters")
+    return out

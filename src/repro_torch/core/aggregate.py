@@ -1,17 +1,22 @@
 """Gradient aggregation over the data-parallel process group (the port
 of ``repro.core.aggregate``).
 
-Two communication modes, as in the reference:
+Three communication modes, as in the reference:
 
+- ``dense``: the dense all-reduce of the raw gradient
+  (``dense_allreduce``, the reference's ``pmean``): dense SGD (kind
+  none) and the genie (kind globaltopk, whose top-k is taken of the
+  aggregate) run it whatever mode was asked; a local or sketch selection
+  asked for ``dense`` runs the simulate combine, as in the reference.
 - ``sparse`` (local selection, kind topk/dgc/regtopk): every rank
   all-gathers the k (value, index) pairs of every rank and scatter-adds
-  them locally, one ``index_add_`` per rank in rank order, then divides
-  by n. Within a rank the k indices are distinct, so each ``index_add_``
-  is deterministic on the card too, and the rank-order sums reproduce
-  the reference's: g_agg is identical on every rank, which REGTOP-k's
-  posterior assumes. Comm per step is n*k*8 bytes.
+  them locally, one ``index_add_`` per rank in rank order, then scales
+  by 1/n. Within a rank the k indices are distinct, so each
+  ``index_add_`` is deterministic on the card too, and the rank-order
+  sums reproduce the reference's: g_agg is identical on every rank,
+  which REGTOP-k's posterior assumes. Comm per step is n*k*8 bytes.
 - ``simulate``: every rank all-reduces its dense sparsified gradient
-  ghat (a SUM, then a division by n: the reference's ``pmean``). Exact
+  ghat (a SUM, then the scale by 1/n: the reference's ``pmean``). Exact
   sparsified-training numerics at dense comm volume. A config whose
   compress step packs no fixed-size pairs (the reference pipeline's
   histogram selectors) runs it even when ``comm_mode="sparse"`` asks
@@ -33,21 +38,28 @@ step, from ``core.faults``). A sitting-out worker still ships its inert
 payload, so every collective keeps its shape; the sparse combine
 all-gathers each rank's liveness and live count beside the pairs and
 routes dead slots to the sentinel j (``bigvec.live_idx``), the simulate
-combine all-reduces where(p, ghat, 0), and the normaliser is the active
-count n_active (``combine="mean"``) or, per coordinate, the number of
-active workers that selected it (``combine="support"``). A worker whose
-packed values (or dense ghat) are not finite is dropped for the step
-(the non-finite guard); ``with_stats`` reports ``n_active`` and
-``dropped_nonfinite``. Sketch selection under a mask is not ported yet
-(ROADMAP A12).
+and dense combines all-reduce where(p, x, 0), and the normaliser is the
+active count n_active (``combine="mean"``) or, per coordinate, the
+number of active workers that selected it (``combine="support"``). A
+worker whose packed values (or dense ghat) are not finite is dropped
+for the step (the non-finite guard); ``with_stats`` reports
+``n_active`` and ``dropped_nonfinite``. Sketch selection under a mask
+is not ported yet (ROADMAP A12).
 
-Divisions by a worker count divide by a tensor on the card: torch turns
-a division by a host scalar into a multiply by its reciprocal there,
-which differs from the reference's division at counts that are not a
-power of two.
+Division by a worker count follows the compiled reference. XLA rewrites
+a division by a constant into a multiply by its fp32 reciprocal, so a
+mean over the static world size (``pmean``, the non-elastic combines,
+the in-process rounds' ``/ n``) is ``x * (1 / n)``, which torch computes
+the same way on the CPU and on the card. A count that is only known at
+run time (n_active, the support counts) is a true division, by a 0-d
+tensor on the data's device: torch turns a division by a host scalar
+into a multiply by its reciprocal on the card.
 
 Without an initialised process group the world is one rank; the same code
-runs and gathers nothing.
+runs and gathers nothing. The in-process drivers (:meth:`GradientSync.
+round`, :meth:`GradientSync.make_round_fn`) run N workers in one process
+for the tests and the paper experiments; ``comm_bytes_per_step`` and
+its two companions model the wire bytes of a config.
 """
 from __future__ import annotations
 
@@ -62,6 +74,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import bigvec, select, sketch, sparsify
+from repro_torch.core.numerics import fma_f32
 from repro_torch.kernels.compress import dispatch
 from repro_torch.kernels.fused_ef.ops import fused_apply_mask
 
@@ -94,8 +107,7 @@ def check_supported(cfg: SparsifierConfig) -> None:
             f"combine={cfg.combine!r}, err_decay={cfg.err_decay!r} with "
             f"kind='sketchtopk': {_SKETCH_ELASTIC}")
     for field, served, item in (
-            ("comm_mode", ("sparse", "simulate"),
-             "A5 (dense all-reduce)"),
+            ("comm_mode", ("sparse", "simulate", "dense"), "A5"),
             ("wire_dtype", ("float32",), "A8 (bf16 wire)")):
         if getattr(cfg, field) not in served:
             raise NotImplementedError(
@@ -122,10 +134,43 @@ def _rank_sum(xs):
     return functools.reduce(operator.add, xs)
 
 
+def _weighted_sum(ws, xs):
+    """sum_i w_i * x_i in rank order, as the compiled reference computes
+    a Python ``sum(w * x ...)``: XLA's CPU backend contracts each product
+    that feeds an add into a fused multiply-add, the first add fusing
+    w_0 * x_0 over the rounded w_1 * x_1 and every later add its own
+    product (one rounding per term; the same bits as two roundings
+    where the weights are powers of two)."""
+    if len(xs) == 1:
+        return ws[0] * xs[0]
+    acc = fma_f32(xs[0], ws[0], xs[1] * ws[1])
+    for w, x in zip(ws[2:], xs[2:]):
+        acc = fma_f32(x, w, acc)
+    return acc
+
+
 def _n(n: int, like: torch.Tensor) -> torch.Tensor:
-    """The worker count n as a 0-d tensor on like's device, so that a
-    division by it is a true division on the card too."""
-    return torch.full((), n, dtype=like.dtype, device=like.device)
+    """The worker count n as a 0-d fp32 tensor on like's device."""
+    return torch.full((), n, dtype=torch.float32, device=like.device)
+
+
+def _mean_scale_(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n for the static worker count n, in place, as the compiled
+    reference computes it: x * fp32(1/n) (XLA rewrites the division by a
+    constant; the two agree where n is a power of two)."""
+    return x.mul_(1.0 / n)
+
+
+def _active_mean(x: torch.Tensor, p: torch.Tensor, group) -> torch.Tensor:
+    """The elastic mean of the reference's dense and simulate combines:
+    the SUM all-reduce of where(p, x, 0), divided by max(n_active, 1)."""
+    n, _ = world(group)
+    dsum = torch.where(p, x, 0.0)
+    na = p.to(x.dtype)
+    if n > 1:
+        dist.all_reduce(dsum, group=group)
+        dist.all_reduce(na, group=group)
+    return dsum / na.clamp(min=1.0)
 
 
 def _gather(x: torch.Tensor, group) -> list:
@@ -137,15 +182,25 @@ def _gather(x: torch.Tensor, group) -> list:
     return out
 
 
+def dense_allreduce(g: torch.Tensor, group=None) -> torch.Tensor:
+    """g_agg = (1/n) sum_ranks g_r (the reference's ``pmean``) into a new
+    buffer: the caller's gradient is left as it is; over one rank the
+    identity, with no copy."""
+    n, _ = world(group)
+    if n == 1:
+        return g
+    return simulate_allreduce(g.clone(), group)
+
+
 def simulate_allreduce(ghat: torch.Tensor, group=None) -> torch.Tensor:
-    """g_agg = (1/n) sum_ranks ghat_r: a SUM all-reduce, then a division
-    by n (the reference's ``pmean``), in place on ``ghat``; over one rank
+    """g_agg = (1/n) sum_ranks ghat_r: a SUM all-reduce, then the scale by
+    1/n (the reference's ``pmean``), in place on ``ghat``; over one rank
     the identity."""
     n, _ = world(group)
     if n == 1:
         return ghat
     dist.all_reduce(ghat, op=dist.ReduceOp.SUM, group=group)
-    return ghat.div_(_n(n, ghat))
+    return _mean_scale_(ghat, n)
 
 
 def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
@@ -166,7 +221,7 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
         dense = torch.zeros(j, dtype=values.dtype, device=values.device)
         for v, i in zip(_gather(values, group), _gather(indices, group)):
             bigvec.scatter_add_(dense, i, v)
-        return dense.div_(_n(n, dense))
+        return _mean_scale_(dense, n)
     dev, k = values.device, values.numel()
     p = (torch.ones((), dtype=torch.bool, device=dev) if participate is None
          else participate.reshape(()))
@@ -200,7 +255,7 @@ def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
     n, _ = world(group)
     dense = torch.zeros(j, dtype=values.dtype, device=values.device)
     bigvec.scatter_add_(dense, indices, _rank_sum(_gather(values, group)))
-    return dense.div_(_n(n, dense))
+    return _mean_scale_(dense, n)
 
 
 def _guard(p: torch.Tensor, payload: torch.Tensor):
@@ -260,6 +315,14 @@ class GradientSync:
         as it has read them (the caller must not use ``state`` again)."""
         self.check_participation(participate)
         n, _ = world(self.group)
+        if self.selection in ("none", "global"):
+            p = None if participate is None else participate.reshape(())
+            g_agg = self._sync_dense(g, p)
+            new = {"step": state["step"] + 1}
+            if not with_stats:
+                return g_agg, new
+            zero = None if p is None else torch.zeros((), device=g.device)
+            return g_agg, new, self._stats(p, zero, g_agg)
         if self.selection == "sketch":
             a, sk = self.encode(state, g)
             g_agg, new, _ = self.decode_exchange(self.allreduce_sketch(sk),
@@ -301,25 +364,36 @@ class GradientSync:
             return g_agg, new
         return g_agg, new, self._stats(p_eff, dropped, g_agg)
 
+    def _sync_dense(self, g: torch.Tensor, p) -> torch.Tensor:
+        """The baselines' step: the dense all-reduce of the gradient (its
+        elastic mean under a mask); the genie then keeps the top-k of the
+        aggregate, as mask * a_agg (a multiply, so an unselected
+        negative entry is -0.0, as in the reference)."""
+        gf = g.float()
+        with record_function("sync/dense"):
+            agg = (dense_allreduce(gf, self.group) if p is None
+                   else _active_mean(gf, p, self.group))
+        if self.selection == "none":
+            return agg
+        with record_function("sync/select"):
+            k = sparsify.resolve_k(self.cfg, agg.numel())
+            return select.topk_mask(agg, k, self.cfg.selector) * agg
+
     def _simulate_elastic(self, out, ghat, p_eff, j: int) -> torch.Tensor:
         """The simulate combine under participation or the support
         rule: the SUM all-reduce of where(p, ghat, 0), divided by the
         active count or by each coordinate's active selection count."""
         pe = (torch.ones((), dtype=torch.bool, device=ghat.device)
               if p_eff is None else p_eff)
-        n, _ = world(self.group)
-        dsum = torch.where(pe, ghat, 0.0)
         if self.cfg.combine == "support":
+            n, _ = world(self.group)
+            dsum = torch.where(pe, ghat, 0.0)
             cnts = torch.where(pe, sparsify.dense_mask(out, j), 0.0)
             if n > 1:
                 dist.all_reduce(dsum, group=self.group)
                 dist.all_reduce(cnts, group=self.group)
             return torch.where(cnts > 0, dsum / cnts.clamp(min=1.0), 0.0)
-        na = pe.to(ghat.dtype)
-        if n > 1:
-            dist.all_reduce(dsum, group=self.group)
-            dist.all_reduce(na, group=self.group)
-        return dsum / na.clamp(min=1.0)
+        return _active_mean(ghat, pe, self.group)
 
     def _stats(self, p_eff, dropped, like) -> dict:
         """{"n_active", "dropped_nonfinite"}: the sums over ranks of the
@@ -327,7 +401,7 @@ class GradientSync:
         size and 0 without a mask)."""
         n, _ = world(self.group)
         if p_eff is None:
-            return {"n_active": _n(n, like).float(),
+            return {"n_active": _n(n, like),
                     "dropped_nonfinite": torch.zeros((), device=like.device)}
         both = torch.stack([p_eff.to(torch.float32), dropped])
         if n > 1:
@@ -366,7 +440,7 @@ class GradientSync:
         with record_function("sketch/allreduce"):
             if n > 1:
                 dist.all_reduce(sk, op=dist.ReduceOp.SUM, group=self.group)
-            return sk.div_(_n(n, sk))
+            return _mean_scale_(sk, n)
 
     def decode(self, sk_agg: torch.Tensor, j: int) -> torch.Tensor:
         """The shared top-k indices (int64, lax.top_k order) of the
@@ -418,6 +492,8 @@ class GradientSync:
         self.check_participation(participate)
         if self.selection == "sketch":
             return self._round_sketch(states, grads, omegas)
+        if self.selection == "global":
+            return self._round_global(states, grads, omegas, participate)
         if participate is not None:
             return self._round_elastic(states, grads, participate)
         n = len(grads)
@@ -428,8 +504,8 @@ class GradientSync:
         self._count(outs)
         # rank order without a leading zero, as the compiled reference
         # sums (its ``0 +`` is dropped, which keeps the sign of -0.0)
-        g_agg = _rank_sum([w * sparsify.dense_ghat(o, j)
-                           for w, o in zip(omegas, outs)])
+        g_agg = _weighted_sum(omegas, [sparsify.dense_ghat(o, j)
+                                       for o in outs])
         return g_agg, [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                        for o in outs]
 
@@ -464,21 +540,196 @@ class GradientSync:
         """Per-worker encode, one sketch combine, one shared mask, each
         worker's error feedback closed at that mask (dense form, as the
         reference's ``_round_sketch``)."""
-        n = len(grads)
-        j = grads[0].numel()
         encs = [self.encode(s, g) for s, g in zip(states, grads)]
+        sk_agg = self.mean_sketch([sk for _, sk in encs], omegas)
+        g_agg, new, _ = self.close_sketch_round(states, [a for a, _ in encs],
+                                                sk_agg, omegas)
+        return g_agg, new
+
+    @staticmethod
+    def mean_sketch(sketches: list, omegas=None) -> torch.Tensor:
+        """The in-process round's combine of the workers' sketches: their
+        mean (the rank-order sum scaled by 1/n), or their omega-weighted
+        sum."""
         if omegas is None:
-            sk_agg = _rank_sum([sk for _, sk in encs]) / _n(n, encs[0][1])
-        else:
-            sk_agg = _rank_sum([w * sk for w, (_, sk) in zip(omegas, encs)])
+            return _rank_sum(sketches) * (1.0 / len(sketches))
+        return _weighted_sum(omegas, sketches)
+
+    def close_sketch_round(self, states: list, a_list: list,
+                           sk_agg: torch.Tensor, omegas=None):
+        """The rest of a sketch round from the combined sketch: the shared
+        top-k, every worker's ghat and error through the apply kernel, and
+        g_agg; returns (g_agg, new_states, the shared indices). A caller
+        may hand two devices the same ``sk_agg``."""
+        j = a_list[0].numel()
         idx = self.decode(sk_agg, j)
         mask = bigvec.mask_from_indices(j, idx)
-        applied = [fused_apply_mask(a, mask) for a, _ in encs]
+        applied = [fused_apply_mask(a, mask) for a in a_list]
         ghats = [gh for gh, _ in applied]
-        if omegas is None:
-            g_agg = _rank_sum(ghats) / _n(n, ghats[0])
-        else:
-            g_agg = _rank_sum([w * gh for w, gh in zip(omegas, ghats)])
+        g_agg = (_rank_sum(ghats) * (1.0 / len(ghats)) if omegas is None
+                 else _weighted_sum(omegas, ghats))
         key = sparsify.err_key(self.cfg)
         return g_agg, [{key: err, "step": st["step"] + 1}
-                       for (_, err), st in zip(applied, states)]
+                       for (_, err), st in zip(applied, states)], idx
+
+    def _round_global(self, states, grads, omegas, participate):
+        """The genie's round (the reference's ``_round_global``): the
+        top-k mask of the true aggregate, returned as mask * a_agg; the
+        states pass through (the genie keeps no error feedback). Under a
+        mask the aggregate is the mean over the active workers; explicit
+        ``omegas`` with a mask raise, as in the reference."""
+        n = len(grads)
+        gfs = [g.float() for g in grads]
+        if participate is not None:
+            if omegas is not None:
+                raise ValueError(
+                    "explicit omegas with a participation mask are not "
+                    "defined for the genie baseline — the elastic "
+                    "combine renormalizes equal weights over the active "
+                    "set")
+            dev = gfs[0].device
+            pfs = [torch.as_tensor(p, dtype=torch.bool).to(dev).reshape(())
+                   for p in participate]
+            na = _rank_sum([p.to(torch.float32) for p in pfs])
+            a_agg = _rank_sum([torch.where(p, gf, 0.0)
+                               for p, gf in zip(pfs, gfs)])
+            a_agg = a_agg / na.clamp(min=1.0)
+        elif omegas is None:
+            a_agg = _rank_sum(gfs) * (1.0 / n)
+        else:
+            a_agg = _weighted_sum(omegas, gfs)
+        k = sparsify.resolve_k(self.cfg, a_agg.numel())
+        return select.topk_mask(a_agg, k, self.cfg.selector) * a_agg, states
+
+    def make_round_fn(self, n_workers: int):
+        """The reference's ``make_round_fn``: a round over stacked worker
+        states (leading axis N) and grads (N, J) with equal weights
+        omega = 1/N, returning (g_agg, new stacked states). Local
+        selection compresses worker by worker (a Python loop stands for
+        the reference's vmap, which the kernels do not take) and sums the
+        ghats as the compiled ``jnp.sum(ghats, 0) * omega`` does: in
+        worker order from a leading +0.0, then one multiply by omega
+        (round() instead sums the products w * ghat without a leading
+        zero, and the port follows each). Coordinated selection (sketch,
+        genie) unstacks, delegates to :meth:`round` and restacks, as the
+        reference's ``round_coord`` does."""
+        omega = 1.0 / n_workers
+
+        if self.selection in ("sketch", "global"):
+            def round_coord(states: dict, grads: torch.Tensor):
+                n = grads.shape[0]
+                g_agg, new = self.round(sparsify.unstack_states(states, n),
+                                        list(grads))
+                return g_agg, sparsify.stack_states(new)
+            return round_coord
+
+        def round_fn(states: dict, grads: torch.Tensor):
+            n, j = grads.shape
+            outs = [sparsify.compress(self.cfg, st, g, omega=omega)
+                    for st, g in zip(sparsify.unstack_states(states, n),
+                                     grads)]
+            self._count(outs)
+            total = torch.zeros(j, dtype=torch.float32, device=grads.device)
+            for out in outs:
+                total = total + sparsify.dense_ghat(out, j)
+            g_agg = total * omega
+            return g_agg, sparsify.stack_states(
+                [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
+                 for o in outs])
+        return round_fn
+
+
+# one-shot deprecation marker for the sync_gradient shim (tests reset it)
+_shim_warned = False
+
+
+def sync_gradient(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
+                  group=None, participate=None, with_stats: bool = False):
+    """Deprecated thin shim over :class:`GradientSync`, bit-identical to
+    ``GradientSync(cfg, group)(state, g, participate=participate,
+    with_stats=with_stats)``; warns ``DeprecationWarning`` once per
+    process."""
+    global _shim_warned
+    if not _shim_warned:
+        _shim_warned = True
+        warnings.warn(
+            "aggregate.sync_gradient is deprecated: build an "
+            "aggregate.GradientSync(cfg, group) once per run and call it "
+            "per step (DESIGN.md §2.8).",
+            DeprecationWarning, stacklevel=2)
+    return GradientSync(cfg, group)(state, g, participate=participate,
+                                    with_stats=with_stats)
+
+
+# -- wire-byte models (pure Python over the config) ---------------------
+
+def comm_bytes_per_step(cfg: SparsifierConfig, j: int, n_workers: int,
+                        n_active=None) -> dict:
+    """Communication bytes per worker per step under the config's
+    effective comm mode (the reference's model, DESIGN.md §2.5): dense
+    bytes for the dense-wire baselines and the simulate combine, the
+    sketch all-reduce plus k values for sketch selection, n * k
+    (value, index) pairs otherwise. ``n_active`` (possibly fractional)
+    models an elastic wire on which absent workers send nothing; the
+    ratio's denominator stays the full-fleet dense all-reduce. A config
+    outside the port raises, naming its ROADMAP item."""
+    check_supported(cfg)
+    k = sparsify.resolve_k(cfg, j)
+    dense_ar = 2 * j * 4 * (n_workers - 1) / n_workers   # ring, fp32
+    na = n_workers if n_active is None else min(float(n_active),
+                                                float(n_workers))
+    extra = {} if n_active is None else {"n_active": na}
+    eff = dispatch.effective_comm_mode(cfg)
+    if sparsify.selection(cfg) == "none" or eff in ("dense", "simulate"):
+        b = dense_ar if na <= 1 else 2 * j * 4 * (na - 1) / na
+        return {"bytes": b, "k": k, "ratio": b / dense_ar,
+                "effective_comm_mode": eff, "allocation": cfg.allocation,
+                **extra}
+    if sparsify.selection(cfg) == "sketch":
+        sk = sketch_allreduce_bytes(cfg, j, n_workers)
+        vb = _wire_value_bytes(cfg)
+        b = sk + na * k * vb
+        return {"bytes": b, "k": k, "ratio": b / dense_ar,
+                "sketch_bytes": sk, "wire_value_bytes": vb,
+                "effective_comm_mode": eff, "allocation": cfg.allocation,
+                **extra}
+    kp = dispatch.packed_len(cfg, j)
+    vb = _wire_value_bytes(cfg)
+    sparse = na * kp * (vb + 4)          # all-gathered values + indices
+    return {"bytes": sparse, "k": k, "packed_len": kp,
+            "wire_value_bytes": vb, "ratio": sparse / dense_ar,
+            "effective_comm_mode": eff, "allocation": cfg.allocation,
+            **extra}
+
+
+def _wire_value_bytes(cfg: SparsifierConfig) -> int:
+    """Wire bytes of one packed value (indices stay 4-byte)."""
+    return getattr(torch, cfg.wire_dtype).itemsize
+
+
+def sparse_gather_wire_bytes(cfg: SparsifierConfig, j: int,
+                             n_workers: int, n_active=None):
+    """Per-device bytes of the sparse all-gather, or None where the
+    effective comm mode is not sparse: values and indices for local
+    selection, values only under the sketch's shared mask."""
+    check_supported(cfg)
+    if dispatch.effective_comm_mode(cfg) != "sparse":
+        return None
+    na = n_workers if n_active is None else min(float(n_active),
+                                                float(n_workers))
+    pair_bytes = _wire_value_bytes(cfg)
+    if dispatch.wire(cfg) != "values":
+        pair_bytes += 4                  # the uint32 index rides along
+    return na * dispatch.packed_len(cfg, j) * pair_bytes
+
+
+def sketch_allreduce_bytes(cfg: SparsifierConfig, j: int, n_workers: int):
+    """Per-device bytes of the sketch all-reduce (a ring all-reduce of the
+    (rows, width) fp32 sketch), or None for other selections; absent
+    workers' ring slots still move, so no n_active discount applies."""
+    check_supported(cfg)
+    if sparsify.selection(cfg) != "sketch":
+        return None
+    k = sparsify.resolve_k(cfg, j)
+    width = sketch.resolve_width(k, cfg.sketch_width)
+    return 2 * cfg.sketch_rows * width * 4 * (n_workers - 1) / n_workers

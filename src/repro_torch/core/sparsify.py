@@ -54,7 +54,14 @@ its last participating step.
 kind="sketchtopk" selects at the aggregate level
 (``core.aggregate.GradientSync``), so ``compress`` raises for it; its
 state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
-``step``.
+``step``. The two baselines keep ``step`` only, on either pipeline:
+kind="none" (dense data-parallel SGD) compresses to the gradient itself
+under an all-ones mask, and kind="globaltopk" (the genie, the paper's
+§3.1) selects from the aggregate, so ``compress`` raises for it too.
+
+The in-process round drivers of the paper experiments
+(:func:`stack_states`, :func:`sparsified_round`, :func:`make_round_fn`)
+delegate to ``core.aggregate.GradientSync``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -97,12 +104,15 @@ _COMMON = (("num_buckets", (1,), "A8 (bucketed sweeps)"),
 _PIPELINES = ("fused", "reference")
 # per kind: where its top-k is decided
 _SLICE = {"topk": "local", "dgc": "local", "regtopk": "local",
-          "sketchtopk": "sketch"}
-# selectors served per (selection, pipeline); the rest raise A8
-_SELECTORS = {("local", "reference"): ("exact", "histogram",
-                                       "histogram_kernel")}
-_UNPORTED_KINDS = {"randk": "A8", "thresholdk": "A8", "none": "A5",
-                   "globaltopk": "A5"}
+          "sketchtopk": "sketch", "none": "none", "globaltopk": "global"}
+# selectors served per (selection, pipeline); the rest raise A8. The
+# baselines run no pipeline: the genie selects from the aggregate with
+# any selector, and kind none selects nothing
+_ALL_SELECTORS = ("exact", "histogram", "histogram_kernel")
+_SELECTORS = {("local", "reference"): _ALL_SELECTORS,
+              **{(sel, pipe): _ALL_SELECTORS for sel in ("none", "global")
+                 for pipe in _PIPELINES}}
+_UNPORTED_KINDS = {"randk": "A8", "thresholdk": "A8"}
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
@@ -129,8 +139,10 @@ def check_supported(cfg: SparsifierConfig) -> None:
 
 def selection(cfg: SparsifierConfig) -> str:
     """Where the config's top-k is decided: "local" (each worker selects
-    and ships (value, index) pairs) or "sketch" (one shared mask decoded
-    from the all-reduced CountSketch; values travel alone)."""
+    and ships (value, index) pairs), "sketch" (one shared mask decoded
+    from the all-reduced CountSketch; values travel alone), "global"
+    (the genie: the top-k of the all-reduced dense gradient) or "none"
+    (dense SGD: nothing is selected)."""
     check_supported(cfg)
     return _SLICE[cfg.kind]
 
@@ -158,11 +170,13 @@ def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
     """Zero state for a J-length flat gradient: the error state
     (``err_key``) and ``step``; DGC adds its momentum ``mom`` (J,);
     REGTOP-k adds the dense posterior (a_prev, s_prev, g_agg_prev, each
-    (J,)) or the O(k) one (idx_prev, a_prev_sel, g_prev_sel)."""
-    check_supported(cfg)
+    (J,)) or the O(k) one (idx_prev, a_prev_sel, g_prev_sel). The
+    baselines (kinds none and globaltopk) keep ``step`` only."""
 
     def zeros(n, dtype=torch.float32):
         return torch.zeros(n, dtype=dtype, device=device)
+    if selection(cfg) in ("none", "global"):
+        return {"step": zeros((), torch.int32)}
     st = {err_key(cfg): zeros(j), "step": zeros((), torch.int32)}
     if cfg.kind == "dgc":
         st["mom"] = zeros(j)
@@ -193,14 +207,26 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     dict as soon as it has read them, and the caller must not use the
     old state again. ``participate`` is the worker's elastic
     participation bit (a 0-d bool tensor on g's device; None: always in,
-    the bits of the non-elastic path, as is a true bit)."""
-    if selection(cfg) == "sketch":
+    the bits of the non-elastic path, as is a true bit). Kind none
+    returns the gradient as ``ghat`` under an all-ones ``mask`` (both
+    zero for a sitting-out worker)."""
+    sel = selection(cfg)
+    if sel == "global":
+        raise RuntimeError("globaltopk is aggregate-level; run it through "
+                           "aggregate.GradientSync (sync or round)")
+    if sel == "sketch":
         raise RuntimeError("sketchtopk selection is aggregate-level; run "
                            "it through aggregate.GradientSync (call or "
                            "round)")
     k = resolve_k(cfg, g.numel())
     g = g.float()
     p = None if participate is None else participate.reshape(())
+    if sel == "none":
+        ones = torch.ones_like(g)
+        if p is not None:
+            g, ones = torch.where(p, g, 0.0), torch.where(p, ones, 0.0)
+        return CompressOut({"step": state["step"] + 1}, None, None,
+                           ghat=g, mask=ones)
     if cfg.pipeline == "fused":
         return _compress_fused(cfg, state, g, k, omega, p)
     if p is not None:
@@ -414,3 +440,36 @@ def dense_ghat(out: CompressOut, j: int) -> torch.Tensor:
         return out.ghat
     ghat = torch.zeros(j, dtype=out.values.dtype, device=out.values.device)
     return bigvec.scatter_add_(ghat, out.indices, out.values)
+
+
+# ---------------------------------------------------------------------------
+# In-process multi-worker drivers (tests, the paper experiments)
+# ---------------------------------------------------------------------------
+
+def stack_states(states: list) -> dict:
+    """N workers' state dicts -> one dict of (N, ...) tensors."""
+    return {key: torch.stack([st[key] for st in states]) for key in states[0]}
+
+
+def unstack_states(states: dict, n: int) -> list:
+    """Inverse of :func:`stack_states`: N dicts of views, one a worker."""
+    return [{key: val[i] for key, val in states.items()} for i in range(n)]
+
+
+def make_round_fn(cfg: SparsifierConfig, n_workers: int):
+    """An aggregation round over stacked worker states (leading axis N)
+    and grads (N, J), equal weights 1/N: returns (g_agg, new stacked
+    states). A delegate to ``core.aggregate.GradientSync.make_round_fn``,
+    as the reference's is."""
+    from repro_torch.core import aggregate
+    return aggregate.GradientSync(cfg).make_round_fn(n_workers)
+
+
+def sparsified_round(cfg: SparsifierConfig, states: list, grads: list,
+                     omegas: Optional[list] = None,
+                     participate: Optional[list] = None):
+    """One aggregation round over N in-process workers: a delegate to
+    ``core.aggregate.GradientSync.round``. Returns (g_agg, new_states)."""
+    from repro_torch.core import aggregate
+    return aggregate.GradientSync(cfg).round(states, grads, omegas=omegas,
+                                             participate=participate)

@@ -10,6 +10,8 @@
       --smoke --sparsifier sketchtopk --device cpu --fixed-batch
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --drop-prob 0.3 --err-decay 0.9 --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --sparsifier none --fixed-batch --device cpu
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact

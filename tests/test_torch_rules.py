@@ -123,7 +123,7 @@ def test_other_devices_raise():
     ("selector", "histogram", "A8"), ("num_buckets", 4, "A8"),
     ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
     ("ef_dtype", "bfloat16", "A8"), ("kind", "thresholdk", "A8"),
-    ("comm_mode", "dense", "A5"), ("kind", "none", "A5"),
+    ("num_buckets", 0, "A8"), ("allocation", "proportional", "A9"),
     ("kind", "randk", "A8"), ("wire_dtype", "bfloat16", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
     cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
@@ -201,10 +201,10 @@ def test_sketch_kernels_on_other_devices_raise(fn):
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_buckets", 4, "A8"), ("wire_dtype", "bfloat16", "A8"),
-    ("comm_mode", "dense", "A5"), ("selector", "histogram", "A8"),
+    ("allocation", "proportional", "A9"), ("selector", "histogram", "A8"),
     ("ef_dtype", "bfloat16", "A8"), ("overlap", "backward", "A11"),
     ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
-    ("kind", "globaltopk", "A5"), ("kind", "none", "A5")])
+    ("num_buckets", 0, "A8"), ("kind", "randk", "A8")])
 def test_sketch_configs_outside_the_slice_raise(field, value, item):
     for pipeline in ("fused", "reference"):
         cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline=pipeline,
@@ -266,3 +266,17 @@ def test_reference_kernels_on_other_devices_raise():
                  lambda: hk.histogram(x, torch.ones((), device="meta"))):
         with pytest.raises(RuntimeError, match="no sweep for device"):
             call()
+
+
+def test_package_data_ships_every_kernel_source():
+    """The setuptools package-data globs cover every CUDA source the
+    kernels build from, so an installed repro_torch can build them."""
+    import tomllib
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["repro_torch"]
+    pkg = ROOT / "src" / "repro_torch"
+    shipped = {p for pattern in globs for p in pkg.glob(pattern)}
+    sources = set((pkg / "kernels").glob("*/csrc/*"))
+    assert len(sources) >= 7
+    assert sources <= shipped, sorted(str(p.relative_to(pkg))
+                                      for p in sources - shipped)

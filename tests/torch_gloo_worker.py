@@ -9,9 +9,12 @@ rank's fixed batch; MODE "elastic" runs GradientSync under the fault
 schedule of the inputs, once with sparse comm on the fused pipeline
 (Gaussian gradients) and once with simulate comm on the reference
 pipeline (dyadic gradients), each rank drawing its own participation
-bits. Imports torch and the port only, and records whether jax was
-imported.
+bits; MODE "baselines" runs GradientSync for each case the inputs list
+(JSON: name -> [SparsifierConfig fields, whether the rank passes its
+participation bit]), each rank taking its bit from the inputs. Imports
+torch and the port only, and records whether jax was imported.
 """
+import json
 import os
 import sys
 
@@ -85,6 +88,27 @@ def run_elastic(rank: int, data) -> dict:
     return res
 
 
+def run_baselines(rank: int, data) -> dict:
+    """Per case: g_agg and n_active of every step, the final state."""
+    grads, parts = data["grads"], data["parts"]     # (T, world, J), (T, world)
+    res = {}
+    for name, (fields, elastic) in json.loads(str(data["cases"])).items():
+        cfg = cfgs.SparsifierConfig(sparsity=float(data["sparsity"]),
+                                    mu=float(data["mu"]), **fields)
+        sync = GradientSync(cfg)
+        state = sparsify.init_state(cfg, grads.shape[2], "cpu")
+        for t in range(grads.shape[0]):
+            part = torch.tensor(bool(parts[t, rank])) if elastic else None
+            g_agg, state, stats = sync(
+                state, torch.from_numpy(grads[t, rank].copy()),
+                participate=part, with_stats=True)
+            res[f"{name}_g_agg_{t}"] = g_agg.numpy()
+            res[f"{name}_n_active_{t}"] = stats["n_active"].numpy()
+        for key, val in state.items():
+            res[f"{name}_state_{key}"] = val.numpy()
+    return res
+
+
 def train_run(data) -> cfgs.RunConfig:
     """The run both the gloo ranks and the in-process emulation use."""
     return cfgs.RunConfig(
@@ -116,7 +140,7 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
     try:
         data = np.load(inp)
         run = {"sync": run_sync, "train": run_train,
-               "elastic": run_elastic}[mode]
+               "elastic": run_elastic, "baselines": run_baselines}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
