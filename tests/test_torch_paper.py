@@ -201,17 +201,35 @@ def test_fig2_trajectories_match_reference():
                                    err_msg=str(key))
 
 
-def test_fig3_short_run_matches_reference():
+def test_fig3_short_run_matches_reference(monkeypatch):
     """Five iterations at width 4 from the reference's initial weights,
-    carried across: the same test accuracies for topk and regtopk."""
+    carried across: the same test accuracies for topk and regtopk, and
+    the parameters each package evaluates (caught at its accuracy call)
+    within the CNN's tolerance, so both moved the same coordinates."""
     from benchmarks.paper_experiments import fig3_nn as ref
     from repro_torch.paper_experiments import fig3_nn
+    seen = {"jax": [], "torch": []}
+
+    def spy(side, fn):
+        def acc(p, x, y, *a, **k):
+            seen[side].append(p)
+            return fn(p, x, y, *a, **k)
+        return acc
+
+    monkeypatch.setattr(jcnn, "cnn_accuracy", spy("jax", jcnn.cnn_accuracy))
+    monkeypatch.setattr(tcnn, "cnn_accuracy",
+                        spy("torch", tcnn.cnn_accuracy))
     kw = dict(iters=5, eval_every=5, width=4, kinds=("topk", "regtopk"))
     want = ref(**kw)
     p0 = jcnn.init_cnn(jax.random.PRNGKey(0), width=4)
     got = fig3_nn(**kw, device="cpu",
                   params=cnn_params_from_jax(jax.device_get(p0)))
     assert got == want
+    assert len(seen["jax"]) == len(seen["torch"]) == 2
+    for jp, tp in zip(seen["jax"], seen["torch"]):
+        jflat, _ = ravel_pytree(jp)
+        np.testing.assert_allclose(_np(ravel_cnn(tp)), np.asarray(jflat),
+                                   rtol=RTOL, atol=ATOL)
 
 
 def test_drivers_default_to_the_card():
