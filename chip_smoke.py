@@ -115,8 +115,12 @@ edge, NaN and concentrated inputs and on every bin edge and its fp32
 neighbours for four amax values, the floor included; timed beside
 ``torch.histc`` on the Gaussian and the concentrated input).
 
-The last three lines are the per-kernel summary, the card's name and
-power limit as ``nvidia-smi`` prints them, and the result line.
+After the train phases one line, ``compression_share``, states each
+cell against ``train_dense`` from the same run: the median of steps 1-4
+over the dense cell's, and the profiled step's compression stages as
+device ms and as a share of its wall time. The last three lines are the
+per-kernel summary, the card's name and power limit as ``nvidia-smi``
+prints them, and the result line.
 """
 from __future__ import annotations
 
@@ -1006,7 +1010,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
          launches=launches, fallbacks=out["fallbacks"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          alloc_retries=torch.cuda.memory_stats(dev)["num_alloc_retries"])
-    return launches, run, out["state"]
+    return launches, run, out["state"], [rec["ms"] for rec in out["history"]]
 
 
 STAGES = ("train/loss_grad", "train/flatten", "train/sync",
@@ -1060,7 +1064,7 @@ def phase_profile(dev, run, state, phase: str) -> None:
          sketch_tables=tables,
          top_kernels=[{"name": k[:90], "ms": ms, "calls": n}
                       for k, ms, n in kernels[:15]])
-    return tables
+    return tables, wall_ms, stages
 
 
 def paper_states(cfg, n: int, j: int, gen, g):
@@ -1135,11 +1139,10 @@ def paper_round_case(dev, kind: str, n: int, j: int, sparsity: float,
     for key in new_c:
         check(bits_equal(new_d[key].cpu(), new_c[key]),
               f"paper {kind} J={j}: {key} differs card vs CPU")
-    if dev.type == "cuda":
-        for name, count in res["launches"].items():
-            want = n if name in PAPER_ROUND_KERNELS[kind] else 0
-            check(count == want, f"paper {kind} J={j}: {name} launched "
-                  f"{count} times, expected {want}")
+    for name, count in res["launches"].items():
+        want = n if name in PAPER_ROUND_KERNELS[kind] else 0
+        check(count == want, f"paper {kind} J={j}: {name} launched "
+              f"{count} times, expected {want}")
     res["state"] = sorted(new_c)
     return res
 
@@ -1261,7 +1264,9 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
     """One rank of the multi-card check: GradientSync over the process
     group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
     bitwise identical on every rank and, like every rank's final state,
-    equal to an in-process round() of the same workers (on rank 0)."""
+    equal to an in-process round() of the same workers (on rank 0).
+    ``backend="gloo"`` at a small ``j`` runs the same check on the CPU,
+    which rehearses it without cards."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import SparsifierConfig
@@ -1352,6 +1357,28 @@ def phase_world(world: int, src: str) -> None:
         check(p.returncode == 0, f"world rank {r} exited {p.returncode}")
 
 
+def compression_shares(steps: dict, profiles: dict) -> dict:
+    """Each train cell against the dense baseline of the same run: the
+    median of steps 1..4 (the first step builds and warms up) over the
+    dense cell's, share = (cell - dense) / cell; and the profiled step's
+    compression stages (every stage but ``train/*``: the compressor, the
+    sketch and the sync's own work) as device ms and as a share of the
+    step's wall time."""
+    base = statistics.median(steps["train_dense"][1:])
+    out = {}
+    for name, ms in steps.items():
+        med = statistics.median(ms[1:])
+        wall, stages = profiles[name]
+        comp = sum(val.get("device_span_ms", 0.0)
+                   for key, val in stages.items()
+                   if not key.startswith("train/"))
+        out[name] = {"step_ms": med, "over_dense_ms": med - base,
+                     "share": (med - base) / med, "profiled_wall_ms": wall,
+                     "compression_device_ms": comp,
+                     "compression_device_share": comp / wall}
+    return {"baseline": "train_dense", "cells": out}
+
+
 def kernel_row(name: str, res: dict, small: dict, launches: int,
                path: str, parity: str, library_ms=None, **extra) -> dict:
     bms, by = bound_ms(res[f"{name}_bytes"], res[f"{name}_ops"])
@@ -1413,17 +1440,18 @@ def main(argv=None) -> int:
     phase_sketch_sync(dev)
     ref_launches = phase_reference_sync(dev)
     phase_paper(dev)
-    train = {}
+    train, steps, profiles = {}, {}, {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
-        train[name], run, state = phase_train(
+        train[name], run, state, steps[name] = phase_train(
             dev, fields, dict.fromkeys(kernels, TRAIN_STEPS), name, schedule)
-        tables = phase_profile(dev, run, state, name.replace("train",
-                                                             "profile"))
+        tables, *profiles[name] = phase_profile(
+            dev, run, state, name.replace("train", "profile"))
         if fields["kind"] == "sketchtopk":
             check(tables == SKETCH_TABLE,
                   f"{name}: the sync keeps one start table of its shape")
         del state
         torch.cuda.empty_cache()
+    emit("compression_share", **compression_shares(steps, profiles))
     bitwise = "torch.equal on every output"
     atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
                "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")

@@ -9,10 +9,11 @@ convolution weights are PyTorch's OIHW (the reference's are HWIO;
 reference's order). The convolutions are ``F.conv2d``, as the reference
 leaves its own to XLA outside any Pallas kernel. XLA's "SAME" padding
 puts the odd pixel after: a 3x3 stride-2 convolution from 16 to 8 pads 0
-before and 1 after, which ``_same`` pads explicitly. cuDNN computes fp32 convolutions in TF32 by default;
-:func:`fp32_convolutions` turns that off for the block it guards
-(forward and backward) and restores the caller's setting after, so the
-card convolves in fp32 as the reference does.
+before and 1 after, which ``_same`` pads explicitly. cuDNN computes fp32
+convolutions in TF32 by default; :func:`fp32_convolutions` turns that
+off for the block it guards (forward and backward) and restores the
+caller's setting after, so the card convolves in fp32 as the reference
+does.
 
 The NHWC input is made contiguous NCHW before the first convolution. On
 the CPU (torch 2.13, oneDNN 3.12, 8 threads), the channels-last view

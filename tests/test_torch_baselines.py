@@ -14,7 +14,6 @@ bitwise. XLA rewrites a division by a constant into a multiply by its
 fp32 reciprocal: the genie's and the sketch's ``/ jnp.float32(n)`` at
 N = 20 is a multiply, and so is the port's."""
 import dataclasses
-import os
 import warnings
 
 import numpy as np
@@ -33,7 +32,6 @@ from repro_torch.convert import state_from_jax, state_to_jax  # noqa: E402
 from repro_torch.core import aggregate, sparsify  # noqa: E402
 from repro_torch.kernels.compress import dispatch  # noqa: E402
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 10
 MU = 0.5
 ROUND_KINDS = ("topk", "regtopk", "sketchtopk", "globaltopk", "none")

@@ -26,7 +26,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
 from jax.flatten_util import ravel_pytree  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
