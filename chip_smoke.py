@@ -87,8 +87,9 @@ paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
 copies of the same inputs (g_agg and every state bitwise; the sketch
 within its bound, then the card's mean sketch decoded on both devices),
 then the paper's drivers on the card: fig1, fig2 at S = 0.6 for 1500
-iterations, the genie at fig2's size, EXPERIMENTS.md's fig2 table and
-fig3 for 150 iterations, held to the claims of
+iterations, the genie at fig2's size, EXPERIMENTS.md's fig2 table (at
+600 iterations, where it has 3000) and fig3 for 150 iterations, held to
+the claims of
 tests/test_paper_claims.py, with each figure's seconds and launches.
 
 Phase 3 holds sweep 1 in its dgc mode against its plain version too
@@ -205,7 +206,8 @@ PAPER_ROUND_KERNELS = {"topk": ("apply",), "regtopk": ("scores", "apply"),
                        "sketchtopk": ("sketch_encode", "apply")}
 FIG1_ITERS = 100
 FIG2_ITERS = 1500            # fig2's claims and the genie's
-FIG2_TABLE_ITERS = 1500      # EXPERIMENTS.md's table (3000 there)
+FIG2_TABLE_ITERS = 600       # EXPERIMENTS.md's table (3000 there), cut to
+                             # keep the paper phase near two minutes
 FIG3_ITERS = 150
 KERNEL_META = {
     "sweep1": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
