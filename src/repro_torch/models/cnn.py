@@ -11,9 +11,12 @@ leaves its own to XLA outside any Pallas kernel. XLA's "SAME" padding
 puts the odd pixel after: a 3x3 stride-2 convolution from 16 to 8 pads 0
 before and 1 after, which ``_same`` pads explicitly. cuDNN computes fp32
 convolutions in TF32 by default; :func:`fp32_convolutions` turns that
-off for the block it guards (forward and backward) and restores the
-caller's setting after, so the card convolves in fp32 as the reference
-does.
+off for the block it guards and restores the caller's setting after.
+``_same`` runs every forward convolution under it, so ``cnn_fwd`` and
+``cnn_loss`` convolve in fp32 as the reference does; the backward
+convolutions run when autograd reaches them, so a caller that
+differentiates ``cnn_loss`` itself guards that call too, as
+``cnn_grad`` does.
 
 The NHWC input is made contiguous NCHW before the first convolution. On
 the CPU (torch 2.13, oneDNN 3.12, 8 threads), the channels-last view
@@ -72,7 +75,8 @@ def _same(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     out = -(-size // stride)
     pad = max((out - 1) * stride + k - size, 0)
     x = F.pad(x, (pad // 2, pad - pad // 2, pad // 2, pad - pad // 2))
-    return F.conv2d(x, w, stride=stride)
+    with fp32_convolutions():
+        return F.conv2d(x, w, stride=stride)
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +111,8 @@ def cnn_loss(p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def cnn_grad(p: dict, x: torch.Tensor, y: torch.Tensor) -> dict:
-    """The loss's gradient by parameter (fp32 convolutions throughout)."""
+    """The loss's gradient by parameter (fp32 convolutions throughout:
+    the guard covers the backward pass's convolutions too)."""
     leaves = {key: val.detach().requires_grad_(True)
               for key, val in p.items()}
     with fp32_convolutions():
@@ -120,8 +125,7 @@ def cnn_grad(p: dict, x: torch.Tensor, y: torch.Tensor) -> dict:
 def cnn_accuracy(p: dict, x: torch.Tensor, y: torch.Tensor,
                  batch: int = 250) -> float:
     correct = 0
-    with fp32_convolutions():
-        for i in range(0, x.shape[0], batch):
-            logits = cnn_fwd(p, x[i:i + batch])
-            correct += int((logits.argmax(-1) == y[i:i + batch]).sum())
+    for i in range(0, x.shape[0], batch):
+        logits = cnn_fwd(p, x[i:i + batch])
+        correct += int((logits.argmax(-1) == y[i:i + batch]).sum())
     return correct / x.shape[0]

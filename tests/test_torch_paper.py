@@ -165,11 +165,26 @@ def test_stride2_same_padding_is_asymmetric():
     assert not np.allclose(sym, want, rtol=1e-2, atol=1e-2)
 
 
-def test_cnn_convolves_in_fp32_and_restores_the_flag():
+def test_cnn_convolves_in_fp32_and_restores_the_flag(monkeypatch):
     prev = torch.backends.cudnn.allow_tf32
     with tcnn.fp32_convolutions():
         assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 == prev
+    # cnn_fwd called directly, by a caller that allows TF32: every
+    # convolution still runs with it off, and the caller's flag stands
+    F = tcnn.F
+    seen, conv2d = [], F.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    p = tcnn.init_cnn(torch.Generator().manual_seed(0), width=4)
+    tcnn.cnn_fwd(p, torch.zeros(2, 16, 16, 3))
+    assert seen == [False] * len(tcnn._CONVS)
+    assert torch.backends.cudnn.allow_tf32 is True
 
 
 # ---------------------------------------------------------------------------
