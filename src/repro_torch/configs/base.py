@@ -68,13 +68,16 @@ SHAPES: dict[str, ShapeConfig] = {
 @dataclass(frozen=True)
 class SparsifierConfig:
     """The paper's knobs (see the reference's docstrings for each field).
-    The port serves kind in {topk, dgc, regtopk} on both pipelines (the
-    fused two-sweep pipeline with the exact selector; the reference
-    pipeline with the exact, histogram and histogram_kernel selectors,
-    and REGTOP-k with either ``state_format``), kind="sketchtopk" on
-    both with the exact selector, and the baselines kind="none" (dense
-    SGD) and kind="globaltopk" (the genie, any selector); all with
-    global allocation, one bucket, fp32 EF and sparse, simulate or dense
+    The port serves kind in {topk, dgc, regtopk, thresholdk, randk} on
+    both pipelines (the fused two-sweep pipeline with the exact or the
+    histogram selector, any ``num_buckets`` >= 1, fp32 or bf16 error
+    feedback; the reference pipeline with the exact, histogram and
+    histogram_kernel selectors, REGTOP-k with either ``state_format``,
+    bf16 error feedback with the exact selector for kinds but REGTOP-k),
+    kind="sketchtopk" on both with the exact selector, one bucket and
+    fp32, and the baselines kind="none" (dense SGD) and
+    kind="globaltopk" (the genie, any selector); all with global
+    allocation, sparse (on the fp32 or bf16 wire), simulate or dense
     comm; elastic participation (``combine``, ``err_decay``) on every
     kind but sketchtopk. The fields past ``momentum`` exist to select
     among the reference's paths and raise for any other value."""

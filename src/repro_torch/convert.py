@@ -2,9 +2,10 @@
 
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
 the port's are nested dicts of tensors in the same layout, so parameters
-and fp32 state move as they are. Two translations: the index dtype (the
+and fp32 state move as they are. Three translations: the index dtype (the
 reference's uint32 indices become the port's int32 view of the same
-bits, ``core.bigvec``, and back), and the CNN's convolution weights,
+bits, ``core.bigvec``, and back), bf16 state (``ef_dtype="bfloat16"``:
+the bits cross as uint16, numpy having no bf16 of its own), and the CNN's convolution weights,
 HWIO in the reference and OIHW in the port (``models.cnn``).
 
 The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
@@ -25,11 +26,25 @@ def _to_tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own: the bits cross as uint16
+        return torch.from_numpy(np.array(a.view(np.uint16)).view(
+            np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
 def _to_numpy(t: torch.Tensor, uint_keys=False) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # the bits as uint16, viewed as the reference's bf16 numpy dtype
+        # (``ml_dtypes``, which jax brings) where it is installed
+        a = t.view(torch.int16).numpy().view(np.uint16)
+        try:
+            import ml_dtypes
+        except ImportError:
+            return a
+        return a.view(ml_dtypes.bfloat16)
+    a = t.numpy()
     return a.view(np.uint32) if uint_keys else a
 
 
@@ -50,8 +65,9 @@ def state_from_jax(state: dict, device="cpu") -> dict:
     ``a_prev``/``s_prev``/``g_agg_prev`` or its O(k) one
     ``idx_prev``/``a_prev_sel``/``g_prev_sel``, and ``step``; optimizer
     keys: ``master``, the moments ``m`` (momentum, adam, adamw) and ``v``
-    (adam, adamw), and ``step``. Float state is fp32 and moves as it is;
-    uint32 index arrays become int32 views of the same bits."""
+    (adam, adamw), and ``step``. fp32 state moves as it is, bf16 state
+    bit for bit; uint32 index arrays become int32 views of the same
+    bits."""
     return {key: _to_tensor(val, device) for key, val in state.items()}
 
 

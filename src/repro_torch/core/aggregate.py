@@ -8,13 +8,18 @@ Three communication modes, as in the reference:
   none) and the genie (kind globaltopk, whose top-k is taken of the
   aggregate) run it whatever mode was asked; a local or sketch selection
   asked for ``dense`` runs the simulate combine, as in the reference.
-- ``sparse`` (local selection, kind topk/dgc/regtopk): every rank
-  all-gathers the k (value, index) pairs of every rank and scatter-adds
-  them locally, one ``index_add_`` per rank in rank order, then scales
-  by 1/n. Within a rank the k indices are distinct, so each
+- ``sparse`` (local selection): every rank all-gathers the packed
+  (value, index) pairs of every rank and scatter-adds them locally, one
+  ``index_add_`` per rank in rank order, then scales by 1/n. With
+  ``num_buckets`` > 1 the pairs travel in that many chunks, one
+  all-gather each, chunk b + 1's issued before chunk b's scatter-adds
+  (chunk by chunk, rank-major inside a chunk: the reference's order of
+  addition at a duplicate index). ``wire_dtype="bfloat16"`` ships the
+  values as bf16 (6 bytes a pair instead of 8) and widens them for the
+  sum. Within a rank the live indices are distinct, so each
   ``index_add_`` is deterministic on the card too, and the rank-order
   sums reproduce the reference's: g_agg is identical on every rank,
-  which REGTOP-k's posterior assumes. Comm per step is n*k*8 bytes.
+  which REGTOP-k's posterior assumes.
 - ``simulate``: every rank all-reduces its dense sparsified gradient
   ghat (a SUM, then the scale by 1/n: the reference's ``pmean``). Exact
   sparsified-training numerics at dense comm volume. A config whose
@@ -82,6 +87,7 @@ from repro_torch.kernels.fused_ef.ops import fused_apply_mask
 # simulate degrade is surfaced once per config per process
 _DEGRADE_WARNED: set = set()
 COMBINES = ("mean", "support")
+WIRE_DTYPES = ("float32", "bfloat16")
 _SKETCH_ELASTIC = ("elastic participation with sketch selection is not "
                    "ported yet (ROADMAP A10 with A12: the elastic sketch "
                    "semantics)")
@@ -106,13 +112,14 @@ def check_supported(cfg: SparsifierConfig) -> None:
         raise NotImplementedError(
             f"combine={cfg.combine!r}, err_decay={cfg.err_decay!r} with "
             f"kind='sketchtopk': {_SKETCH_ELASTIC}")
-    for field, served, item in (
-            ("comm_mode", ("sparse", "simulate", "dense"), "A5"),
-            ("wire_dtype", ("float32",), "A8 (bf16 wire)")):
-        if getattr(cfg, field) not in served:
-            raise NotImplementedError(
-                f"SparsifierConfig.{field}={getattr(cfg, field)!r} is not "
-                f"ported yet; the port serves {served!r} (ROADMAP {item})")
+    if cfg.comm_mode not in ("sparse", "simulate", "dense"):
+        raise NotImplementedError(
+            f"SparsifierConfig.comm_mode={cfg.comm_mode!r} is not ported "
+            "yet; the port serves ('sparse', 'simulate', 'dense') (ROADMAP "
+            "A5)")
+    if cfg.wire_dtype not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire_dtype {cfg.wire_dtype!r} (expected "
+                         f"one of {WIRE_DTYPES})")
 
 
 def _warn_sparse_degrade(cfg: SparsifierConfig) -> None:
@@ -205,46 +212,95 @@ def simulate_allreduce(ghat: torch.Tensor, group=None) -> torch.Tensor:
 
 def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
                              j: int, group=None, participate=None,
-                             count=None, combine: str = "mean"
-                             ) -> torch.Tensor:
+                             count=None, combine: str = "mean",
+                             num_buckets: int = 1,
+                             wire_dtype: str = "float32") -> torch.Tensor:
     """g_agg = (1/n) sum_ranks scatter(values_r, indices_r), rank-identical.
 
+    The packed pairs travel in ``num_buckets`` chunks (one when there
+    are no more pairs than chunks; the last chunk padded with inert
+    pairs, 0.0 at index 0), one all-gather each: chunk b + 1's is in
+    flight while chunk b is scatter-added, rank by rank. The values go
+    on the wire as ``wire_dtype`` and are summed in fp32.
+
     Elastic (``participate`` this rank's 0-d bool bit, ``count`` its live
-    packed prefix, None = all k; or ``combine="support"``): one more
-    all-gather of each rank's (liveness, live count); a rank's slots
-    past its count, or all of them when it sits out, go to the sentinel
-    j and drop; the sum is divided by the active count, or per
+    packed prefix, None = all of them; or ``combine="support"``): one
+    more all-gather of each rank's (liveness, live count); a rank's
+    slots past its count, or all of them when it sits out, go to the
+    sentinel j and drop; the sum is divided by the active count, or per
     coordinate by the number of active ranks that selected it
     (``support``; coordinates nobody selected stay 0)."""
     n, _ = world(group)
-    if participate is None and combine == "mean":
-        dense = torch.zeros(j, dtype=values.dtype, device=values.device)
-        for v, i in zip(_gather(values, group), _gather(indices, group)):
-            bigvec.scatter_add_(dense, i, v)
-        return _mean_scale_(dense, n)
     dev, k = values.device, values.numel()
-    p = (torch.ones((), dtype=torch.bool, device=dev) if participate is None
-         else participate.reshape(()))
-    cnt = torch.full((), k, dtype=torch.int64, device=dev) if count is None \
-        else count.reshape(()).to(torch.int64)
-    meta = torch.stack([p.to(torch.int64), torch.where(p, cnt, 0)])
-    pos = torch.arange(k, device=dev)
-    dense = torch.zeros(j + 1, dtype=values.dtype, device=dev)
+    nb = max(1, int(num_buckets))
+    if k <= nb:
+        nb = 1                   # one pair a chunk would gain nothing
+    chunk = -(-k // nb)
+    pad = chunk * nb - k
+    if pad:
+        values = torch.cat([values, values.new_zeros(pad)])
+        indices = torch.cat([indices, indices.new_zeros(pad)])
+    elastic = participate is not None or combine != "mean"
+    if elastic:
+        p = (torch.ones((), dtype=torch.bool, device=dev)
+             if participate is None else participate.reshape(()))
+        cnt = torch.full((), k, dtype=torch.int64, device=dev) \
+            if count is None else count.reshape(()).to(torch.int64)
+        metas = _gather(torch.stack([p.to(torch.int64),
+                                     torch.where(p, cnt, 0)]), group)
+    dense = torch.zeros(j + 1 if elastic else j, dtype=values.dtype,
+                        device=dev)
     counts = (torch.zeros(j + 1, dtype=torch.float32, device=dev)
               if combine == "support" else None)
-    metas = _gather(meta, group)
-    for v, i, m in zip(_gather(values, group), _gather(indices, group),
-                       metas):
-        il = bigvec.live_idx(i, (m[0] > 0) & (pos < m[1]), j)
-        dense.index_add_(0, il, v)
-        if counts is not None:
-            counts.index_add_(0, il, torch.ones_like(v))
+    wire = getattr(torch, wire_dtype)
+
+    def gather_chunk(b: int):
+        sl = slice(b * chunk, (b + 1) * chunk)
+        return (_gather_async(values[sl].to(wire), group),
+                _gather_async(indices[sl], group))
+
+    pending = gather_chunk(0)
+    for b in range(nb):
+        ahead = gather_chunk(b + 1) if b + 1 < nb else None
+        vals, idx = (_wait(x, n) for x in pending)
+        pos = torch.arange(b * chunk, (b + 1) * chunk, device=dev)
+        for r in range(n):
+            v = vals[r].to(values.dtype)
+            i = idx[r]
+            if elastic:
+                m = metas[r]
+                i = bigvec.live_idx(i, (m[0] > 0) & (pos < m[1]), j)
+            bigvec.scatter_add_(dense, i, v)
+            if counts is not None:
+                counts.index_add_(0, i, torch.ones_like(v))
+        pending = ahead
+    if not elastic:
+        return _mean_scale_(dense, n)
     dense = dense[:j]
     if counts is not None:
         counts = counts[:j]
         return torch.where(counts > 0, dense / counts.clamp(min=1.0), 0.0)
     n_active = _rank_sum([m[0].to(torch.float32) for m in metas])
     return dense.div_(n_active.clamp(min=1.0))
+
+
+def _gather_async(x: torch.Tensor, group):
+    """Start the all-gather of x (n * x.numel(),) and return (out, work);
+    over one rank x itself and no work."""
+    n, _ = world(group)
+    if n == 1:
+        return x, None
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    return out, dist.all_gather_into_tensor(out, x, group=group,
+                                            async_op=True)
+
+
+def _wait(pending, n: int) -> torch.Tensor:
+    """The (n, chunk) result of :func:`_gather_async`, once it is in."""
+    out, work = pending
+    if work is not None:
+        work.wait()
+    return out.view(n, -1)
 
 
 def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
@@ -269,7 +325,9 @@ class GradientSync:
     """Per-run gradient-sync surface: the config is validated once here,
     each step calls the object with the state and the flat gradient.
     ``fallbacks`` counts the compress calls whose trim took the exact
-    dense fallback, ``fallback_reasons`` counts them by reason.
+    dense fallback, ``fallback_reasons`` counts them by reason;
+    ``last_count`` is the last local step's live packed count (a 0-d
+    device tensor; None where every packed slot is live).
 
     ``comm`` is the communication mode the sync realizes
     (``dispatch.effective_comm_mode``).
@@ -289,6 +347,7 @@ class GradientSync:
         self.comm = dispatch.effective_comm_mode(cfg)
         self.fallbacks = 0
         self.fallback_reasons: Counter = Counter()
+        self.last_count = None
         self.sketch_tables: dict = {}
 
     def _count(self, outs) -> None:
@@ -306,13 +365,14 @@ class GradientSync:
                 f"{_SKETCH_ELASTIC}")
 
     def __call__(self, state: dict, g: torch.Tensor, participate=None,
-                 donate: bool = False, with_stats: bool = False):
+                 donate: bool = False, with_stats: bool = False, key=None):
         """One flat-gradient sync step: returns (g_agg, new_state), and
         with ``with_stats`` also {"n_active", "dropped_nonfinite"} (0-d
         fp32, rank-identical). ``participate`` is this rank's 0-d bool
         participation bit (None: always in). ``donate=True`` hands the
         old state to the compressor, which frees its J-vectors as soon
-        as it has read them (the caller must not use ``state`` again)."""
+        as it has read them (the caller must not use ``state`` again).
+        ``key`` is randk's (2,) threefry key for this rank's step."""
         self.check_participation(participate)
         n, _ = world(self.group)
         if self.selection in ("none", "global"):
@@ -332,8 +392,9 @@ class GradientSync:
         j = g.numel()
         p = None if participate is None else participate.reshape(())
         out = sparsify.compress(self.cfg, state, g, omega=1.0 / n,
-                                donate=donate, participate=p)
+                                donate=donate, participate=p, key=key)
         self._count([out])
+        self.last_count = out.count
         p_eff = dropped = None
         if p is not None and out.values is not None:
             # the non-finite guard: a worker whose packed values went
@@ -343,12 +404,14 @@ class GradientSync:
         elastic = p is not None or self.cfg.combine != "mean"
         if self.comm == "sparse":
             with record_function("sync/combine"):
+                wire = dict(num_buckets=self.cfg.num_buckets,
+                            wire_dtype=self.cfg.wire_dtype)
                 g_agg = sparse_allgather_combine(
                     out.values, out.indices, j, self.group,
                     participate=p_eff, count=out.count,
-                    combine=self.cfg.combine) if elastic else \
+                    combine=self.cfg.combine, **wire) if elastic else \
                     sparse_allgather_combine(out.values, out.indices, j,
-                                             self.group)
+                                             self.group, **wire)
         else:
             if self.cfg.comm_mode == "sparse":
                 _warn_sparse_degrade(self.cfg)
@@ -483,24 +546,26 @@ class GradientSync:
     # -- in-process simulation ------------------------------------------
 
     def round(self, states: list, grads: list, omegas=None,
-              participate=None):
+              participate=None, key=None):
         """One aggregation round over N in-process workers (the
         reference's ``GradientSync.round``): returns (g_agg, new_states).
         ``participate``: one bit per worker (bools or 0-d bool tensors);
         then the combine is the elastic one of the per-step path, over
-        equal weights 1/n (``omegas`` is not used)."""
+        equal weights 1/n (``omegas`` is not used). ``key``: randk's
+        threefry key, worker i drawing with ``fold_in(key, i)``."""
         self.check_participation(participate)
         if self.selection == "sketch":
             return self._round_sketch(states, grads, omegas)
         if self.selection == "global":
             return self._round_global(states, grads, omegas, participate)
         if participate is not None:
-            return self._round_elastic(states, grads, participate)
+            return self._round_elastic(states, grads, participate, key)
         n = len(grads)
         omegas = omegas or [1.0 / n] * n
         j = grads[0].numel()
-        outs = [sparsify.compress(self.cfg, s, g, omega=w)
-                for s, g, w in zip(states, grads, omegas)]
+        outs = [sparsify.compress(self.cfg, s, g, omega=w,
+                                  key=_worker_key(key, i))
+                for i, (s, g, w) in enumerate(zip(states, grads, omegas))]
         self._count(outs)
         # rank order without a leading zero, as the compiled reference
         # sums (its ``0 +`` is dropped, which keeps the sign of -0.0)
@@ -509,7 +574,8 @@ class GradientSync:
         return g_agg, [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                        for o in outs]
 
-    def _round_elastic(self, states: list, grads: list, participate: list):
+    def _round_elastic(self, states: list, grads: list, participate: list,
+                       key=None):
         """round() under a participation mask (the reference's
         ``_round_elastic``): inert payloads from sitting-out workers, the
         sum over workers divided by n_active ("mean") or per coordinate
@@ -521,8 +587,8 @@ class GradientSync:
         pfs = [torch.as_tensor(p, dtype=torch.bool).to(dev).reshape(())
                for p in participate]
         outs = [sparsify.compress(self.cfg, s, g, omega=1.0 / n,
-                                  participate=p)
-                for s, g, p in zip(states, grads, pfs)]
+                                  participate=p, key=_worker_key(key, i))
+                for i, (s, g, p) in enumerate(zip(states, grads, pfs))]
         self._count(outs)
         dense = _rank_sum([sparsify.dense_ghat(o, j) for o in outs])
         if self.cfg.combine == "support":
@@ -623,11 +689,12 @@ class GradientSync:
                 return g_agg, sparsify.stack_states(new)
             return round_coord
 
-        def round_fn(states: dict, grads: torch.Tensor):
+        def round_fn(states: dict, grads: torch.Tensor, key=None):
             n, j = grads.shape
-            outs = [sparsify.compress(self.cfg, st, g, omega=omega)
-                    for st, g in zip(sparsify.unstack_states(states, n),
-                                     grads)]
+            outs = [sparsify.compress(self.cfg, st, g, omega=omega,
+                                      key=_worker_key(key, i))
+                    for i, (st, g) in enumerate(zip(
+                        sparsify.unstack_states(states, n), grads))]
             self._count(outs)
             total = torch.zeros(j, dtype=torch.float32, device=grads.device)
             for out in outs:
@@ -637,6 +704,15 @@ class GradientSync:
                 [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                  for o in outs])
         return round_fn
+
+
+def _worker_key(key, i: int):
+    """Worker i's randk key in a round: ``fold_in(key, i)``, as the
+    reference derives it (None stays None)."""
+    if key is None:
+        return None
+    from repro_torch.core import threefry
+    return threefry.fold_in(key, i)
 
 
 # one-shot deprecation marker for the sync_gradient shim (tests reset it)

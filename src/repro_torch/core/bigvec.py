@@ -53,16 +53,24 @@ def live_idx(idx: torch.Tensor, live, j: int) -> torch.Tensor:
 
 
 def scatter_set_live_(a: torch.Tensor, idx: torch.Tensor, live,
-                      val: float) -> torch.Tensor:
-    """In place ``a[idx] = val`` at the live slots of distinct indices
-    ``idx`` (every slot when ``live`` is None); a non-live slot writes
-    back the value that is there, so for distinct indices this is the
-    reference's scatter through ``live_idx`` with ``mode="drop"``, on a
-    buffer of exactly J and with no host read of ``live``."""
+                      val) -> torch.Tensor:
+    """In place ``a[idx] = val`` (a scalar, or one value a slot) at the
+    live slots of ``idx`` (every slot when ``live`` is None; ``live`` 0-d
+    or one bit a slot); the reference's scatter through ``live_idx``
+    with ``mode="drop"``, on a buffer of exactly J and with no host read
+    of ``live``. Live indices must be distinct. A dead slot writes, at
+    the first live slot's index, what that slot writes (or, with none
+    live, the value there back), so a dead slot that aliases a live
+    index (the histogram selector's pads at index 0) cannot undo its
+    write."""
     if live is None:
         return scatter_set_(a, idx, val)
     idx = as_index(idx)
-    return a.index_put_((idx,), torch.where(live, val, a[idx]))
+    live = live.expand(idx.shape)
+    new = torch.where(live, val, a[idx])
+    first = torch.argmax(live.to(torch.int32))    # 0 when none is live
+    return a.index_put_((torch.where(live, idx, idx[first]),),
+                        torch.where(live, new, new[first]))
 
 
 def scatter_add_(a: torch.Tensor, idx: torch.Tensor,

@@ -71,3 +71,18 @@ class TreeFlattener:
             (path, vec[off:off + size].view(shape))
             for path, off, size, shape in zip(self.paths, self.offsets,
                                               self.sizes, self.shapes))
+
+
+def bucket_bounds(j: int, num_buckets: int) -> list:
+    """Contiguous near-equal partition of [0, j) into buckets: [(offset,
+    size), ...] with sizes differing by at most one, the larger ones
+    first, summing to j; num_buckets is clamped to [1, j] (no bucket is
+    empty). The reference's rule, so both packages cut alike."""
+    b = max(1, min(int(num_buckets), max(j, 1)))
+    base, rem = divmod(j, b)
+    bounds, off = [], 0
+    for i in range(b):
+        size = base + (1 if i < rem else 0)
+        bounds.append((off, size))
+        off += size
+    return bounds

@@ -56,6 +56,20 @@ def topk_indices(score: torch.Tensor, k: int) -> torch.Tensor:
     return topk_positions(score.float().abs(), k)
 
 
+def randk_indices(key: torch.Tensor, j: int, k: int) -> torch.Tensor:
+    """A uniform random k-subset of [0, j) as the reference draws it: the
+    top-k positions (int64, lax.top_k order) of j uint32 draws of
+    ``jax.random.bits(key, (j,), uint32)``. The draws are generated in
+    chunks into int32 keys u - 2^31, which order as the uint32 words
+    do, so the stream's memory is 4 bytes an element."""
+    from repro_torch.core import threefry
+    keys = torch.empty(j, dtype=torch.int32, device=key.device)
+    for lo in range(0, j, _HIST_CHUNK):
+        hi = min(j, lo + _HIST_CHUNK)
+        keys[lo:hi] = threefry.random_bits32_range(key, lo, hi) - (1 << 31)
+    return topk_positions(keys, int(min(k, j)))
+
+
 def hist_tail_bin(hist: torch.Tensor, target) -> torch.Tensor:
     """Largest bin index b whose tail count (entries in bins >= b) is
     >= target; -1 if none. ``target`` may be a device tensor."""

@@ -1,6 +1,6 @@
-"""Gradient sparsifiers: TOP-k, DGC and REGTOP-k (the paper, Algorithm 1)
-on both pipelines, and the state of sketch-coordinated TOP-k (the port of
-``repro.core.sparsify``).
+"""Gradient sparsifiers: TOP-k, DGC, REGTOP-k (the paper, Algorithm 1),
+thresholdk and RANDOM-k on both pipelines, and the state of
+sketch-coordinated TOP-k (the port of ``repro.core.sparsify``).
 
 Protocol per step (worker n), as in the reference:
 
@@ -31,11 +31,24 @@ Pipelines (``cfg.pipeline``):
   one (``"sparse"``: plain tensor ops, exact top-k whatever the
   selector). ``CompressOut`` carries the dense ``ghat`` and ``mask``, and
   packed (values, indices) only where the count is exactly k.
-- "fused": the two-sweep pipeline (``kernels.compress.ops``), exact
-  selector. The J-sized state is ``err_prev`` (= a^{t-1} *
-  (1 - s^{t-1})), and DGC's ``mom``; REGTOP-k's posterior is O(k):
-  ``idx_prev`` (int32 view of the uint32 indices, doubling as the
-  support set), ``a_prev_sel`` and ``g_prev_sel``.
+- "fused": the two-sweep pipeline (``kernels.compress.ops``), the exact
+  selector or the histogram one (threshold at the bit-pattern bin edge
+  of the k-th |score|, a fixed capacity of packed pairs with ``count``
+  live), ``num_buckets`` contiguous buckets. The J-sized state is
+  ``err_prev`` (= a^{t-1} * (1 - s^{t-1})), and DGC's ``mom``;
+  REGTOP-k's posterior is O(k): ``idx_prev`` (int32 view of the uint32
+  indices, doubling as the support set), ``a_prev_sel`` and
+  ``g_prev_sel`` (with the histogram selector of its capacity, and
+  ``nsel`` live slots).
+
+thresholdk re-derives its threshold from the accumulator each step, so
+it selects as topk does; randk selects k uniform positions from a
+threefry key (``select.randk_indices``, the same draw on both
+pipelines). ``ef_dtype="bfloat16"`` keeps the J-sized state and the
+O(k) posterior values in bf16: the gradient is rounded to bf16 first,
+as the reference casts it; the fused sweeps compute in fp32 (sweep 1's
+bf16 read), the reference pipeline in bf16 operations as the
+reference's compiled program rounds them.
 
 DGC's momentum is masked with a multiply on the reference pipeline and
 with an O(k) scatter-zero on the fused one, as in the reference: a
@@ -97,44 +110,76 @@ class CompressOut:
 
 
 # (field, values the port serves, ROADMAP item that ports the rest)
-_COMMON = (("num_buckets", (1,), "A8 (bucketed sweeps)"),
-           ("allocation", ("global",), "A9 (density allocation)"),
-           ("overlap", ("none",), "A11 (streaming overlap)"),
-           ("ef_dtype", ("float32",), "A8 (bf16 EF state)"))
+_COMMON = (("allocation", ("global",), "A9 (density allocation)"),
+           ("overlap", ("none",), "A11 (streaming overlap)"))
 _PIPELINES = ("fused", "reference")
 # per kind: where its top-k is decided
 _SLICE = {"topk": "local", "dgc": "local", "regtopk": "local",
+          "randk": "local", "thresholdk": "local",
           "sketchtopk": "sketch", "none": "none", "globaltopk": "global"}
-# selectors served per (selection, pipeline); the rest raise A8. The
-# baselines run no pipeline: the genie selects from the aggregate with
-# any selector, and kind none selects nothing
+# selectors served per (selection, pipeline). The baselines run no
+# pipeline: the genie selects from the aggregate with any selector, and
+# kind none selects nothing; randk selects without a score (any)
 _ALL_SELECTORS = ("exact", "histogram", "histogram_kernel")
 _SELECTORS = {("local", "reference"): _ALL_SELECTORS,
+              ("local", "fused"): ("exact", "histogram"),
               **{(sel, pipe): _ALL_SELECTORS for sel in ("none", "global")
                  for pipe in _PIPELINES}}
-_UNPORTED_KINDS = {"randk": "A8", "thresholdk": "A8"}
+_EF_DTYPES = ("float32", "bfloat16")
+
+
+def _unported(cfg, field: str, served, item: str):
+    return NotImplementedError(
+        f"SparsifierConfig.{field}={getattr(cfg, field)!r} is not ported yet "
+        f"for kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port serves "
+        f"{served} (ROADMAP {item})")
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
     """Raise NotImplementedError naming the ROADMAP item for a config
     outside the ported slice (never a silent reroute)."""
     if cfg.kind not in _SLICE:
-        item = _UNPORTED_KINDS.get(cfg.kind, "A8")
-        raise NotImplementedError(
-            f"SparsifierConfig.kind={cfg.kind!r} is not ported yet; the "
-            f"port serves {tuple(_SLICE)} (ROADMAP {item})")
+        raise ValueError(f"unknown sparsifier kind {cfg.kind!r} (expected "
+                         f"one of {tuple(_SLICE)})")
     if cfg.pipeline not in _PIPELINES:
         raise ValueError(f"unknown pipeline {cfg.pipeline!r} "
                          f"(expected one of {_PIPELINES})")
-    selectors = _SELECTORS.get((_SLICE[cfg.kind], cfg.pipeline), ("exact",))
-    for field, served, item in (("selector", selectors,
-                                 "A8 (histogram selector)"),) + _COMMON:
-        val = getattr(cfg, field)
-        if val not in served:
-            raise NotImplementedError(
-                f"SparsifierConfig.{field}={val!r} is not ported yet for "
-                f"kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port "
-                f"serves {served} (ROADMAP {item})")
+    sel = _SLICE[cfg.kind]
+    selectors = (_ALL_SELECTORS if cfg.kind == "randk" else
+                 _SELECTORS.get((sel, cfg.pipeline), ("exact",)))
+    if cfg.selector not in selectors:
+        raise _unported(cfg, "selector", selectors,
+                        "A8 (the fused pipeline's histogram_kernel runs the "
+                        "reference pipeline in the reference: pass "
+                        "pipeline='reference')" if sel == "local" else
+                        "A12 (sketch selectors)")
+    for field, served, item in _COMMON:
+        if getattr(cfg, field) not in served:
+            raise _unported(cfg, field, served, item)
+    if cfg.num_buckets == 0:
+        raise _unported(cfg, "num_buckets", "num_buckets >= 1",
+                        "A16 (the bucket auto-tune: its interconnect "
+                        "constants are the TPU's)")
+    if cfg.num_buckets < 0:
+        raise ValueError(f"num_buckets={cfg.num_buckets} < 0")
+    if cfg.ef_dtype not in _EF_DTYPES:
+        raise ValueError(f"unknown ef_dtype {cfg.ef_dtype!r} (expected one "
+                         f"of {_EF_DTYPES})")
+    if sel == "sketch":
+        for field, served in (("num_buckets", (1,)),
+                              ("ef_dtype", ("float32",)),
+                              ("wire_dtype", ("float32",))):
+            if getattr(cfg, field) not in served:
+                raise _unported(cfg, field, served,
+                                "A12 (the sketch with buckets or bf16)")
+    elif sel in ("none", "global") and cfg.ef_dtype != "float32":
+        raise _unported(cfg, "ef_dtype", ("float32",),
+                        "A8 (bf16 for the dense-wire baselines)")
+    elif cfg.ef_dtype != "float32" and cfg.pipeline == "reference" and (
+            cfg.kind == "regtopk" or cfg.selector != "exact"):
+        raise _unported(cfg, "ef_dtype", ("float32",),
+                        "A8 (bf16 REGTOP-k and histogram selectors on the "
+                        "reference pipeline)")
 
 
 def selection(cfg: SparsifierConfig) -> str:
@@ -159,6 +204,12 @@ def resolve_k(cfg: SparsifierConfig, j: int) -> int:
     return max(1, int(round(cfg.sparsity * j)))
 
 
+def state_dtype(cfg: SparsifierConfig) -> torch.dtype:
+    """The dtype of the J-sized state and of REGTOP-k's O(k) values
+    (``cfg.ef_dtype``)."""
+    return getattr(torch, cfg.ef_dtype)
+
+
 def _dense_posterior(cfg: SparsifierConfig) -> bool:
     """REGTOP-k's dense posterior layout (reference pipeline,
     ``state_format="dense"``): a_prev, s_prev and g_agg_prev J-vectors."""
@@ -170,10 +221,16 @@ def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
     """Zero state for a J-length flat gradient: the error state
     (``err_key``) and ``step``; DGC adds its momentum ``mom`` (J,);
     REGTOP-k adds the dense posterior (a_prev, s_prev, g_agg_prev, each
-    (J,)) or the O(k) one (idx_prev, a_prev_sel, g_prev_sel). The
-    baselines (kinds none and globaltopk) keep ``step`` only."""
+    (J,)) or the O(k) one (idx_prev, a_prev_sel, g_prev_sel, of the
+    packed length: the fused histogram selector's capacity, with its
+    live count ``nsel``). Vectors and the O(k) values are of
+    ``cfg.ef_dtype``. The baselines (kinds none and globaltopk) keep
+    ``step`` only."""
+    from repro_torch.kernels.compress.dispatch import (fused_histogram,
+                                                       packed_len)
+    dt = state_dtype(cfg)
 
-    def zeros(n, dtype=torch.float32):
+    def zeros(n, dtype=dt):
         return torch.zeros(n, dtype=dtype, device=device)
     if selection(cfg) in ("none", "global"):
         return {"step": zeros((), torch.int32)}
@@ -183,9 +240,11 @@ def init_state(cfg: SparsifierConfig, j: int, device) -> dict:
     if _dense_posterior(cfg):
         st.update(a_prev=zeros(j), s_prev=zeros(j), g_agg_prev=zeros(j))
     elif cfg.kind == "regtopk":
-        k = resolve_k(cfg, j)
-        st.update(idx_prev=zeros(k, torch.int32), a_prev_sel=zeros(k),
-                  g_prev_sel=zeros(k))
+        kp = packed_len(cfg, j)
+        st.update(idx_prev=zeros(kp, torch.int32), a_prev_sel=zeros(kp),
+                  g_prev_sel=zeros(kp))
+        if fused_histogram(cfg):
+            st["nsel"] = zeros((), torch.int32)
     return st
 
 
@@ -199,7 +258,7 @@ def _release(state: dict, donate: bool, *keys) -> None:
 
 def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
              omega: float = 1.0, *, donate: bool = False,
-             participate=None) -> CompressOut:
+             participate=None, key=None) -> CompressOut:
     """Sparsify one worker's flat fp32 gradient; omega = its weight w_n.
     The new state holds new buffers (the reference pipeline's a becomes
     a_prev as it is). ``state`` is only read, unless ``donate``: then the
@@ -209,7 +268,9 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     participation bit (a 0-d bool tensor on g's device; None: always in,
     the bits of the non-elastic path, as is a true bit). Kind none
     returns the gradient as ``ghat`` under an all-ones ``mask`` (both
-    zero for a sitting-out worker)."""
+    zero for a sitting-out worker). randk draws its indices from ``key``
+    (a (2,) threefry key, ``core.threefry``). With a bf16 ``ef_dtype``
+    the gradient is rounded to bf16 first, as the reference casts it."""
     sel = selection(cfg)
     if sel == "global":
         raise RuntimeError("globaltopk is aggregate-level; run it through "
@@ -228,7 +289,8 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         return CompressOut({"step": state["step"] + 1}, None, None,
                            ghat=g, mask=ones)
     if cfg.pipeline == "fused":
-        return _compress_fused(cfg, state, g, k, omega, p)
+        return _compress_fused(cfg, state, g, k, omega, p, key)
+    g = g.to(state_dtype(cfg))
     if p is not None:
         # the fused pipeline's masked inputs, so that both pipelines'
         # states stay bit-comparable under any mask
@@ -240,14 +302,18 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         del err
     if cfg.kind == "dgc":
         return _compress_dgc(cfg, state, g, k, donate, p)
+    if cfg.kind == "randk":
+        return _compress_randk(cfg, state, g, k, key, donate, p)
     if cfg.kind == "regtopk" and not _dense_posterior(cfg):
         return _compress_regtopk_sparse(cfg, state, g, k, omega, donate, p)
     new = {"step": state["step"] + 1}
     frozen = {}
     with record_function("compress/scores"):
-        if cfg.kind == "topk":
+        if cfg.kind != "regtopk":
+            # topk, and thresholdk, which re-derives its threshold from
+            # the accumulator each step and so selects as topk does
             a = state["err"] + g
-            score = a
+            score = _select_key(a, state["err"], g)
         else:
             a, score = fef.fused_regtopk_scores(
                 g, state["err"], state["a_prev"], state["g_agg_prev"],
@@ -265,7 +331,7 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
-        ghat, new["err"] = fef.fused_apply_mask(a, mask)
+        ghat, new["err"] = _apply(a, mask)
     if cfg.kind == "regtopk":
         new["s_prev"] = mask
         if frozen:
@@ -275,6 +341,25 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
             new["s_prev"] = torch.where(p, mask, frozen["s_prev"])
     return CompressOut(new, values, indices, ghat=ghat, mask=mask,
                        count=count)
+
+
+def _select_key(a: torch.Tensor, err: torch.Tensor, x: torch.Tensor):
+    """The score the selection ranks for a = err + x: a itself, or with a
+    bf16 state the sum in fp32 before its rounding to bf16, as the
+    reference's compiled program computes the add that feeds the
+    selection's fp32 keys (the stored a is rounded)."""
+    if a.dtype == torch.float32:
+        return a
+    return err.float() + x.float()
+
+
+def _apply(a: torch.Tensor, mask: torch.Tensor):
+    """(ghat, err) = (mask * a, a - mask * a) through the apply kernel on
+    fp32 operands, returned in a's dtype (exact: each is a or 0)."""
+    ghat, err = fef.fused_apply_mask(a, mask)
+    if a.dtype != torch.float32:
+        ghat, err = ghat.to(a.dtype), err.to(a.dtype)
+    return ghat, err
 
 
 def _mask_elastic(p, mask, values, indices, k: int):
@@ -301,8 +386,30 @@ def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
     if cfg.selector != "exact":
         return select.topk_mask(score, k, cfg.selector), None, None
     idx = select.topk_indices(score, k)
-    mask = bigvec.mask_from_indices(a.numel(), idx, torch.float32)
+    mask = bigvec.mask_from_indices(a.numel(), idx, a.dtype)
     return mask, a[idx], bigvec.to_u32_bits(idx)
+
+
+def _compress_randk(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
+                    k: int, key, donate: bool, p=None) -> CompressOut:
+    """RANDOM-k on the reference pipeline: a = err + g, the k positions
+    of ``select.randk_indices(key)`` (the fused pipeline's draw), the
+    dense mask and the packed pairs, ghat and err through the apply
+    kernel."""
+    if key is None:
+        raise ValueError("randk needs a PRNG key")
+    with record_function("compress/scores"):
+        a = state["err"] + g
+        _release(state, donate, "err")
+    with record_function("compress/select"):
+        idx = select.randk_indices(key, a.numel(), k)
+        mask = bigvec.mask_from_indices(a.numel(), idx, a.dtype)
+        values, indices = a[idx], bigvec.to_u32_bits(idx)
+    mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
+    with record_function("compress/apply"):
+        ghat, err = _apply(a, mask)
+    return CompressOut({"err": err, "step": state["step"] + 1}, values,
+                       indices, ghat=ghat, mask=mask, count=count)
 
 
 def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
@@ -312,16 +419,27 @@ def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     the apply kernel, and the momentum masked as mom' * (1 - mask). A
     sitting-out worker's a leaves mom' out (the elastic gate)."""
     with record_function("compress/scores"):
-        # mom' = momentum * mom + g, one rounding as the compiled
-        # reference contracts it into a fused multiply-add
-        mom = fma_f32(state["mom"], cfg.momentum, g)
-        a = state["err"] + (mom if p is None else torch.where(p, mom, 0.0))
+        if g.dtype == torch.float32:
+            # mom' = momentum * mom + g, one rounding as the compiled
+            # reference contracts it into a fused multiply-add
+            mom = fma_f32(state["mom"], cfg.momentum, g)
+        else:
+            # bf16 state: the reference rounds every operation to bf16,
+            # the momentum constant included (the product of two bf16
+            # values is exact in fp32)
+            m = torch.tensor(cfg.momentum, dtype=g.dtype).float().item()
+            mom = (state["mom"].float() * m).to(g.dtype) + g
+        am = mom if p is None else torch.where(p, mom, 0.0)
+        a = state["err"] + am
+        score = _select_key(a, state["err"], am)
         _release(state, donate, "err", "mom")
+        del am
     with record_function("compress/select"):
-        mask, values, indices = _reference_select(cfg, a, a, k)
+        mask, values, indices = _reference_select(cfg, a, score, k)
+        del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
-        ghat, err = fef.fused_apply_mask(a, mask)
+        ghat, err = _apply(a, mask)
         del a
         mom.mul_(1.0 - mask)             # in place on mom', a new buffer
     return CompressOut({"err": err, "mom": mom, "step": state["step"] + 1},
@@ -368,35 +486,43 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
 
 
 def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                    k: int, omega: float, p=None) -> CompressOut:
+                    k: int, omega: float, p=None, key=None) -> CompressOut:
     from repro_torch.kernels.compress import ops
+    from repro_torch.kernels.compress.dispatch import fused_histogram
+    hist = fused_histogram(cfg)
     kwargs = {}
     if p is not None:
         kwargs = dict(participate=p, err_decay=cfg.err_decay)
     if cfg.kind == "regtopk":
         kwargs.update(idx_prev=state["idx_prev"],
-                      a_prev_sel=state["a_prev_sel"],
-                      g_prev_sel=state["g_prev_sel"])
+                      a_prev_sel=state["a_prev_sel"].float(),
+                      g_prev_sel=state["g_prev_sel"].float(),
+                      nsel_prev=state["nsel"] if hist else None)
     if cfg.kind == "dgc":
         kwargs.update(mom=state["mom"], momentum=cfg.momentum)
     out = ops.fused_compress_arrays(
         cfg.kind, g, state["err_prev"], state["step"], k=k,
-        omega=omega, mu=cfg.mu, Q=cfg.Q, **kwargs)
+        omega=omega, mu=cfg.mu, Q=cfg.Q, num_buckets=cfg.num_buckets,
+        selector="histogram" if hist else "exact", key=key, **kwargs)
     new = {"err_prev": out["err"], "step": state["step"] + 1}
     if cfg.kind == "dgc":
         new["mom"] = out["mom"]             # selection-masked
     if cfg.kind == "regtopk":
         new["idx_prev"] = out["indices"]
-        new["a_prev_sel"] = out["values"]
+        new["a_prev_sel"] = out["values"].to(state_dtype(cfg))
         new["g_prev_sel"] = torch.zeros_like(state["g_prev_sel"])
+        if hist:
+            new["nsel"] = out["count"]
         if p is not None:
             # posterior freeze (O(k) selects): a sitting-out worker's t-1
             # support and values stay those of its last participating
             # step; observe_aggregate freezes g_prev_sel alike
-            for key in ("idx_prev", "a_prev_sel", "g_prev_sel"):
-                new[key] = torch.where(p, new[key], state[key])
+            for name in ("idx_prev", "a_prev_sel", "g_prev_sel") + (
+                    ("nsel",) if hist else ()):
+                new[name] = torch.where(p, new[name], state[name])
+    count = out["count"] if p is not None or hist else None
     return CompressOut(new, out["values"], out["indices"], out["fallback"],
-                       count=None if p is None else out["count"])
+                       count=count)
 
 
 def observe_aggregate(cfg: SparsifierConfig, state: dict,
@@ -411,7 +537,7 @@ def observe_aggregate(cfg: SparsifierConfig, state: dict,
         return state
     key = "g_agg_prev" if _dense_posterior(cfg) else "g_prev_sel"
     obs = g_agg if key == "g_agg_prev" else bigvec.gather(
-        g_agg, state["idx_prev"])
+        g_agg, state["idx_prev"]).to(state_dtype(cfg))
     if participate is not None:
         obs = torch.where(participate.reshape(()), obs, state[key])
     return dict(state, **{key: obs})
@@ -467,9 +593,11 @@ def make_round_fn(cfg: SparsifierConfig, n_workers: int):
 
 def sparsified_round(cfg: SparsifierConfig, states: list, grads: list,
                      omegas: Optional[list] = None,
-                     participate: Optional[list] = None):
+                     participate: Optional[list] = None, key=None):
     """One aggregation round over N in-process workers: a delegate to
-    ``core.aggregate.GradientSync.round``. Returns (g_agg, new_states)."""
+    ``core.aggregate.GradientSync.round`` (randk: worker i draws with
+    ``fold_in(key, i)``). Returns (g_agg, new_states)."""
     from repro_torch.core import aggregate
     return aggregate.GradientSync(cfg).round(states, grads, omegas=omegas,
-                                             participate=participate)
+                                             participate=participate,
+                                             key=key)

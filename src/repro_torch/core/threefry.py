@@ -9,8 +9,9 @@ counter on the card yields a 0-d draw on the card.
 
 The draws follow jax's partitionable layout
 (``jax_threefry_partitionable=True``, the default since jax 0.5): the
-32 random bits of a 0-d draw are the XOR of the two output words of
-threefry(key, (0, 0)). The older layout gives another word.
+32 random bits at flat position i of a draw are the XOR of the two
+output words of threefry(key, (i >> 32, i & 0xFFFFFFFF)), so a 0-d draw
+is threefry(key, (0, 0)). The older layout gives other words.
 """
 from __future__ import annotations
 
@@ -70,6 +71,15 @@ def random_bits32(key: torch.Tensor) -> torch.Tensor:
     partitionable layout: the XOR of threefry(key, (0, 0))'s two words."""
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[0], key[1], zero, zero)
+    return y0 ^ y1
+
+
+def random_bits32_range(key: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Positions [lo, hi) of ``jax.random.bits(key, (j,), uint32)`` (any
+    j >= hi), int64 values in [0, 2^32), on key's device: a caller can
+    draw a long stream in chunks of bounded memory."""
+    i = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], i >> 32, i & MASK)
     return y0 ^ y1
 
 

@@ -19,11 +19,21 @@
 // temporary; the add runs when p is 0 too (-0.0 + 0.0 is +0.0, as in the
 // reference).
 //
+// The bf16 read (every mode; the reference's ef_dtype="bfloat16") takes err
+// and, in dgc mode, mom as bf16 and widens them to fp32 in registers, which
+// is exact; it also rounds g to bf16 first, because the reference casts the
+// gradient to the state's dtype before the sweep, and a sitting-out worker's
+// decayed error is rounded to bf16 before the add (the reference casts
+// err_decay * err back to the state's dtype). Its outputs stay fp32, so every
+// output equals the fp32 kernel's on the upcast inputs (g rounded to bf16).
+//
 // Bound: device-memory bytes. Plain mode reads g and err and writes a and
 // score, 16 B per element (14.27 GB at J = 892,032,000, about 4.3 ms at the
 // H100 SXM's 3.35 TB/s); dgc mode also reads mom and writes mom', 24 B per
 // element (21.41 GB, about 6.4 ms); the gated variant moves the same bytes
-// as its mode. The histogram and the amax add only J/4096 * 4 B.
+// as its mode. The bf16 read saves 2 B per bf16 stream: 14 B per element in
+// plain mode (3.73 ms), 20 B in dgc mode (5.33 ms). The histogram and the
+// amax add only J/4096 * 4 B.
 //
 // Design. The TPU grid runs in order and carries the histogram from one grid
 // step to the next; Hopper runs blocks in parallel, so this is a persistent
@@ -46,6 +56,8 @@
 // step's factor nor the fault schedule forces a host read; momentum and
 // decay are by-value fp32 (the reference's weak-typed constants round to
 // fp32 too).
+#include <cuda_bf16.h>
+
 #include "compress_common.cuh"
 
 namespace compress {
@@ -75,24 +87,78 @@ __device__ __forceinline__ float advance(float momentum, float m, float g) {
 
 // the gated variant's input masking: g_eff = p ? g : 0 and err_eff = p ?
 // err : decay * err (one rounding), in place
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void round_bf16(float4& g) {
+  g.x = round_bf16(g.x);
+  g.y = round_bf16(g.y);
+  g.z = round_bf16(g.z);
+  g.w = round_bf16(g.w);
+}
+
+// How the error state (and dgc mode's momentum) is read: fp32 as it is, or
+// bf16 widened to fp32 (exact).
+template <typename S>
+struct StateRead;
+
+template <>
+struct StateRead<float> {
+  static constexpr bool BF16 = false;
+  // the 4 elements at 4 * i of p
+  static __device__ __forceinline__ float4 load4(const float* p,
+                                                  long long i) {
+    return __ldcs(reinterpret_cast<const float4*>(p) + i);
+  }
+  static __device__ __forceinline__ float load1(const float* p,
+                                                long long e) {
+    return p[e];
+  }
+};
+
+template <>
+struct StateRead<__nv_bfloat16> {
+  static constexpr bool BF16 = true;
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p,
+                                                  long long i) {
+    // four bf16 in 8 bytes; the lower half-word is the lower element
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p) + i);
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ float load1(const __nv_bfloat16* p,
+                                                long long e) {
+    return __bfloat162float(p[e]);
+  }
+};
+
+// with a bf16 state the decayed error is rounded back to bf16
+template <bool BF16>
 __device__ __forceinline__ void mask_inputs(bool p, float decay, float& g,
                                             float& e) {
   g = p ? g : 0.0f;
-  e = p ? e : __fmul_rn(decay, e);
+  if (!p) {
+    e = __fmul_rn(decay, e);
+    if constexpr (BF16) e = round_bf16(e);
+  }
 }
 
+template <bool BF16>
 __device__ __forceinline__ void mask_inputs(bool p, float decay, float4& g,
                                             float4& e) {
-  mask_inputs(p, decay, g.x, e.x);
-  mask_inputs(p, decay, g.y, e.y);
-  mask_inputs(p, decay, g.z, e.z);
-  mask_inputs(p, decay, g.w, e.w);
+  mask_inputs<BF16>(p, decay, g.x, e.x);
+  mask_inputs<BF16>(p, decay, g.y, e.y);
+  mask_inputs<BF16>(p, decay, g.z, e.z);
+  mask_inputs<BF16>(p, decay, g.w, e.w);
 }
 
-template <bool VEC, bool DGC, bool GATED>
+template <bool VEC, bool DGC, bool GATED, typename S>
 __global__ void __launch_bounds__(THREADS)
-sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
-              const float* __restrict__ mom, const float* __restrict__ c_ptr,
+sweep1_kernel(const float* __restrict__ g, const S* __restrict__ err,
+              const S* __restrict__ mom, const float* __restrict__ c_ptr,
               const float* __restrict__ gate_ptr, float momentum, float decay,
               float* __restrict__ a_out, float* __restrict__ score_out,
               float* __restrict__ mom_out, float* __restrict__ amax_out,
@@ -106,35 +172,38 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
   if constexpr (GATED) p = *gate_ptr > 0.5f;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  using Read = StateRead<S>;
 
   for (long long t = blockIdx.x; t < rows; t += gridDim.x) {
     const long long base = t * BLOCK;
     float m = 0.0f;   // keys are >= 0: equals the max over a zero-padded tile
     if (VEC && base + BLOCK <= j) {
       const float4* g4 = reinterpret_cast<const float4*>(g + base);
-      const float4* e4 = reinterpret_cast<const float4*>(err + base);
       float4* a4 = reinterpret_cast<float4*>(a_out + base);
       float4* s4 = reinterpret_cast<float4*>(score_out + base);
       float4 gv[PER_THREAD / 4], ev[PER_THREAD / 4];
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
         gv[r] = __ldcs(&g4[r * THREADS + threadIdx.x]);
-        ev[r] = __ldcs(&e4[r * THREADS + threadIdx.x]);
+        ev[r] = Read::load4(err + base, r * THREADS + threadIdx.x);
+      }
+      if constexpr (Read::BF16) {
+#pragma unroll
+        for (int r = 0; r < PER_THREAD / 4; ++r) round_bf16(gv[r]);
       }
       if constexpr (GATED) {
 #pragma unroll
         for (int r = 0; r < PER_THREAD / 4; ++r) {
-          mask_inputs(p, decay, gv[r], ev[r]);
+          mask_inputs<Read::BF16>(p, decay, gv[r], ev[r]);
         }
       }
       if constexpr (DGC) {
         // gv becomes mom' in place, and is written out as the new momentum
-        const float4* m4 = reinterpret_cast<const float4*>(mom + base);
         float4* mo4 = reinterpret_cast<float4*>(mom_out + base);
         float4 mv[PER_THREAD / 4];
 #pragma unroll
         for (int r = 0; r < PER_THREAD / 4; ++r) {
-          mv[r] = __ldcs(&m4[r * THREADS + threadIdx.x]);
+          mv[r] = Read::load4(mom + base, r * THREADS + threadIdx.x);
         }
 #pragma unroll
         for (int r = 0; r < PER_THREAD / 4; ++r) {
@@ -168,10 +237,11 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         const long long e = base + i;
         if (e < j) {
           float x = g[e];
-          float ee = err[e];
-          if constexpr (GATED) mask_inputs(p, decay, x, ee);
+          float ee = Read::load1(err, e);
+          if constexpr (Read::BF16) x = round_bf16(x);
+          if constexpr (GATED) mask_inputs<Read::BF16>(p, decay, x, ee);
           if constexpr (DGC) {
-            x = advance(momentum, mom[e], x);
+            x = advance(momentum, Read::load1(mom, e), x);
             mom_out[e] = x;
             if constexpr (GATED) x = p ? x : 0.0f;
           }
@@ -204,18 +274,18 @@ sweep1_kernel(const float* __restrict__ g, const float* __restrict__ err,
   }
 }
 
-template <bool DGC, bool GATED>
-int launch(const float* g, const float* err, const float* mom, const float* c,
+template <bool DGC, bool GATED, typename S>
+int launch(const float* g, const S* err, const S* mom, const float* c,
            const float* gate, float momentum, float decay, float* a,
            float* score, float* mom_out, float* amax, int* hist, long long j,
            int grid, int vec, cudaStream_t stream) {
   const long long rows = (j + BLOCK - 1) / BLOCK;
   if (vec) {
-    sweep1_kernel<true, DGC, GATED><<<grid, THREADS, 0, stream>>>(
+    sweep1_kernel<true, DGC, GATED, S><<<grid, THREADS, 0, stream>>>(
         g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
         j, rows);
   } else {
-    sweep1_kernel<false, DGC, GATED><<<grid, THREADS, 0, stream>>>(
+    sweep1_kernel<false, DGC, GATED, S><<<grid, THREADS, 0, stream>>>(
         g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
         j, rows);
   }
@@ -233,9 +303,9 @@ extern "C" int sweep1_launch(const float* g, const float* err, const float* c,
                              float* a, float* score, float* amax, int* hist,
                              long long j, int grid, int vec,
                              cudaStream_t stream) {
-  return compress::launch<false, false>(g, err, nullptr, c, nullptr, 0.0f,
-                                        1.0f, a, score, nullptr, amax, hist,
-                                        j, grid, vec, stream);
+  return compress::launch<false, false, float>(
+      g, err, nullptr, c, nullptr, 0.0f, 1.0f, a, score, nullptr, amax, hist,
+      j, grid, vec, stream);
 }
 
 // dgc mode: as sweep1_launch, plus mom (J,) fp32 in and mom_out (J,) fp32
@@ -247,9 +317,9 @@ extern "C" int sweep1_dgc_launch(const float* g, const float* err,
                                  float* mom_out, float* amax, int* hist,
                                  long long j, int grid, int vec,
                                  cudaStream_t stream) {
-  return compress::launch<true, false>(g, err, mom, c, nullptr, momentum,
-                                       1.0f, a, score, mom_out, amax, hist, j,
-                                       grid, vec, stream);
+  return compress::launch<true, false, float>(
+      g, err, mom, c, nullptr, momentum, 1.0f, a, score, mom_out, amax, hist,
+      j, grid, vec, stream);
 }
 
 // the gated variant, both modes: as sweep1_launch (mom == nullptr, mom_out
@@ -263,11 +333,56 @@ extern "C" int sweep1_gated_launch(const float* g, const float* err,
                                    long long j, int grid, int vec,
                                    cudaStream_t stream) {
   if (mom != nullptr) {
-    return compress::launch<true, true>(g, err, mom, c, gate, momentum, decay,
-                                        a, score, mom_out, amax, hist, j,
-                                        grid, vec, stream);
+    return compress::launch<true, true, float>(
+        g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
+        j, grid, vec, stream);
   }
-  return compress::launch<false, true>(g, err, nullptr, c, gate, 0.0f, decay,
-                                       a, score, nullptr, amax, hist, j, grid,
-                                       vec, stream);
+  return compress::launch<false, true, float>(
+      g, err, nullptr, c, gate, 0.0f, decay, a, score, nullptr, amax, hist, j,
+      grid, vec, stream);
+}
+
+// The bf16 read of each mode: as sweep1_launch, sweep1_dgc_launch and
+// sweep1_gated_launch with err (and mom) bf16; g is rounded to bf16 in
+// registers. vec != 0 requires 16-byte-aligned fp32 vectors and 8-byte-
+// aligned bf16 ones.
+extern "C" int sweep1_bf16_launch(const float* g, const __nv_bfloat16* err,
+                                  const float* c, float* a, float* score,
+                                  float* amax, int* hist, long long j,
+                                  int grid, int vec, cudaStream_t stream) {
+  return compress::launch<false, false, __nv_bfloat16>(
+      g, err, nullptr, c, nullptr, 0.0f, 1.0f, a, score, nullptr, amax, hist,
+      j, grid, vec, stream);
+}
+
+extern "C" int sweep1_dgc_bf16_launch(const float* g,
+                                      const __nv_bfloat16* err,
+                                      const __nv_bfloat16* mom,
+                                      const float* c, float momentum,
+                                      float* a, float* score, float* mom_out,
+                                      float* amax, int* hist, long long j,
+                                      int grid, int vec,
+                                      cudaStream_t stream) {
+  return compress::launch<true, false, __nv_bfloat16>(
+      g, err, mom, c, nullptr, momentum, 1.0f, a, score, mom_out, amax, hist,
+      j, grid, vec, stream);
+}
+
+extern "C" int sweep1_gated_bf16_launch(const float* g,
+                                        const __nv_bfloat16* err,
+                                        const __nv_bfloat16* mom,
+                                        const float* c, const float* gate,
+                                        float momentum, float decay, float* a,
+                                        float* score, float* mom_out,
+                                        float* amax, int* hist, long long j,
+                                        int grid, int vec,
+                                        cudaStream_t stream) {
+  if (mom != nullptr) {
+    return compress::launch<true, true, __nv_bfloat16>(
+        g, err, mom, c, gate, momentum, decay, a, score, mom_out, amax, hist,
+        j, grid, vec, stream);
+  }
+  return compress::launch<false, true, __nv_bfloat16>(
+      g, err, nullptr, c, gate, 0.0f, decay, a, score, nullptr, amax, hist, j,
+      grid, vec, stream);
 }

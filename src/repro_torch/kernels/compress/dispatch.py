@@ -1,21 +1,53 @@
 """What a config's compress step emits and which wire its sync realizes
-(the port's copy of the parts of ``repro.kernels.compress.dispatch``
-that the slice serves)."""
+(the port's copy of ``repro.kernels.compress.dispatch``).
+
+The fused pipeline serves the kinds of :data:`FUSED_KINDS`. Its
+histogram selector (``selector="histogram"``) selects at the bit-pattern
+bin edge of the k-th |score| and packs a fixed :func:`hist_capacity`
+pairs, count in [k, capacity] of them live and the tail inert (value
+0.0 at index 0); randk selects without a score and ignores the
+selector.
+"""
 from __future__ import annotations
+
+import math
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import sparsify
 
+# kinds of the fused two-sweep pipeline: randk is one elementwise pass
+# and an O(k) random gather, thresholdk shares topk's plain-score path
+FUSED_KINDS = ("topk", "dgc", "regtopk", "randk", "thresholdk")
+# the fused histogram selector's over-selection cap: count <= k * (1 +
+# HIST_SLACK)
+HIST_SLACK = 1.0
+
+
+def hist_capacity(k: int, j: int) -> int:
+    """Packed capacity of the fused histogram selector: min(j, k +
+    ceil(k * HIST_SLACK)), never below k + 1."""
+    k = int(min(k, j))
+    return int(min(j, k + max(1, int(math.ceil(k * HIST_SLACK)))))
+
+
+def fused_histogram(cfg: SparsifierConfig) -> bool:
+    """The fused pipeline's histogram selector serves the config: a fused
+    kind but randk, which ignores the selector."""
+    return (cfg.pipeline == "fused" and cfg.selector == "histogram"
+            and cfg.kind in FUSED_KINDS and cfg.kind != "randk")
+
 
 def packs_pairs(cfg: SparsifierConfig) -> bool:
-    """compress emits exactly k packed (value, index) pairs: local
-    selection on the fused pipeline, with the exact selector, or in
+    """compress emits fixed-size packed (value, index) pairs: local
+    selection on the fused pipeline (any selector), or on the reference
+    pipeline with the exact selector, with randk (selector-free) or in
     REGTOP-k's O(k) layout (whose top-k is exact whatever the selector).
     The histogram selectors of the reference pipeline select a
     data-dependent count and pack nothing; nor do the sketch, the genie
     and dense SGD, which select no per-worker pairs."""
     return sparsify.selection(cfg) == "local" and (
         cfg.pipeline == "fused" or cfg.selector == "exact"
+        or cfg.kind == "randk"
         or (cfg.kind == "regtopk" and cfg.state_format == "sparse"))
 
 
@@ -47,8 +79,8 @@ def effective_comm_mode(cfg: SparsifierConfig) -> str:
 
 def packed_len(cfg: SparsifierConfig, j: int) -> int:
     """Length of the packed (values, indices) arrays compress emits, the
-    per-worker unit of the sparse all-gather: k for every config the
-    port serves. The fused histogram selector's fixed capacity
-    (``hist_capacity``) is not served: its config raises, naming A8."""
+    per-worker unit of the sparse all-gather: :func:`hist_capacity` for
+    the fused histogram selector, k otherwise."""
+    k = sparsify.resolve_k(cfg, j)
     sparsify.check_supported(cfg)
-    return sparsify.resolve_k(cfg, j)
+    return hist_capacity(k, j) if fused_histogram(cfg) else k

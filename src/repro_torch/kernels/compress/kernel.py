@@ -8,6 +8,12 @@ its dgc mode (:func:`sweep1_dgc`, the same kernel) also reads the
 momentum and emits ``mom' = momentum * mom + g`` with ``a = err + mom'``;
 its gated variant (:func:`sweep1_gated`, both modes) masks the inputs by
 a worker's participation bit and decays a sitting-out worker's error.
+Each mode also reads a bf16 error state (and momentum) as the reference's
+``ef_dtype="bfloat16"`` stores it (:func:`sweep1_bf16`,
+:func:`sweep1_dgc_bf16`, :func:`sweep1_gated_bf16`): widened in registers,
+with g rounded to bf16 first, the outputs fp32. The per-bucket launches
+of the bucketed pipeline write into views of the caller's (J,) outputs
+(``out=``).
 Sweep 2 (:func:`sweep2`, kernel ``csrc/sweep2.cu``) compacts the
 ``|score| >= tau`` candidates of every 4096-element tile into that tile's
 static ``MAXPB`` slots. The CountSketch encodes share the kernels of
@@ -86,6 +92,21 @@ def threshold_from_hist(hist: torch.Tensor, target) -> torch.Tensor:
     return torch.where(b >= 0, edge, torch.zeros_like(edge))
 
 
+def merge_bucket_hists(hists) -> torch.Tensor:
+    """The whole vector's histogram from its buckets' (the bin of an
+    element depends on its value only), summed in bucket order."""
+    merged = hists[0]
+    for h in hists[1:]:
+        merged = merged + h
+    return merged
+
+
+def threshold_from_bucket_hists(hists, target) -> torch.Tensor:
+    """The global tau of a bucketed sweep: :func:`threshold_from_hist` of
+    the merged histogram, the flat sweep's tau for any bucketing."""
+    return threshold_from_hist(merge_bucket_hists(hists), target)
+
+
 def rows_of(j: int) -> int:
     return -(-j // BLOCK)
 
@@ -99,10 +120,13 @@ def masked_inputs(g, err_prev, participate, err_decay: float):
     err_prev)) for the 0-d participation bit p (the reference's
     ``masked_inputs``, which its reference pipeline and the gated sweep
     share): a sitting-out worker contributes nothing and its error
-    decays."""
+    decays. The decay multiplies in fp32 and rounds back to the error's
+    dtype (bf16 state: one rounding to bf16)."""
     p = participate.reshape(())
-    return (torch.where(p, g, 0.0),
-            torch.where(p, err_prev, f32(err_decay) * err_prev))
+    decayed = (f32(err_decay) * err_prev.float()).to(err_prev.dtype)
+    return (torch.where(p, g, torch.zeros((), dtype=g.dtype,
+                                          device=g.device)),
+            torch.where(p, err_prev, decayed))
 
 
 def sweep1_plain(g, err_prev, c, mom=None, momentum: float = 0.0,
@@ -114,10 +138,17 @@ def sweep1_plain(g, err_prev, c, mom=None, momentum: float = 0.0,
     gated variant (:func:`sweep1_gated`): the reference's masked inputs
     g_eff = where(p, g, 0), err_eff = where(p, err, decay * err), then
     a = err_eff + g_eff, or in dgc mode a = err_eff + where(p, mom', 0)
-    with mom' = momentum * mom + g_eff."""
+    with mom' = momentum * mom + g_eff. A bf16 ``err_prev`` (and ``mom``)
+    is the bf16 read: g is rounded to bf16 first, the decayed error back
+    to bf16, and both states widen to fp32."""
+    if err_prev.dtype == torch.bfloat16:
+        g = g.to(torch.bfloat16)
     if gate is not None:
         p = gate.reshape(()) > 0.5
         g, err_prev = masked_inputs(g, err_prev, p, decay)
+    g, err_prev = g.float(), err_prev.float()
+    if mom is not None:
+        mom = mom.float()
     mom_out = None if mom is None else fma_f32(mom, momentum, g)
     if mom is None:
         a = err_prev + g
@@ -352,73 +383,151 @@ def sweep1_sketch_parts_plain(g, err_prev, rows: int, width: int,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
-           mom: torch.Tensor | None = None, momentum: float = 0.0):
-    """(a, score, amax (rows,), hist (2048,) int32) for g, err_prev (J,)
-    fp32 and c (1,) fp32, all on one device. With ``mom`` (J,) fp32 the
-    dgc mode (:func:`sweep1_dgc`): mom' = momentum * mom + g, a = err_prev
-    + mom', and mom' is returned last."""
-    if mom is not None:
-        return sweep1_dgc(g, err_prev, mom, c, momentum)
+_BF16 = torch.bfloat16
+
+
+def _vec_ok(*xs) -> int:
+    """1 when every tensor's data allows the kernel's 4-element vector
+    access (16 bytes of fp32, 8 bytes of bf16)."""
+    return int(all(x.data_ptr() % (4 * x.element_size()) == 0 for x in xs))
+
+
+def _sweep1_outputs(g, out=None, dgc=False):
+    """a, score (J,) (``out``'s views where given), amax (rows,), the
+    zeroed hist (2048,) int32, and in dgc mode mom' (J,)."""
+    rows = rows_of(g.numel())
+    if out is None:
+        out = tuple(torch.empty_like(g) for _ in range(3 if dgc else 2))
+    for name, x in zip(("a", "score", "mom_out"), out):
+        _check_vec(name, x, g.numel())
+        if x.device != g.device:
+            raise ValueError(f"sweep1: {name} must be on g's device")
+    return (out[0], out[1],
+            torch.empty(rows, dtype=torch.float32, device=g.device),
+            torch.zeros(BINS, dtype=torch.int32, device=g.device),
+            out[2] if dgc else None)
+
+
+def _sweep1(fn, g, err_prev, c, mom, momentum, gate, decay, out):
+    """Check the inputs and run sweep 1 in the mode the arguments pick
+    (dgc with ``mom``, gated with ``gate``, the bf16 read when err_prev
+    is bf16): the plain version on the CPU, else the kernel, counted on
+    the public wrapper ``fn``. Returns (a, score, amax, hist) and mom'
+    in dgc mode."""
     j = g.numel()
+    dtype = err_prev.dtype
+    if dtype not in (torch.float32, _BF16):
+        raise ValueError(f"{fn.__name__}: err_prev must be fp32 or bf16, "
+                         f"got {dtype}")
     _check_vec("g", g)
-    _check_vec("err_prev", err_prev, j)
+    _check_vec("err_prev", err_prev, j, dtype)
     _check_vec("c", c, 1)
-    if len({g.device, err_prev.device, c.device}) != 1:
-        raise ValueError("sweep1: g, err_prev and c must share a device")
+    ins = [g, err_prev, c]
+    if mom is not None:
+        _check_vec("mom", mom, j, dtype)
+        ins.append(mom)
+    if gate is not None:
+        _check_vec("gate", gate, 1)
+        ins.append(gate)
+    if len({x.device for x in ins}) != 1:
+        raise ValueError(f"{fn.__name__}: every input must share a device")
     if not _on_card(g):
-        return sweep1_plain(g, err_prev, c)
-    a, score, amax, hist = _sweep1_outputs(g)
-    fn = _lib("sweep1").sweep1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    err = fn(g.data_ptr(), err_prev.data_ptr(), c.data_ptr(), a.data_ptr(),
-             score.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
-             _grid(g.device, rows_of(j)), _aligned(g, err_prev, a, score),
-             _stream(g.device))
-    _check_launch("sweep1", err)
-    sweep1.launches += 1
-    return a, score, amax, hist
+        res = sweep1_plain(g, err_prev, c, mom, momentum, gate, decay)
+        if out is None:
+            return res
+        for dst, src in zip(out, res[:2] + res[4:]):
+            dst.copy_(src)
+        return tuple(out[:2]) + res[2:4] + tuple(out[2:])
+    lib = _lib("sweep1")
+    a, score, amax, hist, mom_out = _sweep1_outputs(g, out, mom is not None)
+    vec = _vec_ok(*[x for x in (g, err_prev, mom, a, score, mom_out)
+                    if x is not None])
+    tail = (amax.data_ptr(), hist.data_ptr(), j, _grid(g.device, rows_of(j)),
+            vec, _stream(g.device))
+    ptr = ctypes.c_void_p
+    tail_types = [ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ptr]
+    bf16 = "_bf16" if dtype == _BF16 else ""
+    if gate is not None:
+        launch = getattr(lib, f"sweep1_gated{bf16}_launch")
+        args = (g.data_ptr(), err_prev.data_ptr(),
+                None if mom is None else mom.data_ptr(), c.data_ptr(),
+                gate.data_ptr(), ctypes.c_float(momentum),
+                ctypes.c_float(decay), a.data_ptr(), score.data_ptr(),
+                None if mom_out is None else mom_out.data_ptr())
+        types = [ptr] * 5 + [ctypes.c_float] * 2 + [ptr] * 3
+    elif mom is not None:
+        launch = getattr(lib, f"sweep1_dgc{bf16}_launch")
+        args = (g.data_ptr(), err_prev.data_ptr(), mom.data_ptr(),
+                c.data_ptr(), ctypes.c_float(momentum), a.data_ptr(),
+                score.data_ptr(), mom_out.data_ptr())
+        types = [ptr] * 4 + [ctypes.c_float] + [ptr] * 3
+    else:
+        launch = getattr(lib, f"sweep1{bf16}_launch")
+        args = (g.data_ptr(), err_prev.data_ptr(), c.data_ptr(),
+                a.data_ptr(), score.data_ptr())
+        types = [ptr] * 5
+    launch.restype = ctypes.c_int
+    launch.argtypes = types + tail_types
+    _check_launch(fn.__name__, launch(*args, *tail))
+    fn.launches += 1
+    out = (a, score, amax, hist)
+    return out if mom is None else out + (mom_out,)
+
+
+def sweep1(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
+           mom: torch.Tensor | None = None, momentum: float = 0.0, *,
+           out=None):
+    """(a, score, amax (rows,), hist (2048,) int32) for g, err_prev (J,)
+    fp32 and c (1,) fp32, all on one device. With ``mom`` (J,) the dgc
+    mode (:func:`sweep1_dgc`): mom' = momentum * mom + g, a = err_prev +
+    mom', and mom' is returned last. A bf16 err_prev runs the bf16 read
+    (:func:`sweep1_bf16`). ``out``: (a, score[, mom']) (J,) fp32 tensors
+    to write into (views of larger buffers, as the bucketed pipeline
+    passes), else new ones."""
+    if mom is not None:
+        return sweep1_dgc(g, err_prev, mom, c, momentum, out=out)
+    if err_prev.dtype == _BF16:
+        return sweep1_bf16(g, err_prev, c, out=out)
+    return _sweep1(sweep1, g, err_prev, c, None, 0.0, None, 1.0, out)
+
+
+def sweep1_bf16(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
+                *, out=None):
+    """Sweep 1's plain mode reading a bf16 err_prev (J,): g is rounded to
+    bf16 and err_prev widened in registers, the outputs are fp32, bit for
+    bit the fp32 kernel's on (g.bfloat16().float(), err_prev.float()).
+    Its own ``launches`` count."""
+    _check_vec("err_prev", err_prev, dtype=_BF16)
+    return _sweep1(sweep1_bf16, g, err_prev, c, None, 0.0, None, 1.0, out)
 
 
 def sweep1_dgc(g: torch.Tensor, err_prev: torch.Tensor, mom: torch.Tensor,
-               c: torch.Tensor, momentum: float):
+               c: torch.Tensor, momentum: float, *, out=None):
     """Sweep 1 in dgc mode: (a, score, amax, hist, mom') with mom' =
     momentum * mom + g (momentum rounded to fp32), a = err_prev + mom'
     and score = a * c; g, err_prev, mom (J,) fp32 and c (1,) fp32 on one
-    device. Its own ``launches`` count shows which mode a run took."""
-    j = g.numel()
-    _check_vec("g", g)
-    _check_vec("err_prev", err_prev, j)
-    _check_vec("mom", mom, j)
-    _check_vec("c", c, 1)
-    if len({g.device, err_prev.device, mom.device, c.device}) != 1:
-        raise ValueError("sweep1_dgc: g, err_prev, mom and c must share a "
-                         "device")
-    if not _on_card(g):
-        return sweep1_plain(g, err_prev, c, mom, momentum)
-    a, score, amax, hist = _sweep1_outputs(g)
-    mom_out = torch.empty_like(g)
-    fn = _lib("sweep1").sweep1_dgc_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [
-        ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_void_p]
-    err = fn(g.data_ptr(), err_prev.data_ptr(), mom.data_ptr(), c.data_ptr(),
-             ctypes.c_float(momentum), a.data_ptr(), score.data_ptr(),
-             mom_out.data_ptr(), amax.data_ptr(), hist.data_ptr(), j,
-             _grid(g.device, rows_of(j)),
-             _aligned(g, err_prev, mom, a, score, mom_out),
-             _stream(g.device))
-    _check_launch("sweep1_dgc", err)
-    sweep1_dgc.launches += 1
-    return a, score, amax, hist, mom_out
+    device (bf16 err_prev and mom: :func:`sweep1_dgc_bf16`). Its own
+    ``launches`` count shows which mode a run took."""
+    if err_prev.dtype == _BF16:
+        return sweep1_dgc_bf16(g, err_prev, mom, c, momentum, out=out)
+    return _sweep1(sweep1_dgc, g, err_prev, c, mom, momentum, None, 1.0, out)
+
+
+def sweep1_dgc_bf16(g: torch.Tensor, err_prev: torch.Tensor,
+                    mom: torch.Tensor, c: torch.Tensor, momentum: float, *,
+                    out=None):
+    """Sweep 1's dgc mode reading bf16 err_prev and mom (J,); mom' and
+    every other output fp32."""
+    _check_vec("err_prev", err_prev, dtype=_BF16)
+    return _sweep1(sweep1_dgc_bf16, g, err_prev, c, mom, momentum, None, 1.0,
+                   out)
 
 
 def sweep1_gated(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
                  gate: torch.Tensor, decay: float,
-                 mom: torch.Tensor | None = None, momentum: float = 0.0):
+                 mom: torch.Tensor | None = None, momentum: float = 0.0, *,
+                 out=None):
     """Sweep 1 under elastic participation, both modes: the inputs masked
     in registers by the participation bit p = gate > 0.5 (gate a (1,)
     fp32 on the device, so the schedule needs no host read) and the
@@ -427,48 +536,23 @@ def sweep1_gated(g: torch.Tensor, err_prev: torch.Tensor, c: torch.Tensor,
     score, amax, hist) with a = err_eff + g_eff, or with ``mom`` the dgc
     mode, (a, score, amax, hist, mom') with mom' = momentum * mom + g_eff
     and a = err_eff + (p ? mom' : 0). Its own ``launches`` count covers
-    both modes."""
-    j = g.numel()
-    _check_vec("g", g)
-    _check_vec("err_prev", err_prev, j)
-    _check_vec("c", c, 1)
-    _check_vec("gate", gate, 1)
-    ins = [g, err_prev, c, gate] + ([] if mom is None else [mom])
-    if mom is not None:
-        _check_vec("mom", mom, j)
-    if len({x.device for x in ins}) != 1:
-        raise ValueError("sweep1_gated: g, err_prev, c, gate (and mom) must "
-                         "share a device")
-    if not _on_card(g):
-        return sweep1_plain(g, err_prev, c, mom, momentum, gate, decay)
-    a, score, amax, hist = _sweep1_outputs(g)
-    mom_out = None if mom is None else torch.empty_like(g)
-    fn = _lib("sweep1").sweep1_gated_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_void_p]
-    vecs = [g, err_prev, a, score] + ([] if mom is None else [mom, mom_out])
-    err = fn(g.data_ptr(), err_prev.data_ptr(),
-             None if mom is None else mom.data_ptr(), c.data_ptr(),
-             gate.data_ptr(), ctypes.c_float(momentum),
-             ctypes.c_float(decay), a.data_ptr(), score.data_ptr(),
-             None if mom_out is None else mom_out.data_ptr(),
-             amax.data_ptr(), hist.data_ptr(), j,
-             _grid(g.device, rows_of(j)), _aligned(*vecs),
-             _stream(g.device))
-    _check_launch("sweep1_gated", err)
-    sweep1_gated.launches += 1
-    out = (a, score, amax, hist)
-    return out if mom is None else out + (mom_out,)
+    both modes (bf16 state: :func:`sweep1_gated_bf16`)."""
+    if err_prev.dtype == _BF16:
+        return sweep1_gated_bf16(g, err_prev, c, gate, decay, mom, momentum,
+                                 out=out)
+    return _sweep1(sweep1_gated, g, err_prev, c, mom, momentum, gate, decay,
+                   out)
 
 
-def _sweep1_outputs(g):
-    """a, score (J,), amax (rows,) and the zeroed hist (2048,) int32."""
-    rows = rows_of(g.numel())
-    return (torch.empty_like(g), torch.empty_like(g),
-            torch.empty(rows, dtype=torch.float32, device=g.device),
-            torch.zeros(BINS, dtype=torch.int32, device=g.device))
+def sweep1_gated_bf16(g: torch.Tensor, err_prev: torch.Tensor,
+                      c: torch.Tensor, gate: torch.Tensor, decay: float,
+                      mom: torch.Tensor | None = None, momentum: float = 0.0,
+                      *, out=None):
+    """The gated variant reading bf16 err_prev (and mom): a sitting-out
+    worker's decayed error is rounded back to bf16 before the add."""
+    _check_vec("err_prev", err_prev, dtype=_BF16)
+    return _sweep1(sweep1_gated_bf16, g, err_prev, c, mom, momentum, gate,
+                   decay, out)
 
 
 def sweep2(score: torch.Tensor, tau: torch.Tensor, maxpb: int):
@@ -612,14 +696,10 @@ def _encode_card(x, err_prev, a, rows: int, width: int, start):
     return sk
 
 
-sweep1.launches = 0
-sweep1_dgc.launches = 0
-sweep1_gated.launches = 0
-sweep2.launches = 0
-sweep1_sketch.launches = 0
-sketch_encode.launches = 0
-KERNELS = (sweep1, sweep1_dgc, sweep1_gated, sweep2, sweep1_sketch,
-           sketch_encode)
+KERNELS = (sweep1, sweep1_dgc, sweep1_gated, sweep1_bf16, sweep1_dgc_bf16,
+           sweep1_gated_bf16, sweep2, sweep1_sketch, sketch_encode)
+for _fn in KERNELS:
+    _fn.launches = 0
 
 
 def reset_launches() -> None:

@@ -12,12 +12,17 @@
       --smoke --drop-prob 0.3 --err-decay 0.9 --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --sparsifier none --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --comm sparse --pipeline fused --num-buckets 8 \
+      --wire-dtype bfloat16 --selector histogram --fixed-batch --device cpu
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact
 selector) for what the port serves, plus ``--device`` (default: the CUDA
 card; ``cpu`` runs the plain PyTorch path). Configs the port does not
-serve yet raise NotImplementedError naming their ROADMAP item. The body
+serve yet raise NotImplementedError naming their ROADMAP item. The
+reference launcher has no flag for ``SparsifierConfig.ef_dtype``, nor has
+this one: a bf16 error state is a config field. The body
 is :func:`train`, which takes a ``RunConfig``, so a caller can pass a
 config the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut
 in depth). It runs one process; a caller that has initialised
@@ -52,13 +57,27 @@ def parse_args(argv=None):
                     choices=["simulate", "sparse", "dense"])
     ap.add_argument("--pipeline", default="reference",
                     choices=["reference", "fused"])
+    ap.add_argument("--num-buckets", type=int, default=1,
+                    help="bucketed compression: the fused sweeps run per "
+                         "contiguous bucket (one merged-histogram "
+                         "threshold) and the sparse all-gather in as many "
+                         "chunks; selection is bucketing-invariant; 1 "
+                         "disables bucketing (0, the reference's "
+                         "auto-tune, is not ported: ROADMAP A16)")
     ap.add_argument("--selector", default="exact",
                     choices=["exact", "histogram"],
                     help="top-k selection rule: exact lax.top_k order, or "
-                         "threshold selection at a linear-histogram bin "
-                         "edge (reference pipeline; packs no pairs, so "
-                         "--comm sparse degrades to simulate with a "
-                         "warning)")
+                         "threshold selection: on the fused pipeline at the "
+                         "bit-pattern bin edge of the k-th |score| (count in "
+                         "[k, 2k], fixed-size packed pairs), on the "
+                         "reference pipeline at a linear-histogram bin edge "
+                         "(packs no pairs, so --comm sparse degrades to "
+                         "simulate with a warning)")
+    ap.add_argument("--wire-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="dtype of the packed values the sparse all-gather "
+                         "moves (indices stay 4-byte): bfloat16 cuts the "
+                         "wire from 8 to 6 bytes a pair")
     ap.add_argument("--err-decay", type=float, default=1.0,
                     help="per-step decay of a sitting-out worker's "
                          "error-feedback memory: err' = err_decay * err on "
@@ -115,7 +134,8 @@ def run_config(args):
         sparsifier=SparsifierConfig(
             kind=args.sparsifier, sparsity=args.sparsity, mu=args.mu,
             comm_mode=args.comm, pipeline=args.pipeline,
-            selector=args.selector, sketch_rows=args.sketch_rows,
+            selector=args.selector, num_buckets=args.num_buckets,
+            wire_dtype=args.wire_dtype, sketch_rows=args.sketch_rows,
             sketch_width=args.sketch_width, err_decay=args.err_decay,
             combine=args.combine),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
@@ -126,7 +146,9 @@ def run_config(args):
 def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
           fixed_batch: bool = False, log=print, on_step=None) -> dict:
     """Take ``run.steps`` training steps. Returns {"history": [{"step",
-    "loss", "ms"} (and "n_active" under a fault schedule), ...],
+    "loss", "ms"} (and "n_active" under a fault schedule, "count" where
+    the packed payload has a live count: the fused histogram selector,
+    participation), ...],
     "fallbacks": {reason: steps}, "params": J, "state": the final
     TrainState}. Step time is the host clock around a step that ends in
     a device synchronisation."""
@@ -163,12 +185,16 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
         rec = {"step": t, "loss": float(metrics["loss"]), "ms": ms}
         if "n_active" in metrics:
             rec["n_active"] = float(metrics["n_active"])
+        if step.gsync.last_count is not None:
+            rec["count"] = int(step.gsync.last_count)
         history.append(rec)
         if on_step is not None:
             on_step(rec)
         if t % run.log_every == 0 or t == run.steps - 1:
             health = (f"active {rec['n_active']:.0f} "
                       if "n_active" in rec else "")
+            if "count" in rec:
+                health += f"count {rec['count']} "
             log(f"step {t:5d} loss {rec['loss']:.4f} "
                 f"gnorm {float(metrics['gnorm_local']):.3f} "
                 f"nz {float(metrics['agg_nonzero']):.4f} {health}"

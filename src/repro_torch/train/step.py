@@ -5,11 +5,14 @@ Per step:
 
 1. loss and gradient of the model (autograd over the parameter tree);
 2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
-3. GradientSync: REGTOP-k/TOP-k/DGC compression, on the fused pipeline
-   (the two sweep kernels) or the reference pipeline (the dense score
-   and apply kernels, a selector), then the all-gather of the k (value,
-   index) pairs and a local scatter-add combine (sparse comm) or the
-   all-reduce of the dense ghat (simulate comm), ``observe_aggregate``;
+3. GradientSync: REGTOP-k/TOP-k/DGC/thresholdk/randk compression, on
+   the fused pipeline (the two sweep kernels, per bucket with
+   ``num_buckets``) or the reference pipeline (the dense score and apply
+   kernels, a selector), then the all-gather of the packed (value,
+   index) pairs, in ``num_buckets`` chunks on the ``wire_dtype`` wire,
+   and a local scatter-add combine (sparse comm) or the all-reduce of
+   the dense ghat (simulate comm), ``observe_aggregate``; randk draws
+   with the run's seed key folded with the rank, as the reference;
    or, for kind="sketchtopk", the CountSketch encode, the sketch
    all-reduce, the shared-mask decode and the values-only all-gather.
    With ``RunConfig.fault_schedule`` set, the rank's participation bit
@@ -38,7 +41,7 @@ from torch.profiler import record_function
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import faults, sparsify
+from repro_torch.core import faults, sparsify, threefry
 from repro_torch.core.aggregate import GradientSync, world
 from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
 from repro_torch.models import init_params, loss_fn
@@ -115,12 +118,19 @@ class TrainStep:
         with record_function("train/sync"):
             ef, state.ef = state.ef, None
             stats = None
+            key = None
+            if self.run.sparsifier.kind == "randk":
+                # the reference's: the run's seed key, folded with the
+                # data-parallel rank (the same key every step)
+                key = threefry.fold_in(threefry.prng_key(self.run.seed,
+                                                         g.device), rank)
             if self.schedule is None:
-                g_agg, ef = self.gsync(ef, g, donate=True)
+                g_agg, ef = self.gsync(ef, g, donate=True, key=key)
             else:
                 part = faults.participates(self.schedule, ef["step"], rank)
                 g_agg, ef, stats = self.gsync(ef, g, participate=part,
-                                              donate=True, with_stats=True)
+                                              donate=True, with_stats=True,
+                                              key=key)
             del g
         with record_function("train/optimizer"):
             shard = opt_shard_len(flat.total, n)
