@@ -1,6 +1,7 @@
 """The reference's per-step GradientSync on a mesh of N host CPU devices
-(driven by tests/test_torch_baselines.py, which holds the port's gloo
-ranks against it).
+(driven by tests/test_torch_baselines_gloo.py and
+tests/test_torch_bucketed.py, which hold the port's gloo ranks against
+it).
 
     python tests/jax_mesh_worker.py WORLD IN.npz OUT.npz
 
@@ -57,7 +58,10 @@ def run_case(mesh, fields: dict, elastic: bool, grads, parts) -> dict:
             res[f"g_agg_{t}"] = np.asarray(g_agg)
             res[f"n_active_{t}"] = np.asarray(na)
     for key, val in jax.device_get(st).items():
-        res[f"state_{key}"] = np.asarray(val)
+        val = np.asarray(val)
+        # np.savez keeps no bf16: its uint16 bits
+        res[f"state_{key}"] = (val.view(np.uint16)
+                               if val.dtype.name == "bfloat16" else val)
     return res
 
 

@@ -346,9 +346,10 @@ def _cost_grid():
 def test_wire_byte_models_match_reference():
     """comm_bytes_per_step, sparse_gather_wire_bytes and
     sketch_allreduce_bytes return what the reference's return, dict for
-    dict, over every served config of the grid, N and n_active; a config
-    the port does not serve (the fused histogram selector) raises,
-    naming its item."""
+    dict, over every served config of the grid (the fused histogram
+    selector's capacity included), N and n_active; a config the port does
+    not serve (the sketch with the histogram selector) raises, naming its
+    item."""
     served = refused = 0
     warnings.simplefilter("ignore", RuntimeWarning)   # the sketch width cap
     for fields in _cost_grid():
@@ -357,11 +358,11 @@ def test_wire_byte_models_match_reference():
         try:
             aggregate.check_supported(tcfg)
         except NotImplementedError as e:
-            assert "ROADMAP A8" in str(e), fields
+            assert "ROADMAP A12" in str(e), fields
             for fn in (aggregate.comm_bytes_per_step,
                        aggregate.sparse_gather_wire_bytes,
                        aggregate.sketch_allreduce_bytes):
-                with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+                with pytest.raises(NotImplementedError, match="ROADMAP A12"):
                     fn(tcfg, 1000, 8)
             refused += 1
             continue
@@ -384,7 +385,7 @@ def test_wire_byte_models_match_reference():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("wire_dtype", "bfloat16", "A8"), ("num_buckets", 4, "A8"),
+    ("num_buckets", 0, "A16"), ("overlap", "backward", "A11"),
     ("allocation", "adaptive", "A9")])
 def test_wire_byte_models_refuse_configs_outside_the_port(field, value,
                                                           item):
@@ -395,9 +396,8 @@ def test_wire_byte_models_refuse_configs_outside_the_port(field, value,
                aggregate.sketch_allreduce_bytes):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             fn(bad, 1000, 8)
-    if field != "wire_dtype":            # the packed length is k either way
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            dispatch.packed_len(bad, 1000)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        dispatch.packed_len(bad, 1000)
 
 
 # ---------------------------------------------------------------------------

@@ -120,21 +120,30 @@ def test_other_devices_raise():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("selector", "histogram", "A8"), ("num_buckets", 4, "A8"),
+    ("selector", "histogram_kernel", "A8"), ("num_buckets", 0, "A16"),
     ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
-    ("ef_dtype", "bfloat16", "A8"), ("kind", "thresholdk", "A8"),
-    ("num_buckets", 0, "A8"), ("allocation", "proportional", "A9"),
-    ("kind", "randk", "A8"), ("wire_dtype", "bfloat16", "A8")])
+    ("ef_dtype", "bfloat16", "A8"), ("selector", "histogram", "A8"),
+    ("kind", "none", "A8"), ("allocation", "proportional", "A9"),
+    ("kind", "globaltopk", "A8"), ("state_format", "sparse", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
-    cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
-                                comm_mode="sparse")
-    aggregate.GradientSync(cfg)
+    """What the port does not serve yet raises, naming its ROADMAP item:
+    on the fused pipeline (the base), and with a bf16 error state on the
+    reference pipeline (REGTOP-k either layout, the histogram selectors)
+    and for the dense-wire baselines, where ``ef_dtype`` is bf16."""
+    fused = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
+                                  comm_mode="sparse")
+    cfg = fused if field in ("allocation", "overlap", "num_buckets") or \
+        value == "histogram_kernel" else dataclasses.replace(
+            fused, pipeline="reference", ef_dtype="bfloat16",
+            **({"kind": "topk"} if field == "selector" else {}))
+    if field == "ef_dtype":
+        cfg = dataclasses.replace(cfg, ef_dtype="float32")
+    aggregate.GradientSync(dataclasses.replace(cfg, ef_dtype="float32"))
     bad = dataclasses.replace(cfg, **{field: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         aggregate.GradientSync(bad)
-    if field not in ("comm_mode", "wire_dtype"):
-        with pytest.raises(NotImplementedError):
-            sparsify.init_state(bad, 100, "cpu")
+    with pytest.raises(NotImplementedError):
+        sparsify.init_state(bad, 100, "cpu")
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -200,11 +209,11 @@ def test_sketch_kernels_on_other_devices_raise(fn):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_buckets", 4, "A8"), ("wire_dtype", "bfloat16", "A8"),
-    ("allocation", "proportional", "A9"), ("selector", "histogram", "A8"),
-    ("ef_dtype", "bfloat16", "A8"), ("overlap", "backward", "A11"),
+    ("num_buckets", 4, "A12"), ("wire_dtype", "bfloat16", "A12"),
+    ("allocation", "proportional", "A9"), ("selector", "histogram", "A12"),
+    ("ef_dtype", "bfloat16", "A12"), ("overlap", "backward", "A11"),
     ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
-    ("num_buckets", 0, "A8"), ("kind", "randk", "A8")])
+    ("num_buckets", 0, "A16"), ("allocation", "adaptive", "A9")])
 def test_sketch_configs_outside_the_slice_raise(field, value, item):
     for pipeline in ("fused", "reference"):
         cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline=pipeline,

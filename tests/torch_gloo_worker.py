@@ -88,8 +88,16 @@ def run_elastic(rank: int, data) -> dict:
     return res
 
 
+def _saved(t: torch.Tensor) -> np.ndarray:
+    """A tensor as np.savez keeps it: bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 def run_baselines(rank: int, data) -> dict:
-    """Per case: g_agg and n_active of every step, the final state."""
+    """Per case: g_agg and n_active of every step, the final state (bf16
+    state as uint16 bits)."""
     grads, parts = data["grads"], data["parts"]     # (T, world, J), (T, world)
     res = {}
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():
@@ -105,7 +113,7 @@ def run_baselines(rank: int, data) -> dict:
             res[f"{name}_g_agg_{t}"] = g_agg.numpy()
             res[f"{name}_n_active_{t}"] = stats["n_active"].numpy()
         for key, val in state.items():
-            res[f"{name}_state_{key}"] = val.numpy()
+            res[f"{name}_state_{key}"] = _saved(val)
     return res
 
 
