@@ -11,9 +11,11 @@ from another source tree: an unpacked older commit's ``src/``, so that
 two versions can be compared in one run on one card. The third needs
 four cards and runs only the multi-card check: one process a card,
 joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
-comm) and of dense SGD; g_agg must be bitwise the same on every rank
-and, with every rank's state, equal to an in-process ``round()`` of the
-same four workers.
+comm), of dense SGD and of REGTOP-k with the packed pairs in 4 chunks on
+the bf16 wire; g_agg must be bitwise the same on every rank and, with
+every rank's state, equal to an in-process ``round()`` of the same four
+workers (for the chunked bf16 wire, to the same workers' compress steps
+and an in-process chunk-by-chunk combine of their bf16-rounded values).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -25,9 +27,13 @@ line and raising on any failure:
 3. kernels:  each kernel against its plain PyTorch version on the card
              (``torch.equal`` on every output) at the main path's shape
              and at a small ragged shape, with CUDA-event timings;
-4. compress: the fused compressor on the card against the same calls on
-             CPU copies, bitwise, over 3 REGTOP-k steps and then 3 DGC
-             steps (momentum 0.9) at J = 2^24;
+4. compress: the compressors on the card against the same calls on CPU
+             copies, bitwise, 3 steps each at J = 2^24: fused REGTOP-k
+             and DGC (momentum 0.9), then the capability matrix: 8
+             buckets with the bf16 state (REGTOP-k, DGC), the fused
+             histogram selector (REGTOP-k, DGC; its live count in [k,
+             2k]), the bf16 state under participation, thresholdk and
+             randk on the fused pipeline and on the reference pipeline;
 5. sketch_sync: sketch-coordinated GradientSync (kind="sketchtopk") at
              J = 2^24, 3 steps, fused pipeline (kernel sweep1_sketch) and
              reference pipeline (kernel sketch_encode), on the card and on
@@ -78,7 +84,13 @@ line and raising on any failure:
              are what the other cells' compression shares are stated
              against;
 17. train_genie, profile_genie: the genie (``--sparsifier globaltopk``:
-             the dense all-reduce, then the top-k over J; no kernel).
+             the dense all-reduce, then the top-k over J; no kernel);
+18. train_bucketed, profile_bucketed: REGTOP-k fused with 8 buckets, the
+             bf16 error state and the bf16 wire: B1's bf16 read
+             (``sweep1_bf16``) and B2 once a bucket, 8 a step;
+19. train_hist, profile_hist: REGTOP-k fused with the histogram
+             selector: B1 and B2 once a step, the live count in [k, 2k]
+             on every step.
 
 Between phases 9 and 10 runs the paper phase (paper_round, paper_fig1,
 paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
@@ -96,7 +108,9 @@ Phase 3 holds sweep 1 in its dgc mode against its plain version too
 (kernels_dgc: a, score, amax, hist and mom' with ``torch.equal``, at the
 main J and the ragged J), and its gated variant in both modes
 (kernels_gated: gate 1 equal to the ungated kernel, gate 0 with decay
-0.9 equal to the plain version, bit for bit). Phase 4 also runs 3 fused
+0.9 equal to the plain version, bit for bit), and its bf16 read in every
+mode at one bucket's shape, J / 8 (kernels_bf16: each output equal to
+the fp32 kernel's on the upcast inputs and to the plain version). Phase 4 also runs 3 fused
 steps of each kind under participation (1, 0, 1) with err_decay 0.9.
 Phase 3 also holds the two CountSketch encodes (kernels_sketch, B3 and
 B4 on the same partitioned passes and one shared start table): B3's a
@@ -178,9 +192,12 @@ FAULT_SCHEDULE = "bursty:period=3,outage=1,workers=0"
 ELASTIC_ACTIVE = [0.0, 1.0, 1.0, 0.0, 1.0]
 SKETCH_TABLE = [[MAIN_J, SKETCH_ROWS, MAIN_WIDTH]]   # (J, rows, width)
 FUSED = dict(comm_mode="sparse", pipeline="fused")
+BUCKETS = 8                  # train_bucketed: J / 8 = 111,504,000 a bucket
+BUCKET_J = MAIN_J // BUCKETS
+BF16 = dict(ef_dtype="bfloat16", wire_dtype="bfloat16")
 # the train phases in run order: sparsifier fields, the kernels that
-# each launches once a step (every other kernel 0 times), and the fault
-# schedule ("" = every step in)
+# each launches once a step, or {kernel: launches a step} (every other
+# kernel 0 times), and the fault schedule ("" = every step in)
 ELASTIC = dict(err_decay=ERR_DECAY)
 TRAIN_PATHS = {
     "train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"), ""),
@@ -199,6 +216,14 @@ TRAIN_PATHS = {
     # dense all-reduce, then the top-k over J); no kernel
     "train_dense": (dict(kind="none"), (), ""),
     "train_genie": (dict(kind="globaltopk"), (), ""),
+    # the fused pipeline's capability matrix: 8 buckets with the bf16
+    # state and wire (B1's bf16 read and B2 once a bucket), and the
+    # histogram selector (a live count in [k, 2k] each step)
+    "train_bucketed": (dict(kind="regtopk", num_buckets=BUCKETS, **FUSED,
+                            **BF16),
+                       {"sweep1_bf16": BUCKETS, "sweep2": BUCKETS}, ""),
+    "train_hist": (dict(kind="regtopk", selector="histogram", **FUSED),
+                   ("sweep1", "sweep2"), ""),
 }
 # phase paper: the round checks' (workers, J, sparsity), fig2's shape and
 # fig3's (the CNN at width 16), and the iterations of each driver run
@@ -217,6 +242,12 @@ KERNEL_META = {
                    "src/repro/kernels/compress/kernel.py:78"),
     "sweep1_gated": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
                      "src/repro/kernels/compress/kernel.py:78"),
+    "sweep1_bf16": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
+                    "src/repro/kernels/compress/kernel.py:78"),
+    "sweep1_dgc_bf16": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
+                        "src/repro/kernels/compress/kernel.py:78"),
+    "sweep1_gated_bf16": ("src/repro_torch/kernels/compress/csrc/sweep1.cu",
+                          "src/repro/kernels/compress/kernel.py:78"),
     "sweep2": ("src/repro_torch/kernels/compress/csrc/sweep2.cu",
                "src/repro/kernels/compress/kernel.py:223"),
     "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
@@ -324,8 +355,12 @@ def launch_counts() -> dict:
 def bits_equal(got, want) -> bool:
     """Equal bit patterns (NaN and the sign of zero included)."""
     import torch
+    if got.dtype != want.dtype:
+        return False
     if got.dtype == torch.float32:
         got, want = got.view(torch.int32), want.view(torch.int32)
+    elif got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
     return torch.equal(got, want)
 
 
@@ -483,6 +518,91 @@ def gated_case(dev, j: int, seed: int, timed: bool) -> dict:
     return res
 
 
+def bf16_case(dev, j: int, seed: int, timed: bool) -> dict:
+    """B1's bf16 read in each mode (plain, dgc, gated in both modes) at
+    flat length j: every output equal to the fp32 kernel's on the upcast
+    inputs (g rounded to bf16, err and mom widened) and to the plain
+    version, bit for bit; gate 0 decays with err_decay 0.9 and rounds
+    the decayed error to bf16. Every 97th err is -0.0."""
+    import torch
+    from repro_torch.core.numerics import regularizer_factor
+    from repro_torch.kernels.compress import kernel as pk
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(j, generator=gen, device=dev)
+    err = (torch.randn(j, generator=gen, device=dev) * 0.1).to(bf)
+    err[::97] = -0.0
+    mom = torch.randn(j, generator=gen, device=dev).to(bf)
+    c = torch.full((1,), regularizer_factor(0.0, MU), device=dev)
+    on, off = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    g16, e32, m32 = g.to(bf).float(), err.float(), mom.float()
+    names = ("a", "score", "amax", "hist", "mom")
+    cases = {
+        "sweep1_bf16": (lambda: pk.sweep1_bf16(g, err, c),
+                        lambda: pk.sweep1(g16, e32, c),
+                        lambda: pk.sweep1_plain(g, err, c)),
+        "sweep1_dgc_bf16": (
+            lambda: pk.sweep1_dgc_bf16(g, err, mom, c, DGC_MOMENTUM),
+            lambda: pk.sweep1_dgc(g16, e32, m32, c, DGC_MOMENTUM),
+            lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM)),
+    }
+    for gate in (on, off):
+        for m, m_up in ((None, None), (mom, m32)):
+            # gate 1 against the fp32 gated kernel on the upcast inputs;
+            # gate 0 against the plain version (the fp32 kernel would
+            # not round the decayed error to bf16)
+            cases[("sweep1_gated_bf16", float(gate), m is None)] = (
+                lambda gate=gate, m=m: pk.sweep1_gated_bf16(
+                    g, err, c, gate, ERR_DECAY, m, DGC_MOMENTUM),
+                (lambda m_up=m_up: pk.sweep1_gated(
+                    g16, e32, c, on, ERR_DECAY, m_up, DGC_MOMENTUM))
+                if gate is on else None,
+                lambda gate=gate, m=m: pk.sweep1_plain(
+                    g, err, c, m, DGC_MOMENTUM, gate, ERR_DECAY))
+    res = {"j": j, "decay": ERR_DECAY}
+    for name, (kern, fp32, plain) in cases.items():
+        key = name if isinstance(name, str) else name[0]
+        got = kern()
+        for ref_name, ref in (("the fp32 kernel on the upcast inputs",
+                               fp32), ("the plain version", plain)):
+            if ref is None:
+                continue
+            want = ref()
+            for out, x, y in zip(names, got, want):
+                check(bits_equal(x, y), f"{name}: {out} differs from "
+                      f"{ref_name} at J={j}")
+            res[f"{key}_err"] = max(res.get(f"{key}_err", 0.0),
+                                    max_abs_err(zip(got, want)))
+            del want
+        del got
+    del g16, e32, m32
+    if timed:
+        rows = pk.rows_of(j)
+        small = 4 * rows + 4 * pk.BINS
+        res["sweep1_bf16_ms"] = cuda_ms(lambda: pk.sweep1_bf16(g, err, c))
+        res["sweep1_bf16_plain_ms"] = cuda_ms(
+            lambda: pk.sweep1_plain(g, err, c))
+        res["sweep1_bf16_bytes"] = 14 * j + small  # g 4, err 2, a 4, score 4
+        res["sweep1_bf16_ops"] = 5 * j             # round, add, mul, abs, max
+        res["sweep1_dgc_bf16_ms"] = cuda_ms(
+            lambda: pk.sweep1_dgc_bf16(g, err, mom, c, DGC_MOMENTUM))
+        res["sweep1_dgc_bf16_plain_ms"] = cuda_ms(
+            lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM))
+        res["sweep1_dgc_bf16_bytes"] = 20 * j + small   # + mom 2, mom' 4
+        res["sweep1_dgc_bf16_ops"] = 7 * j
+        res["sweep1_gated_bf16_ms"] = cuda_ms(lambda: pk.sweep1_gated_bf16(
+            g, err, c, on, ERR_DECAY, mom, DGC_MOMENTUM))
+        res["sweep1_gated_bf16_off_ms"] = cuda_ms(
+            lambda: pk.sweep1_gated_bf16(g, err, c, off, ERR_DECAY, mom,
+                                         DGC_MOMENTUM))
+        res["sweep1_gated_bf16_plain_ms"] = cuda_ms(
+            lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM, on,
+                                    ERR_DECAY))
+        res["sweep1_gated_bf16_bytes"] = 20 * j + small + 8
+        res["sweep1_gated_bf16_ops"] = 12 * j
+    return res
+
+
 def phase_kernels(dev) -> dict:
     import torch
     small = kernel_case(dev, RAGGED_J, seed=1, timed=False)
@@ -500,8 +620,15 @@ def phase_kernels(dev) -> dict:
     gbig = gated_case(dev, MAIN_J, seed=12, timed=True)
     emit("kernels_gated_main_shape", **gbig)
     torch.cuda.empty_cache()
+    # B1's bf16 read at the shape train_bucketed gives it: one bucket
+    bsmall = bf16_case(dev, RAGGED_J, seed=13, timed=False)
+    emit("kernels_bf16_ragged", **bsmall)
+    bbig = bf16_case(dev, BUCKET_J, seed=14, timed=True)
+    emit("kernels_bf16_main_shape", **bbig)
+    torch.cuda.empty_cache()
     return {"small": small, "big": big, "dgc_small": dsmall, "dgc_big": dbig,
-            "gated_small": gsmall, "gated_big": gbig}
+            "gated_small": gsmall, "gated_big": gbig, "bf16_small": bsmall,
+            "bf16_big": bbig}
 
 
 def dyadic(gen, j: int, dev):
@@ -901,47 +1028,93 @@ def phase_reference_sync(dev) -> dict:
     return out
 
 
-def phase_compress(dev) -> None:
-    """The fused compressor, REGTOP-k then DGC, on the card and on CPU
-    copies: values, indices, every state vector (err_prev, and DGC's
-    mom) and the fallback reasons equal, step by step; then both kinds
-    again under participation ELASTIC_MASK with err_decay 0.9 (sweep 1's
-    gated variant), the payload's count too."""
+# phase compress: (kinds, the other sparsifier fields, participation
+# mask, {kernel: launches a step}); "sweep" names sweep 1's wrapper of
+# the kind (sweep1, its dgc mode or the gated variant)
+COMPRESS_CASES = (
+    (("regtopk", "dgc"), {}, None, {"sweep": 1, "sweep2": 1}),
+    (("regtopk", "dgc"), {}, ELASTIC_MASK, {"sweep": 1, "sweep2": 1}),
+    # the capability matrix: 8 buckets with the bf16 state (B1's bf16
+    # read and B2 a bucket), the histogram selector, the bf16 state under
+    # participation (the gated bf16 read), thresholdk and randk on both
+    # pipelines (randk runs no kernel on the fused pipeline; the
+    # reference pipeline's apply kernel once a step)
+    (("regtopk", "dgc"), dict(num_buckets=BUCKETS, **BF16), None,
+     {"sweep": BUCKETS, "sweep2": BUCKETS}),
+    (("regtopk", "dgc"), dict(selector="histogram"), None,
+     {"sweep": 1, "sweep2": 1}),
+    (("regtopk",), dict(ef_dtype="bfloat16"), ELASTIC_MASK,
+     {"sweep": 1, "sweep2": 1}),
+    (("thresholdk",), {}, None, {"sweep": 1, "sweep2": 1}),
+    (("randk",), {}, None, {}),
+    (("thresholdk", "randk"), dict(pipeline="reference",
+                                   comm_mode="simulate"), None,
+     {"apply": 1}),
+)
+
+
+def sweep_name(kind: str, mask, ef_dtype: str) -> str:
+    base = ("sweep1_gated" if mask else
+            "sweep1_dgc" if kind == "dgc" else "sweep1")
+    return base + ("_bf16" if ef_dtype == "bfloat16" else "")
+
+
+def phase_compress(dev) -> dict:
+    """The compressors of COMPRESS_CASES on the card and on CPU copies:
+    values, indices, every state vector (err_prev, DGC's mom, REGTOP-k's
+    posterior) and the fallback reasons equal, step by step, and the
+    payload's live count where there is one (the histogram selector's in
+    [k, 2k]); the fused REGTOP-k and DGC steps first plain, then under
+    participation ELASTIC_MASK with err_decay 0.9 (sweep 1's gated
+    variant), then the capability matrix. Returns each kernel's launches
+    summed over the cases."""
     import torch
     from repro_torch.configs.base import SparsifierConfig
-    from repro_torch.core import sparsify
+    from repro_torch.core import sparsify, threefry
+    from repro_torch.kernels.compress.dispatch import hist_capacity
     cpu = torch.device("cpu")
-    for mask in (None, ELASTIC_MASK):
-        for kind in ("regtopk", "dgc"):
-            cfg = SparsifierConfig(kind=kind, sparsity=SPARSITY, mu=MU,
-                                   comm_mode="sparse", pipeline="fused",
-                                   err_decay=ERR_DECAY)
+    total = {}
+    for kinds, extra, mask, per_step in COMPRESS_CASES:
+        for kind in kinds:
+            fields = dict(dict(kind=kind, sparsity=SPARSITY, mu=MU,
+                               err_decay=ERR_DECAY, **FUSED), **extra)
+            cfg = SparsifierConfig(**fields)
+            k = sparsify.resolve_k(cfg, COMPRESS_J)
             st_dev = sparsify.init_state(cfg, COMPRESS_J, dev)
             st_cpu = sparsify.init_state(cfg, COMPRESS_J, cpu)
+            key = threefry.prng_key(3) if kind == "randk" else None
             gen = torch.Generator(device=cpu).manual_seed(7)
-            fallbacks = []
+            fallbacks, counts = [], []
             reset_launches()
             for t in range(SYNC_STEPS):
                 g = torch.randn(COMPRESS_J, generator=gen)
                 p = None if mask is None else torch.tensor(mask[t])
                 o_dev = sparsify.compress(
-                    cfg, st_dev, g.to(dev),
+                    cfg, st_dev, g.to(dev), key=None if key is None
+                    else key.to(dev),
                     participate=None if p is None else p.to(dev))
-                o_cpu = sparsify.compress(cfg, st_cpu, g, participate=p)
+                o_cpu = sparsify.compress(cfg, st_cpu, g, participate=p,
+                                          key=key)
                 check(set(o_dev.state) == set(o_cpu.state), f"{kind}: keys")
-                counts = () if p is None else (
-                    ("count", o_dev.count, o_cpu.count),)
-                for name, got, want in (
-                        ("values", o_dev.values, o_cpu.values),
-                        ("indices", o_dev.indices, o_cpu.indices), *counts,
-                        *((key, o_dev.state[key], o_cpu.state[key])
-                          for key in o_cpu.state)):
+                check((o_dev.count is None) == (o_cpu.count is None),
+                      f"{kind}: count")
+                pairs = [("values", o_dev.values, o_cpu.values),
+                         ("indices", o_dev.indices, o_cpu.indices),
+                         *((key_, o_dev.state[key_], o_cpu.state[key_])
+                           for key_ in o_cpu.state)]
+                if o_cpu.count is not None:
+                    pairs.append(("count", o_dev.count, o_cpu.count))
+                    counts.append(int(o_cpu.count))
+                for name, got, want in pairs:
                     check(bits_equal(got.cpu(), want),
-                          f"compress {kind} mask {mask} step {t}: {name} "
+                          f"compress {fields} mask {mask} step {t}: {name} "
                           "differs card vs CPU")
                 check(o_dev.fallback == o_cpu.fallback,
                       f"compress {kind} step {t}: fallback branch differs")
                 fallbacks.append(o_dev.fallback)
+                if cfg.selector == "histogram":
+                    check(k <= counts[-1] <= hist_capacity(k, COMPRESS_J),
+                          f"histogram count {counts[-1]} outside [k, 2k]")
                 st_dev = sparsify.observe_aggregate(
                     cfg, o_dev.state, sparsify.dense_ghat(o_dev, COMPRESS_J),
                     participate=None if p is None else p.to(dev))
@@ -949,15 +1122,19 @@ def phase_compress(dev) -> None:
                     cfg, o_cpu.state, sparsify.dense_ghat(o_cpu, COMPRESS_J),
                     participate=p)
             launches = launch_counts()
-            sweep = ("sweep1_gated" if mask else
-                     "sweep1_dgc" if kind == "dgc" else "sweep1")
+            sweep = sweep_name(kind, mask, cfg.ef_dtype)
+            want = {(sweep if name == "sweep" else name): n * SYNC_STEPS
+                    for name, n in per_step.items()}
             for name, n in launches.items():
-                check(n == (SYNC_STEPS if name in (sweep, "sweep2") else 0),
-                      f"compress {kind} mask {mask}: {name} launched {n}")
+                check(n == want.get(name, 0),
+                      f"compress {fields} mask {mask}: {name} launched {n}")
+                total[name] = total.get(name, 0) + n
             emit("compress", kind=kind, j=COMPRESS_J, steps=SYNC_STEPS,
-                 participation=mask, err_decay=ERR_DECAY if mask else None,
-                 bitwise=True, fallbacks=fallbacks, state=sorted(st_cpu),
-                 launches=launches)
+                 sparsifier={key_: val for key_, val in fields.items()
+                             if key_ not in ("sparsity", "mu")},
+                 participation=mask, bitwise=True, fallbacks=fallbacks,
+                 counts=counts, state=sorted(st_cpu), launches=launches)
+    return total
 
 
 def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
@@ -966,8 +1143,9 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     the given sparsifier fields and fault schedule; the loss must be
     finite and falling and every kernel's launch count must equal
     ``expect`` (the others 0); under the schedule the steps' n_active
-    must be ELASTIC_ACTIVE. Returns (launches by kernel, the run, the
-    trained state)."""
+    must be ELASTIC_ACTIVE, and with the histogram selector every step's
+    live count must lie in [k, 2k]. Returns (launches by kernel, the
+    run, the trained state)."""
     import torch
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
                                           SparsifierConfig, get_config)
@@ -1005,8 +1183,14 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     active = [rec.get("n_active") for rec in out["history"]]
     if schedule:
         check(active == ELASTIC_ACTIVE, f"{phase}: n_active {active}")
+    counts = [rec.get("count") for rec in out["history"]]
+    if run.sparsifier.selector == "histogram":
+        k = round(SPARSITY * MAIN_J)
+        check(all(k <= c <= 2 * k for c in counts),
+              f"{phase}: live counts {counts} outside [k, 2k]")
     emit(phase, model=model.name, sparsifier=dataclasses.asdict(
              run.sparsifier), fault_schedule=schedule, n_active=active,
+         counts=counts,
          n_layers=TRAIN_LAYERS,
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
@@ -1259,7 +1443,36 @@ WORLD_CASES = {      # dense SGD on dyadic gradients (exact in any order)
     "regtopk_fused_sparse": dict(kind="regtopk", pipeline="fused",
                                  comm_mode="sparse"),
     "none": dict(kind="none"),
+    # the chunked, overlapped all-gather: 4 chunks on the bf16 wire
+    "regtopk_bucketed_bf16_wire": dict(kind="regtopk", pipeline="fused",
+                                       comm_mode="sparse", num_buckets=4,
+                                       wire_dtype="bfloat16"),
 }
+
+
+def chunked_round(cfg, states: list, grads: list):
+    """The in-process expectation of the chunked sparse combine: every
+    worker's compress, then its packed values rounded to the wire dtype
+    and scatter-added chunk by chunk, worker by worker inside a chunk,
+    scaled by 1/n; returns (g_agg, new states)."""
+    import torch
+    from repro_torch.core import bigvec, sparsify
+    n, j = len(grads), grads[0].numel()
+    outs = [sparsify.compress(cfg, st, g, omega=1.0 / n)
+            for st, g in zip(states, grads)]
+    k = outs[0].values.numel()
+    nb = cfg.num_buckets if k > cfg.num_buckets else 1
+    chunk = -(-k // nb)
+    dense = torch.zeros(j, device=grads[0].device)
+    wire = getattr(torch, cfg.wire_dtype)
+    for b in range(nb):
+        sl = slice(b * chunk, (b + 1) * chunk)
+        for out in outs:
+            bigvec.scatter_add_(dense, out.indices[sl],
+                                out.values[sl].to(wire).float())
+    dense.mul_(1.0 / n)
+    return dense, [sparsify.observe_aggregate(cfg, out.state, dense)
+                   for out in outs]
 
 
 def world_grads(name: str, world: int, j: int):
@@ -1279,7 +1492,8 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
     """One rank of the multi-card check: GradientSync over the process
     group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
     bitwise identical on every rank and, like every rank's final state,
-    equal to an in-process round() of the same workers (on rank 0).
+    equal to an in-process round() of the same workers (on rank 0), or
+    for a chunked or bf16 wire to :func:`chunked_round`.
     ``backend="gloo"`` at a small ``j`` runs the same check on the CPU
     without cards (tests/test_torch_chip_world.py)."""
     import torch
@@ -1325,9 +1539,12 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                         check(bits_equal(other, every[0]),
                               f"world {name} step {t}: g_agg of rank {r} "
                               "differs from rank 0's")
-                    want, ip_states = ip_sync.round(
-                        ip_states, [grads[t, r].to(dev)
-                                    for r in range(world)])
+                    ip_grads = [grads[t, r].to(dev) for r in range(world)]
+                    if cfg.num_buckets > 1 or cfg.wire_dtype != "float32":
+                        want, ip_states = chunked_round(cfg, ip_states,
+                                                        ip_grads)
+                    else:
+                        want, ip_states = ip_sync.round(ip_states, ip_grads)
                     check(bits_equal(g_agg, want), f"world {name} step {t}:"
                           " g_agg differs from the in-process round")
             for key in sorted(st):
@@ -1400,6 +1617,14 @@ def compression_shares(steps: dict, profiles: dict) -> dict:
             "cells": out}
 
 
+def train_expect(kernels) -> dict:
+    """A train path's launches in TRAIN_STEPS steps: once a step for each
+    kernel of a tuple, or {kernel: launches a step}."""
+    per_step = kernels if isinstance(kernels, dict) else \
+        dict.fromkeys(kernels, 1)
+    return {name: n * TRAIN_STEPS for name, n in per_step.items()}
+
+
 def kernel_row(name: str, res: dict, small: dict, launches: int,
                path: str, parity: str, library_ms=None, **extra) -> dict:
     bms, by = bound_ms(res[f"{name}_bytes"], res[f"{name}_ops"])
@@ -1449,22 +1674,21 @@ def main(argv=None) -> int:
     if args.train:
         for name in args.train:
             fields, kernels, schedule = TRAIN_PATHS[name]
-            phase_train(dev, fields, dict.fromkeys(kernels, TRAIN_STEPS),
-                        name, schedule)
+            phase_train(dev, fields, train_expect(kernels), name, schedule)
             torch.cuda.empty_cache()
         return finish(smi, None)
     kres = phase_kernels(dev)
     sres = phase_kernels_sketch(dev)
     eres = phase_kernels_fused_ef(dev)
     hres = phase_kernels_topk_select(dev)
-    phase_compress(dev)
+    comp_launches = phase_compress(dev)
     phase_sketch_sync(dev)
     ref_launches = phase_reference_sync(dev)
     phase_paper(dev)
     train, steps, profiles = {}, {}, {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
         train[name], run, state, steps[name] = phase_train(
-            dev, fields, dict.fromkeys(kernels, TRAIN_STEPS), name, schedule)
+            dev, fields, train_expect(kernels), name, schedule)
         tables, *profiles[name] = phase_profile(
             dev, run, state, name.replace("train", "profile"))
         if fields["kind"] == "sketchtopk":
@@ -1496,6 +1720,30 @@ def main(argv=None) -> int:
                        "torch.equal to the plain version; both modes",
                        mode="dgc gated",
                        off_ms=kres["gated_big"]["sweep1_gated_off_ms"]),
+            kernel_row("sweep1_bf16", kres["bf16_big"], kres["bf16_small"],
+                       train["train_bucketed"]["sweep1_bf16"],
+                       "bucketed regtopk train (fused, 8 buckets, bf16 "
+                       "state and wire)", "torch.equal on every output to "
+                       "the fp32 kernel on the upcast inputs and to the "
+                       "plain version", mode="plain bf16 read",
+                       shape=f"J/{BUCKETS} = {BUCKET_J} a launch"),
+            kernel_row("sweep1_dgc_bf16", kres["bf16_big"],
+                       kres["bf16_small"], comp_launches["sweep1_dgc_bf16"],
+                       "phase compress: dgc fused, 8 buckets, bf16 state "
+                       "(no train path)", "torch.equal on every output to "
+                       "the fp32 kernel on the upcast inputs and to the "
+                       "plain version", mode="dgc bf16 read",
+                       shape=f"J/{BUCKETS} = {BUCKET_J} a launch"),
+            kernel_row("sweep1_gated_bf16", kres["bf16_big"],
+                       kres["bf16_small"],
+                       comp_launches["sweep1_gated_bf16"],
+                       "phase compress: regtopk fused, bf16 state, "
+                       "participation (1, 0, 1) (no train path)",
+                       "gate 1: torch.equal to the fp32 gated kernel on "
+                       "the upcast inputs; gate 0: torch.equal to the "
+                       "plain version; both modes", mode="dgc gated bf16 "
+                       "read", shape=f"J/{BUCKETS} = {BUCKET_J} a launch",
+                       off_ms=kres["bf16_big"]["sweep1_gated_bf16_off_ms"]),
             kernel_row("sweep1_sketch", sres["big"], sres["small"],
                        train["train_sketch"]["sweep1_sketch"],
                        "sketchtopk train (fused)", atomics, redesigned=True,
