@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (
     ModelConfig, ShapeConfig, SparsifierConfig, OptimizerConfig, RunConfig,
-    SHAPES, get_config, register, reduced_config,
+    SHAPES, get_config, register, reduced_config, resolve_model_cfg,
 )

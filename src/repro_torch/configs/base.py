@@ -2,11 +2,14 @@
 
 Field names and defaults follow the reference's ``repro.configs.base`` so
 a config reads the same in both packages. Only what the ported slice
-runs is here: the dense decoder family, the sparsifier fields that select
-among its paths, and the optimizers. A field value outside the slice raises
+runs is here: the dense decoder family (every dense layout of the
+registry: layernorm or rmsnorm, the SwiGLU or the GELU MLP, QKV bias,
+tied or untied embeddings, RoPE or sinusoidal positions, full or sliding
+attention), the sparsifier fields that select among its paths, and the
+optimizers. A field value outside the slice raises
 ``NotImplementedError`` naming its ROADMAP item where it would be used
 (``core.sparsify.check_supported``, ``core.aggregate.check_supported``,
-``models.transformer.check_model``, ``optim.optimizer.check_optimizer``).
+``models.transformer.check_model``).
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     rotary_pct: float = 1.0       # stablelm uses partial rotary (0.25)
     qkv_bias: bool = False
+    attn_kind: str = "full"       # full | sliding (mla: ROADMAP A13)
+    window: int = 8192            # sliding window size
     dtype: str = "bfloat16"
-    norm: str = "rmsnorm"         # layernorm is ported (rmsnorm: ROADMAP A7)
-    act: str = "silu"             # silu (swiglu)
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    act: str = "silu"             # silu (swiglu) | gelu (plain mlp)
     tie_embeddings: bool = False
+    max_seq_len: int = 1 << 20
     remat: bool = True
 
     @property
@@ -41,15 +47,21 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense decoder (exact for the
-        port's init, which mirrors the reference's shapes)."""
+        """Analytic parameter count of the dense decoder, exact for every
+        dense layout (the port's init mirrors the reference's shapes, as
+        ``repro.models.params`` counts them)."""
         d, hd = self.d_model, self.resolved_head_dim
-        norm = 2 * d                                   # layernorm
-        attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                + self.n_heads * hd * d)
-        mlp = 3 * d * self.d_ff                        # swiglu
-        n = 2 * self.vocab_size * d + norm             # untied embed + head
-        return n + self.n_layers * (2 * norm + attn + mlp)
+        h, kv = self.n_heads, self.n_kv_heads
+        norm = d * (2 if self.norm == "layernorm" else 1)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.qkv_bias:
+            attn += h * hd + 2 * kv * hd
+        if self.act == "silu":
+            mlp = 3 * d * self.d_ff                    # gate, up, down
+        else:
+            mlp = 2 * d * self.d_ff + self.d_ff + d    # up, down + biases
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return n + norm + self.n_layers * (2 * norm + attn + mlp)
 
 
 @dataclass(frozen=True)
@@ -62,6 +74,7 @@ class ShapeConfig:
 
 SHAPES: dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
 }
 
 
@@ -106,8 +119,9 @@ class SparsifierConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    """The reference's optimizer fields and defaults, ZeRO-1 sharded.
-    ``zero1=False`` raises (ROADMAP A7)."""
+    """The reference's optimizer fields and defaults. The state is
+    always ZeRO-1 sharded over the data ranks: the reference reads no
+    ``zero1`` field and shards whatever its value, and so does the port."""
     kind: str = "sgd"             # sgd | momentum | adam | adamw
     lr: float = 1e-2
     momentum: float = 0.9
@@ -132,10 +146,22 @@ class RunConfig:
     steps: int = 100
     log_every: int = 10
     fault_schedule: str = ""      # core.faults spec; "" = every worker in
+    attn_override: str = ""       # "sliding": the dense arch's sliding variant
+
+
+def resolve_model_cfg(run: RunConfig) -> ModelConfig:
+    """The model a run trains or serves: ``attn_override="sliding"`` turns
+    a full-attention model into its sliding-window variant (the
+    reference's ``repro.train.step.resolve_model_cfg``)."""
+    cfg = run.model
+    if run.attn_override == "sliding" and cfg.attn_kind == "full":
+        cfg = replace(cfg, attn_kind="sliding")
+    return cfg
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
-_ARCH_MODULES = ["stablelm_3b"]
+_ARCH_MODULES = ["stablelm_3b", "starcoder2_7b",
+                 "qwen1_5_32b", "granite_8b"]
 
 
 def register(name: str):
@@ -162,11 +188,12 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """The reference's smoke variant of a dense config: 2 layers,
-    d_model 128, 4 heads of 32, d_ff 256, vocab 512, fp32."""
+    d_model 128, 4 heads of 32, d_ff 256, vocab 512, window 64,
+    max_seq_len 4096, fp32."""
     n_kv = min(cfg.n_kv_heads, 4)
     if 4 % n_kv:
         n_kv = 2
     return replace(
         cfg, name=cfg.name + "-smoke", n_layers=2, d_model=128, n_heads=4,
-        n_kv_heads=n_kv, head_dim=32, d_ff=256, vocab_size=512,
-        dtype="float32")
+        n_kv_heads=n_kv, head_dim=32, d_ff=256, vocab_size=512, window=64,
+        dtype="float32", max_seq_len=4096)

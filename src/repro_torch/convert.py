@@ -1,12 +1,13 @@
 """Carry weights and state between the reference and the port.
 
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
-the port's are nested dicts of tensors in the same layout, so parameters
-and fp32 state move as they are. Three translations: the index dtype (the
-reference's uint32 indices become the port's int32 view of the same
-bits, ``core.bigvec``, and back), bf16 state (``ef_dtype="bfloat16"``:
-the bits cross as uint16, numpy having no bf16 of its own), and the CNN's convolution weights,
-HWIO in the reference and OIHW in the port (``models.cnn``).
+the port's are nested dicts of tensors in the same layout, so parameters,
+decode caches and fp32 state move as they are. Three translations: the
+index dtype (the reference's uint32 indices become the port's int32 view
+of the same bits, ``core.bigvec``, and back), bf16 state and caches
+(``ef_dtype="bfloat16"``, a bf16 model's k and v: the bits cross as
+uint16, numpy having no bf16 of its own), and the CNN's convolution
+weights, HWIO in the reference and OIHW in the port (``models.cnn``).
 
 The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
 the order of the reference's ``jax.flatten_util.ravel_pytree`` over its
@@ -56,6 +57,17 @@ def params_from_jax(tree, device="cpu") -> dict:
 def params_to_jax(params: dict) -> dict:
     """Port parameter tree -> numpy tree in the reference's layout."""
     return tree_map(_to_numpy, params)
+
+
+def cache_from_jax(cache, device="cpu") -> dict:
+    """The reference's decode cache ``{pos, blocks/l0/{k, v}}`` (numpy
+    leaves) -> the port's, dtypes kept (a bf16 k and v bit for bit)."""
+    return tree_map(lambda x: _to_tensor(x, device), cache)
+
+
+def cache_to_jax(cache: dict) -> dict:
+    """Inverse of :func:`cache_from_jax`."""
+    return tree_map(_to_numpy, cache)
 
 
 def state_from_jax(state: dict, device="cpu") -> dict:

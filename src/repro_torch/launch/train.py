@@ -15,6 +15,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --comm sparse --pipeline fused --num-buckets 8 \
       --wire-dtype bfloat16 --selector histogram --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \
+      --smoke --comm sparse --pipeline fused --fixed-batch --device cpu
+
+``--arch`` takes every dense config of the registry: stablelm-3b,
+granite-8b, qwen1.5-32b and starcoder2-7b.
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact

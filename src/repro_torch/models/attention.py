@@ -1,10 +1,21 @@
-"""Causal self-attention with partial RoPE (the port of the full-sequence
-path of ``repro.models.attention`` at tensor-parallel degree 1).
+"""Causal self-attention: GQA with optional QKV bias, partial RoPE or none,
+full or sliding-window, and its KV cache (the port of the full-sequence,
+prefill and decode paths of ``repro.models.attention`` at one rank:
+tensor-parallel degree 1, the cache's sequence axis unsharded).
 
 The reference has no Pallas kernel here: its attention is plain jnp. The
-port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax,
-chunked over queries to bound memory (as ``_sdpa_chunked`` chunks them).
-It does not call ``scaled_dot_product_attention``.
+port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
+It does not call ``scaled_dot_product_attention``. The full-sequence
+path takes the reference's two forms at the shapes where the reference
+takes them: queries in chunks of ``Q_CHUNK`` against keys in chunks of
+``KV_CHUNK`` with an online softmax, normalised after the value product
+(``_sdpa_chunked``), and, where the sequence is not a multiple of a
+chunk, one softmax normalised before it (``_sdpa``).
+
+The cache of a layer is ``{k, v}``, each (B, S_cache, KV, hd) in the
+model's dtype. Decode writes the step's k and v into it in place (the
+caller holds ``torch.inference_mode``); a sliding window keeps a ring
+buffer of min(window, cache length) slots, position p at slot p % cap.
 """
 from __future__ import annotations
 
@@ -14,6 +25,7 @@ from repro_torch.models.layers import dense_init
 
 NEG_INF = -1e30
 Q_CHUNK = 1024
+KV_CHUNK = 2048
 
 
 def rope_angles(pos: torch.Tensor, rot_dim: int,
@@ -41,55 +53,193 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, rot_dim: int,
 
 
 def init_attention(gen, cfg, *, lead=(), device=None) -> dict:
+    """{wk, wo, wq, wv}, and with ``qkv_bias`` the zero biases {bk, bq,
+    bv}."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    return {"wk": dense_init(gen, d, kv * hd, lead=lead, device=device),
-            "wo": dense_init(gen, h * hd, d, lead=lead, device=device),
-            "wq": dense_init(gen, d, h * hd, lead=lead, device=device),
-            "wv": dense_init(gen, d, kv * hd, lead=lead, device=device)}
+    p = {"wk": dense_init(gen, d, kv * hd, lead=lead, device=device),
+         "wo": dense_init(gen, h * hd, d, lead=lead, device=device),
+         "wq": dense_init(gen, d, h * hd, lead=lead, device=device),
+         "wv": dense_init(gen, d, kv * hd, lead=lead, device=device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", kv), ("bv", kv)):
+            p[name] = torch.zeros((*lead, n * hd), device=device)
+    return p
 
 
 def proj_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) at positions pos (S,)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
     q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
-    rot = int(hd * cfg.rotary_pct)
-    return (apply_rope(q, pos, rot, cfg.rope_theta),
-            apply_rope(k, pos, rot, cfg.rope_theta), v)
+    if cfg.rope:
+        rot = int(hd * cfg.rotary_pct)
+        q = apply_rope(q, pos, rot, cfg.rope_theta)
+        k = apply_rope(k, pos, rot, cfg.rope_theta)
+    return q, k, v
 
 
-def causal_attention(q, k, v, scale: float) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, S, KV, hd) with H a multiple of KV (GQA).
-    Scores and softmax in fp32, chunked over queries; the normaliser is
-    applied after the value product, as the reference's online softmax
-    does."""
-    b, s, h, hd = q.shape
+def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                  window: int = 0) -> torch.Tensor:
+    """(Sq, Sk) causal mask, within ``window`` positions when it is set."""
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        m = m & (q_pos[:, None] - k_pos[None, :] < window)
+    return m
+
+
+def _scores(q, k, mask, scale):
+    """GQA scores (B, KV, G, Sq, Sk) in fp32, masked to NEG_INF."""
+    b, sq, h, hd = q.shape
     kvh = k.shape[2]
-    g = h // kvh
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    return torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+
+
+def _partial(q, k, v, mask, scale):
+    """One block's unnormalised output (B, Sq, H, hd) and its running max
+    and sum (B, Sq, H) (the reference's ``_sdpa_partial``)."""
+    b, sq, h, _ = q.shape
+    sc = _scores(q, k, mask, scale)
+    m = sc.amax(-1)
+    w = torch.exp(sc - m[..., None])
+    l = w.sum(-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return (o.reshape(b, sq, h, v.shape[3]),
+            m.permute(0, 3, 1, 2).reshape(b, sq, h),
+            l.permute(0, 3, 1, 2).reshape(b, sq, h))
+
+
+def _merge(o1, m1, l1, o2, m2, l2):
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    o = o1 * a1[..., None].to(o1.dtype) + o2 * a2[..., None].to(o2.dtype)
+    return o, m, l1 * a1 + l2 * a2
+
+
+def _finalize(o, l):
+    return o / l.clamp(min=1e-30)[..., None].to(o.dtype)
+
+
+def _sdpa(q, k, v, mask, scale):
+    """One softmax over all keys, normalised before the value product."""
+    b, sq, h, _ = q.shape
+    w = torch.softmax(_scores(q, k, mask, scale), -1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return o.reshape(b, sq, h, v.shape[3])
+
+
+def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
+    """q (B, S, H, hd), k/v (B, S, KV, hd) with H a multiple of KV (GQA);
+    causal, within ``window`` positions when it is set. Scores and softmax
+    in fp32. Chunked with an online softmax where S is a multiple of
+    both chunks (or shorter than them), one softmax otherwise, as the
+    reference chooses."""
+    s = q.shape[1]
     pos = torch.arange(s, device=q.device)
+    qc, kc = min(Q_CHUNK, s), min(KV_CHUNK, s)
+    if s % qc or s % kc:
+        return _sdpa(q, k, v, mask_from_pos(pos, pos, window), scale)
     outs = []
-    for q0 in range(0, s, Q_CHUNK):
-        qc = q[:, q0:q0 + Q_CHUNK]
-        sq = qc.shape[1]
-        qg = qc.reshape(b, sq, kvh, g, hd)
-        sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
-        mask = pos[q0:q0 + sq, None] >= pos[None, :]
-        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
-        m = sc.amax(-1, keepdim=True)
-        w = torch.exp(sc - m)
-        l = w.sum(-1)                                          # (b,k,g,q)
-        o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
-        l = l.permute(0, 3, 1, 2)[..., None].clamp(min=1e-30)
-        outs.append((o / l.to(o.dtype)).reshape(b, sq, h, hd))
+    for q0 in range(0, s, qc):
+        qi, qp = q[:, q0:q0 + qc], pos[q0:q0 + qc]
+        acc = None
+        for k0 in range(0, s, kc):
+            mask = mask_from_pos(qp, pos[k0:k0 + kc], window)
+            blk = _partial(qi, k[:, k0:k0 + kc], v[:, k0:k0 + kc], mask,
+                           scale)
+            acc = blk if acc is None else _merge(*acc, *blk)
+        outs.append(_finalize(acc[0], acc[2]))
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
 
+def _window(cfg) -> int:
+    return cfg.window if cfg.attn_kind == "sliding" else 0
+
+
 def attn_fwd_full(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d), causal."""
+    """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``)."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = proj_qkv(p, x, cfg, pos)
-    o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5)
+    o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5,
+                         _window(cfg))
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the cache, prefill and decode
+# ---------------------------------------------------------------------------
+
+def cache_max_seq(cfg, seq_len: int) -> int:
+    """Cache length for a context of ``seq_len`` positions."""
+    if cfg.attn_kind == "sliding":
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype, *, lead=(),
+               device=None) -> dict:
+    hd = cfg.resolved_head_dim
+    shape = (*lead, batch, max_seq, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
+                 cfg) -> torch.Tensor:
+    """Prompt forward x (B, S, d) -> (B, S, d), writing the prompt's k and
+    v into ``cache`` (views of one layer, cast to its dtype): the first S
+    slots, or, for a sliding window shorter than the prompt, the last
+    cap positions at slot position % cap. The prompt attends with the
+    uncast k and v."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = proj_qkv(p, x, cfg, pos)
+    window = _window(cfg)
+    o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5, window)
+    cap = cache["k"].shape[1]
+    if window and s > cap:
+        keep = torch.arange(s - cap, s, device=x.device)
+        for name, t in (("k", k), ("v", v)):
+            cache[name].index_copy_(1, keep % cap,
+                                    t[:, s - cap:].to(cache[name].dtype))
+    else:
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, :s] = t
+    return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+
+
+def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                cfg) -> torch.Tensor:
+    """One token x (B, 1, d) at position ``pos`` (a 0-d int tensor on the
+    device) -> (B, 1, d). Writes its k and v into ``cache`` in place,
+    then attends over the valid slots: slot <= pos, or, in a sliding
+    ring buffer of cap slots, the positions pos - ((pos - slot) % cap)
+    that are >= 0 and within the window."""
+    b = x.shape[0]
+    q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
+    cap = cache["k"].shape[1]
+    sliding = cfg.attn_kind == "sliding"
+    slot = (pos % min(cfg.window, cap) if sliding else pos).long()
+    for name, t in (("k", k_new), ("v", v_new)):
+        cache[name].index_copy_(1, slot.reshape(1),
+                                t.to(cache[name].dtype))
+    gpos = torch.arange(cap, device=x.device)
+    if sliding:
+        slot_pos = pos - torch.remainder(pos - gpos, cap)
+        valid = (slot_pos >= 0) & (slot_pos <= pos) & \
+            (pos - slot_pos < cfg.window)
+    else:
+        valid = gpos <= pos
+    o, _, l = _partial(q, cache["k"], cache["v"], valid[None, :],
+                       cfg.resolved_head_dim ** -0.5)
+    o = _finalize(o, l)
+    return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)

@@ -30,12 +30,11 @@ KINDS = ("sgd", "momentum", "adam", "adamw")
 
 
 def check_optimizer(cfg: OptimizerConfig) -> None:
+    """An unknown kind raises ValueError, as the reference's does.
+    ``zero1`` is not read: the state is sharded whatever its value, as
+    the reference shards it."""
     if cfg.kind not in KINDS:
         raise ValueError(cfg.kind)
-    if not cfg.zero1:
-        raise NotImplementedError(
-            "OptimizerConfig.zero1=False is not ported yet; the port's "
-            "step shards the optimizer state (ROADMAP A7)")
 
 
 def opt_shard_len(j_local: int, dp: int) -> int:

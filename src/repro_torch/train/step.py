@@ -29,6 +29,8 @@ Per step:
    gathered vector (no extra copy).
 
 Without a process group the world is one rank and the same code runs.
+The model is ``resolve_model_cfg(run)``: ``RunConfig.attn_override=
+"sliding"`` trains a dense model's sliding-window variant.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.backend import configure_numerics, resolve_device
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import RunConfig, resolve_model_cfg
 from repro_torch.core import faults, sparsify, threefry
 from repro_torch.core.aggregate import GradientSync, world
 from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
@@ -74,7 +76,7 @@ def init_train_state(run: RunConfig, device=None, group=None,
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(run.seed)
-        params = init_params(run.model, gen, dev)
+        params = init_params(resolve_model_cfg(run), gen, dev)
     params = tree_map(lambda t: t.to(dev, torch.float32), params)
     flat = TreeFlattener(params)
     n, rank = world(group)
@@ -104,7 +106,7 @@ class TrainStep:
             self.gsync.check_participation(self.schedule)
 
     def __call__(self, state: TrainState, batch: dict):
-        cfg, opt_cfg = self.run.model, self.run.optimizer
+        cfg, opt_cfg = resolve_model_cfg(self.run), self.run.optimizer
         n, rank = world(self.group)
         flat = TreeFlattener(state.params)
         leaves = tree_leaves(state.params)
