@@ -1,6 +1,7 @@
 """The port's dense decoder against the reference's on the same weights:
-the parameter layout and flat order (bitwise), the loss and the flat
-gradient (fp32 tolerance), and RoPE alone."""
+the parameter layout and flat order (bitwise, for every dense layout),
+the loss and the flat gradient (fp32 tolerance), and RoPE alone. The
+other layouts' losses and gradients: ``test_torch_layouts.py``."""
 import numpy as np
 import pytest
 
@@ -41,38 +42,74 @@ def _setup(seed=0, batch=2, seq=16):
     return jcfg, tcfg, jparams, tokens, targets
 
 
-def test_reduced_config_matches_reference():
-    jcfg, tcfg = _configs()
-    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-                  "d_ff", "vocab_size", "rotary_pct", "rope_theta", "norm",
-                  "act", "dtype", "qkv_bias", "tie_embeddings"):
-        assert getattr(jcfg, field) == getattr(tcfg, field), field
-    full_j, full_t = jbase.get_config("stablelm-3b"), tbase.get_config(
-        "stablelm-3b")
-    assert full_j.param_count() == full_t.param_count() == 2_795_443_200
+DENSE_ARCHS = ("stablelm-3b", "granite-8b", "qwen1.5-32b", "starcoder2-7b")
+# every dense layout: the four configs, and a tied-embedding variant
+# without RoPE (sinusoidal positions) of the GELU/QKV-bias layout
+LAYOUTS = DENSE_ARCHS + ("tied-norope",)
+CONFIG_FIELDS = ("name", "family", "source", "n_layers", "d_model",
+                 "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size",
+                 "rope", "rotary_pct", "rope_theta", "norm", "act", "dtype",
+                 "qkv_bias", "tie_embeddings", "attn_kind", "window",
+                 "max_seq_len", "remat")
+
+
+def layout_configs(layout: str):
+    """(reference, port) reduced configs of one dense layout."""
     import dataclasses
-    cut = dataclasses.replace(full_t, n_layers=8)
-    assert cut.param_count() == dataclasses.replace(
-        full_j, n_layers=8).param_count() == 892_032_000
+    arch = "starcoder2-7b" if layout == "tied-norope" else layout
+    out = [mod.reduced_config(mod.get_config(arch)) for mod in (jbase, tbase)]
+    if layout == "tied-norope":
+        out = [dataclasses.replace(c, tie_embeddings=True, rope=False)
+               for c in out]
+    return out
+
+
+def test_reduced_config_matches_reference():
+    import dataclasses
+    for arch in DENSE_ARCHS:
+        full_j, full_t = jbase.get_config(arch), tbase.get_config(arch)
+        for jcfg, tcfg in ((full_j, full_t), layout_configs(arch)):
+            for field in CONFIG_FIELDS:
+                assert getattr(jcfg, field) == getattr(tcfg, field), \
+                    (arch, field)
+            assert jcfg.param_count() == tcfg.param_count(), arch
+        for depth in (1, 3, 8):
+            assert dataclasses.replace(full_t, n_layers=depth).param_count() \
+                == dataclasses.replace(full_j, n_layers=depth).param_count()
+    full_t = tbase.get_config("stablelm-3b")
+    assert full_t.param_count() == 2_795_443_200
+    assert dataclasses.replace(full_t, n_layers=8).param_count() == \
+        892_032_000
+    assert tbase.get_config("granite-8b").param_count() == 8_254_689_280
+    assert tbase.get_config("starcoder2-7b").param_count() == 7_400_268_800
 
 
 def test_init_layout_and_flat_order_match():
-    jcfg, tcfg, jparams, _, _ = _setup()
-    tparams = params_from_jax(jax.device_get(jparams))
-    ours = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    jitems = [(tuple(k.key for k in path), leaf) for path, leaf in
-              jax.tree_util.tree_flatten_with_path(jparams)[0]]
-    assert [p for p, _ in tree_items(ours)] == [p for p, _ in jitems]
-    assert [tuple(leaf.shape) for _, leaf in tree_items(ours)] == \
-        [tuple(leaf.shape) for _, leaf in jitems]
-    flat = TreeFlattener(tparams).flatten(tparams)
-    jflat = JaxFlattener(jparams).flatten(jparams)
-    assert np.array_equal(np.asarray(jflat).view(np.int32),
-                          flat.numpy().view(np.int32))
-    back = params_to_jax(tparams)
-    for (p, a), (_, b) in zip(tree_items(back),
-                              tree_items(jax.device_get(jparams))):
-        assert np.array_equal(a, b), p
+    """Every dense layout: the port's init has the reference's leaves in
+    the reference's order and shapes (QKV biases, the GELU MLP's biases,
+    a norm without a bias, no head when tied), the parameter count is
+    the analytic one, and the flat vector is bitwise the reference's."""
+    for layout in LAYOUTS:
+        jcfg, tcfg = layout_configs(layout)
+        jparams = jax_init_params(jcfg, Parallel(), jax.random.PRNGKey(0))
+        tparams = params_from_jax(jax.device_get(jparams))
+        ours = init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+        jitems = [(tuple(k.key for k in path), leaf) for path, leaf in
+                  jax.tree_util.tree_flatten_with_path(jparams)[0]]
+        assert [p for p, _ in tree_items(ours)] == [p for p, _ in jitems], \
+            layout
+        assert [tuple(leaf.shape) for _, leaf in tree_items(ours)] == \
+            [tuple(leaf.shape) for _, leaf in jitems], layout
+        assert sum(leaf.numel() for _, leaf in tree_items(ours)) == \
+            tcfg.param_count() == jcfg.param_count(), layout
+        flat = TreeFlattener(tparams).flatten(tparams)
+        jflat = JaxFlattener(jparams).flatten(jparams)
+        assert np.array_equal(np.asarray(jflat).view(np.int32),
+                              flat.numpy().view(np.int32)), layout
+        back = params_to_jax(tparams)
+        for (p, a), (_, b) in zip(tree_items(back),
+                                  tree_items(jax.device_get(jparams))):
+            assert np.array_equal(a, b), (layout, p)
 
 
 def test_unflatten_views_round_trip():

@@ -32,6 +32,11 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) > 10
+    pkg = ROOT / "src" / "repro_torch"
+    for module in ("serve/step.py", "serve/__init__.py", "launch/serve.py",
+                   "configs/granite_8b.py", "configs/qwen1_5_32b.py",
+                   "configs/starcoder2_7b.py"):
+        assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
     assert offenders == []
@@ -80,6 +85,27 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_serve_entry_points_default_to_the_card():
+    """The serve builders and launcher take the card unless the CPU is
+    named, and raise naming the missing device without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.step import build_decode_step, build_prefill
+    args = launcher.parse_args(["--arch", "granite-8b", "--smoke"])
+    assert args.device is None
+    run = launcher.run_config(args)
+    calls = [lambda: build_prefill(run), lambda: build_decode_step(run),
+             lambda: build_prefill(run, "cuda"),
+             lambda: launcher.serve(run, log=lambda m: None),
+             lambda: launcher.main(["--arch", "granite-8b", "--smoke"])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    build_prefill(run, "cpu")
+    build_decode_step(run, "cpu")
 
 
 def test_card_path_never_calls_the_plain_version(monkeypatch):
@@ -147,20 +173,36 @@ def test_configs_outside_the_slice_raise(field, value, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("norm", "rmsnorm", "A7"), ("act", "gelu", "A7"),
-    ("qkv_bias", True, "A7"), ("tie_embeddings", True, "A7"),
-    ("family", "moe", "A13")])
+    ("family", "moe", "A13"), ("family", "ssm", "A13"),
+    ("family", "hybrid", "A13"), ("family", "audio", "A13"),
+    ("attn_kind", "mla", "A13")])
 def test_models_outside_the_slice_raise(field, value, item):
-    from repro_torch.models import init_params
+    """Every dense layout is served (rmsnorm, GELU, QKV bias, tied
+    embeddings, no RoPE, sliding attention); another family and MLA
+    raise at init, in the loss, in the cache and in the serve step."""
+    from repro_torch.models import init_params, loss_fn, transformer
+    from repro_torch.serve.step import build_prefill
     cfg = cfgs.reduced_config(cfgs.get_config("stablelm-3b"))
+    for served in (dict(norm="rmsnorm"), dict(act="gelu"),
+                   dict(qkv_bias=True), dict(tie_embeddings=True),
+                   dict(rope=False), dict(attn_kind="sliding")):
+        init_params(dataclasses.replace(cfg, **served), torch.Generator(),
+                    "cpu")
     bad = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        init_params(bad, torch.Generator(), "cpu")
+    run = cfgs.RunConfig(model=bad, shape=cfgs.SHAPES["decode_32k"])
+    for call in (lambda: init_params(bad, torch.Generator(), "cpu"),
+                 lambda: loss_fn({}, {}, bad),
+                 lambda: transformer.init_decode_cache(bad, 1, 8,
+                                                       torch.float32),
+                 lambda: build_prefill(run, "cpu")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call()
 
 
 def test_optimizers_outside_the_slice_raise():
-    """An unknown kind raises ValueError, as the reference's does; an
-    unsharded optimizer (zero1=False) is not served and names A7."""
+    """An unknown kind raises ValueError, as the reference's does;
+    ``zero1=False`` is accepted and shards anyway, as the reference
+    ignores the field: the state is the same as with zero1=True."""
     from repro_torch.optim import apply_updates, init_opt_state
     for kind in ("sgd", "momentum", "adam", "adamw"):
         init_opt_state(cfgs.OptimizerConfig(kind=kind), torch.zeros(4))
@@ -171,8 +213,14 @@ def test_optimizers_outside_the_slice_raise():
         apply_updates(bad, {"master": torch.zeros(4),
                             "step": torch.zeros((), dtype=torch.int32)},
                       torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        init_opt_state(cfgs.OptimizerConfig(zero1=False), torch.zeros(4))
+    g = torch.arange(4.0)
+    for kind in ("sgd", "adam"):
+        states = [init_opt_state(cfgs.OptimizerConfig(kind=kind, zero1=z),
+                                 torch.ones(4)) for z in (True, False)]
+        assert sorted(states[0]) == sorted(states[1])
+        outs = [apply_updates(cfgs.OptimizerConfig(kind=kind, zero1=z), st,
+                              g)[0] for z, st in zip((True, False), states)]
+        assert torch.equal(outs[0], outs[1])
 
 
 def test_sketch_card_path_never_calls_the_plain_version(monkeypatch):
