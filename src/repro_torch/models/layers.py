@@ -57,11 +57,11 @@ def init_mlp(gen, cfg, *, lead=(), device=None) -> dict:
     """SwiGLU {down, gate, up}, or the GELU MLP {down, down_b, up, up_b}
     with zero biases."""
     d, dff = cfg.d_model, cfg.d_ff
-    p = {"down": dense_init(gen, dff, d, lead=lead, device=device),
-         "up": dense_init(gen, d, dff, lead=lead, device=device)}
+    p = {"down": dense_init(gen, dff, d, lead=lead, device=device)}
     if cfg.act == "silu":
         p["gate"] = dense_init(gen, d, dff, lead=lead, device=device)
-    else:
+    p["up"] = dense_init(gen, d, dff, lead=lead, device=device)
+    if cfg.act != "silu":
         p["up_b"] = torch.zeros((*lead, dff), device=device)
         p["down_b"] = torch.zeros((*lead, d), device=device)
     return p
@@ -91,12 +91,13 @@ def mlp_fwd(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def init_embed(gen, cfg, *, device=None) -> dict:
-    """{tok} and, untied, the LM head {head}."""
-    p = {"tok": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                            device=device) * 0.02}
+    """{tok} and, untied, the LM head {head} (drawn first)."""
+    p = {}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                scale=cfg.d_model ** -0.5, device=device)
+    p["tok"] = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                           device=device) * 0.02
     return p
 
 
