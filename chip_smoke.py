@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train train_sketch_reference [--src OLD/src]
+    python3 chip_smoke.py --serve
     python3 chip_smoke.py --world 4
 
 The second form runs only the device and build phases and the named
 train phases (no profile, no kernels line), from this checkout's port or
 from another source tree: an unpacked older commit's ``src/``, so that
-two versions can be compared in one run on one card. The third needs
+two versions can be compared in one run on one card. The third runs only
+the device, build and serve phases. The fourth needs
 four cards and runs only the multi-card check: one process a card,
 joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
 comm), of dense SGD and of REGTOP-k with the packed pairs in 4 chunks on
@@ -90,7 +92,23 @@ line and raising on any failure:
              (``sweep1_bf16``) and B2 once a bucket, 8 a step;
 19. train_hist, profile_hist: REGTOP-k fused with the histogram
              selector: B1 and B2 once a step, the live count in [k, 2k]
-             on every step.
+             on every step;
+20. train_granite, profile_granite, train_starcoder2, profile_starcoder2:
+             the main path (REGTOP-k fused, sparse comm: B1 and B2 once a
+             step) on Granite-8B (rmsnorm, GQA kv 8; J = 1,056,993,280)
+             and StarCoder2-7B (layernorm, GELU, QKV bias, GQA kv 4; J =
+             1,104,301,056) at full width, depth cut to 3 layers;
+21. serve:   the serve launcher's serve() at its defaults (batch 8, prompt
+             48, 16 greedy decode steps) at full width and depth: Granite-
+             8B with full attention and with a sliding window of 32 (the
+             ring buffer wraps), StarCoder2-7B with full attention; in
+             fp32 the prefill's and the last decode step's logits within
+             2e-4 of the full forward's (relative to its largest logit,
+             tests/test_models.py's bound), then twice in the config's
+             bf16 (its error printed): prefill ms, decode ms a step
+             beside the bytes bound of the step's weight reads (in bf16
+             with the cast of every fp32 weight at its use: 8 B a
+             parameter), tokens a second, peak memory.
 
 Between phases 9 and 10 runs the paper phase (paper_round, paper_fig1,
 paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
@@ -131,7 +149,7 @@ neighbours for four amax values, the floor included; timed beside
 ``torch.histc`` on the Gaussian and the concentrated input).
 
 After the train phases one line, ``compression_share``, states each
-cell against ``train_dense`` from the same run: the profiled step's
+StableLM cell against ``train_dense`` from the same run: the profiled step's
 compression stages as device ms and as a share of its wall time, and the
 median of steps 1-4 over the dense cell's on the host clock, marked
 unresolved where it is within the dense cell's own spread. The last three lines are the
@@ -224,7 +242,25 @@ TRAIN_PATHS = {
                        {"sweep1_bf16": BUCKETS, "sweep2": BUCKETS}, ""),
     "train_hist": (dict(kind="regtopk", selector="histogram", **FUSED),
                    ("sweep1", "sweep2"), ""),
+    # the main path (REGTOP-k fused, sparse comm) on the other dense
+    # layouts: rmsnorm and GQA kv 8; layernorm, GELU, QKV bias, GQA kv 4
+    "train_granite": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                      ""),
+    "train_starcoder2": (dict(kind="regtopk", **FUSED),
+                         ("sweep1", "sweep2"), ""),
 }
+# the train phases' model: (arch, depth, J); full widths, depth cut so
+# that J and its fp32 compression and Adam state fit one card
+TRAIN_MODEL = ("stablelm-3b", TRAIN_LAYERS, MAIN_J)
+TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
+                "train_starcoder2": ("starcoder2-7b", 3, 1_104_301_056)}
+# phase serve: the serve launcher's defaults, at full width and depth
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 48, 16
+SERVE_WINDOW = 32            # examples/serve_batched.py's sliding variant
+SERVE_CELLS = (("granite-8b", "full"), ("granite-8b", "sliding"),
+               ("starcoder2-7b", "full"))
+SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800}
+SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
 # phase paper: the round checks' (workers, J, sparsity), fig2's shape and
 # fig3's (the CNN at width 16), and the iterations of each driver run
 PAPER_SHAPES = ((20, 100, 0.6), (8, 77_370, 0.001))
@@ -1138,8 +1174,9 @@ def phase_compress(dev) -> dict:
 
 
 def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
-                schedule: str = ""):
-    """The launcher's train() on StableLM-3B at full width, 8 layers, with
+                schedule: str = "", model_cut=TRAIN_MODEL):
+    """The launcher's train() on ``model_cut`` = (arch, depth, J): by
+    default StableLM-3B at full width, 8 layers, with
     the given sparsifier fields and fault schedule; the loss must be
     finite and falling and every kernel's launch count must equal
     ``expect`` (the others 0); under the schedule the steps' n_active
@@ -1150,9 +1187,9 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
                                           SparsifierConfig, get_config)
     from repro_torch.launch.train import train
-    model = dataclasses.replace(get_config("stablelm-3b"),
-                                n_layers=TRAIN_LAYERS)
-    check(model.param_count() == MAIN_J, f"J={model.param_count()}")
+    arch, depth, main_j = model_cut
+    model = dataclasses.replace(get_config(arch), n_layers=depth)
+    check(model.param_count() == main_j, f"J={model.param_count()}")
     run = RunConfig(
         model=model, shape=SHAPES["train_4k"],
         sparsifier=SparsifierConfig(**dict(dict(
@@ -1173,7 +1210,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
                 on_step=on_step)
     launches = launch_counts()
     losses = [rec["loss"] for rec in out["history"]]
-    check(out["params"] == MAIN_J, f"trained J={out['params']}")
+    check(out["params"] == main_j, f"trained J={out['params']}")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
     for name, n in launches.items():
@@ -1185,19 +1222,147 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
         check(active == ELASTIC_ACTIVE, f"{phase}: n_active {active}")
     counts = [rec.get("count") for rec in out["history"]]
     if run.sparsifier.selector == "histogram":
-        k = round(SPARSITY * MAIN_J)
+        k = round(SPARSITY * main_j)
         check(all(k <= c <= 2 * k for c in counts),
               f"{phase}: live counts {counts} outside [k, 2k]")
     emit(phase, model=model.name, sparsifier=dataclasses.asdict(
              run.sparsifier), fault_schedule=schedule, n_active=active,
          counts=counts,
-         n_layers=TRAIN_LAYERS,
+         n_layers=depth,
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          alloc_retries=torch.cuda.memory_stats(dev)["num_alloc_retries"])
     return launches, run, out["state"], [rec["ms"] for rec in out["history"]]
+
+
+def serve_case(dev, arch: str, attn: str, dtype: str, params: dict) -> dict:
+    """The serve launcher's serve() on ``arch`` at full width and depth
+    (``attn`` "sliding": window SERVE_WINDOW, below the prompt, so the
+    ring buffer wraps in prefill and in every decode step) with the given
+    parameters, in ``dtype``; then the full forward of the prompt and the
+    generated tokens, without a cache: the prefill's logits against its
+    position P - 1, the last decode step's against position P + N - 1,
+    as max |difference| over max |full logits|; then one more decode
+    step profiled (``decode_profile``)."""
+    import torch
+    from repro_torch.configs.base import (RunConfig, SHAPES,
+                                          SparsifierConfig, get_config)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if attn == "sliding":
+        cfg = dataclasses.replace(cfg, attn_kind="sliding",
+                                  window=SERVE_WINDOW)
+    run = RunConfig(model=cfg, shape=dataclasses.replace(
+        SHAPES["decode_32k"], seq_len=SERVE_PROMPT + SERVE_NEW,
+        global_batch=SERVE_BATCH), sparsifier=SparsifierConfig(kind="none"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve(run, device=dev, prompt_len=SERVE_PROMPT,
+                new_tokens=SERVE_NEW, params=params,
+                log=lambda msg: print(msg, file=sys.stderr))
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = torch.cat([out["prompt"], out["tokens"]], 1)
+    with torch.inference_mode():
+        full = tfm.full_logits(params, tokens, cfg).float()
+    scale = float(full.abs().max())
+    e_pre = float((out["prefill_logits"].float()
+                   - full[:, SERVE_PROMPT - 1]).abs().max()) / scale
+    e_dec = float((out["logits"].float() - full[:, -1]).abs().max()) / scale
+    check(out["params"] == SERVE_PARAMS[arch], f"{arch}: {out['params']}")
+    check(tuple(out["tokens"].shape) == (SERVE_BATCH, SERVE_NEW),
+          f"{arch}: tokens {tuple(out['tokens'].shape)}")
+    check(bool(torch.isfinite(out["logits"]).all()), f"{arch}: logits")
+    check(int(out["cache"]["pos"]) == SERVE_PROMPT + SERVE_NEW,
+          f"{arch}: cache pos {int(out['cache']['pos'])}")
+    cap = out["cache"]["blocks"]["l0"]["k"].shape[2]
+    check(cap == (SERVE_WINDOW if attn == "sliding"
+                  else SERVE_PROMPT + SERVE_NEW), f"{arch}: cache {cap}")
+    n = out["params"]
+    # a decode step reads every weight once; in bf16 the cast at each
+    # use writes and reads a bf16 copy too (the reference's cast)
+    step_bytes = n * (4 if dtype == "float32" else 8)
+    profile = decode_profile(dev, run, params, out["cache"],
+                             out["tokens"][:, -1:])
+    return {"arch": arch, "attn": attn, "dtype": dtype,
+            "window": cfg.window if attn == "sliding" else None,
+            "n_layers": cfg.n_layers, "params": n, "cache_slots": cap,
+            "prefill_ms": out["prefill_s"] * 1e3,
+            "decode_ms_per_step": out["decode_s"] / SERVE_NEW * 1e3,
+            "tokens_per_s": SERVE_BATCH * SERVE_NEW / out["decode_s"],
+            "decode_bound_ms": bound_ms(step_bytes, 0)[0],
+            "decode_bound_bytes": step_bytes,
+            "max_memory_allocated": peak,
+            "prefill_rel_err": e_pre, "decode_rel_err": e_dec,
+            "decode_profile": profile,
+            "first_sequence": out["tokens"][0].tolist()}
+
+
+def decode_profile(dev, run, params: dict, cache: dict,
+                   token) -> dict:
+    """One more decode step of a served cache, under torch.profiler: the
+    last step again (``pos`` set back by one, the same token, so its k
+    and v overwrite themselves), split into device time by kind of
+    kernel: the weights' casts (copy kernels), the matmuls, the rest;
+    and the launches. Wall time includes the profiler's own cost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.step import build_decode_step
+    dec = build_decode_step(run, dev)
+    with torch.inference_mode():
+        cache["pos"].sub_(1)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec(params, cache, token)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key.lower(), e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    cast = sum(ms for key, ms, _ in kernels if "copy" in key)
+    mm = sum(ms for key, ms, _ in kernels
+             if any(w in key for w in ("gemm", "gemv", "nvjet", "cutlass")))
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms, "cast_ms": cast,
+            "matmul_ms": mm, "other_ms": busy - cast - mm,
+            "kernel_launches": sum(n for _, _, n in kernels)}
+
+
+def phase_serve(dev) -> None:
+    """SERVE_CELLS at the launcher's defaults (batch 8, prompt 48, 16
+    greedy steps), each architecture's parameters drawn once from seed 0
+    (fp32 masters, as the reference keeps them): in fp32, the decode and
+    prefill logits within SERVE_RTOL of the full forward; then in the
+    config's bf16 twice (the second run's times are the warm ones), its
+    error printed, not bounded."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import init_params
+    params, held = None, None
+    for arch, attn in SERVE_CELLS:
+        if held != arch:
+            params = None
+            torch.cuda.empty_cache()
+            params = init_params(get_config(arch), torch.Generator(
+                device=dev).manual_seed(0), dev)
+            held = arch
+        res = serve_case(dev, arch, attn, "float32", params)
+        check(res["prefill_rel_err"] < SERVE_RTOL
+              and res["decode_rel_err"] < SERVE_RTOL,
+              f"serve {arch} {attn}: fp32 errors {res['prefill_rel_err']}, "
+              f"{res['decode_rel_err']} over {SERVE_RTOL}")
+        emit("serve", **res)
+        for run in ("cold", "warm"):
+            emit("serve", run=run,
+                 **serve_case(dev, arch, attn, "bfloat16", params))
+    del params
+    torch.cuda.empty_cache()
 
 
 STAGES = ("train/loss_grad", "train/flatten", "train/sync",
@@ -1643,6 +1808,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="append", choices=TRAIN_PATHS,
                     help="run only the device and build phases and this "
                     "train phase (repeatable; no profile, no kernels line)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run only the device and build phases and the "
+                    "serve phase (no kernels line)")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the port's source tree (default: this checkout's "
                     "src/), e.g. an unpacked older commit's, to compare "
@@ -1671,11 +1839,14 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()}")
         phase_world(args.world, os.path.abspath(args.src))
         return finish(smi, None)
-    if args.train:
-        for name in args.train:
+    if args.train or args.serve:
+        for name in args.train or ():
             fields, kernels, schedule = TRAIN_PATHS[name]
-            phase_train(dev, fields, train_expect(kernels), name, schedule)
+            phase_train(dev, fields, train_expect(kernels), name, schedule,
+                        TRAIN_MODELS.get(name, TRAIN_MODEL))
             torch.cuda.empty_cache()
+        if args.serve:
+            phase_serve(dev)
         return finish(smi, None)
     kres = phase_kernels(dev)
     sres = phase_kernels_sketch(dev)
@@ -1688,7 +1859,8 @@ def main(argv=None) -> int:
     train, steps, profiles = {}, {}, {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
         train[name], run, state, steps[name] = phase_train(
-            dev, fields, train_expect(kernels), name, schedule)
+            dev, fields, train_expect(kernels), name, schedule,
+            TRAIN_MODELS.get(name, TRAIN_MODEL))
         tables, *profiles[name] = phase_profile(
             dev, run, state, name.replace("train", "profile"))
         if fields["kind"] == "sketchtopk":
@@ -1696,7 +1868,11 @@ def main(argv=None) -> int:
                   f"{name}: the sync keeps one start table of its shape")
         del state
         torch.cuda.empty_cache()
-    emit("compression_share", **compression_shares(steps, profiles))
+    phase_serve(dev)
+    # the other models' cells have no dense baseline of their own
+    emit("compression_share", **compression_shares(
+        {name: ms for name, ms in steps.items() if name not in TRAIN_MODELS},
+        profiles))
     bitwise = "torch.equal on every output"
     atomics = ("a torch.equal; sketch torch.equal on dyadic inputs, within "
                "4*n_b*2^-24*sum|contrib| per bucket on Gaussian inputs")
@@ -1706,9 +1882,13 @@ def main(argv=None) -> int:
     ebig, hbig = eres["big"], hres["big"]
     histc_same = hbig["histogram_histc_differing_bins"] == 0
     rows = [kernel_row("sweep1", big, small, train["train"]["sweep1"],
-                       "regtopk train (fused)", bitwise),
+                       "regtopk train (fused)", bitwise,
+                       other_models={name: train[name]["sweep1"]
+                                     for name in TRAIN_MODELS}),
             kernel_row("sweep2", big, small, train["train"]["sweep2"],
-                       "regtopk train (fused)", bitwise),
+                       "regtopk train (fused)", bitwise,
+                       other_models={name: train[name]["sweep2"]
+                                     for name in TRAIN_MODELS}),
             kernel_row("sweep1_dgc", dgc_big, dgc_small,
                        train["train_dgc"]["sweep1_dgc"],
                        "dgc train (fused)", bitwise, mode="dgc"),

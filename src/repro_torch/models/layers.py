@@ -57,6 +57,8 @@ def init_mlp(gen, cfg, *, lead=(), device=None) -> dict:
     """SwiGLU {down, gate, up}, or the GELU MLP {down, down_b, up, up_b}
     with zero biases."""
     d, dff = cfg.d_model, cfg.d_ff
+    # drawn down, gate, up: a seed gives the SwiGLU layout the weights
+    # it had before the GELU layout was ported
     p = {"down": dense_init(gen, dff, d, lead=lead, device=device)}
     if cfg.act == "silu":
         p["gate"] = dense_init(gen, d, dff, lead=lead, device=device)

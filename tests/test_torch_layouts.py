@@ -34,6 +34,7 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import sparsify as tsp  # noqa: E402
 from repro_torch.core.flatten import TreeFlattener, tree_items  # noqa: E402
+from repro_torch.launch.train import parse_args, run_config, train  # noqa: E402
 from repro_torch.models import loss_fn  # noqa: E402
 from repro_torch.train.step import build_train_step, init_train_state  # noqa: E402
 
@@ -178,3 +179,19 @@ def test_fused_step_matches_reference(layout):
     assert np.array_equal(want, got)
     assert np.array_equal(np.asarray(ef["err_prev"]).reshape(-1) == 0,
                           tstate.ef["err_prev"].numpy() == 0)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen1.5-32b",
+                                  "starcoder2-7b"])
+def test_train_launcher_takes_the_dense_archs(arch):
+    """``--arch`` names every dense config of the registry; the main path
+    (REGTOP-k fused, sparse comm) trains each smoke model, the loss
+    falling on a fixed batch."""
+    run = run_config(parse_args(["--arch", arch, "--smoke", "--steps", "4",
+                                 "--comm", "sparse", "--pipeline", "fused"]))
+    assert run.model.name == f"{arch}-smoke"
+    out = train(run, device="cpu", batch=2, seq=16, fixed_batch=True,
+                log=lambda msg: None)
+    losses = [rec["loss"] for rec in out["history"]]
+    assert out["params"] == run.model.param_count()
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

@@ -59,6 +59,9 @@ def test_cpu_step_runs_without_jax(tmp_path):
         "from repro_torch.launch.train import main\n"
         "main(['--arch', 'stablelm-3b', '--smoke', '--steps', '1',"
         " '--batch', '2', '--seq', '16', '--device', 'cpu'])\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--arch', 'granite-8b', '--smoke', '--batch', '2',"
+        " '--prompt-len', '8', '--new-tokens', '2', '--device', 'cpu'])\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')"
         " for m in sys.modules)\n"
