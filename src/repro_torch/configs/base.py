@@ -74,7 +74,6 @@ class ShapeConfig:
 
 SHAPES: dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
-    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
 }
 
 

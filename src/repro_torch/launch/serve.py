@@ -63,19 +63,22 @@ def check_args(args) -> None:
             "not ported yet (ROADMAP A13, A14)")
 
 
+def serve_shape(batch: int, prompt_len: int, new_tokens: int):
+    """The decode shape of a serve run: ``batch`` sequences, a cache of
+    prompt_len + new_tokens positions."""
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("serve", prompt_len + new_tokens, batch, "decode")
+
+
 def run_config(args):
-    import dataclasses
-    from repro_torch.configs.base import (RunConfig, SHAPES,
-                                          SparsifierConfig, get_config,
-                                          reduced_config)
+    from repro_torch.configs.base import (RunConfig, SparsifierConfig,
+                                          get_config, reduced_config)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)
     return RunConfig(
-        model=cfg,
-        shape=dataclasses.replace(SHAPES["decode_32k"],
-                                  seq_len=args.prompt_len + args.new_tokens,
-                                  global_batch=args.batch),
+        model=cfg, shape=serve_shape(args.batch, args.prompt_len,
+                                     args.new_tokens),
         sparsifier=SparsifierConfig(kind="none"), seed=args.seed)
 
 

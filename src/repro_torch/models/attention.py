@@ -6,11 +6,14 @@ tensor-parallel degree 1, the cache's sequence axis unsharded).
 The reference has no Pallas kernel here: its attention is plain jnp. The
 port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
 It does not call ``scaled_dot_product_attention``. The full-sequence
-path takes the reference's two forms at the shapes where the reference
-takes them: queries in chunks of ``Q_CHUNK`` against keys in chunks of
-``KV_CHUNK`` with an online softmax, normalised after the value product
-(``_sdpa_chunked``), and, where the sequence is not a multiple of a
-chunk, one softmax normalised before it (``_sdpa``).
+path is the reference's ``_sdpa_chunked`` at every length: queries in
+chunks of ``Q_CHUNK`` against keys in chunks of ``KV_CHUNK`` with an
+online softmax, normalised after the value product, the last chunk of
+each short where the length is not a multiple. (At such a length the
+reference takes one softmax normalised before the value product,
+``_sdpa``; the two forms agree to a few fp32 ulps, and the tests hold
+them to rtol 1e-5.) Key chunks wholly above the causal diagonal are
+skipped: their weights are exactly 0 after the merge.
 
 The cache of a layer is ``{k, v}``, each (B, S_cache, KV, hd) in the
 model's dtype. Decode writes the step's k and v into it in place (the
@@ -104,57 +107,46 @@ def _scores(q, k, mask, scale):
 
 
 def _partial(q, k, v, mask, scale):
-    """One block's unnormalised output (B, Sq, H, hd) and its running max
-    and sum (B, Sq, H) (the reference's ``_sdpa_partial``)."""
-    b, sq, h, _ = q.shape
+    """One block's unnormalised output (B, Sq, KV, G, hd) and its running
+    max and sum (B, KV, G, Sq) (the reference's ``_sdpa_partial``)."""
     sc = _scores(q, k, mask, scale)
     m = sc.amax(-1)
     w = torch.exp(sc - m[..., None])
-    l = w.sum(-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
-    return (o.reshape(b, sq, h, v.shape[3]),
-            m.permute(0, 3, 1, 2).reshape(b, sq, h),
-            l.permute(0, 3, 1, 2).reshape(b, sq, h))
+    return torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v), m, w.sum(-1)
+
+
+def _per_query(t):
+    """(B, KV, G, Sq) -> a (B, Sq, KV, G, 1) view, to scale an output."""
+    return t.permute(0, 3, 1, 2)[..., None]
 
 
 def _merge(o1, m1, l1, o2, m2, l2):
     m = torch.maximum(m1, m2)
     a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
-    o = o1 * a1[..., None].to(o1.dtype) + o2 * a2[..., None].to(o2.dtype)
+    o = o1 * _per_query(a1).to(o1.dtype) + o2 * _per_query(a2).to(o2.dtype)
     return o, m, l1 * a1 + l2 * a2
 
 
 def _finalize(o, l):
-    return o / l.clamp(min=1e-30)[..., None].to(o.dtype)
-
-
-def _sdpa(q, k, v, mask, scale):
-    """One softmax over all keys, normalised before the value product."""
-    b, sq, h, _ = q.shape
-    w = torch.softmax(_scores(q, k, mask, scale), -1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
-    return o.reshape(b, sq, h, v.shape[3])
+    """(B, Sq, H, hd): the output over its softmax sum."""
+    o = o / _per_query(l.clamp(min=1e-30)).to(o.dtype)
+    return o.reshape(*o.shape[:2], -1, o.shape[-1])
 
 
 def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
     """q (B, S, H, hd), k/v (B, S, KV, hd) with H a multiple of KV (GQA);
     causal, within ``window`` positions when it is set. Scores and softmax
-    in fp32. Chunked with an online softmax where S is a multiple of
-    both chunks (or shorter than them), one softmax otherwise, as the
-    reference chooses."""
+    in fp32, chunked over queries and keys with an online softmax."""
     s = q.shape[1]
     pos = torch.arange(s, device=q.device)
-    qc, kc = min(Q_CHUNK, s), min(KV_CHUNK, s)
-    if s % qc or s % kc:
-        return _sdpa(q, k, v, mask_from_pos(pos, pos, window), scale)
     outs = []
-    for q0 in range(0, s, qc):
-        qi, qp = q[:, q0:q0 + qc], pos[q0:q0 + qc]
+    for q0 in range(0, s, Q_CHUNK):
+        qi, qp = q[:, q0:q0 + Q_CHUNK], pos[q0:q0 + Q_CHUNK]
         acc = None
-        for k0 in range(0, s, kc):
-            mask = mask_from_pos(qp, pos[k0:k0 + kc], window)
-            blk = _partial(qi, k[:, k0:k0 + kc], v[:, k0:k0 + kc], mask,
-                           scale)
+        for k0 in range(0, min(s, q0 + Q_CHUNK), KV_CHUNK):
+            mask = mask_from_pos(qp, pos[k0:k0 + KV_CHUNK], window)
+            blk = _partial(qi, k[:, k0:k0 + KV_CHUNK], v[:, k0:k0 + KV_CHUNK],
+                           mask, scale)
             acc = blk if acc is None else _merge(*acc, *blk)
         outs.append(_finalize(acc[0], acc[2]))
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1)

@@ -100,11 +100,11 @@ def test_sliding_override_resolves_like_the_reference():
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_loss_and_gradient_match_reference(layout):
+def test_loss_and_gradient_match_reference(layout, batch=2, seq=24):
     jrun, trun = _runs(layout)
     jcfg, tcfg = jax_resolve(jrun), tbase.resolve_model_cfg(trun)
     jparams = _live(jax_init_params(jcfg, Parallel(), jax.random.PRNGKey(0)))
-    tokens, targets = _batch()
+    tokens, targets = _batch(batch, seq)
     batch = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)}
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(p, batch, jcfg, Parallel()), has_aux=True))(
@@ -119,6 +119,34 @@ def test_loss_and_gradient_match_reference(layout):
     tflat = TreeFlattener(tparams).flatten(list(grads)).numpy()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=RTOL)
     np.testing.assert_allclose(tflat, jflat, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("layout", ["granite-8b", "sliding"])
+def test_ragged_length_matches_reference(layout):
+    """A length of 1100, past one query chunk (1024) and not a multiple of
+    it: the port's last query chunk is short, the reference takes its
+    one-softmax form; loss and flat gradient within RTOL."""
+    test_loss_and_gradient_match_reference(layout, batch=1, seq=1100)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("seq", [1100, 2100])
+def test_attention_tail_chunks_match_reference(seq, window):
+    """``causal_attention`` against the reference's ``_sdpa_chunked`` on
+    the same q, k, v (GQA, 4 heads over 2): at 2100 the last query chunk
+    (52) and the last key chunk (52, after 2048) are both short; causal
+    and within a window."""
+    from repro.models.attention import _sdpa_chunked
+    from repro_torch.models.attention import causal_attention
+    rng = np.random.default_rng(seq + window)
+    q, k, v = (rng.standard_normal((1, seq, h, 16)).astype(np.float32)
+               for h in (4, 2, 2))
+    pos = jnp.arange(seq)
+    want = np.asarray(jax.jit(lambda q, k, v: _sdpa_chunked(
+        q, k, v, pos, pos, 0.25, True, window))(q, k, v))
+    got = causal_attention(*(torch.from_numpy(t) for t in (q, k, v)), 0.25,
+                           window).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("layout", ["granite-8b", "starcoder2-7b"])

@@ -192,7 +192,8 @@ def test_models_outside_the_slice_raise(field, value, item):
         init_params(dataclasses.replace(cfg, **served), torch.Generator(),
                     "cpu")
     bad = dataclasses.replace(cfg, **{field: value})
-    run = cfgs.RunConfig(model=bad, shape=cfgs.SHAPES["decode_32k"])
+    run = cfgs.RunConfig(model=bad, shape=cfgs.ShapeConfig(
+        "serve", 8, 1, "decode"))
     for call in (lambda: init_params(bad, torch.Generator(), "cpu"),
                  lambda: loss_fn({}, {}, bad),
                  lambda: transformer.init_decode_cache(bad, 1, 8,

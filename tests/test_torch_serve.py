@@ -175,8 +175,8 @@ def test_bf16_cache_crosses_bit_for_bit():
 
 def _run(arch="granite-8b", batch=2, seq=10, **kw):
     cfg = tbase.reduced_config(tbase.get_config(arch))
-    return tbase.RunConfig(model=cfg, shape=dataclasses.replace(
-        tbase.SHAPES["decode_32k"], seq_len=seq, global_batch=batch), **kw)
+    return tbase.RunConfig(model=cfg, shape=tbase.ShapeConfig(
+        "serve", seq, batch, "decode"), **kw)
 
 
 def test_serve_step_builders_match_the_model_functions():
