@@ -7,7 +7,8 @@
     python3 chip_smoke.py --world 4
 
 The second form runs only the device and build phases and the named
-train phases (no profile, no kernels line), from this checkout's port or
+train phases, each with its profile (no kernels line), from this
+checkout's port or
 from another source tree: an unpacked older commit's ``src/``, so that
 two versions can be compared in one run on one card. The third runs only
 the device, build and serve phases. The fourth needs
@@ -100,15 +101,18 @@ line and raising on any failure:
              1,104,301,056) at full width, depth cut to 3 layers;
 21. serve:   the serve launcher's serve() at its defaults (batch 8, prompt
              48, 16 greedy decode steps) at full width and depth: Granite-
-             8B with full attention and with a sliding window of 32 (the
-             ring buffer wraps), StarCoder2-7B with full attention; in
-             fp32 the prefill's and the last decode step's logits within
-             2e-4 of the full forward's (relative to its largest logit,
-             tests/test_models.py's bound), then twice in the config's
-             bf16 (its error printed): prefill ms, decode ms a step
-             beside the bytes bound of the step's weight reads (in bf16
+             8B with full attention, with a sliding window of 32 (the
+             ring buffer wraps) and at a 4096-token prompt (a 4.8 GB bf16
+             cache), StarCoder2-7B with full attention; in fp32 the
+             prefill's and the last decode step's logits within 2e-4 of
+             the full forward's (relative to its largest logit at those
+             positions, tests/test_models.py's bound), then in the
+             config's bf16 (its error printed): prefill ms, decode ms a
+             step (the median and spread of 5 more windows of 16 steps)
+             beside the bytes bound of the step (the weights, in bf16
              with the cast of every fp32 weight at its use: 8 B a
-             parameter), tokens a second, peak memory.
+             parameter; B rows of the token table; the valid cache
+             slots), tokens a second, peak memory, one profiled step.
 
 Between phases 9 and 10 runs the paper phase (paper_round, paper_fig1,
 paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
@@ -257,8 +261,14 @@ TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
 # phase serve: the serve launcher's defaults, at full width and depth
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 48, 16
 SERVE_WINDOW = 32            # examples/serve_batched.py's sliding variant
-SERVE_CELLS = (("granite-8b", "full"), ("granite-8b", "sliding"),
-               ("starcoder2-7b", "full"))
+SERVE_LONG_PROMPT = 4096     # a context whose bf16 cache (4.8 GB) counts
+# (arch, attention, prompt length); each arch's cells in a row, so that
+# its parameters are drawn once
+SERVE_CELLS = (("granite-8b", "full", SERVE_PROMPT),
+               ("granite-8b", "sliding", SERVE_PROMPT),
+               ("granite-8b", "full", SERVE_LONG_PROMPT),
+               ("starcoder2-7b", "full", SERVE_PROMPT))
+SERVE_REPS = 5               # decode windows timed after the launcher's run
 SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800}
 SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
 # phase paper: the round checks' (workers, J, sparsity), fig2's shape and
@@ -1237,75 +1247,125 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     return launches, run, out["state"], [rec["ms"] for rec in out["history"]]
 
 
-def serve_case(dev, arch: str, attn: str, dtype: str, params: dict) -> dict:
+def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
+               params: dict) -> dict:
     """The serve launcher's serve() on ``arch`` at full width and depth
     (``attn`` "sliding": window SERVE_WINDOW, below the prompt, so the
     ring buffer wraps in prefill and in every decode step) with the given
-    parameters, in ``dtype``; then the full forward of the prompt and the
-    generated tokens, without a cache: the prefill's logits against its
-    position P - 1, the last decode step's against position P + N - 1,
-    as max |difference| over max |full logits|; then one more decode
-    step profiled (``decode_profile``)."""
+    parameters, a prompt of ``prompt`` tokens, in ``dtype``; then the full
+    forward of the prompt and the generated tokens, without a cache: the
+    prefill's logits against its position P - 1, the last decode step's
+    against position P + N - 1, as max |difference| over the largest
+    |logit| of the full forward at those positions; then SERVE_REPS more
+    decode windows timed (``decode_windows``) and one more decode step
+    profiled (``decode_profile``)."""
     import torch
-    from repro_torch.configs.base import (RunConfig, SHAPES,
-                                          SparsifierConfig, get_config)
-    from repro_torch.launch.serve import serve
+    from repro_torch.configs.base import RunConfig, SparsifierConfig, \
+        get_config
+    from repro_torch.launch.serve import serve, serve_shape
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import lm_head_fwd
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if attn == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=SERVE_WINDOW)
-    run = RunConfig(model=cfg, shape=dataclasses.replace(
-        SHAPES["decode_32k"], seq_len=SERVE_PROMPT + SERVE_NEW,
-        global_batch=SERVE_BATCH), sparsifier=SparsifierConfig(kind="none"))
+    run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt,
+                                                 SERVE_NEW),
+                    sparsifier=SparsifierConfig(kind="none"))
     torch.cuda.reset_peak_memory_stats(dev)
-    out = serve(run, device=dev, prompt_len=SERVE_PROMPT,
-                new_tokens=SERVE_NEW, params=params,
-                log=lambda msg: print(msg, file=sys.stderr))
+    out = serve(run, device=dev, prompt_len=prompt, new_tokens=SERVE_NEW,
+                params=params, log=lambda msg: print(msg, file=sys.stderr))
     peak = torch.cuda.max_memory_allocated(dev)
     tokens = torch.cat([out["prompt"], out["tokens"]], 1)
     with torch.inference_mode():
-        full = tfm.full_logits(params, tokens, cfg).float()
+        x = tfm.forward_hidden(params, tfm.embed_batch(params, tokens, cfg),
+                               cfg)
+        full = lm_head_fwd(params["embed"], x[:, [prompt - 1, -1]],
+                           cfg).float()
+        del x
     scale = float(full.abs().max())
-    e_pre = float((out["prefill_logits"].float()
-                   - full[:, SERVE_PROMPT - 1]).abs().max()) / scale
-    e_dec = float((out["logits"].float() - full[:, -1]).abs().max()) / scale
+    e_pre = float((out["prefill_logits"].float() - full[:, 0]).abs().max())
+    e_dec = float((out["logits"].float() - full[:, 1]).abs().max())
     check(out["params"] == SERVE_PARAMS[arch], f"{arch}: {out['params']}")
     check(tuple(out["tokens"].shape) == (SERVE_BATCH, SERVE_NEW),
           f"{arch}: tokens {tuple(out['tokens'].shape)}")
     check(bool(torch.isfinite(out["logits"]).all()), f"{arch}: logits")
-    check(int(out["cache"]["pos"]) == SERVE_PROMPT + SERVE_NEW,
+    check(int(out["cache"]["pos"]) == prompt + SERVE_NEW,
           f"{arch}: cache pos {int(out['cache']['pos'])}")
     cap = out["cache"]["blocks"]["l0"]["k"].shape[2]
     check(cap == (SERVE_WINDOW if attn == "sliding"
-                  else SERVE_PROMPT + SERVE_NEW), f"{arch}: cache {cap}")
-    n = out["params"]
-    # a decode step reads every weight once; in bf16 the cast at each
-    # use writes and reads a bf16 copy too (the reference's cast)
-    step_bytes = n * (4 if dtype == "float32" else 8)
+                  else prompt + SERVE_NEW), f"{arch}: cache {cap}")
+    windows = decode_windows(dev, run, params, out["cache"], out["tokens"])
     profile = decode_profile(dev, run, params, out["cache"],
-                             out["tokens"][:, -1:])
+                             out["tokens"][:, -1:], dtype)
+    step_bytes = decode_bytes(cfg, out["params"], min(
+        cap, prompt + SERVE_NEW), out["cache"]["blocks"]["l0"]["k"])
+    ms = statistics.median(windows)
     return {"arch": arch, "attn": attn, "dtype": dtype,
             "window": cfg.window if attn == "sliding" else None,
-            "n_layers": cfg.n_layers, "params": n, "cache_slots": cap,
+            "n_layers": cfg.n_layers, "params": out["params"],
+            "prompt": prompt, "cache_slots": cap,
+            "cache_bytes": 2 * out["cache"]["blocks"]["l0"]["k"].nbytes,
             "prefill_ms": out["prefill_s"] * 1e3,
-            "decode_ms_per_step": out["decode_s"] / SERVE_NEW * 1e3,
-            "tokens_per_s": SERVE_BATCH * SERVE_NEW / out["decode_s"],
+            "launcher_decode_ms_per_step": out["decode_s"] / SERVE_NEW * 1e3,
+            "decode_ms_per_step": ms, "decode_ms_windows": windows,
+            "decode_ms_spread": [min(windows), max(windows)],
+            "tokens_per_s": SERVE_BATCH * 1e3 / ms,
             "decode_bound_ms": bound_ms(step_bytes, 0)[0],
             "decode_bound_bytes": step_bytes,
             "max_memory_allocated": peak,
-            "prefill_rel_err": e_pre, "decode_rel_err": e_dec,
+            "prefill_rel_err": e_pre / scale, "decode_rel_err": e_dec / scale,
             "decode_profile": profile,
             "first_sequence": out["tokens"][0].tolist()}
 
 
-def decode_profile(dev, run, params: dict, cache: dict,
-                   token) -> dict:
+def decode_bytes(cfg, n_params: int, live_slots: int, k_cache) -> int:
+    """The least bytes a decode step moves at the last step's context: each
+    weight read once, 4 B a parameter in fp32 and 8 in bf16 (the cast of
+    every fp32 weight at its use writes and reads a bf16 copy, as the
+    reference casts), but the token table, of which the step gathers B
+    fp32 rows (unless it is also the tied head); and the k and v of the
+    ``live_slots`` valid cache slots of every layer."""
+    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    weights = n * (4 if cfg.dtype == "float32" else 8)
+    gather = SERVE_BATCH * cfg.d_model * 4
+    layers, b, _, kv, hd = k_cache.shape
+    cache = 2 * layers * b * live_slots * kv * hd * k_cache.element_size()
+    return weights + gather + cache
+
+
+def decode_windows(dev, run, params: dict, cache: dict, tokens) -> list:
+    """ms a step of SERVE_REPS more decode windows of a served cache, on
+    the host clock around each window, which ends in a synchronisation:
+    ``pos`` set back by the window and the generated tokens fed again at
+    their positions, so each step does its served step's work at the same
+    context (with full attention it writes the same k and v again)."""
+    import torch
+    from repro_torch.serve.step import build_decode_step
+    dec = build_decode_step(run, dev)
+    n = tokens.shape[1]
+    out = []
+    for _ in range(SERVE_REPS):
+        with torch.inference_mode():
+            cache["pos"].sub_(n)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(n):
+            dec(params, cache, tokens[:, i:i + 1])
+        torch.cuda.synchronize(dev)
+        out.append((time.perf_counter() - t0) / n * 1e3)
+    return out
+
+
+def decode_profile(dev, run, params: dict, cache: dict, token,
+                   dtype: str) -> dict:
     """One more decode step of a served cache, under torch.profiler: the
     last step again (``pos`` set back by one, the same token, so its k
     and v overwrite themselves), split into device time by kind of
-    kernel: the weights' casts (copy kernels), the matmuls, the rest;
-    and the launches. Wall time includes the profiler's own cost."""
+    kernel: the fp32 -> bf16 conversions (``bfloat16_copy_kernel``; the
+    weights' casts and a few activations'), the matmuls, the rest; and
+    the launches. The conversions must be 0 in fp32 and more in bf16.
+    Wall time includes the profiler's own cost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1320,47 +1380,55 @@ def decode_profile(dev, run, params: dict, cache: dict,
         dec(params, cache, token)
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key.lower(), e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in kernels)
-    cast = sum(ms for key, ms, _ in kernels if "copy" in key)
-    mm = sum(ms for key, ms, _ in kernels
-             if any(w in key for w in ("gemm", "gemv", "nvjet", "cutlass")))
+    cast = sum(ms for key, ms, _ in kernels if "bfloat16_copy" in key)
+    mm = sum(ms for key, ms, _ in kernels if any(
+        w in key.lower() for w in ("gemm", "gemv", "nvjet", "cutlass")))
+    check((cast == 0) == (dtype == "float32"),
+          f"decode profile, {dtype}: {cast} ms of fp32 -> bf16 conversions; "
+          f"kernels {[k[:90] for k, _, _ in kernels[:8]]}")
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms, "cast_ms": cast,
             "matmul_ms": mm, "other_ms": busy - cast - mm,
-            "kernel_launches": sum(n for _, _, n in kernels)}
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                            for k, ms, n in kernels[:8]]}
 
 
 def phase_serve(dev) -> None:
-    """SERVE_CELLS at the launcher's defaults (batch 8, prompt 48, 16
-    greedy steps), each architecture's parameters drawn once from seed 0
-    (fp32 masters, as the reference keeps them): in fp32, the decode and
-    prefill logits within SERVE_RTOL of the full forward; then in the
-    config's bf16 twice (the second run's times are the warm ones), its
-    error printed, not bounded."""
+    """SERVE_CELLS at the launcher's defaults (batch 8, 16 greedy steps;
+    prompt 48, and 4096 for the long cell), each architecture's
+    parameters drawn once from seed 0 (fp32 masters, as the reference
+    keeps them): in fp32, the decode and prefill logits within SERVE_RTOL
+    of the full forward; then in the config's bf16, its error printed,
+    not bounded. Decode ms a step is the median of SERVE_REPS windows
+    after the launcher's run (its spread beside it)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_params
     params, held = None, None
-    for arch, attn in SERVE_CELLS:
+    for arch, attn, prompt in SERVE_CELLS:
         if held != arch:
             params = None
             torch.cuda.empty_cache()
             params = init_params(get_config(arch), torch.Generator(
                 device=dev).manual_seed(0), dev)
             held = arch
-        res = serve_case(dev, arch, attn, "float32", params)
+        res = serve_case(dev, arch, attn, prompt, "float32", params)
         check(res["prefill_rel_err"] < SERVE_RTOL
               and res["decode_rel_err"] < SERVE_RTOL,
-              f"serve {arch} {attn}: fp32 errors {res['prefill_rel_err']}, "
-              f"{res['decode_rel_err']} over {SERVE_RTOL}")
+              f"serve {arch} {attn} {prompt}: fp32 errors "
+              f"{res['prefill_rel_err']}, {res['decode_rel_err']} over "
+              f"{SERVE_RTOL}")
         emit("serve", **res)
-        for run in ("cold", "warm"):
-            emit("serve", run=run,
-                 **serve_case(dev, arch, attn, "bfloat16", params))
+        torch.cuda.empty_cache()
+        emit("serve", **serve_case(dev, arch, attn, prompt, "bfloat16",
+                                   params))
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
 
@@ -1807,7 +1875,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train", action="append", choices=TRAIN_PATHS,
                     help="run only the device and build phases and this "
-                    "train phase (repeatable; no profile, no kernels line)")
+                    "train phase and its profile (repeatable; no kernels "
+                    "line)")
     ap.add_argument("--serve", action="store_true",
                     help="run only the device and build phases and the "
                     "serve phase (no kernels line)")
@@ -1842,8 +1911,11 @@ def main(argv=None) -> int:
     if args.train or args.serve:
         for name in args.train or ():
             fields, kernels, schedule = TRAIN_PATHS[name]
-            phase_train(dev, fields, train_expect(kernels), name, schedule,
-                        TRAIN_MODELS.get(name, TRAIN_MODEL))
+            _, run, state, _ = phase_train(
+                dev, fields, train_expect(kernels), name, schedule,
+                TRAIN_MODELS.get(name, TRAIN_MODEL))
+            phase_profile(dev, run, state, name.replace("train", "profile"))
+            del state
             torch.cuda.empty_cache()
         if args.serve:
             phase_serve(dev)
