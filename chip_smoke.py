@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --train train_sketch_reference [--src OLD/src]
     python3 chip_smoke.py --serve
+    python3 chip_smoke.py --delta
     python3 chip_smoke.py --world 4
 
 The second form runs only the device and build phases and the named
@@ -11,7 +12,8 @@ train phases, each with its profile (no kernels line), from this
 checkout's port or
 from another source tree: an unpacked older commit's ``src/``, so that
 two versions can be compared in one run on one card. The third runs only
-the device, build and serve phases. The fourth needs
+the device, build and serve phases, the fourth only the device, build
+and delta phases. The fifth needs
 four cards and runs only the multi-card check: one process a card,
 joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
 comm), of dense SGD and of REGTOP-k with the packed pairs in 4 chunks on
@@ -112,7 +114,21 @@ line and raising on any failure:
              beside the bytes bound of the step (the weights, in bf16
              with the cast of every fp32 weight at its use: 8 B a
              parameter; B rows of the token table; the valid cache
-             slots), tokens a second, peak memory, one profiled step.
+             slots), tokens a second, peak memory, one profiled step;
+22. delta:   learning while serving in one process: the train phase's
+             cell publishes a delta of k = 892,032 after each of its 5
+             steps (B1, B2 once a step) to a spool, with the version-0
+             and final snapshots and a checkpoint at the end; the
+             checkpoint restores torch.equal to the final params,
+             optimizer and error state; a replica from the version-0
+             snapshot serves through serve() (batch 8, prompt 48, 16
+             steps), draining the spool between decode steps through a
+             receive-side ``loss:0.4,seed=2`` channel: a gap, a resync,
+             and a final tree torch.equal to the publisher's mirror,
+             the pinned decode tree unchanged; every payload's checksum
+             equal to a numpy one and the card's; publish ms (by part),
+             apply ms, wire bytes, snapshot seconds, decode ms with and
+             without the applies, peak memory.
 
 Between phases 9 and 10 runs the paper phase (paper_round, paper_fig1,
 paper_fig2, paper_genie, paper_fig2_table, paper_fig3, paper): one
@@ -271,6 +287,19 @@ SERVE_CELLS = (("granite-8b", "full", SERVE_PROMPT),
 SERVE_REPS = 5               # decode windows timed after the launcher's run
 SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800}
 SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
+# phase delta: the train phase's cell publishing a delta after each step
+# to a one-rank replica; the receive-side schedule loses versions 2, 4 and
+# 5 of 5, so the replica applies v1, sees the gap at v3 and resyncs from
+# the final snapshot
+DELTA_SCHEDULE = "loss:0.4,seed=2"
+DELTA_K = 892_032            # resolve_k at sparsity 0.001 over MAIN_J
+DELTA_WIRE_BYTES = 7_136_280
+DELTA_REPS = 5               # CUDA-event timings of each publish part
+# bytes the phase writes under its temporary directory at most: the
+# checkpoint (params, Adam's master, m and v, the error state: 5 J-vectors
+# of fp32 and REGTOP-k's O(k) state), three snapshots (v0, v5 and the
+# timed one), with a tenth for the zip members and the page cache
+DELTA_DISK_BYTES = int(1.1 * 4 * MAIN_J * 8)
 # phase paper: the round checks' (workers, J, sparsity), fig2's shape and
 # fig3's (the CNN at width 16), and the iterations of each driver run
 PAPER_SHAPES = ((20, 100, 0.6), (8, 77_370, 0.001))
@@ -1184,15 +1213,19 @@ def phase_compress(dev) -> dict:
 
 
 def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
-                schedule: str = "", model_cut=TRAIN_MODEL):
+                schedule: str = "", model_cut=TRAIN_MODEL,
+                run_fields: dict = None, train_kwargs: dict = None):
     """The launcher's train() on ``model_cut`` = (arch, depth, J): by
     default StableLM-3B at full width, 8 layers, with
-    the given sparsifier fields and fault schedule; the loss must be
+    the given sparsifier fields and fault schedule (and ``run_fields``,
+    ``train_kwargs``: the checkpoint fields, the delta broadcast's
+    options); the loss must be
     finite and falling and every kernel's launch count must equal
     ``expect`` (the others 0); under the schedule the steps' n_active
     must be ELASTIC_ACTIVE, and with the histogram selector every step's
     live count must lie in [k, 2k]. Returns (launches by kernel, the
-    run, the trained state)."""
+    run, the trained state, the step ms, the rest of train()'s
+    result)."""
     import torch
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
                                           SparsifierConfig, get_config)
@@ -1205,7 +1238,8 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
         sparsifier=SparsifierConfig(**dict(dict(
             sparsity=SPARSITY, mu=MU, sketch_rows=SKETCH_ROWS), **sparsifier)),
         optimizer=OptimizerConfig(kind="adam", lr=1e-3),
-        seed=0, steps=TRAIN_STEPS, log_every=1, fault_schedule=schedule)
+        seed=0, steps=TRAIN_STEPS, log_every=1, fault_schedule=schedule,
+        **(run_fields or {}))
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.reset_accumulated_memory_stats(dev)
 
@@ -1217,7 +1251,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     reset_launches()
     out = train(run, device=dev, batch=8, seq=128, fixed_batch=True,
                 log=lambda msg: print(msg, file=sys.stderr),
-                on_step=on_step)
+                on_step=on_step, **(train_kwargs or {}))
     launches = launch_counts()
     losses = [rec["loss"] for rec in out["history"]]
     check(out["params"] == main_j, f"trained J={out['params']}")
@@ -1244,7 +1278,8 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
          launches=launches, fallbacks=out["fallbacks"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          alloc_retries=torch.cuda.memory_stats(dev)["num_alloc_retries"])
-    return launches, run, out["state"], [rec["ms"] for rec in out["history"]]
+    state = out.pop("state")
+    return launches, run, state, [rec["ms"] for rec in out["history"]], out
 
 
 def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
@@ -1431,6 +1466,218 @@ def phase_serve(dev) -> None:
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+
+
+def plain_checksum(values, indices, version: int, count: int, j: int) -> int:
+    """The payload checksum of ``repro.serve.delta`` in numpy uint64 on
+    the host: each 32x32-bit product fits 64 bits exactly, each sum of
+    fewer than 2^32 terms does too."""
+    import numpy as np
+    m = np.uint64(0xFFFFFFFF)
+    vb = values.view(np.uint32).astype(np.uint64)
+    ib = indices.view(np.uint32).astype(np.uint64)
+    pos = np.arange(vb.shape[0], dtype=np.uint64)
+    h = int(((vb * ((pos * np.uint64(2654435761) + np.uint64(1)) & m)) & m)
+            .sum(dtype=np.uint64))
+    h += int(((ib * ((pos * np.uint64(40503) + np.uint64(2654435769)) & m))
+              & m).sum(dtype=np.uint64))
+    mask = 0xFFFFFFFF
+    return (h + (version & mask) * 97 + (count & mask) * 89
+            + (j & mask) * 83) & mask
+
+
+def trees_equal(a: dict, b: dict) -> bool:
+    """The same paths, dtypes and values (``torch.equal``) leaf for leaf."""
+    import torch
+    from repro_torch.core.flatten import tree_items
+    ia, ib = tree_items(a), tree_items(b)
+    return [p for p, _ in ia] == [p for p, _ in ib] and all(
+        x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+        for (_, x), (_, y) in zip(ia, ib))
+
+
+def phase_delta(dev) -> dict:
+    """Learning while serving, in one process on the card: the train
+    phase's cell (StableLM-3B, full width, 8 layers, REGTOP-k fused) takes
+    TRAIN_STEPS steps through the launcher's train(), publishing a delta
+    of k = 892,032 after each to a SpoolChannel with the version-0 and
+    final snapshots, and checkpointing at the end; B1 and B2 must launch
+    once a step. The checkpoint restored into fresh templates must equal
+    the final params, optimizer and error state (torch.equal). A replica
+    started from the version-0 snapshot serves through the launcher's
+    serve() (batch 8, prompt 48, 16 greedy steps), draining the spool
+    between decode steps through a receive-side FaultyChannel
+    (DELTA_SCHEDULE): it must see a gap, resync, and end torch.equal to
+    the publisher's mirror, while the tree its stream pinned stays equal
+    to a clone taken at acquire(). Every payload's checksum must equal
+    ``plain_checksum`` and the port's checksum on the card. Times: the
+    publishes (host clock, and each part by CUDA events), the scatter of
+    each payload on the card, a snapshot's write and read, decode with
+    and without the applies."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.base import RunConfig, SparsifierConfig
+    from repro_torch.core import faults
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.launch.serve import serve, serve_shape
+    from repro_torch.serve import delta as dl
+    from repro_torch.serve.step import delta_applier_from_snapshot
+    from repro_torch.train.step import restore_train_state
+    root = tempfile.mkdtemp(prefix="chip_smoke_delta_")
+    spool, ckpt = os.path.join(root, "spool"), os.path.join(root, "ckpt")
+    snaps = os.path.join(spool, "snapshots")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free > DELTA_DISK_BYTES, f"delta: {free:,} bytes free under "
+              f"{root}, the phase writes up to {DELTA_DISK_BYTES:,}")
+        torch.cuda.empty_cache()
+        launches, run, state, step_ms, out = phase_train(
+            dev, dict(kind="regtopk", **FUSED), train_expect(
+                ("sweep1", "sweep2")), "delta_train",
+            run_fields=dict(checkpoint_dir=ckpt),
+            train_kwargs=dict(publish_deltas=spool))
+        pub = out["publisher"]
+        check(pub.k == DELTA_K and pub.j == MAIN_J and
+              pub.version == TRAIN_STEPS, f"delta: publisher k {pub.k}, "
+              f"J {pub.j}, v{pub.version}")
+        publish_ms = [rec["publish_ms"] for rec in out["history"]]
+        del out
+
+        # the publish's parts on the final params, against the mirror
+        # (functional: nothing is advanced)
+        params = state.params
+        idx = pub.topk(params)
+        vals = pub.gather(params, idx)
+        idx32 = idx.to(torch.int32)
+        parts_ms = {
+            "topk": cuda_ms(lambda: pub.topk(params), DELTA_REPS),
+            "gather_scatter": cuda_ms(lambda: dl.scatter_set_tree(
+                pub.flattener, pub.published, pub.gather(params, idx),
+                idx32), DELTA_REPS),
+            "checksum": cuda_ms(lambda: dl.payload_checksum(
+                vals, idx32, pub.version, pub.k, pub.j), DELTA_REPS)}
+        del idx, vals, idx32
+
+        # the checkpoint, restored into fresh (meta) templates
+        t0 = time.perf_counter()
+        back = restore_train_state(ckpt, TRAIN_STEPS, run, dev)
+        restore_s = time.perf_counter() - t0
+        for name in ("params", "opt", "ef"):
+            check(trees_equal(getattr(back, name), getattr(state, name)),
+                  f"delta: the restored {name} differ from the trainer's")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+        del back, state, params
+        shutil.rmtree(ckpt)
+        torch.cuda.empty_cache()
+
+        # one more snapshot of the mirror, timed, then read back
+        timed = os.path.join(root, "timed")
+        t0 = time.perf_counter()
+        dl.write_snapshot(timed, pub.published, pub.version)
+        snap_write_s = time.perf_counter() - t0
+        snap_bytes = os.path.getsize(os.path.join(
+            timed, f"step_{pub.version:08d}.params.npz"))
+        t0 = time.perf_counter()
+        snap, version = dl.read_snapshot(timed, pub.published, device=dev)
+        torch.cuda.synchronize(dev)
+        snap_read_s = time.perf_counter() - t0
+        check(version == pub.version and trees_equal(snap, pub.published),
+              "delta: the timed snapshot reads back different")
+        del snap
+        shutil.rmtree(timed)
+
+        # every payload's checksum: the stamp, numpy on the host, the card
+        payloads = dl.SpoolChannel(spool).recv()
+        check([p.version for p in payloads] == list(range(1, TRAIN_STEPS
+                                                          + 1)),
+              f"delta: spool versions {[p.version for p in payloads]}")
+        for p in payloads:
+            check(p.verify() == "ok", f"delta: v{p.version} {p.verify()}")
+            plain = plain_checksum(p.values.numpy(), p.indices.numpy(),
+                                   p.version, p.count, p.j)
+            card = int(dl.payload_checksum(p.values.to(dev),
+                                           p.indices.to(dev), p.version,
+                                           p.count, p.j))
+            check(plain == card == p.checksum, f"delta: v{p.version} "
+                  f"checksum {p.checksum}, plain {plain}, card {card}")
+        spool_bytes = os.path.getsize(os.path.join(spool, sorted(
+            f for f in os.listdir(spool) if f.startswith("delta_"))[0]))
+
+        # the replica, from the version-0 snapshot, through serve()
+        model = run.model
+        srun = RunConfig(model=model, shape=serve_shape(
+            SERVE_BATCH, SERVE_PROMPT, SERVE_NEW),
+            sparsifier=SparsifierConfig(kind="none"))
+        applier, _ = delta_applier_from_snapshot(srun, snaps, dev, step=0)
+        check(applier.version == 0, f"delta: replica at v{applier.version}")
+
+        def log(msg):
+            print(msg, file=sys.stderr)
+
+        def serve_plain(params):
+            return serve(srun, device=dev, prompt_len=SERVE_PROMPT,
+                         new_tokens=SERVE_NEW, params=params, log=log)
+        serve_plain(applier.params)                           # warm-up
+        pinned = applier.acquire()[0]         # the tree serve() pins
+        held = tree_map(lambda l: l.clone(), pinned)
+        chan = dl.FaultyChannel(dl.SpoolChannel(spool),
+                                faults.parse_channel_schedule(DELTA_SCHEDULE))
+        res = serve(srun, device=dev, prompt_len=SERVE_PROMPT,
+                    new_tokens=SERVE_NEW, log=log, applier=applier,
+                    channel=chan, snap_dir=snaps)
+        health = res["delta"]
+        check(health["gaps_detected"] >= 1 and health["resyncs"] >= 1,
+              f"delta: no gap and resync under {DELTA_SCHEDULE}: {health}")
+        check(applier.version == pub.version
+              and trees_equal(applier.params, pub.published),
+              f"delta: replica at v{applier.version} differs from the "
+              f"publisher's mirror at v{pub.version}")
+        check(res["pinned_version"] == 0 and trees_equal(pinned, held),
+              "delta: the pinned decode tree changed")
+        check(tuple(res["tokens"].shape) == (SERVE_BATCH, SERVE_NEW)
+              and bool(torch.isfinite(res["logits"]).all()),
+              "delta: replica decode")
+        plain = serve_plain(applier.params)
+        del held, pinned
+
+        # the scatter of each payload on the replica's tree (functional)
+        apply_ms = [cuda_ms(lambda p=p: dl.scatter_set_tree(
+            applier.flattener, applier.params, p.values, p.indices,
+            p.count), DELTA_REPS) for p in payloads]
+        intake_ms = []              # the applier's intake before the scatter
+        for p in payloads:
+            t0 = time.perf_counter()
+            p.to(dev).verify()
+            intake_ms.append((time.perf_counter() - t0) * 1e3)
+        result = dict(
+            model=model.name, n_layers=model.n_layers, j=pub.j, k=pub.k,
+            steps=TRAIN_STEPS, step_ms=step_ms, launches=launches,
+            schedule=DELTA_SCHEDULE, channel=chan.counters, health=health,
+            publish_ms=statistics.median(publish_ms),
+            publish_ms_all=publish_ms, publish_parts_ms=parts_ms,
+            apply_ms=statistics.median(apply_ms), apply_ms_range=[
+                min(apply_ms), max(apply_ms)], apply_ms_all=apply_ms,
+            intake_ms=intake_ms,
+            wire_bytes=dl.delta_wire_bytes(pub.k), spool_file_bytes=
+            spool_bytes, resync_bytes=dl.resync_bytes(pub.j),
+            resync_equiv_deltas=dl.resync_equiv_deltas(pub.j, pub.k),
+            snapshot_bytes=snap_bytes, snapshot_write_s=snap_write_s,
+            snapshot_read_s=snap_read_s, checkpoint_bytes=ckpt_bytes,
+            checkpoint_restore_s=restore_s,
+            replica_apply_s=res["apply_s"],
+            decode_ms_with_applies=res["decode_s"] / SERVE_NEW * 1e3,
+            decode_ms_without=plain["decode_s"] / SERVE_NEW * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        check(result["wire_bytes"] == DELTA_WIRE_BYTES,
+              f"delta: wire bytes {result['wire_bytes']}")
+        emit("delta", **result)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 STAGES = ("train/loss_grad", "train/flatten", "train/sync",
@@ -1880,6 +2127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="run only the device and build phases and the "
                     "serve phase (no kernels line)")
+    ap.add_argument("--delta", action="store_true",
+                    help="run only the device and build phases and the "
+                    "delta phase (no kernels line)")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the port's source tree (default: this checkout's "
                     "src/), e.g. an unpacked older commit's, to compare "
@@ -1908,10 +2158,10 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()}")
         phase_world(args.world, os.path.abspath(args.src))
         return finish(smi, None)
-    if args.train or args.serve:
+    if args.train or args.serve or args.delta:
         for name in args.train or ():
             fields, kernels, schedule = TRAIN_PATHS[name]
-            _, run, state, _ = phase_train(
+            _, run, state, *_ = phase_train(
                 dev, fields, train_expect(kernels), name, schedule,
                 TRAIN_MODELS.get(name, TRAIN_MODEL))
             phase_profile(dev, run, state, name.replace("train", "profile"))
@@ -1919,6 +2169,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if args.serve:
             phase_serve(dev)
+        if args.delta:
+            phase_delta(dev)
         return finish(smi, None)
     kres = phase_kernels(dev)
     sres = phase_kernels_sketch(dev)
@@ -1930,7 +2182,7 @@ def main(argv=None) -> int:
     phase_paper(dev)
     train, steps, profiles = {}, {}, {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
-        train[name], run, state, steps[name] = phase_train(
+        train[name], run, state, steps[name], _ = phase_train(
             dev, fields, train_expect(kernels), name, schedule,
             TRAIN_MODELS.get(name, TRAIN_MODEL))
         tables, *profiles[name] = phase_profile(
@@ -1941,6 +2193,7 @@ def main(argv=None) -> int:
         del state
         torch.cuda.empty_cache()
     phase_serve(dev)
+    delta = phase_delta(dev)
     # the other models' cells have no dense baseline of their own
     emit("compression_share", **compression_shares(
         {name: ms for name, ms in steps.items() if name not in TRAIN_MODELS},
@@ -1956,11 +2209,13 @@ def main(argv=None) -> int:
     rows = [kernel_row("sweep1", big, small, train["train"]["sweep1"],
                        "regtopk train (fused)", bitwise,
                        other_models={name: train[name]["sweep1"]
-                                     for name in TRAIN_MODELS}),
+                                     for name in TRAIN_MODELS},
+                       delta_launches=delta["sweep1"]),
             kernel_row("sweep2", big, small, train["train"]["sweep2"],
                        "regtopk train (fused)", bitwise,
                        other_models={name: train[name]["sweep2"]
-                                     for name in TRAIN_MODELS}),
+                                     for name in TRAIN_MODELS},
+                       delta_launches=delta["sweep2"]),
             kernel_row("sweep1_dgc", dgc_big, dgc_small,
                        train["train_dgc"]["sweep1_dgc"],
                        "dgc train (fused)", bitwise, mode="dgc"),

@@ -1,0 +1,182 @@
+"""Checkpoints: one .npz per state tree plus a JSON manifest (the port of
+``repro.checkpoint.io``, in its file format).
+
+``step_%08d.{params,opt,ef}.npz`` hold the leaves under the keys
+``jax.tree_util.keystr`` gives their paths (``"['blocks']['l0']['wq']"``),
+and ``step_%08d.json`` the manifest ``{"step"[, "param_version"]}``. So
+a checkpoint written by either package restores in the other:
+
+- uint32 leaves (REGTOP-k's ``idx_prev``) are the port's int32 views of
+  the same bits; they are written as uint32;
+- bf16 leaves are written as their uint16 bits viewed as numpy ``V2``,
+  which is what ``np.savez`` of the reference's bf16 arrays writes, and a
+  ``V2`` leaf is read back as the template's bf16 (:func:`_fit_dtype`).
+
+The trees are in the reference's global layout: the optimizer and
+sparsifier states as ``(DP, TP, ...)`` (``train.step.save_train_state``
+builds it from the ranks' slices). A restore fits a saved EF leaf to a
+changed worker count (:func:`_fit_ef_worker_dims`) and migrates the
+legacy ``(a_prev, s_prev)`` pair to ``err_prev``
+(:func:`_migrate_ef_leaf`).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+
+import numpy as np
+import torch
+
+from repro_torch.convert import bf16_bits, bf16_from_bits
+from repro_torch.core.flatten import tree_from_items, tree_items
+
+UINT32_KEYS = ("idx_prev",)      # the port's int32 views of uint32 bits
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys."""
+    return "".join(f"[{key!r}]" for key in path)
+
+
+def _to_numpy(path, leaf) -> np.ndarray:
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
+    if leaf.dtype == torch.bfloat16:
+        return bf16_bits(leaf).view("V2")
+    a = leaf.detach().cpu().numpy()
+    return a.view(np.uint32) if path and path[-1] in UINT32_KEYS else a
+
+
+def _flatten_with_paths(tree) -> dict:
+    return {keystr(path): _to_numpy(path, leaf)
+            for path, leaf in tree_items(tree)}
+
+
+def save_checkpoint(ckpt_dir: str, step: int, params, opt_state, ef_state,
+                    param_version=None) -> str:
+    """Write the three trees (tensors or numpy leaves) and the manifest.
+    ``param_version`` stamps the delta broadcast's version these params
+    are at: a replica restored from it takes it as its version floor."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    np.savez(path + ".params.npz", **_flatten_with_paths(params))
+    np.savez(path + ".opt.npz", **_flatten_with_paths(opt_state))
+    np.savez(path + ".ef.npz", **_flatten_with_paths(ef_state))
+    manifest = {"step": step}
+    if param_version is not None:
+        manifest["param_version"] = int(param_version)
+    with open(path + ".json", "w") as f:
+        json.dump(manifest, f)
+    return path
+
+
+def latest_step(ckpt_dir: str):
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for f in os.listdir(ckpt_dir)
+             if (m := re.match(r"step_(\d+)\.json", f))]
+    return max(steps) if steps else None
+
+
+def read_manifest(ckpt_dir: str, step: int) -> dict:
+    """The checkpoint's manifest. One without ``param_version`` is
+    unstamped: ``manifest.get("param_version")`` is None."""
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}.json")) as f:
+        return json.load(f)
+
+
+def _migrate_ef_leaf(data, pstr: str) -> np.ndarray:
+    """One EF leaf of a saved npz; the legacy ``(a_prev, s_prev)`` pair
+    becomes ``err_prev = a_prev * (1 - s_prev)`` (one dense multiply)."""
+    if pstr in data.files:
+        return data[pstr]
+    if "err_prev" in pstr:
+        pa = pstr.replace("err_prev", "a_prev")
+        ps = pstr.replace("err_prev", "s_prev")
+        if pa in data.files and ps in data.files:
+            a = data[pa]
+            s = data[ps]
+            return (a.astype(np.float32)
+                    * (1.0 - s.astype(np.float32))).astype(a.dtype)
+    raise KeyError(
+        f"checkpoint is missing EF leaf {pstr!r} and no legacy "
+        "(a_prev, s_prev) pair to migrate it from")
+
+
+def _fit_ef_worker_dims(leaf: np.ndarray, want_shape, pstr: str):
+    """Fit a saved ``(DP, TP, J_local)`` EF leaf to the run's worker
+    layout. When only the leading worker dims differ, the surviving
+    workers keep their rows and new workers start from zero error
+    feedback (a fresh worker observed nothing); a trailing-dim mismatch
+    means another model and raises."""
+    if tuple(leaf.shape) == tuple(want_shape):
+        return leaf
+    if (leaf.ndim == len(want_shape) and leaf.ndim >= 3
+            and tuple(leaf.shape[2:]) == tuple(want_shape[2:])):
+        out = np.zeros(want_shape, leaf.dtype)
+        d = min(leaf.shape[0], want_shape[0])
+        t = min(leaf.shape[1], want_shape[1])
+        out[:d, :t] = leaf[:d, :t]
+        return out
+    raise ValueError(
+        f"checkpoint EF leaf {pstr!r} has shape {tuple(leaf.shape)} but the "
+        f"run wants {tuple(want_shape)}; only the leading (DP, TP) worker "
+        "dims may differ (elastic resume), the trailing per-rank dims must "
+        "match")
+
+
+def _fit_dtype(leaf: np.ndarray, tmpl: torch.Tensor):
+    """A ``V2`` leaf (npz's form of bf16) as the template's bf16 (a view
+    of the bits, not a cast); any other leaf as it is."""
+    if (leaf.dtype.kind == "V" and tmpl.dtype == torch.bfloat16
+            and leaf.dtype.itemsize == 2):
+        return bf16_from_bits(leaf)
+    return leaf
+
+
+def load_leaves(fname: str, tree, migrate_ef: bool = False) -> list:
+    """[(path, leaf, template leaf)] of ``fname`` in the order of
+    ``tree``'s leaves (tensors of any device, ``meta`` included): numpy
+    arrays, EF leaves migrated and fitted to the template's shapes, and
+    a ``V2`` leaf as a bf16 CPU tensor where the template is bf16."""
+    out = []
+    with np.load(fname) as data:
+        for path, tmpl in tree_items(tree):
+            pstr = keystr(path)
+            if migrate_ef:
+                leaf = _migrate_ef_leaf(data, pstr)
+                if tmpl.ndim >= 3:
+                    leaf = _fit_ef_worker_dims(leaf, tuple(tmpl.shape), pstr)
+            else:
+                leaf = data[pstr]
+            out.append((path, _fit_dtype(leaf, tmpl), tmpl))
+    return out
+
+
+def to_tensor(leaf, tmpl: torch.Tensor, device=None) -> torch.Tensor:
+    """A loaded leaf as a tensor on ``device`` (default: the template
+    leaf's); uint32 as its int32 bits."""
+    if not isinstance(leaf, torch.Tensor):
+        leaf = np.asarray(leaf, order="C")
+        leaf = torch.from_numpy(leaf.view(np.int32) if leaf.dtype ==
+                                np.uint32 else leaf)
+    return leaf.to(tmpl.device if device is None else device)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, params, opt_state,
+                       ef_state, device=None):
+    """Restore into the structure of the given trees (values replaced):
+    tensors of the saved dtypes (a ``V2`` leaf as the template's bf16,
+    uint32 as its int32 view) on ``device``, by default each template
+    leaf's own. The EF tree tolerates a changed data-parallel worker
+    count (:func:`_fit_ef_worker_dims`)."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+
+    def load(tree, suffix, migrate_ef=False):
+        return tree_from_items(
+            (p, to_tensor(leaf, tmpl, device)) for p, leaf, tmpl in
+            load_leaves(path + suffix, tree, migrate_ef))
+
+    return (load(params, ".params.npz"), load(opt_state, ".opt.npz"),
+            load(ef_state, ".ef.npz", migrate_ef=True))

@@ -146,6 +146,8 @@ class RunConfig:
     log_every: int = 10
     fault_schedule: str = ""      # core.faults spec; "" = every worker in
     attn_override: str = ""       # "sliding": the dense arch's sliding variant
+    checkpoint_dir: str = ""      # "" = no checkpoints
+    checkpoint_every: int = 0     # steps between checkpoints (0: the end only)
 
 
 def resolve_model_cfg(run: RunConfig) -> ModelConfig:

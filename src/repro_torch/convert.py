@@ -23,14 +23,24 @@ import torch
 from repro_torch.core.flatten import tree_map
 
 
+def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    """A bf16 CPU tensor from its uint16 bit patterns (numpy has no bf16
+    of its own: the bits cross as uint16)."""
+    return torch.from_numpy(np.array(bits.view(np.uint16)).view(
+        np.int16)).view(torch.bfloat16)
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """The uint16 bit patterns of a bf16 tensor, on the host."""
+    return t.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+
+
 def _to_tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     if a.dtype.name == "bfloat16":
-        # numpy has no bf16 of its own: the bits cross as uint16
-        return torch.from_numpy(np.array(a.view(np.uint16)).view(
-            np.int16)).view(torch.bfloat16).to(device)
+        return bf16_from_bits(a).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -39,7 +49,7 @@ def _to_numpy(t: torch.Tensor, uint_keys=False) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         # the bits as uint16, viewed as the reference's bf16 numpy dtype
         # (``ml_dtypes``, which jax brings) where it is installed
-        a = t.view(torch.int16).numpy().view(np.uint16)
+        a = bf16_bits(t)
         try:
             import ml_dtypes
         except ImportError:

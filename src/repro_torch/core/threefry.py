@@ -11,7 +11,8 @@ The draws follow jax's partitionable layout
 (``jax_threefry_partitionable=True``, the default since jax 0.5): the
 32 random bits at flat position i of a draw are the XOR of the two
 output words of threefry(key, (i >> 32, i & 0xFFFFFFFF)), so a 0-d draw
-is threefry(key, (0, 0)). The older layout gives other words.
+is threefry(key, (0, 0)), and ``split(key, n)[i]`` is threefry(key, (0,
+i)). The older layout gives other words.
 """
 from __future__ import annotations
 
@@ -88,3 +89,38 @@ def uniform01(key: torch.Tensor) -> torch.Tensor:
     as the mantissa of a float in [1, 2), minus 1 (exact)."""
     bits = (random_bits32(key) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2^32 of uint32 words in int64 tensors (or an int b),
+    exact: a 32x32-bit product overflows int64, so it is taken in 16-bit
+    halves, (al*bl + ((ah*bl + al*bh) mod 2^16) * 2^16) mod 2^32."""
+    b = _word(b, a.device)
+    al, ah = a & 0xFFFF, a >> 16
+    bl, bh = b & 0xFFFF, b >> 16
+    return (al * bl + (((ah * bl + al * bh) & 0xFFFF) << 16)) & MASK
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` in the partitionable layout: the
+    (num, 2) keys threefry(key, (0, i)) for i in [0, num)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], 1)
+
+
+def randint(key: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """A 0-d int32 ``jax.random.randint(key, (), minval, maxval)`` for
+    int32 bounds: jax's own reduction, two 32-bit draws from the keys of
+    ``split(key)`` combined as (hi mod span) * (2^32 mod span) + (lo mod
+    span), mod span, with span = maxval - minval (1 when maxval <=
+    minval) and every product taken mod 2^32, as jax's uint32 arithmetic
+    does."""
+    keys = split(key)
+    hi, lo = random_bits32(keys[0]), random_bits32(keys[1])
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK) % span
+    off = (mul_u32(hi % span, mult) + lo % span) & MASK
+    out = (minval + off % span) & MASK
+    return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)

@@ -3,18 +3,26 @@ stream greedy decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --smoke --prompt-len 48 --new-tokens 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+      --smoke --apply-deltas /tmp/spool \
+      --delta-fault-schedule loss:0.4,seed=2 --device cpu
 
 The reference launcher's flags (``repro.launch.serve``) and defaults for
 what the port serves, plus ``--device`` (default: the CUDA card; ``cpu``
 runs the plain PyTorch path). It serves one rank: ``--data`` or
 ``--model`` above 1 and ``--devices`` raise naming their ROADMAP item,
-as do ``--mla-absorb`` (MLA is not ported) and the delta broadcast's
-``--apply-deltas`` and ``--delta-fault-schedule``. The sliding-window
+as does ``--mla-absorb`` (MLA is not ported). The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's
-ms a step and the first two sequences. The body is :func:`serve`, which
-takes a ``RunConfig``, so a caller can pass a config the flags do not
-spell (``chip_smoke.py`` passes the sliding variant).
+ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
+trainer's ``--publish-deltas`` spool) the replica starts from the latest
+snapshot under ``DIR/snapshots``, decodes on the tree pinned at that
+version, applies the spool's deltas between decode steps (through the
+receive-side faults of ``--delta-fault-schedule``), resyncs from a newer
+snapshot after a version gap, and prints its health counters. The body
+is :func:`serve`, which takes a ``RunConfig``, so a caller can pass a
+config the flags do not spell (``chip_smoke.py`` passes the sliding
+variant).
 """
 from __future__ import annotations
 
@@ -38,22 +46,30 @@ def parse_args(argv=None):
     ap.add_argument("--mla-absorb", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--apply-deltas", default="",
-                    help="subscribe to a trainer's delta broadcast (not "
-                         "ported yet: ROADMAP A15)")
+                    help="subscribe to a trainer's delta broadcast: the "
+                         "serving params start from the latest snapshot "
+                         "under <dir>/snapshots and the spool's versioned "
+                         "deltas apply between decode steps; the decode "
+                         "stream stays pinned to the version it started "
+                         "on, a version gap triggers a snapshot resync, and "
+                         "corrupt or non-finite payloads are dropped on "
+                         "health counters. The directory of launch/train.py "
+                         "--publish-deltas")
     ap.add_argument("--delta-fault-schedule", default="",
-                    help="receive-side delta-channel faults (not ported "
-                         "yet: ROADMAP A15)")
+                    help="receive-side delta-channel faults (loss:P | "
+                         "corrupt:P | reorder:W | stall:N), the seeded "
+                         "schedules the trainer can inject on the send "
+                         "side; needs --apply-deltas")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: the CUDA card (raises without one)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.delta_fault_schedule and not args.apply_deltas:
+        ap.error("--delta-fault-schedule needs --apply-deltas")
+    return args
 
 
 def check_args(args) -> None:
     """Raise NotImplementedError for a flag the port does not serve yet."""
-    if args.apply_deltas or args.delta_fault_schedule:
-        raise NotImplementedError(
-            "--apply-deltas / --delta-fault-schedule: the delta broadcast "
-            "is not ported yet (ROADMAP A15)")
     if args.mla_absorb:
         raise NotImplementedError(
             "--mla-absorb: MLA is not ported yet (ROADMAP A13)")
@@ -84,14 +100,22 @@ def run_config(args):
 
 def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
           data: int = 1, model: int = 1, params: dict = None,
-          log=print) -> dict:
+          log=print, applier=None, channel=None, snap_dir: str = "") -> dict:
     """Prefill ``run.shape.global_batch`` random prompts of ``prompt_len``
     tokens (drawn from ``run.seed``), then ``new_tokens`` greedy decode
     steps. Returns {"prompt": (B, prompt_len), "tokens": (B, new_tokens),
     "prefill_s", "decode_s", "params": the parameter count,
     "prefill_logits", "logits": the last step's, "cache"}.
     Times are the host clock around work that ends in a device
-    synchronisation. ``params`` default: drawn from ``run.seed``."""
+    synchronisation. ``params`` default: drawn from ``run.seed``.
+
+    With a ``DeltaApplier`` the stream decodes on the tree that
+    ``applier.acquire()`` pins; after each decode step it offers what
+    ``channel`` has ready and, on a gap, resyncs from a newer snapshot in
+    ``snap_dir``; at the end it flushes the channel (a FaultyChannel's
+    held payloads) and resyncs once more if it can. The result then also
+    has "delta": the applier's metrics, "pinned_version" and
+    "apply_s", the host seconds of those intakes (inside "decode_s")."""
     from repro_torch.backend import resolve_device
     from repro_torch.configs.base import resolve_model_cfg
     from repro_torch.core.flatten import tree_size
@@ -102,7 +126,10 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     dec = build_decode_step(run, dev, data=data, model=model)
     cfg = resolve_model_cfg(run)
     gen = torch.Generator(device=dev).manual_seed(run.seed)
-    if params is None:
+    pinned_v = None
+    if applier is not None:
+        params, pinned_v = applier.acquire()
+    elif params is None:
         params = init_params(cfg, gen, dev)
     n = tree_size(params)
     b = run.shape.global_batch
@@ -121,11 +148,25 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     t_pre = time.perf_counter() - t0
     prefill_logits = logits
     toks = []
+    t_apply = 0.0
+
+    def intake(payloads):
+        """Offer the payloads, then resync after a gap if a newer snapshot
+        is there; returns the host seconds it took."""
+        t = time.perf_counter()
+        for p in payloads:
+            applier.offer(p)
+        if applier.needs_resync and applier.can_resync(snap_dir):
+            applier.resync_from(snap_dir)
+        sync()
+        return time.perf_counter() - t
     t0 = time.perf_counter()
     for _ in range(new_tokens):
         nxt = logits.argmax(-1)[:, None]
         toks.append(nxt)
         logits, cache = dec(params, cache, nxt)
+        if applier is not None:
+            t_apply += intake(channel.recv())
     sync()
     t_dec = time.perf_counter() - t0
     out = torch.cat(toks, 1)
@@ -133,16 +174,47 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     log(f"decode {new_tokens} steps: {t_dec:.2f}s "
         f"({t_dec / max(new_tokens, 1) * 1e3:.0f} ms/step incl. dispatch)")
     log(f"first sequences: {out[:2].tolist()}")
-    return {"prompt": batch["tokens"], "tokens": out, "prefill_s": t_pre,
-            "decode_s": t_dec, "params": n, "prefill_logits": prefill_logits,
-            "logits": logits, "cache": cache}
+    res = {"prompt": batch["tokens"], "tokens": out, "prefill_s": t_pre,
+           "decode_s": t_dec, "params": n, "prefill_logits": prefill_logits,
+           "logits": logits, "cache": cache}
+    if applier is not None:
+        t_apply += intake(channel.flush() if hasattr(channel, "flush")
+                          else [])
+        m = applier.metrics()
+        log(f"[serve] stream pinned at v{pinned_v}; live params now "
+            f"v{m['param_version']}"
+            f"{' (resync pending)' if m['needs_resync'] else ''}")
+        log(f"[serve] delta health: "
+            f"{ {key: m[key] for key in applier.COUNTERS} }")
+        res.update(delta=m, pinned_version=pinned_v, apply_s=t_apply)
+    return res
 
 
 def main(argv=None):
     args = parse_args(argv)
     check_args(args)
-    serve(run_config(args), device=args.device, prompt_len=args.prompt_len,
-          new_tokens=args.new_tokens, data=args.data, model=args.model)
+    run = run_config(args)
+    applier = chan = None
+    snap_dir = ""
+    if args.apply_deltas:
+        import os
+
+        from repro_torch.core import faults
+        from repro_torch.serve.delta import FaultyChannel, SpoolChannel
+        from repro_torch.serve.step import delta_applier_from_snapshot
+        csched = faults.parse_channel_schedule(args.delta_fault_schedule)
+        snap_dir = os.path.join(args.apply_deltas, "snapshots")
+        applier, _ = delta_applier_from_snapshot(run, snap_dir, args.device)
+        chan = SpoolChannel(args.apply_deltas)
+        if csched is not None:
+            chan = FaultyChannel(chan, csched)
+            print(f"[serve] delta channel faults (recv side): "
+                  f"{faults.format_channel_schedule(csched)}")
+        print(f"[serve] applying deltas from {args.apply_deltas} "
+              f"(snapshot v{applier.version})")
+    serve(run, device=args.device, prompt_len=args.prompt_len,
+          new_tokens=args.new_tokens, data=args.data, model=args.model,
+          applier=applier, channel=chan, snap_dir=snap_dir)
     return 0
 
 

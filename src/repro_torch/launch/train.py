@@ -17,6 +17,9 @@
       --wire-dtype bfloat16 --selector histogram --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \
       --smoke --comm sparse --pipeline fused --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --steps 12 --publish-deltas /tmp/spool --delta-k 4096 \
+      --delta-snapshot-every 4 --checkpoint-dir /tmp/ckpt --device cpu
 
 ``--arch`` takes every dense config of the registry: stablelm-3b,
 granite-8b, qwen1.5-32b and starcoder2-7b.
@@ -106,6 +109,33 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fixed-batch", action="store_true",
                     help="reuse step 0's batch every step (overfit mode)")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--publish-deltas", default="",
+                    help="spool directory of the learning-while-serving "
+                         "delta broadcast: after each optimizer step the "
+                         "trainer publishes a version-stamped, checksummed "
+                         "top-k delta of its params there (and full resync "
+                         "snapshots under <dir>/snapshots), which a replica "
+                         "started with launch/serve.py --apply-deltas "
+                         "consumes")
+    ap.add_argument("--delta-k", type=int, default=0,
+                    help="entries per published delta; 0 resolves from "
+                         "--sparsity over the whole flat model (the "
+                         "gradient sync's k)")
+    ap.add_argument("--delta-every", type=int, default=1,
+                    help="publish every N optimizer steps (>=1)")
+    ap.add_argument("--delta-snapshot-every", type=int, default=0,
+                    help="write a full resync snapshot every N published "
+                         "versions (0: only the version-0 base and the "
+                         "final snapshot)")
+    ap.add_argument("--delta-fault-schedule", default="",
+                    help="send-side delta-channel faults: 'loss:P' drops "
+                         "each version with probability P; 'corrupt:P' "
+                         "flips a bit in flight (the replica's checksum "
+                         "catches it); 'reorder:W' delays each version by a "
+                         "seeded amount <= W; 'stall:N[,at=V]' pauses the "
+                         "link for N versions and flushes them in order")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: the CUDA card (raises without one)")
     return ap.parse_args(argv)
@@ -145,22 +175,54 @@ def run_config(args):
             combine=args.combine),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
         seed=args.seed, steps=args.steps, log_every=args.log_every,
-        fault_schedule=resolve_fault_spec(args))
+        fault_schedule=resolve_fault_spec(args),
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
+
+
+def delta_options(args) -> dict:
+    """The delta broadcast's keyword arguments of :func:`train`; the
+    channel fault spec is validated here, at launch."""
+    spec = args.delta_fault_schedule.strip()
+    if spec:
+        from repro_torch.core import faults
+        faults.parse_channel_schedule(spec)
+    return dict(publish_deltas=args.publish_deltas, delta_k=args.delta_k,
+                delta_every=args.delta_every,
+                delta_snapshot_every=args.delta_snapshot_every,
+                delta_fault_schedule=spec)
 
 
 def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
-          fixed_batch: bool = False, log=print, on_step=None) -> dict:
+          fixed_batch: bool = False, log=print, on_step=None,
+          publish_deltas: str = "", delta_k: int = 0, delta_every: int = 1,
+          delta_snapshot_every: int = 0,
+          delta_fault_schedule: str = "") -> dict:
     """Take ``run.steps`` training steps. Returns {"history": [{"step",
     "loss", "ms"} (and "n_active" under a fault schedule, "count" where
     the packed payload has a live count: the fused histogram selector,
-    participation), ...],
+    participation; "publish_ms" where a delta was published), ...],
     "fallbacks": {reason: steps}, "params": J, "state": the final
-    TrainState}. Step time is the host clock around a step that ends in
-    a device synchronisation."""
+    TrainState, "publisher": the DeltaPublisher or None}. Step time is
+    the host clock around a step that ends in a device synchronisation,
+    and so is the publish time.
+
+    With ``publish_deltas`` (a spool directory) rank 0 publishes a delta
+    of its params every ``delta_every`` steps after the optimizer step
+    (``delta_k`` entries; 0: the sparsifier's k over the whole model),
+    through ``delta_fault_schedule``'s send-side faults, and writes
+    resync snapshots under ``<dir>/snapshots``: the version-0 base, one
+    every ``delta_snapshot_every`` versions and the final one. With
+    ``run.checkpoint_dir`` it checkpoints every ``run.checkpoint_every``
+    steps and at the end, stamped with the published version."""
+    import os
+
     from repro_torch.backend import resolve_device
+    from repro_torch.core.aggregate import world
     from repro_torch.core.flatten import tree_size
     from repro_torch.data import lm_batch
-    from repro_torch.train.step import build_train_step, init_train_state
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        save_train_state)
     dev = resolve_device(device)
     step = build_train_step(run, dev, group)
     state = init_train_state(run, dev, group)
@@ -176,6 +238,32 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
         log(f"[train] fault schedule: {faults.format_schedule(sched)} "
             f"(E[n_active]={faults.expected_active(sched, n):.2f}/{n}, "
             f"err_decay={sp.err_decay}, combine={sp.combine})")
+    publisher = chan = snap_dir = None
+    if publish_deltas and world(group)[1] == 0:
+        from repro_torch.core import faults
+        from repro_torch.serve.delta import (FaultyChannel, SpoolChannel,
+                                             delta_wire_bytes)
+        from repro_torch.train.step import delta_publisher_for_run
+        publisher = delta_publisher_for_run(run, state.params, delta_k)
+        chan = SpoolChannel(publish_deltas)
+        csched = faults.parse_channel_schedule(delta_fault_schedule)
+        if csched is not None:
+            chan = FaultyChannel(chan, csched)
+            log(f"[train] delta channel faults: "
+                f"{faults.format_channel_schedule(csched)}")
+        snap_dir = os.path.join(publish_deltas, "snapshots")
+        publisher.write_snapshot(snap_dir)           # the version-0 base
+        log(f"[train] publishing deltas: k={publisher.k} "
+            f"({delta_wire_bytes(publisher.k):,} wire bytes/delta, "
+            f"J={publisher.j:,}) every {max(1, delta_every)} steps -> "
+            f"{publish_deltas}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def version():
+        return publisher.version if publisher is not None else None
     history = []
     data = None
     for t in range(run.steps):
@@ -184,10 +272,21 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
                             0 if fixed_batch else t, dev)
         t0 = time.perf_counter()
         state, metrics = step(state, data)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync()
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"step": t, "loss": float(metrics["loss"]), "ms": ms}
+        if publisher is not None and (t + 1) % max(1, delta_every) == 0:
+            t0 = time.perf_counter()
+            chan.send(publisher.publish(state.params))
+            sync()
+            rec["publish_ms"] = (time.perf_counter() - t0) * 1e3
+            if (delta_snapshot_every
+                    and publisher.version % delta_snapshot_every == 0):
+                publisher.write_snapshot(snap_dir)
+        if (run.checkpoint_every and run.checkpoint_dir
+                and t and t % run.checkpoint_every == 0):
+            save_train_state(run.checkpoint_dir, t, state, group,
+                             param_version=version())
         if "n_active" in metrics:
             rec["n_active"] = float(metrics["n_active"])
         if step.gsync.last_count is not None:
@@ -204,15 +303,25 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
                 f"gnorm {float(metrics['gnorm_local']):.3f} "
                 f"nz {float(metrics['agg_nonzero']):.4f} {health}"
                 f"({ms:.1f} ms)")
+    if publisher is not None:
+        if hasattr(chan, "flush"):
+            chan.flush()
+        publisher.write_snapshot(snap_dir)
+        sent = getattr(chan, "counters", {}).get("sent", publisher.version)
+        log(f"[train] published {publisher.version} delta versions ({sent} "
+            f"reached the spool); final snapshot at v{publisher.version}")
+    if run.checkpoint_dir:
+        save_train_state(run.checkpoint_dir, run.steps, state, group,
+                         param_version=version())
     return {"history": history,
             "fallbacks": dict(step.gsync.fallback_reasons),
-            "params": j, "state": state}
+            "params": j, "state": state, "publisher": publisher}
 
 
 def main(argv=None):
     args = parse_args(argv)
     train(run_config(args), device=args.device, batch=args.batch,
-          seq=args.seq, fixed_batch=args.fixed_batch)
+          seq=args.seq, fixed_batch=args.fixed_batch, **delta_options(args))
     return 0
 
 

@@ -72,3 +72,19 @@ def build_decode_step(run: RunConfig, device=None, *, data: int = 1,
         with torch.inference_mode():
             return tfm.decode_step(params, cache, token, cfg)
     return fn
+
+
+def delta_applier_from_snapshot(run: RunConfig, snap_dir: str, device=None,
+                                step=None):
+    """A replica's entry to the delta broadcast at one rank: the snapshot
+    under ``snap_dir`` at ``step`` (default: the latest) restored as the
+    serving params (templates on the ``meta`` device, so nothing else is
+    allocated) and a ``DeltaApplier`` at its ``param_version``, whose
+    floor starts there. Returns ``(applier, params)``."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.delta import DeltaApplier, read_snapshot
+    dev = resolve_device(device)
+    tmpl = init_params(resolve_model_cfg(run), torch.Generator(),
+                       torch.device("meta"))
+    params, version = read_snapshot(snap_dir, tmpl, step, device=dev)
+    return DeltaApplier(params, version=version), params

@@ -29,11 +29,15 @@ Per step:
    gathered vector (no extra copy).
 
 Without a process group the world is one rank and the same code runs.
+The module also holds the run's checkpoints (:func:`save_train_state`,
+:func:`restore_train_state`, in the reference's global layout) and the
+delta broadcast's publisher for a run (:func:`delta_publisher_for_run`).
 The model is ``resolve_model_cfg(run)``: ``RunConfig.attn_override=
 "sliding"`` trains a dense model's sliding-window variant.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -163,3 +167,94 @@ class TrainStep:
 
 def build_train_step(run: RunConfig, device=None, group=None) -> TrainStep:
     return TrainStep(run, device, group)
+
+
+def delta_publisher_for_run(run: RunConfig, params: dict, delta_k: int = 0,
+                            *, record_history: bool = False):
+    """The trainer's delta-broadcast publisher (``serve.delta``): its k is
+    ``delta_k``, or for ``delta_k <= 0`` the sparsifier's k over the whole
+    flat model (``sparsify.resolve_k``), so by default the serving channel
+    ships what the gradient sync ships a step. Publish after each
+    optimizer step; ship the version-0 base with ``write_snapshot``
+    before a replica subscribes."""
+    from repro_torch.core.flatten import tree_size
+    from repro_torch.serve.delta import DeltaPublisher
+    k = int(delta_k)
+    if k <= 0:
+        k = sparsify.resolve_k(run.sparsifier, tree_size(params))
+    return DeltaPublisher(params, k, record_history=record_history)
+
+
+def _global(leaf: torch.Tensor, group) -> torch.Tensor:
+    """A rank's state leaf in the reference's global (DP, TP, ...) layout:
+    every rank's slice, gathered on rank 0 (the other ranks get None); a
+    0-d leaf (``step``, the same on every rank) as it is."""
+    if leaf.ndim == 0:
+        return leaf
+    n, rank = world(group)
+    if n == 1:
+        return leaf.reshape((1, 1) + tuple(leaf.shape))
+    parts = [torch.empty_like(leaf) for _ in range(n)] if rank == 0 else None
+    dist.gather(leaf.contiguous(), parts, dst=0, group=group)
+    return None if rank else torch.stack(parts).unsqueeze(1)
+
+
+def save_train_state(ckpt_dir: str, step: int, state: TrainState,
+                     group=None, param_version=None):
+    """Checkpoint a TrainState in the reference's file format and global
+    layout: the optimizer's ZeRO-1 slices and the sparsifier states as
+    ``(DP, 1, ...)``, gathered over ``group`` and written by rank 0 (a
+    collective: every rank calls it). Returns rank 0's path prefix."""
+    from repro_torch.checkpoint.io import save_checkpoint
+    opt = tree_map(lambda l: _global(l, group), state.opt)
+    ef = tree_map(lambda l: _global(l, group), state.ef)
+    n, rank = world(group)
+    path = None
+    if rank == 0:
+        path = save_checkpoint(ckpt_dir, step, state.params, opt, ef,
+                               param_version=param_version)
+    if n > 1:
+        dist.barrier(group=group)
+    return path
+
+
+def restore_train_state(ckpt_dir: str, step: int, run: RunConfig,
+                        device=None, group=None) -> TrainState:
+    """The TrainState of this rank from a checkpoint of either package:
+    the parameters, and the rank's row of the optimizer and sparsifier
+    states. The templates are drawn on the ``meta`` device, so nothing
+    but the restored state is allocated. The EF rows follow the saved
+    worker count (``checkpoint.io._fit_ef_worker_dims``: a new rank starts
+    from zero error feedback); the optimizer's rows must match the
+    run's world."""
+    from repro_torch.checkpoint.io import load_leaves, to_tensor
+    from repro_torch.core.flatten import tree_from_items
+    dev = resolve_device(device)
+    meta = torch.device("meta")
+    params = init_params(resolve_model_cfg(run), torch.Generator(), meta)
+    j = TreeFlattener(params).total
+    n, rank = world(group)
+    opt = init_opt_state(run.optimizer, torch.empty(opt_shard_len(j, n),
+                                                    device=meta))
+    ef = sparsify.init_state(run.sparsifier, j, meta)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+
+    def rows(tree):
+        return tree_map(lambda l: l if l.ndim == 0 else torch.empty(
+            (n, 1) + tuple(l.shape), dtype=l.dtype, device=meta), tree)
+
+    def load(tree, suffix, migrate_ef=False, row=False):
+        out = []
+        for p, leaf, tmpl in load_leaves(path + suffix, tree, migrate_ef):
+            if row and tmpl.ndim:
+                if tuple(leaf.shape) != tuple(tmpl.shape):
+                    raise ValueError(
+                        f"checkpoint leaf {p} has shape {leaf.shape}; a "
+                        f"world of {n} wants {tuple(tmpl.shape)}")
+                leaf = leaf[rank, 0]
+            out.append((p, to_tensor(leaf, tmpl, dev)))
+        return tree_from_items(out)
+
+    return TrainState(_as_leaves(load(params, ".params.npz")),
+                      load(rows(opt), ".opt.npz", row=True),
+                      load(rows(ef), ".ef.npz", migrate_ef=True, row=True))

@@ -35,7 +35,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     pkg = ROOT / "src" / "repro_torch"
     for module in ("serve/step.py", "serve/__init__.py", "launch/serve.py",
                    "configs/granite_8b.py", "configs/qwen1_5_32b.py",
-                   "configs/starcoder2_7b.py"):
+                   "configs/starcoder2_7b.py", "serve/delta.py",
+                   "checkpoint/__init__.py", "checkpoint/io.py",
+                   "core/faults.py"):
         assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -62,6 +64,13 @@ def test_cpu_step_runs_without_jax(tmp_path):
         "from repro_torch.launch import serve\n"
         "serve.main(['--arch', 'granite-8b', '--smoke', '--batch', '2',"
         " '--prompt-len', '8', '--new-tokens', '2', '--device', 'cpu'])\n"
+        "main(['--arch', 'stablelm-3b', '--smoke', '--steps', '2',"
+        " '--batch', '2', '--seq', '16', '--device', 'cpu',"
+        " '--publish-deltas', 'spool', '--checkpoint-dir', 'ckpt'])\n"
+        "serve.main(['--arch', 'stablelm-3b', '--smoke', '--batch', '2',"
+        " '--prompt-len', '8', '--new-tokens', '2', '--device', 'cpu',"
+        " '--apply-deltas', 'spool',"
+        " '--delta-fault-schedule', 'loss:0.4,seed=2'])\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')"
         " for m in sys.modules)\n"
@@ -77,10 +86,12 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from repro_torch.launch.train import main, run_config, parse_args, train
-    from repro_torch.train.step import build_train_step, init_train_state
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        restore_train_state)
     run = run_config(parse_args(["--arch", "stablelm-3b", "--smoke"]))
     calls = [lambda: resolve_device(None), lambda: resolve_device("cuda"),
              lambda: init_train_state(run), lambda: build_train_step(run),
+             lambda: restore_train_state("ckpt", 1, run),
              lambda: train(run, log=lambda m: None),
              lambda: main(["--arch", "stablelm-3b", "--smoke", "--steps",
                            "1"])]
@@ -96,14 +107,18 @@ def test_serve_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from repro_torch.launch import serve as launcher
-    from repro_torch.serve.step import build_decode_step, build_prefill
+    from repro_torch.serve.step import (build_decode_step, build_prefill,
+                                        delta_applier_from_snapshot)
     args = launcher.parse_args(["--arch", "granite-8b", "--smoke"])
     assert args.device is None
     run = launcher.run_config(args)
     calls = [lambda: build_prefill(run), lambda: build_decode_step(run),
              lambda: build_prefill(run, "cuda"),
              lambda: launcher.serve(run, log=lambda m: None),
-             lambda: launcher.main(["--arch", "granite-8b", "--smoke"])]
+             lambda: launcher.main(["--arch", "granite-8b", "--smoke"]),
+             lambda: delta_applier_from_snapshot(run, "spool/snapshots"),
+             lambda: launcher.main(["--arch", "granite-8b", "--smoke",
+                                    "--apply-deltas", "spool"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -255,10 +255,46 @@ def test_serve_launcher_smoke(arch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--data", "2"], "ROADMAP A14"), (["--model", "2"], "ROADMAP A13"),
-    (["--devices", "8"], "ROADMAP A13"), (["--mla-absorb"], "ROADMAP A13"),
-    (["--apply-deltas", "spool"], "ROADMAP A15"),
-    (["--delta-fault-schedule", "loss:0.1"], "ROADMAP A15")])
+    (["--devices", "8"], "ROADMAP A13"), (["--mla-absorb"], "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])
+
+
+@pytest.fixture(scope="module")
+def spool(tmp_path_factory):
+    """A port trainer's delta spool: 3 versions of reduced granite-8b,
+    snapshots at versions 0, 2 and 3."""
+    from repro_torch.launch import train as train_launcher
+    root = str(tmp_path_factory.mktemp("spool"))
+    train_launcher.main(["--arch", "granite-8b", "--smoke", "--steps", "3",
+                         "--batch", "2", "--seq", "16", "--publish-deltas",
+                         root, "--delta-snapshot-every", "2",
+                         "--device", "cpu"])
+    return root
+
+
+@pytest.mark.parametrize("flag,health", [
+    ([], "'received': 3, 'applied': 0, 'dropped_corrupt': 0, "
+         "'dropped_nonfinite': 0, 'dropped_stale': 3"),
+    (["--delta-fault-schedule", "loss:0.4,seed=2"],
+     "'received': 2, 'applied': 0, 'dropped_corrupt': 0, "
+     "'dropped_nonfinite': 0, 'dropped_stale': 2")],
+    ids=["apply_deltas", "delta_fault_schedule"])
+def test_serve_launcher_delta_flags(spool, capsys, flag, health):
+    """--apply-deltas (and its receive-side faults): the replica starts at
+    the latest snapshot, v3, so the spool's three versions arrive stale
+    (version 2 lost to the schedule), as the reference launcher's replica
+    would see them."""
+    assert launcher.main(["--arch", "granite-8b", "--smoke", "--device",
+                          "cpu", "--batch", "2", "--prompt-len", "8",
+                          "--new-tokens", "2", "--apply-deltas", spool,
+                          *flag]) == 0
+    out = capsys.readouterr().out
+    assert "(snapshot v3)" in out and "live params now v3" in out
+    assert health in out
+    assert ("(recv side): loss:0.4,seed=2" in out) == bool(flag)
+    with pytest.raises(SystemExit):
+        launcher.parse_args(["--arch", "granite-8b",
+                             "--delta-fault-schedule", "loss:0.1"])

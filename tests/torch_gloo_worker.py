@@ -1,5 +1,5 @@
 """One rank of a gloo process group running the port (driven by
-tests/test_torch_aggregate.py).
+tests/test_torch_aggregate.py and tests/test_torch_checkpoint.py).
 
     python tests/torch_gloo_worker.py MODE RANK WORLD INIT_FILE IN.npz OUT.npz
 
@@ -11,8 +11,10 @@ schedule of the inputs, once with sparse comm on the fused pipeline
 pipeline (dyadic gradients), each rank drawing its own participation
 bits; MODE "baselines" runs GradientSync for each case the inputs list
 (JSON: name -> [SparsifierConfig fields, whether the rank passes its
-participation bit]), each rank taking its bit from the inputs. Imports
-torch and the port only, and records whether jax was imported.
+participation bit]), each rank taking its bit from the inputs; MODE
+"checkpoint" takes one train step, then saves the group's checkpoint and
+restores it at the same world. Imports torch and the port only, and
+records whether jax was imported.
 """
 import json
 import os
@@ -141,6 +143,32 @@ def run_train(rank: int, data) -> dict:
     return {"params": flat.detach().numpy(), "losses": np.asarray(losses)}
 
 
+def run_checkpoint(rank: int, data) -> dict:
+    """One train step, then ``save_train_state`` over the group into
+    ``data["ckpt"]`` and ``restore_train_state`` at the same world: the
+    rank's state, and whether the restore equals it leaf for leaf."""
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        restore_train_state,
+                                        save_train_state)
+    run = train_run(data)
+    state = init_train_state(run, "cpu")
+    batch = {"tokens": torch.from_numpy(data["tokens"][rank]),
+             "targets": torch.from_numpy(data["targets"][rank])}
+    state, _ = build_train_step(run, "cpu")(state, batch)
+    save_train_state(str(data["ckpt"]), 1, state, param_version=1)
+    back = restore_train_state(str(data["ckpt"]), 1, run, "cpu")
+    res = {"restored_equal": np.asarray(all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for a, b in ((state.params, back.params), (state.opt, back.opt),
+                     (state.ef, back.ef))
+        for (_, x), (_, y) in zip(tree_items(a), tree_items(b))))}
+    for name, tree in (("opt", state.opt), ("ef", state.ef)):
+        for key, val in tree.items():
+            res[f"{name}_{key}"] = _saved(val)
+    return res
+
+
 def main(mode: str, rank: int, world: int, init_file: str, inp: str,
          out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -148,7 +176,8 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
     try:
         data = np.load(inp)
         run = {"sync": run_sync, "train": run_train,
-               "elastic": run_elastic, "baselines": run_baselines}[mode]
+               "elastic": run_elastic, "baselines": run_baselines,
+               "checkpoint": run_checkpoint}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
