@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train train_sketch_reference [--src OLD/src]
+    python3 chip_smoke.py --train train_overlap --train train_adaptive
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --delta
     python3 chip_smoke.py --world 4
@@ -101,6 +102,21 @@ line and raising on any failure:
              step) on Granite-8B (rmsnorm, GQA kv 8; J = 1,056,993,280)
              and StarCoder2-7B (layernorm, GELU, QKV bias, GQA kv 4; J =
              1,104,301,056) at full width, depth cut to 3 layers;
+20b. train_proportional, train_adaptive, train_proportional_reference,
+             train_overlap, each with its profile: density allocation and
+             streaming over the S layer-aligned segments of the model
+             (``path_segments``): REGTOP-k fused with the proportional
+             split (B1, B2 S times a step), with the adaptive split under
+             the fault schedule and err_decay 0.9 (B1's gated variant, B2
+             S a step), the reference launcher's defaults with the
+             proportional split (B5, B6 once a step), and the main path
+             streamed behind the backward pass (``overlap="backward"``:
+             B1, B2 S a step, fed from hooks on a side CUDA stream); after
+             the last, ``overlap_equal`` syncs one gradient of it through
+             the stream and through the flat call (torch.equal), and each
+             profile reports its per-segment ``compress/sweeps`` spans
+             against ``train/loss_grad`` (a streamed step must start one
+             before the backward pass ends);
 21. serve:   the serve launcher's serve() at its defaults (batch 8, prompt
              48, 16 greedy decode steps) at full width and depth: Granite-
              8B with full attention, with a sliding window of 32 (the
@@ -150,6 +166,11 @@ main J and the ragged J), and its gated variant in both modes
 mode at one bucket's shape, J / 8 (kernels_bf16: each output equal to
 the fp32 kernel's on the upcast inputs and to the plain version). Phase 4 also runs 3 fused
 steps of each kind under participation (1, 0, 1) with err_decay 0.9.
+Phase 3's ``kernels_segments`` sweeps each of those S segments with B1
+into views of (J,) buffers and B2 at the segment's own tau and slot
+count, proportional and adaptive, and once more one element past the
+first segment's start (an unaligned address), each against its plain
+version with ``torch.equal``.
 Phase 3 also holds the two CountSketch encodes (kernels_sketch, B3 and
 B4 on the same partitioned passes and one shared start table): B3's a
 with ``torch.equal``, both sketches with ``torch.equal`` on dyadic inputs
@@ -237,6 +258,7 @@ BF16 = dict(ef_dtype="bfloat16", wire_dtype="bfloat16")
 # each launches once a step, or {kernel: launches a step} (every other
 # kernel 0 times), and the fault schedule ("" = every step in)
 ELASTIC = dict(err_decay=ERR_DECAY)
+SEGS = "S"                   # once a segment of the path's cut, a step
 TRAIN_PATHS = {
     "train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"), ""),
     "train_sketch": (dict(kind="sketchtopk", **FUSED), ("sweep1_sketch",),
@@ -268,7 +290,28 @@ TRAIN_PATHS = {
                       ""),
     "train_starcoder2": (dict(kind="regtopk", **FUSED),
                          ("sweep1", "sweep2"), ""),
+    # density allocation and streaming over the S layer-aligned segments
+    # of the model (S worked out by path_segments): B1 and B2 once a
+    # segment; the adaptive split under the fault schedule (B1's gated
+    # variant); the reference launcher's defaults with the proportional
+    # split (B5, B6 once a step); the main path streamed behind the
+    # backward pass
+    "train_proportional": (dict(kind="regtopk", allocation="proportional",
+                                **FUSED), {"sweep1": SEGS, "sweep2": SEGS},
+                           ""),
+    "train_adaptive": (dict(kind="regtopk", allocation="adaptive", **FUSED,
+                            **ELASTIC),
+                       {"sweep1_gated": SEGS, "sweep2": SEGS},
+                       FAULT_SCHEDULE),
+    "train_proportional_reference": (
+        dict(REFERENCE_DEFAULT, allocation="proportional"),
+        ("scores", "apply"), ""),
+    "train_overlap": (dict(kind="regtopk", overlap="backward", **FUSED),
+                      {"sweep1": SEGS, "sweep2": SEGS}, ""),
 }
+# the paths whose sync cuts the gradient into layer-aligned segments
+SEGMENTED = ("train_proportional", "train_adaptive",
+             "train_proportional_reference", "train_overlap")
 # the train phases' model: (arch, depth, J); full widths, depth cut so
 # that J and its fp32 compression and Adam state fit one card
 TRAIN_MODEL = ("stablelm-3b", TRAIN_LAYERS, MAIN_J)
@@ -704,6 +747,79 @@ def phase_kernels(dev) -> dict:
     return {"small": small, "big": big, "dgc_small": dsmall, "dgc_big": dbig,
             "gated_small": gsmall, "gated_big": gbig, "bf16_small": bsmall,
             "bf16_big": bbig}
+
+
+def phase_kernels_segments(dev) -> dict:
+    """B1 and B2 on the allocated main path's segments, kernel vs plain:
+    each of the S layer-aligned segments of the StableLM cut swept by B1
+    into views of (J,) buffers, then B2 at the segment's own tau and slot
+    count in both modes (the proportional count or the adaptive cap as
+    its provisioning, plus REGTOP-k's margin), and once more on views one
+    element past the first segment's start (an unaligned base address);
+    torch.equal on every output. Records each segment's slots and
+    overflowing tiles, and B2's time on the largest segment at the
+    adaptive slot count."""
+    import torch
+    from repro_torch.core import allocate
+    from repro_torch.core.numerics import regularizer_factor
+    from repro_torch.kernels.compress import kernel as pk
+    bounds = path_segments(dict(allocation="adaptive"))
+    sizes = [size for _, size in bounds]
+    k = round(SPARSITY * MAIN_J)
+    provs = {"proportional": [max(1, n) for n in
+                              allocate.proportional_counts(k, sizes)],
+             "adaptive": allocate.segment_caps(k, sizes)}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    g = torch.randn(MAIN_J, generator=gen, device=dev)
+    err = torch.randn(MAIN_J, generator=gen, device=dev) * 0.1
+    c = torch.full((1,), regularizer_factor(0.0, MU), device=dev)
+    a, score = torch.empty_like(g), torch.empty_like(g)
+    errs = {"sweep1_err": 0.0, "sweep2_err": 0.0}
+    segs, cases = [], list(enumerate(bounds))
+    # the last case: one element past the first segment's start
+    cases.append((0, (bounds[0][0] + 1, bounds[0][1] - 1)))
+    for i, (off, size) in cases:
+        sl = slice(off, off + size)
+        out1 = pk.sweep1(g[sl], err[sl], c, out=[a[sl], score[sl]])
+        ref1 = pk.sweep1_plain(g[sl], err[sl], c)
+        for name, got, want in zip(("a", "score", "amax", "hist"), out1,
+                                   ref1):
+            check(torch.equal(got, want),
+                  f"sweep1 {name} differs on segment ({off}, {size})")
+        errs["sweep1_err"] = max(errs["sweep1_err"],
+                                 max_abs_err(zip(out1, ref1)))
+        del ref1
+        rec = {"offset": off, "size": size}
+        for mode, pv in provs.items():
+            prov = pv[i]
+            tau = pk.threshold_from_hist(out1[3], prov + min(k, size))
+            maxpb = int(min(pk.BLOCK, max(32, -(-8 * prov * pk.BLOCK
+                                               // size))))
+            out2 = pk.sweep2(score[sl], tau, maxpb)
+            ref2 = pk.sweep2_plain(score[sl], tau, maxpb)
+            for name, got, want in zip(("vals", "idx", "cnt"), out2, ref2):
+                check(torch.equal(got, want),
+                      f"sweep2 {name} differs on segment ({off}, {size}), "
+                      f"{mode} maxpb {maxpb}")
+            errs["sweep2_err"] = max(errs["sweep2_err"],
+                                     max_abs_err(zip(out2, ref2)))
+            rec[mode] = {"maxpb": maxpb, "tau": float(tau),
+                         "overflow_tiles": int((out2[2] > maxpb).sum())}
+        segs.append(rec)
+    i = max(range(len(bounds)), key=lambda t: bounds[t][1])
+    off, size = bounds[i]
+    sl = slice(off, off + size)
+    top = segs[i]["adaptive"]
+    tau = torch.full((1,), top["tau"], device=dev)
+    res = dict(errs, segments=segs, timed_segment=[off, size],
+               sweep2_segment_ms=cuda_ms(
+                   lambda: pk.sweep2(score[sl], tau, top["maxpb"])),
+               sweep2_segment_plain_ms=cuda_ms(
+                   lambda: pk.sweep2_plain(score[sl], tau, top["maxpb"])))
+    emit("kernels_segments", **res)
+    del g, err, a, score
+    torch.cuda.empty_cache()
+    return res
 
 
 def dyadic(gen, j: int, dev):
@@ -1725,13 +1841,106 @@ def phase_profile(dev, run, state, phase: str) -> None:
                 stages[e.key]["host_ms"] = e.cpu_time_total / 1e3
     stages = {key: val for key, val in stages.items() if val}
     tables = [list(key[1:]) for key in step.gsync.sketch_tables]
+    segments = None
+    if step.seg_bounds is not None or step.stream_bounds is not None:
+        segments = segment_spans(prof.events(), run.sparsifier.overlap ==
+                                 "backward")
     emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms, stages=stages,
          fallback=dict(step.gsync.fallback_reasons),
-         sketch_tables=tables,
+         sketch_tables=tables, segments=segments,
          top_kernels=[{"name": k[:90], "ms": ms, "calls": n}
                       for k, ms, n in kernels[:15]])
     return tables, wall_ms, stages
+
+
+def segment_spans(events, streamed: bool) -> dict:
+    """The per-segment stage spans of a profiled step of a segmented path:
+    each ``compress/sweeps`` span's start (ms from the start of
+    ``train/loss_grad``) and length, on the host's clock and on the
+    card's (the record_function ranges' GPU side), and how many start
+    before the backward pass ends: on the host, the end of
+    ``train/loss_grad``; on the card, the start of ``train/sync``, whose
+    first kernel (the gradient's norm) follows the backward's last on
+    the main stream (a backward kernel launched from autograd's thread
+    lies outside the main thread's ``train/loss_grad`` range on the
+    card). A streamed step must start one early on the host."""
+    from torch.autograd import DeviceType
+
+    def spans(name, device):
+        return sorted((e.time_range.start, e.time_range.end)
+                      for e in events if e.name == name and
+                      (e.device_type == DeviceType.CUDA) == device)
+    out = {}
+    for side, device in (("host", False), ("device", True)):
+        grad, sweeps = spans("train/loss_grad", device), \
+            spans("compress/sweeps", device)
+        sync = spans("train/sync", device)
+        if not grad or not sweeps:
+            out[side] = None
+            continue
+        start = grad[0][0]
+        end = sync[0][0] if device and sync else grad[-1][1]
+        out[side] = {
+            "backward_end_ms": (end - start) / 1e3,
+            "sweeps_spans": len(sweeps),
+            "sweeps_start_ms": [round((a - start) / 1e3, 3)
+                                for a, _ in sweeps],
+            "sweeps_ms": [round((b - a) / 1e3, 3) for a, b in sweeps],
+            "started_before_backward_end": sum(a < end for a, _ in sweeps)}
+    if streamed:
+        check(out["host"] and out["host"]["started_before_backward_end"],
+              f"streamed step: no compress/sweeps span starts before "
+              f"train/loss_grad ends ({out['host']})")
+    return out
+
+
+def phase_overlap_equal(dev, run, state) -> None:
+    """One step's sync of the streamed path on the card two ways, from the
+    trained state and one gradient of its model: the stream (``begin``,
+    ``feed_segment`` of each layer-aligned segment on a side CUDA stream,
+    last segment first as the backward pass produces them, ``finish``)
+    and the flat call of the same config without overlap on the same
+    inputs; g_agg and every state tensor torch.equal."""
+    import torch
+    from repro_torch.configs.base import resolve_model_cfg
+    from repro_torch.core.aggregate import GradientSync
+    from repro_torch.core.flatten import TreeFlattener, tree_leaves
+    from repro_torch.data import lm_batch
+    from repro_torch.models import loss_fn
+    from repro_torch.train.step import build_train_step
+    step = build_train_step(run, dev)
+    bounds = step.stream_bounds
+    batch = lm_batch(run.model, 8, 128, run.seed, 0, dev)
+    leaves = tree_leaves(state.params)
+    grads = torch.autograd.grad(loss_fn(state.params, batch,
+                                        resolve_model_cfg(run)), leaves)
+    g = TreeFlattener(state.params).flatten(list(grads))
+    del grads
+    side = torch.cuda.Stream(dev)
+    stream = step.gsync.begin(state.ef)
+    for off, size in reversed(bounds):
+        ready = torch.cuda.Event()
+        ready.record()
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            stream.feed_segment(g[off:off + size], offset=off)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    agg_s, ef_s = stream.finish()
+    flat = GradientSync(dataclasses.replace(run.sparsifier, overlap="none"))
+    agg_f, ef_f = flat(state.ef, g)
+    check(bits_equal(agg_s, agg_f), "overlap: g_agg of the stream differs "
+          "from the flat call's")
+    check(set(ef_s) == set(ef_f), "overlap: state keys")
+    for key in ef_f:
+        check(bits_equal(ef_s[key], ef_f[key]),
+              f"overlap: state {key} of the stream differs from the flat "
+              "call's")
+    emit("overlap_equal", segments=len(bounds), torch_equal=True,
+         state=sorted(ef_f), fallbacks=dict(step.gsync.fallback_reasons),
+         flat_fallbacks=dict(flat.fallback_reasons))
+    del agg_s, ef_s, agg_f, ef_f, g
+    torch.cuda.empty_cache()
 
 
 def paper_states(cfg, n: int, j: int, gen, g):
@@ -2097,12 +2306,42 @@ def compression_shares(steps: dict, profiles: dict) -> dict:
             "cells": out}
 
 
-def train_expect(kernels) -> dict:
+def train_expect(kernels, segments: int = 1) -> dict:
     """A train path's launches in TRAIN_STEPS steps: once a step for each
-    kernel of a tuple, or {kernel: launches a step}."""
+    kernel of a tuple, or {kernel: launches a step}, SEGS standing for
+    the path's ``segments``."""
     per_step = kernels if isinstance(kernels, dict) else \
         dict.fromkeys(kernels, 1)
-    return {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    return {name: (segments if n == SEGS else n) * TRAIN_STEPS
+            for name, n in per_step.items()}
+
+
+def path_segments(fields: dict, model_cut=TRAIN_MODEL) -> list:
+    """The layer-aligned segments a train path's step cuts the gradient
+    into: ``core.allocate.layer_segments`` over the model's leaves (drawn
+    on the meta device) at the config's resolved segment count."""
+    import torch
+    from repro_torch.configs.base import SparsifierConfig, get_config
+    from repro_torch.core import allocate
+    from repro_torch.core.flatten import TreeFlattener
+    from repro_torch.models import init_params
+    arch, depth, main_j = model_cut
+    model = dataclasses.replace(get_config(arch), n_layers=depth)
+    flat = TreeFlattener(init_params(model, torch.Generator(),
+                                     torch.device("meta")))
+    check(flat.total == main_j, f"J={flat.total}")
+    sp = SparsifierConfig(**fields)
+    return allocate.layer_segments(
+        flat.layer_bounds(), allocate.resolve_num_segments(sp, flat.total))
+
+
+def path_expect(name: str) -> dict:
+    """A train path's launches in TRAIN_STEPS steps (train_expect with
+    its segment count)."""
+    fields, kernels, _ = TRAIN_PATHS[name]
+    segs = (len(path_segments(fields, TRAIN_MODELS.get(name, TRAIN_MODEL)))
+            if name in SEGMENTED else 1)
+    return train_expect(kernels, segs)
 
 
 def kernel_row(name: str, res: dict, small: dict, launches: int,
@@ -2162,8 +2401,10 @@ def main(argv=None) -> int:
         for name in args.train or ():
             fields, kernels, schedule = TRAIN_PATHS[name]
             _, run, state, *_ = phase_train(
-                dev, fields, train_expect(kernels), name, schedule,
+                dev, fields, path_expect(name), name, schedule,
                 TRAIN_MODELS.get(name, TRAIN_MODEL))
+            if run.sparsifier.overlap == "backward":
+                phase_overlap_equal(dev, run, state)
             phase_profile(dev, run, state, name.replace("train", "profile"))
             del state
             torch.cuda.empty_cache()
@@ -2173,6 +2414,7 @@ def main(argv=None) -> int:
             phase_delta(dev)
         return finish(smi, None)
     kres = phase_kernels(dev)
+    segres = phase_kernels_segments(dev)
     sres = phase_kernels_sketch(dev)
     eres = phase_kernels_fused_ef(dev)
     hres = phase_kernels_topk_select(dev)
@@ -2183,8 +2425,10 @@ def main(argv=None) -> int:
     train, steps, profiles = {}, {}, {}
     for name, (fields, kernels, schedule) in TRAIN_PATHS.items():
         train[name], run, state, steps[name], _ = phase_train(
-            dev, fields, train_expect(kernels), name, schedule,
+            dev, fields, path_expect(name), name, schedule,
             TRAIN_MODELS.get(name, TRAIN_MODEL))
+        if run.sparsifier.overlap == "backward":
+            phase_overlap_equal(dev, run, state)
         tables, *profiles[name] = phase_profile(
             dev, run, state, name.replace("train", "profile"))
         if fields["kind"] == "sketchtopk":
@@ -2206,16 +2450,25 @@ def main(argv=None) -> int:
     reference = "reference-launcher default train (reference pipeline)"
     ebig, hbig = eres["big"], hres["big"]
     histc_same = hbig["histogram_histc_differing_bins"] == 0
+    def segmented(kernel):
+        # the kernel's launches on each segmented path that runs it
+        return {name: train[name][kernel] for name in SEGMENTED
+                if train[name].get(kernel)}
     rows = [kernel_row("sweep1", big, small, train["train"]["sweep1"],
                        "regtopk train (fused)", bitwise,
                        other_models={name: train[name]["sweep1"]
                                      for name in TRAIN_MODELS},
-                       delta_launches=delta["sweep1"]),
+                       delta_launches=delta["sweep1"],
+                       segmented_launches=segmented("sweep1")),
             kernel_row("sweep2", big, small, train["train"]["sweep2"],
                        "regtopk train (fused)", bitwise,
                        other_models={name: train[name]["sweep2"]
                                      for name in TRAIN_MODELS},
-                       delta_launches=delta["sweep2"]),
+                       delta_launches=delta["sweep2"],
+                       segmented_launches=segmented("sweep2"),
+                       segments={key: segres[key] for key in (
+                           "segments", "timed_segment", "sweep2_segment_ms",
+                           "sweep2_segment_plain_ms")}),
             kernel_row("sweep1_dgc", dgc_big, dgc_small,
                        train["train_dgc"]["sweep1_dgc"],
                        "dgc train (fused)", bitwise, mode="dgc"),
@@ -2226,7 +2479,8 @@ def main(argv=None) -> int:
                        "gate 1: torch.equal to the ungated kernel; gate 0: "
                        "torch.equal to the plain version; both modes",
                        mode="dgc gated",
-                       off_ms=kres["gated_big"]["sweep1_gated_off_ms"]),
+                       off_ms=kres["gated_big"]["sweep1_gated_off_ms"],
+                       segmented_launches=segmented("sweep1_gated")),
             kernel_row("sweep1_bf16", kres["bf16_big"], kres["bf16_small"],
                        train["train_bucketed"]["sweep1_bf16"],
                        "bucketed regtopk train (fused, 8 buckets, bf16 "
@@ -2264,10 +2518,12 @@ def main(argv=None) -> int:
                            "sketch_encode_deterministic"]),
             kernel_row("scores", ebig, eres["small"],
                        train["train_reference"]["scores"],
-                       reference, "equal bit patterns on every output"),
+                       reference, "equal bit patterns on every output",
+                       segmented_launches=segmented("scores")),
             kernel_row("apply", ebig, eres["small"],
                        train["train_reference"]["apply"],
-                       reference, "equal bit patterns on every output"),
+                       reference, "equal bit patterns on every output",
+                       segmented_launches=segmented("apply")),
             kernel_row("histogram", hbig, hres["small"],
                        ref_launches["dense_histogram_kernel_degrade"][
                            "histogram"],
@@ -2279,6 +2535,11 @@ def main(argv=None) -> int:
                        "none (torch.histc bins differently: "
                        f"{hbig['histogram_histc_differing_bins']} bins "
                        "differ)", redesigned=True)]
+    for row in rows:
+        if row["name"] in ("sweep1", "sweep2"):
+            # the segment cases are kernel-vs-plain comparisons too
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     segres[f"{row['name']}_err"])
     return finish(smi, rows)
 
 

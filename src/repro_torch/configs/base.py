@@ -88,18 +88,23 @@ class SparsifierConfig:
     bf16 error feedback with the exact selector for kinds but REGTOP-k),
     kind="sketchtopk" on both with the exact selector, one bucket and
     fp32, and the baselines kind="none" (dense SGD) and
-    kind="globaltopk" (the genie, any selector); all with global
-    allocation, sparse (on the fp32 or bf16 wire), simulate or dense
-    comm; elastic participation (``combine``, ``err_decay``) on every
-    kind but sketchtopk. The fields past ``momentum`` exist to select
-    among the reference's paths and raise for any other value."""
+    kind="globaltopk" (the genie, any selector); sparse (on the fp32 or
+    bf16 wire), simulate or dense comm; elastic participation
+    (``combine``, ``err_decay``) on every kind but sketchtopk; density
+    allocation (``allocation``, ``num_segments``) on the kinds of
+    ``core.allocate.ALLOCATED_KINDS`` with the exact selector, and
+    streaming (``overlap="backward"``) on the fused pipeline. The fields
+    past ``momentum`` exist to select among the reference's paths and
+    raise for any other value."""
     kind: str = "regtopk"
     sparsity: float = 0.01
     k: int = 0                    # explicit k; 0 -> derive from sparsity
     mu: float = 0.1               # REGTOP-k regularizer temperature
     Q: float = 0.0                # posterior distortion for never-sent entries
     momentum: float = 0.9         # dgc momentum correction
-    allocation: str = "global"
+    allocation: str = "global"    # global | proportional | adaptive
+    num_segments: int = 0         # allocation's segment count (0: the
+                                  # buckets' when > 1, else 8)
     comm_mode: str = "simulate"
     selector: str = "exact"
     ef_dtype: str = "float32"

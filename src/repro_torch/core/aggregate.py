@@ -51,6 +51,13 @@ for the step (the non-finite guard); ``with_stats`` reports
 ``n_active`` and ``dropped_nonfinite``. Sketch selection under a mask
 is not ported yet (ROADMAP A12).
 
+Streaming (``cfg.overlap="backward"``, DESIGN.md §2.8):
+:meth:`GradientSync.begin` opens a step that takes the gradient one
+segment of a partition at a time, as the backward pass produces it; each
+segment's sweeps launch as it is fed (on the allocated path its whole
+sweep 1 -> threshold -> sweep 2 chain), and ``finish`` runs the joins,
+the collective and ``observe_aggregate``: the flat call's bits.
+
 Division by a worker count follows the compiled reference. XLA rewrites
 a division by a constant into a multiply by its fp32 reciprocal, so a
 mean over the static world size (``pmean``, the non-elastic combines,
@@ -337,12 +344,25 @@ class GradientSync:
     :meth:`decode_exchange`. ``sketch_tables`` keeps the encode kernels'
     start table of each shape on the card (built at the first step, 142
     MB at StableLM-3B's J; either pipeline's) for as long as the sync
-    lives."""
+    lives.
 
-    def __init__(self, cfg: SparsifierConfig, group=None):
+    ``seg_bounds`` pins the allocation's segments (the train step passes
+    layer-aligned ones); ``stream_bounds`` the partition a streaming step
+    (:meth:`begin`, ``cfg.overlap="backward"``) is fed in, by default the
+    allocation's segments. Allocation and overlap are checked here, at
+    build time (the reference's ValueErrors)."""
+
+    def __init__(self, cfg: SparsifierConfig, group=None, *,
+                 seg_bounds=None, stream_bounds=None):
         check_supported(cfg)
         self.cfg = cfg
         self.group = group
+        self.seg_bounds = (None if seg_bounds is None
+                           else [tuple(b) for b in seg_bounds])
+        if stream_bounds is None and cfg.overlap == "backward":
+            stream_bounds = self.seg_bounds
+        self.stream_bounds = (None if stream_bounds is None
+                              else [tuple(b) for b in stream_bounds])
         self.selection = sparsify.selection(cfg)
         self.comm = dispatch.effective_comm_mode(cfg)
         self.fallbacks = 0
@@ -391,8 +411,31 @@ class GradientSync:
                 if with_stats else (g_agg, new)
         j = g.numel()
         p = None if participate is None else participate.reshape(())
+        segs = None
+        if self.stream_bounds is not None and self.cfg.overlap == "backward":
+            # the stream's own partition (the flat call is its bits)
+            segs = [g[off:off + size] for off, size in self.stream_bounds]
+            g = None
         out = sparsify.compress(self.cfg, state, g, omega=1.0 / n,
-                                donate=donate, participate=p, key=key)
+                                donate=donate, participate=p, key=key,
+                                seg_bounds=self.seg_bounds, g_segments=segs)
+        return self._close(out, j, p, with_stats)
+
+    def begin(self, state: dict, *, key=None, participate=None):
+        """Open a streaming step (``cfg.overlap="backward"`` only): feed
+        the gradient's segments with ``feed_segment`` as the backward pass
+        produces them, then ``finish()`` runs the trim, the collective and
+        ``observe_aggregate``. Bit for bit the flat call's result."""
+        if self.cfg.overlap != "backward":
+            raise ValueError(
+                "begin()/feed_segment streaming needs overlap='backward' "
+                f"(got overlap={self.cfg.overlap!r})")
+        self.check_participation(participate)
+        return _GradientStream(self, state, key, participate)
+
+    def _close(self, out, j: int, p, with_stats: bool):
+        """The rest of a local-selection step from the compressor's
+        output: the combine, observe_aggregate and the stats."""
         self._count([out])
         self.last_count = out.count
         p_eff = dropped = None
@@ -704,6 +747,65 @@ class GradientSync:
                 [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                  for o in outs])
         return round_fn
+
+
+class _GradientStream:
+    """A streaming step of :meth:`GradientSync.begin`. Its partition is
+    the sync's ``stream_bounds``, else the flat call's (the allocation's
+    segments, else the near-equal cut). ``feed_segment`` takes one
+    segment of it (the next in order, or the one at ``offset``, in any
+    order) and launches its sweeps at once, on the caller's current CUDA
+    stream; ``finish`` is the only barrier: the joins of the compressor,
+    the collective, observe_aggregate. Single-shot."""
+
+    def __init__(self, sync: GradientSync, state: dict, key, participate):
+        self._gs = sync
+        p = None if participate is None else participate.reshape(())
+        self._p = p
+        self._next = 0
+        self._fed = 0
+        self._done = False
+        n, _ = world(sync.group)
+        j = state[sparsify.err_key(sync.cfg)].numel()
+        bounds = sync.stream_bounds or sparsify.partitions(
+            sync.cfg, j, sync.seg_bounds)[1]
+        self._step = sparsify.begin_fused(
+            sync.cfg, state, j, 1.0 / n, participate=p, key=key,
+            seg_bounds=sync.seg_bounds, stream_bounds=bounds)
+        self._pos = {off: (i, size)
+                     for i, (off, size) in enumerate(self._step.bounds)}
+
+    def feed_segment(self, g_seg: torch.Tensor, offset: int = None):
+        """Add one flat gradient segment: the next one in order, or the one
+        at ``offset`` of the stream's partition."""
+        if self._done:
+            raise RuntimeError("feed_segment() after finish()")
+        if offset is None:
+            offset = self._next
+        pos, size = self._pos.get(offset, (None, None))
+        if pos is None or size != g_seg.numel():
+            raise ValueError(f"no segment of {g_seg.numel()} elements at "
+                             f"offset {offset} in the stream's partition")
+        self._step.feed(pos, g_seg)
+        self._next = offset + size
+        self._fed += 1
+        return self
+
+    def side_outputs(self) -> list:
+        """The tensors the feeds allocated (for ``record_stream`` when they
+        ran on another CUDA stream than ``finish``)."""
+        return self._step.step.side_outputs()
+
+    def finish(self, *, with_stats: bool = False):
+        """Trim and pack, run the collective, observe: (g_agg, new_state[,
+        stats]), as the flat call returns them."""
+        if self._done:
+            raise RuntimeError("finish() called twice on one stream")
+        if not self._fed:
+            raise ValueError("finish() with no fed segments")
+        self._done = True
+        return self._gs._close(self._step.finish(), self._step.step.j,
+                               self._p, with_stats)
 
 
 def _worker_key(key, i: int):

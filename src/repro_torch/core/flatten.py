@@ -65,6 +65,39 @@ class TreeFlattener:
                   else tree_leaves(tree_or_leaves))
         return torch.cat([leaf.reshape(-1).float() for leaf in leaves])
 
+    def flatten_segments(self, tree_or_leaves, bounds) -> list:
+        """One flat fp32 vector per segment of ``bounds``, a leaf-aligned
+        contiguous partition of [0, total) (``core.allocate.
+        layer_segments`` over :meth:`layer_bounds`), each built only from
+        that segment's leaves; their concatenation is :meth:`flatten`'s
+        vector. Raises on bounds that cut a leaf or miss one."""
+        leaves = (tree_or_leaves if isinstance(tree_or_leaves, (list, tuple))
+                  else tree_leaves(tree_or_leaves))
+        segs, li = [], 0
+        for off, size in bounds:
+            if li >= len(self.offsets) or self.offsets[li] != off:
+                raise ValueError(
+                    f"segment offset {off} is not leaf-aligned "
+                    f"(leaf offsets: {self.offsets[li:li + 2]}...)")
+            parts, have = [], 0
+            while have < size:
+                parts.append(leaves[li].reshape(-1).float())
+                have += self.sizes[li]
+                li += 1
+            if have != size:
+                raise ValueError(
+                    f"segment (off={off}, size={size}) cuts inside a leaf")
+            segs.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        if li != len(leaves):
+            raise ValueError("bounds do not cover every leaf")
+        return segs
+
+    def layer_bounds(self) -> list:
+        """Per-leaf (offset, size) of the flat vector: what
+        ``core.allocate.layer_segments`` groups into layer-aligned
+        segments."""
+        return list(zip(self.offsets, self.sizes))
+
     def unflatten(self, vec: torch.Tensor) -> dict:
         """Tree of VIEWS into ``vec`` (no copy)."""
         return tree_from_items(

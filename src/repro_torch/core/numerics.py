@@ -108,6 +108,38 @@ def tanh_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _TANH_SMALL, x, num / den)
 
 
+# XLA's CPU backend rewrites a reduction longer than this into windows of
+# this many elements (TreeReductionRewriter)
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """0-d fp32 sum of a 1-D fp32 tensor in the order the compiled
+    reference's CPU program adds it: XLA cuts a reduction of more than 32
+    elements into windows of 32 (the vector zero-padded to a multiple of
+    32, half of the padding in front and the rest behind), adds each
+    window in order from 0.0, and repeats on the window sums until 32 or
+    fewer are left, which it adds in order from 0.0. No fused
+    multiply-add: a product feeding the sum is rounded first. Elementwise
+    adds only, so the bits are the same on every device."""
+    x = x.reshape(-1).float()
+    w = XLA_REDUCE_WINDOW
+    while x.numel() > w:
+        n = x.numel()
+        pad = -(-n // w) * w - n
+        x = _sum_in_order(torch.nn.functional.pad(
+            x, (pad // 2, pad - pad // 2)).view(-1, w))
+    return _sum_in_order(x.view(1, -1)).reshape(())
+
+
+def _sum_in_order(v: torch.Tensor) -> torch.Tensor:
+    """Row sums of a 2-D tensor, each added column by column from 0.0."""
+    acc = torch.zeros(v.shape[0], dtype=v.dtype, device=v.device)
+    for c in range(v.shape[1]):
+        acc = acc + v[:, c]
+    return acc
+
+
 def recip_f32(x: float) -> float:
     """fp32 1/x. A compiled reference program divides by a constant mu
     as a multiply by this reciprocal (XLA's algebraic simplifier)."""

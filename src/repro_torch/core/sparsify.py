@@ -85,7 +85,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
-from repro_torch.core import bigvec, select
+from repro_torch.core import allocate, bigvec, select
 from repro_torch.core.numerics import (fma_f32, recip_f32,
                                        regularizer_factor, safe_denom,
                                        tanh_f32)
@@ -109,9 +109,6 @@ class CompressOut:
                                           # worker); None: all k live
 
 
-# (field, values the port serves, ROADMAP item that ports the rest)
-_COMMON = (("allocation", ("global",), "A9 (density allocation)"),
-           ("overlap", ("none",), "A11 (streaming overlap)"))
 _PIPELINES = ("fused", "reference")
 # per kind: where its top-k is decided
 _SLICE = {"topk": "local", "dgc": "local", "regtopk": "local",
@@ -153,9 +150,6 @@ def check_supported(cfg: SparsifierConfig) -> None:
                         "reference pipeline in the reference: pass "
                         "pipeline='reference')" if sel == "local" else
                         "A12 (sketch selectors)")
-    for field, served, item in _COMMON:
-        if getattr(cfg, field) not in served:
-            raise _unported(cfg, field, served, item)
     if cfg.num_buckets == 0:
         raise _unported(cfg, "num_buckets", "num_buckets >= 1",
                         "A16 (the bucket auto-tune: its interconnect "
@@ -180,6 +174,11 @@ def check_supported(cfg: SparsifierConfig) -> None:
         raise _unported(cfg, "ef_dtype", ("float32",),
                         "A8 (bf16 REGTOP-k and histogram selectors on the "
                         "reference pipeline)")
+    # the reference's ValueErrors: allocation needs a per-worker exact-k
+    # selection, streaming the fused pipeline
+    from repro_torch.kernels.compress.dispatch import check_overlap
+    allocate.check_allocation(cfg)
+    check_overlap(cfg)
 
 
 def selection(cfg: SparsifierConfig) -> str:
@@ -256,9 +255,9 @@ def _release(state: dict, donate: bool, *keys) -> None:
             state.pop(key, None)
 
 
-def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-             omega: float = 1.0, *, donate: bool = False,
-             participate=None, key=None) -> CompressOut:
+def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
+             donate: bool = False, participate=None, key=None,
+             seg_bounds=None, g_segments=None) -> CompressOut:
     """Sparsify one worker's flat fp32 gradient; omega = its weight w_n.
     The new state holds new buffers (the reference pipeline's a becomes
     a_prev as it is). ``state`` is only read, unless ``donate``: then the
@@ -270,7 +269,17 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     returns the gradient as ``ghat`` under an all-ones ``mask`` (both
     zero for a sitting-out worker). randk draws its indices from ``key``
     (a (2,) threefry key, ``core.threefry``). With a bf16 ``ef_dtype``
-    the gradient is rounded to bf16 first, as the reference casts it."""
+    the gradient is rounded to bf16 first, as the reference casts it.
+
+    ``cfg.allocation`` "proportional" or "adaptive" splits k over the
+    segments ``seg_bounds`` ([(offset, size), ...]; by default the
+    near-equal cut of ``allocate.resolve_num_segments``) on either
+    pipeline. ``cfg.overlap="backward"`` (fused pipeline) cuts the sweeps
+    by the stream's partition: the segments of ``g_segments`` (per-segment
+    arrays in place of ``g``, which must then be None), or for a flat g
+    the allocation's segments, else the resolved near-equal cut; the
+    output is the flat call's, bit for bit. With both, one partition
+    drives the stream and the allocation."""
     sel = selection(cfg)
     if sel == "global":
         raise RuntimeError("globaltopk is aggregate-level; run it through "
@@ -279,17 +288,33 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         raise RuntimeError("sketchtopk selection is aggregate-level; run "
                            "it through aggregate.GradientSync (call or "
                            "round)")
-    k = resolve_k(cfg, g.numel())
-    g = g.float()
+    if g_segments is not None:
+        if g is not None:
+            raise ValueError("pass g or g_segments, not both")
+        if cfg.overlap != "backward":
+            raise ValueError("g_segments requires overlap='backward'")
+        j = sum(int(gs.numel()) for gs in g_segments)
+    else:
+        j = g.numel()
+    k = resolve_k(cfg, j)
     p = None if participate is None else participate.reshape(())
+    seg_bounds, stream_bounds = partitions(
+        cfg, j, seg_bounds, None if g_segments is None else
+        [int(gs.numel()) for gs in g_segments])
+    if cfg.pipeline == "fused" and sel == "local":
+        step = begin_fused(cfg, state, j, omega, participate=p, key=key,
+                           seg_bounds=seg_bounds, stream_bounds=stream_bounds)
+        for pos, (off, size) in enumerate(step.bounds):
+            step.feed(pos, g[off:off + size] if g_segments is None
+                      else g_segments[pos])
+        return step.finish()
+    g = g.float()
     if sel == "none":
         ones = torch.ones_like(g)
         if p is not None:
             g, ones = torch.where(p, g, 0.0), torch.where(p, ones, 0.0)
         return CompressOut({"step": state["step"] + 1}, None, None,
                            ghat=g, mask=ones)
-    if cfg.pipeline == "fused":
-        return _compress_fused(cfg, state, g, k, omega, p, key)
     g = g.to(state_dtype(cfg))
     if p is not None:
         # the fused pipeline's masked inputs, so that both pipelines'
@@ -301,9 +326,9 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         state["err"] = err              # a donated old err is freed here
         del err
     if cfg.kind == "dgc":
-        return _compress_dgc(cfg, state, g, k, donate, p)
+        return _compress_dgc(cfg, state, g, k, donate, p, seg_bounds)
     if cfg.kind == "randk":
-        return _compress_randk(cfg, state, g, k, key, donate, p)
+        return _compress_randk(cfg, state, g, k, key, donate, p, seg_bounds)
     if cfg.kind == "regtopk" and not _dense_posterior(cfg):
         return _compress_regtopk_sparse(cfg, state, g, k, omega, donate, p)
     new = {"step": state["step"] + 1}
@@ -327,7 +352,8 @@ def compress(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
                 frozen = {key: state[key] for key in ("a_prev", "s_prev")}
         _release(state, donate, "err", "a_prev", "s_prev")
     with record_function("compress/select"):
-        mask, values, indices = _reference_select(cfg, a, score, k)
+        mask, values, indices = _reference_select(cfg, a, score, k,
+                                                  seg_bounds)
     del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
@@ -380,9 +406,14 @@ def _mask_elastic(p, mask, values, indices, k: int):
 
 
 def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
-                      score: torch.Tensor, k: int):
+                      score: torch.Tensor, k: int, seg_bounds=None):
     """(mask, values, indices) by cfg.selector over the whole vector;
-    packed pairs only for the exact selector (exactly k entries)."""
+    packed pairs only for the exact selector (exactly k entries). An
+    allocated mode selects per segment of ``seg_bounds``
+    (``allocate.reference_allocated_select``), exactly k entries."""
+    if cfg.allocation != "global":
+        return allocate.reference_allocated_select(cfg, a, score, k,
+                                                   seg_bounds)
     if cfg.selector != "exact":
         return select.topk_mask(score, k, cfg.selector), None, None
     idx = select.topk_indices(score, k)
@@ -391,18 +422,25 @@ def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
 
 
 def _compress_randk(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                    k: int, key, donate: bool, p=None) -> CompressOut:
+                    k: int, key, donate: bool, p=None,
+                    seg_bounds=None) -> CompressOut:
     """RANDOM-k on the reference pipeline: a = err + g, the k positions
-    of ``select.randk_indices(key)`` (the fused pipeline's draw), the
-    dense mask and the packed pairs, ghat and err through the apply
-    kernel."""
+    of ``select.randk_indices(key)`` (the fused pipeline's draw; an
+    allocated mode draws each segment's proportional count with
+    ``allocate.randk_allocated_indices``), the dense mask and the packed
+    pairs, ghat and err through the apply kernel."""
     if key is None:
         raise ValueError("randk needs a PRNG key")
     with record_function("compress/scores"):
         a = state["err"] + g
         _release(state, donate, "err")
     with record_function("compress/select"):
-        idx = select.randk_indices(key, a.numel(), k)
+        if cfg.allocation != "global":
+            idx = allocate.randk_allocated_indices(
+                key, seg_bounds, allocate.proportional_counts(
+                    k, [size for _, size in seg_bounds]))
+        else:
+            idx = select.randk_indices(key, a.numel(), k)
         mask = bigvec.mask_from_indices(a.numel(), idx, a.dtype)
         values, indices = a[idx], bigvec.to_u32_bits(idx)
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
@@ -413,7 +451,8 @@ def _compress_randk(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
 
 
 def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                  k: int, donate: bool, p=None) -> CompressOut:
+                  k: int, donate: bool, p=None,
+                  seg_bounds=None) -> CompressOut:
     """DGC on the reference pipeline: the momentum update and a = err +
     mom' in plain tensor ops, the selector over a, ghat and err through
     the apply kernel, and the momentum masked as mom' * (1 - mask). A
@@ -435,7 +474,8 @@ def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         _release(state, donate, "err", "mom")
         del am
     with record_function("compress/select"):
-        mask, values, indices = _reference_select(cfg, a, score, k)
+        mask, values, indices = _reference_select(cfg, a, score, k,
+                                                  seg_bounds)
         del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
     with record_function("compress/apply"):
@@ -485,44 +525,108 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
     return CompressOut(new, values, indices, count=count)
 
 
-def _compress_fused(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
-                    k: int, omega: float, p=None, key=None) -> CompressOut:
-    from repro_torch.kernels.compress import ops
-    from repro_torch.kernels.compress.dispatch import fused_histogram
-    hist = fused_histogram(cfg)
-    kwargs = {}
-    if p is not None:
-        kwargs = dict(participate=p, err_decay=cfg.err_decay)
-    if cfg.kind == "regtopk":
-        kwargs.update(idx_prev=state["idx_prev"],
-                      a_prev_sel=state["a_prev_sel"].float(),
-                      g_prev_sel=state["g_prev_sel"].float(),
-                      nsel_prev=state["nsel"] if hist else None)
-    if cfg.kind == "dgc":
-        kwargs.update(mom=state["mom"], momentum=cfg.momentum)
-    out = ops.fused_compress_arrays(
-        cfg.kind, g, state["err_prev"], state["step"], k=k,
-        omega=omega, mu=cfg.mu, Q=cfg.Q, num_buckets=cfg.num_buckets,
-        selector="histogram" if hist else "exact", key=key, **kwargs)
-    new = {"err_prev": out["err"], "step": state["step"] + 1}
-    if cfg.kind == "dgc":
-        new["mom"] = out["mom"]             # selection-masked
-    if cfg.kind == "regtopk":
-        new["idx_prev"] = out["indices"]
-        new["a_prev_sel"] = out["values"].to(state_dtype(cfg))
-        new["g_prev_sel"] = torch.zeros_like(state["g_prev_sel"])
-        if hist:
-            new["nsel"] = out["count"]
+def partitions(cfg: SparsifierConfig, j: int, seg_bounds=None,
+               stream_sizes=None):
+    """(seg_bounds, stream_bounds) of a config at J: the allocation's
+    segments (``seg_bounds`` as given, or the near-equal cut of
+    ``allocate.resolve_num_segments``; None for allocation="global") and
+    the stream's partition under ``overlap="backward"`` (the segments of
+    ``stream_sizes`` when the gradient comes as such, else the
+    allocation's, else the near-equal cut; None without overlap). With
+    both, one partition drives both: a given ``seg_bounds`` must equal
+    the stream's."""
+    allocated = cfg.allocation != "global"
+    if seg_bounds is not None:
+        seg_bounds = [tuple(b) for b in seg_bounds]
+    stream_bounds = None
+    if stream_sizes is not None:
+        stream_bounds, off = [], 0
+        for size in stream_sizes:
+            stream_bounds.append((off, size))
+            off += size
+        if allocated:
+            if seg_bounds is None:
+                seg_bounds = stream_bounds
+            elif seg_bounds != stream_bounds:
+                raise ValueError(
+                    "streaming with allocation != 'global' needs "
+                    "seg_bounds == the g_segments partition")
+    if allocated and seg_bounds is None:
+        seg_bounds = allocate.segment_bounds(
+            j, allocate.resolve_num_segments(cfg, j))
+    if cfg.overlap == "backward" and stream_bounds is None:
+        stream_bounds = seg_bounds if allocated else allocate.segment_bounds(
+            j, allocate.resolve_num_segments(cfg, j))
+    return seg_bounds if allocated else None, stream_bounds
+
+
+def begin_fused(cfg: SparsifierConfig, state: dict, j: int,
+                omega: float = 1.0, *, participate=None, key=None,
+                seg_bounds=None, stream_bounds=None) -> "FusedCompress":
+    """Open one fused compress step over a J-length gradient that will
+    come one segment at a time (:class:`FusedCompress`): the sweeps'
+    partition is ``stream_bounds``, else the allocation's
+    ``seg_bounds``, else the buckets."""
+    return FusedCompress(cfg, state, j, omega, participate, key, seg_bounds,
+                         stream_bounds)
+
+
+class FusedCompress:
+    """A fused compress step fed segment by segment (``kernels.compress.
+    ops.FusedStep`` on this config and state): :meth:`feed` sweeps
+    segment ``pos`` of :attr:`bounds` as soon as its gradient exists,
+    :meth:`finish` returns the :class:`CompressOut` of :func:`compress`."""
+
+    def __init__(self, cfg, state, j, omega, p, key, seg_bounds,
+                 stream_bounds):
+        from repro_torch.kernels.compress import ops
+        from repro_torch.kernels.compress.dispatch import fused_histogram
+        self.cfg, self.state, self.p = cfg, state, p
+        self.hist = fused_histogram(cfg)
+        kwargs = {}
         if p is not None:
-            # posterior freeze (O(k) selects): a sitting-out worker's t-1
-            # support and values stay those of its last participating
-            # step; observe_aggregate freezes g_prev_sel alike
-            for name in ("idx_prev", "a_prev_sel", "g_prev_sel") + (
-                    ("nsel",) if hist else ()):
-                new[name] = torch.where(p, new[name], state[name])
-    count = out["count"] if p is not None or hist else None
-    return CompressOut(new, out["values"], out["indices"], out["fallback"],
-                       count=count)
+            kwargs = dict(participate=p, err_decay=cfg.err_decay)
+        if cfg.kind == "regtopk":
+            kwargs.update(idx_prev=state["idx_prev"],
+                          a_prev_sel=state["a_prev_sel"].float(),
+                          g_prev_sel=state["g_prev_sel"].float(),
+                          nsel_prev=state["nsel"] if self.hist else None)
+        if cfg.kind == "dgc":
+            kwargs.update(mom=state["mom"], momentum=cfg.momentum)
+        self.step = ops.FusedStep(
+            cfg.kind, state["err_prev"], state["step"], k=resolve_k(cfg, j),
+            omega=omega, mu=cfg.mu, Q=cfg.Q, num_buckets=cfg.num_buckets,
+            selector="histogram" if self.hist else "exact", key=key,
+            allocation=cfg.allocation, seg_bounds=seg_bounds,
+            bounds=stream_bounds, **kwargs)
+        self.bounds = self.step.bounds
+
+    def feed(self, pos: int, g_seg: torch.Tensor) -> None:
+        self.step.feed(pos, g_seg.float())
+
+    def finish(self) -> CompressOut:
+        cfg, state, p, hist = self.cfg, self.state, self.p, self.hist
+        out = self.step.finish()
+        new = {"err_prev": out["err"], "step": state["step"] + 1}
+        if cfg.kind == "dgc":
+            new["mom"] = out["mom"]             # selection-masked
+        if cfg.kind == "regtopk":
+            new["idx_prev"] = out["indices"]
+            new["a_prev_sel"] = out["values"].to(state_dtype(cfg))
+            new["g_prev_sel"] = torch.zeros_like(state["g_prev_sel"])
+            if hist:
+                new["nsel"] = out["count"]
+            if p is not None:
+                # posterior freeze (O(k) selects): a sitting-out worker's
+                # t-1 support and values stay those of its last
+                # participating step; observe_aggregate freezes
+                # g_prev_sel alike
+                for name in ("idx_prev", "a_prev_sel", "g_prev_sel") + (
+                        ("nsel",) if hist else ()):
+                    new[name] = torch.where(p, new[name], state[name])
+        count = out["count"] if p is not None or hist else None
+        return CompressOut(new, out["values"], out["indices"],
+                           out["fallback"], count=count)
 
 
 def observe_aggregate(cfg: SparsifierConfig, state: dict,

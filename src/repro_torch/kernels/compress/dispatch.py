@@ -84,3 +84,33 @@ def packed_len(cfg: SparsifierConfig, j: int) -> int:
     k = sparsify.resolve_k(cfg, j)
     sparsify.check_supported(cfg)
     return hist_capacity(k, j) if fused_histogram(cfg) else k
+
+
+def check_overlap(cfg: SparsifierConfig) -> None:
+    """Raise the reference's ValueError for an ``overlap`` the config
+    cannot stream: only the fused pipeline's per-worker compress step
+    takes the gradient a segment at a time; the sketch's all-reduce is a
+    barrier over the whole accumulated gradient, and the reference
+    pipeline's dense math does not partition."""
+    overlap = getattr(cfg, "overlap", "none")
+    if overlap not in ("none", "backward"):
+        raise ValueError(f"overlap={overlap!r} (expected 'none' or "
+                         "'backward')")
+    if overlap != "backward":
+        return
+    if cfg.kind == "sketchtopk":
+        raise ValueError(
+            "overlap='backward' is not defined for sketch-coordinated "
+            "selection (kind='sketchtopk'): the sketch all-reduce is a "
+            "pre-selection barrier over the WHOLE accumulated gradient, "
+            "so no per-segment stream can launch before the shared mask "
+            "exists (DESIGN.md §2.9)")
+    if cfg.pipeline != "fused" or cfg.kind not in FUSED_KINDS:
+        reason = (f"pipeline={cfg.pipeline!r} requested"
+                  if cfg.pipeline != "fused" else
+                  f"kind={cfg.kind!r} has no per-worker compress step the "
+                  "two-sweep pipeline can serve (aggregate-level "
+                  "selection)")
+        raise ValueError("overlap='backward' requires the fused pipeline; "
+                         f"this config dispatches to the reference path "
+                         f"({reason})")

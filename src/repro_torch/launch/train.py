@@ -15,6 +15,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --comm sparse --pipeline fused --num-buckets 8 \
       --wire-dtype bfloat16 --selector histogram --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+      --smoke --comm sparse --pipeline fused --allocation adaptive \
+      --overlap backward --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \
       --smoke --comm sparse --pipeline fused --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
@@ -72,6 +75,30 @@ def parse_args(argv=None):
                          "chunks; selection is bucketing-invariant; 1 "
                          "disables bucketing (0, the reference's "
                          "auto-tune, is not ported: ROADMAP A16)")
+    ap.add_argument("--allocation", default="global",
+                    choices=["global", "proportional", "adaptive"],
+                    help="density allocation: how the budget k splits over "
+                         "layer-aligned segments of the flat gradient "
+                         "before selection. global = one flat top-k (the "
+                         "paper); proportional = k_l ~ segment size; "
+                         "adaptive = k_l from per-segment second moments "
+                         "of the score. Every mode keeps sum(k_l) == k, "
+                         "so the sparse wire is unchanged. Needs "
+                         "--selector exact")
+    ap.add_argument("--num-segments", type=int, default=0,
+                    help="segment count for --allocation != global (and "
+                         "the stream's under --overlap backward): 0 "
+                         "follows --num-buckets (or 8 for one bucket); "
+                         "the cut is aligned to parameter leaves")
+    ap.add_argument("--overlap", default="none",
+                    choices=["none", "backward"],
+                    help="streaming compression: backward feeds the "
+                         "gradient into the fused pipeline one "
+                         "layer-aligned segment at a time as the backward "
+                         "pass produces it, its sweeps running on a side "
+                         "CUDA stream; the trim, pack and collective are "
+                         "the only barrier. The same bits as none; needs "
+                         "--pipeline fused")
     ap.add_argument("--selector", default="exact",
                     choices=["exact", "histogram"],
                     help="top-k selection rule: exact lax.top_k order, or "
@@ -172,7 +199,8 @@ def run_config(args):
             selector=args.selector, num_buckets=args.num_buckets,
             wire_dtype=args.wire_dtype, sketch_rows=args.sketch_rows,
             sketch_width=args.sketch_width, err_decay=args.err_decay,
-            combine=args.combine),
+            combine=args.combine, allocation=args.allocation,
+            num_segments=args.num_segments, overlap=args.overlap),
         optimizer=OptimizerConfig(kind=args.optimizer, lr=args.lr),
         seed=args.seed, steps=args.steps, log_every=args.log_every,
         fault_schedule=resolve_fault_spec(args),
@@ -229,6 +257,11 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     j = tree_size(state.params)
     log(f"[train] {run.model.name}: {j:,} params, sparsifier="
         f"{run.sparsifier.kind}@{run.sparsifier.sparsity}, device={dev}")
+    if step.stream_bounds is not None or step.seg_bounds is not None:
+        sp = run.sparsifier
+        log(f"[train] allocation={sp.allocation} overlap={sp.overlap}: "
+            f"{len(step.stream_bounds or step.seg_bounds)} layer-aligned "
+            f"segments (num_segments={sp.num_segments})")
     if run.fault_schedule:
         from repro_torch.core import faults
         from repro_torch.core.aggregate import world

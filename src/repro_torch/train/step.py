@@ -19,6 +19,12 @@ Per step:
    for the step is evaluated on the device from the sparsifier state's
    step counter (``core.faults.participates``, parsed once at build
    time), and the metrics gain ``n_active`` and ``dropped_nonfinite``.
+   With ``allocation`` proportional or adaptive the budget splits over
+   layer-aligned segments (``core.allocate.layer_segments`` over the
+   leaf layout); with ``overlap="backward"`` steps 1-3 interleave: each
+   segment (the same cut) is fed to the sync as soon as the backward
+   pass has produced its leaves' gradients, its sweeps running on a side
+   CUDA stream behind the rest of the backward pass (``_streamed``).
    The step hands the old sparsifier state to the sync (donates it), so
    the reference pipeline's dense J-vectors are freed as soon as the
    compressor has read them: the old TrainState's ``ef`` is consumed;
@@ -104,7 +110,25 @@ class TrainStep:
         configure_numerics()
         self.run = run
         self.group = group
-        self.gsync = GradientSync(run.sparsifier, group)
+        sp = run.sparsifier
+        # the leaf layout, from parameters drawn on the meta device: the
+        # allocation's segments are layer-aligned (leaves grouped, never
+        # cut), and the stream's are the same cut (or the same rule when
+        # the allocation is global)
+        flat = TreeFlattener(init_params(resolve_model_cfg(run),
+                                         torch.Generator(),
+                                         torch.device("meta")))
+        cut = None
+        if sp.allocation != "global" or sp.overlap == "backward":
+            from repro_torch.core import allocate
+            cut = allocate.layer_segments(
+                flat.layer_bounds(),
+                allocate.resolve_num_segments(sp, flat.total))
+        self.seg_bounds = cut if sp.allocation != "global" else None
+        self.stream_bounds = cut if sp.overlap == "backward" else None
+        self._side = None               # the stream the segments are fed on
+        self.gsync = GradientSync(sp, group, seg_bounds=self.seg_bounds,
+                                  stream_bounds=self.stream_bounds)
         self.schedule = faults.parse_schedule(run.fault_schedule)
         if self.schedule is not None:
             self.gsync.check_participation(self.schedule)
@@ -114,30 +138,35 @@ class TrainStep:
         n, rank = world(self.group)
         flat = TreeFlattener(state.params)
         leaves = tree_leaves(state.params)
-        with record_function("train/loss_grad"):
-            loss = loss_fn(state.params, batch, cfg)
-            grads = torch.autograd.grad(loss, leaves)
-        with record_function("train/flatten"):
-            g = flat.flatten(list(grads))
-            del grads
-            gnorm_local = torch.linalg.vector_norm(g)
-        with record_function("train/sync"):
-            ef, state.ef = state.ef, None
-            stats = None
-            key = None
-            if self.run.sparsifier.kind == "randk":
-                # the reference's: the run's seed key, folded with the
-                # data-parallel rank (the same key every step)
-                key = threefry.fold_in(threefry.prng_key(self.run.seed,
-                                                         g.device), rank)
-            if self.schedule is None:
-                g_agg, ef = self.gsync(ef, g, donate=True, key=key)
-            else:
-                part = faults.participates(self.schedule, ef["step"], rank)
-                g_agg, ef, stats = self.gsync(ef, g, participate=part,
-                                              donate=True, with_stats=True,
-                                              key=key)
-            del g
+        ef, state.ef = state.ef, None
+        dev = leaves[0].device
+        key = part = stats = None
+        if self.run.sparsifier.kind == "randk":
+            # the reference's: the run's seed key, folded with the
+            # data-parallel rank (the same key every step)
+            key = threefry.fold_in(threefry.prng_key(self.run.seed, dev),
+                                   rank)
+        if self.schedule is not None:
+            part = faults.participates(self.schedule, ef["step"], rank)
+        if self.stream_bounds is not None:
+            loss, g_agg, ef, stats, gnorm_local = self._streamed(
+                state, batch, cfg, flat, leaves, ef, key, part)
+        else:
+            with record_function("train/loss_grad"):
+                loss = loss_fn(state.params, batch, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+            with record_function("train/flatten"):
+                g = flat.flatten(list(grads))
+                del grads
+                gnorm_local = torch.linalg.vector_norm(g)
+            with record_function("train/sync"):
+                if part is None:
+                    g_agg, ef = self.gsync(ef, g, donate=True, key=key)
+                else:
+                    g_agg, ef, stats = self.gsync(ef, g, participate=part,
+                                                  donate=True,
+                                                  with_stats=True, key=key)
+                del g
         with record_function("train/optimizer"):
             shard = opt_shard_len(flat.total, n)
             opt = state.opt
@@ -163,6 +192,86 @@ class TrainStep:
         if stats is not None:
             metrics.update(stats)        # already sums over the ranks
         return TrainState(params, opt, ef), metrics
+
+    def _streamed(self, state, batch, cfg, flat, leaves, ef, key, part):
+        """Loss and gradient with the sync's compression streamed behind
+        the backward pass (``overlap="backward"``): a hook on each leaf
+        copies its gradient into its place in one (J,) buffer; when a
+        segment's last leaf has arrived, an event is recorded on the
+        producing stream and the segment is fed to the sync on a side
+        CUDA stream that waits on it, so its sweeps run while the
+        backward pass goes on. ``finish`` waits for the side stream. A
+        leaf used twice (tied embeddings) fires its hook once, with the
+        summed gradient. Returns (loss, g_agg, ef, stats, gnorm_local),
+        gnorm_local the reference's per-segment form (the square root of
+        the sum of the segments' sums of squares)."""
+        bounds = self.stream_bounds
+        # each leaf's segment (an empty leaf carries nothing: no hook)
+        seg_of = [None if size == 0 else
+                  next(pos for pos, (off, sz) in enumerate(bounds)
+                       if off <= o < off + sz)
+                  for o, size in zip(flat.offsets, flat.sizes)]
+        left = [0] * len(bounds)
+        for pos in seg_of:
+            if pos is not None:
+                left[pos] += 1
+        buf = torch.empty(flat.total, dtype=torch.float32,
+                          device=leaves[0].device)
+        cuda = buf.device.type == "cuda"
+        if cuda and self._side is None:
+            self._side = torch.cuda.Stream(buf.device)
+        side = self._side
+        stream = self.gsync.begin(ef, key=key, participate=part)
+
+        def feed(pos: int) -> None:
+            off, size = bounds[pos]
+            seg = buf[off:off + size]
+            if not cuda:
+                stream.feed_segment(seg, offset=off)
+                return
+            ready = torch.cuda.Event()
+            ready.record()              # on the producing stream
+            side.wait_event(ready)
+            with torch.cuda.stream(side):
+                stream.feed_segment(seg, offset=off)
+
+        def hook(i: int):
+            off, size = flat.offsets[i], flat.sizes[i]
+
+            def arrived(grad):
+                buf[off:off + size].copy_(grad.reshape(-1))
+                pos = seg_of[i]
+                left[pos] -= 1
+                if not left[pos]:
+                    feed(pos)
+            return arrived
+
+        handles = [leaf.register_hook(hook(i))
+                   for i, leaf in enumerate(leaves) if seg_of[i] is not None]
+        try:
+            with record_function("train/loss_grad"):
+                loss = loss_fn(state.params, batch, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+                del grads
+        finally:
+            for h in handles:
+                h.remove()
+        with record_function("train/sync"):
+            # buf was written on this stream: its norm need not wait for
+            # the side stream's sweeps
+            gnorm_local = torch.sqrt(sum(
+                buf[off:off + size].square().sum() for off, size in bounds))
+            if cuda:
+                main = torch.cuda.current_stream(buf.device)
+                main.wait_stream(side)
+                for x in [buf] + stream.side_outputs():
+                    x.record_stream(side if x is buf else main)
+            if part is None:
+                g_agg, ef = stream.finish()
+                stats = None
+            else:
+                g_agg, ef, stats = stream.finish(with_stats=True)
+        return loss, g_agg, ef, stats, gnorm_local
 
 
 def build_train_step(run: RunConfig, device=None, group=None) -> TrainStep:

@@ -385,12 +385,25 @@ def test_wire_byte_models_match_reference():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_buckets", 0, "A16"), ("overlap", "backward", "A11"),
-    ("allocation", "adaptive", "A9")])
+    ("num_buckets", 0, "A16"), ("overlap", "backward", None),
+    ("allocation", "adaptive", None)])
 def test_wire_byte_models_refuse_configs_outside_the_port(field, value,
                                                           item):
-    _, cfg = _cfgs(comm_mode="sparse", pipeline="fused")
+    """A config outside the port raises, naming its ROADMAP item; the
+    ones since ported (allocation, streaming: ``item`` None) model the
+    reference's wire bytes."""
+    jcfg, cfg = _cfgs(comm_mode="sparse", pipeline="fused")
     bad = dataclasses.replace(cfg, **{field: value})
+    if item is None:
+        jbad = dataclasses.replace(jcfg, **{field: value})
+        for fn, jfn in ((aggregate.comm_bytes_per_step,
+                         jagg.comm_bytes_per_step),
+                        (aggregate.sparse_gather_wire_bytes,
+                         jagg.sparse_gather_wire_bytes)):
+            assert fn(bad, 1000, 8) == jfn(jbad, 1000, 8)
+        from repro.kernels.compress.dispatch import packed_len
+        assert dispatch.packed_len(bad, 1000) == packed_len(jbad, 1000)
+        return
     for fn in (aggregate.comm_bytes_per_step,
                aggregate.sparse_gather_wire_bytes,
                aggregate.sketch_allreduce_bytes):

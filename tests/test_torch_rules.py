@@ -37,7 +37,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "configs/granite_8b.py", "configs/qwen1_5_32b.py",
                    "configs/starcoder2_7b.py", "serve/delta.py",
                    "checkpoint/__init__.py", "checkpoint/io.py",
-                   "core/faults.py"):
+                   "core/faults.py", "core/allocate.py"):
         assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -71,6 +71,10 @@ def test_cpu_step_runs_without_jax(tmp_path):
         " '--prompt-len', '8', '--new-tokens', '2', '--device', 'cpu',"
         " '--apply-deltas', 'spool',"
         " '--delta-fault-schedule', 'loss:0.4,seed=2'])\n"
+        "main(['--arch', 'stablelm-3b', '--smoke', '--steps', '2',"
+        " '--batch', '2', '--seq', '16', '--device', 'cpu',"
+        " '--comm', 'sparse', '--pipeline', 'fused',"
+        " '--allocation', 'adaptive', '--overlap', 'backward'])\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.')"
         " for m in sys.modules)\n"
@@ -165,15 +169,17 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("field,value,item", [
     ("selector", "histogram_kernel", "A8"), ("num_buckets", 0, "A16"),
-    ("allocation", "adaptive", "A9"), ("overlap", "backward", "A11"),
+    ("allocation", "adaptive", None), ("overlap", "backward", None),
     ("ef_dtype", "bfloat16", "A8"), ("selector", "histogram", "A8"),
-    ("kind", "none", "A8"), ("allocation", "proportional", "A9"),
+    ("kind", "none", "A8"), ("allocation", "proportional", None),
     ("kind", "globaltopk", "A8"), ("state_format", "sparse", "A8")])
 def test_configs_outside_the_slice_raise(field, value, item):
     """What the port does not serve yet raises, naming its ROADMAP item:
     on the fused pipeline (the base), and with a bf16 error state on the
     reference pipeline (REGTOP-k either layout, the histogram selectors)
-    and for the dense-wire baselines, where ``ef_dtype`` is bf16."""
+    and for the dense-wire baselines, where ``ef_dtype`` is bf16. The
+    fused pipeline's allocation and streaming (``item`` None) are served
+    since they were ported: the sync builds and the state initialises."""
     fused = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
                                   comm_mode="sparse")
     cfg = fused if field in ("allocation", "overlap", "num_buckets") or \
@@ -184,6 +190,11 @@ def test_configs_outside_the_slice_raise(field, value, item):
         cfg = dataclasses.replace(cfg, ef_dtype="float32")
     aggregate.GradientSync(dataclasses.replace(cfg, ef_dtype="float32"))
     bad = dataclasses.replace(cfg, **{field: value})
+    if item is None:
+        aggregate.GradientSync(bad)
+        st = sparsify.init_state(bad, 100, "cpu")
+        assert set(st) == set(sparsify.init_state(cfg, 100, "cpu"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         aggregate.GradientSync(bad)
     with pytest.raises(NotImplementedError):
@@ -277,16 +288,31 @@ def test_sketch_kernels_on_other_devices_raise(fn):
 
 @pytest.mark.parametrize("field,value,item", [
     ("num_buckets", 4, "A12"), ("wire_dtype", "bfloat16", "A12"),
-    ("allocation", "proportional", "A9"), ("selector", "histogram", "A12"),
-    ("ef_dtype", "bfloat16", "A12"), ("overlap", "backward", "A11"),
+    ("allocation", "proportional", ValueError),
+    ("selector", "histogram", "A12"),
+    ("ef_dtype", "bfloat16", "A12"), ("overlap", "backward", ValueError),
     ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
-    ("num_buckets", 0, "A16"), ("allocation", "adaptive", "A9")])
+    ("num_buckets", 0, "A16"), ("allocation", "adaptive", ValueError)])
 def test_sketch_configs_outside_the_slice_raise(field, value, item):
+    """The sketch's unported fields raise NotImplementedError naming their
+    ROADMAP item; allocation and streaming, which the reference does not
+    define for the sketch (``item`` ValueError), raise its ValueError,
+    at build time as the reference's GradientSync does."""
+    from repro.configs.base import SparsifierConfig as JaxSparsifierConfig
+    from repro.core import aggregate as jagg
     for pipeline in ("fused", "reference"):
         cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline=pipeline,
                                     comm_mode="sparse")
         aggregate.GradientSync(cfg)
         bad = dataclasses.replace(cfg, **{field: value})
+        if item is ValueError:
+            with pytest.raises(ValueError) as ref:
+                jagg.GradientSync(JaxSparsifierConfig(
+                    **dataclasses.asdict(bad)), None)
+            with pytest.raises(ValueError) as got:
+                aggregate.GradientSync(bad)
+            assert str(got.value) == str(ref.value)
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             aggregate.GradientSync(bad)
 
