@@ -17,11 +17,15 @@ the device, build and serve phases, the fourth only the device, build
 and delta phases. The fifth needs
 four cards and runs only the multi-card check: one process a card,
 joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
-comm), of dense SGD and of REGTOP-k with the packed pairs in 4 chunks on
-the bf16 wire; g_agg must be bitwise the same on every rank and, with
+comm), of dense SGD, of REGTOP-k with the packed pairs in 4 chunks on
+the bf16 wire, and of the sketch's values-only combine in 4 chunks on
+the bf16 wire (bf16 state) and under participation bits with one rank
+out a step; g_agg must be bitwise the same on every rank and, with
 every rank's state, equal to an in-process ``round()`` of the same four
 workers (for the chunked bf16 wire, to the same workers' compress steps
-and an in-process chunk-by-chunk combine of their bf16-rounded values).
+and an in-process chunk-by-chunk combine of their bf16-rounded values;
+for the sketch, to the same workers' encodes, mean sketch and
+values-only combine computed in one process).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -45,7 +49,11 @@ line and raising on any failure:
              reference pipeline (kernel sketch_encode), on the card and on
              CPU copies: a bitwise, the sketch within its stated bound,
              then the card's mean sketch decoded on both devices: indices,
-             g_agg and the error state bitwise;
+             g_agg and the error state bitwise; then sketch_elastic_sync:
+             both pipelines in fp32 and bf16 state (8 chunks on the bf16
+             wire) on the card, an all-in participation bit equal bit for
+             bit to no bit over 3 steps (dyadic gradients), a sitting-out
+             step giving g_agg 0 and the decayed error;
 6. train:    the port's main path through its launcher: StableLM-3B at
              full width cut to 8 layers, a few REGTOP-k sparse-sync steps,
              with every kernel's launch count read around that run;
@@ -131,6 +139,19 @@ line and raising on any failure:
              with the cast of every fp32 weight at its use: 8 B a
              parameter; B rows of the token table; the valid cache
              slots), tokens a second, peak memory, one profiled step;
+20c. train_sketch_elastic, train_sketch_bucketed,
+             train_sketch_reference_elastic, train_sketch_hist,
+             train_reference_bf16, each with its profile: sketchtopk fused
+             under the fault schedule with err_decay 0.9 (B3's gated form
+             once a step, n_active [0, 1, 1, 0, 1]); with 8 buckets, the
+             bf16 state and wire (B3's bf16 read once a step: the encode
+             is flat, the buckets chunk the values-only wire); the
+             reference pipeline with a bf16 state and sparse comm under
+             the schedule (B4 once a step); the reference launcher's
+             sketch defaults with the histogram_kernel selector (B4, B7
+             and B6 once a step); REGTOP-k at the reference launcher's
+             defaults with a bf16 state (B5's bf16 read and B6 once a
+             step);
 22. delta:   learning while serving in one process: the train phase's
              cell publishes a delta of k = 892,032 after each of its 5
              steps (B1, B2 once a step) to a spool, with the version-0
@@ -181,9 +202,13 @@ atomics add in another order than the plain version, at the ragged J
 beyond the 2^24 buckets a hash reaches; 1 and 3 rows) and at the main
 shape; also the start table against the plain one, whether two runs of
 each encode give the same bits, the chunks and pair buffer, the time to
-build the start table, and each encode's time by kernel. Then the dense
-REGTOP-k score and apply (kernels_fused_ef, bit patterns equal, over a
-grid of mu, Q and omega with exact zeros of a and zero divisors) and the
+build the start table, and each encode's time by kernel; then B3's
+gated form (gate 0 and 1) and bf16 read (kernels_sketch_modes: a with
+``torch.equal`` to the plain version, the sketch as above, gate 1 equal
+to the ungated kernel) at the ragged J (two widths) and the main shape.
+Then the dense REGTOP-k score and apply (kernels_fused_ef, bit patterns
+equal, over a grid of mu, Q and omega with exact zeros of a and zero
+divisors; the score's bf16 read too) and the
 linear histogram (kernels_topk_select, counts equal, on Gaussian, zero,
 edge, NaN and concentrated inputs and on every bin edge and its fp32
 neighbours for four amax values, the floor included; timed beside
@@ -308,6 +333,26 @@ TRAIN_PATHS = {
         ("scores", "apply"), ""),
     "train_overlap": (dict(kind="regtopk", overlap="backward", **FUSED),
                       {"sweep1": SEGS, "sweep2": SEGS}, ""),
+    # the sketch's elastic, bucketed and bf16 paths: B3's gated form under
+    # the fault schedule; 8 buckets with the bf16 state and wire (B3's bf16
+    # read once a step: the encode stays flat, the buckets chunk the
+    # values-only wire); the reference pipeline with a bf16 state under the
+    # schedule (B4); and its histogram_kernel selector with the simulate
+    # combine (B4, B7 and B6)
+    "train_sketch_elastic": (dict(kind="sketchtopk", **FUSED, **ELASTIC),
+                             ("sweep1_sketch_gated",), FAULT_SCHEDULE),
+    "train_sketch_bucketed": (dict(kind="sketchtopk", num_buckets=BUCKETS,
+                                   **FUSED, **BF16),
+                              ("sweep1_sketch_bf16",), ""),
+    "train_sketch_reference_elastic": (
+        dict(SKETCH_REFERENCE, comm_mode="sparse", ef_dtype="bfloat16",
+             **ELASTIC), ("sketch_encode",), FAULT_SCHEDULE),
+    "train_sketch_hist": (dict(SKETCH_REFERENCE, selector="histogram_kernel"),
+                          ("sketch_encode", "histogram", "apply"), ""),
+    # REGTOP-k at the reference launcher's defaults with a bf16 state: B5's
+    # bf16 read and B6
+    "train_reference_bf16": (dict(REFERENCE_DEFAULT, ef_dtype="bfloat16"),
+                             ("scores_bf16", "apply"), ""),
 }
 # the paths whose sync cuts the gradient into layer-aligned segments
 SEGMENTED = ("train_proportional", "train_adaptive",
@@ -350,7 +395,7 @@ PAPER_ROUND_KERNELS = {"topk": ("apply",), "regtopk": ("scores", "apply"),
                        "sketchtopk": ("sketch_encode", "apply")}
 FIG1_ITERS = 100
 FIG2_ITERS = 1500            # fig2's claims and the genie's
-FIG2_TABLE_ITERS = 600       # EXPERIMENTS.md's table (3000 there), cut to
+FIG2_TABLE_ITERS = 300       # EXPERIMENTS.md's table (3000 there), cut to
                              # keep the paper phase near two minutes
 FIG3_ITERS = 150
 KERNEL_META = {
@@ -370,10 +415,21 @@ KERNEL_META = {
                "src/repro/kernels/compress/kernel.py:223"),
     "sweep1_sketch": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
                       "src/repro/kernels/compress/kernel.py:335"),
+    "sweep1_sketch_gated": (
+        "src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
+        "src/repro/kernels/compress/kernel.py:335"),
+    "sweep1_sketch_bf16": (
+        "src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
+        "src/repro/kernels/compress/kernel.py:335"),
+    "sweep1_sketch_gated_bf16": (
+        "src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
+        "src/repro/kernels/compress/kernel.py:335"),
     "sketch_encode": ("src/repro_torch/kernels/compress/csrc/sketch_parts.cu",
                       "src/repro/kernels/compress/kernel.py:321"),
     "scores": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
                "src/repro/kernels/fused_ef/kernel.py:29"),
+    "scores_bf16": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
+                    "src/repro/kernels/fused_ef/kernel.py:29"),
     "apply": ("src/repro_torch/kernels/fused_ef/csrc/fused_ef.cu",
               "src/repro/kernels/fused_ef/kernel.py:47"),
     "histogram": ("src/repro_torch/kernels/topk_select/csrc/hist.cu",
@@ -934,6 +990,118 @@ def phase_kernels_sketch(dev) -> dict:
     return {"small": small, "big": big}
 
 
+def sketch_modes_case(dev, j: int, width: int, seed: int, timed: bool,
+                      rows: int = SKETCH_ROWS) -> dict:
+    """B3's gated form (gate 0 and 1) and bf16 read (and both) at flat
+    length j, kernel vs plain version: on dyadic inputs a and the sketch
+    bitwise; on Gaussian inputs a bitwise and the sketch within the
+    atomics bound (gate 0 on dyadic inputs too: the decayed error, 0.9
+    times a dyadic value, is not dyadic); gate 1 equals the ungated fp32
+    kernel's a on the widened state. Dyadic inputs at the small shapes
+    only (the timed main shape runs the Gaussian ones). Every 97th err
+    is -0.0, whose decayed value plus a zero must be +0.0."""
+    import torch
+    from repro_torch.kernels.compress import kernel as pk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = {}
+    on, off = torch.ones(1, device=dev), torch.zeros(1, device=dev)
+    res = {"j": j, "rows": rows, "width": width, "decay": ERR_DECAY}
+    names = ("sweep1_sketch_gated", "sweep1_sketch_bf16",
+             "sweep1_sketch_gated_bf16")
+    # dyadic inputs (bitwise sketches) at the small shapes only
+    for inputs in ("gauss",) if timed else ("dyadic", "gauss"):
+        if inputs == "dyadic":
+            g, err = dyadic(gen, j, dev), dyadic(gen, j, dev)
+        else:
+            g = torch.randn(j, generator=gen, device=dev)
+            err = torch.randn(j, generator=gen, device=dev) * 0.1
+        err[::97] = -0.0
+        e16 = err.to(torch.bfloat16)
+        cases = []
+        for gate in (on, off):
+            cases.append(("sweep1_sketch_gated", gate, err, lambda gate=gate:
+                          pk.sweep1_sketch_gated(g, err, gate, ERR_DECAY,
+                                                 rows, width, tables)))
+            cases.append(("sweep1_sketch_gated_bf16", gate, e16,
+                          lambda gate=gate: pk.sweep1_sketch_gated_bf16(
+                              g, e16, gate, ERR_DECAY, rows, width, tables)))
+        cases.append(("sweep1_sketch_bf16", None, e16, lambda:
+                      pk.sweep1_sketch_bf16(g, e16, rows, width, tables)))
+        for name, gate, e, run in cases:
+            a, sk = run()
+            a_p, sk_p = pk.sweep1_sketch_plain(g, e, rows, width, gate,
+                                               ERR_DECAY)
+            tag = f"{name} gate {None if gate is None else float(gate)}"
+            check(bits_equal(a, a_p), f"{tag}: a differs from the plain "
+                  f"version at J={j} ({inputs})")
+            if inputs == "dyadic" and gate is not off:
+                check(bits_equal(sk, sk_p), f"{tag}: sketch differs from "
+                      f"the plain version at J={j} (dyadic)")
+                err_ = 0.0
+            else:
+                err_, share = sketch_gap(sk, sk_p, a_p)
+                res[f"{name}_bound_share"] = max(
+                    res.get(f"{name}_bound_share", 0.0), share)
+            res[f"{name}_err"] = max(res.get(f"{name}_err", 0.0), err_)
+            if gate is off:
+                check(not bool(torch.signbit(a[::97]).any()),
+                      f"{tag}: -0.0 * decay + 0.0 must be +0.0")
+            if gate is on:
+                ref = pk.sweep1_sketch(g, e.float(), rows, width, tables)[0]
+                check(bits_equal(a, ref), f"{tag}: a differs from the "
+                      "ungated fp32 kernel's")
+            del a, sk, a_p, sk_p
+        if inputs == "gauss" and timed:
+            plan = pk.sketch_plan(j, rows, width)
+            res["sweep1_sketch_gated_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_gated(g, err, on, ERR_DECAY, rows,
+                                               width, tables))
+            res["sweep1_sketch_gated_off_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_gated(g, err, off, ERR_DECAY, rows,
+                                               width, tables))
+            res["sweep1_sketch_gated_plain_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_plain(g, err, rows, width, on,
+                                               ERR_DECAY))
+            res["sweep1_sketch_bf16_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_bf16(g, e16, rows, width, tables))
+            res["sweep1_sketch_bf16_plain_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_plain(g, e16, rows, width))
+            res["sweep1_sketch_gated_bf16_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_gated_bf16(g, e16, on, ERR_DECAY,
+                                                    rows, width, tables))
+            res["sweep1_sketch_gated_bf16_plain_ms"] = cuda_ms(
+                lambda: pk.sweep1_sketch_plain(g, e16, rows, width, on,
+                                               ERR_DECAY))
+            sk_bytes = 4 * rows * width
+            # read g (4 B) and err (4 B, or 2 B bf16), write a (4 B) and
+            # the sketch; the gated form also reads its gate
+            res["sweep1_sketch_gated_bytes"] = 12 * j + sk_bytes + 4
+            res["sweep1_sketch_bf16_bytes"] = 10 * j + sk_bytes
+            res["sweep1_sketch_gated_bf16_bytes"] = 10 * j + sk_bytes + 4
+            # the add and one add a row; the gate's two selects
+            res["sweep1_sketch_bf16_ops"] = j + rows * j
+            res["sweep1_sketch_gated_ops"] = 3 * j + rows * j
+            res["sweep1_sketch_gated_bf16_ops"] = 3 * j + rows * j
+            res["sweep1_sketch_design_bytes"] = 12 * j + 12 * rows * j
+            res["chunks"] = plan["nchunks"]
+        del g, err, e16
+    res["names"] = names
+    return res
+
+
+def phase_kernels_sketch_modes(dev) -> dict:
+    """B3's new modes at a ragged J (two widths) and at the main shape."""
+    import torch
+    small = sketch_modes_case(dev, RAGGED_J, 512, seed=31, timed=False)
+    emit("kernels_sketch_modes_ragged", **small)
+    emit("kernels_sketch_modes_ragged", **sketch_modes_case(
+        dev, RAGGED_J, (1 << 14) + 1, seed=32, timed=False))
+    big = sketch_modes_case(dev, MAIN_J, MAIN_WIDTH, seed=33, timed=True)
+    emit("kernels_sketch_modes_main_shape", **big)
+    torch.cuda.empty_cache()
+    return {"small": small, "big": big}
+
+
 def phase_sketch_sync(dev) -> None:
     """GradientSync for kind="sketchtopk" on the card and on CPU copies,
     both pipelines; the card's mean sketch feeds the decode on both."""
@@ -984,6 +1152,70 @@ def phase_sketch_sync(dev) -> None:
              decode_bitwise=True)
 
 
+def phase_sketch_elastic_sync(dev) -> dict:
+    """The sketch sync's elastic paths on the card, for both pipelines in
+    fp32 and bf16 state (the sparse exchange in 8 chunks on the bf16 wire
+    for the bf16 state): with an all-in participation bit every step
+    gives the bits of participate=None (dyadic gradients, so every
+    bucket sum is exact and two encodes agree bit for bit), and a
+    sitting-out step gives g_agg = 0, n_active 0 and the decayed error.
+    Returns the launches of each config's steps."""
+    import torch
+    from repro_torch.configs.base import SparsifierConfig
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    out = {}
+    for pipeline in ("fused", "reference"):
+        for ef in ("float32", "bfloat16"):
+            extra = dict(num_buckets=BUCKETS, **BF16) if ef != "float32" \
+                else {}
+            cfg = SparsifierConfig(kind="sketchtopk", sparsity=SPARSITY,
+                                   comm_mode="sparse", pipeline=pipeline,
+                                   sketch_rows=SKETCH_ROWS, **ELASTIC,
+                                   **extra)
+            plain, elastic = GradientSync(cfg), GradientSync(cfg)
+            st_p = st_e = sparsify.init_state(cfg, COMPRESS_J, dev)
+            gen = torch.Generator(device=dev).manual_seed(12)
+            key = sparsify.err_key(cfg)
+            reset_launches()
+            for t in range(SYNC_STEPS):
+                g = dyadic(gen, COMPRESS_J, dev)
+                g_p, st_p = plain(st_p, g)
+                g_e, st_e, stats = elastic(st_e, g, participate=on,
+                                           with_stats=True)
+                check(bits_equal(g_p, g_e) and bits_equal(st_p[key],
+                                                          st_e[key]),
+                      f"sketch {pipeline} {ef} step {t}: an all-in bit "
+                      "differs from participate=None")
+                check(float(stats["n_active"]) == 1.0, "n_active")
+            g_o, st_o, stats = elastic(st_e, dyadic(gen, COMPRESS_J, dev),
+                                       participate=off, with_stats=True)
+            decayed = (ERR_DECAY * st_e[key].float()).to(st_e[key].dtype)
+            check(not bool(g_o.any()) and float(stats["n_active"]) == 0.0,
+                  f"sketch {pipeline} {ef}: a sitting-out step's g_agg")
+            check(bits_equal(st_o[key], decayed + 0.0),
+                  f"sketch {pipeline} {ef}: a sitting-out step keeps the "
+                  "decayed error")
+            name = f"{pipeline}_{ef}"
+            out[name] = launch_counts()
+            enc = ("sweep1_sketch_gated" if pipeline == "fused"
+                   else "sketch_encode")
+            if pipeline == "fused" and ef != "float32":
+                enc += "_bf16"
+            # the reference pipeline's encode serves both syncs
+            want = SYNC_STEPS + 1 + (SYNC_STEPS if pipeline == "reference"
+                                     else 0)
+            check(out[name][enc] == want, f"sketch {pipeline} {ef}: {enc} "
+                  f"launched {out[name][enc]} times, expected {want}")
+            emit("sketch_elastic_sync", pipeline=pipeline, ef_dtype=ef,
+                 j=COMPRESS_J, steps=SYNC_STEPS,
+                 sparsifier=dataclasses.asdict(cfg), launches=out[name],
+                 all_in_bitwise=True, sitting_out=True)
+    return out
+
+
 def ef_inputs(dev, j: int, seed: int):
     """g, err, a_prev, g_agg, s_prev on the card: Gaussian, s_prev 0/1,
     exact zeros of a = err + g (err = -g) and tiny negative a (-1e-13,
@@ -1027,9 +1259,26 @@ def fused_ef_case(dev, j: int, seed: int, timed: bool) -> dict:
             check(bits_equal(x, y), f"apply {name} differs at J={j}")
         err_a = max(err_a, max_abs_err(zip(gh, gh_p)))
         del got, want, gh, gh_p
+    # B5's bf16 read: the four state vectors rounded to bf16 (g stays
+    # fp32), kernel vs plain version, bit patterns equal (two grid points
+    # at the main shape, whose plain version rounds a dozen times a step)
+    bf = torch.bfloat16
+    ins16 = (ins[0],) + tuple(x.to(bf) for x in ins[1:])
+    err_b = 0.0
+    for mu, q, w in EF_GRID[::2] if timed else EF_GRID:
+        kw = dict(omega=w, mu=mu, Q=q)
+        got = fef.scores_bf16(*ins16, **kw)
+        want = fef.scores_bf16_plain(*ins16, **kw)
+        for name, x, y in zip(("a", "score"), got, want):
+            check(bits_equal(x, y), f"scores_bf16 {name} differs at J={j}, "
+                  f"mu={mu} Q={q} omega={w}")
+        check(bits_equal(got[1].to(bf).float(), got[1]),
+              "scores_bf16: the score holds bf16 values")
+        err_b = max(err_b, max_abs_err(zip(got, want)))
+        del got, want
     res = {"j": j, "grid": EF_GRID, "zeros_of_a": zeros,
            "nonfinite_scores": nonfinite, "scores_err": err_s,
-           "apply_err": err_a}
+           "apply_err": err_a, "scores_bf16_err": err_b}
     if timed:
         kw = dict(omega=1.0, mu=MU, Q=0.0)
         a, _ = fef.scores(*ins, **kw)
@@ -1041,6 +1290,15 @@ def fused_ef_case(dev, j: int, seed: int, timed: bool) -> dict:
         res["apply_plain_ms"] = cuda_ms(lambda: fef.apply_plain(a, ins[4]))
         res["apply_bytes"] = 16 * j        # read 2, write 2
         res["apply_ops"] = 2 * j
+        res["scores_bf16_ms"] = cuda_ms(lambda: fef.scores_bf16(*ins16,
+                                                                **kw))
+        res["scores_bf16_plain_ms"] = cuda_ms(
+            lambda: fef.scores_bf16_plain(*ins16, **kw))
+        # read g (4 B) and four bf16 vectors (8 B), write a bf16 a and
+        # the fp32 score
+        res["scores_bf16_bytes"] = 18 * j
+        res["scores_bf16_ops"] = 60 * j    # the chain and its roundings
+    del ins16
     return res
 
 
@@ -2136,7 +2394,17 @@ WORLD_CASES = {      # dense SGD on dyadic gradients (exact in any order)
     "regtopk_bucketed_bf16_wire": dict(kind="regtopk", pipeline="fused",
                                        comm_mode="sparse", num_buckets=4,
                                        wire_dtype="bfloat16"),
+    # the sketch's values-only combine: in 4 chunks on the bf16 wire with
+    # a bf16 state, and elastic with one rank sitting out a step (dyadic
+    # gradients: every sketch bucket and every sum is exact)
+    "sketch_chunked_bf16": dict(kind="sketchtopk", pipeline="fused",
+                                comm_mode="sparse", num_buckets=4,
+                                ef_dtype="bfloat16", wire_dtype="bfloat16"),
+    "sketch_elastic": dict(kind="sketchtopk", pipeline="fused",
+                           comm_mode="sparse", err_decay=ERR_DECAY),
 }
+# a world case's participation bits: rank (t + 1) % world sits out step t
+ELASTIC_WORLD = ("sketch_elastic",)
 
 
 def chunked_round(cfg, states: list, grads: list):
@@ -2164,6 +2432,59 @@ def chunked_round(cfg, states: list, grads: list):
                    for out in outs]
 
 
+def world_bits(name: str, world: int, t: int):
+    """Step t's participation bits of a world case (None: no mask)."""
+    if name not in ELASTIC_WORLD:
+        return None
+    return [r != (t + 1) % world for r in range(world)]
+
+
+def sketch_world_round(cfg, states: list, grads: list, bits):
+    """The in-process expectation of the sketch's per-step combine over
+    the workers: each worker's encode, the mean sketch (over the active
+    ones under ``bits``), the shared indices, then the values (zeros from
+    a sitting-out worker) rounded to the wire dtype, summed over the
+    workers in fp32 in rank order (with the combine's inert chunk pad at
+    index 0), scattered into zeros and divided by n, or max(n_active,
+    1); each worker's error closed at the indices. Returns (g_agg, new
+    states)."""
+    import torch
+    from repro_torch.core import bigvec, sparsify
+    from repro_torch.core.aggregate import GradientSync
+    sync = GradientSync(cfg)
+    n, j = len(grads), grads[0].numel()
+    dev = grads[0].device
+    pfs = None if bits is None else [
+        torch.tensor(b, device=dev) for b in bits]
+    encs = [sync.encode(st, g, None if pfs is None else pfs[i])
+            for i, (st, g) in enumerate(zip(states, grads))]
+    sk = sync.mean_sketch([sk for _, sk in encs], participate=pfs)
+    idx = sync.decode(sk, j)
+    k = idx.numel()
+    nb = cfg.num_buckets if k > cfg.num_buckets else 1
+    pad = -(-k // nb) * nb - k
+    wire = getattr(torch, cfg.wire_dtype)
+    vals = [a[idx] if pfs is None else torch.where(pfs[i], a[idx], 0.0)
+            for i, (a, _) in enumerate(encs)]
+    vsum = vals[0].to(wire).float()
+    for v in vals[1:]:
+        vsum = vsum + v.to(wire).float()
+    dense = torch.zeros(j, device=dev)
+    bigvec.scatter_add_(dense, torch.cat([idx, idx.new_zeros(pad)]),
+                        torch.cat([vsum, vsum.new_zeros(pad)]))
+    if pfs is None:
+        dense.mul_(1.0 / n)
+    else:
+        na = sum(float(b) for b in bits)
+        dense.div_(torch.full((), max(na, 1.0), device=dev))
+    key = sparsify.err_key(cfg)
+    new = [{key: bigvec.scatter_set_live_(
+                a.to(st[key].dtype), idx, None if pfs is None else pfs[i],
+                0.0), "step": st["step"] + 1}
+           for i, ((a, _), st) in enumerate(zip(encs, states))]
+    return dense, new
+
+
 def world_grads(name: str, world: int, j: int):
     """(SYNC_STEPS, world, j) CPU gradients of a world case, the same in
     every rank's process: Gaussian, or dyadic for the dense all-reduce,
@@ -2171,7 +2492,7 @@ def world_grads(name: str, world: int, j: int):
     import torch
     gen = torch.Generator().manual_seed(19)
     shape = (SYNC_STEPS, world, j)
-    if name == "none":
+    if name == "none" or name.startswith("sketch"):
         return dyadic(gen, SYNC_STEPS * world * j, "cpu").reshape(shape)
     return torch.randn(shape, generator=gen)
 
@@ -2182,7 +2503,9 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
     group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
     bitwise identical on every rank and, like every rank's final state,
     equal to an in-process round() of the same workers (on rank 0), or
-    for a chunked or bf16 wire to :func:`chunked_round`.
+    for a chunked or bf16 wire to :func:`chunked_round`, or for the
+    sketch to :func:`sketch_world_round` (its elastic case under the
+    bits of :func:`world_bits`).
     ``backend="gloo"`` at a small ``j`` runs the same check on the CPU
     without cards (tests/test_torch_chip_world.py)."""
     import torch
@@ -2215,10 +2538,13 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
             step_ms = []
             for t in range(SYNC_STEPS):
                 g = grads[t, rank].to(dev)
+                bits = world_bits(name, world, t)
+                p = None if bits is None else torch.tensor(bits[rank],
+                                                           device=dev)
                 if cuda:
                     torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                g_agg, st = sync(st, g)
+                g_agg, st = sync(st, g, participate=p)
                 if cuda:
                     torch.cuda.synchronize(dev)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2229,7 +2555,10 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                               f"world {name} step {t}: g_agg of rank {r} "
                               "differs from rank 0's")
                     ip_grads = [grads[t, r].to(dev) for r in range(world)]
-                    if cfg.num_buckets > 1 or cfg.wire_dtype != "float32":
+                    if cfg.kind == "sketchtopk":
+                        want, ip_states = sketch_world_round(
+                            cfg, ip_states, ip_grads, bits)
+                    elif cfg.num_buckets > 1 or cfg.wire_dtype != "float32":
                         want, ip_states = chunked_round(cfg, ip_states,
                                                         ip_grads)
                     else:
@@ -2416,10 +2745,12 @@ def main(argv=None) -> int:
     kres = phase_kernels(dev)
     segres = phase_kernels_segments(dev)
     sres = phase_kernels_sketch(dev)
+    mres = phase_kernels_sketch_modes(dev)
     eres = phase_kernels_fused_ef(dev)
     hres = phase_kernels_topk_select(dev)
     comp_launches = phase_compress(dev)
     phase_sketch_sync(dev)
+    elastic_launches = phase_sketch_elastic_sync(dev)
     ref_launches = phase_reference_sync(dev)
     phase_paper(dev)
     train, steps, profiles = {}, {}, {}
@@ -2516,10 +2847,37 @@ def main(argv=None) -> int:
                        "defaults)", atomics, redesigned=True,
                        deterministic=sres["big"][
                            "sketch_encode_deterministic"]),
+            kernel_row("sweep1_sketch_gated", mres["big"], mres["small"],
+                       train["train_sketch_elastic"]["sweep1_sketch_gated"],
+                       "elastic sketchtopk train (fused, bursty schedule)",
+                       "a torch.equal to the plain version (gate 0 and 1) "
+                       "and at gate 1 to the ungated kernel; sketch "
+                       "torch.equal on dyadic inputs, within the atomics "
+                       "bound on Gaussian ones",
+                       off_ms=mres["big"]["sweep1_sketch_gated_off_ms"]),
+            kernel_row("sweep1_sketch_bf16", mres["big"], mres["small"],
+                       train["train_sketch_bucketed"]["sweep1_sketch_bf16"],
+                       "bucketed sketchtopk train (fused, 8 buckets, bf16 "
+                       "state and wire)", "a torch.equal to the plain "
+                       "version and to the fp32 kernel on the widened "
+                       "state; sketch as B3's"),
+            kernel_row("sweep1_sketch_gated_bf16", mres["big"],
+                       mres["small"],
+                       elastic_launches["fused_bfloat16"][
+                           "sweep1_sketch_gated_bf16"],
+                       "phase sketch_elastic_sync: fused, bf16 state, 8 "
+                       "chunks on the bf16 wire (no train path)",
+                       "a torch.equal to the plain version (gate 0 and 1); "
+                       "sketch as B3's"),
             kernel_row("scores", ebig, eres["small"],
                        train["train_reference"]["scores"],
                        reference, "equal bit patterns on every output",
                        segmented_launches=segmented("scores")),
+            kernel_row("scores_bf16", ebig, eres["small"],
+                       train["train_reference_bf16"]["scores_bf16"],
+                       "reference-launcher default train with a bf16 state",
+                       "equal bit patterns on every output (each operation "
+                       "rounded to bf16, as the compiled reference)"),
             kernel_row("apply", ebig, eres["small"],
                        train["train_reference"]["apply"],
                        reference, "equal bit patterns on every output",
@@ -2529,6 +2887,8 @@ def main(argv=None) -> int:
                            "histogram"],
                        "GradientSync, reference pipeline, "
                        "selector=histogram_kernel", bitwise,
+                       sketch_launches=train["train_sketch_hist"][
+                           "histogram"],
                        library_ms=hbig["histogram_histc_ms"] if histc_same
                        else None,
                        library_note=None if histc_same else

@@ -31,8 +31,10 @@ Sketch selection (kind sketchtopk, DESIGN.md §2.9): each rank encodes
 a = err + g into a CountSketch, one all-reduce averages the sketches,
 every rank decodes the same magnitude estimates and so the same top-k,
 and only the k values travel (``shared_mask_allgather_combine``,
-n*k*4 bytes), the error feedback closing by zeroing the shared indices
-of a; in simulate mode the dense masked ghat is all-reduced instead.
+n*k*4 bytes, or n*k*2 on the bf16 wire, in ``num_buckets`` chunks),
+the error feedback closing by zeroing the shared indices of a; in
+simulate mode the dense masked ghat (the mask through ``cfg.selector``)
+is all-reduced instead.
 Which path serves a config is the selection of
 ``core.sparsify.selection`` and the mode of
 ``kernels.compress.dispatch.effective_comm_mode``; nothing here branches
@@ -48,8 +50,9 @@ active count n_active (``combine="mean"``) or, per coordinate, the
 number of active workers that selected it (``combine="support"``). A
 worker whose packed values (or dense ghat) are not finite is dropped
 for the step (the non-finite guard); ``with_stats`` reports
-``n_active`` and ``dropped_nonfinite``. Sketch selection under a mask
-is not ported yet (ROADMAP A12).
+``n_active`` and ``dropped_nonfinite``. Under sketch selection a
+sitting-out worker's sketch and values are zeros, both combines divide
+by the active count, and its error keeps its decayed value.
 
 Streaming (``cfg.overlap="backward"``, DESIGN.md §2.8):
 :meth:`GradientSync.begin` opens a step that takes the gradient one
@@ -86,7 +89,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import bigvec, select, sketch, sparsify
-from repro_torch.core.numerics import fma_f32
+from repro_torch.core.numerics import bf16, fma_f32
 from repro_torch.kernels.compress import dispatch
 from repro_torch.kernels.fused_ef.ops import fused_apply_mask
 
@@ -95,9 +98,6 @@ from repro_torch.kernels.fused_ef.ops import fused_apply_mask
 _DEGRADE_WARNED: set = set()
 COMBINES = ("mean", "support")
 WIRE_DTYPES = ("float32", "bfloat16")
-_SKETCH_ELASTIC = ("elastic participation with sketch selection is not "
-                   "ported yet (ROADMAP A10 with A12: the elastic sketch "
-                   "semantics)")
 
 
 def world(group=None) -> tuple[int, int]:
@@ -114,11 +114,6 @@ def check_supported(cfg: SparsifierConfig) -> None:
     if cfg.combine not in COMBINES:
         raise ValueError(f"unknown combine={cfg.combine!r} "
                          f"(expected one of {COMBINES})")
-    if sparsify.selection(cfg) == "sketch" and (cfg.combine != "mean"
-                                                or cfg.err_decay != 1.0):
-        raise NotImplementedError(
-            f"combine={cfg.combine!r}, err_decay={cfg.err_decay!r} with "
-            f"kind='sketchtopk': {_SKETCH_ELASTIC}")
     if cfg.comm_mode not in ("sparse", "simulate", "dense"):
         raise NotImplementedError(
             f"SparsifierConfig.comm_mode={cfg.comm_mode!r} is not ported "
@@ -155,6 +150,11 @@ def _weighted_sum(ws, xs):
     w_0 * x_0 over the rounded w_1 * x_1 and every later add its own
     product (one rounding per term; the same bits as two roundings
     where the weights are powers of two)."""
+    if xs[0].dtype == torch.bfloat16:
+        # bf16 operands: the weights round to bf16, and each product and
+        # each sum to bf16 (the rounding between them leaves nothing to
+        # fuse)
+        return _rank_sum([x * bf16(w) for w, x in zip(ws, xs)])
     if len(xs) == 1:
         return ws[0] * xs[0]
     acc = fma_f32(xs[0], ws[0], xs[1] * ws[1])
@@ -311,14 +311,70 @@ def _wait(pending, n: int) -> torch.Tensor:
 
 
 def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
-                                  j: int, group=None) -> torch.Tensor:
+                                  j: int, group=None, num_buckets: int = 1,
+                                  wire_dtype: str = "float32",
+                                  participate=None,
+                                  acc_dtype=None) -> torch.Tensor:
     """g_agg under a shared mask: every rank holds the same ``indices``,
-    so only the (k,) values are all-gathered; they are summed in rank
-    order, scattered once into zeros and divided by n."""
+    so only the (k,) values are all-gathered, in ``num_buckets`` chunks
+    of ceil(k / num_buckets) (one when there are no more values than
+    chunks; the last chunk padded with 0.0 at the shared index 0, whose
+    scatter-add turns a -0.0 there into +0.0), chunk b + 1's gather
+    issued before chunk b's scatter. The values go on the wire as
+    ``wire_dtype``; each chunk is summed over the ranks in rank order in
+    fp32 and rounded once to ``acc_dtype`` (by default the values'
+    dtype; ``jnp.sum`` widens a bf16 sum), scattered into zeros of it
+    and divided by n, or under
+    ``participate`` (this rank's 0-d bit; a sitting-out rank's values
+    arrive zeroed) by max(n_active, 1). Under the shared mask the
+    support combine is this mean."""
     n, _ = world(group)
-    dense = torch.zeros(j, dtype=values.dtype, device=values.device)
-    bigvec.scatter_add_(dense, indices, _rank_sum(_gather(values, group)))
-    return _mean_scale_(dense, n)
+    dev, k = values.device, values.numel()
+    nb = max(1, int(num_buckets))
+    if k <= nb:
+        nb = 1
+    chunk = -(-k // nb)
+    pad = chunk * nb - k
+    if pad:
+        values = torch.cat([values, values.new_zeros(pad)])
+        indices = torch.cat([indices, indices.new_zeros(pad)])
+    acc = values.dtype if acc_dtype is None else acc_dtype
+    wire = getattr(torch, wire_dtype)
+    dense = torch.zeros(j, dtype=acc, device=dev)
+
+    def gather_chunk(b: int):
+        return _gather_async(values[b * chunk:(b + 1) * chunk].to(wire),
+                             group)
+
+    pending = gather_chunk(0)
+    for b in range(nb):
+        ahead = gather_chunk(b + 1) if b + 1 < nb else None
+        vals = _wait(pending, n).float()
+        vsum = _rank_sum(list(vals)).to(acc)
+        bigvec.scatter_add_(dense, indices[b * chunk:(b + 1) * chunk], vsum)
+        pending = ahead
+    if participate is None:
+        return _mean_scale_(dense, n)
+    na = participate.reshape(()).to(torch.float32)
+    if n > 1:
+        dist.all_reduce(na, group=group)
+    return dense.div_(na.clamp(min=1.0).to(acc))
+
+
+def _bits(participate, dev):
+    """One 0-d bool tensor on ``dev`` a worker (None stays None)."""
+    if participate is None:
+        return None
+    return [torch.as_tensor(p, dtype=torch.bool).to(dev).reshape(())
+            for p in participate]
+
+
+def _masked_mean(xs: list, pfs: list) -> torch.Tensor:
+    """sum_i where(p_i, x_i, 0) in worker order, divided by
+    max(n_active, 1): the in-process rounds' elastic mean."""
+    na = _rank_sum([p.to(torch.float32) for p in pfs])
+    return _rank_sum([torch.where(p, x, 0.0) for p, x in zip(pfs, xs)]) \
+        / na.clamp(min=1.0)
 
 
 def _guard(p: torch.Tensor, payload: torch.Tensor):
@@ -376,14 +432,6 @@ class GradientSync:
                 self.fallbacks += 1
                 self.fallback_reasons[out.fallback] += 1
 
-    def check_participation(self, participate) -> None:
-        """Raise for a participation mask (or schedule) on a path that
-        does not serve one yet."""
-        if participate is not None and self.selection == "sketch":
-            raise NotImplementedError(
-                f"a participation mask with kind='sketchtopk': "
-                f"{_SKETCH_ELASTIC}")
-
     def __call__(self, state: dict, g: torch.Tensor, participate=None,
                  donate: bool = False, with_stats: bool = False, key=None):
         """One flat-gradient sync step: returns (g_agg, new_state), and
@@ -393,7 +441,6 @@ class GradientSync:
         old state to the compressor, which frees its J-vectors as soon
         as it has read them (the caller must not use ``state`` again).
         ``key`` is randk's (2,) threefry key for this rank's step."""
-        self.check_participation(participate)
         n, _ = world(self.group)
         if self.selection in ("none", "global"):
             p = None if participate is None else participate.reshape(())
@@ -404,11 +451,14 @@ class GradientSync:
             zero = None if p is None else torch.zeros((), device=g.device)
             return g_agg, new, self._stats(p, zero, g_agg)
         if self.selection == "sketch":
-            a, sk = self.encode(state, g)
-            g_agg, new, _ = self.decode_exchange(self.allreduce_sketch(sk),
-                                                 a, state)
-            return (g_agg, new, self._stats(None, None, g_agg)) \
-                if with_stats else (g_agg, new)
+            p = None if participate is None else participate.reshape(())
+            a, sk = self.encode(state, g, p)
+            g_agg, new, _ = self.decode_exchange(
+                self.allreduce_sketch(sk, p), a, state, p)
+            if not with_stats:
+                return g_agg, new
+            zero = None if p is None else torch.zeros((), device=g.device)
+            return g_agg, new, self._stats(p, zero, g_agg)
         j = g.numel()
         p = None if participate is None else participate.reshape(())
         segs = None
@@ -430,7 +480,6 @@ class GradientSync:
             raise ValueError(
                 "begin()/feed_segment streaming needs overlap='backward' "
                 f"(got overlap={self.cfg.overlap!r})")
-        self.check_participation(participate)
         return _GradientStream(self, state, key, participate)
 
     def _close(self, out, j: int, p, with_stats: bool):
@@ -472,10 +521,13 @@ class GradientSync:
 
     def _sync_dense(self, g: torch.Tensor, p) -> torch.Tensor:
         """The baselines' step: the dense all-reduce of the gradient (its
-        elastic mean under a mask); the genie then keeps the top-k of the
-        aggregate, as mask * a_agg (a multiply, so an unselected
-        negative entry is -0.0, as in the reference)."""
-        gf = g.float()
+        elastic mean under a mask), in the error-feedback dtype for dense
+        SGD (a bf16 all-reduce under ``ef_dtype="bfloat16"``) and in fp32
+        for the genie, which then keeps the top-k of the aggregate, as
+        mask * a_agg (a multiply, so an unselected negative entry is
+        -0.0, as in the reference)."""
+        gf = g.to(sparsify.state_dtype(self.cfg)
+                  if self.selection == "none" else torch.float32)
         with record_function("sync/dense"):
             agg = (dense_allreduce(gf, self.group) if p is None
                    else _active_mean(gf, p, self.group))
@@ -520,71 +572,117 @@ class GradientSync:
         k = sparsify.resolve_k(self.cfg, j)
         return k, sketch.resolve_width(k, self.cfg.sketch_width)
 
-    def encode(self, state: dict, g: torch.Tensor):
-        """(a, sketch of a) with a = err + g: one pass through
-        ``sweep1_sketch`` on the fused pipeline; a plain add, then the
-        ``sketch_encode`` kernel, on the reference pipeline."""
+    def encode(self, state: dict, g: torch.Tensor, participate=None, *,
+               round_form: bool = False):
+        """(a fp32, sketch of a) for this worker's step; ``participate``
+        masks the inputs (g_eff = where(p, g, 0), err_eff = where(p, err,
+        err_decay * err)). The fused pipeline makes one pass through
+        ``sweep1_sketch`` (its gated form under a bit, its bf16 read
+        under a bf16 state). The reference pipeline adds err + g in fp32
+        (g rounded to the state's dtype first, as the reference's
+        per-step sync casts it; with ``round_form`` as its in-process
+        round does, g as it is), then runs the ``sketch_encode``
+        kernel."""
         cfg = self.cfg
         _, width = self._k_width(g.numel())
         err = state[sparsify.err_key(cfg)]
+        p = None if participate is None else participate.reshape(())
         with record_function("sketch/encode"):
-            if cfg.pipeline == "fused":
+            if sparsify.fused(cfg):
                 from repro_torch.kernels.compress import ops
-                enc = ops.fused_sketch_encode(g.float(), err,
-                                              rows=cfg.sketch_rows,
-                                              width=width,
-                                              tables=self.sketch_tables)
+                enc = ops.fused_sketch_encode(
+                    g.float(), err, rows=cfg.sketch_rows, width=width,
+                    tables=self.sketch_tables, participate=p,
+                    err_decay=cfg.err_decay)
                 return enc["a"], enc["sketch"]
-            a = err + g.float()
+            g = g.float()
+            if p is not None:
+                from repro_torch.kernels.compress.kernel import masked_inputs
+                g, err = masked_inputs(g, err, p, cfg.err_decay)
+            g = g.to(torch.float32 if round_form else err.dtype)
+            # under a bf16 state every consumer of a widens it (the
+            # encode, the fp32 mask's product, the fp32 wire), which in
+            # the compiled reference absorbs the add's rounding: a is
+            # the fp32 sum, rounded only where it is stored
+            a = err.float() + g.float()
             return a, sketch.encode(a, cfg.sketch_rows, width,
                                     self.sketch_tables)
 
-    def allreduce_sketch(self, sk: torch.Tensor) -> torch.Tensor:
+    def allreduce_sketch(self, sk: torch.Tensor,
+                         participate=None) -> torch.Tensor:
         """The pre-selection collective: the mean of the ranks' sketches
-        (in place on ``sk``)."""
+        (in place on ``sk``); under ``participate`` a sitting-out rank
+        adds a zero sketch and the sum is divided by max(n_active, 1)."""
         n, _ = world(self.group)
         with record_function("sketch/allreduce"):
+            if participate is not None:
+                return _active_mean(sk, participate.reshape(()), self.group)
             if n > 1:
                 dist.all_reduce(sk, op=dist.ReduceOp.SUM, group=self.group)
             return _mean_scale_(sk, n)
 
     def decode(self, sk_agg: torch.Tensor, j: int) -> torch.Tensor:
         """The shared top-k indices (int64, lax.top_k order) of the
-        magnitude estimates decoded from the mean sketch."""
+        magnitude estimates decoded from the mean sketch (the sparse
+        exchange's decode, exact whatever the selector)."""
         k, _ = self._k_width(j)
         with record_function("sketch/estimate"):
             gmag = sketch.estimate(sk_agg, j)
         with record_function("sketch/select"):
             return select.topk_indices(gmag, k)
 
-    def decode_exchange(self, sk_agg: torch.Tensor, a: torch.Tensor,
-                        state: dict):
-        """Decode the shared selection from the mean sketch and combine.
-        Sparse comm: exchange the k selected values of a and close the
-        error feedback in O(k) (a with the shared indices zeroed, in
-        place). Simulate comm: the shared mask through ``topk_mask``,
-        ghat and the error state through the apply kernel, and the dense
-        all-reduce. Returns (g_agg, new_state, the shared indices or,
-        in simulate mode, the shared mask)."""
-        j = a.numel()
-        key = sparsify.err_key(self.cfg)
-        if self.comm == "sparse":
-            idx = self.decode(sk_agg, j)
-            with record_function("sync/combine"):
-                g_agg = shared_mask_allgather_combine(a[idx], idx, j,
-                                                      self.group)
-                err = bigvec.scatter_set_(a, idx, 0.0)
-            return g_agg, {key: err, "step": state["step"] + 1}, idx
+    def decode_mask(self, sk_agg: torch.Tensor, j: int) -> torch.Tensor:
+        """The shared 0/1 mask (fp32) of the magnitude estimates through
+        ``cfg.selector``, as the simulate exchange and the in-process
+        round decode it."""
         k, _ = self._k_width(j)
         with record_function("sketch/estimate"):
             gmag = sketch.estimate(sk_agg, j)
         with record_function("sketch/select"):
-            mask = select.topk_mask(gmag, k, self.cfg.selector)
-        del gmag
+            return select.topk_mask(gmag, k, self.cfg.selector)
+
+    def decode_exchange(self, sk_agg: torch.Tensor, a: torch.Tensor,
+                        state: dict, participate=None):
+        """Decode the shared selection from the mean sketch and combine.
+        Sparse comm: exchange the k selected values of a (zeros from a
+        sitting-out worker; in ``num_buckets`` chunks as ``wire_dtype``)
+        and close the error feedback in O(k): a, in the state's dtype,
+        with the shared indices zeroed (none for a sitting-out worker,
+        whose decayed error stays). Simulate comm: the shared mask
+        through ``cfg.selector``, ghat and the error state through the
+        apply kernel (ghat zeroed and the error a itself for a
+        sitting-out worker), and the dense all-reduce. Returns (g_agg,
+        new_state, the shared indices or, in simulate mode, the shared
+        mask)."""
+        cfg = self.cfg
+        j = a.numel()
+        key = sparsify.err_key(cfg)
+        dt = state[key].dtype
+        p = None if participate is None else participate.reshape(())
+        if self.comm == "sparse":
+            idx = self.decode(sk_agg, j)
+            with record_function("sync/combine"):
+                vals = a[idx]
+                if p is not None:
+                    vals = torch.where(p, vals, 0.0)
+                # the reference sums in its values' dtype: the state's
+                # on the reference pipeline, fp32 on the fused one
+                g_agg = shared_mask_allgather_combine(
+                    vals, idx, j, self.group, cfg.num_buckets,
+                    cfg.wire_dtype, p,
+                    torch.float32 if sparsify.fused(cfg) else dt)
+                err = bigvec.scatter_set_live_(a.to(dt), idx, p, 0.0)
+            return g_agg, {key: err, "step": state["step"] + 1}, idx
+        mask = self.decode_mask(sk_agg, j)
         with record_function("sync/simulate"):
             ghat, err = fused_apply_mask(a, mask)
-            g_agg = simulate_allreduce(ghat, self.group)
-        return g_agg, {key: err, "step": state["step"] + 1}, mask
+            if p is None:
+                g_agg = simulate_allreduce(ghat, self.group)
+            else:
+                ghat = torch.where(p, ghat, 0.0)
+                err = torch.where(p, err, a.float())
+                g_agg = _active_mean(ghat, p, self.group)
+        return g_agg, {key: err.to(dt), "step": state["step"] + 1}, mask
 
     # -- in-process simulation ------------------------------------------
 
@@ -596,9 +694,8 @@ class GradientSync:
         then the combine is the elastic one of the per-step path, over
         equal weights 1/n (``omegas`` is not used). ``key``: randk's
         threefry key, worker i drawing with ``fold_in(key, i)``."""
-        self.check_participation(participate)
         if self.selection == "sketch":
-            return self._round_sketch(states, grads, omegas)
+            return self._round_sketch(states, grads, omegas, participate)
         if self.selection == "global":
             return self._round_global(states, grads, omegas, participate)
         if participate is not None:
@@ -626,60 +723,91 @@ class GradientSync:
         g_agg = 0, and every state decays."""
         n = len(grads)
         j = grads[0].numel()
-        dev = grads[0].device
-        pfs = [torch.as_tensor(p, dtype=torch.bool).to(dev).reshape(())
-               for p in participate]
+        pfs = _bits(participate, grads[0].device)
         outs = [sparsify.compress(self.cfg, s, g, omega=1.0 / n,
                                   participate=p, key=_worker_key(key, i))
                 for i, (s, g, p) in enumerate(zip(states, grads, pfs))]
         self._count(outs)
-        dense = _rank_sum([sparsify.dense_ghat(o, j) for o in outs])
+        ghats = [sparsify.dense_ghat(o, j) for o in outs]
         if self.cfg.combine == "support":
             counts = _rank_sum([sparsify.dense_mask(o, j) for o in outs])
-            g_agg = torch.where(counts > 0, dense / counts.clamp(min=1.0),
-                                0.0)
+            g_agg = torch.where(counts > 0, _rank_sum(ghats)
+                                / counts.clamp(min=1.0), 0.0)
         else:
+            # an fp32 count: a bf16 sum is widened for the division, and
+            # the compiled reference computes its last add in fp32 with
+            # no rounding to bf16 (the widening absorbs it)
             n_active = _rank_sum([p.to(torch.float32) for p in pfs])
+            dense = ghats[-1].float()
+            if len(ghats) > 1:
+                dense = _rank_sum(ghats[:-1]).float() + dense
             g_agg = dense / n_active.clamp(min=1.0)
         return g_agg, [sparsify.observe_aggregate(self.cfg, o.state, g_agg,
                                                   participate=p)
                        for o, p in zip(outs, pfs)]
 
-    def _round_sketch(self, states, grads, omegas):
-        """Per-worker encode, one sketch combine, one shared mask, each
-        worker's error feedback closed at that mask (dense form, as the
-        reference's ``_round_sketch``)."""
-        encs = [self.encode(s, g) for s, g in zip(states, grads)]
-        sk_agg = self.mean_sketch([sk for _, sk in encs], omegas)
+    def _round_sketch(self, states, grads, omegas, participate=None):
+        """Per-worker encode (the in-process round's fp32 a on the
+        reference pipeline), one sketch combine, one shared mask through
+        ``cfg.selector``, each worker's error feedback closed at that mask
+        (dense form, as the reference's ``_round_sketch``). Under
+        ``participate`` a sitting-out worker's inputs are masked, its
+        sketch and ghat are zeros and both combines divide by max(n_active,
+        1); explicit ``omegas`` with a mask raise, as in the reference."""
+        if participate is not None and omegas is not None:
+            raise ValueError(
+                "explicit omegas with a participation mask are not "
+                "defined for sketch coordination — the elastic combine "
+                "renormalizes equal weights over the active set")
+        pfs = _bits(participate, grads[0].device)
+        encs = [self.encode(s, g, None if pfs is None else pfs[i],
+                            round_form=True)
+                for i, (s, g) in enumerate(zip(states, grads))]
+        sk_agg = self.mean_sketch([sk for _, sk in encs], omegas, pfs)
         g_agg, new, _ = self.close_sketch_round(states, [a for a, _ in encs],
-                                                sk_agg, omegas)
+                                                sk_agg, omegas, pfs)
         return g_agg, new
 
     @staticmethod
-    def mean_sketch(sketches: list, omegas=None) -> torch.Tensor:
+    def mean_sketch(sketches: list, omegas=None,
+                    participate=None) -> torch.Tensor:
         """The in-process round's combine of the workers' sketches: their
-        mean (the rank-order sum scaled by 1/n), or their omega-weighted
-        sum."""
+        mean (the rank-order sum scaled by 1/n), their omega-weighted
+        sum, or under ``participate`` (one 0-d bit a worker) the sum of
+        the active ones divided by max(n_active, 1)."""
+        if participate is not None:
+            return _masked_mean(sketches, participate)
         if omegas is None:
             return _rank_sum(sketches) * (1.0 / len(sketches))
         return _weighted_sum(omegas, sketches)
 
     def close_sketch_round(self, states: list, a_list: list,
-                           sk_agg: torch.Tensor, omegas=None):
+                           sk_agg: torch.Tensor, omegas=None,
+                           participate=None):
         """The rest of a sketch round from the combined sketch: the shared
-        top-k, every worker's ghat and error through the apply kernel, and
-        g_agg; returns (g_agg, new_states, the shared indices). A caller
-        may hand two devices the same ``sk_agg``."""
+        mask through ``cfg.selector``, every worker's ghat and error
+        through the apply kernel (ghat zeroed and the error a itself for
+        a sitting-out worker), and g_agg; returns (g_agg, new_states,
+        the shared mask). A caller may hand two devices the same
+        ``sk_agg``."""
         j = a_list[0].numel()
-        idx = self.decode(sk_agg, j)
-        mask = bigvec.mask_from_indices(j, idx)
+        mask = self.decode_mask(sk_agg, j)
         applied = [fused_apply_mask(a, mask) for a in a_list]
         ghats = [gh for gh, _ in applied]
-        g_agg = (_rank_sum(ghats) * (1.0 / len(ghats)) if omegas is None
-                 else _weighted_sum(omegas, ghats))
+        errs = [err for _, err in applied]
+        if participate is not None:
+            ghats = [torch.where(p, gh, 0.0)
+                     for p, gh in zip(participate, ghats)]
+            errs = [torch.where(p, err, a.float())
+                    for p, err, a in zip(participate, errs, a_list)]
+            g_agg = _masked_mean(ghats, participate)
+        elif omegas is None:
+            g_agg = _rank_sum(ghats) * (1.0 / len(ghats))
+        else:
+            g_agg = _weighted_sum(omegas, ghats)
         key = sparsify.err_key(self.cfg)
-        return g_agg, [{key: err, "step": st["step"] + 1}
-                       for (_, err), st in zip(applied, states)], idx
+        return g_agg, [{key: err.to(st[key].dtype), "step": st["step"] + 1}
+                       for err, st in zip(errs, states)], mask
 
     def _round_global(self, states, grads, omegas, participate):
         """The genie's round (the reference's ``_round_global``): the
@@ -696,13 +824,7 @@ class GradientSync:
                     "defined for the genie baseline — the elastic "
                     "combine renormalizes equal weights over the active "
                     "set")
-            dev = gfs[0].device
-            pfs = [torch.as_tensor(p, dtype=torch.bool).to(dev).reshape(())
-                   for p in participate]
-            na = _rank_sum([p.to(torch.float32) for p in pfs])
-            a_agg = _rank_sum([torch.where(p, gf, 0.0)
-                               for p, gf in zip(pfs, gfs)])
-            a_agg = a_agg / na.clamp(min=1.0)
+            a_agg = _masked_mean(gfs, _bits(participate, gfs[0].device))
         elif omegas is None:
             a_agg = _rank_sum(gfs) * (1.0 / n)
         else:
@@ -739,10 +861,16 @@ class GradientSync:
                     for i, (st, g) in enumerate(zip(
                         sparsify.unstack_states(states, n), grads))]
             self._count(outs)
+            ghats = [sparsify.dense_ghat(out, j) for out in outs]
             total = torch.zeros(j, dtype=torch.float32, device=grads.device)
-            for out in outs:
-                total = total + sparsify.dense_ghat(out, j)
-            g_agg = total * omega
+            for ghat in ghats:
+                total = total + ghat
+            if ghats[0].dtype == torch.bfloat16:
+                # jnp.sum widens a bf16 sum to fp32 and rounds it once;
+                # the weak-typed omega rounds to bf16
+                g_agg = total.to(torch.bfloat16) * bf16(omega)
+            else:
+                g_agg = total * omega
             return g_agg, sparsify.stack_states(
                 [sparsify.observe_aggregate(self.cfg, o.state, g_agg)
                  for o in outs])

@@ -77,6 +77,23 @@ def _fma_odd(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (bits | inexact.long()).view(torch.float64).float()
 
 
+def bf16(x: float) -> float:
+    """The Python scalar x rounded to the nearest bf16 (ties to even), as
+    the reference's weak-typed constants round next to a bf16 operand."""
+    x = float(x)
+    if x == 0.0 or not math.isfinite(x):
+        return x
+    m, e = math.frexp(x)                 # |m| in [0.5, 1): 8 bits of it
+    return math.ldexp(round(m * 256), e - 8)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to bf16 and widened back: one bf16 operation of the
+    reference's compiled program, which computes each in fp32 and rounds
+    its result."""
+    return x.to(torch.bfloat16).float()
+
+
 def safe_denom(denom: torch.Tensor, tiny: float = TINY) -> torch.Tensor:
     """Zero-safe divisor: |denom| <= tiny is replaced by
     sign(denom)*tiny + tiny (positive for denom >= 0, the REGTOP-k
@@ -144,6 +161,24 @@ def recip_f32(x: float) -> float:
     """fp32 1/x. A compiled reference program divides by a constant mu
     as a multiply by this reciprocal (XLA's algebraic simplifier)."""
     return f32(np.float32(1.0) / np.float32(x))
+
+
+def safe_denom_bf16(d: torch.Tensor) -> torch.Tensor:
+    """:func:`safe_denom` of bf16 values (fp32 holding them) as the
+    compiled reference computes it in bf16: the tiny constant rounded to
+    bf16, each operation of sign(d) * tiny + tiny rounded."""
+    tiny = bf16(TINY)
+    alt = round_bf16(round_bf16(torch.sign(d) * tiny) + tiny)
+    return torch.where(d.abs() > tiny, d, alt)
+
+
+def regularizer_bf16(delta: torch.Tensor, mu: float) -> torch.Tensor:
+    """REGTOP-k's tanh(|1 + delta| / mu) on bf16 values as the compiled
+    reference computes it under a bf16 state: the add rounded, the
+    division by mu a multiply by the fp32 reciprocal of bf16(mu),
+    rounded, XLA's fp32 tanh rounded."""
+    w = round_bf16(round_bf16(delta + 1.0).abs() * recip_f32(bf16(mu)))
+    return round_bf16(tanh_f32(w))
 
 
 def regularizer_factor(Q: float, mu: float) -> float:

@@ -91,11 +91,16 @@ def linear_histogram(x: torch.Tensor, amax: torch.Tensor,
     """(bins,) int32 counts of clip(trunc(|x| / amax * bins), 0, bins-1)
     for a 0-d fp32 amax, a NaN counted in bin 0 (as XLA converts it).
     One IEEE division and an exact multiply per entry, as the reference's
-    compiled program bins; chunked over x, so it runs at full J."""
+    compiled program bins; for a bf16 x the quotient is rounded to bf16
+    (the reference divides in x's dtype). Chunked over x, so it runs at
+    full J."""
     hist = torch.zeros(bins, dtype=torch.int64, device=x.device)
     j = x.numel()
     for lo in range(0, j, _HIST_CHUNK):
-        q = x[lo:lo + _HIST_CHUNK].float().abs() / amax * bins
+        q = x[lo:lo + _HIST_CHUNK].float().abs() / amax
+        if x.dtype == torch.bfloat16:
+            q = q.to(torch.bfloat16).float()
+        q = q * bins
         b = q.clamp_(max=bins - 1).nan_to_num_(nan=0.0).long()
         hist += torch.bincount(b, minlength=bins)
     return hist.to(torch.int32)
@@ -105,12 +110,18 @@ def histogram_threshold(score: torch.Tensor, k: int) -> torch.Tensor:
     """k-th largest |score| estimated at a linear-histogram bin edge
     (plain tensor ops): count(|score| >= tau) >= k. amax = max|score|,
     taken as 1.0 when it is not > 0 (the reference's rule; the kernel's
-    op floors it at 1e-30 instead)."""
+    op floors it at 1e-30 instead). A bf16 score is binned and its tau
+    formed in bf16 operations, each rounded, as the reference's compiled
+    program computes them: b rounded to bf16, b / bins * amax rounded."""
     amax = score.float().abs().amax()
     amax = torch.where(amax > 0, amax, torch.ones_like(amax))
     hist = linear_histogram(score, amax)
     b = hist_tail_bin(hist, k)
-    tau = b.to(torch.float32) / HIST_BINS * amax
+    if score.dtype == torch.bfloat16:
+        tau = (b.to(torch.bfloat16).float() / HIST_BINS * amax).to(
+            torch.bfloat16)
+    else:
+        tau = b.to(torch.float32) / HIST_BINS * amax
     return torch.where(b >= 0, tau, torch.zeros_like(tau))
 
 

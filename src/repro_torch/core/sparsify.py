@@ -48,7 +48,17 @@ pipelines). ``ef_dtype="bfloat16"`` keeps the J-sized state and the
 O(k) posterior values in bf16: the gradient is rounded to bf16 first,
 as the reference casts it; the fused sweeps compute in fp32 (sweep 1's
 bf16 read), the reference pipeline in bf16 operations as the
-reference's compiled program rounds them.
+reference's compiled program rounds them: each op's fp32 result rounded
+to bf16 with the Python constants rounded to bf16 first, but an op
+whose result the program widens to fp32 keeps it (``_select_key``).
+REGTOP-k's dense score runs through the ``scores_bf16`` kernel, its
+O(k) layout in plain tensor ops; the histogram selectors bin the bf16
+score in bf16.
+
+A config that asks for the fused pipeline with a kind or a selector the
+sweeps do not implement (``histogram_kernel``, the baselines) runs the
+reference pipeline and its state layout, as the reference's dispatch
+routes it (:func:`fused`).
 
 DGC's momentum is masked with a multiply on the reference pipeline and
 with an O(k) scatter-zero on the fused one, as in the reference: a
@@ -66,11 +76,12 @@ its last participating step.
 
 kind="sketchtopk" selects at the aggregate level
 (``core.aggregate.GradientSync``), so ``compress`` raises for it; its
-state is ``err_prev`` (fused) or ``err`` (reference pipeline) and
-``step``. The two baselines keep ``step`` only, on either pipeline:
-kind="none" (dense data-parallel SGD) compresses to the gradient itself
-under an all-ones mask, and kind="globaltopk" (the genie, the paper's
-§3.1) selects from the aggregate, so ``compress`` raises for it too.
+state is ``err_prev`` (fused) or ``err`` (reference pipeline), of
+``cfg.ef_dtype``, and ``step``. The two baselines keep ``step`` only, on
+either pipeline: kind="none" (dense data-parallel SGD) compresses to the
+gradient itself under an all-ones mask, and kind="globaltopk" (the
+genie, the paper's §3.1) selects from the aggregate, so ``compress``
+raises for it too.
 
 The in-process round drivers of the paper experiments
 (:func:`stack_states`, :func:`sparsified_round`, :func:`make_round_fn`)
@@ -86,9 +97,10 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import allocate, bigvec, select
-from repro_torch.core.numerics import (fma_f32, recip_f32,
-                                       regularizer_factor, safe_denom,
-                                       tanh_f32)
+from repro_torch.core.numerics import (bf16, fma_f32, recip_f32,
+                                       regularizer_bf16, regularizer_factor,
+                                       round_bf16, safe_denom,
+                                       safe_denom_bf16, tanh_f32)
 from repro_torch.kernels.fused_ef import ops as fef
 
 
@@ -114,71 +126,43 @@ _PIPELINES = ("fused", "reference")
 _SLICE = {"topk": "local", "dgc": "local", "regtopk": "local",
           "randk": "local", "thresholdk": "local",
           "sketchtopk": "sketch", "none": "none", "globaltopk": "global"}
-# selectors served per (selection, pipeline). The baselines run no
-# pipeline: the genie selects from the aggregate with any selector, and
-# kind none selects nothing; randk selects without a score (any)
-_ALL_SELECTORS = ("exact", "histogram", "histogram_kernel")
-_SELECTORS = {("local", "reference"): _ALL_SELECTORS,
-              ("local", "fused"): ("exact", "histogram"),
-              **{(sel, pipe): _ALL_SELECTORS for sel in ("none", "global")
-                 for pipe in _PIPELINES}}
+_SELECTORS = ("exact", "histogram", "histogram_kernel")
 _EF_DTYPES = ("float32", "bfloat16")
 
 
-def _unported(cfg, field: str, served, item: str):
-    return NotImplementedError(
-        f"SparsifierConfig.{field}={getattr(cfg, field)!r} is not ported yet "
-        f"for kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port serves "
-        f"{served} (ROADMAP {item})")
-
-
 def check_supported(cfg: SparsifierConfig) -> None:
-    """Raise NotImplementedError naming the ROADMAP item for a config
-    outside the ported slice (never a silent reroute)."""
+    """Raise for a config outside the port: NotImplementedError naming
+    the ROADMAP item (never a silent reroute), or the reference's own
+    ValueError. Every config the reference's GradientSync builds is
+    served, but the bucket auto-tune (``num_buckets=0``). A config that
+    asks for the fused pipeline with a kind or selector the sweeps do
+    not implement runs the reference pipeline, as the reference's
+    dispatch routes it (``dispatch.fused_reason``)."""
     if cfg.kind not in _SLICE:
         raise ValueError(f"unknown sparsifier kind {cfg.kind!r} (expected "
                          f"one of {tuple(_SLICE)})")
     if cfg.pipeline not in _PIPELINES:
         raise ValueError(f"unknown pipeline {cfg.pipeline!r} "
                          f"(expected one of {_PIPELINES})")
-    sel = _SLICE[cfg.kind]
-    selectors = (_ALL_SELECTORS if cfg.kind == "randk" else
-                 _SELECTORS.get((sel, cfg.pipeline), ("exact",)))
-    if cfg.selector not in selectors:
-        raise _unported(cfg, "selector", selectors,
-                        "A8 (the fused pipeline's histogram_kernel runs the "
-                        "reference pipeline in the reference: pass "
-                        "pipeline='reference')" if sel == "local" else
-                        "A12 (sketch selectors)")
+    if cfg.selector not in _SELECTORS:
+        raise ValueError(f"unknown selector {cfg.selector!r}")
+    # the reference's ValueErrors first, in its GradientSync's order:
+    # allocation needs a per-worker exact-k selection, streaming the
+    # fused pipeline
+    from repro_torch.kernels.compress.dispatch import check_overlap
+    allocate.check_allocation(cfg)
+    check_overlap(cfg)
     if cfg.num_buckets == 0:
-        raise _unported(cfg, "num_buckets", "num_buckets >= 1",
-                        "A16 (the bucket auto-tune: its interconnect "
-                        "constants are the TPU's)")
+        raise NotImplementedError(
+            f"SparsifierConfig.num_buckets=0 is not ported yet for "
+            f"kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port serves "
+            "num_buckets >= 1 (ROADMAP A16 (the bucket auto-tune: its "
+            "interconnect constants are the TPU's))")
     if cfg.num_buckets < 0:
         raise ValueError(f"num_buckets={cfg.num_buckets} < 0")
     if cfg.ef_dtype not in _EF_DTYPES:
         raise ValueError(f"unknown ef_dtype {cfg.ef_dtype!r} (expected one "
                          f"of {_EF_DTYPES})")
-    if sel == "sketch":
-        for field, served in (("num_buckets", (1,)),
-                              ("ef_dtype", ("float32",)),
-                              ("wire_dtype", ("float32",))):
-            if getattr(cfg, field) not in served:
-                raise _unported(cfg, field, served,
-                                "A12 (the sketch with buckets or bf16)")
-    elif sel in ("none", "global") and cfg.ef_dtype != "float32":
-        raise _unported(cfg, "ef_dtype", ("float32",),
-                        "A8 (bf16 for the dense-wire baselines)")
-    elif cfg.ef_dtype != "float32" and cfg.pipeline == "reference" and (
-            cfg.kind == "regtopk" or cfg.selector != "exact"):
-        raise _unported(cfg, "ef_dtype", ("float32",),
-                        "A8 (bf16 REGTOP-k and histogram selectors on the "
-                        "reference pipeline)")
-    # the reference's ValueErrors: allocation needs a per-worker exact-k
-    # selection, streaming the fused pipeline
-    from repro_torch.kernels.compress.dispatch import check_overlap
-    allocate.check_allocation(cfg)
-    check_overlap(cfg)
 
 
 def selection(cfg: SparsifierConfig) -> str:
@@ -191,10 +175,16 @@ def selection(cfg: SparsifierConfig) -> str:
     return _SLICE[cfg.kind]
 
 
+def fused(cfg: SparsifierConfig) -> bool:
+    """The fused pipeline serves cfg (``dispatch.fused``)."""
+    from repro_torch.kernels.compress.dispatch import fused as _fused
+    return _fused(cfg)
+
+
 def err_key(cfg: SparsifierConfig) -> str:
     """The error-feedback state's key: "err_prev" on the fused pipeline,
     "err" on the reference pipeline (as in the reference's layouts)."""
-    return "err_prev" if cfg.pipeline == "fused" else "err"
+    return "err_prev" if fused(cfg) else "err"
 
 
 def resolve_k(cfg: SparsifierConfig, j: int) -> int:
@@ -212,7 +202,7 @@ def state_dtype(cfg: SparsifierConfig) -> torch.dtype:
 def _dense_posterior(cfg: SparsifierConfig) -> bool:
     """REGTOP-k's dense posterior layout (reference pipeline,
     ``state_format="dense"``): a_prev, s_prev and g_agg_prev J-vectors."""
-    return (cfg.kind == "regtopk" and cfg.pipeline == "reference"
+    return (cfg.kind == "regtopk" and not fused(cfg)
             and cfg.state_format != "sparse")
 
 
@@ -301,7 +291,7 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
     seg_bounds, stream_bounds = partitions(
         cfg, j, seg_bounds, None if g_segments is None else
         [int(gs.numel()) for gs in g_segments])
-    if cfg.pipeline == "fused" and sel == "local":
+    if sel == "local" and fused(cfg):
         step = begin_fused(cfg, state, j, omega, participate=p, key=key,
                            seg_bounds=seg_bounds, stream_bounds=stream_bounds)
         for pos, (off, size) in enumerate(step.bounds):
@@ -310,12 +300,15 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
         return step.finish()
     g = g.float()
     if sel == "none":
+        g = g.to(state_dtype(cfg))
         ones = torch.ones_like(g)
         if p is not None:
             g, ones = torch.where(p, g, 0.0), torch.where(p, ones, 0.0)
         return CompressOut({"step": state["step"] + 1}, None, None,
                            ghat=g, mask=ones)
-    g = g.to(state_dtype(cfg))
+    if not _dense_posterior(cfg):
+        # the dense posterior's score kernel rounds g to bf16 itself
+        g = g.to(state_dtype(cfg))
     if p is not None:
         # the fused pipeline's masked inputs, so that both pipelines'
         # states stay bit-comparable under any mask
@@ -371,9 +364,11 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
 
 def _select_key(a: torch.Tensor, err: torch.Tensor, x: torch.Tensor):
     """The score the selection ranks for a = err + x: a itself, or with a
-    bf16 state the sum in fp32 before its rounding to bf16, as the
-    reference's compiled program computes the add that feeds the
-    selection's fp32 keys (the stored a is rounded)."""
+    bf16 state the sum in fp32 before its rounding to bf16. The
+    reference's compiled program computes a bf16 op whose result the
+    program widens to fp32 in fp32 and drops its rounding (the stored a
+    is rounded): the selection's fp32 keys and the histogram kernel's
+    input read it so."""
     if a.dtype == torch.float32:
         return a
     return err.float() + x.float()
@@ -414,8 +409,19 @@ def _reference_select(cfg: SparsifierConfig, a: torch.Tensor,
     if cfg.allocation != "global":
         return allocate.reference_allocated_select(cfg, a, score, k,
                                                    seg_bounds)
+    if cfg.selector == "histogram_kernel" and a.dtype != score.dtype:
+        # the kernel reads the widened fp32 key (unrounded, see
+        # _select_key); its threshold rounds to a's dtype and the mask
+        # compares the score in that dtype
+        from repro_torch.kernels.topk_select.ops import \
+            histogram_threshold_op
+        tau = histogram_threshold_op(score, k).to(a.dtype)
+        return (score.to(a.dtype).abs() >= tau).to(a.dtype), None, None
     if cfg.selector != "exact":
-        return select.topk_mask(score, k, cfg.selector), None, None
+        # the histogram selector bins the score in its own dtype (bf16
+        # under a bf16 state; the mask comes back in it)
+        return select.topk_mask(score.to(a.dtype), k, cfg.selector), \
+            None, None
     idx = select.topk_indices(score, k)
     mask = bigvec.mask_from_indices(a.numel(), idx, a.dtype)
     return mask, a[idx], bigvec.to_u32_bits(idx)
@@ -498,14 +504,32 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
         a = state["err"] + g
         _release(state, donate, "err")
         idx_p = bigvec.as_index(state["idx_prev"])
-        a_sel = a[idx_p]
-        # g_prev - omega * a_prev: one fused multiply-add, as compiled
-        delta = (fma_f32(state["a_prev_sel"], -omega, state["g_prev_sel"])
-                 / safe_denom(omega * a_sel))
-        reg_sel = tanh_f32((1.0 + delta).abs() * recip_f32(cfg.mu))
-        score = a * regularizer_factor(cfg.Q, cfg.mu)
-        score[idx_p] = a_sel * reg_sel
-        torch.where(state["step"] == 0, a, score, out=score)
+        if a.dtype == torch.float32:
+            a_sel = a[idx_p]
+            # g_prev - omega * a_prev: one fused multiply-add, as compiled
+            delta = (fma_f32(state["a_prev_sel"], -omega,
+                             state["g_prev_sel"])
+                     / safe_denom(omega * a_sel))
+            reg_sel = tanh_f32((1.0 + delta).abs() * recip_f32(cfg.mu))
+            score = a * regularizer_factor(cfg.Q, cfg.mu)
+            score[idx_p] = a_sel * reg_sel
+            torch.where(state["step"] == 0, a, score, out=score)
+        else:
+            # bf16 state: every operation rounded to bf16 as compiled
+            # (no fused multiply-add between two roundings), the
+            # constants rounded to bf16
+            af = a.float()
+            a_sel = af[idx_p]
+            om = bf16(omega)
+            delta = round_bf16(
+                round_bf16(state["g_prev_sel"].float()
+                           - round_bf16(om * state["a_prev_sel"].float()))
+                / safe_denom_bf16(round_bf16(om * a_sel)))
+            score = round_bf16(af * bf16(regularizer_factor(cfg.Q, cfg.mu)))
+            score[idx_p] = round_bf16(a_sel * regularizer_bf16(delta,
+                                                               cfg.mu))
+            torch.where(state["step"] == 0, af, score, out=score)
+            del af
     with record_function("compress/select"):
         idx = select.topk_indices(score, k)
     del score
@@ -640,8 +664,8 @@ def observe_aggregate(cfg: SparsifierConfig, state: dict,
     if cfg.kind != "regtopk":
         return state
     key = "g_agg_prev" if _dense_posterior(cfg) else "g_prev_sel"
-    obs = g_agg if key == "g_agg_prev" else bigvec.gather(
-        g_agg, state["idx_prev"]).to(state_dtype(cfg))
+    obs = (g_agg if key == "g_agg_prev" else bigvec.gather(
+        g_agg, state["idx_prev"])).to(state_dtype(cfg))
     if participate is not None:
         obs = torch.where(participate.reshape(()), obs, state[key])
     return dict(state, **{key: obs})

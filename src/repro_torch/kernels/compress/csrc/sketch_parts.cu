@@ -1,10 +1,16 @@
 // The partitioned CountSketch encodes of sketch-coordinated top-k,
-// hand-written for Hopper (sm_90a). Two entry points share every kernel
+// hand-written for Hopper (sm_90a). The entry points share every kernel
 // of this file:
 // - sweep1_sketch_launch, the fused sweep 1 of the fused pipeline: a = err
 //   + g for every element and the (rows, width) CountSketch of a. Replaces
 //   the TPU kernel src/repro/kernels/compress/kernel.py::
-//   _sweep1_sketch_kernel (launcher sweep1_sketch_pallas).
+//   _sweep1_sketch_kernel (launcher sweep1_sketch_pallas). Its gated form
+//   (sweep1_sketch_gated_launch) folds in the reference's masked_inputs
+//   (src/repro/kernels/compress/ops.py), which runs in XLA before the
+//   Pallas kernel: g_eff = p ? g : 0, err_eff = p ? err : decay * err. Its
+//   bf16 read (sweep1_sketch{,_gated}_bf16_launch) takes a bf16 err and
+//   widens it in registers, as the reference casts it to fp32 before its
+//   kernel; g and a stay fp32.
 // - sketch_encode_launch, the encode of the reference pipeline: the
 //   CountSketch of a given a. Replaces _sketch_encode_kernel (launcher
 //   sketch_encode_pallas) of the same file.
@@ -14,8 +20,10 @@
 // Bound: device-memory bytes. The fused sweep reads g and err and writes
 // a, 12 B per element (10.70 GB at J = 892,032,000, about 3.20 ms at the
 // H100 SXM's 3.35 TB/s); the encode reads a, 4 B per element (3.57 GB,
-// about 1.07 ms). Both make `rows` additions per element into a sketch
-// (42.8 MB at 3 rows x 3,568,128) that does not fit in shared memory.
+// about 1.07 ms). The bf16 read moves 10 B per element (8.92 GB, 2.66 ms);
+// the gated form the bytes of its read. Both make `rows` additions per
+// element into a sketch (42.8 MB at 3 rows x 3,568,128) that does not fit
+// in shared memory.
 //
 // Design: privatised bucket ranges. Each row's buckets are cut into
 // partitions of R = 2^14 buckets (R fp32 sums, 64 KB, fit in one CTA's
@@ -49,6 +57,7 @@
 #include <algorithm>
 
 #include "sketch_common.cuh"
+#include "state_read.cuh"
 
 namespace compress {
 namespace {
@@ -247,18 +256,26 @@ __device__ __forceinline__ void emit_tile(
 }
 
 // FUSED: a = err + g, written to a_out bitwise (the fused sweep); else a
-// = g, the given a, and err, a_out are unused (the encode). g, err, a_out
-// start at the chunk's first element e0; n elements; pl, pv hold the
-// chunk's tile blocks
-template <bool VEC, bool FUSED>
+// = g, the given a, and err, a_out are unused (the encode). S is the error
+// state's type (fp32, or bf16 widened in registers); GATED masks the
+// inputs by the participation bit *gate > 0.5 and the decay first, as the
+// reference's masked_inputs feeds its kernel (a sitting-out worker's a is
+// its decayed error, rounded to S, plus +0.0). g, err, a_out start at the
+// chunk's first element e0; n elements; pl, pv hold the chunk's tile
+// blocks
+template <bool VEC, bool FUSED, typename S, bool GATED>
 __global__ void __launch_bounds__(P1_THREADS)
-pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
-             float* __restrict__ a_out, uint16_t* __restrict__ pl,
+pass1_kernel(const float* __restrict__ g, const S* __restrict__ err,
+             float* __restrict__ a_out, const float* __restrict__ gate,
+             float decay, uint16_t* __restrict__ pl,
              float* __restrict__ pv, const Parts L, long long e0,
              long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using Read = StateRead<S>;
   const Stage st = stage_of(smem, L.per_row);
   for (int q = threadIdx.x; q < L.per_row; q += P1_THREADS) st.cnt[q] = 0;
+  bool p = true;   // the participation bit (the gated form reads it)
+  if constexpr (GATED) p = *gate > 0.5f;
   __syncthreads();
   const long long tiles = (n + TILE - 1) / TILE;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -268,20 +285,19 @@ pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
     float a[PER_THREAD];
     if (VEC && base + TILE <= n) {
       const float4* g4 = reinterpret_cast<const float4*>(g + base);
-      const float4* e4 =
-          FUSED ? reinterpret_cast<const float4*>(err + base) : nullptr;
       float4* a4 = FUSED ? reinterpret_cast<float4*>(a_out + base) : nullptr;
       float4 v[PER_THREAD / 4], ev[PER_THREAD / 4];
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
         v[r] = __ldcs(&g4[r * P1_THREADS + threadIdx.x]);
         if constexpr (FUSED) {
-          ev[r] = __ldcs(&e4[r * P1_THREADS + threadIdx.x]);
+          ev[r] = Read::load4(err + base, r * P1_THREADS + threadIdx.x);
         }
       }
 #pragma unroll
       for (int r = 0; r < PER_THREAD / 4; ++r) {
         if constexpr (FUSED) {
+          if constexpr (GATED) mask_inputs<Read::BF16>(p, decay, v[r], ev[r]);
           v[r].x = __fadd_rn(ev[r].x, v[r].x);
           v[r].y = __fadd_rn(ev[r].y, v[r].y);
           v[r].z = __fadd_rn(ev[r].z, v[r].z);
@@ -311,7 +327,10 @@ pass1_kernel(const float* __restrict__ g, const float* __restrict__ err,
         if (i < m) {
           const long long e = base + i;
           if constexpr (FUSED) {
-            a[k] = __fadd_rn(err[e], g[e]);
+            float x = g[e];
+            float ee = Read::load1(err, e);
+            if constexpr (GATED) mask_inputs<Read::BF16>(p, decay, x, ee);
+            a[k] = __fadd_rn(ee, x);
             a_out[e] = a[k];
           } else {
             a[k] = g[e];
@@ -432,13 +451,15 @@ int set_smem(const void* kernel, size_t bytes) {
 
 // The chunk loop of both encodes: pass 1 then pass 2 per chunk; pass 2
 // writes the sketch at the first chunk and adds the later ones. FUSED
-// reads g and err and writes a; else g is the given a.
-template <bool FUSED>
-int encode(const float* g, const float* err, float* a, float* sk,
-           uint16_t* pl, float* pv, const uint16_t* start,
-           const unsigned* mults, const unsigned* adds, int rows,
-           unsigned width, unsigned long long magic, long long j,
-           long long chunk, int grid, int vec, cudaStream_t stream) {
+// reads g and err (of type S; gated by *gate and decay with GATED) and
+// writes a; else g is the given a.
+template <bool FUSED, typename S = float, bool GATED = false>
+int encode(const float* g, const S* err, float* a, const float* gate,
+           float decay, float* sk, uint16_t* pl, float* pv,
+           const uint16_t* start, const unsigned* mults,
+           const unsigned* adds, int rows, unsigned width,
+           unsigned long long magic, long long j, long long chunk, int grid,
+           int vec, cudaStream_t stream) {
   Parts L;
   int bad = make_parts(&L, mults, adds, rows, width, magic);
   if (bad) return bad;
@@ -447,7 +468,8 @@ int encode(const float* g, const float* err, float* a, float* sk,
   }
   const size_t smem1 = stage_bytes(L.per_row);
   const size_t smem2 = (size_t{1} << PART_SHIFT) * sizeof(float);
-  auto pass1 = vec ? pass1_kernel<true, FUSED> : pass1_kernel<false, FUSED>;
+  auto pass1 = vec ? pass1_kernel<true, FUSED, S, GATED>
+                   : pass1_kernel<false, FUSED, S, GATED>;
   bad = set_smem(reinterpret_cast<const void*>(pass1), smem1);
   if (bad) return bad;
   bad = set_smem(reinterpret_cast<const void*>(pass2_kernel), smem2);
@@ -458,8 +480,8 @@ int encode(const float* g, const float* err, float* a, float* sk,
     const long long e0 = c * chunk;
     const long long n = std::min(chunk, j - e0);
     pass1<<<grid, P1_THREADS, smem1, stream>>>(
-        g + e0, FUSED ? err + e0 : nullptr, FUSED ? a + e0 : nullptr, pl, pv,
-        L, e0, n);
+        g + e0, FUSED ? err + e0 : nullptr, FUSED ? a + e0 : nullptr, gate,
+        decay, pl, pv, L, e0, n);
     cudaError_t e1 = cudaGetLastError();
     if (e1 != cudaSuccess) return static_cast<int>(e1);
     pass2_kernel<<<L.parts, P2_THREADS, smem2, stream>>>(
@@ -510,9 +532,46 @@ extern "C" int sweep1_sketch_launch(const float* g, const float* err, float* a,
                                     unsigned width, unsigned long long magic,
                                     long long j, long long chunk, int grid,
                                     int vec, cudaStream_t stream) {
-  return compress::encode<true>(g, err, a, sk, pl, pv, start, mults, adds,
-                                rows, width, magic, j, chunk, grid, vec,
-                                stream);
+  return compress::encode<true>(g, err, a, nullptr, 1.0f, sk, pl, pv, start,
+                                mults, adds, rows, width, magic, j, chunk,
+                                grid, vec, stream);
+}
+
+// The bf16 read: err (J,) bf16, widened in registers; vec != 0 requires
+// 16-byte-aligned g and a and an 8-byte-aligned err.
+extern "C" int sweep1_sketch_bf16_launch(
+    const float* g, const __nv_bfloat16* err, float* a, float* sk,
+    uint16_t* pl, float* pv, const uint16_t* start, const unsigned* mults,
+    const unsigned* adds, int rows, unsigned width, unsigned long long magic,
+    long long j, long long chunk, int grid, int vec, cudaStream_t stream) {
+  return compress::encode<true, __nv_bfloat16>(
+      g, err, a, nullptr, 1.0f, sk, pl, pv, start, mults, adds, rows, width,
+      magic, j, chunk, grid, vec, stream);
+}
+
+// The gated form: gate a 1-element device fp32 (the participation bit, >
+// 0.5 is in), decay by value; otherwise as sweep1_sketch_launch.
+extern "C" int sweep1_sketch_gated_launch(
+    const float* g, const float* err, float* a, const float* gate,
+    float decay, float* sk, uint16_t* pl, float* pv, const uint16_t* start,
+    const unsigned* mults, const unsigned* adds, int rows, unsigned width,
+    unsigned long long magic, long long j, long long chunk, int grid,
+    int vec, cudaStream_t stream) {
+  return compress::encode<true, float, true>(
+      g, err, a, gate, decay, sk, pl, pv, start, mults, adds, rows, width,
+      magic, j, chunk, grid, vec, stream);
+}
+
+// The gated form of the bf16 read.
+extern "C" int sweep1_sketch_gated_bf16_launch(
+    const float* g, const __nv_bfloat16* err, float* a, const float* gate,
+    float decay, float* sk, uint16_t* pl, float* pv, const uint16_t* start,
+    const unsigned* mults, const unsigned* adds, int rows, unsigned width,
+    unsigned long long magic, long long j, long long chunk, int grid,
+    int vec, cudaStream_t stream) {
+  return compress::encode<true, __nv_bfloat16, true>(
+      g, err, a, gate, decay, sk, pl, pv, start, mults, adds, rows, width,
+      magic, j, chunk, grid, vec, stream);
 }
 
 // The same for a given a (J,) fp32: only the sketch is written. vec != 0
@@ -524,7 +583,8 @@ extern "C" int sketch_encode_launch(const float* a, float* sk, uint16_t* pl,
                                     unsigned width, unsigned long long magic,
                                     long long j, long long chunk, int grid,
                                     int vec, cudaStream_t stream) {
-  return compress::encode<false>(a, nullptr, nullptr, sk, pl, pv, start,
+  return compress::encode<false>(a, static_cast<const float*>(nullptr),
+                                 nullptr, nullptr, 1.0f, sk, pl, pv, start,
                                  mults, adds, rows, width, magic, j, chunk,
                                  grid, vec, stream);
 }

@@ -1,7 +1,10 @@
 """What a config's compress step emits and which wire its sync realizes
 (the port's copy of ``repro.kernels.compress.dispatch``).
 
-The fused pipeline serves the kinds of :data:`FUSED_KINDS`. Its
+The fused pipeline serves the kinds of :data:`FUSED_KINDS` and the
+sketch's encode (:func:`fused_reason`; any other config runs the
+reference pipeline, whatever ``cfg.pipeline`` asks, as in the
+reference). Its
 histogram selector (``selector="histogram"``) selects at the bit-pattern
 bin edge of the k-th |score| and packs a fixed :func:`hist_capacity`
 pairs, count in [k, capacity] of them live and the tail inert (value
@@ -18,6 +21,7 @@ from repro_torch.core import sparsify
 # kinds of the fused two-sweep pipeline: randk is one elementwise pass
 # and an O(k) random gather, thresholdk shares topk's plain-score path
 FUSED_KINDS = ("topk", "dgc", "regtopk", "randk", "thresholdk")
+FUSED_SELECTORS = ("exact", "histogram")
 # the fused histogram selector's over-selection cap: count <= k * (1 +
 # HIST_SLACK)
 HIST_SLACK = 1.0
@@ -30,10 +34,40 @@ def hist_capacity(k: int, j: int) -> int:
     return int(min(j, k + max(1, int(math.ceil(k * HIST_SLACK)))))
 
 
+def fused_reason(cfg: SparsifierConfig) -> str:
+    """Why the fused pipeline does not serve cfg ("" when it does), as
+    the reference's dispatch decides it: a config that asks for
+    pipeline="fused" with a kind or a selector the two sweeps do not
+    implement (the genie, dense SGD, ``histogram_kernel``) runs the
+    reference pipeline, with that pipeline's state layout. The sketch's
+    encode folds into sweep 1 whatever the selector, which then only
+    decodes the shared mask."""
+    if cfg.pipeline != "fused":
+        return f"pipeline={cfg.pipeline!r} requested"
+    if cfg.kind == "sketchtopk":
+        if cfg.selector not in FUSED_SELECTORS:
+            return (f"selector={cfg.selector!r} has no shared-mask "
+                    "decode on the fused sketch path")
+        return ""
+    if cfg.kind not in FUSED_KINDS:
+        return (f"kind={cfg.kind!r} has no per-worker compress step the "
+                "two-sweep pipeline can serve (aggregate-level "
+                "selection)")
+    if cfg.kind != "randk" and cfg.selector not in FUSED_SELECTORS:
+        return (f"selector={cfg.selector!r} is served by kernels/topk_select "
+                "on the reference path")
+    return ""
+
+
+def fused(cfg: SparsifierConfig) -> bool:
+    """The fused pipeline serves cfg (:func:`fused_reason`)."""
+    return not fused_reason(cfg)
+
+
 def fused_histogram(cfg: SparsifierConfig) -> bool:
     """The fused pipeline's histogram selector serves the config: a fused
     kind but randk, which ignores the selector."""
-    return (cfg.pipeline == "fused" and cfg.selector == "histogram"
+    return (fused(cfg) and cfg.selector == "histogram"
             and cfg.kind in FUSED_KINDS and cfg.kind != "randk")
 
 
@@ -46,7 +80,7 @@ def packs_pairs(cfg: SparsifierConfig) -> bool:
     data-dependent count and pack nothing; nor do the sketch, the genie
     and dense SGD, which select no per-worker pairs."""
     return sparsify.selection(cfg) == "local" and (
-        cfg.pipeline == "fused" or cfg.selector == "exact"
+        fused(cfg) or cfg.selector == "exact"
         or cfg.kind == "randk"
         or (cfg.kind == "regtopk" and cfg.state_format == "sparse"))
 
@@ -105,12 +139,8 @@ def check_overlap(cfg: SparsifierConfig) -> None:
             "pre-selection barrier over the WHOLE accumulated gradient, "
             "so no per-segment stream can launch before the shared mask "
             "exists (DESIGN.md §2.9)")
-    if cfg.pipeline != "fused" or cfg.kind not in FUSED_KINDS:
-        reason = (f"pipeline={cfg.pipeline!r} requested"
-                  if cfg.pipeline != "fused" else
-                  f"kind={cfg.kind!r} has no per-worker compress step the "
-                  "two-sweep pipeline can serve (aggregate-level "
-                  "selection)")
+    reason = fused_reason(cfg)
+    if reason:
         raise ValueError("overlap='backward' requires the fused pipeline; "
                          f"this config dispatches to the reference path "
                          f"({reason})")

@@ -20,6 +20,10 @@ static ``MAXPB`` slots. The CountSketch encodes share the kernels of
 ``csrc/sketch_parts.cu``, privatised bucket ranges in two passes per
 chunk of J: :func:`sweep1_sketch` emits ``a = err + g`` and the (rows,
 width) CountSketch of a, :func:`sketch_encode` the sketch of a given a.
+The fused encode also reads a bf16 error state (:func:`sweep1_sketch_bf16`)
+and masks its inputs by a participation bit and the error decay
+(:func:`sweep1_sketch_gated`, :func:`sweep1_sketch_gated_bf16`), as the
+reference's ``masked_inputs`` feeds its kernel.
 The partitioned encode's index arithmetic has plain versions here
 (:func:`fastmod`, :func:`sketch_starts_plain`,
 :func:`sketch_encode_parts_plain`), which the CPU tests hold against the
@@ -213,8 +217,20 @@ def sketch_encode_plain(a, rows: int, width: int):
     return sk
 
 
-def sweep1_sketch_plain(g, err_prev, rows: int, width: int):
-    a = err_prev + g
+def sweep1_sketch_plain(g, err_prev, rows: int, width: int, gate=None,
+                        decay: float = 1.0):
+    """Plain version of :func:`sweep1_sketch` in every mode: a = err_prev
+    + g in fp32 and its sketch. A bf16 err_prev widens (g stays fp32, as
+    the reference casts both to fp32 before its kernel). With ``gate``
+    ((1,) fp32, the participation bit p = gate > 0.5) the inputs are the
+    reference's masked ones first: g_eff = where(p, g, 0), err_eff =
+    where(p, err, decay * err) with the decayed error rounded to the
+    state's dtype, so a sitting-out worker's a is its decayed error plus
+    +0.0 (a -0.0 error becomes +0.0)."""
+    if gate is not None:
+        g, err_prev = masked_inputs(g, err_prev, gate.reshape(()) > 0.5,
+                                    decay)
+    a = err_prev.float() + g
     return a, sketch_encode_plain(a, rows, width)
 
 
@@ -592,10 +608,41 @@ def _hash_args(rows: int):
     return u32s(*csk.MULTS[:rows]), u32s(*csk.ADDS[:rows])
 
 
+def _sweep1_sketch(fn, g, err_prev, rows: int, width: int, tables, gate,
+                   decay: float):
+    """Check the inputs and run B3 in the mode the arguments pick (gated
+    with ``gate``, the bf16 read when err_prev is bf16): the plain
+    version on the CPU, else the kernel, counted on the public wrapper
+    ``fn``."""
+    j = g.numel()
+    dtype = err_prev.dtype
+    if dtype not in (torch.float32, _BF16):
+        raise ValueError(f"{fn.__name__}: err_prev must be fp32 or bf16, "
+                         f"got {dtype}")
+    _check_vec("g", g)
+    _check_vec("err_prev", err_prev, j, dtype)
+    ins = [g, err_prev]
+    if gate is not None:
+        _check_vec("gate", gate, 1)
+        ins.append(gate)
+    if len({x.device for x in ins}) != 1:
+        raise ValueError(f"{fn.__name__}: every input must share a device")
+    csk.check_shape(j, rows, width)
+    if not _on_card(g):
+        return sweep1_sketch_plain(g, err_prev, rows, width, gate, decay)
+    a = torch.empty_like(g)
+    sk = _encode_card(g, err_prev, a, rows, width,
+                      _start_table(g.device, j, rows, width, tables),
+                      gate, decay)
+    fn.launches += 1
+    return a, sk
+
+
 def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
                   width: int, tables: dict | None = None):
     """(a (J,) fp32, CountSketch of a (rows, width) fp32) for g, err_prev
-    (J,) fp32 on one device; a = err_prev + g.
+    (J,) fp32 on one device; a = err_prev + g (a bf16 err_prev runs
+    :func:`sweep1_sketch_bf16`).
 
     On the card the encode reads a start table of its shape (J, rows,
     width), which a count kernel builds without reading data (142 MB at
@@ -604,19 +651,47 @@ def sweep1_sketch(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
     at the first call of a shape and reused after, and it lives as long
     as the dict. Without it the table is built for the call alone. Both
     encodes key the dict alike, so they share a table."""
-    j = g.numel()
-    _check_vec("g", g)
-    _check_vec("err_prev", err_prev, j)
-    if g.device != err_prev.device:
-        raise ValueError("sweep1_sketch: g and err_prev must share a device")
-    csk.check_shape(j, rows, width)
-    if not _on_card(g):
-        return sweep1_sketch_plain(g, err_prev, rows, width)
-    a = torch.empty_like(g)
-    sk = _encode_card(g, err_prev, a, rows, width,
-                      _start_table(g.device, j, rows, width, tables))
-    sweep1_sketch.launches += 1
-    return a, sk
+    if err_prev.dtype == _BF16:
+        return sweep1_sketch_bf16(g, err_prev, rows, width, tables)
+    return _sweep1_sketch(sweep1_sketch, g, err_prev, rows, width, tables,
+                          None, 1.0)
+
+
+def sweep1_sketch_bf16(g: torch.Tensor, err_prev: torch.Tensor, rows: int,
+                       width: int, tables: dict | None = None):
+    """B3 reading a bf16 err_prev (J,), widened in registers (exact); g
+    and a stay fp32, so every output equals the fp32 kernel's on
+    (g, err_prev.float()). Its own ``launches`` count."""
+    _check_vec("err_prev", err_prev, dtype=_BF16)
+    return _sweep1_sketch(sweep1_sketch_bf16, g, err_prev, rows, width,
+                          tables, None, 1.0)
+
+
+def sweep1_sketch_gated(g: torch.Tensor, err_prev: torch.Tensor,
+                        gate: torch.Tensor, decay: float, rows: int,
+                        width: int, tables: dict | None = None):
+    """B3 under elastic participation: the inputs masked in registers by
+    the participation bit p = gate > 0.5 (gate a (1,) fp32 on the device)
+    and the error-feedback decay ``decay`` (rounded to fp32), g_eff =
+    p ? g : 0, err_eff = p ? err : decay * err, then a = err_eff + g_eff
+    and its sketch, as the reference's ``masked_inputs`` feeds its
+    kernel. Its own ``launches`` count (bf16 state:
+    :func:`sweep1_sketch_gated_bf16`)."""
+    if err_prev.dtype == _BF16:
+        return sweep1_sketch_gated_bf16(g, err_prev, gate, decay, rows,
+                                        width, tables)
+    return _sweep1_sketch(sweep1_sketch_gated, g, err_prev, rows, width,
+                          tables, gate, decay)
+
+
+def sweep1_sketch_gated_bf16(g: torch.Tensor, err_prev: torch.Tensor,
+                             gate: torch.Tensor, decay: float, rows: int,
+                             width: int, tables: dict | None = None):
+    """The gated form reading a bf16 err_prev: a sitting-out worker's
+    decayed error is rounded to bf16 before it is widened and added."""
+    _check_vec("err_prev", err_prev, dtype=_BF16)
+    return _sweep1_sketch(sweep1_sketch_gated_bf16, g, err_prev, rows,
+                          width, tables, gate, decay)
 
 
 def sketch_encode(a: torch.Tensor, rows: int, width: int,
@@ -666,11 +741,13 @@ def sketch_starts(dev, j: int, rows: int, width: int) -> torch.Tensor:
     return start
 
 
-def _encode_card(x, err_prev, a, rows: int, width: int, start):
+def _encode_card(x, err_prev, a, rows: int, width: int, start, gate=None,
+                 decay: float = 1.0):
     """The partitioned encode on the card through the start table
     ``start`` of its shape: the sketch of err_prev + x, written with a
-    into ``a`` (the fused sweep), or of x itself when err_prev is None
-    (the encode)."""
+    into ``a`` (the fused sweep: an fp32 or bf16 err_prev, gated by
+    ``gate`` where given), or of x itself when err_prev is None (the
+    encode)."""
     dev = x.device
     j = x.numel()
     plan = sketch_plan(j, rows, width)
@@ -682,22 +759,35 @@ def _encode_card(x, err_prev, a, rows: int, width: int, start):
     fused = err_prev is not None
     ins = [x, err_prev, a] if fused else [x]
     lib = _lib("sketch_parts")
-    fn = lib.sweep1_sketch_launch if fused else lib.sketch_encode_launch
+    ptr = ctypes.c_void_p
+    if not fused:
+        fn, name, extra, extra_types = (lib.sketch_encode_launch,
+                                        "sketch_encode", [], [])
+    else:
+        bf16 = "_bf16" if err_prev.dtype == _BF16 else ""
+        gated = "_gated" if gate is not None else ""
+        name = f"sweep1_sketch{gated}{bf16}"
+        fn = getattr(lib, f"{name}_launch")
+        extra, extra_types = (([gate.data_ptr(), ctypes.c_float(decay)],
+                               [ptr, ctypes.c_float]) if gated else
+                              ([], []))
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (len(ins) + 6) + [
+    fn.argtypes = [ptr] * len(ins) + extra_types + [ptr] * 6 + [
         ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     mults, adds = _hash_args(rows)
-    err = fn(*(t.data_ptr() for t in ins + [sk, pl, pv, start]), mults, adds,
+    err = fn(*(t.data_ptr() for t in ins), *extra,
+             *(t.data_ptr() for t in (sk, pl, pv, start)), mults, adds,
              rows, width, fastmod_magic(width), j, plan["chunk"],
              _grid(dev, _tiles(min(plan["chunk"], max(j, 1))), 1),
-             _aligned(*ins), _stream(dev))
-    _check_launch("sweep1_sketch" if fused else "sketch_encode", err)
+             _vec_ok(*ins) if fused else _aligned(*ins), _stream(dev))
+    _check_launch(name, err)
     return sk
 
 
 KERNELS = (sweep1, sweep1_dgc, sweep1_gated, sweep1_bf16, sweep1_dgc_bf16,
-           sweep1_gated_bf16, sweep2, sweep1_sketch, sketch_encode)
+           sweep1_gated_bf16, sweep2, sweep1_sketch, sweep1_sketch_bf16,
+           sweep1_sketch_gated, sweep1_sketch_gated_bf16, sketch_encode)
 for _fn in KERNELS:
     _fn.launches = 0
 

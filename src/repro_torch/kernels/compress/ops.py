@@ -630,12 +630,20 @@ def _allocated_trim(st: FusedStep, regtopk: bool) -> dict:
 
 
 def fused_sketch_encode(g: torch.Tensor, err_prev: torch.Tensor, *,
-                        rows: int, width: int, tables: dict | None = None
-                        ) -> dict:
+                        rows: int, width: int, tables: dict | None = None,
+                        participate=None, err_decay: float = 1.0) -> dict:
     """The per-worker half of kind="sketchtopk" on the fused pipeline:
     a = err_prev + g and its (rows, width) CountSketch in one pass over
     g and err_prev (kernel ``sweep1_sketch``, which keeps its start
-    tables in the caller's ``tables``). Returns {"a": (J,) fp32,
-    "sketch": (rows, width) fp32}."""
-    a, sk = pk.sweep1_sketch(g, err_prev, rows, width, tables)
+    tables in the caller's ``tables``; its bf16 read for a bf16
+    err_prev). ``participate`` (a 0-d bool) masks the inputs as the
+    reference's ``masked_inputs`` does, inside the kernel's pass
+    (``sweep1_sketch_gated``): a sitting-out worker encodes its decayed
+    error. Returns {"a": (J,) fp32, "sketch": (rows, width) fp32}."""
+    if participate is None:
+        a, sk = pk.sweep1_sketch(g, err_prev, rows, width, tables)
+    else:
+        gate = participate.reshape(1).to(torch.float32)
+        a, sk = pk.sweep1_sketch_gated(g, err_prev, gate, err_decay, rows,
+                                       width, tables)
     return {"a": a, "sketch": sk}

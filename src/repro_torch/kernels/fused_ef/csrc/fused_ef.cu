@@ -9,9 +9,21 @@
 //   apply (_apply_kernel, launcher apply_pallas)
 //     ghat = mask * a,   err' = a - ghat
 //
+// scores also has a bf16 read (scores_bf16_launch) for the reference's
+// ef_dtype="bfloat16": err, a_prev, g_agg and s_prev are bf16, g fp32. The
+// reference computes this chain in bf16 jnp operations, and its compiled
+// CPU program rounds the fp32 result of every one of them to bf16 (read
+// from the compiled HLO: a convert pair after each op, none elided), with
+// its Python constants rounded to bf16 first (omega, Q and the 1e-12 of
+// the safe divisor) and the division by mu a multiply by the fp32
+// reciprocal of bf16(mu). The kernel rounds at each of those points; a is
+// written as bf16 and the score as fp32 (each a bf16 value).
+//
 // Bound: device-memory bytes. scores reads five fp32 J-vectors and writes
 // two (28 B per element, 24.98 GB at J = 892,032,000, 7.46 ms at the H100
-// SXM's 3.35 TB/s); apply reads two and writes two (16 B, 4.26 ms). About
+// SXM's 3.35 TB/s), its bf16 read g (4 B), four bf16 vectors (8 B) and
+// writes a bf16 a and the fp32 score (6 B: 18 B, 16.06 GB, 4.79 ms);
+// apply reads two and writes two (16 B, 4.26 ms). About
 // 40 fp32 operations per element (the tanh's two polynomials, one
 // division, the posterior) stay far below the 67 TFLOP/s of the card.
 //
@@ -29,6 +41,7 @@
 // tanh (the clamped 13/6 rational polynomial); the plain PyTorch version
 // forms them in fp64 products (see repro_torch.core.numerics).
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fused_ef {
@@ -38,6 +51,7 @@ constexpr int THREADS = 256;
 
 // fp32 constants, written as the exact values numerics.py rounds to
 constexpr float TINY = 0x1.197998p-40f;           // f32(1e-12)
+constexpr float TINY_BF16 = 0x1.1ap-40f;          // bf16(1e-12)
 constexpr float TANH_CLAMP = 0x1.ffec88p+2f;      // 7.99881172180175781
 constexpr float TANH_SMALL = 0x1.a36e2ep-12f;     // f32(0.0004)
 constexpr float N0 = -0x1.3e4b8p-52f, N1 = 0x1.c266fcp-43f,
@@ -90,6 +104,91 @@ __device__ __forceinline__ float score_one(float g, float e, float ap,
   const float reg = tanh_xla(__fmul_rn(fabsf(__fadd_rn(1.0f, delta)), c.rmu));
   *a_out = a;
   return __fmul_rn(a, reg);
+}
+
+// fp32 x rounded to bf16 and widened back: one bf16 operation
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the score chain on bf16 operands, each operation rounded to bf16 (c:
+// omega and Q as bf16 values, rmu the fp32 reciprocal of bf16(mu)); g is
+// rounded to bf16 first, as the reference casts it
+__device__ __forceinline__ float score_one_bf16(float g, float e, float ap,
+                                                float ga, float sp,
+                                                const Scalars& c,
+                                                float* a_out) {
+  const float a = rb(__fadd_rn(e, rb(g)));
+  const float d = rb(__fmul_rn(c.omega, a));
+  float safe = d;
+  if (!(fabsf(d) > TINY_BF16)) {
+    const float s = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : d);
+    safe = rb(__fadd_rn(rb(__fmul_rn(s, TINY_BF16)), TINY_BF16));
+  }
+  const float num = rb(__fsub_rn(ga, rb(__fmul_rn(c.omega, ap))));
+  const float sent = rb(__fdiv_rn(num, safe));
+  const float delta = rb(__fadd_rn(
+      rb(__fmul_rn(sp, sent)), rb(__fmul_rn(rb(__fsub_rn(1.0f, sp)), c.q))));
+  const float w = rb(__fmul_rn(fabsf(rb(__fadd_rn(delta, 1.0f))), c.rmu));
+  *a_out = a;
+  return rb(__fmul_rn(a, rb(tanh_xla(w))));
+}
+
+// four bf16 at 4 * i of p, widened (the lower half-word is the lower
+// element)
+__device__ __forceinline__ float4 load_bf16x4(const __nv_bfloat16* p,
+                                              long long i) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p) + i);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+scores_bf16_kernel(const float* __restrict__ g,
+                   const __nv_bfloat16* __restrict__ err,
+                   const __nv_bfloat16* __restrict__ a_prev,
+                   const __nv_bfloat16* __restrict__ g_agg,
+                   const __nv_bfloat16* __restrict__ s_prev,
+                   __nv_bfloat16* __restrict__ a_out,
+                   float* __restrict__ score_out, long long j, Scalars c) {
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  const long long first = static_cast<long long>(blockIdx.x) * THREADS +
+                          threadIdx.x;
+  long long done = 0;
+  if (VEC) {
+    const long long n4 = j / 4;
+    for (long long i = first; i < n4; i += stride) {
+      const float4 gv = __ldcs(reinterpret_cast<const float4*>(g) + i);
+      const float4 ev = load_bf16x4(err, i);
+      const float4 pv = load_bf16x4(a_prev, i);
+      const float4 hv = load_bf16x4(g_agg, i);
+      const float4 sv = load_bf16x4(s_prev, i);
+      float4 av, ov;
+      ov.x = score_one_bf16(gv.x, ev.x, pv.x, hv.x, sv.x, c, &av.x);
+      ov.y = score_one_bf16(gv.y, ev.y, pv.y, hv.y, sv.y, c, &av.y);
+      ov.z = score_one_bf16(gv.z, ev.z, pv.z, hv.z, sv.z, c, &av.z);
+      ov.w = score_one_bf16(gv.w, ev.w, pv.w, hv.w, sv.w, c, &av.w);
+      // av holds bf16 values: their top half-words are exact
+      __stcs(reinterpret_cast<uint2*>(a_out) + i,
+             make_uint2(pack_bf16x2(av.x, av.y), pack_bf16x2(av.z, av.w)));
+      __stcs(reinterpret_cast<float4*>(score_out) + i, ov);
+    }
+    done = n4 * 4;
+  }
+  for (long long e = done + first; e < j; e += stride) {
+    float a;
+    score_out[e] = score_one_bf16(
+        g[e], __bfloat162float(err[e]), __bfloat162float(a_prev[e]),
+        __bfloat162float(g_agg[e]), __bfloat162float(s_prev[e]), c, &a);
+    a_out[e] = __float2bfloat16_rn(a);
+  }
 }
 
 template <bool VEC>
@@ -181,6 +280,30 @@ extern "C" int scores_launch(const float* g, const float* err,
         g, err, a_prev, g_agg, s_prev, a, score, j, c);
   } else {
     scores_kernel<false><<<grid, THREADS, 0, stream>>>(
+        g, err, a_prev, g_agg, s_prev, a, score, j, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 read: g (J,) fp32, err, a_prev, g_agg, s_prev (J,) bf16, a
+// (J,) bf16 and score (J,) fp32 written; omega, q the bf16-rounded
+// constants and rmu = fp32 1/bf16(mu), by value. vec != 0 requires g and
+// score 16-byte aligned and the bf16 vectors 8-byte aligned.
+extern "C" int scores_bf16_launch(const float* g, const __nv_bfloat16* err,
+                                  const __nv_bfloat16* a_prev,
+                                  const __nv_bfloat16* g_agg,
+                                  const __nv_bfloat16* s_prev,
+                                  __nv_bfloat16* a, float* score,
+                                  long long j, float omega, float rmu,
+                                  float q, int grid, int vec,
+                                  cudaStream_t stream) {
+  using namespace fused_ef;
+  const Scalars c{omega, rmu, q};
+  if (vec) {
+    scores_bf16_kernel<true><<<grid, THREADS, 0, stream>>>(
+        g, err, a_prev, g_agg, s_prev, a, score, j, c);
+  } else {
+    scores_bf16_kernel<false><<<grid, THREADS, 0, stream>>>(
         g, err, a_prev, g_agg, s_prev, a, score, j, c);
   }
   return static_cast<int>(cudaGetLastError());

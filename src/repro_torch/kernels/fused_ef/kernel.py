@@ -4,7 +4,9 @@ PyTorch versions (the port of ``repro.kernels.fused_ef.kernel``).
 :func:`scores` (kernel ``csrc/fused_ef.cu``, ``scores_launch``) reads g,
 the error state and the dense posterior (a_prev, g_agg, s_prev) once and
 writes ``a = err + g`` and the REGTOP-k score
-``a * tanh(|1 + delta| / mu)``; :func:`apply` (``apply_launch``) writes
+``a * tanh(|1 + delta| / mu)``; :func:`scores_bf16` (``scores_bf16_launch``)
+is its read of a bf16 state, every operation rounded to bf16 as the
+reference's compiled program rounds it; :func:`apply` (``apply_launch``) writes
 ``ghat = mask * a`` and ``err' = a - ghat``.
 
 Each wrapper checks its inputs and dispatches on the tensors' device: a
@@ -20,8 +22,9 @@ import ctypes
 
 import torch
 
-from repro_torch.core.numerics import (f32, fma_f32, recip_f32, safe_denom,
-                                       tanh_f32)
+from repro_torch.core.numerics import (bf16, f32, fma_f32, recip_f32,
+                                       regularizer_bf16, round_bf16,
+                                       safe_denom, safe_denom_bf16, tanh_f32)
 from repro_torch.kernels.common import (aligned, check_launch, check_vec,
                                         grid, lib, on_card, same_device,
                                         stream)
@@ -51,6 +54,33 @@ def scores_plain(g, err, a_prev, g_agg, s_prev, *, omega: float, mu: float,
         reg = tanh_f32((1.0 + delta).abs() * recip_f32(mu))
         a[lo:hi] = ac
         score[lo:hi] = ac * reg
+    return a, score
+
+
+def bf16_scalars(omega: float, mu: float, Q: float) -> tuple:
+    """(omega, 1/mu, Q) as the compiled reference uses them on a bf16
+    state: omega and Q rounded to bf16, the fp32 reciprocal of bf16(mu)."""
+    return bf16(omega), recip_f32(bf16(mu)), bf16(Q)
+
+
+def scores_bf16_plain(g, err, a_prev, g_agg, s_prev, *, omega: float,
+                      mu: float, Q: float):
+    """(a bf16, score fp32) of :func:`scores_bf16`: g fp32, the four
+    state vectors bf16; every operation rounded to bf16."""
+    om, _, q = bf16_scalars(omega, mu, Q)
+    a = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
+    score = torch.empty_like(g)
+    for lo, hi in _chunks(g.numel()):
+        ac = round_bf16(err[lo:hi].float() + round_bf16(g[lo:hi]))
+        safe = safe_denom_bf16(round_bf16(om * ac))
+        num = round_bf16(g_agg[lo:hi].float()
+                         - round_bf16(om * a_prev[lo:hi].float()))
+        sent = round_bf16(num / safe)
+        sp = s_prev[lo:hi].float()
+        delta = round_bf16(round_bf16(sp * sent)
+                           + round_bf16(round_bf16(1.0 - sp) * q))
+        a[lo:hi] = ac
+        score[lo:hi] = round_bf16(ac * regularizer_bf16(delta, mu))
     return a, score
 
 
@@ -95,6 +125,37 @@ def scores(g, err, a_prev, g_agg, s_prev, *, omega: float, mu: float,
     return a, score
 
 
+def scores_bf16(g, err, a_prev, g_agg, s_prev, *, omega: float, mu: float,
+                Q: float):
+    """(a (J,) bf16, score (J,) fp32) for g (J,) fp32 and err, a_prev,
+    g_agg, s_prev (J,) bf16 on one device: the bf16 read of
+    :func:`scores`, each operation rounded to bf16 (the score holds bf16
+    values). Its own ``launches`` count."""
+    j = g.numel()
+    check_vec("g", g, j)
+    ins = (g, err, a_prev, g_agg, s_prev)
+    for name, x in zip(("err", "a_prev", "g_agg", "s_prev"), ins[1:]):
+        check_vec(name, x, j, torch.bfloat16)
+    same_device("scores_bf16", *ins)
+    if not on_card(g):
+        return scores_bf16_plain(*ins, omega=omega, mu=mu, Q=Q)
+    a = torch.empty(j, dtype=torch.bfloat16, device=g.device)
+    score = torch.empty_like(g)
+    om, rmu, q = bf16_scalars(omega, mu, Q)
+    fn = lib("fused_ef").scores_bf16_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    vec = int(all(x.data_ptr() % (4 * x.element_size()) == 0
+                  for x in ins + (a, score)))
+    check_launch("scores_bf16", fn(
+        *(x.data_ptr() for x in ins), a.data_ptr(), score.data_ptr(), j,
+        om, rmu, q, _grid(g), vec, stream(g.device)))
+    scores_bf16.launches += 1
+    return a, score
+
+
 def apply(a, mask):
     """(ghat, err') for a and a 0/1 mask, (J,) fp32 on one device."""
     j = a.numel()
@@ -116,6 +177,6 @@ def apply(a, mask):
     return ghat, err
 
 
-scores.launches = 0
-apply.launches = 0
-KERNELS = (scores, apply)
+KERNELS = (scores, scores_bf16, apply)
+for _fn in KERNELS:
+    _fn.launches = 0

@@ -130,8 +130,6 @@ class TrainStep:
         self.gsync = GradientSync(sp, group, seg_bounds=self.seg_bounds,
                                   stream_bounds=self.stream_bounds)
         self.schedule = faults.parse_schedule(run.fault_schedule)
-        if self.schedule is not None:
-            self.gsync.check_participation(self.schedule)
 
     def __call__(self, state: TrainState, batch: dict):
         cfg, opt_cfg = resolve_model_cfg(self.run), self.run.optimizer

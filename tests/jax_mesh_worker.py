@@ -55,14 +55,18 @@ def run_case(mesh, fields: dict, elastic: bool, grads, parts) -> dict:
         for t in range(grads.shape[0]):
             g_agg, st, na = fn(jnp.asarray(grads[t]), st,
                                jnp.asarray(parts[t]))
-            res[f"g_agg_{t}"] = np.asarray(g_agg)
+            res[f"g_agg_{t}"] = _saved(g_agg)
             res[f"n_active_{t}"] = np.asarray(na)
     for key, val in jax.device_get(st).items():
-        val = np.asarray(val)
-        # np.savez keeps no bf16: its uint16 bits
-        res[f"state_{key}"] = (val.view(np.uint16)
-                               if val.dtype.name == "bfloat16" else val)
+        res[f"state_{key}"] = _saved(val)
     return res
+
+
+def _saved(val) -> np.ndarray:
+    """An array as np.savez keeps it: bf16, which it has no type for, as
+    its uint16 bits."""
+    val = np.asarray(val)
+    return val.view(np.uint16) if val.dtype.name == "bfloat16" else val
 
 
 def main(inp: str, out: str) -> None:

@@ -346,26 +346,15 @@ def _cost_grid():
 def test_wire_byte_models_match_reference():
     """comm_bytes_per_step, sparse_gather_wire_bytes and
     sketch_allreduce_bytes return what the reference's return, dict for
-    dict, over every served config of the grid (the fused histogram
-    selector's capacity included), N and n_active; a config the port does
-    not serve (the sketch with the histogram selector) raises, naming its
-    item."""
-    served = refused = 0
+    dict, over every config of the grid (the fused histogram selector's
+    capacity and the sketch's selectors included), N and n_active: the
+    port serves all of them."""
+    served = 0
     warnings.simplefilter("ignore", RuntimeWarning)   # the sketch width cap
     for fields in _cost_grid():
         jcfg, tcfg = (jbase.SparsifierConfig(**fields),
                       tbase.SparsifierConfig(**fields))
-        try:
-            aggregate.check_supported(tcfg)
-        except NotImplementedError as e:
-            assert "ROADMAP A12" in str(e), fields
-            for fn in (aggregate.comm_bytes_per_step,
-                       aggregate.sparse_gather_wire_bytes,
-                       aggregate.sketch_allreduce_bytes):
-                with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-                    fn(tcfg, 1000, 8)
-            refused += 1
-            continue
+        aggregate.check_supported(tcfg)
         served += 1
         for j in (100, 77_370, 892_032_000):
             for n in (2, 8, 20):
@@ -381,7 +370,7 @@ def test_wire_byte_models_match_reference():
         assert dispatch.packed_len(tcfg, 1000) == packed_len(jcfg, 1000)
         assert dispatch.effective_comm_mode(tcfg) == \
             jagg.effective_comm_mode(jcfg), fields
-    assert served >= 60 and refused >= 6, (served, refused)
+    assert served == 84, served
 
 
 @pytest.mark.parametrize("field,value,item", [

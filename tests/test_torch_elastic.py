@@ -483,24 +483,30 @@ def test_launcher_elastic_flags_match_the_reference_launcher():
 
 
 def test_sketch_selection_refuses_a_mask():
-    """Elastic sketch semantics wait for ROADMAP A12: a mask, a schedule
-    or an elastic field with kind='sketchtopk' raises naming it."""
-    from repro_torch.train.step import build_train_step
+    """The elastic sketch semantics are served (ROADMAP A12 with A10; a
+    mask raised before): a participation bit, a round mask, err_decay
+    and combine="support" build and run, and so does a train step under
+    a fault schedule, with n_active in its metrics. Only an unknown
+    combine raises, the reference's ValueError."""
+    from repro_torch.train.step import build_train_step, init_train_state
     _, cfg = _cfgs(kind="sketchtopk", err_decay=1.0)
     sync = aggregate.GradientSync(cfg)
     st = sparsify.init_state(cfg, 64, "cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        sync(st, torch.zeros(64), participate=_bit(True))
-    with pytest.raises(NotImplementedError, match="A12"):
-        sync.round([st], [torch.zeros(64)], participate=[True])
-    for bad in (dict(err_decay=0.9), dict(combine="support")):
-        with pytest.raises(NotImplementedError, match="A12"):
-            aggregate.GradientSync(dataclasses.replace(cfg, **bad))
+    _, new = sync(st, torch.ones(64), participate=_bit(False))
+    assert torch.equal(new["err"], st["err"])
+    g_agg, _ = sync.round([st], [torch.ones(64)], participate=[False])
+    assert not g_agg.any()
+    for elastic in (dict(err_decay=0.9), dict(combine="support")):
+        aggregate.GradientSync(dataclasses.replace(cfg, **elastic))
     run = tbase.RunConfig(
         model=tbase.reduced_config(tbase.get_config("stablelm-3b")),
         shape=tbase.SHAPES["train_4k"], sparsifier=cfg,
         fault_schedule="iid:0.2")
-    with pytest.raises(NotImplementedError, match="A12"):
-        build_train_step(run, "cpu")
+    state = init_train_state(run, "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, 512, (2, 16))).long()
+    _, metrics = build_train_step(run, "cpu")(
+        state, {"tokens": tokens, "targets": tokens})
+    assert float(metrics["n_active"]) in (0.0, 1.0)
     with pytest.raises(ValueError, match="combine"):
         aggregate.GradientSync(tbase.SparsifierConfig(combine="median"))

@@ -167,19 +167,36 @@ def test_other_devices_raise():
         pk.sweep1_dgc(x, x, x, torch.ones(1, device="meta"), 0.9)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("selector", "histogram_kernel", "A8"), ("num_buckets", 0, "A16"),
-    ("allocation", "adaptive", None), ("overlap", "backward", None),
-    ("ef_dtype", "bfloat16", "A8"), ("selector", "histogram", "A8"),
-    ("kind", "none", "A8"), ("allocation", "proportional", None),
-    ("kind", "globaltopk", "A8"), ("state_format", "sparse", "A8")])
-def test_configs_outside_the_slice_raise(field, value, item):
-    """What the port does not serve yet raises, naming its ROADMAP item:
-    on the fused pipeline (the base), and with a bf16 error state on the
-    reference pipeline (REGTOP-k either layout, the histogram selectors)
-    and for the dense-wire baselines, where ``ef_dtype`` is bf16. The
-    fused pipeline's allocation and streaming (``item`` None) are served
-    since they were ported: the sync builds and the state initialises."""
+def _served(cfg, j: int = 100):
+    """The config is served: the sync builds, the state has the
+    reference's keys and dtypes, and one step of the sync runs."""
+    from repro.configs.base import SparsifierConfig as JaxSparsifierConfig
+    from repro.core import sparsify as jsp
+    sync = aggregate.GradientSync(cfg)
+    st = sparsify.init_state(cfg, j, "cpu")
+    jst = jsp.init_state(JaxSparsifierConfig(**dataclasses.asdict(cfg)), j)
+    # the port keeps uint32 indices as int32 views of the same bits
+    assert {k: str(v.dtype).replace("uint32", "int32")
+            for k, v in jst.items()} == {
+        k: str(v.dtype).replace("torch.", "") for k, v in st.items()}
+    g_agg, new = sync(st, torch.randn(j, generator=torch.Generator()
+                                      .manual_seed(0)))
+    assert g_agg.shape == (j,) and set(new) == set(st)
+
+
+@pytest.mark.parametrize("field,value,outcome", [
+    ("selector", "histogram_kernel", "served"), ("num_buckets", 0, "A16"),
+    ("allocation", "adaptive", "served"), ("overlap", "backward", "served"),
+    ("ef_dtype", "bfloat16", "served"), ("selector", "histogram", "served"),
+    ("kind", "none", "served"), ("allocation", "proportional", "served"),
+    ("kind", "globaltopk", "served"), ("state_format", "sparse", "served")])
+def test_configs_outside_the_slice_raise(field, value, outcome):
+    """The bucket auto-tune (``num_buckets=0``, ROADMAP A16) raises,
+    naming its item. Everything else of the grid is served: the fused
+    pipeline's allocation, streaming and ``histogram_kernel`` (which runs
+    the reference pipeline, as the reference's dispatch routes it), and
+    with a bf16 error state on the reference pipeline REGTOP-k in either
+    layout, the histogram selectors and the dense-wire baselines."""
     fused = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
                                   comm_mode="sparse")
     cfg = fused if field in ("allocation", "overlap", "num_buckets") or \
@@ -188,17 +205,73 @@ def test_configs_outside_the_slice_raise(field, value, item):
             **({"kind": "topk"} if field == "selector" else {}))
     if field == "ef_dtype":
         cfg = dataclasses.replace(cfg, ef_dtype="float32")
-    aggregate.GradientSync(dataclasses.replace(cfg, ef_dtype="float32"))
+    _served(dataclasses.replace(cfg, ef_dtype="float32"))
     bad = dataclasses.replace(cfg, **{field: value})
-    if item is None:
-        aggregate.GradientSync(bad)
-        st = sparsify.init_state(bad, 100, "cpu")
-        assert set(st) == set(sparsify.init_state(cfg, 100, "cpu"))
+    if outcome == "served":
+        _served(bad)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {outcome}"):
         aggregate.GradientSync(bad)
     with pytest.raises(NotImplementedError):
         sparsify.init_state(bad, 100, "cpu")
+
+
+def _reference_grid():
+    """Every SparsifierConfig over the values the reference documents
+    for each field that changes what its GradientSync serves."""
+    import itertools
+    fields = dict(
+        kind=("topk", "dgc", "regtopk", "randk", "thresholdk", "sketchtopk",
+              "none", "globaltopk"),
+        pipeline=("reference", "fused"),
+        selector=("exact", "histogram", "histogram_kernel"),
+        ef_dtype=("float32", "bfloat16"),
+        comm_mode=("sparse", "simulate", "dense"),
+        num_buckets=(0, 1, 3),
+        state_format=("dense", "sparse"),
+        allocation=("global", "proportional"),
+        overlap=("none", "backward"),
+        combine=("mean", "support"))
+    for values in itertools.product(*fields.values()):
+        yield dict(zip(fields, values))
+
+
+def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
+    """Walks the grid of configs: where the reference's GradientSync
+    raises its ValueError, the port raises the same message; where it
+    builds, the port builds too, but for ``num_buckets=0`` (the bucket
+    auto-tune, ROADMAP A16), which raises NotImplementedError naming it,
+    and the state has the reference's keys."""
+    from repro.configs.base import SparsifierConfig as JaxSparsifierConfig
+    from repro.core import aggregate as jagg
+    from repro.core import sparsify as jsp
+    outcomes = {"served": 0, "A16": 0, "ValueError": 0}
+    layouts = {}
+    for fields in _reference_grid():
+        cfg = cfgs.SparsifierConfig(**fields)
+        try:
+            jagg.GradientSync(JaxSparsifierConfig(**fields), None)
+        except ValueError as ref:
+            with pytest.raises(ValueError) as got:
+                aggregate.GradientSync(cfg)
+            assert str(got.value) == str(ref), fields
+            outcomes["ValueError"] += 1
+            continue
+        if cfg.num_buckets == 0:
+            with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+                aggregate.GradientSync(cfg)
+            outcomes["A16"] += 1
+            continue
+        aggregate.GradientSync(cfg)
+        key = tuple(fields[f] for f in ("kind", "pipeline", "selector",
+                                        "state_format"))
+        if key not in layouts:
+            jst = jsp.init_state(JaxSparsifierConfig(**fields), 64)
+            layouts[key] = set(jst)
+            assert set(sparsify.init_state(cfg, 64, "cpu")) == set(jst), \
+                fields
+        outcomes["served"] += 1
+    assert all(outcomes.values()), outcomes
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -287,17 +360,20 @@ def test_sketch_kernels_on_other_devices_raise(fn):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_buckets", 4, "A12"), ("wire_dtype", "bfloat16", "A12"),
+    ("num_buckets", 4, "served"), ("wire_dtype", "bfloat16", "served"),
     ("allocation", "proportional", ValueError),
-    ("selector", "histogram", "A12"),
-    ("ef_dtype", "bfloat16", "A12"), ("overlap", "backward", ValueError),
-    ("err_decay", 0.9, "A10"), ("combine", "support", "A10"),
+    ("selector", "histogram", "served"),
+    ("ef_dtype", "bfloat16", "served"), ("overlap", "backward", ValueError),
+    ("err_decay", 0.9, "served"), ("combine", "support", "served"),
     ("num_buckets", 0, "A16"), ("allocation", "adaptive", ValueError)])
 def test_sketch_configs_outside_the_slice_raise(field, value, item):
-    """The sketch's unported fields raise NotImplementedError naming their
-    ROADMAP item; allocation and streaming, which the reference does not
-    define for the sketch (``item`` ValueError), raise its ValueError,
-    at build time as the reference's GradientSync does."""
+    """The sketch serves buckets, the bf16 state and wire, the histogram
+    selectors and the elastic fields on both pipelines (``item``
+    "served": the sync builds, the state has the reference's keys and
+    dtypes, one step runs). The bucket auto-tune raises naming ROADMAP
+    A16; allocation and streaming, which the reference does not define
+    for the sketch (``item`` ValueError), raise its ValueError, at build
+    time as the reference's GradientSync does."""
     from repro.configs.base import SparsifierConfig as JaxSparsifierConfig
     from repro.core import aggregate as jagg
     for pipeline in ("fused", "reference"):
@@ -313,19 +389,32 @@ def test_sketch_configs_outside_the_slice_raise(field, value, item):
                 aggregate.GradientSync(bad)
             assert str(got.value) == str(ref.value)
             continue
+        if item == "served":
+            _served(bad, 4096)
+            continue
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             aggregate.GradientSync(bad)
 
 
 def test_participation_masks_raise():
+    """A participation mask with kind="sketchtopk" is served (it raised
+    before the elastic sketch was ported): the per-step sync takes a
+    bit and reports n_active, and round() takes a mask; only a bad
+    combine raises, the reference's ValueError."""
     cfg = cfgs.SparsifierConfig(kind="sketchtopk", pipeline="fused",
                                 comm_mode="sparse")
     sync = aggregate.GradientSync(cfg)
     st = sparsify.init_state(cfg, 64, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        sync(st, torch.zeros(64), participate=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        sync.round([st], [torch.zeros(64)], participate=[True])
+    for p in (True, False):
+        _, new, stats = sync(st, torch.ones(64), participate=torch.tensor(p),
+                             with_stats=True)
+        assert float(stats["n_active"]) == float(p)
+        assert int(new["step"]) == 1
+    g_agg, new = sync.round([st, st], [torch.ones(64)] * 2,
+                            participate=[True, False])
+    assert g_agg.shape == (64,) and len(new) == 2
+    with pytest.raises(ValueError, match="combine"):
+        aggregate.GradientSync(dataclasses.replace(cfg, combine="median"))
 
 
 def test_reference_kernels_card_path_never_calls_the_plain_version(

@@ -99,7 +99,7 @@ def _saved(t: torch.Tensor) -> np.ndarray:
 
 def run_baselines(rank: int, data) -> dict:
     """Per case: g_agg and n_active of every step, the final state (bf16
-    state as uint16 bits)."""
+    as uint16 bits)."""
     grads, parts = data["grads"], data["parts"]     # (T, world, J), (T, world)
     res = {}
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():
@@ -112,7 +112,7 @@ def run_baselines(rank: int, data) -> dict:
             g_agg, state, stats = sync(
                 state, torch.from_numpy(grads[t, rank].copy()),
                 participate=part, with_stats=True)
-            res[f"{name}_g_agg_{t}"] = g_agg.numpy()
+            res[f"{name}_g_agg_{t}"] = _saved(g_agg)
             res[f"{name}_n_active_{t}"] = stats["n_active"].numpy()
         for key, val in state.items():
             res[f"{name}_state_{key}"] = _saved(val)
