@@ -92,19 +92,13 @@ from repro_torch.core import bigvec, select, sketch, sparsify
 from repro_torch.core.numerics import bf16, fma_f32
 from repro_torch.kernels.compress import dispatch
 from repro_torch.kernels.fused_ef.ops import fused_apply_mask
+from repro_torch.models.parallel import world
 
 # (kind, selector, pipeline) combos already warned about: the sparse ->
 # simulate degrade is surfaced once per config per process
 _DEGRADE_WARNED: set = set()
 COMBINES = ("mean", "support")
 WIRE_DTYPES = ("float32", "bfloat16")
-
-
-def world(group=None) -> tuple[int, int]:
-    """(size, rank) of the group, (1, 0) when torch.distributed is off."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(group), dist.get_rank(group)
-    return 1, 0
 
 
 def check_supported(cfg: SparsifierConfig) -> None:

@@ -54,9 +54,10 @@ from torch.profiler import record_function
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
 from repro_torch.core import faults, sparsify, threefry
-from repro_torch.core.aggregate import GradientSync, world
+from repro_torch.core.aggregate import GradientSync
 from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
 from repro_torch.models import init_params, loss_fn
+from repro_torch.models.parallel import all_reduce_mean, data_index, world
 from repro_torch.optim import apply_updates, init_opt_state, opt_shard_len
 
 
@@ -89,7 +90,7 @@ def init_train_state(run: RunConfig, device=None, group=None,
         params = init_params(resolve_model_cfg(run), gen, dev)
     params = tree_map(lambda t: t.to(dev, torch.float32), params)
     flat = TreeFlattener(params)
-    n, rank = world(group)
+    n, rank = world(group)[0], data_index(group)
     shard = opt_shard_len(flat.total, n)
     master = _padded_slice(flat.flatten(params), rank, shard, n).clone() \
         if n > 1 else flat.flatten(params)
@@ -133,7 +134,7 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch: dict):
         cfg, opt_cfg = resolve_model_cfg(self.run), self.run.optimizer
-        n, rank = world(self.group)
+        n, rank = world(self.group)[0], data_index(self.group)
         flat = TreeFlattener(state.params)
         leaves = tree_leaves(state.params)
         ef, state.ef = state.ef, None
@@ -181,12 +182,13 @@ class TrainStep:
             else:
                 mall = master
             params = _as_leaves(flat.unflatten(mall[:flat.total]))
-        loss = loss.detach()
-        if n > 1:
-            dist.all_reduce(loss, group=self.group)
-            loss = loss / n
-        metrics = {"loss": loss, "gnorm_local": gnorm_local,
-                   "agg_nonzero": (g_agg != 0).float().mean()}
+        # the reference's pmean of every metric over the data axes: one
+        # gather, a sum in rank order, the scale by fp32(1/n)
+        means = all_reduce_mean(torch.stack([
+            loss.detach(), gnorm_local.float(),
+            (g_agg != 0).float().mean()]), self.group)
+        metrics = dict(zip(("loss", "gnorm_local", "agg_nonzero"),
+                           means.unbind(0)))
         if stats is not None:
             metrics.update(stats)        # already sums over the ranks
         return TrainState(params, opt, ef), metrics

@@ -1,17 +1,35 @@
-"""The reference's per-step GradientSync on a mesh of N host CPU devices
-(driven by tests/test_torch_baselines_gloo.py and
-tests/test_torch_bucketed.py, which hold the port's gloo ranks against
-it).
+"""The reference on a mesh of N host CPU devices (driven by
+tests/test_torch_baselines_gloo.py, tests/test_torch_bucketed.py,
+tests/test_torch_elastic.py, tests/test_torch_world_train.py and
+tests/test_torch_world_serve.py, which hold the port's gloo ranks
+against it).
 
     python tests/jax_mesh_worker.py WORLD IN.npz OUT.npz
 
-For each case the inputs list (JSON, as tests/torch_gloo_worker.py's
-mode "baselines" reads it) it runs
-the per-step sync under ``shard_map`` over WORLD devices, each device one
-rank with its own gradient, state and participation bit, and writes g_agg
-and n_active of every step and every rank's final state. The device
-count is set before jax is imported, so this runs in a process of its
-own.
+The inputs' ``mode`` (default "sync") picks what runs:
+
+- "sync": for each case the inputs list (JSON, as
+  tests/torch_gloo_worker.py's mode "baselines" reads it), the per-step
+  sync under ``shard_map`` over WORLD devices, each device one rank with
+  its own gradient, state and participation bit: g_agg and n_active of
+  every step and every rank's final state;
+- "train": for each case (JSON: mesh shape, sparsifier fields, fault
+  schedule), ``build_train_step`` on that mesh (a ``("data", "model")``
+  or ``("pod", "data", "model")`` mesh of the first devices) over the
+  global batch of the inputs: reduced StableLM-3B, Adam, the parameters
+  drawn from key 0 (written once, flat), every step's metrics, the final
+  flat parameters and each rank's ``idx_prev``;
+- "serve": reduced Granite-8B (full attention, and sliding with the
+  inputs' window), its parameters from key 0 (flat); for each case
+  (JSON: world, batch, prompt and cache lengths, attention, and
+  ``cp`` for context-parallel decode) the one-device ``prefill`` and
+  ``decode_step`` and the mesh's ``build_prefill`` and
+  ``build_decode_step`` (context-parallel: a one-device prefill's cache
+  put on the mesh with ``decode_cache_specs``), fed the inputs' decode
+  tokens: the logits of the prefill and of every decode step.
+
+The device count is set before jax is imported, so this runs in a
+process of its own.
 """
 import json
 import os
@@ -69,8 +87,109 @@ def _saved(val) -> np.ndarray:
     return val.view(np.uint16) if val.dtype.name == "bfloat16" else val
 
 
+def _mesh(shape):
+    names = (("pod", "data", "model") if len(shape) == 3
+             else ("data", "model"))
+    n = int(np.prod(shape))
+    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape),
+                             names)
+
+
+def _flat(tree) -> np.ndarray:
+    from repro.core.flatten import TreeFlattener
+    return np.asarray(TreeFlattener(tree).flatten(tree))
+
+
+def run_train(data) -> dict:
+    from repro.configs import base
+    from repro.train.step import (build_parallel, build_train_step,
+                                  init_train_state)
+    batch = {"tokens": jnp.asarray(data["tokens"]),
+             "targets": jnp.asarray(data["targets"])}
+    steps = int(data["steps"])
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        run = base.RunConfig(
+            model=base.reduced_config(base.get_config("stablelm-3b")),
+            shape=base.SHAPES["train_4k"],
+            sparsifier=base.SparsifierConfig(**case["sparsifier"]),
+            optimizer=base.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+            steps=steps, fault_schedule=case.get("schedule", ""))
+        mesh = _mesh(tuple(case["mesh"]))
+        pal = build_parallel(mesh)
+        with mesh:
+            params, opt, ef = init_train_state(run, mesh, pal,
+                                               jax.random.PRNGKey(0))
+            if "init_params" not in res:
+                res["init_params"] = _flat(jax.device_get(params))
+            step, _, _ = build_train_step(run, mesh, pal)
+            jstep = jax.jit(step)
+            for t in range(steps):
+                params, opt, ef, m = jstep(params, opt, ef, batch,
+                                           jax.random.PRNGKey(0))
+                for key, val in m.items():
+                    res[f"{name}_{key}_{t}"] = np.asarray(val)
+            res[f"{name}_params"] = _flat(jax.device_get(params))
+            if "idx_prev" in ef:
+                res[f"{name}_idx_prev"] = np.asarray(ef["idx_prev"])
+    return res
+
+
+def run_serve(data) -> dict:
+    import dataclasses
+
+    from repro.configs import base
+    from repro.models import decode_step, init_params, prefill
+    from repro.models.parallel import Parallel
+    from repro.serve.step import (build_decode_step, build_prefill,
+                                  decode_cache_specs, serve_parallel)
+    from jax.sharding import NamedSharding
+    cfg = base.reduced_config(base.get_config("granite-8b"))
+    params = init_params(cfg, Parallel(), jax.random.PRNGKey(0))
+    res = {"init_params": _flat(params)}
+    for name, case in json.loads(str(data["cases"])).items():
+        mcfg = cfg if case["attn"] == "full" else dataclasses.replace(
+            cfg, attn_kind="sliding", window=int(data["window"]))
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        run = base.RunConfig(
+            model=mcfg, shape=base.ShapeConfig("serve", seq, b, "decode"),
+            sparsifier=base.SparsifierConfig(kind="none"))
+        tokens = jnp.asarray(data["tokens"][:b, :prompt])
+        feed = data["tokens"][:b, prompt:]
+        one = Parallel()
+        lg, cache = jax.jit(lambda p, t: prefill(
+            p, {"tokens": t}, mcfg, one, max_seq=seq))(params, tokens)
+        res[f"{name}_one_prefill"] = np.asarray(lg)
+        dec1 = jax.jit(lambda p, c, t: decode_step(p, c, t, mcfg, one))
+        mesh = _mesh((case["world"], 1))
+        pal = serve_parallel(mesh, run, decode=True)
+        assert (pal.cache_seq_axis is not None) == case["cp"], name
+        with mesh:
+            dec, _ = build_decode_step(run, mesh, pal)
+            dec = jax.jit(dec)
+            if case["cp"]:
+                _, cspecs, _, _ = decode_cache_specs(run, mesh, pal)
+                mcache = jax.device_put(cache, jax.tree_util.tree_map(
+                    lambda s: NamedSharding(mesh, s), cspecs))
+            else:
+                pre, _ = build_prefill(run, mesh, pal)
+                mlg, mcache = jax.jit(pre)(params, {"tokens": tokens})
+                res[f"{name}_mesh_prefill"] = np.asarray(mlg)
+            for t in range(feed.shape[1]):
+                tok = jnp.asarray(feed[:, t:t + 1])
+                lg, cache = dec1(params, cache, tok)
+                res[f"{name}_one_decode_{t}"] = np.asarray(lg)
+                mlg, mcache = dec(params, mcache, tok)
+                res[f"{name}_mesh_decode_{t}"] = np.asarray(mlg)
+    return res
+
+
 def main(inp: str, out: str) -> None:
     data = np.load(inp)
+    mode = str(data["mode"]) if "mode" in data.files else "sync"
+    if mode != "sync":
+        np.savez(out, **{"train": run_train, "serve": run_serve}[mode](data))
+        return
     mesh = jax.make_mesh((WORLD,), ("data",))
     res = {}
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():

@@ -13,7 +13,14 @@ bits; MODE "baselines" runs GradientSync for each case the inputs list
 (JSON: name -> [SparsifierConfig fields, whether the rank passes its
 participation bit]), each rank taking its bit from the inputs; MODE
 "checkpoint" takes one train step, then saves the group's checkpoint and
-restores it at the same world. Imports torch and the port only, and
+restores it at the same world; MODE "world_train" runs each case of the
+inputs (JSON: sparsifier fields, fault schedule) through the train step
+from the inputs' flat parameters, the rank taking its rows of the
+global batch; MODE "launch" runs the train launcher's ``main()`` with
+the inputs' flags inside the group, then ``train()`` with the group on
+the same config; MODE "world_serve" runs each case of the inputs (JSON,
+as tests/jax_mesh_worker.py's mode "serve" reads it) through the serve
+step's builders over the group. Imports torch and the port only, and
 records whether jax was imported.
 """
 import json
@@ -169,6 +176,123 @@ def run_checkpoint(rank: int, data) -> dict:
     return res
 
 
+def _from_flat(model, flat) -> dict:
+    """A parameter tree of ``model`` holding the flat vector ``flat``."""
+    from repro_torch.models import init_params
+    tmpl = init_params(model, torch.Generator(), "meta")
+    return TreeFlattener(tmpl).unflatten(torch.from_numpy(flat))
+
+
+def _rows(x, rank: int, world: int):
+    rows = x.shape[0] // world
+    return torch.from_numpy(x[rank * rows:(rank + 1) * rows]).long()
+
+
+def run_world_train(rank: int, data) -> dict:
+    """Per case: every step's metrics, the final flat parameters and the
+    sorted ``idx_prev`` of this rank."""
+    from repro_torch.train.step import build_train_step, init_train_state
+    world = dist.get_world_size()
+    batch = {"tokens": _rows(data["tokens"], rank, world),
+             "targets": _rows(data["targets"], rank, world)}
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        run = cfgs.RunConfig(
+            model=cfgs.reduced_config(cfgs.get_config("stablelm-3b")),
+            shape=cfgs.SHAPES["train_4k"],
+            sparsifier=cfgs.SparsifierConfig(**case["sparsifier"]),
+            optimizer=cfgs.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+            steps=int(data["steps"]), fault_schedule=case.get("schedule",
+                                                              ""))
+        params = _from_flat(run.model, data["init_params"])
+        state = init_train_state(run, "cpu", params=params)
+        step = build_train_step(run, "cpu")
+        for t in range(run.steps):
+            state, metrics = step(state, batch)
+            for key, val in metrics.items():
+                res[f"{name}_{key}_{t}"] = val.numpy()
+        res[f"{name}_params"] = TreeFlattener(state.params).flatten(
+            state.params).detach().numpy()
+        if "idx_prev" in state.ef:
+            res[f"{name}_idx_prev"] = np.sort(
+                state.ef["idx_prev"].numpy().view(np.uint32))
+    return res
+
+
+def run_launch(rank: int, data) -> dict:
+    """The launcher's main() with the inputs' flags, the group already
+    joined (as a caller of main() may have), recording each step's batch
+    and loss; then train() with the group on the run the same flags
+    make."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.step import TrainStep
+    flags = [str(f) for f in data["flags"]]
+    seen, losses = [], []
+    call = TrainStep.__call__
+
+    def spy(self, state, batch):
+        seen.append(batch["tokens"].clone())
+        state, metrics = call(self, state, batch)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+    TrainStep.__call__ = spy
+    try:
+        launcher.main(flags)
+    finally:
+        TrainStep.__call__ = call
+    args = launcher.parse_args(flags)
+    out = launcher.train(launcher.run_config(args), device="cpu",
+                         group=dist.group.WORLD, batch=args.batch,
+                         seq=args.seq, fixed_batch=args.fixed_batch,
+                         log=lambda msg: None)
+    return {"tokens": torch.stack(seen).numpy(),
+            "losses": np.asarray(losses),
+            "train_losses": np.asarray([r["loss"] for r in out["history"]])}
+
+
+def run_world_serve(rank: int, data) -> dict:
+    """Per case: the prefill's gathered logits (data-parallel) and every
+    decode step's logits, through the builders of ``serve.step`` over
+    the group; a context-parallel case decodes a one-rank prefill's cache
+    that ``shard_decode_cache`` split over the group."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.step import (build_decode_step, build_prefill,
+                                        shard_decode_cache)
+    world = dist.get_world_size()
+    group = dist.group.WORLD
+    base = cfgs.reduced_config(cfgs.get_config("granite-8b"))
+    params = _from_flat(base, data["init_params"])
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        if case["world"] != world:
+            continue
+        model = base if case["attn"] == "full" else dataclasses.replace(
+            base, attn_kind="sliding", window=int(data["window"]))
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        run = cfgs.RunConfig(model=model, shape=cfgs.ShapeConfig(
+            "serve", seq, b, "decode"),
+            sparsifier=cfgs.SparsifierConfig(kind="none"))
+        tokens = torch.from_numpy(data["tokens"][:b]).long()
+        dec = build_decode_step(run, "cpu", group=group)
+        if case["cp"]:
+            with torch.inference_mode():
+                _, cache = tfm.prefill(params, tokens[:, :prompt], model,
+                                       max_seq=seq)
+            cache = shard_decode_cache(cache, run, group)
+        else:
+            pre = build_prefill(run, "cpu", group=group)
+            logits, cache = pre(params, {"tokens": tokens[:, :prompt]})
+            res[f"{name}_prefill"] = logits.numpy()
+        res[f"{name}_cache_slots"] = np.asarray(
+            cache["blocks"]["l0"]["k"].shape[1:3])
+        for t in range(prompt, tokens.shape[1]):
+            logits, cache = dec(params, cache, tokens[:, t:t + 1])
+            res[f"{name}_decode_{t - prompt}"] = logits.numpy()
+    return res
+
+
 def main(mode: str, rank: int, world: int, init_file: str, inp: str,
          out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -177,7 +301,9 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
         data = np.load(inp)
         run = {"sync": run_sync, "train": run_train,
                "elastic": run_elastic, "baselines": run_baselines,
-               "checkpoint": run_checkpoint}[mode]
+               "checkpoint": run_checkpoint,
+               "world_train": run_world_train, "launch": run_launch,
+               "world_serve": run_world_serve}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
