@@ -7,11 +7,18 @@ stream greedy decode steps.
       --smoke --apply-deltas /tmp/spool \
       --delta-fault-schedule loss:0.4,seed=2 --device cpu
 
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch granite-8b --smoke --data 4
+
 The reference launcher's flags (``repro.launch.serve``) and defaults for
 what the port serves, plus ``--device`` (default: the CUDA card; ``cpu``
-runs the plain PyTorch path). It serves one rank: ``--data`` or
-``--model`` above 1 and ``--devices`` raise naming their ROADMAP item,
-as does ``--mla-absorb`` (MLA is not ported). The sliding-window
+runs the plain PyTorch path). ``--data n`` serves a data-parallel batch
+over n ranks started by ``torchrun`` (``launch.mesh.make_group``: NCCL
+on a card each, gloo with ``--device cpu``): each rank prefills and
+decodes its rows of the global ``--batch``, the logits gathered, and
+rank 0 logs. ``--model`` above 1, ``--devices`` and ``--mla-absorb``
+raise naming ROADMAP A13, and ``--apply-deltas`` over more than one rank
+naming A14. The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's
 ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
@@ -75,8 +82,13 @@ def check_args(args) -> None:
             "--mla-absorb: MLA is not ported yet (ROADMAP A13)")
     if args.devices:
         raise NotImplementedError(
-            "--devices: the port serves one rank; a mesh of devices is "
-            "not ported yet (ROADMAP A13, A14)")
+            "--devices: a mesh of devices in one process is not ported; "
+            "the port runs a process a rank under torchrun (ROADMAP A13)")
+    if args.apply_deltas and args.data > 1:
+        raise NotImplementedError(
+            f"--apply-deltas over {args.data} data-parallel ranks is not "
+            "ported yet; a replica applies deltas at one rank (ROADMAP "
+            "A14)")
 
 
 def serve_shape(batch: int, prompt_len: int, new_tokens: int):
@@ -99,7 +111,7 @@ def run_config(args):
 
 
 def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
-          data: int = 1, model: int = 1, params: dict = None,
+          group=None, model: int = 1, params: dict = None,
           log=print, applier=None, channel=None, snap_dir: str = "") -> dict:
     """Prefill ``run.shape.global_batch`` random prompts of ``prompt_len``
     tokens (drawn from ``run.seed``), then ``new_tokens`` greedy decode
@@ -108,6 +120,11 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     "prefill_logits", "logits": the last step's, "cache"}.
     Times are the host clock around work that ends in a device
     synchronisation. ``params`` default: drawn from ``run.seed``.
+
+    Over ``group`` (a data-parallel batch: ``serve.step``) every rank
+    draws the same prompts and parameters, serves its rows and holds the
+    gathered logits and tokens; the cache is its rows'. Only rank 0
+    logs.
 
     With a ``DeltaApplier`` the stream decodes on the tree that
     ``applier.acquire()`` pins; after each decode step it offers what
@@ -120,10 +137,18 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     from repro_torch.configs.base import resolve_model_cfg
     from repro_torch.core.flatten import tree_size
     from repro_torch.models import init_params
+    from repro_torch.models.parallel import world
     from repro_torch.serve.step import build_decode_step, build_prefill
     dev = resolve_device(device)
-    pre = build_prefill(run, dev, data=data, model=model)
-    dec = build_decode_step(run, dev, data=data, model=model)
+    if applier is not None and world(group)[0] > 1:
+        raise NotImplementedError(
+            "a delta applier over more than one rank is not ported yet "
+            "(ROADMAP A14)")
+    pre = build_prefill(run, dev, group=group, model=model)
+    dec = build_decode_step(run, dev, group=group, model=model)
+    n, rank = world(group)
+    if rank:
+        log = _quiet
     cfg = resolve_model_cfg(run)
     gen = torch.Generator(device=dev).manual_seed(run.seed)
     pinned_v = None
@@ -134,7 +159,7 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     n = tree_size(params)
     b = run.shape.global_batch
     log(f"[serve] {cfg.name}: {n / 1e6:.1f}M params, batch {b}, "
-        f"mesh {{'data': {data}, 'model': {model}}}, device={dev}")
+        f"mesh {{'data': {n}, 'model': {model}}}, device={dev}")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                      generator=gen, device=dev)}
 
@@ -190,10 +215,28 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     return res
 
 
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0."""
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_group
     args = parse_args(argv)
     check_args(args)
     run = run_config(args)
+    joined = dist.is_initialized()
+    group, dev = make_group(args.data, args.model, device=args.device)
+    try:
+        _serve_main(args, run, group, dev)
+    finally:
+        if group is not None and not joined:
+            dist.destroy_process_group()
+    return 0
+
+
+def _serve_main(args, run, group, dev) -> None:
     applier = chan = None
     snap_dir = ""
     if args.apply_deltas:
@@ -204,7 +247,7 @@ def main(argv=None):
         from repro_torch.serve.step import delta_applier_from_snapshot
         csched = faults.parse_channel_schedule(args.delta_fault_schedule)
         snap_dir = os.path.join(args.apply_deltas, "snapshots")
-        applier, _ = delta_applier_from_snapshot(run, snap_dir, args.device)
+        applier, _ = delta_applier_from_snapshot(run, snap_dir, dev)
         chan = SpoolChannel(args.apply_deltas)
         if csched is not None:
             chan = FaultyChannel(chan, csched)
@@ -212,10 +255,9 @@ def main(argv=None):
                   f"{faults.format_channel_schedule(csched)}")
         print(f"[serve] applying deltas from {args.apply_deltas} "
               f"(snapshot v{applier.version})")
-    serve(run, device=args.device, prompt_len=args.prompt_len,
-          new_tokens=args.new_tokens, data=args.data, model=args.model,
+    serve(run, device=dev, prompt_len=args.prompt_len,
+          new_tokens=args.new_tokens, group=group, model=args.model,
           applier=applier, channel=chan, snap_dir=snap_dir)
-    return 0
 
 
 if __name__ == "__main__":

@@ -23,6 +23,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --steps 12 --publish-deltas /tmp/spool --delta-k 4096 \
       --delta-snapshot-every 4 --checkpoint-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch stablelm-3b --smoke --comm sparse --pipeline fused --data 4
 
 ``--arch`` takes every dense config of the registry: stablelm-3b,
 granite-8b, qwen1.5-32b and starcoder2-7b.
@@ -36,8 +38,15 @@ reference launcher has no flag for ``SparsifierConfig.ef_dtype``, nor has
 this one: a bf16 error state is a config field. The body
 is :func:`train`, which takes a ``RunConfig``, so a caller can pass a
 config the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut
-in depth). It runs one process; a caller that has initialised
-``torch.distributed`` passes its group.
+in depth), and a process group.
+
+``--data`` and ``--pods`` (the reference's mesh flags; ``--model`` > 1,
+tensor parallelism, raises naming ROADMAP A13) ask for ``data * pods``
+data-parallel ranks, one process each, started by ``torchrun``: each
+joins the default process group on its own card (NCCL), or on the CPU
+over gloo with ``--device cpu`` (``launch.mesh.make_group``). ``--batch``
+is the global batch, as in the reference: rank r trains on its rows
+[r B/n, (r + 1) B/n). Rank 0 logs.
 """
 from __future__ import annotations
 
@@ -132,6 +141,15 @@ def parse_args(argv=None):
                     help="shorthand for --fault-schedule iid:<p>")
     ap.add_argument("--optimizer", default="adam")
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks a pod (one process each, "
+                         "under torchrun)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel degree; above 1 is not ported "
+                         "(ROADMAP A13)")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods; the data-parallel ranks are data * pods, "
+                         "pod-major")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fixed-batch", action="store_true",
@@ -221,19 +239,25 @@ def delta_options(args) -> dict:
                 delta_fault_schedule=spec)
 
 
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0."""
+
+
 def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
           fixed_batch: bool = False, log=print, on_step=None,
           publish_deltas: str = "", delta_k: int = 0, delta_every: int = 1,
           delta_snapshot_every: int = 0,
           delta_fault_schedule: str = "") -> dict:
-    """Take ``run.steps`` training steps. Returns {"history": [{"step",
+    """Take ``run.steps`` training steps over ``group`` (None: one rank),
+    each on this rank's rows of a global ``batch`` x ``seq`` batch (the
+    same draw on every rank). Returns {"history": [{"step",
     "loss", "ms"} (and "n_active" under a fault schedule, "count" where
     the packed payload has a live count: the fused histogram selector,
     participation; "publish_ms" where a delta was published), ...],
     "fallbacks": {reason: steps}, "params": J, "state": the final
     TrainState, "publisher": the DeltaPublisher or None}. Step time is
     the host clock around a step that ends in a device synchronisation,
-    and so is the publish time.
+    and so is the publish time. Only rank 0 logs.
 
     With ``publish_deltas`` (a spool directory) rank 0 publishes a delta
     of its params every ``delta_every`` steps after the optimizer step
@@ -246,12 +270,19 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     import os
 
     from repro_torch.backend import resolve_device
-    from repro_torch.core.aggregate import world
     from repro_torch.core.flatten import tree_size
     from repro_torch.data import lm_batch
+    from repro_torch.models.parallel import data_index, world
     from repro_torch.train.step import (build_train_step, init_train_state,
                                         save_train_state)
     dev = resolve_device(device)
+    n, rank = world(group)[0], data_index(group)
+    if batch % n:
+        raise ValueError(f"a global batch of {batch} rows does not split "
+                         f"over {n} data-parallel ranks")
+    rows = slice(rank * batch // n, (rank + 1) * batch // n)
+    if rank:
+        log = _quiet
     step = build_train_step(run, dev, group)
     state = init_train_state(run, dev, group)
     j = tree_size(state.params)
@@ -262,17 +293,18 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
         log(f"[train] allocation={sp.allocation} overlap={sp.overlap}: "
             f"{len(step.stream_bounds or step.seg_bounds)} layer-aligned "
             f"segments (num_segments={sp.num_segments})")
+    if n > 1:
+        log(f"[train] {n} data-parallel ranks, {batch // n} rows of the "
+            f"global batch of {batch} each")
     if run.fault_schedule:
         from repro_torch.core import faults
-        from repro_torch.core.aggregate import world
         sched = faults.parse_schedule(run.fault_schedule)
-        n, _ = world(group)
         sp = run.sparsifier
         log(f"[train] fault schedule: {faults.format_schedule(sched)} "
             f"(E[n_active]={faults.expected_active(sched, n):.2f}/{n}, "
             f"err_decay={sp.err_decay}, combine={sp.combine})")
     publisher = chan = snap_dir = None
-    if publish_deltas and world(group)[1] == 0:
+    if publish_deltas and rank == 0:
         from repro_torch.core import faults
         from repro_torch.serve.delta import (FaultyChannel, SpoolChannel,
                                              delta_wire_bytes)
@@ -301,8 +333,9 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     data = None
     for t in range(run.steps):
         if data is None or not fixed_batch:
-            data = lm_batch(run.model, batch, seq, run.seed,
-                            0 if fixed_batch else t, dev)
+            data = {key: val[rows] for key, val in lm_batch(
+                run.model, batch, seq, run.seed, 0 if fixed_batch else t,
+                dev).items()}
         t0 = time.perf_counter()
         state, metrics = step(state, data)
         sync()
@@ -352,9 +385,19 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_group
     args = parse_args(argv)
-    train(run_config(args), device=args.device, batch=args.batch,
-          seq=args.seq, fixed_batch=args.fixed_batch, **delta_options(args))
+    run = run_config(args)
+    joined = dist.is_initialized()
+    group, dev = make_group(args.data, args.model, args.pods, args.device)
+    try:
+        train(run, device=dev, group=group, batch=args.batch, seq=args.seq,
+              fixed_batch=args.fixed_batch, **delta_options(args))
+    finally:
+        if group is not None and not joined:
+            dist.destroy_process_group()
     return 0
 
 

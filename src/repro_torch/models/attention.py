@@ -1,7 +1,7 @@
 """Causal self-attention: GQA with optional QKV bias, partial RoPE or none,
 full or sliding-window, and its KV cache (the port of the full-sequence,
-prefill and decode paths of ``repro.models.attention`` at one rank:
-tensor-parallel degree 1, the cache's sequence axis unsharded).
+prefill and decode paths of ``repro.models.attention`` at
+tensor-parallel degree 1, with context-parallel decode).
 
 The reference has no Pallas kernel here: its attention is plain jnp. The
 port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
@@ -19,12 +19,22 @@ The cache of a layer is ``{k, v}``, each (B, S_cache, KV, hd) in the
 model's dtype. Decode writes the step's k and v into it in place (the
 caller holds ``torch.inference_mode``); a sliding window keeps a ring
 buffer of min(window, cache length) slots, position p at slot p % cap.
+
+Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
+reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
+of a cache of sl * n slots. Decode writes the step's k and v only on the
+rank that owns the slot, masks by global slot positions (a sliding
+ring's cap is sl * n), and merges the ranks' partial outputs: the MAX
+all-reduce of the running max, then the rank-order sums of the output
+and of the softmax sum, each scaled by exp(m - max) (the reference's
+``_decode_attend``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.layers import dense_init
+from repro_torch.models.parallel import all_reduce_max, all_reduce_sum
 
 NEG_INF = -1e30
 Q_CHUNK = 1024
@@ -179,6 +189,8 @@ def cache_max_seq(cfg, seq_len: int) -> int:
 
 def init_cache(cfg, batch: int, max_seq: int, dtype, *, lead=(),
                device=None) -> dict:
+    """Zero k and v of ``max_seq`` slots: the whole cache, or under
+    context-parallel decode this rank's slice (the caller divides)."""
     hd = cfg.resolved_head_dim
     shape = (*lead, batch, max_seq, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -210,28 +222,54 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                cfg) -> torch.Tensor:
+                cfg, pal=None) -> torch.Tensor:
     """One token x (B, 1, d) at position ``pos`` (a 0-d int tensor on the
     device) -> (B, 1, d). Writes its k and v into ``cache`` in place,
     then attends over the valid slots: slot <= pos, or, in a sliding
     ring buffer of cap slots, the positions pos - ((pos - slot) % cap)
-    that are >= 0 and within the window."""
+    that are >= 0 and within the window. With ``pal.cache_seq_sharded``
+    the cache is this rank's slice of the sequence (module docstring)."""
     b = x.shape[0]
     q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
-    cap = cache["k"].shape[1]
+    sharded = pal is not None and pal.cache_seq_sharded
+    n, r = (pal.size, pal.rank) if sharded else (1, 0)
+    sl = cache["k"].shape[1]
+    cap = sl * n
     sliding = cfg.attn_kind == "sliding"
     slot = (pos % min(cfg.window, cap) if sliding else pos).long()
-    for name, t in (("k", k_new), ("v", v_new)):
-        cache[name].index_copy_(1, slot.reshape(1),
-                                t.to(cache[name].dtype))
-    gpos = torch.arange(cap, device=x.device)
+    if sharded:
+        _cache_write_slice(cache, (k_new, v_new), slot - r * sl)
+    else:
+        for name, t in (("k", k_new), ("v", v_new)):
+            cache[name].index_copy_(1, slot.reshape(1),
+                                    t.to(cache[name].dtype))
+    gpos = torch.arange(r * sl, (r + 1) * sl, device=x.device)
     if sliding:
         slot_pos = pos - torch.remainder(pos - gpos, cap)
         valid = (slot_pos >= 0) & (slot_pos <= pos) & \
             (pos - slot_pos < cfg.window)
     else:
         valid = gpos <= pos
-    o, _, l = _partial(q, cache["k"], cache["v"], valid[None, :],
+    o, m, l = _partial(q, cache["k"], cache["v"], valid[None, :],
                        cfg.resolved_head_dim ** -0.5)
+    if sharded:
+        mg = all_reduce_max(m, pal.group)
+        a = torch.exp(m - mg)
+        o = all_reduce_sum(o * _per_query(a).to(o.dtype), pal.group)
+        l = all_reduce_sum(l * a, pal.group)
     o = _finalize(o, l)
     return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)
+
+
+def _cache_write_slice(cache: dict, new, local: torch.Tensor) -> None:
+    """Write the step's (k, v) at local slot ``local`` (a 0-d device
+    tensor) of this rank's slice of the cache, in place, if the slot is
+    the rank's (0 <= local < sl); otherwise leave the slice as it is (a
+    write of the slot's own value, so no step waits on the host)."""
+    sl = cache["k"].shape[1]
+    inb = (local >= 0) & (local < sl)
+    at = local.clamp(0, sl - 1).reshape(1)
+    for name, t in zip(("k", "v"), new):
+        arr = cache[name]
+        arr.index_copy_(1, at, torch.where(inb, t.to(arr.dtype),
+                                           arr.index_select(1, at)))

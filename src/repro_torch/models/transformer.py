@@ -150,18 +150,33 @@ def full_logits(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Serving: prefill + decode (one rank; call under torch.inference_mode)
+# Serving: prefill + decode (call under torch.inference_mode)
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
-                      device=None) -> dict:
+                      device=None, pal=None) -> dict:
     """Zero cache tree for ``batch`` sequences of up to ``max_seq``
-    positions (a sliding model keeps min(window, max_seq) slots)."""
+    positions (a sliding model keeps min(window, max_seq) slots); with
+    ``pal.cache_seq_sharded`` this rank's slice of those slots, which
+    must split evenly over the group."""
     check_model(cfg)
+    slots = attn.cache_max_seq(cfg, max_seq)
+    if pal is not None and pal.cache_seq_sharded:
+        slots = cache_slice_len(slots, pal.size)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "blocks": {"l0": attn.init_cache(
-                cfg, batch, attn.cache_max_seq(cfg, max_seq), dtype,
-                lead=(cfg.n_layers,), device=device)}}
+                cfg, batch, slots, dtype, lead=(cfg.n_layers,),
+                device=device)}}
+
+
+def cache_slice_len(slots: int, n: int) -> int:
+    """One rank's slots of a cache of ``slots`` split over ``n`` ranks;
+    ValueError unless n divides it (the reference's sharding cannot place
+    such a cache either)."""
+    if slots % n:
+        raise ValueError(f"a decode cache of {slots} slots does not split "
+                         f"over {n} ranks")
+    return slots // n
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg,
@@ -185,10 +200,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg,
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
-                cfg) -> tuple:
+                cfg, pal=None) -> tuple:
     """One token a sequence, token (B, 1) -> (logits (B, V), cache). The
     cache is updated in place (its k and v at the step's slot, ``pos`` +
-    1) and returned."""
+    1) and returned. With ``pal.cache_seq_sharded`` the cache is this
+    rank's slice of the sequence (``attention.attn_decode``)."""
     pos = cache["pos"]
     x = embed_batch(params, token, cfg, pos0=pos)
     caches = layer_views(cache["blocks"], cfg.n_layers)
@@ -196,7 +212,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
         p = lp["l0"]
         x = x + attn.attn_decode(p["attn"], norm_fwd(p["norm1"], x,
                                                      cfg.norm),
-                                 lc["l0"], pos, cfg)
+                                 lc["l0"], pos, cfg, pal)
         x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)

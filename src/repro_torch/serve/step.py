@@ -1,6 +1,6 @@
-"""Serving steps at one rank: prefill and batched greedy decode (the port
-of ``repro.serve.step``'s ``build_prefill`` and ``build_decode_step`` on
-a 1x1 mesh).
+"""Serving steps: prefill and batched greedy decode (the port of
+``repro.serve.step``'s ``serve_parallel``, ``decode_cache_specs``,
+``build_prefill`` and ``build_decode_step`` at tensor-parallel degree 1).
 
 Each builder returns a plain function: ``prefill(params, batch) ->
 (logits (B, V), cache)`` with a cache of ``run.shape.seq_len`` positions
@@ -10,10 +10,25 @@ in place. Both run under ``torch.inference_mode``. The model is
 ``resolve_model_cfg(run)``: ``attn_override="sliding"`` serves a dense
 model's sliding variant.
 
-The reference also serves a data-parallel batch, context-parallel decode
-(the cache's sequence axis sharded when the batch is smaller than the
-data axes) and tensor parallelism; each raises here, naming the ROADMAP
-item that will port it.
+Over a process group of n ranks (``group``; None: one rank, or the
+default group when one is initialised), as the reference shards a mesh's
+data axes:
+
+- a data-parallel batch: both functions take the global batch (or
+  token), rank r prefills and decodes its rows [r B/n, (r + 1) B/n) with
+  a cache of those rows, and the logits are all-gathered to (B, V) in
+  rank order (the reference's ``out_specs=P(dpaxes, None)``);
+- context-parallel decode, when the global batch is below n (the
+  reference's ``cache_seq_axis``): the batch stays whole, each rank
+  holds its slice of the cache's sequence axis, and every rank returns
+  the same (B, V) logits. Its cache comes from a one-rank prefill
+  through :func:`shard_decode_cache`, as the reference's device_put of
+  a one-device cache onto the mesh; prefill raises, since its batch does
+  not split.
+
+A batch (or cache) that n does not split raises ValueError; tensor
+parallelism (``model > 1``) raises NotImplementedError naming ROADMAP
+A13.
 """
 from __future__ import annotations
 
@@ -21,56 +36,120 @@ import torch
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
+from repro_torch.models.parallel import Parallel, all_gather_rows, world
 
 
-def check_serving(run: RunConfig, data: int = 1, model: int = 1) -> None:
-    """Raise NotImplementedError for a serving layout beyond one rank."""
+def check_serving(run: RunConfig, model: int = 1) -> None:
+    """Raise NotImplementedError for tensor-parallel serving."""
     if model > 1:
         raise NotImplementedError(
             f"tensor-parallel serving (model={model}) is not ported yet; "
-            "the port serves one rank (ROADMAP A13)")
-    if data > 1:
-        what = ("context-parallel decode (batch "
-                f"{run.shape.global_batch} < data {data})"
-                if run.shape.global_batch < data else
-                f"a data-parallel batch (data={data})")
-        raise NotImplementedError(
-            f"{what} is not ported yet; the port serves one rank "
-            "(ROADMAP A14)")
+            "the port serves data-parallel ranks (ROADMAP A13)")
 
 
-def _build(run: RunConfig, device, data: int, model: int):
+def serve_parallel(run: RunConfig, group=None, *, decode: bool) -> Parallel:
+    """The serving step's ``Parallel`` over ``group``: the cache's
+    sequence axis sharded (context-parallel decode) when ``decode`` and
+    the global batch is below the group's size."""
+    n, _ = world(group)
+    return Parallel(group=group, cache_seq_sharded=decode and
+                    run.shape.global_batch < n)
+
+
+def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
+    """(rows, slots) of one rank's decode cache among ``n`` ranks (the
+    counterpart of ``decode_cache_specs``): the global batch's rows and a
+    slice of the slots under context-parallel decode, else a share of the
+    rows and every slot. ValueError where n does not split them."""
+    cfg = resolve_model_cfg(run)
+    b = run.shape.global_batch
+    slots = attn.cache_max_seq(cfg, run.shape.seq_len)
+    if cache_seq_sharded:
+        return b, tfm.cache_slice_len(slots, n)
+    if b % n:
+        raise ValueError(f"a batch of {b} rows does not split over {n} "
+                         "data-parallel ranks")
+    return b // n, slots
+
+
+def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
+    """This rank's part of a one-rank decode cache of the global batch
+    (``tfm.prefill``'s) under :func:`serve_parallel`'s layout for decode:
+    a slice of the slots (context-parallel), or of the rows; the step
+    counter as it is."""
+    n, r = world(group)
+    pal = serve_parallel(run, group, decode=True)
+    rows, slots = decode_cache_layout(run, n, pal.cache_seq_sharded)
+    kv = cache["blocks"]["l0"]
+    have = tuple(kv["k"].shape[1:3])
+    want = (run.shape.global_batch,
+            attn.cache_max_seq(resolve_model_cfg(run), run.shape.seq_len))
+    if have != want:
+        raise ValueError(f"a cache of (rows, slots) {have}, but the run "
+                         f"serves {want}")
+    if pal.cache_seq_sharded:
+        part = {key: val[:, :, r * slots:(r + 1) * slots].contiguous()
+                for key, val in kv.items()}
+    else:
+        part = {key: val[:, r * rows:(r + 1) * rows].contiguous()
+                for key, val in kv.items()}
+    return {"pos": cache["pos"].clone(), "blocks": {"l0": part}}
+
+
+def _build(run: RunConfig, device, model: int):
     resolve_device(device)
     configure_numerics()
-    check_serving(run, data, model)
+    check_serving(run, model)
     cfg = resolve_model_cfg(run)
     tfm.check_model(cfg)
     return cfg
 
 
-def build_prefill(run: RunConfig, device=None, *, data: int = 1,
+def _rows(x: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Rank r's rows of a global batch."""
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                         f"over {n} data-parallel ranks")
+    rows = x.shape[0] // n
+    return x[r * rows:(r + 1) * rows]
+
+
+def build_prefill(run: RunConfig, device=None, *, group=None,
                   model: int = 1):
-    """``fn(params, batch) -> (logits, cache)``; batch = {"tokens": (B,
-    S)}."""
-    cfg = _build(run, device, data, model)
+    """``fn(params, batch) -> (logits (B, V), cache)``; batch =
+    {"tokens": (B, S)}, the global batch; the cache holds this rank's
+    rows."""
+    cfg = _build(run, device, model)
+    n, r = world(group)
+    decode_cache_layout(run, n, False)
 
     def fn(params: dict, batch: dict):
         with torch.inference_mode():
-            return tfm.prefill(params, batch["tokens"], cfg,
-                               max_seq=run.shape.seq_len)
+            logits, cache = tfm.prefill(params, _rows(batch["tokens"], n, r),
+                                        cfg, max_seq=run.shape.seq_len)
+            return all_gather_rows(logits, group), cache
     return fn
 
 
-def build_decode_step(run: RunConfig, device=None, *, data: int = 1,
+def build_decode_step(run: RunConfig, device=None, *, group=None,
                       model: int = 1):
-    """``fn(params, cache, token) -> (logits, cache)``, the cache updated
-    in place."""
-    cfg = _build(run, device, data, model)
+    """``fn(params, cache, token) -> (logits (B, V), cache)``: token (B,
+    1) of the global batch; the cache (this rank's rows or slots) is
+    updated in place."""
+    cfg = _build(run, device, model)
+    n, r = world(group)
+    pal = serve_parallel(run, group, decode=True)
+    decode_cache_layout(run, n, pal.cache_seq_sharded)
 
     def fn(params: dict, cache: dict, token: torch.Tensor):
         with torch.inference_mode():
-            return tfm.decode_step(params, cache, token, cfg)
+            if pal.cache_seq_sharded:
+                return tfm.decode_step(params, cache, token, cfg, pal)
+            logits, cache = tfm.decode_step(params, cache,
+                                            _rows(token, n, r), cfg)
+            return all_gather_rows(logits, group), cache
     return fn
 
 

@@ -11,8 +11,9 @@ The inputs' ``mode`` (default "sync") picks what runs:
 - "sync": for each case the inputs list (JSON, as
   tests/torch_gloo_worker.py's mode "baselines" reads it), the per-step
   sync under ``shard_map`` over WORLD devices, each device one rank with
-  its own gradient, state and participation bit: g_agg and n_active of
-  every step and every rank's final state;
+  its own gradient (the inputs' ``grads_<case>``, else ``grads``), state
+  and participation bit: g_agg and n_active of every step and every
+  rank's final state;
 - "train": for each case (JSON: mesh shape, sparsifier fields, fault
   schedule), ``build_train_step`` on that mesh (a ``("data", "model")``
   or ``("pod", "data", "model")`` mesh of the first devices) over the
@@ -195,7 +196,9 @@ def main(inp: str, out: str) -> None:
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():
         fields = dict(fields, sparsity=float(data["sparsity"]),
                       mu=float(data["mu"]))
-        for key, val in run_case(mesh, fields, elastic, data["grads"],
+        grads = data[f"grads_{name}" if f"grads_{name}" in data.files
+                     else "grads"]
+        for key, val in run_case(mesh, fields, elastic, grads,
                                  data["parts"]).items():
             res[f"{name}_{key}"] = val
     np.savez(out, **res)

@@ -1,4 +1,4 @@
-"""The baselines' per-step sync over gloo worlds of 2, 3 and 4 against
+"""The baselines' per-step sync over gloo worlds of 2, 3, 4 and 8 against
 the reference's per-step GradientSync on a mesh of as many host CPU
 devices (tests/jax_mesh_worker.py, a process of its own), bitwise: kinds
 none and globaltopk with and without participation bits, comm_mode=
@@ -72,7 +72,7 @@ def _bits(x, zero_sign=True):
     return x.view(np.int32) if x.dtype in (np.float32, np.uint32) else x
 
 
-@pytest.mark.parametrize("world", [2, 3, 4])
+@pytest.mark.parametrize("world", [2, 3, 4, 8])
 def test_gloo_baselines_match_reference_mesh(tmp_path, world):
     rng = np.random.default_rng(90 + world)
     grads = (rng.integers(-1024, 1025, (T, world, J))

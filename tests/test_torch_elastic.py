@@ -2,7 +2,7 @@
 sweep 1's gated variant (plain version) against the Pallas kernel's
 ``gate=`` operand in interpret mode, ``compress(participate=)`` on both
 pipelines, ``GradientSync.round(participate=)`` with both combines, gloo
-worlds of 3 and 4 under an iid schedule, the non-finite guard, and the
+worlds of 3, 4 and 8 under an iid schedule, the non-finite guard, and the
 train step and launcher under a fault schedule.
 
 The reference runs under ``jax.jit`` with the participation bit passed as
@@ -11,6 +11,7 @@ let XLA fold the select away and contract ``err_decay * err + x`` into a
 fused multiply-add that the train step never computes. omega = 1/3
 exercises the posterior at a world that is not a power of two."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -256,15 +257,24 @@ def test_round_under_participation_matches_reference(case):
 
 
 # ---------------------------------------------------------------------------
-# gloo worlds of 3 and 4
+# gloo worlds of 3, 4 and 8
 # ---------------------------------------------------------------------------
 
 GLOO_T = 3
 # seeds whose iid:0.3 draws take some worker out within GLOO_T steps
-GLOO_SCHEDULE = {3: "iid:0.3,seed=1", 4: "iid:0.3,seed=2"}
+GLOO_SCHEDULE = {3: "iid:0.3,seed=1", 4: "iid:0.3,seed=2",
+                 8: "iid:0.3,seed=3"}
+# the two configs, as tests/torch_gloo_worker.py's mode "elastic" runs
+# them and tests/jax_mesh_worker.py's cases spell them
+GLOO_CASES = {"sparse": dict(pipeline="fused", comm_mode="sparse"),
+              "simulate": dict(pipeline="reference", comm_mode="simulate")}
 
 
-def _run_world(tmp_path, mode, world, **data):
+def _run_world(tmp_path, mode, world, reference=None, **data):
+    """The port's gloo ranks, and with ``reference`` (cases) the
+    reference's per-step sync on a mesh of ``world`` host devices
+    (tests/jax_mesh_worker.py) side by side; returns the ranks' results
+    (and the reference's)."""
     inp = tmp_path / "inputs.npz"
     np.savez(inp, sparsity=SPARSITY, mu=MU, **data)
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "..", "src"))
@@ -274,26 +284,39 @@ def _run_world(tmp_path, mode, world, **data):
          str(tmp_path / f"rank{r}.npz")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+    if reference is not None:
+        ref_inp = tmp_path / "reference_inputs.npz"
+        np.savez(ref_inp, sparsity=SPARSITY, mu=MU, cases=json.dumps(
+            reference), **data)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "jax_mesh_worker.py"),
+             str(world), str(ref_inp), str(tmp_path / "reference.npz")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     logs = [p.communicate(timeout=240)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(world)]
+    if reference is None:
+        return ranks
+    return ranks, dict(np.load(tmp_path / "reference.npz"))
 
 
-@pytest.mark.parametrize("world", [3, 4])
+@pytest.mark.parametrize("world", [3, 4, 8])
 def test_gloo_elastic_sync_matches_reference_round(tmp_path, world):
     """Each rank of a gloo group draws its own iid participation bits and
     syncs REGTOP-k (err_decay 0.9) with sparse comm on the fused pipeline
     (Gaussian gradients) and with simulate comm on the reference pipeline
     (dyadic gradients, whose sums are exact in gloo's order), in one
-    spawn of the world. Against the reference's round under the
-    reference's participation matrix: the bits, n_active on every rank,
-    g_agg identical on every rank and bitwise equal to the reference's,
-    and every final state bitwise. The simulate combine sums where(p,
-    ghat, 0), +0.0 for a sitting-out worker where the reference's round
-    adds that worker's inert mask * a (-0.0 at a < 0): there g_agg and
-    the dense posterior's copy of it are compared up to the sign of
-    zero."""
+    spawn of the world. Against the reference under the reference's
+    participation matrix: its round (worlds 3 and 4), or its per-step
+    sync on a mesh of 8 host devices (tests/jax_mesh_worker.py, each
+    device a rank with its bit): the bits, n_active on every rank, g_agg
+    identical on every rank and bitwise equal to the reference's, and
+    every final state bitwise. The simulate combine sums where(p, ghat,
+    0), +0.0 for a sitting-out worker where the reference's round adds
+    that worker's inert mask * a (-0.0 at a < 0): there g_agg and the
+    dense posterior's copy of it are compared up to the sign of zero."""
     spec = GLOO_SCHEDULE[world]
     matrix = jfaults.participation_matrix(jfaults.parse_schedule(spec),
                                           GLOO_T, world)
@@ -301,22 +324,31 @@ def test_gloo_elastic_sync_matches_reference_round(tmp_path, world):
     rng = np.random.default_rng(70 + world)
     grads = {"sparse": _gauss(rng, GLOO_T, world, J),
              "simulate": _dyadic(rng, GLOO_T, world, J)}
-    ranks = _run_world(tmp_path, "elastic", world, kind="regtopk",
-                       err_decay=DECAY, schedule=spec,
-                       grads_sparse=grads["sparse"],
-                       grads_simulate=grads["simulate"])
-    for name, fields in (("sparse", dict(pipeline="fused",
-                                         comm_mode="sparse")),
-                         ("simulate", dict())):
-        jcfg, _ = _cfgs(**fields)
+    data = dict(kind="regtopk", err_decay=DECAY, schedule=spec,
+                grads_sparse=grads["sparse"],
+                grads_simulate=grads["simulate"])
+    if world == 8:
+        cases = {name: [dict(fields, kind="regtopk", err_decay=DECAY), True]
+                 for name, fields in GLOO_CASES.items()}
+        ranks, mesh = _run_world(tmp_path, "elastic", world, cases,
+                                 parts=matrix, **data)
+    else:
+        ranks = _run_world(tmp_path, "elastic", world, **data)
+    for name, fields in GLOO_CASES.items():
         signed = name == "sparse"
-        rnd = jax.jit(lambda sts, gs, ps: jagg.GradientSync(
-            jcfg, None).round(sts, gs, participate=ps))
-        states = [jsp.init_state(jcfg, J) for _ in range(world)]
+        if world == 8:
+            want = [mesh[f"{name}_g_agg_{t}"] for t in range(GLOO_T)]
+            finals = [{key[len(name) + 7:]: val[r]
+                       for key, val in mesh.items()
+                       if key.startswith(f"{name}_state_")}
+                      for r in range(world)]
+            for t in range(GLOO_T):
+                assert np.all(mesh[f"{name}_n_active_{t}"]
+                              == matrix[t].sum())
+        else:
+            want, finals = _round_reference(fields, grads[name], matrix,
+                                            world)
         for t in range(GLOO_T):
-            g_agg, states = rnd(states, [jnp.asarray(x)
-                                         for x in grads[name][t]],
-                                [jnp.asarray(b) for b in matrix[t]])
             first = ranks[0][f"{name}_g_agg_{t}"]
             for r, res in enumerate(ranks):
                 assert bool(res[f"{name}_part_{t}"]) == matrix[t, r]
@@ -324,13 +356,31 @@ def test_gloo_elastic_sync_matches_reference_round(tmp_path, world):
                     matrix[t].sum(), (name, t, r)
                 got = res[f"{name}_g_agg_{t}"]
                 assert _same(first, got), (name, t, r)
-                assert _same(np.asarray(g_agg), got, signed), (name, t, r)
+                ref = want[t] if world != 8 else want[t][r]
+                assert _same(ref, got, signed), (name, t, r)
         for r, res in enumerate(ranks):
             assert not bool(res["jax_imported"])
-            for key, val in jax.device_get(states[r]).items():
+            assert set(finals[r]) == {key[len(name) + 7:] for key in res
+                                      if key.startswith(f"{name}_state_")}
+            for key, val in finals[r].items():
                 got = res[f"{name}_state_{key}"]
                 assert _same(np.asarray(val), got,
                              signed or key != "g_agg_prev"), (name, r, key)
+
+
+def _round_reference(fields, grads, matrix, world):
+    """The reference's jitted round under the participation matrix:
+    g_agg of every step and every worker's final state."""
+    jcfg, _ = _cfgs(**fields)
+    rnd = jax.jit(lambda sts, gs, ps: jagg.GradientSync(
+        jcfg, None).round(sts, gs, participate=ps))
+    states = [jsp.init_state(jcfg, J) for _ in range(world)]
+    want = []
+    for t in range(GLOO_T):
+        g_agg, states = rnd(states, [jnp.asarray(x) for x in grads[t]],
+                            [jnp.asarray(b) for b in matrix[t]])
+        want.append(np.asarray(g_agg))
+    return want, [jax.device_get(st) for st in states]
 
 
 # ---------------------------------------------------------------------------

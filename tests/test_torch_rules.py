@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "configs/granite_8b.py", "configs/qwen1_5_32b.py",
                    "configs/starcoder2_7b.py", "serve/delta.py",
                    "checkpoint/__init__.py", "checkpoint/io.py",
-                   "core/faults.py", "core/allocate.py"):
+                   "core/faults.py", "core/allocate.py",
+                   "models/parallel.py", "launch/mesh.py"):
         assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -128,6 +129,35 @@ def test_serve_entry_points_default_to_the_card():
             call()
     build_prefill(run, "cpu")
     build_decode_step(run, "cpu")
+
+
+@pytest.mark.parametrize("launcher", ["train", "serve"])
+def test_data_parallel_launchers_take_the_card(launcher, monkeypatch):
+    """Under torchrun's environment ``--data 2`` joins the group on this
+    rank's card: without a card it raises naming the missing device, and
+    never joins over gloo on the CPU in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    import importlib
+    import torch.distributed as dist
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    for key, val in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0"),
+                     ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(key, val)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--arch", "stablelm-3b", "--smoke", "--data", "2"])
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("field", ["model_axis", "tp", "seq_parallel",
+                                   "attn_dist"])
+def test_tensor_parallel_fields_raise(field):
+    """The port's Parallel is data-parallel: its tensor-parallel fields
+    raise naming ROADMAP A13 (the reference's ``Parallel`` has them)."""
+    from repro_torch.models.parallel import Parallel
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        getattr(Parallel(), field)
+    assert Parallel().size == 1 and Parallel().rank == 0
 
 
 def test_card_path_never_calls_the_plain_version(monkeypatch):

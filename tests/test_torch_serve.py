@@ -205,19 +205,28 @@ def test_serve_step_builders_match_the_model_functions():
     assert int(cache["pos"]) == 8
 
 
-@pytest.mark.parametrize("data,model,batch,item", [
-    (2, 1, 8, "ROADMAP A14"), (4, 1, 2, "ROADMAP A14"),
+@pytest.mark.parametrize("data,model,batch,match", [
+    (2, 1, 3, "batch of 3 rows does not split over 2"),
+    (4, 1, 2, "cache of 10 slots does not split over 4"),
     (1, 2, 8, "ROADMAP A13")])
-def test_serve_step_beyond_one_rank_raises(data, model, batch, item):
-    """A data-parallel batch, context-parallel decode (batch < data) and
-    tensor parallelism each raise naming their item."""
+def test_serve_step_beyond_one_rank_raises(data, model, batch, match):
+    """What the serve step does not serve over ``data`` ranks raises: a
+    data-parallel batch that the ranks do not split, context-parallel
+    decode (batch < data) of a cache whose slots they do not split (the
+    reference cannot place either), and tensor parallelism (ROADMAP
+    A13). ``decode_cache_layout`` is the builders' check of the
+    layout, at the group's size."""
+    from repro_torch.serve.step import decode_cache_layout
     run = _run(batch=batch)
-    for build in (build_prefill, build_decode_step):
-        with pytest.raises(NotImplementedError, match=item):
-            build(run, "cpu", data=data, model=model)
-    if batch < data:
-        with pytest.raises(NotImplementedError, match="context-parallel"):
-            build_decode_step(run, "cpu", data=data)
+    if model > 1:
+        for build in (build_prefill, build_decode_step):
+            with pytest.raises(NotImplementedError, match=match):
+                build(run, "cpu", model=model)
+        return
+    with pytest.raises(ValueError, match=match):
+        decode_cache_layout(run, data, batch < data)
+    assert decode_cache_layout(_run(batch=8), 2, False) == (4, 10)
+    assert decode_cache_layout(_run(batch=1, seq=12), 4, True) == (1, 3)
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "starcoder2-7b"])
@@ -254,9 +263,13 @@ def test_serve_launcher_smoke(arch, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data", "2"], "ROADMAP A14"), (["--model", "2"], "ROADMAP A13"),
-    (["--devices", "8"], "ROADMAP A13"), (["--mla-absorb"], "ROADMAP A13")])
+    (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
+    (["--model", "2"], "ROADMAP A13"), (["--devices", "8"], "ROADMAP A13"),
+    (["--mla-absorb"], "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
+    """What the launcher still does not serve: deltas applied over more
+    than one rank (A14), tensor parallelism, a mesh in one process and
+    MLA (A13)."""
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])

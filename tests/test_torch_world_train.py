@@ -14,7 +14,11 @@ parameters.
   (tests/test_torch_train.py's tolerances), and the ranks bitwise equal
   to each other;
 - DGC fused under ``bursty:period=3,outage=1,workers=0`` at a world of
-  4: n_active per step equal to the reference's.
+  4: n_active per step equal to the reference's;
+- the launcher's ``main()`` with ``--data 2 --device cpu`` at gloo world
+  2: each rank's rows of the global batch, and its losses equal to
+  ``train()`` with the group; ``--model 2`` and ``--data 2`` without a
+  group raise.
 
 Ranks meet through a ``file://`` rendezvous under tmp_path."""
 import json
@@ -155,3 +159,46 @@ def test_world4_dgc_elastic_matches_the_reference(world4, reference):
     np.testing.assert_allclose(world4[0]["dgc_params"],
                                reference["dgc_params"], rtol=0,
                                atol=PARAM_ATOL)
+
+
+LAUNCH = ["--arch", "stablelm-3b", "--smoke", "--steps", "2", "--batch",
+          "4", "--seq", "16", "--comm", "sparse", "--pipeline", "fused",
+          "--fixed-batch", "--log-every", "1", "--device", "cpu"]
+
+
+def test_launcher_main_over_gloo_world2(tmp_path):
+    """``main()`` with ``--data 2`` inside a gloo group of 2: rank r
+    trains on rows [2r, 2r + 2) of the launcher's global batch of 4, and
+    its losses equal ``train()``'s with the group on the same config."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.data import lm_batch
+    ranks = _spawn_ranks(tmp_path, "launch", 2,
+                         flags=np.asarray(LAUNCH + ["--data", "2"]))
+    glob = lm_batch(reduced_config(get_config("stablelm-3b")), 4, 16, 0, 0,
+                    "cpu")["tokens"].numpy()
+    for r, res in enumerate(ranks):
+        assert not bool(res["jax_imported"])
+        assert res["tokens"].shape == (2, 2, 16)
+        for step_rows in res["tokens"]:
+            assert np.array_equal(step_rows, glob[2 * r:2 * r + 2])
+        assert np.array_equal(res["losses"], res["train_losses"])
+        assert np.array_equal(res["losses"], ranks[0]["losses"])
+        assert np.all(np.isfinite(res["losses"]))
+
+
+def test_launcher_model_parallel_raises_a13():
+    from repro_torch.launch import train as launcher
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        launcher.main(LAUNCH + ["--model", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--data", "2"], ["--pods", "2"]])
+def test_launcher_data_parallel_without_a_group_raises(flags, monkeypatch):
+    """Without torchrun's environment there is no group to join: the
+    launcher raises and never trains one rank in its place."""
+    from repro_torch.launch import train as launcher
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launcher.main(LAUNCH + flags)

@@ -290,7 +290,25 @@ def run_world_serve(rank: int, data) -> dict:
         for t in range(prompt, tokens.shape[1]):
             logits, cache = dec(params, cache, tokens[:, t:t + 1])
             res[f"{name}_decode_{t - prompt}"] = logits.numpy()
+    res["raises"] = np.asarray([_raises(build_prefill, base, b, seq, group)
+                                for b, seq in data["raise_cases"]])
     return res
+
+
+def _raises(build_prefill, model, batch: int, seq: int, group) -> bool:
+    """Whether the builders refuse a run of ``batch`` rows and ``seq``
+    positions over the group with ValueError."""
+    from repro_torch.serve.step import build_decode_step
+    run = cfgs.RunConfig(model=model, shape=cfgs.ShapeConfig(
+        "serve", int(seq), int(batch), "decode"),
+        sparsifier=cfgs.SparsifierConfig(kind="none"))
+    build = build_prefill if batch >= dist.get_world_size() else \
+        build_decode_step
+    try:
+        build(run, "cpu", group=group)
+    except ValueError:
+        return True
+    return False
 
 
 def main(mode: str, rank: int, world: int, init_file: str, inp: str,
