@@ -25,7 +25,25 @@ every rank's state, equal to an in-process ``round()`` of the same four
 workers (for the chunked bf16 wire, to the same workers' compress steps
 and an in-process chunk-by-chunk combine of their bf16-rounded values;
 for the sketch, to the same workers' encodes, mean sketch and
-values-only combine computed in one process).
+values-only combine computed in one process). Then the multi-rank
+phases, one process a card over NCCL: ``world_train`` (the launcher's
+train() over the group: the main path, REGTOP-k fused with sparse comm,
+on StableLM-3B at full width and 8 layers, global batch 32 x 128, 8
+rows a rank, 5 steps; B1 and B2 launched exactly 5 times on every rank,
+the flat parameters bitwise equal on every rank, each rank's peak, and
+the ``train/sync`` and ``train/optimizer`` device spans of one more step
+profiled on rank 0), ``world_train_dense`` (the same with the dense
+all-reduce, ``--sparsifier none``: the paper's baseline across cards),
+``world_train_small`` (the main path at 2 layers, whose parameters must
+equal bit for bit rank 0's in-process replay of the four ranks' batches
+through ``GradientSync.round`` and one whole-vector Adam),
+``world_serve`` (serve() of a data-parallel batch of 8 on Granite-8B in
+fp32 at full depth, prompt 48, 16 greedy steps, the gathered logits
+within 2e-4 of a one-card forward on rank 0, decode ms a step) and
+``world_decode_cp`` (context-parallel decode of Granite-8B, batch 1, a
+4096-token prompt prefilled on one card into 4160 cache slots split
+1040 a rank, 16 steps within 2e-4 of one-card decode of the same cache,
+decode ms a step beside one-card decode on rank 0's card).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -2062,11 +2080,14 @@ STAGES = ("train/loss_grad", "train/flatten", "train/sync",
           "sync/simulate", "sync/dense", "sync/select")
 
 
-def phase_profile(dev, run, state, phase: str) -> None:
+def phase_profile(dev, run, state, phase: str, profiled: bool = True):
     """Device time of one more step of the trained state, by kernel and
     by the step's record_function stages; busy share = kernel time over
-    the step's wall time. Returns the shapes (J, rows, width) of the
-    start tables that the step's sync keeps."""
+    the step's wall time. Returns (the shapes (J, rows, width) of the
+    start tables that the step's sync keeps, the wall ms, the stages).
+    In a process group every rank takes the step (8 rows each) and the
+    ``profiled`` one alone traces it and prints the line; the others
+    return None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2075,6 +2096,10 @@ def phase_profile(dev, run, state, phase: str) -> None:
     step = build_train_step(run, dev)
     batch = lm_batch(run.model, 8, 128, run.seed, 0, dev)
     torch.cuda.synchronize(dev)
+    if not profiled:
+        step(state, batch)
+        torch.cuda.synchronize(dev)
+        return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2578,32 +2603,386 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                      comm=sync.comm, step_ms=step_ms,
                      bitwise_across_ranks=True, equals_round=True,
                      state=sorted(st))
+        del st, ip_states, ip_sync, sync
+        for name in WORLD_TRAIN:
+            world_train(name, dev, world, rank)
+            if cuda:
+                torch.cuda.empty_cache()
+        world_serve(dev, world, rank)
+        if cuda:
+            torch.cuda.empty_cache()
+        world_decode_cp(dev, world, rank)
     finally:
         dist.destroy_process_group()
     return 0
 
 
+# the multi-rank phases of --world (one process a card): the launcher's
+# train() and serve() and the serve step's builders over the group. On
+# the card: StableLM-3B at full width and the train cell's depth (and 2
+# layers for the in-process replay), global batch 32 x 128 (8 rows a rank
+# at a world of 4, the one-card train cell's work a rank), 5 steps;
+# Granite-8B at full width and depth in fp32. Over gloo on the CPU
+# (tests/test_torch_chip_world.py) the reduced configs at small shapes.
+WORLD_TRAIN = {   # phase: sparsifier fields, kernels once a step, depth
+    "world_train": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                    TRAIN_LAYERS),
+    "world_train_dense": (dict(kind="none"), (), TRAIN_LAYERS),
+    "world_train_small": (dict(kind="regtopk", **FUSED), ("sweep1",
+                                                          "sweep2"), 2),
+}
+WORLD_BATCH, WORLD_SEQ = 32, 128
+WORLD_CP_PROMPT, WORLD_CP_SLOTS = 4096, 4160   # 1040 slots a rank at 4
+WORLD_CHUNK = 1 << 26        # elements a gather of the params compares
+
+
+def world_model(depth: int, cuda: bool):
+    """(model, global batch, seq, sparsity) of a world train phase."""
+    from repro_torch.configs.base import get_config, reduced_config
+    if cuda:
+        return (dataclasses.replace(get_config("stablelm-3b"),
+                                    n_layers=depth),
+                WORLD_BATCH, WORLD_SEQ, SPARSITY)
+    return reduced_config(get_config("stablelm-3b")), 8, 16, 0.01
+
+
+def world_equal(flat, world: int, rank: int) -> bool:
+    """Whether every rank holds the same bits as rank 0 in the vector
+    ``flat``: rank 0 gathers the others' chunk by chunk."""
+    import torch
+    import torch.distributed as dist
+    same = True
+    for off in range(0, flat.numel(), WORLD_CHUNK):
+        part = flat[off:off + WORLD_CHUNK].contiguous()
+        parts = ([torch.empty_like(part) for _ in range(world)]
+                 if rank == 0 else None)
+        dist.gather(part, parts, dst=0)
+        if rank == 0:
+            same = same and all(bits_equal(x, part) for x in parts)
+    return same
+
+
+def world_peaks(dev, cuda: bool) -> list:
+    """Every rank's peak device memory since the last reset (bytes)."""
+    import torch
+    import torch.distributed as dist
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, peak)
+    return out
+
+
+def world_train(phase: str, dev, world: int, rank: int) -> None:
+    """The launcher's train() over the group: TRAIN_STEPS steps of the
+    global batch (each rank its rows), every kernel's launches exact on
+    every rank (on the card), the loss finite and falling, the flat
+    parameters bitwise equal on every rank; each rank's peak, steps 1-4
+    and (on the card) one more step profiled on rank 0, the others
+    stepping beside it. ``world_train_small`` then replays the ranks'
+    batches on rank 0 with ``GradientSync.round`` and one whole-vector
+    Adam, which must give the same parameters bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
+                                          SparsifierConfig)
+    from repro_torch.core.flatten import TreeFlattener
+    from repro_torch.launch.train import train
+    cuda = dev.type == "cuda"
+    fields, kernels, depth = WORLD_TRAIN[phase]
+    model, batch, seq, sparsity = world_model(depth, cuda)
+    run = RunConfig(
+        model=model, shape=SHAPES["train_4k"],
+        sparsifier=SparsifierConfig(**dict(sparsity=sparsity, mu=MU,
+                                           **fields)),
+        optimizer=OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+        steps=TRAIN_STEPS, log_every=1)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = train(run, device=dev, group=dist.group.WORLD, batch=batch,
+                seq=seq, fixed_batch=True,
+                log=lambda msg: print(msg, file=sys.stderr))
+    launches = launch_counts()
+    expect = train_expect(kernels) if cuda else {}
+    for name, n in launches.items():
+        check(n == expect.get(name, 0), f"{phase} rank {rank}: {name} "
+              f"launched {n} times in {TRAIN_STEPS} steps, expected "
+              f"{expect.get(name, 0)}")
+    losses = [rec["loss"] for rec in out["history"]]
+    check(all(math.isfinite(x) for x in losses), f"{phase}: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
+    peaks = world_peaks(dev, cuda)
+    state = out.pop("state")
+    flat = TreeFlattener(state.params).flatten(state.params).detach()
+    same = world_equal(flat, world, rank)
+    if rank == 0:
+        check(same, f"{phase}: the ranks' parameters differ")
+    spans = None
+    if cuda:
+        spans = phase_profile(dev, run, state, phase.replace(
+            "train", "profile"), profiled=rank == 0)
+    del state
+    replay = None
+    if phase == "world_train_small":
+        replay = world_replay(dev, run, batch, seq, world, rank, flat)
+    if rank == 0:
+        emit(phase, model=model.name, n_layers=model.n_layers,
+             j=out["params"], world=world, global_batch=batch, seq=seq,
+             rows_a_rank=batch // world, steps=TRAIN_STEPS,
+             sparsifier=dataclasses.asdict(run.sparsifier), losses=losses,
+             step_ms=[rec["ms"] for rec in out["history"]],
+             launches_a_rank=launches, fallbacks=out["fallbacks"],
+             max_memory_allocated_by_rank=peaks,
+             params_bitwise_across_ranks=same, equals_replay=replay,
+             profile_stages=None if spans is None else spans[2])
+
+
+def world_replay(dev, run, batch: int, seq: int, world: int, rank: int,
+                 flat) -> bool:
+    """Rank 0 replays the ranks' TRAIN_STEPS steps in one process: the
+    gradient of each rank's rows of the fixed global batch, one
+    ``GradientSync.round`` of the ranks' workers, Adam on the whole
+    vector (elementwise, so the ZeRO-1 slicing must not change a bit);
+    True when that equals ``flat`` (the trained parameters) bit for bit.
+    The other ranks wait."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import sparsify
+    from repro_torch.core.aggregate import GradientSync
+    from repro_torch.core.flatten import TreeFlattener, tree_leaves
+    from repro_torch.data import lm_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import apply_updates, init_opt_state
+    same = None
+    if rank == 0:
+        params = init_params(run.model, torch.Generator(
+            device=dev).manual_seed(run.seed), dev)
+        tf = TreeFlattener(params)
+        master = tf.flatten(params)
+        del params
+        opt = init_opt_state(run.optimizer, master)
+        sync = GradientSync(run.sparsifier)
+        states = [sparsify.init_state(run.sparsifier, tf.total, dev)
+                  for _ in range(world)]
+        glob = lm_batch(run.model, batch, seq, run.seed, 0, dev)
+        rows = batch // world
+        for _ in range(run.steps):
+            tree = tf.unflatten(master.clone())
+            leaves = [t.requires_grad_(True) for t in tree_leaves(tree)]
+            grads = []
+            for r in range(world):
+                part = {key: val[r * rows:(r + 1) * rows]
+                        for key, val in glob.items()}
+                loss = loss_fn(tree, part, run.model)
+                grads.append(tf.flatten(list(torch.autograd.grad(loss,
+                                                                 leaves))))
+            g_agg, states = sync.round(states, grads)
+            del grads
+            master, opt = apply_updates(run.optimizer, opt, g_agg)
+        same = bits_equal(master[:tf.total], flat)
+        check(same, "world_train_small: the ranks' parameters differ from "
+              "the in-process replay")
+    dist.barrier()
+    return same
+
+
+def world_serve(dev, world: int, rank: int) -> None:
+    """The serve launcher's serve() over the group: a data-parallel
+    batch (SERVE_BATCH rows, SERVE_BATCH / world a rank) of Granite-8B
+    in fp32, prompt SERVE_PROMPT, SERVE_NEW greedy steps; rank 0 holds
+    the gathered logits of the prefill and of the last step within
+    SERVE_RTOL of a one-card forward of the same tokens; decode ms a step
+    is the median of SERVE_REPS more windows over the group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import (RunConfig, SparsifierConfig,
+                                          get_config, reduced_config)
+    from repro_torch.launch.serve import serve, serve_shape
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import lm_head_fwd
+    cuda = dev.type == "cuda"
+    cfg = get_config("granite-8b")
+    prompt, new = SERVE_PROMPT, SERVE_NEW
+    if not cuda:
+        cfg, prompt, new = reduced_config(cfg), 8, 4
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt, new),
+                    sparsifier=SparsifierConfig(kind="none"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = serve(run, device=dev, group=dist.group.WORLD, prompt_len=prompt,
+                new_tokens=new, params=params,
+                log=lambda msg: print(msg, file=sys.stderr))
+    check(tuple(out["logits"].shape) == (SERVE_BATCH, cfg.vocab_size),
+          f"world_serve: logits {tuple(out['logits'].shape)}")
+    rows = tuple(out["cache"]["blocks"]["l0"]["k"].shape[1:3])
+    check(rows == (SERVE_BATCH // world, prompt + new),
+          f"world_serve: a rank's cache (rows, slots) {rows}")
+    windows = decode_windows(dev, run, params, out["cache"], out["tokens"]) \
+        if cuda else None
+    peaks = world_peaks(dev, cuda)
+    if rank == 0:
+        tokens = torch.cat([out["prompt"], out["tokens"]], 1)
+        with torch.inference_mode():
+            x = tfm.forward_hidden(params, tfm.embed_batch(params, tokens,
+                                                           cfg), cfg)
+            full = lm_head_fwd(params["embed"], x[:, [prompt - 1, -1]],
+                               cfg).float()
+            del x
+        scale = float(full.abs().max())
+        e_pre = float((out["prefill_logits"] - full[:, 0]).abs().max())
+        e_dec = float((out["logits"] - full[:, 1]).abs().max())
+        check(e_pre / scale < SERVE_RTOL and e_dec / scale < SERVE_RTOL,
+              f"world_serve: errors {e_pre / scale}, {e_dec / scale} over "
+              f"{SERVE_RTOL} of the one-card forward")
+        emit("world_serve", arch=cfg.name, n_layers=cfg.n_layers,
+             world=world, batch=SERVE_BATCH, rows_a_rank=rows[0],
+             prompt=prompt, new_tokens=new, params=out["params"],
+             prefill_ms=out["prefill_s"] * 1e3,
+             launcher_decode_ms_per_step=out["decode_s"] / new * 1e3,
+             decode_ms_per_step=None if windows is None
+             else statistics.median(windows), decode_ms_windows=windows,
+             prefill_rel_err=e_pre / scale, decode_rel_err=e_dec / scale,
+             max_memory_allocated_by_rank=peaks,
+             first_sequence=out["tokens"][0].tolist())
+    dist.barrier()
+
+
+def world_decode_cp(dev, world: int, rank: int) -> None:
+    """Context-parallel decode over the group: Granite-8B in fp32, batch
+    1, a WORLD_CP_PROMPT-token prompt prefilled on rank 0's card into a
+    cache of WORLD_CP_SLOTS slots, broadcast and split over the ranks by
+    ``shard_decode_cache``; SERVE_NEW greedy steps through the serve
+    step's decode builder, every rank's logits the same, then rank 0
+    decodes the same tokens on its one-card cache: each step's logits
+    within SERVE_RTOL of those (relative to their largest), and decode
+    ms a step of both on rank 0's card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import (RunConfig, ShapeConfig,
+                                          SparsifierConfig, get_config,
+                                          reduced_config)
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.step import build_decode_step, shard_decode_cache
+    cuda = dev.type == "cuda"
+    cfg = get_config("granite-8b")
+    prompt, slots, new = WORLD_CP_PROMPT, WORLD_CP_SLOTS, SERVE_NEW
+    if not cuda:
+        cfg, prompt, slots, new = reduced_config(cfg), 12, 16, 4
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", slots, 1,
+                                                 "decode"),
+                    sparsifier=SparsifierConfig(kind="none"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device=dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    with torch.inference_mode():
+        if rank == 0:
+            t0 = time.perf_counter()
+            logits, full = tfm.prefill(params, tokens, cfg, max_seq=slots)
+            sync()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            logits = torch.empty((1, cfg.vocab_size), device=dev)
+            full = tfm.init_decode_cache(cfg, 1, slots, torch.float32, dev)
+        for _, leaf in tree_items(full):
+            dist.broadcast(leaf, src=0)
+        dist.broadcast(logits, src=0)
+    cache = shard_decode_cache(full, run, dist.group.WORLD)
+    part = tuple(cache["blocks"]["l0"]["k"].shape[1:3])
+    check(part == (1, slots // world), f"world_decode_cp: a rank's cache "
+          f"(rows, slots) {part}")
+    if rank:
+        del full
+    dec = build_decode_step(run, dev)
+    toks, outs = [], []
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(new):
+        nxt = logits.argmax(-1)[:, None]
+        toks.append(nxt)
+        logits, cache = dec(params, cache, nxt)
+        outs.append(logits)
+    sync()
+    cp_ms = (time.perf_counter() - t0) / new * 1e3
+    every = [None] * world
+    dist.all_gather_object(every, [x.cpu() for x in outs])
+    if rank == 0:
+        check(all(all(bits_equal(a, b) for a, b in zip(o, every[0]))
+                  for o in every), "world_decode_cp: the ranks' logits "
+              "differ")
+        wants = []
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for nxt in toks:
+                want, full = tfm.decode_step(params, full, nxt, cfg)
+                wants.append(want)
+        sync()
+        one_ms = (time.perf_counter() - t0) / new * 1e3
+        errs = [float((got - want).abs().max()) / float(want.abs().max())
+                for got, want in zip(outs, wants)]
+        check(max(errs) < SERVE_RTOL, f"world_decode_cp: errors {errs} "
+              f"over {SERVE_RTOL} of one-card decode")
+        emit("world_decode_cp", arch=cfg.name, n_layers=cfg.n_layers,
+             world=world, batch=1, prompt=prompt, cache_slots=slots,
+             slots_a_rank=part[1], steps=new,
+             prefill_one_card_ms=prefill_ms,
+             decode_ms_per_step=cp_ms,
+             one_card_decode_ms_per_step=one_ms,
+             max_rel_err=max(errs), rel_errs=errs,
+             tokens=[int(t) for t in torch.cat(toks, 1)[0].tolist()])
+    dist.barrier()
+
+
 def phase_world(world: int, src: str) -> None:
     """Start ``world`` rank processes of this script (one card each, NCCL
-    over a localhost rendezvous), relay their output, and stop them all."""
+    over a localhost rendezvous), relay their output, and stop them all:
+    when one fails, the others (blocked in a collective) are stopped at
+    once. First print how the cards are linked (``nvidia-smi topo
+    -m``, where the machine lets it run)."""
     import socket
+    import tempfile
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    emit("world_topology", returncode=topo.returncode,
+         topo=(topo.stdout + topo.stderr).strip())
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
+    outs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--world", str(world),
          "--rank", str(r), "--port", str(port), "--src", src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+        for r, out in enumerate(outs)]
+    deadline = time.perf_counter() + 1000
     try:
-        logs = [p.communicate(timeout=900)[0] for p in procs]
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.perf_counter() < deadline):
+            time.sleep(1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        print(log, end="", flush=True)
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        out.seek(0)
+        print(out.read(), end="", flush=True)
+        out.close()
+    for r, p in enumerate(procs):
         check(p.returncode == 0, f"world rank {r} exited {p.returncode}")
 
 
@@ -2705,7 +3084,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=0,
                     help="run only the multi-card check: GradientSync over "
                     "NCCL on this many cards (one process each) against an "
-                    "in-process round; needs that many cards")
+                    "in-process round, then the launcher's train() and "
+                    "serve() over the group; needs that many cards")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

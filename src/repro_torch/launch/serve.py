@@ -146,7 +146,7 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
             "(ROADMAP A14)")
     pre = build_prefill(run, dev, group=group, model=model)
     dec = build_decode_step(run, dev, group=group, model=model)
-    n, rank = world(group)
+    ranks, rank = world(group)
     if rank:
         log = _quiet
     cfg = resolve_model_cfg(run)
@@ -159,7 +159,7 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     n = tree_size(params)
     b = run.shape.global_batch
     log(f"[serve] {cfg.name}: {n / 1e6:.1f}M params, batch {b}, "
-        f"mesh {{'data': {n}, 'model': {model}}}, device={dev}")
+        f"mesh {{'data': {ranks}, 'model': {model}}}, device={dev}")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                      generator=gen, device=dev)}
 

@@ -4,7 +4,11 @@ cards over NCCL. Each rank syncs SYNC_STEPS steps of every WORLD_CASES
 config through GradientSync; rank 0 asserts that g_agg is bitwise the
 same on every rank and, with every rank's final state, equal to an
 in-process ``round()`` of the same workers, and prints one ``world``
-line a case. This runs the check's own logic without cards."""
+line a case. Then the multi-rank phases at the reduced configs: the
+launcher's train() over the group (the main path, dense SGD, and the
+main path replayed in one process), serve() of a data-parallel batch
+and context-parallel decode, each printing one line from rank 0. This
+runs the check's own logic without cards."""
 import json
 import os
 import socket
@@ -56,4 +60,22 @@ def test_world_check_passes_over_gloo(world):
         assert line["steps"] == chip_smoke.SYNC_STEPS
         assert line["bitwise_across_ranks"] and line["equals_round"]
     for log in logs[1:]:
-        assert '"phase": "world"' not in log
+        assert '"phase": "world' not in log
+    phases = {line["phase"]: line for line in map(
+        json.loads, (ln for ln in logs[0].splitlines()
+                     if ln.startswith('{"phase": "world_')))}
+    assert list(phases) == list(chip_smoke.WORLD_TRAIN) + [
+        "world_serve", "world_decode_cp"]
+    for name in chip_smoke.WORLD_TRAIN:
+        line = phases[name]
+        assert line["world"] == world and line["params_bitwise_across_ranks"]
+        assert line["rows_a_rank"] * world == line["global_batch"]
+        assert line["losses"][-1] < line["losses"][0]
+    assert phases["world_train_small"]["equals_replay"] is True
+    serve = phases["world_serve"]
+    assert serve["rows_a_rank"] * world == chip_smoke.SERVE_BATCH
+    assert max(serve["prefill_rel_err"], serve["decode_rel_err"]) < \
+        chip_smoke.SERVE_RTOL
+    cp = phases["world_decode_cp"]
+    assert cp["slots_a_rank"] * world == cp["cache_slots"]
+    assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
