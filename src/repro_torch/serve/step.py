@@ -41,7 +41,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
 
 
-def check_serving(run: RunConfig, model: int = 1) -> None:
+def check_serving(model: int = 1) -> None:
     """Raise NotImplementedError for tensor-parallel serving."""
     if model > 1:
         raise NotImplementedError(
@@ -101,7 +101,7 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
 def _build(run: RunConfig, device, model: int):
     resolve_device(device)
     configure_numerics()
-    check_serving(run, model)
+    check_serving(model)
     cfg = resolve_model_cfg(run)
     tfm.check_model(cfg)
     return cfg

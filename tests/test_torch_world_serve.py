@@ -117,6 +117,8 @@ def test_data_parallel_batch_matches_reference(ranks, reference, world,
         assert not bool(out["jax_imported"])
         assert tuple(out[f"{name}_cache_slots"]) == (
             4 // world, WINDOW if attn == "sliding" else SEQ), r
+        assert np.array_equal(out[f"{name}_init_slots"],
+                              out[f"{name}_cache_slots"])
     _same_on_every_rank(res, f"{name}_prefill")
     _close(res[0][f"{name}_prefill"], reference[f"{name}_mesh_prefill"],
            "prefill vs mesh")
@@ -141,6 +143,9 @@ def test_context_parallel_decode_matches_reference(ranks, reference, batch,
     for r, out in enumerate(res):
         assert tuple(out[f"{name}_cache_slots"]) == (
             batch, (WINDOW if attn == "sliding" else SEQ) // 4), r
+        # a zero cache of the layout is the slice of the split one
+        assert np.array_equal(out[f"{name}_init_slots"],
+                              out[f"{name}_cache_slots"])
         assert f"{name}_prefill" not in out
     for t in range(STEPS):
         _same_on_every_rank(res, f"{name}_decode_{t}")

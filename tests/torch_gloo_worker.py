@@ -259,7 +259,7 @@ def run_world_serve(rank: int, data) -> dict:
 
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.step import (build_decode_step, build_prefill,
-                                        shard_decode_cache)
+                                        serve_parallel, shard_decode_cache)
     world = dist.get_world_size()
     group = dist.group.WORLD
     base = cfgs.reduced_config(cfgs.get_config("granite-8b"))
@@ -287,6 +287,11 @@ def run_world_serve(rank: int, data) -> dict:
             res[f"{name}_prefill"] = logits.numpy()
         res[f"{name}_cache_slots"] = np.asarray(
             cache["blocks"]["l0"]["k"].shape[1:3])
+        zeros = tfm.init_decode_cache(
+            model, b if case["cp"] else b // world, seq, torch.float32,
+            "cpu", serve_parallel(run, group, decode=True))
+        res[f"{name}_init_slots"] = np.asarray(
+            zeros["blocks"]["l0"]["k"].shape[1:3])
         for t in range(prompt, tokens.shape[1]):
             logits, cache = dec(params, cache, tokens[:, t:t + 1])
             res[f"{name}_decode_{t - prompt}"] = logits.numpy()
