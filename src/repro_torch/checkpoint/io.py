@@ -2,7 +2,8 @@
 ``repro.checkpoint.io``, in its file format).
 
 ``step_%08d.{params,opt,ef}.npz`` hold the leaves under the keys
-``jax.tree_util.keystr`` gives their paths (``"['blocks']['l0']['wq']"``),
+``jax.tree_util.keystr`` gives their paths (``"['blocks']['l0']['wq']"``,
+a list element's index bare: ``"['prefix'][0]['attn']['wq']"``),
 and ``step_%08d.json`` the manifest ``{"step"[, "param_version"]}``. So
 a checkpoint written by either package restores in the other:
 
@@ -35,7 +36,8 @@ UINT32_KEYS = ("idx_prev",)      # the port's int32 views of uint32 bits
 
 
 def keystr(path) -> str:
-    """``jax.tree_util.keystr`` of a path of dict keys."""
+    """``jax.tree_util.keystr`` of a path of dict keys and list
+    indices."""
     return "".join(f"[{key!r}]" for key in path)
 
 

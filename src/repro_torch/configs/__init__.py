@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (
-    ModelConfig, ShapeConfig, SparsifierConfig, OptimizerConfig, RunConfig,
+    ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SparsifierConfig,
+    OptimizerConfig, RunConfig,
     SHAPES, get_config, register, reduced_config, resolve_model_cfg,
 )

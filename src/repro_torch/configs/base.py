@@ -5,8 +5,11 @@ a config reads the same in both packages. Only what the ported slice
 runs is here: the dense decoder family (every dense layout of the
 registry: layernorm or rmsnorm, the SwiGLU or the GELU MLP, QKV bias,
 tied or untied embeddings, RoPE or sinusoidal positions, full or sliding
-attention), the sparsifier fields that select among its paths, and the
-optimizers. A field value outside the slice raises
+attention), the MoE family (routed and shared experts, a dense prefix,
+MLA attention expanded or absorbed), the sparsifier fields that select
+among its paths, and the optimizers. ``SSMConfig`` holds only the mixer's
+kind, so that a layer pattern with another mixer reads as the
+reference's and raises. A field value outside the slice raises
 ``NotImplementedError`` naming its ROADMAP item where it would be used
 (``core.sparsify.check_supported``, ``core.aggregate.check_supported``,
 ``models.transformer.check_model``).
@@ -14,13 +17,32 @@ optimizers. A field value outside the slice raises
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable
+from typing import Callable, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0            # routed experts
+    n_shared_experts: int = 0     # always-on experts (deepseek-v2 style)
+    top_k: int = 0
+    d_expert: int = 0             # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    moe_every: int = 1            # MoE FFN on layers where
+                                  # (idx % moe_every == moe_offset)
+    moe_offset: int = 0
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba"           # mamba | xlstm (not ported: ROADMAP A13)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense | moe (others: ROADMAP A13)
     source: str
     n_layers: int
     d_model: int
@@ -33,8 +55,21 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     rotary_pct: float = 1.0       # stablelm uses partial rotary (0.25)
     qkv_bias: bool = False
-    attn_kind: str = "full"       # full | sliding (mla: ROADMAP A13)
+    attn_kind: str = "full"       # full | sliding | mla
     window: int = 8192            # sliding window size
+    # MLA (deepseek-v2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64
+    v_head_dim: int = 0           # 0 -> head_dim
+    mla_absorb: bool = False      # absorbed attention: scores and context
+                                  # in the compressed kv_lora space
+    # block structure
+    attn_every: int = 1           # period of attention layers; rest SSM
+    attn_offset: int = 0
+    n_dense_prefix: int = 0       # leading layers with a dense FFN
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     dtype: str = "bfloat16"
     norm: str = "rmsnorm"         # rmsnorm | layernorm
     act: str = "silu"             # silu (swiglu) | gelu (plain mlp)
@@ -47,21 +82,59 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense decoder, exact for every
-        dense layout (the port's init mirrors the reference's shapes, as
-        ``repro.models.params`` counts them)."""
+        """Analytic parameter count, exact for the port's init as
+        ``repro.models.params`` counts the reference's: every dense
+        layout, MLA, routed and shared experts, the dense prefix."""
         d, hd = self.d_model, self.resolved_head_dim
         h, kv = self.n_heads, self.n_kv_heads
         norm = d * (2 if self.norm == "layernorm" else 1)
-        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
-        if self.qkv_bias:
-            attn += h * hd + 2 * kv * hd
-        if self.act == "silu":
-            mlp = 3 * d * self.d_ff                    # gate, up, down
+        if self.attn_kind == "mla":
+            lora, rhd = self.kv_lora_rank, self.rope_head_dim
+            vhd = self.v_head_dim or hd
+            attn = (d * (lora + rhd) + lora + lora * h * hd + lora * h * vhd
+                    + d * h * (hd + rhd) + h * vhd * d)
         else:
-            mlp = 2 * d * self.d_ff + self.d_ff + d    # up, down + biases
+            attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+            if self.qkv_bias:
+                attn += h * hd + 2 * kv * hd
+
+        def mlp(d_ff):
+            if self.act == "silu":
+                return 3 * d * d_ff                    # gate, up, down
+            return 2 * d * d_ff + d_ff + d             # up, down + biases
+        ffn = {"dense": norm + mlp(self.d_ff), "none": 0}
+        if self.moe is not None:
+            m = self.moe
+            per_expert = (3 if self.act == "silu" else 2) * d * m.d_expert
+            ffn["moe"] = norm + d * m.n_experts + m.n_experts * per_expert
+            if m.n_shared_experts:
+                ffn["moe"] += mlp(m.d_expert * m.n_shared_experts)
+        period, kinds = ffn_pattern(self)
+        body = self.n_layers - self.n_dense_prefix
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return n + norm + self.n_layers * (2 * norm + attn + mlp)
+        n += norm + self.n_dense_prefix * (norm + attn + ffn["dense"])
+        return n + body // period * sum(norm + attn + ffn[f] for f in kinds)
+
+
+def ffn_pattern(cfg) -> tuple:
+    """(period, [ffn kind of each layer of a super-block]): the
+    reference's ``superblock_period`` and the FFN half of its
+    ``layer_pattern`` ("moe" where idx % moe_every == moe_offset, else
+    "dense", or "none" without a d_ff)."""
+    p = 1
+    if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
+        p = 2
+    if cfg.attn_every > 1:
+        p = max(p, cfg.attn_every)
+    if cfg.moe is not None:
+        p = max(p, cfg.moe.moe_every)
+    kinds = []
+    for j in range(p):
+        if cfg.moe is not None and j % cfg.moe.moe_every == cfg.moe.moe_offset:
+            kinds.append("moe")
+        else:
+            kinds.append("dense" if cfg.d_ff > 0 else "none")
+    return p, kinds
 
 
 @dataclass(frozen=True)
@@ -166,8 +239,9 @@ def resolve_model_cfg(run: RunConfig) -> ModelConfig:
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
-_ARCH_MODULES = ["stablelm_3b", "starcoder2_7b",
-                 "qwen1_5_32b", "granite_8b"]
+_ARCH_MODULES = ["stablelm_3b", "starcoder2_7b", "qwen1_5_32b",
+                 "granite_8b", "granite_moe_3b_a800m",
+                 "deepseek_v2_lite_16b"]
 
 
 def register(name: str):
@@ -193,13 +267,25 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
-    """The reference's smoke variant of a dense config: 2 layers,
-    d_model 128, 4 heads of 32, d_ff 256, vocab 512, window 64,
-    max_seq_len 4096, fp32."""
+    """The reference's smoke variant of a config: one super-block period
+    of at least 2 layers plus the dense prefix, d_model 128, 4 heads of
+    32, d_ff 256, vocab 512, window 64, max_seq_len 4096, fp32; MoE cut
+    to 4 experts of 64, top-2, at most one shared expert; MLA to lora 32,
+    rope dim 16 and v dim 32 (the reference's ``reduced_config``)."""
+    period = ffn_pattern(cfg)[0]
     n_kv = min(cfg.n_kv_heads, 4)
     if 4 % n_kv:
         n_kv = 2
+    moe = None
+    if cfg.moe is not None:
+        moe = replace(cfg.moe, n_experts=4, top_k=min(2, cfg.moe.top_k),
+                      n_shared_experts=min(1, cfg.moe.n_shared_experts),
+                      d_expert=64)
     return replace(
-        cfg, name=cfg.name + "-smoke", n_layers=2, d_model=128, n_heads=4,
-        n_kv_heads=n_kv, head_dim=32, d_ff=256, vocab_size=512, window=64,
-        dtype="float32", max_seq_len=4096)
+        cfg, name=cfg.name + "-smoke",
+        n_layers=max(2, period) + cfg.n_dense_prefix, d_model=128,
+        n_heads=4, n_kv_heads=n_kv, head_dim=32, d_ff=256, vocab_size=512,
+        kv_lora_rank=32 if cfg.kv_lora_rank else 0, q_lora_rank=0,
+        rope_head_dim=16 if cfg.kv_lora_rank else 64,
+        v_head_dim=32 if cfg.v_head_dim else 0, moe=moe,
+        window=64, dtype="float32", max_seq_len=4096)

@@ -1,8 +1,9 @@
 """Carry weights and state between the reference and the port.
 
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
-the port's are nested dicts of tensors in the same layout, so parameters,
-decode caches and fp32 state move as they are. Three translations: the
+the port's are nested dicts (and lists: a dense ``prefix``) of tensors in
+the same layout, so parameters, decode caches and fp32 state move as
+they are. Three translations: the
 index dtype (the reference's uint32 indices become the port's int32 view
 of the same bits, ``core.bigvec``, and back), bf16 state and caches
 (``ef_dtype="bfloat16"``, a bf16 model's k and v: the bits cross as
@@ -70,8 +71,9 @@ def params_to_jax(params: dict) -> dict:
 
 
 def cache_from_jax(cache, device="cpu") -> dict:
-    """The reference's decode cache ``{pos, blocks/l0/{k, v}}`` (numpy
-    leaves) -> the port's, dtypes kept (a bf16 k and v bit for bit)."""
+    """The reference's decode cache ``{pos, blocks/l{j}/{k, v} | {ckv,
+    krope}[, prefix/[i]/...]}`` (numpy leaves) -> the port's, dtypes
+    kept (a bf16 cache bit for bit)."""
     return tree_map(lambda x: _to_tensor(x, device), cache)
 
 

@@ -1,9 +1,11 @@
 """Tree <-> flat-vector utilities (the port's ``repro.core.flatten``).
 
-A parameter tree is a nested dict of tensors, laid out as the reference
-lays out its pytree. Leaves are ordered as ``jax.tree_util`` orders them:
-dict keys sorted at every level. So flat index i names the same
+A parameter tree is a nested dict (and list) of tensors, laid out as the
+reference lays out its pytree. Leaves are ordered as ``jax.tree_util``
+orders them: dict keys sorted at every level, list elements in index
+order (a model's dense ``prefix`` layers). So flat index i names the same
 parameter element in both packages, which every parity test relies on.
+A path is a tuple of dict keys and list indices.
 """
 from __future__ import annotations
 
@@ -11,13 +13,18 @@ import torch
 
 
 def tree_items(tree, prefix=()) -> list:
-    """[(path, leaf)] in jax.tree_util leaf order (sorted dict keys)."""
+    """[(path, leaf)] in jax.tree_util leaf order (sorted dict keys, list
+    elements in order)."""
     if isinstance(tree, dict):
-        out = []
-        for key in sorted(tree):
-            out.extend(tree_items(tree[key], prefix + (key,)))
-        return out
-    return [(prefix, tree)]
+        keys = sorted(tree)
+    elif isinstance(tree, list):
+        keys = range(len(tree))
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key in keys:
+        out.extend(tree_items(tree[key], prefix + (key,)))
+    return out
 
 
 def tree_leaves(tree) -> list:
@@ -27,17 +34,29 @@ def tree_leaves(tree) -> list:
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {key: tree_map(fn, val) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, val) for val in tree]
     return fn(tree)
 
 
 def tree_from_items(items) -> dict:
+    """The tree of ``(path, leaf)`` items; a node whose keys are list
+    indices becomes a list."""
     out: dict = {}
     for path, leaf in items:
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
-    return out
+    return _lists(out)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(key, int) for key in node):
+        return [_lists(node[i]) for i in range(len(node))]
+    return {key: _lists(val) for key, val in node.items()}
 
 
 def tree_size(tree) -> int:

@@ -39,7 +39,17 @@ def topk_positions(keys: torch.Tensor, k: int) -> torch.Tensor:
     fp32 keys are ranked by their bit patterns: for the keys the port
     ranks (|x| >= 0, NaN from |x|, and -inf for a disabled slot) that is
     the order of the values, with NaN above +inf as ``lax.top_k`` ranks
-    it (a float comparison would drop NaN from the selection)."""
+    it (a float comparison would drop NaN from the selection).
+
+    Keys of more than one dimension are ranked along the last one, row
+    by row, by one stable descending sort of the bit patterns: (key
+    desc, position asc) too. That serves short rows (a router's
+    experts), where a sort costs little and no row waits on the host."""
+    if keys.dim() > 1:
+        bits = keys.view(torch.int32) if keys.dtype == torch.float32 \
+            else keys
+        order = torch.sort(bits, dim=-1, descending=True, stable=True)
+        return order.indices[..., :k]
     k = int(min(k, keys.numel()))
     if keys.dtype == torch.float32:
         keys = keys.view(torch.int32)

@@ -16,9 +16,9 @@ runs the plain PyTorch path). ``--data n`` serves a data-parallel batch
 over n ranks started by ``torchrun`` (``launch.mesh.make_group``: NCCL
 on a card each, gloo with ``--device cpu``): each rank prefills and
 decodes its rows of the global ``--batch``, the logits gathered, and
-rank 0 logs. ``--model`` above 1, ``--devices`` and ``--mla-absorb``
-raise naming ROADMAP A13, and ``--apply-deltas`` over more than one rank
-naming A14. The sliding-window
+rank 0 logs. ``--mla-absorb`` serves an MLA model (deepseek-v2-lite-16b)
+in the absorbed form. ``--model`` above 1 and ``--devices`` raise naming
+ROADMAP A13, and ``--apply-deltas`` over more than one rank naming A14. The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's
 ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
@@ -34,6 +34,7 @@ variant).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -77,9 +78,6 @@ def parse_args(argv=None):
 
 def check_args(args) -> None:
     """Raise NotImplementedError for a flag the port does not serve yet."""
-    if args.mla_absorb:
-        raise NotImplementedError(
-            "--mla-absorb: MLA is not ported yet (ROADMAP A13)")
     if args.devices:
         raise NotImplementedError(
             "--devices: a mesh of devices in one process is not ported; "
@@ -104,6 +102,8 @@ def run_config(args):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)
+    if args.mla_absorb:
+        cfg = dataclasses.replace(cfg, mla_absorb=True)
     return RunConfig(
         model=cfg, shape=serve_shape(args.batch, args.prompt_len,
                                      args.new_tokens),
@@ -159,7 +159,8 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     n = tree_size(params)
     b = run.shape.global_batch
     log(f"[serve] {cfg.name}: {n / 1e6:.1f}M params, batch {b}, "
-        f"mesh {{'data': {ranks}, 'model': {model}}}, device={dev}")
+        f"mesh {{'data': {ranks}, 'model': {model}}}, device={dev}"
+        f"{', absorbed MLA' if cfg.mla_absorb else ''}")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                      generator=gen, device=dev)}
 

@@ -26,8 +26,11 @@
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch stablelm-3b --smoke --comm sparse --pipeline fused --data 4
 
-``--arch`` takes every dense config of the registry: stablelm-3b,
-granite-8b, qwen1.5-32b and starcoder2-7b.
+``--arch`` takes every config of the registry the port serves: the dense
+stablelm-3b, granite-8b, qwen1.5-32b and starcoder2-7b, and the MoE
+granite-moe-3b-a800m and deepseek-v2-lite-16b (MLA, shared experts, a
+dense first layer), whose steps also log the aux terms ``lb``, ``z``
+and ``drop`` (each summed over the MoE layers).
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact
@@ -251,7 +254,8 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     """Take ``run.steps`` training steps over ``group`` (None: one rank),
     each on this rank's rows of a global ``batch`` x ``seq`` batch (the
     same draw on every rank). Returns {"history": [{"step",
-    "loss", "ms"} (and "n_active" under a fault schedule, "count" where
+    "loss", "ms"} (and "lb_loss", "z_loss", "drop_frac" for an MoE
+    model, "n_active" under a fault schedule, "count" where
     the packed payload has a live count: the fused histogram selector,
     participation; "publish_ms" where a delta was published), ...],
     "fallbacks": {reason: steps}, "params": J, "state": the final
@@ -273,6 +277,7 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     from repro_torch.core.flatten import tree_size
     from repro_torch.data import lm_batch
     from repro_torch.models.parallel import data_index, world
+    from repro_torch.models.transformer import AUX_KEYS
     from repro_torch.train.step import (build_train_step, init_train_state,
                                         save_train_state)
     dev = resolve_device(device)
@@ -341,6 +346,8 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
         sync()
         ms = (time.perf_counter() - t0) * 1e3
         rec = {"step": t, "loss": float(metrics["loss"]), "ms": ms}
+        if run.model.moe is not None:
+            rec.update({key: float(metrics[key]) for key in AUX_KEYS})
         if publisher is not None and (t + 1) % max(1, delta_every) == 0:
             t0 = time.perf_counter()
             chan.send(publisher.publish(state.params))
@@ -365,6 +372,9 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
                       if "n_active" in rec else "")
             if "count" in rec:
                 health += f"count {rec['count']} "
+            if "lb_loss" in rec:
+                health += (f"lb {rec['lb_loss']:.4f} z {rec['z_loss']:.4f} "
+                           f"drop {rec['drop_frac']:.4f} ")
             log(f"step {t:5d} loss {rec['loss']:.4f} "
                 f"gnorm {float(metrics['gnorm_local']):.3f} "
                 f"nz {float(metrics['agg_nonzero']):.4f} {health}"

@@ -1,1 +1,1 @@
-from repro_torch.models.transformer import init_params, loss_fn
+from repro_torch.models.transformer import init_params, loss_and_aux, loss_fn

@@ -1,7 +1,8 @@
 """Causal self-attention: GQA with optional QKV bias, partial RoPE or none,
-full or sliding-window, and its KV cache (the port of the full-sequence,
-prefill and decode paths of ``repro.models.attention`` at
-tensor-parallel degree 1, with context-parallel decode).
+full or sliding-window, and MLA (DeepSeek-V2's multi-head latent
+attention, expanded or absorbed), with their caches (the port of the
+full-sequence, prefill and decode paths of ``repro.models.attention`` at
+tensor-parallel degree 1, with context-parallel decode of GQA).
 
 The reference has no Pallas kernel here: its attention is plain jnp. The
 port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
@@ -20,6 +21,17 @@ model's dtype. Decode writes the step's k and v into it in place (the
 caller holds ``torch.inference_mode``); a sliding window keeps a ring
 buffer of min(window, cache length) slots, position p at slot p % cap.
 
+MLA projects each token to a compressed ``ckv`` (kv_lora_rank, rmsnormed)
+and one shared RoPE key ``krope`` (rope_head_dim); the queries carry
+head_dim + rope_head_dim dims a head, the RoPE part rotated. The expanded
+form builds each head's k (head_dim + rope_head_dim) and v (v_head_dim)
+from ``ckv`` and attends as above (k and v of unequal widths); the
+absorbed form (``cfg.mla_absorb``) projects the queries through the key
+up-projection and attends over ``ckv`` itself, applying the value
+up-projection to the context. The scale is head_dim ** -0.5 in both. The
+cache of an MLA layer is ``{ckv, krope}``. Context-parallel decode of
+MLA raises (ROADMAP A13).
+
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
 of a cache of sl * n slots. Decode writes the step's k and v only on the
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, norm_fwd
 from repro_torch.models.parallel import all_reduce_max, all_reduce_sum
 
 NEG_INF = -1e30
@@ -67,9 +79,21 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, rot_dim: int,
 
 def init_attention(gen, cfg, *, lead=(), device=None) -> dict:
     """{wk, wo, wq, wv}, and with ``qkv_bias`` the zero biases {bk, bq,
-    bv}."""
+    bv}; for MLA {dkv, kv_norm, uk, uv, wo, wq}."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
+    if cfg.attn_kind == "mla":
+        lora, rhd = cfg.kv_lora_rank, cfg.rope_head_dim
+        vhd = cfg.v_head_dim or hd
+        return {"dkv": dense_init(gen, d, lora + rhd, lead=lead,
+                                  device=device),
+                "kv_norm": torch.ones((*lead, lora), device=device),
+                "uk": dense_init(gen, lora, h * hd, lead=lead, device=device),
+                "uv": dense_init(gen, lora, h * vhd, lead=lead,
+                                 device=device),
+                "wq": dense_init(gen, d, h * (hd + rhd), lead=lead,
+                                 device=device),
+                "wo": dense_init(gen, h * vhd, d, lead=lead, device=device)}
     p = {"wk": dense_init(gen, d, kv * hd, lead=lead, device=device),
          "wo": dense_init(gen, h * hd, d, lead=lead, device=device),
          "wq": dense_init(gen, d, h * hd, lead=lead, device=device),
@@ -96,6 +120,99 @@ def proj_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
         q = apply_rope(q, pos, rot, cfg.rope_theta)
         k = apply_rope(k, pos, rot, cfg.rope_theta)
     return q, k, v
+
+
+def proj_mla(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
+    """MLA's projections at positions pos (S,): q (B, S, H, hd + rhd)
+    with its last rhd dims rotated, ckv (B, S, lora) rmsnormed, krope
+    (B, S, rhd) rotated."""
+    b, s, _ = x.shape
+    hd, rhd, lora = cfg.resolved_head_dim, cfg.rope_head_dim, \
+        cfg.kv_lora_rank
+    dkv = x @ p["dkv"].to(x.dtype)
+    ckv = norm_fwd({"scale": p["kv_norm"]}, dkv[..., :lora], "rmsnorm")
+    krope = apply_rope(dkv[..., lora:][:, :, None, :], pos, rhd,
+                       cfg.rope_theta)[:, :, 0]
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, -1, hd + rhd)
+    qr = apply_rope(q[..., hd:], pos, rhd, cfg.rope_theta)
+    return torch.cat([q[..., :hd], qr], -1), ckv, krope
+
+
+def mla_expand(p: dict, ckv: torch.Tensor, krope: torch.Tensor, cfg,
+               dtype):
+    """Each head's k (B, S, H, hd + rhd), its RoPE part the shared
+    krope, and v (B, S, H, vhd) from the compressed stream."""
+    b, s, _ = ckv.shape
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    k_nope = (ckv @ p["uk"].to(dtype)).reshape(b, s, h, hd)
+    v = (ckv @ p["uv"].to(dtype)).reshape(b, s, h, -1)
+    k_rope = krope[:, :, None, :].expand(b, s, h, krope.shape[-1])
+    return torch.cat([k_nope, k_rope.to(dtype)], -1), v
+
+
+def absorb_q(p: dict, q: torch.Tensor, cfg):
+    """q (B, S, H, hd + rhd) -> (q_lora (B, S, H, lora): its first hd
+    dims through the key up-projection, q_rope (B, S, H, rhd))."""
+    hd, lora = cfg.resolved_head_dim, cfg.kv_lora_rank
+    uk = p["uk"].to(q.dtype).reshape(lora, q.shape[2], hd)
+    return torch.einsum("bshd,lhd->bshl", q[..., :hd], uk), q[..., hd:]
+
+
+def _absorbed_partial(ql, qr, ckv, krope, mask, scale):
+    """One key block of absorbed attention: the unnormalised context (B,
+    Sq, H, lora) and the running max and sum (B, H, Sq)."""
+    sc = (torch.einsum("bqhl,bsl->bhqs", ql, ckv)
+          + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(-1)
+    w = torch.exp(sc - m[..., None])
+    return torch.einsum("bhqs,bsl->bqhl", w.to(ckv.dtype), ckv), m, w.sum(-1)
+
+
+def absorbed_attention(p: dict, q, ckv, krope, cfg,
+                       scale: float) -> torch.Tensor:
+    """Causal absorbed MLA attention over the prompt (the reference's
+    ``_sdpa_absorbed_chunked``): every query against keys in chunks of
+    ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
+    ql, qr = absorb_q(p, q, cfg)
+    s = ql.shape[1]
+    pos = torch.arange(s, device=q.device)
+    acc = None
+    for k0 in range(0, s, KV_CHUNK):
+        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK])
+        o, m, l = _absorbed_partial(ql, qr, ckv[:, k0:k0 + KV_CHUNK],
+                                    krope[:, k0:k0 + KV_CHUNK], mask, scale)
+        if acc is not None:
+            o0, m0, l0 = acc
+            mn = torch.maximum(m0, m)
+            a1, a2 = torch.exp(m0 - mn), torch.exp(m - mn)
+            o = o0 * _per_head(a1).to(o.dtype) + o * _per_head(a2).to(o.dtype)
+            m, l = mn, l0 * a1 + l * a2
+        acc = (o, m, l)
+    o, _, l = acc
+    return expand_context(p, o / _per_head(l.clamp(min=1e-30)).to(o.dtype),
+                          cfg)
+
+
+def expand_context(p: dict, ctx: torch.Tensor, cfg) -> torch.Tensor:
+    """The absorbed form's context (B, Sq, H, lora) through the value
+    up-projection: (B, Sq, H, vhd)."""
+    uv = p["uv"].to(ctx.dtype).reshape(cfg.kv_lora_rank, ctx.shape[2], -1)
+    return torch.einsum("bqhl,lhv->bqhv", ctx, uv)
+
+
+def _per_head(t):
+    """(B, H, Sq) -> a (B, Sq, H, 1) view, to scale a context."""
+    return t.permute(0, 2, 1)[..., None]
+
+
+def _mla_attend(p, q, ckv, krope, cfg):
+    """Causal MLA attention of the prompt, expanded or absorbed."""
+    scale = cfg.resolved_head_dim ** -0.5
+    if cfg.mla_absorb:
+        return absorbed_attention(p, q, ckv, krope, cfg, scale)
+    k, v = mla_expand(p, ckv, krope, cfg, q.dtype)
+    return causal_attention(q, k, v, scale)
 
 
 def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -144,7 +261,8 @@ def _finalize(o, l):
 
 
 def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
-    """q (B, S, H, hd), k/v (B, S, KV, hd) with H a multiple of KV (GQA);
+    """q and k (B, S, H|KV, hd), v (B, S, KV, vhd) with H a multiple of
+    KV (GQA) and vhd any width (MLA's v is narrower than its k);
     causal, within ``window`` positions when it is set. Scores and softmax
     in fp32, chunked over queries and keys with an online softmax."""
     s = q.shape[1]
@@ -170,9 +288,13 @@ def attn_fwd_full(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``)."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
-    q, k, v = proj_qkv(p, x, cfg, pos)
-    o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5,
-                         _window(cfg))
+    if cfg.attn_kind == "mla":
+        q, ckv, krope = proj_mla(p, x, cfg, pos)
+        o = _mla_attend(p, q, ckv, krope, cfg)
+    else:
+        q, k, v = proj_qkv(p, x, cfg, pos)
+        o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5,
+                             _window(cfg))
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
 
 
@@ -190,8 +312,14 @@ def cache_max_seq(cfg, seq_len: int) -> int:
 def init_cache(cfg, batch: int, max_seq: int, dtype, *, lead=(),
                device=None) -> dict:
     """Zero k and v of ``max_seq`` slots: the whole cache, or under
-    context-parallel decode this rank's slice (the caller divides)."""
+    context-parallel decode this rank's slice (the caller divides); for
+    MLA zero ckv (.., lora) and krope (.., rhd)."""
     hd = cfg.resolved_head_dim
+    if cfg.attn_kind == "mla":
+        return {name: torch.zeros((*lead, batch, max_seq, width),
+                                  dtype=dtype, device=device)
+                for name, width in (("ckv", cfg.kv_lora_rank),
+                                    ("krope", cfg.rope_head_dim))}
     shape = (*lead, batch, max_seq, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -206,6 +334,12 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
     uncast k and v."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
+    if cfg.attn_kind == "mla":
+        q, ckv, krope = proj_mla(p, x, cfg, pos)
+        o = _mla_attend(p, q, ckv, krope, cfg)
+        cache["ckv"][:, :s] = ckv
+        cache["krope"][:, :s] = krope
+        return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
     q, k, v = proj_qkv(p, x, cfg, pos)
     window = _window(cfg)
     o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5, window)
@@ -230,8 +364,12 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     that are >= 0 and within the window. With ``pal.cache_seq_sharded``
     the cache is this rank's slice of the sequence (module docstring)."""
     b = x.shape[0]
-    q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
     sharded = pal is not None and pal.cache_seq_sharded
+    if cfg.attn_kind == "mla":
+        if sharded:
+            raise NotImplementedError(mla_cp_message(cfg))
+        return _mla_decode(p, x, cache, pos, cfg)
+    q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
     n, r = (pal.size, pal.rank) if sharded else (1, 0)
     sl = cache["k"].shape[1]
     cap = sl * n
@@ -258,6 +396,41 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         o = all_reduce_sum(o * _per_query(a).to(o.dtype), pal.group)
         l = all_reduce_sum(l * a, pal.group)
     o = _finalize(o, l)
+    return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)
+
+
+def mla_cp_message(cfg) -> str:
+    return (f"{cfg.name}: context-parallel decode of MLA is not ported "
+            "yet; the port decodes MLA at one rank or data-parallel "
+            "(ROADMAP A13)")
+
+
+def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                cfg) -> torch.Tensor:
+    """One MLA decode step: the token's ckv and krope written at slot
+    ``pos``, then attention over slots <= pos, expanded (each head's k
+    and v of the whole cache) or absorbed (over ckv itself)."""
+    b = x.shape[0]
+    q, ckv, krope = proj_mla(p, x, cfg, pos.reshape(1))
+    at = pos.long().reshape(1)
+    cache["ckv"].index_copy_(1, at, ckv.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(1, at, krope.to(cache["krope"].dtype))
+    valid = torch.arange(cache["ckv"].shape[1], device=x.device) <= pos
+    scale = cfg.resolved_head_dim ** -0.5
+    if cfg.mla_absorb:
+        # one softmax, normalised before the context product (the
+        # reference's one-rank ``_decode_attend_absorbed``)
+        ql, qr = absorb_q(p, q, cfg)
+        ckv, krope = cache["ckv"], cache["krope"]
+        sc = (torch.einsum("bqhl,bsl->bhqs", ql, ckv)
+              + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
+        w = torch.softmax(torch.where(valid, sc, torch.full_like(
+            sc, NEG_INF)), -1)
+        o = expand_context(p, torch.einsum("bhqs,bsl->bqhl",
+                                           w.to(ckv.dtype), ckv), cfg)
+    else:
+        k, v = mla_expand(p, cache["ckv"], cache["krope"], cfg, x.dtype)
+        o = _finalize(*_partial(q, k, v, valid[None, :], scale)[::2])
     return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)
 
 

@@ -53,10 +53,11 @@ def norm_fwd(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
     return y.to(x.dtype)
 
 
-def init_mlp(gen, cfg, *, lead=(), device=None) -> dict:
+def init_mlp(gen, cfg, *, d_ff=None, lead=(), device=None) -> dict:
     """SwiGLU {down, gate, up}, or the GELU MLP {down, down_b, up, up_b}
-    with zero biases."""
-    d, dff = cfg.d_model, cfg.d_ff
+    with zero biases; hidden width ``d_ff`` (default: the config's; an
+    MoE's shared experts pass their own)."""
+    d, dff = cfg.d_model, (d_ff or cfg.d_ff)
     # drawn down, gate, up: a seed gives the SwiGLU layout the weights
     # it had before the GELU layout was ported
     p = {"down": dense_init(gen, dff, d, lead=lead, device=device)}

@@ -1,46 +1,95 @@
-"""Dense decoder transformer (the port of ``repro.models.transformer`` for
-the dense family at tensor-parallel degree 1): training loss, prefill and
-cached decode.
+"""Decoder transformer (the port of ``repro.models.transformer`` for the
+dense and MoE families at tensor-parallel degree 1): training loss with
+the MoE aux terms, prefill and cached decode.
 
-Parameter tree, in the reference's layout so that the flat vector of both
-packages lines up element for element::
+Layers are grouped into super-blocks of period P (the reference's
+``superblock_period``; 1 for every ported config): ``blocks/l{j}`` holds
+the j-th layer of every super-block stacked along a leading axis (the
+reference's ``jax.lax.scan`` stack), and a model with a dense prefix
+(DeepSeek-V2's first layer) holds those layers, unstacked, in the list
+``prefix``. Parameter tree, in the reference's layout so that the flat
+vector of both packages lines up element for element::
 
-    blocks/l0/{attn/{[bk,] wk, wo, [bq,] wq, [bv,] wv},
-               mlp/{down, gate, up} | mlp/{down, down_b, up, up_b},
-               norm1/{[bias,] scale}, norm2/{[bias,] scale}}
+    blocks/l{j}/{attn/{[bk,] wk, wo, [bq,] wq, [bv,] wv}
+                  | attn/{dkv, kv_norm, uk, uv, wo, wq},
+                 mlp/{down, gate, up} | mlp/{down, down_b, up, up_b}
+                  | moe/{down, gate, router, [shared/{down, gate, up},] up},
+                 norm1/{[bias,] scale}, norm2/{[bias,] scale}}
     embed/{[head,] tok}
     final_norm/{[bias,] scale}
+    [prefix/[i]/{attn, mlp, norm1, norm2}]
 
-(bracketed leaves by layout: QKV bias, layernorm, untied embeddings).
-Every ``blocks`` leaf holds all layers along a leading axis (the
-reference's ``jax.lax.scan`` stack). The forward unbinds that axis once,
-so each stacked leaf's gradient is assembled by one ``stack`` rather than
-one full-size scatter per layer, and recomputes each layer in the
-backward pass (``torch.utils.checkpoint``) when ``cfg.remat``.
+(bracketed leaves by layout: QKV bias, layernorm, untied embeddings,
+shared experts, a dense prefix). The forward unbinds the stacked axis
+once, so each stacked leaf's gradient is assembled by one ``stack``
+rather than one full-size scatter per layer, and recomputes each layer
+in the backward pass (``torch.utils.checkpoint``) when ``cfg.remat``.
+The loss adds (load_balance_loss * lb_loss + router_z_loss * z_loss) /
+(MoE layers), each aux term summed over the MoE layers, as the
+reference's.
 
-The decode cache keeps the reference's tree too, ``{pos, blocks/l0/{k,
-v}}`` with the layer axis leading on k and v, so a cache crosses between
-the packages (``convert.cache_from_jax``). ``pos`` is a 0-d int32 tensor
-on the device: decode reads it there, and no step waits on the host.
+The decode cache keeps the reference's tree too, ``{pos, blocks/l{j}/{k,
+v} | {ckv, krope}[, prefix/[i]/...]}`` with the super-block axis leading
+on the stacked leaves, so a cache crosses between the packages
+(``convert.cache_from_jax``). ``pos`` is a 0-d int32 tensor on the
+device: decode reads it there, and no step waits on the host. Mixers
+other than attention (Mamba, mLSTM, sLSTM) raise naming ROADMAP A13.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.configs.base import ffn_pattern
 from repro_torch.core.flatten import tree_from_items, tree_items
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     embed_fwd, init_embed, init_mlp, init_norm, lm_head_fwd, mlp_fwd,
     norm_fwd, sharded_xent,
 )
 
 LOSS_CHUNK = 512
+AUX_KEYS = ("lb_loss", "z_loss", "drop_frac")
 
 
 # (field, values the port serves, ROADMAP item that ports the rest)
-_SLICE = (("family", ("dense",), "A13"),
-          ("attn_kind", ("full", "sliding"), "A13"))
+_SLICE = (("family", ("dense", "moe"), "A13"),
+          ("attn_kind", ("full", "sliding", "mla"), "A13"))
+
+
+def superblock_period(cfg) -> int:
+    return ffn_pattern(cfg)[0]
+
+
+def layer_pattern(cfg) -> list:
+    """[(mixer, ffn)] for one super-block period. mixer: attn|mamba|
+    mlstm|slstm; ffn: dense|moe|none (the reference's rule)."""
+    p, kinds = ffn_pattern(cfg)
+    out = []
+    for j in range(p):
+        if cfg.attn_every == 0:
+            mixer = "mlstm" if (cfg.ssm.kind == "xlstm" and j % 2 == 0) \
+                else ("slstm" if cfg.ssm.kind == "xlstm" else "mamba")
+        elif cfg.attn_every == 1 or j % cfg.attn_every == cfg.attn_offset:
+            mixer = "attn"
+        else:
+            mixer = cfg.ssm.kind if cfg.ssm.kind != "xlstm" else "mlstm"
+        out.append((mixer, kinds[j]))
+    return out
+
+
+def n_superblocks(cfg) -> int:
+    p = superblock_period(cfg)
+    body = cfg.n_layers - cfg.n_dense_prefix
+    if body % p:
+        raise ValueError(f"{cfg.name}: {body} layers past the prefix do "
+                         f"not split into super-blocks of {p}")
+    return body // p
+
+
+def n_moe_layers(cfg) -> int:
+    return n_superblocks(cfg) * sum(f == "moe" for _, f in layer_pattern(cfg))
 
 
 def check_model(cfg) -> None:
@@ -51,43 +100,104 @@ def check_model(cfg) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={value!r} is not ported yet; the port "
                 f"serves {served} (ROADMAP {item})")
+    for mixer, _ in layer_pattern(cfg):
+        if mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: the {mixer} mixer is not ported yet; the port "
+                "serves attention layers (ROADMAP A13)")
+
+
+def _init_layer(gen, cfg, ffn: str, lead=(), device=None) -> dict:
+    p = {"norm1": init_norm(cfg, lead=lead, device=device),
+         "attn": attn.init_attention(gen, cfg, lead=lead, device=device)}
+    if ffn != "none":
+        p["norm2"] = init_norm(cfg, lead=lead, device=device)
+    if ffn == "dense":
+        p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
+    elif ffn == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead, device=device)
+    return p
 
 
 def init_params(cfg, gen: torch.Generator, device=None) -> dict:
-    """Random fp32 parameters drawn from ``gen`` (on ``device``)."""
+    """Random fp32 parameters drawn from ``gen`` (on ``device``): the
+    super-blocks' layers, the embedding, the final norm, the prefix."""
     check_model(cfg)
-    lead = (cfg.n_layers,)
-    layer = {"norm1": init_norm(cfg, lead=lead, device=device),
-             "attn": attn.init_attention(gen, cfg, lead=lead, device=device),
-             "norm2": init_norm(cfg, lead=lead, device=device),
-             "mlp": init_mlp(gen, cfg, lead=lead, device=device)}
-    return {"embed": init_embed(gen, cfg, device=device),
-            "blocks": {"l0": layer},
-            "final_norm": init_norm(cfg, device=device)}
+    lead = (n_superblocks(cfg),)
+    blocks = {f"l{j}": _init_layer(gen, cfg, ffn, lead, device)
+              for j, (_, ffn) in enumerate(layer_pattern(cfg))}
+    params = {"embed": init_embed(gen, cfg, device=device),
+              "blocks": blocks,
+              "final_norm": init_norm(cfg, device=device)}
+    if cfg.n_dense_prefix:
+        params["prefix"] = [_init_layer(gen, cfg, "dense", device=device)
+                            for _ in range(cfg.n_dense_prefix)]
+    return params
 
 
-def _layer_fwd(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None):
+    """The layer's FFN half on the residual x: (x, aux + the MoE's)."""
+    if ffn == "dense":
+        x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
+    elif ffn == "moe":
+        y, a = moe_mod.moe_fwd(p["moe"], norm_fwd(p["norm2"], x, cfg.norm),
+                               cfg)
+        x = x + y
+        if aux is not None:
+            aux = tuple(s + a[key] for s, key in zip(aux, AUX_KEYS))
+    return x, aux
+
+
+def _layer_fwd(p: dict, x: torch.Tensor, cfg, ffn: str, *aux):
     x = x + attn.attn_fwd_full(p["attn"], norm_fwd(p["norm1"], x, cfg.norm),
                                cfg)
-    return x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
+    x, aux = _ffn(p, x, cfg, ffn, aux)
+    return (x, *aux)
 
 
 def layer_views(blocks: dict, n_layers: int) -> list:
-    """Per-layer trees of views into the stacked leaves (parameters or a
-    decode cache's k and v)."""
+    """Per-super-block trees of views into the stacked leaves (parameters
+    or a decode cache's)."""
     unbound = [(path, leaf.unbind(0)) for path, leaf in tree_items(blocks)]
     return [tree_from_items((path, views[i]) for path, views in unbound)
             for i in range(n_layers)]
 
 
-def forward_hidden(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def layers(params: dict, cfg) -> list:
+    """[(layer parameters, ffn kind)] in forward order: the prefix, then
+    each super-block's layers."""
+    out = [(p, "dense") for p in params.get("prefix", [])]
+    pattern = layer_pattern(cfg)
+    for sb in layer_views(params["blocks"], n_superblocks(cfg)):
+        out.extend((sb[f"l{j}"], ffn) for j, (_, ffn) in enumerate(pattern))
+    return out
+
+
+def layer_caches(cache: dict, cfg) -> list:
+    """Per-layer views of a decode cache, in :func:`layers`'s order."""
+    out = list(cache.get("prefix", []))
+    n = len(layer_pattern(cfg))
+    for sb in layer_views(cache["blocks"], n_superblocks(cfg)):
+        out.extend(sb[f"l{j}"] for j in range(n))
+    return out
+
+
+def forward_hidden(params: dict, x: torch.Tensor, cfg,
+                   with_aux: bool = False):
+    """The layer stack and the final norm on embedded x; with
+    ``with_aux`` (x, {lb_loss, z_loss, drop_frac}), each summed over the
+    MoE layers (0 without any)."""
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in layer_views(params["blocks"], cfg.n_layers):
+    aux = tuple(torch.zeros((), dtype=torch.float32, device=x.device)
+                for _ in AUX_KEYS)
+    for p, ffn in layers(params, cfg):
         if remat:
-            x = checkpoint(_layer_fwd, lp["l0"], x, cfg, use_reentrant=False)
+            x, *aux = checkpoint(_layer_fwd, p, x, cfg, ffn, *aux,
+                                 use_reentrant=False)
         else:
-            x = _layer_fwd(lp["l0"], x, cfg)
-    return norm_fwd(params["final_norm"], x, cfg.norm)
+            x, *aux = _layer_fwd(p, x, cfg, ffn, *aux)
+    x = norm_fwd(params["final_norm"], x, cfg.norm)
+    return (x, dict(zip(AUX_KEYS, aux))) if with_aux else x
 
 
 def sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -133,12 +243,25 @@ def chunked_xent(params: dict, x: torch.Tensor, targets: torch.Tensor,
     return tot / cnt.clamp(min=1.0)
 
 
-def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
-    """batch: tokens (B, S) int64; targets (B, S) int64, -1 = masked."""
+def loss_and_aux(params: dict, batch: dict, cfg) -> tuple:
+    """(loss, {lb_loss, z_loss, drop_frac}): the mean next-token
+    cross-entropy plus, for an MoE model, its aux term. batch: tokens
+    (B, S) int64; targets (B, S) int64, -1 = masked."""
     check_model(cfg)
     x = embed_batch(params, batch["tokens"], cfg)
-    x = forward_hidden(params, x, cfg)
-    return chunked_xent(params, x, batch["targets"], cfg)
+    x, aux = forward_hidden(params, x, cfg, with_aux=True)
+    loss = chunked_xent(params, x, batch["targets"], cfg)
+    if cfg.moe is not None:
+        m = cfg.moe
+        loss = loss + (m.load_balance_loss * aux["lb_loss"]
+                       + m.router_z_loss * aux["z_loss"]) / max(
+                           n_moe_layers(cfg), 1)
+    return loss, aux
+
+
+def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """The loss of :func:`loss_and_aux`."""
+    return loss_and_aux(params, batch, cfg)[0]
 
 
 def full_logits(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -158,15 +281,23 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     """Zero cache tree for ``batch`` sequences of up to ``max_seq``
     positions (a sliding model keeps min(window, max_seq) slots); with
     ``pal.cache_seq_sharded`` this rank's slice of those slots, which
-    must split evenly over the group."""
+    must split evenly over the group (not for MLA: ROADMAP A13)."""
     check_model(cfg)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
+        if cfg.attn_kind == "mla":
+            raise NotImplementedError(attn.mla_cp_message(cfg))
         slots = cache_slice_len(slots, pal.size)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "blocks": {"l0": attn.init_cache(
-                cfg, batch, slots, dtype, lead=(cfg.n_layers,),
-                device=device)}}
+    lead = (n_superblocks(cfg),)
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
+             "blocks": {f"l{j}": attn.init_cache(cfg, batch, slots, dtype,
+                                                 lead=lead, device=device)
+                        for j in range(len(layer_pattern(cfg)))}}
+    if cfg.n_dense_prefix:
+        cache["prefix"] = [attn.init_cache(cfg, batch, slots, dtype,
+                                           device=device)
+                           for _ in range(cfg.n_dense_prefix)]
+    return cache
 
 
 def cache_slice_len(slots: int, n: int) -> int:
@@ -187,13 +318,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg,
     cache = init_decode_cache(cfg, b, max_seq, getattr(torch, cfg.dtype),
                               tokens.device)
     x = embed_batch(params, tokens, cfg)
-    caches = layer_views(cache["blocks"], cfg.n_layers)
-    for lp, lc in zip(layer_views(params["blocks"], cfg.n_layers), caches):
-        p = lp["l0"]
+    for (p, ffn), lc in zip(layers(params, cfg), layer_caches(cache, cfg)):
         x = x + attn.attn_prefill(p["attn"], norm_fwd(p["norm1"], x,
-                                                      cfg.norm),
-                                  lc["l0"], cfg)
-        x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
+                                                      cfg.norm), lc, cfg)
+        x = _ffn(p, x, cfg, ffn)[0]
     cache["pos"].fill_(s)
     x = norm_fwd(params["final_norm"], x[:, -1:], cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache
@@ -202,18 +330,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg,
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
                 cfg, pal=None) -> tuple:
     """One token a sequence, token (B, 1) -> (logits (B, V), cache). The
-    cache is updated in place (its k and v at the step's slot, ``pos`` +
+    cache is updated in place (the step's slot of every layer, ``pos`` +
     1) and returned. With ``pal.cache_seq_sharded`` the cache is this
     rank's slice of the sequence (``attention.attn_decode``)."""
     pos = cache["pos"]
     x = embed_batch(params, token, cfg, pos0=pos)
-    caches = layer_views(cache["blocks"], cfg.n_layers)
-    for lp, lc in zip(layer_views(params["blocks"], cfg.n_layers), caches):
-        p = lp["l0"]
+    for (p, ffn), lc in zip(layers(params, cfg), layer_caches(cache, cfg)):
         x = x + attn.attn_decode(p["attn"], norm_fwd(p["norm1"], x,
                                                      cfg.norm),
-                                 lc["l0"], pos, cfg, pal)
-        x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
+                                 lc, pos, cfg, pal)
+        x = _ffn(p, x, cfg, ffn)[0]
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache

@@ -27,8 +27,10 @@ data axes:
   not split.
 
 A batch (or cache) that n does not split raises ValueError; tensor
-parallelism (``model > 1``) raises NotImplementedError naming ROADMAP
-A13.
+parallelism (``model > 1``) and context-parallel decode of an MLA model
+raise NotImplementedError naming ROADMAP A13. The model may be of the
+dense or the MoE family; an MoE layer's capacity follows the tokens a
+rank routes, as the reference's does under its shard_map.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
+from repro_torch.core.flatten import tree_leaves, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
@@ -52,10 +55,14 @@ def check_serving(model: int = 1) -> None:
 def serve_parallel(run: RunConfig, group=None, *, decode: bool) -> Parallel:
     """The serving step's ``Parallel`` over ``group``: the cache's
     sequence axis sharded (context-parallel decode) when ``decode`` and
-    the global batch is below the group's size."""
+    the global batch is below the group's size; NotImplementedError
+    then for an MLA model (ROADMAP A13)."""
     n, _ = world(group)
-    return Parallel(group=group, cache_seq_sharded=decode and
-                    run.shape.global_batch < n)
+    sharded = decode and run.shape.global_batch < n
+    cfg = resolve_model_cfg(run)
+    if sharded and cfg.attn_kind == "mla":
+        raise NotImplementedError(attn.mla_cp_message(cfg))
+    return Parallel(group=group, cache_seq_sharded=sharded)
 
 
 def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
@@ -78,24 +85,30 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
     """This rank's part of a one-rank decode cache of the global batch
     (``tfm.prefill``'s) under :func:`serve_parallel`'s layout for decode:
     a slice of the slots (context-parallel), or of the rows; the step
-    counter as it is."""
+    counter as it is. The stacked ``blocks`` leaves hold the rows on
+    dim 1 and the slots on dim 2, the ``prefix`` layers' a dim before."""
     n, r = world(group)
     pal = serve_parallel(run, group, decode=True)
     rows, slots = decode_cache_layout(run, n, pal.cache_seq_sharded)
-    kv = cache["blocks"]["l0"]
-    have = tuple(kv["k"].shape[1:3])
+    cfg = resolve_model_cfg(run)
+    have = tuple(tree_leaves(cache["blocks"])[0].shape[1:3])
     want = (run.shape.global_batch,
-            attn.cache_max_seq(resolve_model_cfg(run), run.shape.seq_len))
+            attn.cache_max_seq(cfg, run.shape.seq_len))
     if have != want:
         raise ValueError(f"a cache of (rows, slots) {have}, but the run "
                          f"serves {want}")
-    if pal.cache_seq_sharded:
-        part = {key: val[:, :, r * slots:(r + 1) * slots].contiguous()
-                for key, val in kv.items()}
-    else:
-        part = {key: val[:, r * rows:(r + 1) * rows].contiguous()
-                for key, val in kv.items()}
-    return {"pos": cache["pos"].clone(), "blocks": {"l0": part}}
+    dim, size = (1, slots) if pal.cache_seq_sharded else (0, rows)
+
+    def part(stacked):
+        def cut(val):
+            d = dim + stacked
+            return val.narrow(d, r * size, size).contiguous()
+        return cut
+    out = {"pos": cache["pos"].clone(),
+           "blocks": tree_map(part(1), cache["blocks"])}
+    if "prefix" in cache:
+        out["prefix"] = tree_map(part(0), cache["prefix"])
+    return out
 
 
 def _build(run: RunConfig, device, model: int):

@@ -3,7 +3,9 @@ optimizer (the port of ``repro.train.step`` at tensor-parallel degree 1).
 
 Per step:
 
-1. loss and gradient of the model (autograd over the parameter tree);
+1. loss and gradient of the model (autograd over the parameter tree),
+   with an MoE model's aux terms, which the metrics carry (``lb_loss``,
+   ``z_loss``, ``drop_frac``, each summed over the MoE layers);
 2. flatten the gradient to the per-rank J-vector (TreeFlattener order);
 3. GradientSync: REGTOP-k/TOP-k/DGC/thresholdk/randk compression, on
    the fused pipeline (the two sweep kernels, per bucket with
@@ -56,9 +58,16 @@ from repro_torch.configs.base import RunConfig, resolve_model_cfg
 from repro_torch.core import faults, sparsify, threefry
 from repro_torch.core.aggregate import GradientSync
 from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
-from repro_torch.models import init_params, loss_fn
+from repro_torch.models import init_params, loss_and_aux
 from repro_torch.models.parallel import all_reduce_mean, data_index, world
+from repro_torch.models.transformer import AUX_KEYS
 from repro_torch.optim import apply_updates, init_opt_state, opt_shard_len
+
+
+# the step's metrics, each the mean over the data-parallel ranks (the
+# reference's ``mkeys``); n_active and dropped_nonfinite follow under a
+# fault schedule
+METRICS = ("loss", "gnorm_local", "agg_nonzero") + AUX_KEYS
 
 
 @dataclass
@@ -148,11 +157,11 @@ class TrainStep:
         if self.schedule is not None:
             part = faults.participates(self.schedule, ef["step"], rank)
         if self.stream_bounds is not None:
-            loss, g_agg, ef, stats, gnorm_local = self._streamed(
+            loss, aux, g_agg, ef, stats, gnorm_local = self._streamed(
                 state, batch, cfg, flat, leaves, ef, key, part)
         else:
             with record_function("train/loss_grad"):
-                loss = loss_fn(state.params, batch, cfg)
+                loss, aux = loss_and_aux(state.params, batch, cfg)
                 grads = torch.autograd.grad(loss, leaves)
             with record_function("train/flatten"):
                 g = flat.flatten(list(grads))
@@ -183,12 +192,13 @@ class TrainStep:
                 mall = master
             params = _as_leaves(flat.unflatten(mall[:flat.total]))
         # the reference's pmean of every metric over the data axes: one
-        # gather, a sum in rank order, the scale by fp32(1/n)
+        # gather, a sum in rank order, the scale by fp32(1/n); the MoE aux
+        # terms are each summed over the MoE layers (0 without any)
         means = all_reduce_mean(torch.stack([
             loss.detach(), gnorm_local.float(),
-            (g_agg != 0).float().mean()]), self.group)
-        metrics = dict(zip(("loss", "gnorm_local", "agg_nonzero"),
-                           means.unbind(0)))
+            (g_agg != 0).float().mean(),
+            *(aux[key].detach() for key in AUX_KEYS)]), self.group)
+        metrics = dict(zip(METRICS, means.unbind(0)))
         if stats is not None:
             metrics.update(stats)        # already sums over the ranks
         return TrainState(params, opt, ef), metrics
@@ -202,8 +212,8 @@ class TrainStep:
         CUDA stream that waits on it, so its sweeps run while the
         backward pass goes on. ``finish`` waits for the side stream. A
         leaf used twice (tied embeddings) fires its hook once, with the
-        summed gradient. Returns (loss, g_agg, ef, stats, gnorm_local),
-        gnorm_local the reference's per-segment form (the square root of
+        summed gradient. Returns (loss, aux, g_agg, ef, stats,
+        gnorm_local), gnorm_local the reference's per-segment form (the square root of
         the sum of the segments' sums of squares)."""
         bounds = self.stream_bounds
         # each leaf's segment (an empty leaf carries nothing: no hook)
@@ -250,7 +260,7 @@ class TrainStep:
                    for i, leaf in enumerate(leaves) if seg_of[i] is not None]
         try:
             with record_function("train/loss_grad"):
-                loss = loss_fn(state.params, batch, cfg)
+                loss, aux = loss_and_aux(state.params, batch, cfg)
                 grads = torch.autograd.grad(loss, leaves)
                 del grads
         finally:
@@ -271,7 +281,7 @@ class TrainStep:
                 stats = None
             else:
                 g_agg, ef, stats = stream.finish(with_stats=True)
-        return loss, g_agg, ef, stats, gnorm_local
+        return loss, aux, g_agg, ef, stats, gnorm_local
 
 
 def build_train_step(run: RunConfig, device=None, group=None) -> TrainStep:

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "configs/starcoder2_7b.py", "serve/delta.py",
                    "checkpoint/__init__.py", "checkpoint/io.py",
                    "core/faults.py", "core/allocate.py",
-                   "models/parallel.py", "launch/mesh.py"):
+                   "models/parallel.py", "launch/mesh.py", "models/moe.py",
+                   "configs/granite_moe_3b_a800m.py",
+                   "configs/deepseek_v2_lite_16b.py"):
         assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -304,14 +306,26 @@ def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
     assert all(outcomes.values()), outcomes
 
 
+# the MoE family and MLA are served (item None): the reduced smoke
+# model's widths with 4 experts of 64, top-2; MLA at lora 32, rope dim 16
+SERVED_BY_FIELD = {
+    ("family", "moe"): dict(moe=cfgs.MoEConfig(n_experts=4, top_k=2,
+                                               d_expert=64)),
+    ("attn_kind", "mla"): dict(kv_lora_rank=32, rope_head_dim=16,
+                               v_head_dim=32)}
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("family", "moe", "A13"), ("family", "ssm", "A13"),
+    ("family", "moe", None), ("family", "ssm", "A13"),
     ("family", "hybrid", "A13"), ("family", "audio", "A13"),
-    ("attn_kind", "mla", "A13")])
+    ("attn_kind", "mla", None), ("family", "vlm", "A13"),
+    ("mixer", "mamba", "A13")])
 def test_models_outside_the_slice_raise(field, value, item):
     """Every dense layout is served (rmsnorm, GELU, QKV bias, tied
-    embeddings, no RoPE, sliding attention); another family and MLA
-    raise at init, in the loss, in the cache and in the serve step."""
+    embeddings, no RoPE, sliding attention), and so are the MoE family
+    and MLA: init, loss, cache and prefill run. Another family, and a
+    layer pattern with a Mamba mixer, raise at init, in the loss, in the
+    cache and in the serve step."""
     from repro_torch.models import init_params, loss_fn, transformer
     from repro_torch.serve.step import build_prefill
     cfg = cfgs.reduced_config(cfgs.get_config("stablelm-3b"))
@@ -320,9 +334,23 @@ def test_models_outside_the_slice_raise(field, value, item):
                    dict(rope=False), dict(attn_kind="sliding")):
         init_params(dataclasses.replace(cfg, **served), torch.Generator(),
                     "cpu")
-    bad = dataclasses.replace(cfg, **{field: value})
+    if field == "mixer":
+        bad = dataclasses.replace(cfg, attn_every=2,
+                                  ssm=cfgs.SSMConfig(kind=value))
+    else:
+        bad = dataclasses.replace(cfg, **{field: value},
+                                  **SERVED_BY_FIELD.get((field, value), {}))
     run = cfgs.RunConfig(model=bad, shape=cfgs.ShapeConfig(
         "serve", 8, 1, "decode"))
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    if item is None:
+        params = init_params(bad, torch.Generator().manual_seed(0), "cpu")
+        loss = loss_fn(params, {"tokens": tokens, "targets": tokens}, bad)
+        assert torch.isfinite(loss)
+        transformer.init_decode_cache(bad, 1, 8, torch.float32)
+        logits, _ = build_prefill(run, "cpu")(params, {"tokens": tokens})
+        assert logits.shape == (1, bad.vocab_size)
+        return
     for call in (lambda: init_params(bad, torch.Generator(), "cpu"),
                  lambda: loss_fn({}, {}, bad),
                  lambda: transformer.init_decode_cache(bad, 1, 8,
@@ -330,6 +358,26 @@ def test_models_outside_the_slice_raise(field, value, item):
                  lambda: build_prefill(run, "cpu")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
+
+
+def test_context_parallel_mla_decode_raises():
+    """Context-parallel decode of an MLA model is not ported: its cache
+    and its decode step raise naming ROADMAP A13; one rank's decode runs."""
+    from repro_torch.models import attention, init_params, transformer
+    from repro_torch.models.parallel import Parallel
+    cfg = cfgs.reduced_config(cfgs.get_config("deepseek-v2-lite-16b"))
+    cp = Parallel(cache_seq_sharded=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        transformer.init_decode_cache(cfg, 1, 8, torch.float32, pal=cp)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache = transformer.init_decode_cache(cfg, 1, 8, torch.float32)
+    layer = params["prefix"][0]["attn"]
+    x = torch.zeros((1, 1, cfg.d_model))
+    pos = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        attention.attn_decode(layer, x, cache["prefix"][0], pos, cfg, cp)
+    y = attention.attn_decode(layer, x, cache["prefix"][0], pos, cfg)
+    assert y.shape == (1, 1, cfg.d_model)
 
 
 def test_optimizers_outside_the_slice_raise():

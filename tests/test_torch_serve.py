@@ -265,11 +265,13 @@ def test_serve_launcher_smoke(arch, capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
     (["--model", "2"], "ROADMAP A13"), (["--devices", "8"], "ROADMAP A13"),
-    (["--mla-absorb"], "ROADMAP A13")])
+    (["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],
+     "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
     """What the launcher still does not serve: deltas applied over more
-    than one rank (A14), tensor parallelism, a mesh in one process and
-    MLA (A13)."""
+    than one rank (A14), tensor parallelism (of a dense model and of
+    absorbed MLA) and a mesh in one process (A13). ``--mla-absorb``
+    alone is served (tests/test_torch_mla.py)."""
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])

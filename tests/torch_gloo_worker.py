@@ -190,7 +190,8 @@ def _rows(x, rank: int, world: int):
 
 def run_world_train(rank: int, data) -> dict:
     """Per case: every step's metrics, the final flat parameters and the
-    sorted ``idx_prev`` of this rank."""
+    sorted ``idx_prev`` of this rank; the model is the inputs' reduced
+    ``arch`` (default stablelm-3b)."""
     from repro_torch.train.step import build_train_step, init_train_state
     world = dist.get_world_size()
     batch = {"tokens": _rows(data["tokens"], rank, world),
@@ -198,7 +199,8 @@ def run_world_train(rank: int, data) -> dict:
     res = {}
     for name, case in json.loads(str(data["cases"])).items():
         run = cfgs.RunConfig(
-            model=cfgs.reduced_config(cfgs.get_config("stablelm-3b")),
+            model=cfgs.reduced_config(cfgs.get_config(
+                str(data["arch"]) if "arch" in data else "stablelm-3b")),
             shape=cfgs.SHAPES["train_4k"],
             sparsifier=cfgs.SparsifierConfig(**case["sparsifier"]),
             optimizer=cfgs.OptimizerConfig(kind="adam", lr=1e-3), seed=0,
