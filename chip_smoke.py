@@ -128,6 +128,14 @@ line and raising on any failure:
              step) on Granite-8B (rmsnorm, GQA kv 8; J = 1,056,993,280)
              and StarCoder2-7B (layernorm, GELU, QKV bias, GQA kv 4; J =
              1,104,301,056) at full width, depth cut to 3 layers;
+20a. train_granite_moe, profile_granite_moe, train_deepseek,
+             profile_deepseek: the main path on the MoE family at full
+             width: Granite-MoE-3B-A800M (40 experts, top-8) cut to 8
+             layers (J = 956,828,160) and DeepSeek-V2-Lite (MLA, 64
+             experts top-6, 2 shared, a dense first layer) cut to its
+             dense prefix and one MoE layer (J = 1,085,287,424); B1 and
+             B2 once a step, and each step's lb_loss, z_loss and
+             drop_frac printed;
 20b. train_proportional, train_adaptive, train_proportional_reference,
              train_overlap, each with its profile: density allocation and
              streaming over the S layer-aligned segments of the model
@@ -157,6 +165,16 @@ line and raising on any failure:
              with the cast of every fp32 weight at its use: 8 B a
              parameter; B rows of the token table; the valid cache
              slots), tokens a second, peak memory, one profiled step;
+             then the MoE family at full depth: Granite-MoE-3B-A800M
+             (32 layers) in fp32 and bf16, DeepSeek-V2-Lite (27 layers,
+             15.7 B parameters) in fp32 with MLA expanded and absorbed
+             (the absorbed form held against the expanded full forward;
+             no bf16 cell: bf16 copies beside the fp32 masters would
+             need about 94 GB). An MoE cell serves, and takes its full
+             forward, at capacity factor 16, where no choice is dropped
+             (the served run's own drop share printed); its bytes bound
+             counts the experts the profiled step routes to, beside the
+             bytes of the all-experts products it runs;
 20c. train_sketch_elastic, train_sketch_bucketed,
              train_sketch_reference_elastic, train_sketch_hist,
              train_reference_bf16, each with its profile: sketchtopk fused
@@ -333,6 +351,12 @@ TRAIN_PATHS = {
                       ""),
     "train_starcoder2": (dict(kind="regtopk", **FUSED),
                          ("sweep1", "sweep2"), ""),
+    # the main path on the MoE family: routed experts (top-8 of 40);
+    # MLA, shared experts and a dense prefix layer
+    "train_granite_moe": (dict(kind="regtopk", **FUSED),
+                          ("sweep1", "sweep2"), ""),
+    "train_deepseek": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                       ""),
     # density allocation and streaming over the S layer-aligned segments
     # of the model (S worked out by path_segments): B1 and B2 once a
     # segment; the adaptive split under the fault schedule (B1's gated
@@ -379,19 +403,35 @@ SEGMENTED = ("train_proportional", "train_adaptive",
 # that J and its fp32 compression and Adam state fit one card
 TRAIN_MODEL = ("stablelm-3b", TRAIN_LAYERS, MAIN_J)
 TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
-                "train_starcoder2": ("starcoder2-7b", 3, 1_104_301_056)}
+                "train_starcoder2": ("starcoder2-7b", 3, 1_104_301_056),
+                "train_granite_moe": ("granite-moe-3b-a800m", 8,
+                                      956_828_160),
+                # the dense prefix layer and one MoE layer
+                "train_deepseek": ("deepseek-v2-lite-16b", 2,
+                                   1_085_287_424)}
 # phase serve: the serve launcher's defaults, at full width and depth
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 48, 16
 SERVE_WINDOW = 32            # examples/serve_batched.py's sliding variant
 SERVE_LONG_PROMPT = 4096     # a context whose bf16 cache (4.8 GB) counts
 # (arch, attention, prompt length); each arch's cells in a row, so that
 # its parameters are drawn once
+# "absorb": MLA's absorbed form, held against the expanded full forward
 SERVE_CELLS = (("granite-8b", "full", SERVE_PROMPT),
                ("granite-8b", "sliding", SERVE_PROMPT),
                ("granite-8b", "full", SERVE_LONG_PROMPT),
-               ("starcoder2-7b", "full", SERVE_PROMPT))
+               ("starcoder2-7b", "full", SERVE_PROMPT),
+               ("granite-moe-3b-a800m", "full", SERVE_PROMPT),
+               ("deepseek-v2-lite-16b", "full", SERVE_PROMPT),
+               ("deepseek-v2-lite-16b", "absorb", SERVE_PROMPT))
+# fp32 only: 62.8 GB of fp32 masters leave no room for bf16 copies
+SERVE_FP32_ONLY = {"deepseek-v2-lite-16b": "bf16 copies of the 15.7 B "
+                   "parameters beside the fp32 masters would need about "
+                   "94 GB of the card's 80"}
+MOE_SERVE_CAPACITY = 16.0    # tests/test_models.py's: no choice dropped
 SERVE_REPS = 5               # decode windows timed after the launcher's run
-SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800}
+SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800,
+                "granite-moe-3b-a800m": 3_374_295_552,
+                "deepseek-v2-lite-16b": 15_706_484_224}
 SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
 # phase delta: the train phase's cell publishing a delta after each step
 # to a one-rank replica; the receive-side schedule loses versions 2, 4 and
@@ -1656,6 +1696,11 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     active = [rec.get("n_active") for rec in out["history"]]
     if schedule:
         check(active == ELASTIC_ACTIVE, f"{phase}: n_active {active}")
+    aux = {key: [rec.get(key) for rec in out["history"]]
+           for key in ("lb_loss", "z_loss", "drop_frac")}
+    if model.moe is not None:
+        check(all(x is not None and math.isfinite(x) for val in aux.values()
+                  for x in val), f"{phase}: MoE aux metrics {aux}")
     counts = [rec.get("count") for rec in out["history"]]
     if run.sparsifier.selector == "histogram":
         k = round(SPARSITY * main_j)
@@ -1664,7 +1709,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     emit(phase, model=model.name, sparsifier=dataclasses.asdict(
              run.sparsifier), fault_schedule=schedule, n_active=active,
          counts=counts,
-         n_layers=depth,
+         n_layers=depth, **(aux if model.moe is not None else {}),
          j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
@@ -1674,41 +1719,88 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
     return launches, run, state, [rec["ms"] for rec in out["history"]], out
 
 
-def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
-               params: dict) -> dict:
-    """The serve launcher's serve() on ``arch`` at full width and depth
-    (``attn`` "sliding": window SERVE_WINDOW, below the prompt, so the
-    ring buffer wraps in prefill and in every decode step) with the given
-    parameters, a prompt of ``prompt`` tokens, in ``dtype``; then the full
-    forward of the prompt and the generated tokens, without a cache: the
-    prefill's logits against its position P - 1, the last decode step's
-    against position P + N - 1, as max |difference| over the largest
-    |logit| of the full forward at those positions; then SERVE_REPS more
-    decode windows timed (``decode_windows``) and one more decode step
-    profiled (``decode_profile``)."""
-    import torch
-    from repro_torch.configs.base import RunConfig, SparsifierConfig, \
-        get_config
-    from repro_torch.launch.serve import serve, serve_shape
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.layers import lm_head_fwd
+class RouteProbe:
+    """While active, records each MoE layer's routing (``moe.route``):
+    the tokens routed, the share of choices dropped and the experts
+    chosen, as device tensors (read after the run, so no step waits)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.route, self.calls = moe, moe.route, []
+
+        def route(logits, cfg):
+            r = self.route(logits, cfg)
+            self.calls.append((logits.shape[0], r["drop_frac"], r["top_e"]))
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+    def drop_frac(self) -> float:
+        return max((float(d) for _, d, _ in self.calls), default=0.0)
+
+    def experts(self) -> int:
+        """Distinct experts chosen, summed over the routing calls."""
+        import torch
+        return sum(int(torch.unique(e).numel()) for _, _, e in self.calls)
+
+
+def serve_cfg(arch: str, attn: str, dtype: str):
+    """The served config of a cell: ``attn`` "sliding" (window
+    SERVE_WINDOW) or "absorb" (MLA's absorbed form); an MoE model at
+    capacity factor MOE_SERVE_CAPACITY."""
+    from repro_torch.configs.base import get_config
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if attn == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=SERVE_WINDOW)
+    if attn == "absorb":
+        cfg = dataclasses.replace(cfg, mla_absorb=True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_SERVE_CAPACITY))
+    return cfg
+
+
+def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
+               params: dict) -> dict:
+    """The serve launcher's serve() on ``arch`` at full width and depth
+    (``serve_cfg``: "sliding" with the window below the prompt, so the
+    ring buffer wraps in prefill and in every decode step; "absorb",
+    MLA's absorbed form) with the given parameters, a prompt of
+    ``prompt`` tokens, in ``dtype``; then the full forward of the prompt
+    and the generated tokens, without a cache (MLA expanded): the
+    prefill's logits against its position P - 1, the last decode step's
+    against position P + N - 1, as max |difference| over the largest
+    |logit| of the full forward at those positions; then SERVE_REPS more
+    decode windows timed (``decode_windows``) and one more decode step
+    profiled (``decode_profile``). An MoE cell records its routing
+    (``RouteProbe``): the served run's drop share and the experts the
+    profiled step routes to."""
+    import torch
+    from repro_torch.configs.base import RunConfig, SparsifierConfig
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.launch.serve import serve, serve_shape
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import lm_head_fwd
+    cfg = serve_cfg(arch, attn, dtype)
     run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt,
                                                  SERVE_NEW),
                     sparsifier=SparsifierConfig(kind="none"))
     torch.cuda.reset_peak_memory_stats(dev)
-    out = serve(run, device=dev, prompt_len=prompt, new_tokens=SERVE_NEW,
-                params=params, log=lambda msg: print(msg, file=sys.stderr))
+    with RouteProbe() as served:
+        out = serve(run, device=dev, prompt_len=prompt, new_tokens=SERVE_NEW,
+                    params=params, log=lambda msg: print(msg, file=sys.stderr))
     peak = torch.cuda.max_memory_allocated(dev)
     tokens = torch.cat([out["prompt"], out["tokens"]], 1)
-    with torch.inference_mode():
-        x = tfm.forward_hidden(params, tfm.embed_batch(params, tokens, cfg),
-                               cfg)
+    full_cfg = dataclasses.replace(cfg, mla_absorb=False)
+    with torch.inference_mode(), RouteProbe() as full_route:
+        x = tfm.forward_hidden(params, tfm.embed_batch(params, tokens,
+                                                       full_cfg), full_cfg)
         full = lm_head_fwd(params["embed"], x[:, [prompt - 1, -1]],
-                           cfg).float()
+                           full_cfg).float()
         del x
     scale = float(full.abs().max())
     e_pre = float((out["prefill_logits"].float() - full[:, 0]).abs().max())
@@ -1719,46 +1811,81 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     check(bool(torch.isfinite(out["logits"]).all()), f"{arch}: logits")
     check(int(out["cache"]["pos"]) == prompt + SERVE_NEW,
           f"{arch}: cache pos {int(out['cache']['pos'])}")
-    cap = out["cache"]["blocks"]["l0"]["k"].shape[2]
+    first = tree_leaves(out["cache"]["blocks"])[0]     # k, or MLA's ckv
+    cap = first.shape[2]
     check(cap == (SERVE_WINDOW if attn == "sliding"
                   else prompt + SERVE_NEW), f"{arch}: cache {cap}")
+    if cfg.moe is not None:
+        check(served.drop_frac() == 0.0 and full_route.drop_frac() == 0.0,
+              f"{arch}: choices dropped at capacity factor "
+              f"{MOE_SERVE_CAPACITY}: served {served.drop_frac()}, full "
+              f"{full_route.drop_frac()}")
     windows = decode_windows(dev, run, params, out["cache"], out["tokens"])
-    profile = decode_profile(dev, run, params, out["cache"],
-                             out["tokens"][:, -1:], dtype)
-    step_bytes = decode_bytes(cfg, out["params"], min(
-        cap, prompt + SERVE_NEW), out["cache"]["blocks"]["l0"]["k"])
+    with RouteProbe() as step_route:
+        profile = decode_profile(dev, run, params, out["cache"],
+                                 out["tokens"][:, -1:], dtype)
+    live = min(cap, prompt + SERVE_NEW)
+    step_bytes, all_experts_bytes = decode_bytes(
+        cfg, out["params"], live, out["cache"], step_route.experts())
     ms = statistics.median(windows)
-    return {"arch": arch, "attn": attn, "dtype": dtype,
-            "window": cfg.window if attn == "sliding" else None,
-            "n_layers": cfg.n_layers, "params": out["params"],
-            "prompt": prompt, "cache_slots": cap,
-            "cache_bytes": 2 * out["cache"]["blocks"]["l0"]["k"].nbytes,
-            "prefill_ms": out["prefill_s"] * 1e3,
-            "launcher_decode_ms_per_step": out["decode_s"] / SERVE_NEW * 1e3,
-            "decode_ms_per_step": ms, "decode_ms_windows": windows,
-            "decode_ms_spread": [min(windows), max(windows)],
-            "tokens_per_s": SERVE_BATCH * 1e3 / ms,
-            "decode_bound_ms": bound_ms(step_bytes, 0)[0],
-            "decode_bound_bytes": step_bytes,
-            "max_memory_allocated": peak,
-            "prefill_rel_err": e_pre / scale, "decode_rel_err": e_dec / scale,
-            "decode_profile": profile,
-            "first_sequence": out["tokens"][0].tolist()}
+    res = {"arch": arch, "attn": attn, "dtype": dtype,
+           "window": cfg.window if attn == "sliding" else None,
+           "n_layers": cfg.n_layers, "params": out["params"],
+           "prompt": prompt, "cache_slots": cap,
+           "cache_bytes": sum(leaf.nbytes for leaf in tree_leaves(
+               out["cache"]) if leaf.dim()),
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "launcher_decode_ms_per_step": out["decode_s"] / SERVE_NEW * 1e3,
+           "decode_ms_per_step": ms, "decode_ms_windows": windows,
+           "decode_ms_spread": [min(windows), max(windows)],
+           "tokens_per_s": SERVE_BATCH * 1e3 / ms,
+           "decode_bound_ms": bound_ms(step_bytes, 0)[0],
+           "decode_bound_bytes": step_bytes,
+           "max_memory_allocated": peak,
+           "prefill_rel_err": e_pre / scale, "decode_rel_err": e_dec / scale,
+           "decode_profile": profile,
+           "first_sequence": out["tokens"][0].tolist()}
+    if cfg.moe is not None:
+        res.update(capacity_factor=MOE_SERVE_CAPACITY,
+                   served_drop_frac=served.drop_frac(),
+                   step_experts_routed=step_route.experts(),
+                   moe_layers=tfm.n_moe_layers(cfg),
+                   all_experts_bytes=all_experts_bytes,
+                   all_experts_bound_ms=bound_ms(all_experts_bytes, 0)[0])
+    if attn == "absorb":
+        res["reference"] = "the expanded form's full forward"
+    return res
 
 
-def decode_bytes(cfg, n_params: int, live_slots: int, k_cache) -> int:
+def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
+                 experts: int = 0) -> tuple:
     """The least bytes a decode step moves at the last step's context: each
     weight read once, 4 B a parameter in fp32 and 8 in bf16 (the cast of
     every fp32 weight at its use writes and reads a bf16 copy, as the
     reference casts), but the token table, of which the step gathers B
-    fp32 rows (unless it is also the tied head); and the k and v of the
-    ``live_slots`` valid cache slots of every layer."""
+    fp32 rows (unless it is also the tied head), and, in an MoE model,
+    of the routed experts only the ``experts`` the step's routing chose
+    (summed over the layers); and the ``live_slots`` valid slots of every
+    cache leaf. Returns (those bytes, the same with every expert of every
+    MoE layer: what the all-experts products read)."""
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.models import transformer as tfm
+    per_param = 4 if cfg.dtype == "float32" else 8
     n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
-    weights = n * (4 if cfg.dtype == "float32" else 8)
+    per_expert = all_experts = 0
+    if cfg.moe is not None:
+        per_expert = (3 if cfg.act == "silu" else 2) * cfg.d_model * \
+            cfg.moe.d_expert
+        all_experts = tfm.n_moe_layers(cfg) * cfg.moe.n_experts * per_expert
     gather = SERVE_BATCH * cfg.d_model * 4
-    layers, b, _, kv, hd = k_cache.shape
-    cache = 2 * layers * b * live_slots * kv * hd * k_cache.element_size()
-    return weights + gather + cache
+    kv = 0
+    for stacked, tree in ((1, cache["blocks"]), (0, cache.get("prefix", []))):
+        for leaf in tree_leaves(tree):
+            slots = leaf.shape[1 + stacked]
+            kv += leaf.nbytes // slots * live_slots
+    base = (n - all_experts) * per_param + gather + kv
+    return (base + experts * per_expert * per_param,
+            base + all_experts * per_param)
 
 
 def decode_windows(dev, run, params: dict, cache: dict, tokens) -> list:
@@ -1832,8 +1959,9 @@ def phase_serve(dev) -> None:
     parameters drawn once from seed 0 (fp32 masters, as the reference
     keeps them): in fp32, the decode and prefill logits within SERVE_RTOL
     of the full forward; then in the config's bf16, its error printed,
-    not bounded. Decode ms a step is the median of SERVE_REPS windows
-    after the launcher's run (its spread beside it)."""
+    not bounded (not for SERVE_FP32_ONLY: a line says why). Decode ms a
+    step is the median of SERVE_REPS windows after the launcher's run
+    (its spread beside it)."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import init_params
@@ -1853,6 +1981,10 @@ def phase_serve(dev) -> None:
               f"{SERVE_RTOL}")
         emit("serve", **res)
         torch.cuda.empty_cache()
+        if arch in SERVE_FP32_ONLY:
+            emit("serve", arch=arch, attn=attn, dtype="bfloat16",
+                 skipped=SERVE_FP32_ONLY[arch])
+            continue
         emit("serve", **serve_case(dev, arch, attn, prompt, "bfloat16",
                                    params))
         torch.cuda.empty_cache()
