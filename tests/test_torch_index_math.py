@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import sketch as csk  # noqa: E402
 from repro_torch.kernels.compress import kernel as pk  # noqa: E402
 from repro_torch.kernels.topk_select import ops as hops  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 RAGGED = 3 * 8192 + 517
 # below one partition (2^14 buckets), one bucket over it, and not a

@@ -30,6 +30,7 @@ from test_torch_moe import (  # noqa: E402
     PAL, SERVE_TOL, check_fused_step, check_loss_and_gradient,
     check_prefill_and_decode, check_train_launcher, live, reference_grad,
     reference_init)
+from torch_threads import one_thread  # noqa: E402,F401
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402

@@ -44,6 +44,7 @@ from repro_torch.launch.train import parse_args, run_config, train  # noqa: E402
 from repro_torch.models import loss_and_aux, moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.train.step import build_train_step, init_train_state  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 PAL = Parallel()
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -22,6 +22,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.flatten import TreeFlattener  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.train.step import build_train_step, init_train_state  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 STEPS = 3
 # loss: fp32 forward on both sides, summed in different orders (~1e-7
