@@ -7,9 +7,9 @@ logits, one REGTOP-k fused sparse train step through both train steps
 (the compressor bitwise on the reference's own gradient), the train
 launcher, and the aux metrics' group means at a gloo world of 2.
 
-The weights of a model are drawn by the port's init and carried into
-the reference's tree (the MoE layer's by the reference's init), with every
-norm scale moved off its init value by numpy noise from a seed.
+The weights are drawn by the port's init and carried into the
+reference's tree, with every norm scale moved off its init value by
+numpy noise from a seed.
 DeepSeek-V2-Lite (MLA, a shared expert, the dense prefix) has its own
 file, tests/test_torch_mla.py."""
 import dataclasses
@@ -126,11 +126,12 @@ def test_routing_matches_reference_on_its_logits(factor):
     (ARCH, 1.25), (ARCH, 0.25), ("deepseek-v2-lite-16b", 1.25)],
     ids=["granite", "drops", "shared"])
 def test_moe_fwd_matches_reference(arch, factor):
-    """``moe_fwd`` on the reference's init and the same (2, 20, 128)
-    input: y and lb_loss, z_loss, drop_frac within RTOL / ATOL; at
-    factor 0.25 some choices are dropped; deepseek's shared expert."""
+    """``moe_fwd`` on the same weights (the port's init carried across)
+    and input (2, 20, 128): y and lb_loss, z_loss, drop_frac within RTOL
+    / ATOL; at factor 0.25 some choices are dropped; deepseek's shared
+    expert."""
     jcfg, tcfg = _cfgs(arch, capacity_factor=factor)
-    p = jax.device_get(jmoe.init_moe(jax.random.PRNGKey(5), jcfg, PAL))
+    p = params_to_jax(moe.init_moe(torch.Generator().manual_seed(5), tcfg))
     x = np.random.default_rng(5).standard_normal((2, 20, 128)).astype(
         np.float32)
     jy, jaux = jax.jit(lambda p, x: jmoe.moe_fwd(p, x, jcfg, PAL))(p, x)
