@@ -5,9 +5,9 @@ Under ``pytest -n 6`` every worker's torch would start as many threads as
 the host has cores, and a plain version made of thousands of small ops
 (the partitioned sketch encode's pass 2 at a width past 2^24, a launcher
 overfitting a smoke model) then waits at every op on threads the other
-workers keep busy: one case that takes 4.5 s alone ran 709 s in the
-tier-1 run, and six copies of it side by side did not end in 900 s. On
-one thread each the six took 4.3-4.8 s. The cases compute the same
+workers keep busy. On an 8-core CPU one case that takes 4.5 s alone ran
+709 s under ``-n 6``, and six copies of it side by side did not end in
+900 s; on one thread each the six took 4.3-4.8 s. The cases compute the same
 values on any thread count: integer and dyadic sums, or results held to
 a tolerance."""
 import pytest
