@@ -99,20 +99,20 @@ from repro_torch.models.parallel import world
 _DEGRADE_WARNED: set = set()
 COMBINES = ("mean", "support")
 WIRE_DTYPES = ("float32", "bfloat16")
+COMM_MODES = ("sparse", "simulate", "dense")
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
-    """The sync paths the port serves; anything else raises
-    NotImplementedError naming its ROADMAP item."""
+    """The sync paths the port serves: ``sparsify.check_supported``'s
+    gates, then ValueError for an unknown ``combine``, ``comm_mode`` or
+    ``wire_dtype``."""
     sparsify.check_supported(cfg)
     if cfg.combine not in COMBINES:
         raise ValueError(f"unknown combine={cfg.combine!r} "
                          f"(expected one of {COMBINES})")
-    if cfg.comm_mode not in ("sparse", "simulate", "dense"):
-        raise NotImplementedError(
-            f"SparsifierConfig.comm_mode={cfg.comm_mode!r} is not ported "
-            "yet; the port serves ('sparse', 'simulate', 'dense') (ROADMAP "
-            "A5)")
+    if cfg.comm_mode not in COMM_MODES:
+        raise ValueError(f"unknown comm_mode {cfg.comm_mode!r} (expected "
+                         f"one of {COMM_MODES})")
     if cfg.wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"unknown wire_dtype {cfg.wire_dtype!r} (expected "
                          f"one of {WIRE_DTYPES})")

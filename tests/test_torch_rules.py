@@ -248,6 +248,24 @@ def test_configs_outside_the_slice_raise(field, value, outcome):
         sparsify.init_state(bad, 100, "cpu")
 
 
+@pytest.mark.parametrize("field", ["comm_mode", "combine", "wire_dtype"])
+def test_unknown_sync_fields_raise_value_error(field):
+    """An unknown ``comm_mode``, ``combine`` or ``wire_dtype`` is a
+    ValueError naming the field and the values the port takes, not a
+    gate of unported work; the known values build."""
+    cfg = cfgs.SparsifierConfig(kind="regtopk", pipeline="fused",
+                                comm_mode="sparse")
+    for known in {"comm_mode": aggregate.COMM_MODES,
+                  "combine": aggregate.COMBINES,
+                  "wire_dtype": aggregate.WIRE_DTYPES}[field]:
+        aggregate.GradientSync(dataclasses.replace(cfg, **{field: known}))
+    bad = dataclasses.replace(cfg, **{field: "allgather"})
+    with pytest.raises(ValueError, match=f"unknown {field}"):
+        aggregate.GradientSync(bad)
+    with pytest.raises(ValueError, match="allgather"):
+        aggregate.check_supported(bad)
+
+
 def _reference_grid():
     """Every SparsifierConfig over the values the reference documents
     for each field that changes what its GradientSync serves."""
