@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve
     python3 chip_smoke.py --delta
     python3 chip_smoke.py --world 4
+    python3 chip_smoke.py --mamba
 
 The second form runs only the device and build phases and the named
 train phases, each with its profile (no kernels line), from this
@@ -14,7 +15,8 @@ checkout's port or
 from another source tree: an unpacked older commit's ``src/``, so that
 two versions can be compared in one run on one card. The third runs only
 the device, build and serve phases, the fourth only the device, build
-and delta phases. The fifth needs
+and delta phases, the sixth only the device, build and mamba_layer
+phases. The fifth needs
 four cards and runs only the multi-card check: one process a card,
 joined over NCCL, syncs 3 steps at J = 2^24 of REGTOP-k (fused, sparse
 comm), of dense SGD, of REGTOP-k with the packed pairs in 4 chunks on
@@ -135,7 +137,12 @@ line and raising on any failure:
              experts top-6, 2 shared, a dense first layer) cut to its
              dense prefix and one MoE layer (J = 1,085,287,424); B1 and
              B2 once a step, and each step's lb_loss, z_loss and
-             drop_frac printed;
+             drop_frac printed; then train_xlstm, profile_xlstm: the
+             main path on xLSTM-125M at full width and depth (12 layers
+             of mLSTM and sLSTM, no FFN; J = 164,669,952): B1 and B2
+             once a step, and the profile's CUDA launches a step (each
+             mixer's scan is a loop of eager steps over the 128
+             positions);
 20b. train_proportional, train_adaptive, train_proportional_reference,
              train_overlap, each with its profile: density allocation and
              streaming over the S layer-aligned segments of the model
@@ -174,7 +181,23 @@ line and raising on any failure:
              forward, at capacity factor 16, where no choice is dropped
              (the served run's own drop share printed); its bytes bound
              counts the experts the profiled step routes to, beside the
-             bytes of the all-experts products it runs;
+             bytes of the all-experts products it runs; then the
+             recurrent families: xLSTM-125M at full depth in fp32 and
+             bf16 (its bytes bound reads and writes every layer's fp32
+             state), and Jamba-v0.1-52B at full width cut to one
+             super-block of 8 layers (13,295,235,072 parameters: Mamba,
+             attention at position 4, MoE on the odd positions) in fp32
+             only (bf16 copies beside the 53.2 GB of fp32 masters would
+             not fit), at capacity factor 16;
+21a. mamba_layer: one Mamba layer at Jamba's width (d_model 4096,
+             d_inner 8192, d_state 16, dt_rank 256) in fp32, batch 8, at
+             seq 128 (one scan chunk) and 1024 (two chunks of 512), with
+             the chunks recomputed in the backward pass (``remat``):
+             forward ms and forward plus backward ms (CUDA events),
+             their peak memory and CUDA launches, every gradient finite,
+             and the forward of the first MAMBA_FP64_ROWS rows within
+             MAMBA_FP64_RTOL of the same function in fp64 (max |error|
+             over the largest |y|);
 20c. train_sketch_elastic, train_sketch_bucketed,
              train_sketch_reference_elastic, train_sketch_hist,
              train_reference_bf16, each with its profile: sketchtopk fused
@@ -357,6 +380,8 @@ TRAIN_PATHS = {
                           ("sweep1", "sweep2"), ""),
     "train_deepseek": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
                        ""),
+    "train_xlstm": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                    ""),
     # density allocation and streaming over the S layer-aligned segments
     # of the model (S worked out by path_segments): B1 and B2 once a
     # segment; the adaptive split under the fault schedule (B1's gated
@@ -408,7 +433,9 @@ TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
                                       956_828_160),
                 # the dense prefix layer and one MoE layer
                 "train_deepseek": ("deepseek-v2-lite-16b", 2,
-                                   1_085_287_424)}
+                                   1_085_287_424),
+                # full depth: 6 super-blocks of mLSTM and sLSTM
+                "train_xlstm": ("xlstm-125m", 12, 164_669_952)}
 # phase serve: the serve launcher's defaults, at full width and depth
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 48, 16
 SERVE_WINDOW = 32            # examples/serve_batched.py's sliding variant
@@ -422,17 +449,36 @@ SERVE_CELLS = (("granite-8b", "full", SERVE_PROMPT),
                ("starcoder2-7b", "full", SERVE_PROMPT),
                ("granite-moe-3b-a800m", "full", SERVE_PROMPT),
                ("deepseek-v2-lite-16b", "full", SERVE_PROMPT),
-               ("deepseek-v2-lite-16b", "absorb", SERVE_PROMPT))
-# fp32 only: 62.8 GB of fp32 masters leave no room for bf16 copies
+               ("deepseek-v2-lite-16b", "absorb", SERVE_PROMPT),
+               ("xlstm-125m", "full", SERVE_PROMPT),
+               ("jamba-v0.1-52b", "full", SERVE_PROMPT))
+# depth cuts of the served models (full depth otherwise): Jamba's 32
+# layers hold 51.6 B parameters, one super-block of 8 fits the card
+SERVE_DEPTH = {"jamba-v0.1-52b": 8}
+# fp32 only: 62.8 GB (53.2 GB) of fp32 masters leave no room for bf16
+# copies
 SERVE_FP32_ONLY = {"deepseek-v2-lite-16b": "bf16 copies of the 15.7 B "
                    "parameters beside the fp32 masters would need about "
-                   "94 GB of the card's 80"}
+                   "94 GB of the card's 80",
+                   "jamba-v0.1-52b": "bf16 copies of the 13.3 B parameters "
+                   "of one super-block beside its fp32 masters would need "
+                   "about 80 GB of the card's 80"}
 MOE_SERVE_CAPACITY = 16.0    # tests/test_models.py's: no choice dropped
 SERVE_REPS = 5               # decode windows timed after the launcher's run
 SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800,
                 "granite-moe-3b-a800m": 3_374_295_552,
-                "deepseek-v2-lite-16b": 15_706_484_224}
+                "deepseek-v2-lite-16b": 15_706_484_224,
+                "xlstm-125m": 164_669_952, "jamba-v0.1-52b": 13_295_235_072}
 SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
+# phase mamba_layer: Jamba's Mamba layer, batch 8, one chunk and two
+MAMBA_ARCH = "jamba-v0.1-52b"
+MAMBA_BATCH, MAMBA_SEQS = 8, (128, 1024)
+MAMBA_REPS = 5               # CUDA-event timings of each call
+MAMBA_FP64_ROWS = 2          # rows of the batch held against fp64 (each
+                             # row is its own scan)
+# max |y - y_fp64| over max |y_fp64|: 7.1e-7 on the CPU at seq 600 (one
+# row); 4.1e-6 and 2.3e-6 on an H100 at seq 128 and 1024
+MAMBA_FP64_RTOL = 1e-5
 # phase delta: the train phase's cell publishing a delta after each step
 # to a one-rank replica; the receive-side schedule loses versions 2, 4 and
 # 5 of 5, so the replica applies v1, sees the gap at v3 and resyncs from
@@ -1747,12 +1793,19 @@ class RouteProbe:
         return sum(int(torch.unique(e).numel()) for _, _, e in self.calls)
 
 
+def serve_model(arch: str):
+    """The served architecture at full width, at its SERVE_DEPTH."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=SERVE_DEPTH.get(arch,
+                                                            cfg.n_layers))
+
+
 def serve_cfg(arch: str, attn: str, dtype: str):
     """The served config of a cell: ``attn`` "sliding" (window
     SERVE_WINDOW) or "absorb" (MLA's absorbed form); an MoE model at
     capacity factor MOE_SERVE_CAPACITY."""
-    from repro_torch.configs.base import get_config
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    cfg = dataclasses.replace(serve_model(arch), dtype=dtype)
     if attn == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=SERVE_WINDOW)
@@ -1781,9 +1834,10 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     profiled step routes to."""
     import torch
     from repro_torch.configs.base import RunConfig, SparsifierConfig
-    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.core.flatten import tree_items, tree_leaves
     from repro_torch.launch.serve import serve, serve_shape
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import CACHE_KEYS
     from repro_torch.models.layers import lm_head_fwd
     cfg = serve_cfg(arch, attn, dtype)
     run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt,
@@ -1811,10 +1865,13 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     check(bool(torch.isfinite(out["logits"]).all()), f"{arch}: logits")
     check(int(out["cache"]["pos"]) == prompt + SERVE_NEW,
           f"{arch}: cache pos {int(out['cache']['pos'])}")
-    first = tree_leaves(out["cache"]["blocks"])[0]     # k, or MLA's ckv
-    cap = first.shape[2]
-    check(cap == (SERVE_WINDOW if attn == "sliding"
-                  else prompt + SERVE_NEW), f"{arch}: cache {cap}")
+    # k, or MLA's ckv; none in xLSTM, whose cache is recurrent state
+    kv = [leaf for path, leaf in tree_items(out["cache"]["blocks"])
+          if path[-1] in CACHE_KEYS]
+    cap = kv[0].shape[2] if kv else None
+    check(cfg.attn_every == 0 or cap == (
+        SERVE_WINDOW if attn == "sliding" else prompt + SERVE_NEW),
+        f"{arch}: cache {cap}")
     if cfg.moe is not None:
         check(served.drop_frac() == 0.0 and full_route.drop_frac() == 0.0,
               f"{arch}: choices dropped at capacity factor "
@@ -1824,7 +1881,7 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     with RouteProbe() as step_route:
         profile = decode_profile(dev, run, params, out["cache"],
                                  out["tokens"][:, -1:], dtype)
-    live = min(cap, prompt + SERVE_NEW)
+    live = min(cap or 0, prompt + SERVE_NEW)
     step_bytes, all_experts_bytes = decode_bytes(
         cfg, out["params"], live, out["cache"], step_route.experts())
     ms = statistics.median(windows)
@@ -1865,11 +1922,13 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
     reference casts), but the token table, of which the step gathers B
     fp32 rows (unless it is also the tied head), and, in an MoE model,
     of the routed experts only the ``experts`` the step's routing chose
-    (summed over the layers); and the ``live_slots`` valid slots of every
-    cache leaf. Returns (those bytes, the same with every expert of every
-    MoE layer: what the all-experts products read)."""
-    from repro_torch.core.flatten import tree_leaves
+    (summed over the layers); the ``live_slots`` valid slots of every
+    attention cache leaf, and every recurrent state leaf read and
+    written once. Returns (those bytes, the same with every expert of
+    every MoE layer: what the all-experts products read)."""
+    from repro_torch.core.flatten import tree_items
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import CACHE_KEYS
     per_param = 4 if cfg.dtype == "float32" else 8
     n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
     per_expert = all_experts = 0
@@ -1880,9 +1939,12 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
     gather = SERVE_BATCH * cfg.d_model * 4
     kv = 0
     for stacked, tree in ((1, cache["blocks"]), (0, cache.get("prefix", []))):
-        for leaf in tree_leaves(tree):
-            slots = leaf.shape[1 + stacked]
-            kv += leaf.nbytes // slots * live_slots
+        for path, leaf in tree_items(tree):
+            if path[-1] in CACHE_KEYS:
+                slots = leaf.shape[1 + stacked]
+                kv += leaf.nbytes // slots * live_slots
+            else:
+                kv += 2 * leaf.nbytes
     base = (n - all_experts) * per_param + gather + kv
     return (base + experts * per_expert * per_param,
             base + all_experts * per_param)
@@ -1921,7 +1983,6 @@ def decode_profile(dev, run, params: dict, cache: dict, token,
     the launches. The conversions must be 0 in fp32 and more in bf16.
     Wall time includes the profiler's own cost."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.step import build_decode_step
     dec = build_decode_step(run, dev)
@@ -1934,10 +1995,7 @@ def decode_profile(dev, run, params: dict, cache: dict, token,
         dec(params, cache, token)
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0), key=lambda r: -r[1])
+    kernels = cuda_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels)
     cast = sum(ms for key, ms, _ in kernels if "bfloat16_copy" in key)
     mm = sum(ms for key, ms, _ in kernels if any(
@@ -1963,14 +2021,13 @@ def phase_serve(dev) -> None:
     step is the median of SERVE_REPS windows after the launcher's run
     (its spread beside it)."""
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.models import init_params
     params, held = None, None
     for arch, attn, prompt in SERVE_CELLS:
         if held != arch:
             params = None
             torch.cuda.empty_cache()
-            params = init_params(get_config(arch), torch.Generator(
+            params = init_params(serve_model(arch), torch.Generator(
                 device=dev).manual_seed(0), dev)
             held = arch
         res = serve_case(dev, arch, attn, prompt, "float32", params)
@@ -1989,6 +2046,98 @@ def phase_serve(dev) -> None:
                                    params))
         torch.cuda.empty_cache()
     del params
+    torch.cuda.empty_cache()
+
+
+def cuda_kernels(prof) -> list:
+    """(name, device ms, calls) of each CUDA kernel a torch.profiler run
+    recorded, the longest first."""
+    from torch.autograd import DeviceType
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+
+
+def device_launches(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its device time, its CUDA
+    kernel launches and its heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = cuda_kernels(prof)
+    return {"device_busy_ms": sum(ms for _, ms, _ in kernels),
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                            for k, ms, n in kernels[:6]]}
+
+
+def phase_mamba_layer(dev) -> None:
+    """One Mamba layer at Jamba's width in fp32 (``models.mamba``, the
+    chunks recomputed in the backward pass as ``cfg.remat`` asks), batch
+    MAMBA_BATCH, at each of MAMBA_SEQS: forward ms and forward plus
+    backward ms (medians of MAMBA_REPS CUDA-event timings), the peak
+    memory and the CUDA launches of each, every gradient finite, and the
+    fp32 forward of the first MAMBA_FP64_ROWS rows against the same
+    function in fp64 (fp64 parameters and input: ``mamba.state_dtype``):
+    max |error| over max |y_fp64| below MAMBA_FP64_RTOL."""
+    import torch
+    from repro_torch.configs.base import get_config, mamba_dims
+    from repro_torch.models import mamba
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = mamba.init_mamba(gen, cfg, device=dev)
+    leaves = [params[key].requires_grad_(True) for key in sorted(params)]
+    for seq in MAMBA_SEQS:
+        x = torch.randn((MAMBA_BATCH, seq, cfg.d_model), generator=gen,
+                        device=dev)
+
+        def forward():
+            with torch.no_grad():
+                return mamba.mamba_fwd(params, x, cfg)
+
+        def train_step():
+            y = mamba.mamba_fwd(params, x, cfg)
+            return torch.autograd.grad((y.float() ** 2).mean(), leaves)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads = train_step()
+        torch.cuda.synchronize(dev)
+        peak_train = torch.cuda.max_memory_allocated(dev)
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              f"mamba_layer seq {seq}: a gradient is not finite")
+        del grads
+        torch.cuda.reset_peak_memory_stats(dev)
+        y = forward()
+        torch.cuda.synchronize(dev)
+        peak_fwd = torch.cuda.max_memory_allocated(dev)
+        rows = slice(0, MAMBA_FP64_ROWS)
+        with torch.no_grad():
+            y64 = mamba.mamba_fwd(
+                {key: val.detach().double() for key, val in params.items()},
+                x[rows].double(), cfg)
+        rel = float((y[rows].double() - y64).abs().max() / y64.abs().max())
+        del y, y64
+        check(rel < MAMBA_FP64_RTOL, f"mamba_layer seq {seq}: fp32 forward "
+              f"{rel} from fp64, over {MAMBA_FP64_RTOL}")
+        torch.cuda.empty_cache()
+        emit("mamba_layer", arch=MAMBA_ARCH, d_model=cfg.d_model,
+             d_inner=mamba_dims(cfg)[0], d_state=cfg.ssm.d_state,
+             dt_rank=mamba_dims(cfg)[1], batch=MAMBA_BATCH, seq=seq,
+             chunks=seq // min(mamba.SCAN_CHUNK, seq), remat=cfg.remat,
+             fwd_ms=cuda_ms(forward, MAMBA_REPS),
+             fwd_bwd_ms=cuda_ms(train_step, MAMBA_REPS),
+             fwd_max_memory_allocated=peak_fwd,
+             fwd_bwd_max_memory_allocated=peak_train,
+             fwd_profile=device_launches(forward),
+             fwd_bwd_profile=device_launches(train_step),
+             fp64_rows=MAMBA_FP64_ROWS, fp64_rel_err=rel,
+             fp64_rtol=MAMBA_FP64_RTOL)
+        del x
+    del params, leaves
     torch.cuda.empty_cache()
 
 
@@ -2261,7 +2410,8 @@ def phase_profile(dev, run, state, phase: str, profiled: bool = True):
         segments = segment_spans(prof.events(), run.sparsifier.overlap ==
                                  "backward")
     emit(phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms, stages=stages,
+         device_busy_share=busy_ms / wall_ms,
+         kernel_launches=sum(n for _, _, n in kernels), stages=stages,
          fallback=dict(step.gsync.fallback_reasons),
          sketch_tables=tables, segments=segments,
          top_kernels=[{"name": k[:90], "ms": ms, "calls": n}
@@ -3209,6 +3359,9 @@ def main(argv=None) -> int:
     ap.add_argument("--delta", action="store_true",
                     help="run only the device and build phases and the "
                     "delta phase (no kernels line)")
+    ap.add_argument("--mamba", action="store_true",
+                    help="run only the device and build phases and the "
+                    "mamba_layer phase (no kernels line)")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the port's source tree (default: this checkout's "
                     "src/), e.g. an unpacked older commit's, to compare "
@@ -3238,7 +3391,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()}")
         phase_world(args.world, os.path.abspath(args.src))
         return finish(smi, None)
-    if args.train or args.serve or args.delta:
+    if args.train or args.serve or args.delta or args.mamba:
         for name in args.train or ():
             fields, kernels, schedule = TRAIN_PATHS[name]
             _, run, state, *_ = phase_train(
@@ -3251,6 +3404,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if args.serve:
             phase_serve(dev)
+        if args.mamba:
+            phase_mamba_layer(dev)
         if args.delta:
             phase_delta(dev)
         return finish(smi, None)
@@ -3280,6 +3435,7 @@ def main(argv=None) -> int:
         del state
         torch.cuda.empty_cache()
     phase_serve(dev)
+    phase_mamba_layer(dev)
     delta = phase_delta(dev)
     # the other models' cells have no dense baseline of their own
     emit("compression_share", **compression_shares(

@@ -6,10 +6,10 @@ runs is here: the dense decoder family (every dense layout of the
 registry: layernorm or rmsnorm, the SwiGLU or the GELU MLP, QKV bias,
 tied or untied embeddings, RoPE or sinusoidal positions, full or sliding
 attention), the MoE family (routed and shared experts, a dense prefix,
-MLA attention expanded or absorbed), the sparsifier fields that select
-among its paths, and the optimizers. ``SSMConfig`` holds only the mixer's
-kind, so that a layer pattern with another mixer reads as the
-reference's and raises. A field value outside the slice raises
+MLA attention expanded or absorbed), the recurrent families (xLSTM's
+mLSTM and sLSTM mixers; Mamba, alone or in the Jamba hybrid with
+attention and MoE layers), the sparsifier fields that select among its
+paths, and the optimizers. A field value outside the slice raises
 ``NotImplementedError`` naming its ROADMAP item where it would be used
 (``core.sparsify.check_supported``, ``core.aggregate.check_supported``,
 ``models.transformer.check_model``).
@@ -36,13 +36,21 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    kind: str = "mamba"           # mamba | xlstm (not ported: ROADMAP A13)
+    kind: str = "mamba"           # mamba | xlstm
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2               # d_inner = expand * d_model
+    dt_rank: int = 0              # 0 -> ceil(d_model/16)
+    # xlstm
+    slstm_proj_factor: float = 4 / 3
+    mlstm_proj_factor: float = 2.0
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe (others: ROADMAP A13)
+    family: str                   # dense | moe | ssm | hybrid (vlm, audio:
+                                  # ROADMAP A13c)
     source: str
     n_layers: int
     d_model: int
@@ -84,7 +92,10 @@ class ModelConfig:
     def param_count(self) -> int:
         """Analytic parameter count, exact for the port's init as
         ``repro.models.params`` counts the reference's: every dense
-        layout, MLA, routed and shared experts, the dense prefix."""
+        layout, MLA, routed and shared experts, the dense prefix, the
+        Mamba, mLSTM and sLSTM mixers (a Mamba layer has ``norm1``
+        before its mixer; an mLSTM or sLSTM layer has its norm inside
+        the mixer, counted as the reference counts it, 2 d)."""
         d, hd = self.d_model, self.resolved_head_dim
         h, kv = self.n_heads, self.n_kv_heads
         norm = d * (2 if self.norm == "layernorm" else 1)
@@ -97,6 +108,18 @@ class ModelConfig:
             attn = d * h * hd + 2 * d * kv * hd + h * hd * d
             if self.qkv_bias:
                 attn += h * hd + 2 * kv * hd
+        mixer = {"attn": norm + attn}
+        if self.ssm is not None:
+            s = self.ssm
+            (di, dtr), ds = mamba_dims(self), s.d_state
+            mixer["mamba"] = (norm + 2 * d * di + s.d_conv * di + di
+                              + di * (dtr + 2 * ds) + dtr * di + di
+                              + di * ds + di + di * d)
+            dm = mlstm_dims(self)[0]
+            mixer["mlstm"] = 2 * d + 2 * d * dm + 3 * dm * dm + 2 * h * dm \
+                + dm + dm * d
+            dsl = slstm_dims(self)
+            mixer["slstm"] = 2 * d + 4 * d * dsl + dsl + dsl * d
 
         def mlp(d_ff):
             if self.act == "silu":
@@ -109,11 +132,53 @@ class ModelConfig:
             ffn["moe"] = norm + d * m.n_experts + m.n_experts * per_expert
             if m.n_shared_experts:
                 ffn["moe"] += mlp(m.d_expert * m.n_shared_experts)
-        period, kinds = ffn_pattern(self)
+        pattern = layer_pattern(self)
         body = self.n_layers - self.n_dense_prefix
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        n += norm + self.n_dense_prefix * (norm + attn + ffn["dense"])
-        return n + body // period * sum(norm + attn + ffn[f] for f in kinds)
+        n += norm + self.n_dense_prefix * (mixer[pattern[0][0]]
+                                           + ffn["dense"])
+        return n + body // len(pattern) * sum(mixer[m] + ffn[f]
+                                              for m, f in pattern)
+
+
+def mamba_dims(cfg) -> tuple:
+    """(d_inner, dt_rank) of a Mamba mixer: expand * d_model, and the
+    config's dt_rank or ceil(d_model / 16)."""
+    return (cfg.ssm.expand * cfg.d_model,
+            cfg.ssm.dt_rank or max(1, -(-cfg.d_model // 16)))
+
+
+def mlstm_dims(cfg) -> tuple:
+    """(d_inner, heads, head dim) of an mLSTM mixer: d_inner =
+    int(mlstm_proj_factor * d_model) over the config's heads."""
+    d_inner = int(cfg.ssm.mlstm_proj_factor * cfg.d_model)
+    return d_inner, cfg.n_heads, d_inner // cfg.n_heads
+
+
+def slstm_dims(cfg) -> int:
+    """d_inner of an sLSTM mixer: slstm_proj_factor * d_model rounded up
+    to a multiple of 16."""
+    return -(-int(cfg.ssm.slstm_proj_factor * cfg.d_model) // 16) * 16
+
+
+def layer_pattern(cfg) -> list:
+    """[(mixer, ffn)] for one super-block period (the reference's
+    ``layer_pattern``). mixer: attn | mamba | mlstm | slstm (xLSTM
+    alternates mLSTM and sLSTM; a hybrid has attention where idx %
+    attn_every == attn_offset and its SSM elsewhere); ffn: dense | moe |
+    none (``ffn_pattern``)."""
+    p, kinds = ffn_pattern(cfg)
+    out = []
+    for j in range(p):
+        if cfg.attn_every == 0:
+            mixer = "mlstm" if (cfg.ssm.kind == "xlstm" and j % 2 == 0) \
+                else ("slstm" if cfg.ssm.kind == "xlstm" else "mamba")
+        elif cfg.attn_every == 1 or j % cfg.attn_every == cfg.attn_offset:
+            mixer = "attn"
+        else:
+            mixer = cfg.ssm.kind if cfg.ssm.kind != "xlstm" else "mlstm"
+        out.append((mixer, kinds[j]))
+    return out
 
 
 def ffn_pattern(cfg) -> tuple:
@@ -241,7 +306,7 @@ def resolve_model_cfg(run: RunConfig) -> ModelConfig:
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _ARCH_MODULES = ["stablelm_3b", "starcoder2_7b", "qwen1_5_32b",
                  "granite_8b", "granite_moe_3b_a800m",
-                 "deepseek_v2_lite_16b"]
+                 "deepseek_v2_lite_16b", "xlstm_125m", "jamba_v0_1_52b"]
 
 
 def register(name: str):
@@ -262,7 +327,7 @@ def get_config(name: str) -> ModelConfig:
         _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port knows "
-                       f"{sorted(_REGISTRY)} (other families: ROADMAP A13)")
+                       f"{sorted(_REGISTRY)} (other families: ROADMAP A13c)")
     return _REGISTRY[name]()
 
 
@@ -271,7 +336,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     of at least 2 layers plus the dense prefix, d_model 128, 4 heads of
     32, d_ff 256, vocab 512, window 64, max_seq_len 4096, fp32; MoE cut
     to 4 experts of 64, top-2, at most one shared expert; MLA to lora 32,
-    rope dim 16 and v dim 32 (the reference's ``reduced_config``)."""
+    rope dim 16 and v dim 32; an SSM to d_state 8, d_conv 4 (the
+    reference's ``reduced_config``)."""
     period = ffn_pattern(cfg)[0]
     n_kv = min(cfg.n_kv_heads, 4)
     if 4 % n_kv:
@@ -281,11 +347,14 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         moe = replace(cfg.moe, n_experts=4, top_k=min(2, cfg.moe.top_k),
                       n_shared_experts=min(1, cfg.moe.n_shared_experts),
                       d_expert=64)
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = replace(ssm, d_state=8, d_conv=4)
     return replace(
         cfg, name=cfg.name + "-smoke",
         n_layers=max(2, period) + cfg.n_dense_prefix, d_model=128,
         n_heads=4, n_kv_heads=n_kv, head_dim=32, d_ff=256, vocab_size=512,
         kv_lora_rank=32 if cfg.kv_lora_rank else 0, q_lora_rank=0,
         rope_head_dim=16 if cfg.kv_lora_rank else 64,
-        v_head_dim=32 if cfg.v_head_dim else 0, moe=moe,
+        v_head_dim=32 if cfg.v_head_dim else 0, moe=moe, ssm=ssm,
         window=64, dtype="float32", max_seq_len=4096)

@@ -2,8 +2,8 @@
 
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
 the port's are nested dicts (and lists: a dense ``prefix``) of tensors in
-the same layout, so parameters, decode caches and fp32 state move as
-they are. Three translations: the
+the same layout, so parameters (every mixer's: attention, Mamba, mLSTM,
+sLSTM), decode caches and fp32 state move as they are. Three translations: the
 index dtype (the reference's uint32 indices become the port's int32 view
 of the same bits, ``core.bigvec``, and back), bf16 state and caches
 (``ef_dtype="bfloat16"``, a bf16 model's k and v: the bits cross as
@@ -72,8 +72,9 @@ def params_to_jax(params: dict) -> dict:
 
 def cache_from_jax(cache, device="cpu") -> dict:
     """The reference's decode cache ``{pos, blocks/l{j}/{k, v} | {ckv,
-    krope}[, prefix/[i]/...]}`` (numpy leaves) -> the port's, dtypes
-    kept (a bf16 cache bit for bit)."""
+    krope} | {conv, h} | {c, n, m}[, prefix/[i]/...]}`` (numpy leaves:
+    attention's, Mamba's and the xLSTM mixers' state) -> the port's,
+    dtypes kept (a bf16 cache bit for bit, a recurrent state's fp32)."""
     return tree_map(lambda x: _to_tensor(x, device), cache)
 
 

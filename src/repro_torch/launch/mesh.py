@@ -29,11 +29,11 @@ def make_group(data: int, model: int = 1, pods: int = 1, device=None):
     over gloo when ``device="cpu"``. Raises when there is no group to
     join, when its size is not ``data * pods`` and when the host has too
     few cards; never runs one rank in place of a group. ``model > 1``
-    (tensor parallelism) raises naming ROADMAP A13."""
+    (tensor parallelism) raises naming ROADMAP A13d."""
     if model > 1:
         raise NotImplementedError(
             f"--model {model}: tensor parallelism is not ported yet; the "
-            "port is data-parallel (ROADMAP A13)")
+            "port is data-parallel (ROADMAP A13d)")
     n = data * pods
     if n < 1:
         raise ValueError(f"--data {data} --pods {pods}: no ranks")

@@ -3,6 +3,8 @@ stream greedy decode steps.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --smoke --prompt-len 48 --new-tokens 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
       --smoke --apply-deltas /tmp/spool \
       --delta-fault-schedule loss:0.4,seed=2 --device cpu
@@ -17,8 +19,9 @@ over n ranks started by ``torchrun`` (``launch.mesh.make_group``: NCCL
 on a card each, gloo with ``--device cpu``): each rank prefills and
 decodes its rows of the global ``--batch``, the logits gathered, and
 rank 0 logs. ``--mla-absorb`` serves an MLA model (deepseek-v2-lite-16b)
-in the absorbed form. ``--model`` above 1 and ``--devices`` raise naming
-ROADMAP A13, and ``--apply-deltas`` over more than one rank naming A14. The sliding-window
+in the absorbed form. ``--model`` above 1 raises naming ROADMAP A13d,
+``--devices`` naming A13, and ``--apply-deltas`` over more than one rank
+naming A14. The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's
 ms a step and the first two sequences. With ``--apply-deltas DIR`` (a

@@ -20,6 +20,8 @@
       --overlap backward --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \
       --smoke --comm sparse --pipeline fused --fixed-batch --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+      --smoke --comm sparse --pipeline fused --fixed-batch --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --steps 12 --publish-deltas /tmp/spool --delta-k 4096 \
       --delta-snapshot-every 4 --checkpoint-dir /tmp/ckpt --device cpu
@@ -27,10 +29,12 @@
       --arch stablelm-3b --smoke --comm sparse --pipeline fused --data 4
 
 ``--arch`` takes every config of the registry the port serves: the dense
-stablelm-3b, granite-8b, qwen1.5-32b and starcoder2-7b, and the MoE
+stablelm-3b, granite-8b, qwen1.5-32b and starcoder2-7b, the MoE
 granite-moe-3b-a800m and deepseek-v2-lite-16b (MLA, shared experts, a
-dense first layer), whose steps also log the aux terms ``lb``, ``z``
-and ``drop`` (each summed over the MoE layers).
+dense first layer), the recurrent xlstm-125m (mLSTM and sLSTM) and the
+hybrid jamba-v0.1-52b (Mamba, attention, MoE); the steps of a model with
+MoE layers also log the aux terms ``lb``, ``z`` and ``drop`` (each
+summed over the MoE layers).
 
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact
@@ -44,7 +48,7 @@ config the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut
 in depth), and a process group.
 
 ``--data`` and ``--pods`` (the reference's mesh flags; ``--model`` > 1,
-tensor parallelism, raises naming ROADMAP A13) ask for ``data * pods``
+tensor parallelism, raises naming ROADMAP A13d) ask for ``data * pods``
 data-parallel ranks, one process each, started by ``torchrun``: each
 joins the default process group on its own card (NCCL), or on the CPU
 over gloo with ``--device cpu`` (``launch.mesh.make_group``). ``--batch``
@@ -149,7 +153,7 @@ def parse_args(argv=None):
                          "under torchrun)")
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel degree; above 1 is not ported "
-                         "(ROADMAP A13)")
+                         "(ROADMAP A13d)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods; the data-parallel ranks are data * pods, "
                          "pod-major")

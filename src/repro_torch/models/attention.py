@@ -30,7 +30,7 @@ absorbed form (``cfg.mla_absorb``) projects the queries through the key
 up-projection and attends over ``ckv`` itself, applying the value
 up-projection to the context. The scale is head_dim ** -0.5 in both. The
 cache of an MLA layer is ``{ckv, krope}``. Context-parallel decode of
-MLA raises (ROADMAP A13).
+MLA raises (ROADMAP A13e).
 
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
@@ -309,6 +309,10 @@ def cache_max_seq(cfg, seq_len: int) -> int:
     return seq_len
 
 
+# the leaves of an attention layer's decode cache (rows, then slots)
+CACHE_KEYS = ("k", "v", "ckv", "krope")
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype, *, lead=(),
                device=None) -> dict:
     """Zero k and v of ``max_seq`` slots: the whole cache, or under
@@ -402,7 +406,7 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
 def mla_cp_message(cfg) -> str:
     return (f"{cfg.name}: context-parallel decode of MLA is not ported "
             "yet; the port decodes MLA at one rank or data-parallel "
-            "(ROADMAP A13)")
+            "(ROADMAP A13e)")
 
 
 def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,

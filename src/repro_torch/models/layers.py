@@ -93,6 +93,18 @@ def mlp_fwd(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return h @ p["down"].to(dt) + p["down_b"].to(dt)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, spelled as jax spells it: ``jnp.logaddexp(x,
+    0)`` = max(x, 0) + log1p(exp(-|x|)) (``F.softplus`` is another
+    formula, linear past its threshold of 20)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
 def init_embed(gen, cfg, *, device=None) -> dict:
     """{tok} and, untied, the LM head {head} (drawn first)."""
     p = {}

@@ -16,7 +16,7 @@ on the group; a sum is taken in rank order on every rank (an all-gather,
 then the adds), so every rank holds the same bits.
 
 The tensor-parallel fields (``model_axis``, ``tp``, ``seq_parallel``,
-``attn_dist``) come with ROADMAP A13: asking for one raises.
+``attn_dist``) come with ROADMAP A13d: asking for one raises.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ class Parallel:
         if name in _TP_FIELDS:
             raise NotImplementedError(
                 f"Parallel.{name}: tensor parallelism is not ported yet; "
-                "the port's Parallel is data-parallel only (ROADMAP A13)")
+                "the port's Parallel is data-parallel only (ROADMAP A13d)")
         raise AttributeError(name)
 
     @property

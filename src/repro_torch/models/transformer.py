@@ -1,9 +1,11 @@
-"""Decoder transformer (the port of ``repro.models.transformer`` for the
-dense and MoE families at tensor-parallel degree 1): training loss with
-the MoE aux terms, prefill and cached decode.
+"""Decoder over heterogeneous layer stacks (the port of
+``repro.models.transformer`` for the dense, MoE, SSM and hybrid families
+at tensor-parallel degree 1): attention, Mamba, mLSTM or sLSTM mixers,
+dense, MoE or no FFN; training loss with the MoE aux terms, prefill and
+cached decode.
 
 Layers are grouped into super-blocks of period P (the reference's
-``superblock_period``; 1 for every ported config): ``blocks/l{j}`` holds
+``superblock_period``: xLSTM 2, Jamba 8, else 1): ``blocks/l{j}`` holds
 the j-th layer of every super-block stacked along a leading axis (the
 reference's ``jax.lax.scan`` stack), and a model with a dense prefix
 (DeepSeek-V2's first layer) holds those layers, unstacked, in the list
@@ -11,16 +13,20 @@ reference's ``jax.lax.scan`` stack), and a model with a dense prefix
 vector of both packages lines up element for element::
 
     blocks/l{j}/{attn/{[bk,] wk, wo, [bq,] wq, [bv,] wv}
-                  | attn/{dkv, kv_norm, uk, uv, wo, wq},
+                  | attn/{dkv, kv_norm, uk, uv, wo, wq}
+                  | mamba/{...} | mlstm/{...} | slstm/{...},
                  mlp/{down, gate, up} | mlp/{down, down_b, up, up_b}
                   | moe/{down, gate, router, [shared/{down, gate, up},] up},
-                 norm1/{[bias,] scale}, norm2/{[bias,] scale}}
+                 [norm1/{[bias,] scale},] [norm2/{[bias,] scale}]}
     embed/{[head,] tok}
     final_norm/{[bias,] scale}
     [prefix/[i]/{attn, mlp, norm1, norm2}]
 
 (bracketed leaves by layout: QKV bias, layernorm, untied embeddings,
-shared experts, a dense prefix). The forward unbinds the stacked axis
+shared experts, a dense prefix; ``norm1`` before attention and Mamba,
+not before an mLSTM or sLSTM, which hold their own norm; ``norm2`` only
+with an FFN; the mixers' leaves in ``models.mamba`` and
+``models.xlstm``). The forward unbinds the stacked axis
 once, so each stacked leaf's gradient is assembled by one ``stack``
 rather than one full-size scatter per layer, and recomputes each layer
 in the backward pass (``torch.utils.checkpoint``) when ``cfg.remat``.
@@ -29,21 +35,25 @@ The loss adds (load_balance_loss * lb_loss + router_z_loss * z_loss) /
 reference's.
 
 The decode cache keeps the reference's tree too, ``{pos, blocks/l{j}/{k,
-v} | {ckv, krope}[, prefix/[i]/...]}`` with the super-block axis leading
-on the stacked leaves, so a cache crosses between the packages
-(``convert.cache_from_jax``). ``pos`` is a 0-d int32 tensor on the
-device: decode reads it there, and no step waits on the host. Mixers
-other than attention (Mamba, mLSTM, sLSTM) raise naming ROADMAP A13.
+v} | {ckv, krope} | {conv, h} | {c, n, m}[, prefix/[i]/...]}`` (by the
+layer's mixer) with the super-block axis leading on the stacked leaves,
+so a cache crosses between the packages (``convert.cache_from_jax``).
+``pos`` is a 0-d int32 tensor on the device: decode reads it there, and
+no step waits on the host. A model with an SSM adds no sinusoidal
+positions (the reference's rule: its recurrence carries the order).
+The vision and audio families raise naming ROADMAP A13c.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ffn_pattern
+from repro_torch.configs.base import ffn_pattern, layer_pattern
 from repro_torch.core.flatten import tree_from_items, tree_items
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     embed_fwd, init_embed, init_mlp, init_norm, lm_head_fwd, mlp_fwd,
     norm_fwd, sharded_xent,
@@ -54,29 +64,13 @@ AUX_KEYS = ("lb_loss", "z_loss", "drop_frac")
 
 
 # (field, values the port serves, ROADMAP item that ports the rest)
-_SLICE = (("family", ("dense", "moe"), "A13"),
+_SLICE = (("family", ("dense", "moe", "ssm", "hybrid"), "A13c"),
           ("attn_kind", ("full", "sliding", "mla"), "A13"))
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
 def superblock_period(cfg) -> int:
     return ffn_pattern(cfg)[0]
-
-
-def layer_pattern(cfg) -> list:
-    """[(mixer, ffn)] for one super-block period. mixer: attn|mamba|
-    mlstm|slstm; ffn: dense|moe|none (the reference's rule)."""
-    p, kinds = ffn_pattern(cfg)
-    out = []
-    for j in range(p):
-        if cfg.attn_every == 0:
-            mixer = "mlstm" if (cfg.ssm.kind == "xlstm" and j % 2 == 0) \
-                else ("slstm" if cfg.ssm.kind == "xlstm" else "mamba")
-        elif cfg.attn_every == 1 or j % cfg.attn_every == cfg.attn_offset:
-            mixer = "attn"
-        else:
-            mixer = cfg.ssm.kind if cfg.ssm.kind != "xlstm" else "mlstm"
-        out.append((mixer, kinds[j]))
-    return out
 
 
 def n_superblocks(cfg) -> int:
@@ -101,15 +95,31 @@ def check_model(cfg) -> None:
                 f"{cfg.name}: {field}={value!r} is not ported yet; the port "
                 f"serves {served} (ROADMAP {item})")
     for mixer, _ in layer_pattern(cfg):
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer} mixer is not ported yet; the port "
-                "serves attention layers (ROADMAP A13)")
+        if mixer not in MIXERS:
+            raise ValueError(f"{cfg.name}: unknown mixer {mixer!r} "
+                             f"(expected one of {MIXERS})")
 
 
-def _init_layer(gen, cfg, ffn: str, lead=(), device=None) -> dict:
-    p = {"norm1": init_norm(cfg, lead=lead, device=device),
-         "attn": attn.init_attention(gen, cfg, lead=lead, device=device)}
+def cp_message(cfg) -> str:
+    """Why context-parallel decode of an SSM or hybrid model raises."""
+    return (f"{cfg.name}: context-parallel decode of the {cfg.family} "
+            "family is not ported yet; the reference replicates the "
+            "recurrent state over the ranks (ROADMAP A13e)")
+
+
+def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(),
+                device=None) -> dict:
+    p = {}
+    if mixer in ("attn", "mamba"):
+        p["norm1"] = init_norm(cfg, lead=lead, device=device)
+    if mixer == "attn":
+        p["attn"] = attn.init_attention(gen, cfg, lead=lead, device=device)
+    elif mixer == "mamba":
+        p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
+    elif mixer == "mlstm":
+        p["mlstm"] = xl.init_mlstm(gen, cfg, lead=lead, device=device)
+    else:
+        p["slstm"] = xl.init_slstm(gen, cfg, lead=lead, device=device)
     if ffn != "none":
         p["norm2"] = init_norm(cfg, lead=lead, device=device)
     if ffn == "dense":
@@ -124,13 +134,15 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
     super-blocks' layers, the embedding, the final norm, the prefix."""
     check_model(cfg)
     lead = (n_superblocks(cfg),)
-    blocks = {f"l{j}": _init_layer(gen, cfg, ffn, lead, device)
-              for j, (_, ffn) in enumerate(layer_pattern(cfg))}
+    pattern = layer_pattern(cfg)
+    blocks = {f"l{j}": _init_layer(gen, cfg, mixer, ffn, lead, device)
+              for j, (mixer, ffn) in enumerate(pattern)}
     params = {"embed": init_embed(gen, cfg, device=device),
               "blocks": blocks,
               "final_norm": init_norm(cfg, device=device)}
     if cfg.n_dense_prefix:
-        params["prefix"] = [_init_layer(gen, cfg, "dense", device=device)
+        params["prefix"] = [_init_layer(gen, cfg, pattern[0][0], "dense",
+                                        device=device)
                             for _ in range(cfg.n_dense_prefix)]
     return params
 
@@ -148,10 +160,45 @@ def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None):
     return x, aux
 
 
-def _layer_fwd(p: dict, x: torch.Tensor, cfg, ffn: str, *aux):
-    x = x + attn.attn_fwd_full(p["attn"], norm_fwd(p["norm1"], x, cfg.norm),
-                               cfg)
-    x, aux = _ffn(p, x, cfg, ffn, aux)
+def _mixer(p: dict, x: torch.Tensor, cfg, mixer: str,
+           cache: dict = None) -> torch.Tensor:
+    """The layer's mixer half on the residual x (norm1 first for
+    attention and Mamba). With ``cache`` (one layer's views of a decode
+    cache) a prefill: attention writes the prompt's k and v, a recurrent
+    mixer its final state."""
+    if mixer == "attn":
+        h = norm_fwd(p["norm1"], x, cfg.norm)
+        y = attn.attn_fwd_full(p["attn"], h, cfg) if cache is None else \
+            attn.attn_prefill(p["attn"], h, cache, cfg)
+    elif mixer == "mamba":
+        y = mam.mamba_fwd(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm), cfg,
+                          cache)
+    elif mixer == "mlstm":
+        y = xl.mlstm_fwd(p["mlstm"], x, cfg, cache)
+    else:
+        y = xl.slstm_fwd(p["slstm"], x, cfg, cache)
+    return x + y
+
+
+def _mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg,
+                  mixer: str, pal) -> torch.Tensor:
+    """One token through the layer's mixer half, its cache updated in
+    place."""
+    if mixer == "attn":
+        y = attn.attn_decode(p["attn"], norm_fwd(p["norm1"], x, cfg.norm),
+                             cache, pos, cfg, pal)
+    elif mixer == "mamba":
+        y = mam.mamba_decode(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm),
+                             cache, cfg)
+    elif mixer == "mlstm":
+        y = xl.mlstm_decode(p["mlstm"], x, cache, cfg)
+    else:
+        y = xl.slstm_decode(p["slstm"], x, cache, cfg)
+    return x + y
+
+
+def _layer_fwd(p: dict, x: torch.Tensor, cfg, mixer: str, ffn: str, *aux):
+    x, aux = _ffn(p, _mixer(p, x, cfg, mixer), cfg, ffn, aux)
     return (x, *aux)
 
 
@@ -164,12 +211,14 @@ def layer_views(blocks: dict, n_layers: int) -> list:
 
 
 def layers(params: dict, cfg) -> list:
-    """[(layer parameters, ffn kind)] in forward order: the prefix, then
-    each super-block's layers."""
-    out = [(p, "dense") for p in params.get("prefix", [])]
+    """[(layer parameters, mixer, ffn kind)] in forward order: the
+    prefix (the pattern's first mixer, a dense FFN), then each
+    super-block's layers."""
     pattern = layer_pattern(cfg)
+    out = [(p, pattern[0][0], "dense") for p in params.get("prefix", [])]
     for sb in layer_views(params["blocks"], n_superblocks(cfg)):
-        out.extend((sb[f"l{j}"], ffn) for j, (_, ffn) in enumerate(pattern))
+        out.extend((sb[f"l{j}"], mixer, ffn)
+                   for j, (mixer, ffn) in enumerate(pattern))
     return out
 
 
@@ -190,12 +239,12 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg,
     remat = cfg.remat and torch.is_grad_enabled()
     aux = tuple(torch.zeros((), dtype=torch.float32, device=x.device)
                 for _ in AUX_KEYS)
-    for p, ffn in layers(params, cfg):
+    for p, mixer, ffn in layers(params, cfg):
         if remat:
-            x, *aux = checkpoint(_layer_fwd, p, x, cfg, ffn, *aux,
+            x, *aux = checkpoint(_layer_fwd, p, x, cfg, mixer, ffn, *aux,
                                  use_reentrant=False)
         else:
-            x, *aux = _layer_fwd(p, x, cfg, ffn, *aux)
+            x, *aux = _layer_fwd(p, x, cfg, mixer, ffn, *aux)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return (x, dict(zip(AUX_KEYS, aux))) if with_aux else x
 
@@ -213,10 +262,11 @@ def sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
 def embed_batch(params: dict, tokens: torch.Tensor, cfg,
                 pos0=None) -> torch.Tensor:
     """tokens (B, S) -> x (B, S, d) in the model's dtype, with the
-    sinusoidal positions added when the model has no RoPE. ``pos0`` (a
-    0-d device tensor) is the first token's position, 0 by default."""
+    sinusoidal positions added when the model has neither RoPE nor an
+    SSM. ``pos0`` (a 0-d device tensor) is the first token's position, 0
+    by default."""
     x = embed_fwd(params["embed"], tokens, cfg)
-    if not cfg.rope:
+    if not cfg.rope and cfg.ssm is None:
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         if pos0 is not None:
             pos = pos + pos0
@@ -276,26 +326,44 @@ def full_logits(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 # Serving: prefill + decode (call under torch.inference_mode)
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg, mixer: str, batch: int, slots: int, dtype,
+                 lead=(), device=None) -> dict:
+    if mixer == "attn":
+        return attn.init_cache(cfg, batch, slots, dtype, lead=lead,
+                               device=device)
+    if mixer == "mamba":
+        return mam.init_mamba_cache(cfg, batch, dtype, lead=lead,
+                                    device=device)
+    if mixer == "mlstm":
+        return xl.init_mlstm_cache(cfg, batch, lead=lead, device=device)
+    return xl.init_slstm_cache(cfg, batch, lead=lead, device=device)
+
+
 def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
                       device=None, pal=None) -> dict:
     """Zero cache tree for ``batch`` sequences of up to ``max_seq``
-    positions (a sliding model keeps min(window, max_seq) slots); with
-    ``pal.cache_seq_sharded`` this rank's slice of those slots, which
-    must split evenly over the group (not for MLA: ROADMAP A13)."""
+    positions, each layer's by its mixer: attention's k and v (a sliding
+    model keeps min(window, max_seq) slots), a recurrent mixer's state;
+    with ``pal.cache_seq_sharded`` this rank's slice of the slots, which
+    must split evenly over the group (not for MLA, nor for a model with
+    an SSM: ROADMAP A13e)."""
     check_model(cfg)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
         if cfg.attn_kind == "mla":
             raise NotImplementedError(attn.mla_cp_message(cfg))
+        if cfg.ssm is not None:
+            raise NotImplementedError(cp_message(cfg))
         slots = cache_slice_len(slots, pal.size)
     lead = (n_superblocks(cfg),)
+    pattern = layer_pattern(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
-             "blocks": {f"l{j}": attn.init_cache(cfg, batch, slots, dtype,
-                                                 lead=lead, device=device)
-                        for j in range(len(layer_pattern(cfg)))}}
+             "blocks": {f"l{j}": _layer_cache(cfg, mixer, batch, slots,
+                                              dtype, lead, device)
+                        for j, (mixer, _) in enumerate(pattern)}}
     if cfg.n_dense_prefix:
-        cache["prefix"] = [attn.init_cache(cfg, batch, slots, dtype,
-                                           device=device)
+        cache["prefix"] = [_layer_cache(cfg, pattern[0][0], batch, slots,
+                                        dtype, device=device)
                            for _ in range(cfg.n_dense_prefix)]
     return cache
 
@@ -318,10 +386,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg,
     cache = init_decode_cache(cfg, b, max_seq, getattr(torch, cfg.dtype),
                               tokens.device)
     x = embed_batch(params, tokens, cfg)
-    for (p, ffn), lc in zip(layers(params, cfg), layer_caches(cache, cfg)):
-        x = x + attn.attn_prefill(p["attn"], norm_fwd(p["norm1"], x,
-                                                      cfg.norm), lc, cfg)
-        x = _ffn(p, x, cfg, ffn)[0]
+    for (p, mixer, ffn), lc in zip(layers(params, cfg),
+                                   layer_caches(cache, cfg)):
+        x = _ffn(p, _mixer(p, x, cfg, mixer, lc), cfg, ffn)[0]
     cache["pos"].fill_(s)
     x = norm_fwd(params["final_norm"], x[:, -1:], cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache
@@ -330,16 +397,16 @@ def prefill(params: dict, tokens: torch.Tensor, cfg,
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
                 cfg, pal=None) -> tuple:
     """One token a sequence, token (B, 1) -> (logits (B, V), cache). The
-    cache is updated in place (the step's slot of every layer, ``pos`` +
-    1) and returned. With ``pal.cache_seq_sharded`` the cache is this
-    rank's slice of the sequence (``attention.attn_decode``)."""
+    cache is updated in place (the step's slot of every attention layer,
+    every recurrent layer's state, ``pos`` + 1) and returned. With
+    ``pal.cache_seq_sharded`` the cache is this rank's slice of the
+    sequence (``attention.attn_decode``)."""
     pos = cache["pos"]
     x = embed_batch(params, token, cfg, pos0=pos)
-    for (p, ffn), lc in zip(layers(params, cfg), layer_caches(cache, cfg)):
-        x = x + attn.attn_decode(p["attn"], norm_fwd(p["norm1"], x,
-                                                     cfg.norm),
-                                 lc, pos, cfg, pal)
-        x = _ffn(p, x, cfg, ffn)[0]
+    for (p, mixer, ffn), lc in zip(layers(params, cfg),
+                                   layer_caches(cache, cfg)):
+        x = _ffn(p, _mixer_decode(p, x, lc, pos, cfg, mixer, pal), cfg,
+                 ffn)[0]
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache

@@ -27,10 +27,12 @@ data axes:
   not split.
 
 A batch (or cache) that n does not split raises ValueError; tensor
-parallelism (``model > 1``) and context-parallel decode of an MLA model
-raise NotImplementedError naming ROADMAP A13. The model may be of the
-dense or the MoE family; an MoE layer's capacity follows the tokens a
-rank routes, as the reference's does under its shard_map.
+parallelism (``model > 1``) raises NotImplementedError naming ROADMAP
+A13d, and context-parallel decode of an MLA, SSM or hybrid model naming
+A13e. The model may be of the dense, MoE, SSM or hybrid family; an MoE
+layer's capacity follows the tokens a rank routes, as the reference's
+does under its shard_map; a recurrent layer's state is cut by rows like
+attention's k and v.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
-from repro_torch.core.flatten import tree_leaves, tree_map
+from repro_torch.core.flatten import tree_items, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
@@ -49,19 +51,21 @@ def check_serving(model: int = 1) -> None:
     if model > 1:
         raise NotImplementedError(
             f"tensor-parallel serving (model={model}) is not ported yet; "
-            "the port serves data-parallel ranks (ROADMAP A13)")
+            "the port serves data-parallel ranks (ROADMAP A13d)")
 
 
 def serve_parallel(run: RunConfig, group=None, *, decode: bool) -> Parallel:
     """The serving step's ``Parallel`` over ``group``: the cache's
     sequence axis sharded (context-parallel decode) when ``decode`` and
     the global batch is below the group's size; NotImplementedError
-    then for an MLA model (ROADMAP A13)."""
+    then for an MLA model or a model with an SSM (ROADMAP A13e)."""
     n, _ = world(group)
     sharded = decode and run.shape.global_batch < n
     cfg = resolve_model_cfg(run)
     if sharded and cfg.attn_kind == "mla":
         raise NotImplementedError(attn.mla_cp_message(cfg))
+    if sharded and cfg.ssm is not None:
+        raise NotImplementedError(tfm.cp_message(cfg))
     return Parallel(group=group, cache_seq_sharded=sharded)
 
 
@@ -86,17 +90,20 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
     (``tfm.prefill``'s) under :func:`serve_parallel`'s layout for decode:
     a slice of the slots (context-parallel), or of the rows; the step
     counter as it is. The stacked ``blocks`` leaves hold the rows on
-    dim 1 and the slots on dim 2, the ``prefix`` layers' a dim before."""
+    dim 1 and an attention layer's slots on dim 2, the ``prefix``
+    layers' a dim before; a recurrent layer's state has rows only."""
     n, r = world(group)
     pal = serve_parallel(run, group, decode=True)
     rows, slots = decode_cache_layout(run, n, pal.cache_seq_sharded)
     cfg = resolve_model_cfg(run)
-    have = tuple(tree_leaves(cache["blocks"])[0].shape[1:3])
     want = (run.shape.global_batch,
             attn.cache_max_seq(cfg, run.shape.seq_len))
-    if have != want:
-        raise ValueError(f"a cache of (rows, slots) {have}, but the run "
-                         f"serves {want}")
+    for path, leaf in tree_items(cache["blocks"]):
+        have = tuple(leaf.shape[1:3]) if path[-1] in attn.CACHE_KEYS \
+            else (leaf.shape[1], want[1])
+        if have != want:
+            raise ValueError(f"a cache of (rows, slots) {have} at {path}, "
+                             f"but the run serves {want}")
     dim, size = (1, slots) if pal.cache_seq_sharded else (0, rows)
 
     def part(stacked):

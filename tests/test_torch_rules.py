@@ -40,7 +40,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "core/faults.py", "core/allocate.py",
                    "models/parallel.py", "launch/mesh.py", "models/moe.py",
                    "configs/granite_moe_3b_a800m.py",
-                   "configs/deepseek_v2_lite_16b.py"):
+                   "configs/deepseek_v2_lite_16b.py", "models/xlstm.py",
+                   "models/mamba.py", "configs/xlstm_125m.py",
+                   "configs/jamba_v0_1_52b.py"):
         assert pkg / module in files, module
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in FORBIDDEN.finditer(p.read_text())]
@@ -324,26 +326,38 @@ def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
     assert all(outcomes.values()), outcomes
 
 
-# the MoE family and MLA are served (item None): the reduced smoke
-# model's widths with 4 experts of 64, top-2; MLA at lora 32, rope dim 16
+# the MoE, SSM and hybrid families and MLA are served (item None): the
+# reduced smoke model's widths with 4 experts of 64, top-2; MLA at lora
+# 32, rope dim 16; xLSTM's alternating mLSTM and sLSTM; Mamba at d_state
+# 8 beside attention
 SERVED_BY_FIELD = {
     ("family", "moe"): dict(moe=cfgs.MoEConfig(n_experts=4, top_k=2,
                                                d_expert=64)),
     ("attn_kind", "mla"): dict(kv_lora_rank=32, rope_head_dim=16,
-                               v_head_dim=32)}
+                               v_head_dim=32),
+    ("family", "ssm"): dict(attn_every=0, rope=False, ssm=cfgs.SSMConfig(
+        kind="xlstm", d_state=8)),
+    ("family", "hybrid"): dict(attn_every=2, attn_offset=1, rope=False,
+                               ssm=cfgs.SSMConfig(kind="mamba", d_state=8))}
 
 
+# the ids are the cases' names from when the SSM and hybrid families
+# and the Mamba mixer raised
 @pytest.mark.parametrize("field,value,item", [
-    ("family", "moe", None), ("family", "ssm", "A13"),
-    ("family", "hybrid", "A13"), ("family", "audio", "A13"),
-    ("attn_kind", "mla", None), ("family", "vlm", "A13"),
-    ("mixer", "mamba", "A13")])
+    pytest.param("family", "moe", None, id="family-moe-None"),
+    pytest.param("family", "ssm", None, id="family-ssm-A13"),
+    pytest.param("family", "hybrid", None, id="family-hybrid-A13"),
+    pytest.param("family", "audio", "A13c", id="family-audio-A13"),
+    pytest.param("attn_kind", "mla", None, id="attn_kind-mla-None"),
+    pytest.param("family", "vlm", "A13c", id="family-vlm-A13"),
+    pytest.param("mixer", "mamba", None, id="mixer-mamba-A13")])
 def test_models_outside_the_slice_raise(field, value, item):
     """Every dense layout is served (rmsnorm, GELU, QKV bias, tied
-    embeddings, no RoPE, sliding attention), and so are the MoE family
-    and MLA: init, loss, cache and prefill run. Another family, and a
-    layer pattern with a Mamba mixer, raise at init, in the loss, in the
-    cache and in the serve step."""
+    embeddings, no RoPE, sliding attention), and so are the MoE, SSM
+    (xLSTM) and hybrid (Mamba beside attention) families, MLA, and a
+    Mamba mixer in a dense model's pattern: init, loss, cache and
+    prefill run. The vision and audio families raise naming ROADMAP
+    A13c at init, in the loss, in the cache and in the serve step."""
     from repro_torch.models import init_params, loss_fn, transformer
     from repro_torch.serve.step import build_prefill
     cfg = cfgs.reduced_config(cfgs.get_config("stablelm-3b"))
@@ -376,6 +390,45 @@ def test_models_outside_the_slice_raise(field, value, item):
                  lambda: build_prefill(run, "cpu")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
+
+
+def test_unknown_mixer_raises():
+    """An SSM kind the reference does not have makes a mixer no layer
+    runs: ValueError naming it."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(
+        cfgs.reduced_config(cfgs.get_config("stablelm-3b")), attn_every=2,
+        ssm=cfgs.SSMConfig(kind="s4"))
+    with pytest.raises(ValueError, match="unknown mixer 's4'"):
+        init_params(cfg, torch.Generator(), "cpu")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("xlstm-125m", "A13e"), ("jamba-v0.1-52b", "A13e"),
+    ("deepseek-v2-lite-16b", "A13")])
+def test_context_parallel_decode_of_ssm_models_raises(arch, item,
+                                                      monkeypatch):
+    """Context-parallel decode (a batch below the group's size) of an SSM
+    or hybrid model raises naming ROADMAP A13e, in ``serve_parallel``
+    (the decode builder) and in the cache; MLA's names A13. A
+    data-parallel batch of the same model builds."""
+    from repro_torch.models import transformer
+    from repro_torch.models.parallel import Parallel
+    from repro_torch.serve import step as serve_step
+    monkeypatch.setattr(serve_step, "world", lambda group: (2, 0))
+    cfg = cfgs.reduced_config(cfgs.get_config(arch))
+    for batch, raises in ((1, True), (2, False)):
+        run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
+            "serve", 8, batch, "decode"))
+        if not raises:
+            serve_step.build_decode_step(run, "cpu")
+            continue
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            serve_step.build_decode_step(run, "cpu")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            transformer.init_decode_cache(
+                cfg, 1, 8, torch.float32,
+                pal=Parallel(cache_seq_sharded=True))
 
 
 def test_context_parallel_mla_decode_raises():

@@ -20,7 +20,10 @@ global batch; MODE "launch" runs the train launcher's ``main()`` with
 the inputs' flags inside the group, then ``train()`` with the group on
 the same config; MODE "world_serve" runs each case of the inputs (JSON,
 as tests/jax_mesh_worker.py's mode "serve" reads it) through the serve
-step's builders over the group. Imports torch and the port only, and
+step's builders over the group; MODE "recurrent_serve" serves a
+data-parallel batch of the inputs' reduced ``arch`` (an SSM or hybrid
+model) through the builders, and decodes a one-rank prefill's cache that
+``shard_decode_cache`` cut by rows. Imports torch and the port only, and
 records whether jax was imported.
 """
 import json
@@ -302,6 +305,40 @@ def run_world_serve(rank: int, data) -> dict:
     return res
 
 
+def run_recurrent_serve(rank: int, data) -> dict:
+    """The gathered prefill logits and every decode step's, from the
+    builders' own prefill and from this rank's rows of a one-rank
+    prefill's cache (``shard_decode_cache``), with the shapes of this
+    rank's cache leaves."""
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.step import (build_decode_step, build_prefill,
+                                        shard_decode_cache)
+    group = dist.group.WORLD
+    model = cfgs.reduced_config(cfgs.get_config(str(data["arch"])))
+    params = _from_flat(model, data["init_params"])
+    tokens = torch.from_numpy(data["tokens"]).long()
+    prompt = int(data["prompt"])
+    run = cfgs.RunConfig(model=model, shape=cfgs.ShapeConfig(
+        "serve", tokens.shape[1], tokens.shape[0], "decode"),
+        sparsifier=cfgs.SparsifierConfig(kind="none"))
+    logits, cache = build_prefill(run, "cpu", group=group)(
+        params, {"tokens": tokens[:, :prompt]})
+    with torch.inference_mode():
+        _, whole = tfm.prefill(params, tokens[:, :prompt], model,
+                               max_seq=tokens.shape[1])
+    res = {"prefill": logits.numpy()}
+    for path, leaf in tree_items(cache["blocks"]):
+        res["shape_" + "_".join(map(str, path))] = np.asarray(leaf.shape)
+    dec = build_decode_step(run, "cpu", group=group)
+    for name, start in (("own", cache),
+                        ("cut", shard_decode_cache(whole, run, group))):
+        for t in range(prompt, tokens.shape[1]):
+            step_logits, start = dec(params, start, tokens[:, t:t + 1])
+            res[f"{name}_decode_{t - prompt}"] = step_logits.numpy()
+    return res
+
+
 def _raises(build_prefill, model, batch: int, seq: int, group) -> bool:
     """Whether the builders refuse a run of ``batch`` rows and ``seq``
     positions over the group with ValueError."""
@@ -328,7 +365,8 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                "elastic": run_elastic, "baselines": run_baselines,
                "checkpoint": run_checkpoint,
                "world_train": run_world_train, "launch": run_launch,
-               "world_serve": run_world_serve}[mode]
+               "world_serve": run_world_serve,
+               "recurrent_serve": run_recurrent_serve}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
