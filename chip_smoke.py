@@ -142,7 +142,15 @@ line and raising on any failure:
              of mLSTM and sLSTM, no FFN; J = 164,669,952): B1 and B2
              once a step, and the profile's CUDA launches a step (each
              mixer's scan is a loop of eager steps over the 128
-             positions);
+             positions); then train_phi3v, profile_phi3v: the main path
+             on Phi-3-vision-4.2B at full width cut to 8 layers (J =
+             1,103,023,104), batch 8 x 1024 (576 stub patches over the
+             first positions, whose targets carry no loss, then 448 text
+             targets a row); and train_whisper, profile_whisper: the
+             main path on Whisper-small at full width and depth (12
+             encoder and 12 decoder layers, J = 278,115,840), batch 8 x
+             128 tokens with 8 x 1500 stub frames; B1 and B2 once a
+             step in each;
 20b. train_proportional, train_adaptive, train_proportional_reference,
              train_overlap, each with its profile: density allocation and
              streaming over the S layer-aligned segments of the model
@@ -188,7 +196,15 @@ line and raising on any failure:
              super-block of 8 layers (13,295,235,072 parameters: Mamba,
              attention at position 4, MoE on the odd positions) in fp32
              only (bf16 copies beside the 53.2 GB of fp32 masters would
-             not fit), at capacity factor 16;
+             not fit), at capacity factor 16; then the vision and
+             audio families at full depth, fp32 and bf16:
+             Phi-3-vision-4.2B (32 layers) at a prompt of 1024 (576
+             stub patches and 448 text tokens: every decode position
+             lies past the patches) and Whisper-small (12 + 12 layers)
+             at a prompt of 48 with 1500 stub frames, whose cross k and
+             v every decode step reads (its bytes bound counts them, and
+             not the encoder's weights); the full forward takes the same
+             patches or frames;
 21a. mamba_layer: one Mamba layer at Jamba's width (d_model 4096,
              d_inner 8192, d_state 16, dt_rank 256) in fp32, batch 8, at
              seq 128 (one scan chunk) and 1024 (two chunks of 512), with
@@ -382,6 +398,12 @@ TRAIN_PATHS = {
                        ""),
     "train_xlstm": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
                     ""),
+    # the main path on the vision (a patch stub) and audio (an encoder
+    # over a frame stub, cross-attention) families
+    "train_phi3v": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                    ""),
+    "train_whisper": (dict(kind="regtopk", **FUSED), ("sweep1", "sweep2"),
+                      ""),
     # density allocation and streaming over the S layer-aligned segments
     # of the model (S worked out by path_segments): B1 and B2 once a
     # segment; the adaptive split under the fault schedule (B1's gated
@@ -427,6 +449,10 @@ SEGMENTED = ("train_proportional", "train_adaptive",
 # the train phases' model: (arch, depth, J); full widths, depth cut so
 # that J and its fp32 compression and Adam state fit one card
 TRAIN_MODEL = ("stablelm-3b", TRAIN_LAYERS, MAIN_J)
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# a model's own train sequence length: Phi-3-vision's first 576 positions
+# are patches without a target, so 128 would carry no loss at all
+TRAIN_SEQS = {"phi-3-vision-4.2b": 1024}
 TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
                 "train_starcoder2": ("starcoder2-7b", 3, 1_104_301_056),
                 "train_granite_moe": ("granite-moe-3b-a800m", 8,
@@ -435,11 +461,15 @@ TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
                 "train_deepseek": ("deepseek-v2-lite-16b", 2,
                                    1_085_287_424),
                 # full depth: 6 super-blocks of mLSTM and sLSTM
-                "train_xlstm": ("xlstm-125m", 12, 164_669_952)}
+                "train_xlstm": ("xlstm-125m", 12, 164_669_952),
+                "train_phi3v": ("phi-3-vision-4.2b", 8, 1_103_023_104),
+                # full depth: 12 encoder and 12 decoder layers
+                "train_whisper": ("whisper-small", 12, 278_115_840)}
 # phase serve: the serve launcher's defaults, at full width and depth
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 48, 16
 SERVE_WINDOW = 32            # examples/serve_batched.py's sliding variant
 SERVE_LONG_PROMPT = 4096     # a context whose bf16 cache (4.8 GB) counts
+SERVE_VISION_PROMPT = 1024   # 576 patches, then 448 text tokens
 # (arch, attention, prompt length); each arch's cells in a row, so that
 # its parameters are drawn once
 # "absorb": MLA's absorbed form, held against the expanded full forward
@@ -451,7 +481,9 @@ SERVE_CELLS = (("granite-8b", "full", SERVE_PROMPT),
                ("deepseek-v2-lite-16b", "full", SERVE_PROMPT),
                ("deepseek-v2-lite-16b", "absorb", SERVE_PROMPT),
                ("xlstm-125m", "full", SERVE_PROMPT),
-               ("jamba-v0.1-52b", "full", SERVE_PROMPT))
+               ("jamba-v0.1-52b", "full", SERVE_PROMPT),
+               ("phi-3-vision-4.2b", "full", SERVE_VISION_PROMPT),
+               ("whisper-small", "full", SERVE_PROMPT))
 # depth cuts of the served models (full depth otherwise): Jamba's 32
 # layers hold 51.6 B parameters, one super-block of 8 fits the card
 SERVE_DEPTH = {"jamba-v0.1-52b": 8}
@@ -468,7 +500,9 @@ SERVE_REPS = 5               # decode windows timed after the launcher's run
 SERVE_PARAMS = {"granite-8b": 8_254_689_280, "starcoder2-7b": 7_400_268_800,
                 "granite-moe-3b-a800m": 3_374_295_552,
                 "deepseek-v2-lite-16b": 15_706_484_224,
-                "xlstm-125m": 164_669_952, "jamba-v0.1-52b": 13_295_235_072}
+                "xlstm-125m": 164_669_952, "jamba-v0.1-52b": 13_295_235_072,
+                "phi-3-vision-4.2b": 3_821_079_552,
+                "whisper-small": 278_115_840}
 SERVE_RTOL = 2e-4            # tests/test_models.py's decode-vs-full bound
 # phase mamba_layer: Jamba's Mamba layer, batch 8, one chunk and two
 MAMBA_ARCH = "jamba-v0.1-52b"
@@ -1726,8 +1760,9 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
              **{f"{name}_launches": n for name, n in launch_counts().items()
                 if name in expect})
 
+    seq = TRAIN_SEQS.get(arch, TRAIN_SEQ)
     reset_launches()
-    out = train(run, device=dev, batch=8, seq=128, fixed_batch=True,
+    out = train(run, device=dev, batch=TRAIN_BATCH, seq=seq, fixed_batch=True,
                 log=lambda msg: print(msg, file=sys.stderr),
                 on_step=on_step, **(train_kwargs or {}))
     launches = launch_counts()
@@ -1756,7 +1791,7 @@ def phase_train(dev, sparsifier: dict, expect: dict, phase: str,
              run.sparsifier), fault_schedule=schedule, n_active=active,
          counts=counts,
          n_layers=depth, **(aux if model.moe is not None else {}),
-         j=out["params"], batch=8, seq=128, steps=TRAIN_STEPS,
+         j=out["params"], batch=TRAIN_BATCH, seq=seq, steps=TRAIN_STEPS,
          losses=losses, step_ms=[rec["ms"] for rec in out["history"]],
          launches=launches, fallbacks=out["fallbacks"],
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
@@ -1824,7 +1859,8 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     ring buffer wraps in prefill and in every decode step; "absorb",
     MLA's absorbed form) with the given parameters, a prompt of
     ``prompt`` tokens, in ``dtype``; then the full forward of the prompt
-    and the generated tokens, without a cache (MLA expanded): the
+    and the generated tokens (and the prompts' patches or frames),
+    without a cache (MLA expanded): the
     prefill's logits against its position P - 1, the last decode step's
     against position P + N - 1, as max |difference| over the largest
     |logit| of the full forward at those positions; then SERVE_REPS more
@@ -1834,7 +1870,7 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     profiled step routes to."""
     import torch
     from repro_torch.configs.base import RunConfig, SparsifierConfig
-    from repro_torch.core.flatten import tree_items, tree_leaves
+    from repro_torch.core.flatten import tree_items, tree_leaves, tree_size
     from repro_torch.launch.serve import serve, serve_shape
     from repro_torch.models import transformer as tfm
     from repro_torch.models.attention import CACHE_KEYS
@@ -1851,8 +1887,7 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
     tokens = torch.cat([out["prompt"], out["tokens"]], 1)
     full_cfg = dataclasses.replace(cfg, mla_absorb=False)
     with torch.inference_mode(), RouteProbe() as full_route:
-        x = tfm.forward_hidden(params, tfm.embed_batch(params, tokens,
-                                                       full_cfg), full_cfg)
+        x = tfm.hidden(params, dict(out["batch"], tokens=tokens), full_cfg)
         full = lm_head_fwd(params["embed"], x[:, [prompt - 1, -1]],
                            full_cfg).float()
         del x
@@ -1883,7 +1918,8 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
                                  out["tokens"][:, -1:], dtype)
     live = min(cap or 0, prompt + SERVE_NEW)
     step_bytes, all_experts_bytes = decode_bytes(
-        cfg, out["params"], live, out["cache"], step_route.experts())
+        cfg, out["params"] - tree_size(params.get("encoder", {})), live,
+        out["cache"], step_route.experts())
     ms = statistics.median(windows)
     res = {"arch": arch, "attn": attn, "dtype": dtype,
            "window": cfg.window if attn == "sliding" else None,
@@ -1923,10 +1959,12 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
     fp32 rows (unless it is also the tied head), and, in an MoE model,
     of the routed experts only the ``experts`` the step's routing chose
     (summed over the layers); the ``live_slots`` valid slots of every
-    attention cache leaf, and every recurrent state leaf read and
-    written once. Returns (those bytes, the same with every expert of
-    every MoE layer: what the all-experts products read)."""
-    from repro_torch.core.flatten import tree_items
+    attention cache leaf, every recurrent state leaf read and written
+    once, and an encoder-decoder's cross k and v read whole (``n_params``
+    leaves out its encoder, which decode does not run). Returns (those
+    bytes, the same with every expert of every MoE layer: what the
+    all-experts products read)."""
+    from repro_torch.core.flatten import tree_items, tree_leaves
     from repro_torch.models import transformer as tfm
     from repro_torch.models.attention import CACHE_KEYS
     per_param = 4 if cfg.dtype == "float32" else 8
@@ -1945,6 +1983,7 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
                 kv += leaf.nbytes // slots * live_slots
             else:
                 kv += 2 * leaf.nbytes
+    kv += sum(leaf.nbytes for leaf in tree_leaves(cache.get("cross", {})))
     base = (n - all_experts) * per_param + gather + kv
     return (base + experts * per_expert * per_param,
             base + all_experts * per_param)
@@ -2375,7 +2414,8 @@ def phase_profile(dev, run, state, phase: str, profiled: bool = True):
     from repro_torch.data import lm_batch
     from repro_torch.train.step import build_train_step
     step = build_train_step(run, dev)
-    batch = lm_batch(run.model, 8, 128, run.seed, 0, dev)
+    batch = lm_batch(run.model, TRAIN_BATCH, TRAIN_SEQS.get(
+        run.model.name, TRAIN_SEQ), run.seed, 0, dev)
     torch.cuda.synchronize(dev)
     if not profiled:
         step(state, batch)
@@ -3171,7 +3211,8 @@ def world_decode_cp(dev, world: int, rank: int) -> None:
     with torch.inference_mode():
         if rank == 0:
             t0 = time.perf_counter()
-            logits, full = tfm.prefill(params, tokens, cfg, max_seq=slots)
+            logits, full = tfm.prefill(params, {"tokens": tokens}, cfg,
+                                       max_seq=slots)
             sync()
             prefill_ms = (time.perf_counter() - t0) * 1e3
         else:

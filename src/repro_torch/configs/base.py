@@ -8,11 +8,13 @@ tied or untied embeddings, RoPE or sinusoidal positions, full or sliding
 attention), the MoE family (routed and shared experts, a dense prefix,
 MLA attention expanded or absorbed), the recurrent families (xLSTM's
 mLSTM and sLSTM mixers; Mamba, alone or in the Jamba hybrid with
-attention and MoE layers), the sparsifier fields that select among its
-paths, and the optimizers. A field value outside the slice raises
-``NotImplementedError`` naming its ROADMAP item where it would be used
-(``core.sparsify.check_supported``, ``core.aggregate.check_supported``,
-``models.transformer.check_model``).
+attention and MoE layers), the vision and audio families (a patch stub
+over the decoder's first positions; an encoder over a frame stub with
+cross-attention in every decoder layer), the sparsifier fields that
+select among its paths, and the optimizers. A field value outside the
+slice raises ``NotImplementedError`` naming its ROADMAP item where it
+would be used (``core.sparsify.check_supported``,
+``core.aggregate.check_supported``, ``models.transformer.check_model``).
 """
 from __future__ import annotations
 
@@ -49,8 +51,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid (vlm, audio:
-                                  # ROADMAP A13c)
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
     source: str
     n_layers: int
     d_model: int
@@ -78,6 +79,14 @@ class ModelConfig:
     n_dense_prefix: int = 0       # leading layers with a dense FFN
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # encoder-decoder
+    is_encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_causal: bool = False      # read nowhere: the encoder is always
+                                  # bidirectional, as the reference's
+    # modality frontend stubs
+    frontend: str = "none"        # none | vision_stub | audio_stub
+    n_frontend_tokens: int = 0    # patches (vlm) / frames (audio)
     dtype: str = "bfloat16"
     norm: str = "rmsnorm"         # rmsnorm | layernorm
     act: str = "silu"             # silu (swiglu) | gelu (plain mlp)
@@ -132,13 +141,17 @@ class ModelConfig:
             ffn["moe"] = norm + d * m.n_experts + m.n_experts * per_expert
             if m.n_shared_experts:
                 ffn["moe"] += mlp(m.d_expert * m.n_shared_experts)
+        cross = (norm + attn) if self.is_encoder_decoder else 0
         pattern = layer_pattern(self)
         body = self.n_layers - self.n_dense_prefix
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        n += norm + self.n_dense_prefix * (mixer[pattern[0][0]]
+        n += norm + self.n_dense_prefix * (mixer[pattern[0][0]] + cross
                                            + ffn["dense"])
-        return n + body // len(pattern) * sum(mixer[m] + ffn[f]
-                                              for m, f in pattern)
+        n += body // len(pattern) * sum(mixer[m] + cross + ffn[f]
+                                        for m, f in pattern)
+        if self.is_encoder_decoder:
+            n += self.n_enc_layers * (mixer["attn"] + ffn["dense"]) + norm
+        return n
 
 
 def mamba_dims(cfg) -> tuple:
@@ -305,8 +318,9 @@ def resolve_model_cfg(run: RunConfig) -> ModelConfig:
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _ARCH_MODULES = ["stablelm_3b", "starcoder2_7b", "qwen1_5_32b",
-                 "granite_8b", "granite_moe_3b_a800m",
-                 "deepseek_v2_lite_16b", "xlstm_125m", "jamba_v0_1_52b"]
+                 "phi_3_vision_4_2b", "granite_8b", "granite_moe_3b_a800m",
+                 "xlstm_125m", "whisper_small", "jamba_v0_1_52b",
+                 "deepseek_v2_lite_16b"]
 
 
 def register(name: str):
@@ -322,12 +336,16 @@ def _load_all() -> None:
         importlib.import_module(f"repro_torch.configs.{m}")
 
 
+def list_archs() -> list:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port knows "
-                       f"{sorted(_REGISTRY)} (other families: ROADMAP A13c)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 
@@ -336,8 +354,9 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     of at least 2 layers plus the dense prefix, d_model 128, 4 heads of
     32, d_ff 256, vocab 512, window 64, max_seq_len 4096, fp32; MoE cut
     to 4 experts of 64, top-2, at most one shared expert; MLA to lora 32,
-    rope dim 16 and v dim 32; an SSM to d_state 8, d_conv 4 (the
-    reference's ``reduced_config``)."""
+    rope dim 16 and v dim 32; an SSM to d_state 8, d_conv 4; an encoder
+    to at most 2 layers and a frontend stub to at most 16 patches or
+    frames (the reference's ``reduced_config``)."""
     period = ffn_pattern(cfg)[0]
     n_kv = min(cfg.n_kv_heads, 4)
     if 4 % n_kv:
@@ -357,4 +376,6 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kv_lora_rank=32 if cfg.kv_lora_rank else 0, q_lora_rank=0,
         rope_head_dim=16 if cfg.kv_lora_rank else 64,
         v_head_dim=32 if cfg.v_head_dim else 0, moe=moe, ssm=ssm,
-        window=64, dtype="float32", max_seq_len=4096)
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        n_frontend_tokens=min(cfg.n_frontend_tokens, 16), window=64,
+        dtype="float32", max_seq_len=4096)

@@ -3,12 +3,15 @@
 The reference's trees arrive as numpy trees (``jax.device_get`` output);
 the port's are nested dicts (and lists: a dense ``prefix``) of tensors in
 the same layout, so parameters (every mixer's: attention, Mamba, mLSTM,
-sLSTM), decode caches and fp32 state move as they are. Three translations: the
-index dtype (the reference's uint32 indices become the port's int32 view
-of the same bits, ``core.bigvec``, and back), bf16 state and caches
-(``ef_dtype="bfloat16"``, a bf16 model's k and v: the bits cross as
-uint16, numpy having no bf16 of its own), and the CNN's convolution
-weights, HWIO in the reference and OIHW in the port (``models.cnn``).
+sLSTM; an encoder-decoder's ``encoder`` subtree and its decoder layers'
+``cross`` and ``norm_x``), decode caches (an encoder-decoder's top-level
+``cross`` k and v among them) and fp32 state move as they are. Three
+translations: the index dtype (the reference's uint32 indices become the
+port's int32 view of the same bits, ``core.bigvec``, and back), bf16
+state and caches (``ef_dtype="bfloat16"``, a bf16 model's k and v: the
+bits cross as uint16, numpy having no bf16 of its own), and the CNN's
+convolution weights, HWIO in the reference and OIHW in the port
+(``models.cnn``).
 
 The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
 the order of the reference's ``jax.flatten_util.ravel_pytree`` over its
@@ -72,9 +75,10 @@ def params_to_jax(params: dict) -> dict:
 
 def cache_from_jax(cache, device="cpu") -> dict:
     """The reference's decode cache ``{pos, blocks/l{j}/{k, v} | {ckv,
-    krope} | {conv, h} | {c, n, m}[, prefix/[i]/...]}`` (numpy leaves:
-    attention's, Mamba's and the xLSTM mixers' state) -> the port's,
-    dtypes kept (a bf16 cache bit for bit, a recurrent state's fp32)."""
+    krope} | {conv, h} | {c, n, m}[, prefix/[i]/...][, cross/{k, v}]}``
+    (numpy leaves: attention's, Mamba's and the xLSTM mixers' state, an
+    encoder-decoder's cross k and v) -> the port's, dtypes kept (a bf16
+    cache bit for bit, a recurrent state's fp32)."""
     return tree_map(lambda x: _to_tensor(x, device), cache)
 
 

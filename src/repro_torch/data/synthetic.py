@@ -1,7 +1,8 @@
 """Deterministic synthetic data (the port of ``repro.data.synthetic``).
 
 - ``lm_batch``: LM batches with the reference's shapes and next-token
-  target shift, drawn from a ``torch.Generator`` seeded by (seed, step).
+  target shift (and a vision model's patches, an audio model's frames),
+  drawn from a ``torch.Generator`` seeded by (seed, step).
   The token values differ from the reference's JAX stream; tests that
   compare the two packages make their batches with numpy.
 - ``linreg_dataset``: the paper's §4.1 Gaussian linear-model datasets
@@ -26,7 +27,10 @@ from repro_torch.backend import resolve_device
 def lm_batch(cfg, batch: int, seq: int, seed: int, step: int,
              device) -> dict:
     """tokens (B, S) int64 uniform over the vocab; targets = tokens
-    shifted left by one, -1 (masked) in the last position."""
+    shifted left by one, -1 (masked) in the last position. A vision
+    model's batch adds ``patches`` and an audio model's ``frames``, (B,
+    n_frontend_tokens, d) fp32 standard normal from the same generator;
+    the patch positions carry no LM loss (their targets -1)."""
     gen = torch.Generator(device=device).manual_seed(
         (int(seed) << 32) + int(step))
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
@@ -34,7 +38,23 @@ def lm_batch(cfg, batch: int, seq: int, seed: int, step: int,
     targets = torch.cat([tokens[:, 1:],
                          torch.full((batch, 1), -1, device=device,
                                     dtype=tokens.dtype)], 1)
-    return {"tokens": tokens, "targets": targets}
+    out = {"tokens": tokens, "targets": targets,
+           **stub_inputs(cfg, batch, gen, device)}
+    if "patches" in out:
+        out["targets"] = targets.masked_fill(
+            torch.arange(seq, device=device) < cfg.n_frontend_tokens, -1)
+    return out
+
+
+def stub_inputs(cfg, batch: int, gen: torch.Generator, device) -> dict:
+    """A vision model's ``patches`` or an audio model's ``frames``, (B,
+    n_frontend_tokens, d) fp32 standard normal drawn from ``gen``; {} for
+    a model without a frontend stub."""
+    key = {"vision_stub": "patches", "audio_stub": "frames"}.get(cfg.frontend)
+    if key is None:
+        return {}
+    return {key: torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                             generator=gen, device=device)}
 
 
 def _f32(x, dev) -> torch.Tensor:

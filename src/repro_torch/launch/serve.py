@@ -117,8 +117,10 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
           group=None, model: int = 1, params: dict = None,
           log=print, applier=None, channel=None, snap_dir: str = "") -> dict:
     """Prefill ``run.shape.global_batch`` random prompts of ``prompt_len``
-    tokens (drawn from ``run.seed``), then ``new_tokens`` greedy decode
-    steps. Returns {"prompt": (B, prompt_len), "tokens": (B, new_tokens),
+    tokens (drawn from ``run.seed``, and after them a vision model's
+    patches or an audio model's frames, standard normal), then
+    ``new_tokens`` greedy decode steps. Returns {"prompt": (B,
+    prompt_len), "batch": the prompts' batch, "tokens": (B, new_tokens),
     "prefill_s", "decode_s", "params": the parameter count,
     "prefill_logits", "logits": the last step's, "cache"}.
     Times are the host clock around work that ends in a device
@@ -139,6 +141,7 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     from repro_torch.backend import resolve_device
     from repro_torch.configs.base import resolve_model_cfg
     from repro_torch.core.flatten import tree_size
+    from repro_torch.data.synthetic import stub_inputs
     from repro_torch.models import init_params
     from repro_torch.models.parallel import world
     from repro_torch.serve.step import build_decode_step, build_prefill
@@ -166,6 +169,7 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
         f"{', absorbed MLA' if cfg.mla_absorb else ''}")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                      generator=gen, device=dev)}
+    batch.update(stub_inputs(cfg, b, gen, dev))
 
     def sync():
         if dev.type == "cuda":
@@ -203,7 +207,8 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     log(f"decode {new_tokens} steps: {t_dec:.2f}s "
         f"({t_dec / max(new_tokens, 1) * 1e3:.0f} ms/step incl. dispatch)")
     log(f"first sequences: {out[:2].tolist()}")
-    res = {"prompt": batch["tokens"], "tokens": out, "prefill_s": t_pre,
+    res = {"prompt": batch["tokens"], "batch": batch, "tokens": out,
+           "prefill_s": t_pre,
            "decode_s": t_dec, "params": n, "prefill_logits": prefill_logits,
            "logits": logits, "cache": cache}
     if applier is not None:

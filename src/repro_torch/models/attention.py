@@ -1,6 +1,7 @@
-"""Causal self-attention: GQA with optional QKV bias, partial RoPE or none,
-full or sliding-window, and MLA (DeepSeek-V2's multi-head latent
-attention, expanded or absorbed), with their caches (the port of the
+"""Self-attention: GQA with optional QKV bias, partial RoPE or none,
+causal (full or sliding-window) or bidirectional (an encoder's), and MLA
+(DeepSeek-V2's multi-head latent attention, expanded or absorbed), with
+their caches, and an encoder-decoder's cross-attention (the port of the
 full-sequence, prefill and decode paths of ``repro.models.attention`` at
 tensor-parallel degree 1, with context-parallel decode of GQA).
 
@@ -14,7 +15,17 @@ each short where the length is not a multiple. (At such a length the
 reference takes one softmax normalised before the value product,
 ``_sdpa``; the two forms agree to a few fp32 ulps, and the tests hold
 them to rtol 1e-5.) Key chunks wholly above the causal diagonal are
-skipped: their weights are exactly 0 after the merge.
+skipped: their weights are exactly 0 after the merge. Bidirectional
+attention (``full_attention``: the encoder's, and cross-attention's)
+is the same loop over every key chunk, unmasked.
+
+Cross-attention (the reference's ``cross_kv`` branches): each decoder
+layer's ``cross`` parameters are the plain ``{wk, wo, wq, wv[, bk, bq,
+bv]}`` whatever the model's attention kind; ``cross_kv`` projects the
+encoder's output (B, S_enc, d) to k and v with the layer's own weights,
+and ``cross_attention`` attends the layer's queries, without RoPE or a
+mask, over all S_enc of them: in training and prefill over the
+projection itself, in decode over the cache's ``cross`` copy.
 
 The cache of a layer is ``{k, v}``, each (B, S_cache, KV, hd) in the
 model's dtype. Decode writes the step's k and v into it in place (the
@@ -77,12 +88,14 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, rot_dim: int,
     return torch.cat([rot.to(x.dtype), x[..., rot_dim:]], -1)
 
 
-def init_attention(gen, cfg, *, lead=(), device=None) -> dict:
+def init_attention(gen, cfg, *, lead=(), device=None,
+                   cross: bool = False) -> dict:
     """{wk, wo, wq, wv}, and with ``qkv_bias`` the zero biases {bk, bq,
-    bv}; for MLA {dkv, kv_norm, uk, uv, wo, wq}."""
+    bv}; for MLA {dkv, kv_norm, uk, uv, wo, wq}, unless ``cross``
+    (cross-attention's weights are the plain ones for every kind)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    if cfg.attn_kind == "mla":
+    if cfg.attn_kind == "mla" and not cross:
         lora, rhd = cfg.kv_lora_rank, cfg.rope_head_dim
         vhd = cfg.v_head_dim or hd
         return {"dkv": dense_init(gen, d, lora + rhd, lead=lead,
@@ -160,26 +173,28 @@ def absorb_q(p: dict, q: torch.Tensor, cfg):
 
 def _absorbed_partial(ql, qr, ckv, krope, mask, scale):
     """One key block of absorbed attention: the unnormalised context (B,
-    Sq, H, lora) and the running max and sum (B, H, Sq)."""
+    Sq, H, lora) and the running max and sum (B, H, Sq); ``mask`` None:
+    every key."""
     sc = (torch.einsum("bqhl,bsl->bhqs", ql, ckv)
           + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
-    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    if mask is not None:
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     m = sc.amax(-1)
     w = torch.exp(sc - m[..., None])
     return torch.einsum("bhqs,bsl->bqhl", w.to(ckv.dtype), ckv), m, w.sum(-1)
 
 
-def absorbed_attention(p: dict, q, ckv, krope, cfg,
-                       scale: float) -> torch.Tensor:
-    """Causal absorbed MLA attention over the prompt (the reference's
-    ``_sdpa_absorbed_chunked``): every query against keys in chunks of
-    ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
+def absorbed_attention(p: dict, q, ckv, krope, cfg, scale: float,
+                       causal: bool = True) -> torch.Tensor:
+    """Absorbed MLA attention over the prompt, causal or not (the
+    reference's ``_sdpa_absorbed_chunked``): every query against keys in
+    chunks of ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
     ql, qr = absorb_q(p, q, cfg)
     s = ql.shape[1]
     pos = torch.arange(s, device=q.device)
     acc = None
     for k0 in range(0, s, KV_CHUNK):
-        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK])
+        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK]) if causal else None
         o, m, l = _absorbed_partial(ql, qr, ckv[:, k0:k0 + KV_CHUNK],
                                     krope[:, k0:k0 + KV_CHUNK], mask, scale)
         if acc is not None:
@@ -206,13 +221,16 @@ def _per_head(t):
     return t.permute(0, 2, 1)[..., None]
 
 
-def _mla_attend(p, q, ckv, krope, cfg):
-    """Causal MLA attention of the prompt, expanded or absorbed."""
+def _mla_attend(p, q, ckv, krope, cfg, causal: bool = True):
+    """MLA attention of the prompt, expanded or absorbed, causal or
+    not."""
     scale = cfg.resolved_head_dim ** -0.5
     if cfg.mla_absorb:
-        return absorbed_attention(p, q, ckv, krope, cfg, scale)
+        return absorbed_attention(p, q, ckv, krope, cfg, scale, causal)
     k, v = mla_expand(p, ckv, krope, cfg, q.dtype)
-    return causal_attention(q, k, v, scale)
+    if causal:
+        return causal_attention(q, k, v, scale)
+    return full_attention(q, k, v, scale)
 
 
 def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -225,11 +243,14 @@ def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def _scores(q, k, mask, scale):
-    """GQA scores (B, KV, G, Sq, Sk) in fp32, masked to NEG_INF."""
+    """GQA scores (B, KV, G, Sq, Sk) in fp32, masked to NEG_INF (``mask``
+    None: every key)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
     sc = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * scale
+    if mask is None:
+        return sc
     return torch.where(mask, sc, torch.full_like(sc, NEG_INF))
 
 
@@ -260,19 +281,20 @@ def _finalize(o, l):
     return o.reshape(*o.shape[:2], -1, o.shape[-1])
 
 
-def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
-    """q and k (B, S, H|KV, hd), v (B, S, KV, vhd) with H a multiple of
-    KV (GQA) and vhd any width (MLA's v is narrower than its k);
-    causal, within ``window`` positions when it is set. Scores and softmax
-    in fp32, chunked over queries and keys with an online softmax."""
-    s = q.shape[1]
-    pos = torch.arange(s, device=q.device)
+def _chunked(q, k, v, scale: float, window: int, causal: bool):
+    """Scores and softmax in fp32, chunked over queries and keys with an
+    online softmax: causal (key chunks above the diagonal skipped) or
+    over every key."""
+    sq, sk = q.shape[1], k.shape[1]
+    pos = torch.arange(max(sq, sk), device=q.device)
     outs = []
-    for q0 in range(0, s, Q_CHUNK):
+    for q0 in range(0, sq, Q_CHUNK):
         qi, qp = q[:, q0:q0 + Q_CHUNK], pos[q0:q0 + Q_CHUNK]
         acc = None
-        for k0 in range(0, min(s, q0 + Q_CHUNK), KV_CHUNK):
-            mask = mask_from_pos(qp, pos[k0:k0 + KV_CHUNK], window)
+        for k0 in range(0, min(sk, q0 + Q_CHUNK) if causal else sk,
+                        KV_CHUNK):
+            mask = mask_from_pos(qp, pos[k0:k0 + KV_CHUNK], window) \
+                if causal else None
             blk = _partial(qi, k[:, k0:k0 + KV_CHUNK], v[:, k0:k0 + KV_CHUNK],
                            mask, scale)
             acc = blk if acc is None else _merge(*acc, *blk)
@@ -280,21 +302,67 @@ def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
 
+def causal_attention(q, k, v, scale: float, window: int = 0) -> torch.Tensor:
+    """q and k (B, S, H|KV, hd), v (B, S, KV, vhd) with H a multiple of
+    KV (GQA) and vhd any width (MLA's v is narrower than its k);
+    causal, within ``window`` positions when it is set. Scores and softmax
+    in fp32, chunked over queries and keys with an online softmax."""
+    return _chunked(q, k, v, scale, window, True)
+
+
+def full_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Bidirectional attention: q (B, Sq, H, hd) over every one of the
+    Sk keys of k (B, Sk, KV, hd) and v (B, Sk, KV, vhd), chunked as
+    :func:`causal_attention`, unmasked."""
+    return _chunked(q, k, v, scale, 0, False)
+
+
 def _window(cfg) -> int:
     return cfg.window if cfg.attn_kind == "sliding" else 0
 
 
-def attn_fwd_full(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``)."""
+def attn_fwd_full(p: dict, x: torch.Tensor, cfg,
+                  causal: bool = True) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``) or,
+    for an encoder, bidirectional."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
         q, ckv, krope = proj_mla(p, x, cfg, pos)
-        o = _mla_attend(p, q, ckv, krope, cfg)
+        o = _mla_attend(p, q, ckv, krope, cfg, causal)
     else:
         q, k, v = proj_qkv(p, x, cfg, pos)
-        o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5,
-                             _window(cfg))
+        scale = cfg.resolved_head_dim ** -0.5
+        o = causal_attention(q, k, v, scale, _window(cfg)) if causal \
+            else full_attention(q, k, v, scale)
+    return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg) -> tuple:
+    """A decoder layer's cross-attention k and v (B, S_enc, KV, hd): the
+    encoder's output through the layer's own wk and wv (and bk, bv), in
+    its dtype (the reference's ``init_cross_kv``)."""
+    b, s, _ = enc_out.shape
+    dt = enc_out.dtype
+    k = enc_out @ p["wk"].to(dt)
+    v = enc_out @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    hd = cfg.resolved_head_dim
+    return k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
+
+
+def cross_attention(p: dict, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cfg) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): the queries (no RoPE) over all S_enc
+    keys of ``cross_kv``'s k and v (or the cache's copy, in decode)."""
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(b, s, -1, cfg.resolved_head_dim)
+    o = full_attention(q, k, v, cfg.resolved_head_dim ** -0.5)
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
 
 

@@ -1,8 +1,8 @@
-"""Decoder over heterogeneous layer stacks (the port of
-``repro.models.transformer`` for the dense, MoE, SSM and hybrid families
-at tensor-parallel degree 1): attention, Mamba, mLSTM or sLSTM mixers,
-dense, MoE or no FFN; training loss with the MoE aux terms, prefill and
-cached decode.
+"""Decoder (and encoder-decoder) over heterogeneous layer stacks (the port
+of ``repro.models.transformer`` for every family, dense, MoE, SSM,
+hybrid, vision and audio, at tensor-parallel degree 1): attention, Mamba,
+mLSTM or sLSTM mixers, dense, MoE or no FFN; training loss with the MoE
+aux terms, prefill and cached decode.
 
 Layers are grouped into super-blocks of period P (the reference's
 ``superblock_period``: xLSTM 2, Jamba 8, else 1): ``blocks/l{j}`` holds
@@ -15,10 +15,13 @@ vector of both packages lines up element for element::
     blocks/l{j}/{attn/{[bk,] wk, wo, [bq,] wq, [bv,] wv}
                   | attn/{dkv, kv_norm, uk, uv, wo, wq}
                   | mamba/{...} | mlstm/{...} | slstm/{...},
+                 [cross/{[bk,] wk, wo, [bq,] wq, [bv,] wv},]
                  mlp/{down, gate, up} | mlp/{down, down_b, up, up_b}
                   | moe/{down, gate, router, [shared/{down, gate, up},] up},
-                 [norm1/{[bias,] scale},] [norm2/{[bias,] scale}]}
+                 [norm1/{[bias,] scale},] [norm2/{[bias,] scale},]
+                 [norm_x/{[bias,] scale}]}
     embed/{[head,] tok}
+    [encoder/{blocks/{attn, mlp, norm1, norm2}, final_norm}]
     final_norm/{[bias,] scale}
     [prefix/[i]/{attn, mlp, norm1, norm2}]
 
@@ -26,7 +29,9 @@ vector of both packages lines up element for element::
 shared experts, a dense prefix; ``norm1`` before attention and Mamba,
 not before an mLSTM or sLSTM, which hold their own norm; ``norm2`` only
 with an FFN; the mixers' leaves in ``models.mamba`` and
-``models.xlstm``). The forward unbinds the stacked axis
+``models.xlstm``; ``cross`` and ``norm_x`` in an encoder-decoder's
+decoder layers, ``encoder/blocks`` stacked over its layers). The forward
+unbinds the stacked axis
 once, so each stacked leaf's gradient is assembled by one ``stack``
 rather than one full-size scatter per layer, and recomputes each layer
 in the backward pass (``torch.utils.checkpoint``) when ``cfg.remat``.
@@ -35,15 +40,31 @@ The loss adds (load_balance_loss * lb_loss + router_z_loss * z_loss) /
 reference's.
 
 The decode cache keeps the reference's tree too, ``{pos, blocks/l{j}/{k,
-v} | {ckv, krope} | {conv, h} | {c, n, m}[, prefix/[i]/...]}`` (by the
-layer's mixer) with the super-block axis leading on the stacked leaves,
-so a cache crosses between the packages (``convert.cache_from_jax``).
-``pos`` is a 0-d int32 tensor on the device: decode reads it there, and
-no step waits on the host. A model with an SSM adds no sinusoidal
-positions (the reference's rule: its recurrence carries the order).
-The vision and audio families raise naming ROADMAP A13c.
+v} | {ckv, krope} | {conv, h} | {c, n, m}[, prefix/[i]/...][, cross/{k,
+v}]}`` (by the layer's mixer) with the super-block axis leading on the
+stacked leaves, so a cache crosses between the packages
+(``convert.cache_from_jax``). ``pos`` is a 0-d int32 tensor on the
+device: decode reads it there, and no step waits on the host. A model
+with an SSM adds no sinusoidal positions (the reference's rule: its
+recurrence carries the order).
+
+The two frontend stubs (the reference's): a vision model's batch carries
+``patches`` (B, P, d), which OVERWRITE the token embeddings of positions
+< P (cast to the model's dtype; the reference's docstrings say
+"prepended", its code overwrites); an audio model's carries ``frames``
+(B, S_enc, d), which the encoder (sinusoidal positions, bidirectional
+attention and dense layers, its own final norm) turns into ``enc_out``.
+Every decoder layer of an encoder-decoder then runs cross-attention
+(``norm_x``, ``cross``) between its mixer and its FFN: in training over
+its own projection of ``enc_out``, so the encoder's gradient arrives
+through cross-attention only; prefill projects it once a layer, attends
+with the projection and stores it, cast to the cache's dtype, in the
+top-level ``cross`` leaf ``{k, v}``, each (super-blocks, B, S_enc, KV,
+hd), which decode reads.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -63,9 +84,9 @@ LOSS_CHUNK = 512
 AUX_KEYS = ("lb_loss", "z_loss", "drop_frac")
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # (field, values the port serves, ROADMAP item that ports the rest)
-_SLICE = (("family", ("dense", "moe", "ssm", "hybrid"), "A13c"),
-          ("attn_kind", ("full", "sliding", "mla"), "A13"))
+_SLICE = (("attn_kind", ("full", "sliding", "mla"), "A13"),)
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
@@ -87,7 +108,13 @@ def n_moe_layers(cfg) -> int:
 
 
 def check_model(cfg) -> None:
-    """Raise NotImplementedError for a model outside the ported slice."""
+    """Raise NotImplementedError for a model outside the ported slice,
+    ValueError for a family or mixer the reference does not have, or an
+    encoder-decoder whose cross cache (one layer a super-block, the
+    reference's layout) cannot hold its layers."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
+                         f"(expected one of {FAMILIES})")
     for field, served, item in _SLICE:
         value = getattr(cfg, field)
         if value not in served:
@@ -98,6 +125,11 @@ def check_model(cfg) -> None:
         if mixer not in MIXERS:
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r} "
                              f"(expected one of {MIXERS})")
+    if cfg.is_encoder_decoder and (cfg.n_dense_prefix
+                                   or len(layer_pattern(cfg)) > 1):
+        raise ValueError(f"{cfg.name}: an encoder-decoder's cross cache "
+                         "holds one layer a super-block and no dense "
+                         "prefix")
 
 
 def cp_message(cfg) -> str:
@@ -107,8 +139,8 @@ def cp_message(cfg) -> str:
             "recurrent state over the ranks (ROADMAP A13e)")
 
 
-def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(),
-                device=None) -> dict:
+def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
+                cross: bool = False) -> dict:
     p = {}
     if mixer in ("attn", "mamba"):
         p["norm1"] = init_norm(cfg, lead=lead, device=device)
@@ -120,6 +152,10 @@ def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(),
         p["mlstm"] = xl.init_mlstm(gen, cfg, lead=lead, device=device)
     else:
         p["slstm"] = xl.init_slstm(gen, cfg, lead=lead, device=device)
+    if cross:
+        p["norm_x"] = init_norm(cfg, lead=lead, device=device)
+        p["cross"] = attn.init_attention(gen, cfg, lead=lead, device=device,
+                                         cross=True)
     if ffn != "none":
         p["norm2"] = init_norm(cfg, lead=lead, device=device)
     if ffn == "dense":
@@ -131,11 +167,14 @@ def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(),
 
 def init_params(cfg, gen: torch.Generator, device=None) -> dict:
     """Random fp32 parameters drawn from ``gen`` (on ``device``): the
-    super-blocks' layers, the embedding, the final norm, the prefix."""
+    super-blocks' layers, the embedding, the final norm, the prefix, the
+    encoder."""
     check_model(cfg)
     lead = (n_superblocks(cfg),)
     pattern = layer_pattern(cfg)
-    blocks = {f"l{j}": _init_layer(gen, cfg, mixer, ffn, lead, device)
+    cross = cfg.is_encoder_decoder
+    blocks = {f"l{j}": _init_layer(gen, cfg, mixer, ffn, lead, device,
+                                   cross)
               for j, (mixer, ffn) in enumerate(pattern)}
     params = {"embed": init_embed(gen, cfg, device=device),
               "blocks": blocks,
@@ -144,6 +183,11 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
         params["prefix"] = [_init_layer(gen, cfg, pattern[0][0], "dense",
                                         device=device)
                             for _ in range(cfg.n_dense_prefix)]
+    if cross:
+        params["encoder"] = {
+            "blocks": _init_layer(gen, cfg, "attn", "dense",
+                                  (cfg.n_enc_layers,), device),
+            "final_norm": init_norm(cfg, device=device)}
     return params
 
 
@@ -161,15 +205,16 @@ def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None):
 
 
 def _mixer(p: dict, x: torch.Tensor, cfg, mixer: str,
-           cache: dict = None) -> torch.Tensor:
+           cache: dict = None, causal: bool = True) -> torch.Tensor:
     """The layer's mixer half on the residual x (norm1 first for
-    attention and Mamba). With ``cache`` (one layer's views of a decode
-    cache) a prefill: attention writes the prompt's k and v, a recurrent
-    mixer its final state."""
+    attention and Mamba; attention bidirectional in an encoder, not
+    ``causal``). With ``cache`` (one layer's views of a decode cache) a
+    prefill: attention writes the prompt's k and v, a recurrent mixer
+    its final state."""
     if mixer == "attn":
         h = norm_fwd(p["norm1"], x, cfg.norm)
-        y = attn.attn_fwd_full(p["attn"], h, cfg) if cache is None else \
-            attn.attn_prefill(p["attn"], h, cache, cfg)
+        y = attn.attn_fwd_full(p["attn"], h, cfg, causal) if cache is None \
+            else attn.attn_prefill(p["attn"], h, cache, cfg)
     elif mixer == "mamba":
         y = mam.mamba_fwd(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm), cfg,
                           cache)
@@ -197,9 +242,25 @@ def _mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg,
     return x + y
 
 
-def _layer_fwd(p: dict, x: torch.Tensor, cfg, mixer: str, ffn: str, *aux):
-    x, aux = _ffn(p, _mixer(p, x, cfg, mixer), cfg, ffn, aux)
+def _cross(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg) -> torch.Tensor:
+    """The decoder layer's cross-attention on the residual x, over the
+    encoder's k and v (B, S_enc, KV, hd)."""
+    return x + attn.cross_attention(p["cross"], norm_fwd(p["norm_x"], x,
+                                                         cfg.norm), k, v, cfg)
+
+
+def _layer_fwd(p: dict, x: torch.Tensor, cfg, mixer: str, ffn: str,
+               enc_out, *aux):
+    x = _mixer(p, x, cfg, mixer)
+    if enc_out is not None:
+        x = _cross(p, x, *attn.cross_kv(p["cross"], enc_out, cfg), cfg)
+    x, aux = _ffn(p, x, cfg, ffn, aux)
     return (x, *aux)
+
+
+def _enc_layer(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    return _ffn(p, _mixer(p, x, cfg, "attn", causal=False), cfg, "dense")[0]
 
 
 def layer_views(blocks: dict, n_layers: int) -> list:
@@ -232,8 +293,9 @@ def layer_caches(cache: dict, cfg) -> list:
 
 
 def forward_hidden(params: dict, x: torch.Tensor, cfg,
-                   with_aux: bool = False):
-    """The layer stack and the final norm on embedded x; with
+                   with_aux: bool = False, enc_out: torch.Tensor = None):
+    """The layer stack and the final norm on embedded x (with ``enc_out``,
+    the encoder's output, each layer's cross-attention over it); with
     ``with_aux`` (x, {lb_loss, z_loss, drop_frac}), each summed over the
     MoE layers (0 without any)."""
     remat = cfg.remat and torch.is_grad_enabled()
@@ -241,31 +303,52 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg,
                 for _ in AUX_KEYS)
     for p, mixer, ffn in layers(params, cfg):
         if remat:
-            x, *aux = checkpoint(_layer_fwd, p, x, cfg, mixer, ffn, *aux,
-                                 use_reentrant=False)
+            x, *aux = checkpoint(_layer_fwd, p, x, cfg, mixer, ffn, enc_out,
+                                 *aux, use_reentrant=False)
         else:
-            x, *aux = _layer_fwd(p, x, cfg, mixer, ffn, *aux)
+            x, *aux = _layer_fwd(p, x, cfg, mixer, ffn, enc_out, *aux)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return (x, dict(zip(AUX_KEYS, aux))) if with_aux else x
 
 
+def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
+    """The encoder over frame embeddings (B, S_enc, d) in their dtype:
+    sinusoidal positions added, ``n_enc_layers`` bidirectional attention
+    and dense layers (each recomputed in the backward pass when
+    ``cfg.remat``), the encoder's final norm."""
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + sinusoidal(pos, cfg.d_model).to(frames.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    enc = params["encoder"]
+    for p in layer_views(enc["blocks"], cfg.n_enc_layers):
+        x = checkpoint(_enc_layer, p, x, cfg, use_reentrant=False) if remat \
+            else _enc_layer(p, x, cfg)
+    return norm_fwd(enc["final_norm"], x, cfg.norm)
+
+
 def sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
     """(len(pos), d) fp32 absolute positions: sin at even dims, cos at odd
-    ones, of pos / 10000^(2i/d) (the reference's ``_sinusoidal``)."""
+    ones, of pos / 10000^(2i/d) (the reference's ``_sinusoidal``), the
+    division spelled as the compiled reference's multiply by the fp32
+    reciprocal (bitwise with its full-sequence table; at position 1500 a
+    true division moves an angle by an ulp of 1.2e-4)."""
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
-    ang = pos.float()[:, None] / torch.pow(torch.tensor(
-        10000.0, device=pos.device), dim / d)
+    ang = pos.float()[:, None] * (1.0 / torch.pow(torch.tensor(
+        10000.0, device=pos.device), dim / d))
     return torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(
         pos.shape[0], d)
 
 
-def embed_batch(params: dict, tokens: torch.Tensor, cfg,
-                pos0=None) -> torch.Tensor:
-    """tokens (B, S) -> x (B, S, d) in the model's dtype, with the
-    sinusoidal positions added when the model has neither RoPE nor an
-    SSM. ``pos0`` (a 0-d device tensor) is the first token's position, 0
-    by default."""
+def embed_batch(params: dict, tokens: torch.Tensor, cfg, pos0=None,
+                patches: torch.Tensor = None) -> torch.Tensor:
+    """tokens (B, S) -> x (B, S, d) in the model's dtype, positions < P
+    overwritten by ``patches`` (B, P, d) cast to it, with the sinusoidal
+    positions added when the model has neither RoPE nor an SSM. ``pos0``
+    (a 0-d device tensor) is the first token's position, 0 by default."""
     x = embed_fwd(params["embed"], tokens, cfg)
+    if patches is not None:
+        n = min(x.shape[1], patches.shape[1])
+        x = torch.cat([patches[:, :n].to(x.dtype), x[:, n:]], 1)
     if not cfg.rope and cfg.ssm is None:
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         if pos0 is not None:
@@ -293,13 +376,35 @@ def chunked_xent(params: dict, x: torch.Tensor, targets: torch.Tensor,
     return tot / cnt.clamp(min=1.0)
 
 
+def _patches(batch: dict, cfg):
+    """The batch's patches where the model has the vision stub."""
+    return batch.get("patches") if cfg.frontend == "vision_stub" else None
+
+
+def _encoded(params: dict, batch: dict, cfg):
+    """The encoder's output over the batch's frames (cast to the model's
+    dtype), for an encoder-decoder; else None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return encode(params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
+
+
+def hidden(params: dict, batch: dict, cfg, with_aux: bool = False):
+    """:func:`forward_hidden` of a batch: its tokens embedded with its
+    patches, over its frames' encoding."""
+    x = embed_batch(params, batch["tokens"], cfg,
+                    patches=_patches(batch, cfg))
+    return forward_hidden(params, x, cfg, with_aux, _encoded(params, batch,
+                                                             cfg))
+
+
 def loss_and_aux(params: dict, batch: dict, cfg) -> tuple:
     """(loss, {lb_loss, z_loss, drop_frac}): the mean next-token
     cross-entropy plus, for an MoE model, its aux term. batch: tokens
-    (B, S) int64; targets (B, S) int64, -1 = masked."""
+    (B, S) int64; targets (B, S) int64, -1 = masked; a vision model's
+    patches, an audio model's frames (B, P or S_enc, d)."""
     check_model(cfg)
-    x = embed_batch(params, batch["tokens"], cfg)
-    x, aux = forward_hidden(params, x, cfg, with_aux=True)
+    x, aux = hidden(params, batch, cfg, with_aux=True)
     loss = chunked_xent(params, x, batch["targets"], cfg)
     if cfg.moe is not None:
         m = cfg.moe
@@ -314,12 +419,12 @@ def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
     return loss_and_aux(params, batch, cfg)[0]
 
 
-def full_logits(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Logits (B, S, V) of the whole sequence, no cache: what prefill and
-    decode are held against."""
+def full_logits(params: dict, batch: dict, cfg) -> torch.Tensor:
+    """Logits (B, S, V) of the whole sequence of a batch (tokens, and
+    patches or frames), no cache: what prefill and decode are held
+    against."""
     check_model(cfg)
-    x = forward_hidden(params, embed_batch(params, tokens, cfg), cfg)
-    return lm_head_fwd(params["embed"], x, cfg)
+    return lm_head_fwd(params["embed"], hidden(params, batch, cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -340,13 +445,14 @@ def _layer_cache(cfg, mixer: str, batch: int, slots: int, dtype,
 
 
 def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
-                      device=None, pal=None) -> dict:
+                      device=None, pal=None, enc_seq: int = 0) -> dict:
     """Zero cache tree for ``batch`` sequences of up to ``max_seq``
     positions, each layer's by its mixer: attention's k and v (a sliding
-    model keeps min(window, max_seq) slots), a recurrent mixer's state;
+    model keeps min(window, max_seq) slots), a recurrent mixer's state,
+    and an encoder-decoder's cross k and v over ``enc_seq`` positions;
     with ``pal.cache_seq_sharded`` this rank's slice of the slots, which
     must split evenly over the group (not for MLA, nor for a model with
-    an SSM: ROADMAP A13e)."""
+    an SSM: ROADMAP A13e), and the whole of the cross k and v."""
     check_model(cfg)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
@@ -365,7 +471,21 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
         cache["prefix"] = [_layer_cache(cfg, pattern[0][0], batch, slots,
                                         dtype, device=device)
                            for _ in range(cfg.n_dense_prefix)]
+    if cfg.is_encoder_decoder:
+        shape = (*lead, batch, enc_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["cross"] = {name: torch.zeros(shape, dtype=dtype,
+                                            device=device)
+                          for name in ("k", "v")}
     return cache
+
+
+def _cross_caches(cache: dict):
+    """Per-layer (k, v) views of the cache's ``cross`` leaf (one layer a
+    super-block), or None for every layer of a model without one."""
+    if "cross" not in cache:
+        return itertools.repeat(None)
+    return zip(cache["cross"]["k"].unbind(0), cache["cross"]["v"].unbind(0))
 
 
 def cache_slice_len(slots: int, n: int) -> int:
@@ -378,17 +498,28 @@ def cache_slice_len(slots: int, n: int) -> int:
     return slots // n
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg,
-            max_seq: int) -> tuple:
-    """Prompt forward tokens (B, S) building the decode cache. Returns
-    (the last position's logits (B, V), cache) with ``pos`` = S."""
+def prefill(params: dict, batch: dict, cfg, max_seq: int) -> tuple:
+    """Prompt forward of a batch (tokens (B, S), and patches or frames)
+    building the decode cache. Returns (the last position's logits (B,
+    V), cache) with ``pos`` = S; an encoder-decoder's cache holds every
+    layer's cross k and v."""
+    tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_decode_cache(cfg, b, max_seq, getattr(torch, cfg.dtype),
-                              tokens.device)
-    x = embed_batch(params, tokens, cfg)
-    for (p, mixer, ffn), lc in zip(layers(params, cfg),
-                                   layer_caches(cache, cfg)):
-        x = _ffn(p, _mixer(p, x, cfg, mixer, lc), cfg, ffn)[0]
+    enc_out = _encoded(params, batch, cfg)
+    cache = init_decode_cache(
+        cfg, b, max_seq, getattr(torch, cfg.dtype), tokens.device,
+        enc_seq=0 if enc_out is None else enc_out.shape[1])
+    x = embed_batch(params, tokens, cfg, patches=_patches(batch, cfg))
+    for (p, mixer, ffn), lc, xc in zip(layers(params, cfg),
+                                       layer_caches(cache, cfg),
+                                       _cross_caches(cache)):
+        x = _mixer(p, x, cfg, mixer, lc)
+        if xc is not None:
+            k, v = attn.cross_kv(p["cross"], enc_out, cfg)
+            xc[0].copy_(k)
+            xc[1].copy_(v)
+            x = _cross(p, x, k, v, cfg)
+        x = _ffn(p, x, cfg, ffn)[0]
     cache["pos"].fill_(s)
     x = norm_fwd(params["final_norm"], x[:, -1:], cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache
@@ -403,10 +534,13 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     sequence (``attention.attn_decode``)."""
     pos = cache["pos"]
     x = embed_batch(params, token, cfg, pos0=pos)
-    for (p, mixer, ffn), lc in zip(layers(params, cfg),
-                                   layer_caches(cache, cfg)):
-        x = _ffn(p, _mixer_decode(p, x, lc, pos, cfg, mixer, pal), cfg,
-                 ffn)[0]
+    for (p, mixer, ffn), lc, xc in zip(layers(params, cfg),
+                                       layer_caches(cache, cfg),
+                                       _cross_caches(cache)):
+        x = _mixer_decode(p, x, lc, pos, cfg, mixer, pal)
+        if xc is not None:
+            x = _cross(p, x, *xc, cfg)
+        x = _ffn(p, x, cfg, ffn)[0]
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache

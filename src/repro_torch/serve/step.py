@@ -29,10 +29,13 @@ data axes:
 A batch (or cache) that n does not split raises ValueError; tensor
 parallelism (``model > 1``) raises NotImplementedError naming ROADMAP
 A13d, and context-parallel decode of an MLA, SSM or hybrid model naming
-A13e. The model may be of the dense, MoE, SSM or hybrid family; an MoE
-layer's capacity follows the tokens a rank routes, as the reference's
-does under its shard_map; a recurrent layer's state is cut by rows like
-attention's k and v.
+A13e. The model may be of any family; an MoE layer's capacity follows
+the tokens a rank routes, as the reference's does under its shard_map;
+a recurrent layer's state is cut by rows like attention's k and v; a
+vision or audio model's batch carries its patches or frames, cut by rows
+with the tokens, and an encoder-decoder's ``cross`` cache leaf is cut by
+rows under a data-parallel batch and held whole on every rank under
+context-parallel decode (the encoder's sequence is never sharded).
 """
 from __future__ import annotations
 
@@ -73,7 +76,9 @@ def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
     """(rows, slots) of one rank's decode cache among ``n`` ranks (the
     counterpart of ``decode_cache_specs``): the global batch's rows and a
     slice of the slots under context-parallel decode, else a share of the
-    rows and every slot. ValueError where n does not split them."""
+    rows and every slot. An encoder-decoder's ``cross`` leaf has the same
+    rows and every encoder position either way. ValueError where n does
+    not split them."""
     cfg = resolve_model_cfg(run)
     b = run.shape.global_batch
     slots = attn.cache_max_seq(cfg, run.shape.seq_len)
@@ -91,7 +96,10 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
     a slice of the slots (context-parallel), or of the rows; the step
     counter as it is. The stacked ``blocks`` leaves hold the rows on
     dim 1 and an attention layer's slots on dim 2, the ``prefix``
-    layers' a dim before; a recurrent layer's state has rows only."""
+    layers' a dim before; a recurrent layer's state has rows only; the
+    stacked ``cross`` k and v (an encoder-decoder's) are cut by rows
+    under a data-parallel batch and kept whole under context-parallel
+    decode."""
     n, r = world(group)
     pal = serve_parallel(run, group, decode=True)
     rows, slots = decode_cache_layout(run, n, pal.cache_seq_sharded)
@@ -115,6 +123,11 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
            "blocks": tree_map(part(1), cache["blocks"])}
     if "prefix" in cache:
         out["prefix"] = tree_map(part(0), cache["prefix"])
+    if "cross" in cache:
+        out["cross"] = tree_map(
+            torch.clone if pal.cache_seq_sharded else
+            lambda val: val.narrow(1, r * rows, rows).contiguous(),
+            cache["cross"])
     return out
 
 
@@ -139,16 +152,17 @@ def _rows(x: torch.Tensor, n: int, r: int) -> torch.Tensor:
 def build_prefill(run: RunConfig, device=None, *, group=None,
                   model: int = 1):
     """``fn(params, batch) -> (logits (B, V), cache)``; batch =
-    {"tokens": (B, S)}, the global batch; the cache holds this rank's
-    rows."""
+    {"tokens": (B, S)[, "patches" | "frames": (B, P | S_enc, d)]}, the
+    global batch; the cache holds this rank's rows."""
     cfg = _build(run, device, model)
     n, r = world(group)
     decode_cache_layout(run, n, False)
 
     def fn(params: dict, batch: dict):
         with torch.inference_mode():
-            logits, cache = tfm.prefill(params, _rows(batch["tokens"], n, r),
-                                        cfg, max_seq=run.shape.seq_len)
+            logits, cache = tfm.prefill(
+                params, {key: _rows(val, n, r) for key, val in batch.items()},
+                cfg, max_seq=run.shape.seq_len)
             return all_gather_rows(logits, group), cache
     return fn
 

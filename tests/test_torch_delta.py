@@ -556,7 +556,8 @@ def test_pinned_decode_unaffected_by_live_applies():
 
     def run(p, interleave):
         with torch.inference_mode():
-            logits, cache = tfm.prefill(p, prompt, cfg, max_seq=12 + new)
+            logits, cache = tfm.prefill(p, {"tokens": prompt}, cfg,
+                                        max_seq=12 + new)
             toks = []
             for _ in range(new):
                 nxt = logits.argmax(-1)[:, None]

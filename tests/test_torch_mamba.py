@@ -229,7 +229,8 @@ def test_data_parallel_serving_at_world_2(arch, tmp_path):
     outs = [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(2)]
     t = torch.from_numpy(tokens)
     with torch.inference_mode():
-        logits, cache = tfm.prefill(params, t[:, :prompt], cfg, 11)
+        logits, cache = tfm.prefill(params, {"tokens": t[:, :prompt]}, cfg,
+                                    11)
         want = [logits.numpy()]
         for i in range(prompt, 11):
             step, cache = tfm.decode_step(params, cache, t[:, i:i + 1], cfg)

@@ -153,11 +153,17 @@ def reference_init(tcfg, seed=0):
         tcfg, torch.Generator().manual_seed(seed), "cpu")), seed)
 
 
-def reference_grad(jcfg, jparams, batch=4, seq=32):
+def reference_grad(jcfg, jparams, batch=4, seq=32, stubs=None):
     """The batch and the jitted reference's loss, aux terms and gradient
-    on it: shared by the loss test and the fused step's compressor."""
+    on it: shared by the loss test and the fused step's compressor.
+    ``stubs``: a vision model's patches or an audio model's frames
+    (numpy), whose batch they join; patch positions carry no loss, as
+    the reference's ``lm_batch`` masks them."""
     tokens, targets = lm_batch(batch, seq)
-    jb = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)}
+    if stubs and "patches" in stubs:
+        targets[:, :stubs["patches"].shape[1]] = -1
+    jb = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets),
+          **(stubs or {})}
     (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(p, jb, jcfg, PAL), has_aux=True))(jparams)
     return tokens, targets, jloss, jaux, jgrads
@@ -172,10 +178,21 @@ def reference():
     return jcfg, tcfg, jparams, reference_grad(jcfg, jparams)
 
 
-def check_loss_and_gradient(jcfg, tcfg, jparams, ref):
+def torch_batch(tokens, targets=None, stubs=None) -> dict:
+    """The port's batch of numpy tokens (and targets, and the patches or
+    frames of ``stubs``)."""
+    out = {"tokens": torch.from_numpy(tokens).long()}
+    if targets is not None:
+        out["targets"] = torch.from_numpy(targets).long()
+    out.update({key: torch.from_numpy(np.array(val))
+                for key, val in (stubs or {}).items()})
+    return out
+
+
+def check_loss_and_gradient(jcfg, tcfg, jparams, ref, stubs=None):
     """The flat J-vector bitwise, the loss and the aux terms within RTOL /
     ATOL, the flat gradient within RTOL / GRAD_ATOL of the jitted
-    reference (``ref``: reference_grad's)."""
+    reference (``ref``: reference_grad's, of the same ``stubs``)."""
     tokens, targets, jloss, jaux, jgrads = ref
     jflat = JaxFlattener(jparams)
     tparams = params_from_jax(jparams)
@@ -184,9 +201,8 @@ def check_loss_and_gradient(jcfg, tcfg, jparams, ref):
     assert np.array_equal(tflat.flatten(tparams).numpy(),
                           np.asarray(jflat.flatten(jparams)))
     leaves = [leaf.requires_grad_(True) for _, leaf in tree_items(tparams)]
-    loss, aux = loss_and_aux(tparams, {
-        "tokens": torch.from_numpy(tokens).long(),
-        "targets": torch.from_numpy(targets).long()}, tcfg)
+    loss, aux = loss_and_aux(tparams, torch_batch(tokens, targets, stubs),
+                             tcfg)
     grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=RTOL)
     for key in AUX:
@@ -201,21 +217,25 @@ def test_loss_and_gradient_match_reference(reference):
     check_loss_and_gradient(*reference)
 
 
-def check_prefill_and_decode(jcfg, tcfg, jparams, prompt=12, steps=3):
+def check_prefill_and_decode(jcfg, tcfg, jparams, prompt=12, steps=3,
+                             stubs=None):
     """Prefill logits and cache, then ``steps`` teacher-forced decode
     steps' logits, within SERVE_TOL of the reference's functions, from
     the port's prefill cache and from the reference's carried across
-    (``convert.cache_from_jax``)."""
+    (``convert.cache_from_jax``); the prompt's batch takes ``stubs``
+    (numpy patches or frames of 2 rows). Returns the tokens and the
+    port's logits, prefill's first."""
     from repro_torch.convert import cache_from_jax, cache_to_jax
     tparams = params_from_jax(jparams)
     tokens = np.random.default_rng(1).integers(0, 512, (2, prompt + steps))
     max_seq = prompt + steps
-    jlogits, jcache = jax.jit(lambda p, t: jax_prefill(
-        p, {"tokens": t}, jcfg, PAL, max_seq=max_seq))(
-            jparams, jnp.asarray(tokens[:, :prompt], np.int32))
+    jlogits, jcache = jax.jit(lambda p, t, st: jax_prefill(
+        p, {"tokens": t, **st}, jcfg, PAL, max_seq=max_seq))(
+            jparams, jnp.asarray(tokens[:, :prompt], np.int32), stubs or {})
     with torch.inference_mode():
         logits, cache = tfm.prefill(
-            tparams, torch.from_numpy(tokens[:, :prompt]), tcfg, max_seq)
+            tparams, torch_batch(tokens[:, :prompt], stubs=stubs), tcfg,
+            max_seq)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                rtol=SERVE_TOL, atol=SERVE_TOL)
     jitems = tree_items(jax.device_get(jcache))
@@ -232,7 +252,8 @@ def check_prefill_and_decode(jcfg, tcfg, jparams, prompt=12, steps=3):
                                jnp.asarray(tokens[:, i:i + 1], np.int32))
         want.append(np.asarray(jlogits))
     # the port's cache, then the reference's carried across
-    for start in (cache, carried):
+    got = [logits]
+    for start, kept in ((cache, got), (carried, [])):
         for i, jl in zip(range(prompt, prompt + steps), want):
             with torch.inference_mode():
                 logits, start = tfm.decode_step(
@@ -240,18 +261,25 @@ def check_prefill_and_decode(jcfg, tcfg, jparams, prompt=12, steps=3):
                     tcfg)
             np.testing.assert_allclose(logits.numpy(), jl, rtol=SERVE_TOL,
                                        atol=SERVE_TOL, err_msg=f"step {i}")
+            kept.append(logits)
+    return tokens, got
 
 
 def test_prefill_and_decode_match_reference(reference):
     check_prefill_and_decode(*reference[:3])
 
 
-def check_fused_step(jcfg, tcfg, jparams, ref):
+def check_fused_step(jcfg, tcfg, jparams, ref, stubs=None,
+                     exact_zeros=True):
     """The main path (REGTOP-k, fused, sparse comm): the compressor on
     the reference's own flat gradient bitwise (values, indices, every
     state vector); one train step of each package on the same weights
-    and batch with the same loss and aux metrics within RTOL, the same
-    support (``idx_prev``) and the same zeroed error entries."""
+    and batch (``ref``'s, with ``stubs``) with the same loss and aux
+    metrics within RTOL, the same support (``idx_prev``), zero error at
+    the support, the error within RTOL / GRAD_ATOL of the reference's
+    and, with ``exact_zeros``, the same zeroed error entries (a model
+    whose gradient has entries that are zero in exact arithmetic but
+    rounding noise in fp32 passes False)."""
     from repro.optim import init_opt_state as jax_init_opt_state
     kw = dict(kind="regtopk", sparsity=0.01, mu=0.5, pipeline="fused",
               comm_mode="sparse")
@@ -289,7 +317,8 @@ def check_fused_step(jcfg, tcfg, jparams, ref):
             lambda l: l.reshape((1, 1) + l.shape) if l.ndim else l, tree)
     mesh = make_mesh(1, 1)
     pal = build_parallel(mesh)
-    jb = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)}
+    jb = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets),
+          **(stubs or {})}
     with mesh:
         step_fn, _, _ = jax_build_train_step(jrun, mesh, pal)
         _, _, ef, metrics = jax.jit(step_fn)(
@@ -299,16 +328,19 @@ def check_fused_step(jcfg, tcfg, jparams, ref):
             jax.random.PRNGKey(0))
     tstate = init_train_state(trun, "cpu", params=params_from_jax(jparams))
     tstate, tmetrics = build_train_step(trun, "cpu")(
-        tstate, {"tokens": torch.from_numpy(tokens).long(),
-                 "targets": torch.from_numpy(targets).long()})
+        tstate, torch_batch(tokens, targets, stubs))
     for key in ("loss",) + AUX:
         np.testing.assert_allclose(float(tmetrics[key]), float(metrics[key]),
                                    rtol=RTOL, atol=ATOL, err_msg=key)
     want = np.sort(np.asarray(ef["idx_prev"]).reshape(-1))
     got = np.sort(tstate.ef["idx_prev"].numpy().view(np.uint32))
     assert np.array_equal(want, got)
-    assert np.array_equal(np.asarray(ef["err_prev"]).reshape(-1) == 0,
-                          tstate.ef["err_prev"].numpy() == 0)
+    err, jerr = tstate.ef["err_prev"].numpy(), np.asarray(
+        ef["err_prev"]).reshape(-1)
+    assert not err[got.view(np.int32)].any()
+    np.testing.assert_allclose(err, jerr, rtol=RTOL, atol=GRAD_ATOL)
+    if exact_zeros:
+        assert np.array_equal(jerr == 0, err == 0)
 
 
 def test_fused_step_matches_reference(reference):

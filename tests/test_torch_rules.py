@@ -326,10 +326,11 @@ def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
     assert all(outcomes.values()), outcomes
 
 
-# the MoE, SSM and hybrid families and MLA are served (item None): the
-# reduced smoke model's widths with 4 experts of 64, top-2; MLA at lora
-# 32, rope dim 16; xLSTM's alternating mLSTM and sLSTM; Mamba at d_state
-# 8 beside attention
+# every family and MLA are served (item None): the reduced smoke model's
+# widths with 4 experts of 64, top-2; MLA at lora 32, rope dim 16;
+# xLSTM's alternating mLSTM and sLSTM; Mamba at d_state 8 beside
+# attention; Whisper's 2-layer encoder over 16 stub frames with
+# cross-attention; Phi-3-vision's 16 stub patches
 SERVED_BY_FIELD = {
     ("family", "moe"): dict(moe=cfgs.MoEConfig(n_experts=4, top_k=2,
                                                d_expert=64)),
@@ -338,26 +339,33 @@ SERVED_BY_FIELD = {
     ("family", "ssm"): dict(attn_every=0, rope=False, ssm=cfgs.SSMConfig(
         kind="xlstm", d_state=8)),
     ("family", "hybrid"): dict(attn_every=2, attn_offset=1, rope=False,
-                               ssm=cfgs.SSMConfig(kind="mamba", d_state=8))}
+                               ssm=cfgs.SSMConfig(kind="mamba", d_state=8)),
+    ("family", "audio"): dict(rope=False, is_encoder_decoder=True,
+                              n_enc_layers=2, frontend="audio_stub",
+                              n_frontend_tokens=16),
+    ("family", "vlm"): dict(frontend="vision_stub", n_frontend_tokens=16)}
 
 
-# the ids are the cases' names from when the SSM and hybrid families
-# and the Mamba mixer raised
+# the ids are the cases' names from when the SSM, hybrid, audio and
+# vision families and the Mamba mixer raised
 @pytest.mark.parametrize("field,value,item", [
     pytest.param("family", "moe", None, id="family-moe-None"),
     pytest.param("family", "ssm", None, id="family-ssm-A13"),
     pytest.param("family", "hybrid", None, id="family-hybrid-A13"),
-    pytest.param("family", "audio", "A13c", id="family-audio-A13"),
+    pytest.param("family", "audio", None, id="family-audio-A13"),
     pytest.param("attn_kind", "mla", None, id="attn_kind-mla-None"),
-    pytest.param("family", "vlm", "A13c", id="family-vlm-A13"),
+    pytest.param("family", "vlm", None, id="family-vlm-A13"),
     pytest.param("mixer", "mamba", None, id="mixer-mamba-A13")])
 def test_models_outside_the_slice_raise(field, value, item):
     """Every dense layout is served (rmsnorm, GELU, QKV bias, tied
     embeddings, no RoPE, sliding attention), and so are the MoE, SSM
-    (xLSTM) and hybrid (Mamba beside attention) families, MLA, and a
-    Mamba mixer in a dense model's pattern: init, loss, cache and
-    prefill run. The vision and audio families raise naming ROADMAP
-    A13c at init, in the loss, in the cache and in the serve step."""
+    (xLSTM) and hybrid (Mamba beside attention) families, the audio
+    (an encoder over stub frames, cross-attention) and vision (stub
+    patches) families, MLA, and a Mamba mixer in a dense model's
+    pattern: init, loss, cache and prefill run, a batch carrying the
+    model's stub inputs. A case with an item would raise naming it at
+    init, in the loss, in the cache and in the serve step."""
+    from repro_torch.data.synthetic import stub_inputs
     from repro_torch.models import init_params, loss_fn, transformer
     from repro_torch.serve.step import build_prefill
     cfg = cfgs.reduced_config(cfgs.get_config("stablelm-3b"))
@@ -377,10 +385,13 @@ def test_models_outside_the_slice_raise(field, value, item):
     tokens = torch.zeros((1, 4), dtype=torch.long)
     if item is None:
         params = init_params(bad, torch.Generator().manual_seed(0), "cpu")
-        loss = loss_fn(params, {"tokens": tokens, "targets": tokens}, bad)
+        stubs = stub_inputs(bad, 1, torch.Generator().manual_seed(0), "cpu")
+        loss = loss_fn(params, {"tokens": tokens, "targets": tokens,
+                                **stubs}, bad)
         assert torch.isfinite(loss)
         transformer.init_decode_cache(bad, 1, 8, torch.float32)
-        logits, _ = build_prefill(run, "cpu")(params, {"tokens": tokens})
+        logits, _ = build_prefill(run, "cpu")(params, {"tokens": tokens,
+                                                       **stubs})
         assert logits.shape == (1, bad.vocab_size)
         return
     for call in (lambda: init_params(bad, torch.Generator(), "cpu"),
@@ -389,6 +400,18 @@ def test_models_outside_the_slice_raise(field, value, item):
                                                        torch.float32),
                  lambda: build_prefill(run, "cpu")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call()
+
+
+def test_unknown_family_raises_value_error():
+    """A family the reference does not have raises ValueError naming it
+    wherever the model is checked (init, the loss)."""
+    from repro_torch.models import init_params, loss_fn
+    cfg = dataclasses.replace(
+        cfgs.reduced_config(cfgs.get_config("stablelm-3b")), family="video")
+    for call in (lambda: init_params(cfg, torch.Generator(), "cpu"),
+                 lambda: loss_fn({}, {}, cfg)):
+        with pytest.raises(ValueError, match="unknown family 'video'"):
             call()
 
 

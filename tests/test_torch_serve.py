@@ -104,8 +104,8 @@ def test_prefill_and_decode_match_reference(case, arch, prompt):
             jparams, jnp.asarray(tokens[:, :prompt]))
     with torch.inference_mode():
         tlogits, tcache = tfm.prefill(
-            tparams, torch.from_numpy(tokens[:, :prompt]).long(), tcfg,
-            max_seq)
+            tparams, {"tokens": torch.from_numpy(tokens[:, :prompt]).long()},
+            tcfg, max_seq)
     _close(tlogits, jlogits, "prefill logits")
     jitems = tree_items(jax.device_get(jcache))
     titems = tree_items(cache_to_jax(tcache))
@@ -194,7 +194,8 @@ def test_serve_step_builders_match_the_model_functions():
     assert cache["blocks"]["l0"]["k"].shape[2] == 10
     assert cache["blocks"]["l0"]["k"].is_inference()
     with torch.inference_mode():
-        want, wcache = tfm.prefill(params, tokens[:, :6], cfg, 10)
+        want, wcache = tfm.prefill(params, {"tokens": tokens[:, :6]}, cfg,
+                                   10)
     assert torch.equal(logits, want)
     for t in (6, 7):
         logits, cache = dec(params, cache, tokens[:, t:t + 1])
@@ -254,7 +255,7 @@ def test_serve_launcher_smoke(arch, capsys):
     assert res["params"] == run.model.param_count()
     tokens = torch.cat([res["prompt"], res["tokens"]], 1)
     with torch.inference_mode():
-        full = tfm.full_logits(params, tokens, run.model)
+        full = tfm.full_logits(params, {"tokens": tokens}, run.model)
     scale = float(full.abs().max())
     assert float((res["logits"] - full[:, -1]).abs().max()) / scale < 2e-4
     assert float((res["prefill_logits"] - full[:, 7]).abs().max()) / scale \

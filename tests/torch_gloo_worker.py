@@ -23,8 +23,12 @@ as tests/jax_mesh_worker.py's mode "serve" reads it) through the serve
 step's builders over the group; MODE "recurrent_serve" serves a
 data-parallel batch of the inputs' reduced ``arch`` (an SSM or hybrid
 model) through the builders, and decodes a one-rank prefill's cache that
-``shard_decode_cache`` cut by rows. Imports torch and the port only, and
-records whether jax was imported.
+``shard_decode_cache`` cut by rows; MODE "encdec_serve" serves the
+inputs' reduced encoder-decoder ``arch`` with the inputs' frames: a
+data-parallel batch through the builders, and context-parallel decode of
+one row from a one-rank prefill's cache that ``shard_decode_cache``
+split by slots. Imports torch and the port only, and records whether jax
+was imported.
 """
 import json
 import os
@@ -283,8 +287,8 @@ def run_world_serve(rank: int, data) -> dict:
         dec = build_decode_step(run, "cpu", group=group)
         if case["cp"]:
             with torch.inference_mode():
-                _, cache = tfm.prefill(params, tokens[:, :prompt], model,
-                                       max_seq=seq)
+                _, cache = tfm.prefill(params, {"tokens": tokens[:, :prompt]},
+                                       model, max_seq=seq)
             cache = shard_decode_cache(cache, run, group)
         else:
             pre = build_prefill(run, "cpu", group=group)
@@ -325,7 +329,7 @@ def run_recurrent_serve(rank: int, data) -> dict:
     logits, cache = build_prefill(run, "cpu", group=group)(
         params, {"tokens": tokens[:, :prompt]})
     with torch.inference_mode():
-        _, whole = tfm.prefill(params, tokens[:, :prompt], model,
+        _, whole = tfm.prefill(params, {"tokens": tokens[:, :prompt]}, model,
                                max_seq=tokens.shape[1])
     res = {"prefill": logits.numpy()}
     for path, leaf in tree_items(cache["blocks"]):
@@ -336,6 +340,46 @@ def run_recurrent_serve(rank: int, data) -> dict:
         for t in range(prompt, tokens.shape[1]):
             step_logits, start = dec(params, start, tokens[:, t:t + 1])
             res[f"{name}_decode_{t - prompt}"] = step_logits.numpy()
+    return res
+
+
+def run_encdec_serve(rank: int, data) -> dict:
+    """Data-parallel ("dp", the inputs' whole batch): the builders'
+    gathered prefill logits and every decode step's; context-parallel
+    ("cp", the first row): every decode step's logits from a one-rank
+    prefill's cache that ``shard_decode_cache`` split over the group;
+    each with the shapes of this rank's first self-attention and cross
+    k."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.step import (build_decode_step, build_prefill,
+                                        shard_decode_cache)
+    group = dist.group.WORLD
+    model = cfgs.reduced_config(cfgs.get_config(str(data["arch"])))
+    params = _from_flat(model, data["init_params"])
+    tokens = torch.from_numpy(data["tokens"]).long()
+    frames = torch.from_numpy(data["frames"])
+    prompt = int(data["prompt"])
+    res = {}
+    for name, b in (("dp", tokens.shape[0]), ("cp", 1)):
+        run = cfgs.RunConfig(model=model, shape=cfgs.ShapeConfig(
+            "serve", tokens.shape[1], b, "decode"),
+            sparsifier=cfgs.SparsifierConfig(kind="none"))
+        batch = {"tokens": tokens[:b, :prompt], "frames": frames[:b]}
+        if name == "dp":
+            logits, cache = build_prefill(run, "cpu", group=group)(params,
+                                                                   batch)
+            res["dp_prefill"] = logits.numpy()
+        else:
+            with torch.inference_mode():
+                _, whole = tfm.prefill(params, batch, model,
+                                       max_seq=tokens.shape[1])
+            cache = shard_decode_cache(whole, run, group)
+        res[f"{name}_self_k"] = np.asarray(cache["blocks"]["l0"]["k"].shape)
+        res[f"{name}_cross_k"] = np.asarray(cache["cross"]["k"].shape)
+        dec = build_decode_step(run, "cpu", group=group)
+        for t in range(prompt, tokens.shape[1]):
+            logits, cache = dec(params, cache, tokens[:b, t:t + 1])
+            res[f"{name}_decode_{t - prompt}"] = logits.numpy()
     return res
 
 
@@ -366,7 +410,8 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                "checkpoint": run_checkpoint,
                "world_train": run_world_train, "launch": run_launch,
                "world_serve": run_world_serve,
-               "recurrent_serve": run_recurrent_serve}[mode]
+               "recurrent_serve": run_recurrent_serve,
+               "encdec_serve": run_encdec_serve}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
