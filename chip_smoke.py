@@ -203,8 +203,11 @@ line and raising on any failure:
              lies past the patches) and Whisper-small (12 + 12 layers)
              at a prompt of 48 with 1500 stub frames, whose cross k and
              v every decode step reads (its bytes bound counts them, and
-             not the encoder's weights); the full forward takes the same
-             patches or frames;
+             neither the encoder's weights nor the cross layers' k and
+             v projections); the full forward takes the same patches or
+             frames; in every fp32 cell each two rows' logits lie
+             further apart than the error limit, so that a fault of one
+             row shows;
 21a. mamba_layer: one Mamba layer at Jamba's width (d_model 4096,
              d_inner 8192, d_state 16, dt_rank 256) in fp32, batch 8, at
              seq 128 (one scan chunk) and 1024 (two chunks of 512), with
@@ -1892,6 +1895,13 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
                            full_cfg).float()
         del x
     scale = float(full.abs().max())
+    # the least max |difference| between two rows' logits at a position,
+    # over the scale: above SERVE_RTOL, a fault of one row (another row's
+    # cache or stub input) shows against the full forward
+    gaps = (full[:, None] - full[None]).abs().amax(-1).amin(-1)
+    row_gap = float(gaps[~torch.eye(SERVE_BATCH, dtype=torch.bool,
+                                    device=gaps.device)].min()) / scale
+    del gaps
     e_pre = float((out["prefill_logits"].float() - full[:, 0]).abs().max())
     e_dec = float((out["logits"].float() - full[:, 1]).abs().max())
     check(out["params"] == SERVE_PARAMS[arch], f"{arch}: {out['params']}")
@@ -1917,9 +1927,15 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
         profile = decode_profile(dev, run, params, out["cache"],
                                  out["tokens"][:, -1:], dtype)
     live = min(cap or 0, prompt + SERVE_NEW)
+    # decode runs neither the encoder nor the cross layers' k and v
+    # projections: it reads their output in the cache's cross leaf
+    unread = tree_size(params.get("encoder", {})) + sum(
+        int(leaf.numel()) for path, leaf in tree_items(params)
+        if len(path) > 1 and path[-2] == "cross"
+        and path[-1] in ("wk", "wv", "bk", "bv"))
     step_bytes, all_experts_bytes = decode_bytes(
-        cfg, out["params"] - tree_size(params.get("encoder", {})), live,
-        out["cache"], step_route.experts())
+        cfg, out["params"] - unread, live, out["cache"],
+        step_route.experts())
     ms = statistics.median(windows)
     res = {"arch": arch, "attn": attn, "dtype": dtype,
            "window": cfg.window if attn == "sliding" else None,
@@ -1936,6 +1952,7 @@ def serve_case(dev, arch: str, attn: str, prompt: int, dtype: str,
            "decode_bound_bytes": step_bytes,
            "max_memory_allocated": peak,
            "prefill_rel_err": e_pre / scale, "decode_rel_err": e_dec / scale,
+           "row_gap": row_gap,
            "decode_profile": profile,
            "first_sequence": out["tokens"][0].tolist()}
     if cfg.moe is not None:
@@ -1961,7 +1978,8 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
     (summed over the layers); the ``live_slots`` valid slots of every
     attention cache leaf, every recurrent state leaf read and written
     once, and an encoder-decoder's cross k and v read whole (``n_params``
-    leaves out its encoder, which decode does not run). Returns (those
+    leaves out its encoder and its cross layers' k and v projections,
+    which decode does not run). Returns (those
     bytes, the same with every expert of every MoE layer: what the
     all-experts products read)."""
     from repro_torch.core.flatten import tree_items, tree_leaves
@@ -2055,7 +2073,8 @@ def phase_serve(dev) -> None:
     prompt 48, and 4096 for the long cell), each architecture's
     parameters drawn once from seed 0 (fp32 masters, as the reference
     keeps them): in fp32, the decode and prefill logits within SERVE_RTOL
-    of the full forward; then in the config's bf16, its error printed,
+    of the full forward, and every two rows' logits further apart than
+    that (``row_gap``); then in the config's bf16, its error printed,
     not bounded (not for SERVE_FP32_ONLY: a line says why). Decode ms a
     step is the median of SERVE_REPS windows after the launcher's run
     (its spread beside it)."""
@@ -2075,6 +2094,10 @@ def phase_serve(dev) -> None:
               f"serve {arch} {attn} {prompt}: fp32 errors "
               f"{res['prefill_rel_err']}, {res['decode_rel_err']} over "
               f"{SERVE_RTOL}")
+        check(res["row_gap"] > SERVE_RTOL,
+              f"serve {arch} {attn} {prompt}: two rows' logits within "
+              f"{res['row_gap']} of each other, under {SERVE_RTOL}: a fault "
+              "of one row would not show")
         emit("serve", **res)
         torch.cuda.empty_cache()
         if arch in SERVE_FP32_ONLY:

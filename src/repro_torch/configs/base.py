@@ -82,8 +82,8 @@ class ModelConfig:
     # encoder-decoder
     is_encoder_decoder: bool = False
     n_enc_layers: int = 0
-    enc_causal: bool = False      # read nowhere: the encoder is always
-                                  # bidirectional, as the reference's
+    enc_causal: bool = False      # the encoder is bidirectional, as the
+                                  # reference's: True raises ValueError
     # modality frontend stubs
     frontend: str = "none"        # none | vision_stub | audio_stub
     n_frontend_tokens: int = 0    # patches (vlm) / frames (audio)

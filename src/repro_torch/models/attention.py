@@ -41,7 +41,8 @@ absorbed form (``cfg.mla_absorb``) projects the queries through the key
 up-projection and attends over ``ckv`` itself, applying the value
 up-projection to the context. The scale is head_dim ** -0.5 in both. The
 cache of an MLA layer is ``{ckv, krope}``. Context-parallel decode of
-MLA raises (ROADMAP A13e).
+MLA raises (ROADMAP A13e), and so does bidirectional MLA, an MLA
+encoder-decoder's (A13f).
 
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
@@ -173,28 +174,26 @@ def absorb_q(p: dict, q: torch.Tensor, cfg):
 
 def _absorbed_partial(ql, qr, ckv, krope, mask, scale):
     """One key block of absorbed attention: the unnormalised context (B,
-    Sq, H, lora) and the running max and sum (B, H, Sq); ``mask`` None:
-    every key."""
+    Sq, H, lora) and the running max and sum (B, H, Sq)."""
     sc = (torch.einsum("bqhl,bsl->bhqs", ql, ckv)
           + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
-    if mask is not None:
-        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     m = sc.amax(-1)
     w = torch.exp(sc - m[..., None])
     return torch.einsum("bhqs,bsl->bqhl", w.to(ckv.dtype), ckv), m, w.sum(-1)
 
 
-def absorbed_attention(p: dict, q, ckv, krope, cfg, scale: float,
-                       causal: bool = True) -> torch.Tensor:
-    """Absorbed MLA attention over the prompt, causal or not (the
-    reference's ``_sdpa_absorbed_chunked``): every query against keys in
-    chunks of ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
+def absorbed_attention(p: dict, q, ckv, krope, cfg,
+                       scale: float) -> torch.Tensor:
+    """Causal absorbed MLA attention over the prompt (the reference's
+    ``_sdpa_absorbed_chunked``): every query against keys in chunks of
+    ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
     ql, qr = absorb_q(p, q, cfg)
     s = ql.shape[1]
     pos = torch.arange(s, device=q.device)
     acc = None
     for k0 in range(0, s, KV_CHUNK):
-        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK]) if causal else None
+        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK])
         o, m, l = _absorbed_partial(ql, qr, ckv[:, k0:k0 + KV_CHUNK],
                                     krope[:, k0:k0 + KV_CHUNK], mask, scale)
         if acc is not None:
@@ -221,16 +220,20 @@ def _per_head(t):
     return t.permute(0, 2, 1)[..., None]
 
 
-def _mla_attend(p, q, ckv, krope, cfg, causal: bool = True):
-    """MLA attention of the prompt, expanded or absorbed, causal or
-    not."""
+def _mla_attend(p, q, ckv, krope, cfg):
+    """Causal MLA attention of the prompt, expanded or absorbed."""
     scale = cfg.resolved_head_dim ** -0.5
     if cfg.mla_absorb:
-        return absorbed_attention(p, q, ckv, krope, cfg, scale, causal)
+        return absorbed_attention(p, q, ckv, krope, cfg, scale)
     k, v = mla_expand(p, ckv, krope, cfg, q.dtype)
-    if causal:
-        return causal_attention(q, k, v, scale)
-    return full_attention(q, k, v, scale)
+    return causal_attention(q, k, v, scale)
+
+
+def mla_encoder_message(cfg) -> str:
+    """Why bidirectional MLA (an MLA encoder-decoder's encoder) raises."""
+    return (f"{cfg.name}: bidirectional MLA attention (an MLA "
+            "encoder-decoder) is not ported yet; no registered "
+            "architecture is one (ROADMAP A13f)")
 
 
 def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -324,12 +327,14 @@ def _window(cfg) -> int:
 def attn_fwd_full(p: dict, x: torch.Tensor, cfg,
                   causal: bool = True) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``) or,
-    for an encoder, bidirectional."""
+    for an encoder, bidirectional (not MLA: ``mla_encoder_message``)."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
+        if not causal:
+            raise NotImplementedError(mla_encoder_message(cfg))
         q, ckv, krope = proj_mla(p, x, cfg, pos)
-        o = _mla_attend(p, q, ckv, krope, cfg, causal)
+        o = _mla_attend(p, q, ckv, krope, cfg)
     else:
         q, k, v = proj_qkv(p, x, cfg, pos)
         scale = cfg.resolved_head_dim ** -0.5

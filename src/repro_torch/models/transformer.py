@@ -108,10 +108,12 @@ def n_moe_layers(cfg) -> int:
 
 
 def check_model(cfg) -> None:
-    """Raise NotImplementedError for a model outside the ported slice,
-    ValueError for a family or mixer the reference does not have, or an
-    encoder-decoder whose cross cache (one layer a super-block, the
-    reference's layout) cannot hold its layers."""
+    """Raise NotImplementedError for a model outside the ported slice (an
+    MLA encoder-decoder among them), ValueError for a family or mixer the
+    reference does not have, a causal encoder (the reference's encoder is
+    bidirectional whatever ``enc_causal`` says), or an encoder-decoder
+    whose cross cache (one layer a super-block, the reference's layout)
+    cannot hold its layers."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
                          f"(expected one of {FAMILIES})")
@@ -125,11 +127,17 @@ def check_model(cfg) -> None:
         if mixer not in MIXERS:
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r} "
                              f"(expected one of {MIXERS})")
-    if cfg.is_encoder_decoder and (cfg.n_dense_prefix
-                                   or len(layer_pattern(cfg)) > 1):
+    if cfg.enc_causal:
+        raise ValueError(f"{cfg.name}: enc_causal=True: the encoder is "
+                         "bidirectional, as the reference's")
+    if not cfg.is_encoder_decoder:
+        return
+    if cfg.n_dense_prefix or len(layer_pattern(cfg)) > 1:
         raise ValueError(f"{cfg.name}: an encoder-decoder's cross cache "
                          "holds one layer a super-block and no dense "
                          "prefix")
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(attn.mla_encoder_message(cfg))
 
 
 def cp_message(cfg) -> str:

@@ -403,6 +403,34 @@ def test_models_outside_the_slice_raise(field, value, item):
             call()
 
 
+@pytest.mark.parametrize("change,error,match", [
+    pytest.param(dict(enc_causal=True), ValueError, "enc_causal=True",
+                 id="causal-encoder"),
+    pytest.param(dict(attn_kind="mla", kv_lora_rank=32, rope_head_dim=16,
+                      v_head_dim=32), NotImplementedError, "ROADMAP A13f",
+                 id="mla-encoder-decoder")])
+def test_encoder_decoders_outside_the_slice_raise(change, error, match):
+    """A causal encoder (the reference's is bidirectional whatever
+    ``enc_causal`` says) raises ValueError, and an MLA encoder-decoder
+    (no registered arch is one) NotImplementedError naming ROADMAP A13f,
+    at init, in the loss and in the cache; bidirectional MLA attention
+    raises too where it would run."""
+    from repro_torch.models import attention, init_params, loss_fn
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(
+        cfgs.reduced_config(cfgs.get_config("whisper-small")), **change)
+    for call in (lambda: init_params(cfg, torch.Generator(), "cpu"),
+                 lambda: loss_fn({}, {}, cfg),
+                 lambda: transformer.init_decode_cache(cfg, 1, 8,
+                                                       torch.float32)):
+        with pytest.raises(error, match=match):
+            call()
+    if cfg.attn_kind == "mla":
+        with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
+            attention.attn_fwd_full({}, torch.zeros(1, 4, cfg.d_model), cfg,
+                                    causal=False)
+
+
 def test_unknown_family_raises_value_error():
     """A family the reference does not have raises ValueError naming it
     wherever the model is checked (init, the loss)."""
