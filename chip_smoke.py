@@ -45,7 +45,20 @@ within 2e-4 of a one-card forward on rank 0, decode ms a step) and
 ``world_decode_cp`` (context-parallel decode of Granite-8B, batch 1, a
 4096-token prompt prefilled on one card into 4160 cache slots split
 1040 a rank, 16 steps within 2e-4 of one-card decode of the same cache,
-decode ms a step beside one-card decode on rank 0's card).
+decode ms a step beside one-card decode on rank 0's card). At a world of
+4 the tensor-parallel phases follow (``--tp`` runs them alone), over
+(data, model) grids of the cards: ``world_train_tp`` (the main path on
+StableLM-3B at full width, 8 layers, (data 1, model 4), batch 8 x 128, 5
+steps: B1 and B2 exactly 5 times on every rank over its own J_local, the
+step-0 loss within 1e-5 and gradient within 1e-4 of one card's at the
+same parameters gathered, the replicated leaves' gradients bitwise
+across the model group), ``world_train_tp2x2`` (the same on (2, 2),
+batch 16, the parameters bitwise across each data pair),
+``world_train_ep`` (Granite-MoE-3B-A800M, 8 layers, (1, 4): 10 experts
+a card, the all_to_all's ms, the drop share) and ``world_serve_tp``
+(serve() of Qwen1.5-32B at full width and depth in fp32 over a model
+group of 4: 35.2 GB of weights a card, decode within 2e-4 of the
+tensor-parallel full forward, decode ms beside its bytes bound).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -138,8 +151,9 @@ line and raising on any failure:
              dense prefix and one MoE layer (J = 1,085,287,424); B1 and
              B2 once a step, and each step's lb_loss, z_loss and
              drop_frac printed; then train_xlstm, profile_xlstm: the
-             main path on xLSTM-125M at full width and depth (12 layers
-             of mLSTM and sLSTM, no FFN; J = 164,669,952): B1 and B2
+             main path on xLSTM-125M at full width cut to 4 layers
+             (2 super-blocks of mLSTM and sLSTM, no FFN; J =
+             106,402,304): B1 and B2
              once a step, and the profile's CUDA launches a step (each
              mixer's scan is a loop of eager steps over the 128
              positions); then train_phi3v, profile_phi3v: the main path
@@ -463,8 +477,10 @@ TRAIN_MODELS = {"train_granite": ("granite-8b", 3, 1_056_993_280),
                 # the dense prefix layer and one MoE layer
                 "train_deepseek": ("deepseek-v2-lite-16b", 2,
                                    1_085_287_424),
-                # full depth: 6 super-blocks of mLSTM and sLSTM
-                "train_xlstm": ("xlstm-125m", 12, 164_669_952),
+                # 2 of the 6 super-blocks of mLSTM and sLSTM: at full
+                # depth the cell and its profile (about 150,000 eager
+                # launches a step) took 140 s of the script's 1200
+                "train_xlstm": ("xlstm-125m", 4, 106_402_304),
                 "train_phi3v": ("phi-3-vision-4.2b", 8, 1_103_023_104),
                 # full depth: 12 encoder and 12 decoder layers
                 "train_whisper": ("whisper-small", 12, 278_115_840)}
@@ -2007,15 +2023,17 @@ def decode_bytes(cfg, n_params: int, live_slots: int, cache: dict,
             base + all_experts * per_param)
 
 
-def decode_windows(dev, run, params: dict, cache: dict, tokens) -> list:
+def decode_windows(dev, run, params: dict, cache: dict, tokens,
+                   dec=None) -> list:
     """ms a step of SERVE_REPS more decode windows of a served cache, on
     the host clock around each window, which ends in a synchronisation:
     ``pos`` set back by the window and the generated tokens fed again at
     their positions, so each step does its served step's work at the same
-    context (with full attention it writes the same k and v again)."""
+    context (with full attention it writes the same k and v again).
+    ``dec``: the decode step (default: one rank's)."""
     import torch
     from repro_torch.serve.step import build_decode_step
-    dec = build_decode_step(run, dev)
+    dec = dec or build_decode_step(run, dev)
     n = tokens.shape[1]
     out = []
     for _ in range(SERVE_REPS):
@@ -2031,18 +2049,19 @@ def decode_windows(dev, run, params: dict, cache: dict, tokens) -> list:
 
 
 def decode_profile(dev, run, params: dict, cache: dict, token,
-                   dtype: str) -> dict:
+                   dtype: str, dec=None) -> dict:
     """One more decode step of a served cache, under torch.profiler: the
     last step again (``pos`` set back by one, the same token, so its k
     and v overwrite themselves), split into device time by kind of
     kernel: the fp32 -> bf16 conversions (``bfloat16_copy_kernel``; the
     weights' casts and a few activations'), the matmuls, the rest; and
     the launches. The conversions must be 0 in fp32 and more in bf16.
-    Wall time includes the profiler's own cost."""
+    Wall time includes the profiler's own cost. ``dec``: the decode step
+    (default: one rank's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.step import build_decode_step
-    dec = build_decode_step(run, dev)
+    dec = dec or build_decode_step(run, dev)
     with torch.inference_mode():
         cache["pos"].sub_(1)
     torch.cuda.synchronize(dev)
@@ -2113,11 +2132,13 @@ def phase_serve(dev) -> None:
 
 def cuda_kernels(prof) -> list:
     """(name, device ms, calls) of each CUDA kernel a torch.profiler run
-    recorded, the longest first."""
+    recorded, the longest first (not the ``nccl:`` ranges that annotate
+    a collective's kernel with the same device time)."""
     from torch.autograd import DeviceType
     return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("nccl:")
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
 
 
@@ -2452,10 +2473,12 @@ def phase_profile(dev, run, state, phase: str, profiled: bool = True):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # device events are kernels and memcpys, plus the GPU-side spans of
-    # the record_function stages, which are not work of their own
+    # the record_function stages and the ``nccl:`` ranges around each
+    # collective's kernel, which are not work of their own
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in events if e.device_type == DeviceType.CUDA
                       and e.key not in STAGES
+                      and not e.key.startswith("nccl:")
                       and e.self_device_time_total > 0),
                      key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kernels)
@@ -2868,14 +2891,16 @@ def world_grads(name: str, world: int, j: int):
 
 
 def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
-               j: int = WORLD_J) -> int:
+               j: int = WORLD_J, tp_only: bool = False) -> int:
     """One rank of the multi-card check: GradientSync over the process
     group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
     bitwise identical on every rank and, like every rank's final state,
     equal to an in-process round() of the same workers (on rank 0), or
     for a chunked or bf16 wire to :func:`chunked_round`, or for the
     sketch to :func:`sketch_world_round` (its elastic case under the
-    bits of :func:`world_bits`).
+    bits of :func:`world_bits`). Then the multi-rank phases, and at a
+    world of 4 the tensor-parallel ones (WORLD_TP, ``world_serve_tp``);
+    ``tp_only`` runs the tensor-parallel phases alone.
     ``backend="gloo"`` at a small ``j`` runs the same check on the CPU
     without cards (tests/test_torch_chip_world.py)."""
     import torch
@@ -2897,7 +2922,7 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
         return out
 
     try:
-        for name, fields in WORLD_CASES.items():
+        for name, fields in ({} if tp_only else WORLD_CASES).items():
             cfg = SparsifierConfig(sparsity=SPARSITY, mu=MU, **fields)
             grads = world_grads(name, world, j)
             sync = GradientSync(cfg)
@@ -2948,15 +2973,24 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                      comm=sync.comm, step_ms=step_ms,
                      bitwise_across_ranks=True, equals_round=True,
                      state=sorted(st))
-        del st, ip_states, ip_sync, sync
-        for name in WORLD_TRAIN:
-            world_train(name, dev, world, rank)
+        if not tp_only:
+            del st, ip_states, ip_sync, sync
+            for name in WORLD_TRAIN:
+                world_train(name, dev, world, rank)
+                if cuda:
+                    torch.cuda.empty_cache()
+            world_serve(dev, world, rank)
             if cuda:
                 torch.cuda.empty_cache()
-        world_serve(dev, world, rank)
-        if cuda:
-            torch.cuda.empty_cache()
-        world_decode_cp(dev, world, rank)
+            world_decode_cp(dev, world, rank)
+        if world == 4:
+            for name in WORLD_TP:
+                if cuda:
+                    torch.cuda.empty_cache()
+                world_train_tp(name, dev, world, rank)
+            if cuda:
+                torch.cuda.empty_cache()
+            world_serve_tp(dev, world, rank)
     finally:
         dist.destroy_process_group()
     return 0
@@ -3292,12 +3326,426 @@ def world_decode_cp(dev, world: int, rank: int) -> None:
     dist.barrier()
 
 
-def phase_world(world: int, src: str) -> None:
+# the tensor-parallel phases of --world 4 (one process a card): the
+# launcher's train() over a (data, model) grid of the cards, and serve()
+# over a model group of all four. On the card the full widths (8 layers
+# for the train phases; Qwen1.5-32B at full depth, fp32); over gloo on the
+# CPU (tests/test_torch_chip_world.py) the reduced configs at small shapes.
+WORLD_TP = {   # phase: arch, depth, (data, model), global batch
+    "world_train_tp": ("stablelm-3b", TRAIN_LAYERS, (1, 4), TRAIN_BATCH),
+    "world_train_tp2x2": ("stablelm-3b", TRAIN_LAYERS, (2, 2),
+                          2 * TRAIN_BATCH),
+    "world_train_ep": ("granite-moe-3b-a800m", TRAIN_LAYERS, (1, 4),
+                       TRAIN_BATCH),
+}
+TP_SERVE_ARCH = "qwen1.5-32b"
+TP_SERVE_PARAMS = 35_197_096_960          # ModelConfig.param_count
+# the step-0 check of a dense tensor-parallel cell against one card at the
+# same parameters, in fp32: the loss to rtol 1e-5, the gathered gradient
+# (the replicated leaves' summed over the model group) to this share of
+# the one-card gradient's largest |entry| (a column- or row-parallel
+# product sums its K in parts, another order than one card's)
+TP_LOSS_RTOL = 1e-5
+TP_GRAD_RTOL = 1e-4
+TP_A2A_REPS = 10
+
+
+def tp_model(arch: str, depth: int, cuda: bool):
+    """A tensor-parallel cell's model: full width at ``depth`` on the
+    card, the reduced config over gloo."""
+    from repro_torch.configs.base import get_config, reduced_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=depth) if cuda \
+        else reduced_config(cfg)
+
+
+def group_equal(x, group) -> bool:
+    """Whether x holds the same bits as on the group's first rank."""
+    import torch.distributed as dist
+    want = x.clone()
+    dist.broadcast(want, dist.get_global_rank(group, 0), group=group)
+    return bits_equal(x, want)
+
+
+def group_spread(x, group) -> float:
+    """max |x - x on the group's first rank|."""
+    import torch.distributed as dist
+    want = x.clone()
+    dist.broadcast(want, dist.get_global_rank(group, 0), group=group)
+    return float((x - want).abs().max()) if x.numel() else 0.0
+
+
+def tp_global(tree: dict, pal) -> dict:
+    """A rank's parameter (or gradient) tree gathered over its model group
+    into the one-card layout (``models.specs``), on every rank of it."""
+    import torch
+    from repro_torch.core.flatten import tree_from_items, tree_items
+    from repro_torch.models.parallel import all_gather_model
+    from repro_torch.models.specs import leaf_dim
+    with torch.no_grad():
+        return tree_from_items(
+            (path, leaf.detach() if leaf_dim(path, leaf.ndim) is None
+             else all_gather_model(leaf.detach().contiguous(), pal,
+                                   leaf_dim(path, leaf.ndim)))
+            for path, leaf in tree_items(tree))
+
+
+def tp_step0(dev, run, pal, rows: dict, rank: int) -> dict:
+    """The step-0 check of a dense tensor-parallel cell, in fp32 and in
+    the config's dtype: this rank's share of the parameters train() draws
+    (``init_rank_params``), its loss and gradient on its data rank's rows
+    (the replicated leaves' summed over the model group, and those bitwise
+    equal across it), gathered into the one-card layout; rank 0 (data
+    rank 0's model group) holds the model group's loss (the sum of the
+    shares) and gradient against one card's ``loss_and_aux`` of the
+    gathered parameters on the same rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flatten import (tree_from_items, tree_items,
+                                          tree_leaves)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.parallel import all_reduce_sum
+    from repro_torch.models.specs import leaf_dim
+    out = {}
+    for dtype in ("float32", run.model.dtype):
+        if dtype in out:
+            continue
+        cfg = dataclasses.replace(run.model, dtype=dtype)
+        params = tfm.init_rank_params(cfg, run.seed, dev, pal)
+        items = tree_items(params)
+        leaves = [leaf.requires_grad_(True) for _, leaf in items]
+        loss, _ = tfm.loss_and_aux(params, rows, cfg, pal)
+        grads = torch.autograd.grad(loss, leaves)
+        rep_equal = True
+        summed = []
+        for (path, leaf), grad in zip(items, grads):
+            if leaf_dim(path, leaf.ndim) is None:
+                grad = all_reduce_sum(grad, pal.model_group)
+                rep_equal = rep_equal and group_equal(grad, pal.model_group)
+            summed.append(grad)
+        tp_loss = float(tfm.global_loss(loss, pal))
+        glob = tp_global(params, pal)
+        gglob = tp_global(tree_from_items(
+            (path, grad) for (path, _), grad in zip(items, summed)), pal)
+        del params, leaves, grads, summed
+        res = None
+        if rank == 0:
+            one = [leaf.clone().requires_grad_(True)
+                   for leaf in tree_leaves(glob)]
+            tree = tree_from_items((path, leaf) for (path, _), leaf in
+                                   zip(tree_items(glob), one))
+            one_loss, _ = tfm.loss_and_aux(tree, rows, cfg)
+            one_grads = torch.autograd.grad(one_loss, one)
+            scale = max(float(g.abs().max()) for g in one_grads)
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(tree_leaves(gglob), one_grads))
+            res = {"tp_loss": tp_loss, "one_card_loss": float(one_loss),
+                   "loss_rel_err": abs(tp_loss - float(one_loss))
+                   / abs(float(one_loss)),
+                   "grad_max_abs_err": err, "grad_max_abs": scale,
+                   "grad_rel_err": err / scale,
+                   "replicated_grads_bitwise_across_model": rep_equal}
+            del one, tree, one_grads
+        del glob, gglob
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out[dtype] = res
+    return out
+
+
+def tp_profile(dev, run, state, pal, rows: dict, rank: int):
+    """One more step of the trained state over the groups, rank 0 alone
+    under torch.profiler (the others step beside it): the device spans of
+    the step's stages and of the MoE's all_to_all (``moe/all_to_all``: the
+    forward's and the recomputed forward's), busy share and launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.step import build_train_step
+    step = build_train_step(run, dev, pal.group, pal.model_group)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    if rank:
+        step(state, rows)
+        torch.cuda.synchronize(dev)
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, rows)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    names = STAGES + ("moe/all_to_all",)
+    spans = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+             if e.key in names and e.device_type == DeviceType.CUDA}
+    kernels = [k for k in cuda_kernels(prof) if k[0] not in names]
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "stage_device_ms": spans,
+            "nccl_ms": sum(ms for key, ms, _ in kernels
+                           if key.startswith("ncclDevKernel")),
+            "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                            for k, ms, n in kernels[:10]]}
+
+
+def tp_all_to_all_ms(dev, run, pal, tokens: int) -> float:
+    """CUDA-event ms of one MoE all_to_all over the model group at the
+    main path's shape: (E_pad, capacity of this rank's ``tokens``, d)
+    fp32, the median of TP_A2A_REPS."""
+    import torch
+    from repro_torch.models.moe import capacity, experts_padded
+    from repro_torch.models.parallel import all_to_all_model
+    m = run.model.moe
+    e = experts_padded(run.model, pal)
+    cap = capacity(tokens, e, m.top_k, m.capacity_factor)
+    buf = torch.randn((e, cap, run.model.d_model), device=dev)
+    times = []
+    for _ in range(TP_A2A_REPS + 1):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        all_to_all_model(buf, pal, 0, 1)
+        t1.record()
+        torch.cuda.synchronize(dev)
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times[1:])
+
+
+def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
+    """The launcher's train() over a (data, model) grid of the cards
+    (``launch.mesh.axis_groups``: rank r is data r // model, model r %
+    model): the main path (REGTOP-k fused, sparse comm, Adam), TRAIN_STEPS
+    steps of the fixed global batch (each data rank its rows), B1 and B2
+    launched exactly once a step on every rank over its own J_local (on
+    the card), the loss finite and falling, the parameters bitwise equal
+    across each data group; each rank's J_local and peak, and one more
+    step profiled on rank 0. A dense cell first takes the step-0 check
+    (``tp_step0``); the MoE cell reports the MoE's all_to_all (profiled
+    spans and a CUDA-event timing) and the drop share (an MoE's capacity
+    follows each rank's own tokens, so its loss is not one card's)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
+                                          SparsifierConfig)
+    from repro_torch.core.flatten import TreeFlattener, tree_items
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.attention import head_counts
+    from repro_torch.models.specs import leaf_dim
+    from repro_torch.train.step import train_parallel
+    cuda = dev.type == "cuda"
+    arch, depth, (data_n, model_n), batch = WORLD_TP[phase]
+    model = tp_model(arch, depth, cuda)
+    seq, sparsity = (TRAIN_SEQ, SPARSITY) if cuda else (16, 0.01)
+    group, model_group = axis_groups(data_n, model_n)
+    pal = train_parallel(group, model_group)
+    d = rank // model_n
+    run = RunConfig(
+        model=model, shape=SHAPES["train_4k"],
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=sparsity, mu=MU,
+                                    **FUSED),
+        optimizer=OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+        steps=TRAIN_STEPS, log_every=1)
+    n = batch // data_n
+    rows = {key: val[d * n:(d + 1) * n] for key, val in lm_batch(
+        model, batch, seq, run.seed, 0, dev).items()}
+    step0 = None if model.moe is not None else tp_step0(dev, run, pal, rows,
+                                                        rank)
+    if rank == 0 and step0 is not None:
+        res = step0["float32"]
+        check(res["loss_rel_err"] < TP_LOSS_RTOL,
+              f"{phase}: step-0 loss {res['tp_loss']} against one card's "
+              f"{res['one_card_loss']} (rtol {TP_LOSS_RTOL})")
+        check(res["grad_rel_err"] < TP_GRAD_RTOL,
+              f"{phase}: step-0 gradient {res['grad_rel_err']} of its scale "
+              f"from one card's (limit {TP_GRAD_RTOL})")
+        check(all(r["replicated_grads_bitwise_across_model"]
+                  for r in step0.values()),
+              f"{phase}: the replicated leaves' gradients differ across the "
+              "model group")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = train(run, device=dev, group=group, model_group=model_group,
+                batch=batch, seq=seq, fixed_batch=True,
+                log=lambda msg: print(msg, file=sys.stderr))
+    launches = launch_counts()
+    expect = train_expect(("sweep1", "sweep2")) if cuda else {}
+    for name, count in launches.items():
+        check(count == expect.get(name, 0), f"{phase} rank {rank}: {name} "
+              f"launched {count} times in {TRAIN_STEPS} steps, expected "
+              f"{expect.get(name, 0)}")
+    losses = [rec["loss"] for rec in out["history"]]
+    check(all(math.isfinite(x) for x in losses), f"{phase}: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
+    peaks = world_peaks(dev, cuda)
+    state = out.pop("state")
+    flat = TreeFlattener(state.params).flatten(state.params).detach()
+    j_locals = [None] * world
+    dist.all_gather_object(j_locals, flat.numel())
+    same = [None] * world
+    dist.all_gather_object(same, group_equal(flat, group))
+    check(all(same), f"{phase}: the parameters differ across a data group "
+          f"({same})")
+    del flat
+    # each rank's REGTOP-k selects its entries of the replicated leaves on
+    # its own threshold (as the reference's does), so their copies may
+    # drift apart across the model group: their spread is recorded
+    rep = torch.cat([leaf.detach().reshape(-1)
+                     for path, leaf in tree_items(state.params)
+                     if leaf_dim(path, leaf.ndim) is None])
+    spread = [None] * world
+    dist.all_gather_object(spread, group_spread(rep, model_group))
+    profile = tp_profile(dev, run, state, pal, rows, rank) if cuda else None
+    del state
+    a2a = None
+    if cuda and model.moe is not None:
+        a2a = tp_all_to_all_ms(dev, run, pal, n * seq // model_n)
+    if rank == 0:
+        moe = {}
+        if model.moe is not None:
+            moe = {"drop_frac": [rec["drop_frac"] for rec in out["history"]],
+                   "lb_loss": [rec["lb_loss"] for rec in out["history"]],
+                   "experts_a_card": model.moe.n_experts // model_n,
+                   "vocab_padded": -(-model.vocab_size // model_n) * model_n,
+                   "all_to_all_ms_one_call": a2a,
+                   "all_to_all_calls_a_step": 2 * tfm.n_moe_layers(model)
+                   * (3 if model.remat else 2)}
+        emit(phase, model=model.name, n_layers=model.n_layers,
+             data=data_n, tp=model_n, j_local_by_rank=j_locals,
+             heads_a_card=list(head_counts(model, pal)),
+             global_batch=batch, seq=seq, rows_a_data_rank=n,
+             steps=TRAIN_STEPS,
+             sparsifier=dataclasses.asdict(run.sparsifier), losses=losses,
+             step_ms=[rec["ms"] for rec in out["history"]],
+             launches_a_rank=launches, fallbacks=out["fallbacks"],
+             max_memory_allocated_by_rank=peaks, step0=step0,
+             params_bitwise_across_data=all(same),
+             replicated_spread_by_rank=spread, profile=profile, **moe)
+    dist.barrier()
+
+
+def world_serve_tp(dev, world: int, rank: int) -> None:
+    """The serve launcher's serve() of Qwen1.5-32B at full width and depth
+    in fp32 over a model group of all the cards (``--model 4``; the
+    reduced config over gloo): batch SERVE_BATCH, prompt SERVE_PROMPT,
+    SERVE_NEW greedy steps, each rank holding its share of the weights
+    (``init_rank_params``) and its key/value heads of the cache; the
+    prefill's and the last step's logits (the padded vocabulary's) within
+    SERVE_RTOL of the tensor-parallel full forward of the same tokens,
+    relative to its largest logit, every two rows further apart than that
+    (``row_gap``); decode ms a step is the median of SERVE_REPS more
+    windows, beside the step's bytes bound a card (its weights, B rows
+    of its token table, the valid cache slots of its heads); one more
+    step profiled (launches a step) on every rank."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, SparsifierConfig
+    from repro_torch.core.flatten import tree_items, tree_leaves, tree_size
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.launch.serve import serve, serve_shape
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import lm_head_fwd
+    from repro_torch.models.specs import leaf_dim
+    from repro_torch.serve.step import build_decode_step, serve_parallel
+    cuda = dev.type == "cuda"
+    cfg = dataclasses.replace(tp_model(TP_SERVE_ARCH, 64, cuda),
+                              dtype="float32")
+    prompt, new = (SERVE_PROMPT, SERVE_NEW) if cuda else (8, 4)
+    run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt, new),
+                    sparsifier=SparsifierConfig(kind="none"))
+    group, model_group = axis_groups(1, world)
+    pal = serve_parallel(run, group, decode=False, model_group=model_group)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_rank_params(cfg, run.seed, dev, pal)
+    init_s = time.perf_counter() - t0
+    n_local = tree_size(params)
+    counts = [None] * world
+    dist.all_gather_object(counts, n_local)
+    replicated = sum(int(leaf.numel()) for path, leaf in tree_items(params)
+                     if leaf_dim(path, leaf.ndim) is None)
+    total = sum(counts) - (world - 1) * replicated
+    check(total == cfg.param_count(), f"world_serve_tp: {total} parameters "
+          f"over the ranks, the config has {cfg.param_count()}")
+    out = serve(run, device=dev, group=group, model_group=model_group,
+                prompt_len=prompt, new_tokens=new, params=params,
+                log=lambda msg: print(msg, file=sys.stderr))
+    v_pad = -(-cfg.vocab_size // world) * world
+    check(tuple(out["logits"].shape) == (SERVE_BATCH, v_pad),
+          f"world_serve_tp: logits {tuple(out['logits'].shape)}")
+    kv = tuple(out["cache"]["blocks"]["l0"]["k"].shape[1:4])
+    check(kv == (SERVE_BATCH, prompt + new, cfg.n_kv_heads // world),
+          f"world_serve_tp: a rank's cache (rows, slots, heads) {kv}")
+    tokens = torch.cat([out["prompt"], out["tokens"]], 1)
+    with torch.inference_mode():
+        x = tfm.hidden(params, {"tokens": tokens}, cfg, pal=pal)
+        full = tfm.gather_vocab(lm_head_fwd(params["embed"],
+                                            x[:, [prompt - 1, -1]], cfg,
+                                            pal), pal).float()
+        del x
+    scale = float(full.abs().max())
+    gaps = (full[:, None] - full[None]).abs().amax(-1).amin(-1)
+    row_gap = float(gaps[~torch.eye(SERVE_BATCH, dtype=torch.bool,
+                                    device=gaps.device)].min()) / scale
+    e_pre = float((out["prefill_logits"] - full[:, 0]).abs().max()) / scale
+    e_dec = float((out["logits"] - full[:, 1]).abs().max()) / scale
+    del full, gaps
+    check(e_pre < SERVE_RTOL and e_dec < SERVE_RTOL,
+          f"world_serve_tp: errors {e_pre}, {e_dec} over {SERVE_RTOL} of "
+          "the tensor-parallel full forward")
+    check(row_gap > SERVE_RTOL, f"world_serve_tp: two rows' logits within "
+          f"{row_gap} of each other")
+    windows = profile = None
+    if cuda:
+        dec = build_decode_step(run, dev, group=group,
+                                model_group=model_group)
+        windows = decode_windows(dev, run, params, out["cache"],
+                                 out["tokens"], dec)
+        profile = decode_profile(dev, run, params, out["cache"],
+                                 out["tokens"][:, -1:], "float32", dec)
+    # the step's bytes a card: its weights once (fp32), B rows of its
+    # token table in place of the table, the valid slots of its cache
+    tok = params["embed"]["tok"]
+    live = prompt + new
+    cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(
+        out["cache"]["blocks"]))
+    step_bytes = (n_local - tok.numel()) * 4 + SERVE_BATCH * \
+        cfg.d_model * 4 + cache_bytes // (prompt + new) * live
+    peaks = world_peaks(dev, cuda)
+    if rank == 0:
+        ms = None if windows is None else statistics.median(windows)
+        emit("world_serve_tp", arch=cfg.name, n_layers=cfg.n_layers,
+             dtype=cfg.dtype, tp=world, batch=SERVE_BATCH, prompt=prompt,
+             new_tokens=new, params=total, params_by_rank=counts,
+             weights_bytes_a_card=n_local * 4, init_s=init_s,
+             vocab_padded=v_pad, kv_heads_a_card=kv[2],
+             prefill_ms=out["prefill_s"] * 1e3,
+             launcher_decode_ms_per_step=out["decode_s"] / new * 1e3,
+             decode_ms_per_step=ms, decode_ms_windows=windows,
+             decode_ms_spread=None if windows is None
+             else [min(windows), max(windows)],
+             decode_bound_bytes_a_card=step_bytes,
+             decode_bound_ms=bound_ms(step_bytes, 0)[0],
+             prefill_rel_err=e_pre, decode_rel_err=e_dec, row_gap=row_gap,
+             max_memory_allocated_by_rank=peaks, decode_profile=profile,
+             first_sequence=out["tokens"][0].tolist())
+    dist.barrier()
+
+
+def phase_world(world: int, src: str, tp_only: bool = False) -> None:
     """Start ``world`` rank processes of this script (one card each, NCCL
     over a localhost rendezvous), relay their output, and stop them all:
     when one fails, the others (blocked in a collective) are stopped at
-    once. First print how the cards are linked (``nvidia-smi topo
-    -m``, where the machine lets it run)."""
+    once (``tp_only``: the tensor-parallel phases alone). First print how
+    the cards are linked (``nvidia-smi topo -m``, where the machine lets
+    it run)."""
     import socket
     import tempfile
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
@@ -3310,7 +3758,8 @@ def phase_world(world: int, src: str) -> None:
     outs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--world", str(world),
-         "--rank", str(r), "--port", str(port), "--src", src],
+         "--rank", str(r), "--port", str(port), "--src", src]
+        + (["--tp"] if tp_only else []),
         stdout=out, stderr=subprocess.STDOUT, text=True)
         for r, out in enumerate(outs)]
     deadline = time.perf_counter() + 1000
@@ -3435,6 +3884,10 @@ def main(argv=None) -> int:
                     "NCCL on this many cards (one process each) against an "
                     "in-process round, then the launcher's train() and "
                     "serve() over the group; needs that many cards")
+    ap.add_argument("--tp", action="store_true",
+                    help="with --world 4: run only the tensor-parallel "
+                    "phases (world_train_tp, world_train_tp2x2, "
+                    "world_train_ep, world_serve_tp)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3445,7 +3898,8 @@ def main(argv=None) -> int:
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if args.rank is not None:
-        return world_rank(args.rank, args.world, args.port)
+        return world_rank(args.rank, args.world, args.port,
+                          tp_only=args.tp)
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
@@ -3453,7 +3907,7 @@ def main(argv=None) -> int:
         check(torch.cuda.device_count() >= args.world,
               f"--world {args.world} needs {args.world} cards, found "
               f"{torch.cuda.device_count()}")
-        phase_world(args.world, os.path.abspath(args.src))
+        phase_world(args.world, os.path.abspath(args.src), args.tp)
         return finish(smi, None)
     if args.train or args.serve or args.delta or args.mamba:
         for name in args.train or ():

@@ -13,6 +13,13 @@ bits cross as uint16, numpy having no bf16 of its own), and the CNN's
 convolution weights, HWIO in the reference and OIHW in the port
 (``models.cnn``).
 
+Under tensor parallelism a rank holds its share of each parameter and
+its key/value heads of the cache: :func:`split_params` cuts a global
+tree (the reference's, as its mesh assembles it) into rank r's by the
+port's ``models.specs``, :func:`join_params` gathers the ranks' trees
+back, and :func:`split_cache` and :func:`join_cache` do the same for a
+decode cache.
+
 The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
 the order of the reference's ``jax.flatten_util.ravel_pytree`` over its
 parameter dict: sorted keys, each leaf flattened C-order in its HWIO
@@ -24,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.flatten import tree_map
+from repro_torch.core.flatten import tree_from_items, tree_items, tree_map
 
 
 def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
@@ -149,3 +156,75 @@ def unravel_cnn(vec: torch.Tensor, like: dict) -> dict:
     if pos != vec.numel():
         raise ValueError(f"J-vector of {vec.numel()} for {pos} parameters")
     return out
+
+
+def split_params(tree, tp: int, rank: int) -> dict:
+    """Model rank ``rank``'s local parameter tree (of ``tp``) cut from a
+    global one: the reference's mesh-assembled tree (numpy) or the
+    port's (tensors), in the padded layout tensor parallelism uses (head
+    counts, experts and the vocabulary padded to multiples of tp). Each
+    leaf is cut along its split dimension (``models.specs``); a
+    replicated leaf is kept whole."""
+    from repro_torch.models.specs import leaf_dim
+    return tree_from_items(
+        (path, _part(leaf, leaf_dim(path, np.ndim(leaf)), tp, rank))
+        for path, leaf in tree_items(tree))
+
+
+def join_params(trees: list) -> dict:
+    """The global parameter tree from every model rank's local tree, in
+    rank order: the inverse of :func:`split_params` (a replicated leaf
+    taken from rank 0)."""
+    from repro_torch.models.specs import leaf_dim
+    per_rank = [tree_items(t) for t in trees]
+    return tree_from_items(
+        (path, _join([items[i][1] for items in per_rank],
+                     leaf_dim(path, np.ndim(leaf))))
+        for i, (path, leaf) in enumerate(per_rank[0]))
+
+
+def cache_head_dim(path: tuple, ndim: int):
+    """The key/value head dimension of a decode cache leaf (its k or v:
+    (.., B, S, KV, hd)), None for a leaf without heads (``pos``, MLA's
+    ckv and krope, a recurrent state)."""
+    return ndim - 2 if path[-1] in ("k", "v") else None
+
+
+def split_cache(cache, tp: int, rank: int) -> dict:
+    """Model rank ``rank``'s part of a global decode cache: each k and v
+    cut along its key/value heads (the reference's ``decode_cache_specs``
+    puts them over "model"); the other leaves whole."""
+    return tree_from_items(
+        (path, _part(leaf, cache_head_dim(path, np.ndim(leaf)), tp, rank))
+        for path, leaf in tree_items(cache))
+
+
+def join_cache(caches: list) -> dict:
+    """The inverse of :func:`split_cache`: every model rank's cache, in
+    rank order."""
+    per_rank = [tree_items(c) for c in caches]
+    return tree_from_items(
+        (path, _join([items[i][1] for items in per_rank],
+                     cache_head_dim(path, np.ndim(leaf))))
+        for i, (path, leaf) in enumerate(per_rank[0]))
+
+
+def _part(leaf, dim, tp: int, rank: int):
+    if dim is None:
+        return leaf
+    size = leaf.shape[dim]
+    if size % tp:
+        raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not split "
+                         f"over tp={tp}")
+    n = size // tp
+    index = [slice(None)] * np.ndim(leaf)
+    index[dim] = slice(rank * n, (rank + 1) * n)
+    return leaf[tuple(index)]
+
+
+def _join(parts: list, dim):
+    if dim is None:
+        return parts[0]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim)
+    return np.concatenate(parts, dim)

@@ -1,12 +1,19 @@
-"""The launchers' process group (the counterpart of
+"""The launchers' process groups (the counterpart of
 ``repro.launch.mesh.make_mesh``).
 
 The reference builds a ``("data", "model")`` or ``("pod", "data",
 "model")`` mesh of the devices one process sees. The port runs one
-process a rank, started by ``torchrun``, and its data axes are the
-default process group: rank r is (pod r // data, data r % data).
+process a rank, started by ``torchrun``, and each axis is a process
+group. Ranks are numbered model-minor, the reference mesh's device
+order: rank r is data index r // model (pod-major over the pods' data
+ranks) and model index r % model. The model group of data index d is the
+ranks [d * model, (d + 1) * model); the data group of model index m is
+the ranks that share m.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --data 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --model 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --data 2 \
+        --model 2
 """
 from __future__ import annotations
 
@@ -20,38 +27,57 @@ from repro_torch.backend import resolve_device
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
+def axis_groups(data: int, model: int):
+    """``(data group, model group)`` of this rank in the default group of
+    ``data * model`` ranks (``data`` counting every pod's): the model
+    group None at ``model`` 1, when the data group is the default group
+    itself. Every rank creates every subgroup, in the same order (NCCL
+    requires it)."""
+    if model == 1:
+        return dist.group.WORLD, None
+    rank = dist.get_rank()
+    data_group = model_group = None
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if rank % model == m:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if rank // model == d:
+            model_group = g
+    return data_group, model_group
+
+
 def make_group(data: int, model: int = 1, pods: int = 1, device=None):
-    """``(group, device)`` for ``data * pods`` data-parallel ranks: None
-    and the resolved device for one rank; otherwise the default process
-    group, joined here from torchrun's environment (or the one a caller
-    has already initialised), and this rank's card (``LOCAL_RANK``, made
-    the current one before anything is allocated on it), or the CPU
-    over gloo when ``device="cpu"``. Raises when there is no group to
-    join, when its size is not ``data * pods`` and when the host has too
-    few cards; never runs one rank in place of a group. ``model > 1``
-    (tensor parallelism) raises naming ROADMAP A13d."""
-    if model > 1:
-        raise NotImplementedError(
-            f"--model {model}: tensor parallelism is not ported yet; the "
-            "port is data-parallel (ROADMAP A13d)")
-    n = data * pods
-    if n < 1:
-        raise ValueError(f"--data {data} --pods {pods}: no ranks")
+    """``(data group, model group, device)`` for ``data * pods`` data
+    ranks of ``model`` model ranks each: (None, None, the resolved device)
+    for one rank; otherwise the default process group, joined here from
+    torchrun's environment (or the one a caller has already initialised),
+    cut into the two axes' groups (:func:`axis_groups`; the model group
+    None at ``model`` 1), and this rank's card (``LOCAL_RANK``, made the
+    current one before anything is allocated on it), or the CPU over
+    gloo when ``device="cpu"``. Raises when there is no group to join,
+    when its size is not ``data * pods * model`` and when the host has
+    too few cards; never runs one rank in place of a group."""
+    n = data * pods * model
+    if data < 1 or pods < 1 or model < 1:
+        raise ValueError(f"--data {data} --pods {pods} --model {model}: "
+                         "no ranks")
     if n == 1:
-        return None, resolve_device(device)
+        return None, None, resolve_device(device)
+    ask = f"--data {data} --pods {pods} --model {model}"
     cpu = device is not None and torch.device(device).type == "cpu"
     if not dist.is_initialized():
         missing = [key for key in _ENV if key not in os.environ]
         if missing:
             raise RuntimeError(
-                f"--data {data} --pods {pods} asks for {n} data-parallel "
-                f"ranks, but there is no process group to join ({missing} "
-                "unset): start the launcher under torchrun "
-                f"--nproc-per-node {n}")
+                f"{ask} asks for {n} ranks, but there is no process group "
+                f"to join ({missing} unset): start the launcher under "
+                f"torchrun --nproc-per-node {n}")
         size = int(os.environ["WORLD_SIZE"])
         if size != n:
-            raise ValueError(f"WORLD_SIZE={size}, but --data {data} --pods "
-                             f"{pods} asks for {n} ranks")
+            raise ValueError(f"WORLD_SIZE={size}, but {ask} asks for {n} "
+                             "ranks")
         if not cpu:
             local = int(os.environ["LOCAL_RANK"])
             resolve_device("cuda")
@@ -63,11 +89,11 @@ def make_group(data: int, model: int = 1, pods: int = 1, device=None):
         dist.init_process_group("gloo" if cpu else "nccl")
     elif dist.get_world_size() != n:
         raise ValueError(f"the process group has {dist.get_world_size()} "
-                         f"ranks, but --data {data} --pods {pods} asks "
-                         f"for {n}")
+                         f"ranks, but {ask} asks for {n}")
+    group, model_group = axis_groups(data * pods, model)
     if cpu:
-        return dist.group.WORLD, torch.device("cpu")
+        return group, model_group, torch.device("cpu")
     dev = resolve_device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return dist.group.WORLD, dev
+    return group, model_group, dev

@@ -11,6 +11,8 @@ stream greedy decode steps.
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch granite-8b --smoke --data 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen1.5-32b --model 4
 
 The reference launcher's flags (``repro.launch.serve``) and defaults for
 what the port serves, plus ``--device`` (default: the CUDA card; ``cpu``
@@ -18,10 +20,15 @@ runs the plain PyTorch path). ``--data n`` serves a data-parallel batch
 over n ranks started by ``torchrun`` (``launch.mesh.make_group``: NCCL
 on a card each, gloo with ``--device cpu``): each rank prefills and
 decodes its rows of the global ``--batch``, the logits gathered, and
-rank 0 logs. ``--mla-absorb`` serves an MLA model (deepseek-v2-lite-16b)
-in the absorbed form. ``--model`` above 1 raises naming ROADMAP A13d,
-``--devices`` naming A13, and ``--apply-deltas`` over more than one rank
-naming A14. The sliding-window
+rank 0 logs. ``--model m`` splits the model over m ranks beside each
+data rank (heads, hidden units, experts, the vocabulary; the cache by
+key/value heads; ``launch.mesh.make_group``), for the dense and MoE
+families with full or sliding attention; the logits are the vocabulary
+padded to a multiple of m. ``--mla-absorb`` serves an MLA model
+(deepseek-v2-lite-16b) in the absorbed form. ``--model`` above 1 with
+an MLA, SSM, hybrid, xLSTM, encoder-decoder or vision model raises
+naming ROADMAP A13d, ``--devices`` naming A13, and ``--apply-deltas``
+over more than one rank naming A14. The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's
 ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
@@ -79,15 +86,20 @@ def parse_args(argv=None):
     return args
 
 
-def check_args(args) -> None:
-    """Raise NotImplementedError for a flag the port does not serve yet."""
+def check_args(args, run) -> None:
+    """Raise NotImplementedError for a flag the port does not serve yet
+    (``--model`` > 1 for ``run``'s model outside its slice)."""
     if args.devices:
         raise NotImplementedError(
             "--devices: a mesh of devices in one process is not ported; "
             "the port runs a process a rank under torchrun (ROADMAP A13)")
-    if args.apply_deltas and args.data > 1:
+    if args.model > 1:
+        from repro_torch.configs.base import resolve_model_cfg
+        from repro_torch.serve.step import check_serving
+        check_serving(resolve_model_cfg(run), args.model)
+    if args.apply_deltas and args.data * args.model > 1:
         raise NotImplementedError(
-            f"--apply-deltas over {args.data} data-parallel ranks is not "
+            f"--apply-deltas over {args.data * args.model} ranks is not "
             "ported yet; a replica applies deltas at one rank (ROADMAP "
             "A14)")
 
@@ -114,7 +126,7 @@ def run_config(args):
 
 
 def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
-          group=None, model: int = 1, params: dict = None,
+          group=None, model_group=None, params: dict = None,
           log=print, applier=None, channel=None, snap_dir: str = "") -> dict:
     """Prefill ``run.shape.global_batch`` random prompts of ``prompt_len``
     tokens (drawn from ``run.seed``, and after them a vision model's
@@ -124,12 +136,16 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     "prefill_s", "decode_s", "params": the parameter count,
     "prefill_logits", "logits": the last step's, "cache"}.
     Times are the host clock around work that ends in a device
-    synchronisation. ``params`` default: drawn from ``run.seed``.
+    synchronisation. ``params`` default: drawn from ``run.seed``
+    (``transformer.init_rank_params``: under tensor parallelism this
+    rank's share).
 
     Over ``group`` (a data-parallel batch: ``serve.step``) every rank
     draws the same prompts and parameters, serves its rows and holds the
-    gathered logits and tokens; the cache is its rows'. Only rank 0
-    logs.
+    gathered logits and tokens; the cache is its rows'. Over a
+    ``model_group`` each rank holds its share of the parameters and its
+    key/value heads of the cache, and the logits are the padded
+    vocabulary's. Only rank 0 logs.
 
     With a ``DeltaApplier`` the stream decodes on the tree that
     ``applier.acquire()`` pins; after each decode step it offers what
@@ -144,28 +160,35 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     from repro_torch.data.synthetic import stub_inputs
     from repro_torch.models import init_params
     from repro_torch.models.parallel import world
-    from repro_torch.serve.step import build_decode_step, build_prefill
+    from repro_torch.models.transformer import init_rank_params
+    from repro_torch.serve.step import (build_decode_step, build_prefill,
+                                        serve_parallel)
     dev = resolve_device(device)
-    if applier is not None and world(group)[0] > 1:
+    tp, model_rank = world(model_group) if model_group is not None \
+        else (1, 0)
+    if applier is not None and world(group)[0] * tp > 1:
         raise NotImplementedError(
             "a delta applier over more than one rank is not ported yet "
             "(ROADMAP A14)")
-    pre = build_prefill(run, dev, group=group, model=model)
-    dec = build_decode_step(run, dev, group=group, model=model)
+    pre = build_prefill(run, dev, group=group, model_group=model_group)
+    dec = build_decode_step(run, dev, group=group, model_group=model_group)
     ranks, rank = world(group)
-    if rank:
+    if rank or model_rank:
         log = _quiet
     cfg = resolve_model_cfg(run)
     gen = torch.Generator(device=dev).manual_seed(run.seed)
     pinned_v = None
     if applier is not None:
         params, pinned_v = applier.acquire()
+    elif params is None and tp > 1:
+        params = init_rank_params(cfg, run.seed, dev, serve_parallel(
+            run, group, decode=False, model_group=model_group))
     elif params is None:
         params = init_params(cfg, gen, dev)
     n = tree_size(params)
     b = run.shape.global_batch
     log(f"[serve] {cfg.name}: {n / 1e6:.1f}M params, batch {b}, "
-        f"mesh {{'data': {ranks}, 'model': {model}}}, device={dev}"
+        f"mesh {{'data': {ranks}, 'model': {tp}}}, device={dev}"
         f"{', absorbed MLA' if cfg.mla_absorb else ''}")
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, prompt_len),
                                      generator=gen, device=dev)}
@@ -233,19 +256,20 @@ def main(argv=None):
 
     from repro_torch.launch.mesh import make_group
     args = parse_args(argv)
-    check_args(args)
     run = run_config(args)
+    check_args(args, run)
     joined = dist.is_initialized()
-    group, dev = make_group(args.data, args.model, device=args.device)
+    group, model_group, dev = make_group(args.data, args.model,
+                                         device=args.device)
     try:
-        _serve_main(args, run, group, dev)
+        _serve_main(args, run, group, model_group, dev)
     finally:
         if group is not None and not joined:
             dist.destroy_process_group()
     return 0
 
 
-def _serve_main(args, run, group, dev) -> None:
+def _serve_main(args, run, group, model_group, dev) -> None:
     applier = chan = None
     snap_dir = ""
     if args.apply_deltas:
@@ -265,7 +289,7 @@ def _serve_main(args, run, group, dev) -> None:
         print(f"[serve] applying deltas from {args.apply_deltas} "
               f"(snapshot v{applier.version})")
     serve(run, device=dev, prompt_len=args.prompt_len,
-          new_tokens=args.new_tokens, group=group, model=args.model,
+          new_tokens=args.new_tokens, group=group, model_group=model_group,
           applier=applier, channel=chan, snap_dir=snap_dir)
 
 

@@ -27,6 +27,9 @@
       --delta-snapshot-every 4 --checkpoint-dir /tmp/ckpt --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch stablelm-3b --smoke --comm sparse --pipeline fused --data 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-moe-3b-a800m --smoke --comm sparse --pipeline fused \
+      --data 2 --model 2
 
 ``--arch`` takes every config of the registry the port serves: the dense
 stablelm-3b, granite-8b, qwen1.5-32b and starcoder2-7b, the MoE
@@ -47,13 +50,19 @@ is :func:`train`, which takes a ``RunConfig``, so a caller can pass a
 config the flags do not spell (``chip_smoke.py`` passes StableLM-3B cut
 in depth), and a process group.
 
-``--data`` and ``--pods`` (the reference's mesh flags; ``--model`` > 1,
-tensor parallelism, raises naming ROADMAP A13d) ask for ``data * pods``
-data-parallel ranks, one process each, started by ``torchrun``: each
-joins the default process group on its own card (NCCL), or on the CPU
-over gloo with ``--device cpu`` (``launch.mesh.make_group``). ``--batch``
-is the global batch, as in the reference: rank r trains on its rows
-[r B/n, (r + 1) B/n). Rank 0 logs.
+``--data``, ``--pods`` and ``--model`` (the reference's mesh flags) ask
+for ``data * pods`` data-parallel ranks of ``model`` tensor-parallel
+ranks each, one process a rank, started by ``torchrun``: each joins the
+default process group on its own card (NCCL), or on the CPU over gloo
+with ``--device cpu``, and its data and model groups
+(``launch.mesh.make_group``: rank r is data index r // model, model
+index r % model). ``--model`` > 1 splits the dense and MoE families with
+full or sliding attention (heads, hidden units, experts, vocabulary;
+the residual stream by sequence); MLA, an SSM or hybrid model, xLSTM,
+an encoder-decoder and the vision stub raise naming ROADMAP A13d, and
+so do checkpoints and the delta broadcast under it. ``--batch`` is the
+global batch, as in the reference: data rank d trains on its rows [d
+B/n, (d + 1) B/n), the same rows on every model rank. Rank 0 logs.
 """
 from __future__ import annotations
 
@@ -152,8 +161,11 @@ def parse_args(argv=None):
                     help="data-parallel ranks a pod (one process each, "
                          "under torchrun)")
     ap.add_argument("--model", type=int, default=1,
-                    help="tensor-parallel degree; above 1 is not ported "
-                         "(ROADMAP A13d)")
+                    help="tensor-parallel degree (ranks a model group, one "
+                         "process each, under torchrun): the dense and MoE "
+                         "families with full or sliding attention; MLA, "
+                         "SSM, hybrid, xLSTM, encoder-decoder and vision "
+                         "models raise (ROADMAP A13d)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods; the data-parallel ranks are data * pods, "
                          "pod-major")
@@ -250,14 +262,16 @@ def _quiet(msg: str) -> None:
     """The log of a rank other than 0."""
 
 
-def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
+def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
+          seq: int = 128,
           fixed_batch: bool = False, log=print, on_step=None,
           publish_deltas: str = "", delta_k: int = 0, delta_every: int = 1,
           delta_snapshot_every: int = 0,
           delta_fault_schedule: str = "") -> dict:
-    """Take ``run.steps`` training steps over ``group`` (None: one rank),
-    each on this rank's rows of a global ``batch`` x ``seq`` batch (the
-    same draw on every rank). Returns {"history": [{"step",
+    """Take ``run.steps`` training steps over the data ``group`` (None:
+    one rank) and the ``model_group`` (None: tensor-parallel degree 1),
+    each on this data rank's rows of a global ``batch`` x ``seq`` batch
+    (the same draw on every rank). Returns {"history": [{"step",
     "loss", "ms"} (and "lb_loss", "z_loss", "drop_frac" for an MoE
     model, "n_active" under a fault schedule, "count" where
     the packed payload has a live count: the fused histogram selector,
@@ -286,14 +300,20 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
                                         save_train_state)
     dev = resolve_device(device)
     n, rank = world(group)[0], data_index(group)
+    tp, model_rank = world(model_group) if model_group is not None \
+        else (1, 0)
+    if tp > 1 and (publish_deltas or run.checkpoint_dir):
+        raise NotImplementedError(
+            "checkpoints and the delta broadcast under tensor parallelism "
+            "(model > 1) are not ported yet (ROADMAP A13d)")
     if batch % n:
         raise ValueError(f"a global batch of {batch} rows does not split "
                          f"over {n} data-parallel ranks")
     rows = slice(rank * batch // n, (rank + 1) * batch // n)
-    if rank:
+    if rank or model_rank:
         log = _quiet
-    step = build_train_step(run, dev, group)
-    state = init_train_state(run, dev, group)
+    step = build_train_step(run, dev, group, model_group)
+    state = init_train_state(run, dev, group, model_group=model_group)
     j = tree_size(state.params)
     log(f"[train] {run.model.name}: {j:,} params, sparsifier="
         f"{run.sparsifier.kind}@{run.sparsifier.sparsity}, device={dev}")
@@ -305,6 +325,9 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
     if n > 1:
         log(f"[train] {n} data-parallel ranks, {batch // n} rows of the "
             f"global batch of {batch} each")
+    if tp > 1:
+        log(f"[train] {tp} tensor-parallel ranks a data rank, {j:,} params "
+            "on rank 0")
     if run.fault_schedule:
         from repro_torch.core import faults
         sched = faults.parse_schedule(run.fault_schedule)
@@ -401,13 +424,19 @@ def train(run, *, device=None, group=None, batch: int = 8, seq: int = 128,
 def main(argv=None):
     import torch.distributed as dist
 
+    from repro_torch.configs.base import resolve_model_cfg
     from repro_torch.launch.mesh import make_group
+    from repro_torch.models.transformer import check_tensor_parallel
     args = parse_args(argv)
     run = run_config(args)
+    if args.model > 1:
+        check_tensor_parallel(resolve_model_cfg(run))
     joined = dist.is_initialized()
-    group, dev = make_group(args.data, args.model, args.pods, args.device)
+    group, model_group, dev = make_group(args.data, args.model, args.pods,
+                                         args.device)
     try:
-        train(run, device=dev, group=group, batch=args.batch, seq=args.seq,
+        train(run, device=dev, group=group, model_group=model_group,
+              batch=args.batch, seq=args.seq,
               fixed_batch=args.fixed_batch, **delta_options(args))
     finally:
         if group is not None and not joined:

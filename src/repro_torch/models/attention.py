@@ -44,6 +44,18 @@ cache of an MLA layer is ``{ckv, krope}``. Context-parallel decode of
 MLA raises (ROADMAP A13e), and so does bidirectional MLA, an MLA
 encoder-decoder's (A13f).
 
+Tensor parallelism (a ``Parallel`` with a model group of tp ranks)
+splits attention by heads, the reference's ``attn_dist="sp"``: the query
+and key/value head counts are padded to multiples of tp, rank r holds
+heads [r H/tp, (r + 1) H/tp) of wq, wk, wv (and their biases) and the
+matching rows of wo, GQA groups within the rank, and the output of a
+padded head (global index >= n_heads) is zeroed before wo (padded heads
+are drawn like the others, not zero-initialised: the reference's
+``mask_padded_heads``). wo's output is summed over the model group, or,
+with the residual stream split by sequence, the layer gathers the
+sequence first and psum-scatters wo's output back. The decode cache
+holds the rank's key/value heads. MLA with tp > 1 raises (ROADMAP A13d).
+
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
 of a cache of sl * n slots. Decode writes the step's k and v only on the
@@ -58,7 +70,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import dense_init, norm_fwd
-from repro_torch.models.parallel import all_reduce_max, all_reduce_sum
+from repro_torch.models.parallel import (
+    all_gather_model, all_reduce_max, all_reduce_sum, axis_index,
+    heads_padded, psum_model, psum_scatter_model, shard_slice,
+)
 
 NEG_INF = -1e30
 Q_CHUNK = 1024
@@ -89,13 +104,47 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, rot_dim: int,
     return torch.cat([rot.to(x.dtype), x[..., rot_dim:]], -1)
 
 
+def head_counts(cfg, pal=None) -> tuple:
+    """(query heads, key/value heads) of this rank: the config's at tp 1,
+    else each padded to a multiple of tp and split over the model
+    group."""
+    if pal is None or not pal.tp_on:
+        return cfg.n_heads, cfg.n_kv_heads
+    hp, kvp = heads_padded(cfg.n_heads, pal), heads_padded(cfg.n_kv_heads,
+                                                          pal)
+    if hp % kvp:
+        raise ValueError(f"{cfg.name}: {hp} padded query heads do not group "
+                         f"over {kvp} padded key/value heads")
+    return shard_slice(hp, pal), shard_slice(kvp, pal)
+
+
+def mla_tp_message(cfg) -> str:
+    return (f"{cfg.name}: MLA under tensor parallelism (model > 1) is not "
+            "ported yet; the port splits GQA attention by heads (ROADMAP "
+            "A13d)")
+
+
+def mask_padded_heads(o: torch.Tensor, cfg, pal=None) -> torch.Tensor:
+    """Zero the outputs (B, S, Hl, hd) of the padded heads (global index
+    >= n_heads), so padding is neutral (the reference's
+    ``mask_padded_heads``)."""
+    if pal is None or not pal.tp_on:
+        return o
+    hl = o.shape[2]
+    if hl * pal.tp <= cfg.n_heads:
+        return o
+    gh = axis_index(pal) * hl + torch.arange(hl, device=o.device)
+    return o * (gh < cfg.n_heads)[None, None, :, None].to(o.dtype)
+
+
 def init_attention(gen, cfg, *, lead=(), device=None,
-                   cross: bool = False) -> dict:
+                   cross: bool = False, pal=None) -> dict:
     """{wk, wo, wq, wv}, and with ``qkv_bias`` the zero biases {bk, bq,
     bv}; for MLA {dkv, kv_norm, uk, uv, wo, wq}, unless ``cross``
-    (cross-attention's weights are the plain ones for every kind)."""
+    (cross-attention's weights are the plain ones for every kind). Under
+    tensor parallelism this rank's heads."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    h, kv = head_counts(cfg, pal)
     if cfg.attn_kind == "mla" and not cross:
         lora, rhd = cfg.kv_lora_rank, cfg.rope_head_dim
         vhd = cfg.v_head_dim or hd
@@ -324,10 +373,28 @@ def _window(cfg) -> int:
     return cfg.window if cfg.attn_kind == "sliding" else 0
 
 
-def attn_fwd_full(p: dict, x: torch.Tensor, cfg,
-                  causal: bool = True) -> torch.Tensor:
+def attn_fwd_full(p: dict, x: torch.Tensor, cfg, causal: bool = True,
+                  pal=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``) or,
-    for an encoder, bidirectional (not MLA: ``mla_encoder_message``)."""
+    for an encoder, bidirectional (not MLA: ``mla_encoder_message``).
+    Under tensor parallelism this rank's heads, the output summed over
+    the model group; with ``pal.sp`` x and the output are this rank's
+    sequence chunk (B, S/tp, d), the sequence gathered for attention."""
+    if pal is not None and pal.tp_on:
+        if cfg.attn_kind == "mla":
+            raise NotImplementedError(mla_tp_message(cfg))
+        sp = pal.sp
+        if sp:
+            x = all_gather_model(x, pal, 1)
+        y = _attn_fwd_local(p, x, cfg, causal, pal)
+        return psum_scatter_model(y, pal, 1) if sp else psum_model(y, pal)
+    return _attn_fwd_local(p, x, cfg, causal)
+
+
+def _attn_fwd_local(p: dict, x: torch.Tensor, cfg, causal: bool,
+                    pal=None) -> torch.Tensor:
+    """This rank's heads of attention over x (B, S, d), through wo's
+    rows: the model group's partial sum."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
@@ -340,6 +407,7 @@ def attn_fwd_full(p: dict, x: torch.Tensor, cfg,
         scale = cfg.resolved_head_dim ** -0.5
         o = causal_attention(q, k, v, scale, _window(cfg)) if causal \
             else full_attention(q, k, v, scale)
+        o = mask_padded_heads(o, cfg, pal)
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
 
 
@@ -387,28 +455,30 @@ CACHE_KEYS = ("k", "v", "ckv", "krope")
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype, *, lead=(),
-               device=None) -> dict:
+               device=None, pal=None) -> dict:
     """Zero k and v of ``max_seq`` slots: the whole cache, or under
-    context-parallel decode this rank's slice (the caller divides); for
-    MLA zero ckv (.., lora) and krope (.., rhd)."""
+    context-parallel decode this rank's slice (the caller divides), of
+    this rank's key/value heads; for MLA zero ckv (.., lora) and krope
+    (.., rhd)."""
     hd = cfg.resolved_head_dim
     if cfg.attn_kind == "mla":
         return {name: torch.zeros((*lead, batch, max_seq, width),
                                   dtype=dtype, device=device)
                 for name, width in (("ckv", cfg.kv_lora_rank),
                                     ("krope", cfg.rope_head_dim))}
-    shape = (*lead, batch, max_seq, cfg.n_kv_heads, hd)
+    shape = (*lead, batch, max_seq, head_counts(cfg, pal)[1], hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
-                 cfg) -> torch.Tensor:
+                 cfg, pal=None) -> torch.Tensor:
     """Prompt forward x (B, S, d) -> (B, S, d), writing the prompt's k and
     v into ``cache`` (views of one layer, cast to its dtype): the first S
     slots, or, for a sliding window shorter than the prompt, the last
     cap positions at slot position % cap. The prompt attends with the
-    uncast k and v."""
+    uncast k and v. Under tensor parallelism this rank's heads (and cache
+    heads), the output summed over the model group."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
@@ -429,7 +499,8 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
     else:
         for name, t in (("k", k), ("v", v)):
             cache[name][:, :s] = t
-    return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+    o = mask_padded_heads(o, cfg, pal)
+    return psum_model(o.reshape(b, s, -1) @ p["wo"].to(o.dtype), pal)
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -439,7 +510,9 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     then attends over the valid slots: slot <= pos, or, in a sliding
     ring buffer of cap slots, the positions pos - ((pos - slot) % cap)
     that are >= 0 and within the window. With ``pal.cache_seq_sharded``
-    the cache is this rank's slice of the sequence (module docstring)."""
+    the cache is this rank's slice of the sequence (module docstring);
+    under tensor parallelism this rank's heads, the output summed over the
+    model group."""
     b = x.shape[0]
     sharded = pal is not None and pal.cache_seq_sharded
     if cfg.attn_kind == "mla":
@@ -472,8 +545,8 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         a = torch.exp(m - mg)
         o = all_reduce_sum(o * _per_query(a).to(o.dtype), pal.group)
         l = all_reduce_sum(l * a, pal.group)
-    o = _finalize(o, l)
-    return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)
+    o = mask_padded_heads(_finalize(o, l), cfg, pal)
+    return psum_model(o.reshape(b, 1, -1) @ p["wo"].to(o.dtype), pal)
 
 
 def mla_cp_message(cfg) -> str:

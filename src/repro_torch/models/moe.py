@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: fixed-capacity top-k routing (GShard/Switch
-style) with optional shared experts (the port of ``repro.models.moe`` at
-tensor-parallel degree 1: no expert padding, no ``all_to_all``).
+style) with optional shared experts, and expert parallelism over the
+model group (the port of ``repro.models.moe``).
 
 Per call on n tokens of d:
 
@@ -23,6 +23,18 @@ Per call on n tokens of d:
    weighted by its probability, summed over the k choices in order;
    plus the shared experts' dense MLP on every token.
 
+Under tensor parallelism (a model group of tp ranks) the experts are
+padded to a multiple of tp (a padded expert's router logit is -1e30, so
+no token picks it) and rank r holds experts [r E_pad/tp, (r + 1)
+E_pad/tp). Each rank routes its own tokens (its sequence chunk under
+sequence parallelism), with a capacity from its own token count over
+E_pad experts, into an (E_pad, cap, d) buffer; an ``all_to_all`` (split
+the experts, concatenate the capacity in source rank order) hands each
+rank its experts' slots from every rank, (E_pad/tp, tp cap, d), the
+experts run there, and the inverse ``all_to_all`` returns the outputs.
+The aux terms count the real experts only. Shared experts run as the
+column/row-parallel MLP.
+
 The reference's TPU program is plain jnp here, no Pallas kernel; the
 port keeps it plain PyTorch. The capacity depends on the token count,
 so a prefill, a decode step and a full forward of the same text may
@@ -32,29 +44,38 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.core.select import topk_positions
 from repro_torch.models.layers import dense_init, gelu_tanh, init_mlp, mlp_fwd
+from repro_torch.models.parallel import all_to_all_model, pad_to, shard_slice
 
 
-def init_moe(gen, cfg, *, lead=(), device=None) -> dict:
+def experts_padded(cfg, pal=None) -> int:
+    """The expert count padded to a multiple of the model group's size."""
+    return pad_to(cfg.moe.n_experts, 1 if pal is None else pal.tp)
+
+
+def init_moe(gen, cfg, *, lead=(), device=None, pal=None) -> dict:
     """{router (d, E), gate, up (E, d, d_expert), down (E, d_expert, d)}
     and, with shared experts, {shared}: a dense MLP of width d_expert *
-    n_shared_experts."""
+    n_shared_experts; under tensor parallelism the router over the padded
+    experts and this rank's share of the expert stacks."""
     m, d = cfg.moe, cfg.d_model
-    e = m.n_experts
+    e_pad = experts_padded(cfg, pal)
+    e = shard_slice(e_pad, pal)
 
     def expert_stack(d_in, d_out):
         return torch.randn((*lead, e, d_in, d_out), generator=gen,
                            device=device) * d_in ** -0.5
-    p = {"router": dense_init(gen, d, e, scale=0.02, lead=lead,
+    p = {"router": dense_init(gen, d, e_pad, scale=0.02, lead=lead,
                               device=device),
          "gate": expert_stack(d, m.d_expert),
          "up": expert_stack(d, m.d_expert),
          "down": expert_stack(m.d_expert, d)}
     if m.n_shared_experts:
         p["shared"] = init_mlp(gen, cfg, d_ff=m.d_expert * m.n_shared_experts,
-                               lead=lead, device=device)
+                               lead=lead, device=device, pal=pal)
     return p
 
 
@@ -67,18 +88,20 @@ def capacity(n_tokens: int, n_experts: int, top_k: int,
 
 
 def route(logits: torch.Tensor, cfg) -> dict:
-    """Routing of (n, E) fp32 router logits: {top_p (n, k) renormalised,
-    top_e (n, k) int64, slot and keep (n * k,) in token-major order, cap,
-    lb_loss, z_loss, drop_frac}."""
+    """Routing of (n, E) fp32 router logits (E the padded count, the
+    padded experts' logits -1e30): {top_p (n, k) renormalised, top_e (n,
+    k) int64, slot and keep (n * k,) in token-major order, cap, lb_loss,
+    z_loss, drop_frac}; lb_loss over the real experts."""
     m = cfg.moe
     n, e = logits.shape
+    real = m.n_experts
     probs = torch.softmax(logits, -1)
     top_e = topk_positions(probs, m.top_k)
     top_p = torch.gather(probs, 1, top_e)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
     sel = F.one_hot(top_e.reshape(-1), e)                 # (n * k, E)
-    fe = sel.reshape(n, m.top_k, e).sum(1).float().mean(0)
-    lb_loss = e * torch.sum(probs.mean(0) * fe)
+    fe = sel.reshape(n, m.top_k, e).sum(1).float().mean(0)[:real]
+    lb_loss = real * torch.sum(probs[:, :real].mean(0) * fe)
     z_loss = torch.mean(torch.logsumexp(logits, -1) ** 2)
     cap = capacity(n, e, m.top_k, m.capacity_factor)
     # the choices of the same expert before this one, in flat order
@@ -89,30 +112,39 @@ def route(logits: torch.Tensor, cfg) -> dict:
             "drop_frac": 1.0 - keep.float().mean()}
 
 
-def moe_fwd(p: dict, x: torch.Tensor, cfg) -> tuple:
-    """x (B, T, d) -> (y (B, T, d), {lb_loss, z_loss, drop_frac})."""
+def moe_fwd(p: dict, x: torch.Tensor, cfg, pal=None) -> tuple:
+    """x (B, T, d) -> (y (B, T, d), {lb_loss, z_loss, drop_frac}); under
+    tensor parallelism x is this rank's tokens and the experts are split
+    over the model group (module docstring)."""
     m = cfg.moe
     b, t, d = x.shape
     xt = x.reshape(b * t, d)
-    n, e, dt = b * t, m.n_experts, x.dtype
-    r = route((xt @ p["router"].to(dt)).float(), cfg)
+    n, e, dt = b * t, experts_padded(cfg, pal), x.dtype
+    logits = (xt @ p["router"].to(dt)).float()
+    if e > m.n_experts:
+        logits = torch.where(torch.arange(e, device=x.device) >= m.n_experts,
+                             torch.full_like(logits, -1e30), logits)
+    r = route(logits, cfg)
     cap = r["cap"]
     expert = r["top_e"].reshape(-1)
     drop_row = torch.full_like(expert, e * cap)
     flat_idx = torch.where(r["keep"], expert * cap + r["slot"], drop_row)
     buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
     buf = buf.index_add(0, flat_idx, xt.repeat_interleave(m.top_k, 0))
-    buf = buf[:-1].reshape(e, cap, d)
+    with record_function("moe/all_to_all"):
+        buf = all_to_all_model(buf[:-1].reshape(e, cap, d), pal, 0, 1)
     if cfg.act == "silu":
         h = F.silu(torch.bmm(buf, p["gate"].to(dt))) * \
             torch.bmm(buf, p["up"].to(dt))
     else:
         h = gelu_tanh(torch.bmm(buf, p["up"].to(dt)))
-    out = torch.bmm(h, p["down"].to(dt)).reshape(e * cap, d)
+    out = torch.bmm(h, p["down"].to(dt))
+    with record_function("moe/all_to_all"):
+        out = all_to_all_model(out, pal, 1, 0).reshape(e * cap, d)
     out = torch.cat([out, out.new_zeros(1, d)], 0)
     w = (r["top_p"].reshape(-1) * r["keep"]).to(dt)
     y = (out[flat_idx] * w[:, None]).reshape(n, m.top_k, d).sum(1)
     y = y.reshape(b, t, d)
     if m.n_shared_experts:
-        y = y + mlp_fwd(p["shared"], x, cfg)
+        y = y + mlp_fwd(p["shared"], x, cfg, pal)
     return y, {key: r[key] for key in ("lb_loss", "z_loss", "drop_frac")}

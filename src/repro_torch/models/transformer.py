@@ -1,6 +1,7 @@
 """Decoder (and encoder-decoder) over heterogeneous layer stacks (the port
 of ``repro.models.transformer`` for every family, dense, MoE, SSM,
-hybrid, vision and audio, at tensor-parallel degree 1): attention, Mamba,
+hybrid, vision and audio, and for the dense and MoE families with full
+or sliding attention under tensor and expert parallelism): attention, Mamba,
 mLSTM or sLSTM mixers, dense, MoE or no FFN; training loss with the MoE
 aux terms, prefill and cached decode.
 
@@ -61,6 +62,25 @@ through cross-attention only; prefill projects it once a layer, attends
 with the projection and stores it, cast to the cache's dtype, in the
 top-level ``cross`` leaf ``{k, v}``, each (super-blocks, B, S_enc, KV,
 hd), which decode reads.
+
+Tensor parallelism (a ``Parallel`` with a model group, threaded through
+every function as ``pal``; None is one rank): each rank holds its share
+of the parameters (``models.specs``), attention by heads, the MLP by
+hidden units, the MoE by experts, the embedding and head by vocabulary.
+In training the residual stream is split by sequence when
+``pal.seq_parallel`` (Megatron-SP, as the reference's train step runs):
+the whole sequence is embedded and psum-scattered to the rank's chunk,
+each mixer and MLP gathers and scatters inside, and the final hidden
+state is gathered for the loss. The loss is vocabulary-parallel; every
+rank computes it at every position (the head's psums need all ranks at
+the same positions) but sums only its own chunk of the sequence over the
+global count of targets, so the ranks' losses are disjoint shares whose
+sum (:func:`global_loss`) is the loss; an MoE model's aux term is
+divided by tp, and its aux metrics are the model group's means. Prefill
+and decode run without the sequence split and gather the vocabulary's
+logits (B, V padded to a multiple of tp). The other families (MLA, SSM,
+hybrid, xLSTM, encoder-decoder, the vision stub) and ring attention
+raise under tensor parallelism, naming ROADMAP A13d.
 """
 from __future__ import annotations
 
@@ -78,6 +98,9 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
     embed_fwd, init_embed, init_mlp, init_norm, lm_head_fwd, mlp_fwd,
     norm_fwd, sharded_xent,
+)
+from repro_torch.models.parallel import (
+    all_gather_model, axis_index, pmean_model, psum_model, shard_slice,
 )
 
 LOSS_CHUNK = 512
@@ -107,9 +130,32 @@ def n_moe_layers(cfg) -> int:
     return n_superblocks(cfg) * sum(f == "moe" for _, f in layer_pattern(cfg))
 
 
-def check_model(cfg) -> None:
+def tp_message(cfg, what: str) -> str:
+    """Why a model raises under tensor parallelism."""
+    return (f"{cfg.name}: {what} under tensor parallelism (model > 1) is "
+            "not ported yet; the port splits the dense and MoE families "
+            "with full or sliding attention (ROADMAP A13d)")
+
+
+def check_tensor_parallel(cfg) -> None:
+    """Raise NotImplementedError for a model outside tensor parallelism's
+    slice: MLA, a model with an SSM (the ssm and hybrid families, xLSTM),
+    an encoder-decoder, the vision stub."""
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(attn.mla_tp_message(cfg))
+    for what, outside in (("an SSM mixer (Mamba, mLSTM, sLSTM)",
+                           cfg.ssm is not None),
+                          ("an encoder-decoder", cfg.is_encoder_decoder),
+                          ("the vision stub",
+                           cfg.frontend == "vision_stub")):
+        if outside:
+            raise NotImplementedError(tp_message(cfg, what))
+
+
+def check_model(cfg, pal=None) -> None:
     """Raise NotImplementedError for a model outside the ported slice (an
-    MLA encoder-decoder among them), ValueError for a family or mixer the
+    MLA encoder-decoder among them; under tensor parallelism
+    :func:`check_tensor_parallel`'s), ValueError for a family or mixer the
     reference does not have, a causal encoder (the reference's encoder is
     bidirectional whatever ``enc_causal`` says), or an encoder-decoder
     whose cross cache (one layer a super-block, the reference's layout)
@@ -130,6 +176,8 @@ def check_model(cfg) -> None:
     if cfg.enc_causal:
         raise ValueError(f"{cfg.name}: enc_causal=True: the encoder is "
                          "bidirectional, as the reference's")
+    if pal is not None and pal.tp_on:
+        check_tensor_parallel(cfg)
     if not cfg.is_encoder_decoder:
         return
     if cfg.n_dense_prefix or len(layer_pattern(cfg)) > 1:
@@ -148,12 +196,13 @@ def cp_message(cfg) -> str:
 
 
 def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
-                cross: bool = False) -> dict:
+                cross: bool = False, pal=None) -> dict:
     p = {}
     if mixer in ("attn", "mamba"):
         p["norm1"] = init_norm(cfg, lead=lead, device=device)
     if mixer == "attn":
-        p["attn"] = attn.init_attention(gen, cfg, lead=lead, device=device)
+        p["attn"] = attn.init_attention(gen, cfg, lead=lead, device=device,
+                                        pal=pal)
     elif mixer == "mamba":
         p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
     elif mixer == "mlstm":
@@ -167,29 +216,31 @@ def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
     if ffn != "none":
         p["norm2"] = init_norm(cfg, lead=lead, device=device)
     if ffn == "dense":
-        p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
+        p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device, pal=pal)
     elif ffn == "moe":
-        p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead, device=device)
+        p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead, device=device,
+                                    pal=pal)
     return p
 
 
-def init_params(cfg, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg, gen: torch.Generator, device=None, pal=None) -> dict:
     """Random fp32 parameters drawn from ``gen`` (on ``device``): the
     super-blocks' layers, the embedding, the final norm, the prefix, the
-    encoder."""
-    check_model(cfg)
+    encoder; under tensor parallelism this rank's share of each leaf
+    (``models.specs``), all drawn from ``gen``."""
+    check_model(cfg, pal)
     lead = (n_superblocks(cfg),)
     pattern = layer_pattern(cfg)
     cross = cfg.is_encoder_decoder
     blocks = {f"l{j}": _init_layer(gen, cfg, mixer, ffn, lead, device,
-                                   cross)
+                                   cross, pal)
               for j, (mixer, ffn) in enumerate(pattern)}
-    params = {"embed": init_embed(gen, cfg, device=device),
+    params = {"embed": init_embed(gen, cfg, device=device, pal=pal),
               "blocks": blocks,
               "final_norm": init_norm(cfg, device=device)}
     if cfg.n_dense_prefix:
         params["prefix"] = [_init_layer(gen, cfg, pattern[0][0], "dense",
-                                        device=device)
+                                        device=device, pal=pal)
                             for _ in range(cfg.n_dense_prefix)]
     if cross:
         params["encoder"] = {
@@ -199,13 +250,38 @@ def init_params(cfg, gen: torch.Generator, device=None) -> dict:
     return params
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None):
+def rank_seed(seed: int, pal=None) -> int:
+    """The seed of this rank's parameter draw: ``seed`` on model rank 0
+    (and at tp 1), another stream on each other model rank."""
+    return seed + 65537 * axis_index(pal)
+
+
+def init_rank_params(cfg, seed: int, device=None, pal=None) -> dict:
+    """This rank's parameters from ``seed``: :func:`init_params` from a
+    generator at :func:`rank_seed`, so the split leaves are drawn per
+    model rank, then the replicated leaves (``models.specs``) broadcast
+    from model rank 0, so every model rank holds their bits (the
+    reference draws twice and selects). At tp 1 ``init_params`` from
+    ``seed``."""
+    from repro_torch.models.parallel import broadcast_model
+    from repro_torch.models.specs import leaf_dim
+    gen = torch.Generator(device=device).manual_seed(rank_seed(seed, pal))
+    params = init_params(cfg, gen, device, pal)
+    if pal is not None and pal.tp_on:
+        for path, leaf in tree_items(params):
+            if leaf_dim(path, leaf.ndim) is None:
+                broadcast_model(leaf, pal)
+    return params
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None, pal=None):
     """The layer's FFN half on the residual x: (x, aux + the MoE's)."""
     if ffn == "dense":
-        x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg)
+        x = x + mlp_fwd(p["mlp"], norm_fwd(p["norm2"], x, cfg.norm), cfg,
+                        pal)
     elif ffn == "moe":
         y, a = moe_mod.moe_fwd(p["moe"], norm_fwd(p["norm2"], x, cfg.norm),
-                               cfg)
+                               cfg, pal)
         x = x + y
         if aux is not None:
             aux = tuple(s + a[key] for s, key in zip(aux, AUX_KEYS))
@@ -213,7 +289,8 @@ def _ffn(p: dict, x: torch.Tensor, cfg, ffn: str, aux=None):
 
 
 def _mixer(p: dict, x: torch.Tensor, cfg, mixer: str,
-           cache: dict = None, causal: bool = True) -> torch.Tensor:
+           cache: dict = None, causal: bool = True,
+           pal=None) -> torch.Tensor:
     """The layer's mixer half on the residual x (norm1 first for
     attention and Mamba; attention bidirectional in an encoder, not
     ``causal``). With ``cache`` (one layer's views of a decode cache) a
@@ -221,8 +298,9 @@ def _mixer(p: dict, x: torch.Tensor, cfg, mixer: str,
     its final state."""
     if mixer == "attn":
         h = norm_fwd(p["norm1"], x, cfg.norm)
-        y = attn.attn_fwd_full(p["attn"], h, cfg, causal) if cache is None \
-            else attn.attn_prefill(p["attn"], h, cache, cfg)
+        y = attn.attn_fwd_full(p["attn"], h, cfg, causal, pal) \
+            if cache is None else attn.attn_prefill(p["attn"], h, cache, cfg,
+                                                    pal)
     elif mixer == "mamba":
         y = mam.mamba_fwd(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm), cfg,
                           cache)
@@ -259,11 +337,11 @@ def _cross(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _layer_fwd(p: dict, x: torch.Tensor, cfg, mixer: str, ffn: str,
-               enc_out, *aux):
-    x = _mixer(p, x, cfg, mixer)
+               enc_out, pal, *aux):
+    x = _mixer(p, x, cfg, mixer, pal=pal)
     if enc_out is not None:
         x = _cross(p, x, *attn.cross_kv(p["cross"], enc_out, cfg), cfg)
-    x, aux = _ffn(p, x, cfg, ffn, aux)
+    x, aux = _ffn(p, x, cfg, ffn, aux, pal)
     return (x, *aux)
 
 
@@ -301,20 +379,22 @@ def layer_caches(cache: dict, cfg) -> list:
 
 
 def forward_hidden(params: dict, x: torch.Tensor, cfg,
-                   with_aux: bool = False, enc_out: torch.Tensor = None):
+                   with_aux: bool = False, enc_out: torch.Tensor = None,
+                   pal=None):
     """The layer stack and the final norm on embedded x (with ``enc_out``,
     the encoder's output, each layer's cross-attention over it); with
     ``with_aux`` (x, {lb_loss, z_loss, drop_frac}), each summed over the
-    MoE layers (0 without any)."""
+    MoE layers (0 without any). Under sequence parallelism x is this
+    rank's chunk of the sequence, and so is the result."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = tuple(torch.zeros((), dtype=torch.float32, device=x.device)
                 for _ in AUX_KEYS)
     for p, mixer, ffn in layers(params, cfg):
         if remat:
             x, *aux = checkpoint(_layer_fwd, p, x, cfg, mixer, ffn, enc_out,
-                                 *aux, use_reentrant=False)
+                                 pal, *aux, use_reentrant=False)
         else:
-            x, *aux = _layer_fwd(p, x, cfg, mixer, ffn, enc_out, *aux)
+            x, *aux = _layer_fwd(p, x, cfg, mixer, ffn, enc_out, pal, *aux)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
     return (x, dict(zip(AUX_KEYS, aux))) if with_aux else x
 
@@ -348,17 +428,24 @@ def sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def embed_batch(params: dict, tokens: torch.Tensor, cfg, pos0=None,
-                patches: torch.Tensor = None) -> torch.Tensor:
+                patches: torch.Tensor = None, pal=None) -> torch.Tensor:
     """tokens (B, S) -> x (B, S, d) in the model's dtype, positions < P
     overwritten by ``patches`` (B, P, d) cast to it, with the sinusoidal
     positions added when the model has neither RoPE nor an SSM. ``pos0``
-    (a 0-d device tensor) is the first token's position, 0 by default."""
-    x = embed_fwd(params["embed"], tokens, cfg)
+    (a 0-d device tensor) is the first token's position, 0 by default.
+    With ``pal.sp`` the whole sequence is embedded and psum-scattered:
+    x is this rank's chunk (B, S/tp, d) (the reference embeds first, as
+    every model rank must look up the same tokens)."""
+    sp = pal is not None and pal.sp
+    x = embed_fwd(params["embed"], tokens, cfg, pal,
+                  "scatter" if sp else "psum")
     if patches is not None:
         n = min(x.shape[1], patches.shape[1])
         x = torch.cat([patches[:, :n].to(x.dtype), x[:, n:]], 1)
     if not cfg.rope and cfg.ssm is None:
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        pos = torch.arange(x.shape[1], device=tokens.device)
+        if sp:
+            pos = pos + axis_index(pal) * x.shape[1]
         if pos0 is not None:
             pos = pos + pos0
         x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)
@@ -366,22 +453,43 @@ def embed_batch(params: dict, tokens: torch.Tensor, cfg, pos0=None,
 
 
 def chunked_xent(params: dict, x: torch.Tensor, targets: torch.Tensor,
-                 cfg) -> torch.Tensor:
-    """Mean next-token cross-entropy over targets >= 0, chunked over seq."""
+                 cfg, pal=None) -> torch.Tensor:
+    """Mean next-token cross-entropy over targets >= 0, chunked over seq.
+    Under tensor parallelism x is the whole sequence on every rank, the
+    logits vocabulary-parallel, and each rank sums only its own chunk of
+    the sequence, over the count of targets summed over the model group
+    outside autograd: the ranks' results are disjoint shares of the loss
+    (:func:`global_loss`). Seeding each rank's backward pass with its own
+    share, the collectives' transposes deliver the other terms; seeding it
+    with the summed loss would count every gradient tp times."""
     s = x.shape[1]
     chunk = min(LOSS_CHUNK, s)
     if s % chunk:
         chunk = s
+    tp_on = pal is not None and pal.tp_on
+    if tp_on:
+        sl = shard_slice(s, pal)
+        own = (torch.arange(s, device=x.device) // sl) == axis_index(pal)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for off in range(0, s, chunk):
         tc = targets[:, off:off + chunk]
-        logits = lm_head_fwd(params["embed"], x[:, off:off + chunk], cfg)
+        logits = lm_head_fwd(params["embed"], x[:, off:off + chunk], cfg, pal)
         valid = (tc >= 0).float()
-        nll = sharded_xent(logits, tc.clamp(min=0))
+        if tp_on:
+            valid = valid * own[off:off + chunk]
+        nll = sharded_xent(logits, tc.clamp(min=0), pal)
         tot = tot + (nll * valid).sum()
         cnt = cnt + valid.sum()
+    if tp_on:
+        cnt = psum_model(cnt.detach(), pal)
     return tot / cnt.clamp(min=1.0)
+
+
+def global_loss(loss: torch.Tensor, pal=None) -> torch.Tensor:
+    """The loss from the ranks' disjoint shares: their sum over the model
+    group, outside autograd (metrics only)."""
+    return psum_model(loss.detach(), pal)
 
 
 def _patches(batch: dict, cfg):
@@ -397,42 +505,63 @@ def _encoded(params: dict, batch: dict, cfg):
     return encode(params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
 
 
-def hidden(params: dict, batch: dict, cfg, with_aux: bool = False):
+def hidden(params: dict, batch: dict, cfg, with_aux: bool = False,
+           pal=None):
     """:func:`forward_hidden` of a batch: its tokens embedded with its
-    patches, over its frames' encoding."""
+    patches, over its frames' encoding (this rank's sequence chunk under
+    sequence parallelism)."""
     x = embed_batch(params, batch["tokens"], cfg,
-                    patches=_patches(batch, cfg))
+                    patches=_patches(batch, cfg), pal=pal)
     return forward_hidden(params, x, cfg, with_aux, _encoded(params, batch,
-                                                             cfg))
+                                                             cfg), pal)
 
 
-def loss_and_aux(params: dict, batch: dict, cfg) -> tuple:
+def loss_and_aux(params: dict, batch: dict, cfg, pal=None) -> tuple:
     """(loss, {lb_loss, z_loss, drop_frac}): the mean next-token
     cross-entropy plus, for an MoE model, its aux term. batch: tokens
     (B, S) int64; targets (B, S) int64, -1 = masked; a vision model's
-    patches, an audio model's frames (B, P or S_enc, d)."""
-    check_model(cfg)
-    x, aux = hidden(params, batch, cfg, with_aux=True)
-    loss = chunked_xent(params, x, batch["targets"], cfg)
+    patches, an audio model's frames (B, P or S_enc, d). Under tensor
+    parallelism the loss is this rank's share (:func:`chunked_xent`), the
+    aux term, from the rank's own tokens, divided by tp, and the aux
+    metrics the model group's means."""
+    check_model(cfg, pal)
+    x, aux = hidden(params, batch, cfg, with_aux=True, pal=pal)
+    if pal is not None and pal.sp:
+        x = all_gather_model(x, pal, 1)
+    loss = chunked_xent(params, x, batch["targets"], cfg, pal)
     if cfg.moe is not None:
         m = cfg.moe
-        loss = loss + (m.load_balance_loss * aux["lb_loss"]
-                       + m.router_z_loss * aux["z_loss"]) / max(
-                           n_moe_layers(cfg), 1)
+        term = (m.load_balance_loss * aux["lb_loss"]
+                + m.router_z_loss * aux["z_loss"]) / max(n_moe_layers(cfg), 1)
+        if pal is not None and pal.tp_on:
+            term = term / pal.tp
+            aux = {key: pmean_model(val, pal) for key, val in aux.items()}
+        loss = loss + term
     return loss, aux
 
 
-def loss_fn(params: dict, batch: dict, cfg) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg, pal=None) -> torch.Tensor:
     """The loss of :func:`loss_and_aux`."""
-    return loss_and_aux(params, batch, cfg)[0]
+    return loss_and_aux(params, batch, cfg, pal)[0]
 
 
-def full_logits(params: dict, batch: dict, cfg) -> torch.Tensor:
+def gather_vocab(logits: torch.Tensor, pal=None) -> torch.Tensor:
+    """The model group's vocabulary columns of (..., V/tp) logits, in
+    rank order: (..., V padded)."""
+    return all_gather_model(logits, pal, logits.ndim - 1)
+
+
+def full_logits(params: dict, batch: dict, cfg, pal=None) -> torch.Tensor:
     """Logits (B, S, V) of the whole sequence of a batch (tokens, and
     patches or frames), no cache: what prefill and decode are held
-    against."""
-    check_model(cfg)
-    return lm_head_fwd(params["embed"], hidden(params, batch, cfg), cfg)
+    against (under tensor parallelism the padded vocabulary's, gathered
+    over the model group; no sequence split)."""
+    check_model(cfg, pal)
+    if pal is not None and pal.sp:
+        raise ValueError("full_logits runs without the sequence split")
+    return gather_vocab(lm_head_fwd(params["embed"],
+                                    hidden(params, batch, cfg, pal=pal), cfg,
+                                    pal), pal)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +569,10 @@ def full_logits(params: dict, batch: dict, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _layer_cache(cfg, mixer: str, batch: int, slots: int, dtype,
-                 lead=(), device=None) -> dict:
+                 lead=(), device=None, pal=None) -> dict:
     if mixer == "attn":
         return attn.init_cache(cfg, batch, slots, dtype, lead=lead,
-                               device=device)
+                               device=device, pal=pal)
     if mixer == "mamba":
         return mam.init_mamba_cache(cfg, batch, dtype, lead=lead,
                                     device=device)
@@ -460,8 +589,9 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     and an encoder-decoder's cross k and v over ``enc_seq`` positions;
     with ``pal.cache_seq_sharded`` this rank's slice of the slots, which
     must split evenly over the group (not for MLA, nor for a model with
-    an SSM: ROADMAP A13e), and the whole of the cross k and v."""
-    check_model(cfg)
+    an SSM: ROADMAP A13e), and the whole of the cross k and v; under
+    tensor parallelism this rank's key/value heads."""
+    check_model(cfg, pal)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
         if cfg.attn_kind == "mla":
@@ -473,11 +603,11 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     pattern = layer_pattern(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device),
              "blocks": {f"l{j}": _layer_cache(cfg, mixer, batch, slots,
-                                              dtype, lead, device)
+                                              dtype, lead, device, pal)
                         for j, (mixer, _) in enumerate(pattern)}}
     if cfg.n_dense_prefix:
         cache["prefix"] = [_layer_cache(cfg, pattern[0][0], batch, slots,
-                                        dtype, device=device)
+                                        dtype, device=device, pal=pal)
                            for _ in range(cfg.n_dense_prefix)]
     if cfg.is_encoder_decoder:
         shape = (*lead, batch, enc_seq, cfg.n_kv_heads,
@@ -506,31 +636,35 @@ def cache_slice_len(slots: int, n: int) -> int:
     return slots // n
 
 
-def prefill(params: dict, batch: dict, cfg, max_seq: int) -> tuple:
+def prefill(params: dict, batch: dict, cfg, max_seq: int,
+            pal=None) -> tuple:
     """Prompt forward of a batch (tokens (B, S), and patches or frames)
     building the decode cache. Returns (the last position's logits (B,
     V), cache) with ``pos`` = S; an encoder-decoder's cache holds every
-    layer's cross k and v."""
+    layer's cross k and v. Under tensor parallelism the cache holds this
+    rank's heads and the logits are the padded vocabulary's, gathered."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     enc_out = _encoded(params, batch, cfg)
     cache = init_decode_cache(
-        cfg, b, max_seq, getattr(torch, cfg.dtype), tokens.device,
+        cfg, b, max_seq, getattr(torch, cfg.dtype), tokens.device, pal,
         enc_seq=0 if enc_out is None else enc_out.shape[1])
-    x = embed_batch(params, tokens, cfg, patches=_patches(batch, cfg))
+    x = embed_batch(params, tokens, cfg, patches=_patches(batch, cfg),
+                    pal=pal)
     for (p, mixer, ffn), lc, xc in zip(layers(params, cfg),
                                        layer_caches(cache, cfg),
                                        _cross_caches(cache)):
-        x = _mixer(p, x, cfg, mixer, lc)
+        x = _mixer(p, x, cfg, mixer, lc, pal=pal)
         if xc is not None:
             k, v = attn.cross_kv(p["cross"], enc_out, cfg)
             xc[0].copy_(k)
             xc[1].copy_(v)
             x = _cross(p, x, k, v, cfg)
-        x = _ffn(p, x, cfg, ffn)[0]
+        x = _ffn(p, x, cfg, ffn, pal=pal)[0]
     cache["pos"].fill_(s)
     x = norm_fwd(params["final_norm"], x[:, -1:], cfg.norm)
-    return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache
+    return gather_vocab(lm_head_fwd(params["embed"], x, cfg, pal),
+                        pal)[:, 0], cache
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor,
@@ -539,16 +673,18 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     cache is updated in place (the step's slot of every attention layer,
     every recurrent layer's state, ``pos`` + 1) and returned. With
     ``pal.cache_seq_sharded`` the cache is this rank's slice of the
-    sequence (``attention.attn_decode``)."""
+    sequence (``attention.attn_decode``); under tensor parallelism the
+    logits are the padded vocabulary's, gathered over the model group."""
     pos = cache["pos"]
-    x = embed_batch(params, token, cfg, pos0=pos)
+    x = embed_batch(params, token, cfg, pos0=pos, pal=pal)
     for (p, mixer, ffn), lc, xc in zip(layers(params, cfg),
                                        layer_caches(cache, cfg),
                                        _cross_caches(cache)):
         x = _mixer_decode(p, x, lc, pos, cfg, mixer, pal)
         if xc is not None:
             x = _cross(p, x, *xc, cfg)
-        x = _ffn(p, x, cfg, ffn)[0]
+        x = _ffn(p, x, cfg, ffn, pal=pal)[0]
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)
-    return lm_head_fwd(params["embed"], x, cfg)[:, 0], cache
+    return gather_vocab(lm_head_fwd(params["embed"], x, cfg, pal),
+                        pal)[:, 0], cache

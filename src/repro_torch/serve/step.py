@@ -1,6 +1,6 @@
 """Serving steps: prefill and batched greedy decode (the port of
 ``repro.serve.step``'s ``serve_parallel``, ``decode_cache_specs``,
-``build_prefill`` and ``build_decode_step`` at tensor-parallel degree 1).
+``build_prefill`` and ``build_decode_step``).
 
 Each builder returns a plain function: ``prefill(params, batch) ->
 (logits (B, V), cache)`` with a cache of ``run.shape.seq_len`` positions
@@ -26,10 +26,18 @@ data axes:
   a one-device cache onto the mesh; prefill raises, since its batch does
   not split.
 
+Under tensor parallelism (``model_group``, a model group of tp ranks
+beside each data rank, as ``launch.mesh.make_group`` numbers them) each
+rank holds its share of the parameters and its key/value heads of the
+cache, the sequence is never split, and both functions return the
+padded vocabulary's logits (B, V padded to a multiple of tp), gathered
+over the model group, then over the data group's rows.
+
 A batch (or cache) that n does not split raises ValueError; tensor
-parallelism (``model > 1``) raises NotImplementedError naming ROADMAP
-A13d, and context-parallel decode of an MLA, SSM or hybrid model naming
-A13e. The model may be of any family; an MoE layer's capacity follows
+parallelism of a model outside its slice (MLA, an SSM, an
+encoder-decoder, the vision stub) raises NotImplementedError naming
+ROADMAP A13d, and context-parallel decode of an MLA, SSM or hybrid model
+naming A13e. The model may be of any family; an MoE layer's capacity follows
 the tokens a rank routes, as the reference's does under its shard_map;
 a recurrent layer's state is cut by rows like attention's k and v; a
 vision or audio model's batch carries its patches or frames, cut by rows
@@ -49,19 +57,21 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
 
 
-def check_serving(model: int = 1) -> None:
-    """Raise NotImplementedError for tensor-parallel serving."""
+def check_serving(cfg, model: int = 1) -> None:
+    """Raise NotImplementedError for tensor-parallel serving (``model`` >
+    1) of a model outside its slice (ROADMAP A13d)."""
     if model > 1:
-        raise NotImplementedError(
-            f"tensor-parallel serving (model={model}) is not ported yet; "
-            "the port serves data-parallel ranks (ROADMAP A13d)")
+        tfm.check_tensor_parallel(cfg)
 
 
-def serve_parallel(run: RunConfig, group=None, *, decode: bool) -> Parallel:
-    """The serving step's ``Parallel`` over ``group``: the cache's
-    sequence axis sharded (context-parallel decode) when ``decode`` and
-    the global batch is below the group's size; NotImplementedError
-    then for an MLA model or a model with an SSM (ROADMAP A13e)."""
+def serve_parallel(run: RunConfig, group=None, *, decode: bool,
+                   model_group=None) -> Parallel:
+    """The serving step's ``Parallel`` over the data ``group`` and the
+    ``model_group``: the cache's sequence axis sharded (context-parallel
+    decode) when ``decode`` and the global batch is below the data
+    group's size; NotImplementedError then for an MLA model or a model
+    with an SSM (ROADMAP A13e). The sequence is never split over the
+    model group."""
     n, _ = world(group)
     sharded = decode and run.shape.global_batch < n
     cfg = resolve_model_cfg(run)
@@ -69,7 +79,8 @@ def serve_parallel(run: RunConfig, group=None, *, decode: bool) -> Parallel:
         raise NotImplementedError(attn.mla_cp_message(cfg))
     if sharded and cfg.ssm is not None:
         raise NotImplementedError(tfm.cp_message(cfg))
-    return Parallel(group=group, cache_seq_sharded=sharded)
+    return Parallel(group=group, cache_seq_sharded=sharded,
+                    model_group=model_group)
 
 
 def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
@@ -90,16 +101,22 @@ def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
     return b // n, slots
 
 
-def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
+def shard_decode_cache(cache: dict, run: RunConfig, group=None,
+                       model_group=None) -> dict:
     """This rank's part of a one-rank decode cache of the global batch
     (``tfm.prefill``'s) under :func:`serve_parallel`'s layout for decode:
-    a slice of the slots (context-parallel), or of the rows; the step
-    counter as it is. The stacked ``blocks`` leaves hold the rows on
+    a slice of the slots (context-parallel), or of the rows; under tensor
+    parallelism of the key/value heads too (``convert.split_cache``); the
+    step counter as it is. The stacked ``blocks`` leaves hold the rows on
     dim 1 and an attention layer's slots on dim 2, the ``prefix``
     layers' a dim before; a recurrent layer's state has rows only; the
     stacked ``cross`` k and v (an encoder-decoder's) are cut by rows
     under a data-parallel batch and kept whole under context-parallel
     decode."""
+    if model_group is not None:
+        from repro_torch.convert import split_cache
+        tp, m = world(model_group)
+        cache = split_cache(cache, tp, m)
     n, r = world(group)
     pal = serve_parallel(run, group, decode=True)
     rows, slots = decode_cache_layout(run, n, pal.cache_seq_sharded)
@@ -131,11 +148,11 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None) -> dict:
     return out
 
 
-def _build(run: RunConfig, device, model: int):
+def _build(run: RunConfig, device, model_group):
     resolve_device(device)
     configure_numerics()
-    check_serving(model)
     cfg = resolve_model_cfg(run)
+    check_serving(cfg, 1 if model_group is None else world(model_group)[0])
     tfm.check_model(cfg)
     return cfg
 
@@ -150,31 +167,33 @@ def _rows(x: torch.Tensor, n: int, r: int) -> torch.Tensor:
 
 
 def build_prefill(run: RunConfig, device=None, *, group=None,
-                  model: int = 1):
+                  model_group=None):
     """``fn(params, batch) -> (logits (B, V), cache)``; batch =
     {"tokens": (B, S)[, "patches" | "frames": (B, P | S_enc, d)]}, the
-    global batch; the cache holds this rank's rows."""
-    cfg = _build(run, device, model)
+    global batch; params this rank's; the cache holds this rank's rows
+    (and key/value heads)."""
+    cfg = _build(run, device, model_group)
     n, r = world(group)
     decode_cache_layout(run, n, False)
+    pal = serve_parallel(run, group, decode=False, model_group=model_group)
 
     def fn(params: dict, batch: dict):
         with torch.inference_mode():
             logits, cache = tfm.prefill(
                 params, {key: _rows(val, n, r) for key, val in batch.items()},
-                cfg, max_seq=run.shape.seq_len)
+                cfg, max_seq=run.shape.seq_len, pal=pal)
             return all_gather_rows(logits, group), cache
     return fn
 
 
 def build_decode_step(run: RunConfig, device=None, *, group=None,
-                      model: int = 1):
+                      model_group=None):
     """``fn(params, cache, token) -> (logits (B, V), cache)``: token (B,
-    1) of the global batch; the cache (this rank's rows or slots) is
-    updated in place."""
-    cfg = _build(run, device, model)
+    1) of the global batch; the cache (this rank's rows or slots, and
+    key/value heads) is updated in place."""
+    cfg = _build(run, device, model_group)
     n, r = world(group)
-    pal = serve_parallel(run, group, decode=True)
+    pal = serve_parallel(run, group, decode=True, model_group=model_group)
     decode_cache_layout(run, n, pal.cache_seq_sharded)
 
     def fn(params: dict, cache: dict, token: torch.Tensor):
@@ -182,7 +201,7 @@ def build_decode_step(run: RunConfig, device=None, *, group=None,
             if pal.cache_seq_sharded:
                 return tfm.decode_step(params, cache, token, cfg, pal)
             logits, cache = tfm.decode_step(params, cache,
-                                            _rows(token, n, r), cfg)
+                                            _rows(token, n, r), cfg, pal)
             return all_gather_rows(logits, group), cache
     return fn
 

@@ -1,5 +1,6 @@
 """Data-parallel training step with sparse gradient sync and a ZeRO-1
-optimizer (the port of ``repro.train.step`` at tensor-parallel degree 1).
+optimizer, over a data group and, under tensor parallelism, a model group
+(the port of ``repro.train.step``).
 
 Per step:
 
@@ -37,6 +38,21 @@ Per step:
    gathered vector (no extra copy).
 
 Without a process group the world is one rank and the same code runs.
+
+Under tensor parallelism (``model_group``; ranks numbered as
+``launch.mesh.make_group`` numbers them) each rank holds its share of
+the parameters (``models.specs``) and trains with the residual stream
+split by sequence (the reference's ``build_parallel`` default): the loss
+is the rank's disjoint share (``transformer.chunked_xent``), the
+gradients of the replicated leaves (norms, the MoE router) are summed
+over the model group in rank order before flattening, and the flat
+J-vector, the compressor, its state and the ZeRO-1 slices are the rank's
+own (J_local), synced over the data group only. With ``grad_clip`` the
+global norm weighs a replicated leaf by 1/tp and sums over the model
+group. The logged loss is the model group's sum of the shares, averaged
+over the data group; every other metric is averaged over both groups.
+Streaming (``overlap="backward"``) sums a replicated leaf's gradient
+over the model group in its hook.
 The module also holds the run's checkpoints (:func:`save_train_state`,
 :func:`restore_train_state`, in the reference's global layout) and the
 delta broadcast's publisher for a run (:func:`delta_publisher_for_run`).
@@ -57,10 +73,15 @@ from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
 from repro_torch.core import faults, sparsify, threefry
 from repro_torch.core.aggregate import GradientSync
-from repro_torch.core.flatten import TreeFlattener, tree_leaves, tree_map
+from repro_torch.core.flatten import (TreeFlattener, tree_items, tree_leaves,
+                                      tree_map)
 from repro_torch.models import init_params, loss_and_aux
-from repro_torch.models.parallel import all_reduce_mean, data_index, world
-from repro_torch.models.transformer import AUX_KEYS
+from repro_torch.models.parallel import (Parallel, all_reduce_mean,
+                                         all_reduce_sum, data_index,
+                                         pmean_model, psum_model, world)
+from repro_torch.models.specs import replicated_mask
+from repro_torch.models.transformer import (AUX_KEYS, global_loss,
+                                            init_rank_params)
 from repro_torch.optim import apply_updates, init_opt_state, opt_shard_len
 
 
@@ -88,15 +109,24 @@ def _padded_slice(vec: torch.Tensor, rank: int, shard: int, n: int):
         rank * shard:(rank + 1) * shard]
 
 
+def train_parallel(group=None, model_group=None) -> Parallel:
+    """The train step's ``Parallel``: the residual stream split by
+    sequence over the model group, as the reference's ``build_parallel``
+    defaults."""
+    return Parallel(group=group, model_group=model_group, seq_parallel=True)
+
+
 def init_train_state(run: RunConfig, device=None, group=None,
-                     params: dict = None) -> TrainState:
-    """Fresh state: parameters drawn from ``run.seed`` (or the given
-    tree, e.g. converted from the reference), this rank's optimizer
-    slice, and zero sparsifier state."""
+                     params: dict = None, model_group=None) -> TrainState:
+    """Fresh state: parameters drawn from ``run.seed`` (under tensor
+    parallelism this rank's share: ``transformer.init_rank_params``), or
+    the given tree (this rank's, e.g. cut from the reference's by
+    ``convert.split_params``), this rank's optimizer slice, and zero
+    sparsifier state."""
     dev = resolve_device(device)
     if params is None:
-        gen = torch.Generator(device=dev).manual_seed(run.seed)
-        params = init_params(resolve_model_cfg(run), gen, dev)
+        params = init_rank_params(resolve_model_cfg(run), run.seed, dev,
+                                  train_parallel(group, model_group))
     params = tree_map(lambda t: t.to(dev, torch.float32), params)
     flat = TreeFlattener(params)
     n, rank = world(group)[0], data_index(group)
@@ -113,21 +143,27 @@ class TrainStep:
     tensors (reading them is the caller's choice of host sync). The old
     state's sparsifier state is consumed (``state.ef`` becomes None).
     ``gsync.fallbacks`` counts the steps whose trim took the exact
-    fallback."""
+    fallback. ``group`` is the data group, ``model_group`` the model
+    group (None: tensor-parallel degree 1)."""
 
-    def __init__(self, run: RunConfig, device=None, group=None):
+    def __init__(self, run: RunConfig, device=None, group=None,
+                 model_group=None):
         resolve_device(device)
         configure_numerics()
         self.run = run
         self.group = group
+        self.pal = train_parallel(group, model_group)
         sp = run.sparsifier
         # the leaf layout, from parameters drawn on the meta device: the
         # allocation's segments are layer-aligned (leaves grouped, never
         # cut), and the stream's are the same cut (or the same rule when
         # the allocation is global)
-        flat = TreeFlattener(init_params(resolve_model_cfg(run),
-                                         torch.Generator(),
-                                         torch.device("meta")))
+        tmpl = init_params(resolve_model_cfg(run), torch.Generator(),
+                           torch.device("meta"), self.pal)
+        flat = TreeFlattener(tmpl)
+        # the leaves replicated over the model group (none at tp 1)
+        self.replicated = [self.pal.tp_on and rep for _, rep in
+                           tree_items(replicated_mask(tmpl))]
         cut = None
         if sp.allocation != "global" or sp.overlap == "backward":
             from repro_torch.core import allocate
@@ -161,8 +197,9 @@ class TrainStep:
                 state, batch, cfg, flat, leaves, ef, key, part)
         else:
             with record_function("train/loss_grad"):
-                loss, aux = loss_and_aux(state.params, batch, cfg)
-                grads = torch.autograd.grad(loss, leaves)
+                loss, aux = loss_and_aux(state.params, batch, cfg, self.pal)
+                grads = [self._replicated_sum(i, grad) for i, grad in
+                         enumerate(torch.autograd.grad(loss, leaves))]
             with record_function("train/flatten"):
                 g = flat.flatten(list(grads))
                 del grads
@@ -179,9 +216,13 @@ class TrainStep:
             shard = opt_shard_len(flat.total, n)
             opt = state.opt
             if opt_cfg.grad_clip:
-                # the global norm of g_agg (rank-identical; no TP term)
-                opt = dict(opt, gnorm=torch.sqrt(torch.sum(g_agg.float()
-                                                           ** 2)))
+                # the global norm of g_agg, a replicated leaf weighed by
+                # 1/tp, summed over the model group
+                gn2 = g_agg.float() ** 2
+                if self.pal.tp_on:
+                    gn2 = gn2 * self._dup_weights(flat, gn2.device)
+                opt = dict(opt, gnorm=torch.sqrt(psum_model(
+                    torch.sum(gn2), self.pal)))
             master, opt = apply_updates(opt_cfg, opt,
                                         _padded_slice(g_agg, rank, shard, n))
             if n > 1:
@@ -191,17 +232,35 @@ class TrainStep:
             else:
                 mall = master
             params = _as_leaves(flat.unflatten(mall[:flat.total]))
-        # the reference's pmean of every metric over the data axes: one
-        # gather, a sum in rank order, the scale by fp32(1/n); the MoE aux
-        # terms are each summed over the MoE layers (0 without any)
-        means = all_reduce_mean(torch.stack([
-            loss.detach(), gnorm_local.float(),
-            (g_agg != 0).float().mean(),
-            *(aux[key].detach() for key in AUX_KEYS)]), self.group)
+        # the reference's pmean of every metric: one gather, a sum in rank
+        # order, the scale by fp32(1/n); the loss is first the model
+        # group's sum of the shares, every other metric the model group's
+        # mean; the MoE aux terms are each summed over the MoE layers (0
+        # without any)
+        rest = pmean_model(torch.stack([
+            gnorm_local.float(), (g_agg != 0).float().mean(),
+            *(aux[key].detach() for key in AUX_KEYS)]), self.pal)
+        means = all_reduce_mean(torch.cat([
+            global_loss(loss, self.pal).reshape(1), rest]), self.group)
         metrics = dict(zip(METRICS, means.unbind(0)))
         if stats is not None:
             metrics.update(stats)        # already sums over the ranks
         return TrainState(params, opt, ef), metrics
+
+    def _replicated_sum(self, i: int, grad: torch.Tensor) -> torch.Tensor:
+        """Leaf i's gradient, summed over the model group in rank order
+        where the leaf is replicated over it."""
+        if not self.replicated[i]:
+            return grad
+        return all_reduce_sum(grad, self.pal.model_group)
+
+    def _dup_weights(self, flat, device) -> torch.Tensor:
+        """(J,) weights of the global norm: 1/tp on the replicated leaves'
+        elements (each model rank holds a copy), 1 elsewhere."""
+        return torch.cat([torch.full((size,), 1.0 / self.pal.tp if rep
+                                     else 1.0, device=device)
+                          for size, rep in zip(flat.sizes,
+                                               self.replicated)])
 
     def _streamed(self, state, batch, cfg, flat, leaves, ef, key, part):
         """Loss and gradient with the sync's compression streamed behind
@@ -249,6 +308,7 @@ class TrainStep:
             off, size = flat.offsets[i], flat.sizes[i]
 
             def arrived(grad):
+                grad = self._replicated_sum(i, grad)
                 buf[off:off + size].copy_(grad.reshape(-1))
                 pos = seg_of[i]
                 left[pos] -= 1
@@ -260,7 +320,7 @@ class TrainStep:
                    for i, leaf in enumerate(leaves) if seg_of[i] is not None]
         try:
             with record_function("train/loss_grad"):
-                loss, aux = loss_and_aux(state.params, batch, cfg)
+                loss, aux = loss_and_aux(state.params, batch, cfg, self.pal)
                 grads = torch.autograd.grad(loss, leaves)
                 del grads
         finally:
@@ -284,8 +344,9 @@ class TrainStep:
         return loss, aux, g_agg, ef, stats, gnorm_local
 
 
-def build_train_step(run: RunConfig, device=None, group=None) -> TrainStep:
-    return TrainStep(run, device, group)
+def build_train_step(run: RunConfig, device=None, group=None,
+                     model_group=None) -> TrainStep:
+    return TrainStep(run, device, group, model_group)
 
 
 def delta_publisher_for_run(run: RunConfig, params: dict, delta_k: int = 0,

@@ -27,7 +27,21 @@ The inputs' ``mode`` (default "sync") picks what runs:
   ``decode_step`` and the mesh's ``build_prefill`` and
   ``build_decode_step`` (context-parallel: a one-device prefill's cache
   put on the mesh with ``decode_cache_specs``), fed the inputs' decode
-  tokens: the logits of the prefill and of every decode step.
+  tokens: the logits of the prefill and of every decode step;
+- "collectives": the model axis' collectives (``psum``, ``all_gather``,
+  ``psum_scatter``, the MoE's ``all_to_all``, the stop-gradient
+  ``pmax``) on a ("model",) mesh: each rank's output and ``jax.vjp``
+  gradient;
+- "tp_train": ``build_train_step`` on ("data", "model") meshes of the
+  inputs' reduced models (``arch``, optional head counts and
+  vocabulary): the global initial parameters by path, the metrics, the
+  final parameters, ``idx_prev`` and every device's copy of the
+  replicated leaves;
+- "tp_serve": the mesh's ``build_prefill`` and ``build_decode_step``
+  under tensor parallelism: the parameters and the prefill's cache by
+  path, the logits of the prefill and of every decode step;
+- "tp": those of the three above that the inputs ask for, in one
+  process.
 
 The device count is set before jax is imported, so this runs in a
 process of its own.
@@ -185,11 +199,180 @@ def run_serve(data) -> dict:
     return res
 
 
+def _leaves(prefix: str, tree) -> dict:
+    """A tree's leaves keyed ``prefix/path``, as numpy."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        keys = [str(getattr(k, "key", getattr(k, "idx", k))) for k in path]
+        out["/".join([prefix] + keys)] = np.asarray(leaf)
+    return out
+
+
+COLLECTIVES = ("psum", "all_gather", "psum_scatter", "all_to_all", "pmax")
+
+
+def run_collectives(data) -> dict:
+    """Each model-axis collective of ``repro.models.parallel`` (and the
+    MoE's tiled all_to_all, and the stop-gradient pmax of the sharded
+    cross-entropy) under ``shard_map(check_vma=False)`` on a ("model",)
+    mesh of WORLD devices: the output of each rank's x and ``jax.vjp``'s
+    gradient of each rank's cotangent."""
+    from repro.models import parallel as par
+    mesh = jax.make_mesh((WORLD,), ("model",))
+    pal = par.Parallel(model_axis="model", tp=WORLD)
+    fns = {"psum": lambda x: par.psum_model(x, pal),
+           "all_gather": lambda x: par.all_gather_model(x, pal, axis=1),
+           "psum_scatter": lambda x: par.psum_scatter_model(x, pal, axis=1),
+           "all_to_all": lambda x: jax.lax.all_to_all(
+               x, "model", split_axis=0, concat_axis=1, tiled=True),
+           "pmax": lambda x: x * jax.lax.pmax(jax.lax.stop_gradient(x),
+                                              "model")}
+    res = {}
+    for name in COLLECTIVES:
+        def f(x, ct, fn=fns[name]):
+            y, vjp = jax.vjp(fn, x[0])
+            return y[None], vjp(ct[0])[0][None]
+        fn = jax.jit(jax.shard_map(
+            f, mesh=mesh, in_specs=(P("model"), P("model")),
+            out_specs=(P("model"), P("model")), check_vma=False))
+        y, gx = fn(jnp.asarray(data["x"]), jnp.asarray(data[f"ct_{name}"]))
+        res[f"{name}_y"], res[f"{name}_gx"] = np.asarray(y), np.asarray(gx)
+    return res
+
+
+def _tp_model(case: dict):
+    """A case's reduced model: ``arch`` with ``heads`` (query, key/value)
+    and ``vocab`` replaced where given."""
+    import dataclasses
+
+    from repro.configs import base
+    cfg = base.reduced_config(base.get_config(case["arch"]))
+    if "heads" in case:
+        cfg = dataclasses.replace(cfg, n_heads=case["heads"][0],
+                                  n_kv_heads=case["heads"][1])
+    if "vocab" in case:
+        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
+    if case.get("attn") == "sliding":
+        cfg = dataclasses.replace(cfg, attn_kind="sliding",
+                                  window=int(case["window"]))
+    return cfg
+
+
+def run_tp_train(data) -> dict:
+    """For each case (JSON: arch, mesh, sparsifier, optional heads and
+    vocab), ``build_train_step`` on that ("data", "model") mesh over the
+    global batch: the global (mesh-assembled) initial parameters by path,
+    every step's metrics, the final global parameters (flat) and the
+    (DP, TP, k) ``idx_prev``."""
+    from repro.configs import base
+    from repro.train.step import (build_parallel, build_train_step,
+                                  init_train_state)
+    batch = {"tokens": jnp.asarray(data["tokens"]),
+             "targets": jnp.asarray(data["targets"])}
+    steps = int(data["steps"])
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        run = base.RunConfig(
+            model=_tp_model(case), shape=base.SHAPES["train_4k"],
+            sparsifier=base.SparsifierConfig(**case["sparsifier"]),
+            optimizer=base.OptimizerConfig(kind="adam", lr=1e-3,
+                                           **case.get("optimizer", {})),
+            seed=0, steps=steps)
+        mesh = _mesh(tuple(case["mesh"]))
+        pal = build_parallel(mesh)
+        with mesh:
+            params, opt, ef = init_train_state(run, mesh, pal,
+                                               jax.random.PRNGKey(0))
+            res.update(_leaves(f"{name}_init", jax.device_get(params)))
+            step, _, _ = build_train_step(run, mesh, pal)
+            jstep = jax.jit(step)
+            for t in range(steps):
+                params, opt, ef, m = jstep(params, opt, ef, batch,
+                                           jax.random.PRNGKey(0))
+                for key, val in m.items():
+                    res[f"{name}_{key}_{t}"] = np.asarray(val)
+            res[f"{name}_params"] = _flat(jax.device_get(params))
+            res[f"{name}_idx_prev"] = np.asarray(ef["idx_prev"])
+            res[f"{name}_replicated"] = _replicated_by_device(params, mesh)
+    return res
+
+
+def _replicated_by_device(params, mesh) -> np.ndarray:
+    """(devices, n): every device's own copy of the leaves replicated
+    over the model axis (those whose shard is the whole leaf), flat in
+    leaf order, the devices in mesh order (model-minor). Under a
+    sparsified sync the copies may differ: each rank selects its
+    entries of them on its own threshold."""
+    order = {dev.id: i for i, dev in enumerate(mesh.devices.flat)}
+    rows = [[] for _ in order]
+    for leaf in jax.tree_util.tree_leaves(params):
+        shards = leaf.addressable_shards
+        if shards[0].data.shape != leaf.shape:
+            continue
+        for sh in shards:
+            rows[order[sh.device.id]].append(np.asarray(sh.data).ravel())
+    return np.stack([np.concatenate(r) for r in rows])
+
+
+def run_tp_serve(data) -> dict:
+    """For each case (JSON: arch, attn, mesh, batch, prompt, seq),
+    parameters drawn as the train step draws them on that mesh (global,
+    by path), then the mesh's ``build_prefill`` and ``build_decode_step``
+    fed the inputs' tokens (teacher forcing): the prefill's logits and
+    global cache (by path) and every decode step's logits."""
+    from repro.configs import base
+    from repro.serve.step import (build_decode_step, build_prefill,
+                                  serve_parallel)
+    from repro.train.step import build_parallel, init_train_state
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        cfg = _tp_model(dict(case, window=data["window"]))
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        mesh = _mesh(tuple(case["mesh"]))
+        run = base.RunConfig(
+            model=cfg, shape=base.ShapeConfig("serve", seq, b, "decode"),
+            sparsifier=base.SparsifierConfig(kind="none"))
+        tokens = jnp.asarray(data["tokens"][:b, :prompt])
+        feed = data["tokens"][:b, prompt:]
+        with mesh:
+            params = init_train_state(run, mesh, build_parallel(mesh),
+                                      jax.random.PRNGKey(0))[0]
+            res.update(_leaves(f"{name}_init", jax.device_get(params)))
+            pre, _ = build_prefill(run, mesh, serve_parallel(
+                mesh, run, decode=False))
+            lg, cache = jax.jit(pre)(params, {"tokens": tokens})
+            res[f"{name}_prefill"] = np.asarray(lg)
+            res.update(_leaves(f"{name}_cache", jax.device_get(cache)))
+            dec, _ = build_decode_step(run, mesh, serve_parallel(
+                mesh, run, decode=True))
+            dec = jax.jit(dec)
+            for t in range(feed.shape[1]):
+                lg, cache = dec(params, cache, jnp.asarray(feed[:, t:t + 1]))
+                res[f"{name}_decode_{t}"] = np.asarray(lg)
+    return res
+
+
+def run_tp(data) -> dict:
+    """In one process, those of the modes "collectives" (when the inputs
+    hold ``x``), "tp_train" (``train_cases``) and "tp_serve"
+    (``serve_cases`` on ``serve_tokens``) that the inputs ask for."""
+    res = run_collectives(data) if "x" in data else {}
+    if "train_cases" in data:
+        res.update(run_tp_train(dict(data, cases=data["train_cases"])))
+    if "serve_cases" in data:
+        res.update(run_tp_serve(dict(data, cases=data["serve_cases"],
+                                     tokens=data["serve_tokens"])))
+    return res
+
+
 def main(inp: str, out: str) -> None:
     data = np.load(inp)
     mode = str(data["mode"]) if "mode" in data.files else "sync"
     if mode != "sync":
-        np.savez(out, **{"train": run_train, "serve": run_serve}[mode](data))
+        np.savez(out, **{"train": run_train, "serve": run_serve,
+                         "collectives": run_collectives,
+                         "tp_train": run_tp_train,
+                         "tp_serve": run_tp_serve, "tp": run_tp}[mode](data))
         return
     mesh = jax.make_mesh((WORLD,), ("data",))
     res = {}

@@ -7,8 +7,12 @@ in-process ``round()`` of the same workers, and prints one ``world``
 line a case. Then the multi-rank phases at the reduced configs: the
 launcher's train() over the group (the main path, dense SGD, and the
 main path replayed in one process), serve() of a data-parallel batch
-and context-parallel decode, each printing one line from rank 0. This
-runs the check's own logic without cards."""
+and context-parallel decode, and at world 4 the tensor-parallel phases
+(train() on (1, 4) and (2, 2) grids of reduced StableLM-3B and on a (1,
+4) grid of reduced Granite-MoE-3B-A800M, each dense one's step 0 against
+one rank; serve() of reduced Qwen1.5-32B over a model group of 4), each
+printing one line from rank 0. This runs the check's own logic without
+cards."""
 import json
 import os
 import socket
@@ -65,7 +69,8 @@ def test_world_check_passes_over_gloo(world):
         json.loads, (ln for ln in logs[0].splitlines()
                      if ln.startswith('{"phase": "world_')))}
     assert list(phases) == list(chip_smoke.WORLD_TRAIN) + [
-        "world_serve", "world_decode_cp"]
+        "world_serve", "world_decode_cp"] + ([] if world < 4 else list(
+            chip_smoke.WORLD_TP) + ["world_serve_tp"])
     for name in chip_smoke.WORLD_TRAIN:
         line = phases[name]
         assert line["world"] == world and line["params_bitwise_across_ranks"]
@@ -79,3 +84,23 @@ def test_world_check_passes_over_gloo(world):
     cp = phases["world_decode_cp"]
     assert cp["slots_a_rank"] * world == cp["cache_slots"]
     assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
+    if world < 4:
+        return
+    for name, (_, _, (data, model), batch) in chip_smoke.WORLD_TP.items():
+        line = phases[name]
+        assert (line["data"], line["tp"], line["global_batch"]) == (
+            data, model, batch)
+        assert line["params_bitwise_across_data"]
+        assert line["losses"][-1] < line["losses"][0]
+        assert len(set(line["j_local_by_rank"])) == 1
+        if line["step0"] is not None:
+            res = line["step0"]["float32"]
+            assert res["loss_rel_err"] < chip_smoke.TP_LOSS_RTOL
+            assert res["grad_rel_err"] < chip_smoke.TP_GRAD_RTOL
+            assert res["replicated_grads_bitwise_across_model"]
+    assert phases["world_train_ep"]["step0"] is None
+    assert phases["world_train_ep"]["experts_a_card"] == 1
+    serve_tp = phases["world_serve_tp"]
+    assert serve_tp["tp"] == world and serve_tp["kv_heads_a_card"] == 1
+    assert max(serve_tp["prefill_rel_err"], serve_tp["decode_rel_err"]) < \
+        chip_smoke.SERVE_RTOL < serve_tp["row_gap"]

@@ -156,11 +156,17 @@ def test_data_parallel_launchers_take_the_card(launcher, monkeypatch):
 @pytest.mark.parametrize("field", ["model_axis", "tp", "seq_parallel",
                                    "attn_dist"])
 def test_tensor_parallel_fields_raise(field):
-    """The port's Parallel is data-parallel: its tensor-parallel fields
-    raise naming ROADMAP A13 (the reference's ``Parallel`` has them)."""
+    """The reference's tensor-parallel fields read as its defaults on a
+    one-rank ``Parallel`` (no model group: tp 1), and what stays outside
+    the port raises naming ROADMAP A13d: ring attention
+    (``attn_dist="ring"``)."""
     from repro_torch.models.parallel import Parallel
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        getattr(Parallel(), field)
+    want = {"model_axis": None, "tp": 1, "seq_parallel": False,
+            "attn_dist": "sp"}
+    assert getattr(Parallel(), field) == want[field]
+    assert not Parallel(seq_parallel=True).sp and not Parallel().tp_on
+    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+        Parallel(attn_dist="ring")
     assert Parallel().size == 1 and Parallel().rank == 0
 
 

@@ -214,15 +214,21 @@ def test_serve_step_beyond_one_rank_raises(data, model, batch, match):
     """What the serve step does not serve over ``data`` ranks raises: a
     data-parallel batch that the ranks do not split, context-parallel
     decode (batch < data) of a cache whose slots they do not split (the
-    reference cannot place either), and tensor parallelism (ROADMAP
-    A13). ``decode_cache_layout`` is the builders' check of the
-    layout, at the group's size."""
-    from repro_torch.serve.step import decode_cache_layout
+    reference cannot place either), and tensor parallelism (``model`` >
+    1) of a model outside its slice: MLA, an SSM, an encoder-decoder, the
+    vision stub (ROADMAP A13d; ``check_serving`` is the builders' check,
+    at the model group's size). ``decode_cache_layout`` is the builders'
+    check of the layout, at the group's size."""
+    from repro_torch.serve.step import check_serving, decode_cache_layout
     run = _run(batch=batch)
     if model > 1:
-        for build in (build_prefill, build_decode_step):
-            with pytest.raises(NotImplementedError, match=match):
-                build(run, "cpu", model=model)
+        check_serving(run.model, model)         # a dense model is served
+        for arch in ("deepseek-v2-lite-16b", "xlstm-125m", "jamba-v0.1-52b",
+                     "whisper-small", "phi-3-vision-4.2b"):
+            cfg = tbase.reduced_config(tbase.get_config(arch))
+            with pytest.raises(NotImplementedError, match=match + "d"):
+                check_serving(cfg, model)
+            check_serving(cfg, 1)
         return
     with pytest.raises(ValueError, match=match):
         decode_cache_layout(run, data, batch < data)
@@ -265,14 +271,17 @@ def test_serve_launcher_smoke(arch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
-    (["--model", "2"], "ROADMAP A13"), (["--devices", "8"], "ROADMAP A13"),
+    (["--arch", "xlstm-125m", "--model", "2"], "ROADMAP A13"),
+    (["--devices", "8"], "ROADMAP A13"),
     (["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],
      "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
     """What the launcher still does not serve: deltas applied over more
-    than one rank (A14), tensor parallelism (of a dense model and of
-    absorbed MLA) and a mesh in one process (A13). ``--mla-absorb``
-    alone is served (tests/test_torch_mla.py)."""
+    than one rank (A14), tensor parallelism of a model outside its slice
+    (xLSTM, absorbed MLA: A13d, raised before any group is joined) and a
+    mesh in one process (A13). ``--mla-absorb`` alone is served
+    (tests/test_torch_mla.py), and so is ``--model 2`` of a dense or MoE
+    model (tests/test_torch_tensor_parallel.py)."""
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])

@@ -17,7 +17,8 @@ parameters.
   4: n_active per step equal to the reference's;
 - the launcher's ``main()`` with ``--data 2 --device cpu`` at gloo world
   2: each rank's rows of the global batch, and its losses equal to
-  ``train()`` with the group; ``--model 2`` and ``--data 2`` without a
+  ``train()`` with the group; ``--model 2`` of an xLSTM, Jamba, MLA,
+  encoder-decoder or vision model, and ``--data 2`` without a
   group raise.
 
 Ranks meet through a ``file://`` rendezvous under tmp_path."""
@@ -187,9 +188,22 @@ def test_launcher_main_over_gloo_world2(tmp_path):
 
 
 def test_launcher_model_parallel_raises_a13():
+    """``--model 2`` of xLSTM (an SSM model) raises naming ROADMAP A13d
+    before any group is joined; the dense and MoE families train
+    (tests/test_torch_tensor_parallel.py)."""
     from repro_torch.launch import train as launcher
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        launcher.main(LAUNCH + ["--model", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+        launcher.main(LAUNCH + ["--arch", "xlstm-125m", "--model", "2"])
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",
+                                  "whisper-small", "phi-3-vision-4.2b"])
+def test_launcher_model_parallel_gates(arch):
+    """The other models outside tensor parallelism's slice (the hybrid,
+    MLA, an encoder-decoder, the vision stub) raise as xLSTM does."""
+    from repro_torch.launch import train as launcher
+    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+        launcher.main(LAUNCH + ["--arch", arch, "--model", "2"])
 
 
 @pytest.mark.parametrize("flags", [["--data", "2"], ["--pods", "2"]])

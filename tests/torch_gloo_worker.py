@@ -27,7 +27,13 @@ model) through the builders, and decodes a one-rank prefill's cache that
 inputs' reduced encoder-decoder ``arch`` with the inputs' frames: a
 data-parallel batch through the builders, and context-parallel decode of
 one row from a one-rank prefill's cache that ``shard_decode_cache``
-split by slots. Imports torch and the port only, and records whether jax
+split by slots; MODE "collectives" runs the model group's collectives
+forward and backward on the inputs' per-rank x and cotangents; MODE
+"tp_train" and MODE "tp_serve" run each case of the inputs (JSON, as
+tests/jax_mesh_worker.py's modes of those names read them) on the case's
+(data, model) groups from this rank's share of the reference's global
+parameters; MODE "tp_launch" runs both launchers' ``main()`` with the
+inputs' flags. Imports torch and the port only, and records whether jax
 was imported.
 """
 import json
@@ -43,7 +49,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 from repro_torch.configs import base as cfgs  # noqa: E402
 from repro_torch.core import sparsify  # noqa: E402
 from repro_torch.core.aggregate import GradientSync  # noqa: E402
-from repro_torch.core.flatten import TreeFlattener  # noqa: E402
+from repro_torch.core.flatten import TreeFlattener, tree_map  # noqa: E402
 
 
 def sparsifier(data) -> cfgs.SparsifierConfig:
@@ -399,6 +405,188 @@ def _raises(build_prefill, model, batch: int, seq: int, group) -> bool:
     return False
 
 
+def run_collectives(rank: int, data) -> dict:
+    """Each model-group collective of ``models.parallel`` on this rank's
+    x: its output and the gradient of this rank's cotangent (the world is
+    one model group)."""
+    from repro_torch.models import parallel as par
+    pal = par.Parallel(group=dist.new_group([rank]),
+                       model_group=dist.group.WORLD)
+    fns = {"psum": lambda x: par.psum_model(x, pal),
+           "all_gather": lambda x: par.all_gather_model(x, pal, 1),
+           "psum_scatter": lambda x: par.psum_scatter_model(x, pal, 1),
+           "all_to_all": lambda x: par.all_to_all_model(x, pal, 0, 1),
+           "pmax": lambda x: x * par.pmax_model(x, pal)}
+    res = {}
+    for name, fn in fns.items():
+        x = torch.from_numpy(data["x"][rank]).requires_grad_(True)
+        y = fn(x)
+        (gx,) = torch.autograd.grad(y, x, torch.from_numpy(
+            data[f"ct_{name}"][rank]))
+        res[f"{name}_y"], res[f"{name}_gx"] = y.detach().numpy(), gx.numpy()
+    return res
+
+
+def _tp_model(case: dict):
+    """A case's reduced model (tests/jax_mesh_worker.py's ``_tp_model``)."""
+    import dataclasses
+    cfg = cfgs.reduced_config(cfgs.get_config(case["arch"]))
+    if "heads" in case:
+        cfg = dataclasses.replace(cfg, n_heads=case["heads"][0],
+                                  n_kv_heads=case["heads"][1])
+    if "vocab" in case:
+        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
+    if case.get("attn") == "sliding":
+        cfg = dataclasses.replace(cfg, attn_kind="sliding",
+                                  window=int(case["window"]))
+    return cfg
+
+
+def _global_tree(data, prefix: str) -> dict:
+    """The reference's tree saved under ``prefix/path`` keys, as tensors
+    (a list index as an int)."""
+    from repro_torch.convert import _to_tensor
+    from repro_torch.core.flatten import tree_from_items
+    items = []
+    for key in data.files:
+        if key.startswith(prefix + "/"):
+            path = tuple(int(k) if k.isdigit() else k
+                         for k in key[len(prefix) + 1:].split("/"))
+            items.append((path, _to_tensor(data[key], "cpu")))
+    return tree_from_items(items)
+
+
+def _axes(case: dict):
+    """(data group, model group, data index, model index) of this rank on
+    the case's (data, model) mesh."""
+    from repro_torch.launch.mesh import axis_groups
+    data_n, model = case["mesh"]
+    group, model_group = axis_groups(data_n, model)
+    rank = dist.get_rank()
+    return group, model_group, rank // model, rank % model
+
+
+def _replicated(params) -> np.ndarray:
+    """This rank's leaves replicated over the model group, flat in leaf
+    order."""
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models.specs import leaf_dim
+    return torch.cat([leaf.detach().reshape(-1)
+                      for path, leaf in tree_items(params)
+                      if leaf_dim(path, leaf.ndim) is None]).numpy()
+
+
+def run_tp_train(rank: int, data) -> dict:
+    """Per case (tests/jax_mesh_worker.py's "tp_train" cases): this
+    rank's share of the reference's initial parameters, STEPS steps of
+    the train step over the case's data and model groups on the data
+    rank's rows: every step's metrics, this rank's sorted ``idx_prev``,
+    its copy of the replicated leaves, and the final parameters gathered
+    into the global layout (flat)."""
+    from repro_torch.convert import join_params, split_params
+    from repro_torch.train.step import build_train_step, init_train_state
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        group, model_group, d, m = _axes(case)
+        data_n, model = case["mesh"]
+        run = cfgs.RunConfig(
+            model=_tp_model(case), shape=cfgs.SHAPES["train_4k"],
+            sparsifier=cfgs.SparsifierConfig(**case["sparsifier"]),
+            optimizer=cfgs.OptimizerConfig(kind="adam", lr=1e-3,
+                                           **case.get("optimizer", {})),
+            seed=0, steps=int(data["steps"]))
+        params = split_params(_global_tree(data, f"{name}_init"), model, m)
+        state = init_train_state(run, "cpu", group, params=params,
+                                 model_group=model_group)
+        step = build_train_step(run, "cpu", group, model_group)
+        batch = {"tokens": _rows(data["tokens"], d, data_n),
+                 "targets": _rows(data["targets"], d, data_n)}
+        for t in range(run.steps):
+            state, metrics = step(state, batch)
+            for key, val in metrics.items():
+                res[f"{name}_{key}_{t}"] = val.numpy()
+        res[f"{name}_idx_prev"] = np.sort(
+            state.ef["idx_prev"].numpy().view(np.uint32))
+        res[f"{name}_replicated"] = _replicated(state.params)
+        every = [None] * model
+        dist.all_gather_object(every, tree_map(
+            lambda t: t.detach(), state.params), group=model_group)
+        glob = join_params(every)
+        res[f"{name}_params"] = TreeFlattener(glob).flatten(
+            glob).detach().numpy()
+    return res
+
+
+def run_tp_serve(rank: int, data) -> dict:
+    """Per case (tests/jax_mesh_worker.py's "tp_serve" cases): this
+    rank's share of the reference's parameters, the serve step's
+    builders over the case's groups: the gathered prefill logits, this
+    rank's cache after the prefill and its key/value heads of the
+    reference's cache, and every decode step's logits (teacher
+    forcing)."""
+    from repro_torch.convert import split_cache, split_params
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.serve.step import build_decode_step, build_prefill
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        group, model_group, d, m = _axes(case)
+        data_n, model = case["mesh"]
+        cfg = _tp_model(dict(case, window=data["window"]))
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
+            "serve", seq, b, "decode"),
+            sparsifier=cfgs.SparsifierConfig(kind="none"))
+        params = split_params(_global_tree(data, f"{name}_init"), model, m)
+        tokens = torch.from_numpy(data["tokens"][:b]).long()
+        pre = build_prefill(run, "cpu", group=group, model_group=model_group)
+        logits, cache = pre(params, {"tokens": tokens[:, :prompt]})
+        res[f"{name}_prefill"] = logits.numpy()
+        want = split_cache(_global_tree(data, f"{name}_cache"), model, m)
+        rows = b // data_n
+        for path, leaf in tree_items(cache["blocks"]):
+            key = "_".join(map(str, path))
+            res[f"{name}_cache_{key}"] = leaf.numpy().copy()
+            res[f"{name}_want_{key}"] = want["blocks"][path[0]][path[1]][
+                :, d * rows:(d + 1) * rows].numpy()
+        dec = build_decode_step(run, "cpu", group=group,
+                                model_group=model_group)
+        for t in range(prompt, tokens.shape[1]):
+            logits, cache = dec(params, cache, tokens[:, t:t + 1])
+            res[f"{name}_decode_{t - prompt}"] = logits.numpy()
+    return res
+
+
+def run_tp_launch(rank: int, data) -> dict:
+    """Both launchers' ``main()`` with ``--model 2`` inside the group
+    (the inputs' flags): the train launcher's step losses and the serve
+    launcher's greedy tokens."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.step import TrainStep
+    losses, served = [], []
+    call = TrainStep.__call__
+
+    def spy(self, state, batch):
+        state, metrics = call(self, state, batch)
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+    serve = serve_launcher.serve
+
+    def spy_serve(*args, **kwargs):
+        out = serve(*args, **kwargs)
+        served.append(out["tokens"].clone())
+        return out
+    TrainStep.__call__ = spy
+    serve_launcher.serve = spy_serve
+    try:
+        launcher.main([str(f) for f in data["train_flags"]])
+        serve_launcher.main([str(f) for f in data["serve_flags"]])
+    finally:
+        TrainStep.__call__ = call
+        serve_launcher.serve = serve
+    return {"losses": np.asarray(losses), "tokens": served[0].numpy()}
+
+
 def main(mode: str, rank: int, world: int, init_file: str, inp: str,
          out: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -411,7 +599,9 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                "world_train": run_world_train, "launch": run_launch,
                "world_serve": run_world_serve,
                "recurrent_serve": run_recurrent_serve,
-               "encdec_serve": run_encdec_serve}[mode]
+               "encdec_serve": run_encdec_serve,
+               "collectives": run_collectives, "tp_train": run_tp_train,
+               "tp_serve": run_tp_serve, "tp_launch": run_tp_launch}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
