@@ -149,6 +149,20 @@ def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
     return _sum_in_order(x.view(1, -1)).reshape(())
 
 
+NORM_CHUNK = 1 << 24
+
+
+def norm_f32(x: torch.Tensor) -> torch.Tensor:
+    """0-d fp32 2-norm of x, the compiled reference's ``jnp.linalg.norm``:
+    the square root of the sum of the fp32 squares, each chunk of
+    NORM_CHUNK elements one ``torch.sum`` (pairwise on the CPU, a tree on
+    the card; within an ulp or two of XLA's windowed sum), the chunks
+    added in order. Not ``torch.linalg.vector_norm``, whose fp32 CPU
+    reduction drifts 4e-5 relative at a million elements."""
+    x = x.reshape(-1).float()
+    return torch.sqrt(sum(torch.sum(c * c) for c in x.split(NORM_CHUNK)))
+
+
 def _sum_in_order(v: torch.Tensor) -> torch.Tensor:
     """Row sums of a 2-D tensor, each added column by column from 0.0."""
     acc = torch.zeros(v.shape[0], dtype=v.dtype, device=v.device)

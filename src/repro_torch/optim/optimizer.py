@@ -24,7 +24,7 @@ import math
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
-from repro_torch.core.numerics import fma_f32
+from repro_torch.core.numerics import fma_f32, norm_f32
 
 KINDS = ("sgd", "momentum", "adam", "adamw")
 
@@ -81,7 +81,7 @@ def apply_updates(cfg: OptimizerConfig, state: dict, g_slice: torch.Tensor):
     if cfg.grad_clip:
         gn = state.get("gnorm")
         if gn is None:
-            gn = torch.linalg.vector_norm(g)
+            gn = norm_f32(g)
         clip = torch.full_like(gn, cfg.grad_clip) / gn.clamp(min=1e-12)
         g = g * clip.clamp(max=1.0)
     new = dict(state)

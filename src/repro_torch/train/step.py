@@ -75,6 +75,7 @@ from repro_torch.core import faults, sparsify, threefry
 from repro_torch.core.aggregate import GradientSync
 from repro_torch.core.flatten import (TreeFlattener, tree_items, tree_leaves,
                                       tree_map)
+from repro_torch.core.numerics import norm_f32
 from repro_torch.models import init_params, loss_and_aux
 from repro_torch.models.parallel import (Parallel, all_reduce_mean,
                                          all_reduce_sum, data_index,
@@ -203,7 +204,7 @@ class TrainStep:
             with record_function("train/flatten"):
                 g = flat.flatten(list(grads))
                 del grads
-                gnorm_local = torch.linalg.vector_norm(g)
+                gnorm_local = norm_f32(g)
             with record_function("train/sync"):
                 if part is None:
                     g_agg, ef = self.gsync(ef, g, donate=True, key=key)

@@ -9,6 +9,8 @@ fused multiply-add; the port's sgd and momentum do the same
 cosine schedule goes through ``cos`` and Adam through fp32 ``pow``,
 which torch and XLA may round an ulp apart, and the port's Adam rounds
 its moments' multiply-adds twice: those agree to the tolerances below."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -123,6 +125,33 @@ def test_slice_norm_when_no_global_norm_is_given():
     moved = np.abs(got.numpy() - master)
     assert np.sqrt((moved.astype(np.float64) ** 2).sum()) == \
         pytest.approx(1e-2, rel=1e-5)       # lr * the clipped norm 1
+
+
+# a slice as long as a tensor-parallel rank's J_local of reduced Jamba on
+# a (2, 2) grid: torch.linalg.vector_norm's fp32 CPU reduction drifted 4e-5
+# relative there, XLA's windowed sum does not
+N_LONG = 881_920
+
+
+def test_slice_norm_of_a_long_slice():
+    """The clip's own norm of a long slice (and the train step's
+    ``gnorm_local``, ``numerics.norm_f32``) is the compiled reference's
+    ``jnp.linalg.norm`` to 1e-7: sgd at lr 1 from zeros moves by the
+    clipped gradient, g / |g|."""
+    from repro_torch.core.numerics import norm_f32
+    jcfg, tcfg = (dataclasses.replace(c, lr=1.0) for c in _cfgs(
+        kind="sgd", grad_clip=1.0))
+    g = np.random.default_rng(8).standard_normal(N_LONG).astype(np.float32)
+    g = g * np.random.default_rng(9).random(N_LONG).astype(np.float32) ** 4
+    master = np.zeros(N_LONG, np.float32)
+    want, _ = jax.jit(lambda st, g: jax_apply(jcfg, st, g))(
+        jax_init(jcfg, jnp.asarray(master)), jnp.asarray(g))
+    got, _ = apply_updates(tcfg, init_opt_state(
+        tcfg, torch.from_numpy(master)), torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-7,
+                               atol=0)
+    norm = float(jax.jit(jnp.linalg.norm)(g))
+    assert abs(float(norm_f32(torch.from_numpy(g))) - norm) <= 1e-7 * norm
 
 
 def test_default_optimizer_is_sgd_in_both_packages():
