@@ -55,10 +55,20 @@ same parameters gathered, the replicated leaves' gradients bitwise
 across the model group), ``world_train_tp2x2`` (the same on (2, 2),
 batch 16, the parameters bitwise across each data pair),
 ``world_train_ep`` (Granite-MoE-3B-A800M, 8 layers, (1, 4): 10 experts
-a card, the all_to_all's ms, the drop share) and ``world_serve_tp``
-(serve() of Qwen1.5-32B at full width and depth in fp32 over a model
-group of 4: 35.2 GB of weights a card, decode within 2e-4 of the
-tensor-parallel full forward, decode ms beside its bytes bound).
+a card, the all_to_all's ms, the drop share), ``world_train_mla``
+(DeepSeek-V2-Lite-16B at full width, the dense prefix and 7 MoE layers,
+(1, 4): MLA split by heads, 16 experts a card, step 0 against one card
+at capacity factor 16 without the load-balance term), ``world_train_xlstm``
+(xLSTM-125M at full width and depth on (2, 2), batch 16: the mLSTM's
+value dims and the sLSTM's channels split, step 0 against one card),
+``world_serve_tp`` (serve() over a model group of 4 in fp32 at full width
+and depth, one line a model: Qwen1.5-32B, 35.2 GB of weights a card;
+DeepSeek-V2-Lite in both MLA forms; Jamba-v0.1-52B at 32 layers, 12.9 B
+parameters a card; decode within 2e-4 of the tensor-parallel full
+forward, decode ms beside its bytes bound) and ``world_mamba_layer`` (one
+Mamba layer at Jamba's width split by channel over the four cards,
+forward and forward plus backward ms at 1024 positions beside one card's
+in the same run, its output within 1e-5 of one card's).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -2991,6 +3001,7 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
             if cuda:
                 torch.cuda.empty_cache()
             world_serve_tp(dev, world, rank)
+            world_mamba_layer(dev, world, rank)
     finally:
         dist.destroy_process_group()
     return 0
@@ -3331,15 +3342,31 @@ def world_decode_cp(dev, world: int, rank: int) -> None:
 # over a model group of all four. On the card the full widths (8 layers
 # for the train phases; Qwen1.5-32B at full depth, fp32); over gloo on the
 # CPU (tests/test_torch_chip_world.py) the reduced configs at small shapes.
-WORLD_TP = {   # phase: arch, depth, (data, model), global batch
-    "world_train_tp": ("stablelm-3b", TRAIN_LAYERS, (1, 4), TRAIN_BATCH),
+WORLD_TP = {   # phase: arch, depth, (data, model), global batch, step 0
+    "world_train_tp": ("stablelm-3b", TRAIN_LAYERS, (1, 4), TRAIN_BATCH,
+                       True),
     "world_train_tp2x2": ("stablelm-3b", TRAIN_LAYERS, (2, 2),
-                          2 * TRAIN_BATCH),
+                          2 * TRAIN_BATCH, True),
     "world_train_ep": ("granite-moe-3b-a800m", TRAIN_LAYERS, (1, 4),
-                       TRAIN_BATCH),
+                       TRAIN_BATCH, False),
+    # MLA under tensor parallelism: the dense prefix and 7 MoE layers
+    # (J = 4,594,374,656, 16 of the 64 experts a card)
+    "world_train_mla": ("deepseek-v2-lite-16b", 8, (1, 4), TRAIN_BATCH,
+                        True),
+    # the mLSTM's value split and the sLSTM's channels, full depth
+    "world_train_xlstm": ("xlstm-125m", 12, (2, 2), 2 * TRAIN_BATCH, True),
 }
-TP_SERVE_ARCH = "qwen1.5-32b"
-TP_SERVE_PARAMS = 35_197_096_960          # ModelConfig.param_count
+# world_serve_tp's cells (arch, depth, attention: "absorb" is MLA's
+# absorbed form), each arch's parameters drawn once: Qwen1.5-32B (35.2 GB
+# of fp32 weights a card), DeepSeek-V2-Lite in both MLA forms (15.7 GB),
+# Jamba-v0.1-52B at its 32 layers (51.6 GB), each at full width and depth
+TP_SERVE_CELLS = (("qwen1.5-32b", 64, "full"),
+                  ("deepseek-v2-lite-16b", 27, "full"),
+                  ("deepseek-v2-lite-16b", 27, "absorb"),
+                  ("jamba-v0.1-52b", 32, "full"))
+TP_SERVE_PARAMS = {"qwen1.5-32b": 35_197_096_960,   # ModelConfig.param_count
+                   "deepseek-v2-lite-16b": 15_706_484_224,
+                   "jamba-v0.1-52b": 51_570_315_264}
 # the step-0 check of a dense tensor-parallel cell against one card at the
 # same parameters, in fp32: the loss to rtol 1e-5, the gathered gradient
 # (the replicated leaves' summed over the model group) to this share of
@@ -3348,6 +3375,12 @@ TP_SERVE_PARAMS = 35_197_096_960          # ModelConfig.param_count
 TP_LOSS_RTOL = 1e-5
 TP_GRAD_RTOL = 1e-4
 TP_A2A_REPS = 10
+# world_mamba_layer: one Mamba layer at Jamba's width split by channel over
+# the model group, at the longer of MAMBA_SEQS; its output against one
+# card's of the same parameters within this share of max |y| (the psums
+# of x_proj's and out_proj's partial products add in another order)
+TP_MAMBA_SEQ = 1024
+TP_MAMBA_RTOL = 1e-5
 
 
 def tp_model(arch: str, depth: int, cuda: bool):
@@ -3390,63 +3423,89 @@ def tp_global(tree: dict, pal) -> dict:
             for path, leaf in tree_items(tree))
 
 
+def step0_model(cfg):
+    """The config a step-0 check runs: an MoE model at capacity factor
+    MOE_SERVE_CAPACITY (no choice dropped) with the load-balance term's
+    weight 0. Which rank routes which token decides the drops and the
+    load-balance term (a product of two means over the rank's tokens);
+    the cross-entropy and the z-loss (a mean) do not depend on it."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_SERVE_CAPACITY, load_balance_loss=0.0))
+
+
 def tp_step0(dev, run, pal, rows: dict, rank: int) -> dict:
-    """The step-0 check of a dense tensor-parallel cell, in fp32 and in
-    the config's dtype: this rank's share of the parameters train() draws
-    (``init_rank_params``), its loss and gradient on its data rank's rows
-    (the replicated leaves' summed over the model group, and those bitwise
-    equal across it), gathered into the one-card layout; rank 0 (data
-    rank 0's model group) holds the model group's loss (the sum of the
-    shares) and gradient against one card's ``loss_and_aux`` of the
-    gathered parameters on the same rows."""
+    """The step-0 check of a tensor-parallel cell, in fp32 and in the
+    config's dtype (an MoE model as :func:`step0_model` gives it): this
+    rank's share of the parameters train() draws (``init_rank_params``),
+    its loss and gradient on its data rank's rows (the replicated leaves'
+    summed over the model group, and those bitwise equal across it); the
+    parameters gathered into the one-card layout on every rank, then rank
+    0 (data rank 0's model group) holds the model group's loss (the sum
+    of the shares) against one card's ``loss_and_aux`` of the gathered
+    parameters on the same rows, and each leaf of the gathered gradient,
+    gathered one at a time, against one card's."""
     import torch
     import torch.distributed as dist
-    from repro_torch.core.flatten import (tree_from_items, tree_items,
-                                          tree_leaves)
+    from repro_torch.core.flatten import tree_from_items, tree_items
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.parallel import all_reduce_sum
+    from repro_torch.models.parallel import all_gather_model, all_reduce_sum
     from repro_torch.models.specs import leaf_dim
     out = {}
     for dtype in ("float32", run.model.dtype):
         if dtype in out:
             continue
-        cfg = dataclasses.replace(run.model, dtype=dtype)
+        cfg = step0_model(dataclasses.replace(run.model, dtype=dtype))
         params = tfm.init_rank_params(cfg, run.seed, dev, pal)
         items = tree_items(params)
         leaves = [leaf.requires_grad_(True) for _, leaf in items]
         loss, _ = tfm.loss_and_aux(params, rows, cfg, pal)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves))
         rep_equal = True
-        summed = []
-        for (path, leaf), grad in zip(items, grads):
+        for i, ((path, leaf), grad) in enumerate(zip(items, grads)):
             if leaf_dim(path, leaf.ndim) is None:
-                grad = all_reduce_sum(grad, pal.model_group)
-                rep_equal = rep_equal and group_equal(grad, pal.model_group)
-            summed.append(grad)
+                grads[i] = all_reduce_sum(grad, pal.model_group)
+                rep_equal = rep_equal and group_equal(grads[i],
+                                                      pal.model_group)
         tp_loss = float(tfm.global_loss(loss, pal))
         glob = tp_global(params, pal)
-        gglob = tp_global(tree_from_items(
-            (path, grad) for (path, _), grad in zip(items, summed)), pal)
-        del params, leaves, grads, summed
+        shapes = [(path, leaf.ndim) for path, leaf in items]
+        del params, leaves, loss, items
+        one_loss = one_grads = None
+        if rank == 0:
+            one = [leaf.requires_grad_(True) for _, leaf in tree_items(glob)]
+            tree = tree_from_items((path, leaf) for (path, _), leaf in
+                                   zip(shapes, one))
+            one_loss, _ = tfm.loss_and_aux(tree, rows, cfg)
+            one_grads = list(torch.autograd.grad(one_loss, one))
+            del one, tree
+        del glob
+        err = scale = 0.0
+        for i, (path, ndim) in enumerate(shapes):
+            dim = leaf_dim(path, ndim)
+            with torch.no_grad():
+                g = grads[i] if dim is None else all_gather_model(
+                    grads[i].contiguous(), pal, dim)
+            grads[i] = None
+            if rank == 0:
+                err = max(err, float((g - one_grads[i]).abs().max()))
+                scale = max(scale, float(one_grads[i].abs().max()))
+                one_grads[i] = None
+            del g
         res = None
         if rank == 0:
-            one = [leaf.clone().requires_grad_(True)
-                   for leaf in tree_leaves(glob)]
-            tree = tree_from_items((path, leaf) for (path, _), leaf in
-                                   zip(tree_items(glob), one))
-            one_loss, _ = tfm.loss_and_aux(tree, rows, cfg)
-            one_grads = torch.autograd.grad(one_loss, one)
-            scale = max(float(g.abs().max()) for g in one_grads)
-            err = max(float((a - b).abs().max()) for a, b in
-                      zip(tree_leaves(gglob), one_grads))
             res = {"tp_loss": tp_loss, "one_card_loss": float(one_loss),
                    "loss_rel_err": abs(tp_loss - float(one_loss))
                    / abs(float(one_loss)),
                    "grad_max_abs_err": err, "grad_max_abs": scale,
                    "grad_rel_err": err / scale,
                    "replicated_grads_bitwise_across_model": rep_equal}
-            del one, tree, one_grads
-        del glob, gglob
+            if cfg.moe is not None:
+                res["moe_check"] = {
+                    "capacity_factor": cfg.moe.capacity_factor,
+                    "load_balance_loss": cfg.moe.load_balance_loss}
+        del grads, one_grads
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         dist.barrier()
@@ -3522,10 +3581,11 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     launched exactly once a step on every rank over its own J_local (on
     the card), the loss finite and falling, the parameters bitwise equal
     across each data group; each rank's J_local and peak, and one more
-    step profiled on rank 0. A dense cell first takes the step-0 check
-    (``tp_step0``); the MoE cell reports the MoE's all_to_all (profiled
-    spans and a CUDA-event timing) and the drop share (an MoE's capacity
-    follows each rank's own tokens, so its loss is not one card's)."""
+    step profiled on rank 0. A cell with the step-0 flag first takes the
+    step-0 check (``tp_step0``); an MoE cell reports the MoE's all_to_all
+    (profiled spans and a CUDA-event timing) and the drop share (an MoE's
+    capacity follows each rank's own tokens, so its trained loss is not
+    one card's)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
@@ -3539,7 +3599,7 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     from repro_torch.models.specs import leaf_dim
     from repro_torch.train.step import train_parallel
     cuda = dev.type == "cuda"
-    arch, depth, (data_n, model_n), batch = WORLD_TP[phase]
+    arch, depth, (data_n, model_n), batch, check0 = WORLD_TP[phase]
     model = tp_model(arch, depth, cuda)
     seq, sparsity = (TRAIN_SEQ, SPARSITY) if cuda else (16, 0.01)
     group, model_group = axis_groups(data_n, model_n)
@@ -3554,8 +3614,7 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     n = batch // data_n
     rows = {key: val[d * n:(d + 1) * n] for key, val in lm_batch(
         model, batch, seq, run.seed, 0, dev).items()}
-    step0 = None if model.moe is not None else tp_step0(dev, run, pal, rows,
-                                                        rank)
+    step0 = tp_step0(dev, run, pal, rows, rank) if check0 else None
     if rank == 0 and step0 is not None:
         res = step0["float32"]
         check(res["loss_rel_err"] < TP_LOSS_RTOL,
@@ -3630,19 +3689,59 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     dist.barrier()
 
 
+def tp_serve_cfg(arch: str, depth: int, attn: str, cuda: bool):
+    """A world_serve_tp cell's config in fp32: full width at ``depth`` on
+    the card (the reduced config over gloo), MLA absorbed with ``attn``
+    "absorb", an MoE model at capacity factor MOE_SERVE_CAPACITY (no
+    choice dropped, so decode and the full forward route alike)."""
+    cfg = dataclasses.replace(tp_model(arch, depth, cuda), dtype="float32",
+                              mla_absorb=attn == "absorb")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_SERVE_CAPACITY))
+    return cfg
+
+
+def tp_cache_shapes(cfg, cache: dict, world: int) -> bool:
+    """Whether every leaf of a rank's decode cache has the one-rank
+    cache's shape cut along its ``convert.cache_split_dims`` dimension
+    over ``world`` ranks (key/value heads, recurrent channels, the
+    mLSTM's value dims; MLA's ckv and krope whole)."""
+    import torch
+    from repro_torch.convert import cache_split_dims
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models import transformer as tfm
+    b, slots = cache["blocks"], None
+    for path, leaf in tree_items(b):
+        if path[-1] in ("k", "v", "ckv", "krope"):
+            slots = leaf.shape[2]
+    one = tfm.init_decode_cache(cfg, SERVE_BATCH, slots or 1, torch.float32,
+                                "meta")
+    for (path, whole), (_, dim), (_, local) in zip(
+            tree_items(one), cache_split_dims(one), tree_items(cache)):
+        want = list(whole.shape)
+        if dim is not None:
+            want[dim] //= world
+        if list(local.shape) != want:
+            return False
+    return True
+
+
 def world_serve_tp(dev, world: int, rank: int) -> None:
-    """The serve launcher's serve() of Qwen1.5-32B at full width and depth
-    in fp32 over a model group of all the cards (``--model 4``; the
-    reduced config over gloo): batch SERVE_BATCH, prompt SERVE_PROMPT,
-    SERVE_NEW greedy steps, each rank holding its share of the weights
-    (``init_rank_params``) and its key/value heads of the cache; the
-    prefill's and the last step's logits (the padded vocabulary's) within
-    SERVE_RTOL of the tensor-parallel full forward of the same tokens,
-    relative to its largest logit, every two rows further apart than that
-    (``row_gap``); decode ms a step is the median of SERVE_REPS more
-    windows, beside the step's bytes bound a card (its weights, B rows
-    of its token table, the valid cache slots of its heads); one more
-    step profiled (launches a step) on every rank."""
+    """The serve launcher's serve() over a model group of all the cards
+    (``--model 4``) of each TP_SERVE_CELLS cell at full width and depth in
+    fp32 (the reduced configs over gloo): batch SERVE_BATCH, prompt
+    SERVE_PROMPT, SERVE_NEW greedy steps, each rank holding its share of
+    the weights (``init_rank_params``, drawn once an arch) and of the
+    cache (``tp_cache_shapes``); the parameter count over the ranks equal
+    to the config's; the prefill's and the last step's logits (the padded
+    vocabulary's) within SERVE_RTOL of the tensor-parallel full forward of
+    the same tokens, relative to its largest logit, every two rows
+    further apart than that (``row_gap``); decode ms a step is the median
+    of SERVE_REPS more windows, beside the step's bytes bound a card (its
+    weights, every expert's included, B rows of its token table, its
+    cache); one more step profiled (launches a step) on every rank. One
+    line a cell."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import RunConfig, SparsifierConfig
@@ -3654,88 +3753,200 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
     from repro_torch.models.specs import leaf_dim
     from repro_torch.serve.step import build_decode_step, serve_parallel
     cuda = dev.type == "cuda"
-    cfg = dataclasses.replace(tp_model(TP_SERVE_ARCH, 64, cuda),
-                              dtype="float32")
     prompt, new = (SERVE_PROMPT, SERVE_NEW) if cuda else (8, 4)
-    run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt, new),
-                    sparsifier=SparsifierConfig(kind="none"))
     group, model_group = axis_groups(1, world)
-    pal = serve_parallel(run, group, decode=False, model_group=model_group)
+    params, held = None, None
+    for arch, depth, attn in TP_SERVE_CELLS:
+        cfg = tp_serve_cfg(arch, depth, attn, cuda)
+        run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt,
+                                                     new),
+                        sparsifier=SparsifierConfig(kind="none"))
+        pal = serve_parallel(run, group, decode=False,
+                             model_group=model_group)
+        init_s = None
+        if held != arch:
+            params = None
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params = tfm.init_rank_params(cfg, run.seed, dev, pal)
+            init_s = time.perf_counter() - t0
+            held = arch
+        n_local = tree_size(params)
+        counts = [None] * world
+        dist.all_gather_object(counts, n_local)
+        replicated = sum(int(leaf.numel()) for path, leaf in
+                         tree_items(params)
+                         if leaf_dim(path, leaf.ndim) is None)
+        total = sum(counts) - (world - 1) * replicated
+        check(total == cfg.param_count(), f"world_serve_tp {arch}: {total} "
+              f"parameters over the ranks, the config has "
+              f"{cfg.param_count()}")
+        if cuda:
+            check(total == TP_SERVE_PARAMS[arch], f"world_serve_tp {arch}: "
+                  f"{total} parameters, expected {TP_SERVE_PARAMS[arch]}")
+        out = serve(run, device=dev, group=group, model_group=model_group,
+                    prompt_len=prompt, new_tokens=new, params=params,
+                    log=lambda msg: print(msg, file=sys.stderr))
+        v_pad = -(-cfg.vocab_size // world) * world
+        check(tuple(out["logits"].shape) == (SERVE_BATCH, v_pad),
+              f"world_serve_tp {arch}: logits {tuple(out['logits'].shape)}")
+        check(tp_cache_shapes(cfg, out["cache"], world),
+              f"world_serve_tp {arch}: a rank's cache is not its share of "
+              "one rank's")
+        tokens = torch.cat([out["prompt"], out["tokens"]], 1)
+        with torch.inference_mode():
+            x = tfm.hidden(params, {"tokens": tokens}, cfg, pal=pal)
+            full = tfm.gather_vocab(lm_head_fwd(params["embed"],
+                                                x[:, [prompt - 1, -1]], cfg,
+                                                pal), pal).float()
+            del x
+        scale = float(full.abs().max())
+        gaps = (full[:, None] - full[None]).abs().amax(-1).amin(-1)
+        row_gap = float(gaps[~torch.eye(SERVE_BATCH, dtype=torch.bool,
+                                        device=gaps.device)].min()) / scale
+        e_pre = float((out["prefill_logits"] - full[:, 0]).abs().max()) \
+            / scale
+        e_dec = float((out["logits"] - full[:, 1]).abs().max()) / scale
+        del full, gaps
+        check(e_pre < SERVE_RTOL and e_dec < SERVE_RTOL,
+              f"world_serve_tp {arch} {attn}: errors {e_pre}, {e_dec} over "
+              f"{SERVE_RTOL} of the tensor-parallel full forward")
+        check(row_gap > SERVE_RTOL, f"world_serve_tp {arch}: two rows' "
+              f"logits within {row_gap} of each other")
+        windows = profile = None
+        if cuda:
+            dec = build_decode_step(run, dev, group=group,
+                                    model_group=model_group)
+            windows = decode_windows(dev, run, params, out["cache"],
+                                     out["tokens"], dec)
+            profile = decode_profile(dev, run, params, out["cache"],
+                                     out["tokens"][:, -1:], "float32", dec)
+        # the step's bytes a card: its weights once (fp32, every expert's),
+        # B rows of its token table in place of the table, its whole cache
+        # (every slot is valid at the last step)
+        tok = params["embed"]["tok"]
+        cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(
+            out["cache"]["blocks"]) + tree_leaves(out["cache"].get(
+                "prefix", [])))
+        step_bytes = (n_local - tok.numel()) * 4 + SERVE_BATCH * \
+            cfg.d_model * 4 + cache_bytes
+        del out["cache"]
+        peaks = world_peaks(dev, cuda)
+        if rank == 0:
+            ms = None if windows is None else statistics.median(windows)
+            emit("world_serve_tp", arch=cfg.name, attn=attn,
+                 n_layers=cfg.n_layers, dtype=cfg.dtype, tp=world,
+                 batch=SERVE_BATCH, prompt=prompt, new_tokens=new,
+                 params=total, params_by_rank=counts,
+                 weights_bytes_a_card=n_local * 4, init_s=init_s,
+                 vocab_padded=v_pad, cache_bytes_a_card=cache_bytes,
+                 prefill_ms=out["prefill_s"] * 1e3,
+                 launcher_decode_ms_per_step=out["decode_s"] / new * 1e3,
+                 decode_ms_per_step=ms, decode_ms_windows=windows,
+                 decode_ms_spread=None if windows is None
+                 else [min(windows), max(windows)],
+                 decode_bound_bytes_a_card=step_bytes,
+                 decode_bound_ms=bound_ms(step_bytes, 0)[0],
+                 prefill_rel_err=e_pre, decode_rel_err=e_dec,
+                 row_gap=row_gap, max_memory_allocated_by_rank=peaks,
+                 decode_profile=profile,
+                 first_sequence=out["tokens"][0].tolist())
+        del out
+        dist.barrier()
+    del params
     if cuda:
+        torch.cuda.empty_cache()
+
+
+def world_mamba_layer(dev, world: int, rank: int) -> None:
+    """One Mamba layer at Jamba's width split by channel over a model group
+    of all the cards (``models.mamba`` under a ``Parallel``: x_proj's and
+    out_proj's partial products summed over the group), in fp32, batch
+    MAMBA_BATCH, TP_MAMBA_SEQ positions (the reduced config at 64
+    positions over gloo): forward ms and forward plus backward ms on every
+    rank (medians of MAMBA_REPS CUDA-event timings), each rank's peak,
+    every gradient finite; then on rank 0 the same layer whole on one card
+    (the other ranks waiting): its output against the group's within
+    TP_MAMBA_RTOL of max |y|, and its forward and forward plus backward
+    ms beside the group's, in the same run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config, mamba_dims, \
+        reduced_config
+    from repro_torch.convert import split_params
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.models import mamba
+    from repro_torch.models.parallel import Parallel
+    cuda = dev.type == "cuda"
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH) if cuda else
+                              reduced_config(get_config(MAMBA_ARCH)),
+                              dtype="float32")
+    seq = TP_MAMBA_SEQ if cuda else 64
+    group, model_group = axis_groups(1, world)
+    pal = Parallel(group=group, model_group=model_group)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = mamba.init_mamba(gen, cfg, device=dev)
+    x = torch.randn((MAMBA_BATCH, seq, cfg.d_model), generator=gen,
+                    device=dev)
+    params = {key: val.contiguous() for key, val in split_params(
+        {"mamba": whole}, world, rank)["mamba"].items()}
+    leaves = [params[key].requires_grad_(True) for key in sorted(params)]
+
+    def timed(p, fn_pal):
+        def forward():
+            with torch.no_grad():
+                return mamba.mamba_fwd(p, x, cfg, pal=fn_pal)
+
+        def train_step():
+            y = mamba.mamba_fwd(p, x, cfg, pal=fn_pal)
+            # each rank seeds its share: the psum's transpose sums them
+            return torch.autograd.grad((y.float() ** 2).mean() / world,
+                                       [p[key] for key in sorted(p)])
+        return forward, train_step
+    forward, train_step = timed(params, pal)
+    if cuda:
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = tfm.init_rank_params(cfg, run.seed, dev, pal)
-    init_s = time.perf_counter() - t0
-    n_local = tree_size(params)
-    counts = [None] * world
-    dist.all_gather_object(counts, n_local)
-    replicated = sum(int(leaf.numel()) for path, leaf in tree_items(params)
-                     if leaf_dim(path, leaf.ndim) is None)
-    total = sum(counts) - (world - 1) * replicated
-    check(total == cfg.param_count(), f"world_serve_tp: {total} parameters "
-          f"over the ranks, the config has {cfg.param_count()}")
-    out = serve(run, device=dev, group=group, model_group=model_group,
-                prompt_len=prompt, new_tokens=new, params=params,
-                log=lambda msg: print(msg, file=sys.stderr))
-    v_pad = -(-cfg.vocab_size // world) * world
-    check(tuple(out["logits"].shape) == (SERVE_BATCH, v_pad),
-          f"world_serve_tp: logits {tuple(out['logits'].shape)}")
-    kv = tuple(out["cache"]["blocks"]["l0"]["k"].shape[1:4])
-    check(kv == (SERVE_BATCH, prompt + new, cfg.n_kv_heads // world),
-          f"world_serve_tp: a rank's cache (rows, slots, heads) {kv}")
-    tokens = torch.cat([out["prompt"], out["tokens"]], 1)
-    with torch.inference_mode():
-        x = tfm.hidden(params, {"tokens": tokens}, cfg, pal=pal)
-        full = tfm.gather_vocab(lm_head_fwd(params["embed"],
-                                            x[:, [prompt - 1, -1]], cfg,
-                                            pal), pal).float()
-        del x
-    scale = float(full.abs().max())
-    gaps = (full[:, None] - full[None]).abs().amax(-1).amin(-1)
-    row_gap = float(gaps[~torch.eye(SERVE_BATCH, dtype=torch.bool,
-                                    device=gaps.device)].min()) / scale
-    e_pre = float((out["prefill_logits"] - full[:, 0]).abs().max()) / scale
-    e_dec = float((out["logits"] - full[:, 1]).abs().max()) / scale
-    del full, gaps
-    check(e_pre < SERVE_RTOL and e_dec < SERVE_RTOL,
-          f"world_serve_tp: errors {e_pre}, {e_dec} over {SERVE_RTOL} of "
-          "the tensor-parallel full forward")
-    check(row_gap > SERVE_RTOL, f"world_serve_tp: two rows' logits within "
-          f"{row_gap} of each other")
-    windows = profile = None
-    if cuda:
-        dec = build_decode_step(run, dev, group=group,
-                                model_group=model_group)
-        windows = decode_windows(dev, run, params, out["cache"],
-                                 out["tokens"], dec)
-        profile = decode_profile(dev, run, params, out["cache"],
-                                 out["tokens"][:, -1:], "float32", dec)
-    # the step's bytes a card: its weights once (fp32), B rows of its
-    # token table in place of the table, the valid slots of its cache
-    tok = params["embed"]["tok"]
-    live = prompt + new
-    cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(
-        out["cache"]["blocks"]))
-    step_bytes = (n_local - tok.numel()) * 4 + SERVE_BATCH * \
-        cfg.d_model * 4 + cache_bytes // (prompt + new) * live
+    grads = train_step()
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    y = forward()
+    ms = ((cuda_ms(forward, MAMBA_REPS), cuda_ms(train_step, MAMBA_REPS))
+          if cuda else (None, None))
     peaks = world_peaks(dev, cuda)
+    del leaves
+    res = None
     if rank == 0:
-        ms = None if windows is None else statistics.median(windows)
-        emit("world_serve_tp", arch=cfg.name, n_layers=cfg.n_layers,
-             dtype=cfg.dtype, tp=world, batch=SERVE_BATCH, prompt=prompt,
-             new_tokens=new, params=total, params_by_rank=counts,
-             weights_bytes_a_card=n_local * 4, init_s=init_s,
-             vocab_padded=v_pad, kv_heads_a_card=kv[2],
-             prefill_ms=out["prefill_s"] * 1e3,
-             launcher_decode_ms_per_step=out["decode_s"] / new * 1e3,
-             decode_ms_per_step=ms, decode_ms_windows=windows,
-             decode_ms_spread=None if windows is None
-             else [min(windows), max(windows)],
-             decode_bound_bytes_a_card=step_bytes,
-             decode_bound_ms=bound_ms(step_bytes, 0)[0],
-             prefill_rel_err=e_pre, decode_rel_err=e_dec, row_gap=row_gap,
-             max_memory_allocated_by_rank=peaks, decode_profile=profile,
-             first_sequence=out["tokens"][0].tolist())
+        one_fwd, one_step = timed({key: val.requires_grad_(True)
+                                   for key, val in whole.items()}, None)
+        want = one_fwd()
+        rel = float((y - want).abs().max() / want.abs().max())
+        del want
+        one_ms = ((cuda_ms(one_fwd, MAMBA_REPS),
+                   cuda_ms(one_step, MAMBA_REPS)) if cuda else (None, None))
+        res = {"one_card_rel_err": rel, "one_card_fwd_ms": one_ms[0],
+               "one_card_fwd_bwd_ms": one_ms[1]}
+    del y, whole, params, x
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    every = [None] * world
+    dist.all_gather_object(every, finite)
+    if rank == 0:
+        check(all(every), f"world_mamba_layer: a gradient is not finite on "
+              f"some rank ({every})")
+        check(res["one_card_rel_err"] < TP_MAMBA_RTOL,
+              f"world_mamba_layer: {res['one_card_rel_err']} from one card's "
+              f"output, over {TP_MAMBA_RTOL}")
+        emit("world_mamba_layer", arch=MAMBA_ARCH, d_model=cfg.d_model,
+             d_inner=mamba_dims(cfg)[0],
+             d_inner_a_card=mamba.local_dims(cfg, pal)[0],
+             d_state=cfg.ssm.d_state, batch=MAMBA_BATCH, seq=seq, tp=world,
+             fwd_ms=ms[0], fwd_bwd_ms=ms[1],
+             max_memory_allocated_by_rank=peaks, grads_finite=True,
+             rtol=TP_MAMBA_RTOL, **res)
     dist.barrier()
 
 
@@ -3887,7 +4098,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tp", action="store_true",
                     help="with --world 4: run only the tensor-parallel "
                     "phases (world_train_tp, world_train_tp2x2, "
-                    "world_train_ep, world_serve_tp)")
+                    "world_train_ep, world_train_mla, world_train_xlstm, "
+                    "world_serve_tp, world_mamba_layer)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -14,11 +14,13 @@ convolution weights, HWIO in the reference and OIHW in the port
 (``models.cnn``).
 
 Under tensor parallelism a rank holds its share of each parameter and
-its key/value heads of the cache: :func:`split_params` cuts a global
-tree (the reference's, as its mesh assembles it) into rank r's by the
-port's ``models.specs``, :func:`join_params` gathers the ranks' trees
-back, and :func:`split_cache` and :func:`join_cache` do the same for a
-decode cache.
+of the decode cache: :func:`split_params` cuts a global tree (the
+reference's, as its mesh assembles it) into rank r's by the port's
+``models.specs``, :func:`join_params` gathers the ranks' trees back,
+and :func:`split_cache` and :func:`join_cache` do the same for a decode
+cache by :func:`cache_split_dims` (attention's key/value heads, Mamba's
+and the sLSTM's channels, the mLSTM's value dims; MLA's ckv and krope
+and the mLSTM's n and m whole).
 
 The CNN's flat J-vector (:func:`ravel_cnn`, :func:`unravel_cnn`) is in
 the order of the reference's ``jax.flatten_util.ravel_pytree`` over its
@@ -183,19 +185,40 @@ def join_params(trees: list) -> dict:
         for i, (path, leaf) in enumerate(per_rank[0]))
 
 
-def cache_head_dim(path: tuple, ndim: int):
-    """The key/value head dimension of a decode cache leaf (its k or v:
-    (.., B, S, KV, hd)), None for a leaf without heads (``pos``, MLA's
-    ckv and krope, a recurrent state)."""
-    return ndim - 2 if path[-1] in ("k", "v") else None
+def cache_split_dims(cache) -> list:
+    """[(path, the dimension split over the model group or None)] of a
+    decode cache's leaves, in ``tree_items`` order: attention's k and v
+    (.., B, S, KV, hd) by key/value head; Mamba's conv (.., B, d_conv -
+    1, C) and h (.., B, C, N) by channel; an mLSTM's c (.., B, h, hdv,
+    hd) by value dim, its n (.., B, h, hd) and m (.., B, h) whole; an
+    sLSTM's c, n and m (.., B, C) by channel (a layer's c with one more
+    dimension than its n is an mLSTM's); ``pos``, MLA's ckv and krope
+    whole."""
+    items = tree_items(cache)
+    ndim = {path: np.ndim(leaf) for path, leaf in items}
+
+    def dim(path):
+        name, n = path[-1], ndim[path]
+        if name in ("k", "v", "h"):
+            return n - 2
+        if name == "conv":
+            return n - 1
+        if name in ("c", "n", "m"):
+            layer = path[:-1]
+            mlstm = ndim[layer + ("c",)] == ndim[layer + ("n",)] + 1
+            if not mlstm:
+                return n - 1
+            return n - 2 if name == "c" else None
+        return None
+    return [(path, dim(path)) for path, _ in items]
 
 
 def split_cache(cache, tp: int, rank: int) -> dict:
-    """Model rank ``rank``'s part of a global decode cache: each k and v
-    cut along its key/value heads (the reference's ``decode_cache_specs``
-    puts them over "model"); the other leaves whole."""
+    """Model rank ``rank``'s part of a global decode cache, each leaf cut
+    along its :func:`cache_split_dims` dimension, the others whole."""
+    dims = dict(cache_split_dims(cache))
     return tree_from_items(
-        (path, _part(leaf, cache_head_dim(path, np.ndim(leaf)), tp, rank))
+        (path, _part(leaf, dims[path], tp, rank))
         for path, leaf in tree_items(cache))
 
 
@@ -203,10 +226,10 @@ def join_cache(caches: list) -> dict:
     """The inverse of :func:`split_cache`: every model rank's cache, in
     rank order."""
     per_rank = [tree_items(c) for c in caches]
+    dims = cache_split_dims(caches[0])
     return tree_from_items(
-        (path, _join([items[i][1] for items in per_rank],
-                     cache_head_dim(path, np.ndim(leaf))))
-        for i, (path, leaf) in enumerate(per_rank[0]))
+        (path, _join([items[i][1] for items in per_rank], dims[i][1]))
+        for i, (path, _) in enumerate(per_rank[0]))
 
 
 def _part(leaf, dim, tp: int, rank: int):

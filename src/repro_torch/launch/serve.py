@@ -21,13 +21,14 @@ over n ranks started by ``torchrun`` (``launch.mesh.make_group``: NCCL
 on a card each, gloo with ``--device cpu``): each rank prefills and
 decodes its rows of the global ``--batch``, the logits gathered, and
 rank 0 logs. ``--model m`` splits the model over m ranks beside each
-data rank (heads, hidden units, experts, the vocabulary; the cache by
-key/value heads; ``launch.mesh.make_group``), for the dense and MoE
-families with full or sliding attention; the logits are the vocabulary
-padded to a multiple of m. ``--mla-absorb`` serves an MLA model
-(deepseek-v2-lite-16b) in the absorbed form. ``--model`` above 1 with
-an MLA, SSM, hybrid, xLSTM, encoder-decoder or vision model raises
-naming ROADMAP A13d, ``--devices`` naming A13, and ``--apply-deltas``
+data rank (heads, MLA's too, hidden units, experts, Mamba's and the
+sLSTM's channels, the mLSTM's value dims, the vocabulary; the cache by
+key/value heads and recurrent channels; ``launch.mesh.make_group``),
+for the dense, MoE, SSM and hybrid families; the logits are the
+vocabulary padded to a multiple of m. ``--mla-absorb`` serves an MLA
+model (deepseek-v2-lite-16b) in the absorbed form. ``--model`` above 1
+with an encoder-decoder or the vision stub raises naming ROADMAP A13d,
+``--devices`` naming A13, and ``--apply-deltas``
 over more than one rank naming A14. The sliding-window
 variant is a config field (``attn_kind``), as in the reference. It
 prints what the reference prints: the prefill's seconds, the decode's

@@ -56,11 +56,12 @@ ranks each, one process a rank, started by ``torchrun``: each joins the
 default process group on its own card (NCCL), or on the CPU over gloo
 with ``--device cpu``, and its data and model groups
 (``launch.mesh.make_group``: rank r is data index r // model, model
-index r % model). ``--model`` > 1 splits the dense and MoE families with
-full or sliding attention (heads, hidden units, experts, vocabulary;
-the residual stream by sequence); MLA, an SSM or hybrid model, xLSTM,
-an encoder-decoder and the vision stub raise naming ROADMAP A13d, and
-so do checkpoints and the delta broadcast under it. ``--batch`` is the
+index r % model). ``--model`` > 1 splits the dense, MoE, SSM and hybrid
+families (heads, MLA's too, hidden units, experts, Mamba's and the
+sLSTM's channels, the mLSTM's value dims, vocabulary; the residual
+stream by sequence); an encoder-decoder and the vision stub raise
+naming ROADMAP A13d, and so do checkpoints and the delta broadcast
+under it. ``--batch`` is the
 global batch, as in the reference: data rank d trains on its rows [d
 B/n, (d + 1) B/n), the same rows on every model rank. Rank 0 logs.
 """
@@ -162,10 +163,10 @@ def parse_args(argv=None):
                          "under torchrun)")
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel degree (ranks a model group, one "
-                         "process each, under torchrun): the dense and MoE "
-                         "families with full or sliding attention; MLA, "
-                         "SSM, hybrid, xLSTM, encoder-decoder and vision "
-                         "models raise (ROADMAP A13d)")
+                         "process each, under torchrun): the dense, MoE, "
+                         "SSM and hybrid families, MLA among them; "
+                         "encoder-decoder and vision models raise "
+                         "(ROADMAP A13d)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods; the data-parallel ranks are data * pods, "
                          "pod-major")

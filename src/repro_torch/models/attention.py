@@ -2,8 +2,9 @@
 causal (full or sliding-window) or bidirectional (an encoder's), and MLA
 (DeepSeek-V2's multi-head latent attention, expanded or absorbed), with
 their caches, and an encoder-decoder's cross-attention (the port of the
-full-sequence, prefill and decode paths of ``repro.models.attention`` at
-tensor-parallel degree 1, with context-parallel decode of GQA).
+full-sequence, prefill and decode paths of ``repro.models.attention``,
+with context-parallel decode of GQA and tensor parallelism of the
+decoder's self-attention).
 
 The reference has no Pallas kernel here: its attention is plain jnp. The
 port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
@@ -54,7 +55,13 @@ are drawn like the others, not zero-initialised: the reference's
 ``mask_padded_heads``). wo's output is summed over the model group, or,
 with the residual stream split by sequence, the layer gathers the
 sequence first and psum-scatters wo's output back. The decode cache
-holds the rank's key/value heads. MLA with tp > 1 raises (ROADMAP A13d).
+holds the rank's key/value heads. MLA splits the same way by query
+head: wq (q_lora_rank is 0: the queries are projected directly), uk
+and uv by column, wo by row, its padded heads masked; ``dkv`` and
+``kv_norm`` are replicated, so every rank computes the whole ckv and
+krope, and its cache, which has no head axis, is whole on every rank.
+The expanded form expands the rank's heads; the absorbed form absorbs
+the rank's heads of uk and uv.
 
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
@@ -116,12 +123,6 @@ def head_counts(cfg, pal=None) -> tuple:
         raise ValueError(f"{cfg.name}: {hp} padded query heads do not group "
                          f"over {kvp} padded key/value heads")
     return shard_slice(hp, pal), shard_slice(kvp, pal)
-
-
-def mla_tp_message(cfg) -> str:
-    return (f"{cfg.name}: MLA under tensor parallelism (model > 1) is not "
-            "ported yet; the port splits GQA attention by heads (ROADMAP "
-            "A13d)")
 
 
 def mask_padded_heads(o: torch.Tensor, cfg, pal=None) -> torch.Tensor:
@@ -201,12 +202,13 @@ def proj_mla(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor):
     return torch.cat([q[..., :hd], qr], -1), ckv, krope
 
 
-def mla_expand(p: dict, ckv: torch.Tensor, krope: torch.Tensor, cfg,
-               dtype):
-    """Each head's k (B, S, H, hd + rhd), its RoPE part the shared
-    krope, and v (B, S, H, vhd) from the compressed stream."""
+def mla_expand(p: dict, ckv: torch.Tensor, krope: torch.Tensor, h: int,
+               cfg, dtype):
+    """Each of the h heads' k (B, S, h, hd + rhd), its RoPE part the
+    shared krope, and v (B, S, h, vhd) from the compressed stream (h:
+    this rank's heads)."""
     b, s, _ = ckv.shape
-    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    hd = cfg.resolved_head_dim
     k_nope = (ckv @ p["uk"].to(dtype)).reshape(b, s, h, hd)
     v = (ckv @ p["uv"].to(dtype)).reshape(b, s, h, -1)
     k_rope = krope[:, :, None, :].expand(b, s, h, krope.shape[-1])
@@ -274,7 +276,7 @@ def _mla_attend(p, q, ckv, krope, cfg):
     scale = cfg.resolved_head_dim ** -0.5
     if cfg.mla_absorb:
         return absorbed_attention(p, q, ckv, krope, cfg, scale)
-    k, v = mla_expand(p, ckv, krope, cfg, q.dtype)
+    k, v = mla_expand(p, ckv, krope, q.shape[2], cfg, q.dtype)
     return causal_attention(q, k, v, scale)
 
 
@@ -381,8 +383,6 @@ def attn_fwd_full(p: dict, x: torch.Tensor, cfg, causal: bool = True,
     the model group; with ``pal.sp`` x and the output are this rank's
     sequence chunk (B, S/tp, d), the sequence gathered for attention."""
     if pal is not None and pal.tp_on:
-        if cfg.attn_kind == "mla":
-            raise NotImplementedError(mla_tp_message(cfg))
         sp = pal.sp
         if sp:
             x = all_gather_model(x, pal, 1)
@@ -407,7 +407,7 @@ def _attn_fwd_local(p: dict, x: torch.Tensor, cfg, causal: bool,
         scale = cfg.resolved_head_dim ** -0.5
         o = causal_attention(q, k, v, scale, _window(cfg)) if causal \
             else full_attention(q, k, v, scale)
-        o = mask_padded_heads(o, cfg, pal)
+    o = mask_padded_heads(o, cfg, pal)
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
 
 
@@ -478,7 +478,8 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
     slots, or, for a sliding window shorter than the prompt, the last
     cap positions at slot position % cap. The prompt attends with the
     uncast k and v. Under tensor parallelism this rank's heads (and cache
-    heads), the output summed over the model group."""
+    heads; MLA's whole ckv and krope), the output summed over the model
+    group."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
@@ -486,7 +487,8 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict,
         o = _mla_attend(p, q, ckv, krope, cfg)
         cache["ckv"][:, :s] = ckv
         cache["krope"][:, :s] = krope
-        return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+        o = mask_padded_heads(o, cfg, pal)
+        return psum_model(o.reshape(b, s, -1) @ p["wo"].to(o.dtype), pal)
     q, k, v = proj_qkv(p, x, cfg, pos)
     window = _window(cfg)
     o = causal_attention(q, k, v, cfg.resolved_head_dim ** -0.5, window)
@@ -518,7 +520,8 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     if cfg.attn_kind == "mla":
         if sharded:
             raise NotImplementedError(mla_cp_message(cfg))
-        return _mla_decode(p, x, cache, pos, cfg)
+        o = mask_padded_heads(_mla_decode(p, x, cache, pos, cfg), cfg, pal)
+        return psum_model(o.reshape(b, 1, -1) @ p["wo"].to(o.dtype), pal)
     q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
     n, r = (pal.size, pal.rank) if sharded else (1, 0)
     sl = cache["k"].shape[1]
@@ -559,8 +562,8 @@ def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                 cfg) -> torch.Tensor:
     """One MLA decode step: the token's ckv and krope written at slot
     ``pos``, then attention over slots <= pos, expanded (each head's k
-    and v of the whole cache) or absorbed (over ckv itself)."""
-    b = x.shape[0]
+    and v of the whole cache) or absorbed (over ckv itself); the heads'
+    outputs (B, 1, H, vhd), before wo."""
     q, ckv, krope = proj_mla(p, x, cfg, pos.reshape(1))
     at = pos.long().reshape(1)
     cache["ckv"].index_copy_(1, at, ckv.to(cache["ckv"].dtype))
@@ -579,9 +582,10 @@ def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
         o = expand_context(p, torch.einsum("bhqs,bsl->bqhl",
                                            w.to(ckv.dtype), ckv), cfg)
     else:
-        k, v = mla_expand(p, cache["ckv"], cache["krope"], cfg, x.dtype)
+        k, v = mla_expand(p, cache["ckv"], cache["krope"], q.shape[2], cfg,
+                          x.dtype)
         o = _finalize(*_partial(q, k, v, valid[None, :], scale)[::2])
-    return o.reshape(b, 1, -1) @ p["wo"].to(o.dtype)
+    return o
 
 
 def _cache_write_slice(cache: dict, new, local: torch.Tensor) -> None:

@@ -1,5 +1,4 @@
-"""Mamba-1 selective SSM mixer (the port of ``repro.models.mamba`` at
-tensor-parallel degree 1).
+"""Mamba-1 selective SSM mixer (the port of ``repro.models.mamba``).
 
 Parameters, in the reference's layout (``A_log`` and ``D`` sort first in
 the flat vector, upper case before lower, in both packages)::
@@ -28,6 +27,19 @@ a time.
 The decode cache is the reference's ``{conv (B, d_conv - 1, d_inner) in
 the model's dtype: the last inputs before the conv, h (B, d_inner,
 d_state) fp32}``; a decode step writes it in place.
+
+Tensor parallelism (a ``Parallel`` with a model group of tp ranks, the
+reference's channel split): every channel's scan is independent, so rank
+r holds channels [r d_inner/tp, (r + 1) d_inner/tp) of ``in_x``,
+``in_z``, ``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log`` and
+``D``, the matching rows of ``x_proj`` and ``out_proj``, and scans the
+whole sequence for them. The data-dependent projection (dt, B, C) needs
+every channel, so ``x_proj``'s partial product is summed over the model
+group in the state dtype before the split; ``out_proj``'s is summed (or,
+with the residual stream split by sequence, psum-scattered back to the
+rank's chunk after the sequence was gathered on entry). The decode
+cache's conv ring and h hold the rank's channels. A d_inner that tp does
+not divide raises ValueError, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -39,16 +51,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import mamba_dims
 from repro_torch.models.layers import dense_init, softplus
+from repro_torch.models.parallel import (
+    psum_model, row_parallel_out, seq_gathered, shard_slice,
+)
 
 SCAN_CHUNK = 512
 
 
-def init_mamba(gen, cfg, *, lead=(), device=None) -> dict:
+def local_dims(cfg, pal=None) -> tuple:
+    """(this rank's channels of d_inner, dt_rank)."""
+    di, dtr = mamba_dims(cfg)
+    return shard_slice(di, pal, "Mamba's d_inner"), dtr
+
+
+def init_mamba(gen, cfg, *, lead=(), device=None, pal=None) -> dict:
     """The reference's init: S4D-real ``A_log`` = log(1..d_state) on every
     channel, ``dt_bias`` the inverse softplus of dt drawn log-uniform in
-    [1e-3, 1e-1], ``D`` = 1, the conv N(0, 0.2^2)."""
+    [1e-3, 1e-1], ``D`` = 1, the conv N(0, 0.2^2); this rank's channels
+    under tensor parallelism."""
     d, ds, dc = cfg.d_model, cfg.ssm.d_state, cfg.ssm.d_conv
-    di, dtr = mamba_dims(cfg)
+    di, dtr = local_dims(cfg, pal)
 
     def dense(d_in, d_out, scale=None):
         return dense_init(gen, d_in, d_out, scale, lead=lead, device=device)
@@ -147,28 +169,32 @@ def state_dtype(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _proj(p: dict, u: torch.Tensor, cfg):
+def _proj(p: dict, u: torch.Tensor, cfg, pal=None):
     """dt (through softplus), bmat, cmat of the conv's output u, in the
-    state dtype."""
+    state dtype (x_proj's partial product summed over the model group)."""
     ds = cfg.ssm.d_state
     dtr = mamba_dims(cfg)[1]
-    dbc = (u @ p["x_proj"].to(u.dtype)).to(state_dtype(u.dtype))
+    dbc = psum_model((u @ p["x_proj"].to(u.dtype)).to(state_dtype(u.dtype)),
+                     pal)
     dt_low, bmat, cmat = (dbc[..., :dtr], dbc[..., dtr:dtr + ds],
                           dbc[..., dtr + ds:])
     return softplus(dt_low @ p["dt_proj"] + p["dt_bias"]), bmat, cmat
 
 
-def mamba_fwd(p: dict, x: torch.Tensor, cfg,
-              cache: dict = None) -> torch.Tensor:
+def mamba_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None,
+              pal=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d). With ``cache`` (one layer's views of a
     decode cache) the conv ring (the last d_conv - 1 inputs before the
-    conv) and the final h are written into it."""
+    conv) and the final h are written into it. Under tensor parallelism
+    this rank's channels, the output summed over the model group; with
+    ``pal.sp`` x and the output are this rank's sequence chunk."""
+    x = seq_gathered(x, pal)
     b, s, _ = x.shape
     sd = state_dtype(x.dtype)
     u_pre = x @ p["in_x"].to(x.dtype)
     z = x @ p["in_z"].to(x.dtype)
     u = F.silu(conv1d(u_pre, p["conv_w"].to(u_pre.dtype), p["conv_b"]))
-    dt, bmat, cmat = _proj(p, u, cfg)
+    dt, bmat, cmat = _proj(p, u, cfg, pal)
     a = torch.exp(p["A_log"]).to(sd)
     h0 = torch.zeros((b, *p["A_log"].shape), dtype=sd, device=x.device)
     y, h = ssm_scan_chunked(u.to(sd), dt, bmat, cmat, a, p["D"].to(sd), h0,
@@ -179,30 +205,34 @@ def mamba_fwd(p: dict, x: torch.Tensor, cfg,
         cache["conv"][:, cache["conv"].shape[1] - take:] = u_pre[:, s - take:]
         cache["h"].copy_(h)
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"].to(y.dtype)
+    return row_parallel_out(y @ p["out_proj"].to(y.dtype), pal)
 
 
-def init_mamba_cache(cfg, batch: int, dtype, *, lead=(), device=None) -> dict:
-    di = mamba_dims(cfg)[0]
+def init_mamba_cache(cfg, batch: int, dtype, *, lead=(), device=None,
+                     pal=None) -> dict:
+    """Zero conv ring and h of this rank's channels."""
+    di = local_dims(cfg, pal)[0]
     return {"conv": torch.zeros((*lead, batch, cfg.ssm.d_conv - 1, di),
                                 dtype=dtype, device=device),
             "h": torch.zeros((*lead, batch, di, cfg.ssm.d_state),
                              device=device)}
 
 
-def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> torch.Tensor:
+def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg,
+                 pal=None) -> torch.Tensor:
     """One token x (B, 1, d) -> (B, 1, d), O(1) in the context; the conv
-    ring and h in ``cache`` are updated in place."""
+    ring and h in ``cache`` are updated in place (this rank's channels,
+    the output summed over the model group)."""
     u = x[:, 0] @ p["in_x"].to(x.dtype)
     z = x[:, 0] @ p["in_z"].to(x.dtype)
     win = torch.cat([cache["conv"], u[:, None]], 1)          # (B, dc, C)
     u = F.silu((win * p["conv_w"].to(win.dtype)).sum(1)
                + p["conv_b"].to(win.dtype))
-    dt, bmat, cmat = _proj(p, u, cfg)
+    dt, bmat, cmat = _proj(p, u, cfg, pal)
     da = torch.exp(dt[..., None] * (-torch.exp(p["A_log"])))
     h = da * cache["h"] + (dt * u.float())[..., None] * bmat[:, None, :]
     y = (h @ cmat[..., None])[..., 0] + u.float() * p["D"]
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(h)
     y = y.to(x.dtype) * F.silu(z)
-    return (y @ p["out_proj"].to(y.dtype))[:, None]
+    return psum_model((y @ p["out_proj"].to(y.dtype))[:, None], pal)

@@ -114,11 +114,13 @@ def pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def shard_slice(n: int, pal) -> int:
-    """One rank's length of a dimension of n split over the model group."""
+def shard_slice(n: int, pal, what: str = "a dimension") -> int:
+    """One rank's length of a dimension of n split over the model group;
+    ValueError naming ``what`` and the degree where tp does not divide n
+    (the reference asserts it; nothing is padded)."""
     tp = 1 if pal is None else pal.tp
     if n % tp:
-        raise ValueError(f"{n} does not split over tp={tp}")
+        raise ValueError(f"{what} of {n} does not split over tp={tp}")
     return n // tp
 
 
@@ -286,6 +288,21 @@ def all_to_all_model(x: torch.Tensor, pal, split: int,
     if pal is None or not pal.tp_on:
         return x
     return _AllToAll.apply(x, split, concat, pal.model_group)
+
+
+def seq_gathered(x: torch.Tensor, pal) -> torch.Tensor:
+    """x (B, S/tp, d), this rank's sequence chunk under ``pal.sp``, with
+    the sequence gathered over the model group; x itself otherwise."""
+    return all_gather_model(x, pal, 1) if pal is not None and pal.sp else x
+
+
+def row_parallel_out(y: torch.Tensor, pal) -> torch.Tensor:
+    """A row-parallel product's partial output (B, S, d) summed over the
+    model group, or psum-scattered back to the rank's sequence chunk
+    under ``pal.sp``."""
+    if pal is not None and pal.sp:
+        return psum_scatter_model(y, pal, 1)
+    return psum_model(y, pal)
 
 
 def pmean_model(x: torch.Tensor, pal) -> torch.Tensor:

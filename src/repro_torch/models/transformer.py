@@ -1,7 +1,7 @@
 """Decoder (and encoder-decoder) over heterogeneous layer stacks (the port
 of ``repro.models.transformer`` for every family, dense, MoE, SSM,
-hybrid, vision and audio, and for the dense and MoE families with full
-or sliding attention under tensor and expert parallelism): attention, Mamba,
+hybrid, vision and audio, and for all but the encoder-decoder and the
+vision stub under tensor and expert parallelism): attention, Mamba,
 mLSTM or sLSTM mixers, dense, MoE or no FFN; training loss with the MoE
 aux terms, prefill and cached decode.
 
@@ -65,8 +65,10 @@ hd), which decode reads.
 
 Tensor parallelism (a ``Parallel`` with a model group, threaded through
 every function as ``pal``; None is one rank): each rank holds its share
-of the parameters (``models.specs``), attention by heads, the MLP by
-hidden units, the MoE by experts, the embedding and head by vocabulary.
+of the parameters (``models.specs``), attention by heads (MLA's too),
+the MLP by hidden units, the MoE by experts, Mamba and the sLSTM by
+channels, the mLSTM by each head's value dims, the embedding and head
+by vocabulary; the recurrent layers' decode state is the rank's share.
 In training the residual stream is split by sequence when
 ``pal.seq_parallel`` (Megatron-SP, as the reference's train step runs):
 the whole sequence is embedded and psum-scattered to the rank's chunk,
@@ -78,9 +80,9 @@ global count of targets, so the ranks' losses are disjoint shares whose
 sum (:func:`global_loss`) is the loss; an MoE model's aux term is
 divided by tp, and its aux metrics are the model group's means. Prefill
 and decode run without the sequence split and gather the vocabulary's
-logits (B, V padded to a multiple of tp). The other families (MLA, SSM,
-hybrid, xLSTM, encoder-decoder, the vision stub) and ring attention
-raise under tensor parallelism, naming ROADMAP A13d.
+logits (B, V padded to a multiple of tp). An encoder-decoder, the
+vision stub and ring attention raise under tensor parallelism, naming
+ROADMAP A13d.
 """
 from __future__ import annotations
 
@@ -133,19 +135,14 @@ def n_moe_layers(cfg) -> int:
 def tp_message(cfg, what: str) -> str:
     """Why a model raises under tensor parallelism."""
     return (f"{cfg.name}: {what} under tensor parallelism (model > 1) is "
-            "not ported yet; the port splits the dense and MoE families "
-            "with full or sliding attention (ROADMAP A13d)")
+            "not ported yet; the port splits the dense, MoE, SSM and "
+            "hybrid families, MLA among them (ROADMAP A13d)")
 
 
 def check_tensor_parallel(cfg) -> None:
     """Raise NotImplementedError for a model outside tensor parallelism's
-    slice: MLA, a model with an SSM (the ssm and hybrid families, xLSTM),
-    an encoder-decoder, the vision stub."""
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(attn.mla_tp_message(cfg))
-    for what, outside in (("an SSM mixer (Mamba, mLSTM, sLSTM)",
-                           cfg.ssm is not None),
-                          ("an encoder-decoder", cfg.is_encoder_decoder),
+    slice: an encoder-decoder, the vision stub."""
+    for what, outside in (("an encoder-decoder", cfg.is_encoder_decoder),
                           ("the vision stub",
                            cfg.frontend == "vision_stub")):
         if outside:
@@ -204,11 +201,14 @@ def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
         p["attn"] = attn.init_attention(gen, cfg, lead=lead, device=device,
                                         pal=pal)
     elif mixer == "mamba":
-        p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
+        p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device,
+                                    pal=pal)
     elif mixer == "mlstm":
-        p["mlstm"] = xl.init_mlstm(gen, cfg, lead=lead, device=device)
+        p["mlstm"] = xl.init_mlstm(gen, cfg, lead=lead, device=device,
+                                   pal=pal)
     else:
-        p["slstm"] = xl.init_slstm(gen, cfg, lead=lead, device=device)
+        p["slstm"] = xl.init_slstm(gen, cfg, lead=lead, device=device,
+                                   pal=pal)
     if cross:
         p["norm_x"] = init_norm(cfg, lead=lead, device=device)
         p["cross"] = attn.init_attention(gen, cfg, lead=lead, device=device,
@@ -303,11 +303,11 @@ def _mixer(p: dict, x: torch.Tensor, cfg, mixer: str,
                                                     pal)
     elif mixer == "mamba":
         y = mam.mamba_fwd(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm), cfg,
-                          cache)
+                          cache, pal)
     elif mixer == "mlstm":
-        y = xl.mlstm_fwd(p["mlstm"], x, cfg, cache)
+        y = xl.mlstm_fwd(p["mlstm"], x, cfg, cache, pal)
     else:
-        y = xl.slstm_fwd(p["slstm"], x, cfg, cache)
+        y = xl.slstm_fwd(p["slstm"], x, cfg, cache, pal)
     return x + y
 
 
@@ -320,11 +320,11 @@ def _mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg,
                              cache, pos, cfg, pal)
     elif mixer == "mamba":
         y = mam.mamba_decode(p["mamba"], norm_fwd(p["norm1"], x, cfg.norm),
-                             cache, cfg)
+                             cache, cfg, pal)
     elif mixer == "mlstm":
-        y = xl.mlstm_decode(p["mlstm"], x, cache, cfg)
+        y = xl.mlstm_decode(p["mlstm"], x, cache, cfg, pal)
     else:
-        y = xl.slstm_decode(p["slstm"], x, cache, cfg)
+        y = xl.slstm_decode(p["slstm"], x, cache, cfg, pal)
     return x + y
 
 
@@ -575,10 +575,12 @@ def _layer_cache(cfg, mixer: str, batch: int, slots: int, dtype,
                                device=device, pal=pal)
     if mixer == "mamba":
         return mam.init_mamba_cache(cfg, batch, dtype, lead=lead,
-                                    device=device)
+                                    device=device, pal=pal)
     if mixer == "mlstm":
-        return xl.init_mlstm_cache(cfg, batch, lead=lead, device=device)
-    return xl.init_slstm_cache(cfg, batch, lead=lead, device=device)
+        return xl.init_mlstm_cache(cfg, batch, lead=lead, device=device,
+                                   pal=pal)
+    return xl.init_slstm_cache(cfg, batch, lead=lead, device=device,
+                               pal=pal)
 
 
 def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
@@ -590,7 +592,8 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     with ``pal.cache_seq_sharded`` this rank's slice of the slots, which
     must split evenly over the group (not for MLA, nor for a model with
     an SSM: ROADMAP A13e), and the whole of the cross k and v; under
-    tensor parallelism this rank's key/value heads."""
+    tensor parallelism this rank's key/value heads and share of each
+    recurrent state (MLA's ckv and krope whole)."""
     check_model(cfg, pal)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
@@ -642,7 +645,8 @@ def prefill(params: dict, batch: dict, cfg, max_seq: int,
     building the decode cache. Returns (the last position's logits (B,
     V), cache) with ``pos`` = S; an encoder-decoder's cache holds every
     layer's cross k and v. Under tensor parallelism the cache holds this
-    rank's heads and the logits are the padded vocabulary's, gathered."""
+    rank's heads and share of each recurrent state, and the logits are
+    the padded vocabulary's, gathered."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     enc_out = _encoded(params, batch, cfg)

@@ -1,6 +1,5 @@
 """xLSTM mixers: mLSTM (matrix memory) and sLSTM (scalar memory), both
-with exponential gating (the port of ``repro.models.xlstm`` at
-tensor-parallel degree 1).
+with exponential gating (the port of ``repro.models.xlstm``).
 
 Each mixer is a pre-LN residual block with its own norm and its own
 up and down projections (the layer has no ``norm1``). Parameters, in the
@@ -23,6 +22,21 @@ as jax rounds a weak-typed scalar (:func:`const`).
 The decode caches are the reference's: mLSTM ``{c (B, h, hdv, hd), n
 (B, h, hd), m (B, h)}``, sLSTM ``{c, n, m}`` of (B, d_inner), all fp32;
 a decode step writes them in place.
+
+Tensor parallelism (a ``Parallel`` with a model group of tp ranks, the
+reference's splits): the mLSTM keeps ``up``, ``wq``, ``wk`` and ``wif``
+replicated, so every rank computes q, k and both gates whole, and the
+denominator max(|n . q|, 1) needs no collective; it splits the value
+dim of each head, hdv = hd / tp a rank, on its own axis of ``up_gate``
+and ``wv`` (dim 2 of (d, h, hd)), ``ln_h`` and ``down`` (dim 1), so the
+matrix memory c is (B, h, hdv, hd) on each rank and n and m are whole.
+The sLSTM splits its four gate projections by column, ``ln_h`` as a
+vector and ``down`` by row; its scan is elementwise a channel, so its
+c, n and m are the rank's channels. Either mixer's output is summed
+over the model group (with the residual stream split by sequence, the
+sequence is gathered on entry and the output psum-scattered back). A
+head dim or an sLSTM width that tp does not divide raises ValueError,
+as the reference asserts.
 """
 from __future__ import annotations
 
@@ -32,6 +46,9 @@ from repro_torch.configs.base import mlstm_dims, slstm_dims
 from repro_torch.core.numerics import bf16, f32
 from repro_torch.models.layers import (
     dense_init, init_norm, log_sigmoid, norm_fwd)
+from repro_torch.models.parallel import (
+    psum_model, row_parallel_out, seq_gathered, shard_slice,
+)
 
 
 def const(c: float, dtype) -> float:
@@ -51,29 +68,38 @@ def _gate_step(it, ft, m):
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def init_mlstm(gen, cfg, *, lead=(), device=None) -> dict:
+def mlstm_value_dim(cfg, pal=None) -> int:
+    """This rank's share hdv of each head's value dim."""
+    return shard_slice(mlstm_dims(cfg)[2], pal, "the mLSTM's head dim")
+
+
+def init_mlstm(gen, cfg, *, lead=(), device=None, pal=None) -> dict:
+    """The mLSTM's leaves; under tensor parallelism this rank's hdv of
+    each head's value dim."""
     d = cfg.d_model
     d_inner, h, hd = mlstm_dims(cfg)
+    hdv = mlstm_value_dim(cfg, pal)
 
     def dense(d_in, d_out, scale=None):
         return dense_init(gen, d_in, d_out, scale, lead=lead, device=device)
     return {
         "norm": init_norm(cfg, lead=lead, device=device),
         "up": dense(d, d_inner),
-        "up_gate": dense(d, h * hd).reshape(*lead, d, h, hd),
+        "up_gate": dense(d, h * hdv).reshape(*lead, d, h, hdv),
         "wq": dense(d_inner, h * hd),
         "wk": dense(d_inner, h * hd),
-        "wv": dense(d_inner, h * hd).reshape(*lead, d_inner, h, hd),
+        "wv": dense(d_inner, h * hdv).reshape(*lead, d_inner, h, hdv),
         "wif": dense(d_inner, 2 * h, 0.02),
-        "ln_h": torch.ones((*lead, h, hd), device=device),
-        "down": dense(h * hd, d).reshape(*lead, h, hd, d),
+        "ln_h": torch.ones((*lead, h, hdv), device=device),
+        "down": dense(h * hdv, d).reshape(*lead, h, hdv, d),
     }
 
 
 def _mlstm_inputs(p: dict, x: torch.Tensor, cfg):
-    """x (..., d) -> (q, k, v (..., h, hd) fp32, ig, fg (..., h) fp32,
-    og (..., h, hdv) in x's dtype)."""
+    """x (..., d) -> (q, k (..., h, hd), v (..., h, hdv) fp32, ig, fg
+    (..., h) fp32, og (..., h, hdv) in x's dtype); hdv is ``wv``'s."""
     _, h, hd = mlstm_dims(cfg)
+    hdv = p["wv"].shape[-1]
     lead = x.shape[:-1]
     dt = x.dtype
     xi = norm_fwd(p["norm"], x, cfg.norm)
@@ -83,9 +109,9 @@ def _mlstm_inputs(p: dict, x: torch.Tensor, cfg):
     k = (u @ p["wk"].to(dt)).reshape(*lead, h, hd) * const(hd ** -0.5, dt)
     v = u @ p["wv"].to(dt).reshape(u.shape[-1], -1)
     gf = (u @ p["wif"].to(dt)).float()
-    return (q.float(), k.float(), v.reshape(*lead, h, hd).float(),
+    return (q.float(), k.float(), v.reshape(*lead, h, hdv).float(),
             gf[..., :h], log_sigmoid(gf[..., h:]),
-            og.reshape(*lead, h, hd))
+            og.reshape(*lead, h, hdv))
 
 
 def _mlstm_step(c, n, m, q, k, v, it, ft):
@@ -108,19 +134,27 @@ def _mlstm_out(p: dict, hs: torch.Tensor, og: torch.Tensor,
     return hs.flatten(-2) @ down.reshape(-1, down.shape[-1])
 
 
-def init_mlstm_cache(cfg, batch: int, *, lead=(), device=None) -> dict:
+def init_mlstm_cache(cfg, batch: int, *, lead=(), device=None,
+                     pal=None) -> dict:
+    """Zero state: c (B, h, hdv, hd) of this rank's value dims, n and m
+    whole."""
     _, h, hd = mlstm_dims(cfg)
-    return {"c": torch.zeros((*lead, batch, h, hd, hd), device=device),
+    hdv = mlstm_value_dim(cfg, pal)
+    return {"c": torch.zeros((*lead, batch, h, hdv, hd), device=device),
             "n": torch.zeros((*lead, batch, h, hd), device=device),
             "m": torch.zeros((*lead, batch, h), device=device)}
 
 
-def mlstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None):
+def mlstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None,
+              pal=None):
     """x (B, S, d) -> (B, S, d). With ``cache`` (one layer's views of a
-    decode cache) the final state is written into it."""
+    decode cache) the final state is written into it. Under tensor
+    parallelism this rank's value dims, the output summed over the model
+    group; with ``pal.sp`` x and the output are its sequence chunk."""
+    x = seq_gathered(x, pal)
     b = x.shape[0]
     q, k, v, ig, fg, og = _mlstm_inputs(p, x, cfg)
-    st = init_mlstm_cache(cfg, b, device=x.device)
+    st = init_mlstm_cache(cfg, b, device=x.device, pal=pal)
     c, n, m = st["c"], st["n"], st["m"]
     hs = []
     for t in range(x.shape[1]):
@@ -130,26 +164,35 @@ def mlstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None):
     if cache is not None:
         for key, val in (("c", c), ("n", n), ("m", m)):
             cache[key].copy_(val)
-    return _mlstm_out(p, torch.stack(hs, 1), og, x.dtype)
+    return row_parallel_out(_mlstm_out(p, torch.stack(hs, 1), og, x.dtype),
+                            pal)
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> torch.Tensor:
+def mlstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg,
+                 pal=None) -> torch.Tensor:
     """One token x (B, 1, d) -> (B, 1, d); the state in ``cache`` is
-    updated in place."""
+    updated in place (the output summed over the model group)."""
     q, k, v, ig, fg, og = _mlstm_inputs(p, x[:, 0], cfg)
     c, n, m, h = _mlstm_step(cache["c"], cache["n"], cache["m"], q, k, v,
                              ig, fg)
     for key, val in (("c", c), ("n", n), ("m", m)):
         cache[key].copy_(val)
-    return _mlstm_out(p, h, og, x.dtype)[:, None]
+    return psum_model(_mlstm_out(p, h, og, x.dtype)[:, None], pal)
 
 
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def init_slstm(gen, cfg, *, lead=(), device=None) -> dict:
-    d, d_inner = cfg.d_model, slstm_dims(cfg)
+def slstm_local(cfg, pal=None) -> int:
+    """This rank's channels of the sLSTM's d_inner."""
+    return shard_slice(slstm_dims(cfg), pal, "the sLSTM's d_inner")
+
+
+def init_slstm(gen, cfg, *, lead=(), device=None, pal=None) -> dict:
+    """The sLSTM's leaves; under tensor parallelism this rank's
+    channels."""
+    d, d_inner = cfg.d_model, slstm_local(cfg, pal)
 
     def dense(d_in, d_out):
         return dense_init(gen, d_in, d_out, lead=lead, device=device)
@@ -178,16 +221,23 @@ def _slstm_step(c, n, m, it, ft, zt, ot):
     return c, n, m, ot * c / torch.clamp(n, min=1.0)
 
 
-def init_slstm_cache(cfg, batch: int, *, lead=(), device=None) -> dict:
-    return {key: torch.zeros((*lead, batch, slstm_dims(cfg)), device=device)
+def init_slstm_cache(cfg, batch: int, *, lead=(), device=None,
+                     pal=None) -> dict:
+    """Zero c, n and m of this rank's channels."""
+    return {key: torch.zeros((*lead, batch, slstm_local(cfg, pal)),
+                             device=device)
             for key in ("c", "n", "m")}
 
 
-def slstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None):
+def slstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None,
+              pal=None):
     """x (B, S, d) -> (B, S, d). With ``cache`` the final state is
-    written into it."""
+    written into it. Under tensor parallelism this rank's channels, the
+    output summed over the model group; with ``pal.sp`` x and the output
+    are its sequence chunk."""
+    x = seq_gathered(x, pal)
     ig, fg, zg, og = _slstm_inputs(p, x, cfg)
-    st = init_slstm_cache(cfg, x.shape[0], device=x.device)
+    st = init_slstm_cache(cfg, x.shape[0], device=x.device, pal=pal)
     c, n, m = st["c"], st["n"], st["m"]
     hs = []
     for t in range(x.shape[1]):
@@ -198,16 +248,17 @@ def slstm_fwd(p: dict, x: torch.Tensor, cfg, cache: dict = None):
         for key, val in (("c", c), ("n", n), ("m", m)):
             cache[key].copy_(val)
     hs = (torch.stack(hs, 1) * p["ln_h"]).to(x.dtype)
-    return hs @ p["down"].to(x.dtype)
+    return row_parallel_out(hs @ p["down"].to(x.dtype), pal)
 
 
-def slstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg) -> torch.Tensor:
+def slstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg,
+                 pal=None) -> torch.Tensor:
     """One token x (B, 1, d) -> (B, 1, d); the state in ``cache`` is
-    updated in place."""
+    updated in place (the output summed over the model group)."""
     ig, fg, zg, og = _slstm_inputs(p, x[:, 0], cfg)
     c, n, m, h = _slstm_step(cache["c"], cache["n"], cache["m"], ig, fg, zg,
                              og)
     for key, val in (("c", c), ("n", n), ("m", m)):
         cache[key].copy_(val)
     h = (h * p["ln_h"]).to(x.dtype)
-    return (h @ p["down"].to(x.dtype))[:, None]
+    return psum_model((h @ p["down"].to(x.dtype))[:, None], pal)

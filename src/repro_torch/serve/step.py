@@ -29,15 +29,15 @@ data axes:
 Under tensor parallelism (``model_group``, a model group of tp ranks
 beside each data rank, as ``launch.mesh.make_group`` numbers them) each
 rank holds its share of the parameters and its key/value heads of the
-cache, the sequence is never split, and both functions return the
-padded vocabulary's logits (B, V padded to a multiple of tp), gathered
+cache (its share of each recurrent state; MLA's whole ckv and krope),
+the sequence is never split, and both functions return the padded
+vocabulary's logits (B, V padded to a multiple of tp), gathered
 over the model group, then over the data group's rows.
 
 A batch (or cache) that n does not split raises ValueError; tensor
-parallelism of a model outside its slice (MLA, an SSM, an
-encoder-decoder, the vision stub) raises NotImplementedError naming
-ROADMAP A13d, and context-parallel decode of an MLA, SSM or hybrid model
-naming A13e. The model may be of any family; an MoE layer's capacity follows
+parallelism of a model outside its slice (an encoder-decoder, the
+vision stub) raises NotImplementedError naming ROADMAP A13d, and
+context-parallel decode of an MLA, SSM or hybrid model naming A13e. The model may be of any family; an MoE layer's capacity follows
 the tokens a rank routes, as the reference's does under its shard_map;
 a recurrent layer's state is cut by rows like attention's k and v; a
 vision or audio model's batch carries its patches or frames, cut by rows

@@ -44,8 +44,9 @@ Under tensor parallelism (``model_group``; ranks numbered as
 the parameters (``models.specs``) and trains with the residual stream
 split by sequence (the reference's ``build_parallel`` default): the loss
 is the rank's disjoint share (``transformer.chunked_xent``), the
-gradients of the replicated leaves (norms, the MoE router) are summed
-over the model group in rank order before flattening, and the flat
+gradients of the replicated leaves (``specs.replicated_mask``: norms,
+the MoE router, MLA's ``dkv`` and ``kv_norm``, the mLSTM's ``up``,
+``wq``, ``wk`` and ``wif``) are summed over the model group in rank order before flattening, and the flat
 J-vector, the compressor, its state and the ZeRO-1 slices are the rank's
 own (J_local), synced over the data group only. With ``grad_clip`` the
 global norm weighs a replicated leaf by 1/tp and sums over the model

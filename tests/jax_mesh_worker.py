@@ -34,12 +34,13 @@ The inputs' ``mode`` (default "sync") picks what runs:
   gradient;
 - "tp_train": ``build_train_step`` on ("data", "model") meshes of the
   inputs' reduced models (``arch``, optional head counts and
-  vocabulary): the global initial parameters by path, the metrics, the
-  final parameters, ``idx_prev`` and every device's copy of the
-  replicated leaves;
+  vocabulary): the global initial parameters by path, the metrics and
+  ``idx_prev`` of every step, the final parameters and every device's
+  copy of the replicated leaves;
 - "tp_serve": the mesh's ``build_prefill`` and ``build_decode_step``
   under tensor parallelism: the parameters and the prefill's cache by
-  path, the logits of the prefill and of every decode step;
+  path (the global cache, and each device's own shard of it), the
+  logits of the prefill and of every decode step;
 - "tp": those of the three above that the inputs ask for, in one
   process.
 
@@ -242,7 +243,7 @@ def run_collectives(data) -> dict:
 
 def _tp_model(case: dict):
     """A case's reduced model: ``arch`` with ``heads`` (query, key/value)
-    and ``vocab`` replaced where given."""
+    and ``vocab`` replaced where given, MLA absorbed with ``absorb``."""
     import dataclasses
 
     from repro.configs import base
@@ -255,7 +256,23 @@ def _tp_model(case: dict):
     if case.get("attn") == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=int(case["window"]))
+    if case.get("absorb"):
+        cfg = dataclasses.replace(cfg, mla_absorb=True)
     return cfg
+
+
+def _shards(prefix: str, tree, mesh) -> dict:
+    """Every device's own shard of each leaf, keyed ``prefix{i}/path``
+    with i the device's place in the mesh (model-minor): what that rank
+    computed, whatever the global layout its out_specs give."""
+    order = {dev.id: i for i, dev in enumerate(mesh.devices.flat)}
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        keys = [str(getattr(k, "key", getattr(k, "idx", k))) for k in path]
+        for sh in leaf.addressable_shards:
+            out["/".join([f"{prefix}{order[sh.device.id]}"] + keys)] = \
+                np.asarray(sh.data)
+    return out
 
 
 def run_tp_train(data) -> dict:
@@ -291,6 +308,7 @@ def run_tp_train(data) -> dict:
                                            jax.random.PRNGKey(0))
                 for key, val in m.items():
                     res[f"{name}_{key}_{t}"] = np.asarray(val)
+                res[f"{name}_idx_prev_{t}"] = np.asarray(ef["idx_prev"])
             res[f"{name}_params"] = _flat(jax.device_get(params))
             res[f"{name}_idx_prev"] = np.asarray(ef["idx_prev"])
             res[f"{name}_replicated"] = _replicated_by_device(params, mesh)
@@ -343,6 +361,7 @@ def run_tp_serve(data) -> dict:
             lg, cache = jax.jit(pre)(params, {"tokens": tokens})
             res[f"{name}_prefill"] = np.asarray(lg)
             res.update(_leaves(f"{name}_cache", jax.device_get(cache)))
+            res.update(_shards(f"{name}_shard", cache, mesh))
             dec, _ = build_decode_step(run, mesh, serve_parallel(
                 mesh, run, decode=True))
             dec = jax.jit(dec)

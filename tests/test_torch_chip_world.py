@@ -8,10 +8,13 @@ line a case. Then the multi-rank phases at the reduced configs: the
 launcher's train() over the group (the main path, dense SGD, and the
 main path replayed in one process), serve() of a data-parallel batch
 and context-parallel decode, and at world 4 the tensor-parallel phases
-(train() on (1, 4) and (2, 2) grids of reduced StableLM-3B and on a (1,
-4) grid of reduced Granite-MoE-3B-A800M, each dense one's step 0 against
-one rank; serve() of reduced Qwen1.5-32B over a model group of 4), each
-printing one line from rank 0. This runs the check's own logic without
+(train() on (1, 4) and (2, 2) grids of reduced StableLM-3B, on a (1, 4)
+grid of reduced Granite-MoE-3B-A800M and of reduced DeepSeek-V2-Lite
+(MLA) and on a (2, 2) grid of reduced xLSTM-125M, each flagged cell's
+step 0 against one rank; serve() of reduced Qwen1.5-32B, DeepSeek-V2-Lite
+in both MLA forms and Jamba-v0.1-52B over a model group of 4, one line
+a cell; one reduced Mamba layer split by channel against one rank's),
+each printing from rank 0. This runs the check's own logic without
 cards."""
 import json
 import os
@@ -65,12 +68,12 @@ def test_world_check_passes_over_gloo(world):
         assert line["bitwise_across_ranks"] and line["equals_round"]
     for log in logs[1:]:
         assert '"phase": "world' not in log
-    phases = {line["phase"]: line for line in map(
-        json.loads, (ln for ln in logs[0].splitlines()
-                     if ln.startswith('{"phase": "world_')))}
+    every = [json.loads(ln) for ln in logs[0].splitlines()
+             if ln.startswith('{"phase": "world_')]
+    phases = {line["phase"]: line for line in every}
     assert list(phases) == list(chip_smoke.WORLD_TRAIN) + [
         "world_serve", "world_decode_cp"] + ([] if world < 4 else list(
-            chip_smoke.WORLD_TP) + ["world_serve_tp"])
+            chip_smoke.WORLD_TP) + ["world_serve_tp", "world_mamba_layer"])
     for name in chip_smoke.WORLD_TRAIN:
         line = phases[name]
         assert line["world"] == world and line["params_bitwise_across_ranks"]
@@ -86,21 +89,32 @@ def test_world_check_passes_over_gloo(world):
     assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
     if world < 4:
         return
-    for name, (_, _, (data, model), batch) in chip_smoke.WORLD_TP.items():
+    for name, (_, _, (data, model), batch, check0) in \
+            chip_smoke.WORLD_TP.items():
         line = phases[name]
         assert (line["data"], line["tp"], line["global_batch"]) == (
             data, model, batch)
         assert line["params_bitwise_across_data"]
         assert line["losses"][-1] < line["losses"][0]
         assert len(set(line["j_local_by_rank"])) == 1
-        if line["step0"] is not None:
+        assert (line["step0"] is not None) == check0
+        if check0:
             res = line["step0"]["float32"]
             assert res["loss_rel_err"] < chip_smoke.TP_LOSS_RTOL
             assert res["grad_rel_err"] < chip_smoke.TP_GRAD_RTOL
             assert res["replicated_grads_bitwise_across_model"]
-    assert phases["world_train_ep"]["step0"] is None
     assert phases["world_train_ep"]["experts_a_card"] == 1
-    serve_tp = phases["world_serve_tp"]
-    assert serve_tp["tp"] == world and serve_tp["kv_heads_a_card"] == 1
-    assert max(serve_tp["prefill_rel_err"], serve_tp["decode_rel_err"]) < \
-        chip_smoke.SERVE_RTOL < serve_tp["row_gap"]
+    assert phases["world_train_mla"]["step0"]["float32"]["moe_check"][
+        "load_balance_loss"] == 0.0
+    serve_tp = [line for line in every if line["phase"] == "world_serve_tp"]
+    assert [(line["arch"].removesuffix("-smoke"), line["attn"])
+            for line in serve_tp] == [
+        (arch, attn) for arch, _, attn in chip_smoke.TP_SERVE_CELLS]
+    for line in serve_tp:
+        assert line["tp"] == world
+        assert max(line["prefill_rel_err"], line["decode_rel_err"]) < \
+            chip_smoke.SERVE_RTOL < line["row_gap"]
+    mamba = phases["world_mamba_layer"]
+    assert mamba["tp"] == world and mamba["grads_finite"]
+    assert mamba["d_inner_a_card"] * world == mamba["d_inner"]
+    assert mamba["one_card_rel_err"] < chip_smoke.TP_MAMBA_RTOL

@@ -170,6 +170,40 @@ def test_tensor_parallel_fields_raise(field):
     assert Parallel().size == 1 and Parallel().rank == 0
 
 
+@pytest.mark.parametrize("arch,outside", [
+    ("deepseek-v2-lite-16b", False), ("xlstm-125m", False),
+    ("jamba-v0.1-52b", False), ("whisper-small", True),
+    ("phi-3-vision-4.2b", True)])
+def test_tensor_parallel_gates(arch, outside):
+    """Under a model group (``model`` > 1) MLA, the SSM family (xLSTM) and
+    the hybrid (Jamba) pass ``check_tensor_parallel`` and draw a rank's
+    share of their parameters; the encoder-decoder and the vision stub
+    raise naming ROADMAP A13d; context-parallel decode of MLA, an SSM or
+    a hybrid model still raises naming ROADMAP A13e."""
+    from repro_torch.models import transformer
+    from repro_torch.models.parallel import Parallel
+
+    class Model(Parallel):
+        tp, tp_on, model_rank = 2, True, 0
+
+    cfg = cfgs.reduced_config(cfgs.get_config(arch))
+    if outside:
+        with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+            transformer.check_tensor_parallel(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+            transformer.init_params(cfg, torch.Generator(), "meta", Model())
+        return
+    transformer.check_tensor_parallel(cfg)
+    local = transformer.init_params(cfg, torch.Generator(), "meta", Model())
+    whole = transformer.init_params(cfg, torch.Generator(), "meta")
+    from repro_torch.core.flatten import tree_size
+    assert tree_size(local) < tree_size(whole)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
+        transformer.init_decode_cache(
+            cfg, 1, 8, torch.float32, "meta",
+            Model(cache_seq_sharded=True))
+
+
 def test_card_path_never_calls_the_plain_version(monkeypatch):
     """With tensors the wrappers treat as on the card, a kernel that
     cannot be loaded raises; the plain versions are never reached."""

@@ -215,16 +215,18 @@ def test_serve_step_beyond_one_rank_raises(data, model, batch, match):
     data-parallel batch that the ranks do not split, context-parallel
     decode (batch < data) of a cache whose slots they do not split (the
     reference cannot place either), and tensor parallelism (``model`` >
-    1) of a model outside its slice: MLA, an SSM, an encoder-decoder, the
-    vision stub (ROADMAP A13d; ``check_serving`` is the builders' check,
-    at the model group's size). ``decode_cache_layout`` is the builders'
-    check of the layout, at the group's size."""
+    1) of a model outside its slice: an encoder-decoder, the vision stub
+    (ROADMAP A13d; ``check_serving`` is the builders' check, at the model
+    group's size); MLA, the SSM and the hybrid are served.
+    ``decode_cache_layout`` is the builders' check of the layout, at the
+    group's size."""
     from repro_torch.serve.step import check_serving, decode_cache_layout
     run = _run(batch=batch)
     if model > 1:
         check_serving(run.model, model)         # a dense model is served
-        for arch in ("deepseek-v2-lite-16b", "xlstm-125m", "jamba-v0.1-52b",
-                     "whisper-small", "phi-3-vision-4.2b"):
+        for arch in ("deepseek-v2-lite-16b", "xlstm-125m", "jamba-v0.1-52b"):
+            check_serving(tbase.reduced_config(tbase.get_config(arch)), model)
+        for arch in ("whisper-small", "phi-3-vision-4.2b"):
             cfg = tbase.reduced_config(tbase.get_config(arch))
             with pytest.raises(NotImplementedError, match=match + "d"):
                 check_serving(cfg, model)
@@ -271,20 +273,36 @@ def test_serve_launcher_smoke(arch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
-    (["--arch", "xlstm-125m", "--model", "2"], "ROADMAP A13"),
+    (["--arch", "whisper-small", "--model", "2"], "ROADMAP A13"),
     (["--devices", "8"], "ROADMAP A13"),
-    (["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],
-     "ROADMAP A13")])
+    (["--arch", "phi-3-vision-4.2b", "--model", "2"], "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
     """What the launcher still does not serve: deltas applied over more
     than one rank (A14), tensor parallelism of a model outside its slice
-    (xLSTM, absorbed MLA: A13d, raised before any group is joined) and a
-    mesh in one process (A13). ``--mla-absorb`` alone is served
-    (tests/test_torch_mla.py), and so is ``--model 2`` of a dense or MoE
-    model (tests/test_torch_tensor_parallel.py)."""
+    (the encoder-decoder, the vision stub: A13d, raised before any group
+    is joined) and a mesh in one process (A13). ``--mla-absorb`` alone is
+    served (tests/test_torch_mla.py), and so is ``--model 2`` of a dense,
+    MoE, SSM or hybrid model (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_tensor_parallel_ssm.py; below: past the gate)."""
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--arch", "xlstm-125m", "--model", "2"],
+    ["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],
+    ["--arch", "jamba-v0.1-52b", "--model", "2"]])
+def test_serve_launcher_model_parallel_passes_the_gate(flag, monkeypatch):
+    """``--model 2`` of xLSTM, absorbed MLA and the hybrid passes the
+    tensor-parallel gate: without torchrun's environment the launcher
+    then finds no group to join (the run itself over gloo:
+    tests/test_torch_tensor_parallel_ssm.py)."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launcher.main(["--smoke", "--device", "cpu", *flag])
 
 
 @pytest.fixture(scope="module")

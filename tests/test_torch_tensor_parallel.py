@@ -32,13 +32,15 @@ the port's ranks over gloo (tests/torch_gloo_worker.py):
 - serving: reduced Granite-8B (full, and sliding with a window of 8 that
   the decode wraps) on (2, 2) and (1, 4), reduced Granite-MoE on (1,
   4): the prefill's and 4 teacher-forced decode steps' logits (the
-  padded vocabulary's) and each rank's cache (its rows and key/value
-  heads of the reference's) to tests/test_torch_serve.py's rtol = atol =
-  1e-5;
+  padded vocabulary's) and each rank's cache (the same device's shard of
+  the reference's: its rows and key/value heads) to
+  tests/test_torch_serve.py's rtol = atol = 1e-5;
 - both launchers' ``main()`` with ``--model 2`` over a gloo world of 2.
 
-The gates that remain (MLA, the SSM, hybrid, xLSTM, encoder-decoder and
-vision families under ``--model`` > 1, ring attention) are pinned in
+MLA, Mamba with the Jamba hybrid and xLSTM under tensor parallelism are
+held in tests/test_torch_tensor_parallel_ssm.py, which uses this file's
+helpers. The gates that remain (the encoder-decoder and vision families
+under ``--model`` > 1, ring attention) are pinned in
 tests/test_torch_world_train.py, tests/test_torch_serve.py and
 tests/test_torch_rules.py. Ranks meet through a ``file://`` rendezvous
 under tmp_path."""
@@ -205,7 +207,7 @@ def served(tmp_path_factory, reference):
     inp = _inputs()
     keep = {key: val for key, val in reference.items()
             if any(key.startswith(f"{name}_init/")
-                   or key.startswith(f"{name}_cache/") for name in SERVE)}
+                   or key.startswith(f"{name}_shard") for name in SERVE)}
     return _spawn_ranks(tmp_path_factory.mktemp("serve"), "tp_serve", 4,
                         tokens=inp["serve_tokens"], window=WINDOW,
                         cases=json.dumps(SERVE), **keep)
@@ -238,11 +240,12 @@ class _Model:
 
     def __init__(self, tp: int):
         self.tp, self.tp_on, self.model_rank = tp, tp > 1, 0
-        self.sp = self.seq_parallel = False
+        self.sp = self.seq_parallel = self.cache_seq_sharded = False
 
 
 IN_SLICE = ["stablelm-3b", "granite-8b", "qwen1.5-32b", "starcoder2-7b",
-            "granite-moe-3b-a800m"]
+            "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+            "xlstm-125m"]
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -251,7 +254,8 @@ def test_param_specs_match_the_reference(arch, tp):
     """The port's split rules, replicated mask and local shapes equal
     the reference's ``param_specs``, ``replicated_mask`` and its
     ``init_params`` under a model axis of tp, leaf by leaf (with 6 query
-    and 2 key/value heads, so that tp 4 pads them)."""
+    and 2 key/value heads, so that tp 4 pads them; xLSTM keeps its 4
+    mLSTM heads, whose head dim tp splits)."""
     from repro.configs import base as jbase
     from repro.models import init_params as jinit
     from repro.models.parallel import Parallel as JParallel
@@ -261,10 +265,11 @@ def test_param_specs_match_the_reference(arch, tp):
     from repro_torch.models import init_params
     from repro_torch.models.specs import leaf_dim
     from repro_torch.models.specs import replicated_mask as trep
+    heads = {} if arch == "xlstm-125m" else dict(n_heads=6, n_kv_heads=2)
     jcfg = dataclasses.replace(jbase.reduced_config(jbase.get_config(arch)),
-                               n_heads=6, n_kv_heads=2)
+                               **heads)
     tcfg = dataclasses.replace(tbase.reduced_config(tbase.get_config(arch)),
-                               n_heads=6, n_kv_heads=2)
+                               **heads)
     jtree = jax.eval_shape(lambda k: jinit(jcfg, JParallel(
         model_axis="model", tp=tp), k), jax.random.PRNGKey(0))
     ttree = init_params(tcfg, torch.Generator(), "meta", _Model(tp))
@@ -311,37 +316,91 @@ def test_convert_split_and_join_round_trip(reference):
     assert parts[1]["blocks"]["l0"]["moe"]["gate"].shape[1] == 1
 
 
-@pytest.mark.parametrize("name", list(TRAIN))
-def test_train_matches_the_reference(trained, reference, name):
-    data_n, model = TRAIN[name]["mesh"]
+# A REGTOP-k selection flip: where a rank's threshold falls between two
+# scores closer than the packages' gradients differ (2-3 ulps; up to 3e-6
+# on entries of ~1 of the token table, whose rows sum the rows of
+# repeated tokens), the port and the reference select one entry
+# differently, and from that step on the parameters part at the entries
+# it touches. With ``flips``, check_train finds the first step at which a
+# rank's selection differs and holds: everything before it as without
+# flips; at it at most FLIP_ENTRIES entries a rank on either side, and
+# the metrics, which precede its selection, to RTOL; after it the
+# metrics to FLIP_RTOL and the parameters (the replicated leaves' copies
+# too) to FLIP_ATOL a step after the flip, as Adam moves an entry by
+# about lr a step (1e-3; measured on the reduced MLA and xLSTM cases:
+# 1.3e-3 two steps after a one-entry flip, the loss 1.9e-5 off).
+FLIP_ENTRIES = 2
+FLIP_RTOL = 1e-3
+FLIP_ATOL = 2e-3
+
+
+def _ref_idx(reference, key: str, r: int, model: int):
+    return np.sort(reference[key][r // model, r % model].reshape(-1))
+
+
+def first_flip(trained, reference, name: str, model: int) -> int:
+    """The first step at which some rank's selection (its sorted
+    ``idx_prev``) differs from the same device's in the reference; STEPS
+    when none does."""
+    for t in range(STEPS):
+        key = f"{name}_idx_prev_{t}"
+        if any(not np.array_equal(res[key], _ref_idx(reference, key, r,
+                                                     model))
+               for r, res in enumerate(trained)):
+            return t
+    return STEPS
+
+
+def check_train(trained, reference, name: str, cases: dict,
+                flips: bool = False) -> None:
+    """A train case's metrics, ``idx_prev``, replicated leaves and final
+    parameters on every rank against the reference's (with ``flips``,
+    up to a selection flip's consequences: see FLIP_ENTRIES)."""
+    data_n, model = cases[name]["mesh"]
+    flip = first_flip(trained, reference, name, model) if flips else STEPS
     for t in range(STEPS):
         for key in METRICS:
             want = float(reference[f"{name}_{key}_{t}"])
             for r, res in enumerate(trained):
                 got = res[f"{name}_{key}_{t}"]
                 assert got == trained[0][f"{name}_{key}_{t}"], (key, t, r)
-                np.testing.assert_allclose(float(got), want, rtol=RTOL,
-                                           atol=1e-7,
-                                           err_msg=f"{key} step {t}")
+                np.testing.assert_allclose(
+                    float(got), want, rtol=RTOL if t <= flip else FLIP_RTOL,
+                    atol=1e-7, err_msg=f"{key} step {t}")
+    atol = PARAM_ATOL
+    if flip < STEPS:
+        key = f"{name}_idx_prev_{flip}"
+        for r, res in enumerate(trained):
+            got, want = set(res[key].tolist()), set(
+                _ref_idx(reference, key, r, model).tolist())
+            assert max(len(got - want), len(want - got)) <= FLIP_ENTRIES, (
+                flip, r, sorted(got ^ want))
+        atol = FLIP_ATOL * (STEPS - flip)
     for r, res in enumerate(trained):
         assert not bool(res["jax_imported"])
         np.testing.assert_allclose(res[f"{name}_replicated"],
                                    reference[f"{name}_replicated"][r],
-                                   rtol=0, atol=PARAM_ATOL)
-        ref_idx = np.sort(reference[f"{name}_idx_prev"][
-            r // model, r % model].reshape(-1))
-        assert np.array_equal(res[f"{name}_idx_prev"], ref_idx), r
+                                   rtol=0, atol=atol)
+        if flip == STEPS:
+            assert np.array_equal(res[f"{name}_idx_prev"], _ref_idx(
+                reference, f"{name}_idx_prev", r, model)), r
     np.testing.assert_allclose(trained[0][f"{name}_params"],
                                reference[f"{name}_params"], rtol=0,
-                               atol=PARAM_ATOL)
+                               atol=atol)
     if data_n > 1:               # the data pair trains the same parameters
         for r in range(1, len(trained)):
             assert np.array_equal(trained[r][f"{name}_params"],
                                   trained[0][f"{name}_params"]), r
 
 
-@pytest.mark.parametrize("name", list(SERVE))
-def test_serve_matches_the_reference(served, reference, name):
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_train_matches_the_reference(trained, reference, name):
+    check_train(trained, reference, name, TRAIN)
+
+
+def check_serve(served, reference, name: str) -> None:
+    """A serve case's logits on every rank and each rank's cache against
+    the same device's shard of the reference's."""
     for r, res in enumerate(served):
         assert not bool(res["jax_imported"])
         keys = ["prefill"] + [f"decode_{t}" for t in range(DECODE)]
@@ -357,6 +416,11 @@ def test_serve_matches_the_reference(served, reference, name):
             np.testing.assert_allclose(
                 res[key], res[key.replace("_cache_", "_want_")],
                 rtol=SERVE_TOL, atol=SERVE_TOL, err_msg=f"{key} rank {r}")
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_serve_matches_the_reference(served, reference, name):
+    check_serve(served, reference, name)
 
 
 LAUNCH = ["--smoke", "--device", "cpu", "--model", "2"]

@@ -188,21 +188,29 @@ def test_launcher_main_over_gloo_world2(tmp_path):
 
 
 def test_launcher_model_parallel_raises_a13():
-    """``--model 2`` of xLSTM (an SSM model) raises naming ROADMAP A13d
-    before any group is joined; the dense and MoE families train
-    (tests/test_torch_tensor_parallel.py)."""
+    """``--model 2`` of Whisper-small (an encoder-decoder) raises naming
+    ROADMAP A13d before any group is joined; the dense, MoE, SSM and
+    hybrid families train (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_tensor_parallel_ssm.py)."""
     from repro_torch.launch import train as launcher
     with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        launcher.main(LAUNCH + ["--arch", "xlstm-125m", "--model", "2"])
+        launcher.main(LAUNCH + ["--arch", "whisper-small", "--model", "2"])
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",
                                   "whisper-small", "phi-3-vision-4.2b"])
-def test_launcher_model_parallel_gates(arch):
-    """The other models outside tensor parallelism's slice (the hybrid,
-    MLA, an encoder-decoder, the vision stub) raise as xLSTM does."""
+def test_launcher_model_parallel_gates(arch, monkeypatch):
+    """The models outside tensor parallelism's slice (an encoder-decoder,
+    the vision stub) raise naming ROADMAP A13d before any group is
+    joined; the hybrid and MLA pass the gate and, without torchrun's
+    environment, find no group to join."""
     from repro_torch.launch import train as launcher
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    inside = arch in ("jamba-v0.1-52b", "deepseek-v2-lite-16b")
+    with pytest.raises(RuntimeError if inside else NotImplementedError,
+                       match="torchrun" if inside else "ROADMAP A13d"):
         launcher.main(LAUNCH + ["--arch", arch, "--model", "2"])
 
 

@@ -439,6 +439,8 @@ def _tp_model(case: dict):
     if case.get("attn") == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=int(case["window"]))
+    if case.get("absorb"):
+        cfg = dataclasses.replace(cfg, mla_absorb=True)
     return cfg
 
 
@@ -480,9 +482,9 @@ def run_tp_train(rank: int, data) -> dict:
     """Per case (tests/jax_mesh_worker.py's "tp_train" cases): this
     rank's share of the reference's initial parameters, STEPS steps of
     the train step over the case's data and model groups on the data
-    rank's rows: every step's metrics, this rank's sorted ``idx_prev``,
-    its copy of the replicated leaves, and the final parameters gathered
-    into the global layout (flat)."""
+    rank's rows: every step's metrics and this rank's sorted
+    ``idx_prev``, its copy of the replicated leaves, and the final
+    parameters gathered into the global layout (flat)."""
     from repro_torch.convert import join_params, split_params
     from repro_torch.train.step import build_train_step, init_train_state
     res = {}
@@ -505,8 +507,9 @@ def run_tp_train(rank: int, data) -> dict:
             state, metrics = step(state, batch)
             for key, val in metrics.items():
                 res[f"{name}_{key}_{t}"] = val.numpy()
-        res[f"{name}_idx_prev"] = np.sort(
-            state.ef["idx_prev"].numpy().view(np.uint32))
+            res[f"{name}_idx_prev_{t}"] = np.sort(
+                state.ef["idx_prev"].numpy().view(np.uint32))
+        res[f"{name}_idx_prev"] = res[f"{name}_idx_prev_{run.steps - 1}"]
         res[f"{name}_replicated"] = _replicated(state.params)
         every = [None] * model
         dist.all_gather_object(every, tree_map(
@@ -521,16 +524,16 @@ def run_tp_serve(rank: int, data) -> dict:
     """Per case (tests/jax_mesh_worker.py's "tp_serve" cases): this
     rank's share of the reference's parameters, the serve step's
     builders over the case's groups: the gathered prefill logits, this
-    rank's cache after the prefill and its key/value heads of the
+    rank's cache after the prefill and the same device's shard of the
     reference's cache, and every decode step's logits (teacher
     forcing)."""
-    from repro_torch.convert import split_cache, split_params
+    from repro_torch.convert import split_params
     from repro_torch.core.flatten import tree_items
     from repro_torch.serve.step import build_decode_step, build_prefill
     res = {}
     for name, case in json.loads(str(data["cases"])).items():
-        group, model_group, d, m = _axes(case)
-        data_n, model = case["mesh"]
+        group, model_group, _, m = _axes(case)
+        model = case["mesh"][1]
         cfg = _tp_model(dict(case, window=data["window"]))
         b, prompt, seq = case["batch"], case["prompt"], case["seq"]
         run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
@@ -541,19 +544,24 @@ def run_tp_serve(rank: int, data) -> dict:
         pre = build_prefill(run, "cpu", group=group, model_group=model_group)
         logits, cache = pre(params, {"tokens": tokens[:, :prompt]})
         res[f"{name}_prefill"] = logits.numpy()
-        want = split_cache(_global_tree(data, f"{name}_cache"), model, m)
-        rows = b // data_n
-        for path, leaf in tree_items(cache["blocks"]):
+        want = _global_tree(data, f"{name}_shard{rank}")
+        for path, leaf in tree_items(cache):
             key = "_".join(map(str, path))
             res[f"{name}_cache_{key}"] = leaf.numpy().copy()
-            res[f"{name}_want_{key}"] = want["blocks"][path[0]][path[1]][
-                :, d * rows:(d + 1) * rows].numpy()
+            res[f"{name}_want_{key}"] = leaf_at(want, path).numpy()
         dec = build_decode_step(run, "cpu", group=group,
                                 model_group=model_group)
         for t in range(prompt, tokens.shape[1]):
             logits, cache = dec(params, cache, tokens[:, t:t + 1])
             res[f"{name}_decode_{t - prompt}"] = logits.numpy()
     return res
+
+
+def leaf_at(tree, path):
+    """The leaf of ``tree`` at ``path``."""
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def run_tp_launch(rank: int, data) -> dict:
