@@ -59,16 +59,34 @@ a card, the all_to_all's ms, the drop share), ``world_train_mla``
 (DeepSeek-V2-Lite-16B at full width, the dense prefix and 7 MoE layers,
 (1, 4): MLA split by heads, 16 experts a card, step 0 against one card
 at capacity factor 16 without the load-balance term), ``world_train_xlstm``
-(xLSTM-125M at full width and depth on (2, 2), batch 16: the mLSTM's
-value dims and the sLSTM's channels split, step 0 against one card),
+(xLSTM-125M at full width, 4 of its 12 layers, on (2, 2), batch 16: the
+mLSTM's value dims and the sLSTM's channels split, step 0 against one
+card), ``world_train_whisper`` (Whisper-small at full width and depth,
+12 + 12 layers, 1500 frames whole on every card, (1, 4): 3 heads a card,
+step 0 against one card), ``world_train_phi3v`` (Phi-3-vision-4.2B at
+full width and depth, 32 layers, 8 x 1024 tokens with 576 patches, (1,
+4), step 0 against one card), ``world_train_ring`` (StableLM-3B at full
+width, 8 layers, ring attention on (1, 4), 2 x 8192 positions, 2048 a
+card; not a one-card model: launches, peak, a finite falling loss),
 ``world_serve_tp`` (serve() over a model group of 4 in fp32 at full width
 and depth, one line a model: Qwen1.5-32B, 35.2 GB of weights a card;
 DeepSeek-V2-Lite in both MLA forms; Jamba-v0.1-52B at 32 layers, 12.9 B
-parameters a card; decode within 2e-4 of the tensor-parallel full
-forward, decode ms beside its bytes bound) and ``world_mamba_layer`` (one
-Mamba layer at Jamba's width split by channel over the four cards,
-forward and forward plus backward ms at 1024 positions beside one card's
-in the same run, its output within 1e-5 of one card's).
+parameters a card; Whisper-small with its frames; Phi-3-vision-4.2B at a
+1024-token prompt with its patches; decode within 2e-4 of the
+tensor-parallel full forward, decode ms beside its bytes bound),
+``world_mamba_layer`` (one Mamba layer at Jamba's width split by channel
+over the four cards, forward and forward plus backward ms at 1024
+positions beside one card's in the same run, its output within 1e-5 of
+one card's), ``world_ring_layer`` (one StableLM-3B attention layer and
+one DeepSeek-V2-Lite MLA layer, fp32, the weights model rank 0's on
+every card, ring forward and backward at 8192 positions against the same
+layer on one card: output and input gradient within 1e-5 of the scale,
+ms beside one card's) and ``world_ckpt_tp`` (the launcher's train() of
+StableLM-3B at 2 layers on (1, 4) with a checkpoint directory and
+published deltas: the restore equal to the live state bit for bit on
+every rank, a replica from the version-0 snapshot and the deltas equal
+to the parameters joined over the group). ``--tp NAME ...`` runs only
+the named tensor-parallel phases.
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -334,6 +352,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2253,12 +2272,14 @@ def plain_checksum(values, indices, version: int, count: int, j: int) -> int:
 
 
 def trees_equal(a: dict, b: dict) -> bool:
-    """The same paths, dtypes and values (``torch.equal``) leaf for leaf."""
+    """The same paths, dtypes and values (``torch.equal``) leaf for leaf,
+    each leaf of ``b`` compared on the device of ``a``'s."""
     import torch
     from repro_torch.core.flatten import tree_items
     ia, ib = tree_items(a), tree_items(b)
     return [p for p, _ in ia] == [p for p, _ in ib] and all(
-        x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+        x.dtype == y.dtype and torch.equal(x.detach(),
+                                           y.detach().to(x.device))
         for (_, x), (_, y) in zip(ia, ib))
 
 
@@ -2901,7 +2922,7 @@ def world_grads(name: str, world: int, j: int):
 
 
 def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
-               j: int = WORLD_J, tp_only: bool = False) -> int:
+               j: int = WORLD_J, tp=None) -> int:
     """One rank of the multi-card check: GradientSync over the process
     group, SYNC_STEPS steps of each WORLD_CASES config; g_agg must be
     bitwise identical on every rank and, like every rank's final state,
@@ -2909,8 +2930,9 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
     for a chunked or bf16 wire to :func:`chunked_round`, or for the
     sketch to :func:`sketch_world_round` (its elastic case under the
     bits of :func:`world_bits`). Then the multi-rank phases, and at a
-    world of 4 the tensor-parallel ones (WORLD_TP, ``world_serve_tp``);
-    ``tp_only`` runs the tensor-parallel phases alone.
+    world of 4 the tensor-parallel ones (WORLD_TP, then TP_PHASES);
+    ``tp``, a list of their names, runs those alone (an empty list: all
+    of them).
     ``backend="gloo"`` at a small ``j`` runs the same check on the CPU
     without cards (tests/test_torch_chip_world.py)."""
     import torch
@@ -2931,6 +2953,7 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
         dist.all_gather(out, x)
         return out
 
+    tp_only = tp is not None
     try:
         for name, fields in ({} if tp_only else WORLD_CASES).items():
             cfg = SparsifierConfig(sparsity=SPARSITY, mu=MU, **fields)
@@ -2994,14 +3017,15 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                 torch.cuda.empty_cache()
             world_decode_cp(dev, world, rank)
         if world == 4:
-            for name in WORLD_TP:
+            for name in list(WORLD_TP) + list(TP_PHASES):
+                if tp and name not in tp:
+                    continue
                 if cuda:
                     torch.cuda.empty_cache()
-                world_train_tp(name, dev, world, rank)
-            if cuda:
-                torch.cuda.empty_cache()
-            world_serve_tp(dev, world, rank)
-            world_mamba_layer(dev, world, rank)
+                if name in WORLD_TP:
+                    world_train_tp(name, dev, world, rank)
+                else:
+                    TP_PHASES[name](dev, world, rank)
     finally:
         dist.destroy_process_group()
     return 0
@@ -3342,19 +3366,50 @@ def world_decode_cp(dev, world: int, rank: int) -> None:
 # over a model group of all four. On the card the full widths (8 layers
 # for the train phases; Qwen1.5-32B at full depth, fp32); over gloo on the
 # CPU (tests/test_torch_chip_world.py) the reduced configs at small shapes.
-WORLD_TP = {   # phase: arch, depth, (data, model), global batch, step 0
-    "world_train_tp": ("stablelm-3b", TRAIN_LAYERS, (1, 4), TRAIN_BATCH,
-                       True),
-    "world_train_tp2x2": ("stablelm-3b", TRAIN_LAYERS, (2, 2),
-                          2 * TRAIN_BATCH, True),
-    "world_train_ep": ("granite-moe-3b-a800m", TRAIN_LAYERS, (1, 4),
-                       TRAIN_BATCH, False),
+class TPCell(NamedTuple):
+    """A tensor-parallel train cell: the arch at full width cut to
+    ``depth`` (the decoder's; an encoder keeps its own), its (data,
+    model) grid, the global batch, whether step 0 is held against one
+    card, the sequence on the card (0: TRAIN_SEQS' or TRAIN_SEQ) and the
+    attention's distribution ("ring": ring attention)."""
+    arch: str
+    depth: int
+    mesh: tuple
+    batch: int
+    step0: bool
+    seq: int = 0
+    attn_dist: str = "sp"
+
+
+RING_SEQ = 8192              # world_train_ring: 2048 positions a card
+WORLD_TP = {
+    "world_train_tp": TPCell("stablelm-3b", TRAIN_LAYERS, (1, 4),
+                             TRAIN_BATCH, True),
+    "world_train_tp2x2": TPCell("stablelm-3b", TRAIN_LAYERS, (2, 2),
+                                2 * TRAIN_BATCH, True),
+    "world_train_ep": TPCell("granite-moe-3b-a800m", TRAIN_LAYERS, (1, 4),
+                             TRAIN_BATCH, False),
     # MLA under tensor parallelism: the dense prefix and 7 MoE layers
     # (J = 4,594,374,656, 16 of the 64 experts a card)
-    "world_train_mla": ("deepseek-v2-lite-16b", 8, (1, 4), TRAIN_BATCH,
-                        True),
-    # the mLSTM's value split and the sLSTM's channels, full depth
-    "world_train_xlstm": ("xlstm-125m", 12, (2, 2), 2 * TRAIN_BATCH, True),
+    "world_train_mla": TPCell("deepseek-v2-lite-16b", 8, (1, 4),
+                              TRAIN_BATCH, True),
+    # the mLSTM's value split and the sLSTM's channels: 2 of the 6
+    # super-blocks (at full depth the cell and its profile took about 195
+    # s of the call's 1200)
+    "world_train_xlstm": TPCell("xlstm-125m", 4, (2, 2), 2 * TRAIN_BATCH,
+                                True),
+    # the encoder-decoder at full width and depth (12 + 12 layers, 1500
+    # frames, whole on every card): 3 of the 12 heads a card
+    "world_train_whisper": TPCell("whisper-small", 12, (1, 4), TRAIN_BATCH,
+                                  True),
+    # the vision stub at full width and depth (3,821,079,552 parameters,
+    # about 955 M a card), 8 x 1024 tokens with 576 patches
+    "world_train_phi3v": TPCell("phi-3-vision-4.2b", 32, (1, 4),
+                                TRAIN_BATCH, True),
+    # ring attention: every card all 32 heads of its own weights and 2048
+    # of the 8192 positions; not a one-card model, so no step-0 check
+    "world_train_ring": TPCell("stablelm-3b", TRAIN_LAYERS, (1, 4), 2,
+                               False, RING_SEQ, "ring"),
 }
 # world_serve_tp's cells (arch, depth, attention: "absorb" is MLA's
 # absorbed form), each arch's parameters drawn once: Qwen1.5-32B (35.2 GB
@@ -3363,10 +3418,17 @@ WORLD_TP = {   # phase: arch, depth, (data, model), global batch, step 0
 TP_SERVE_CELLS = (("qwen1.5-32b", 64, "full"),
                   ("deepseek-v2-lite-16b", 27, "full"),
                   ("deepseek-v2-lite-16b", 27, "absorb"),
-                  ("jamba-v0.1-52b", 32, "full"))
+                  ("jamba-v0.1-52b", 32, "full"),
+                  ("whisper-small", 12, "full"),
+                  ("phi-3-vision-4.2b", 32, "full"))
 TP_SERVE_PARAMS = {"qwen1.5-32b": 35_197_096_960,   # ModelConfig.param_count
                    "deepseek-v2-lite-16b": 15_706_484_224,
-                   "jamba-v0.1-52b": 51_570_315_264}
+                   "jamba-v0.1-52b": 51_570_315_264,
+                   "whisper-small": 278_115_840,
+                   "phi-3-vision-4.2b": 3_821_079_552}
+# a served cell's prompt where it is not SERVE_PROMPT: Phi-3-vision's
+# 576 patches and 448 text tokens (on the CPU 16 patches and 8 tokens)
+TP_SERVE_PROMPTS = {"phi-3-vision-4.2b": (SERVE_VISION_PROMPT, 24)}
 # the step-0 check of a dense tensor-parallel cell against one card at the
 # same parameters, in fp32: the loss to rtol 1e-5, the gathered gradient
 # (the replicated leaves' summed over the model group) to this share of
@@ -3381,6 +3443,24 @@ TP_A2A_REPS = 10
 # of x_proj's and out_proj's partial products add in another order)
 TP_MAMBA_SEQ = 1024
 TP_MAMBA_RTOL = 1e-5
+# world_ring_layer: one attention layer of each arch at full width, fp32,
+# batch 1, RING_SEQ positions (64 over gloo), the weights model rank 0's
+# on every card; the ring's output and input gradient, gathered, against
+# one card's within this share of their largest |entry| (the ring merges
+# its blocks in another order than one card's chunks)
+RING_LAYER_ARCHS = ("stablelm-3b", "deepseek-v2-lite-16b")
+RING_LAYER_RTOL = 1e-5
+# world_ckpt_tp: the launcher's train() of StableLM-3B at full width and
+# 2 layers on (1, 4), a checkpoint at the end and a delta after every
+# step of CKPT_DELTA_STEPS steps' worth of selections (k = steps x tp x
+# the sync's k a rank: Adam moves no entry the sync never selected, so
+# each delta ships every entry that moved and the replica ends on the
+# joined parameters). A second save and join of the trained state on
+# every card may take no more device memory beyond the live state than a
+# gather's chunks of fp32 (train.step.GATHER_CHUNK a rank) and
+# CKPT_SLACK_BYTES: the card holds no global copy of any tree
+CKPT_LAYERS = 2
+CKPT_SLACK_BYTES = 8 << 20
 
 
 def tp_model(arch: str, depth: int, cuda: bool):
@@ -3523,7 +3603,8 @@ def tp_profile(dev, run, state, pal, rows: dict, rank: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import build_train_step
-    step = build_train_step(run, dev, pal.group, pal.model_group)
+    step = build_train_step(run, dev, pal.group, pal.model_group,
+                            pal.attn_dist)
     torch.cuda.synchronize(dev)
     dist.barrier()
     if rank:
@@ -3599,11 +3680,15 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     from repro_torch.models.specs import leaf_dim
     from repro_torch.train.step import train_parallel
     cuda = dev.type == "cuda"
-    arch, depth, (data_n, model_n), batch, check0 = WORLD_TP[phase]
-    model = tp_model(arch, depth, cuda)
-    seq, sparsity = (TRAIN_SEQ, SPARSITY) if cuda else (16, 0.01)
+    cell = WORLD_TP[phase]
+    data_n, model_n = cell.mesh
+    batch, check0 = cell.batch, cell.step0
+    model = tp_model(cell.arch, cell.depth, cuda)
+    seq, sparsity = (cell.seq or TRAIN_SEQS.get(cell.arch, TRAIN_SEQ),
+                     SPARSITY) if cuda else (
+        32 if model.frontend == "vision_stub" else 16, 0.01)
     group, model_group = axis_groups(data_n, model_n)
-    pal = train_parallel(group, model_group)
+    pal = train_parallel(group, model_group, cell.attn_dist)
     d = rank // model_n
     run = RunConfig(
         model=model, shape=SHAPES["train_4k"],
@@ -3632,7 +3717,8 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
     reset_launches()
     out = train(run, device=dev, group=group, model_group=model_group,
                 batch=batch, seq=seq, fixed_batch=True,
-                log=lambda msg: print(msg, file=sys.stderr))
+                log=lambda msg: print(msg, file=sys.stderr),
+                attn_dist=cell.attn_dist)
     launches = launch_counts()
     expect = train_expect(("sweep1", "sweep2")) if cuda else {}
     for name, count in launches.items():
@@ -3676,7 +3762,9 @@ def world_train_tp(phase: str, dev, world: int, rank: int) -> None:
                    "all_to_all_calls_a_step": 2 * tfm.n_moe_layers(model)
                    * (3 if model.remat else 2)}
         emit(phase, model=model.name, n_layers=model.n_layers,
-             data=data_n, tp=model_n, j_local_by_rank=j_locals,
+             n_enc_layers=model.n_enc_layers, attn_dist=cell.attn_dist,
+             stub=model.frontend, data=data_n, tp=model_n,
+             j_local_by_rank=j_locals,
              heads_a_card=list(head_counts(model, pal)),
              global_batch=batch, seq=seq, rows_a_data_rank=n,
              steps=TRAIN_STEPS,
@@ -3696,6 +3784,10 @@ def tp_serve_cfg(arch: str, depth: int, attn: str, cuda: bool):
     choice dropped, so decode and the full forward route alike)."""
     cfg = dataclasses.replace(tp_model(arch, depth, cuda), dtype="float32",
                               mla_absorb=attn == "absorb")
+    if not cuda and arch == "whisper-small":
+        # over gloo a vocabulary that tp pads, as the card's Whisper's
+        # 51,865 rows are padded to 51,868
+        cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size - 2)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=MOE_SERVE_CAPACITY))
@@ -3715,8 +3807,9 @@ def tp_cache_shapes(cfg, cache: dict, world: int) -> bool:
     for path, leaf in tree_items(b):
         if path[-1] in ("k", "v", "ckv", "krope"):
             slots = leaf.shape[2]
+    enc_seq = cache["cross"]["k"].shape[2] if "cross" in cache else 0
     one = tfm.init_decode_cache(cfg, SERVE_BATCH, slots or 1, torch.float32,
-                                "meta")
+                                "meta", enc_seq=enc_seq)
     for (path, whole), (_, dim), (_, local) in zip(
             tree_items(one), cache_split_dims(one), tree_items(cache)):
         want = list(whole.shape)
@@ -3737,7 +3830,8 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
     to the config's; the prefill's and the last step's logits (the padded
     vocabulary's) within SERVE_RTOL of the tensor-parallel full forward of
     the same tokens, relative to its largest logit, every two rows
-    further apart than that (``row_gap``); decode ms a step is the median
+    further apart than that (``row_gap``), all over the real vocabulary
+    (a padded entry's logit is -1e30 in both); decode ms a step is the median
     of SERVE_REPS more windows, beside the step's bytes bound a card (its
     weights, every expert's included, B rows of its token table, its
     cache); one more step profiled (launches a step) on every rank. One
@@ -3753,10 +3847,12 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
     from repro_torch.models.specs import leaf_dim
     from repro_torch.serve.step import build_decode_step, serve_parallel
     cuda = dev.type == "cuda"
-    prompt, new = (SERVE_PROMPT, SERVE_NEW) if cuda else (8, 4)
     group, model_group = axis_groups(1, world)
     params, held = None, None
     for arch, depth, attn in TP_SERVE_CELLS:
+        prompt, new = (SERVE_PROMPT, SERVE_NEW) if cuda else (8, 4)
+        if arch in TP_SERVE_PROMPTS:
+            prompt = TP_SERVE_PROMPTS[arch][0 if cuda else 1]
         cfg = tp_serve_cfg(arch, depth, attn, cuda)
         run = RunConfig(model=cfg, shape=serve_shape(SERVE_BATCH, prompt,
                                                      new),
@@ -3779,7 +3875,12 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
         replicated = sum(int(leaf.numel()) for path, leaf in
                          tree_items(params)
                          if leaf_dim(path, leaf.ndim) is None)
-        total = sum(counts) - (world - 1) * replicated
+        # the vocabulary's padding to a multiple of tp (Whisper's 51,865
+        # rows to 51,868) is not the config's
+        v_pad = -(-cfg.vocab_size // world) * world
+        total = sum(counts) - (world - 1) * replicated - (
+            v_pad - cfg.vocab_size) * cfg.d_model * (
+                1 if cfg.tie_embeddings else 2)
         check(total == cfg.param_count(), f"world_serve_tp {arch}: {total} "
               f"parameters over the ranks, the config has "
               f"{cfg.param_count()}")
@@ -3789,26 +3890,31 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
         out = serve(run, device=dev, group=group, model_group=model_group,
                     prompt_len=prompt, new_tokens=new, params=params,
                     log=lambda msg: print(msg, file=sys.stderr))
-        v_pad = -(-cfg.vocab_size // world) * world
         check(tuple(out["logits"].shape) == (SERVE_BATCH, v_pad),
               f"world_serve_tp {arch}: logits {tuple(out['logits'].shape)}")
         check(tp_cache_shapes(cfg, out["cache"], world),
               f"world_serve_tp {arch}: a rank's cache is not its share of "
               "one rank's")
         tokens = torch.cat([out["prompt"], out["tokens"]], 1)
+        stubs = {key: val for key, val in out["batch"].items()
+                 if key != "tokens"}
         with torch.inference_mode():
-            x = tfm.hidden(params, {"tokens": tokens}, cfg, pal=pal)
+            x = tfm.hidden(params, {"tokens": tokens, **stubs}, cfg,
+                           pal=pal)
             full = tfm.gather_vocab(lm_head_fwd(params["embed"],
                                                 x[:, [prompt - 1, -1]], cfg,
                                                 pal), pal).float()
             del x
+        # the real vocabulary's logits: a padded entry's is -1e30 in both
+        v = cfg.vocab_size
+        full = full[..., :v]
         scale = float(full.abs().max())
         gaps = (full[:, None] - full[None]).abs().amax(-1).amin(-1)
         row_gap = float(gaps[~torch.eye(SERVE_BATCH, dtype=torch.bool,
                                         device=gaps.device)].min()) / scale
-        e_pre = float((out["prefill_logits"] - full[:, 0]).abs().max()) \
-            / scale
-        e_dec = float((out["logits"] - full[:, 1]).abs().max()) / scale
+        e_pre = float((out["prefill_logits"][:, :v]
+                       - full[:, 0]).abs().max()) / scale
+        e_dec = float((out["logits"][:, :v] - full[:, 1]).abs().max()) / scale
         del full, gaps
         check(e_pre < SERVE_RTOL and e_dec < SERVE_RTOL,
               f"world_serve_tp {arch} {attn}: errors {e_pre}, {e_dec} over "
@@ -3829,7 +3935,7 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
         tok = params["embed"]["tok"]
         cache_bytes = sum(leaf.nbytes for leaf in tree_leaves(
             out["cache"]["blocks"]) + tree_leaves(out["cache"].get(
-                "prefix", [])))
+                "prefix", [])) + tree_leaves(out["cache"].get("cross", {})))
         step_bytes = (n_local - tok.numel()) * 4 + SERVE_BATCH * \
             cfg.d_model * 4 + cache_bytes
         del out["cache"]
@@ -3837,7 +3943,8 @@ def world_serve_tp(dev, world: int, rank: int) -> None:
         if rank == 0:
             ms = None if windows is None else statistics.median(windows)
             emit("world_serve_tp", arch=cfg.name, attn=attn,
-                 n_layers=cfg.n_layers, dtype=cfg.dtype, tp=world,
+                 n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+                 stub=cfg.frontend, dtype=cfg.dtype, tp=world,
                  batch=SERVE_BATCH, prompt=prompt, new_tokens=new,
                  params=total, params_by_rank=counts,
                  weights_bytes_a_card=n_local * 4, init_s=init_s,
@@ -3950,13 +4057,265 @@ def world_mamba_layer(dev, world: int, rank: int) -> None:
     dist.barrier()
 
 
-def phase_world(world: int, src: str, tp_only: bool = False) -> None:
+def world_ring_layer(dev, world: int, rank: int) -> None:
+    """Ring attention against one card, one layer at a time: for each of
+    RING_LAYER_ARCHS one attention layer at full width in fp32 (StableLM's
+    GQA; DeepSeek-V2-Lite's MLA, the compressed ckv and krope passed round
+    the ring and expanded at every hop), its weights model rank 0's on
+    every card (so the ring is the whole sequence's attention), batch 1,
+    RING_SEQ positions, each card its block of RING_SEQ / world. The
+    ring's forward and its backward (the input's and the weights'
+    gradients) on every rank; the output and the input gradient gathered
+    over the group against the same layer on one card (rank 0, the others
+    waiting) within RING_LAYER_RTOL of their largest |entry|; ms of the
+    ring's forward and forward plus backward (medians of TIMING_REPS
+    CUDA-event timings) beside one card's, in the same run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.models import attention as attn
+    from repro_torch.models.parallel import Parallel, all_gather_model
+    cuda = dev.type == "cuda"
+    seq = RING_SEQ if cuda else 64
+    sl = seq // world
+    group, model_group = axis_groups(1, world)
+    pal = Parallel(group=group, model_group=model_group, seq_parallel=True,
+                   attn_dist="ring")
+    for arch in RING_LAYER_ARCHS:
+        cfg = dataclasses.replace(get_config(arch) if cuda else
+                                  reduced_config(get_config(arch)),
+                                  dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        p = attn.init_attention(gen, cfg, device=dev)
+        x = torch.randn((1, seq, cfg.d_model), generator=gen, device=dev)
+        ct = torch.randn((1, seq, cfg.d_model), generator=gen, device=dev)
+        for t in list(p.values()) + [x, ct]:
+            dist.broadcast(t, 0)                 # model rank 0's
+        block = slice(rank * sl, (rank + 1) * sl)
+        leaves = [p[key].requires_grad_(True) for key in sorted(p)]
+
+        def ring(with_grad: bool, xs=x[:, block].contiguous()):
+            if not with_grad:
+                with torch.no_grad():
+                    return attn.ring_fwd(p, xs, cfg, pal)
+            xs = xs.clone().requires_grad_(True)
+            y = attn.ring_fwd(p, xs, cfg, pal)
+            return y, torch.autograd.grad(y, [xs] + leaves, ct[:, block])
+        y, grads = ring(True)
+        with torch.no_grad():
+            y_all = all_gather_model(y.detach(), pal, 1)
+            gx_all = all_gather_model(grads[0], pal, 1)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        del y, grads
+        ms = ((cuda_ms(lambda: ring(False)), cuda_ms(lambda: ring(True)))
+              if cuda else (None, None))
+        peaks = world_peaks(dev, cuda)
+        res = None
+        if rank == 0:
+            def one(with_grad: bool):
+                if not with_grad:
+                    with torch.no_grad():
+                        return attn.attn_fwd_full(p, x, cfg)
+                xs = x.clone().requires_grad_(True)
+                y1 = attn.attn_fwd_full(p, xs, cfg)
+                return y1, torch.autograd.grad(y1, [xs] + leaves, ct)
+            y1, g1 = one(True)
+            y1 = y1.detach()
+            res = {"out_rel_err": float((y_all - y1).abs().max()
+                                        / y1.abs().max()),
+                   "grad_rel_err": float((gx_all - g1[0]).abs().max()
+                                         / g1[0].abs().max())}
+            del y1, g1
+            res["one_card_fwd_ms"], res["one_card_fwd_bwd_ms"] = (
+                (cuda_ms(lambda: one(False)), cuda_ms(lambda: one(True)))
+                if cuda else (None, None))
+        del y_all, gx_all, p, leaves, x, ct
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+        every = [None] * world
+        dist.all_gather_object(every, finite)
+        if rank == 0:
+            check(all(every), f"world_ring_layer {arch}: a gradient is not "
+                  f"finite on some rank ({every})")
+            check(max(res["out_rel_err"], res["grad_rel_err"])
+                  < RING_LAYER_RTOL, f"world_ring_layer {arch}: {res} from "
+                  f"one card's, over {RING_LAYER_RTOL}")
+            emit("world_ring_layer", arch=cfg.name, attn=cfg.attn_kind,
+                 d_model=cfg.d_model, heads=cfg.n_heads, batch=1, seq=seq,
+                 seq_a_card=sl, tp=world, fwd_ms=ms[0], fwd_bwd_ms=ms[1],
+                 max_memory_allocated_by_rank=peaks, grads_finite=True,
+                 rtol=RING_LAYER_RTOL, **res)
+        dist.barrier()
+
+
+def world_ckpt_tp(dev, world: int, rank: int) -> None:
+    """Checkpoints and the delta broadcast over a model group: the
+    launcher's train() of StableLM-3B at full width and CKPT_LAYERS layers
+    (the reduced config over gloo) on (1, world), REGTOP-k fused,
+    TRAIN_STEPS steps, a checkpoint at the end (the parameters joined over
+    the group, the states as (DP, TP, ...), every rank's copy of the
+    replicated leaves beside them) and a delta of the joined parameters
+    after every step (k in CKPT_LAYERS' note). The restore of the
+    checkpoint on every rank equals its live state bit for bit; on rank 0
+    a replica from the version-0 snapshot takes every delta of the spool
+    and equals the parameters joined over the group bit for bit, and so
+    does the final snapshot. Then every rank saves and joins the trained
+    state again with the peak memory counter reset: the device memory
+    that takes beyond the live state stays within a gather's chunks
+    (CKPT_SLACK_BYTES' note). The checkpoint's and a delta's bytes, the
+    saves' and the restore's seconds, rank 0's peak over train() and the
+    second save's extra bytes; B1 and B2 launched once a step on every
+    rank."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import (OptimizerConfig, RunConfig, SHAPES,
+                                          SparsifierConfig)
+    from repro_torch.core import sparsify
+    from repro_torch.core.flatten import TreeFlattener
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.launch.train import train
+    from repro_torch.serve import delta as dl
+    from repro_torch.serve.step import delta_applier_from_snapshot
+    from repro_torch.train.step import (GATHER_CHUNK, joined_params,
+                                        restore_train_state, save_train_state,
+                                        train_parallel)
+    from repro_torch.models import init_params
+    cuda = dev.type == "cuda"
+    model = tp_model("stablelm-3b", CKPT_LAYERS, cuda)
+    seq, sparsity = (TRAIN_SEQ, SPARSITY) if cuda else (16, 0.01)
+    group, model_group = axis_groups(1, world)
+    run = RunConfig(
+        model=model, shape=SHAPES["train_4k"],
+        sparsifier=SparsifierConfig(kind="regtopk", sparsity=sparsity, mu=MU,
+                                    **FUSED),
+        optimizer=OptimizerConfig(kind="adam", lr=1e-3), seed=0,
+        steps=TRAIN_STEPS, log_every=1)
+    local = init_params(model, torch.Generator(), "meta",
+                        train_parallel(group, model_group))
+    k = TRAIN_STEPS * world * sparsify.resolve_k(
+        run.sparsifier, TreeFlattener(local).total)
+    root = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_tp_") if rank == 0
+            else None]
+    dist.broadcast_object_list(root, 0)
+    root = root[0]
+    spool, ckpt = os.path.join(root, "spool"), os.path.join(root, "ckpt")
+    run = dataclasses.replace(run, checkpoint_dir=ckpt)
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = train(run, device=dev, group=group, model_group=model_group,
+                    batch=TRAIN_BATCH, seq=seq, fixed_batch=True,
+                    log=lambda msg: print(msg, file=sys.stderr),
+                    publish_deltas=spool, delta_k=k)
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        expect = train_expect(("sweep1", "sweep2")) if cuda else {}
+        for name, count in launches.items():
+            check(count == expect.get(name, 0), f"world_ckpt_tp rank {rank}: "
+                  f"{name} launched {count} times in {TRAIN_STEPS} steps, "
+                  f"expected {expect.get(name, 0)}")
+        state = out["state"]
+        mem = {}
+        if cuda:
+            mem["train_peak"] = torch.cuda.max_memory_allocated(dev)
+            mem["live"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        save_train_state(os.path.join(root, "again"), TRAIN_STEPS, state,
+                         group, model_group=model_group)
+        again = joined_params(state.params, model_group)
+        save_s = time.perf_counter() - t0
+        del again
+        if cuda:
+            mem["save_extra"] = torch.cuda.max_memory_allocated(dev) \
+                - mem["live"]
+            bound = world * GATHER_CHUNK * 4 + CKPT_SLACK_BYTES
+            check(mem["save_extra"] <= bound,
+                  f"world_ckpt_tp rank {rank}: a save and a join took "
+                  f"{mem['save_extra']} B beyond the live state, more "
+                  f"than {bound}")
+        t0 = time.perf_counter()
+        back = restore_train_state(ckpt, TRAIN_STEPS, run, dev, group,
+                                   model_group)
+        restore_s = time.perf_counter() - t0
+        same = all(trees_equal(getattr(back, name), getattr(state, name))
+                   for name in ("params", "opt", "ef"))
+        del back
+        every = [None] * world
+        dist.all_gather_object(every, same)
+        joined = joined_params(state.params, model_group)
+        del state
+        if rank == 0:
+            pub = out["publisher"]
+            check(all(every), f"world_ckpt_tp: the restored state differs "
+                  f"from the live one on some rank ({every})")
+            check(pub.version == TRAIN_STEPS and pub.k == k,
+                  f"world_ckpt_tp: publisher v{pub.version}, k {pub.k}")
+            snaps = os.path.join(spool, "snapshots")
+            srun = RunConfig(model=model, shape=SHAPES["train_4k"],
+                             sparsifier=SparsifierConfig(kind="none"))
+            applier, _ = delta_applier_from_snapshot(srun, snaps, dev,
+                                                     step=0)
+            payloads = dl.SpoolChannel(spool).recv()
+            for pay in payloads:
+                check(applier.offer(pay.to(dev)) == "applied",
+                      f"world_ckpt_tp: v{pay.version} not applied")
+            check(applier.version == TRAIN_STEPS
+                  and trees_equal(applier.params, joined),
+                  "world_ckpt_tp: the replica from the version-0 snapshot "
+                  "and the deltas differs from the joined parameters")
+            final, version = dl.read_snapshot(snaps, joined, device=dev)
+            check(version == TRAIN_STEPS and trees_equal(final, joined),
+                  "world_ckpt_tp: the final snapshot differs from the "
+                  "joined parameters")
+            del final, applier
+            ckpt_bytes = {name: os.path.getsize(os.path.join(ckpt, name))
+                          for name in sorted(os.listdir(ckpt))}
+            emit("world_ckpt_tp", model=model.name, n_layers=model.n_layers,
+                 data=1, tp=world, steps=TRAIN_STEPS, launches_a_rank=launches,
+                 j_joined=pub.j,
+                 delta_k=k, deltas=len(payloads),
+                 delta_wire_bytes=dl.delta_wire_bytes(k),
+                 losses=[rec["loss"] for rec in out["history"]],
+                 publish_ms=[rec["publish_ms"] for rec in out["history"]],
+                 train_s=train_s, save_and_join_s=save_s,
+                 restore_s=restore_s,
+                 rank0_peak_bytes=mem.get("train_peak"),
+                 rank0_live_bytes=mem.get("live"),
+                 rank0_save_extra_bytes=mem.get("save_extra"),
+                 checkpoint_bytes=ckpt_bytes,
+                 restored_bitwise_by_rank=every,
+                 replica_equals_joined=True, final_snapshot_equal=True)
+        del out, joined
+        dist.barrier()
+    finally:
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+# the tensor-parallel phases after the train cells of WORLD_TP, in order
+TP_PHASES = {"world_serve_tp": world_serve_tp,
+             "world_mamba_layer": world_mamba_layer,
+             "world_ring_layer": world_ring_layer,
+             "world_ckpt_tp": world_ckpt_tp}
+
+
+def phase_world(world: int, src: str, tp=None) -> None:
     """Start ``world`` rank processes of this script (one card each, NCCL
     over a localhost rendezvous), relay their output, and stop them all:
     when one fails, the others (blocked in a collective) are stopped at
-    once (``tp_only``: the tensor-parallel phases alone). First print how
-    the cards are linked (``nvidia-smi topo -m``, where the machine lets
-    it run)."""
+    once (``tp``: the tensor-parallel phases alone, as
+    :func:`world_rank` reads it). First print how the cards are linked (``nvidia-smi
+    topo -m``, where the machine lets it run)."""
     import socket
     import tempfile
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
@@ -3970,7 +4329,7 @@ def phase_world(world: int, src: str, tp_only: bool = False) -> None:
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--world", str(world),
          "--rank", str(r), "--port", str(port), "--src", src]
-        + (["--tp"] if tp_only else []),
+        + ([] if tp is None else ["--tp", *tp]),
         stdout=out, stderr=subprocess.STDOUT, text=True)
         for r, out in enumerate(outs)]
     deadline = time.perf_counter() + 1000
@@ -4095,11 +4454,11 @@ def main(argv=None) -> int:
                     "NCCL on this many cards (one process each) against an "
                     "in-process round, then the launcher's train() and "
                     "serve() over the group; needs that many cards")
-    ap.add_argument("--tp", action="store_true",
+    ap.add_argument("--tp", nargs="*", metavar="NAME",
+                    choices=list(WORLD_TP) + list(TP_PHASES),
                     help="with --world 4: run only the tensor-parallel "
-                    "phases (world_train_tp, world_train_tp2x2, "
-                    "world_train_ep, world_train_mla, world_train_xlstm, "
-                    "world_serve_tp, world_mamba_layer)")
+                    "phases, or only those named (of "
+                    + ", ".join(list(WORLD_TP) + list(TP_PHASES)) + ")")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4110,8 +4469,7 @@ def main(argv=None) -> int:
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if args.rank is not None:
-        return world_rank(args.rank, args.world, args.port,
-                          tp_only=args.tp)
+        return world_rank(args.rank, args.world, args.port, tp=args.tp)
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()

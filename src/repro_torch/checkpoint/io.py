@@ -15,16 +15,27 @@ a checkpoint written by either package restores in the other:
 
 The trees are in the reference's global layout: the optimizer and
 sparsifier states as ``(DP, TP, ...)`` (``train.step.save_train_state``
-builds it from the ranks' slices). A restore fits a saved EF leaf to a
-changed worker count (:func:`_fit_ef_worker_dims`) and migrates the
-legacy ``(a_prev, s_prev)`` pair to ``err_prev``
-(:func:`_migrate_ef_leaf`).
+builds it from the ranks' slices). Under tensor parallelism the global
+parameter tree holds one copy of each leaf replicated over the model
+group (model rank 0's, as the reference's ``np.asarray`` of a replicated
+array does), though the ranks' copies drift apart under a sparsified
+sync; ``step_%08d.replicated.npz`` keeps every model rank's copy,
+stacked ``(TP, ...)`` under the same keys (``save_checkpoint``'s
+``replicated``), and the port's restore gives each rank its own
+(:func:`load_replicated`). The reference reads the three trees and
+ignores that file. Every file is written a leaf at a time
+(:func:`_write_npz`, ``np.savez``'s format), so a writer that gathers
+its leaves from other ranks holds one leaf at a time. A restore
+fits a saved EF leaf to a changed worker count
+(:func:`_fit_ef_worker_dims`) and migrates the legacy ``(a_prev,
+s_prev)`` pair to ``err_prev`` (:func:`_migrate_ef_leaf`).
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import zipfile
 
 import numpy as np
 import torch
@@ -50,27 +61,71 @@ def _to_numpy(path, leaf) -> np.ndarray:
     return a.view(np.uint32) if path and path[-1] in UINT32_KEYS else a
 
 
-def _flatten_with_paths(tree) -> dict:
-    return {keystr(path): _to_numpy(path, leaf)
-            for path, leaf in tree_items(tree)}
+def _items(tree):
+    """A tree's (path, leaf) pairs; an iterator of pairs as it is."""
+    return tree_items(tree) if isinstance(tree, dict) else tree
+
+
+def _write_npz(fname: str, items) -> None:
+    """``np.savez``'s file of (path, leaf) pairs under their
+    :func:`keystr` keys, written a leaf at a time: each pair is converted
+    and stored before the next is drawn."""
+    with zipfile.ZipFile(fname, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for path, leaf in items:
+            with zf.open(keystr(path) + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, _to_numpy(path, leaf),
+                                          allow_pickle=False)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, params, opt_state, ef_state,
-                    param_version=None) -> str:
-    """Write the three trees (tensors or numpy leaves) and the manifest.
-    ``param_version`` stamps the delta broadcast's version these params
-    are at: a replica restored from it takes it as its version floor."""
+                    param_version=None, replicated=None) -> str:
+    """Write the three trees (tensors or numpy leaves), ``replicated``
+    where given (every model rank's copy of the replicated parameter
+    leaves, ``(TP, ...)``), and the manifest. Each tree may be an
+    iterator of (path, leaf) pairs, drawn in that order (params, opt,
+    ef, replicated) and a leaf at a time. ``param_version`` stamps the
+    delta broadcast's version these params are at: a replica restored
+    from it takes it as its version floor."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
-    np.savez(path + ".params.npz", **_flatten_with_paths(params))
-    np.savez(path + ".opt.npz", **_flatten_with_paths(opt_state))
-    np.savez(path + ".ef.npz", **_flatten_with_paths(ef_state))
+    for suffix, tree in ((".params.npz", params), (".opt.npz", opt_state),
+                         (".ef.npz", ef_state),
+                         (".replicated.npz", replicated)):
+        if tree is not None:
+            _write_npz(path + suffix, _items(tree))
     manifest = {"step": step}
     if param_version is not None:
         manifest["param_version"] = int(param_version)
     with open(path + ".json", "w") as f:
         json.dump(manifest, f)
     return path
+
+
+def load_replicated(path: str, tp: int) -> dict:
+    """{path tuple: (TP, ...) array} of the checkpoint at ``path``'s
+    per-rank replicated leaves; {} where it has none (a one-rank
+    checkpoint, or the reference's). ValueError for copies of another
+    model group's size."""
+    fname = path + ".replicated.npz"
+    if not os.path.exists(fname):
+        return {}
+    out = {}
+    with np.load(fname) as data:
+        for key in data.files:
+            leaf = data[key]
+            if leaf.shape[0] != tp:
+                raise ValueError(f"{fname}: {key} holds {leaf.shape[0]} "
+                                 f"model ranks' copies, the run has {tp}")
+            out[_path_of(key)] = _fit_dtype(leaf)
+    return out
+
+
+def _path_of(key: str) -> tuple:
+    """The path tuple of a :func:`keystr` key (dict keys as strings,
+    list indices as ints)."""
+    return tuple(int(k) if k.isdigit() else k.strip("'")
+                 for k in re.findall(r"\[([^\]]*)\]", key))
 
 
 def latest_step(ckpt_dir: str):
@@ -128,21 +183,22 @@ def _fit_ef_worker_dims(leaf: np.ndarray, want_shape, pstr: str):
         "match")
 
 
-def _fit_dtype(leaf: np.ndarray, tmpl: torch.Tensor):
-    """A ``V2`` leaf (npz's form of bf16) as the template's bf16 (a view
-    of the bits, not a cast); any other leaf as it is."""
-    if (leaf.dtype.kind == "V" and tmpl.dtype == torch.bfloat16
+def _fit_dtype(leaf: np.ndarray, dtype=torch.bfloat16):
+    """A ``V2`` leaf (npz's form of bf16, the only one this format
+    writes) as a bf16 tensor (a view of the bits, not a cast) where
+    ``dtype`` is bf16; any other leaf as it is."""
+    if (leaf.dtype.kind == "V" and dtype == torch.bfloat16
             and leaf.dtype.itemsize == 2):
         return bf16_from_bits(leaf)
     return leaf
 
 
-def load_leaves(fname: str, tree, migrate_ef: bool = False) -> list:
-    """[(path, leaf, template leaf)] of ``fname`` in the order of
-    ``tree``'s leaves (tensors of any device, ``meta`` included): numpy
-    arrays, EF leaves migrated and fitted to the template's shapes, and
-    a ``V2`` leaf as a bf16 CPU tensor where the template is bf16."""
-    out = []
+def load_leaves(fname: str, tree, migrate_ef: bool = False):
+    """(path, leaf, template leaf) of ``fname`` in the order of
+    ``tree``'s leaves (tensors of any device, ``meta`` included), a leaf
+    at a time: numpy arrays, EF leaves migrated and fitted to the
+    template's shapes, and a ``V2`` leaf as a bf16 CPU tensor where the
+    template is bf16."""
     with np.load(fname) as data:
         for path, tmpl in tree_items(tree):
             pstr = keystr(path)
@@ -152,8 +208,15 @@ def load_leaves(fname: str, tree, migrate_ef: bool = False) -> list:
                     leaf = _fit_ef_worker_dims(leaf, tuple(tmpl.shape), pstr)
             else:
                 leaf = data[pstr]
-            out.append((path, _fit_dtype(leaf, tmpl), tmpl))
-    return out
+            yield path, _fit_dtype(leaf, tmpl.dtype), tmpl
+
+
+def load_items(fname: str):
+    """(path, leaf) of every leaf of ``fname`` in the file's order, a
+    leaf at a time: numpy arrays, a ``V2`` leaf as a bf16 CPU tensor."""
+    with np.load(fname) as data:
+        for key in data.files:
+            yield _path_of(key), _fit_dtype(data[key])
 
 
 def to_tensor(leaf, tmpl: torch.Tensor, device=None) -> torch.Tensor:

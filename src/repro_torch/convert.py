@@ -160,29 +160,40 @@ def unravel_cnn(vec: torch.Tensor, like: dict) -> dict:
     return out
 
 
+def split_leaf(path, leaf, tp: int, rank: int):
+    """Model rank ``rank``'s share (of ``tp``) of the global parameter
+    leaf at ``path``: cut along its split dimension (``models.specs``);
+    a replicated leaf whole."""
+    from repro_torch.models.specs import leaf_dim
+    return _part(leaf, leaf_dim(path, np.ndim(leaf)), tp, rank)
+
+
+def join_leaf(path, parts: list):
+    """The global parameter leaf at ``path`` from every model rank's
+    share, in rank order: the inverse of :func:`split_leaf` (a
+    replicated leaf rank 0's)."""
+    from repro_torch.models.specs import leaf_dim
+    return _join(parts, leaf_dim(path, np.ndim(parts[0])))
+
+
 def split_params(tree, tp: int, rank: int) -> dict:
     """Model rank ``rank``'s local parameter tree (of ``tp``) cut from a
     global one: the reference's mesh-assembled tree (numpy) or the
     port's (tensors), in the padded layout tensor parallelism uses (head
     counts, experts and the vocabulary padded to multiples of tp). Each
-    leaf is cut along its split dimension (``models.specs``); a
-    replicated leaf is kept whole."""
-    from repro_torch.models.specs import leaf_dim
-    return tree_from_items(
-        (path, _part(leaf, leaf_dim(path, np.ndim(leaf)), tp, rank))
-        for path, leaf in tree_items(tree))
+    leaf is cut by :func:`split_leaf`."""
+    return tree_from_items((path, split_leaf(path, leaf, tp, rank))
+                           for path, leaf in tree_items(tree))
 
 
 def join_params(trees: list) -> dict:
     """The global parameter tree from every model rank's local tree, in
-    rank order: the inverse of :func:`split_params` (a replicated leaf
-    taken from rank 0)."""
-    from repro_torch.models.specs import leaf_dim
+    rank order: the inverse of :func:`split_params`, a leaf at a time
+    (:func:`join_leaf`)."""
     per_rank = [tree_items(t) for t in trees]
     return tree_from_items(
-        (path, _join([items[i][1] for items in per_rank],
-                     leaf_dim(path, np.ndim(leaf))))
-        for i, (path, leaf) in enumerate(per_rank[0]))
+        (path, join_leaf(path, [items[i][1] for items in per_rank]))
+        for i, (path, _) in enumerate(per_rank[0]))
 
 
 def cache_split_dims(cache) -> list:

@@ -24,15 +24,17 @@ rank 0 logs. ``--model m`` splits the model over m ranks beside each
 data rank (heads, MLA's too, hidden units, experts, Mamba's and the
 sLSTM's channels, the mLSTM's value dims, the vocabulary; the cache by
 key/value heads and recurrent channels; ``launch.mesh.make_group``),
-for the dense, MoE, SSM and hybrid families; the logits are the
-vocabulary padded to a multiple of m. ``--mla-absorb`` serves an MLA
-model (deepseek-v2-lite-16b) in the absorbed form. ``--model`` above 1
-with an encoder-decoder or the vision stub raises naming ROADMAP A13d,
-``--devices`` naming A13, and ``--apply-deltas``
-over more than one rank naming A14. The sliding-window
-variant is a config field (``attn_kind``), as in the reference. It
-prints what the reference prints: the prefill's seconds, the decode's
-ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
+for every family (an encoder-decoder's cross-attention and ``cross``
+cache by heads too; the stubs' patches or frames, drawn from the seed,
+the same on every rank); the logits are the vocabulary padded to a
+multiple of m. ``--mla-absorb`` serves an MLA model
+(deepseek-v2-lite-16b) in the absorbed form. Context-parallel decode
+(``--batch`` below ``--data``) of an MLA, SSM or hybrid model raises
+naming ROADMAP A13e before any group is joined, ``--devices`` naming
+A13, and ``--apply-deltas`` over more than one rank naming A14. The
+sliding-window variant is a config field (``attn_kind``), as in the
+reference. It prints what the reference prints: the prefill's seconds,
+the decode's ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
 trainer's ``--publish-deltas`` spool) the replica starts from the latest
 snapshot under ``DIR/snapshots``, decodes on the tree pinned at that
 version, applies the spool's deltas between decode steps (through the
@@ -89,15 +91,14 @@ def parse_args(argv=None):
 
 def check_args(args, run) -> None:
     """Raise NotImplementedError for a flag the port does not serve yet
-    (``--model`` > 1 for ``run``'s model outside its slice)."""
+    (context-parallel decode of ``run``'s model over ``--data`` ranks
+    where it is not ported: ``serve.step.check_serving``)."""
     if args.devices:
         raise NotImplementedError(
             "--devices: a mesh of devices in one process is not ported; "
             "the port runs a process a rank under torchrun (ROADMAP A13)")
-    if args.model > 1:
-        from repro_torch.configs.base import resolve_model_cfg
-        from repro_torch.serve.step import check_serving
-        check_serving(resolve_model_cfg(run), args.model)
+    from repro_torch.serve.step import check_serving
+    check_serving(run, args.data)
     if args.apply_deltas and args.data * args.model > 1:
         raise NotImplementedError(
             f"--apply-deltas over {args.data * args.model} ranks is not "

@@ -31,12 +31,13 @@
       --arch granite-moe-3b-a800m --smoke --comm sparse --pipeline fused \
       --data 2 --model 2
 
-``--arch`` takes every config of the registry the port serves: the dense
-stablelm-3b, granite-8b, qwen1.5-32b and starcoder2-7b, the MoE
-granite-moe-3b-a800m and deepseek-v2-lite-16b (MLA, shared experts, a
-dense first layer), the recurrent xlstm-125m (mLSTM and sLSTM) and the
-hybrid jamba-v0.1-52b (Mamba, attention, MoE); the steps of a model with
-MoE layers also log the aux terms ``lb``, ``z`` and ``drop`` (each
+``--arch`` takes every config of the registry: the dense stablelm-3b,
+granite-8b, qwen1.5-32b and starcoder2-7b, the MoE granite-moe-3b-a800m
+and deepseek-v2-lite-16b (MLA, shared experts, a dense first layer), the
+recurrent xlstm-125m (mLSTM and sLSTM), the hybrid jamba-v0.1-52b
+(Mamba, attention, MoE), the vision phi-3-vision-4.2b (a patch stub) and
+the encoder-decoder whisper-small (a frame stub); the steps of a model
+with MoE layers also log the aux terms ``lb``, ``z`` and ``drop`` (each
 summed over the MoE layers).
 
 Flag names and defaults are the reference launcher's
@@ -56,14 +57,17 @@ ranks each, one process a rank, started by ``torchrun``: each joins the
 default process group on its own card (NCCL), or on the CPU over gloo
 with ``--device cpu``, and its data and model groups
 (``launch.mesh.make_group``: rank r is data index r // model, model
-index r % model). ``--model`` > 1 splits the dense, MoE, SSM and hybrid
-families (heads, MLA's too, hidden units, experts, Mamba's and the
+index r % model). ``--model`` > 1 splits every family (heads, MLA's
+and cross-attention's too, hidden units, experts, Mamba's and the
 sLSTM's channels, the mLSTM's value dims, vocabulary; the residual
-stream by sequence); an encoder-decoder and the vision stub raise
-naming ROADMAP A13d, and so do checkpoints and the delta broadcast
-under it. ``--batch`` is the
-global batch, as in the reference: data rank d trains on its rows [d
-B/n, (d + 1) B/n), the same rows on every model rank. Rank 0 logs.
+stream by sequence; the encoder takes the whole frames on every rank).
+Under it rank 0 writes checkpoints of the parameters joined over the
+model group and of the states in the reference's ``(DP, TP, ...)``
+layout, and publishes deltas of the joined parameters. ``--batch`` is
+the global batch, as in the reference: data rank d trains on its rows
+[d B/n, (d + 1) B/n), the same rows (and stub inputs) on every model
+rank. Rank 0 logs. Ring attention has no flag, as the reference's
+launcher has none: :func:`train` takes ``attn_dist="ring"``.
 """
 from __future__ import annotations
 
@@ -163,10 +167,10 @@ def parse_args(argv=None):
                          "under torchrun)")
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel degree (ranks a model group, one "
-                         "process each, under torchrun): the dense, MoE, "
-                         "SSM and hybrid families, MLA among them; "
-                         "encoder-decoder and vision models raise "
-                         "(ROADMAP A13d)")
+                         "process each, under torchrun): every family, "
+                         "the encoder-decoder and the vision stub among "
+                         "them; checkpoints and deltas of the parameters "
+                         "joined over the group")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods; the data-parallel ranks are data * pods, "
                          "pod-major")
@@ -268,7 +272,7 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
           fixed_batch: bool = False, log=print, on_step=None,
           publish_deltas: str = "", delta_k: int = 0, delta_every: int = 1,
           delta_snapshot_every: int = 0,
-          delta_fault_schedule: str = "") -> dict:
+          delta_fault_schedule: str = "", attn_dist: str = "sp") -> dict:
     """Take ``run.steps`` training steps over the data ``group`` (None:
     one rank) and the ``model_group`` (None: tensor-parallel degree 1),
     each on this data rank's rows of a global ``batch`` x ``seq`` batch
@@ -280,10 +284,15 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
     "fallbacks": {reason: steps}, "params": J, "state": the final
     TrainState, "publisher": the DeltaPublisher or None}. Step time is
     the host clock around a step that ends in a device synchronisation,
-    and so is the publish time. Only rank 0 logs.
+    and so is the publish time. Only rank 0 logs. ``attn_dist="ring"``
+    trains with ring attention over the model group
+    (``train.step.build_train_step``).
 
     With ``publish_deltas`` (a spool directory) rank 0 publishes a delta
-    of its params every ``delta_every`` steps after the optimizer step
+    of its params (under tensor parallelism the tree joined over its
+    model group in host memory, ``train.step.joined_params``, where the
+    publisher's mirror then lives too) every ``delta_every``
+    steps after the optimizer step
     (``delta_k`` entries; 0: the sparsifier's k over the whole model),
     through ``delta_fault_schedule``'s send-side faults, and writes
     resync snapshots under ``<dir>/snapshots``: the version-0 base, one
@@ -298,23 +307,20 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
     from repro_torch.models.parallel import data_index, world
     from repro_torch.models.transformer import AUX_KEYS
     from repro_torch.train.step import (build_train_step, init_train_state,
-                                        save_train_state)
+                                        joined_params, save_train_state)
     dev = resolve_device(device)
     n, rank = world(group)[0], data_index(group)
     tp, model_rank = world(model_group) if model_group is not None \
         else (1, 0)
-    if tp > 1 and (publish_deltas or run.checkpoint_dir):
-        raise NotImplementedError(
-            "checkpoints and the delta broadcast under tensor parallelism "
-            "(model > 1) are not ported yet (ROADMAP A13d)")
     if batch % n:
         raise ValueError(f"a global batch of {batch} rows does not split "
                          f"over {n} data-parallel ranks")
     rows = slice(rank * batch // n, (rank + 1) * batch // n)
     if rank or model_rank:
         log = _quiet
-    step = build_train_step(run, dev, group, model_group)
-    state = init_train_state(run, dev, group, model_group=model_group)
+    step = build_train_step(run, dev, group, model_group, attn_dist)
+    state = init_train_state(run, dev, group, model_group=model_group,
+                             attn_dist=attn_dist)
     j = tree_size(state.params)
     log(f"[train] {run.model.name}: {j:,} params, sparsifier="
         f"{run.sparsifier.kind}@{run.sparsifier.sparsity}, device={dev}")
@@ -337,12 +343,17 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
             f"(E[n_active]={faults.expected_active(sched, n):.2f}/{n}, "
             f"err_decay={sp.err_decay}, combine={sp.combine})")
     publisher = chan = snap_dir = None
-    if publish_deltas and rank == 0:
+    # data rank 0's model group joins the parameters for rank 0 to publish
+    joins = bool(publish_deltas) and rank == 0
+    if joins:
+        joined = joined_params(state.params, model_group)
+    if joins and model_rank == 0:
         from repro_torch.core import faults
         from repro_torch.serve.delta import (FaultyChannel, SpoolChannel,
                                              delta_wire_bytes)
         from repro_torch.train.step import delta_publisher_for_run
-        publisher = delta_publisher_for_run(run, state.params, delta_k)
+        publisher = delta_publisher_for_run(run, joined, delta_k)
+        del joined
         chan = SpoolChannel(publish_deltas)
         csched = faults.parse_channel_schedule(delta_fault_schedule)
         if csched is not None:
@@ -376,18 +387,23 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
         rec = {"step": t, "loss": float(metrics["loss"]), "ms": ms}
         if run.model.moe is not None:
             rec.update({key: float(metrics[key]) for key in AUX_KEYS})
-        if publisher is not None and (t + 1) % max(1, delta_every) == 0:
+        if joins and (t + 1) % max(1, delta_every) == 0:
             t0 = time.perf_counter()
-            chan.send(publisher.publish(state.params))
+            joined = joined_params(state.params, model_group)
+            if publisher is not None:
+                chan.send(publisher.publish(joined))
+            del joined
             sync()
             rec["publish_ms"] = (time.perf_counter() - t0) * 1e3
-            if (delta_snapshot_every
+            if publisher is not None and (
+                    delta_snapshot_every
                     and publisher.version % delta_snapshot_every == 0):
                 publisher.write_snapshot(snap_dir)
         if (run.checkpoint_every and run.checkpoint_dir
                 and t and t % run.checkpoint_every == 0):
             save_train_state(run.checkpoint_dir, t, state, group,
-                             param_version=version())
+                             param_version=version(),
+                             model_group=model_group)
         if "n_active" in metrics:
             rec["n_active"] = float(metrics["n_active"])
         if step.gsync.last_count is not None:
@@ -416,7 +432,8 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
             f"reached the spool); final snapshot at v{publisher.version}")
     if run.checkpoint_dir:
         save_train_state(run.checkpoint_dir, run.steps, state, group,
-                         param_version=version())
+                         param_version=version(),
+                         model_group=model_group)
     return {"history": history,
             "fallbacks": dict(step.gsync.fallback_reasons),
             "params": j, "state": state, "publisher": publisher}
@@ -425,13 +442,14 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
 def main(argv=None):
     import torch.distributed as dist
 
-    from repro_torch.configs.base import resolve_model_cfg
+    from repro_torch.core.aggregate import check_supported
     from repro_torch.launch.mesh import make_group
-    from repro_torch.models.transformer import check_tensor_parallel
+    from repro_torch.models.transformer import check_model
     args = parse_args(argv)
     run = run_config(args)
-    if args.model > 1:
-        check_tensor_parallel(resolve_model_cfg(run))
+    # what the port does not serve raises before any group is joined
+    check_supported(run.sparsifier)
+    check_model(run.model)
     joined = dist.is_initialized()
     group, model_group, dev = make_group(args.data, args.model, args.pods,
                                          args.device)

@@ -3,8 +3,8 @@ causal (full or sliding-window) or bidirectional (an encoder's), and MLA
 (DeepSeek-V2's multi-head latent attention, expanded or absorbed), with
 their caches, and an encoder-decoder's cross-attention (the port of the
 full-sequence, prefill and decode paths of ``repro.models.attention``,
-with context-parallel decode of GQA and tensor parallelism of the
-decoder's self-attention).
+with context-parallel decode of GQA, tensor parallelism by heads of
+self- and cross-attention, and ring attention).
 
 The reference has no Pallas kernel here: its attention is plain jnp. The
 port keeps it plain PyTorch too: a matmul, a mask and an fp32 softmax.
@@ -61,7 +61,26 @@ and uv by column, wo by row, its padded heads masked; ``dkv`` and
 ``kv_norm`` are replicated, so every rank computes the whole ckv and
 krope, and its cache, which has no head axis, is whole on every rank.
 The expanded form expands the rank's heads; the absorbed form absorbs
-the rank's heads of uk and uv.
+the rank's heads of uk and uv. Cross-attention splits by heads too: the
+rank's heads of its q, k and v, wo's output summed (or psum-scattered)
+over the model group, the decode cache's ``cross`` copy the rank's
+key/value heads.
+
+Ring attention (``attn_dist="ring"``, the reference's ``_ring_fwd``,
+training only): every rank holds all the heads (``head_counts``; no
+padding, nothing masked), in weights of its own (the split leaves are
+drawn per model rank), and its block of the sequence, at global
+positions r S_local + i. Its queries attend to the tp key/value blocks in
+turn: its own, then each block the previous rank passes on
+(``ppermute_model``), which that rank projected with its own weights;
+MLA passes the compressed (ckv, krope) and expands it with the local uk
+and uv at every hop (never absorbed). The blocks merge with the online
+softmax on global positions (causal, sliding or, in an encoder,
+bidirectional), and wo's output stays the rank's block, not summed. So
+a ring model is not a one-card model, and the port reproduces it device
+by device. Cross-attention under ring keeps its branch: every rank's
+cross weights have all the heads, and the psum-scatter of wo's output
+sums the ranks' full-head outputs (the reference's, kept).
 
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
@@ -79,7 +98,8 @@ import torch
 from repro_torch.models.layers import dense_init, norm_fwd
 from repro_torch.models.parallel import (
     all_gather_model, all_reduce_max, all_reduce_sum, axis_index,
-    heads_padded, psum_model, psum_scatter_model, shard_slice,
+    heads_padded, ppermute_model, psum_model, psum_scatter_model, ring_on,
+    row_parallel_out, seq_gathered, shard_slice,
 )
 
 NEG_INF = -1e30
@@ -112,10 +132,10 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, rot_dim: int,
 
 
 def head_counts(cfg, pal=None) -> tuple:
-    """(query heads, key/value heads) of this rank: the config's at tp 1,
-    else each padded to a multiple of tp and split over the model
-    group."""
-    if pal is None or not pal.tp_on:
+    """(query heads, key/value heads) of this rank: the config's at tp 1
+    and under ring attention (every rank all of them), else each padded
+    to a multiple of tp and split over the model group."""
+    if pal is None or not pal.tp_on or ring_on(pal):
         return cfg.n_heads, cfg.n_kv_heads
     hp, kvp = heads_padded(cfg.n_heads, pal), heads_padded(cfg.n_kv_heads,
                                                           pal)
@@ -128,8 +148,9 @@ def head_counts(cfg, pal=None) -> tuple:
 def mask_padded_heads(o: torch.Tensor, cfg, pal=None) -> torch.Tensor:
     """Zero the outputs (B, S, Hl, hd) of the padded heads (global index
     >= n_heads), so padding is neutral (the reference's
-    ``mask_padded_heads``)."""
-    if pal is None or not pal.tp_on:
+    ``mask_padded_heads``); nothing under ring attention, which pads no
+    head."""
+    if pal is None or not pal.tp_on or ring_on(pal):
         return o
     hl = o.shape[2]
     if hl * pal.tp <= cfg.n_heads:
@@ -143,7 +164,8 @@ def init_attention(gen, cfg, *, lead=(), device=None,
     """{wk, wo, wq, wv}, and with ``qkv_bias`` the zero biases {bk, bq,
     bv}; for MLA {dkv, kv_norm, uk, uv, wo, wq}, unless ``cross``
     (cross-attention's weights are the plain ones for every kind). Under
-    tensor parallelism this rank's heads."""
+    tensor parallelism this rank's heads (all of them under ring
+    attention)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = head_counts(cfg, pal)
     if cfg.attn_kind == "mla" and not cross:
@@ -381,7 +403,10 @@ def attn_fwd_full(p: dict, x: torch.Tensor, cfg, causal: bool = True,
     for an encoder, bidirectional (not MLA: ``mla_encoder_message``).
     Under tensor parallelism this rank's heads, the output summed over
     the model group; with ``pal.sp`` x and the output are this rank's
-    sequence chunk (B, S/tp, d), the sequence gathered for attention."""
+    sequence chunk (B, S/tp, d), the sequence gathered for attention.
+    Under ring attention :func:`ring_fwd`."""
+    if ring_on(pal):
+        return ring_fwd(p, x, cfg, pal, causal)
     if pal is not None and pal.tp_on:
         sp = pal.sp
         if sp:
@@ -411,10 +436,49 @@ def _attn_fwd_local(p: dict, x: torch.Tensor, cfg, causal: bool,
     return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
 
 
+def ring_fwd(p: dict, x: torch.Tensor, cfg, pal,
+             causal: bool = True) -> torch.Tensor:
+    """The reference's ``_ring_fwd``: x (B, S_local, d), this rank's
+    block of the sequence at global positions r S_local + i, -> its
+    block of the output (B, S_local, d), not summed over the model group
+    (module docstring). tp hops: at hop i the queries attend to the key
+    and value block of model rank (r - i) % tp (its own at hop 0), each
+    hop's partial softmax merged into the running one, and the block
+    passed on to rank r + 1 for the next hop (no pass after the last)."""
+    b, sl, _ = x.shape
+    tp, r = pal.tp, axis_index(pal)
+    ar = torch.arange(sl, device=x.device)
+    pos = r * sl + ar
+    mla = cfg.attn_kind == "mla"
+    if mla:
+        if not causal:
+            raise NotImplementedError(mla_encoder_message(cfg))
+        q, ckv, krope = proj_mla(p, x, cfg, pos)
+        payload = (ckv, krope)
+    else:
+        q, k, v = proj_qkv(p, x, cfg, pos)
+        payload = (k, v)
+    scale = cfg.resolved_head_dim ** -0.5
+    window = _window(cfg) if causal else 0
+    acc = None
+    for i in range(tp):
+        if i:
+            payload = tuple(ppermute_model(t, pal, 1) for t in payload)
+        k_pos = ((r - i) % tp) * sl + ar
+        kb, vb = mla_expand(p, *payload, q.shape[2], cfg, x.dtype) if mla \
+            else payload
+        mask = mask_from_pos(pos, k_pos, window) if causal else None
+        blk = _partial(q, kb, vb, mask, scale)
+        acc = blk if acc is None else _merge(*acc, *blk)
+    o = _finalize(acc[0], acc[2])
+    return o.reshape(b, sl, -1) @ p["wo"].to(o.dtype)
+
+
 def cross_kv(p: dict, enc_out: torch.Tensor, cfg) -> tuple:
     """A decoder layer's cross-attention k and v (B, S_enc, KV, hd): the
     encoder's output through the layer's own wk and wv (and bk, bv), in
-    its dtype (the reference's ``init_cross_kv``)."""
+    its dtype (the reference's ``init_cross_kv``); under tensor
+    parallelism this rank's key/value heads."""
     b, s, _ = enc_out.shape
     dt = enc_out.dtype
     k = enc_out @ p["wk"].to(dt)
@@ -427,16 +491,24 @@ def cross_kv(p: dict, enc_out: torch.Tensor, cfg) -> tuple:
 
 
 def cross_attention(p: dict, x: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, cfg) -> torch.Tensor:
+                    v: torch.Tensor, cfg, pal=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d): the queries (no RoPE) over all S_enc
-    keys of ``cross_kv``'s k and v (or the cache's copy, in decode)."""
+    keys of ``cross_kv``'s k and v (or the cache's copy, in decode).
+    Under tensor parallelism this rank's heads (all of them under ring
+    attention), the padded ones masked, wo's output summed over the
+    model group; with ``pal.sp`` x and the output are this rank's
+    sequence chunk, the sequence gathered for the queries and wo's
+    output psum-scattered back (the reference's ``cross_kv`` branch)."""
+    x = seq_gathered(x, pal)
     b, s, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     q = q.reshape(b, s, -1, cfg.resolved_head_dim)
-    o = full_attention(q, k, v, cfg.resolved_head_dim ** -0.5)
-    return o.reshape(b, s, -1) @ p["wo"].to(o.dtype)
+    o = mask_padded_heads(full_attention(q, k, v,
+                                         cfg.resolved_head_dim ** -0.5),
+                          cfg, pal)
+    return row_parallel_out(o.reshape(b, s, -1) @ p["wo"].to(o.dtype), pal)
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,11 @@ backward pass with its own disjoint share of the loss
 ranks' terms to it; a replicated leaf's gradient is then this rank's
 share, summed over the model group by the train step.
 
-Ring attention (``attn_dist="ring"``, context-parallel attention over
-the model group) is not ported: it raises naming ROADMAP A13d.
+Ring attention (``attn_dist="ring"``, the reference's context-parallel
+attention over the model group, reached through the train step's
+``attn_dist``) rotates key/value blocks around the model group with
+:func:`ppermute_model`, whose backward is the inverse shift (JAX's
+transpose of ``ppermute``).
 """
 from __future__ import annotations
 
@@ -51,10 +54,7 @@ def world(group=None) -> tuple[int, int]:
     return 1, 0
 
 
-def ring_message() -> str:
-    return ("attn_dist='ring' (context-parallel ring attention over the "
-            "model group) is not ported yet; the port splits attention by "
-            "heads (ROADMAP A13d)")
+ATTN_DISTS = ("sp", "ring")
 
 
 @dataclass(frozen=True)
@@ -63,11 +63,12 @@ class Parallel:
     cache_seq_sharded: bool = False    # decode cache seq split over group
     model_group: object = None         # the model axis' process group
     seq_parallel: bool = False         # residual seq split over the model
-    attn_dist: str = "sp"              # "sp" only; "ring" raises (A13d)
+    attn_dist: str = "sp"              # "sp" (heads) | "ring" (sequence)
 
     def __post_init__(self):
-        if self.attn_dist != "sp":
-            raise NotImplementedError(ring_message())
+        if self.attn_dist not in ATTN_DISTS:
+            raise ValueError(f"unknown attn_dist {self.attn_dist!r} "
+                             f"(expected one of {ATTN_DISTS})")
 
     @property
     def size(self) -> int:
@@ -102,6 +103,14 @@ class Parallel:
     def model_axis(self):
         """The reference's field: "model" under tensor parallelism."""
         return "model" if self.tp_on else None
+
+
+def ring_on(pal) -> bool:
+    """Whether attention runs as the reference's ring (context parallel
+    over the model group): every rank all the heads, its own block of the
+    sequence."""
+    return (pal is not None and pal.tp_on
+            and getattr(pal, "attn_dist", "sp") == "ring")
 
 
 def data_index(group=None) -> int:
@@ -258,6 +267,45 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         return (_all_to_all(g, ctx.concat, ctx.split, ctx.group), None, None,
                 None)
+
+
+def _ppermute(x: torch.Tensor, shift: int, group) -> torch.Tensor:
+    """x sent to rank (r + shift) % n of the group, what rank (r - shift)
+    % n sent received in its place."""
+    n, r = world(group)
+    if shift % n == 0:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x,
+                      dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (r - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, group):
+        ctx.shift, ctx.group = shift, group
+        return _ppermute(x, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, -ctx.shift, ctx.group), None, None
+
+
+def ppermute_model(x: torch.Tensor, pal, shift: int = 1) -> torch.Tensor:
+    """The reference's ``ppermute`` over the model axis with the
+    permutation i -> (i + shift) % tp: this rank's x goes to model rank
+    (r + shift) % tp, and the result is model rank (r - shift) % tp's x;
+    its backward sends the gradient back by the inverse shift. x at tp
+    1."""
+    if pal is None or not pal.tp_on:
+        return x
+    return _Ppermute.apply(x, shift, pal.model_group)
 
 
 def psum_model(x: torch.Tensor, pal) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Decoder (and encoder-decoder) over heterogeneous layer stacks (the port
 of ``repro.models.transformer`` for every family, dense, MoE, SSM,
-hybrid, vision and audio, and for all but the encoder-decoder and the
-vision stub under tensor and expert parallelism): attention, Mamba,
+hybrid, vision and audio, each under tensor and expert parallelism and,
+in training, ring attention): attention, Mamba,
 mLSTM or sLSTM mixers, dense, MoE or no FFN; training loss with the MoE
 aux terms, prefill and cached decode.
 
@@ -80,9 +80,22 @@ global count of targets, so the ranks' losses are disjoint shares whose
 sum (:func:`global_loss`) is the loss; an MoE model's aux term is
 divided by tp, and its aux metrics are the model group's means. Prefill
 and decode run without the sequence split and gather the vocabulary's
-logits (B, V padded to a multiple of tp). An encoder-decoder, the
-vision stub and ring attention raise under tensor parallelism, naming
-ROADMAP A13d.
+logits (B, V padded to a multiple of tp).
+
+The two stubs under tensor parallelism keep the reference's layout: the
+patches overwrite the positions < P of the rank's sequence chunk (its
+global positions r S/tp + i), and the encoder takes the whole frames on
+every rank. Under the sequence split each encoder layer then gathers tp
+copies of the frames' sequence for attention and the MLP and
+psum-scatters back (the reference passes the whole frames into layers
+that run split; the copies change only the rounding), and each decoder
+layer's cross-attention gathers the decoder's sequence for its queries
+over the rank's heads of the encoder's output. Ring attention
+(``Parallel(attn_dist="ring")``, training only) gives every rank all the
+heads of its own attention weights (``init_rank_params`` draws them per
+model rank) and runs ``attention.ring_fwd`` in the decoder's and the
+encoder's self-attention; the encoder's ring sees the rank's whole
+frames as its block, at positions r S_enc + i.
 """
 from __future__ import annotations
 
@@ -132,27 +145,9 @@ def n_moe_layers(cfg) -> int:
     return n_superblocks(cfg) * sum(f == "moe" for _, f in layer_pattern(cfg))
 
 
-def tp_message(cfg, what: str) -> str:
-    """Why a model raises under tensor parallelism."""
-    return (f"{cfg.name}: {what} under tensor parallelism (model > 1) is "
-            "not ported yet; the port splits the dense, MoE, SSM and "
-            "hybrid families, MLA among them (ROADMAP A13d)")
-
-
-def check_tensor_parallel(cfg) -> None:
-    """Raise NotImplementedError for a model outside tensor parallelism's
-    slice: an encoder-decoder, the vision stub."""
-    for what, outside in (("an encoder-decoder", cfg.is_encoder_decoder),
-                          ("the vision stub",
-                           cfg.frontend == "vision_stub")):
-        if outside:
-            raise NotImplementedError(tp_message(cfg, what))
-
-
-def check_model(cfg, pal=None) -> None:
+def check_model(cfg) -> None:
     """Raise NotImplementedError for a model outside the ported slice (an
-    MLA encoder-decoder among them; under tensor parallelism
-    :func:`check_tensor_parallel`'s), ValueError for a family or mixer the
+    MLA encoder-decoder among them), ValueError for a family or mixer the
     reference does not have, a causal encoder (the reference's encoder is
     bidirectional whatever ``enc_causal`` says), or an encoder-decoder
     whose cross cache (one layer a super-block, the reference's layout)
@@ -173,8 +168,6 @@ def check_model(cfg, pal=None) -> None:
     if cfg.enc_causal:
         raise ValueError(f"{cfg.name}: enc_causal=True: the encoder is "
                          "bidirectional, as the reference's")
-    if pal is not None and pal.tp_on:
-        check_tensor_parallel(cfg)
     if not cfg.is_encoder_decoder:
         return
     if cfg.n_dense_prefix or len(layer_pattern(cfg)) > 1:
@@ -212,7 +205,7 @@ def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
     if cross:
         p["norm_x"] = init_norm(cfg, lead=lead, device=device)
         p["cross"] = attn.init_attention(gen, cfg, lead=lead, device=device,
-                                         cross=True)
+                                         cross=True, pal=pal)
     if ffn != "none":
         p["norm2"] = init_norm(cfg, lead=lead, device=device)
     if ffn == "dense":
@@ -228,7 +221,7 @@ def init_params(cfg, gen: torch.Generator, device=None, pal=None) -> dict:
     super-blocks' layers, the embedding, the final norm, the prefix, the
     encoder; under tensor parallelism this rank's share of each leaf
     (``models.specs``), all drawn from ``gen``."""
-    check_model(cfg, pal)
+    check_model(cfg)
     lead = (n_superblocks(cfg),)
     pattern = layer_pattern(cfg)
     cross = cfg.is_encoder_decoder
@@ -245,7 +238,7 @@ def init_params(cfg, gen: torch.Generator, device=None, pal=None) -> dict:
     if cross:
         params["encoder"] = {
             "blocks": _init_layer(gen, cfg, "attn", "dense",
-                                  (cfg.n_enc_layers,), device),
+                                  (cfg.n_enc_layers,), device, pal=pal),
             "final_norm": init_norm(cfg, device=device)}
     return params
 
@@ -261,8 +254,10 @@ def init_rank_params(cfg, seed: int, device=None, pal=None) -> dict:
     generator at :func:`rank_seed`, so the split leaves are drawn per
     model rank, then the replicated leaves (``models.specs``) broadcast
     from model rank 0, so every model rank holds their bits (the
-    reference draws twice and selects). At tp 1 ``init_params`` from
-    ``seed``."""
+    reference draws twice and selects). Under ring attention the
+    attention leaves hold all the heads, still drawn per model rank, as
+    the reference draws them (its specs keep them split). At tp 1
+    ``init_params`` from ``seed``."""
     from repro_torch.models.parallel import broadcast_model
     from repro_torch.models.specs import leaf_dim
     gen = torch.Generator(device=device).manual_seed(rank_seed(seed, pal))
@@ -329,24 +324,27 @@ def _mixer_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg,
 
 
 def _cross(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           cfg) -> torch.Tensor:
+           cfg, pal=None) -> torch.Tensor:
     """The decoder layer's cross-attention on the residual x, over the
-    encoder's k and v (B, S_enc, KV, hd)."""
+    encoder's k and v (B, S_enc, KV, hd; this rank's heads under tensor
+    parallelism)."""
     return x + attn.cross_attention(p["cross"], norm_fwd(p["norm_x"], x,
-                                                         cfg.norm), k, v, cfg)
+                                                         cfg.norm), k, v, cfg,
+                                    pal)
 
 
 def _layer_fwd(p: dict, x: torch.Tensor, cfg, mixer: str, ffn: str,
                enc_out, pal, *aux):
     x = _mixer(p, x, cfg, mixer, pal=pal)
     if enc_out is not None:
-        x = _cross(p, x, *attn.cross_kv(p["cross"], enc_out, cfg), cfg)
+        x = _cross(p, x, *attn.cross_kv(p["cross"], enc_out, cfg), cfg, pal)
     x, aux = _ffn(p, x, cfg, ffn, aux, pal)
     return (x, *aux)
 
 
-def _enc_layer(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    return _ffn(p, _mixer(p, x, cfg, "attn", causal=False), cfg, "dense")[0]
+def _enc_layer(p: dict, x: torch.Tensor, cfg, pal=None) -> torch.Tensor:
+    return _ffn(p, _mixer(p, x, cfg, "attn", causal=False, pal=pal), cfg,
+                "dense", pal=pal)[0]
 
 
 def layer_views(blocks: dict, n_layers: int) -> list:
@@ -399,18 +397,21 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg,
     return (x, dict(zip(AUX_KEYS, aux))) if with_aux else x
 
 
-def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
+def encode(params: dict, frames: torch.Tensor, cfg, pal=None) -> torch.Tensor:
     """The encoder over frame embeddings (B, S_enc, d) in their dtype:
     sinusoidal positions added, ``n_enc_layers`` bidirectional attention
     and dense layers (each recomputed in the backward pass when
-    ``cfg.remat``), the encoder's final norm."""
+    ``cfg.remat``), the encoder's final norm. Under tensor parallelism
+    every rank takes the whole frames, and its layers run as the
+    decoder's do (module docstring: tp copies of the sequence gathered
+    under the sequence split; ring attention over blocks of S_enc)."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = frames + sinusoidal(pos, cfg.d_model).to(frames.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     enc = params["encoder"]
     for p in layer_views(enc["blocks"], cfg.n_enc_layers):
-        x = checkpoint(_enc_layer, p, x, cfg, use_reentrant=False) if remat \
-            else _enc_layer(p, x, cfg)
+        x = checkpoint(_enc_layer, p, x, cfg, pal, use_reentrant=False) \
+            if remat else _enc_layer(p, x, cfg, pal)
     return norm_fwd(enc["final_norm"], x, cfg.norm)
 
 
@@ -435,17 +436,19 @@ def embed_batch(params: dict, tokens: torch.Tensor, cfg, pos0=None,
     (a 0-d device tensor) is the first token's position, 0 by default.
     With ``pal.sp`` the whole sequence is embedded and psum-scattered:
     x is this rank's chunk (B, S/tp, d) (the reference embeds first, as
-    every model rank must look up the same tokens)."""
+    every model rank must look up the same tokens), and the patches and
+    positions are those of its global positions r S/tp + i."""
     sp = pal is not None and pal.sp
     x = embed_fwd(params["embed"], tokens, cfg, pal,
                   "scatter" if sp else "psum")
+    pos = torch.arange(x.shape[1], device=tokens.device)
+    if sp:
+        pos = pos + axis_index(pal) * x.shape[1]
     if patches is not None:
-        n = min(x.shape[1], patches.shape[1])
-        x = torch.cat([patches[:, :n].to(x.dtype), x[:, n:]], 1)
+        npat = patches.shape[1]
+        over = patches.index_select(1, pos.clamp(max=npat - 1))
+        x = torch.where((pos < npat)[None, :, None], over.to(x.dtype), x)
     if not cfg.rope and cfg.ssm is None:
-        pos = torch.arange(x.shape[1], device=tokens.device)
-        if sp:
-            pos = pos + axis_index(pal) * x.shape[1]
         if pos0 is not None:
             pos = pos + pos0
         x = x + sinusoidal(pos, cfg.d_model).to(x.dtype)
@@ -497,12 +500,13 @@ def _patches(batch: dict, cfg):
     return batch.get("patches") if cfg.frontend == "vision_stub" else None
 
 
-def _encoded(params: dict, batch: dict, cfg):
+def _encoded(params: dict, batch: dict, cfg, pal=None):
     """The encoder's output over the batch's frames (cast to the model's
     dtype), for an encoder-decoder; else None."""
     if not cfg.is_encoder_decoder:
         return None
-    return encode(params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
+    return encode(params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg,
+                  pal)
 
 
 def hidden(params: dict, batch: dict, cfg, with_aux: bool = False,
@@ -512,8 +516,8 @@ def hidden(params: dict, batch: dict, cfg, with_aux: bool = False,
     sequence parallelism)."""
     x = embed_batch(params, batch["tokens"], cfg,
                     patches=_patches(batch, cfg), pal=pal)
-    return forward_hidden(params, x, cfg, with_aux, _encoded(params, batch,
-                                                             cfg), pal)
+    return forward_hidden(params, x, cfg, with_aux,
+                          _encoded(params, batch, cfg, pal), pal)
 
 
 def loss_and_aux(params: dict, batch: dict, cfg, pal=None) -> tuple:
@@ -524,7 +528,7 @@ def loss_and_aux(params: dict, batch: dict, cfg, pal=None) -> tuple:
     parallelism the loss is this rank's share (:func:`chunked_xent`), the
     aux term, from the rank's own tokens, divided by tp, and the aux
     metrics the model group's means."""
-    check_model(cfg, pal)
+    check_model(cfg)
     x, aux = hidden(params, batch, cfg, with_aux=True, pal=pal)
     if pal is not None and pal.sp:
         x = all_gather_model(x, pal, 1)
@@ -556,7 +560,7 @@ def full_logits(params: dict, batch: dict, cfg, pal=None) -> torch.Tensor:
     patches or frames), no cache: what prefill and decode are held
     against (under tensor parallelism the padded vocabulary's, gathered
     over the model group; no sequence split)."""
-    check_model(cfg, pal)
+    check_model(cfg)
     if pal is not None and pal.sp:
         raise ValueError("full_logits runs without the sequence split")
     return gather_vocab(lm_head_fwd(params["embed"],
@@ -593,8 +597,9 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     must split evenly over the group (not for MLA, nor for a model with
     an SSM: ROADMAP A13e), and the whole of the cross k and v; under
     tensor parallelism this rank's key/value heads and share of each
-    recurrent state (MLA's ckv and krope whole)."""
-    check_model(cfg, pal)
+    recurrent state (MLA's ckv and krope whole), and its key/value heads
+    of the cross k and v."""
+    check_model(cfg)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
         if cfg.attn_kind == "mla":
@@ -613,7 +618,7 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
                                         dtype, device=device, pal=pal)
                            for _ in range(cfg.n_dense_prefix)]
     if cfg.is_encoder_decoder:
-        shape = (*lead, batch, enc_seq, cfg.n_kv_heads,
+        shape = (*lead, batch, enc_seq, attn.head_counts(cfg, pal)[1],
                  cfg.resolved_head_dim)
         cache["cross"] = {name: torch.zeros(shape, dtype=dtype,
                                             device=device)
@@ -649,7 +654,7 @@ def prefill(params: dict, batch: dict, cfg, max_seq: int,
     the padded vocabulary's, gathered."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    enc_out = _encoded(params, batch, cfg)
+    enc_out = _encoded(params, batch, cfg, pal)
     cache = init_decode_cache(
         cfg, b, max_seq, getattr(torch, cfg.dtype), tokens.device, pal,
         enc_seq=0 if enc_out is None else enc_out.shape[1])
@@ -663,7 +668,7 @@ def prefill(params: dict, batch: dict, cfg, max_seq: int,
             k, v = attn.cross_kv(p["cross"], enc_out, cfg)
             xc[0].copy_(k)
             xc[1].copy_(v)
-            x = _cross(p, x, k, v, cfg)
+            x = _cross(p, x, k, v, cfg, pal)
         x = _ffn(p, x, cfg, ffn, pal=pal)[0]
     cache["pos"].fill_(s)
     x = norm_fwd(params["final_norm"], x[:, -1:], cfg.norm)
@@ -686,7 +691,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
                                        _cross_caches(cache)):
         x = _mixer_decode(p, x, lc, pos, cfg, mixer, pal)
         if xc is not None:
-            x = _cross(p, x, *xc, cfg)
+            x = _cross(p, x, *xc, cfg, pal)
         x = _ffn(p, x, cfg, ffn, pal=pal)[0]
     pos.add_(1)
     x = norm_fwd(params["final_norm"], x, cfg.norm)

@@ -26,6 +26,13 @@ by contract:
   those tensors unchanged while the live tree moves on, for up to one
   copy of the parameters per apply.
 
+A trainer under tensor parallelism publishes the parameters joined over
+its model group (``train.step.joined_params``: the reference's global
+tree, as its publisher sees the mesh-assembled arrays), so payloads,
+snapshots and replicas keep the one-rank layout. That tree is gathered a
+leaf at a time into host memory, and the publisher's mirror and its
+difference vector live there with it: no card holds a global copy.
+
 Payload indices are int32, as the reference's, so J must stay below 2^31:
 the publisher and the applier raise for a larger model instead of
 wrapping. Transports: :class:`MemoryChannel`, :class:`SpoolChannel` (the

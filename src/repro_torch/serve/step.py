@@ -29,15 +29,18 @@ data axes:
 Under tensor parallelism (``model_group``, a model group of tp ranks
 beside each data rank, as ``launch.mesh.make_group`` numbers them) each
 rank holds its share of the parameters and its key/value heads of the
-cache (its share of each recurrent state; MLA's whole ckv and krope),
-the sequence is never split, and both functions return the padded
-vocabulary's logits (B, V padded to a multiple of tp), gathered
-over the model group, then over the data group's rows.
+cache (its share of each recurrent state; MLA's whole ckv and krope; an
+encoder-decoder's ``cross`` k and v), the sequence is never split, the
+encoder and the patches take the whole stub inputs on every rank, and
+both functions return the padded vocabulary's logits (B, V padded to a
+multiple of tp), gathered over the model group, then over the data
+group's rows. Ring attention is the train step's alone: serving splits
+attention by heads (the reference's ``serve_parallel``).
 
-A batch (or cache) that n does not split raises ValueError; tensor
-parallelism of a model outside its slice (an encoder-decoder, the
-vision stub) raises NotImplementedError naming ROADMAP A13d, and
-context-parallel decode of an MLA, SSM or hybrid model naming A13e. The model may be of any family; an MoE layer's capacity follows
+A batch (or cache) that n does not split raises ValueError;
+context-parallel decode of an MLA, SSM or hybrid model raises
+NotImplementedError naming ROADMAP A13e (:func:`check_serving`). The
+model may be of any family; an MoE layer's capacity follows
 the tokens a rank routes, as the reference's does under its shard_map;
 a recurrent layer's state is cut by rows like attention's k and v; a
 vision or audio model's batch carries its patches or frames, cut by rows
@@ -57,11 +60,17 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
 
 
-def check_serving(cfg, model: int = 1) -> None:
-    """Raise NotImplementedError for tensor-parallel serving (``model`` >
-    1) of a model outside its slice (ROADMAP A13d)."""
-    if model > 1:
-        tfm.check_tensor_parallel(cfg)
+def check_serving(run: RunConfig, data: int = 1) -> None:
+    """Raise NotImplementedError for context-parallel decode (a global
+    batch below the ``data`` ranks) of an MLA model or a model with an
+    SSM (ROADMAP A13e); any tensor-parallel degree is served."""
+    cfg = resolve_model_cfg(run)
+    if run.shape.global_batch >= data:
+        return
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(attn.mla_cp_message(cfg))
+    if cfg.ssm is not None:
+        raise NotImplementedError(tfm.cp_message(cfg))
 
 
 def serve_parallel(run: RunConfig, group=None, *, decode: bool,
@@ -69,16 +78,12 @@ def serve_parallel(run: RunConfig, group=None, *, decode: bool,
     """The serving step's ``Parallel`` over the data ``group`` and the
     ``model_group``: the cache's sequence axis sharded (context-parallel
     decode) when ``decode`` and the global batch is below the data
-    group's size; NotImplementedError then for an MLA model or a model
-    with an SSM (ROADMAP A13e). The sequence is never split over the
-    model group."""
+    group's size (:func:`check_serving`'s gate then). The sequence is
+    never split over the model group."""
     n, _ = world(group)
     sharded = decode and run.shape.global_batch < n
-    cfg = resolve_model_cfg(run)
-    if sharded and cfg.attn_kind == "mla":
-        raise NotImplementedError(attn.mla_cp_message(cfg))
-    if sharded and cfg.ssm is not None:
-        raise NotImplementedError(tfm.cp_message(cfg))
+    if sharded:
+        check_serving(run, n)
     return Parallel(group=group, cache_seq_sharded=sharded,
                     model_group=model_group)
 
@@ -148,11 +153,10 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None,
     return out
 
 
-def _build(run: RunConfig, device, model_group):
+def _build(run: RunConfig, device):
     resolve_device(device)
     configure_numerics()
     cfg = resolve_model_cfg(run)
-    check_serving(cfg, 1 if model_group is None else world(model_group)[0])
     tfm.check_model(cfg)
     return cfg
 
@@ -172,7 +176,7 @@ def build_prefill(run: RunConfig, device=None, *, group=None,
     {"tokens": (B, S)[, "patches" | "frames": (B, P | S_enc, d)]}, the
     global batch; params this rank's; the cache holds this rank's rows
     (and key/value heads)."""
-    cfg = _build(run, device, model_group)
+    cfg = _build(run, device)
     n, r = world(group)
     decode_cache_layout(run, n, False)
     pal = serve_parallel(run, group, decode=False, model_group=model_group)
@@ -191,7 +195,7 @@ def build_decode_step(run: RunConfig, device=None, *, group=None,
     """``fn(params, cache, token) -> (logits (B, V), cache)``: token (B,
     1) of the global batch; the cache (this rank's rows or slots, and
     key/value heads) is updated in place."""
-    cfg = _build(run, device, model_group)
+    cfg = _build(run, device)
     n, r = world(group)
     pal = serve_parallel(run, group, decode=True, model_group=model_group)
     decode_cache_layout(run, n, pal.cache_seq_sharded)

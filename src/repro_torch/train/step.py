@@ -53,10 +53,17 @@ global norm weighs a replicated leaf by 1/tp and sums over the model
 group. The logged loss is the model group's sum of the shares, averaged
 over the data group; every other metric is averaged over both groups.
 Streaming (``overlap="backward"``) sums a replicated leaf's gradient
-over the model group in its hook.
+over the model group in its hook. ``attn_dist="ring"`` (the reference's
+``build_parallel(mesh, attn_dist="ring")``) trains with ring attention
+over the model group (``models.attention.ring_fwd``): every rank all the
+heads of its own attention weights, drawn per model rank.
 The module also holds the run's checkpoints (:func:`save_train_state`,
-:func:`restore_train_state`, in the reference's global layout) and the
-delta broadcast's publisher for a run (:func:`delta_publisher_for_run`).
+:func:`restore_train_state`, in the reference's global layout: under
+tensor parallelism the parameters joined over the model group, the
+states as ``(DP, TP, ...)``, gathered and written a leaf at a time in
+rank 0's host memory) and the delta broadcast's publisher for a run
+(:func:`delta_publisher_for_run`, on the joined tree in host memory:
+:func:`joined_params`).
 The model is ``resolve_model_cfg(run)``: ``RunConfig.attn_override=
 "sliding"`` trains a dense model's sliding-window variant.
 """
@@ -111,15 +118,18 @@ def _padded_slice(vec: torch.Tensor, rank: int, shard: int, n: int):
         rank * shard:(rank + 1) * shard]
 
 
-def train_parallel(group=None, model_group=None) -> Parallel:
+def train_parallel(group=None, model_group=None,
+                   attn_dist: str = "sp") -> Parallel:
     """The train step's ``Parallel``: the residual stream split by
     sequence over the model group, as the reference's ``build_parallel``
-    defaults."""
-    return Parallel(group=group, model_group=model_group, seq_parallel=True)
+    defaults, and its ``attn_dist`` ("sp": attention by heads; "ring")."""
+    return Parallel(group=group, model_group=model_group, seq_parallel=True,
+                    attn_dist=attn_dist)
 
 
 def init_train_state(run: RunConfig, device=None, group=None,
-                     params: dict = None, model_group=None) -> TrainState:
+                     params: dict = None, model_group=None,
+                     attn_dist: str = "sp") -> TrainState:
     """Fresh state: parameters drawn from ``run.seed`` (under tensor
     parallelism this rank's share: ``transformer.init_rank_params``), or
     the given tree (this rank's, e.g. cut from the reference's by
@@ -128,7 +138,8 @@ def init_train_state(run: RunConfig, device=None, group=None,
     dev = resolve_device(device)
     if params is None:
         params = init_rank_params(resolve_model_cfg(run), run.seed, dev,
-                                  train_parallel(group, model_group))
+                                  train_parallel(group, model_group,
+                                                 attn_dist))
     params = tree_map(lambda t: t.to(dev, torch.float32), params)
     flat = TreeFlattener(params)
     n, rank = world(group)[0], data_index(group)
@@ -146,15 +157,16 @@ class TrainStep:
     state's sparsifier state is consumed (``state.ef`` becomes None).
     ``gsync.fallbacks`` counts the steps whose trim took the exact
     fallback. ``group`` is the data group, ``model_group`` the model
-    group (None: tensor-parallel degree 1)."""
+    group (None: tensor-parallel degree 1), ``attn_dist`` the attention's
+    distribution over it ("sp" or "ring")."""
 
     def __init__(self, run: RunConfig, device=None, group=None,
-                 model_group=None):
+                 model_group=None, attn_dist: str = "sp"):
         resolve_device(device)
         configure_numerics()
         self.run = run
         self.group = group
-        self.pal = train_parallel(group, model_group)
+        self.pal = train_parallel(group, model_group, attn_dist)
         sp = run.sparsifier
         # the leaf layout, from parameters drawn on the meta device: the
         # allocation's segments are layer-aligned (leaves grouped, never
@@ -347,8 +359,11 @@ class TrainStep:
 
 
 def build_train_step(run: RunConfig, device=None, group=None,
-                     model_group=None) -> TrainStep:
-    return TrainStep(run, device, group, model_group)
+                     model_group=None, attn_dist: str = "sp") -> TrainStep:
+    """The train step over the data ``group`` and the ``model_group``;
+    ``attn_dist="ring"`` trains with ring attention (the reference's
+    ``build_parallel(mesh, attn_dist="ring")``)."""
+    return TrainStep(run, device, group, model_group, attn_dist)
 
 
 def delta_publisher_for_run(run: RunConfig, params: dict, delta_k: int = 0,
@@ -367,76 +382,194 @@ def delta_publisher_for_run(run: RunConfig, params: dict, delta_k: int = 0,
     return DeltaPublisher(params, k, record_history=record_history)
 
 
-def _global(leaf: torch.Tensor, group) -> torch.Tensor:
-    """A rank's state leaf in the reference's global (DP, TP, ...) layout:
-    every rank's slice, gathered on rank 0 (the other ranks get None); a
-    0-d leaf (``step``, the same on every rank) as it is."""
+def _model_axis(model_group) -> tuple[int, int]:
+    """(tp, this rank's model index); (1, 0) without a model group."""
+    return world(model_group) if model_group is not None else (1, 0)
+
+
+# elements a rank sends in one gather of a checkpoint or a join: the
+# card holds at most a group's worth of such chunks beside the live state
+GATHER_CHUNK = 1 << 24
+
+
+def _host_gather(leaf: torch.Tensor, group=None):
+    """Every rank's ``leaf`` of ``group`` (None: the default group), in
+    host memory on the group's rank 0 as one CPU tensor ``(n,) +
+    leaf.shape`` in rank order; None on the other ranks. A collective of
+    the group, made in gathers of GATHER_CHUNK elements a rank into one
+    set of n device buffers, each chunk copied to the host before the
+    next is gathered."""
+    n, r = world(group)
+    flat = leaf.detach().contiguous().reshape(-1)
+    if n == 1:
+        return flat.cpu().reshape((1,) + tuple(leaf.shape))
+    dst = 0 if group is None else dist.get_global_rank(group, 0)
+    out = bufs = None
+    if r == 0:
+        out = torch.empty((n, flat.numel()), dtype=leaf.dtype)
+        bufs = [flat.new_empty(min(GATHER_CHUNK, flat.numel()))
+                for _ in range(n)]
+    for lo in range(0, flat.numel(), GATHER_CHUNK):
+        piece = flat[lo:lo + GATHER_CHUNK]
+        parts = None if bufs is None else [b[:piece.numel()] for b in bufs]
+        dist.gather(piece, parts, dst=dst, group=group)
+        for row, part in zip(out if r == 0 else (), parts or ()):
+            row[lo:lo + part.numel()].copy_(part)
+    return None if out is None else out.reshape((n,) + tuple(leaf.shape))
+
+
+def joined_params(params: dict, model_group=None):
+    """The global parameter tree (``convert.join_leaf`` of every model
+    rank's leaf: a replicated leaf model rank 0's copy) in host memory on
+    model rank 0 of ``model_group``, None on the others; ``params``
+    itself without a model group. A collective of the model group that
+    gathers a leaf at a time (:func:`_host_gather`), so no card holds a
+    global copy."""
+    from repro_torch.convert import join_leaf
+    from repro_torch.core.flatten import tree_from_items
+    tp, m = _model_axis(model_group)
+    if tp == 1:
+        return params
+    items = []
+    for path, leaf in tree_items(params):
+        parts = _host_gather(leaf, model_group)
+        if parts is not None:
+            items.append((path, join_leaf(path, list(parts.unbind(0)))
+                          .clone()))
+    return tree_from_items(items) if m == 0 else None
+
+
+def _global(leaf: torch.Tensor, group, model_group=None):
+    """A rank's state leaf in the reference's global (DP, TP, ...) layout
+    in host memory: every rank's slice, gathered on rank 0 (the other
+    ranks get None; :func:`_host_gather`); a 0-d leaf (``step``, the same
+    on every rank) as it is. Under tensor parallelism the ranks are the
+    whole default group, data index r // tp and model index r % tp
+    (``launch.mesh``)."""
     if leaf.ndim == 0:
         return leaf
-    n, rank = world(group)
+    tp = _model_axis(model_group)[0]
+    if tp > 1:
+        group = None
+    n = world(group)[0]
     if n == 1:
         return leaf.reshape((1, 1) + tuple(leaf.shape))
-    parts = [torch.empty_like(leaf) for _ in range(n)] if rank == 0 else None
-    dist.gather(leaf.contiguous(), parts, dst=0, group=group)
-    return None if rank else torch.stack(parts).unsqueeze(1)
+    rows = _host_gather(leaf, group)
+    return None if rows is None else \
+        rows.reshape((n // tp, tp) + tuple(leaf.shape))
 
 
 def save_train_state(ckpt_dir: str, step: int, state: TrainState,
-                     group=None, param_version=None):
+                     group=None, param_version=None, model_group=None):
     """Checkpoint a TrainState in the reference's file format and global
-    layout: the optimizer's ZeRO-1 slices and the sparsifier states as
-    ``(DP, 1, ...)``, gathered over ``group`` and written by rank 0 (a
-    collective: every rank calls it). Returns rank 0's path prefix."""
+    layout: the parameters joined over the model group
+    (``convert.join_leaf``), the optimizer's ZeRO-1 slices and the
+    sparsifier states as ``(DP, TP, ...)``, gathered over the data and
+    model groups and written by rank 0 (a collective: every rank calls
+    it). Under tensor parallelism every model rank's copy of the
+    replicated leaves goes beside them (``save_checkpoint``'s
+    ``replicated``): the global tree holds model rank 0's, as the
+    reference's does. Rank 0 gathers, joins and writes a leaf at a time
+    in host memory (:func:`_host_gather`), so no card holds a global
+    copy of any tree. Returns rank 0's path prefix."""
     from repro_torch.checkpoint.io import save_checkpoint
-    opt = tree_map(lambda l: _global(l, group), state.opt)
-    ef = tree_map(lambda l: _global(l, group), state.ef)
+    from repro_torch.convert import join_leaf
+    from repro_torch.models.specs import leaf_dim
     n, rank = world(group)
+    tp, m = _model_axis(model_group)
+
+    def params(replicated: bool):
+        if rank:       # data rank 0's model group gathers the parameters
+            return
+        for path, leaf in tree_items(state.params):
+            if tp == 1:
+                yield path, leaf.detach()
+                continue
+            if replicated and leaf_dim(path, leaf.ndim) is not None:
+                continue
+            parts = _host_gather(leaf, model_group)
+            if parts is not None:
+                yield path, (parts if replicated else
+                             join_leaf(path, list(parts.unbind(0))))
+
+    def states(tree):
+        for path, leaf in tree_items(tree):
+            yield path, _global(leaf, group, model_group)
+
+    # every rank draws the streams in this order, the writer as it writes
+    streams = (params(False), states(state.opt), states(state.ef),
+               params(True) if tp > 1 else None)
     path = None
-    if rank == 0:
-        path = save_checkpoint(ckpt_dir, step, state.params, opt, ef,
-                               param_version=param_version)
-    if n > 1:
+    if rank == 0 and m == 0:
+        path = save_checkpoint(ckpt_dir, step, *streams[:3],
+                               param_version=param_version,
+                               replicated=streams[3])
+    else:
+        for stream in streams:
+            for _ in stream or ():
+                pass
+    if tp > 1:
+        dist.barrier()
+    elif n > 1:
         dist.barrier(group=group)
     return path
 
 
 def restore_train_state(ckpt_dir: str, step: int, run: RunConfig,
-                        device=None, group=None) -> TrainState:
+                        device=None, group=None,
+                        model_group=None) -> TrainState:
     """The TrainState of this rank from a checkpoint of either package:
-    the parameters, and the rank's row of the optimizer and sparsifier
-    states. The templates are drawn on the ``meta`` device, so nothing
-    but the restored state is allocated. The EF rows follow the saved
-    worker count (``checkpoint.io._fit_ef_worker_dims``: a new rank starts
-    from zero error feedback); the optimizer's rows must match the
-    run's world."""
-    from repro_torch.checkpoint.io import load_leaves, to_tensor
+    the parameters (under tensor parallelism the rank's share of each
+    saved global leaf, ``convert.split_leaf``, or its own copy of a
+    replicated leaf where the checkpoint holds them:
+    ``checkpoint.io.load_replicated``), and the rank's row of the
+    optimizer and sparsifier states. The rank's layout is the file's, so
+    a checkpoint of ring attention (every rank all the heads) restores
+    as one split by heads does. The file must hold the leaves of
+    ``run``'s model, and its states the J_local its parameters give.
+    Each leaf is read, cut and moved to ``device`` before the next is
+    read; the states' templates are drawn on the ``meta`` device. The
+    EF rows follow the saved worker count
+    (``checkpoint.io._fit_ef_worker_dims``: a new rank starts from zero
+    error feedback); the optimizer's rows must match the run's world."""
+    from repro_torch.checkpoint.io import (load_items, load_leaves,
+                                           load_replicated, to_tensor)
+    from repro_torch.convert import split_leaf
     from repro_torch.core.flatten import tree_from_items
     dev = resolve_device(device)
     meta = torch.device("meta")
-    params = init_params(resolve_model_cfg(run), torch.Generator(), meta)
+    tp, m = _model_axis(model_group)
+    n, rank = world(group)[0], data_index(group)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    copies = load_replicated(path, tp) if tp > 1 else {}
+    params = tree_from_items(
+        (p, to_tensor(copies[p][m] if p in copies
+                      else split_leaf(p, leaf, tp, m), None, dev))
+        for p, leaf in load_items(path + ".params.npz"))
+    want = {p for p, _ in tree_items(init_params(
+        resolve_model_cfg(run), torch.Generator(), meta))}
+    odd = sorted(want ^ {p for p, _ in tree_items(params)}, key=str)
+    if odd:
+        raise ValueError(f"checkpoint {path}: the leaves {odd[:4]} differ "
+                         f"from {run.model.name}'s")
     j = TreeFlattener(params).total
-    n, rank = world(group)
     opt = init_opt_state(run.optimizer, torch.empty(opt_shard_len(j, n),
                                                     device=meta))
     ef = sparsify.init_state(run.sparsifier, j, meta)
-    path = os.path.join(ckpt_dir, f"step_{step:08d}")
 
-    def rows(tree):
-        return tree_map(lambda l: l if l.ndim == 0 else torch.empty(
-            (n, 1) + tuple(l.shape), dtype=l.dtype, device=meta), tree)
-
-    def load(tree, suffix, migrate_ef=False, row=False):
+    def load(tree, suffix, migrate_ef=False):
+        rows = tree_map(lambda l: l if l.ndim == 0 else torch.empty(
+            (n, tp) + tuple(l.shape), dtype=l.dtype, device=meta), tree)
         out = []
-        for p, leaf, tmpl in load_leaves(path + suffix, tree, migrate_ef):
-            if row and tmpl.ndim:
+        for p, leaf, tmpl in load_leaves(path + suffix, rows, migrate_ef):
+            if tmpl.ndim:
                 if tuple(leaf.shape) != tuple(tmpl.shape):
                     raise ValueError(
                         f"checkpoint leaf {p} has shape {leaf.shape}; a "
-                        f"world of {n} wants {tuple(tmpl.shape)}")
-                leaf = leaf[rank, 0]
-            out.append((p, to_tensor(leaf, tmpl, dev)))
+                        f"world of {n} x {tp} wants {tuple(tmpl.shape)}")
+                leaf = leaf[rank, m]
+            out.append((p, to_tensor(leaf, None, dev)))
         return tree_from_items(out)
 
-    return TrainState(_as_leaves(load(params, ".params.npz")),
-                      load(rows(opt), ".opt.npz", row=True),
-                      load(rows(ef), ".ef.npz", migrate_ef=True, row=True))
+    return TrainState(_as_leaves(params), load(opt, ".opt.npz"),
+                      load(ef, ".ef.npz", migrate_ef=True))

@@ -30,17 +30,28 @@ The inputs' ``mode`` (default "sync") picks what runs:
   tokens: the logits of the prefill and of every decode step;
 - "collectives": the model axis' collectives (``psum``, ``all_gather``,
   ``psum_scatter``, the MoE's ``all_to_all``, the stop-gradient
-  ``pmax``) on a ("model",) mesh: each rank's output and ``jax.vjp``
+  ``pmax``, and ``ppermute`` by +1 and -1 where the inputs carry their
+  cotangents) on a ("model",) mesh: each rank's output and ``jax.vjp``
   gradient;
 - "tp_train": ``build_train_step`` on ("data", "model") meshes of the
   inputs' reduced models (``arch``, optional head counts and
-  vocabulary): the global initial parameters by path, the metrics and
-  ``idx_prev`` of every step, the final parameters and every device's
-  copy of the replicated leaves;
+  vocabulary, ``attn_dist``; a vision model's batch takes the inputs'
+  ``patches``, an audio model's their ``frames``): the global initial
+  parameters by path, the metrics and ``idx_prev`` of every step, the
+  final parameters and every device's copy of the replicated leaves; a
+  case with ``ckpt`` also saves ``save_checkpoint`` of the state after
+  step 0 there, and publishes a delta of ``delta_k`` entries of the
+  global parameters after every step (``DeltaPublisher``): each
+  payload, and the global parameters before and after every step by
+  path;
 - "tp_serve": the mesh's ``build_prefill`` and ``build_decode_step``
   under tensor parallelism: the parameters and the prefill's cache by
   path (the global cache, and each device's own shard of it), the
   logits of the prefill and of every decode step;
+- "ring_equal": for each case, one device's parameters (by path) and
+  loss, and the loss of ring attention (``build_parallel(mesh,
+  attn_dist="ring")``) on the case's mesh with every model rank's
+  attention weights set to that one device's;
 - "tp": those of the three above that the inputs ask for, in one
   process.
 
@@ -209,15 +220,17 @@ def _leaves(prefix: str, tree) -> dict:
     return out
 
 
-COLLECTIVES = ("psum", "all_gather", "psum_scatter", "all_to_all", "pmax")
+COLLECTIVES = ("psum", "all_gather", "psum_scatter", "all_to_all", "pmax",
+               "ppermute", "ppermute_back")
 
 
 def run_collectives(data) -> dict:
     """Each model-axis collective of ``repro.models.parallel`` (and the
-    MoE's tiled all_to_all, and the stop-gradient pmax of the sharded
-    cross-entropy) under ``shard_map(check_vma=False)`` on a ("model",)
-    mesh of WORLD devices: the output of each rank's x and ``jax.vjp``'s
-    gradient of each rank's cotangent."""
+    MoE's tiled all_to_all, the stop-gradient pmax of the sharded
+    cross-entropy, and ring attention's ppermute by +1 and -1) under
+    ``shard_map(check_vma=False)`` on a ("model",) mesh of WORLD devices:
+    the output of each rank's x and ``jax.vjp``'s gradient of each rank's
+    cotangent, for each collective whose cotangents the inputs hold."""
     from repro.models import parallel as par
     mesh = jax.make_mesh((WORLD,), ("model",))
     pal = par.Parallel(model_axis="model", tp=WORLD)
@@ -227,9 +240,13 @@ def run_collectives(data) -> dict:
            "all_to_all": lambda x: jax.lax.all_to_all(
                x, "model", split_axis=0, concat_axis=1, tiled=True),
            "pmax": lambda x: x * jax.lax.pmax(jax.lax.stop_gradient(x),
-                                              "model")}
+                                              "model"),
+           "ppermute": lambda x: par.ppermute_model(x, pal, 1),
+           "ppermute_back": lambda x: par.ppermute_model(x, pal, -1)}
     res = {}
     for name in COLLECTIVES:
+        if f"ct_{name}" not in data:
+            continue
         def f(x, ct, fn=fns[name]):
             y, vjp = jax.vjp(fn, x[0])
             return y[None], vjp(ct[0])[0][None]
@@ -275,17 +292,30 @@ def _shards(prefix: str, tree, mesh) -> dict:
     return out
 
 
+def _stub_batch(cfg, data, rows=None) -> dict:
+    """The inputs' stub array of the model's frontend: {"patches": ...}
+    for a vision model, {"frames": ...} for an audio model, else {}
+    (its first ``rows`` rows when given)."""
+    key = {"vision_stub": "patches", "audio_stub": "frames"}.get(
+        cfg.frontend)
+    if key is None:
+        return {}
+    return {key: jnp.asarray(data[key][:rows])}
+
+
 def run_tp_train(data) -> dict:
-    """For each case (JSON: arch, mesh, sparsifier, optional heads and
-    vocab), ``build_train_step`` on that ("data", "model") mesh over the
-    global batch: the global (mesh-assembled) initial parameters by path,
-    every step's metrics, the final global parameters (flat) and the
-    (DP, TP, k) ``idx_prev``."""
+    """For each case (JSON: arch, mesh, sparsifier, optional heads,
+    vocab, ``attn_dist``, ``ckpt`` and ``delta_k``), ``build_train_step``
+    on that ("data", "model") mesh over the global batch: the global
+    (mesh-assembled) initial parameters by path, every step's metrics,
+    the final global parameters (flat) and the (DP, TP, k) ``idx_prev``;
+    with ``ckpt`` the checkpoint after step 0 and every step's delta
+    payload and global parameters."""
+    from repro.checkpoint import save_checkpoint
     from repro.configs import base
+    from repro.serve.delta import DeltaPublisher
     from repro.train.step import (build_parallel, build_train_step,
                                   init_train_state)
-    batch = {"tokens": jnp.asarray(data["tokens"]),
-             "targets": jnp.asarray(data["targets"])}
     steps = int(data["steps"])
     res = {}
     for name, case in json.loads(str(data["cases"])).items():
@@ -295,12 +325,17 @@ def run_tp_train(data) -> dict:
             optimizer=base.OptimizerConfig(kind="adam", lr=1e-3,
                                            **case.get("optimizer", {})),
             seed=0, steps=steps)
+        batch = {"tokens": jnp.asarray(data["tokens"]),
+                 "targets": jnp.asarray(data["targets"]),
+                 **_stub_batch(run.model, data)}
         mesh = _mesh(tuple(case["mesh"]))
-        pal = build_parallel(mesh)
+        pal = build_parallel(mesh, attn_dist=case.get("attn_dist", "sp"))
+        ckpt = case.get("ckpt")
         with mesh:
             params, opt, ef = init_train_state(run, mesh, pal,
                                                jax.random.PRNGKey(0))
             res.update(_leaves(f"{name}_init", jax.device_get(params)))
+            pub = DeltaPublisher(params, case["delta_k"]) if ckpt else None
             step, _, _ = build_train_step(run, mesh, pal)
             jstep = jax.jit(step)
             for t in range(steps):
@@ -309,6 +344,16 @@ def run_tp_train(data) -> dict:
                 for key, val in m.items():
                     res[f"{name}_{key}_{t}"] = np.asarray(val)
                 res[f"{name}_idx_prev_{t}"] = np.asarray(ef["idx_prev"])
+                if pub is not None:
+                    res.update(_leaves(f"{name}_step{t}",
+                                       jax.device_get(params)))
+                    pay = pub.publish(params)
+                    for key in ("values", "indices", "checksum"):
+                        res[f"{name}_delta{pay.version}_{key}"] = \
+                            np.asarray(getattr(pay, key))
+                if ckpt and t == 0:
+                    save_checkpoint(ckpt, 1, params, opt, ef,
+                                    param_version=pub.version)
             res[f"{name}_params"] = _flat(jax.device_get(params))
             res[f"{name}_idx_prev"] = np.asarray(ef["idx_prev"])
             res[f"{name}_replicated"] = _replicated_by_device(params, mesh)
@@ -336,8 +381,9 @@ def run_tp_serve(data) -> dict:
     """For each case (JSON: arch, attn, mesh, batch, prompt, seq),
     parameters drawn as the train step draws them on that mesh (global,
     by path), then the mesh's ``build_prefill`` and ``build_decode_step``
-    fed the inputs' tokens (teacher forcing): the prefill's logits and
-    global cache (by path) and every decode step's logits."""
+    fed the inputs' tokens (teacher forcing) and the model's stub inputs
+    (the inputs' ``serve_patches`` or ``serve_frames``): the prefill's
+    logits and global cache (by path) and every decode step's logits."""
     from repro.configs import base
     from repro.serve.step import (build_decode_step, build_prefill,
                                   serve_parallel)
@@ -358,7 +404,10 @@ def run_tp_serve(data) -> dict:
             res.update(_leaves(f"{name}_init", jax.device_get(params)))
             pre, _ = build_prefill(run, mesh, serve_parallel(
                 mesh, run, decode=False))
-            lg, cache = jax.jit(pre)(params, {"tokens": tokens})
+            stubs = _stub_batch(cfg, {key[6:]: val for key, val in
+                                      data.items()
+                                      if key.startswith("serve_")}, b)
+            lg, cache = jax.jit(pre)(params, {"tokens": tokens, **stubs})
             res[f"{name}_prefill"] = np.asarray(lg)
             res.update(_leaves(f"{name}_cache", jax.device_get(cache)))
             res.update(_shards(f"{name}_shard", cache, mesh))
@@ -371,13 +420,82 @@ def run_tp_serve(data) -> dict:
     return res
 
 
+def _tiled_attention(tree, tp: int):
+    """A one-device parameter tree in the global layout of ring attention
+    on a model axis of tp with every model rank's attention weights (the
+    split leaves of ``attn`` and ``cross``) that one device's: each such
+    leaf repeated tp times along its split dimension."""
+    from repro.models.specs import param_specs
+    specs = jax.tree_util.tree_leaves(
+        param_specs(tree), is_leaf=lambda x: isinstance(x, P))
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    out = []
+    for (path, leaf), spec in zip(leaves, specs):
+        keys = [k.key for k in path if hasattr(k, "key")]
+        dim = next((i for i, a in enumerate(spec) if a == "model"), None)
+        if dim is not None and keys[-2] in ("attn", "cross"):
+            leaf = jnp.concatenate([leaf] * tp, dim)
+        out.append(leaf)
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+def ring_model(case: dict):
+    """A ring_equal case's reduced model; an MoE model at capacity factor
+    16 (no choice dropped) without the load-balance term, which depend
+    on which rank routes which token."""
+    import dataclasses
+    cfg = _tp_model(case)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0, load_balance_loss=0.0))
+    return cfg
+
+
+def run_ring_equal(data) -> dict:
+    """For each case (JSON: arch, mesh (1, tp), optional attn and
+    window): one device's initial parameters (key 0, by path) and its
+    jitted loss on the inputs' batch, and the loss of ring attention on
+    the mesh (the model group's sum of the shares) with every model rank
+    holding that device's attention weights (``_tiled_attention``)."""
+    from repro.models import init_params, loss_fn
+    from repro.models.parallel import Parallel
+    from repro.models.specs import param_specs
+    from repro.models.transformer import global_loss
+    from repro.train.step import build_parallel
+    batch = {"tokens": jnp.asarray(data["tokens"]),
+             "targets": jnp.asarray(data["targets"])}
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        cfg = ring_model(dict(case, window=case.get("window", 0)))
+        one = init_params(cfg, Parallel(), jax.random.PRNGKey(0))
+        res.update(_leaves(f"{name}_one", jax.device_get(one)))
+        res[f"{name}_one_loss"] = np.asarray(jax.jit(
+            lambda p: loss_fn(p, batch, cfg, Parallel())[0])(one))
+        mesh = _mesh(tuple(case["mesh"]))
+        pal = build_parallel(mesh, attn_dist="ring")
+        glob = _tiled_attention(one, pal.tp)
+        bspec = {key: P(pal.data_axes, None) for key in batch}
+
+        def f(p, b):
+            return global_loss(loss_fn(p, b, cfg, pal)[0], pal)
+        fn = jax.jit(jax.shard_map(f, mesh=mesh,
+                                   in_specs=(param_specs(glob), bspec),
+                                   out_specs=P(), check_vma=False))
+        with mesh:
+            res[f"{name}_ring_loss"] = np.asarray(fn(glob, batch))
+    return res
+
+
 def run_tp(data) -> dict:
     """In one process, those of the modes "collectives" (when the inputs
-    hold ``x``), "tp_train" (``train_cases``) and "tp_serve"
-    (``serve_cases`` on ``serve_tokens``) that the inputs ask for."""
+    hold ``x``), "tp_train" (``train_cases``), "ring_equal"
+    (``ring_cases``) and "tp_serve" (``serve_cases`` on ``serve_tokens``)
+    that the inputs ask for."""
     res = run_collectives(data) if "x" in data else {}
     if "train_cases" in data:
         res.update(run_tp_train(dict(data, cases=data["train_cases"])))
+    if "ring_cases" in data:
+        res.update(run_ring_equal(dict(data, cases=data["ring_cases"])))
     if "serve_cases" in data:
         res.update(run_tp_serve(dict(data, cases=data["serve_cases"],
                                      tokens=data["serve_tokens"])))
@@ -391,7 +509,9 @@ def main(inp: str, out: str) -> None:
         np.savez(out, **{"train": run_train, "serve": run_serve,
                          "collectives": run_collectives,
                          "tp_train": run_tp_train,
-                         "tp_serve": run_tp_serve, "tp": run_tp}[mode](data))
+                         "tp_serve": run_tp_serve,
+                         "ring_equal": run_ring_equal,
+                         "tp": run_tp}[mode](data))
         return
     mesh = jax.make_mesh((WORLD,), ("data",))
     res = {}

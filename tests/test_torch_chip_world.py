@@ -10,12 +10,18 @@ main path replayed in one process), serve() of a data-parallel batch
 and context-parallel decode, and at world 4 the tensor-parallel phases
 (train() on (1, 4) and (2, 2) grids of reduced StableLM-3B, on a (1, 4)
 grid of reduced Granite-MoE-3B-A800M and of reduced DeepSeek-V2-Lite
-(MLA) and on a (2, 2) grid of reduced xLSTM-125M, each flagged cell's
-step 0 against one rank; serve() of reduced Qwen1.5-32B, DeepSeek-V2-Lite
-in both MLA forms and Jamba-v0.1-52B over a model group of 4, one line
-a cell; one reduced Mamba layer split by channel against one rank's),
-each printing from rank 0. This runs the check's own logic without
-cards."""
+(MLA), on a (2, 2) grid of reduced xLSTM-125M, on (1, 4) grids of
+reduced Whisper-small and Phi-3-vision-4.2B with their frames and
+patches, and of reduced StableLM-3B with ring attention, each flagged
+cell's step 0 against one rank; serve() of reduced Qwen1.5-32B,
+DeepSeek-V2-Lite in both MLA forms, Jamba-v0.1-52B, Whisper-small and
+Phi-3-vision over a model group of 4, one line a cell; one reduced Mamba
+layer split by channel against one rank's; one ring attention layer of
+reduced StableLM and of reduced DeepSeek (MLA) against one rank's; the
+launcher's train() with a checkpoint and published deltas over the
+group, restored bitwise on every rank, a replica from the snapshot and
+the deltas equal to the joined parameters), each printing from rank 0.
+This runs the check's own logic without cards."""
 import json
 import os
 import socket
@@ -73,7 +79,7 @@ def test_world_check_passes_over_gloo(world):
     phases = {line["phase"]: line for line in every}
     assert list(phases) == list(chip_smoke.WORLD_TRAIN) + [
         "world_serve", "world_decode_cp"] + ([] if world < 4 else list(
-            chip_smoke.WORLD_TP) + ["world_serve_tp", "world_mamba_layer"])
+            chip_smoke.WORLD_TP) + list(chip_smoke.TP_PHASES))
     for name in chip_smoke.WORLD_TRAIN:
         line = phases[name]
         assert line["world"] == world and line["params_bitwise_across_ranks"]
@@ -89,16 +95,16 @@ def test_world_check_passes_over_gloo(world):
     assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
     if world < 4:
         return
-    for name, (_, _, (data, model), batch, check0) in \
-            chip_smoke.WORLD_TP.items():
+    for name, cell in chip_smoke.WORLD_TP.items():
         line = phases[name]
         assert (line["data"], line["tp"], line["global_batch"]) == (
-            data, model, batch)
+            *cell.mesh, cell.batch)
+        assert line["attn_dist"] == cell.attn_dist
         assert line["params_bitwise_across_data"]
         assert line["losses"][-1] < line["losses"][0]
         assert len(set(line["j_local_by_rank"])) == 1
-        assert (line["step0"] is not None) == check0
-        if check0:
+        assert (line["step0"] is not None) == cell.step0
+        if cell.step0:
             res = line["step0"]["float32"]
             assert res["loss_rel_err"] < chip_smoke.TP_LOSS_RTOL
             assert res["grad_rel_err"] < chip_smoke.TP_GRAD_RTOL
@@ -106,6 +112,10 @@ def test_world_check_passes_over_gloo(world):
     assert phases["world_train_ep"]["experts_a_card"] == 1
     assert phases["world_train_mla"]["step0"]["float32"]["moe_check"][
         "load_balance_loss"] == 0.0
+    assert phases["world_train_ring"]["heads_a_card"] == [4, 4]
+    assert phases["world_train_whisper"]["heads_a_card"] == [1, 1]
+    assert phases["world_train_whisper"]["n_enc_layers"] == 2
+    assert phases["world_train_phi3v"]["stub"] == "vision_stub"
     serve_tp = [line for line in every if line["phase"] == "world_serve_tp"]
     assert [(line["arch"].removesuffix("-smoke"), line["attn"])
             for line in serve_tp] == [
@@ -118,3 +128,14 @@ def test_world_check_passes_over_gloo(world):
     assert mamba["tp"] == world and mamba["grads_finite"]
     assert mamba["d_inner_a_card"] * world == mamba["d_inner"]
     assert mamba["one_card_rel_err"] < chip_smoke.TP_MAMBA_RTOL
+    ring = [line for line in every if line["phase"] == "world_ring_layer"]
+    assert [line["attn"] for line in ring] == ["full", "mla"]
+    for line in ring:
+        assert line["seq_a_card"] * world == line["seq"]
+        assert max(line["out_rel_err"], line["grad_rel_err"]) < \
+            chip_smoke.RING_LAYER_RTOL
+    ckpt = phases["world_ckpt_tp"]
+    assert ckpt["restored_bitwise_by_rank"] == [True] * world
+    assert ckpt["replica_equals_joined"] and ckpt["final_snapshot_equal"]
+    assert ckpt["deltas"] == chip_smoke.TRAIN_STEPS
+    assert ckpt["save_and_join_s"] > 0

@@ -157,16 +157,18 @@ def test_data_parallel_launchers_take_the_card(launcher, monkeypatch):
                                    "attn_dist"])
 def test_tensor_parallel_fields_raise(field):
     """The reference's tensor-parallel fields read as its defaults on a
-    one-rank ``Parallel`` (no model group: tp 1), and what stays outside
-    the port raises naming ROADMAP A13d: ring attention
-    (``attn_dist="ring"``)."""
-    from repro_torch.models.parallel import Parallel
+    one-rank ``Parallel`` (no model group: tp 1); ring attention
+    (``attn_dist="ring"``) is ported, off at tp 1, and an ``attn_dist``
+    the reference does not have is a ValueError naming it."""
+    from repro_torch.models.parallel import Parallel, ring_on
     want = {"model_axis": None, "tp": 1, "seq_parallel": False,
             "attn_dist": "sp"}
     assert getattr(Parallel(), field) == want[field]
     assert not Parallel(seq_parallel=True).sp and not Parallel().tp_on
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        Parallel(attn_dist="ring")
+    assert Parallel(attn_dist="ring").attn_dist == "ring"
+    assert not ring_on(Parallel(attn_dist="ring"))
+    with pytest.raises(ValueError, match="unknown attn_dist 'cp'"):
+        Parallel(attn_dist="cp")
     assert Parallel().size == 1 and Parallel().rank == 0
 
 
@@ -175,11 +177,14 @@ def test_tensor_parallel_fields_raise(field):
     ("jamba-v0.1-52b", False), ("whisper-small", True),
     ("phi-3-vision-4.2b", True)])
 def test_tensor_parallel_gates(arch, outside):
-    """Under a model group (``model`` > 1) MLA, the SSM family (xLSTM) and
-    the hybrid (Jamba) pass ``check_tensor_parallel`` and draw a rank's
-    share of their parameters; the encoder-decoder and the vision stub
-    raise naming ROADMAP A13d; context-parallel decode of MLA, an SSM or
-    a hybrid model still raises naming ROADMAP A13e."""
+    """Under a model group (``model`` > 1) every family draws a rank's
+    share of its parameters: MLA, the SSM family (xLSTM), the hybrid
+    (Jamba), and since A13d's last part the encoder-decoder (its
+    encoder, and its decoder's ``cross`` leaves and cache by head) and
+    the vision stub (``outside`` marks those two, once outside the
+    slice). Context-parallel decode of MLA, an SSM or a hybrid model
+    still raises naming ROADMAP A13e; the other two decode that way."""
+    from repro_torch.core.flatten import tree_size
     from repro_torch.models import transformer
     from repro_torch.models.parallel import Parallel
 
@@ -187,21 +192,24 @@ def test_tensor_parallel_gates(arch, outside):
         tp, tp_on, model_rank = 2, True, 0
 
     cfg = cfgs.reduced_config(cfgs.get_config(arch))
-    if outside:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-            transformer.check_tensor_parallel(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-            transformer.init_params(cfg, torch.Generator(), "meta", Model())
-        return
-    transformer.check_tensor_parallel(cfg)
     local = transformer.init_params(cfg, torch.Generator(), "meta", Model())
     whole = transformer.init_params(cfg, torch.Generator(), "meta")
-    from repro_torch.core.flatten import tree_size
     assert tree_size(local) < tree_size(whole)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
-        transformer.init_decode_cache(
-            cfg, 1, 8, torch.float32, "meta",
-            Model(cache_seq_sharded=True))
+    cp = Model(cache_seq_sharded=True)
+    if not outside:
+        with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
+            transformer.init_decode_cache(cfg, 1, 8, torch.float32, "meta",
+                                          cp)
+        return
+    cache = transformer.init_decode_cache(cfg, 1, 8, torch.float32, "meta",
+                                          cp, enc_seq=4)
+    assert cache["blocks"]["l0"]["k"].shape[-2] == cfg.n_kv_heads // 2
+    if cfg.is_encoder_decoder:
+        assert local["encoder"]["blocks"]["attn"]["wq"].shape[-1] * 2 == \
+            whole["encoder"]["blocks"]["attn"]["wq"].shape[-1]
+        assert local["blocks"]["l0"]["cross"]["wo"].shape[-2] * 2 == \
+            whole["blocks"]["l0"]["cross"]["wo"].shape[-2]
+        assert cache["cross"]["k"].shape[-2] == cfg.n_kv_heads // 2
 
 
 def test_card_path_never_calls_the_plain_version(monkeypatch):
@@ -453,22 +461,32 @@ def test_encoder_decoders_outside_the_slice_raise(change, error, match):
     """A causal encoder (the reference's is bidirectional whatever
     ``enc_causal`` says) raises ValueError, and an MLA encoder-decoder
     (no registered arch is one) NotImplementedError naming ROADMAP A13f,
-    at init, in the loss and in the cache; bidirectional MLA attention
-    raises too where it would run."""
+    at init (at one rank and under a model group, where the
+    encoder-decoder is now split), in the loss and in the cache;
+    bidirectional MLA attention raises too where it would run, the
+    ring's included."""
     from repro_torch.models import attention, init_params, loss_fn
     from repro_torch.models import transformer
+    from repro_torch.models.parallel import Parallel
+
+    class Model(Parallel):
+        tp, tp_on, model_rank = 2, True, 0
+
     cfg = dataclasses.replace(
         cfgs.reduced_config(cfgs.get_config("whisper-small")), **change)
     for call in (lambda: init_params(cfg, torch.Generator(), "cpu"),
+                 lambda: init_params(cfg, torch.Generator(), "meta",
+                                     Model()),
                  lambda: loss_fn({}, {}, cfg),
                  lambda: transformer.init_decode_cache(cfg, 1, 8,
                                                        torch.float32)):
         with pytest.raises(error, match=match):
             call()
     if cfg.attn_kind == "mla":
-        with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
-            attention.attn_fwd_full({}, torch.zeros(1, 4, cfg.d_model), cfg,
-                                    causal=False)
+        for pal in (None, Model(attn_dist="ring")):
+            with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
+                attention.attn_fwd_full({}, torch.zeros(1, 4, cfg.d_model),
+                                        cfg, causal=False, pal=pal)
 
 
 def test_unknown_family_raises_value_error():

@@ -214,23 +214,29 @@ def test_serve_step_beyond_one_rank_raises(data, model, batch, match):
     """What the serve step does not serve over ``data`` ranks raises: a
     data-parallel batch that the ranks do not split, context-parallel
     decode (batch < data) of a cache whose slots they do not split (the
-    reference cannot place either), and tensor parallelism (``model`` >
-    1) of a model outside its slice: an encoder-decoder, the vision stub
-    (ROADMAP A13d; ``check_serving`` is the builders' check, at the model
-    group's size); MLA, the SSM and the hybrid are served.
+    reference cannot place either), and context-parallel decode of an
+    MLA, SSM or hybrid model (ROADMAP A13e; ``check_serving`` is the
+    builders' and the launcher's check, at the data group's size).
+    Tensor parallelism (``model`` > 1) serves every family, the
+    encoder-decoder and the vision stub among them.
     ``decode_cache_layout`` is the builders' check of the layout, at the
     group's size."""
     from repro_torch.serve.step import check_serving, decode_cache_layout
     run = _run(batch=batch)
     if model > 1:
-        check_serving(run.model, model)         # a dense model is served
-        for arch in ("deepseek-v2-lite-16b", "xlstm-125m", "jamba-v0.1-52b"):
-            check_serving(tbase.reduced_config(tbase.get_config(arch)), model)
-        for arch in ("whisper-small", "phi-3-vision-4.2b"):
+        for arch in ("granite-8b", "deepseek-v2-lite-16b", "xlstm-125m",
+                     "jamba-v0.1-52b", "whisper-small",
+                     "phi-3-vision-4.2b"):
             cfg = tbase.reduced_config(tbase.get_config(arch))
-            with pytest.raises(NotImplementedError, match=match + "d"):
-                check_serving(cfg, model)
-            check_serving(cfg, 1)
+            check_serving(dataclasses.replace(run, model=cfg), 2)
+            one = dataclasses.replace(run, model=cfg,
+                                      shape=dataclasses.replace(
+                                          run.shape, global_batch=1))
+            if cfg.attn_kind == "mla" or cfg.ssm is not None:
+                with pytest.raises(NotImplementedError, match=match + "e"):
+                    check_serving(one, 2)
+            else:
+                check_serving(one, 2)
         return
     with pytest.raises(ValueError, match=match):
         decode_cache_layout(run, data, batch < data)
@@ -273,17 +279,20 @@ def test_serve_launcher_smoke(arch, capsys):
 
 @pytest.mark.parametrize("flag,item", [
     (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
-    (["--arch", "whisper-small", "--model", "2"], "ROADMAP A13"),
+    (["--arch", "deepseek-v2-lite-16b", "--model", "2", "--data", "2",
+      "--batch", "1"], "ROADMAP A13"),
     (["--devices", "8"], "ROADMAP A13"),
-    (["--arch", "phi-3-vision-4.2b", "--model", "2"], "ROADMAP A13")])
+    (["--arch", "jamba-v0.1-52b", "--model", "2", "--data", "2",
+      "--batch", "1"], "ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
     """What the launcher still does not serve: deltas applied over more
-    than one rank (A14), tensor parallelism of a model outside its slice
-    (the encoder-decoder, the vision stub: A13d, raised before any group
-    is joined) and a mesh in one process (A13). ``--mla-absorb`` alone is
-    served (tests/test_torch_mla.py), and so is ``--model 2`` of a dense,
-    MoE, SSM or hybrid model (tests/test_torch_tensor_parallel.py,
-    tests/test_torch_tensor_parallel_ssm.py; below: past the gate)."""
+    than one rank (A14), context-parallel decode (``--batch`` below
+    ``--data``) of MLA or a hybrid model beside a model group (A13e,
+    raised before any group is joined) and a mesh in one process (A13).
+    ``--mla-absorb`` alone is served (tests/test_torch_mla.py), and so is
+    ``--model 2`` of every family (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_tensor_parallel_ssm.py,
+    tests/test_torch_tensor_parallel_encdec.py; below: past the gate)."""
     with pytest.raises(NotImplementedError, match=item):
         launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                        *flag])
@@ -292,12 +301,15 @@ def test_serve_launcher_unported_flags_raise(flag, item):
 @pytest.mark.parametrize("flag", [
     ["--arch", "xlstm-125m", "--model", "2"],
     ["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],
-    ["--arch", "jamba-v0.1-52b", "--model", "2"]])
+    ["--arch", "jamba-v0.1-52b", "--model", "2"],
+    ["--arch", "whisper-small", "--model", "2"],
+    ["--arch", "phi-3-vision-4.2b", "--model", "2"]])
 def test_serve_launcher_model_parallel_passes_the_gate(flag, monkeypatch):
-    """``--model 2`` of xLSTM, absorbed MLA and the hybrid passes the
-    tensor-parallel gate: without torchrun's environment the launcher
-    then finds no group to join (the run itself over gloo:
-    tests/test_torch_tensor_parallel_ssm.py)."""
+    """``--model 2`` of xLSTM, absorbed MLA, the hybrid, the
+    encoder-decoder and the vision stub passes the launcher's checks:
+    without torchrun's environment it then finds no group to join (the
+    runs themselves over gloo: tests/test_torch_tensor_parallel_ssm.py,
+    tests/test_torch_tensor_parallel_encdec.py)."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)

@@ -38,12 +38,11 @@ the port's ranks over gloo (tests/torch_gloo_worker.py):
 - both launchers' ``main()`` with ``--model 2`` over a gloo world of 2.
 
 MLA, Mamba with the Jamba hybrid and xLSTM under tensor parallelism are
-held in tests/test_torch_tensor_parallel_ssm.py, which uses this file's
-helpers. The gates that remain (the encoder-decoder and vision families
-under ``--model`` > 1, ring attention) are pinned in
-tests/test_torch_world_train.py, tests/test_torch_serve.py and
-tests/test_torch_rules.py. Ranks meet through a ``file://`` rendezvous
-under tmp_path."""
+held in tests/test_torch_tensor_parallel_ssm.py, the encoder-decoder and
+the vision stub in tests/test_torch_tensor_parallel_encdec.py, ring
+attention in tests/test_torch_ring.py and checkpoints and deltas over a
+model group in tests/test_torch_tp_checkpoint.py, each with this file's
+helpers. Ranks meet through a ``file://`` rendezvous under tmp_path."""
 import dataclasses
 import json
 import os
@@ -245,7 +244,7 @@ class _Model:
 
 IN_SLICE = ["stablelm-3b", "granite-8b", "qwen1.5-32b", "starcoder2-7b",
             "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
-            "xlstm-125m"]
+            "xlstm-125m", "whisper-small", "phi-3-vision-4.2b"]
 
 
 @pytest.mark.parametrize("tp", [2, 4])

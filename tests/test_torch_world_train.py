@@ -188,30 +188,32 @@ def test_launcher_main_over_gloo_world2(tmp_path):
 
 
 def test_launcher_model_parallel_raises_a13():
-    """``--model 2`` of Whisper-small (an encoder-decoder) raises naming
-    ROADMAP A13d before any group is joined; the dense, MoE, SSM and
-    hybrid families train (tests/test_torch_tensor_parallel.py,
-    tests/test_torch_tensor_parallel_ssm.py)."""
+    """``--model 2`` of Whisper-small (an encoder-decoder) trains since
+    A13d's last part (tests/test_torch_tensor_parallel_encdec.py); what
+    the launcher still refuses under it, the bucket auto-tune
+    (``--num-buckets 0``), raises naming ROADMAP A16 before any group is
+    joined."""
     from repro_torch.launch import train as launcher
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        launcher.main(LAUNCH + ["--arch", "whisper-small", "--model", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+        launcher.main(LAUNCH + ["--arch", "whisper-small", "--model", "2",
+                                "--num-buckets", "0"])
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",
                                   "whisper-small", "phi-3-vision-4.2b"])
 def test_launcher_model_parallel_gates(arch, monkeypatch):
-    """The models outside tensor parallelism's slice (an encoder-decoder,
-    the vision stub) raise naming ROADMAP A13d before any group is
-    joined; the hybrid and MLA pass the gate and, without torchrun's
-    environment, find no group to join."""
+    """Every family passes the launcher's checks under ``--model 2``, the
+    encoder-decoder and the vision stub since A13d's last part, with a
+    checkpoint directory and a delta spool too: without torchrun's
+    environment each then finds no group to join."""
     from repro_torch.launch import train as launcher
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
-    inside = arch in ("jamba-v0.1-52b", "deepseek-v2-lite-16b")
-    with pytest.raises(RuntimeError if inside else NotImplementedError,
-                       match="torchrun" if inside else "ROADMAP A13d"):
-        launcher.main(LAUNCH + ["--arch", arch, "--model", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launcher.main(LAUNCH + ["--arch", arch, "--model", "2",
+                                "--checkpoint-dir", "ckpt",
+                                "--publish-deltas", "spool"])
 
 
 @pytest.mark.parametrize("flags", [["--data", "2"], ["--pods", "2"]])

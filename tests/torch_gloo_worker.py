@@ -32,9 +32,12 @@ forward and backward on the inputs' per-rank x and cotangents; MODE
 "tp_train" and MODE "tp_serve" run each case of the inputs (JSON, as
 tests/jax_mesh_worker.py's modes of those names read them) on the case's
 (data, model) groups from this rank's share of the reference's global
-parameters; MODE "tp_launch" runs both launchers' ``main()`` with the
-inputs' flags. Imports torch and the port only, and records whether jax
-was imported.
+parameters (a case with ``ckpt`` also checkpoints, restores and
+publishes deltas of the joined parameters); MODE "ring_equal" runs ring
+attention with every model rank holding one device's attention weights
+beside that device's loss; MODE "tp_launch" runs both launchers'
+``main()`` with the inputs' flags. Imports torch and the port only, and
+records whether jax was imported.
 """
 import json
 import os
@@ -416,9 +419,13 @@ def run_collectives(rank: int, data) -> dict:
            "all_gather": lambda x: par.all_gather_model(x, pal, 1),
            "psum_scatter": lambda x: par.psum_scatter_model(x, pal, 1),
            "all_to_all": lambda x: par.all_to_all_model(x, pal, 0, 1),
-           "pmax": lambda x: x * par.pmax_model(x, pal)}
+           "pmax": lambda x: x * par.pmax_model(x, pal),
+           "ppermute": lambda x: par.ppermute_model(x, pal, 1),
+           "ppermute_back": lambda x: par.ppermute_model(x, pal, -1)}
     res = {}
     for name, fn in fns.items():
+        if f"ct_{name}" not in data:
+            continue
         x = torch.from_numpy(data["x"][rank]).requires_grad_(True)
         y = fn(x)
         (gx,) = torch.autograd.grad(y, x, torch.from_numpy(
@@ -478,19 +485,31 @@ def _replicated(params) -> np.ndarray:
                       if leaf_dim(path, leaf.ndim) is None]).numpy()
 
 
+def _stubs(cfg, data, rows) -> dict:
+    """The inputs' stub array of the model's frontend (``patches`` or
+    ``frames``), its rows ``rows``, as a tensor; {} without a stub."""
+    key = {"vision_stub": "patches", "audio_stub": "frames"}.get(
+        cfg.frontend)
+    return {} if key is None else {key: torch.from_numpy(
+        np.ascontiguousarray(data[key][rows]))}
+
+
 def run_tp_train(rank: int, data) -> dict:
     """Per case (tests/jax_mesh_worker.py's "tp_train" cases): this
     rank's share of the reference's initial parameters, STEPS steps of
     the train step over the case's data and model groups on the data
-    rank's rows: every step's metrics and this rank's sorted
+    rank's rows (and stub inputs; ring attention with the case's
+    ``attn_dist``): every step's metrics and this rank's sorted
     ``idx_prev``, its copy of the replicated leaves, and the final
-    parameters gathered into the global layout (flat)."""
+    parameters gathered into the global layout (flat); a case with
+    ``ckpt`` also runs :func:`tp_checkpoint`."""
     from repro_torch.convert import join_params, split_params
     from repro_torch.train.step import build_train_step, init_train_state
     res = {}
     for name, case in json.loads(str(data["cases"])).items():
         group, model_group, d, m = _axes(case)
         data_n, model = case["mesh"]
+        dist_ = case.get("attn_dist", "sp")
         run = cfgs.RunConfig(
             model=_tp_model(case), shape=cfgs.SHAPES["train_4k"],
             sparsifier=cfgs.SparsifierConfig(**case["sparsifier"]),
@@ -500,9 +519,14 @@ def run_tp_train(rank: int, data) -> dict:
         params = split_params(_global_tree(data, f"{name}_init"), model, m)
         state = init_train_state(run, "cpu", group, params=params,
                                  model_group=model_group)
-        step = build_train_step(run, "cpu", group, model_group)
+        step = build_train_step(run, "cpu", group, model_group, dist_)
+        n = data["tokens"].shape[0] // data_n
         batch = {"tokens": _rows(data["tokens"], d, data_n),
-                 "targets": _rows(data["targets"], d, data_n)}
+                 "targets": _rows(data["targets"], d, data_n),
+                 **_stubs(run.model, data, slice(d * n, (d + 1) * n))}
+        if case.get("ckpt"):
+            res.update(tp_checkpoint(name, case, run, data, batch, group,
+                                     model_group))
         for t in range(run.steps):
             state, metrics = step(state, batch)
             for key, val in metrics.items():
@@ -517,6 +541,109 @@ def run_tp_train(rank: int, data) -> dict:
         glob = join_params(every)
         res[f"{name}_params"] = TreeFlattener(glob).flatten(
             glob).detach().numpy()
+    return res
+
+
+def _states_equal(a, b) -> bool:
+    """Whether two TrainStates hold the same bits, leaf by leaf."""
+    from repro_torch.core.flatten import tree_items
+    return all(x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+               for p, q in ((a.params, b.params), (a.opt, b.opt),
+                            (a.ef, b.ef))
+               for (_, x), (_, y) in zip(tree_items(p), tree_items(q)))
+
+
+def tp_checkpoint(name: str, case: dict, run, data, batch, group,
+                  model_group) -> dict:
+    """A "tp_train" case's checkpoints and deltas under the case's
+    groups (and its ``attn_dist``): from the reference's initial parameters one step, then
+    ``save_train_state`` of it (``<ckpt>_port``) and its restore, equal
+    bit for bit; the live and the restored state each take two more
+    steps, equal bit for bit; the reference's checkpoint after step 0
+    (``<ckpt>``) restored and saved again (``<ckpt>_again``, which the
+    test holds against the reference's file); and a ``DeltaPublisher``
+    on the joined reference parameters before every step
+    (``joined_params``), whose payloads rank 0 returns."""
+    from repro_torch.convert import split_params
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        joined_params, restore_train_state,
+                                        save_train_state)
+    from repro_torch.serve.delta import DeltaPublisher
+    _, m = dist.get_world_size(model_group), dist.get_rank(model_group)
+    tp = case["mesh"][1]
+    ckpt = case["ckpt"]
+    step = build_train_step(run, "cpu", group, model_group,
+                            case.get("attn_dist", "sp"))
+    params = split_params(_global_tree(data, f"{name}_init"), tp, m)
+    state = init_train_state(run, "cpu", group, params=params,
+                             model_group=model_group)
+    state, _ = step(state, batch)
+    save_train_state(ckpt + "_port", 1, state, group, param_version=1,
+                     model_group=model_group)
+    back = restore_train_state(ckpt + "_port", 1, run, "cpu", group,
+                               model_group)
+    res = {f"{name}_restored_equal": np.asarray(_states_equal(state, back))}
+    for _ in range(2):
+        state, _ = step(state, batch)
+        back, _ = step(back, batch)
+    res[f"{name}_continued_equal"] = np.asarray(_states_equal(state, back))
+    again = restore_train_state(ckpt, 1, run, "cpu", group, model_group)
+    save_train_state(ckpt + "_again", 1, again, group, param_version=1,
+                     model_group=model_group)
+    pub = None
+    for t in range(-1, int(data["steps"])):
+        prefix = f"{name}_init" if t < 0 else f"{name}_step{t}"
+        local = split_params(_global_tree(data, prefix), tp, m)
+        joined = joined_params(local, model_group)
+        if joined is None:
+            continue
+        if pub is None:
+            pub = DeltaPublisher(joined, case["delta_k"])
+            continue
+        pay = pub.publish(joined)
+        for key in ("values", "indices", "checksum"):
+            res[f"{name}_delta{pay.version}_{key}"] = np.asarray(
+                getattr(pay, key))
+    return res
+
+
+def run_ring_equal(rank: int, data) -> dict:
+    """Per case (tests/jax_mesh_worker.py's "ring_equal" cases): the
+    reference's one-device parameters, their loss on this rank alone,
+    and the loss of ring attention over the case's groups (the model
+    group's sum of the shares) with every model rank holding those
+    attention weights whole and its share of the other leaves."""
+    import dataclasses
+
+    from repro_torch.convert import split_params
+    from repro_torch.core.flatten import tree_from_items, tree_items
+    from repro_torch.models import loss_fn
+    from repro_torch.models.parallel import Parallel
+    from repro_torch.models.specs import leaf_dim
+    from repro_torch.models.transformer import global_loss
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        group, model_group, d, m = _axes(case)
+        tp = case["mesh"][1]
+        cfg = _tp_model(dict(case, window=case.get("window", 0)))
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=16.0, load_balance_loss=0.0))
+        one = _global_tree(data, f"{name}_one")
+        tiled = tree_from_items(
+            (path, torch.cat([leaf] * tp, dim)
+             if dim is not None and path[-2] in ("attn", "cross") else leaf)
+            for path, leaf in tree_items(one)
+            for dim in [leaf_dim(path, leaf.ndim)])
+        params = split_params(tiled, tp, m)
+        batch = {"tokens": torch.from_numpy(data["tokens"]).long(),
+                 "targets": torch.from_numpy(data["targets"]).long()}
+        pal = Parallel(group=group, model_group=model_group,
+                       seq_parallel=True, attn_dist="ring")
+        with torch.no_grad():
+            res[f"{name}_ring_loss"] = global_loss(
+                loss_fn(params, batch, cfg, pal), pal).numpy()
+            res[f"{name}_one_loss"] = loss_fn(one, batch, cfg).numpy()
     return res
 
 
@@ -542,7 +669,9 @@ def run_tp_serve(rank: int, data) -> dict:
         params = split_params(_global_tree(data, f"{name}_init"), model, m)
         tokens = torch.from_numpy(data["tokens"][:b]).long()
         pre = build_prefill(run, "cpu", group=group, model_group=model_group)
-        logits, cache = pre(params, {"tokens": tokens[:, :prompt]})
+        stubs = _stubs(cfg, {key[6:]: data[key] for key in data.files
+                             if key.startswith("serve_")}, slice(0, b))
+        logits, cache = pre(params, {"tokens": tokens[:, :prompt], **stubs})
         res[f"{name}_prefill"] = logits.numpy()
         want = _global_tree(data, f"{name}_shard{rank}")
         for path, leaf in tree_items(cache):
@@ -609,7 +738,8 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                "recurrent_serve": run_recurrent_serve,
                "encdec_serve": run_encdec_serve,
                "collectives": run_collectives, "tp_train": run_tp_train,
-               "tp_serve": run_tp_serve, "tp_launch": run_tp_launch}[mode]
+               "tp_serve": run_tp_serve, "ring_equal": run_ring_equal,
+               "tp_launch": run_tp_launch}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
