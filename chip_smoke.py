@@ -42,10 +42,15 @@ through ``GradientSync.round`` and one whole-vector Adam),
 ``world_serve`` (serve() of a data-parallel batch of 8 on Granite-8B in
 fp32 at full depth, prompt 48, 16 greedy steps, the gathered logits
 within 2e-4 of a one-card forward on rank 0, decode ms a step) and
-``world_decode_cp`` (context-parallel decode of Granite-8B, batch 1, a
-4096-token prompt prefilled on one card into 4160 cache slots split
-1040 a rank, 16 steps within 2e-4 of one-card decode of the same cache,
-decode ms a step beside one-card decode on rank 0's card). At a world of
+``world_decode_cp`` (context-parallel decode, batch 1, fp32, one line a
+model: Granite-8B and DeepSeek-V2-Lite at full depth, MLA expanded and
+absorbed, and Jamba-v0.1-52B at one super-block, a 4096-token prompt
+prefilled on one card into 4160 cache slots, each rank 1040 of every
+attention layer's slots and the whole Mamba state; xLSTM-125M at full
+depth, every rank the whole state; 16 steps within 2e-4 of one-card
+decode of the same cache, the logits and the recurrent leaves bitwise
+across the ranks, decode ms a step beside one-card decode on rank 0's
+card). At a world of
 4 the tensor-parallel phases follow (``--tp`` runs them alone), over
 (data, model) grids of the cards: ``world_train_tp`` (the main path on
 StableLM-3B at full width, 8 layers, (data 1, model 4), batch 8 x 128, 5
@@ -85,8 +90,16 @@ ms beside one card's) and ``world_ckpt_tp`` (the launcher's train() of
 StableLM-3B at 2 layers on (1, 4) with a checkpoint directory and
 published deltas: the restore equal to the live state bit for bit on
 every rank, a replica from the version-0 snapshot and the deltas equal
-to the parameters joined over the group). ``--tp NAME ...`` runs only
-the named tensor-parallel phases.
+to the parameters joined over the group) and ``world_apply_tp`` (the same
+trainer's spool served through serve() by two replicas from the
+version-0 snapshot, over the model group (1, 4) and data-parallel (4,
+1), each with the delta applier over its group and the spool read on
+rank 0 through a ``loss:0.4,seed=2`` channel and broadcast: each ends
+equal to the joined parameters bit for bit, with the same counters on
+every rank and its pinned tree unchanged; intake and apply ms a rank
+beside one rank's apply ms). ``--tp NAME ...`` runs only the named
+phases of the multi-card run (the tensor-parallel ones and
+``world_decode_cp``).
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -2932,7 +2945,7 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
     bits of :func:`world_bits`). Then the multi-rank phases, and at a
     world of 4 the tensor-parallel ones (WORLD_TP, then TP_PHASES);
     ``tp``, a list of their names, runs those alone (an empty list: all
-    of them).
+    of them; ``world_decode_cp`` among the names runs it too).
     ``backend="gloo"`` at a small ``j`` runs the same check on the CPU
     without cards (tests/test_torch_chip_world.py)."""
     import torch
@@ -3016,6 +3029,8 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
             if cuda:
                 torch.cuda.empty_cache()
             world_decode_cp(dev, world, rank)
+        elif "world_decode_cp" in tp:
+            world_decode_cp(dev, world, rank)
         if world == 4:
             for name in list(WORLD_TP) + list(TP_PHASES):
                 if tp and name not in tp:
@@ -3026,8 +3041,17 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
                     world_train_tp(name, dev, world, rank)
                 else:
                     TP_PHASES[name](dev, world, rank)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # print it now and leave: tearing the group down would wait on the
+        # ranks blocked in a collective, and the log would lose the cause
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        drop_tp_trainer(rank)
+        os._exit(1)
+    drop_tp_trainer(rank)
+    dist.destroy_process_group()
     return 0
 
 
@@ -3047,6 +3071,21 @@ WORLD_TRAIN = {   # phase: sparsifier fields, kernels once a step, depth
 }
 WORLD_BATCH, WORLD_SEQ = 32, 128
 WORLD_CP_PROMPT, WORLD_CP_SLOTS = 4096, 4160   # 1040 slots a rank at 4
+# world_decode_cp's lines: (arch, depth (None: full), prompt, cache slots,
+# MLA forms), fp32 at full width, batch 1. DeepSeek-V2-Lite's weights take
+# 63.2 GB a card at full depth; rank 0 also prefills the prompt on one
+# card and holds both caches, which must stay under WORLD_CP_PEAK. Jamba
+# at one super-block (SERVE_DEPTH): its attention layer's cache split, the
+# Mamba state whole on every card. xLSTM has no attention cache: every
+# card steps the whole state. Over gloo the reduced configs, prompt 12 in
+# 16 slots (xLSTM 8 in 12), 4 steps.
+WORLD_CP_CELLS = (
+    ("granite-8b", None, WORLD_CP_PROMPT, WORLD_CP_SLOTS, (False,)),
+    ("deepseek-v2-lite-16b", None, WORLD_CP_PROMPT, WORLD_CP_SLOTS,
+     (False, True)),
+    ("jamba-v0.1-52b", 8, WORLD_CP_PROMPT, WORLD_CP_SLOTS, (False,)),
+    ("xlstm-125m", None, SERVE_PROMPT, SERVE_PROMPT + SERVE_NEW, (False,)))
+WORLD_CP_PEAK = 76e9
 WORLD_CHUNK = 1 << 26        # elements a gather of the params compares
 
 
@@ -3266,99 +3305,150 @@ def world_serve(dev, world: int, rank: int) -> None:
 
 
 def world_decode_cp(dev, world: int, rank: int) -> None:
-    """Context-parallel decode over the group: Granite-8B in fp32, batch
-    1, a WORLD_CP_PROMPT-token prompt prefilled on rank 0's card into a
-    cache of WORLD_CP_SLOTS slots, broadcast and split over the ranks by
-    ``shard_decode_cache``; SERVE_NEW greedy steps through the serve
-    step's decode builder, every rank's logits the same, then rank 0
-    decodes the same tokens on its one-card cache: each step's logits
-    within SERVE_RTOL of those (relative to their largest), and decode
-    ms a step of both on rank 0's card."""
+    """Context-parallel decode over the group, one line a WORLD_CP_CELLS
+    model and MLA form: fp32, batch 1, the prompt prefilled on rank 0's
+    card into a cache of the cell's slots, broadcast and cut by
+    ``shard_decode_cache`` (each rank a slice of every attention layer's
+    slots, MLA's ckv and krope too, and the whole of every recurrent
+    state); SERVE_NEW greedy steps through the serve step's decode
+    builder (the second MLA form fed the first's tokens), every rank's
+    logits the same bits and, after the last step, every recurrent leaf
+    too; then rank 0 decodes the same tokens on its one-card cache: each
+    step's logits within SERVE_RTOL of those (relative to their largest),
+    decode ms a step of both on rank 0's card, and rank 0's peak after
+    the weights are drawn (under WORLD_CP_PEAK on the card)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import (RunConfig, ShapeConfig,
                                           SparsifierConfig, get_config,
                                           reduced_config)
-    from repro_torch.core.flatten import tree_items
+    from repro_torch.core.flatten import tree_items, tree_map
+    from repro_torch.models import attention as attn
     from repro_torch.models import init_params
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.step import build_decode_step, shard_decode_cache
     cuda = dev.type == "cuda"
-    cfg = get_config("granite-8b")
-    prompt, slots, new = WORLD_CP_PROMPT, WORLD_CP_SLOTS, SERVE_NEW
-    if not cuda:
-        cfg, prompt, slots, new = reduced_config(cfg), 12, 16, 4
-    cfg = dataclasses.replace(cfg, dtype="float32")
-    run = RunConfig(model=cfg, shape=ShapeConfig("serve", slots, 1,
-                                                 "decode"),
-                    sparsifier=SparsifierConfig(kind="none"))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(cfg, gen, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
-                           device=dev)
 
     def sync():
         if cuda:
             torch.cuda.synchronize(dev)
-    with torch.inference_mode():
-        if rank == 0:
-            t0 = time.perf_counter()
-            logits, full = tfm.prefill(params, {"tokens": tokens}, cfg,
-                                       max_seq=slots)
-            sync()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-        else:
-            logits = torch.empty((1, cfg.vocab_size), device=dev)
-            full = tfm.init_decode_cache(cfg, 1, slots, torch.float32, dev)
-        for _, leaf in tree_items(full):
-            dist.broadcast(leaf, src=0)
-        dist.broadcast(logits, src=0)
-    cache = shard_decode_cache(full, run, dist.group.WORLD)
-    part = tuple(cache["blocks"]["l0"]["k"].shape[1:3])
-    check(part == (1, slots // world), f"world_decode_cp: a rank's cache "
-          f"(rows, slots) {part}")
-    if rank:
-        del full
-    dec = build_decode_step(run, dev)
-    toks, outs = [], []
-    sync()
-    dist.barrier()
-    t0 = time.perf_counter()
-    for _ in range(new):
-        nxt = logits.argmax(-1)[:, None]
-        toks.append(nxt)
-        logits, cache = dec(params, cache, nxt)
-        outs.append(logits)
-    sync()
-    cp_ms = (time.perf_counter() - t0) / new * 1e3
-    every = [None] * world
-    dist.all_gather_object(every, [x.cpu() for x in outs])
-    if rank == 0:
-        check(all(all(bits_equal(a, b) for a, b in zip(o, every[0]))
-                  for o in every), "world_decode_cp: the ranks' logits "
-              "differ")
-        wants = []
-        sync()
-        t0 = time.perf_counter()
+    for arch, depth, prompt, slots, forms in WORLD_CP_CELLS:
+        cfg, new = get_config(arch), SERVE_NEW
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if not cuda:
+            cfg, new = reduced_config(cfg), 4
+            prompt, slots = (8, 12) if prompt == SERVE_PROMPT else (12, 16)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                               device=dev)
+        if cuda:
+            # the peak from here on: the weights, the one-card prefill and
+            # the caches, not the draws' temporaries
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
         with torch.inference_mode():
-            for nxt in toks:
-                want, full = tfm.decode_step(params, full, nxt, cfg)
-                wants.append(want)
-        sync()
-        one_ms = (time.perf_counter() - t0) / new * 1e3
-        errs = [float((got - want).abs().max()) / float(want.abs().max())
-                for got, want in zip(outs, wants)]
-        check(max(errs) < SERVE_RTOL, f"world_decode_cp: errors {errs} "
-              f"over {SERVE_RTOL} of one-card decode")
-        emit("world_decode_cp", arch=cfg.name, n_layers=cfg.n_layers,
-             world=world, batch=1, prompt=prompt, cache_slots=slots,
-             slots_a_rank=part[1], steps=new,
-             prefill_one_card_ms=prefill_ms,
-             decode_ms_per_step=cp_ms,
-             one_card_decode_ms_per_step=one_ms,
-             max_rel_err=max(errs), rel_errs=errs,
-             tokens=[int(t) for t in torch.cat(toks, 1)[0].tolist()])
-    dist.barrier()
+            if rank == 0:
+                sync()
+                t0 = time.perf_counter()
+                first, full = tfm.prefill(params, {"tokens": tokens}, cfg,
+                                          max_seq=slots)
+                sync()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+            else:
+                first = torch.empty((1, cfg.vocab_size), device=dev)
+                full = tfm.init_decode_cache(cfg, 1, slots, torch.float32,
+                                             dev)
+            for _, leaf in tree_items(full):
+                dist.broadcast(leaf, src=0)
+            dist.broadcast(first, src=0)
+        toks = None
+        for absorb in forms:
+            form = dataclasses.replace(cfg, mla_absorb=absorb)
+            run = RunConfig(model=form, shape=ShapeConfig("serve", slots, 1,
+                                                          "decode"),
+                            sparsifier=SparsifierConfig(kind="none"))
+            cache = shard_decode_cache(full, run, dist.group.WORLD)
+            for (path, leaf), (_, whole) in zip(tree_items(cache),
+                                                tree_items(full)):
+                if path[-1] in attn.CACHE_KEYS:
+                    lead = int(path[0] == "blocks")
+                    part = tuple(leaf.shape[lead:lead + 2])
+                    check(part == (1, slots // world), f"world_decode_cp "
+                          f"{arch}: a rank's cache (rows, slots) {part} at "
+                          f"{path}")
+                else:
+                    check(leaf.shape == whole.shape, f"world_decode_cp "
+                          f"{arch}: {path} of {tuple(leaf.shape)}, the "
+                          f"one-card state {tuple(whole.shape)}")
+            dec = build_decode_step(run, dev)
+            feed = [] if toks is None else toks
+            outs, logits = [], first
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for t in range(new):
+                if toks is None:
+                    feed.append(logits.argmax(-1)[:, None])
+                logits, cache = dec(params, cache, feed[t])
+                outs.append(logits)
+            sync()
+            cp_ms = (time.perf_counter() - t0) / new * 1e3
+            toks = feed
+            every = [None] * world
+            dist.all_gather_object(every, [x.cpu() for x in outs])
+            state = [leaf.reshape(-1) for path, leaf in tree_items(cache)
+                     if path != ("pos",) and path[-1] not in attn.CACHE_KEYS]
+            state = torch.cat(state) if state else torch.zeros(0, device=dev)
+            ref = state.clone()
+            dist.broadcast(ref, src=0)
+            same = [None] * world
+            dist.all_gather_object(same, bits_equal(state, ref))
+            del cache, ref
+            if rank == 0:
+                check(all(all(bits_equal(a, b) for a, b in zip(o, every[0]))
+                          for o in every), f"world_decode_cp {arch}: the "
+                      "ranks' logits differ")
+                check(all(same), f"world_decode_cp {arch}: a recurrent leaf "
+                      f"differs across the ranks after the last step ({same})")
+                one = tree_map(torch.clone, full)
+                wants = []
+                sync()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    for nxt in toks:
+                        want, one = tfm.decode_step(params, one, nxt, form)
+                        wants.append(want)
+                sync()
+                one_ms = (time.perf_counter() - t0) / new * 1e3
+                del one
+                errs = [float((got - want).abs().max())
+                        / float(want.abs().max())
+                        for got, want in zip(outs, wants)]
+                check(max(errs) < SERVE_RTOL, f"world_decode_cp {arch}: "
+                      f"errors {errs} over {SERVE_RTOL} of one-card decode")
+                peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+                check(peak is None or peak < WORLD_CP_PEAK,
+                      f"world_decode_cp {arch}: rank 0's peak {peak} B")
+                emit("world_decode_cp", arch=cfg.name, n_layers=cfg.n_layers,
+                     attn=cfg.attn_kind, mla_absorb=absorb, family=cfg.family,
+                     world=world, batch=1, prompt=prompt, cache_slots=slots,
+                     slots_a_rank=slots // world, steps=new,
+                     prefill_one_card_ms=prefill_ms,
+                     decode_ms_per_step=cp_ms,
+                     one_card_decode_ms_per_step=one_ms,
+                     max_rel_err=max(errs), rel_errs=errs,
+                     recurrent_elements=int(state.numel()),
+                     recurrent_bitwise_across_ranks=True,
+                     rank0_peak_bytes=peak,
+                     tokens=[int(t) for t in torch.cat(toks, 1)[0].tolist()])
+            del state
+            dist.barrier()
+        del params, full, first
+        if cuda:
+            torch.cuda.empty_cache()
 
 
 # the tensor-parallel phases of --world 4 (one process a card): the
@@ -4150,25 +4240,22 @@ def world_ring_layer(dev, world: int, rank: int) -> None:
         dist.barrier()
 
 
-def world_ckpt_tp(dev, world: int, rank: int) -> None:
-    """Checkpoints and the delta broadcast over a model group: the
-    launcher's train() of StableLM-3B at full width and CKPT_LAYERS layers
-    (the reduced config over gloo) on (1, world), REGTOP-k fused,
-    TRAIN_STEPS steps, a checkpoint at the end (the parameters joined over
-    the group, the states as (DP, TP, ...), every rank's copy of the
-    replicated leaves beside them) and a delta of the joined parameters
-    after every step (k in CKPT_LAYERS' note). The restore of the
-    checkpoint on every rank equals its live state bit for bit; on rank 0
-    a replica from the version-0 snapshot takes every delta of the spool
-    and equals the parameters joined over the group bit for bit, and so
-    does the final snapshot. Then every rank saves and joins the trained
-    state again with the peak memory counter reset: the device memory
-    that takes beyond the live state stays within a gather's chunks
-    (CKPT_SLACK_BYTES' note). The checkpoint's and a delta's bytes, the
-    saves' and the restore's seconds, rank 0's peak over train() and the
-    second save's extra bytes; B1 and B2 launched once a step on every
-    rank."""
-    import shutil
+def tp_trainer(dev, world: int, rank: int) -> dict:
+    """The trainer of world_ckpt_tp and world_apply_tp, run once a process
+    by the first of them: the launcher's train() of StableLM-3B at full
+    width and CKPT_LAYERS layers (the reduced config over gloo) on (1,
+    world), REGTOP-k fused, TRAIN_STEPS steps, a checkpoint at the end
+    and a delta of the joined parameters after every step (k in
+    CKPT_LAYERS' note) into a spool with its snapshots. Returns {"root",
+    "spool", "ckpt", "run", "model", "k", "group", "model_group",
+    "launches", "train_s", "train_peak" (rank 0's device peak over
+    train()), "out" (train()'s result; its "state" popped by the first
+    caller that takes it), "joined" (the trained parameters joined over
+    the group in host memory on rank 0, None on the others)}; B1 and B2
+    launched once a step on every rank. :func:`drop_tp_trainer` removes
+    its files."""
+    if _TP_TRAINER:
+        return _TP_TRAINER
     import tempfile
 
     import torch
@@ -4179,12 +4266,8 @@ def world_ckpt_tp(dev, world: int, rank: int) -> None:
     from repro_torch.core.flatten import TreeFlattener
     from repro_torch.launch.mesh import axis_groups
     from repro_torch.launch.train import train
-    from repro_torch.serve import delta as dl
-    from repro_torch.serve.step import delta_applier_from_snapshot
-    from repro_torch.train.step import (GATHER_CHUNK, joined_params,
-                                        restore_train_state, save_train_state,
-                                        train_parallel)
     from repro_torch.models import init_params
+    from repro_torch.train.step import joined_params, train_parallel
     cuda = dev.type == "cuda"
     model = tp_model("stablelm-3b", CKPT_LAYERS, cuda)
     seq, sparsity = (TRAIN_SEQ, SPARSITY) if cuda else (16, 0.01)
@@ -4205,26 +4288,73 @@ def world_ckpt_tp(dev, world: int, rank: int) -> None:
     root = root[0]
     spool, ckpt = os.path.join(root, "spool"), os.path.join(root, "ckpt")
     run = dataclasses.replace(run, checkpoint_dir=ckpt)
+    _TP_TRAINER.update(root=root, spool=spool, ckpt=ckpt, run=run,
+                       model=model, k=k, group=group, model_group=model_group)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train(run, device=dev, group=group, model_group=model_group,
+                batch=TRAIN_BATCH, seq=seq, fixed_batch=True,
+                log=lambda msg: print(msg, file=sys.stderr),
+                publish_deltas=spool, delta_k=k)
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expect = train_expect(("sweep1", "sweep2")) if cuda else {}
+    for name, count in launches.items():
+        check(count == expect.get(name, 0), f"tp_trainer rank {rank}: "
+              f"{name} launched {count} times in {TRAIN_STEPS} steps, "
+              f"expected {expect.get(name, 0)}")
+    _TP_TRAINER.update(
+        out=out, launches=launches, train_s=train_s,
+        train_peak=torch.cuda.max_memory_allocated(dev) if cuda else None,
+        joined=joined_params(out["state"].params, model_group))
+    return _TP_TRAINER
+
+
+_TP_TRAINER = {}
+
+
+def drop_tp_trainer(rank: int) -> None:
+    """Forget :func:`tp_trainer`'s run and remove its files (rank 0)."""
+    import shutil
+    if _TP_TRAINER and rank == 0:
+        shutil.rmtree(_TP_TRAINER["root"], ignore_errors=True)
+    _TP_TRAINER.clear()
+
+
+def world_ckpt_tp(dev, world: int, rank: int) -> None:
+    """Checkpoints and the delta broadcast over a model group, on
+    :func:`tp_trainer`'s run: the checkpoint (the parameters joined over
+    the group, the states as (DP, TP, ...), every rank's copy of the
+    replicated leaves beside them) restored on every rank equals its live
+    state bit for bit; on rank 0 a replica from the version-0 snapshot
+    takes every delta of the spool and equals the parameters joined over
+    the group bit for bit, and so does the final snapshot. Then every
+    rank saves and joins the trained state again with the peak memory
+    counter reset: the device memory that takes beyond the live state
+    stays within a gather's chunks (CKPT_SLACK_BYTES' note). The
+    checkpoint's and a delta's bytes, the saves' and the restore's
+    seconds, rank 0's peak over train() and the second save's extra
+    bytes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, SHAPES, SparsifierConfig
+    from repro_torch.serve import delta as dl
+    from repro_torch.serve.step import delta_applier_from_snapshot
+    from repro_torch.train.step import (GATHER_CHUNK, joined_params,
+                                        restore_train_state, save_train_state)
+    cuda = dev.type == "cuda"
+    tr = tp_trainer(dev, world, rank)
+    state = tr["out"].pop("state", None)
+    check(state is not None, "world_ckpt_tp: the trainer's state was taken")
+    group, model_group = tr["group"], tr["model_group"]
+    model, k, run = tr["model"], tr["k"], tr["run"]
+    spool, ckpt, root = tr["spool"], tr["ckpt"], tr["root"]
+    out, launches = tr["out"], tr["launches"]
     try:
+        mem = {"train_peak": tr["train_peak"]}
         if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
-        t0 = time.perf_counter()
-        out = train(run, device=dev, group=group, model_group=model_group,
-                    batch=TRAIN_BATCH, seq=seq, fixed_batch=True,
-                    log=lambda msg: print(msg, file=sys.stderr),
-                    publish_deltas=spool, delta_k=k)
-        train_s = time.perf_counter() - t0
-        launches = launch_counts()
-        expect = train_expect(("sweep1", "sweep2")) if cuda else {}
-        for name, count in launches.items():
-            check(count == expect.get(name, 0), f"world_ckpt_tp rank {rank}: "
-                  f"{name} launched {count} times in {TRAIN_STEPS} steps, "
-                  f"expected {expect.get(name, 0)}")
-        state = out["state"]
-        mem = {}
-        if cuda:
-            mem["train_peak"] = torch.cuda.max_memory_allocated(dev)
             mem["live"] = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -4250,7 +4380,7 @@ def world_ckpt_tp(dev, world: int, rank: int) -> None:
         del back
         every = [None] * world
         dist.all_gather_object(every, same)
-        joined = joined_params(state.params, model_group)
+        joined = tr["joined"]
         del state
         if rank == 0:
             pub = out["publisher"]
@@ -4285,7 +4415,7 @@ def world_ckpt_tp(dev, world: int, rank: int) -> None:
                  delta_wire_bytes=dl.delta_wire_bytes(k),
                  losses=[rec["loss"] for rec in out["history"]],
                  publish_ms=[rec["publish_ms"] for rec in out["history"]],
-                 train_s=train_s, save_and_join_s=save_s,
+                 train_s=tr["train_s"], save_and_join_s=save_s,
                  restore_s=restore_s,
                  rank0_peak_bytes=mem.get("train_peak"),
                  rank0_live_bytes=mem.get("live"),
@@ -4293,20 +4423,146 @@ def world_ckpt_tp(dev, world: int, rank: int) -> None:
                  checkpoint_bytes=ckpt_bytes,
                  restored_bitwise_by_rank=every,
                  replica_equals_joined=True, final_snapshot_equal=True)
-        del out, joined
         dist.barrier()
     finally:
-        if rank == 0:
-            shutil.rmtree(root, ignore_errors=True)
         if cuda:
             torch.cuda.empty_cache()
+
+
+# world_apply_tp: the trainer's spool served by two replicas from its
+# version-0 snapshot through serve() (batch SERVE_BATCH, prompt
+# SERVE_PROMPT, SERVE_NEW steps), each with the group applier and the
+# channel read on rank 0 through APPLY_SCHEDULE: over the model group
+# (1, 4) and data-parallel (4, 1)
+APPLY_SCHEDULE = "loss:0.4,seed=2"
+APPLY_MESHES = ((1, 4), (4, 1))
+
+
+def world_apply_tp(dev, world: int, rank: int) -> None:
+    """The delta applier over a group of ranks on :func:`tp_trainer`'s
+    spool: for each of APPLY_MESHES a replica from the version-0 snapshot
+    through serve() with ``delta_applier_from_snapshot(group=...,
+    model_group=...)``, ``GroupChannel`` over rank 0's
+    ``FaultyChannel(SpoolChannel, APPLY_SCHEDULE)``. After the final
+    flush and resync the replica's tree joined over the model group
+    equals the trained parameters joined bit for bit, every rank of the
+    data-parallel replica holds the same bits, the pinned tree is
+    unchanged, and the verdicts and counters are equal on every rank. Per
+    rank the intake ms (verify, the verdict's all-reduce, the scatter)
+    and the apply ms (the scatter) of every offered payload, beside one
+    rank's apply ms of the first payload on the joined tree (rank 0's
+    card), and the decode ms a step with the applies."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import RunConfig, SparsifierConfig
+    from repro_torch.core import faults
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.launch.mesh import axis_groups
+    from repro_torch.launch.serve import serve, serve_shape
+    from repro_torch.serve import delta as dl
+    from repro_torch.serve.step import delta_applier_from_snapshot
+    from repro_torch.train.step import joined_params
+    cuda = dev.type == "cuda"
+    tr = tp_trainer(dev, world, rank)
+    tr["out"].pop("state", None)
+    if cuda:
+        torch.cuda.empty_cache()
+    snaps = os.path.join(tr["spool"], "snapshots")
+    srun = RunConfig(model=tr["model"], shape=serve_shape(
+        SERVE_BATCH, SERVE_PROMPT, SERVE_NEW),
+        sparsifier=SparsifierConfig(kind="none"))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, into):
+        def call(*args):
+            sync()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            sync()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return call
+    for data, model in APPLY_MESHES:
+        group, model_group = axis_groups(data, model)
+        applier, pinned = delta_applier_from_snapshot(
+            srun, snaps, dev, step=0, group=group, model_group=model_group)
+        frozen = [leaf.clone() for _, leaf in tree_items(pinned)]
+        intake_ms, apply_ms = [], []
+        applier.offer = timed(applier.offer, intake_ms)
+        applier._apply_verified = timed(applier._apply_verified, apply_ms)
+        inner = None
+        if rank == 0:
+            inner = dl.FaultyChannel(dl.SpoolChannel(tr["spool"]),
+                                     faults.parse_channel_schedule(
+                                         APPLY_SCHEDULE))
+        res = serve(srun, device=dev, prompt_len=SERVE_PROMPT,
+                    new_tokens=SERVE_NEW, group=group,
+                    model_group=model_group, applier=applier,
+                    channel=dl.GroupChannel(inner, group, model_group, dev),
+                    snap_dir=snaps, log=lambda msg: None)
+        pinned_same = all(torch.equal(a, b) for a, (_, b)
+                          in zip(frozen, tree_items(pinned)))
+        del frozen, pinned
+        same = True
+        if model == 1:
+            for _, leaf in tree_items(applier.params):
+                ref = leaf.clone()
+                dist.broadcast(ref, src=0)
+                same = same and torch.equal(ref, leaf)
+            del ref
+        joined = joined_params(applier.params, model_group)
+        every = [None] * world
+        dist.all_gather_object(every, dict(
+            metrics=res["delta"], pinned_same=pinned_same, same=same,
+            intake_ms=intake_ms, apply_ms=apply_ms))
+        if rank == 0:
+            check(all(e["metrics"] == every[0]["metrics"] for e in every),
+                  f"world_apply_tp {data}x{model}: the counters differ "
+                  f"across the ranks ({[e['metrics'] for e in every]})")
+            check(all(e["pinned_same"] for e in every),
+                  f"world_apply_tp {data}x{model}: the pinned tree moved")
+            check(all(e["same"] for e in every),
+                  f"world_apply_tp {data}x{model}: the ranks' trees differ")
+            check(res["delta"]["param_version"] == TRAIN_STEPS
+                  and trees_equal(joined, tr["joined"]),
+                  f"world_apply_tp {data}x{model}: the replica "
+                  f"({res['delta']}) differs from the joined parameters")
+            payloads = dl.SpoolChannel(tr["spool"]).recv()
+            one, _ = delta_applier_from_snapshot(srun, snaps, dev, step=0)
+            one_ms = []
+            timed(one._apply_verified, one_ms)(payloads[0].to(dev))
+            del one
+            emit("world_apply_tp", model=tr["model"].name,
+                 n_layers=tr["model"].n_layers, data=data, tp=model,
+                 trainer_launches_a_rank=tr["launches"],
+                 trainer_data=1, trainer_tp=world, j_joined=applier.j,
+                 delta_k=tr["k"], schedule=APPLY_SCHEDULE,
+                 deltas_published=TRAIN_STEPS, counters=res["delta"],
+                 pinned_version=res["pinned_version"],
+                 intake_ms_by_rank=[e["intake_ms"] for e in every],
+                 apply_ms_by_rank=[e["apply_ms"] for e in every],
+                 one_rank_apply_ms=one_ms[0],
+                 apply_s=res["apply_s"],
+                 decode_ms_per_step=res["decode_s"] / SERVE_NEW * 1e3,
+                 prefill_s=res["prefill_s"],
+                 equals_joined=True, pinned_unchanged=True,
+                 counters_equal_across_ranks=True,
+                 trees_bitwise_across_ranks=model == 1 or None)
+        del applier, joined, res
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
 
 
 # the tensor-parallel phases after the train cells of WORLD_TP, in order
 TP_PHASES = {"world_serve_tp": world_serve_tp,
              "world_mamba_layer": world_mamba_layer,
              "world_ring_layer": world_ring_layer,
-             "world_ckpt_tp": world_ckpt_tp}
+             "world_ckpt_tp": world_ckpt_tp,
+             "world_apply_tp": world_apply_tp}
 
 
 def phase_world(world: int, src: str, tp=None) -> None:
@@ -4455,9 +4711,10 @@ def main(argv=None) -> int:
                     "in-process round, then the launcher's train() and "
                     "serve() over the group; needs that many cards")
     ap.add_argument("--tp", nargs="*", metavar="NAME",
-                    choices=list(WORLD_TP) + list(TP_PHASES),
+                    choices=["world_decode_cp"] + list(WORLD_TP)
+                    + list(TP_PHASES),
                     help="with --world 4: run only the tensor-parallel "
-                    "phases, or only those named (of "
+                    "phases, or only those named (of world_decode_cp, "
                     + ", ".join(list(WORLD_TP) + list(TP_PHASES)) + ")")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)

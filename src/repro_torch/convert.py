@@ -204,7 +204,10 @@ def cache_split_dims(cache) -> list:
     hd) by value dim, its n (.., B, h, hd) and m (.., B, h) whole; an
     sLSTM's c, n and m (.., B, C) by channel (a layer's c with one more
     dimension than its n is an mLSTM's); ``pos``, MLA's ckv and krope
-    whole."""
+    whole. Context-parallel decode beside a model group then cuts only
+    the attention leaves by slots over the data ranks
+    (``serve.step.shard_decode_cache``), so MLA's cache is split by slots
+    only and a recurrent state by channels only."""
     items = tree_items(cache)
     ndim = {path: np.ndim(leaf) for path, leaf in items}
 

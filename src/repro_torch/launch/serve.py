@@ -28,18 +28,25 @@ for every family (an encoder-decoder's cross-attention and ``cross``
 cache by heads too; the stubs' patches or frames, drawn from the seed,
 the same on every rank); the logits are the vocabulary padded to a
 multiple of m. ``--mla-absorb`` serves an MLA model
-(deepseek-v2-lite-16b) in the absorbed form. Context-parallel decode
-(``--batch`` below ``--data``) of an MLA, SSM or hybrid model raises
-naming ROADMAP A13e before any group is joined, ``--devices`` naming
-A13, and ``--apply-deltas`` over more than one rank naming A14. The
-sliding-window variant is a config field (``attn_kind``), as in the
-reference. It prints what the reference prints: the prefill's seconds,
+(deepseek-v2-lite-16b) in the absorbed form. A ``--batch`` below
+``--data`` decodes context-parallel: each data rank holds its slice of
+the attention cache's slots and the whole of every recurrent state, for
+every family (``serve.step``; the prefill runs on one rank's builders
+only when the batch splits, so the launcher needs ``--batch`` >=
+``--data``). ``--devices`` (the reference's mesh of host devices in one
+process) is a ValueError: the port runs one process a rank under
+torchrun. The sliding-window variant is a config field (``attn_kind``),
+as in the reference. It prints what the reference prints: the prefill's seconds,
 the decode's ms a step and the first two sequences. With ``--apply-deltas DIR`` (a
 trainer's ``--publish-deltas`` spool) the replica starts from the latest
 snapshot under ``DIR/snapshots``, decodes on the tree pinned at that
 version, applies the spool's deltas between decode steps (through the
 receive-side faults of ``--delta-fault-schedule``), resyncs from a newer
-snapshot after a version gap, and prints its health counters. The body
+snapshot after a version gap, and prints its health counters; over
+more than one rank every rank runs the applier on its own tree (its
+shard under ``--model``), and only rank 0 reads the spool and applies
+the faults, then broadcasts the payloads to every rank
+(``serve.delta.GroupChannel``). The body
 is :func:`serve`, which takes a ``RunConfig``, so a caller can pass a
 config the flags do not spell (``chip_smoke.py`` passes the sliding
 variant).
@@ -89,21 +96,15 @@ def parse_args(argv=None):
     return args
 
 
-def check_args(args, run) -> None:
-    """Raise NotImplementedError for a flag the port does not serve yet
-    (context-parallel decode of ``run``'s model over ``--data`` ranks
-    where it is not ported: ``serve.step.check_serving``)."""
+def check_args(args) -> None:
+    """Raise ValueError for ``--devices``: the reference's mesh of host
+    devices in one process, which the port replaces by one process a
+    rank. Every model serves on every layout the other flags ask for."""
     if args.devices:
-        raise NotImplementedError(
-            "--devices: a mesh of devices in one process is not ported; "
-            "the port runs a process a rank under torchrun (ROADMAP A13)")
-    from repro_torch.serve.step import check_serving
-    check_serving(run, args.data)
-    if args.apply_deltas and args.data * args.model > 1:
-        raise NotImplementedError(
-            f"--apply-deltas over {args.data * args.model} ranks is not "
-            "ported yet; a replica applies deltas at one rank (ROADMAP "
-            "A14)")
+        raise ValueError(
+            "--devices: the port runs one process a rank under torchrun "
+            "(--nproc-per-node with --data and --model), not a mesh of "
+            "devices in one process")
 
 
 def serve_shape(batch: int, prompt_len: int, new_tokens: int):
@@ -168,10 +169,6 @@ def serve(run, *, device=None, prompt_len: int = 48, new_tokens: int = 16,
     dev = resolve_device(device)
     tp, model_rank = world(model_group) if model_group is not None \
         else (1, 0)
-    if applier is not None and world(group)[0] * tp > 1:
-        raise NotImplementedError(
-            "a delta applier over more than one rank is not ported yet "
-            "(ROADMAP A14)")
     pre = build_prefill(run, dev, group=group, model_group=model_group)
     dec = build_decode_step(run, dev, group=group, model_group=model_group)
     ranks, rank = world(group)
@@ -259,7 +256,7 @@ def main(argv=None):
     from repro_torch.launch.mesh import make_group
     args = parse_args(argv)
     run = run_config(args)
-    check_args(args, run)
+    check_args(args)
     joined = dist.is_initialized()
     group, model_group, dev = make_group(args.data, args.model,
                                          device=args.device)
@@ -277,19 +274,28 @@ def _serve_main(args, run, group, model_group, dev) -> None:
     if args.apply_deltas:
         import os
 
+        import torch.distributed as dist
+
         from repro_torch.core import faults
-        from repro_torch.serve.delta import FaultyChannel, SpoolChannel
+        from repro_torch.serve.delta import (FaultyChannel, GroupChannel,
+                                             SpoolChannel)
         from repro_torch.serve.step import delta_applier_from_snapshot
         csched = faults.parse_channel_schedule(args.delta_fault_schedule)
         snap_dir = os.path.join(args.apply_deltas, "snapshots")
-        applier, _ = delta_applier_from_snapshot(run, snap_dir, dev)
-        chan = SpoolChannel(args.apply_deltas)
-        if csched is not None:
-            chan = FaultyChannel(chan, csched)
-            print(f"[serve] delta channel faults (recv side): "
-                  f"{faults.format_channel_schedule(csched)}")
-        print(f"[serve] applying deltas from {args.apply_deltas} "
-              f"(snapshot v{applier.version})")
+        applier, _ = delta_applier_from_snapshot(
+            run, snap_dir, dev, group=group, model_group=model_group)
+        reader = group is None or dist.get_rank() == 0
+        log = print if reader else _quiet
+        if reader:
+            chan = SpoolChannel(args.apply_deltas)
+            if csched is not None:
+                chan = FaultyChannel(chan, csched)
+                log(f"[serve] delta channel faults (recv side): "
+                    f"{faults.format_channel_schedule(csched)}")
+        if group is not None:
+            chan = GroupChannel(chan, group, model_group, dev)
+        log(f"[serve] applying deltas from {args.apply_deltas} "
+            f"(snapshot v{applier.version})")
     serve(run, device=dev, prompt_len=args.prompt_len,
           new_tokens=args.new_tokens, group=group, model_group=model_group,
           applier=applier, channel=chan, snap_dir=snap_dir)

@@ -41,9 +41,8 @@ from ``ckv`` and attends as above (k and v of unequal widths); the
 absorbed form (``cfg.mla_absorb``) projects the queries through the key
 up-projection and attends over ``ckv`` itself, applying the value
 up-projection to the context. The scale is head_dim ** -0.5 in both. The
-cache of an MLA layer is ``{ckv, krope}``. Context-parallel decode of
-MLA raises (ROADMAP A13e), and so does bidirectional MLA, an MLA
-encoder-decoder's (A13f).
+cache of an MLA layer is ``{ckv, krope}``. Bidirectional MLA, an MLA
+encoder-decoder's, raises (ROADMAP A13f).
 
 Tensor parallelism (a ``Parallel`` with a model group of tp ranks)
 splits attention by heads, the reference's ``attn_dist="sp"``: the query
@@ -84,12 +83,16 @@ sums the ranks' full-head outputs (the reference's, kept).
 
 Context-parallel decode (a ``Parallel`` with ``cache_seq_sharded``, the
 reference's ``cache_seq_axis``): rank r holds slots [r sl, (r + 1) sl)
-of a cache of sl * n slots. Decode writes the step's k and v only on the
-rank that owns the slot, masks by global slot positions (a sliding
-ring's cap is sl * n), and merges the ranks' partial outputs: the MAX
-all-reduce of the running max, then the rank-order sums of the output
-and of the softmax sum, each scaled by exp(m - max) (the reference's
-``_decode_attend``).
+of a cache of sl * n slots (MLA's ckv and krope too). Decode writes the
+step's cache entries only on the rank that owns the slot, masks by
+global slot positions (a sliding ring's cap is sl * n), and merges the
+ranks' partial outputs: the MAX all-reduce of the running max, then the
+rank-order sums of the output and of the softmax sum, each scaled by
+exp(m - max) (the reference's ``_decode_attend``). Expanded MLA expands
+the rank's slice and merges the same way; absorbed MLA merges its
+unnormalised context over ckv, then divides by the summed softmax sum
+and applies the value up-projection (the reference's
+``_decode_attend_absorbed``), not the one-rank path's softmax.
 """
 from __future__ import annotations
 
@@ -589,23 +592,18 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     model group."""
     b = x.shape[0]
     sharded = pal is not None and pal.cache_seq_sharded
+    n, r = (pal.size, pal.rank) if sharded else (1, 0)
     if cfg.attn_kind == "mla":
-        if sharded:
-            raise NotImplementedError(mla_cp_message(cfg))
-        o = mask_padded_heads(_mla_decode(p, x, cache, pos, cfg), cfg, pal)
+        o = mask_padded_heads(_mla_decode(p, x, cache, pos, cfg, pal), cfg,
+                              pal)
         return psum_model(o.reshape(b, 1, -1) @ p["wo"].to(o.dtype), pal)
     q, k_new, v_new = proj_qkv(p, x, cfg, pos.reshape(1))
-    n, r = (pal.size, pal.rank) if sharded else (1, 0)
     sl = cache["k"].shape[1]
     cap = sl * n
     sliding = cfg.attn_kind == "sliding"
     slot = (pos % min(cfg.window, cap) if sliding else pos).long()
-    if sharded:
-        _cache_write_slice(cache, (k_new, v_new), slot - r * sl)
-    else:
-        for name, t in (("k", k_new), ("v", v_new)):
-            cache[name].index_copy_(1, slot.reshape(1),
-                                    t.to(cache[name].dtype))
+    _cache_write(cache, {"k": k_new, "v": v_new}, slot,
+                 r * sl if sharded else None)
     gpos = torch.arange(r * sl, (r + 1) * sl, device=x.device)
     if sliding:
         slot_pos = pos - torch.remainder(pos - gpos, cap)
@@ -616,32 +614,48 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     o, m, l = _partial(q, cache["k"], cache["v"], valid[None, :],
                        cfg.resolved_head_dim ** -0.5)
     if sharded:
-        mg = all_reduce_max(m, pal.group)
-        a = torch.exp(m - mg)
-        o = all_reduce_sum(o * _per_query(a).to(o.dtype), pal.group)
-        l = all_reduce_sum(l * a, pal.group)
+        o, l = _merge_ranks(o, m, l, _per_query, pal.group)
     o = mask_padded_heads(_finalize(o, l), cfg, pal)
     return psum_model(o.reshape(b, 1, -1) @ p["wo"].to(o.dtype), pal)
 
 
-def mla_cp_message(cfg) -> str:
-    return (f"{cfg.name}: context-parallel decode of MLA is not ported "
-            "yet; the port decodes MLA at one rank or data-parallel "
-            "(ROADMAP A13e)")
+def _merge_ranks(o, m, l, per, group):
+    """The ranks' partial outputs of one decode step merged over the
+    data group: the MAX all-reduce of the running max mg, then the
+    rank-order sums of o exp(m - mg) (scaled through ``per``, the view
+    that lines the max up with o) and of l exp(m - mg)."""
+    mg = all_reduce_max(m, group)
+    a = torch.exp(m - mg)
+    return (all_reduce_sum(o * per(a).to(o.dtype), group),
+            all_reduce_sum(l * a, group))
 
 
 def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                cfg) -> torch.Tensor:
+                cfg, pal=None) -> torch.Tensor:
     """One MLA decode step: the token's ckv and krope written at slot
-    ``pos``, then attention over slots <= pos, expanded (each head's k
-    and v of the whole cache) or absorbed (over ckv itself); the heads'
-    outputs (B, 1, H, vhd), before wo."""
+    ``pos`` (on the rank that owns it under context-parallel decode),
+    then attention over slots <= pos, expanded (each head's k and v of
+    the cache) or absorbed (over ckv itself); the heads' outputs (B, 1,
+    H, vhd), before wo. Under context-parallel decode the ranks' partial
+    outputs merge as in the module docstring."""
+    sharded = pal is not None and pal.cache_seq_sharded
+    r = pal.rank if sharded else 0
     q, ckv, krope = proj_mla(p, x, cfg, pos.reshape(1))
-    at = pos.long().reshape(1)
-    cache["ckv"].index_copy_(1, at, ckv.to(cache["ckv"].dtype))
-    cache["krope"].index_copy_(1, at, krope.to(cache["krope"].dtype))
-    valid = torch.arange(cache["ckv"].shape[1], device=x.device) <= pos
+    sl = cache["ckv"].shape[1]
+    _cache_write(cache, {"ckv": ckv, "krope": krope}, pos.long(),
+                 r * sl if sharded else None)
+    gpos = torch.arange(r * sl, (r + 1) * sl, device=x.device)
+    valid = gpos <= pos
     scale = cfg.resolved_head_dim ** -0.5
+    if cfg.mla_absorb and sharded:
+        # the reference's cp branch: an unnormalised context merged over
+        # the ranks, then divided by the summed softmax sum
+        ql, qr = absorb_q(p, q, cfg)
+        ctx, m, l = _absorbed_partial(ql, qr, cache["ckv"], cache["krope"],
+                                      valid, scale)
+        ctx, l = _merge_ranks(ctx, m, l, _per_head, pal.group)
+        return expand_context(
+            p, ctx / _per_head(l.clamp(min=1e-30)).to(ctx.dtype), cfg)
     if cfg.mla_absorb:
         # one softmax, normalised before the context product (the
         # reference's one-rank ``_decode_attend_absorbed``)
@@ -651,24 +665,32 @@ def _mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
               + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
         w = torch.softmax(torch.where(valid, sc, torch.full_like(
             sc, NEG_INF)), -1)
-        o = expand_context(p, torch.einsum("bhqs,bsl->bqhl",
-                                           w.to(ckv.dtype), ckv), cfg)
-    else:
-        k, v = mla_expand(p, cache["ckv"], cache["krope"], q.shape[2], cfg,
-                          x.dtype)
-        o = _finalize(*_partial(q, k, v, valid[None, :], scale)[::2])
-    return o
+        return expand_context(p, torch.einsum("bhqs,bsl->bqhl",
+                                              w.to(ckv.dtype), ckv), cfg)
+    k, v = mla_expand(p, cache["ckv"], cache["krope"], q.shape[2], cfg,
+                      x.dtype)
+    o, m, l = _partial(q, k, v, valid[None, :], scale)
+    if sharded:
+        o, l = _merge_ranks(o, m, l, _per_query, pal.group)
+    return _finalize(o, l)
 
 
-def _cache_write_slice(cache: dict, new, local: torch.Tensor) -> None:
-    """Write the step's (k, v) at local slot ``local`` (a 0-d device
-    tensor) of this rank's slice of the cache, in place, if the slot is
-    the rank's (0 <= local < sl); otherwise leave the slice as it is (a
-    write of the slot's own value, so no step waits on the host)."""
-    sl = cache["k"].shape[1]
-    inb = (local >= 0) & (local < sl)
-    at = local.clamp(0, sl - 1).reshape(1)
-    for name, t in zip(("k", "v"), new):
+def _cache_write(cache: dict, new: dict, slot: torch.Tensor,
+                 base=None) -> None:
+    """Write each step's entry ``new[name]`` (B, 1, ...) into
+    ``cache[name]`` in place at ``slot`` (a 0-d device tensor). With
+    ``base`` (context-parallel decode) the cache is this rank's slice of
+    the slots from global slot ``base`` on: the entry lands at local slot
+    slot - base if the slot is the rank's, and otherwise the slice stays
+    as it is (a write of the slot's own value, so no step waits on the
+    host: the reference's ``_cache_write``)."""
+    for name, t in new.items():
         arr = cache[name]
+        if base is None:
+            arr.index_copy_(1, slot.reshape(1), t.to(arr.dtype))
+            continue
+        local, sl = slot - base, arr.shape[1]
+        inb = (local >= 0) & (local < sl)
+        at = local.clamp(0, sl - 1).reshape(1)
         arr.index_copy_(1, at, torch.where(inb, t.to(arr.dtype),
                                            arr.index_select(1, at)))

@@ -11,8 +11,11 @@ everywhere, the MoE router, a GELU MLP's ``down_b`` and MLA's
 bits, and their gradients are summed over the model group.
 
 Used by the train step (the replicated leaves' gradient sum, the
-gradient-norm weights) and by ``convert`` (a global tree cut into rank
-r's local tree and gathered back).
+gradient-norm weights), by ``convert`` (a global tree cut into rank
+r's local tree and gathered back) and by the delta applier over a model
+group (``serve.delta``: each leaf's split dimension, and
+:func:`real_entries`, the entries of the padded layout that are not
+padding).
 """
 from __future__ import annotations
 
@@ -93,3 +96,59 @@ def replicated_mask(params) -> dict:
     group (whose gradients are summed over it)."""
     return tree_from_items((path, leaf_dim(path, leaf.ndim) is None)
                            for path, leaf in tree_items(params))
+
+
+def real_entries(path: tuple, shape: tuple, cfg, tp: int):
+    """``(dim, keep)`` for a leaf of ``shape`` in the padded global layout
+    of tensor parallelism over ``tp`` ranks (``convert.split_params``'s):
+    ``keep`` (shape[dim],) is False at the padding along ``dim`` (query
+    heads padded to a multiple of tp in wq, bq, uk, uv and wo; key/value
+    heads that no real query head reads; vocabulary rows of the table
+    and columns of the head; padded experts' stacks and router columns),
+    which is never trained and never written. None for a leaf without
+    padding (and for every leaf at tp 1, or under ring attention, which
+    pads nothing)."""
+    import torch
+
+    from repro_torch.models.parallel import pad_to
+    if tp == 1:
+        return None
+    keys = [key for key in path if isinstance(key, str)]
+    name, parent = keys[-1], keys[-2] if len(keys) >= 2 else ""
+    lead = int("blocks" in keys)
+
+    def units(dim, n_real, n_pad, width=1, real=None):
+        keep = torch.arange(n_pad) < n_real if real is None else real
+        keep = keep.repeat_interleave(width)
+        if keep.numel() != shape[dim]:
+            raise ValueError(f"{'/'.join(keys)}: {shape[dim]} entries along "
+                             f"dim {dim}, padded layout {keep.numel()}")
+        return None if bool(keep.all()) else (dim, keep)
+    if parent in ("attn", "cross"):
+        hd = cfg.resolved_head_dim
+        hp, kvp = pad_to(cfg.n_heads, tp), pad_to(cfg.n_kv_heads, tp)
+        if parent == "attn" and cfg.attn_kind == "mla":
+            vhd = cfg.v_head_dim or hd
+            width = {"wq": hd + cfg.rope_head_dim, "uk": hd, "uv": vhd,
+                     "wo": vhd}.get(name)
+        else:
+            width = hd if name in ("wq", "bq", "wo") else None
+        if width is not None:
+            dim = lead + (0 if name == "wo" or name == "bq" else 1)
+            return units(dim, cfg.n_heads, hp, width)
+        if name in ("wk", "wv", "bk", "bv"):
+            group = hp // kvp
+            real = torch.arange(kvp) * group < cfg.n_heads
+            return units(lead + (1 if name[0] == "w" else 0), None, kvp, hd,
+                         real)
+        return None
+    if parent == "embed":
+        vp = pad_to(cfg.vocab_size, tp)
+        return units(0 if name == "tok" else 1, cfg.vocab_size, vp)
+    if parent == "moe":
+        ep = pad_to(cfg.moe.n_experts, tp)
+        if name == "router":
+            return units(lead + 1, cfg.moe.n_experts, ep)
+        if name in ("gate", "up", "down"):
+            return units(lead, cfg.moe.n_experts, ep)
+    return None

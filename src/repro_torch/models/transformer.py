@@ -123,8 +123,7 @@ AUX_KEYS = ("lb_loss", "z_loss", "drop_frac")
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-# (field, values the port serves, ROADMAP item that ports the rest)
-_SLICE = (("attn_kind", ("full", "sliding", "mla"), "A13"),)
+ATTN_KINDS = ("full", "sliding", "mla")
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 
@@ -147,20 +146,17 @@ def n_moe_layers(cfg) -> int:
 
 def check_model(cfg) -> None:
     """Raise NotImplementedError for a model outside the ported slice (an
-    MLA encoder-decoder among them), ValueError for a family or mixer the
-    reference does not have, a causal encoder (the reference's encoder is
+    MLA encoder-decoder), ValueError for a family, attention kind or
+    mixer the reference does not have, a causal encoder (the reference's encoder is
     bidirectional whatever ``enc_causal`` says), or an encoder-decoder
     whose cross cache (one layer a super-block, the reference's layout)
     cannot hold its layers."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} "
                          f"(expected one of {FAMILIES})")
-    for field, served, item in _SLICE:
-        value = getattr(cfg, field)
-        if value not in served:
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={value!r} is not ported yet; the port "
-                f"serves {served} (ROADMAP {item})")
+    if cfg.attn_kind not in ATTN_KINDS:
+        raise ValueError(f"{cfg.name}: unknown attn_kind {cfg.attn_kind!r} "
+                         f"(expected one of {ATTN_KINDS})")
     for mixer, _ in layer_pattern(cfg):
         if mixer not in MIXERS:
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r} "
@@ -176,13 +172,6 @@ def check_model(cfg) -> None:
                          "prefix")
     if cfg.attn_kind == "mla":
         raise NotImplementedError(attn.mla_encoder_message(cfg))
-
-
-def cp_message(cfg) -> str:
-    """Why context-parallel decode of an SSM or hybrid model raises."""
-    return (f"{cfg.name}: context-parallel decode of the {cfg.family} "
-            "family is not ported yet; the reference replicates the "
-            "recurrent state over the ranks (ROADMAP A13e)")
 
 
 def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,
@@ -593,19 +582,17 @@ def init_decode_cache(cfg, batch: int, max_seq: int, dtype,
     positions, each layer's by its mixer: attention's k and v (a sliding
     model keeps min(window, max_seq) slots), a recurrent mixer's state,
     and an encoder-decoder's cross k and v over ``enc_seq`` positions;
-    with ``pal.cache_seq_sharded`` this rank's slice of the slots, which
-    must split evenly over the group (not for MLA, nor for a model with
-    an SSM: ROADMAP A13e), and the whole of the cross k and v; under
+    with ``pal.cache_seq_sharded`` this rank's slice of the slots of
+    every attention layer (MLA's ckv and krope too), which must split
+    evenly over the group, and the whole of every recurrent state and of
+    the cross k and v (the reference replicates them over the data
+    ranks, and every rank steps the whole batch's state); under
     tensor parallelism this rank's key/value heads and share of each
     recurrent state (MLA's ckv and krope whole), and its key/value heads
     of the cross k and v."""
     check_model(cfg)
     slots = attn.cache_max_seq(cfg, max_seq)
     if pal is not None and pal.cache_seq_sharded:
-        if cfg.attn_kind == "mla":
-            raise NotImplementedError(attn.mla_cp_message(cfg))
-        if cfg.ssm is not None:
-            raise NotImplementedError(cp_message(cfg))
         slots = cache_slice_len(slots, pal.size)
     lead = (n_superblocks(cfg),)
     pattern = layer_pattern(cfg)

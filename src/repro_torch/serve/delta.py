@@ -37,8 +37,14 @@ Payload indices are int32, as the reference's, so J must stay below 2^31:
 the publisher and the applier raise for a larger model instead of
 wrapping. Transports: :class:`MemoryChannel`, :class:`SpoolChannel` (the
 reference's file names and npz keys: a spool written by either package
-applies in the other) and :class:`FaultyChannel` (the seeded
-``core.faults`` channel schedules).
+applies in the other), :class:`FaultyChannel` (the seeded
+``core.faults`` channel schedules) and :class:`GroupChannel` (one reader
+for a replica over a group of ranks, broadcasting what it receives).
+
+A replica over a group of ranks (data-parallel copies, a model group's
+shards, or both) runs a :class:`DeltaApplier` on every rank over its own
+tree: the payloads address the joined tree, each rank writes its share,
+and every rank reaches the same verdicts.
 """
 from __future__ import annotations
 
@@ -323,18 +329,47 @@ def write_snapshot(snap_dir: str, params: dict, version: int) -> str:
                            param_version=int(version))
 
 
+def latest_snapshot(snap_dir: str, groups=()):
+    """The latest snapshot step under ``snap_dir`` (None: none); over a
+    grid of ranks (:func:`grid_groups`) the one grid rank 0 finds, on
+    every rank."""
+    from repro_torch.checkpoint.io import latest_step
+    return _group_broadcast(latest_step(snap_dir), groups)
+
+
 def read_snapshot(snap_dir: str, params_template: dict,
-                  step: Optional[int] = None, device=None):
+                  step: Optional[int] = None, device=None, model_group=None):
     """A resync snapshot -> ``(params, param_version)``, on ``device``
-    (default: the template leaves'); ``step`` defaults to the latest."""
-    from repro_torch.checkpoint.io import (latest_step, read_manifest,
-                                           restore_checkpoint)
+    (default: the template leaves'); ``step`` defaults to the latest.
+    With a ``model_group`` the snapshot is the joined tree and the
+    template this rank's shard: each leaf is read on the host, cut to
+    the rank's share (``convert.split_leaf``) and moved to the device
+    before the next is read, so no card holds the joined tree."""
+    from repro_torch.checkpoint.io import (latest_step, load_leaves,
+                                           read_manifest, restore_checkpoint,
+                                           to_tensor)
     if step is None:
         step = latest_step(snap_dir)
         if step is None:
             raise FileNotFoundError(f"no snapshot in {snap_dir!r}")
-    params, _, _ = restore_checkpoint(snap_dir, step, params_template, {}, {},
-                                      device=device)
+    if model_group is None:
+        params, _, _ = restore_checkpoint(snap_dir, step, params_template,
+                                          {}, {}, device=device)
+    else:
+        from repro_torch.convert import split_leaf
+        from repro_torch.models.parallel import world
+        tp, rank = world(model_group)
+        fname = os.path.join(snap_dir, f"step_{step:08d}.params.npz")
+        items = []
+        for path, leaf, tmpl in load_leaves(fname, params_template):
+            part = split_leaf(path, leaf, tp, rank)
+            if tuple(part.shape) != tuple(tmpl.shape):
+                raise ValueError(f"snapshot leaf {path} of {leaf.shape} "
+                                 f"gives a share of {tuple(part.shape)} at "
+                                 f"tp={tp}, the replica holds "
+                                 f"{tuple(tmpl.shape)}")
+            items.append((path, to_tensor(part, tmpl, device)))
+        params = tree_from_items(items)
     version = read_manifest(snap_dir, step).get("param_version")
     return params, int(step if version is None else version)
 
@@ -342,6 +377,113 @@ def read_snapshot(snap_dir: str, params_template: dict,
 # ---------------------------------------------------------------------------
 # Applier (replica side)
 # ---------------------------------------------------------------------------
+
+class _ShardMap:
+    """How flat indices of one leaf of the joined (global, padded) tree
+    land in this model rank's shard of it: the split dimension's extent
+    in the joined leaf and in the shard, the stride of one step along it,
+    and the entries of the padded layout that are not padding
+    (``models.specs.real_entries``)."""
+
+    def __init__(self, path, local_shape, tp: int, rank: int, cfg):
+        from repro_torch.models.specs import leaf_dim, real_entries
+        dim = leaf_dim(path, len(local_shape))
+        shape = list(local_shape)
+        if dim is not None:
+            shape[dim] *= tp
+        self.shape = tuple(shape)
+        self.numel = int(np.prod(local_shape, dtype=np.int64))
+        self.rank = rank
+        self.split = None if dim is None else (
+            int(np.prod(shape[dim + 1:], dtype=np.int64)), shape[dim],
+            local_shape[dim])
+        real = None if cfg is None else real_entries(path, self.shape, cfg,
+                                                     tp)
+        self.real = None if real is None else (
+            int(np.prod(shape[real[0] + 1:], dtype=np.int64)),
+            shape[real[0]], real[1])
+
+    def local(self, lin: torch.Tensor) -> torch.Tensor:
+        """The shard's flat positions of the joined leaf's flat positions
+        ``lin`` (int64), or ``numel`` (one past the shard) where the entry
+        is another rank's or padding."""
+        keep = torch.ones_like(lin, dtype=torch.bool)
+        if self.real is not None:
+            inner, size, real = self.real
+            keep &= real.to(lin.device)[(lin // inner) % size]
+        if self.split is None:
+            return torch.where(keep, lin, self.numel)
+        inner, size, n = self.split
+        coord = (lin // inner) % size
+        keep &= coord // n == self.rank
+        pos = (lin // (inner * size)) * (n * inner) \
+            + (coord - self.rank * n) * inner + lin % inner
+        return torch.where(keep, pos, self.numel)
+
+
+def _scatter_shards(maps: list, flattener: TreeFlattener, tree: dict,
+                    values, indices, count) -> dict:
+    """:func:`scatter_set_tree` for a model rank's shard of the joined
+    tree: the payload's flat joined indices mapped to this rank's
+    positions leaf by leaf on the device (:class:`_ShardMap`), the
+    entries of other ranks and the padding written into one spare slot
+    past the leaf and dropped. A leaf with a pair of the joined leaf in
+    it is cloned (with its spare slot), whichever rank owns the pairs, so
+    nothing waits on the host but the leaf bounds."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    idx = torch.as_tensor(indices).to(device=dev, dtype=torch.int64)
+    vals = torch.as_tensor(values).to(device=dev, dtype=torch.float32)
+    n = min(max(int(count), 0), idx.shape[0])
+    idx, order = torch.sort(idx[:n], stable=True)
+    vals = vals[:n][order]
+    bounds = _leaf_bounds(flattener, idx)
+    out = []
+    for (path, leaf), smap, off, lo, hi in zip(
+            tree_items(tree), maps, flattener.offsets, bounds, bounds[1:]):
+        if hi > lo:
+            buf = torch.empty(smap.numel + 1, dtype=leaf.dtype, device=dev)
+            buf[:smap.numel].copy_(leaf.detach().reshape(-1))
+            buf.index_put_((smap.local(idx[lo:hi] - off),),
+                           vals[lo:hi].to(leaf.dtype))
+            leaf = buf[:smap.numel].view(leaf.shape)
+        out.append((path, leaf))
+    return tree_from_items(out)
+
+
+def grid_groups(group=None, model_group=None) -> tuple:
+    """The process groups of a replica's grid of ranks, the model group
+    first, then the data group; () for one rank (neither given)."""
+    return tuple(g for g in (model_group, group) if g is not None)
+
+
+def _group_max(flags: torch.Tensor, groups) -> torch.Tensor:
+    """The elementwise maximum of ``flags`` over every rank of the
+    groups (:func:`grid_groups`: every rank of the serving grid)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.parallel import world
+    for g in groups:
+        if world(g)[0] > 1:
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=g)
+    return flags
+
+
+def _group_broadcast(obj, groups):
+    """Rank 0's ``obj`` (of every rank of the grid, :func:`grid_groups`)
+    on every rank: over the model group from its rank 0, then over the
+    data group from its rank 0, so the grid's rank 0 reaches every
+    rank."""
+    import torch.distributed as dist
+
+    from repro_torch.models.parallel import world
+    for g in groups:
+        if world(g)[0] > 1:
+            box = [obj]
+            dist.broadcast_object_list(box, group_src=0, group=g)
+            obj = box[0]
+    return obj
+
 
 class DeltaApplier:
     """Applies versioned deltas to live serving params between decode
@@ -357,15 +499,43 @@ class DeltaApplier:
     ``params`` is held, not copied: the caller hands over a tree that
     nothing else writes (applies never write it in place). A payload is
     moved to the params' device at intake, so its checksum is verified
-    where it is applied (on the card, not on the host)."""
+    where it is applied (on the card, not on the host).
+
+    Over a group of ranks (a replica served over a data ``group`` and a
+    ``model_group``, as ``launch.mesh.make_group`` cuts them) each rank
+    holds its own tree: a copy of the whole under a data-parallel batch,
+    its shard (``convert.split_params``' padded layout) under tensor
+    parallelism. ``j`` and the payloads' indices are the joined tree's,
+    which a tensor-parallel trainer publishes; each rank maps them to
+    its shard on the device, a leaf at a time, writes a replicated leaf
+    whole, and never writes another rank's entries or the padding of
+    ``cfg``'s heads, vocabulary and experts (``models.specs.
+    real_entries``; without ``cfg`` nothing is taken for padding). The
+    intake verdict is every rank's worst (a MAX all-reduce of the
+    checks over the grid), so every rank reaches the same verdict, the
+    same version and the same counters for every payload, and a snapshot
+    to resync from is the one grid rank 0 finds. Every rank must offer
+    the same payloads in the same order (``GroupChannel``)."""
 
     COUNTERS = ("received", "applied", "dropped_corrupt",
                 "dropped_nonfinite", "dropped_stale", "gaps_detected",
                 "resyncs")
 
     def __init__(self, params: dict, *, version: int = 0,
-                 version_floor: Optional[int] = None):
-        self.flattener = TreeFlattener(params)
+                 version_floor: Optional[int] = None, group=None,
+                 model_group=None, cfg=None):
+        from repro_torch.models.parallel import world
+        self.groups = grid_groups(group, model_group)
+        self.model_group = model_group
+        tp, rank = (1, 0) if model_group is None else world(model_group)
+        items = tree_items(params)
+        self.maps = None if tp == 1 else [
+            _ShardMap(path, tuple(leaf.shape), tp, rank, cfg)
+            for path, leaf in items]
+        self.flattener = TreeFlattener(params if self.maps is None else
+                                       tree_from_items(
+            (path, torch.empty(m.shape, device="meta"))
+            for (path, _), m in zip(items, self.maps)))
         self.j = int(self.flattener.total)
         check_index_range(self.j)
         self.params = params
@@ -380,7 +550,7 @@ class DeltaApplier:
         'nonfinite' | 'stale' | 'gap' | 'resync_pending'."""
         self.counters["received"] += 1
         payload = payload.to(self.device)
-        verdict = payload.verify()
+        verdict = self._verdict(payload)
         if verdict == "corrupt" or (verdict == "ok" and payload.j != self.j):
             self.counters["dropped_corrupt"] += 1
             return "corrupt"
@@ -403,7 +573,7 @@ class DeltaApplier:
         """Strict intake: raises on any contract violation."""
         self.counters["received"] += 1
         payload = payload.to(self.device)
-        verdict = payload.verify()
+        verdict = self._verdict(payload)
         if verdict != "ok" or payload.j != self.j:
             raise DeltaVersionError(
                 f"refusing {verdict} delta v{payload.version} "
@@ -422,10 +592,25 @@ class DeltaApplier:
                 "versions must be contiguous")
         self._apply_verified(payload)
 
+    def _verdict(self, payload: DeltaPayload) -> str:
+        """``payload.verify()``, the grid's worst over a group."""
+        verdict = payload.verify()
+        if not self.groups:
+            return verdict
+        flags = torch.tensor([verdict == "corrupt", verdict == "nonfinite"],
+                             dtype=torch.int32, device=self.device)
+        corrupt, nonfinite = _group_max(flags, self.groups).tolist()
+        return "corrupt" if corrupt else "nonfinite" if nonfinite else "ok"
+
     def _apply_verified(self, payload: DeltaPayload) -> None:
-        self.params = scatter_set_tree(self.flattener, self.params,
-                                       payload.values, payload.indices,
-                                       payload.count)
+        if self.maps is None:
+            self.params = scatter_set_tree(self.flattener, self.params,
+                                           payload.values, payload.indices,
+                                           payload.count)
+        else:
+            self.params = _scatter_shards(self.maps, self.flattener,
+                                          self.params, payload.values,
+                                          payload.indices, payload.count)
         self.version = payload.version
         self.counters["applied"] += 1
 
@@ -437,16 +622,21 @@ class DeltaApplier:
 
     def can_resync(self, snap_dir: str) -> bool:
         """Is a snapshot strictly newer than the held version there?"""
-        from repro_torch.checkpoint.io import latest_step
-        step = latest_step(snap_dir)
+        step = latest_snapshot(snap_dir, self.groups)
         return step is not None and step > self.version
 
     def resync_from(self, snap_dir: str, step: Optional[int] = None) -> int:
         """Restore the snapshot (the latest by default) in the held
         leaves' dtypes and devices, raise the floor to its version and
-        re-arm intake. Raises :class:`DeltaVersionError` if it would move
-        the replica backwards."""
-        params, version = read_snapshot(snap_dir, self.params, step)
+        re-arm intake. Under a model group each rank keeps its share of
+        the joined snapshot, read and cut a leaf at a time. Raises
+        :class:`DeltaVersionError` if it would move the replica
+        backwards."""
+        if step is None:
+            step = latest_snapshot(snap_dir, self.groups)
+        params, version = read_snapshot(
+            snap_dir, self.params, step,
+            model_group=self.model_group if self.maps is not None else None)
         if version < self.version:
             raise DeltaVersionError(
                 f"snapshot v{version} is older than held v{self.version}: "
@@ -618,6 +808,60 @@ class FaultyChannel:
                 self.counters["sent"] += 1
                 self.inner.send(p)
         return out
+
+
+class GroupChannel:
+    """The one reader of a replica served over a group of ranks: grid
+    rank 0 receives from ``inner`` (its receive-side faults applied
+    there, once) and broadcasts the payloads, in order, to every rank of
+    the grid (the ``model_group``, then the data ``group``, as
+    :class:`DeltaApplier` reads them) before any rank offers one, on
+    ``device``; the other ranks pass no ``inner``. So every rank offers
+    the same payloads, even when the spool gains a file between two
+    ranks' reads. :meth:`recv` and :meth:`flush` are collectives: every
+    rank calls them at the same points."""
+
+    def __init__(self, inner, group=None, model_group=None, device=None):
+        self.inner = inner
+        self.groups = grid_groups(group, model_group)
+        self.device = device
+
+    def _share(self, payloads) -> list:
+        import torch.distributed as dist
+
+        from repro_torch.models.parallel import world
+        heads = None if payloads is None else [
+            (p.version, p.count, p.j, p.checksum, tuple(p.values.shape),
+             tuple(p.indices.shape)) for p in payloads]
+        heads = _group_broadcast(heads, self.groups)
+        out = []
+        for i, (version, count, j, checksum, vshape, ishape) in \
+                enumerate(heads):
+            if payloads is None:
+                vals = torch.empty(vshape, dtype=torch.float32,
+                                   device=self.device)
+                idx = torch.empty(ishape, dtype=torch.int32,
+                                  device=self.device)
+            else:
+                vals = payloads[i].values.to(self.device, torch.float32)
+                idx = payloads[i].indices.to(self.device, torch.int32)
+            for g in self.groups:
+                if world(g)[0] > 1:
+                    dist.broadcast(vals, group_src=0, group=g)
+                    dist.broadcast(idx, group_src=0, group=g)
+            out.append(DeltaPayload(version, vals, idx, count, j, checksum))
+        return out
+
+    def recv(self) -> list:
+        return self._share(None if self.inner is None else self.inner.recv())
+
+    def flush(self) -> list:
+        """Release what grid rank 0's channel still holds (a
+        FaultyChannel's window), to every rank."""
+        held = None
+        if self.inner is not None:
+            held = self.inner.flush() if hasattr(self.inner, "flush") else []
+        return self._share(held)
 
 
 def _flip_bit(payload: DeltaPayload) -> DeltaPayload:

@@ -20,11 +20,14 @@ data axes:
   rank order (the reference's ``out_specs=P(dpaxes, None)``);
 - context-parallel decode, when the global batch is below n (the
   reference's ``cache_seq_axis``): the batch stays whole, each rank
-  holds its slice of the cache's sequence axis, and every rank returns
-  the same (B, V) logits. Its cache comes from a one-rank prefill
-  through :func:`shard_decode_cache`, as the reference's device_put of
-  a one-device cache onto the mesh; prefill raises, since its batch does
-  not split.
+  holds its slice of every attention layer's slots (MLA's ckv and krope
+  too) and the whole of every recurrent state (Mamba's, the mLSTM's and
+  the sLSTM's, replicated over the data ranks as the reference's
+  ``decode_cache_specs`` holds them: every rank steps the whole batch's
+  state), and every rank returns the same (B, V) logits. Its cache
+  comes from a one-rank prefill through :func:`shard_decode_cache`, as
+  the reference's device_put of a one-device cache onto the mesh;
+  prefill raises, since its batch does not split.
 
 Under tensor parallelism (``model_group``, a model group of tp ranks
 beside each data rank, as ``launch.mesh.make_group`` numbers them) each
@@ -37,12 +40,12 @@ multiple of tp), gathered over the model group, then over the data
 group's rows. Ring attention is the train step's alone: serving splits
 attention by heads (the reference's ``serve_parallel``).
 
-A batch (or cache) that n does not split raises ValueError;
-context-parallel decode of an MLA, SSM or hybrid model raises
-NotImplementedError naming ROADMAP A13e (:func:`check_serving`). The
-model may be of any family; an MoE layer's capacity follows
-the tokens a rank routes, as the reference's does under its shard_map;
-a recurrent layer's state is cut by rows like attention's k and v; a
+A batch (or cache) that n does not split raises ValueError. The model
+may be of any family; an MoE layer's capacity follows the tokens a rank
+routes, as the reference's does under its shard_map (under
+context-parallel decode every rank routes the whole batch: one device's
+capacity); under a data-parallel batch a recurrent layer's state is cut
+by rows like attention's k and v; a
 vision or audio model's batch carries its patches or frames, cut by rows
 with the tokens, and an encoder-decoder's ``cross`` cache leaf is cut by
 rows under a data-parallel batch and held whole on every rank under
@@ -54,23 +57,10 @@ import torch
 
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
-from repro_torch.core.flatten import tree_items, tree_map
+from repro_torch.core.flatten import tree_from_items, tree_items
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.parallel import Parallel, all_gather_rows, world
-
-
-def check_serving(run: RunConfig, data: int = 1) -> None:
-    """Raise NotImplementedError for context-parallel decode (a global
-    batch below the ``data`` ranks) of an MLA model or a model with an
-    SSM (ROADMAP A13e); any tensor-parallel degree is served."""
-    cfg = resolve_model_cfg(run)
-    if run.shape.global_batch >= data:
-        return
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(attn.mla_cp_message(cfg))
-    if cfg.ssm is not None:
-        raise NotImplementedError(tfm.cp_message(cfg))
 
 
 def serve_parallel(run: RunConfig, group=None, *, decode: bool,
@@ -78,23 +68,21 @@ def serve_parallel(run: RunConfig, group=None, *, decode: bool,
     """The serving step's ``Parallel`` over the data ``group`` and the
     ``model_group``: the cache's sequence axis sharded (context-parallel
     decode) when ``decode`` and the global batch is below the data
-    group's size (:func:`check_serving`'s gate then). The sequence is
-    never split over the model group."""
+    group's size. The sequence is never split over the model group."""
     n, _ = world(group)
-    sharded = decode and run.shape.global_batch < n
-    if sharded:
-        check_serving(run, n)
-    return Parallel(group=group, cache_seq_sharded=sharded,
+    return Parallel(group=group,
+                    cache_seq_sharded=decode and run.shape.global_batch < n,
                     model_group=model_group)
 
 
 def decode_cache_layout(run: RunConfig, n: int, cache_seq_sharded: bool):
     """(rows, slots) of one rank's decode cache among ``n`` ranks (the
     counterpart of ``decode_cache_specs``): the global batch's rows and a
-    slice of the slots under context-parallel decode, else a share of the
-    rows and every slot. An encoder-decoder's ``cross`` leaf has the same
-    rows and every encoder position either way. ValueError where n does
-    not split them."""
+    slice of the attention layers' slots under context-parallel decode
+    (a recurrent state then the global batch's, whole), else a share of
+    the rows and every slot. An encoder-decoder's ``cross`` leaf has the
+    same rows and every encoder position either way. ValueError where n
+    does not split them."""
     cfg = resolve_model_cfg(run)
     b = run.shape.global_batch
     slots = attn.cache_max_seq(cfg, run.shape.seq_len)
@@ -110,14 +98,16 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None,
                        model_group=None) -> dict:
     """This rank's part of a one-rank decode cache of the global batch
     (``tfm.prefill``'s) under :func:`serve_parallel`'s layout for decode:
-    a slice of the slots (context-parallel), or of the rows; under tensor
-    parallelism of the key/value heads too (``convert.split_cache``); the
-    step counter as it is. The stacked ``blocks`` leaves hold the rows on
-    dim 1 and an attention layer's slots on dim 2, the ``prefix``
-    layers' a dim before; a recurrent layer's state has rows only; the
-    stacked ``cross`` k and v (an encoder-decoder's) are cut by rows
-    under a data-parallel batch and kept whole under context-parallel
-    decode."""
+    under tensor parallelism first its key/value heads and its share of
+    each recurrent state (``convert.split_cache``; MLA's ckv and krope
+    whole), then under context-parallel decode its slice of the slots of
+    the attention leaves (``attn.CACHE_KEYS``) and the other leaves
+    whole (the recurrent states and the ``cross`` k and v, cloned), or
+    under a data-parallel batch its rows of every leaf; the step counter
+    as it is. The stacked ``blocks`` leaves hold the rows on dim 1 and an
+    attention layer's slots on dim 2, the ``prefix`` layers' a dim
+    before; a recurrent layer's state has rows only; the stacked
+    ``cross`` k and v hold the rows on dim 1."""
     if model_group is not None:
         from repro_torch.convert import split_cache
         tp, m = world(model_group)
@@ -134,23 +124,17 @@ def shard_decode_cache(cache: dict, run: RunConfig, group=None,
         if have != want:
             raise ValueError(f"a cache of (rows, slots) {have} at {path}, "
                              f"but the run serves {want}")
-    dim, size = (1, slots) if pal.cache_seq_sharded else (0, rows)
 
-    def part(stacked):
-        def cut(val):
-            d = dim + stacked
-            return val.narrow(d, r * size, size).contiguous()
-        return cut
-    out = {"pos": cache["pos"].clone(),
-           "blocks": tree_map(part(1), cache["blocks"])}
-    if "prefix" in cache:
-        out["prefix"] = tree_map(part(0), cache["prefix"])
-    if "cross" in cache:
-        out["cross"] = tree_map(
-            torch.clone if pal.cache_seq_sharded else
-            lambda val: val.narrow(1, r * rows, rows).contiguous(),
-            cache["cross"])
-    return out
+    def cut(path, val):
+        lead = int(path[0] in ("blocks", "cross"))
+        if not pal.cache_seq_sharded:
+            return val.narrow(lead, r * rows, rows).contiguous()
+        if path[0] != "cross" and path[-1] in attn.CACHE_KEYS:
+            return val.narrow(lead + 1, r * slots, slots).contiguous()
+        return val.clone()
+    return tree_from_items(
+        (path, leaf.clone() if path == ("pos",) else cut(path, leaf))
+        for path, leaf in tree_items(cache))
 
 
 def _build(run: RunConfig, device):
@@ -211,16 +195,28 @@ def build_decode_step(run: RunConfig, device=None, *, group=None,
 
 
 def delta_applier_from_snapshot(run: RunConfig, snap_dir: str, device=None,
-                                step=None):
-    """A replica's entry to the delta broadcast at one rank: the snapshot
-    under ``snap_dir`` at ``step`` (default: the latest) restored as the
-    serving params (templates on the ``meta`` device, so nothing else is
-    allocated) and a ``DeltaApplier`` at its ``param_version``, whose
-    floor starts there. Returns ``(applier, params)``."""
+                                step=None, *, group=None, model_group=None):
+    """A replica's entry to the delta broadcast (the reference's
+    ``delta_applier_from_snapshot(run, mesh, pal, snap_dir)``): the
+    snapshot under ``snap_dir`` at ``step`` (default: the latest, as grid
+    rank 0 finds it) restored as the serving params (templates on the
+    ``meta`` device, so nothing else is allocated) and a
+    ``DeltaApplier`` at its ``param_version``, whose floor starts there.
+    Over a data ``group`` every rank holds the whole tree; over a
+    ``model_group`` the snapshot is the joined tree and each rank keeps
+    its share (``convert.split_params``' padded layout), read a leaf at a
+    time. Returns ``(applier, params)``."""
     from repro_torch.models import init_params
-    from repro_torch.serve.delta import DeltaApplier, read_snapshot
+    from repro_torch.serve.delta import (DeltaApplier, grid_groups,
+                                         latest_snapshot, read_snapshot)
     dev = resolve_device(device)
-    tmpl = init_params(resolve_model_cfg(run), torch.Generator(),
-                       torch.device("meta"))
-    params, version = read_snapshot(snap_dir, tmpl, step, device=dev)
-    return DeltaApplier(params, version=version), params
+    cfg = resolve_model_cfg(run)
+    tmpl = init_params(cfg, torch.Generator(), torch.device("meta"),
+                       serve_parallel(run, group, decode=False,
+                                      model_group=model_group))
+    if step is None:
+        step = latest_snapshot(snap_dir, grid_groups(group, model_group))
+    params, version = read_snapshot(snap_dir, tmpl, step, device=dev,
+                                    model_group=model_group)
+    return DeltaApplier(params, version=version, group=group,
+                        model_group=model_group, cfg=cfg), params

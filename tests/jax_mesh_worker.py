@@ -53,7 +53,24 @@ The inputs' ``mode`` (default "sync") picks what runs:
   attn_dist="ring")``) on the case's mesh with every model rank's
   attention weights set to that one device's;
 - "tp": those of the three above that the inputs ask for, in one
-  process.
+  process;
+- "cp": context-parallel decode of the inputs' reduced models (JSON
+  ``models``: arch, ``absorb``) from one device's parameters (key 0, by
+  path): for each case (JSON: model, mesh, batch, prompt and cache
+  lengths) the one-device ``prefill`` and ``decode_step`` fed the
+  inputs' decode tokens, and ``build_decode_step`` on the case's
+  ("data", "model") mesh with the one-device prefill's cache put there
+  by ``decode_cache_specs``: every step's logits; where the reference
+  cannot place the cache, the error instead of the mesh's logits;
+- "delta": for each stream (JSON: the npz of a joined tree, k, the
+  versions, the snapshot versions, the version whose payload is
+  bit-flipped, the channel schedule), a seeded walk of the tree
+  published by ``DeltaPublisher`` into a spool (snapshots at the
+  snapshot versions), then the one-rank ``DeltaApplier`` from the
+  version-0 snapshot taking one spool file a tick through
+  ``FaultyChannel(SpoolChannel)``, resyncing after a gap as
+  ``launch.serve`` does: every verdict, the counters and the tree
+  after every tick.
 
 The device count is set before jax is imported, so this runs in a
 process of its own.
@@ -502,6 +519,173 @@ def run_tp(data) -> dict:
     return res
 
 
+def run_cp(data) -> dict:
+    """Context-parallel decode of the inputs' models (module docstring,
+    mode "cp")."""
+    from jax.sharding import NamedSharding
+
+    from repro.configs import base
+    from repro.models import decode_step, init_params, prefill
+    from repro.models.parallel import Parallel
+    from repro.serve.step import (build_decode_step, decode_cache_specs,
+                                  serve_parallel)
+    models = json.loads(str(data["models"]))
+    one = Parallel()
+    res, params = {}, {}
+    for mname, spec in models.items():
+        cfg = _tp_model(spec)
+        params[mname] = (cfg, init_params(cfg, one, jax.random.PRNGKey(0)))
+        res.update(_leaves(f"{mname}_init", jax.device_get(
+            params[mname][1])))
+    for name, case in json.loads(str(data["cases"])).items():
+        cfg, p = params[case["model"]]
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        run = base.RunConfig(
+            model=cfg, shape=base.ShapeConfig("serve", seq, b, "decode"),
+            sparsifier=base.SparsifierConfig(kind="none"))
+        tokens = jnp.asarray(data["tokens"][:b, :prompt])
+        feed = data["tokens"][:b, prompt:]
+        _, cache = jax.jit(lambda q, t: prefill(
+            q, {"tokens": t}, cfg, one, max_seq=seq))(p, tokens)
+        dec1 = jax.jit(lambda q, c, t: decode_step(q, c, t, cfg, one))
+        c1 = cache
+        for t in range(feed.shape[1]):
+            lg, c1 = dec1(p, c1, jnp.asarray(feed[:, t:t + 1]))
+            res[f"{name}_one_decode_{t}"] = np.asarray(lg)
+        mesh = _mesh(tuple(case["mesh"]))
+        pal = serve_parallel(mesh, run, decode=True)
+        assert pal.cache_seq_axis is not None, name
+        with mesh:
+            try:
+                _, cspecs, _, _ = decode_cache_specs(run, mesh, pal)
+                mcache = jax.device_put(cache, jax.tree_util.tree_map(
+                    lambda sp: NamedSharding(mesh, sp), cspecs))
+            except ValueError as err:
+                res[f"{name}_mesh_error"] = np.asarray(str(err))
+                continue
+            dec, _ = build_decode_step(run, mesh, pal)
+            dec = jax.jit(dec)
+            for t in range(feed.shape[1]):
+                lg, mcache = dec(p, mcache, jnp.asarray(feed[:, t:t + 1]))
+                res[f"{name}_mesh_decode_{t}"] = np.asarray(lg)
+    return res
+
+
+def _tree_of(npz) -> dict:
+    """A nested dict of jax arrays from ``a/b/c`` keys."""
+    tree = {}
+    for key in npz.files:
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(npz[key])
+    return tree
+
+
+def _walk(tree, rng, moves: int, real) -> dict:
+    """The tree with ``moves`` seeded entries of its real part (``real``,
+    by key: a flat bool mask) moved by a standard normal step."""
+    flat = {key: np.array(val) for key, val in _flat_items(tree)}
+    keys = sorted(flat)
+    sizes = np.array([flat[key].size for key in keys])
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    mask = np.concatenate([real[key].ravel() for key in keys])
+    live = np.flatnonzero(mask)
+    picks = rng.choice(live, moves, replace=False)
+    step = rng.standard_normal(moves).astype(np.float32)
+    for pos, dv in zip(picks, step):
+        i = int(np.searchsorted(offsets, pos, side="right")) - 1
+        flat[keys[i]].reshape(-1)[pos - offsets[i]] += dv
+    return _unflat(flat)
+
+
+def _flat_items(tree, prefix=()):
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from _flat_items(val, prefix + (key,))
+        else:
+            yield "/".join(prefix + (key,)), val
+
+
+def _unflat(flat: dict) -> dict:
+    tree = {}
+    for key, val in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(val)
+    return tree
+
+
+def run_delta(data) -> dict:
+    """The one-rank applier's run of each stream (module docstring,
+    mode "delta")."""
+    import dataclasses
+    import shutil
+
+    from repro.core.faults import parse_channel_schedule
+    from repro.serve.delta import (DeltaApplier, DeltaPublisher,
+                                   FaultyChannel, SpoolChannel, read_snapshot,
+                                   write_snapshot)
+    res = {}
+    for name, st in json.loads(str(data["streams"])).items():
+        root = st["root"]
+        with np.load(st["tree"]) as npz:
+            tree = _tree_of(npz)
+        with np.load(st["real"]) as npz:
+            real = {key: npz[key] for key in npz.files}
+        rng = np.random.default_rng(st["seed"])
+        pub = DeltaPublisher(tree, st["k"])
+        src, snaps = os.path.join(root, "source"), os.path.join(root,
+                                                                 "snapshots")
+        write_snapshot(snaps, tree, 0)
+        sender = SpoolChannel(src)
+        cur = tree
+        for v in range(1, st["versions"] + 1):
+            cur = _walk(cur, rng, st["moves"], real)
+            pay = pub.publish(cur)
+            if v == st["flip"]:
+                vals = np.array(pay.values, np.float32)
+                vals.view(np.uint32)[0] ^= np.uint32(1 << 9)
+                pay = dataclasses.replace(pay, values=vals)
+            sender.send(pay)
+            if v in st["snapshots"]:
+                write_snapshot(snaps, pub.published, v)
+        files = sorted(f for f in os.listdir(src) if f.endswith(".npz"))
+        live = os.path.join(root, "oracle_spool")
+        chan = FaultyChannel(SpoolChannel(live),
+                             parse_channel_schedule(st["schedule"]))
+        start, version = read_snapshot(snaps, tree, 0)
+        app = DeltaApplier(jax.tree_util.tree_map(jnp.asarray, start),
+                           version=version)
+        verdicts = []
+
+        def intake(payloads):
+            for p in payloads:
+                verdicts.append(app.offer(p))
+            if app.needs_resync and app.can_resync(snaps):
+                app.resync_from(snaps)
+        for t, fname in enumerate(files):
+            shutil.copy(os.path.join(src, fname), os.path.join(live, fname))
+            intake(chan.recv())
+            res.update({f"{name}_tick{t}/{key}": np.asarray(val)
+                        for key, val in _flat_items(app.params)})
+            res[f"{name}_version_{t}"] = np.asarray(app.version)
+        intake(chan.flush())
+        res.update({f"{name}_final/{key}": np.asarray(val)
+                    for key, val in _flat_items(app.params)})
+        res[f"{name}_verdicts"] = np.asarray(verdicts)
+        res[f"{name}_metrics"] = np.asarray(json.dumps(
+            {key: int(val) if not isinstance(val, bool) else val
+             for key, val in app.metrics().items()}))
+        res.update({f"{name}_published/{key}": np.asarray(val)
+                    for key, val in _flat_items(pub.published)})
+    return res
+
+
 def main(inp: str, out: str) -> None:
     data = np.load(inp)
     mode = str(data["mode"]) if "mode" in data.files else "sync"
@@ -511,7 +695,8 @@ def main(inp: str, out: str) -> None:
                          "tp_train": run_tp_train,
                          "tp_serve": run_tp_serve,
                          "ring_equal": run_ring_equal,
-                         "tp": run_tp}[mode](data))
+                         "tp": run_tp, "cp": run_cp,
+                         "delta": run_delta}[mode](data))
         return
     mesh = jax.make_mesh((WORLD,), ("data",))
     res = {}

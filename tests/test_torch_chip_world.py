@@ -90,9 +90,17 @@ def test_world_check_passes_over_gloo(world):
     assert serve["rows_a_rank"] * world == chip_smoke.SERVE_BATCH
     assert max(serve["prefill_rel_err"], serve["decode_rel_err"]) < \
         chip_smoke.SERVE_RTOL
-    cp = phases["world_decode_cp"]
-    assert cp["slots_a_rank"] * world == cp["cache_slots"]
-    assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
+    cps = [line for line in every if line["phase"] == "world_decode_cp"]
+    assert [(line["arch"].removesuffix("-smoke"), line["mla_absorb"])
+            for line in cps] == [
+        (arch, absorb) for arch, _, _, _, forms in chip_smoke.WORLD_CP_CELLS
+        for absorb in forms]
+    for cp in cps:
+        assert cp["slots_a_rank"] * world == cp["cache_slots"]
+        assert cp["max_rel_err"] < chip_smoke.SERVE_RTOL
+        assert cp["recurrent_bitwise_across_ranks"]
+        assert (cp["recurrent_elements"] > 0) == (cp["family"] in (
+            "ssm", "hybrid"))
     if world < 4:
         return
     for name, cell in chip_smoke.WORLD_TP.items():
@@ -139,3 +147,15 @@ def test_world_check_passes_over_gloo(world):
     assert ckpt["replica_equals_joined"] and ckpt["final_snapshot_equal"]
     assert ckpt["deltas"] == chip_smoke.TRAIN_STEPS
     assert ckpt["save_and_join_s"] > 0
+    apply = [line for line in every if line["phase"] == "world_apply_tp"]
+    assert [(line["data"], line["tp"]) for line in apply] == list(
+        chip_smoke.APPLY_MESHES)
+    for line in apply:
+        assert line["equals_joined"] and line["pinned_unchanged"]
+        assert line["counters_equal_across_ranks"]
+        assert line["counters"]["param_version"] == chip_smoke.TRAIN_STEPS
+        assert line["counters"]["resyncs"] == 1
+        assert line["pinned_version"] == 0
+        assert len(line["intake_ms_by_rank"]) == world
+        assert line["one_rank_apply_ms"] > 0
+    assert apply[1]["trees_bitwise_across_ranks"] is True

@@ -49,6 +49,25 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert offenders == []
 
 
+FINISHED_ITEMS = re.compile(r"ROADMAP A1(3[de]?|4)\b")
+
+
+def test_no_gate_names_a_finished_item():
+    """A13 (every family), A13d (tensor parallelism), A13e
+    (context-parallel decode) and A14 (deltas over a group) are ported:
+    no file of the port names them as a ROADMAP item any more (A13f and
+    A16 still gate; the pattern leaves them alone)."""
+    offenders = [f"{p.relative_to(ROOT)}: {m.group(0)}"
+                 for p in _port_files()
+                 for m in FINISHED_ITEMS.finditer(p.read_text())]
+    assert offenders == []
+    for item in ("ROADMAP A13", "ROADMAP A13d", "ROADMAP A13e",
+                 "ROADMAP A14)"):
+        assert FINISHED_ITEMS.search(item), item
+    for item in ("ROADMAP A13f", "ROADMAP A16", "ROADMAP A4"):
+        assert not FINISHED_ITEMS.search(item), item
+
+
 def test_forbidden_pattern_catches_reference_imports():
     for line in ("import jax", "from jax import numpy", "import repro.core",
                  "from repro.kernels import x", "import repro",
@@ -182,10 +201,12 @@ def test_tensor_parallel_gates(arch, outside):
     (Jamba), and since A13d's last part the encoder-decoder (its
     encoder, and its decoder's ``cross`` leaves and cache by head) and
     the vision stub (``outside`` marks those two, once outside the
-    slice). Context-parallel decode of MLA, an SSM or a hybrid model
-    still raises naming ROADMAP A13e; the other two decode that way."""
-    from repro_torch.core.flatten import tree_size
-    from repro_torch.models import transformer
+    slice). Context-parallel decode beside the model group (a data
+    group of 2 here) gives every family its slice of the attention
+    slots (MLA's ckv and krope too) and the whole of every recurrent
+    state, split by channels over the model group (A13e, done)."""
+    from repro_torch.core.flatten import tree_items, tree_size
+    from repro_torch.models import attention, transformer
     from repro_torch.models.parallel import Parallel
 
     class Model(Parallel):
@@ -195,14 +216,22 @@ def test_tensor_parallel_gates(arch, outside):
     local = transformer.init_params(cfg, torch.Generator(), "meta", Model())
     whole = transformer.init_params(cfg, torch.Generator(), "meta")
     assert tree_size(local) < tree_size(whole)
-    cp = Model(cache_seq_sharded=True)
-    if not outside:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13e"):
-            transformer.init_decode_cache(cfg, 1, 8, torch.float32, "meta",
-                                          cp)
-        return
+    class TwoDataRanks(Model):
+        size = 2
+
+    cp = TwoDataRanks(cache_seq_sharded=True)
     cache = transformer.init_decode_cache(cfg, 1, 8, torch.float32, "meta",
                                           cp, enc_seq=4)
+    one = transformer.init_decode_cache(cfg, 1, 8, torch.float32, "meta",
+                                        Model(), enc_seq=4)
+    for (path, leaf), (_, full) in zip(tree_items(cache), tree_items(one)):
+        if path[0] != "cross" and path[-1] in attention.CACHE_KEYS:
+            lead = int(path[0] == "blocks")
+            assert leaf.shape[lead + 1] * 2 == full.shape[lead + 1], path
+        else:
+            assert leaf.shape == full.shape, path
+    if not outside:
+        return
     assert cache["blocks"]["l0"]["k"].shape[-2] == cfg.n_kv_heads // 2
     if cfg.is_encoder_decoder:
         assert local["encoder"]["blocks"]["attn"]["wq"].shape[-1] * 2 == \
@@ -512,52 +541,106 @@ def test_unknown_mixer_raises():
         init_params(cfg, torch.Generator(), "cpu")
 
 
+def test_unknown_attn_kind_raises():
+    """An attention kind the reference does not have (it knows full,
+    sliding and MLA) is a ValueError naming it, as an unknown family or
+    mixer is."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(
+        cfgs.reduced_config(cfgs.get_config("stablelm-3b")),
+        attn_kind="linear")
+    with pytest.raises(ValueError) as err:
+        init_params(cfg, torch.Generator(), "cpu")
+    assert str(err.value) == (
+        "stablelm-3b-smoke: unknown attn_kind 'linear' (expected one of "
+        "('full', 'sliding', 'mla'))")
+
+
+# the ids are the cases' names from when context-parallel decode of these
+# models raised
 @pytest.mark.parametrize("arch,item", [
-    ("xlstm-125m", "A13e"), ("jamba-v0.1-52b", "A13e"),
-    ("deepseek-v2-lite-16b", "A13")])
+    pytest.param("xlstm-125m", "A13e", id="xlstm-125m-A13e"),
+    pytest.param("jamba-v0.1-52b", "A13e", id="jamba-v0.1-52b-A13e"),
+    pytest.param("deepseek-v2-lite-16b", "A13",
+                 id="deepseek-v2-lite-16b-A13")])
 def test_context_parallel_decode_of_ssm_models_raises(arch, item,
                                                       monkeypatch):
-    """Context-parallel decode (a batch below the group's size) of an SSM
-    or hybrid model raises naming ROADMAP A13e, in ``serve_parallel``
-    (the decode builder) and in the cache; MLA's names A13. A
-    data-parallel batch of the same model builds."""
-    from repro_torch.models import transformer
+    """Context-parallel decode (a batch below the group's size) of an SSM,
+    hybrid or MLA model builds (ROADMAP A13e, done): the decode builder
+    over a data group of 2 takes a cache of half the slots, which the
+    cache's own layout gives (the attention leaves' slots halved, the
+    recurrent state whole); a data-parallel batch of the same model
+    builds too. tests/test_torch_world_cp.py holds the numbers against
+    the reference."""
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models import attention, transformer
     from repro_torch.models.parallel import Parallel
     from repro_torch.serve import step as serve_step
     monkeypatch.setattr(serve_step, "world", lambda group: (2, 0))
     cfg = cfgs.reduced_config(cfgs.get_config(arch))
-    for batch, raises in ((1, True), (2, False)):
+
+    class TwoDataRanks(Parallel):
+        size = 2
+    for batch in (1, 2):
         run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
             "serve", 8, batch, "decode"))
-        if not raises:
-            serve_step.build_decode_step(run, "cpu")
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            serve_step.build_decode_step(run, "cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            transformer.init_decode_cache(
-                cfg, 1, 8, torch.float32,
-                pal=Parallel(cache_seq_sharded=True))
+        serve_step.build_decode_step(run, "cpu")
+        assert serve_step.serve_parallel(run, decode=True) \
+            .cache_seq_sharded == (batch == 1)
+    cache = transformer.init_decode_cache(
+        cfg, 1, 8, torch.float32, pal=TwoDataRanks(cache_seq_sharded=True))
+    one = transformer.init_decode_cache(cfg, 1, 8, torch.float32)
+    state = 0
+    for (path, leaf), (_, full) in zip(tree_items(cache), tree_items(one)):
+        if path[-1] in attention.CACHE_KEYS:
+            lead = int(path[0] == "blocks")
+            assert leaf.shape[lead + 1] == 4 == full.shape[lead + 1] // 2
+        else:
+            assert leaf.shape == full.shape, path
+            state += path != ("pos",)
+    assert (state > 0) == (cfg.ssm is not None)
 
 
 def test_context_parallel_mla_decode_raises():
-    """Context-parallel decode of an MLA model is not ported: its cache
-    and its decode step raise naming ROADMAP A13; one rank's decode runs."""
+    """Context-parallel decode of an MLA model runs (ROADMAP A13e, done):
+    over a data group of one rank its cache is the one-rank cache, and
+    its decode step equals the one-rank step, bitwise in the expanded
+    form (the merge scales by exp(0)) and within 1e-6 of the scale in
+    the absorbed form (the reference's cp form: the context merged
+    unnormalised, then divided, not the one-rank softmax)."""
     from repro_torch.models import attention, init_params, transformer
     from repro_torch.models.parallel import Parallel
-    cfg = cfgs.reduced_config(cfgs.get_config("deepseek-v2-lite-16b"))
+    base = cfgs.reduced_config(cfgs.get_config("deepseek-v2-lite-16b"))
     cp = Parallel(cache_seq_sharded=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        transformer.init_decode_cache(cfg, 1, 8, torch.float32, pal=cp)
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    cache = transformer.init_decode_cache(cfg, 1, 8, torch.float32)
-    layer = params["prefix"][0]["attn"]
-    x = torch.zeros((1, 1, cfg.d_model))
-    pos = torch.zeros((), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        attention.attn_decode(layer, x, cache["prefix"][0], pos, cfg, cp)
-    y = attention.attn_decode(layer, x, cache["prefix"][0], pos, cfg)
-    assert y.shape == (1, 1, cfg.d_model)
+    for absorb in (False, True):
+        cfg = dataclasses.replace(base, mla_absorb=absorb)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        layer = params["prefix"][0]["attn"]
+        x = torch.randn((1, 1, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1))
+        caches = [transformer.init_decode_cache(cfg, 1, 8, torch.float32,
+                                                pal=pal)
+                  for pal in (cp, None)]
+        for c in caches:
+            c["prefix"][0]["ckv"].normal_(generator=torch.Generator()
+                                          .manual_seed(2))
+            c["prefix"][0]["krope"].normal_(generator=torch.Generator()
+                                            .manual_seed(3))
+        pos = torch.tensor(5, dtype=torch.int32)
+        with torch.inference_mode():
+            got = attention.attn_decode(layer, x, caches[0]["prefix"][0], pos,
+                                        cfg, cp)
+            want = attention.attn_decode(layer, x, caches[1]["prefix"][0],
+                                         pos, cfg)
+        assert got.shape == (1, 1, cfg.d_model)
+        for name in ("ckv", "krope"):
+            assert torch.equal(caches[0]["prefix"][0][name],
+                               caches[1]["prefix"][0][name])
+        if absorb:
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-6 * scale
+        else:
+            assert torch.equal(got, want)
 
 
 def test_optimizers_outside_the_slice_raise():

@@ -206,37 +206,40 @@ def test_serve_step_builders_match_the_model_functions():
     assert int(cache["pos"]) == 8
 
 
+# the last id is the case's name from when context-parallel decode of
+# MLA, an SSM or a hybrid model raised
 @pytest.mark.parametrize("data,model,batch,match", [
     (2, 1, 3, "batch of 3 rows does not split over 2"),
     (4, 1, 2, "cache of 10 slots does not split over 4"),
-    (1, 2, 8, "ROADMAP A13")])
-def test_serve_step_beyond_one_rank_raises(data, model, batch, match):
+    pytest.param(1, 2, 8, None, id="1-2-8-ROADMAP A13")])
+def test_serve_step_beyond_one_rank_raises(data, model, batch, match,
+                                           monkeypatch):
     """What the serve step does not serve over ``data`` ranks raises: a
-    data-parallel batch that the ranks do not split, context-parallel
+    data-parallel batch that the ranks do not split and context-parallel
     decode (batch < data) of a cache whose slots they do not split (the
-    reference cannot place either), and context-parallel decode of an
-    MLA, SSM or hybrid model (ROADMAP A13e; ``check_serving`` is the
-    builders' and the launcher's check, at the data group's size).
-    Tensor parallelism (``model`` > 1) serves every family, the
-    encoder-decoder and the vision stub among them.
-    ``decode_cache_layout`` is the builders' check of the layout, at the
-    group's size."""
-    from repro_torch.serve.step import check_serving, decode_cache_layout
+    reference cannot place either). Every family decodes
+    context-parallel (ROADMAP A13e, done): over a data group of 2 beside
+    a model group of ``model`` the decode builder of a batch of one
+    builds for the dense layouts, MLA, the SSM and hybrid families, the
+    encoder-decoder and the vision stub (tests/test_torch_world_cp.py
+    holds the numbers). ``decode_cache_layout`` is the builders' check of
+    the layout, at the group's size."""
+    from repro_torch.serve import step as serve_step
+    from repro_torch.serve.step import decode_cache_layout
     run = _run(batch=batch)
-    if model > 1:
+    if match is None:
+        monkeypatch.setattr(serve_step, "world", lambda group: (data * 2, 0))
         for arch in ("granite-8b", "deepseek-v2-lite-16b", "xlstm-125m",
                      "jamba-v0.1-52b", "whisper-small",
                      "phi-3-vision-4.2b"):
             cfg = tbase.reduced_config(tbase.get_config(arch))
-            check_serving(dataclasses.replace(run, model=cfg), 2)
             one = dataclasses.replace(run, model=cfg,
                                       shape=dataclasses.replace(
                                           run.shape, global_batch=1))
-            if cfg.attn_kind == "mla" or cfg.ssm is not None:
-                with pytest.raises(NotImplementedError, match=match + "e"):
-                    check_serving(one, 2)
-            else:
-                check_serving(one, 2)
+            serve_step.build_decode_step(one, "cpu")
+            assert serve_step.serve_parallel(one, decode=True) \
+                .cache_seq_sharded
+            assert decode_cache_layout(one, 2, True) == (1, 5)
         return
     with pytest.raises(ValueError, match=match):
         decode_cache_layout(run, data, batch < data)
@@ -277,27 +280,44 @@ def test_serve_launcher_smoke(arch, capsys):
     assert torch.equal(res["tokens"][:, 0], res["prefill_logits"].argmax(-1))
 
 
+# the ids are the cases' names from when each raised naming its ROADMAP
+# item (A14, A13e, A13, A13e)
 @pytest.mark.parametrize("flag,item", [
-    (["--data", "2", "--apply-deltas", "spool"], "ROADMAP A14"),
-    (["--arch", "deepseek-v2-lite-16b", "--model", "2", "--data", "2",
-      "--batch", "1"], "ROADMAP A13"),
-    (["--devices", "8"], "ROADMAP A13"),
-    (["--arch", "jamba-v0.1-52b", "--model", "2", "--data", "2",
-      "--batch", "1"], "ROADMAP A13")])
+    pytest.param(["--data", "2", "--apply-deltas", "spool"], None,
+                 id="flag0-ROADMAP A14"),
+    pytest.param(["--arch", "deepseek-v2-lite-16b", "--model", "2",
+                  "--data", "2", "--batch", "1"], None,
+                 id="flag1-ROADMAP A13"),
+    pytest.param(["--devices", "8"], (
+        "--devices: the port runs one process a rank under torchrun "
+        "(--nproc-per-node with --data and --model), not a mesh of devices "
+        "in one process"), id="flag2-ROADMAP A13"),
+    pytest.param(["--arch", "jamba-v0.1-52b", "--model", "2", "--data", "2",
+                  "--batch", "1"], None, id="flag3-ROADMAP A13")])
 def test_serve_launcher_unported_flags_raise(flag, item):
-    """What the launcher still does not serve: deltas applied over more
-    than one rank (A14), context-parallel decode (``--batch`` below
-    ``--data``) of MLA or a hybrid model beside a model group (A13e,
-    raised before any group is joined) and a mesh in one process (A13).
-    ``--mla-absorb`` alone is served (tests/test_torch_mla.py), and so is
-    ``--model 2`` of every family (tests/test_torch_tensor_parallel.py,
-    tests/test_torch_tensor_parallel_ssm.py,
-    tests/test_torch_tensor_parallel_encdec.py; below: past the gate)."""
-    with pytest.raises(NotImplementedError, match=item):
-        launcher.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
-                       *flag])
-
-
+    """Deltas applied over more than one rank (A14's remainder, done) and
+    context-parallel decode (``--batch`` below ``--data``) of MLA or a
+    hybrid model beside a model group (A13e, done) pass the launcher's
+    checks; outside torchrun the launcher then refuses to run one rank
+    in place of the group. ``--devices``, the reference's mesh of host
+    devices in one process, is a ValueError with this full text: the
+    port runs one process a rank. Every flag the launcher takes is
+    served (tests/test_torch_group_delta.py, tests/test_torch_world_cp.py
+    and the tensor-parallel files hold the paths)."""
+    argv = ["--arch", "granite-8b", "--smoke", "--device", "cpu", *flag]
+    args = launcher.parse_args(argv)
+    if item is not None:
+        with pytest.raises(ValueError) as err:
+            launcher.check_args(args)
+        assert str(err.value) == item
+        with pytest.raises(ValueError) as err:
+            launcher.main(argv)
+        assert str(err.value) == item
+        return
+    launcher.check_args(args)
+    with pytest.raises(RuntimeError, match="there is no process group to "
+                       "join"):
+        launcher.main(argv)
 @pytest.mark.parametrize("flag", [
     ["--arch", "xlstm-125m", "--model", "2"],
     ["--arch", "deepseek-v2-lite-16b", "--mla-absorb", "--model", "2"],

@@ -36,8 +36,15 @@ parameters (a case with ``ckpt`` also checkpoints, restores and
 publishes deltas of the joined parameters); MODE "ring_equal" runs ring
 attention with every model rank holding one device's attention weights
 beside that device's loss; MODE "tp_launch" runs both launchers'
-``main()`` with the inputs' flags. Imports torch and the port only, and
-records whether jax was imported.
+``main()`` with the inputs' flags; MODE "cp_serve" decodes each case of
+the inputs (JSON, as tests/jax_mesh_worker.py's mode "cp" reads it)
+context-parallel on the case's (data, model) groups from a one-rank
+prefill's cache that ``shard_decode_cache`` cut; MODE "group_delta" runs
+a group applier over each case's groups (JSON: mesh, stream) on the
+spool tests/jax_mesh_worker.py's mode "delta" wrote, rank 0 reading it
+through a ``GroupChannel``, and checks that single reader against a
+spool file written between two reads. Imports torch and the port only,
+and records whether jax was imported.
 """
 import json
 import os
@@ -686,6 +693,162 @@ def run_tp_serve(rank: int, data) -> dict:
     return res
 
 
+def run_cp_serve(rank: int, data) -> dict:
+    """Per case (tests/jax_mesh_worker.py's "cp" cases): every decode
+    step's logits, this rank's cache shapes, and after the last step its
+    recurrent leaves (every leaf but the attention cache's), flat in
+    tree order."""
+    from repro_torch.convert import split_params
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.step import build_decode_step, shard_decode_cache
+    models = json.loads(str(data["models"]))
+    res = {}
+    for name, case in json.loads(str(data["cases"])).items():
+        group, model_group, _, m = _axes(case)
+        tp = case["mesh"][1]
+        cfg = _tp_model(models[case["model"]])
+        b, prompt, seq = case["batch"], case["prompt"], case["seq"]
+        run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
+            "serve", seq, b, "decode"),
+            sparsifier=cfgs.SparsifierConfig(kind="none"))
+        whole = _global_tree(data, f"{case['model']}_init")
+        tokens = torch.from_numpy(data["tokens"][:b]).long()
+        with torch.inference_mode():
+            _, cache = tfm.prefill(whole, {"tokens": tokens[:, :prompt]},
+                                   cfg, max_seq=seq)
+        cache = shard_decode_cache(cache, run, group, model_group)
+        params = split_params(whole, tp, m) if tp > 1 else whole
+        for path, leaf in tree_items(cache):
+            res[f"{name}_shape_" + "_".join(map(str, path))] = \
+                np.asarray(leaf.shape)
+        dec = build_decode_step(run, "cpu", group=group,
+                                model_group=model_group)
+        for t in range(prompt, tokens.shape[1]):
+            logits, cache = dec(params, cache, tokens[:, t:t + 1])
+            res[f"{name}_decode_{t - prompt}"] = logits.numpy()
+        state = [leaf.reshape(-1) for path, leaf in tree_items(cache)
+                 if path != ("pos",) and path[-1] not in attn.CACHE_KEYS]
+        res[f"{name}_state"] = (torch.cat(state).numpy() if state
+                                else np.zeros(0, np.float32))
+    return res
+
+
+class _WritesBetweenReads:
+    """A spool reader that, right after it reads, puts the next file of
+    ``pending`` into the spool: a trainer writing between two ranks'
+    reads."""
+
+    def __init__(self, inner, spool: str, pending: list):
+        self.inner, self.spool, self.pending = inner, spool, pending
+
+    def recv(self) -> list:
+        import shutil
+        out = self.inner.recv()
+        if self.pending:
+            shutil.copy(self.pending.pop(0), self.spool)
+        return out
+
+
+def run_group_delta(rank: int, data) -> dict:
+    """Per case (JSON: mesh, stream; tests/test_torch_group_delta.py):
+    the group applier from the stream's version-0 snapshot, one spool
+    file a tick read by rank 0 through ``FaultyChannel(SpoolChannel)``
+    and a ``GroupChannel``, resyncing after a gap as ``launch.serve``
+    does: every verdict, the counters, the version and this rank's tree
+    after every tick, the pinned tree before and after, the payloads'
+    versions as this rank received them. Then the single reader against
+    a spool file written between two reads: each rank's received
+    versions, through a ``GroupChannel`` and through a reader of its
+    own."""
+    import shutil
+
+    from repro_torch.core import faults
+    from repro_torch.core.flatten import tree_items
+    from repro_torch.serve import delta as dl
+    from repro_torch.serve.step import delta_applier_from_snapshot
+    res = {}
+    streams = json.loads(str(data["streams"]))
+    for name, case in json.loads(str(data["cases"])).items():
+        group, model_group, _, _ = _axes(case)
+        st = streams[case["stream"]]
+        cfg = _tp_model(st["model"])
+        run = cfgs.RunConfig(model=cfg, shape=cfgs.ShapeConfig(
+            "serve", 16, 4, "decode"),
+            sparsifier=cfgs.SparsifierConfig(kind="none"))
+        snaps = os.path.join(st["root"], "snapshots")
+        src = os.path.join(st["root"], "source")
+        live = os.path.join(st["root"], f"{name}_spool")
+        applier, pinned = delta_applier_from_snapshot(
+            run, snaps, "cpu", step=0, group=group, model_group=model_group)
+        before = [leaf.clone() for _, leaf in tree_items(pinned)]
+        chan = None
+        if rank == 0:
+            chan = dl.FaultyChannel(dl.SpoolChannel(live),
+                                    faults.parse_channel_schedule(
+                                        st["schedule"]))
+        chan = dl.GroupChannel(chan, group, model_group, "cpu")
+        verdicts, seen = [], []
+
+        def intake(payloads):
+            seen.extend(p.version for p in payloads)
+            for p in payloads:
+                verdicts.append(applier.offer(p))
+            if applier.needs_resync and applier.can_resync(snaps):
+                applier.resync_from(snaps)
+        files = sorted(f for f in os.listdir(src) if f.endswith(".npz"))
+        for t, fname in enumerate(files):
+            if rank == 0:
+                shutil.copy(os.path.join(src, fname),
+                            os.path.join(live, fname))
+            intake(chan.recv())
+            res.update({f"{name}_tick{t}/" + "/".join(map(str, path)):
+                        leaf.numpy() for path, leaf in
+                        tree_items(applier.params)})
+            res[f"{name}_version_{t}"] = np.asarray(applier.version)
+        intake(chan.flush())
+        res.update({f"{name}_final/" + "/".join(map(str, path)):
+                    leaf.numpy() for path, leaf in tree_items(applier.params)})
+        res[f"{name}_verdicts"] = np.asarray(verdicts)
+        res[f"{name}_seen"] = np.asarray(seen)
+        res[f"{name}_metrics"] = np.asarray(json.dumps(applier.metrics()))
+        res[f"{name}_pinned_unchanged"] = np.asarray(all(
+            torch.equal(a, b) for a, (_, b) in zip(before,
+                                                  tree_items(pinned))))
+        dist.barrier()
+    # the single reader: rank 0 reads, then a file lands before the
+    # others would read: the group channel gives every rank rank 0's
+    # read, readers of their own part ways
+    root = str(data["race_root"])
+    src = sorted(os.path.join(root, "source", f) for f in
+                 os.listdir(os.path.join(root, "source")))
+    got, mine = [], []
+    for kind, out in (("group", got), ("own", mine)):
+        spool = os.path.join(root, kind)
+        if rank == 0:
+            os.makedirs(spool, exist_ok=True)
+            shutil.copy(src[0], spool)
+        dist.barrier()
+        reader = dl.SpoolChannel(spool)
+        if kind == "group":
+            reader = dl.GroupChannel(
+                _WritesBetweenReads(reader, spool, src[1:]) if rank == 0
+                else None, dist.group.WORLD, None, "cpu")
+        elif rank == 0:
+            reader = _WritesBetweenReads(reader, spool, src[1:])
+        for _ in src:
+            if kind == "group" or rank == 0:
+                out.append([p.version for p in reader.recv()])
+            dist.barrier()
+            if kind == "own" and rank:
+                out.append([p.version for p in reader.recv()])
+            dist.barrier()
+    res["race_group"] = np.asarray(json.dumps(got))
+    res["race_own"] = np.asarray(json.dumps(mine))
+    return res
+
+
 def leaf_at(tree, path):
     """The leaf of ``tree`` at ``path``."""
     for key in path:
@@ -739,7 +902,8 @@ def main(mode: str, rank: int, world: int, init_file: str, inp: str,
                "encdec_serve": run_encdec_serve,
                "collectives": run_collectives, "tp_train": run_tp_train,
                "tp_serve": run_tp_serve, "ring_equal": run_ring_equal,
-               "tp_launch": run_tp_launch}[mode]
+               "tp_launch": run_tp_launch, "cp_serve": run_cp_serve,
+               "group_delta": run_group_delta}[mode]
         res = run(rank, data)
         res["jax_imported"] = np.asarray("jax" in sys.modules)
         np.savez(out, **res)
