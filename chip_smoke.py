@@ -8,6 +8,7 @@
     python3 chip_smoke.py --delta
     python3 chip_smoke.py --world 4
     python3 chip_smoke.py --mamba
+    python3 chip_smoke.py --cost
 
 The second form runs only the device and build phases and the named
 train phases, each with its profile (no kernels line), from this
@@ -98,8 +99,26 @@ rank 0 through a ``loss:0.4,seed=2`` channel and broadcast: each ends
 equal to the joined parameters bit for bit, with the same counters on
 every rank and its pinned tree unchanged; intake and apply ms a rank
 beside one rank's apply ms). ``--tp NAME ...`` runs only the named
-phases of the multi-card run (the tensor-parallel ones and
-``world_decode_cp``).
+phases of the multi-card run (the tensor-parallel ones,
+``world_decode_cp`` and ``world_allgather``: NCCL's all-gather of 64 KiB,
+the collective launch floor ``roofline.analysis.COLLECTIVE_LATENCY_S``
+holds, and of 256 MB, beside NVLink's data-sheet rate).
+
+``--cost`` runs only the device, build and kernels phases, the ``train``
+cell and the cost models' phases: ``train_auto_buckets`` (the ``train``
+cell with ``num_buckets=0`` through train(), B1 and B2 once a resolved
+bucket a step, its parameters bit for bit those of the run with the
+count written out), ``roofline`` (the same cell traced by the dry run's
+tracer on the meta device: its three terms and lower bound beside the
+measured steps 1-4, the memory model's peak beside the measured one, the
+card's memory beside the model's capacity, a 1 GiB device copy's rate
+beside the data sheet's, and B1's and B2's byte contracts over the
+memory rate at most 1.05 x their measured times) and
+``mla_encoder_layer`` (one bidirectional MLA layer at Whisper-small's
+width and heads with DeepSeek-V2-Lite's kv_lora_rank and rope_head_dim
+over 1500 frames, both forms in fp32 within 1e-5 of an fp64 one-softmax
+form, and their ms). In the full run train_auto_buckets and roofline
+follow the train cells, and mla_encoder_layer follows mamba_layer.
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's ``nvcc``; exits non-zero without either, and when run
@@ -789,15 +808,14 @@ def kernel_case(dev, j: int, seed: int, timed: bool) -> dict:
            "sweep1_err": max_abs_err(zip(out1, ref1)),
            "sweep2_err": max_abs_err(zip(out2, ref2))}
     if timed:
-        rows = pk.rows_of(j)
         res["sweep1_ms"] = cuda_ms(lambda: pk.sweep1(g, err, c))
         res["sweep1_plain_ms"] = cuda_ms(lambda: pk.sweep1_plain(g, err, c))
-        res["sweep1_bytes"] = 16 * j + 4 * rows + 4 * pk.BINS
+        res["sweep1_bytes"] = pk.sweep1.bytes_moved(j)
         res["sweep1_ops"] = 4 * j      # add, multiply, abs, max
         res["sweep2_ms"] = cuda_ms(lambda: pk.sweep2(out1[1], tau, maxpb))
         res["sweep2_plain_ms"] = cuda_ms(
             lambda: pk.sweep2_plain(out1[1], tau, maxpb))
-        res["sweep2_bytes"] = 4 * j + 8 * rows * maxpb + 4 * rows
+        res["sweep2_bytes"] = pk.sweep2.bytes_moved(j, maxpb)
         res["sweep2_ops"] = 2 * j      # abs, compare
     return res
 
@@ -824,13 +842,12 @@ def dgc_case(dev, j: int, seed: int, timed: bool) -> dict:
            "mom_differs_from_two_roundings": int(unfused)}
     del ref
     if timed:
-        rows = pk.rows_of(j)
         res["sweep1_dgc_ms"] = cuda_ms(
             lambda: pk.sweep1_dgc(g, err, mom, c, DGC_MOMENTUM))
         res["sweep1_dgc_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM))
         # read g, err, mom; write a, score, mom'
-        res["sweep1_dgc_bytes"] = 24 * j + 4 * rows + 4 * pk.BINS
+        res["sweep1_dgc_bytes"] = pk.sweep1_dgc.bytes_moved(j)
         res["sweep1_dgc_ops"] = 6 * j  # fma (2), add, multiply, abs, max
     return res
 
@@ -874,7 +891,6 @@ def gated_case(dev, j: int, seed: int, timed: bool) -> dict:
                                       max_abs_err(zip(got, want)))
         del got, want
     if timed:
-        rows = pk.rows_of(j)
         c = torch.ones(1, device=dev)
         res["sweep1_gated_ms"] = cuda_ms(lambda: pk.sweep1_gated(
             g, err, c, on, ERR_DECAY, mom, DGC_MOMENTUM))
@@ -884,7 +900,7 @@ def gated_case(dev, j: int, seed: int, timed: bool) -> dict:
             g, err, c, mom, DGC_MOMENTUM, on, ERR_DECAY))
         # the dgc mode's bytes (read g, err, mom; write a, score, mom'),
         # the gate and c
-        res["sweep1_gated_bytes"] = 24 * j + 4 * rows + 4 * pk.BINS + 8
+        res["sweep1_gated_bytes"] = pk.sweep1_gated.bytes_moved(j, dgc=True)
         # selects of g, err and mom', decay multiply, fma (2), add,
         # multiply, abs, max
         res["sweep1_gated_ops"] = 10 * j
@@ -950,18 +966,16 @@ def bf16_case(dev, j: int, seed: int, timed: bool) -> dict:
         del got
     del g16, e32, m32
     if timed:
-        rows = pk.rows_of(j)
-        small = 4 * rows + 4 * pk.BINS
         res["sweep1_bf16_ms"] = cuda_ms(lambda: pk.sweep1_bf16(g, err, c))
         res["sweep1_bf16_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_plain(g, err, c))
-        res["sweep1_bf16_bytes"] = 14 * j + small  # g 4, err 2, a 4, score 4
+        res["sweep1_bf16_bytes"] = pk.sweep1_bf16.bytes_moved(j)
         res["sweep1_bf16_ops"] = 5 * j             # round, add, mul, abs, max
         res["sweep1_dgc_bf16_ms"] = cuda_ms(
             lambda: pk.sweep1_dgc_bf16(g, err, mom, c, DGC_MOMENTUM))
         res["sweep1_dgc_bf16_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM))
-        res["sweep1_dgc_bf16_bytes"] = 20 * j + small   # + mom 2, mom' 4
+        res["sweep1_dgc_bf16_bytes"] = pk.sweep1_dgc_bf16.bytes_moved(j)
         res["sweep1_dgc_bf16_ops"] = 7 * j
         res["sweep1_gated_bf16_ms"] = cuda_ms(lambda: pk.sweep1_gated_bf16(
             g, err, c, on, ERR_DECAY, mom, DGC_MOMENTUM))
@@ -971,7 +985,8 @@ def bf16_case(dev, j: int, seed: int, timed: bool) -> dict:
         res["sweep1_gated_bf16_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_plain(g, err, c, mom, DGC_MOMENTUM, on,
                                     ERR_DECAY))
-        res["sweep1_gated_bf16_bytes"] = 20 * j + small + 8
+        res["sweep1_gated_bf16_bytes"] = pk.sweep1_gated_bf16.bytes_moved(
+            j, dgc=True)
         res["sweep1_gated_bf16_ops"] = 12 * j
     return res
 
@@ -1157,7 +1172,8 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
             -j // pk.SKETCH_TILE)
         res["sweep1_sketch_plain_ms"] = cuda_ms(
             lambda: pk.sweep1_sketch_plain(g, err, rows, width))
-        res["sweep1_sketch_bytes"] = 12 * j + 4 * rows * width
+        res["sweep1_sketch_bytes"] = pk.sweep1_sketch.bytes_moved(j, rows,
+                                                                 width)
         res["sweep1_sketch_ops"] = j + rows * j   # add, one add per row
         # the partitioned design's own traffic: g, err, a and the pairs
         # written and read (6 B each)
@@ -1168,7 +1184,8 @@ def sketch_case(dev, j: int, width: int, seed: int, timed: bool,
             lambda: pk.sketch_encode(a, rows, width, tables))
         res["sketch_encode_plain_ms"] = cuda_ms(
             lambda: pk.sketch_encode_plain(a, rows, width))
-        res["sketch_encode_bytes"] = 4 * j + 4 * rows * width
+        res["sketch_encode_bytes"] = pk.sketch_encode.bytes_moved(j, rows,
+                                                                 width)
         res["sketch_encode_ops"] = rows * j
         # the same design's traffic: a and the pairs written and read
         res["sketch_encode_design_bytes"] = 4 * j + 12 * rows * j
@@ -1271,12 +1288,10 @@ def sketch_modes_case(dev, j: int, width: int, seed: int, timed: bool,
             res["sweep1_sketch_gated_bf16_plain_ms"] = cuda_ms(
                 lambda: pk.sweep1_sketch_plain(g, e16, rows, width, on,
                                                ERR_DECAY))
-            sk_bytes = 4 * rows * width
-            # read g (4 B) and err (4 B, or 2 B bf16), write a (4 B) and
-            # the sketch; the gated form also reads its gate
-            res["sweep1_sketch_gated_bytes"] = 12 * j + sk_bytes + 4
-            res["sweep1_sketch_bf16_bytes"] = 10 * j + sk_bytes
-            res["sweep1_sketch_gated_bf16_bytes"] = 10 * j + sk_bytes + 4
+            for name in ("sweep1_sketch_gated", "sweep1_sketch_bf16",
+                         "sweep1_sketch_gated_bf16"):
+                res[f"{name}_bytes"] = getattr(pk, name).bytes_moved(
+                    j, rows, width)
             # the add and one add a row; the gate's two selects
             res["sweep1_sketch_bf16_ops"] = j + rows * j
             res["sweep1_sketch_gated_ops"] = 3 * j + rows * j
@@ -1483,19 +1498,17 @@ def fused_ef_case(dev, j: int, seed: int, timed: bool) -> dict:
         a, _ = fef.scores(*ins, **kw)
         res["scores_ms"] = cuda_ms(lambda: fef.scores(*ins, **kw))
         res["scores_plain_ms"] = cuda_ms(lambda: fef.scores_plain(*ins, **kw))
-        res["scores_bytes"] = 28 * j       # read 5 vectors, write 2
+        res["scores_bytes"] = fef.scores.bytes_moved(j)
         res["scores_ops"] = 40 * j         # posterior, tanh polynomials
         res["apply_ms"] = cuda_ms(lambda: fef.apply(a, ins[4]))
         res["apply_plain_ms"] = cuda_ms(lambda: fef.apply_plain(a, ins[4]))
-        res["apply_bytes"] = 16 * j        # read 2, write 2
+        res["apply_bytes"] = fef.apply.bytes_moved(j)
         res["apply_ops"] = 2 * j
         res["scores_bf16_ms"] = cuda_ms(lambda: fef.scores_bf16(*ins16,
                                                                 **kw))
         res["scores_bf16_plain_ms"] = cuda_ms(
             lambda: fef.scores_bf16_plain(*ins16, **kw))
-        # read g (4 B) and four bf16 vectors (8 B), write a bf16 a and
-        # the fp32 score
-        res["scores_bf16_bytes"] = 18 * j
+        res["scores_bf16_bytes"] = fef.scores_bf16.bytes_moved(j)
         res["scores_bf16_ops"] = 60 * j    # the chain and its roundings
     del ins16
     return res
@@ -1600,7 +1613,7 @@ def topk_select_case(dev, j: int, kinds, seed: int, timed: bool) -> dict:
         if timed and kind == "gauss":
             res["histogram_plain_ms"] = cuda_ms(
                 lambda: hk.histogram_plain(x, amax))
-            res["histogram_bytes"] = 4 * j + 4 * hk.BINS
+            res["histogram_bytes"] = hk.histogram.bytes_moved(j)
             res["histogram_ops"] = 5 * j  # abs, divide, multiply, convert, clip
         del x, got, want
     return res
@@ -3029,8 +3042,12 @@ def world_rank(rank: int, world: int, port: int, backend: str = "nccl",
             if cuda:
                 torch.cuda.empty_cache()
             world_decode_cp(dev, world, rank)
-        elif "world_decode_cp" in tp:
-            world_decode_cp(dev, world, rank)
+            world_allgather(dev, world, rank)
+        else:
+            if "world_decode_cp" in tp:
+                world_decode_cp(dev, world, rank)
+            if "world_allgather" in tp:
+                world_allgather(dev, world, rank)
         if world == 4:
             for name in list(WORLD_TP) + list(TP_PHASES):
                 if tp and name not in tp:
@@ -4557,6 +4574,265 @@ def world_apply_tp(dev, world: int, rank: int) -> None:
         dist.barrier()
 
 
+# phase roofline: the dry run's tracer and the memory model on the main
+# cell, the device copy's and NCCL's rates beside the data sheet's
+ROOFLINE_COPY_BYTES = 1 << 30
+CONTRACT_SLACK = 1.05        # a kernel's bytes bound over its time at most
+AG_BIG_BYTES = 256 * 10 ** 6   # world_allgather's gathered output
+AG_REPS = 50
+# phase mla_encoder_layer: one bidirectional MLA layer at Whisper-small's
+# width and heads with DeepSeek-V2-Lite's kv_lora_rank and rope_head_dim,
+# over Whisper's 1500 frames, both forms in fp32 against fp64
+MLA_ENC_BATCH, MLA_ENC_SEQ = 8, 1500
+MLA_ENC_RTOL = 1e-5
+
+
+def phase_train_auto_buckets(dev) -> dict:
+    """The main path with ``num_buckets=0`` through train(): the count
+    the step resolves (``train.step.auto_num_buckets_for_run``), B1 and
+    B2 launched once a resolved bucket a step, and after TRAIN_STEPS
+    steps the parameters bit for bit those of the same run with the count
+    written out."""
+    import torch
+    from repro_torch.configs.base import (RunConfig, SHAPES,
+                                          SparsifierConfig, get_config)
+    from repro_torch.core.flatten import TreeFlattener
+    from repro_torch.roofline.analysis import COLLECTIVE_LATENCY_S
+    from repro_torch.train.step import auto_num_buckets_for_run
+    arch, depth, _ = TRAIN_MODEL
+    model = dataclasses.replace(get_config(arch), n_layers=depth)
+    fields = dict(kind="regtopk", **FUSED)
+    nb, j, dp = auto_num_buckets_for_run(RunConfig(
+        model=model, shape=SHAPES["train_4k"], sparsifier=SparsifierConfig(
+            sparsity=SPARSITY, mu=MU, num_buckets=0, **fields)))
+    expect = train_expect({"sweep1": nb, "sweep2": nb})
+    flats, launches = [], {}
+    for name, buckets in (("train_auto_buckets", 0),
+                          ("train_auto_buckets_written", nb)):
+        launches[name], _, state, _, _ = phase_train(
+            dev, dict(fields, num_buckets=buckets), expect, name,
+            model_cut=TRAIN_MODEL)
+        flats.append(TreeFlattener(state.params).flatten(
+            state.params).detach())
+        del state
+        torch.cuda.empty_cache()
+    check(bits_equal(*flats), "train_auto_buckets: the parameters differ "
+          f"from the run with num_buckets={nb} written out")
+    emit("train_auto_buckets_equal", num_buckets=nb, j_local=j, dp=dp,
+         collective_latency_s=COLLECTIVE_LATENCY_S, launches=launches,
+         params_bitwise_equal=True)
+    return launches
+
+
+def phase_roofline(dev, kernel_res: dict, step_ms: list, peak: int) -> None:
+    """The cost models on the card: the data sheet's rates (``HW_H100``)
+    beside a 1 GiB device copy's measured rate; the main cell (the
+    ``train`` phase's model and sparsifier at batch 8 x 128, one card)
+    traced by the dry run's tracer on the meta device, its three terms
+    and lower bound beside the same run's measured steps 1-4; the memory
+    model's peak beside the measured peak and its capacity beside the
+    card's; and B1's and B2's byte contracts (``bytes_moved``) over the
+    memory rate at most CONTRACT_SLACK times their measured times."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis, memory_model
+    hw = analysis.HW_H100
+    src = torch.ones(ROOFLINE_COPY_BYTES // 4, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
+    copy_rate = 2 * ROOFLINE_COPY_BYTES / (copy_ms * 1e-3)
+    arch, depth, main_j = TRAIN_MODEL
+    shape = ShapeConfig("main", TRAIN_SEQ, TRAIN_BATCH, "train")
+    run = dryrun.run_config(arch, shape, n_layers=depth, sparsity=SPARSITY,
+                            comm="sparse", pipeline="fused")
+    t0 = time.perf_counter()
+    traced = dryrun.trace_train(run)
+    trace_s = time.perf_counter() - t0
+    wire = sum(traced["wire"].values())
+    rec = {"mesh": {"data": 1, "model": 1}, "kind": "train",
+           "shape": shape.name, "global_batch": shape.global_batch,
+           "seq_len": shape.seq_len,
+           "active_params": run.model.param_count(),
+           "flops": traced["flops"], "bytes_accessed": traced["bytes"],
+           "collective_bytes": {"total": wire},
+           "hlo_flops": traced["flops"], "hlo_bytes": traced["bytes"],
+           "hlo_collective_wire_bytes": wire}
+    terms = analysis.roofline_terms(rec)
+    measured = statistics.median(step_ms[1:])
+    mb = memory_model.per_device_memory(run, tp=1, dp=1)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    contracts = {}
+    for name in ("sweep1", "sweep2"):
+        bound = kernel_res[f"{name}_bytes"] / hw.hbm_bw * 1e3
+        contracts[name] = {"bytes": kernel_res[f"{name}_bytes"],
+                           "bound_ms": bound, "ms": kernel_res[f"{name}_ms"],
+                           "share": bound / kernel_res[f"{name}_ms"]}
+    emit("roofline", hw=dataclasses.asdict(hw),
+         collective_latency_s=analysis.COLLECTIVE_LATENCY_S,
+         copy_bytes=ROOFLINE_COPY_BYTES, copy_ms=copy_ms,
+         copy_rate_bytes_per_s=copy_rate,
+         copy_share_of_datasheet=copy_rate / hw.hbm_bw,
+         cell={"model": run.model.name, "n_layers": depth, "j": main_j,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ},
+         trace_s=trace_s, traced_flops=traced["flops"],
+         traced_bytes=traced["bytes"], traced_wire=traced["wire"],
+         sync_contract_bytes=traced["sync"]["bytes"],
+         sync_kernels=traced["sync"]["kernels"],
+         compute_s=terms["compute_s"], memory_s=terms["memory_s"],
+         collective_s=terms["collective_s"], dominant=terms["dominant"],
+         step_time_lb_s=terms["step_time_lb_s"],
+         model_flops=terms["model_flops"],
+         measured_steps_ms=step_ms[1:], measured_median_ms=measured,
+         lb_share_of_measured=terms["step_time_lb_s"] * 1e3 / measured,
+         memory_model_peak=mb.peak, memory_model_total=mb.total,
+         measured_peak=peak, memory_model_over_measured=mb.peak / peak,
+         card_total_memory=total, contracts=contracts)
+    check(total == memory_model.H100_TOTAL_MEMORY,
+          f"the card holds {total} bytes, the memory model's constant "
+          f"{memory_model.H100_TOTAL_MEMORY}")
+    for name, c in contracts.items():
+        check(c["bound_ms"] <= CONTRACT_SLACK * c["ms"],
+              f"roofline: {name}'s contract ({c['bytes']} B, "
+              f"{c['bound_ms']:.3f} ms) exceeds {CONTRACT_SLACK} x its "
+              f"measured {c['ms']:.3f} ms")
+
+
+def mla_plain_fp64(p: dict, x, cfg):
+    """Bidirectional MLA of x in fp64, one softmax over every key: the
+    projections (the rmsnorm of ckv, the interleaved rotation of the
+    queries' and the shared key's RoPE dims by the model's own fp32
+    angles, as the reference computes them: at position 1500 their
+    rounding alone moves the output by 2e-5 of its scale), each head's k
+    and v expanded from ckv, the scores, their softmax, the value product
+    and wo."""
+    import torch
+    from repro_torch.models.attention import rope_angles
+    d = torch.float64
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    rhd, lora = cfg.rope_head_dim, cfg.kv_lora_rank
+    p = {key: val.to(d) for key, val in p.items()}
+    x = x.to(d)
+    ang = rope_angles(torch.arange(s, device=x.device), rhd,
+                      cfg.rope_theta).to(d)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    def rope(t):                          # (..., S, [H,] rhd)
+        c, n = (cos, sin) if t.ndim == 3 else (cos[:, None], sin[:, None])
+        t1, t2 = t[..., 0::2], t[..., 1::2]
+        return torch.stack([t1 * c - t2 * n, t1 * n + t2 * c],
+                           -1).reshape(t.shape)
+    dkv = x @ p["dkv"]
+    c = dkv[..., :lora]
+    ckv = c * torch.rsqrt((c * c).mean(-1, keepdim=True) + 1e-5) * \
+        p["kv_norm"]
+    krope = rope(dkv[..., lora:])
+    q = (x @ p["wq"]).reshape(b, s, h, hd + rhd)
+    qn, qr = q[..., :hd], rope(q[..., hd:])
+    kn = (ckv @ p["uk"]).reshape(b, s, h, hd)
+    v = (ckv @ p["uv"]).reshape(b, s, h, -1)
+    sc = (torch.einsum("bqhd,bshd->bhqs", qn, kn)
+          + torch.einsum("bqhr,bsr->bhqs", qr, krope)) * hd ** -0.5
+    o = torch.einsum("bhqs,bshv->bqhv", torch.softmax(sc, -1), v)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def phase_mla_encoder_layer(dev) -> None:
+    """One bidirectional MLA layer (an MLA encoder's self-attention,
+    ``attn_fwd_full(causal=False)``) at Whisper-small's width and heads
+    with DeepSeek-V2-Lite's kv_lora_rank and rope_head_dim, over
+    MLA_ENC_SEQ frames: the expanded and the absorbed form in fp32, each
+    within MLA_ENC_RTOL of the largest entry of the fp64 one-softmax form
+    (:func:`mla_plain_fp64`), and each one's ms."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import attention as attn
+    ds = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(get_config("whisper-small"), attn_kind="mla",
+                              kv_lora_rank=ds.kv_lora_rank,
+                              rope_head_dim=ds.rope_head_dim,
+                              v_head_dim=0, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = attn.init_attention(gen, cfg, device=dev)
+    x = torch.randn(MLA_ENC_BATCH, MLA_ENC_SEQ, cfg.d_model, generator=gen,
+                    device=dev)
+    with torch.no_grad():
+        want = mla_plain_fp64(p, x, cfg)
+        scale = float(want.abs().max())
+        forms = {}
+        for form, absorb in (("expanded", False), ("absorbed", True)):
+            c = dataclasses.replace(cfg, mla_absorb=absorb)
+            y = attn.attn_fwd_full(p, x, c, causal=False)
+            err = float((y.double() - want).abs().max()) / scale
+            check(math.isfinite(err) and err <= MLA_ENC_RTOL,
+                  f"mla_encoder_layer {form}: {err:.3e} of the scale from "
+                  "the fp64 form")
+            forms[form] = {"rel_err_vs_fp64": err, "ms": cuda_ms(
+                lambda: attn.attn_fwd_full(p, x, c, causal=False))}
+            del y
+    emit("mla_encoder_layer", d_model=cfg.d_model, n_heads=cfg.n_heads,
+         head_dim=cfg.resolved_head_dim, kv_lora_rank=cfg.kv_lora_rank,
+         rope_head_dim=cfg.rope_head_dim, batch=MLA_ENC_BATCH,
+         seq=MLA_ENC_SEQ, rtol=MLA_ENC_RTOL, **forms)
+
+
+def world_allgather(dev, world: int, rank: int) -> None:
+    """NCCL's all-gather over the group: the median of AG_REPS CUDA-event
+    timings of one MIN_CHUNK_BYTES (64 KiB gathered) all-gather, each
+    after a barrier (the collective launch floor that
+    ``roofline.analysis.COLLECTIVE_LATENCY_S`` holds), and of one
+    AG_BIG_BYTES all-gather (its bus rate, out x (n - 1) / n over the
+    time, beside NVLink's data-sheet rate), and of AG_REPS back to back.
+    On the card only: over gloo it measures nothing."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.roofline import analysis
+    if dev.type != "cuda":
+        return
+    res = {}
+    for name, out_bytes in (("small", analysis.MIN_CHUNK_BYTES),
+                            ("big", AG_BIG_BYTES)):
+        n = out_bytes // 4 // world
+        x = torch.ones(n, device=dev)
+        out = torch.empty(n * world, device=dev)
+        for _ in range(5):
+            dist.all_gather_into_tensor(out, x)
+        times = []
+        for _ in range(AG_REPS):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist.all_gather_into_tensor(out, x)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AG_REPS):
+            dist.all_gather_into_tensor(out, x)
+        end.record()
+        end.synchronize()
+        med = statistics.median(times)
+        res[name] = {"gathered_bytes": n * world * 4, "median_ms": med,
+                     "min_ms": min(times), "max_ms": max(times),
+                     "back_to_back_ms": start.elapsed_time(end) / AG_REPS,
+                     "bus_bytes_per_s": n * world * 4 * (world - 1) / world
+                     / (med * 1e-3)}
+        del x, out
+    if rank == 0:
+        emit("world_allgather", world=world, **res,
+             latency_s=res["small"]["median_ms"] * 1e-3,
+             collective_latency_s_in_code=analysis.COLLECTIVE_LATENCY_S,
+             link_datasheet_bytes_per_s=analysis.HW_H100.link_bw)
+
+
 # the tensor-parallel phases after the train cells of WORLD_TP, in order
 TP_PHASES = {"world_serve_tp": world_serve_tp,
              "world_mamba_layer": world_mamba_layer,
@@ -4711,11 +4987,17 @@ def main(argv=None) -> int:
                     "in-process round, then the launcher's train() and "
                     "serve() over the group; needs that many cards")
     ap.add_argument("--tp", nargs="*", metavar="NAME",
-                    choices=["world_decode_cp"] + list(WORLD_TP)
-                    + list(TP_PHASES),
+                    choices=["world_decode_cp", "world_allgather"]
+                    + list(WORLD_TP) + list(TP_PHASES),
                     help="with --world 4: run only the tensor-parallel "
                     "phases, or only those named (of world_decode_cp, "
+                    "world_allgather, "
                     + ", ".join(list(WORLD_TP) + list(TP_PHASES)) + ")")
+    ap.add_argument("--cost", action="store_true",
+                    help="run only the device, build and kernels phases, "
+                    "the main train cell and the cost models' phases "
+                    "(train_auto_buckets, roofline, mla_encoder_layer; "
+                    "no kernels line)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4735,6 +5017,17 @@ def main(argv=None) -> int:
               f"--world {args.world} needs {args.world} cards, found "
               f"{torch.cuda.device_count()}")
         phase_world(args.world, os.path.abspath(args.src), args.tp)
+        return finish(smi, None)
+    if args.cost:
+        kres = phase_kernels(dev)
+        _, _, state, step_ms, _ = phase_train(
+            dev, TRAIN_PATHS["train"][0], path_expect("train"), "train")
+        peak = torch.cuda.max_memory_allocated(dev)
+        del state
+        torch.cuda.empty_cache()
+        phase_train_auto_buckets(dev)
+        phase_roofline(dev, kres["big"], step_ms, peak)
+        phase_mla_encoder_layer(dev)
         return finish(smi, None)
     if args.train or args.serve or args.delta or args.mamba:
         for name in args.train or ():
@@ -4770,6 +5063,8 @@ def main(argv=None) -> int:
         train[name], run, state, steps[name], _ = phase_train(
             dev, fields, path_expect(name), name, schedule,
             TRAIN_MODELS.get(name, TRAIN_MODEL))
+        if name == "train":
+            main_peak = torch.cuda.max_memory_allocated(dev)
         if run.sparsifier.overlap == "backward":
             phase_overlap_equal(dev, run, state)
         tables, *profiles[name] = phase_profile(
@@ -4779,8 +5074,11 @@ def main(argv=None) -> int:
                   f"{name}: the sync keeps one start table of its shape")
         del state
         torch.cuda.empty_cache()
+    phase_train_auto_buckets(dev)
+    phase_roofline(dev, kres["big"], steps["train"], main_peak)
     phase_serve(dev)
     phase_mamba_layer(dev)
+    phase_mla_encoder_layer(dev)
     delta = phase_delta(dev)
     # the other models' cells have no dense baseline of their own
     emit("compression_share", **compression_shares(

@@ -14,15 +14,18 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda``; ``"cpu"``/``"cuda[:i]"``/``torch.device`` as
-    given. Raises RuntimeError naming the missing device when a CUDA
-    device is requested (explicitly or by default) and none is present."""
+    given, and ``"meta"``, on which the dry run traces a step without
+    memory (``launch.dryrun``). Raises RuntimeError naming the missing
+    device when a CUDA device is requested (explicitly or by default)
+    and none is present."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise RuntimeError(f"unsupported device {str(dev)!r} (cuda | cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise RuntimeError(f"unsupported device {str(dev)!r} "
+                           "(cuda | cpu | meta)")
     return dev
 
 

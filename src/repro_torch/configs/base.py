@@ -1,8 +1,7 @@
 """Configuration dataclasses + registry (the port's own copy).
 
 Field names and defaults follow the reference's ``repro.configs.base`` so
-a config reads the same in both packages. Only what the ported slice
-runs is here: the dense decoder family (every dense layout of the
+a config reads the same in both packages: the dense decoder family (every dense layout of the
 registry: layernorm or rmsnorm, the SwiGLU or the GELU MLP, QKV bias,
 tied or untied embeddings, RoPE or sinusoidal positions, full or sliding
 attention), the MoE family (routed and shared experts, a dense prefix,
@@ -11,8 +10,9 @@ mLSTM and sLSTM mixers; Mamba, alone or in the Jamba hybrid with
 attention and MoE layers), the vision and audio families (a patch stub
 over the decoder's first positions; an encoder over a frame stub with
 cross-attention in every decoder layer), the sparsifier fields that
-select among its paths, and the optimizers. A field value outside the
-slice raises ``NotImplementedError`` naming its ROADMAP item where it
+select among its paths, the optimizers, the four input shapes
+(``SHAPES``) and the active parameter count (``active_param_count``). A
+field value the reference does not define raises ``ValueError`` where it
 would be used (``core.sparsify.check_supported``,
 ``core.aggregate.check_supported``, ``models.transformer.check_model``).
 """
@@ -154,6 +154,21 @@ class ModelConfig:
         return n
 
 
+def active_param_count(cfg) -> int:
+    """Parameters a token passes through (the reference's
+    ``count_active_params``): ``param_count`` with each MoE layer's
+    routed experts cut to its top-k (the router and the shared experts
+    stay whole)."""
+    total = cfg.param_count()
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = (3 if cfg.act == "silu" else 2) * cfg.d_model * m.d_expert
+    period, kinds = ffn_pattern(cfg)
+    n_moe = (cfg.n_layers - cfg.n_dense_prefix) // period * kinds.count("moe")
+    return total - n_moe * (m.n_experts - m.top_k) * per_expert
+
+
 def mamba_dims(cfg) -> tuple:
     """(d_inner, dt_rank) of a Mamba mixer: expand * d_model, and the
     config's dt_rank or ceil(d_model / 16)."""
@@ -225,6 +240,9 @@ class ShapeConfig:
 
 SHAPES: dict[str, ShapeConfig] = {
     "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
 

@@ -78,6 +78,7 @@ its two companions model the wire bytes of a config.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import operator
 import warnings
@@ -400,12 +401,19 @@ class GradientSync:
     layer-aligned ones); ``stream_bounds`` the partition a streaming step
     (:meth:`begin`, ``cfg.overlap="backward"``) is fed in, by default the
     allocation's segments. Allocation and overlap are checked here, at
-    build time (the reference's ValueErrors)."""
+    build time (the reference's ValueErrors).
 
-    def __init__(self, cfg: SparsifierConfig, group=None, *,
+    ``num_buckets=0`` (the bucket auto-tune) resolves here when ``j``,
+    the flat length, is given, else at the first step, from J and the
+    group's size (``sparsify.resolve_num_buckets``); ``cfg`` is then the
+    resolved config and ``requested`` the one asked for."""
+
+    def __init__(self, cfg: SparsifierConfig, group=None, *, j: int = None,
                  seg_bounds=None, stream_bounds=None):
         check_supported(cfg)
+        self.requested = cfg
         self.cfg = cfg
+        self.j = None
         self.group = group
         self.seg_bounds = (None if seg_bounds is None
                            else [tuple(b) for b in seg_bounds])
@@ -419,6 +427,20 @@ class GradientSync:
         self.fallback_reasons: Counter = Counter()
         self.last_count = None
         self.sketch_tables: dict = {}
+        if j is not None:
+            self._resolve(j)
+
+    def _resolve(self, j: int) -> None:
+        """Resolve ``num_buckets=0`` for a flat length j over the group,
+        as the reference's sync does at build time or at the step (the
+        baselines select nothing and keep the config)."""
+        if (self.requested.num_buckets != 0 or j == self.j
+                or self.selection == "none"):
+            return
+        self.cfg = dataclasses.replace(
+            self.requested, num_buckets=sparsify.resolve_num_buckets(
+                self.requested, j, world(self.group)[0]))
+        self.j = j
 
     def _count(self, outs) -> None:
         for out in outs:
@@ -444,6 +466,7 @@ class GradientSync:
                 return g_agg, new
             zero = None if p is None else torch.zeros((), device=g.device)
             return g_agg, new, self._stats(p, zero, g_agg)
+        self._resolve(g.numel())
         if self.selection == "sketch":
             p = None if participate is None else participate.reshape(())
             a, sk = self.encode(state, g, p)
@@ -474,6 +497,7 @@ class GradientSync:
             raise ValueError(
                 "begin()/feed_segment streaming needs overlap='backward' "
                 f"(got overlap={self.cfg.overlap!r})")
+        self._resolve(state[sparsify.err_key(self.cfg)].numel())
         return _GradientStream(self, state, key, participate)
 
     def _close(self, out, j: int, p, with_stats: bool):

@@ -89,7 +89,7 @@ delegate to ``core.aggregate.GradientSync``, as the reference's do.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -131,13 +131,13 @@ _EF_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(cfg: SparsifierConfig) -> None:
-    """Raise for a config outside the port: NotImplementedError naming
-    the ROADMAP item (never a silent reroute), or the reference's own
-    ValueError. Every config the reference's GradientSync builds is
-    served, but the bucket auto-tune (``num_buckets=0``). A config that
-    asks for the fused pipeline with a kind or selector the sweeps do
-    not implement runs the reference pipeline, as the reference's
-    dispatch routes it (``dispatch.fused_reason``)."""
+    """Raise the reference's ValueError for a config it does not define
+    (never a silent reroute). Every config the reference's GradientSync
+    builds is served, ``num_buckets=0`` (the bucket auto-tune,
+    :func:`resolve_num_buckets`) included. A config that asks for the
+    fused pipeline with a kind or selector the sweeps do not implement
+    runs the reference pipeline, as the reference's dispatch routes it
+    (``dispatch.fused_reason``)."""
     if cfg.kind not in _SLICE:
         raise ValueError(f"unknown sparsifier kind {cfg.kind!r} (expected "
                          f"one of {tuple(_SLICE)})")
@@ -152,12 +152,6 @@ def check_supported(cfg: SparsifierConfig) -> None:
     from repro_torch.kernels.compress.dispatch import check_overlap
     allocate.check_allocation(cfg)
     check_overlap(cfg)
-    if cfg.num_buckets == 0:
-        raise NotImplementedError(
-            f"SparsifierConfig.num_buckets=0 is not ported yet for "
-            f"kind={cfg.kind!r} pipeline={cfg.pipeline!r}; the port serves "
-            "num_buckets >= 1 (ROADMAP A16 (the bucket auto-tune: its "
-            "interconnect constants are the TPU's))")
     if cfg.num_buckets < 0:
         raise ValueError(f"num_buckets={cfg.num_buckets} < 0")
     if cfg.ef_dtype not in _EF_DTYPES:
@@ -191,6 +185,39 @@ def resolve_k(cfg: SparsifierConfig, j: int) -> int:
     if cfg.k:
         return int(min(cfg.k, j))
     return max(1, int(round(cfg.sparsity * j)))
+
+
+def resolve_num_buckets(cfg: SparsifierConfig, j: int,
+                        n_workers: int = 1) -> int:
+    """cfg.num_buckets, with 0 resolved to the auto-tuned count: the
+    sparse collective's payload, n_workers * packed_len * 8 bytes,
+    against the collective launch floor (``roofline.analysis.
+    auto_num_buckets``, the H100's constants). Deterministic in (cfg, j,
+    n_workers), so ``num_buckets=<resolved>`` written out runs the same
+    bits (bucketing never changes the selection)."""
+    if cfg.num_buckets != 0:
+        return max(1, int(cfg.num_buckets))
+    from repro_torch.kernels.compress.dispatch import packed_len
+    from repro_torch.roofline.analysis import auto_num_buckets
+    return auto_num_buckets(packed_len(cfg, j), n_workers)
+
+
+def _workers_from_omega(omega) -> int:
+    """The equal-weight worker count that omega = 1/N implies (all that
+    a bare compress() call knows for the bucket auto-tune; the sync
+    resolves from its group's size instead). A tensor omega is an error,
+    not a silent N=1 and not a read of the device: resolve the bucket
+    count upstream then."""
+    if isinstance(omega, torch.Tensor):
+        raise TypeError(
+            "num_buckets=0 auto-tune inside compress() needs a concrete "
+            "omega (= 1/N) to infer the worker count; with a traced "
+            "omega, resolve the bucket count upstream via "
+            "sparsify.resolve_num_buckets or aggregate.sync_gradient.")
+    try:
+        return max(1, int(round(1.0 / float(omega))))
+    except (TypeError, ValueError, ZeroDivisionError):
+        return 1
 
 
 def state_dtype(cfg: SparsifierConfig) -> torch.dtype:
@@ -288,6 +315,10 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
         j = g.numel()
     k = resolve_k(cfg, j)
     p = None if participate is None else participate.reshape(())
+    if cfg.num_buckets == 0:
+        # before the partitions: num_segments=0 follows the resolved count
+        cfg = replace(cfg, num_buckets=resolve_num_buckets(
+            cfg, j, _workers_from_omega(omega)))
     seg_bounds, stream_bounds = partitions(
         cfg, j, seg_bounds, None if g_segments is None else
         [int(gs.numel()) for gs in g_segments])

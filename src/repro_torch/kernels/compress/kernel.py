@@ -792,6 +792,48 @@ for _fn in KERNELS:
     _fn.launches = 0
 
 
+# Byte contracts: what each kernel must move at flat length j, each input
+# read once and each output written once (the bound column of the
+# kernels' table and the dry run's count of the stages that read the
+# device on the host). Sweep 1 reads g (fp32) and the state (4 or 2
+# bytes: ``state``), writes a and score (fp32), and, in dgc mode, reads
+# the momentum and writes mom' (fp32); per tile an amax, and the 2048-bin
+# histogram; the gated form reads the bit and the decay too.
+def _sweep1_bytes(j: int, state: int, dgc: bool, gated: bool) -> int:
+    per = 4 + state + 8 + (state + 4 if dgc else 0)
+    return per * j + 4 * rows_of(j) + 4 * BINS + (8 if gated else 0)
+
+
+def _sketch_bytes(j: int, rows: int, width: int, state: int,
+                  gated: bool) -> int:
+    """Sweep 1 with the sketch: g, the state and a, and the (rows,
+    width) fp32 sketch (its tables are the design's, not the contract's)."""
+    return (8 + state) * j + 4 * rows * width + (4 if gated else 0)
+
+
+sweep1.bytes_moved = lambda j: _sweep1_bytes(j, 4, False, False)
+sweep1_dgc.bytes_moved = lambda j: _sweep1_bytes(j, 4, True, False)
+sweep1_gated.bytes_moved = \
+    lambda j, dgc=False: _sweep1_bytes(j, 4, dgc, True)
+sweep1_bf16.bytes_moved = lambda j: _sweep1_bytes(j, 2, False, False)
+sweep1_dgc_bf16.bytes_moved = lambda j: _sweep1_bytes(j, 2, True, False)
+sweep1_gated_bf16.bytes_moved = \
+    lambda j, dgc=False: _sweep1_bytes(j, 2, dgc, True)
+# sweep 2 reads the score and writes each tile's maxpb slots and count
+sweep2.bytes_moved = \
+    lambda j, maxpb: 4 * j + 8 * rows_of(j) * maxpb + 4 * rows_of(j)
+sweep1_sketch.bytes_moved = \
+    lambda j, rows, width: _sketch_bytes(j, rows, width, 4, False)
+sweep1_sketch_gated.bytes_moved = \
+    lambda j, rows, width: _sketch_bytes(j, rows, width, 4, True)
+sweep1_sketch_bf16.bytes_moved = \
+    lambda j, rows, width: _sketch_bytes(j, rows, width, 2, False)
+sweep1_sketch_gated_bf16.bytes_moved = \
+    lambda j, rows, width: _sketch_bytes(j, rows, width, 2, True)
+# the encode reads a and writes the sketch
+sketch_encode.bytes_moved = lambda j, rows, width: 4 * j + 4 * rows * width
+
+
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0

@@ -180,3 +180,11 @@ def apply(a, mask):
 KERNELS = (scores, scores_bf16, apply)
 for _fn in KERNELS:
     _fn.launches = 0
+# Byte contracts at length j, each input read once and each output written
+# once: the score reads g, err, a_prev, g_agg and s_prev and writes a and
+# the score (fp32; its bf16 read: g in fp32 and four bf16 vectors, a in
+# bf16, the score fp32); the apply reads a and the mask and writes ghat
+# and err.
+scores.bytes_moved = lambda j: 28 * j
+scores_bf16.bytes_moved = lambda j: 18 * j
+apply.bytes_moved = lambda j: 16 * j

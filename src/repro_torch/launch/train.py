@@ -43,8 +43,8 @@ summed over the MoE layers).
 Flag names and defaults are the reference launcher's
 (``repro.launch.train``: simulate comm, the reference pipeline, the exact
 selector) for what the port serves, plus ``--device`` (default: the CUDA
-card; ``cpu`` runs the plain PyTorch path). Configs the port does not
-serve yet raise NotImplementedError naming their ROADMAP item. The
+card; ``cpu`` runs the plain PyTorch path). ``--num-buckets 0`` logs
+the auto-tuned count (``train.step.auto_num_buckets_for_run``). The
 reference launcher has no flag for ``SparsifierConfig.ef_dtype``, nor has
 this one: a bf16 error state is a config field. The body
 is :func:`train`, which takes a ``RunConfig``, so a caller can pass a
@@ -103,8 +103,9 @@ def parse_args(argv=None):
                          "contiguous bucket (one merged-histogram "
                          "threshold) and the sparse all-gather in as many "
                          "chunks; selection is bucketing-invariant; 1 "
-                         "disables bucketing (0, the reference's "
-                         "auto-tune, is not ported: ROADMAP A16)")
+                         "disables bucketing; 0 auto-tunes the count "
+                         "from the sparse all-gather's payload against "
+                         "the collective launch floor (logged at start)")
     ap.add_argument("--allocation", default="global",
                     choices=["global", "proportional", "adaptive"],
                     help="density allocation: how the budget k splits over "
@@ -324,6 +325,12 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
     j = tree_size(state.params)
     log(f"[train] {run.model.name}: {j:,} params, sparsifier="
         f"{run.sparsifier.kind}@{run.sparsifier.sparsity}, device={dev}")
+    if run.sparsifier.num_buckets == 0:
+        from repro_torch.train.step import auto_num_buckets_for_run
+        nb, j_local, dp = auto_num_buckets_for_run(run, group, model_group,
+                                                   attn_dist)
+        log(f"[train] num_buckets=0 -> auto-tuned {nb} "
+            f"(J_local={j_local:,}, dp={dp})")
     if step.stream_bounds is not None or step.seg_bounds is not None:
         sp = run.sparsifier
         log(f"[train] allocation={sp.allocation} overlap={sp.overlap}: "

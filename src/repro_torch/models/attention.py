@@ -41,8 +41,10 @@ from ``ckv`` and attends as above (k and v of unequal widths); the
 absorbed form (``cfg.mla_absorb``) projects the queries through the key
 up-projection and attends over ``ckv`` itself, applying the value
 up-projection to the context. The scale is head_dim ** -0.5 in both. The
-cache of an MLA layer is ``{ckv, krope}``. Bidirectional MLA, an MLA
-encoder-decoder's, raises (ROADMAP A13f).
+cache of an MLA layer is ``{ckv, krope}``. An MLA encoder-decoder's
+encoder attends bidirectionally in either form (every key chunk,
+unmasked), on one rank, split by heads and under ring attention; its
+cross-attention stays the plain kind.
 
 Tensor parallelism (a ``Parallel`` with a model group of tp ranks)
 splits attention by heads, the reference's ``attn_dist="sp"``: the query
@@ -250,26 +252,29 @@ def absorb_q(p: dict, q: torch.Tensor, cfg):
 
 def _absorbed_partial(ql, qr, ckv, krope, mask, scale):
     """One key block of absorbed attention: the unnormalised context (B,
-    Sq, H, lora) and the running max and sum (B, H, Sq)."""
+    Sq, H, lora) and the running max and sum (B, H, Sq) (``mask`` None:
+    every key)."""
     sc = (torch.einsum("bqhl,bsl->bhqs", ql, ckv)
           + torch.einsum("bqhr,bsr->bhqs", qr, krope)).float() * scale
-    sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+    if mask is not None:
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     m = sc.amax(-1)
     w = torch.exp(sc - m[..., None])
     return torch.einsum("bhqs,bsl->bqhl", w.to(ckv.dtype), ckv), m, w.sum(-1)
 
 
-def absorbed_attention(p: dict, q, ckv, krope, cfg,
-                       scale: float) -> torch.Tensor:
-    """Causal absorbed MLA attention over the prompt (the reference's
-    ``_sdpa_absorbed_chunked``): every query against keys in chunks of
-    ``KV_CHUNK`` with an online softmax; (B, S, H, vhd)."""
+def absorbed_attention(p: dict, q, ckv, krope, cfg, scale: float,
+                       causal: bool = True) -> torch.Tensor:
+    """Absorbed MLA attention over the prompt (the reference's
+    ``_sdpa_absorbed_chunked``), causal or, in an encoder, over every
+    key: every query against keys in chunks of ``KV_CHUNK`` with an
+    online softmax; (B, S, H, vhd)."""
     ql, qr = absorb_q(p, q, cfg)
     s = ql.shape[1]
     pos = torch.arange(s, device=q.device)
     acc = None
     for k0 in range(0, s, KV_CHUNK):
-        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK])
+        mask = mask_from_pos(pos, pos[k0:k0 + KV_CHUNK]) if causal else None
         o, m, l = _absorbed_partial(ql, qr, ckv[:, k0:k0 + KV_CHUNK],
                                     krope[:, k0:k0 + KV_CHUNK], mask, scale)
         if acc is not None:
@@ -296,20 +301,15 @@ def _per_head(t):
     return t.permute(0, 2, 1)[..., None]
 
 
-def _mla_attend(p, q, ckv, krope, cfg):
-    """Causal MLA attention of the prompt, expanded or absorbed."""
+def _mla_attend(p, q, ckv, krope, cfg, causal: bool = True):
+    """MLA attention of the prompt, expanded or absorbed; causal, or
+    bidirectional in an encoder."""
     scale = cfg.resolved_head_dim ** -0.5
     if cfg.mla_absorb:
-        return absorbed_attention(p, q, ckv, krope, cfg, scale)
+        return absorbed_attention(p, q, ckv, krope, cfg, scale, causal)
     k, v = mla_expand(p, ckv, krope, q.shape[2], cfg, q.dtype)
-    return causal_attention(q, k, v, scale)
-
-
-def mla_encoder_message(cfg) -> str:
-    """Why bidirectional MLA (an MLA encoder-decoder's encoder) raises."""
-    return (f"{cfg.name}: bidirectional MLA attention (an MLA "
-            "encoder-decoder) is not ported yet; no registered "
-            "architecture is one (ROADMAP A13f)")
+    return causal_attention(q, k, v, scale) if causal \
+        else full_attention(q, k, v, scale)
 
 
 def mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -403,7 +403,7 @@ def _window(cfg) -> int:
 def attn_fwd_full(p: dict, x: torch.Tensor, cfg, causal: bool = True,
                   pal=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d), causal (sliding with ``attn_kind``) or,
-    for an encoder, bidirectional (not MLA: ``mla_encoder_message``).
+    for an encoder, bidirectional (MLA in either form too).
     Under tensor parallelism this rank's heads, the output summed over
     the model group; with ``pal.sp`` x and the output are this rank's
     sequence chunk (B, S/tp, d), the sequence gathered for attention.
@@ -426,10 +426,8 @@ def _attn_fwd_local(p: dict, x: torch.Tensor, cfg, causal: bool,
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     if cfg.attn_kind == "mla":
-        if not causal:
-            raise NotImplementedError(mla_encoder_message(cfg))
         q, ckv, krope = proj_mla(p, x, cfg, pos)
-        o = _mla_attend(p, q, ckv, krope, cfg)
+        o = _mla_attend(p, q, ckv, krope, cfg, causal)
     else:
         q, k, v = proj_qkv(p, x, cfg, pos)
         scale = cfg.resolved_head_dim ** -0.5
@@ -454,8 +452,6 @@ def ring_fwd(p: dict, x: torch.Tensor, cfg, pal,
     pos = r * sl + ar
     mla = cfg.attn_kind == "mla"
     if mla:
-        if not causal:
-            raise NotImplementedError(mla_encoder_message(cfg))
         q, ckv, krope = proj_mla(p, x, cfg, pos)
         payload = (ckv, krope)
     else:

@@ -145,9 +145,8 @@ def n_moe_layers(cfg) -> int:
 
 
 def check_model(cfg) -> None:
-    """Raise NotImplementedError for a model outside the ported slice (an
-    MLA encoder-decoder), ValueError for a family, attention kind or
-    mixer the reference does not have, a causal encoder (the reference's encoder is
+    """Raise ValueError for a family, attention kind or mixer the
+    reference does not have, a causal encoder (the reference's encoder is
     bidirectional whatever ``enc_causal`` says), or an encoder-decoder
     whose cross cache (one layer a super-block, the reference's layout)
     cannot hold its layers."""
@@ -170,8 +169,6 @@ def check_model(cfg) -> None:
         raise ValueError(f"{cfg.name}: an encoder-decoder's cross cache "
                          "holds one layer a super-block and no dense "
                          "prefix")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(attn.mla_encoder_message(cfg))
 
 
 def _init_layer(gen, cfg, mixer: str, ffn: str, lead=(), device=None,

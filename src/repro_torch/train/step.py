@@ -187,7 +187,9 @@ class TrainStep:
         self.seg_bounds = cut if sp.allocation != "global" else None
         self.stream_bounds = cut if sp.overlap == "backward" else None
         self._side = None               # the stream the segments are fed on
-        self.gsync = GradientSync(sp, group, seg_bounds=self.seg_bounds,
+        # num_buckets=0 resolves here, from J_local and the data group
+        self.gsync = GradientSync(sp, group, j=flat.total,
+                                  seg_bounds=self.seg_bounds,
                                   stream_bounds=self.stream_bounds)
         self.schedule = faults.parse_schedule(run.fault_schedule)
 
@@ -364,6 +366,23 @@ def build_train_step(run: RunConfig, device=None, group=None,
     ``attn_dist="ring"`` trains with ring attention (the reference's
     ``build_parallel(mesh, attn_dist="ring")``)."""
     return TrainStep(run, device, group, model_group, attn_dist)
+
+
+def auto_num_buckets_for_run(run: RunConfig, group=None, model_group=None,
+                             attn_dist: str = "sp") -> tuple:
+    """The train step's own resolution of ``num_buckets=0``: the same
+    per-rank J (the flattened rank's parameters, drawn on the meta
+    device) and the same data-parallel extent. Out-of-band readers (the
+    launcher's log line, the dry run's record) use it, so they never
+    disagree with the count the step runs. Returns (num_buckets,
+    j_local, dp)."""
+    pal = train_parallel(group, model_group, attn_dist)
+    tmpl = init_params(resolve_model_cfg(run), torch.Generator(),
+                       torch.device("meta"), pal)
+    j_local = TreeFlattener(tmpl).total
+    dp = world(group)[0]
+    return (sparsify.resolve_num_buckets(run.sparsifier, j_local, dp),
+            j_local, dp)
 
 
 def delta_publisher_for_run(run: RunConfig, params: dict, delta_k: int = 0,

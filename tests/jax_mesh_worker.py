@@ -277,7 +277,9 @@ def run_collectives(data) -> dict:
 
 def _tp_model(case: dict):
     """A case's reduced model: ``arch`` with ``heads`` (query, key/value)
-    and ``vocab`` replaced where given, MLA absorbed with ``absorb``."""
+    and ``vocab`` replaced where given, MLA absorbed with ``absorb``, and
+    with ``mla`` MLA attention at DeepSeek-V2-Lite's reduced widths (an
+    MLA encoder-decoder from Whisper's)."""
     import dataclasses
 
     from repro.configs import base
@@ -290,6 +292,9 @@ def _tp_model(case: dict):
     if case.get("attn") == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=int(case["window"]))
+    if case.get("mla"):
+        cfg = dataclasses.replace(cfg, attn_kind="mla", kv_lora_rank=32,
+                                  rope_head_dim=16, v_head_dim=32)
     if case.get("absorb"):
         cfg = dataclasses.replace(cfg, mla_absorb=True)
     return cfg
@@ -699,6 +704,16 @@ def main(inp: str, out: str) -> None:
                          "delta": run_delta}[mode](data))
         return
     mesh = jax.make_mesh((WORLD,), ("data",))
+    if "auto_buckets" in data.files:
+        # the bucket auto-tune at the hardware and launch floor the test
+        # sets (the default is bound when auto_num_buckets is defined)
+        import functools
+
+        from repro.roofline import analysis
+        *hw, latency = json.loads(str(data["auto_buckets"]))
+        analysis.auto_num_buckets = functools.partial(
+            analysis.auto_num_buckets, hw=analysis.Hardware(*hw),
+            latency_s=latency)
     res = {}
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():
         fields = dict(fields, sparsity=float(data["sparsity"]),

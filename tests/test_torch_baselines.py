@@ -373,14 +373,17 @@ def test_wire_byte_models_match_reference():
     assert served == 84, served
 
 
+# every case is ported now (``item`` None); the auto-tune's keeps its id
+# from when it raised A16
 @pytest.mark.parametrize("field,value,item", [
-    ("num_buckets", 0, "A16"), ("overlap", "backward", None),
-    ("allocation", "adaptive", None)])
+    pytest.param("num_buckets", 0, None, id="num_buckets-0-A16"),
+    ("overlap", "backward", None), ("allocation", "adaptive", None)])
 def test_wire_byte_models_refuse_configs_outside_the_port(field, value,
                                                           item):
-    """A config outside the port raises, naming its ROADMAP item; the
-    ones since ported (allocation, streaming: ``item`` None) model the
-    reference's wire bytes."""
+    """A config outside the port would raise, naming its ROADMAP item;
+    every one of these is ported (the bucket auto-tune, allocation,
+    streaming: ``item`` None) and models the reference's wire bytes
+    (the bucket count moves no byte of the model)."""
     jcfg, cfg = _cfgs(comm_mode="sparse", pipeline="fused")
     bad = dataclasses.replace(cfg, **{field: value})
     if item is None:

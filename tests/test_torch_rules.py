@@ -49,22 +49,23 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert offenders == []
 
 
-FINISHED_ITEMS = re.compile(r"ROADMAP A1(3[de]?|4)\b")
+FINISHED_ITEMS = re.compile(r"ROADMAP A1(3[def]?|4|6)\b")
 
 
 def test_no_gate_names_a_finished_item():
     """A13 (every family), A13d (tensor parallelism), A13e
-    (context-parallel decode) and A14 (deltas over a group) are ported:
-    no file of the port names them as a ROADMAP item any more (A13f and
-    A16 still gate; the pattern leaves them alone)."""
+    (context-parallel decode), A13f (bidirectional MLA), A14 (deltas over
+    a group) and A16 (the cost models and the bucket auto-tune) are
+    ported: no file of the port names them as a ROADMAP item any more
+    (A4, a speed item, is left alone by the pattern)."""
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0)}"
                  for p in _port_files()
                  for m in FINISHED_ITEMS.finditer(p.read_text())]
     assert offenders == []
     for item in ("ROADMAP A13", "ROADMAP A13d", "ROADMAP A13e",
-                 "ROADMAP A14)"):
+                 "ROADMAP A13f", "ROADMAP A14)", "ROADMAP A16"):
         assert FINISHED_ITEMS.search(item), item
-    for item in ("ROADMAP A13f", "ROADMAP A16", "ROADMAP A4"):
+    for item in ("ROADMAP A4", "ROADMAP A17"):
         assert not FINISHED_ITEMS.search(item), item
 
 
@@ -295,16 +296,18 @@ def _served(cfg, j: int = 100):
     assert g_agg.shape == (j,) and set(new) == set(st)
 
 
+# the bucket auto-tune's case keeps its id from when it raised A16
 @pytest.mark.parametrize("field,value,outcome", [
-    ("selector", "histogram_kernel", "served"), ("num_buckets", 0, "A16"),
+    ("selector", "histogram_kernel", "served"),
+    pytest.param("num_buckets", 0, "served", id="num_buckets-0-A16"),
     ("allocation", "adaptive", "served"), ("overlap", "backward", "served"),
     ("ef_dtype", "bfloat16", "served"), ("selector", "histogram", "served"),
     ("kind", "none", "served"), ("allocation", "proportional", "served"),
     ("kind", "globaltopk", "served"), ("state_format", "sparse", "served")])
 def test_configs_outside_the_slice_raise(field, value, outcome):
-    """The bucket auto-tune (``num_buckets=0``, ROADMAP A16) raises,
-    naming its item. Everything else of the grid is served: the fused
-    pipeline's allocation, streaming and ``histogram_kernel`` (which runs
+    """Every config of the grid is served: the bucket auto-tune
+    (``num_buckets=0``), the fused pipeline's allocation, streaming and
+    ``histogram_kernel`` (which runs
     the reference pipeline, as the reference's dispatch routes it), and
     with a bf16 error state on the reference pipeline REGTOP-k in either
     layout, the histogram selectors and the dense-wire baselines."""
@@ -368,13 +371,14 @@ def _reference_grid():
 def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
     """Walks the grid of configs: where the reference's GradientSync
     raises its ValueError, the port raises the same message; where it
-    builds, the port builds too, but for ``num_buckets=0`` (the bucket
-    auto-tune, ROADMAP A16), which raises NotImplementedError naming it,
-    and the state has the reference's keys."""
+    builds, the port builds too, ``num_buckets=0`` (the bucket auto-tune)
+    included, which resolves at build time from J and one rank to the
+    reference's count at the same constants (``auto``), and the state
+    has the reference's keys."""
     from repro.configs.base import SparsifierConfig as JaxSparsifierConfig
     from repro.core import aggregate as jagg
     from repro.core import sparsify as jsp
-    outcomes = {"served": 0, "A16": 0, "ValueError": 0}
+    outcomes = {"served": 0, "auto": 0, "ValueError": 0}
     layouts = {}
     for fields in _reference_grid():
         cfg = cfgs.SparsifierConfig(**fields)
@@ -387,10 +391,13 @@ def test_only_the_bucket_auto_tune_and_the_references_errors_remain():
             outcomes["ValueError"] += 1
             continue
         if cfg.num_buckets == 0:
-            with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-                aggregate.GradientSync(cfg)
-            outcomes["A16"] += 1
-            continue
+            # 64 elements resolve to one bucket at either package's
+            # constants; the baselines select nothing and keep the 0
+            sync = aggregate.GradientSync(cfg, j=64)
+            assert sync.cfg.num_buckets == (
+                0 if sync.selection == "none" else jsp.resolve_num_buckets(
+                    JaxSparsifierConfig(**fields), 64)), fields
+            outcomes["auto"] += 1
         aggregate.GradientSync(cfg)
         key = tuple(fields[f] for f in ("kind", "pipeline", "selector",
                                         "state_format"))
@@ -484,16 +491,16 @@ def test_models_outside_the_slice_raise(field, value, item):
     pytest.param(dict(enc_causal=True), ValueError, "enc_causal=True",
                  id="causal-encoder"),
     pytest.param(dict(attn_kind="mla", kv_lora_rank=32, rope_head_dim=16,
-                      v_head_dim=32), NotImplementedError, "ROADMAP A13f",
-                 id="mla-encoder-decoder")])
+                      v_head_dim=32), None, None, id="mla-encoder-decoder")])
 def test_encoder_decoders_outside_the_slice_raise(change, error, match):
     """A causal encoder (the reference's is bidirectional whatever
-    ``enc_causal`` says) raises ValueError, and an MLA encoder-decoder
-    (no registered arch is one) NotImplementedError naming ROADMAP A13f,
-    at init (at one rank and under a model group, where the
-    encoder-decoder is now split), in the loss and in the cache;
-    bidirectional MLA attention raises too where it would run, the
-    ring's included."""
+    ``enc_causal`` says) raises ValueError at init (at one rank and under
+    a model group), in the loss and in the cache. An MLA encoder-decoder
+    (``error`` None) builds in each of them, with the reference's tree
+    (the encoder's MLA leaves, the plain cross-attention's) and its
+    cache's leaves; bidirectional MLA attention runs at one rank, split
+    by heads and under ring attention (tests/test_torch_mla_encoder.py
+    holds it against the reference)."""
     from repro_torch.models import attention, init_params, loss_fn
     from repro_torch.models import transformer
     from repro_torch.models.parallel import Parallel
@@ -503,19 +510,48 @@ def test_encoder_decoders_outside_the_slice_raise(change, error, match):
 
     cfg = dataclasses.replace(
         cfgs.reduced_config(cfgs.get_config("whisper-small")), **change)
-    for call in (lambda: init_params(cfg, torch.Generator(), "cpu"),
-                 lambda: init_params(cfg, torch.Generator(), "meta",
-                                     Model()),
-                 lambda: loss_fn({}, {}, cfg),
-                 lambda: transformer.init_decode_cache(cfg, 1, 8,
-                                                       torch.float32)):
-        with pytest.raises(error, match=match):
-            call()
-    if cfg.attn_kind == "mla":
-        for pal in (None, Model(attn_dist="ring")):
-            with pytest.raises(NotImplementedError, match="ROADMAP A13f"):
-                attention.attn_fwd_full({}, torch.zeros(1, 4, cfg.d_model),
-                                        cfg, causal=False, pal=pal)
+    if error is not None:
+        for call in (lambda: init_params(cfg, torch.Generator(), "cpu"),
+                     lambda: init_params(cfg, torch.Generator(), "meta",
+                                         Model()),
+                     lambda: loss_fn({}, {}, cfg),
+                     lambda: transformer.init_decode_cache(cfg, 1, 8,
+                                                           torch.float32)):
+            with pytest.raises(error, match=match):
+                call()
+        return
+    import jax
+    from repro.configs import base as jbase
+    from repro.models import init_params as jax_init_params
+    from repro.models.parallel import Parallel as JaxParallel
+    from repro.models.transformer import init_decode_cache as jax_cache
+    from repro_torch.core.flatten import tree_items
+    jcfg = dataclasses.replace(
+        jbase.reduced_config(jbase.get_config("whisper-small")), **change)
+    want = jax.eval_shape(lambda: jax_init_params(
+        jcfg, JaxParallel(), jax.random.PRNGKey(0)))
+    want = sorted(("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                            for k in path), tuple(leaf.shape))
+                  for path, leaf in jax.tree_util.tree_leaves_with_path(want))
+    tree = init_params(cfg, torch.Generator(), "cpu")
+    assert sorted(("/".join(map(str, path)), tuple(leaf.shape))
+                  for path, leaf in tree_items(tree)) == want
+    init_params(cfg, torch.Generator(), "meta", Model())
+    cache = transformer.init_decode_cache(cfg, 1, 8, torch.float32,
+                                          enc_seq=16)
+    jcache = jax.eval_shape(lambda: jax_cache(jcfg, JaxParallel(), 1, 8,
+                                              "float32", enc_seq=16))
+    assert sorted(leaf.shape for _, leaf in tree_items(cache)) == sorted(
+        leaf.shape for leaf in jax.tree_util.tree_leaves(jcache))
+    tok = torch.zeros(2, 8, dtype=torch.long)
+    frames = torch.randn(2, 16, cfg.d_model)
+    assert torch.isfinite(loss_fn(tree, {"tokens": tok, "targets": tok,
+                                         "frames": frames}, cfg))
+    x = torch.randn(1, 4, cfg.d_model)
+    p = tree["encoder"]["blocks"]["attn"]
+    one = {key: val[0] for key, val in p.items()}
+    assert torch.isfinite(attention.attn_fwd_full(one, x, cfg,
+                                                  causal=False)).all()
 
 
 def test_unknown_family_raises_value_error():
@@ -706,13 +742,15 @@ def test_sketch_kernels_on_other_devices_raise(fn):
     ("selector", "histogram", "served"),
     ("ef_dtype", "bfloat16", "served"), ("overlap", "backward", ValueError),
     ("err_decay", 0.9, "served"), ("combine", "support", "served"),
-    ("num_buckets", 0, "A16"), ("allocation", "adaptive", ValueError)])
+    pytest.param("num_buckets", 0, "served", id="num_buckets-0-A16"),
+    ("allocation", "adaptive", ValueError)])
 def test_sketch_configs_outside_the_slice_raise(field, value, item):
     """The sketch serves buckets, the bf16 state and wire, the histogram
     selectors and the elastic fields on both pipelines (``item``
     "served": the sync builds, the state has the reference's keys and
-    dtypes, one step runs). The bucket auto-tune raises naming ROADMAP
-    A16; allocation and streaming, which the reference does not define
+    dtypes, one step runs), the bucket auto-tune too (its case keeps its
+    id from when it raised); allocation and streaming, which the
+    reference does not define
     for the sketch (``item`` ValueError), raise its ValueError, at build
     time as the reference's GradientSync does."""
     from repro.configs.base import SparsifierConfig as JaxSparsifierConfig

@@ -14,7 +14,8 @@ subprocesses side by side), the port's ranks over gloo
   decode cache (its ``cross`` k and v by key/value head), bitwise;
 - training: each reduced model, REGTOP-k fused with sparse comm, Adam,
   3 steps from the reference's initial parameters on (1, 4) and (2, 2)
-  meshes, every model rank taking its data rank's whole frames or
+  meshes (and reduced Whisper with MLA attention, an MLA
+  encoder-decoder, on (2, 2): tp 2 within the group of 4), every model rank taking its data rank's whole frames or
   patches: tests/test_torch_tensor_parallel.py's ``check_train``
   (metrics to rtol 1e-5, ``idx_prev`` bitwise, the gathered parameters
   to atol 1e-5, each rank's replicated leaves against the same device's
@@ -44,6 +45,10 @@ TRAIN = {
                       sparsifier=MAIN),
     "phi3v_2x2": dict(arch="phi-3-vision-4.2b", mesh=[2, 2],
                       sparsifier=MAIN),
+    # an MLA encoder-decoder (bidirectional MLA in the encoder), its heads
+    # split over model groups of 2 beside a data pair
+    "whisper_mla_2x2": dict(arch="whisper-small", mesh=[2, 2],
+                            sparsifier=MAIN, mla=True),
 }
 SERVE = {
     "whisper_serve_1x4": dict(arch="whisper-small", mesh=[1, 4]),

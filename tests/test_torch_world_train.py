@@ -187,16 +187,49 @@ def test_launcher_main_over_gloo_world2(tmp_path):
         assert np.all(np.isfinite(res["losses"]))
 
 
-def test_launcher_model_parallel_raises_a13():
+def test_launcher_model_parallel_raises_a13(monkeypatch):
     """``--model 2`` of Whisper-small (an encoder-decoder) trains since
-    A13d's last part (tests/test_torch_tensor_parallel_encdec.py); what
-    the launcher still refuses under it, the bucket auto-tune
-    (``--num-buckets 0``), raises naming ROADMAP A16 before any group is
-    joined."""
+    A13d's last part (tests/test_torch_tensor_parallel_encdec.py), and
+    with the bucket auto-tune (``--num-buckets 0``) too: the launcher's
+    checks pass and, without torchrun's environment, it finds no group
+    to join. The count it would log at (data 2, model 2) comes from the
+    reference's J_local (its rank's tree at tp 2) and dp, and is the
+    reference's count there: one bucket (the payload is far below either
+    package's launch floor)."""
+    import dataclasses
+
+    import jax
+    from repro.configs import base as jbase
+    from repro.core import sparsify as jsp
+    from repro.models import init_params as jax_init_params
+    from repro.models.parallel import Parallel as JaxParallel
     from repro_torch.launch import train as launcher
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+    from repro_torch.models.parallel import Parallel
+    from repro_torch.train import step as tstep
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         launcher.main(LAUNCH + ["--arch", "whisper-small", "--model", "2",
                                 "--num-buckets", "0"])
+
+    class Groups(Parallel):
+        # rank 0's view of a (2, 2) grid: model rank 0 of 2
+        tp, tp_on, model_rank = 2, True, 0
+    monkeypatch.setattr(tstep, "train_parallel", lambda *a, **kw: Groups())
+    monkeypatch.setattr(tstep, "world", lambda group=None: (2, 0))
+    run = launcher.run_config(launcher.parse_args(
+        LAUNCH + ["--arch", "whisper-small", "--num-buckets", "0"]))
+    nb, j_local, dp = tstep.auto_num_buckets_for_run(run)
+    assert dp == 2
+    jcfg = jbase.SparsifierConfig(**dataclasses.asdict(run.sparsifier))
+    assert nb == jsp.resolve_num_buckets(jcfg, j_local, dp)
+    # J_local: the reference's per-rank tree of the same model at tp 2
+    want = sum(int(leaf.size) for leaf in jax.tree_util.tree_leaves(
+        jax.eval_shape(lambda: jax_init_params(
+            jbase.reduced_config(jbase.get_config("whisper-small")),
+            JaxParallel(model_axis="model", tp=2), jax.random.PRNGKey(0)))))
+    assert j_local == want
 
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",

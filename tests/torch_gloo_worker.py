@@ -131,6 +131,11 @@ def run_baselines(rank: int, data) -> dict:
     """Per case: g_agg and n_active of every step, the final state (bf16
     as uint16 bits)."""
     grads, parts = data["grads"], data["parts"]     # (T, world, J), (T, world)
+    if "auto_buckets" in data.files:
+        # the collective launch floor the test sets (the H100's constants)
+        from repro_torch.roofline import analysis
+        analysis.COLLECTIVE_LATENCY_S = json.loads(
+            str(data["auto_buckets"]))[-1]
     res = {}
     for name, (fields, elastic) in json.loads(str(data["cases"])).items():
         cfg = cfgs.SparsifierConfig(sparsity=float(data["sparsity"]),
@@ -146,6 +151,8 @@ def run_baselines(rank: int, data) -> dict:
             res[f"{name}_n_active_{t}"] = stats["n_active"].numpy()
         for key, val in state.items():
             res[f"{name}_state_{key}"] = _saved(val)
+        if cfg.num_buckets == 0:          # the count the sync resolved
+            res[f"{name}_num_buckets"] = np.asarray(sync.cfg.num_buckets)
     return res
 
 
@@ -453,6 +460,9 @@ def _tp_model(case: dict):
     if case.get("attn") == "sliding":
         cfg = dataclasses.replace(cfg, attn_kind="sliding",
                                   window=int(case["window"]))
+    if case.get("mla"):
+        cfg = dataclasses.replace(cfg, attn_kind="mla", kv_lora_rank=32,
+                                  rope_head_dim=16, v_head_dim=32)
     if case.get("absorb"):
         cfg = dataclasses.replace(cfg, mla_absorb=True)
     return cfg
