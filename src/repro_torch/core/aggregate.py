@@ -86,8 +86,8 @@ from collections import Counter
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import bigvec, select, sketch, sparsify
 from repro_torch.core.numerics import bf16, fma_f32
@@ -182,12 +182,25 @@ def _active_mean(x: torch.Tensor, p: torch.Tensor, group) -> torch.Tensor:
     return dsum / na.clamp(min=1.0)
 
 
-def _gather(x: torch.Tensor, group) -> list:
+def wire_span(name: str, x: torch.Tensor, **attrs):
+    """The ``trace`` span of one collective of the sync (``sync/*``)
+    whose part on this rank is ``x``, with ``attrs``, and the step's
+    counter ``sync_bytes`` grown by x's bytes (attribute ``collective``:
+    the span's name); the shared no-op context while tracing is off."""
+    if not trace.enabled():
+        return trace.OFF
+    nbytes = x.numel() * x.element_size()
+    trace.count("sync_bytes", nbytes, collective=name)
+    return trace.span(name, bytes=nbytes, **attrs)
+
+
+def _gather(x: torch.Tensor, group, name: str) -> list:
     n, _ = world(group)
     if n == 1:
         return [x]
     out = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(out, x, group=group)
+    with wire_span(name, x):
+        dist.all_gather(out, x, group=group)
     return out
 
 
@@ -249,7 +262,8 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
         cnt = torch.full((), k, dtype=torch.int64, device=dev) \
             if count is None else count.reshape(()).to(torch.int64)
         metas = _gather(torch.stack([p.to(torch.int64),
-                                     torch.where(p, cnt, 0)]), group)
+                                     torch.where(p, cnt, 0)]), group,
+                        "sync/allgather_meta")
     dense = torch.zeros(j + 1 if elastic else j, dtype=values.dtype,
                         device=dev)
     counts = (torch.zeros(j + 1, dtype=torch.float32, device=dev)
@@ -258,8 +272,10 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
 
     def gather_chunk(b: int):
         sl = slice(b * chunk, (b + 1) * chunk)
-        return (_gather_async(values[sl].to(wire), group),
-                _gather_async(indices[sl], group))
+        return (_gather_async(values[sl].to(wire), group,
+                              "sync/allgather_values", chunk=b),
+                _gather_async(indices[sl], group, "sync/allgather_indices",
+                              chunk=b))
 
     pending = gather_chunk(0)
     for b in range(nb):
@@ -286,15 +302,18 @@ def sparse_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
     return dense.div_(n_active.clamp(min=1.0))
 
 
-def _gather_async(x: torch.Tensor, group):
+def _gather_async(x: torch.Tensor, group, name: str, chunk: int = 0):
     """Start the all-gather of x (n * x.numel(),) and return (out, work);
-    over one rank x itself and no work."""
+    over one rank x itself and no work. ``name`` is its ``sync/*`` span
+    (the launch), ``chunk`` the wire chunk it carries."""
     n, _ = world(group)
     if n == 1:
         return x, None
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-    return out, dist.all_gather_into_tensor(out, x, group=group,
-                                            async_op=True)
+    with wire_span(name, x, chunk=chunk):
+        work = dist.all_gather_into_tensor(out, x, group=group,
+                                           async_op=True)
+    return out, work
 
 
 def _wait(pending, n: int) -> torch.Tensor:
@@ -339,7 +358,7 @@ def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
 
     def gather_chunk(b: int):
         return _gather_async(values[b * chunk:(b + 1) * chunk].to(wire),
-                             group)
+                             group, "sync/allgather_values", chunk=b)
 
     pending = gather_chunk(0)
     for b in range(nb):
@@ -352,7 +371,8 @@ def shared_mask_allgather_combine(values: torch.Tensor, indices: torch.Tensor,
         return _mean_scale_(dense, n)
     na = participate.reshape(()).to(torch.float32)
     if n > 1:
-        dist.all_reduce(na, group=group)
+        with wire_span("sync/allreduce_active", na):
+            dist.all_reduce(na, group=group)
     return dense.div_(na.clamp(min=1.0).to(acc))
 
 
@@ -382,8 +402,8 @@ def _guard(p: torch.Tensor, payload: torch.Tensor):
 class GradientSync:
     """Per-run gradient-sync surface: the config is validated once here,
     each step calls the object with the state and the flat gradient.
-    ``fallbacks`` counts the compress calls whose trim took the exact
-    dense fallback, ``fallback_reasons`` counts them by reason;
+    ``fallback_reasons`` counts the compress calls whose trim took the
+    exact dense fallback, by reason;
     ``last_count`` is the last local step's live packed count (a 0-d
     device tensor; None where every packed slot is live).
 
@@ -423,7 +443,6 @@ class GradientSync:
                               else [tuple(b) for b in stream_bounds])
         self.selection = sparsify.selection(cfg)
         self.comm = dispatch.effective_comm_mode(cfg)
-        self.fallbacks = 0
         self.fallback_reasons: Counter = Counter()
         self.last_count = None
         self.sketch_tables: dict = {}
@@ -445,7 +464,6 @@ class GradientSync:
     def _count(self, outs) -> None:
         for out in outs:
             if out.fallback:
-                self.fallbacks += 1
                 self.fallback_reasons[out.fallback] += 1
 
     def __call__(self, state: dict, g: torch.Tensor, participate=None,
@@ -513,7 +531,7 @@ class GradientSync:
             p_eff, dropped = _guard(p, out.values)
         elastic = p is not None or self.cfg.combine != "mean"
         if self.comm == "sparse":
-            with record_function("sync/combine"):
+            with trace.span("sync/combine"):
                 wire = dict(num_buckets=self.cfg.num_buckets,
                             wire_dtype=self.cfg.wire_dtype)
                 g_agg = sparse_allgather_combine(
@@ -525,7 +543,7 @@ class GradientSync:
         else:
             if self.cfg.comm_mode == "sparse":
                 _warn_sparse_degrade(self.cfg)
-            with record_function("sync/simulate"):
+            with trace.span("sync/simulate"):
                 ghat = sparsify.dense_ghat(out, j)
                 if p is not None and out.values is None:
                     p_eff, dropped = _guard(p, ghat)
@@ -546,12 +564,12 @@ class GradientSync:
         -0.0, as in the reference)."""
         gf = g.to(sparsify.state_dtype(self.cfg)
                   if self.selection == "none" else torch.float32)
-        with record_function("sync/dense"):
+        with trace.span("sync/dense"):
             agg = (dense_allreduce(gf, self.group) if p is None
                    else _active_mean(gf, p, self.group))
         if self.selection == "none":
             return agg
-        with record_function("sync/select"):
+        with trace.span("sync/select"):
             k = sparsify.resolve_k(self.cfg, agg.numel())
             return select.topk_mask(agg, k, self.cfg.selector) * agg
 
@@ -605,7 +623,7 @@ class GradientSync:
         _, width = self._k_width(g.numel())
         err = state[sparsify.err_key(cfg)]
         p = None if participate is None else participate.reshape(())
-        with record_function("sketch/encode"):
+        with trace.span("sketch/encode"):
             if sparsify.fused(cfg):
                 from repro_torch.kernels.compress import ops
                 enc = ops.fused_sketch_encode(
@@ -632,7 +650,7 @@ class GradientSync:
         (in place on ``sk``); under ``participate`` a sitting-out rank
         adds a zero sketch and the sum is divided by max(n_active, 1)."""
         n, _ = world(self.group)
-        with record_function("sketch/allreduce"):
+        with trace.span("sketch/allreduce"):
             if participate is not None:
                 return _active_mean(sk, participate.reshape(()), self.group)
             if n > 1:
@@ -644,9 +662,9 @@ class GradientSync:
         magnitude estimates decoded from the mean sketch (the sparse
         exchange's decode, exact whatever the selector)."""
         k, _ = self._k_width(j)
-        with record_function("sketch/estimate"):
+        with trace.span("sketch/estimate"):
             gmag = sketch.estimate(sk_agg, j)
-        with record_function("sketch/select"):
+        with trace.span("sketch/select"):
             return select.topk_indices(gmag, k)
 
     def decode_mask(self, sk_agg: torch.Tensor, j: int) -> torch.Tensor:
@@ -654,9 +672,9 @@ class GradientSync:
         ``cfg.selector``, as the simulate exchange and the in-process
         round decode it."""
         k, _ = self._k_width(j)
-        with record_function("sketch/estimate"):
+        with trace.span("sketch/estimate"):
             gmag = sketch.estimate(sk_agg, j)
-        with record_function("sketch/select"):
+        with trace.span("sketch/select"):
             return select.topk_mask(gmag, k, self.cfg.selector)
 
     def decode_exchange(self, sk_agg: torch.Tensor, a: torch.Tensor,
@@ -679,7 +697,7 @@ class GradientSync:
         p = None if participate is None else participate.reshape(())
         if self.comm == "sparse":
             idx = self.decode(sk_agg, j)
-            with record_function("sync/combine"):
+            with trace.span("sync/combine"):
                 vals = a[idx]
                 if p is not None:
                     vals = torch.where(p, vals, 0.0)
@@ -692,7 +710,7 @@ class GradientSync:
                 err = bigvec.scatter_set_live_(a.to(dt), idx, p, 0.0)
             return g_agg, {key: err, "step": state["step"] + 1}, idx
         mask = self.decode_mask(sk_agg, j)
-        with record_function("sync/simulate"):
+        with trace.span("sync/simulate"):
             ghat, err = fused_apply_mask(a, mask)
             if p is None:
                 g_agg = simulate_allreduce(ghat, self.group)

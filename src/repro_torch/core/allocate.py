@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import bigvec, select
 from repro_torch.core.flatten import bucket_bounds
 from repro_torch.core.numerics import XLA_REDUCE_WINDOW, xla_sum_f32
@@ -244,7 +245,10 @@ def adaptive_counts(k: int, sizes, moments, caps=None) -> list:
     k = int(min(k, j))
     caps = caps if caps is not None else segment_caps(k, sizes)
     if isinstance(moments, torch.Tensor):
-        moments = moments.detach().cpu().numpy()
+        # a device-to-host read of the step
+        trace.count("host_reads", site="adaptive_counts")
+        with trace.span("compress/trim/read", site="adaptive_counts"):
+            moments = moments.detach().cpu().numpy()
     m = np.maximum(np.asarray(moments, _F32), _F32(0.0))
     sz = np.asarray(sizes, _F32)
     total = _sum_f32(m)

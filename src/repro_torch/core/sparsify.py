@@ -93,8 +93,8 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.configs.base import SparsifierConfig
 from repro_torch.core import allocate, bigvec, select
 from repro_torch.core.numerics import (bf16, fma_f32, recip_f32,
@@ -357,7 +357,7 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
         return _compress_regtopk_sparse(cfg, state, g, k, omega, donate, p)
     new = {"step": state["step"] + 1}
     frozen = {}
-    with record_function("compress/scores"):
+    with trace.span("compress/scores"):
         if cfg.kind != "regtopk":
             # topk, and thresholdk, which re-derives its threshold from
             # the accumulator each step and so selects as topk does
@@ -375,12 +375,12 @@ def compress(cfg: SparsifierConfig, state: dict, g, omega: float = 1.0, *,
                 # the posterior freeze below reads them
                 frozen = {key: state[key] for key in ("a_prev", "s_prev")}
         _release(state, donate, "err", "a_prev", "s_prev")
-    with record_function("compress/select"):
+    with trace.span("compress/select"):
         mask, values, indices = _reference_select(cfg, a, score, k,
                                                   seg_bounds)
     del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
-    with record_function("compress/apply"):
+    with trace.span("compress/apply"):
         ghat, new["err"] = _apply(a, mask)
     if cfg.kind == "regtopk":
         new["s_prev"] = mask
@@ -468,10 +468,10 @@ def _compress_randk(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     pairs, ghat and err through the apply kernel."""
     if key is None:
         raise ValueError("randk needs a PRNG key")
-    with record_function("compress/scores"):
+    with trace.span("compress/scores"):
         a = state["err"] + g
         _release(state, donate, "err")
-    with record_function("compress/select"):
+    with trace.span("compress/select"):
         if cfg.allocation != "global":
             idx = allocate.randk_allocated_indices(
                 key, seg_bounds, allocate.proportional_counts(
@@ -481,7 +481,7 @@ def _compress_randk(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         mask = bigvec.mask_from_indices(a.numel(), idx, a.dtype)
         values, indices = a[idx], bigvec.to_u32_bits(idx)
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
-    with record_function("compress/apply"):
+    with trace.span("compress/apply"):
         ghat, err = _apply(a, mask)
     return CompressOut({"err": err, "step": state["step"] + 1}, values,
                        indices, ghat=ghat, mask=mask, count=count)
@@ -494,7 +494,7 @@ def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
     mom' in plain tensor ops, the selector over a, ghat and err through
     the apply kernel, and the momentum masked as mom' * (1 - mask). A
     sitting-out worker's a leaves mom' out (the elastic gate)."""
-    with record_function("compress/scores"):
+    with trace.span("compress/scores"):
         if g.dtype == torch.float32:
             # mom' = momentum * mom + g, one rounding as the compiled
             # reference contracts it into a fused multiply-add
@@ -510,12 +510,12 @@ def _compress_dgc(cfg: SparsifierConfig, state: dict, g: torch.Tensor,
         score = _select_key(a, state["err"], am)
         _release(state, donate, "err", "mom")
         del am
-    with record_function("compress/select"):
+    with trace.span("compress/select"):
         mask, values, indices = _reference_select(cfg, a, score, k,
                                                   seg_bounds)
         del score
     mask, values, indices, count = _mask_elastic(p, mask, values, indices, k)
-    with record_function("compress/apply"):
+    with trace.span("compress/apply"):
         ghat, err = _apply(a, mask)
         del a
         mom.mul_(1.0 - mask)             # in place on mom', a new buffer
@@ -531,7 +531,7 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
     tensor ops, exact top-k whatever the selector (as the reference).
     The dense ghat and mask are left to ``dense_ghat``/``dense_mask``
     (an O(k) scatter each), which the sparse comm never calls."""
-    with record_function("compress/scores"):
+    with trace.span("compress/scores"):
         a = state["err"] + g
         _release(state, donate, "err")
         idx_p = bigvec.as_index(state["idx_prev"])
@@ -561,7 +561,7 @@ def _compress_regtopk_sparse(cfg: SparsifierConfig, state: dict,
                                                                cfg.mu))
             torch.where(state["step"] == 0, af, score, out=score)
             del af
-    with record_function("compress/select"):
+    with trace.span("compress/select"):
         idx = select.topk_indices(score, k)
     del score
     values = a[idx]

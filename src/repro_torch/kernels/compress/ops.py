@@ -68,8 +68,8 @@ so its moment could miss mass) or "support_tie".
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.core import bigvec
 from repro_torch.core.allocate import (DEFAULT_SEGMENTS, adaptive_counts,
                                        allocated_select_dense,
@@ -90,6 +90,45 @@ from repro_torch.kernels.compress.dispatch import FUSED_KINDS, hist_capacity
 def maxpb_for(k: int, j: int) -> int:
     """Per-tile candidate slots: ~8x the mean selection density."""
     return int(min(pk.BLOCK, max(32, -(-8 * k * pk.BLOCK // j))))
+
+
+def _tile_stats(cnt: torch.Tensor, most: torch.Tensor, maxpb: int,
+                **attrs):
+    """While tracing, one sweep 2's tile statistics for the step's
+    counters: ((2,) int64 on cnt's device: ``most`` (cnt's largest) and
+    the tiles over ``maxpb`` slots, the tiles, maxpb, ``attrs``), read
+    with the witnesses (:func:`_host_read`); None while tracing is off."""
+    if not trace.enabled():
+        return None
+    stats = torch.stack([most.to(torch.int64),
+                         (cnt > maxpb).sum(dtype=torch.int64)])
+    return stats, cnt.numel(), maxpb, attrs
+
+
+def _host_read(site: str, x: torch.Tensor, tiles=()):
+    """``bool(x)`` of a 0-d x, else ``x.tolist()``: a device-to-host read
+    of the step. While tracing, it runs in a ``compress/trim/read`` span
+    and adds 1 to the step's ``host_reads`` (attribute ``site``), and the
+    statistics of ``tiles`` (:func:`_tile_stats`) ride in the same read
+    (one stack, one ``.tolist()``) and become the step's counters
+    ``sweep2_max_cnt``, ``sweep2_slots``, ``sweep2_tiles`` and
+    ``sweep2_over`` (tiles with cnt > maxpb), one each a sweep 2."""
+    if not trace.enabled():
+        return bool(x) if x.ndim == 0 else x.tolist()
+    trace.count("host_reads", site=site)
+    n = x.numel()
+    tiles = [t for t in tiles if t is not None]
+    with trace.span("compress/trim/read", site=site):
+        vals = torch.cat([x.reshape(-1).to(torch.int64)]
+                         + [t[0] for t in tiles]).tolist()
+    for (_, n_tiles, slots, attrs), most, over in zip(
+            tiles, vals[n::2], vals[n + 1::2]):
+        trace.count("sweep2_max_cnt", most, **attrs)
+        trace.count("sweep2_slots", slots, **attrs)
+        trace.count("sweep2_tiles", n_tiles, **attrs)
+        trace.count("sweep2_over", over, **attrs)
+    head = [bool(v) for v in vals[:n]]
+    return head[0] if x.ndim == 0 else head
 
 
 def sweep_factor(kind: str, step: torch.Tensor, *, mu: float,
@@ -202,6 +241,10 @@ class FusedStep:
                 f"fused kind={kind!r} is not ported (the fused kinds: "
                 f"{FUSED_KINDS})")
         j = err_prev.numel()
+        # the trace's attribute of a sweep's part: the buckets' index, or
+        # the stream's or the allocation's segment
+        self.unit = ("bucket" if bounds is None and allocation == "global"
+                     else "segment")
         self.kind, self.err_prev, self.step = kind, err_prev, step
         self.k = int(min(k, j))
         self.j = j
@@ -254,6 +297,7 @@ class FusedStep:
         self.fed = [False] * nseg
         self.hists = [None] * nseg
         self.cands = [None] * nseg
+        self.tiles = [None] * nseg
         if self.allocated:
             sizes = [size for _, size in self.bounds]
             self.caps = segment_caps(self.k, sizes)
@@ -276,7 +320,7 @@ class FusedStep:
             raise ValueError(f"segment {pos}: {g_seg.numel()} elements, "
                              f"the partition has {size}")
         sl = slice(off, off + size)
-        with record_function("compress/sweeps"):
+        with trace.span("compress/sweeps", **{self.unit: pos}):
             if self.kind == "randk":
                 dtype = self.err_prev.dtype
                 gs, es = g_seg.to(dtype), self.err_prev[sl]
@@ -314,7 +358,9 @@ class FusedStep:
         tau = pk.threshold_from_hist(res[3], target)
         maxpb = int(min(pk.BLOCK, max(32, -(-8 * prov * pk.BLOCK // size))))
         ck, ci, cnt = pk.sweep2(self.score[sl], tau, maxpb)
-        self.cands[pos] = (ck, bigvec.as_index(ci) + off, cnt.max() <= maxpb)
+        most = cnt.max()
+        self.cands[pos] = (ck, bigvec.as_index(ci) + off, most <= maxpb)
+        self.tiles[pos] = _tile_stats(cnt, most, maxpb, segment=pos)
 
     def side_outputs(self) -> list:
         """The tensors :meth:`feed` allocated (histograms, candidates), for
@@ -324,6 +370,7 @@ class FusedStep:
         for cand in self.cands:
             if cand is not None:
                 out.extend(cand)
+        out.extend(t[0] for t in self.tiles if t is not None)
         return out
 
     def finish(self) -> dict:
@@ -332,13 +379,13 @@ class FusedStep:
                 f"segments {[i for i, f in enumerate(self.fed) if not f]} "
                 "were never fed")
         if self.kind == "randk":
-            with record_function("compress/trim"):
+            with trace.span("compress/trim"):
                 return self._randk_tail()
         regtopk = self.kind == "regtopk"
         if self.allocated:
-            with record_function("compress/trim"):
+            with trace.span("compress/trim"):
                 return _allocated_trim(self, regtopk)
-        with record_function("compress/sweeps"):
+        with trace.span("compress/sweeps"):
             # margin kcap: REGTOP-k support corrections may drop <= kcap
             # entries below tau without breaking top-k coverage of the
             # candidates; the merged histogram is the whole vector's
@@ -347,13 +394,13 @@ class FusedStep:
             tau = pk.threshold_from_bucket_hists(self.hists, target)
             # per-tile slots from the global density, whatever the cut
             maxpb = maxpb_for(self.kcap, self.j)
-            cand_k, cand_i, fits = _sweep2_buckets(self.score, tau, maxpb,
-                                                   self.bounds)
-        with record_function("compress/trim"):
+            cand_k, cand_i, fits, tiles = _sweep2_buckets(
+                self.score, tau, maxpb, self.bounds, self.unit)
+        with trace.span("compress/trim"):
             return _trim(self.kind, self.a, self.score, cand_k, cand_i, fits,
                          self.later, self.k, self.kcap, step=self.step,
                          mom_out=self.mom_out, participate=self.p,
-                         dtype=self.err_prev.dtype, **self.opts)
+                         dtype=self.err_prev.dtype, tiles=tiles, **self.opts)
 
     def _randk_tail(self) -> dict:
         """RANDOM-k after its one elementwise pass: the k positions of
@@ -382,17 +429,21 @@ class FusedStep:
                 "fallback": ""}
 
 
-def _sweep2_buckets(score, tau, maxpb: int, bounds):
+def _sweep2_buckets(score, tau, maxpb: int, bounds, unit: str = "bucket"):
     """Sweep 2 over each bucket against the global tau: the candidates
-    (keys, int64 global indices) in global index order, and whether
-    every tile's candidates fit its slots (a 0-d bool tensor)."""
-    keys, idx, fits = [], [], []
-    for off, size in bounds:
+    (keys, int64 global indices) in global index order, whether every
+    tile's candidates fit its slots (a 0-d bool tensor), and each
+    launch's :func:`_tile_stats` (attribute ``unit``: its index)."""
+    keys, idx, fits, tiles = [], [], [], []
+    for pos, (off, size) in enumerate(bounds):
         ck, ci, cnt = pk.sweep2(score[off:off + size], tau, maxpb)
+        most = cnt.max()
         keys.append(ck)
         idx.append(bigvec.as_index(ci) + off)
-        fits.append(cnt.max() <= maxpb)
-    return torch.cat(keys), torch.cat(idx), torch.stack(fits).all()
+        fits.append(most <= maxpb)
+        tiles.append(_tile_stats(cnt, most, maxpb, **{unit: pos}))
+    return (torch.cat(keys), torch.cat(idx), torch.stack(fits).all(),
+            tiles)
 
 
 def _support(a, step, later, *, omega, mu, idx_prev, a_prev_sel,
@@ -434,13 +485,14 @@ def _dense_keys(score, skey, idx_prev64, support_valid, later):
 
 def _trim(kind, a, score, cand_k, cand_i, fits, later, k, kcap, *, omega,
           mu, step, idx_prev, a_prev_sel, g_prev_sel, nsel_prev, mom_out,
-          participate, dtype) -> dict:
+          participate, dtype, tiles=()) -> dict:
     """O(candidates) trim to kcap entries (k for the exact selector), the
     exactness witnesses, the fallback and the O(k) state writes of
     :func:`fused_compress_arrays`. The fallback ranks the dense keys of
     ``score``; its values are read from ``a``, which holds the bits the
     reference's fallback recomputes at the support (err + mom' for DGC,
-    err + g otherwise, with the bf16 read's roundings)."""
+    err + g otherwise, with the bf16 read's roundings). ``tiles``: the
+    sweep 2s' statistics, read with the witnesses while tracing."""
     regtopk = kind == "regtopk"
     hist = kcap != k
     skey = idx_prev64 = support_valid = None
@@ -475,13 +527,14 @@ def _trim(kind, a, score, cand_k, cand_i, fits, later, k, kcap, *, omega,
         ok = ok & ((n_eq == k - n_gt) | ~support_tie)
 
     fallback = ""
-    if not bool(ok):                         # host read of the witnesses
-        fallback = ("overflow" if not bool(fits) else
-                    "no_kth" if not bool(valid) else "support_tie")
+    if not _host_read("trim_ok", ok, tiles):  # host read of the witnesses
+        fallback = ("overflow" if not _host_read("trim_fits", fits) else
+                    "no_kth" if not _host_read("trim_valid", valid) else
+                    "support_tie")
     if not fallback:
         idx_k = alli[tsel]
     else:
-        with record_function("compress/fallback"):
+        with trace.span("compress/fallback"):
             keys = _dense_keys(score, skey, idx_prev64, support_valid, later)
             idx_k = topk_positions(keys, kcap)
             if hist:
@@ -608,14 +661,15 @@ def _allocated_trim(st: FusedStep, regtopk: bool) -> dict:
         packi.append(isel[:kl])
         packv.append(vsel[:kl])
     # host read of the witnesses
-    for name, good in zip(names, torch.stack(flags).tolist()):
+    for name, good in zip(names, _host_read("allocated_witnesses",
+                                            torch.stack(flags), st.tiles)):
         held[name] &= good
     fallback = next((name for name, good in held.items() if not good), "")
     if not fallback:
         sel = topk_positions(torch.cat(packk), k)
         idx_k, values = torch.cat(packi)[sel], torch.cat(packv)[sel]
     else:
-        with record_function("compress/fallback"):
+        with trace.span("compress/fallback"):
             keys = _dense_keys(st.score, skey, idx_prev64, None, st.later)
             if st.allocation == "adaptive":
                 counts = adaptive_counts(

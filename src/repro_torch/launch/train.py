@@ -208,6 +208,11 @@ def parse_args(argv=None):
                          "link for N versions and flushes them in order")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--trace-out", default="",
+                    help="trace every step (repro_torch.trace, with no "
+                         "profiler) and write the record of the last "
+                         "steps to this path as Chrome trace-event JSON "
+                         "(rank r > 0: PATH.rank<r>)")
     return ap.parse_args(argv)
 
 
@@ -273,7 +278,8 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
           fixed_batch: bool = False, log=print, on_step=None,
           publish_deltas: str = "", delta_k: int = 0, delta_every: int = 1,
           delta_snapshot_every: int = 0,
-          delta_fault_schedule: str = "", attn_dist: str = "sp") -> dict:
+          delta_fault_schedule: str = "", attn_dist: str = "sp",
+          trace_out: str = "") -> dict:
     """Take ``run.steps`` training steps over the data ``group`` (None:
     one rank) and the ``model_group`` (None: tensor-parallel degree 1),
     each on this data rank's rows of a global ``batch`` x ``seq`` batch
@@ -299,7 +305,13 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
     resync snapshots under ``<dir>/snapshots``: the version-0 base, one
     every ``delta_snapshot_every`` versions and the final one. With
     ``run.checkpoint_dir`` it checkpoints every ``run.checkpoint_every``
-    steps and at the end, stamped with the published version."""
+    steps and at the end, stamped with the published version.
+
+    With ``trace_out`` (a path) every step is traced
+    (``repro_torch.trace.enable``, no profiler needed) and at the end the
+    record of the last ``trace.RING_STEPS`` steps is written there as
+    Chrome trace-event JSON, on the clock of a ``torch.profiler`` export
+    (``PATH.rank<r>`` on global rank r > 0)."""
     import os
 
     from repro_torch.backend import resolve_device
@@ -382,6 +394,9 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
         return publisher.version if publisher is not None else None
     history = []
     data = None
+    if trace_out:
+        from repro_torch import trace
+        trace.enable()
     for t in range(run.steps):
         if data is None or not fixed_batch:
             data = {key: val[rows] for key, val in lm_batch(
@@ -441,6 +456,13 @@ def train(run, *, device=None, group=None, model_group=None, batch: int = 8,
         save_train_state(run.checkpoint_dir, run.steps, state, group,
                          param_version=version(),
                          model_group=model_group)
+    if trace_out:
+        import torch.distributed as dist
+        grank = dist.get_rank() if dist.is_initialized() else 0
+        path = trace_out if grank == 0 else f"{trace_out}.rank{grank}"
+        trace.disable()
+        log(f"[train] trace: {trace.write_chrome(path)} events of the last "
+            f"{len(trace.step_ids())} steps -> {trace_out}")
     return {"history": history,
             "fallbacks": dict(step.gsync.fallback_reasons),
             "params": j, "state": state, "publisher": publisher}
@@ -463,7 +485,8 @@ def main(argv=None):
     try:
         train(run, device=dev, group=group, model_group=model_group,
               batch=args.batch, seq=args.seq,
-              fixed_batch=args.fixed_batch, **delta_options(args))
+              fixed_batch=args.fixed_batch, trace_out=args.trace_out,
+              **delta_options(args))
     finally:
         if group is not None and not joined:
             dist.destroy_process_group()

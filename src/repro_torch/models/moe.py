@@ -44,8 +44,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.core.select import topk_positions
 from repro_torch.models.layers import dense_init, gelu_tanh, init_mlp, mlp_fwd
 from repro_torch.models.parallel import all_to_all_model, pad_to, shard_slice
@@ -131,7 +131,7 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg, pal=None) -> tuple:
     flat_idx = torch.where(r["keep"], expert * cap + r["slot"], drop_row)
     buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
     buf = buf.index_add(0, flat_idx, xt.repeat_interleave(m.top_k, 0))
-    with record_function("moe/all_to_all"):
+    with trace.span("moe/all_to_all"):
         buf = all_to_all_model(buf[:-1].reshape(e, cap, d), pal, 0, 1)
     if cfg.act == "silu":
         h = F.silu(torch.bmm(buf, p["gate"].to(dt))) * \
@@ -139,7 +139,7 @@ def moe_fwd(p: dict, x: torch.Tensor, cfg, pal=None) -> tuple:
     else:
         h = gelu_tanh(torch.bmm(buf, p["up"].to(dt)))
     out = torch.bmm(h, p["down"].to(dt))
-    with record_function("moe/all_to_all"):
+    with trace.span("moe/all_to_all"):
         out = all_to_all_model(out, pal, 1, 0).reshape(e * cap, d)
     out = torch.cat([out, out.new_zeros(1, d)], 0)
     w = (r["top_p"].reshape(-1) * r["keep"]).to(dt)

@@ -75,12 +75,12 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.backend import configure_numerics, resolve_device
 from repro_torch.configs.base import RunConfig, resolve_model_cfg
 from repro_torch.core import faults, sparsify, threefry
-from repro_torch.core.aggregate import GradientSync
+from repro_torch.core.aggregate import GradientSync, wire_span
 from repro_torch.core.flatten import (TreeFlattener, tree_items, tree_leaves,
                                       tree_map)
 from repro_torch.core.numerics import norm_f32
@@ -155,10 +155,14 @@ class TrainStep:
     """``step(state, batch) -> (state, metrics)``. Metrics are device
     tensors (reading them is the caller's choice of host sync). The old
     state's sparsifier state is consumed (``state.ef`` becomes None).
-    ``gsync.fallbacks`` counts the steps whose trim took the exact
-    fallback. ``group`` is the data group, ``model_group`` the model
-    group (None: tensor-parallel degree 1), ``attn_dist`` the attention's
-    distribution over it ("sp" or "ring")."""
+    ``gsync.fallback_reasons`` counts the steps whose trim took the exact
+    fallback, by reason. ``group`` is the data group, ``model_group`` the
+    model group (None: tensor-parallel degree 1), ``attn_dist`` the
+    attention's distribution over it ("sp" or "ring"). Each call starts a
+    step of ``repro_torch.trace`` (its id, and whether it is traced): a
+    traced step adds ``model/forward`` around the loss and
+    ``model/backward`` on the thread that runs the backward pass
+    (:class:`_BackwardSpan`), both inside ``train/loss_grad``."""
 
     def __init__(self, run: RunConfig, device=None, group=None,
                  model_group=None, attn_dist: str = "sp"):
@@ -194,6 +198,7 @@ class TrainStep:
         self.schedule = faults.parse_schedule(run.fault_schedule)
 
     def __call__(self, state: TrainState, batch: dict):
+        trace.begin_step()
         cfg, opt_cfg = resolve_model_cfg(self.run), self.run.optimizer
         n, rank = world(self.group)[0], data_index(self.group)
         flat = TreeFlattener(state.params)
@@ -212,15 +217,23 @@ class TrainStep:
             loss, aux, g_agg, ef, stats, gnorm_local = self._streamed(
                 state, batch, cfg, flat, leaves, ef, key, part)
         else:
-            with record_function("train/loss_grad"):
-                loss, aux = loss_and_aux(state.params, batch, cfg, self.pal)
-                grads = [self._replicated_sum(i, grad) for i, grad in
-                         enumerate(torch.autograd.grad(loss, leaves))]
-            with record_function("train/flatten"):
+            bwd = _BackwardSpan(leaves)
+            with trace.span("train/loss_grad"):
+                try:
+                    with trace.span("model/forward", device=True):
+                        loss, aux = loss_and_aux(state.params, batch, cfg,
+                                                 self.pal)
+                    bwd.watch(loss)
+                    grads = torch.autograd.grad(loss, leaves)
+                finally:
+                    bwd.close()
+                grads = [self._replicated_sum(i, grad)
+                         for i, grad in enumerate(grads)]
+            with trace.span("train/flatten"):
                 g = flat.flatten(list(grads))
                 del grads
                 gnorm_local = norm_f32(g)
-            with record_function("train/sync"):
+            with trace.span("train/sync"):
                 if part is None:
                     g_agg, ef = self.gsync(ef, g, donate=True, key=key)
                 else:
@@ -228,7 +241,7 @@ class TrainStep:
                                                   donate=True,
                                                   with_stats=True, key=key)
                 del g
-        with record_function("train/optimizer"):
+        with trace.span("train/optimizer"):
             shard = opt_shard_len(flat.total, n)
             opt = state.opt
             if opt_cfg.grad_clip:
@@ -244,7 +257,9 @@ class TrainStep:
             if n > 1:
                 mall = torch.empty(n * shard, dtype=master.dtype,
                                    device=master.device)
-                dist.all_gather_into_tensor(mall, master, group=self.group)
+                with wire_span("sync/allgather_master", master):
+                    dist.all_gather_into_tensor(mall, master,
+                                                group=self.group)
             else:
                 mall = master
             params = _as_leaves(flat.unflatten(mall[:flat.total]))
@@ -332,17 +347,24 @@ class TrainStep:
                     feed(pos)
             return arrived
 
+        # hooked first, so that the backward's span ends before the last
+        # segment is fed
+        bwd = _BackwardSpan(leaves)
         handles = [leaf.register_hook(hook(i))
                    for i, leaf in enumerate(leaves) if seg_of[i] is not None]
         try:
-            with record_function("train/loss_grad"):
-                loss, aux = loss_and_aux(state.params, batch, cfg, self.pal)
+            with trace.span("train/loss_grad"):
+                with trace.span("model/forward", device=True):
+                    loss, aux = loss_and_aux(state.params, batch, cfg,
+                                             self.pal)
+                bwd.watch(loss)
                 grads = torch.autograd.grad(loss, leaves)
                 del grads
         finally:
+            bwd.close()
             for h in handles:
                 h.remove()
-        with record_function("train/sync"):
+        with trace.span("train/sync"):
             # buf was written on this stream: its norm need not wait for
             # the side stream's sweeps
             gnorm_local = torch.sqrt(sum(
@@ -358,6 +380,48 @@ class TrainStep:
             else:
                 g_agg, ef, stats = stream.finish(with_stats=True)
         return loss, aux, g_agg, ef, stats, gnorm_local
+
+
+class _BackwardSpan:
+    """While the step is traced, the ``model/backward`` span on the thread
+    that runs the backward pass (autograd's device thread on a card, the
+    caller's on the CPU): a hook on the loss, the pass's first node,
+    opens it (its parent the caller's open ``train/loss_grad``), and a
+    hook on each leaf ends it once the last leaf's gradient is produced
+    (a leaf used twice fires once). Registers nothing while tracing is
+    off."""
+
+    def __init__(self, leaves: list):
+        self.span = None
+        self.left = len(leaves)
+        self.handles = ([leaf.register_hook(self._arrived)
+                         for leaf in leaves] if trace.enabled() else [])
+
+    def watch(self, loss: torch.Tensor) -> None:
+        if self.handles:
+            self.handles.append(loss.register_hook(self._opened))
+
+    def _opened(self, grad):
+        self.span = trace.span("model/backward", device=True)
+        self.span.__enter__()
+
+    def _arrived(self, grad):
+        self.left -= 1
+        if not self.left:
+            self._end()
+
+    def _end(self) -> None:
+        if self.span is not None:
+            self.span.__exit__(None, None, None)
+            self.span = None
+
+    def close(self) -> None:
+        """Remove the hooks, and end a span that a failed pass left
+        open."""
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+        self._end()
 
 
 def build_train_step(run: RunConfig, device=None, group=None,
